@@ -7,25 +7,36 @@ Phases, in order; any failure exits non-zero before a result is printed:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every kernel from ``esme_tpu_torch/csrc`` with ``nvcc`` (timed);
-3. hold each kernel against its plain PyTorch version on the card:
-   segment-flash forward (H1) on a packed 8k-token batch at head dims
-   16, 24, 32, 64 and 128, RoPE (H3) forward and inverse, each beside
-   its gate;
-4. the main path: ESM2-650M (33 layers, width 1280, 20 heads, bf16,
-   weights from seed 0) ``predict_log_prob(tokens, pad_args=(cu_lens,
-   max_len))`` on ``bench.py``'s packed batch (seed 0, 100-1000 aa,
-   50,000-token budget), with every launch counter set to 0 just before
-   and read just after; then, on a smaller batch at full depth, the
-   port with kernels against the port with plain versions and against
-   its einsum attention path;
-5. times: the main path (CUDA events after warm-up, peak memory) and
-   each kernel at the main path's shapes beside its bound, its plain
-   version and, for H1, two library calls timed as yardsticks only
-   (the port calls neither): ``scaled_dot_product_attention`` with a
-   dense block-diagonal mask (``library_ms``, T^2 work) and PyTorch's
-   varlen flash-attention forward over the same segments
-   (``library_varlen_ms``). ``--profile DIR`` also writes a ``torch.profiler`` table
-   of one forward there.
+3. hold each kernel against its plain PyTorch version on the card, on a
+   packed 8k-token batch: segment-flash forward (H1) and backward (H2)
+   at head dims 16, 24, 32, 64 and 128, RoPE (H3) forward and inverse,
+   each beside its gate;
+4. the inference path: ESM2-650M (33 layers, width 1280, 20 heads,
+   bf16, weights from seed 0) ``predict_log_prob(tokens,
+   pad_args=(cu_lens, max_len))`` on ``bench.py``'s packed batch (seed
+   0, 100-1000 aa, 50,000-token budget), with every launch counter set
+   to 0 just before and read just after; then, on a smaller batch at
+   full depth, the port with kernels against the port with plain
+   versions and against its einsum attention path; its time (CUDA
+   events after warm-up, peak memory);
+5. the training path: ``MaskedPLM(model, learning_rate=1e-4)
+   .training_step(batch)`` on ``bench.py``'s masked-LM batch recipe
+   (lengths and tokens seed 2, masking seed 1, no loss on the tail), at
+   a 10,000-token budget without checkpointing (one warm-up step, 5
+   timed) and at 50,000 with ``checkpointing=True, remat='full'`` (one
+   warm-up, 3 timed), with the launch counters read around the warm-up
+   step; losses finite and falling; then, at full depth on a 4k batch,
+   every leaf's gradient with kernels against with plain versions, and
+   with ``remat='full'`` against without; then a two-step ``fit`` over a
+   ``MaskedFastaTokenDataset`` on a FASTA file written from seed 0;
+6. times: each kernel at its path's shapes beside its bound, its plain
+   version and library calls timed as yardsticks only (the port calls
+   none): for H1 ``scaled_dot_product_attention`` with a dense
+   block-diagonal mask (``library_ms``, T^2 work) and PyTorch's varlen
+   flash-attention forward over the same segments
+   (``library_varlen_ms``); for H2 PyTorch's varlen flash-attention
+   backward (``library_ms``). ``--profile DIR`` also writes
+   ``torch.profiler`` tables of one forward and one train step there.
 
 The last three lines are the kernels' JSON, the measurements' JSON and
 ``{"ok": true, "device": {...}}``.
@@ -38,7 +49,9 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -62,6 +75,18 @@ FP32_FLOP_PER_S = 67e12
 # lse: both keep m, l and lse in fp32 and differ in summation order.
 FLASH_O_REL, FLASH_O_FLOOR = 2.0 ** -6, 0.25
 FLASH_LSE_ATOL = 1e-4
+# H2: p and ds are rounded to bf16 before their products. Where the
+# kernel's fp32 ds (mma.sync sums, exp2) and the plain version's
+# (cuBLAS sums, exp) differ in their last fp32 bits, the two roundings
+# can land on neighbouring bf16 values, and one such flip of a large ds
+# term moves one gradient element by up to ~2^-8·|ds|·|k|: measured up
+# to 0.019·rms(g) at 8k tokens, where a float64 sum with the same
+# roundings sided with the kernel as often as with the plain version.
+# Each gradient is then rounded to bf16 once. The gate follows each
+# tensor's own scale: |g - g_plain| <= 2^-4 * max(|g_plain|,
+# rms(g_plain)). A wrong row, a missed tile or a misplaced store moves
+# g by about its own size.
+FLASH_G_REL = 2.0 ** -4
 # Phase 4: the model with kernels vs with plain versions (and vs its
 # einsum attention path) at full depth, on the centred per-token
 # log-probability vectors, real tokens only: bf16 rounding differences
@@ -69,18 +94,44 @@ FLASH_LSE_ATOL = 1e-4
 MODEL_MIN_COS = 0.99
 MODEL_MAX_ABS = 0.25
 LOGSUMEXP_ATOL = 1e-4
+# Phase 5: every leaf's gradient of one masked-LM step at full depth with
+# kernels vs with plain versions: bf16 rounding differences in attention
+# (H1 and H2 within two to four ulps of their plain versions) carried
+# through 33 layers forward and back. Per leaf: cosine and the largest
+# difference relative to the leaf's largest gradient (measured on the
+# H100: cosine 0.998989 or more, 0.0213 · max|g| or less).
+GRAD_MIN_COS = 0.99
+GRAD_MAX_REL = 0.1
+# With remat='full' against without: the same kernels and products
+# recomputed, deterministic (no atomics anywhere), so bit-equal is
+# expected; the gate allows one bf16 rounding of the leaf's largest
+# value and the loss must be equal. (The cosine of two equal vectors
+# computed in fp32 can fall a few 1e-7 below 1.)
+REMAT_MIN_COS, REMAT_MAX_REL = 0.9999, 2.0 ** -8
 
-H1_NAME, H3_NAME = 'segment_flash_fwd', 'rotary_qk'
+H1_NAME, H2_NAME, H3_NAME = ('segment_flash_fwd', 'segment_flash_bwd',
+                             'rotary_qk')
 
 # Sizes: ESM2-650M at full width and depth, bench.py's 50k-token batch,
 # the 8k-token batch of the kernel checks (where the plain version's
-# scores fit) and the 4k-token batch of the full-depth comparison.
+# scores fit), the 4k-token batch of the full-depth comparisons, the
+# train cells' budgets (bench.py's nockpt@10k and ckpt@50k) and the
+# fit's budget.
 MODEL = dict(num_layers=33, embed_dim=1280, attention_heads=20)
 BUDGET = 50_000
 CHECK_BUDGET = 8192
 SMALL_BUDGET = 4096
+# (key, budget, checkpointing, timed steps, loss must fall): the 50k
+# cell starts from the 10k cell's weights with a fresh Adam, whose first
+# updates (lr·sign(g) on every leaf) raise the loss before it falls, so
+# only its losses' finiteness is checked there
+TRAIN_CELLS = (('nockpt', 10_000, False, 5, True),
+               ('ckpt', 50_000, True, 3, False))
+FIT_BUDGET = 8192
 DEVICE = 'cuda'
 FWD_REPS = 5           # timed forwards of the main path, after one warm-up
+# Published H100 SXM dense bf16 peak for MFU (bench.py's formula)
+MFU_PEAK = BF16_FLOP_PER_S
 
 
 def fail(msg: str):
@@ -142,7 +193,8 @@ def flash_errors(o, lse, o_p, lse_p):
 def check_flash(cu, budget, H, D, dev, seed=0, what=''):
     """H1 vs its plain version; returns (o err, lse err)."""
     from esme_tpu_torch.ops import flash
-    q, k, v, seg, _, (ks, ke) = flash_inputs(cu, budget, H, D, dev, seed)
+    q, k, v, seg, _, spans = flash_inputs(cu, budget, H, D, dev, seed)
+    ks, ke = spans[:2]
     o, lse = flash.segment_flash_fwd(q, k, v, seg, ks, ke, H)
     o_p, lse_p = flash.segment_flash_fwd_plain(q, k, v, seg, ks, ke, H)
     torch.cuda.synchronize()
@@ -157,6 +209,45 @@ def check_flash(cu, budget, H, D, dev, seed=0, what=''):
         fail(f'H1 disagrees with its plain version at T={q.shape[0]} '
              f'D={D}')
     return e_o, e_l
+
+
+def bwd_inputs(cu, budget, H, D, dev, seed):
+    """H2's inputs: random q, k, v and do, H1's o and lse, delta."""
+    from esme_tpu_torch.ops import flash
+    q, k, v, seg, _, spans = flash_inputs(cu, budget, H, D, dev, seed)
+    o, lse = flash.segment_flash_fwd(q, k, v, seg, *spans[:2], H)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    do = randn(q.shape, gen, dev)
+    return q, k, v, do, lse, flash.attention_delta(o, do, H), seg, spans
+
+
+def check_flash_bwd(cu, budget, H, D, dev, seed=0, what=''):
+    """H2 vs its plain version; returns (max |error|, largest gate
+    share) over dq, dk and dv."""
+    from esme_tpu_torch.ops import flash
+    q, k, v, do, lse, delta, seg, spans = bwd_inputs(cu, budget, H, D, dev,
+                                                     seed)
+    got = flash.segment_flash_bwd(q, k, v, do, lse, delta, seg, *spans, H)
+    ref = flash.segment_flash_bwd_plain(q, k, v, do, lse, delta, seg, *spans,
+                                        H)
+    torch.cuda.synchronize()
+    errs, shares, finite = [], [], True
+    for a, b in zip(got, ref):
+        a, b = a.float(), b.float()
+        d = (a - b).abs()
+        gate = FLASH_G_REL * b.abs().clamp_min(b.square().mean().sqrt())
+        errs.append(d.max().item())
+        shares.append((d / gate).max().item())
+        finite = finite and bool(torch.isfinite(a).all())
+    ok = max(shares) <= 1.0 and finite
+    log(f'H2{what} T={q.shape[0]} H={H} D={D}: max|g-plain| dq/dk/dv '
+        f'{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}, largest share of the '
+        f'gate (2^-4*max(|g|, rms g)) {shares[0]:.3f}/{shares[1]:.3f}/'
+        f'{shares[2]:.3f}, finite {finite} {"ok" if ok else "FAIL"}')
+    if not ok:
+        fail(f'H2 disagrees with its plain version at T={q.shape[0]} D={D}')
+    return max(errs), max(shares)
 
 
 def check_rope(T, H, D, dev, seed=0):
@@ -187,16 +278,20 @@ def check_rope(T, H, D, dev, seed=0):
 
 @contextlib.contextmanager
 def plain_versions():
-    """Route the model's attention through the kernels' plain versions
-    (for the comparison of phase 4 only)."""
+    """Route the model's attention, forward and backward, through the
+    kernels' plain versions (for the comparisons of phases 4 and 5
+    only)."""
     from esme_tpu_torch.ops import flash, fused_attn, headsplit
-    saved = fused_attn.rotary_qk, fused_attn.segment_flash_fwd
+    names = ('rotary_qk', 'segment_flash_fwd', 'segment_flash_bwd')
+    saved = [getattr(fused_attn, n) for n in names]
     fused_attn.rotary_qk = headsplit.rotary_qk_plain
     fused_attn.segment_flash_fwd = flash.segment_flash_fwd_plain
+    fused_attn.segment_flash_bwd = flash.segment_flash_bwd_plain
     try:
         yield
     finally:
-        fused_attn.rotary_qk, fused_attn.segment_flash_fwd = saved
+        for n, f in zip(names, saved):
+            setattr(fused_attn, n, f)
 
 
 def compare_logp(got, ref, what):
@@ -247,6 +342,19 @@ def flash_work(q, seg, ks, H, D):
     return nbytes, flops
 
 
+def flash_bwd_work(q, seg, spans, H, D):
+    """Bytes H2 must move and the operations its segments need: q, k, v
+    and do read and dq, dk, dv written once, lse and delta read, segment
+    ids and spans read; five products of 2·D flops per same-segment
+    (q, k) pair and head (S, dP, dV, dK, dQ)."""
+    T = q.shape[0]
+    nbytes = 7 * q.numel() * q.element_size() + 2 * H * T * 4 + T * 4 \
+        + sum(x.numel() for x in spans) * 4
+    counts = torch.unique_consecutive(seg, return_counts=True)[1].double()
+    flops = 10.0 * D * H * float((counts ** 2).sum().item())
+    return nbytes, flops
+
+
 def sdpa_ms(q, k, v, seg, H, D, reps):
     """One ``scaled_dot_product_attention`` call over the whole packed
     batch with a block-diagonal boolean mask (memory-efficient backend;
@@ -285,17 +393,38 @@ def varlen_flash_ms(q, k, v, seg, H, D, reps):
     return cuda_ms(run, reps), out.reshape(T, H * D)
 
 
-def yardstick(name, fn, o):
+def varlen_flash_bwd_ms(q, k, v, do, seg, H, D, reps):
+    """One call of PyTorch's varlen flash-attention backward with the
+    segments as ``cu_seqlens``, on its own forward's output and lse.
+    Yardstick only; returns its dq."""
+    T = q.shape[0]
+    counts = torch.unique_consecutive(seg, return_counts=True)[1]
+    cu = torch.nn.functional.pad(counts.cumsum(0), (1, 0)).to(torch.int32)
+    longest = int(counts.max())
+    qh, kh, vh, doh = (x.view(T, H, D) for x in (q, k, v, do))
+    out, lse, rng_state, unused, _ = torch.ops.aten._flash_attention_forward(
+        qh, kh, vh, cu, cu, longest, longest, 0.0, False, False,
+        scale=D ** -0.5)
+
+    def run():
+        return torch.ops.aten._flash_attention_backward(
+            doh, qh, kh, vh, out, lse, cu, cu, longest, longest, 0.0, False,
+            rng_state, unused, scale=D ** -0.5)[0]
+    dq = run()
+    return cuda_ms(run, reps), dq.reshape(T, H * D)
+
+
+def yardstick(name, fn, ref, ref_name='H1'):
     """Milliseconds of a library call, or None if it did not run; logs
-    its largest difference from H1's o."""
+    its largest difference from the kernel's output ``ref``."""
     try:
-        ms, o_lib = fn()
+        ms, out = fn()
     except RuntimeError as e:
         log(f'{name} did not run: {str(e).splitlines()[0][:200]}')
         return None
-    log(f'{name} vs H1: max|diff| '
-        f'{(o_lib.float() - o.float()).abs().max().item():.3e}')
-    del o_lib
+    log(f'{name} vs {ref_name}: max|diff| '
+        f'{(out.float() - ref.float()).abs().max().item():.3e}')
+    del out
     torch.cuda.empty_cache()
     return ms
 
@@ -311,6 +440,7 @@ def main(argv):
     try:
         from esme_tpu_torch import _build
         from esme_tpu_torch.ops import flash, headsplit
+        from esme_tpu_torch.train import MaskedPLM
         from esme_tpu_torch.ops.rotary import rotary_cos_sin
     except ImportError as e:
         fail(f'the esme_tpu_torch package is not beside this script ({e})')
@@ -333,7 +463,7 @@ def main(argv):
     t0 = time.perf_counter()
     compiled = _build.build_all(verbose=True)
     build_s = time.perf_counter() - t0
-    for name in ('flash_fwd', 'rope'):
+    for name in ('flash_fwd', 'flash_bwd', 'rope'):
         _build.library(name)
     log(f'build: {build_s:.1f} s wall, per source {compiled} '
         f'(empty: already built in {_build._build_dir()})')
@@ -342,33 +472,36 @@ def main(argv):
     H = MODEL['attention_heads']
     D = MODEL['embed_dim'] // H
     _, cu8k, _ = packed_batch(CHECK_BUDGET, seed=1)
+    h2_check_share = 0.0
     for d, h in ((16, 20), (24, 20), (32, 20), (64, 20), (128, 40)):
         check_flash(cu8k, CHECK_BUDGET, h, d, dev, seed=d)
+        h2_check_share = max(h2_check_share, check_flash_bwd(
+            cu8k, CHECK_BUDGET, h, d, dev, seed=d)[1])
     for d in (16, 24, 32, 128):
         check_rope(CHECK_BUDGET, 20 if d < 128 else 40, d, dev, seed=d)
     rope_err = check_rope(BUDGET + (-BUDGET) % 256, H, D, dev)
 
-    # 4. the main path
+    # 4. the inference path
     from esme_tpu_torch import ESM2
     t0 = time.perf_counter()
     model = ESM2(**MODEL, dtype='bfloat16', rng=0, device=dev)
     torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(model.params))
     log(f'ESM2 {MODEL} init on the card: {time.perf_counter() - t0:.1f} s, '
-        f'{sum(p.numel() for p in _leaves(model.params)):,} params')
+        f'{n_params:,} params')
     tokens, cu, max_len = packed_batch(BUDGET, seed=0)
     real = int(cu[-1])
     log(f'main batch: {len(cu) - 1} sequences, {real} real tokens, '
         f'budget {BUDGET}, max_len {max_len}')
-    counters = (flash.segment_flash_fwd, headsplit.rotary_qk)
-    for f in counters:
-        f.launches = 0
+    reset_counters()
     lp = model.predict_log_prob(tokens, pad_args=(cu, max_len))
     torch.cuda.synchronize()
-    launches = {H1_NAME: flash.segment_flash_fwd.launches,
-                H3_NAME: headsplit.rotary_qk.launches}
-    log(f'main path launches per forward: {launches} (expected one per layer)')
-    if any(n != model.config.num_layers for n in launches.values()):
-        fail(f'a kernel of the main path did not launch once per layer: '
+    launches = read_counters()
+    L = model.config.num_layers
+    log(f'inference path launches per forward: {launches} (expected one of '
+        f'H1 and H3 per layer)')
+    if launches != {H1_NAME: L, H2_NAME: 0, H3_NAME: L, 'rope_inverse': 0}:
+        fail(f'the inference path did not launch H1 and H3 once per layer: '
              f'{launches}')
     if tuple(lp.shape) != (BUDGET, 33) or lp.dtype != torch.float32:
         fail(f'log-probs have shape {tuple(lp.shape)} {lp.dtype}')
@@ -387,7 +520,6 @@ def main(argv):
         small_plain = model.predict_log_prob(stok, pad_args=(scu, sml))
     small_ref = model.predict_log_prob(stok, pad_args=(scu, sml),
                                        attn_impl='reference')
-    L = model.config.num_layers
     model_checks = {
         'vs_plain': compare_logp(small, small_plain[:sreal],
                                  f'{L} layers, {sreal} tokens: kernels vs '
@@ -398,7 +530,6 @@ def main(argv):
     }
     del small, small_plain, small_ref, lp, lpr
 
-    # 5. times
     torch.cuda.reset_peak_memory_stats()
     fwd_samples = [cuda_ms(lambda: model.predict_log_prob(
         tokens, pad_args=(cu, max_len)), reps=1, warmup=int(i == 0))
@@ -409,18 +540,30 @@ def main(argv):
     host_ms = (time.perf_counter() - t0) * 1e3     # enqueue, no sync
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    log(f'main path: median {fwd_ms:.2f} ms per batch of {FWD_REPS} '
+    log(f'inference path: median {fwd_ms:.2f} ms per batch of {FWD_REPS} '
         f'(min {min(fwd_samples):.2f}, max {max(fwd_samples):.2f}), '
         f'{real / fwd_ms * 1e3:.1f} real tokens/s, peak memory '
         f'{peak / 2**30:.2f} GiB; host returns after {host_ms:.2f} ms')
     if profile_dir:
-        _profile(model, tokens, cu, max_len, profile_dir)
+        _profile(lambda: model.predict_log_prob(tokens,
+                                                pad_args=(cu, max_len)),
+                 profile_dir, 'profile_main.txt', 'forward')
+
+    # 5. the training path
+    cells = {}
+    for key, budget, ckpt, reps, falls in TRAIN_CELLS:
+        cells[key] = train_cell(model, MaskedPLM, key, budget, ckpt, reps,
+                                falls, n_params, profile_dir)
+    grad_checks = check_grads(model, MaskedPLM)
+    fit_losses = check_fit(model, MaskedPLM)
     del model
     torch.cuda.empty_cache()
 
+    # 6. times
     h1_err, h1_lse_err = check_flash(cu, BUDGET, H, D, dev, seed=7,
                                      what=' at the main shape')
-    q, k, v, seg, pos, (ks, ke) = flash_inputs(cu, BUDGET, H, D, dev, 7)
+    q, k, v, seg, pos, spans = flash_inputs(cu, BUDGET, H, D, dev, 7)
+    ks, ke = spans[:2]
     T = q.shape[0]
     o, _ = flash.segment_flash_fwd(q, k, v, seg, ks, ke, H)
     h1_ms = cuda_ms(lambda: flash.segment_flash_fwd(q, k, v, seg, ks, ke,
@@ -443,7 +586,32 @@ def main(argv):
         q, k, cos, sin, H), reps=5)
     h3_bytes = 4 * q.numel() * 2 + 2 * cos.numel() * 2
     h3_bound, h3_by = bound(h3_bytes, 6.0 * q.numel(), FP32_FLOP_PER_S)
+    del q, k, v, o, cos, sin
+    torch.cuda.empty_cache()
 
+    # H2 at the 50k train cell's shape (bench.py's train batch, seed 2)
+    _, tcu, _ = packed_batch(BUDGET, seed=2)
+    h2_err, h2_share = check_flash_bwd(tcu, BUDGET, H, D, dev, seed=9,
+                                       what=' at the train shape')
+    q, k, v, do, lse, delta, tseg, tspans = bwd_inputs(tcu, BUDGET, H, D,
+                                                       dev, 9)
+    TT = q.shape[0]
+    h2_args = (q, k, v, do, lse, delta, tseg, *tspans, H)
+    dq = flash.segment_flash_bwd(*h2_args)[0]
+    h2_ms = cuda_ms(lambda: flash.segment_flash_bwd(*h2_args), reps=20,
+                    warmup=2)
+    h2_plain_ms = cuda_ms(lambda: flash.segment_flash_bwd_plain(*h2_args),
+                          reps=2)
+    h2_bytes, h2_flops = flash_bwd_work(q, tseg, tspans, H, D)
+    h2_bound, h2_by = bound(h2_bytes, h2_flops, BF16_FLOP_PER_S)
+    h2_lib_ms = yardstick(
+        'varlen flash-attention backward (aten)',
+        lambda: varlen_flash_bwd_ms(q, k, v, do, tseg, H, D, reps=20), dq,
+        'H2 dq')
+    del q, k, v, do, dq, h2_args
+    torch.cuda.empty_cache()
+
+    train_launches = {key: c['launches'] for key, c in cells.items()}
     kernels = [
         {'name': H1_NAME, 'route': 'cuda',
          'source': 'esme_tpu_torch/csrc/flash_fwd.cu',
@@ -451,16 +619,43 @@ def main(argv):
          'also_replaces': ['esme_tpu/ops/flash.py:257',
                            'esme_tpu/ops/headsplit.py:114',
                            'esme_tpu/ops/headsplit.py:235'],
-         'launches': launches[H1_NAME], 'max_abs_err': h1_err,
+         'launches': launches[H1_NAME],
+         'train_launches': {key: c[H1_NAME]
+                            for key, c in train_launches.items()},
+         'max_abs_err': h1_err,
          'lse_max_abs_err': h1_lse_err, 'ms': h1_ms,
          'plain_ms': h1_plain_ms, 'bound_ms': h1_bound, 'bound_by': h1_by,
          'library_ms': h1_lib_ms, 'library_varlen_ms': h1_varlen_ms,
          'shape': f'T={T} H={H} D={D} bf16',
          'bytes': h1_bytes, 'flops': h1_flops},
+        {'name': H2_NAME, 'route': 'cuda',
+         'source': 'esme_tpu_torch/csrc/flash_bwd.cu',
+         'replaces': 'esme_tpu/ops/flash.py:475',
+         'also_replaces': ['esme_tpu/ops/flash.py:511',
+                           'esme_tpu/ops/flash.py:552',
+                           'esme_tpu/ops/flash.py:581',
+                           'esme_tpu/ops/flash.py:628',
+                           'esme_tpu/ops/headsplit.py:114',
+                           'esme_tpu/ops/headsplit.py:235'],
+         'launches': train_launches['nockpt'][H2_NAME],
+         'train_launches': {key: c[H2_NAME]
+                            for key, c in train_launches.items()},
+         'max_abs_err': h2_err, 'gate_share': max(h2_share, h2_check_share),
+         'ms': h2_ms, 'plain_ms': h2_plain_ms, 'bound_ms': h2_bound,
+         'bound_by': h2_by, 'library_ms': h2_lib_ms,
+         'shape': f'T={TT} H={H} D={D} bf16 (train batch)',
+         'bytes': h2_bytes, 'flops': h2_flops},
         {'name': H3_NAME, 'route': 'cuda',
          'source': 'esme_tpu_torch/csrc/rope.cu',
          'replaces': 'esme_tpu/ops/headsplit.py:119',
-         'launches': launches[H3_NAME], 'max_abs_err': rope_err,
+         'also_replaces': ['esme_tpu/ops/headsplit.py:235 (rotating, '
+                           'inverse=True)'],
+         'launches': launches[H3_NAME],
+         'train_launches': {key: c[H3_NAME]
+                            for key, c in train_launches.items()},
+         'inverse_launches': {key: c['rope_inverse']
+                              for key, c in train_launches.items()},
+         'max_abs_err': rope_err,
          'ms': h3_ms, 'plain_ms': h3_plain_ms, 'bound_ms': h3_bound,
          'bound_by': h3_by, 'library_ms': None,
          'shape': f'T={T} H={H} D={D} bf16', 'bytes': h3_bytes},
@@ -477,7 +672,8 @@ def main(argv):
         'ms_per_batch': fwd_ms, 'ms_per_batch_samples': fwd_samples,
         'real_tokens_per_s': real / fwd_ms * 1e3,
         'peak_mem_gib': peak / 2**30, 'host_enqueue_ms': host_ms,
-        'build_s': build_s,
+        'train': cells, 'grad_checks': grad_checks,
+        'fit_losses': fit_losses, 'build_s': build_s,
         'model_checks': model_checks, 'torch': torch.__version__,
         'cuda': torch.version.cuda,
         'wall_s': time.perf_counter() - t_start,
@@ -489,6 +685,203 @@ def main(argv):
         'count': torch.cuda.device_count()}}), flush=True)
 
 
+def _counters():
+    from esme_tpu_torch.ops import flash, headsplit
+    return {H1_NAME: flash.segment_flash_fwd,
+            H2_NAME: flash.segment_flash_bwd, H3_NAME: headsplit.rotary_qk}
+
+
+def reset_counters():
+    for f in _counters().values():
+        f.launches = 0
+    _counters()[H3_NAME].inverse_launches = 0
+
+
+def read_counters():
+    c = {name: f.launches for name, f in _counters().items()}
+    c['rope_inverse'] = _counters()[H3_NAME].inverse_launches
+    return c
+
+
+def train_batch(budget: int):
+    """``bench.py``'s masked-LM batch (``bench.py:50-85``): sequences and
+    residues from seed 2, 80/10/10 masking from seed 1, no loss on the
+    padding tail. Returns the batch and the attention flops of one
+    forward (4·Σn²·C·L, bench.py's ``attn_flops``)."""
+    from esme_tpu_torch.alphabet import Alphabet, mask_tokens
+    tokens, cu, max_len = packed_batch(budget, seed=2)
+    masked, mask = mask_tokens(tokens[None], alphabet=Alphabet,
+                               rng=np.random.default_rng(1))
+    masked, mask = masked[0], mask[0]
+    mask[cu[-1]:] = False
+    lens = np.diff(cu).astype(np.float64)
+    attn = 4 * float((lens ** 2).sum()) * MODEL['embed_dim'] \
+        * MODEL['num_layers']
+    return SimpleNamespace(tokens=tokens, masked_tokens=masked, mask=mask,
+                           cu_lens=cu, max_len=max_len), attn
+
+
+def train_cell(model, plm_cls, key, budget, ckpt, reps, falls, n_params,
+               profile_dir):
+    """One train cell: a warm-up step with the launch counters set to 0
+    just before it and read just after, then ``reps`` timed steps on the
+    same batch. MFU as bench.py computes it: (6·N·tokens + 3.5·attention
+    forward flops) / time / 989 TFLOP/s."""
+    L = model.config.num_layers
+    model.checkpointing = ckpt
+    batch, attn_flops = train_batch(budget)
+    real = int(batch.cu_lens[-1])
+    plm = plm_cls(model, learning_rate=1e-4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    losses = [plm.training_step(batch)]
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counters()
+    expected = {H1_NAME: 2 * L if ckpt else L, H2_NAME: L,
+                H3_NAME: (3 if ckpt else 2) * L, 'rope_inverse': L}
+    log(f'train {key}@{budget}: launches in one step {launches} (expected '
+        f'{expected})')
+    if launches != expected:
+        fail(f'train {key}: a kernel of the training path launched '
+             f'{launches}, not {expected}')
+    samples = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(plm.training_step(batch))       # float(): a sync
+        samples.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    ms = float(np.median(samples))
+    flops = 6 * n_params * real + 3.5 * attn_flops
+    cell = {'budget': budget, 'checkpointing': ckpt, 'real_tokens': real,
+            'sequences': len(batch.cu_lens) - 1, 'launches': launches,
+            'losses': losses, 'first_step_ms': first_ms,
+            'ms_per_step': ms, 'ms_per_step_samples': samples,
+            'real_tokens_per_s': real / ms * 1e3,
+            'mfu': flops / (ms * 1e-3) / MFU_PEAK,
+            'peak_mem_gib': peak / 2**30}
+    log(f'train {key}@{budget}: losses {[round(x, 4) for x in losses]}, '
+        f'median {ms:.2f} ms per step of {reps} (samples '
+        f'{[round(x, 2) for x in samples]}), {cell["real_tokens_per_s"]:.1f} '
+        f'real tokens/s, MFU {cell["mfu"]:.4f}, peak memory '
+        f'{cell["peak_mem_gib"]:.2f} GiB')
+    if not all(np.isfinite(losses)):
+        fail(f'train {key}: losses not finite: {losses}')
+    if falls and not losses[-1] < losses[0]:
+        fail(f'train {key}: the last loss is not below the first: {losses}')
+    if profile_dir:
+        _profile(lambda: plm.training_step(batch), profile_dir,
+                 f'profile_train_{key}.txt', f'train step {key}@{budget}')
+    model.checkpointing = False
+    del plm
+    torch.cuda.empty_cache()
+    return cell
+
+
+def compare_grads(got, ref, min_cos, max_rel, what):
+    """Per-leaf cosine and largest difference relative to the leaf's
+    largest value; fails outside the gates."""
+    worst_cos, worst_rel, equal, n = 1.0, 0.0, 0, 0
+    for name, a, b in _leaf_pairs(got, ref):
+        n += 1
+        equal += bool(torch.equal(a, b))
+        a, b = a.float().ravel(), b.float().ravel()
+        scale = b.abs().max().item()
+        if scale == 0.0:
+            if a.abs().max().item() != 0.0:
+                fail(f'{what}: {name} has a gradient where the reference '
+                     'has none')
+            continue
+        cos = (a @ b / (a.norm() * b.norm())).item()
+        rel = (a - b).abs().max().item() / scale
+        worst_cos, worst_rel = min(worst_cos, cos), max(worst_rel, rel)
+        if cos < min_cos or rel > max_rel:
+            fail(f'{what}: {name} cosine {cos:.6f} (gate {min_cos}), max '
+                 f'rel err {rel:.4f} (gate {max_rel})')
+    log(f'{what}: {n} leaves, min cosine {worst_cos:.6f} (gate {min_cos}), '
+        f'max|err|/max|g| {worst_rel:.5f} (gate {max_rel}), bit-equal '
+        f'{equal} of {n}')
+    return {'min_cos': worst_cos, 'max_rel': worst_rel, 'bit_equal': equal,
+            'leaves': n}
+
+
+def check_grads(model, plm_cls):
+    """Every leaf's gradient of one masked-LM step at full depth on a 4k
+    batch: kernels vs plain versions, and remat='full' vs none."""
+    batch, _ = train_batch(SMALL_BUDGET)
+    plm = plm_cls(model)
+    loss, grads = plm._grad_step(batch)
+    with plain_versions():
+        loss_p, grads_p = plm._grad_step(batch)
+    model.checkpointing = True
+    try:
+        loss_c, grads_c = plm._grad_step(batch)
+    finally:
+        model.checkpointing = False
+    L = model.config.num_layers
+    log(f'{L} layers, {int(batch.cu_lens[-1])} tokens: loss with kernels '
+        f'{loss.item():.6f}, plain versions {loss_p.item():.6f}, '
+        f'remat {loss_c.item():.6f}')
+    checks = {
+        'vs_plain': compare_grads(grads, grads_p, GRAD_MIN_COS, GRAD_MAX_REL,
+                                  'gradients, kernels vs plain versions'),
+        'remat_vs_none': compare_grads(grads_c, grads, REMAT_MIN_COS,
+                                       REMAT_MAX_REL,
+                                       "gradients, remat='full' vs none"),
+        'loss': loss.item(), 'loss_plain': loss_p.item(),
+    }
+    if not torch.equal(loss, loss_c):
+        fail(f"remat='full' changed the loss: {loss_c.item()} vs "
+             f'{loss.item()}')
+    del plm, grads, grads_p, grads_c
+    torch.cuda.empty_cache()
+    return checks
+
+
+def check_fit(model, plm_cls):
+    """``MaskedPLM(model).fit(MaskedFastaTokenDataset(...))`` over a FASTA
+    file written from seed 0: two batches, two steps."""
+    from esme_tpu_torch import Alphabet, MaskedFastaTokenDataset
+    from esme_tpu_torch.fasta import write_fai
+    aa = np.array(list('LAGVSERTIDPKQNFYMHWC'))
+    rng = np.random.default_rng(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'train.fa')
+        total, nseq = 0, 0
+        with open(path, 'w') as f:
+            while total < 1.5 * FIT_BUDGET:
+                n = int(rng.integers(100, 1000))
+                seq = ''.join(rng.choice(aa, n))
+                f.write(f'>seq{nseq}\n')
+                for lo in range(0, n, 60):
+                    f.write(seq[lo:lo + 60] + '\n')
+                total += n + 2
+                nseq += 1
+        write_fai(path)
+        ds = MaskedFastaTokenDataset(path, token_per_batch=FIT_BUDGET,
+                                     shuffle=True, random_state=0,
+                                     alphabet=Alphabet)
+        if len(ds) != 2:
+            fail(f'fit: the FASTA file gave {len(ds)} batches, not 2')
+        history = plm_cls(model, learning_rate=1e-4).fit(ds, log_every=1)
+    log(f'fit over {nseq} sequences ({total} tokens) in {len(ds)} batches '
+        f'of {FIT_BUDGET}: losses {history}')
+    if len(history) != 2 or not all(np.isfinite(history)):
+        fail(f'fit: losses {history}')
+    torch.cuda.empty_cache()
+    return history
+
+
+def _leaf_pairs(got, ref, path=()):
+    for k, v in ref.items():
+        if isinstance(v, dict):
+            yield from _leaf_pairs(got[k], v, path + (k,))
+        else:
+            yield '.'.join(path + (k,)), got[k], v
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -497,17 +890,18 @@ def _leaves(tree):
             yield v
 
 
-def _profile(model, tokens, cu, max_len, out_dir):
-    """Device time by kernel over one forward, as a table in
-    ``out_dir/profile_main.txt``."""
+def _profile(run, out_dir, table, what):
+    """Device time by kernel over one call of ``run``, as a table in
+    ``out_dir/table``."""
     from torch.profiler import ProfilerActivity, profile
     os.makedirs(out_dir, exist_ok=True)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         start.record()
-        model.predict_log_prob(tokens, pad_args=(cu, max_len))
+        run()
         end.record()
         torch.cuda.synchronize()
     stats = prof.key_averages()
@@ -519,11 +913,10 @@ def _profile(model, tokens, cu, max_len, out_dir):
                and not e.is_user_annotation
                and e.key != 'Command Buffer Full') / 1e3
     wall = start.elapsed_time(end)
-    with open(os.path.join(out_dir, 'profile_main.txt'), 'w') as f:
+    with open(os.path.join(out_dir, table), 'w') as f:
         f.write(stats.table(sort_by='self_device_time_total', row_limit=40))
-    log(f'profiled forward: device busy {busy:.2f} ms of {wall:.2f} ms '
-        f'({1 - busy / wall:.1%} idle); table in '
-        f'{out_dir}/profile_main.txt')
+    log(f'profiled {what}: device busy {busy:.2f} ms of {wall:.2f} ms '
+        f'({1 - busy / wall:.1%} idle); table in {out_dir}/{table}')
 
 
 if __name__ == '__main__':

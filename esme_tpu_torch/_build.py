@@ -1,7 +1,8 @@
 """Build and bind the port's CUDA kernels.
 
-Each ``csrc/*.cu`` source compiles at first use into its own shared
-library with a plain C interface:
+Each ``csrc/*.cu`` source (with the ``csrc/*.cuh`` headers it includes)
+compiles at first use into its own shared library with a plain C
+interface:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o build/esme_tpu_torch/<hash>/lib<name>.so \\
@@ -46,6 +47,10 @@ SIGNATURES = {
         'esme_segment_flash_fwd': (I, [P, P, P, P, P, P, P, P, I, I, I, F,
                                        P]),
         'esme_flash_error_string': (ctypes.c_char_p, [I]),
+    },
+    'flash_bwd': {
+        'esme_segment_flash_bwd': (I, [P] * 14 + [I, I, I, F, P]),
+        'esme_flash_bwd_error_string': (ctypes.c_char_p, [I]),
     },
     'rope': {
         'esme_rope_qk': (I, [P, P, P, P, P, P, I, I, I, I, P]),

@@ -6,8 +6,10 @@ pure numpy; the model consumes flat int32 token vectors plus cumulative
 lengths (``cu_lens``), the packed "varlen" layout
 (reference: esme/alphabet.py:148-183).
 
-Tokens are int32 (vocab sizes are tiny: 33/64). Masking and
-static-shape packing come with the data plane in a later slice.
+Tokens are int32 (vocab sizes are tiny: 33/64). BERT masking
+(:func:`mask_tokens`) and static-shape packing (:func:`pack_tokens`)
+draw from a ``numpy`` Generator exactly as the JAX package does, so the
+same Generator state gives the same arrays.
 """
 
 from __future__ import annotations
@@ -167,9 +169,86 @@ def pad_tokens(tokens: Sequence[np.ndarray], alphabet=Alphabet3) -> np.ndarray:
     ], axis=0)
 
 
+def mask_tokens(token: np.ndarray, freq: float = 0.15, alter: float = 0.1,
+                alphabet=Alphabet3, rng: np.random.Generator | None = None):
+    """BERT-style 80/10/10 masking with at least one mask per row
+    (``esme_tpu/alphabet.py:175-214``; reference: esme/alphabet.py:215-265).
+
+    Returns ``(masked_tokens, mask)``.
+    """
+    rng = rng or np.random.default_rng()
+    token = np.array(token, copy=True)
+
+    valid = (token != alphabet.cls_idx) \
+        & (token != alphabet.eos_idx) \
+        & (token != alphabet.padding_idx)
+    mask = (rng.random(token.shape) < freq) & valid
+
+    # guarantee >=1 mask per row by sampling a valid position for empty rows
+    not_masked = mask.sum(axis=-1) == 0
+    if not_masked.any():
+        if token.ndim == 1:
+            pos = rng.choice(np.nonzero(valid)[0])
+            mask[pos] = True
+        elif token.ndim == 2:
+            for row in np.nonzero(not_masked)[0]:
+                pos = rng.choice(np.nonzero(valid[row])[0])
+                mask[row, pos] = True
+        else:
+            raise ValueError('tokens must be 1D or 2D')
+
+    orig = token.copy()
+    # 80% of masked positions -> <mask>
+    token[mask] = alphabet.mask_idx
+    # 10% -> random amino acid
+    random_aa = rng.integers(alphabet.amino_acids_idx[0],
+                             alphabet.amino_acids_idx[-1] + 1,
+                             size=token.shape, dtype=token.dtype)
+    token = np.where((rng.random(token.shape) < alter) & mask, random_aa, token)
+    # 10% -> keep original token
+    token = np.where((rng.random(token.shape) < alter) & mask, orig, token)
+
+    return token, mask
+
+
 def padding_mask(cu_lens: np.ndarray, max_len: int) -> np.ndarray:
     """Boolean ``(n, max_len)`` validity mask from cumulative lengths
     (reference: esme/alphabet.py:268-286)."""
     cu_lens = np.asarray(cu_lens)
     lengths = cu_lens[1:] - cu_lens[:-1]
     return np.arange(max_len)[None, :] < lengths[:, None]
+
+
+def pack_tokens(
+    sequences: Union[List[str], str],
+    token_budget: int | None = None,
+    max_segments: int | None = None,
+    alphabet=Alphabet3,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+    """Like :func:`tokenize_unpad` but padded to static shapes
+    (``esme_tpu/alphabet.py:229-261``).
+
+    The flat token vector is padded with ``padding_idx`` up to
+    ``token_budget`` and ``cu_lens`` is padded by repeating its last
+    value up to ``max_segments + 1`` entries. Trailing pad tokens lie
+    past ``cu_lens[-1]``, so they form fake segments that never attend
+    real tokens.
+    """
+    tokens, indices, cu_lens, max_len = tokenize_unpad(sequences, alphabet)
+    total = tokens.shape[0]
+
+    if token_budget is not None:
+        if total > token_budget:
+            raise ValueError(
+                f'total tokens {total} exceed token_budget {token_budget}')
+        tokens = np.pad(tokens, (0, token_budget - total),
+                        constant_values=alphabet.padding_idx)
+
+    if max_segments is not None:
+        nseg = cu_lens.shape[0] - 1
+        if nseg > max_segments:
+            raise ValueError(
+                f'{nseg} segments exceed max_segments {max_segments}')
+        cu_lens = np.pad(cu_lens, (0, max_segments - nseg), mode='edge')
+
+    return tokens, indices, cu_lens, max_len

@@ -35,19 +35,14 @@
 // 128}; D = 24 runs in the DP = 32 kernel with the extra columns
 // zero-filled on load (scale stays 1/sqrt(24)).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-typedef __nv_bfloat16 bf16;
+#include "flash_common.cuh"
 
 namespace {
 
+using namespace esme;
+
 constexpr int BQ = 128;
 constexpr int BK = 64;
-constexpr float NEG_INF = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
 
 // Per head width: MT 16-row m-tiles per warp (two where the registers
 // allow, so each k/v fragment read from shared memory feeds two
@@ -64,83 +59,6 @@ struct Cfg {
   static constexpr int KTILE = BK * LD;
   static constexpr size_t bytes = (size_t)(QTILE + 4 * KTILE) * 2 + 2 * BK * 4;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; reads nothing and zero-fills when !valid
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-// c += a (16x16, row) * b (16x8, col), bf16 operands, fp32 accumulator
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Start the copies of rows [row0, row0 + ROWS) of one head's D columns
-// into a tile with row stride LD; columns >= D and rows >= T are
-// zero-filled. D is a multiple of 8, so every chunk is 16 bytes.
-template <int DP, int ROWS>
-__device__ __forceinline__ void load_rows(bf16* dst,
-                                          const bf16* __restrict__ src,
-                                          int row0, int T, int HD, int col0,
-                                          int D) {
-  constexpr int CPR = DP / 8;
-  for (int i = threadIdx.x; i < ROWS * CPR; i += Cfg<DP>::NTHREADS) {
-    const int r = i / CPR;
-    const int c = (i % CPR) * 8;
-    const int t = row0 + r;
-    const bool valid = t < T && c < D;
-    const bf16* g = valid ? src + (size_t)t * HD + col0 + c : src;
-    cp_async16(smem_u32(dst + r * Cfg<DP>::LD + c), g, valid);
-  }
-}
 
 template <int DP>
 __global__ void __launch_bounds__(Cfg<DP>::NTHREADS)
@@ -187,15 +105,15 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   auto v_tile = [&](int s) { return Qs + C::QTILE + (2 * s + 1) * C::KTILE; };
   auto load_kv = [&](int kb, int s) {
     const int k0 = kb * BK;
-    load_rows<DP, BK>(k_tile(s), k, k0, T, HD, col0, D);
-    load_rows<DP, BK>(v_tile(s), v, k0, T, HD, col0, D);
+    load_rows<DP, LD, BK, C::NTHREADS>(k_tile(s), k, k0, T, HD, col0, D);
+    load_rows<DP, LD, BK, C::NTHREADS>(v_tile(s), v, k0, T, HD, col0, D);
     for (int i = threadIdx.x; i < BK; i += C::NTHREADS) {
       const int t = k0 + i;
       cp_async4(smem_u32(segk + s * BK + i), seg + (t < T ? t : 0), t < T);
     }
   };
 
-  load_rows<DP, BQ>(Qs, q, q0, T, HD, col0, D);
+  load_rows<DP, LD, BQ, C::NTHREADS>(Qs, q, q0, T, HD, col0, D);
   if (kb0 < kb1) load_kv(kb0, 0);
   cp_async_commit();
 

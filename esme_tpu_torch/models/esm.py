@@ -1,8 +1,10 @@
 """ESM models: packed forward and the user-facing classes.
 
-Counterpart of ``esme_tpu/models/esm.py`` (ESM2, inference). The forward
-is a plain function over a params dict; the classes hold
-``(config, params, device)`` and mirror the reference's API:
+Counterpart of ``esme_tpu/models/esm.py`` (ESM2). The forward is a
+plain function over a params dict, differentiable for training
+(:class:`esme_tpu_torch.train.MaskedPLM`); the classes hold
+``(config, params, device, checkpointing)`` and mirror the reference's
+API:
 ``from_pretrained``, ``forward_representation``, ``forward``,
 ``predict_log_prob`` and ``predict_prob`` (reference: esme/esm.py).
 
@@ -24,7 +26,7 @@ import numpy as np
 import torch
 
 from ..alphabet import Alphabet
-from ..ops.flash import BLOCK_K, BLOCK_Q, block_spans
+from ..ops.flash import flash_spans
 from ..ops.linear import fp32_accumulation
 from ..ops.norm import apply_norm
 from ..ops.rotary import rotary_cos_sin
@@ -44,11 +46,20 @@ ALIGN = 256
 
 def forward_flat(params, cfg: ESMConfig, tokens, seg_ids, pos_ids, *,
                  with_head: bool = True, log_prob: bool = False,
-                 attn_impl: str = 'auto', collect_layers=None):
+                 attn_impl: str = 'auto', checkpointing: bool = False,
+                 collect_layers=None, max_seqlen=None, num_jobs=None,
+                 remat: str = 'full'):
     """Trunk (+ optional LM head) over flat tokens with explicit
     segment/position metadata. Returns ``(T, C)``; with
     ``collect_layers`` the requested layer outputs are concatenated on
-    the last axis.
+    the last axis. ``params['layers']`` is a dict of stacked leaves or a
+    list of per-layer dicts (the trainer's).
+
+    ``checkpointing``/``remat`` recompute each layer in the backward
+    (:func:`~esme_tpu_torch.models.modules.layer_stack`).
+    ``max_seqlen`` and ``num_jobs`` are accepted for call compatibility
+    with the JAX signature and unused: the kernels walk each block's
+    exact span, so they need no static span cap and no job budget.
 
     Pads once to ``ALIGN``; the RoPE tables and the flash block spans
     depend only on positions and segment ids, so they are computed once
@@ -73,9 +84,9 @@ def forward_flat(params, cfg: ESMConfig, tokens, seg_ids, pos_ids, *,
     rope = rotary_cos_sin(pos_ids, cfg.head_dim, dtype=x.dtype)
 
     x, reps = layer_stack(x, params['layers'], cfg, seg_ids, pos_ids,
-                          attn_impl=attn_impl,
+                          attn_impl=attn_impl, checkpointing=checkpointing,
                           collect_layers=collect_layers, rope=rope,
-                          spans=spans)
+                          spans=spans, remat=remat)
     x = apply_norm(x, params['emb_norm_after'])
     x = x[:T]
     reps = [r[:T] for r in reps]
@@ -94,15 +105,15 @@ def pad_flat_meta(seg_ids, pos_ids):
     """The metadata the flash path of :func:`forward_flat` runs on:
     segment ids (int32) and positions padded once to a multiple of
     ``ALIGN`` with one fake tail segment at position 0, and the flash
-    kernel's block spans over them. Returns ``(seg_ids, pos_ids,
-    (kstart, kend))``."""
+    kernels' block spans over them (:func:`flash_spans`). Returns
+    ``(seg_ids, pos_ids, spans)``."""
     t_pad = (-seg_ids.shape[0]) % ALIGN
     if t_pad:
         seg_ids = torch.cat([seg_ids, (seg_ids.max() + 1).expand(t_pad)])
         pos_ids = torch.cat([pos_ids, torch.zeros(
             t_pad, dtype=pos_ids.dtype, device=pos_ids.device)])
     seg_ids = seg_ids.to(torch.int32).contiguous()
-    return seg_ids, pos_ids, block_spans(seg_ids, BLOCK_Q, BLOCK_K)
+    return seg_ids, pos_ids, flash_spans(seg_ids)
 
 
 def packed_meta(cu_lens, total: int):
@@ -177,9 +188,11 @@ class _ESMBase:
     family = 'esm2'
 
     def __init__(self, config: ESMConfig, params: Optional[dict] = None,
-                 rng: int = 0, name: Optional[str] = None, device='cuda'):
+                 rng: int = 0, checkpointing: bool = False,
+                 name: Optional[str] = None, device='cuda'):
         self.device = resolve_device(device)
         self.config = config
+        self.checkpointing = bool(checkpointing)
         self.name = name or self.family
         if params is None:
             params = init_params(config, rng, device=self.device)
@@ -276,10 +289,11 @@ class ESM2(_ESMBase):
 
     def __init__(self, num_layers=33, embed_dim=1280, attention_heads=20,
                  dtype='bfloat16', config=None, params=None, rng=0,
-                 name=None, device='cuda'):
+                 checkpointing=False, name=None, device='cuda'):
         config = config or esm2_config(num_layers, embed_dim,
                                        attention_heads, dtype=dtype)
-        super().__init__(config, params=params, rng=rng, name=name,
+        super().__init__(config, params=params, rng=rng,
+                         checkpointing=checkpointing, name=name,
                          device=device)
 
 

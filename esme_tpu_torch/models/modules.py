@@ -1,11 +1,18 @@
 """Transformer layer, embedding and head apply functions.
 
-Counterpart of ``esme_tpu/models/modules.py`` (forward, ESM2 path):
-plain functions over a params dict of tensors, with per-layer tensors
-stacked on axis 0 and linear kernels stored ``(in, out)``. The layer
-stack is a Python loop. There is one layer path: on the card
+Counterpart of ``esme_tpu/models/modules.py`` (ESM2 path, forward and
+gradient): plain functions over a params dict of tensors, with
+per-layer tensors stacked on axis 0 and linear kernels stored
+``(in, out)``. The layer stack is a Python loop, optionally
+checkpointed per layer. There is one layer path: on the card
 ``(T, H, D)`` is already the natural layout, so the JAX package's
 token-minor twins have no counterpart.
+
+For training, the layer stack also takes a list of per-layer param
+dicts (see :func:`layer_params`): each layer's leaves are then their
+own gradient targets, where indexing a stacked leaf would make
+autograd build a zero tensor the size of the whole stack for each
+layer's gradient.
 """
 
 from __future__ import annotations
@@ -14,6 +21,7 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention_reference
 from ..ops.fused_attn import fused_rotary_flash
@@ -28,6 +36,38 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.bfloat16:
         return F.gelu(x, approximate='tanh')
     return F.gelu(x, approximate='none')
+
+
+class _GeluLinear(torch.autograd.Function):
+    """``gelu(x) @ kernel (+ bias)`` saving only x and the kernel
+    (``esme_tpu/models/modules.py:88-116``): the backward recomputes
+    gelu(x) instead of keeping a second ``(T, 4C)`` tensor per layer."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, bias):
+        ctx.save_for_backward(x, kernel)
+        ctx.has_bias = bias is not None
+        y = matmul(gelu(x), kernel)
+        return y + bias if bias is not None else y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, kernel = ctx.saved_tensors
+        dy = dy.to(x.dtype)
+        dh = torch.matmul(dy, kernel.T.to(x.dtype))  # fp32 sums, rounded
+        # dh * gelu'(x) for the form gelu() uses (tanh in bf16, erf in
+        # fp32; esme_tpu/models/modules.py:77-85), in fp32, rounded once
+        dx = torch.ops.aten.gelu_backward(
+            dh, x, approximate='tanh' if x.dtype == torch.bfloat16
+            else 'none')
+        dkernel = torch.matmul(gelu(x).T, dy).to(kernel.dtype)
+        dbias = dy.sum(0) if ctx.has_bias else None
+        return dx, dkernel, dbias
+
+
+def gelu_linear(x, kernel, bias=None):
+    """``gelu(x) @ kernel + bias`` with the memory-lean gradient."""
+    return _GeluLinear.apply(x, kernel, bias)
 
 
 def attention_block(x, params, cfg, seg_ids, pos_ids,
@@ -74,7 +114,10 @@ def mlp_block(x, params, cfg):
             f'{cfg.family}: the SwiGLU MLP comes in slice 2')
     h = apply_norm(x, params['norm'])
     h = linear(h, params['fc1'])
-    return linear(gelu(h), params['fc2'])
+    fc2 = params['fc2']
+    if 'kernel' in fc2:
+        return gelu_linear(h, fc2['kernel'], fc2.get('bias'))
+    return linear(gelu(h), fc2)
 
 
 def transformer_layer(x, params, cfg, seg_ids, pos_ids,
@@ -107,21 +150,41 @@ def num_layers(stacked: dict) -> int:
 
 
 def layer_stack(x, stacked_params, cfg, seg_ids, pos_ids,
-                attn_impl: str = 'auto',
+                attn_impl: str = 'auto', checkpointing: bool = False,
                 collect_layers: Optional[Sequence[int]] = None,
-                rope: Optional[tuple] = None, spans=None):
-    """Run every layer over stacked per-layer params.
+                rope: Optional[tuple] = None, spans=None,
+                remat: str = 'full'):
+    """Run every layer over the per-layer params: a dict of stacked
+    leaves, or a list of one dict per layer.
 
+    ``checkpointing`` with ``remat='full'`` recomputes each layer in the
+    backward from its input (``torch.utils.checkpoint``, the counterpart
+    of ``_remat_wrap``, ``esme_tpu/models/modules.py:328-340``).
     Returns ``(x, reps)``: ``reps`` holds the outputs of the layers in
     ``collect_layers`` (negative indices count from the end), in that
     order (reference: esme/esm.py:243-250).
     """
-    L = num_layers(stacked_params)
+    if remat != 'full':
+        if remat == 'attn':
+            raise NotImplementedError(
+                "remat='attn' (save only the flash outputs) comes with the "
+                "memory slice; use remat='full'")
+        raise ValueError(f'unknown remat policy: {remat}')
+    if isinstance(stacked_params, dict):
+        layers = [layer_params(stacked_params, i)
+                  for i in range(num_layers(stacked_params))]
+    else:
+        layers = list(stacked_params)
+    L = len(layers)
     collect = [i % L for i in (collect_layers or ())]
     reps = [None] * len(collect)
     for i in range(L):
-        x = transformer_layer(x, layer_params(stacked_params, i), cfg,
-                              seg_ids, pos_ids, attn_impl, rope, spans)
+        args = (x, layers[i], cfg, seg_ids, pos_ids, attn_impl, rope, spans)
+        if checkpointing and torch.is_grad_enabled():
+            x = checkpoint(transformer_layer, *args, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = transformer_layer(*args)
         for j, ci in enumerate(collect):
             if ci == i:
                 reps[j] = x
@@ -130,8 +193,10 @@ def layer_stack(x, stacked_params, cfg, seg_ids, pos_ids,
 
 def embed_tokens(tokens, params, cfg):
     """Token embedding with ``<mask>`` zeroing
-    (reference: esme/esm.py:176-199)."""
-    x = params['embed_tokens'][tokens.long()]
+    (reference: esme/esm.py:176-199). ``F.embedding``'s gradient sorts
+    the tokens and sums each row's contributions in fp32 (indexing would
+    add them with atomics in the weight's dtype)."""
+    x = F.embedding(tokens.long(), params['embed_tokens'])
     if cfg.zero_mask_embedding:
         x = torch.where((tokens == cfg.mask_idx)[..., None],
                         torch.zeros_like(x), x)

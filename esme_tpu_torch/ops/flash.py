@@ -1,4 +1,5 @@
-"""Segment-flash attention forward for packed (varlen) batches.
+"""Segment-flash attention, forward and backward, for packed (varlen)
+batches.
 
 Counterpart of ``esme_tpu/ops/flash.py``. Non-causal self-attention
 over a flat token stream where token *t* attends token *s* iff
@@ -6,20 +7,26 @@ over a flat token stream where token *t* attends token *s* iff
 
 :func:`segment_flash_fwd` is the wrapper of kernel H1
 (``csrc/flash_fwd.cu``), which replaces the TPU kernels
-``esme_tpu/ops/flash.py:_fwd_kernel`` and ``:_fwd_jobs_kernel`` and
-reads/writes the ``(T, H·D)`` layout directly (so the TPU relayouts
-``headsplit.py:_split_one_kernel_t`` for v and ``:_merge_kernel_t`` for
-o have no counterpart). On a CUDA tensor it launches the kernel or
-raises; on a CPU tensor it runs :func:`segment_flash_fwd_plain`, the
-plain PyTorch version of the same function. What bounds the kernel and
-what its design does about it is noted in the CUDA source.
+``esme_tpu/ops/flash.py:_fwd_kernel`` and ``:_fwd_jobs_kernel``;
+:func:`segment_flash_bwd` is the wrapper of kernel H2
+(``csrc/flash_bwd.cu``), which replaces the three TPU backward paths
+``:_dq_kernel``/``:_dkv_kernel``, ``:_dq_jobs_kernel``/``:_dkv_jobs_kernel``
+and ``:_dkvq_jobs_kernel``. Both read and write the ``(T, H·D)`` layout
+directly (so the TPU relayouts ``headsplit.py:_split_one_kernel_t`` for
+v and do and ``:_merge_kernel_t`` for o and dv have no counterpart). On
+a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
+it runs its plain PyTorch version (``*_plain``). What bounds each
+kernel and what its design does about it is noted in its CUDA source.
 
 Block spans: packed batches make attention block-diagonal. For each q
 block the contiguous span ``[kstart, kend)`` of k blocks that share a
-segment with it is computed once per forward (:func:`block_spans`, the
-segment ids are the same in every layer), and the kernel visits only
-those tiles. The kernel's tiles are its own (128 x 64); the 256-token
-alignment of the packed batch (``models/esm.py:ALIGN``) is unrelated.
+segment with it, and for each k block the span ``[qstart, qend)`` of q
+blocks (the backward's dk/dv direction), are computed once per forward
+(:func:`flash_spans`; the segment ids are the same in every layer), and
+the kernels visit only those tiles. The kernels' tiles are their own
+(H1 and H2's dq pass: 128-row q blocks over 64-row k tiles; H2's dk/dv
+pass: 64-row k blocks over 64-row q tiles); the 256-token alignment of
+the packed batch (``models/esm.py:ALIGN``) is unrelated.
 """
 
 from __future__ import annotations
@@ -30,22 +37,21 @@ import torch
 
 from .attention import NEG_INF
 
-# The kernel's tile sizes (csrc/flash_fwd.cu: BQ, BK; keep them equal)
+# The kernels' tile sizes (csrc/flash_fwd.cu and csrc/flash_bwd.cu: BQ,
+# BK; keep them equal): q blocks and k tiles of H1 and of H2's dq pass,
+# k blocks and q tiles of H2's dk/dv pass
 BLOCK_Q = 128
 BLOCK_K = 64
+BLOCK_KV = 64
+BLOCK_QT = 64
 
 HEAD_DIMS = (16, 24, 32, 64, 128)
 
 
-def block_spans(seg_ids: torch.Tensor, block_q: int, block_k: int):
-    """Per-q-block ``[kstart, kend)`` span of overlapping k blocks, int32
-    (``esme_tpu/ops/flash.py:88-122``).
-
-    Exact for monotonic (packed) segment ids; for others the span is the
-    min..max overlapping block and the in-kernel mask removes the rest.
-    A ragged last block is padded with its last id, which leaves its
-    min/max unchanged.
-    """
+def _overlap(seg_ids: torch.Tensor, block_q: int, block_k: int):
+    """``(nqb, nkb)`` bool: q block i and k block j share a segment id
+    range. A ragged last block is padded with its last id, which leaves
+    its min/max unchanged."""
     def blocks(b):
         s = seg_ids
         pad = (-s.shape[0]) % b
@@ -56,13 +62,41 @@ def block_spans(seg_ids: torch.Tensor, block_q: int, block_k: int):
 
     qmin, qmax = blocks(block_q)
     kmin, kmax = blocks(block_k)
-    overlap = (kmin[None, :] <= qmax[:, None]) & \
-        (kmax[None, :] >= qmin[:, None])          # (nqb, nkb)
+    return (kmin[None, :] <= qmax[:, None]) & (kmax[None, :] >= qmin[:, None])
+
+
+def _spans(overlap: torch.Tensor):
     n = overlap.shape[1]
     idx = torch.arange(n, dtype=torch.int32, device=overlap.device)
-    kstart = torch.where(overlap, idx, n).amin(1)
-    kend = torch.where(overlap, idx + 1, 0).amax(1)
-    return kstart.to(torch.int32), kend.to(torch.int32)
+    start = torch.where(overlap, idx, n).amin(1)
+    end = torch.where(overlap, idx + 1, 0).amax(1)
+    return start.to(torch.int32), end.to(torch.int32)
+
+
+def block_spans(seg_ids: torch.Tensor, block_q: int, block_k: int):
+    """Per-q-block ``[kstart, kend)`` span of overlapping k blocks, int32
+    (``esme_tpu/ops/flash.py:88-122``, its first two outputs).
+
+    Exact for monotonic (packed) segment ids; for others the span is the
+    min..max overlapping block and the in-kernel mask removes the rest.
+    """
+    return _spans(_overlap(seg_ids, block_q, block_k))
+
+
+def transposed_spans(seg_ids: torch.Tensor, block_q: int, block_k: int):
+    """Per-k-block ``[qstart, qend)`` span of overlapping q blocks, int32:
+    the backward's dk/dv direction (``esme_tpu/ops/flash.py:88-122``,
+    its last two outputs)."""
+    return _spans(_overlap(seg_ids, block_q, block_k).T)
+
+
+def flash_spans(seg_ids: torch.Tensor):
+    """Every span the kernels walk, at their own tiles: ``(kstart, kend)``
+    per ``BLOCK_Q`` q block in ``BLOCK_K`` tiles (H1 and H2's dq pass)
+    and ``(qstart, qend)`` per ``BLOCK_KV`` k block in ``BLOCK_QT`` tiles
+    (H2's dk/dv pass)."""
+    return (*block_spans(seg_ids, BLOCK_Q, BLOCK_K),
+            *transposed_spans(seg_ids, BLOCK_QT, BLOCK_KV))
 
 
 def segment_flash_fwd_plain(q2, k2, v2, seg_ids, kstart, kend,
@@ -126,7 +160,13 @@ def segment_flash_fwd(q2, k2, v2, seg_ids, kstart, kend, num_heads: int):
     T, HD = q2.shape
     H = num_heads
     D = HD // H
-    _check_cuda_inputs(q2, k2, v2, seg_ids, kstart, kend, H, D)
+    what = 'segment_flash_fwd'
+    _check_cuda_inputs(what, (('q', q2), ('k', k2), ('v', v2)), H, D)
+    nqb = -(-T // BLOCK_Q)
+    _check_index_inputs(what, q2.device, (
+        ('seg_ids', seg_ids, T, torch.int32),
+        ('kstart', kstart, nqb, torch.int32),
+        ('kend', kend, nqb, torch.int32)))
     from .. import _build
     lib = _build.library('flash_fwd')
     o = torch.empty_like(q2)
@@ -144,33 +184,143 @@ def segment_flash_fwd(q2, k2, v2, seg_ids, kstart, kend, num_heads: int):
 segment_flash_fwd.launches = 0
 
 
-def _check_cuda_inputs(q2, k2, v2, seg_ids, kstart, kend, H, D):
+def _check_cuda_inputs(what, tensors, H, D):
+    """The kernels take contiguous, 16-byte aligned bf16 ``(T, H·D)``
+    tensors on one CUDA device with D in ``HEAD_DIMS``."""
+    q2 = tensors[0][1]
     if q2.device.type != 'cuda':
-        raise ValueError(f'segment_flash_fwd: unsupported device '
-                         f'{q2.device}')
-    for name, t in (('q', q2), ('k', k2), ('v', v2)):
+        raise ValueError(f'{what}: unsupported device {q2.device}')
+    for name, t in tensors:
         if t.dtype != torch.bfloat16:
-            raise TypeError(f'segment_flash_fwd: the CUDA kernel takes '
-                            f'bf16; {name} is {t.dtype} (fp32 runs on '
-                            f'the CPU through the plain version)')
+            raise TypeError(f'{what}: the CUDA kernel takes bf16; {name} '
+                            f'is {t.dtype} (fp32 runs on the CPU through '
+                            'the plain version)')
         if t.shape != q2.shape or t.device != q2.device \
                 or not t.is_contiguous():
-            raise ValueError(f'segment_flash_fwd: {name} must be a '
-                             f'contiguous {tuple(q2.shape)} tensor on '
-                             f'{q2.device}')
+            raise ValueError(f'{what}: {name} must be a contiguous '
+                             f'{tuple(q2.shape)} tensor on {q2.device}')
         if t.data_ptr() % 16:
-            raise ValueError(f'segment_flash_fwd: {name} must be 16-byte '
-                             'aligned')
+            raise ValueError(f'{what}: {name} must be 16-byte aligned')
     if q2.dim() != 2 or q2.shape[1] != H * D or D not in HEAD_DIMS:
-        raise ValueError(f'segment_flash_fwd: head dim {D} of '
-                         f'{tuple(q2.shape)} with {H} heads is not one '
-                         f'of {HEAD_DIMS}')
-    T = q2.shape[0]
-    nqb = -(-T // BLOCK_Q)
-    for name, t, n in (('seg_ids', seg_ids, T), ('kstart', kstart, nqb),
-                       ('kend', kend, nqb)):
-        if t.dtype != torch.int32 or t.shape != (n,) \
-                or t.device != q2.device or not t.is_contiguous():
-            raise ValueError(f'segment_flash_fwd: {name} must be a '
-                             f'contiguous int32 ({n},) tensor on '
-                             f'{q2.device}')
+        raise ValueError(f'{what}: head dim {D} of {tuple(q2.shape)} with '
+                         f'{H} heads is not one of {HEAD_DIMS}')
+
+
+def _check_index_inputs(what, device, specs):
+    """Each ``(name, tensor, shape, dtype)`` is contiguous on ``device``
+    with that shape and dtype."""
+    for name, t, shape, dtype in specs:
+        shape = shape if isinstance(shape, tuple) else (shape,)
+        if t.dtype != dtype or tuple(t.shape) != shape \
+                or t.device != device or not t.is_contiguous():
+            raise ValueError(f'{what}: {name} must be a contiguous '
+                             f'{dtype} {shape} tensor on {device}')
+
+def attention_delta(o2, do2, num_heads: int):
+    """``delta = rowsum(do · o)`` per head, fp32 ``(H, T)``: the
+    softmax-backward term the backward kernels take
+    (``esme_tpu/ops/fused_attn.py:149-153``)."""
+    T, HD = o2.shape
+    return (do2.float() * o2.float()).reshape(T, num_heads, -1).sum(-1) \
+        .T.contiguous()
+
+
+def segment_flash_bwd_plain(q2, k2, v2, do2, lse, delta, seg_ids, kstart,
+                            kend, qstart, qend, num_heads: int):
+    """Plain PyTorch version of H2: the same inputs, the same outputs.
+
+    Processes 1024 query rows at a time against the union of their k
+    spans (``qstart``/``qend`` are taken for the kernel's signature and
+    not needed: dk and dv of each chunk are added into fp32 sums). Per
+    same-segment pair and head, as K4/K5 (``esme_tpu/ops/flash.py:
+    496-508, 533-549``): ``p = exp(q·k·scale - lse)``, ``dp = do·v``,
+    ``ds = p·(dp - delta)·scale`` in fp32; dv sums ``p·do`` with p
+    rounded to the value dtype, dk and dq sum ``ds·q`` and ``ds·k``
+    with ds rounded to it; each gradient is rounded once at the end.
+    Returns ``dq, dk, dv`` ``(T, H·D)`` in q's dtype.
+    """
+    T, HD = q2.shape
+    H = num_heads
+    D = HD // H
+    scale = 1.0 / math.sqrt(D)
+    dt = q2.dtype
+    q, k, v, do = (x.reshape(T, H, D) for x in (q2, k2, v2, do2))
+    dq = torch.empty_like(q2)
+    dk = torch.zeros((T, H, D), dtype=torch.float32, device=q2.device)
+    dv = torch.zeros_like(dk)
+    ks, ke = kstart.tolist(), kend.tolist()
+    per = max(1, 1024 // BLOCK_Q)
+    nqb = len(ks)
+    for b0 in range(0, nqb, per):
+        b1 = min(nqb, b0 + per)
+        r0, r1 = b0 * BLOCK_Q, min(T, b1 * BLOCK_Q)
+        k0 = min(ks[b0:b1]) * BLOCK_K
+        k1 = min(T, max(ke[b0:b1]) * BLOCK_K)
+        qf, dof = q[r0:r1].float(), do[r0:r1].float()
+        kf, vf = k[k0:k1].float(), v[k0:k1].float()
+        s = torch.einsum('thd,shd->hts', qf, kf) * scale
+        mask = seg_ids[r0:r1, None] == seg_ids[None, k0:k1]
+        p = torch.where(mask[None], torch.exp(s - lse[:, r0:r1, None]), 0.0)
+        dp = torch.einsum('thd,shd->hts', dof, vf)
+        ds = p * (dp - delta[:, r0:r1, None]) * scale
+        p = p.to(dt).float()
+        ds = ds.to(dt).float()
+        dv[k0:k1] += torch.einsum('hts,thd->shd', p, dof)
+        dk[k0:k1] += torch.einsum('hts,thd->shd', ds, qf)
+        dq[r0:r1] = torch.einsum('hts,shd->thd', ds, kf) \
+            .reshape(r1 - r0, HD).to(dt)
+    return dq, dk.reshape(T, HD).to(dt), dv.reshape(T, HD).to(dt)
+
+
+def segment_flash_bwd(q2, k2, v2, do2, lse, delta, seg_ids, kstart, kend,
+                      qstart, qend, num_heads: int):
+    """Segment-masked flash attention backward (kernel H2).
+
+    Args:
+        q2, k2, v2: the forward's ``(T, H·D)`` inputs (q and k rotated).
+        do2: ``(T, H·D)`` gradient of the attention output.
+        lse: ``(H, T)`` fp32 from :func:`segment_flash_fwd`.
+        delta: ``(H, T)`` fp32 from :func:`attention_delta`.
+        seg_ids: ``(T,)`` int32.
+        kstart, kend, qstart, qend: :func:`flash_spans` for ``seg_ids``.
+        num_heads: H.
+    Returns:
+        ``dq, dk, dv`` ``(T, H·D)`` in q's dtype.
+    """
+    if q2.device.type == 'cpu':
+        return segment_flash_bwd_plain(q2, k2, v2, do2, lse, delta, seg_ids,
+                                       kstart, kend, qstart, qend,
+                                       num_heads)
+    T, HD = q2.shape
+    H = num_heads
+    D = HD // H
+    what = 'segment_flash_bwd'
+    _check_cuda_inputs(what, (('q', q2), ('k', k2), ('v', v2), ('do', do2)),
+                       H, D)
+    nqb, nkb = -(-T // BLOCK_Q), -(-T // BLOCK_KV)
+    _check_index_inputs(what, q2.device, (
+        ('seg_ids', seg_ids, T, torch.int32),
+        ('lse', lse, (H, T), torch.float32),
+        ('delta', delta, (H, T), torch.float32),
+        ('kstart', kstart, nqb, torch.int32),
+        ('kend', kend, nqb, torch.int32),
+        ('qstart', qstart, nkb, torch.int32),
+        ('qend', qend, nkb, torch.int32)))
+    from .. import _build
+    lib = _build.library('flash_bwd')
+    dq = torch.empty_like(q2)
+    dk = torch.empty_like(q2)
+    dv = torch.empty_like(q2)
+    stream = torch.cuda.current_stream(q2.device).cuda_stream
+    rc = lib.esme_segment_flash_bwd(
+        q2.data_ptr(), k2.data_ptr(), v2.data_ptr(), do2.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), seg_ids.data_ptr(),
+        kstart.data_ptr(), kend.data_ptr(), qstart.data_ptr(),
+        qend.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        T, H, D, 1.0 / math.sqrt(D), stream)
+    _build.check(rc, lib, 'esme_flash_bwd_error_string', what)
+    segment_flash_bwd.launches += 1
+    return dq, dk, dv
+
+
+segment_flash_bwd.launches = 0

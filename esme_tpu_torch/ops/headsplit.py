@@ -31,8 +31,10 @@ def rotary_qk_plain(q2, k2, cos, sin, num_heads: int,
 
 def rotary_qk(q2, k2, cos, sin, num_heads: int, inverse: bool = False):
     """Rotate q and k ``(T, H·D)`` with per-token tables ``(T, D)``
-    (kernel H3). ``inverse`` applies ``Rᵀ`` (the backward rotation).
-    Writes new tensors; q2 and k2 stay unrotated."""
+    (kernel H3). ``inverse`` applies ``Rᵀ`` (the backward rotation, the
+    rotating ``headsplit.py:_merge_kernel_t`` of the JAX backward).
+    Writes new tensors; q2 and k2 stay unrotated. ``launches`` counts
+    every launch, ``inverse_launches`` those with ``inverse``."""
     if q2.device.type == 'cpu':
         return rotary_qk_plain(q2, k2, cos, sin, num_heads, inverse)
     T, HD = q2.shape
@@ -61,7 +63,9 @@ def rotary_qk(q2, k2, cos, sin, num_heads: int, inverse: bool = False):
                           T, num_heads, D, int(bool(inverse)), stream)
     _build.check(rc, lib, 'esme_rope_error_string', 'rotary_qk')
     rotary_qk.launches += 1
+    rotary_qk.inverse_launches += bool(inverse)
     return qo, ko
 
 
 rotary_qk.launches = 0
+rotary_qk.inverse_launches = 0

@@ -138,7 +138,7 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
     # builds go under BUILD_ROOT, keyed by a hash of sources and flags
     assert _build._build_dir().parent == tmp_path
     assert sorted(p.name for p in _build.CSRC.glob('*.cu')) == \
-        ['flash_fwd.cu', 'rope.cu']
+        ['flash_bwd.cu', 'flash_fwd.cu', 'rope.cu']
 
 
 def test_chip_smoke_fails_without_a_card():

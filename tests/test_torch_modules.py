@@ -114,7 +114,7 @@ def test_attention_block(dtype, impl):
                                attn_impl='reference')
     tseg, tpos = torch.from_numpy(seg), torch.from_numpy(pos)
     rope = trot.rotary_cos_sin(tpos, tcfg.head_dim, dtype=tx.dtype)
-    spans = tflash.block_spans(tseg, tflash.BLOCK_Q, tflash.BLOCK_K)
+    spans = tflash.flash_spans(tseg)
     got = tmod.attention_block(tx, tmod.layer_params(tp['layers'], 1)
                                ['attn'], tcfg, tseg, tpos, attn_impl=impl,
                                rope=rope, spans=spans)
