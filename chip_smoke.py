@@ -10,7 +10,8 @@ Phases, in order; any failure exits non-zero before a result is printed:
 3. hold each kernel against its plain PyTorch version on the card, on a
    packed 8k-token batch: segment-flash forward (H1) and backward (H2)
    at head dims 16, 24, 32, 64 and 128, RoPE (H3) forward and inverse,
-   each beside its gate;
+   the head relayout (H4) in every layout pair and rotation the ops use
+   at each head dim (bit-equal), each beside its gate;
 4. the inference path: ESM2-650M (33 layers, width 1280, 20 heads,
    bf16, weights from seed 0) ``predict_log_prob(tokens,
    pad_args=(cu_lens, max_len))`` on ``bench.py``'s packed batch (seed
@@ -29,13 +30,26 @@ Phases, in order; any failure exits non-zero before a result is printed:
    every leaf's gradient with kernels against with plain versions, and
    with ``remat='full'`` against without; then a two-step ``fit`` over a
    ``MaskedFastaTokenDataset`` on a FASTA file written from seed 0;
-6. times: each kernel at its path's shapes beside its bound, its plain
+6. the attention op API at the main shape (T = 50,176, H = 20, D = 64,
+   bf16), each op with the launch counters set to 0 just before and
+   read just after, against the same op through the plain versions:
+   ``flash_segment_attention`` ('thd' and 'htd') and ``flash_tm``,
+   forward and backward, under H1's and H2's gates; ``split_heads_rotary``
+   -> ``merge_heads``, values and gradients, bit-equal (and the merged q
+   and k bit-equal to H3's); ``fwd_v2`` against ``segment_flash_fwd``;
+   JAX's ``ESME_FLASH_IMPL=v2`` steps, ``_split_call_t`` -> ``fwd_v2``
+   -> ``_merge_call``, against ``fused_rotary_flash``'s forward (o under
+   H1's gate, lse within 1e-4). A plain run in which a kernel's counter
+   moves fails (phases 4 and 5 too);
+7. times: each kernel at its path's shapes beside its bound, its plain
    version and library calls timed as yardsticks only (the port calls
    none): for H1 ``scaled_dot_product_attention`` with a dense
    block-diagonal mask (``library_ms``, T^2 work) and PyTorch's varlen
    flash-attention forward over the same segments
    (``library_varlen_ms``); for H2 PyTorch's varlen flash-attention
-   backward (``library_ms``). ``--profile DIR`` also writes
+   backward (``library_ms``); for H4, each of its modes at the main
+   shape, with one ``permute(...).contiguous()`` call as the yardstick
+   of a move without rotation. ``--profile DIR`` also writes
    ``torch.profiler`` tables of one forward and one train step there.
 
 The last three lines are the kernels' JSON, the measurements' JSON and
@@ -109,8 +123,26 @@ GRAD_MAX_REL = 0.1
 # computed in fp32 can fall a few 1e-7 below 1.)
 REMAT_MIN_COS, REMAT_MAX_REL = 0.9999, 2.0 ** -8
 
-H1_NAME, H2_NAME, H3_NAME = ('segment_flash_fwd', 'segment_flash_bwd',
-                             'rotary_qk')
+H1_NAME, H2_NAME, H3_NAME, H4_NAME = (
+    'segment_flash_fwd', 'segment_flash_bwd', 'rotary_qk', 'relayout_heads')
+
+# H4's moves as the ops make them: (sources, destinations, rotations) of
+# the tensors of one launch; 'R' is RoPE, 'RT' its transpose, 'N' none.
+# The first is the kernel's headline mode (K11, the three-tensor split).
+RELAYOUTS = {
+    'split (K11)': ('thd', 'htd', 'R R N'),
+    'split, R^T (K11)': ('thd', 'htd', 'RT RT N'),
+    'merge (K12; K13 back)': ('htd', 'thd', 'N'),
+    'merge, R (K12)': ('htd', 'thd', 'R'),
+    'merge, R^T (split back)': ('htd', 'thd', 'RT RT N'),
+    'split one (K13)': ('thd', 'htd', 'N'),
+    'split_t (K7)': ('thd', ('htd', 'hdt', 'hdt'), 'R R N'),
+    'split_t q_minor (K8, K9)': ('thd', 'hdt', 'R R N'),
+    'merge_t, R^T (K10)': ('hdt', 'thd', 'RT'),
+    'to thd (fwd_v2)': (('htd', 'hdt', 'hdt'), 'thd', 'N N N'),
+    'to hdt (flash_tm)': ('thd', 'hdt', 'N'),
+    'from hdt (flash_tm)': ('hdt', 'thd', 'N'),
+}
 
 # Sizes: ESM2-650M at full width and depth, bench.py's 50k-token batch,
 # the 8k-token batch of the kernel checks (where the plain version's
@@ -181,13 +213,18 @@ def flash_inputs(cu, budget, H, D, dev, seed):
     return q, k, v, seg, pos, spans
 
 
+def o_errors(o, o_p):
+    """max|o - o_plain| and its largest share of the o gate (<= 1
+    passes)."""
+    d = (o.float() - o_p.float()).abs()
+    gate = FLASH_O_REL * o_p.float().abs().clamp_min(FLASH_O_FLOOR)
+    return d.max().item(), (d / gate).max().item()
+
+
 def flash_errors(o, lse, o_p, lse_p):
     """max|o - o_plain|, its largest share of the o gate (<= 1 passes)
     and max|lse - lse_plain|."""
-    d = (o.float() - o_p.float()).abs()
-    gate = FLASH_O_REL * o_p.float().abs().clamp_min(FLASH_O_FLOOR)
-    return d.max().item(), (d / gate).max().item(), \
-        (lse - lse_p).abs().max().item()
+    return (*o_errors(o, o_p), (lse - lse_p).abs().max().item())
 
 
 def check_flash(cu, budget, H, D, dev, seed=0, what=''):
@@ -222,6 +259,20 @@ def bwd_inputs(cu, budget, H, D, dev, seed):
     return q, k, v, do, lse, flash.attention_delta(o, do, H), seg, spans
 
 
+def grad_errors(got, ref):
+    """Per tensor: max|g - g_plain|, its largest share of the H2 gate
+    (<= 1 passes); and whether every g is finite."""
+    errs, shares, finite = [], [], True
+    for a, b in zip(got, ref):
+        a, b = a.float(), b.float()
+        d = (a - b).abs()
+        gate = FLASH_G_REL * b.abs().clamp_min(b.square().mean().sqrt())
+        errs.append(d.max().item())
+        shares.append((d / gate).max().item())
+        finite = finite and bool(torch.isfinite(a).all())
+    return errs, shares, finite
+
+
 def check_flash_bwd(cu, budget, H, D, dev, seed=0, what=''):
     """H2 vs its plain version; returns (max |error|, largest gate
     share) over dq, dk and dv."""
@@ -232,14 +283,7 @@ def check_flash_bwd(cu, budget, H, D, dev, seed=0, what=''):
     ref = flash.segment_flash_bwd_plain(q, k, v, do, lse, delta, seg, *spans,
                                         H)
     torch.cuda.synchronize()
-    errs, shares, finite = [], [], True
-    for a, b in zip(got, ref):
-        a, b = a.float(), b.float()
-        d = (a - b).abs()
-        gate = FLASH_G_REL * b.abs().clamp_min(b.square().mean().sqrt())
-        errs.append(d.max().item())
-        shares.append((d / gate).max().item())
-        finite = finite and bool(torch.isfinite(a).all())
+    errs, shares, finite = grad_errors(got, ref)
     ok = max(shares) <= 1.0 and finite
     log(f'H2{what} T={q.shape[0]} H={H} D={D}: max|g-plain| dq/dk/dv '
         f'{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}, largest share of the '
@@ -276,22 +320,77 @@ def check_rope(T, H, D, dev, seed=0):
     return err
 
 
+def relayout_args(mode, T, H, D, dev, seed):
+    """H4's arguments for ``RELAYOUTS[mode]``: random bf16 tensors in
+    their source layouts and RoPE tables of random positions."""
+    from esme_tpu_torch.ops import headsplit
+    from esme_tpu_torch.ops.rotary import rotary_cos_sin
+    src, dst, rot = RELAYOUTS[mode]
+    rot = tuple({'N': headsplit.ROT_NONE, 'R': headsplit.ROT_R,
+                 'RT': headsplit.ROT_RT}[r] for r in rot.split())
+    srcs = (src,) * len(rot) if isinstance(src, str) else src
+    shapes = {'thd': (T, H * D), 'htd': (H, T, D), 'hdt': (H, D, T)}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    xs = tuple(randn(shapes[s], gen, dev) for s in srcs)
+    pos = torch.randint(0, 1024, (T,), generator=gen, device=dev)
+    cos, sin = rotary_cos_sin(pos, D)
+    return xs, src, dst, H, rot, cos, sin
+
+
+def check_relayout(T, H, D, dev):
+    """H4 vs its plain version in every mode: bit equality (the rotation
+    rounds each product and each sum to bf16 as the plain version does;
+    a move without rotation copies the bits)."""
+    from esme_tpu_torch.ops import headsplit
+    for i, mode in enumerate(RELAYOUTS):
+        args = relayout_args(mode, T, H, D, dev, seed=D + i)
+        got = headsplit.relayout_heads(*args)
+        ref = headsplit.relayout_heads_plain(*args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+            e = max((a.float() - b.float()).abs().max().item()
+                    for a, b in zip(got, ref))
+            fail(f'H4 {mode} at T={T} H={H} D={D} differs from its plain '
+                 f'version by up to {e:.3e} (gate: bit equality)')
+    log(f'H4 T={T} H={H} D={D}: all {len(RELAYOUTS)} modes bit-equal to '
+        'the plain version (gate: bit equality) ok')
+
+
 @contextlib.contextmanager
 def plain_versions():
-    """Route the model's attention, forward and backward, through the
-    kernels' plain versions (for the comparisons of phases 4 and 5
-    only)."""
-    from esme_tpu_torch.ops import flash, fused_attn, headsplit
-    names = ('rotary_qk', 'segment_flash_fwd', 'segment_flash_bwd')
-    saved = [getattr(fused_attn, n) for n in names]
-    fused_attn.rotary_qk = headsplit.rotary_qk_plain
-    fused_attn.segment_flash_fwd = flash.segment_flash_fwd_plain
-    fused_attn.segment_flash_bwd = flash.segment_flash_bwd_plain
+    """Route attention, forward and backward, through the kernels' plain
+    versions: the model's (phases 4 and 5) and the op API's (phase 6),
+    for their comparisons only. Fails if a kernel launched inside: its
+    counter is read on the wrapper itself, before and after."""
+    from esme_tpu_torch.ops import flash, flash_v2, fused_attn, headsplit
+    kernels = _counters()
+    before = _launch_totals(kernels)
+    swaps = [(m, n, getattr(flash, n + '_plain')) for m in
+             (fused_attn, flash, flash_v2) for n in
+             ('segment_flash_fwd', 'segment_flash_bwd') if hasattr(m, n)]
+    swaps += [(m, 'rotary_qk', headsplit.rotary_qk_plain)
+              for m in (fused_attn, headsplit)]
+    swaps += [(m, 'relayout_heads', headsplit.relayout_heads_plain)
+              for m in (headsplit, flash_v2)]
+    saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
+    for m, n, f in swaps:
+        setattr(m, n, f)
     try:
         yield
     finally:
-        for n, f in zip(names, saved):
-            setattr(fused_attn, n, f)
+        for m, n, f in saved:
+            setattr(m, n, f)
+    after = _launch_totals(kernels)
+    if after != before:
+        fail(f'a kernel launched while its plain version stood in: '
+             f'{before} -> {after}')
+
+
+def _launch_totals(kernels):
+    c = {name: f.launches for name, f in kernels.items()}
+    c['rope_inverse'] = kernels[H3_NAME].inverse_launches
+    return c
 
 
 def compare_logp(got, ref, what):
@@ -463,7 +562,7 @@ def main(argv):
     t0 = time.perf_counter()
     compiled = _build.build_all(verbose=True)
     build_s = time.perf_counter() - t0
-    for name in ('flash_fwd', 'flash_bwd', 'rope'):
+    for name in ('flash_fwd', 'flash_bwd', 'rope', 'headsplit'):
         _build.library(name)
     log(f'build: {build_s:.1f} s wall, per source {compiled} '
         f'(empty: already built in {_build._build_dir()})')
@@ -480,6 +579,9 @@ def main(argv):
     for d in (16, 24, 32, 128):
         check_rope(CHECK_BUDGET, 20 if d < 128 else 40, d, dev, seed=d)
     rope_err = check_rope(BUDGET + (-BUDGET) % 256, H, D, dev)
+    for d in (16, 24, 32, 64, 128):
+        for t in (CHECK_BUDGET, CHECK_BUDGET - 1):    # T % 8 != 0 too
+            check_relayout(t, 20 if d < 128 else 40, d, dev)
 
     # 4. the inference path
     from esme_tpu_torch import ESM2
@@ -499,8 +601,9 @@ def main(argv):
     launches = read_counters()
     L = model.config.num_layers
     log(f'inference path launches per forward: {launches} (expected one of '
-        f'H1 and H3 per layer)')
-    if launches != {H1_NAME: L, H2_NAME: 0, H3_NAME: L, 'rope_inverse': 0}:
+        f'H1 and H3 per layer, no H4)')
+    if launches != {H1_NAME: L, H2_NAME: 0, H3_NAME: L, 'rope_inverse': 0,
+                    H4_NAME: 0}:
         fail(f'the inference path did not launch H1 and H3 once per layer: '
              f'{launches}')
     if tuple(lp.shape) != (BUDGET, 33) or lp.dtype != torch.float32:
@@ -559,7 +662,10 @@ def main(argv):
     del model
     torch.cuda.empty_cache()
 
-    # 6. times
+    # 6. the attention op API
+    ops = check_op_api(cu, dev)
+
+    # 7. times
     h1_err, h1_lse_err = check_flash(cu, BUDGET, H, D, dev, seed=7,
                                      what=' at the main shape')
     q, k, v, seg, pos, spans = flash_inputs(cu, BUDGET, H, D, dev, 7)
@@ -584,7 +690,9 @@ def main(argv):
                     reps=20, warmup=2)
     h3_plain_ms = cuda_ms(lambda: headsplit.rotary_qk_plain(
         q, k, cos, sin, H), reps=5)
-    h3_bytes = 4 * q.numel() * 2 + 2 * cos.numel() * 2
+    # q and k read and written once; of the tables, the halves
+    # [:, :D/2] that H3 reads (csrc/rope.cu)
+    h3_bytes = 4 * q.numel() * 2 + cos.numel() * 2
     h3_bound, h3_by = bound(h3_bytes, 6.0 * q.numel(), FP32_FLOP_PER_S)
     del q, k, v, o, cos, sin
     torch.cuda.empty_cache()
@@ -611,12 +719,16 @@ def main(argv):
     del q, k, v, do, dq, h2_args
     torch.cuda.empty_cache()
 
+    h4_modes = time_relayouts(T, H, D, dev)
+    h4 = h4_modes[next(iter(RELAYOUTS))]
+
     train_launches = {key: c['launches'] for key, c in cells.items()}
     kernels = [
         {'name': H1_NAME, 'route': 'cuda',
          'source': 'esme_tpu_torch/csrc/flash_fwd.cu',
          'replaces': 'esme_tpu/ops/flash.py:370',
          'also_replaces': ['esme_tpu/ops/flash.py:257',
+                           'esme_tpu/ops/flash_v2.py:45',
                            'esme_tpu/ops/headsplit.py:114',
                            'esme_tpu/ops/headsplit.py:235'],
          'launches': launches[H1_NAME],
@@ -659,6 +771,24 @@ def main(argv):
          'ms': h3_ms, 'plain_ms': h3_plain_ms, 'bound_ms': h3_bound,
          'bound_by': h3_by, 'library_ms': None,
          'shape': f'T={T} H={H} D={D} bf16', 'bytes': h3_bytes},
+        {'name': H4_NAME, 'route': 'cuda',
+         'source': 'esme_tpu_torch/csrc/headsplit.cu',
+         'replaces': 'esme_tpu/ops/headsplit.py:52',
+         'also_replaces': ['esme_tpu/ops/headsplit.py:70',
+                           'esme_tpu/ops/headsplit.py:75',
+                           'esme_tpu/ops/headsplit.py:216'],
+         'launches': sum(r['launches'][H4_NAME] for r in ops.values()),
+         'inference_launches': launches[H4_NAME],
+         'train_launches': {key: c[H4_NAME]
+                            for key, c in train_launches.items()},
+         'op_launches': {op: r['launches'][H4_NAME]
+                         for op, r in ops.items()},
+         'max_abs_err': max(m['max_abs_err'] for m in h4_modes.values()),
+         'ms': h4['ms'], 'plain_ms': h4['plain_ms'],
+         'bound_ms': h4['bound_ms'], 'bound_by': h4['bound_by'],
+         'library_ms': h4['library_ms'], 'mode': next(iter(RELAYOUTS)),
+         'modes': h4_modes, 'shape': f'T={T} H={H} D={D} bf16',
+         'bytes': h4['bytes']},
     ]
     for kd in kernels:
         log(f"{kd['name']}: {kd['ms']:.4f} ms (bound {kd['bound_ms']:.4f} "
@@ -672,7 +802,7 @@ def main(argv):
         'ms_per_batch': fwd_ms, 'ms_per_batch_samples': fwd_samples,
         'real_tokens_per_s': real / fwd_ms * 1e3,
         'peak_mem_gib': peak / 2**30, 'host_enqueue_ms': host_ms,
-        'train': cells, 'grad_checks': grad_checks,
+        'train': cells, 'grad_checks': grad_checks, 'op_api': ops,
         'fit_losses': fit_losses, 'build_s': build_s,
         'model_checks': model_checks, 'torch': torch.__version__,
         'cuda': torch.version.cuda,
@@ -688,7 +818,8 @@ def main(argv):
 def _counters():
     from esme_tpu_torch.ops import flash, headsplit
     return {H1_NAME: flash.segment_flash_fwd,
-            H2_NAME: flash.segment_flash_bwd, H3_NAME: headsplit.rotary_qk}
+            H2_NAME: flash.segment_flash_bwd, H3_NAME: headsplit.rotary_qk,
+            H4_NAME: headsplit.relayout_heads}
 
 
 def reset_counters():
@@ -698,9 +829,7 @@ def reset_counters():
 
 
 def read_counters():
-    c = {name: f.launches for name, f in _counters().items()}
-    c['rope_inverse'] = _counters()[H3_NAME].inverse_launches
-    return c
+    return _launch_totals(_counters())
 
 
 def train_batch(budget: int):
@@ -740,7 +869,8 @@ def train_cell(model, plm_cls, key, budget, ckpt, reps, falls, n_params,
     first_ms = (time.perf_counter() - t0) * 1e3
     launches = read_counters()
     expected = {H1_NAME: 2 * L if ckpt else L, H2_NAME: L,
-                H3_NAME: (3 if ckpt else 2) * L, 'rope_inverse': L}
+                H3_NAME: (3 if ckpt else 2) * L, 'rope_inverse': L,
+                H4_NAME: 0}
     log(f'train {key}@{budget}: launches in one step {launches} (expected '
         f'{expected})')
     if launches != expected:
@@ -872,6 +1002,208 @@ def check_fit(model, plm_cls):
         fail(f'fit: losses {history}')
     torch.cuda.empty_cache()
     return history
+
+
+def op_run(fn, xs, w):
+    """``fn(*xs)`` and the gradients of ``<fn(*xs), w>``, with the launch
+    counters set to 0 just before and read just after."""
+    xs = [x.clone().requires_grad_() for x in xs]
+    torch.cuda.synchronize()
+    reset_counters()
+    o = fn(*xs)
+    o.backward(w)
+    torch.cuda.synchronize()
+    return o.detach(), [x.grad for x in xs], read_counters()
+
+
+def expect_launches(what, got, **expected):
+    want = {H1_NAME: 0, H2_NAME: 0, H3_NAME: 0, 'rope_inverse': 0,
+            H4_NAME: 0, **expected}
+    if got != want:
+        fail(f'{what}: launches {got}, not {want}')
+
+
+def check_op_api(cu, dev):
+    """Phase 6: each op of the attention API at the main shape against
+    the same op through the plain versions (see the module docstring).
+    Returns per op its launches and errors."""
+    from esme_tpu_torch.ops import flash, fused_attn, headsplit
+    from esme_tpu_torch.ops.flash_v2 import fwd_v2
+    from esme_tpu_torch.ops.rotary import rotary_cos_sin
+    H = MODEL['attention_heads']
+    D = MODEL['embed_dim'] // H
+    q, k, v, seg, pos, spans = flash_inputs(cu, BUDGET, H, D, dev, 11)
+    T = q.shape[0]
+    cos, sin = rotary_cos_sin(pos, D)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    w = randn(q.shape, gen, dev)
+    layouts = {
+        'thd': lambda x: x.view(T, H, D),
+        'htd': lambda x: x.view(T, H, D).transpose(0, 1).contiguous(),
+        'hdt': lambda x: x.view(T, H, D).permute(1, 2, 0).contiguous()}
+    results = {}
+
+    def against_plain(name, fn, layout, **expected):
+        xs = [layouts[layout](x) for x in (q, k, v)]
+        wl = layouts[layout](w)
+        o, g, launches = op_run(fn, xs, wl)
+        expect_launches(name, launches, **expected)
+        with plain_versions():
+            o_p, g_p, _ = op_run(fn, xs, wl)
+        e_o, share_o = o_errors(o, o_p)
+        errs, shares, finite = grad_errors(g, g_p)
+        ok = share_o <= 1.0 and max(shares) <= 1.0 and finite
+        log(f'{name} at T={T} H={H} D={D}: launches {launches}; '
+            f'max|o-plain| {e_o:.3e} ({share_o:.3f} of the H1 gate), '
+            f'max|g-plain| {max(errs):.3e} ({max(shares):.3f} of the H2 '
+            f'gate), finite {finite} {"ok" if ok else "FAIL"}')
+        if not ok:
+            fail(f'{name} disagrees with its plain version')
+        results[name] = {'launches': launches, 'o_max_abs_err': e_o,
+                         'o_gate_share': share_o,
+                         'grad_max_abs_err': max(errs),
+                         'grad_gate_share': max(shares)}
+
+    against_plain('flash_segment_attention thd',
+                  lambda q, k, v: flash.flash_segment_attention(q, k, v, seg),
+                  'thd', **{H1_NAME: 1, H2_NAME: 1})
+    against_plain('flash_segment_attention htd',
+                  lambda q, k, v: flash.flash_segment_attention(
+                      q, k, v, seg, layout='htd'),
+                  'htd', **{H1_NAME: 1, H2_NAME: 1, H4_NAME: 4})
+    against_plain('flash_tm', lambda q, k, v: flash.flash_tm(q, k, v, seg),
+                  'hdt', **{H1_NAME: 1, H2_NAME: 1, H4_NAME: 4})
+
+    # split_heads_rotary -> merge_heads: relayouts only, so bit-equal to
+    # the plain versions, values and gradients; the merged q and k are
+    # H3's rotation of the same rows
+    def split_merge(q2, k2, v2):
+        parts = headsplit.split_heads_rotary(q2, k2, v2, cos, sin, H)
+        return torch.stack([headsplit.merge_heads(p) for p in parts])
+
+    w3 = randn((3, T, H * D), gen, dev)
+    o, g, launches = op_run(split_merge, (q, k, v), w3)
+    expect_launches('split_heads_rotary -> merge_heads', launches,
+                    **{H4_NAME: 8})
+    with plain_versions():
+        o_p, g_p, _ = op_run(split_merge, (q, k, v), w3)
+    qr, kr = headsplit.rotary_qk(q, k, cos, sin, H)
+    same = torch.equal(o, o_p) and all(map(torch.equal, g, g_p))
+    same_h3 = torch.equal(o[0], qr) and torch.equal(o[1], kr) \
+        and torch.equal(o[2], v)
+    log(f'split_heads_rotary -> merge_heads at T={T}: launches {launches}; '
+        f'values and gradients bit-equal to the plain versions {same}, '
+        f'merged q and k bit-equal to H3 {same_h3} (gate: bit equality) '
+        f'{"ok" if same and same_h3 else "FAIL"}')
+    if not (same and same_h3):
+        fail('split_heads_rotary -> merge_heads is not bit-equal')
+    results['split_heads_rotary -> merge_heads'] = {
+        'launches': launches, 'bit_equal': same, 'bit_equal_h3': same_h3}
+
+    # fwd_v2 (H4, H1, H4) against H1 on the (T, H·D) layout
+    qh, kT, vT = layouts['htd'](q), layouts['hdt'](k), layouts['hdt'](v)
+    torch.cuda.synchronize()
+    reset_counters()
+    o, lse = fwd_v2(qh, kT, vT, seg.view(T, 1), seg.view(1, T), *spans[:2],
+                    block_q=flash.BLOCK_Q, block_k=flash.BLOCK_K,
+                    head_block=H, scale=D ** -0.5, interpret=False)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    expect_launches('fwd_v2', launches, **{H1_NAME: 1, H4_NAME: 2})
+    o_r, lse_r = flash.segment_flash_fwd(q, k, v, seg, *spans[:2], H,
+                                         scale=D ** -0.5)
+    e_o, share, e_l = flash_errors(o.transpose(0, 1).reshape(T, H * D),
+                                   lse[..., 0], o_r, lse_r)
+    ok = share <= 1.0 and e_l <= FLASH_LSE_ATOL
+    log(f'fwd_v2 at T={T}: launches {launches}; vs segment_flash_fwd '
+        f'max|o| {e_o:.3e} ({share:.3f} of the H1 gate), max|lse| '
+        f'{e_l:.3e} (gate {FLASH_LSE_ATOL}) {"ok" if ok else "FAIL"}')
+    if not ok:
+        fail('fwd_v2 disagrees with segment_flash_fwd')
+    results['fwd_v2'] = {'launches': launches, 'o_max_abs_err': e_o,
+                         'o_gate_share': share, 'lse_max_abs_err': e_l}
+
+    # JAX's ESME_FLASH_IMPL=v2 steps against fused_rotary_flash's forward
+    # (H3, H1): the same rotation and the same H1 on copies of the bits
+    torch.cuda.synchronize()
+    reset_counters()
+    _, _, o_d, lse_d = fused_attn._forward(q, k, v, cos, sin, seg, H, spans)
+    torch.cuda.synchronize()
+    expect_launches('fused_rotary_flash', read_counters(),
+                    **{H1_NAME: 1, H3_NAME: 1})
+    reset_counters()
+    qh, kT, vT = headsplit._split_call_t(q, k, v, cos, sin, H)
+    o, lse = fwd_v2(qh, kT, vT, seg.view(T, 1), seg.view(1, T), *spans[:2],
+                    block_q=flash.BLOCK_Q, block_k=flash.BLOCK_K,
+                    head_block=H, scale=D ** -0.5, interpret=False)
+    o = headsplit._merge_call(o, None, None, False, False)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    expect_launches('_split_call_t -> fwd_v2 -> _merge_call', launches,
+                    **{H1_NAME: 1, H4_NAME: 4})
+    e_o, share, e_l = flash_errors(o, lse.view(H, T), o_d, lse_d)
+    same = torch.equal(o, o_d)
+    ok = share <= 1.0 and e_l <= FLASH_LSE_ATOL
+    log(f'_split_call_t -> fwd_v2 -> _merge_call at T={T}: launches '
+        f'{launches}; vs fused_rotary_flash max|o| {e_o:.3e} ({share:.3f} '
+        f'of the H1 gate), max|lse| {e_l:.3e} (gate {FLASH_LSE_ATOL}), '
+        f'bit-equal o {same} {"ok" if ok else "FAIL"}')
+    if not ok:
+        fail('the v2 steps disagree with fused_rotary_flash')
+    results['v2 steps'] = {
+        'launches': launches, 'o_max_abs_err': e_o, 'o_gate_share': share,
+        'lse_max_abs_err': e_l, 'bit_equal_o': same}
+    del q, k, v, w, w3, o, g, o_p, g_p, o_d, qh, kT, vT
+    torch.cuda.empty_cache()
+    return results
+
+
+def time_relayouts(T, H, D, dev):
+    """H4 in each mode at the main shape, held bit-equal to its plain
+    version: ms beside its bound (bytes: each tensor read and written
+    once and, where a tensor rotates, the halves ``[:, :D/2]`` of the
+    cos and sin tables that H4 and its plain version read, once), its
+    plain version's ms and, for a move of one tensor without rotation,
+    one ``permute(...).contiguous()`` call's ms."""
+    from esme_tpu_torch.ops import headsplit
+    order = {'thd': (0, 1, 2), 'htd': (1, 0, 2), 'hdt': (1, 2, 0)}
+    modes = {}
+    for mode in RELAYOUTS:
+        args = relayout_args(mode, T, H, D, dev, seed=3)
+        xs, src, dst, _, rot, cos, sin = args
+        got = headsplit.relayout_heads(*args)
+        ref = headsplit.relayout_heads_plain(*args)
+        err = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip(got, ref))
+        if not all(map(torch.equal, got, ref)):
+            fail(f'H4 {mode} at T={T} H={H} D={D} differs from its plain '
+                 f'version by up to {err:.3e} (gate: bit equality)')
+        ms = cuda_ms(lambda: headsplit.relayout_heads(*args), reps=20,
+                     warmup=2)
+        plain_ms = cuda_ms(lambda: headsplit.relayout_heads_plain(*args),
+                           reps=3)
+        rotates = any(rot)
+        nbytes = 2 * sum(x.numel() * x.element_size() for x in xs) \
+            + (cos.numel() * cos.element_size() if rotates else 0)
+        flops = 6.0 * xs[0].numel() * sum(map(bool, rot))
+        b, by = bound(nbytes, flops, FP32_FLOP_PER_S)
+        lib = None
+        if len(xs) == 1 and not rotates:
+            view = headsplit._thd_view(xs[0], src, H).permute(*order[dst])
+            if not torch.equal(view.contiguous().view(got[0].shape), got[0]):
+                fail(f'H4 {mode}: the library yardstick computes another '
+                     'function')
+            lib = cuda_ms(lambda: view.contiguous(), reps=20, warmup=2)
+        modes[mode] = {'ms': ms, 'plain_ms': plain_ms, 'bound_ms': b,
+                       'bound_by': by, 'library_ms': lib, 'bytes': nbytes,
+                       'max_abs_err': err}
+        log(f'H4 {mode} at T={T} H={H} D={D}: {ms:.4f} ms (bound {b:.4f} '
+            f'ms by {by}, {ms / b:.2f}x), plain {plain_ms:.3f} ms, library '
+            f'{lib}, max|err| {err}')
+        del args, xs, got, ref
+        torch.cuda.empty_cache()
+    return modes
 
 
 def _leaf_pairs(got, ref, path=()):

@@ -52,6 +52,10 @@ SIGNATURES = {
         'esme_segment_flash_bwd': (I, [P] * 14 + [I, I, I, F, P]),
         'esme_flash_bwd_error_string': (ctypes.c_char_p, [I]),
     },
+    'headsplit': {
+        'esme_relayout_heads': (I, [P] * 6 + [I] * 4 + [P, P, I, I, I, P]),
+        'esme_relayout_error_string': (ctypes.c_char_p, [I]),
+    },
     'rope': {
         'esme_rope_qk': (I, [P, P, P, P, P, P, I, I, I, I, P]),
         'esme_rope_error_string': (ctypes.c_char_p, [I]),

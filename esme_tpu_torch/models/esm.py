@@ -68,7 +68,7 @@ def forward_flat(params, cfg: ESMConfig, tokens, seg_ids, pos_ids, *,
     if cfg.family != 'esm2':
         raise NotImplementedError(
             f'{cfg.family}: only ESM2 is ported; ESMC, ESM1b and ESM1v '
-            'come in slice 2')
+            'are still to port (ROADMAP.md Queue 1, item 12)')
     T = tokens.shape[0]
     spans = None
     if attn_impl == 'reference':
@@ -302,8 +302,8 @@ def _class_for(family: str):
         return ESM2
     if family in ('esm1b', 'esm1v', 'esmc'):
         raise NotImplementedError(
-            f'{family}: only ESM2 is ported; ESMC, ESM1b and ESM1v come in '
-            'slice 2')
+            f'{family}: only ESM2 is ported; ESMC, ESM1b and ESM1v are '
+            'still to port (ROADMAP.md Queue 1, item 12)')
     raise ValueError(f'unknown model family: {family}')
 
 

@@ -22,7 +22,7 @@ def init_params(cfg: ESMConfig, seed: int = 0, device='cpu') -> dict:
     if cfg.family != 'esm2':
         raise NotImplementedError(
             f'{cfg.family}: only ESM2 is ported; ESMC, ESM1b and ESM1v '
-            'come in slice 2')
+            'are still to port (ROADMAP.md Queue 1, item 12)')
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)

@@ -109,8 +109,8 @@ def config_from_metadata(metadata: Dict[str, str],
                           dtype=dtype)
     elif family in ('esmc', 'esm1b', 'esm1v'):
         raise NotImplementedError(
-            f'{family}: only ESM2 is ported; ESMC, ESM1b and ESM1v come '
-            'in slice 2')
+            f'{family}: only ESM2 is ported; ESMC, ESM1b and ESM1v are '
+            'still to port (ROADMAP.md Queue 1, item 12)')
     else:
         raise ValueError(f'unknown model family in metadata: {name}')
     return cfg, name
@@ -256,8 +256,8 @@ def params_from_jax(params_np: dict, cfg: ESMConfig, device='cpu') -> dict:
     ``cfg`` is the port's config of the same model."""
     if cfg.family != 'esm2':
         raise NotImplementedError(
-            f'{cfg.family}: only ESM2 is ported; the other families come '
-            'in slice 2')
+            f'{cfg.family}: only ESM2 is ported; the other families are '
+            'still to port (ROADMAP.md Queue 1, item 12)')
 
     def convert(a):
         a = np.asarray(a)

@@ -83,7 +83,8 @@ def attention_block(x, params, cfg, seg_ids, pos_ids,
     if cfg.qk_layernorm or not cfg.rotary:
         raise NotImplementedError(
             f'{cfg.family}: only the ESM2 attention block is ported; '
-            'ESMC, ESM1b and ESM1v come in slice 2')
+            'ESMC, ESM1b and ESM1v are still to port (ROADMAP.md Queue 1, '
+            'item 12)')
     h = apply_norm(x, params['norm'])
     q = linear(h, params['q'])
     k = linear(h, params['k'])
@@ -111,7 +112,8 @@ def mlp_block(x, params, cfg):
     reference: esme/attention.py:228-236)."""
     if cfg.mlp != 'gelu':
         raise NotImplementedError(
-            f'{cfg.family}: the SwiGLU MLP comes in slice 2')
+            f'{cfg.family}: the SwiGLU MLP is still to port (ROADMAP.md '
+            'Queue 1, item 12)')
     h = apply_norm(x, params['norm'])
     h = linear(h, params['fc1'])
     fc2 = params['fc2']

@@ -7,7 +7,9 @@ esme/attention.py:112-124). Two implementations:
 
 * :func:`attention_reference` — einsum + mask, O(T²) memory; the
   numerics oracle and small-input path.
-* the segment-flash kernel in :mod:`esme_tpu_torch.ops.flash`.
+* :func:`~esme_tpu_torch.ops.flash.flash_segment_attention` — the
+  segment-flash kernels H1 (forward) and H2 (backward) in
+  :mod:`esme_tpu_torch.ops.flash`.
 """
 
 from __future__ import annotations
@@ -34,21 +36,30 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def segment_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      seg_ids: torch.Tensor, *,
-                      impl: str = 'auto') -> torch.Tensor:
-    """Dispatch between the einsum reference and the segment-flash
-    forward. ``impl='auto'`` picks flash (the kernel on a CUDA tensor,
-    its plain version on a CPU tensor)."""
+                      seg_ids: torch.Tensor, *, impl: str = 'auto',
+                      block_q: int | None = None, block_k: int | None = None,
+                      max_seqlen: int | None = None,
+                      layout: str = 'thd') -> torch.Tensor:
+    """Dispatch between the einsum reference and segment-flash attention,
+    both with a gradient. ``impl='auto'`` picks flash (kernels H1 and H2
+    on a CUDA tensor, their plain versions on a CPU tensor).
+
+    ``layout='thd'`` takes and returns ``(T, H, D)``, ``'htd'``
+    ``(H, T, D)``. ``block_q``/``block_k`` default to the flash kernel's
+    own tiles, the only ones it takes; ``max_seqlen`` is accepted and
+    unused (see :func:`~esme_tpu_torch.ops.flash.flash_segment_attention`).
+    """
     if impl == 'auto':
         impl = 'flash'
     if impl == 'reference':
+        if layout == 'htd':
+            q, k, v = (t.transpose(0, 1) for t in (q, k, v))
+            return attention_reference(q, k, v, seg_ids).transpose(0, 1)
         return attention_reference(q, k, v, seg_ids)
     if impl == 'flash':
-        from .flash import BLOCK_K, BLOCK_Q, block_spans, segment_flash_fwd
-        T, H, D = q.shape
-        kstart, kend = block_spans(seg_ids, BLOCK_Q, BLOCK_K)
-        o, _ = segment_flash_fwd(q.reshape(T, H * D), k.reshape(T, H * D),
-                                 v.reshape(T, H * D), seg_ids, kstart, kend,
-                                 H)
-        return o.reshape(T, H, D)
+        from .flash import BLOCK_K, BLOCK_Q, flash_segment_attention
+        return flash_segment_attention(
+            q, k, v, seg_ids, block_q=BLOCK_Q if block_q is None else block_q,
+            block_k=BLOCK_K if block_k is None else block_k,
+            max_seqlen=max_seqlen, layout=layout)
     raise ValueError(f'unknown attention impl: {impl}')

@@ -18,6 +18,12 @@ a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
 it runs its plain PyTorch version (``*_plain``). What bounds each
 kernel and what its design does about it is noted in its CUDA source.
 
+The public entries with a gradient, :func:`flash_segment_attention`
+(``(T, H, D)`` or ``(H, T, D)``) and :func:`flash_tm` (token-minor
+``(H, D, T)``), run H1 forward and H2 backward through one autograd
+Function over ``(T, H·D)``, with kernel H4 (``ops/headsplit.py``)
+relayouting the other layouts on either side.
+
 Block spans: packed batches make attention block-diagonal. For each q
 block the contiguous span ``[kstart, kend)`` of k blocks that share a
 segment with it, and for each k block the span ``[qstart, qend)`` of q
@@ -36,6 +42,7 @@ import math
 import torch
 
 from .attention import NEG_INF
+from .headsplit import relayout
 
 # The kernels' tile sizes (csrc/flash_fwd.cu and csrc/flash_bwd.cu: BQ,
 # BK; keep them equal): q blocks and k tiles of H1 and of H2's dq pass,
@@ -100,7 +107,7 @@ def flash_spans(seg_ids: torch.Tensor):
 
 
 def segment_flash_fwd_plain(q2, k2, v2, seg_ids, kstart, kend,
-                            num_heads: int):
+                            num_heads: int, scale: float | None = None):
     """Plain PyTorch version of H1: the same inputs, the same outputs.
 
     Processes 1024 query rows at a time against the union of their k
@@ -112,7 +119,7 @@ def segment_flash_fwd_plain(q2, k2, v2, seg_ids, kstart, kend,
     T, HD = q2.shape
     H = num_heads
     D = HD // H
-    scale = 1.0 / math.sqrt(D)
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
     q = q2.reshape(T, H, D)
     k = k2.reshape(T, H, D)
     v = v2.reshape(T, H, D)
@@ -142,7 +149,8 @@ def segment_flash_fwd_plain(q2, k2, v2, seg_ids, kstart, kend,
     return o, lse
 
 
-def segment_flash_fwd(q2, k2, v2, seg_ids, kstart, kend, num_heads: int):
+def segment_flash_fwd(q2, k2, v2, seg_ids, kstart, kend, num_heads: int,
+                      scale: float | None = None):
     """Segment-masked flash attention forward (kernel H1).
 
     Args:
@@ -151,12 +159,13 @@ def segment_flash_fwd(q2, k2, v2, seg_ids, kstart, kend, num_heads: int):
         kstart, kend: ``(ceil(T / BLOCK_Q),)`` int32 spans in units of
             ``BLOCK_K`` from :func:`block_spans` at the kernel's tiles.
         num_heads: H.
+        scale: the scores' scale, ``1/sqrt(D)`` when None.
     Returns:
         ``o (T, H·D)`` in q's dtype and ``lse (H, T)`` fp32.
     """
     if q2.device.type == 'cpu':
         return segment_flash_fwd_plain(q2, k2, v2, seg_ids, kstart, kend,
-                                       num_heads)
+                                       num_heads, scale)
     T, HD = q2.shape
     H = num_heads
     D = HD // H
@@ -175,7 +184,7 @@ def segment_flash_fwd(q2, k2, v2, seg_ids, kstart, kend, num_heads: int):
     rc = lib.esme_segment_flash_fwd(
         q2.data_ptr(), k2.data_ptr(), v2.data_ptr(), seg_ids.data_ptr(),
         kstart.data_ptr(), kend.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        T, H, D, 1.0 / math.sqrt(D), stream)
+        T, H, D, 1.0 / math.sqrt(D) if scale is None else scale, stream)
     _build.check(rc, lib, 'esme_flash_error_string', 'segment_flash_fwd')
     segment_flash_fwd.launches += 1
     return o, lse
@@ -324,3 +333,100 @@ def segment_flash_bwd(q2, k2, v2, do2, lse, delta, seg_ids, kstart, kend,
 
 
 segment_flash_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Public entries with a gradient: (T, H, D), (H, T, D) and token-minor
+# (H, D, T) around H1 and H2 (esme_tpu/ops/flash.py:1109-1165, 1221-1285)
+# ---------------------------------------------------------------------------
+
+def check_tiles(what: str, block_q: int, block_k: int) -> None:
+    """The JAX signatures' tile sizes stay; only the kernels' own are
+    taken."""
+    if (block_q, block_k) != (BLOCK_Q, BLOCK_K):
+        raise ValueError(f'{what}: the flash kernel\'s tiles are '
+                         f'{BLOCK_Q}x{BLOCK_K}, not {block_q}x{block_k}')
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Segment-flash attention over ``(T, H·D)`` with its gradient:
+    forward H1, backward ``delta = rowsum(do·o)`` and H2. ``seg_ids`` and
+    the spans get no gradient. The kernels are looked up in this module
+    at call time, so a caller may swap in their plain versions."""
+
+    @staticmethod
+    def forward(ctx, q2, k2, v2, seg_ids, num_heads, spans):
+        o, lse = segment_flash_fwd(q2, k2, v2, seg_ids, spans[0], spans[1],
+                                   num_heads)
+        ctx.save_for_backward(q2, k2, v2, o, lse, seg_ids, *spans)
+        ctx.num_heads = num_heads
+        return o
+
+    @staticmethod
+    def backward(ctx, do2):
+        q2, k2, v2, o, lse, seg_ids, *spans = ctx.saved_tensors
+        H = ctx.num_heads
+        do2 = do2.to(o.dtype).contiguous()
+        delta = attention_delta(o, do2, H)
+        dq, dk, dv = segment_flash_bwd(q2, k2, v2, do2, lse, delta, seg_ids,
+                                       *spans, H)
+        return dq, dk, dv, None, None, None
+
+
+def _flash_thd(q2, k2, v2, seg_ids, num_heads: int):
+    seg = seg_ids.to(torch.int32).contiguous()
+    return _FlashAttention.apply(q2.contiguous(), k2.contiguous(),
+                                 v2.contiguous(), seg, num_heads,
+                                 tuple(flash_spans(seg)))
+
+
+def flash_segment_attention(q, k, v, seg_ids, *, block_q: int = BLOCK_Q,
+                            block_k: int = BLOCK_K,
+                            max_seqlen: int | None = None,
+                            interpret: bool | None = None,
+                            layout: str = 'thd'):
+    """Segment-masked flash attention with a gradient, as ``esme_tpu``'s
+    function of the same name.
+
+    ``layout='thd'`` takes and returns ``(T, H, D)``, which is H1's
+    ``(T, H·D)`` without a copy; ``layout='htd'`` takes and returns
+    ``(H, T, D)``, relayouted by H4 on either side (one launch for q, k
+    and v, one for o; the same two in the backward). Any T: H1 and H2
+    take a ragged last block, so nothing is padded (JAX pads to
+    ``lcm(block_q, block_k)`` with a segment of its own, which leaves the
+    real rows as they are).
+
+    ``block_q``, ``block_k``: only the kernels' own tiles are taken.
+    ``max_seqlen`` and ``interpret`` are accepted for call compatibility
+    and unused: the kernels walk each block's exact span, and the device
+    decides between the kernels and the plain versions.
+    """
+    check_tiles('flash_segment_attention', block_q, block_k)
+    if layout == 'thd':
+        T, H, D = q.shape
+        o = _flash_thd(*(x.reshape(T, H * D) for x in (q, k, v)), seg_ids, H)
+        return o.view(T, H, D)
+    if layout == 'htd':
+        H = q.shape[0]
+        o = _flash_thd(*relayout((q, k, v), 'htd', 'thd', H), seg_ids, H)
+        return relayout((o,), 'thd', 'htd', H)[0]
+    raise ValueError(f'flash_segment_attention: unknown layout {layout!r}')
+
+
+def flash_tm(qT, kT, vT, seg_ids, block_q: int = BLOCK_Q,
+             block_k: int = BLOCK_K, max_seqlen: int | None = None,
+             interpret: bool | None = None, num_jobs: int | None = None):
+    """Segment-flash attention over token-minor ``(H, D, T)`` q/k/v (RoPE
+    already applied), with a gradient; returns oT ``(H, D, T)``.
+
+    H4 moves q, k and v to ``(T, H·D)`` in one launch and o back in
+    another (and do, then dq, dk and dv, in the backward) around H1 and
+    H2. ``block_q``/``block_k`` are checked as in
+    :func:`flash_segment_attention`; ``max_seqlen``, ``interpret`` and
+    ``num_jobs`` are accepted and unused (no job budget: the kernels walk
+    each block's own span).
+    """
+    check_tiles('flash_tm', block_q, block_k)
+    H = qT.shape[0]
+    o = _flash_thd(*relayout((qT, kT, vT), 'hdt', 'thd', H), seg_ids, H)
+    return relayout((o,), 'thd', 'hdt', H)[0]

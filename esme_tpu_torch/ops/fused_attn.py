@@ -14,14 +14,20 @@ What the forward saves: the rotated q and k (the same bytes as the
 projections the JAX function saves), v, o and the fp32 lse. Saving the
 rotated pair spares the backward one H3 launch per layer: it runs H3
 once, for ``Rᵀ``.
+
+JAX's ``ESME_FLASH_IMPL=v2`` route (an A/B switch of TPU tilings,
+``esme_tpu/ops/fused_attn.py:71-93``) is no option here. Its steps are
+functions of their own, ``_split_call_t`` and ``_merge_call`` in
+``ops/headsplit.py`` around ``ops/flash_v2.py:fwd_v2``, and composed
+they give this function's o.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .flash import (BLOCK_K, BLOCK_Q, attention_delta, flash_spans,
-                    segment_flash_bwd, segment_flash_fwd)
+from .flash import (BLOCK_K, BLOCK_Q, attention_delta, check_tiles,
+                    flash_spans, segment_flash_bwd, segment_flash_fwd)
 from .headsplit import rotary_qk
 
 
@@ -85,9 +91,7 @@ def fused_rotary_flash(q2, k2, v2, cos, sin, seg_ids, num_heads: int,
     Returns:
         ``(T, H·D)`` attention output.
     """
-    if (block_q, block_k) != (BLOCK_Q, BLOCK_K):
-        raise ValueError(f'fused_rotary_flash: the flash kernel\'s tiles '
-                         f'are {BLOCK_Q}x{BLOCK_K}, not {block_q}x{block_k}')
+    check_tiles('fused_rotary_flash', block_q, block_k)
     spans = tuple(flash_spans(seg_ids) if spans is None else spans)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q2, k2, v2)):

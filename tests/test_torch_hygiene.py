@@ -72,7 +72,8 @@ def test_entry_points_default_to_cuda(tmp_path):
 
 def test_cpu_runs_launch_no_kernel():
     counters = (fused_attn.segment_flash_fwd, fused_attn.rotary_qk,
-                tflash.segment_flash_fwd, headsplit.rotary_qk)
+                tflash.segment_flash_fwd, headsplit.rotary_qk,
+                headsplit.relayout_heads)
     before = [f.launches for f in counters]
     model = ESM2(config=esm2_config(2, 32, 2, dtype='float32'), rng=1,
                  device='cpu')
@@ -82,7 +83,7 @@ def test_cpu_runs_launch_no_kernel():
     cu = np.cumsum([0, *lens]).astype(np.int32)
     lp = model.predict_log_prob(tok, pad_args=(cu, max(lens)))
     assert lp.shape == (sum(lens), 33) and torch.isfinite(lp).all()
-    assert [f.launches for f in counters] == before == [0, 0, 0, 0]
+    assert [f.launches for f in counters] == before == [0, 0, 0, 0, 0]
 
 
 def test_entry_points_pin_fp32_accumulation(monkeypatch):
@@ -126,6 +127,8 @@ def test_kernel_wrappers_fall_back_only_on_cpu():
     tab = torch.empty((64, 16), dtype=torch.bfloat16, device='meta')
     with pytest.raises(ValueError, match='unsupported device'):
         headsplit.rotary_qk(q, q, tab, tab, 2)
+    with pytest.raises(ValueError, match='unsupported device'):
+        headsplit.relayout_heads((q,), 'thd', 'htd', 2)
 
 
 def test_build_needs_nvcc(monkeypatch, tmp_path):
@@ -138,7 +141,7 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
     # builds go under BUILD_ROOT, keyed by a hash of sources and flags
     assert _build._build_dir().parent == tmp_path
     assert sorted(p.name for p in _build.CSRC.glob('*.cu')) == \
-        ['flash_bwd.cu', 'flash_fwd.cu', 'rope.cu']
+        ['flash_bwd.cu', 'flash_fwd.cu', 'headsplit.cu', 'rope.cu']
 
 
 def test_chip_smoke_fails_without_a_card():

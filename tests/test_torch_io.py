@@ -116,7 +116,7 @@ def test_metadata_dispatch(tmp_path):
     cpath = str(tmp_path / 'esmc_t.safetensors')
     jio.save_pretrained(cpath, jinit(ccfg, jax.random.key(1)), ccfg,
                         'esmc_t')
-    with pytest.raises(NotImplementedError, match='slice 2'):
+    with pytest.raises(NotImplementedError, match='Queue 1, item 12'):
         ESM.from_pretrained(cpath, device='cpu')
     with pytest.raises(FileNotFoundError):
         ESM.from_pretrained(str(tmp_path / 'missing.safetensors'),

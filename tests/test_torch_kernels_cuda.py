@@ -21,6 +21,10 @@ Gates:
   (measured up to 0.019·rms(g) at 8k tokens, see ``chip_smoke.py``).
 * H3 (RoPE): bit equality; the kernel rounds each product and each sum
   to bf16 as the plain version does.
+* H4 (head relayout with optional RoPE): bit equality, for the same
+  reason; a move without rotation copies the bits.
+* ``segment_attention`` on the card: o under H1's gate, each gradient
+  under H2's, against the same function through the plain versions.
 """
 
 import numpy as np
@@ -187,3 +191,115 @@ def test_rope_kernel_matches_plain(cuda, D, inverse):
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
     assert torch.equal(q, q0) and torch.equal(k, k0)   # not in place
+
+
+# H4's moves as the ops make them: (sources, destinations, rotations) of
+# the tensors of one launch. R = RoPE, RT = its transpose, N = none.
+N, R, RT = headsplit.ROT_NONE, headsplit.ROT_R, headsplit.ROT_RT
+RELAYOUTS = {
+    'split (K11)': ('thd', 'htd', (R, R, N)),
+    'split, R^T (K11)': ('thd', 'htd', (RT, RT, N)),
+    'merge (K12, K13 back)': ('htd', 'thd', (N,)),
+    'merge, R (K12)': ('htd', 'thd', (R,)),
+    'merge, R^T (split back)': ('htd', 'thd', (RT, RT, N)),
+    'split one (K13)': ('thd', 'htd', (N,)),
+    'split_t (K7)': ('thd', ('htd', 'hdt', 'hdt'), (R, R, N)),
+    'split_t q_minor (K8, K9)': ('thd', 'hdt', (R, R, N)),
+    'merge_t, R^T (K10)': ('hdt', 'thd', (RT,)),
+    'to thd (fwd_v2, flash_tm)': (('htd', 'hdt', 'hdt'), 'thd', (N, N, N)),
+    'to hdt (flash_tm)': ('thd', 'hdt', (N,)),
+}
+
+
+def _relayout_inputs(src, n, T, H, D, dev, seed):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    srcs = (src,) * n if isinstance(src, str) else src
+    shapes = {'thd': (T, H * D), 'htd': (H, T, D), 'hdt': (H, D, T)}
+    xs = [torch.randn(shapes[s], generator=gen, device=dev)
+          .to(torch.bfloat16) for s in srcs]
+    pos = torch.randint(0, 1024, (T,), generator=gen, device=dev)
+    return xs, rotary_cos_sin(pos, D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('T', [1000, 1001])     # ragged tile; T % 8 != 0
+@pytest.mark.parametrize('D', [16, 24, 32, 64, 128])
+@pytest.mark.parametrize('mode', sorted(RELAYOUTS))
+def test_relayout_kernel_matches_plain(cuda, mode, D, T):
+    """H4 is bit-equal to its plain version in every mode the ops use
+    (the rotation rounds each product and each sum to bf16 as the plain
+    version does; a move without rotation copies the bits)."""
+    src, dst, rot = RELAYOUTS[mode]
+    H = 3
+    xs, (cos, sin) = _relayout_inputs(src, len(rot), T, H, D, cuda, D + T)
+    x0 = [x.clone() for x in xs]
+    before = headsplit.relayout_heads.launches
+    got = headsplit.relayout_heads(xs, src, dst, H, rot, cos, sin)
+    ref = headsplit.relayout_heads_plain(xs, src, dst, H, rot, cos, sin)
+    torch.cuda.synchronize()
+    assert headsplit.relayout_heads.launches == before + 1
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape and torch.equal(a, b)
+    assert all(torch.equal(a, b) for a, b in zip(xs, x0))  # not in place
+
+
+@pytest.mark.cuda
+def test_relayout_kernel_refuses_what_it_does_not_take(cuda):
+    xs, (cos, sin) = _relayout_inputs('thd', 1, 256, 2, 64, cuda, 0)
+    with pytest.raises(TypeError, match='bf16'):
+        headsplit.relayout_heads([xs[0].float()], 'thd', 'htd', 2)
+    x48 = torch.zeros((256, 2 * 48), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match='head dim 48'):
+        headsplit.relayout_heads([x48], 'thd', 'htd', 2)
+    with pytest.raises(ValueError, match='cos must be'):
+        headsplit.relayout_heads(xs, 'thd', 'htd', 2, R, cos[:-1], sin)
+    with pytest.raises(ValueError, match='contiguous'):
+        headsplit.relayout_heads([xs[0].T.contiguous().T], 'thd', 'htd', 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('layout', ['thd', 'htd'])
+def test_segment_attention_grad_on_card(cuda, layout, monkeypatch):
+    """``segment_attention(impl='flash')`` has a gradient on the card (H1
+    forward, H2 backward, H4 around them for 'htd'), equal to the same
+    function through the plain versions under the H1 and H2 gates."""
+    from esme_tpu_torch.ops.attention import segment_attention
+    T, H, D = 1700, 4, 64
+    q, k, v, seg = _packed([1000, 513, 77], T, H, D, cuda, seed=5)
+    shape = (T, H, D) if layout == 'thd' else (H, T, D)
+    q, k, v = (x.view(T, H, D) if layout == 'thd'
+               else x.view(T, H, D).transpose(0, 1).contiguous()
+               for x in (q, k, v))
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(6)
+    w = torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16)
+
+    def run():
+        xs = [x.clone().requires_grad_() for x in (q, k, v)]
+        o = segment_attention(*xs, seg, impl='flash', layout=layout)
+        assert o.shape == shape and o.grad_fn is not None
+        (o.float() * w.float()).sum().backward()
+        return o.detach(), [x.grad for x in xs]
+
+    counters = (flash.segment_flash_fwd, flash.segment_flash_bwd,
+                headsplit.relayout_heads)
+    before = [f.launches for f in counters]
+    o, got = run()
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == \
+        ([1, 1, 0] if layout == 'thd' else [1, 1, 4])
+    monkeypatch.setattr(flash, 'segment_flash_fwd',
+                        flash.segment_flash_fwd_plain)
+    monkeypatch.setattr(flash, 'segment_flash_bwd',
+                        flash.segment_flash_bwd_plain)
+    monkeypatch.setattr(headsplit, 'relayout_heads',
+                        headsplit.relayout_heads_plain)
+    o_p, ref = run()
+    gate = O_REL * o_p.float().abs().clamp_min(O_FLOOR)
+    assert ((o.float() - o_p.float()).abs() <= gate).all()
+    for a, b in zip(got, ref):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a.float()).all()
+        b = b.float()
+        gate = G_REL * b.abs().clamp_min(b.square().mean().sqrt())
+        assert ((a.float() - b).abs() <= gate).all()

@@ -145,6 +145,6 @@ def test_embed_tokens_zeroes_mask():
 
 def test_unported_family_raises():
     jcfg, tcfg, jp, tp = _model('float32')
-    with pytest.raises(NotImplementedError, match='slice 2'):
+    with pytest.raises(NotImplementedError, match='Queue 1, item 12'):
         tmod.mlp_block(torch.zeros(4, 64), tmod.layer_params(
             tp['layers'], 0)['mlp'], replace(tcfg, mlp='swiglu'))
