@@ -7,6 +7,8 @@ Phases, in order; any failure exits non-zero before a result is printed:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every kernel from ``esme_tpu_torch/csrc`` with ``nvcc`` (timed);
+   H1's and H2's production instantiations must keep the registers,
+   stack and spills ``ptxas`` gave them before the ablation modes;
 3. hold each kernel against its plain PyTorch version on the card, on a
    packed 8k-token batch: segment-flash forward (H1) and backward (H2)
    at head dims 16, 24, 32, 64 and 128, RoPE (H3) forward and inverse,
@@ -50,7 +52,20 @@ Phases, in order; any failure exits non-zero before a result is printed:
    backward (``library_ms``); for H4, each of its modes at the main
    shape, with one ``permute(...).contiguous()`` call as the yardstick
    of a move without rotation. ``--profile DIR`` also writes
-   ``torch.profiler`` tables of one forward and one train step there.
+   ``torch.profiler`` tables of one forward and one train step there;
+8. the probe tools' kernels (``esme_tpu_torch/tools``, none on the model
+   path, where their counters must stay 0): on the 8k check batch, H5 (the
+   transposed-score forward on token-minor operands) at head dims 16-128
+   under H1's gates, every ablation mode of H1 (H6, 11 modes) and of H2's
+   two kernels (H7, 8 modes each) and the four ceiling probes (H8), each
+   against its plain version under the gate its tool's ``check`` states;
+   then each tool's own run at the main shapes (H5 beside H1, every mode
+   and probe timed beside the bound of the work it keeps, H6 and H8 on
+   the inference batch, H7 on the 50k train batch), with the launch
+   counters set to 0 just before and read just after; H6 ``baseline`` and
+   H7 ``real`` bit-equal to H1 and H2 there; H1's and H2's times within
+   3% of their times before the ablation modes were added, on the card
+   those were taken on (``REF_CARD``; logged on any other).
 
 The last three lines are the kernels' JSON, the measurements' JSON and
 ``{"ok": true, "device": {...}}``.
@@ -61,6 +76,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -125,6 +141,27 @@ REMAT_MIN_COS, REMAT_MAX_REL = 0.9999, 2.0 ** -8
 
 H1_NAME, H2_NAME, H3_NAME, H4_NAME = (
     'segment_flash_fwd', 'segment_flash_bwd', 'rotary_qk', 'relayout_heads')
+# the probe tools' kernels (esme_tpu_torch/tools): H5, H6 (H1's ablation
+# modes), H7 (H2's) and the four H8 probes; none is on the model path
+H5_NAME, H6_NAME, H7_NAME = 'fwd_T', 'variant_fwd', 'bwd_variant'
+H8_NAMES = ('probe_vpu', 'probe_mxu', 'probe_dma', 'probe_dma_t')
+# H1's and H2's times at the main shapes before the ablation modes were
+# added (PERF.md's kernel table), on REF_CARD. The mode-0 instantiations
+# are held to within 3% of them there, on the better of the script's two
+# timings of each (phase 7's and phase 8's); another card or power limit
+# moves them, and there they are logged only.
+H1_REF_MS, H2_REF_MS = 1.0984, 4.1524
+REF_CARD = 'NVIDIA H100 80GB HBM3, 700.00 W'
+# ptxas' report of the same instantiations before the modes were added
+# (registers by padded head dim; no stack frame and no spills at any):
+# the build must give them unchanged.
+MODE0_REGISTERS = {
+    ('flash_fwd', 'flash_fwd_kernel'): {16: 135, 32: 185, 64: 237, 128: 191},
+    ('flash_bwd', 'flash_bwd_dq_kernel'): {16: 88, 32: 123, 64: 158,
+                                           128: 182},
+    ('flash_bwd', 'flash_bwd_dkv_kernel'): {16: 96, 32: 160, 64: 170,
+                                            128: 255},
+}
 
 # H4's moves as the ops make them: (sources, destinations, rotations) of
 # the tensors of one launch; 'R' is RoPE, 'RT' its transpose, 'N' none.
@@ -562,10 +599,11 @@ def main(argv):
     t0 = time.perf_counter()
     compiled = _build.build_all(verbose=True)
     build_s = time.perf_counter() - t0
-    for name in ('flash_fwd', 'flash_bwd', 'rope', 'headsplit'):
+    for name in _build.SIGNATURES:
         _build.library(name)
     log(f'build: {build_s:.1f} s wall, per source {compiled} '
         f'(empty: already built in {_build._build_dir()})')
+    check_mode0_ptxas()
 
     # 3. kernels vs plain versions
     H = MODEL['attention_heads']
@@ -602,8 +640,7 @@ def main(argv):
     L = model.config.num_layers
     log(f'inference path launches per forward: {launches} (expected one of '
         f'H1 and H3 per layer, no H4)')
-    if launches != {H1_NAME: L, H2_NAME: 0, H3_NAME: L, 'rope_inverse': 0,
-                    H4_NAME: 0}:
+    if launches != expected_launches(**{H1_NAME: L, H3_NAME: L}):
         fail(f'the inference path did not launch H1 and H3 once per layer: '
              f'{launches}')
     if tuple(lp.shape) != (BUDGET, 33) or lp.dtype != torch.float32:
@@ -722,6 +759,9 @@ def main(argv):
     h4_modes = time_relayouts(T, H, D, dev)
     h4 = h4_modes[next(iter(RELAYOUTS))]
 
+    # 8. the probe tools' kernels
+    probe_kernels = check_probes(dev, h1_ms, h2_ms, card)
+
     train_launches = {key: c['launches'] for key, c in cells.items()}
     kernels = [
         {'name': H1_NAME, 'route': 'cuda',
@@ -789,6 +829,7 @@ def main(argv):
          'library_ms': h4['library_ms'], 'mode': next(iter(RELAYOUTS)),
          'modes': h4_modes, 'shape': f'T={T} H={H} D={D} bf16',
          'bytes': h4['bytes']},
+        *probe_kernels,
     ]
     for kd in kernels:
         log(f"{kd['name']}: {kd['ms']:.4f} ms (bound {kd['bound_ms']:.4f} "
@@ -817,9 +858,16 @@ def main(argv):
 
 def _counters():
     from esme_tpu_torch.ops import flash, headsplit
+    from esme_tpu_torch.tools import (decompose_bwd, flash_variants,
+                                      fwd_T_experiment, profile_attn)
     return {H1_NAME: flash.segment_flash_fwd,
             H2_NAME: flash.segment_flash_bwd, H3_NAME: headsplit.rotary_qk,
-            H4_NAME: headsplit.relayout_heads}
+            H4_NAME: headsplit.relayout_heads,
+            H5_NAME: fwd_T_experiment.fwd_T,
+            H6_NAME: flash_variants.variant_fwd,
+            H7_NAME: decompose_bwd.bwd_variant,
+            **{name: getattr(profile_attn, name[len('probe_'):])
+               for name in H8_NAMES}}
 
 
 def reset_counters():
@@ -868,9 +916,9 @@ def train_cell(model, plm_cls, key, budget, ckpt, reps, falls, n_params,
     losses = [plm.training_step(batch)]
     first_ms = (time.perf_counter() - t0) * 1e3
     launches = read_counters()
-    expected = {H1_NAME: 2 * L if ckpt else L, H2_NAME: L,
-                H3_NAME: (3 if ckpt else 2) * L, 'rope_inverse': L,
-                H4_NAME: 0}
+    expected = expected_launches(**{
+        H1_NAME: 2 * L if ckpt else L, H2_NAME: L,
+        H3_NAME: (3 if ckpt else 2) * L, 'rope_inverse': L})
     log(f'train {key}@{budget}: launches in one step {launches} (expected '
         f'{expected})')
     if launches != expected:
@@ -1016,9 +1064,14 @@ def op_run(fn, xs, w):
     return o.detach(), [x.grad for x in xs], read_counters()
 
 
+def expected_launches(**counts):
+    """Every counter at 0 but those given."""
+    return {**{name: 0 for name in _counters()}, 'rope_inverse': 0,
+            **counts}
+
+
 def expect_launches(what, got, **expected):
-    want = {H1_NAME: 0, H2_NAME: 0, H3_NAME: 0, 'rope_inverse': 0,
-            H4_NAME: 0, **expected}
+    want = expected_launches(**expected)
     if got != want:
         fail(f'{what}: launches {got}, not {want}')
 
@@ -1157,6 +1210,246 @@ def check_op_api(cu, dev):
     del q, k, v, w, w3, o, g, o_p, g_p, o_d, qh, kT, vT
     torch.cuda.empty_cache()
     return results
+
+
+def ptxas_usage(build_log: str) -> dict:
+    """``{(kernel, padded head dim, mode): (registers, stack frame, spill
+    stores, spill loads)}`` of the H1/H2 kernels in ``nvcc -Xptxas -v``
+    output."""
+    usage, name, frame = {}, None, None
+    for line in build_log.splitlines():
+        m = re.search(r'Function properties for \S*\d(flash_(?:fwd|bwd_dq|'
+                      r'bwd_dkv)_kernel)ILi(\d+)ELi(\d+)E', line)
+        if m:
+            name = (m.group(1), int(m.group(2)), int(m.group(3)))
+            continue
+        m = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores, '
+                      r'(\d+) bytes spill loads', line)
+        if m and name:
+            frame = tuple(map(int, m.groups()))
+            continue
+        m = re.search(r'Used (\d+) registers', line)
+        if m and name and frame:
+            usage[name] = (int(m.group(1)), *frame)
+            name = frame = None
+    return usage
+
+
+def check_mode0_ptxas():
+    """H1's and H2's production instantiations (mode 0) use the registers
+    they used before the ablation modes were added, with no stack frame
+    and no spills (``MODE0_REGISTERS``); fail otherwise."""
+    from esme_tpu_torch import _build
+    usage = {lib: ptxas_usage(_build.build_log(lib))
+             for lib, _ in MODE0_REGISTERS}
+    for (lib, kernel), regs in MODE0_REGISTERS.items():
+        for dp, r in regs.items():
+            got = usage[lib].get((kernel, dp, 0))
+            if got != (r, 0, 0, 0):
+                fail(f'ptxas: {kernel}<{dp}, mode 0> uses (registers, stack, '
+                     f'spill stores, spill loads) {got}, not {(r, 0, 0, 0)} '
+                     'as before the ablation modes')
+        log(f'ptxas: {kernel} mode 0 as before the ablation modes: {regs} '
+            'registers, no stack, no spills')
+
+
+def check_probes(dev, h1_ms, h2_ms, card):
+    """Phase 8: the probe tools' kernels H5-H8 (see the module docstring).
+    Returns their entries of the kernels line."""
+    from esme_tpu_torch.ops import flash
+    from esme_tpu_torch.tools import (BWD_SEED, FWD_SEED, attention_batch,
+                                      thd_to_hdt)
+    from esme_tpu_torch.tools import decompose_bwd as tdb
+    from esme_tpu_torch.tools import flash_variants as tfv
+    from esme_tpu_torch.tools import fwd_T_experiment as tft
+    from esme_tpu_torch.tools import profile_attn as tpa
+    H = MODEL['attention_heads']
+    D = MODEL['embed_dim'] // H
+
+    def gate(what, c):
+        """Log a tool's ``check`` result; fail where it is not ok."""
+        vals = ', '.join(f'{k} {v:.3e}' for k, v in c.items() if k != 'ok')
+        log(f'{what}: {vals} {"ok" if c["ok"] else "FAIL"}')
+        if not c['ok']:
+            fail(f'{what} disagrees with its plain version')
+
+    # 8a. each kernel against its plain version on the 8k check batch
+    for d, h in ((16, 20), (24, 20), (32, 20), (64, 20), (128, 40)):
+        b = attention_batch(CHECK_BUDGET, 1, h, d, dev)
+        qT, kT, vT = (thd_to_hdt(x, h) for x in (b.q, b.k, b.v))
+        got = tft.fwd_T(qT, kT, vT, b.seg, *b.spans[:2])
+        ref = tft.fwd_T_plain(qT, kT, vT, b.seg, *b.spans[:2])
+        torch.cuda.synchronize()
+        e_o, share, e_l, ok = tft.flash_errors(*got, *ref)
+        gate(f'H5 T={b.T} H={h} D={d} vs plain (H1\'s gates)',
+             {'max|o-plain|': e_o, 'o gate share': share,
+              'max|lse-plain|': e_l, 'ok': ok})
+    b8 = attention_batch(CHECK_BUDGET, 1, H, D, dev, grads=True)
+    args8 = (b8.q, b8.k, b8.v, b8.seg, *b8.spans[:2], H)
+    for mode in tfv.MODES:
+        c = tfv.check(mode, tfv.variant_fwd(mode, *args8),
+                      tfv.variant_fwd_plain(mode, *args8))
+        gate(f'H6 {mode} T={b8.T} vs plain', c)
+    lse8, delta8 = tdb.backward_inputs(b8)
+    bargs8 = (b8.q, b8.k, b8.v, b8.do, lse8, delta8, b8.seg, *b8.spans, H)
+    for kernel in tdb.KERNELS:
+        for mode in tdb.MODES:
+            got = tdb.bwd_variant(kernel, mode, *bargs8)
+            ref = tdb.dq_variant_plain(mode, *bargs8[:9], H) \
+                if kernel == 'dq' else \
+                tdb.dkv_variant_plain(mode, *bargs8[:7], *b8.spans[2:], H)
+            gate(f'H7 {kernel} {mode} T={b8.T} vs plain',
+                 tdb.check(mode, got, ref))
+    for probe, (kernel, plain) in tpa.calls(
+            b8, tpa.probe_inputs(b8)).items():
+        gate(f'H8 {probe} T={b8.T} vs plain',
+             tpa.check(probe, kernel(), plain()))
+    del b8, args8, bargs8, lse8, delta8
+    torch.cuda.empty_cache()
+
+    # 8b. each tool's own run at the main shapes, the launch counters set
+    # to 0 just before it and read just after; then its comparisons
+    def tool_run(what, name, fn):
+        torch.cuda.synchronize()
+        reset_counters()
+        out = fn()
+        torch.cuda.synchronize()
+        launches = read_counters()
+        log(f'{what}: launches {launches}')
+        for n in name if isinstance(name, tuple) else (name,):
+            if launches[n] < 1:
+                fail(f'{what} did not launch {n}')
+        return out, launches
+
+    b = attention_batch(BUDGET, FWD_SEED, H, D, dev)
+    ks, ke = b.spans[:2]
+    args = (b.q, b.k, b.v, b.seg, ks, ke, H)
+    # H5 beside H1
+    r5, l5 = tool_run('fwd_T_experiment.measure', H5_NAME,
+                      lambda: tft.measure(b, reps=20))
+    if not r5['ok_vs_h1']:
+        fail('H5 disagrees with H1 at the main shape')
+    qT, kT, vT = (thd_to_hdt(x, H) for x in (b.q, b.k, b.v))
+    e_o, share, e_l, ok = tft.flash_errors(
+        *tft.fwd_T(qT, kT, vT, b.seg, ks, ke),
+        *tft.fwd_T_plain(qT, kT, vT, b.seg, ks, ke))
+    gate(f'H5 T={b.T} vs plain', {'max|o-plain|': e_o, 'o gate share': share,
+                                 'max|lse-plain|': e_l, 'ok': ok})
+    h5_plain_ms = cuda_ms(lambda: tft.fwd_T_plain(qT, kT, vT, b.seg, ks, ke),
+                          reps=2)
+    o1 = flash.segment_flash_fwd(*args)[0]
+    h5_lib_ms = yardstick(
+        'varlen flash-attention forward (aten), (T, H, D) operands',
+        lambda: varlen_flash_ms(b.q, b.k, b.v, b.seg, H, D, reps=20), o1)
+    del qT, kT, vT, o1
+    kernels = [{
+        'name': H5_NAME, 'route': 'cuda',
+        'source': 'esme_tpu_torch/csrc/flash_fwd_t.cu',
+        'replaces': 'tools/fwd_T_experiment.py:27',
+        'launches': l5[H5_NAME], 'max_abs_err': e_o, 'lse_max_abs_err': e_l,
+        'ms': r5['ms'], 'plain_ms': h5_plain_ms, 'bound_ms': r5['bound_ms'],
+        'bound_by': r5['bound_by'], 'library_ms': h5_lib_ms,
+        'h1_ms': r5['h1_ms'], 'vs_h1': {k: r5[k] for k in (
+            'o_err_vs_h1', 'o_gate_share_vs_h1', 'lse_err_vs_h1')},
+        'shape': f'T={b.T} H={H} D={D} bf16, (H, D, T) operands'}]
+
+    # H6: every mode timed; baseline bit-equal to H1 and under its gates
+    modes6, l6 = tool_run('flash_variants.run, every mode', H6_NAME,
+                          lambda: {m: tfv.run(m, b, reps=20)
+                                   for m in tfv.MODES})
+    got = tfv.variant_fwd('baseline', *args)
+    if not all(map(torch.equal, got, flash.segment_flash_fwd(*args))):
+        fail('H6 baseline is not bit-equal to H1 at the main shape')
+    c6 = tfv.check('baseline', got, tfv.variant_fwd_plain('baseline', *args))
+    gate(f'H6 baseline T={b.T} vs plain (bit-equal to H1)', c6)
+    h6_plain_ms = cuda_ms(lambda: tfv.variant_fwd_plain('baseline', *args),
+                          reps=1)
+    del got
+    kernels.append({
+        'name': H6_NAME, 'route': 'cuda',
+        'source': 'esme_tpu_torch/csrc/flash_fwd.cu',
+        'replaces': 'tools/flash_variants.py:32', 'launches': l6[H6_NAME],
+        'max_abs_err': c6['o_err'], 'ms': modes6['baseline']['ms'],
+        'plain_ms': h6_plain_ms, 'bound_ms': modes6['baseline']['bound_ms'],
+        'bound_by': modes6['baseline']['bound_by'], 'library_ms': None,
+        'mode': 'baseline (bit-equal to H1)', 'modes': modes6,
+        'h1_ms': h1_ms, 'shape': f'T={b.T} H={H} D={D} bf16'})
+
+    # H8 probes over H1's steps
+    r8, l8 = tool_run('profile_attn.measure', H8_NAMES,
+                      lambda: tpa.measure(b, reps=20))
+    plains = {p: cuda_ms(plain, reps=2) for p, (_, plain) in tpa.calls(
+        b, tpa.probe_inputs(b)).items()}
+    k3 = b.k.view(b.T, H, D)
+    lib_ms = cuda_ms(lambda: k3.permute(1, 2, 0).contiguous(), reps=20,
+                     warmup=2)
+    for probe, line in zip(tpa.PROBES, (81, 115, 155, 209)):
+        r = r8[probe]
+        if not r['ok']:
+            fail(f'H8 {probe} disagrees with its plain version')
+        kernels.append({
+            'name': f'probe_{probe}', 'route': 'cuda',
+            'source': 'esme_tpu_torch/csrc/probes.cu',
+            'replaces': f'tools/profile_attn.py:{line}',
+            'launches': l8[f'probe_{probe}'], 'max_abs_err': r['err'],
+            'ms': r['ms'], 'plain_ms': plains[probe],
+            'bound_ms': r['bound_ms'], 'bound_by': r['bound_by'],
+            'library_ms': lib_ms if probe.startswith('dma') else None,
+            'tile_bytes': r['tile_bytes'], 'h1_ms': r8['h1']['ms'],
+            'shape': f'T={b.T} H={H} D={D}, H1\'s steps'})
+    del b, args, k3
+    torch.cuda.empty_cache()
+
+    # H7 at the train shape: every mode of each kernel timed; real
+    # bit-equal to H2 and under its gate
+    bt = attention_batch(BUDGET, BWD_SEED, H, D, dev, grads=True)
+    lse, delta = tdb.backward_inputs(bt)
+    bargs = (bt.q, bt.k, bt.v, bt.do, lse, delta, bt.seg, *bt.spans, H)
+    modes7, l7 = tool_run(
+        'decompose_bwd.run, every mode of each kernel', H7_NAME,
+        lambda: {f'{kernel} {mode}': tdb.run(kernel, mode, bt, lse, delta,
+                                             reps=20)
+                 for kernel in tdb.KERNELS for mode in tdb.MODES})
+    dq = tdb.bwd_variant('dq', 'real', *bargs)
+    dk, dv = tdb.bwd_variant('dkv', 'real', *bargs)
+    if not all(map(torch.equal, (dq, dk, dv),
+                   flash.segment_flash_bwd(*bargs))):
+        fail('H7 real is not bit-equal to H2 at the train shape')
+    plain_dq = lambda: tdb.dq_variant_plain('real', *bargs[:9], H)  # noqa
+    plain_dkv = lambda: tdb.dkv_variant_plain(  # noqa
+        'real', *bargs[:7], *bt.spans[2:], H)
+    c7 = tdb.check('real', (dq, dk, dv), (plain_dq(), *plain_dkv()))
+    gate(f'H7 real T={bt.T} vs plain (bit-equal to H2)', c7)
+    h7_plain_ms = cuda_ms(plain_dq, reps=1) + cuda_ms(plain_dkv, reps=1)
+    real = [modes7[f'{k} real'] for k in tdb.KERNELS]
+    log(f'H2 at the train shape {h2_ms:.4f} ms: dk/dv alone '
+        f'{real[0]["ms"]:.4f}, dq alone {real[1]["ms"]:.4f} ms')
+    kernels.append({
+        'name': H7_NAME, 'route': 'cuda',
+        'source': 'esme_tpu_torch/csrc/flash_bwd.cu',
+        'replaces': 'tools/decompose_bwd.py:66',
+        'also_replaces': ['tools/decompose_bwd.py:125'],
+        'launches': l7[H7_NAME], 'max_abs_err': c7['err'],
+        'ms': sum(r['ms'] for r in real), 'plain_ms': h7_plain_ms,
+        'bound_ms': sum(r['bound_ms'] for r in real),
+        'bound_by': max(real, key=lambda r: r['bound_ms'])['bound_by'],
+        'library_ms': None, 'mode': 'real (dk/dv + dq, bit-equal to H2)',
+        'modes': modes7, 'h2_ms': h2_ms,
+        'shape': f'T={bt.T} H={H} D={D} bf16 (train batch)'})
+    del bt, bargs, dq, dk, dv, lse, delta
+    torch.cuda.empty_cache()
+    for name, timings, ref in (
+            (H1_NAME, (h1_ms, modes6['baseline']['ms']), H1_REF_MS),
+            (H2_NAME, (h2_ms, sum(r['ms'] for r in real)), H2_REF_MS)):
+        ratio = min((t / ref for t in timings), key=lambda x: abs(x - 1))
+        within = abs(ratio - 1) <= 0.03
+        log(f'{name} {" and ".join(f"{t:.4f}" for t in timings)} ms, best '
+            f'{ratio:.4f} of its {ref} ms before the ablation modes on '
+            f'{REF_CARD} (within 3%: {within}; '
+            f'{"a gate" if card == REF_CARD else "logged only"} on {card})')
+        if card == REF_CARD and not within:
+            fail(f'{name} moved by more than 3% from {ref} ms')
+    return kernels
 
 
 def time_relayouts(T, H, D, dev):

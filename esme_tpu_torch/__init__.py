@@ -3,7 +3,8 @@
 Packed ("varlen") ESM2 inference and masked-LM training in PyTorch,
 with hand-written CUDA kernels for Hopper (``sm_90a``) where the JAX
 package had Pallas kernels: the segment-flash attention forward and
-backward and RoPE (``csrc/``, built at first use by
+backward, RoPE, the head relayouts and the attention probes of
+:mod:`esme_tpu_torch.tools` (``csrc/``, built at first use by
 :mod:`esme_tpu_torch._build`).
 Everything else is plain PyTorch. The JAX package ``esme_tpu`` is the
 reference the port is held to; the port imports nothing of it.

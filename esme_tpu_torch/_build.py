@@ -5,7 +5,8 @@ compiles at first use into its own shared library with a plain C
 interface:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/esme_tpu_torch/<hash>/lib<name>.so \\
+         -Xcompiler -fPIC -Xptxas -v \\
+         -o build/esme_tpu_torch/<hash>/lib<name>.so \\
          esme_tpu_torch/csrc/<name>.cu
 
 The output directory is keyed by a hash of every source and the flags,
@@ -46,11 +47,26 @@ SIGNATURES = {
     'flash_fwd': {
         'esme_segment_flash_fwd': (I, [P, P, P, P, P, P, P, P, I, I, I, F,
                                        P]),
+        'esme_segment_flash_fwd_variant': (I, [I] + [P] * 8 + [I, I, I, F,
+                                                               P]),
         'esme_flash_error_string': (ctypes.c_char_p, [I]),
     },
     'flash_bwd': {
         'esme_segment_flash_bwd': (I, [P] * 14 + [I, I, I, F, P]),
+        'esme_segment_flash_bwd_variant': (I, [I, I] + [P] * 14
+                                           + [I, I, I, F, P]),
         'esme_flash_bwd_error_string': (ctypes.c_char_p, [I]),
+    },
+    'flash_fwd_t': {
+        'esme_flash_fwd_t': (I, [P] * 8 + [I, I, I, F, P]),
+        'esme_flash_fwd_t_error_string': (ctypes.c_char_p, [I]),
+    },
+    'probes': {
+        'esme_probe_vpu': (I, [P] * 4 + [I, I, P]),
+        'esme_probe_mxu': (I, [P] * 5 + [I, I, P]),
+        'esme_probe_dma': (I, [P] * 6 + [I, I, P]),
+        'esme_probe_dma_t': (I, [P] * 5 + [I, I, P]),
+        'esme_probe_error_string': (ctypes.c_char_p, [I]),
     },
     'headsplit': {
         'esme_relayout_heads': (I, [P] * 6 + [I] * 4 + [P, P, I, I, I, P]),
@@ -83,8 +99,10 @@ def _build_dir() -> Path:
 
 
 def build_all(verbose: bool = False) -> dict:
-    """Compile every missing library, all sources in parallel. Returns
-    ``{name: seconds}`` for the libraries it compiled."""
+    """Compile every missing library, all sources in parallel, each with
+    its ``nvcc`` output (``ptxas``' registers, stack and spills per
+    kernel) kept beside it as ``lib<name>.log``. Returns ``{name:
+    seconds}`` for the libraries it compiled."""
     out_dir = _build_dir()
     todo = [src for src in sorted(CSRC.glob('*.cu'))
             if not (out_dir / f'lib{src.stem}.so').exists()]
@@ -96,8 +114,7 @@ def build_all(verbose: bool = False) -> dict:
     t0 = time.perf_counter()
     for src in todo:
         tmp = out_dir / f'lib{src.stem}.so.{os.getpid()}.tmp'
-        cmd = [nvcc, *NVCC_FLAGS, *(['-Xptxas', '-v'] if verbose else []),
-               '-o', str(tmp), str(src)]
+        cmd = [nvcc, *NVCC_FLAGS, '-Xptxas', '-v', '-o', str(tmp), str(src)]
         procs.append((src, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -108,12 +125,19 @@ def build_all(verbose: bool = False) -> dict:
         if proc.returncode != 0:
             errors.append(f'{src.name}:\n{log}')
             continue
-        if verbose and log:
+        if verbose:
             print(f'[nvcc {src.name}]\n{log}', flush=True)
+        (out_dir / f'lib{src.stem}.log').write_text(log)
         os.replace(tmp, out_dir / f'lib{src.stem}.so')
     if errors:
         raise RuntimeError('nvcc failed:\n' + '\n'.join(errors))
     return times
+
+
+def build_log(name: str) -> str:
+    """What ``nvcc`` printed when it built ``lib<name>.so``."""
+    build_all()
+    return (_build_dir() / f'lib{name}.log').read_text()
 
 
 @functools.lru_cache(maxsize=None)

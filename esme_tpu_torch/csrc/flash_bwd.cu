@@ -52,6 +52,13 @@
 // Head dims: padded widths DP in {16, 32, 64, 128}; D = 24 runs in the
 // DP = 32 kernels with the extra columns zero-filled on load and never
 // stored (scale stays 1/sqrt(24)).
+//
+// Ablation modes ("H7"): each kernel's MODE parameter removes one pass,
+// as tools/decompose_bwd.py:66 dq_variant and :125 dkv_variant (K15) do
+// on the TPU, to measure what each pass costs; their outputs are wrong on
+// purpose. Mode 0 is the production pair, and esme_segment_flash_bwd
+// launches only that; esme_segment_flash_bwd_variant launches one kernel
+// in any mode, at D = 64 only (ESM2-650M's head dim).
 
 #include "flash_common.cuh"
 
@@ -63,6 +70,18 @@ constexpr int BQ = 128;   // dq: q rows per block (8 warps x 16)
 constexpr int BK = 64;    // dq: k tile rows
 constexpr int BKV = 64;   // dkv: k rows per block (4 warps x 16)
 constexpr int BQT = 64;   // dkv: q tile rows
+
+// K15's modes, in the order of esme_tpu_torch/tools/decompose_bwd.py:MODES
+enum Mode {
+  REAL = 0,
+  DMA,       // no compute: every element of the tiles read, summed
+  MM_ONLY,   // the products alone: p = s, ds = p + dp
+  NO_S,      // no S product: s = lse
+  NO_DP,     // no dP product: ds = p * scale
+  NO_ACC,    // no accumulating products: the gradient gains max(ds)
+  NO_EXP,    // p = s / 2 + 0.01 instead of the masked exp
+  NO_MASK,   // no segment mask
+};
 
 template <int DP>
 struct DqCfg {
@@ -85,9 +104,16 @@ struct DkvCfg {
   // k and v tiles; two stages of (q tile, do tile); two stages of the
   // q tile's segment ids, lse and delta
   static constexpr size_t bytes = (size_t)6 * TILE * 2 + 2 * 3 * BQT * 4;
+  // NO_ACC: each warp's column maxima of dS^T
+  static constexpr size_t colmax_bytes = (size_t)(BKV / 16) * BQT * 4;
 };
 
-template <int DP>
+template <int DP, int MODE>
+constexpr size_t dkv_smem() {
+  return DkvCfg<DP>::bytes + (MODE == NO_ACC ? DkvCfg<DP>::colmax_bytes : 0);
+}
+
+template <int DP, int MODE>
 __global__ void __launch_bounds__(DkvCfg<DP>::NTHREADS)
 flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -170,67 +196,139 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float* dl = delta_s(s);
     const int q0 = qb * BQT;
 
+    if constexpr (MODE == DMA) {
+      // every element of the four tiles, q row p facing k row p, into dk;
+      // the q rows' lse and delta into dv (the TPU kernel's sums)
 #pragma unroll
-    for (int c0 = 0; c0 < BQT; c0 += NC) {
-      // S^T = K Q^T and dP^T = V dO^T for this warp's k rows and the
-      // chunk's NC q columns
-      float st[NN][4], dpt[NN][4];
+      for (int r = 0; r < 2; ++r) {
+        const int p = warp * 16 + r * 8 + g;
+        const float lp = ls[p], dlp = dl[p];
 #pragma unroll
-      for (int j = 0; j < NN; ++j)
+        for (int d = 0; d < ND; ++d)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        uint32_t ka[4], va[4];
-        ldsm_x4(ka, a_addr<LD>(Ks, warp * 16, kk * 16, lane));
-        ldsm_x4(va, a_addr<LD>(Vs, warp * 16, kk * 16, lane));
-#pragma unroll
-        for (int jp = 0; jp < NN / 2; ++jp) {
-          uint32_t b[4];
-          ldsm_x4(b, b_addr<LD>(Qt, c0 + jp * 16, kk * 16, lane));
-          mma_bf16(st[2 * jp], ka, b[0], b[1]);
-          mma_bf16(st[2 * jp + 1], ka, b[2], b[3]);
-          ldsm_x4(b, b_addr<LD>(Dt, c0 + jp * 16, kk * 16, lane));
-          mma_bf16(dpt[2 * jp], va, b[0], b[1]);
-          mma_bf16(dpt[2 * jp + 1], va, b[2], b[3]);
-        }
+          for (int e = 0; e < 2; ++e) {
+            const int i = p * LD + d * 8 + tq * 2 + e;
+            dka[d][2 * r + e] += ((__bfloat162float(Qt[i]) +
+                                   __bfloat162float(Dt[i])) +
+                                  __bfloat162float(Ks[i])) +
+                                 __bfloat162float(Vs[i]);
+            dva[d][2 * r + e] = (dva[d][2 * r + e] + lp) + dlp;
+          }
       }
-
-      // P^T into st, dS^T into dpt; lane holds q columns
-      // c0 + 8 j + 2 tq + {0, 1} of k rows g (r = 0) and g + 8 (r = 1)
+    } else {
 #pragma unroll
-      for (int j = 0; j < NN; ++j) {
+      for (int c0 = 0; c0 < BQT; c0 += NC) {
+        // S^T = K Q^T and dP^T = V dO^T for this warp's k rows and the
+        // chunk's NC q columns
+        float st[NN][4], dpt[NN][4];
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int c = c0 + j * 8 + tq * 2 + e;
-          const int sqc = q0 + c < T ? sq[c] : -1;
-          const float l2 = ls[c] * LOG2E;
-          const float dlc = dl[c];
+        for (int j = 0; j < NN; ++j)
 #pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            float& p = st[j][2 * r + e];
-            float& ds = dpt[j][2 * r + e];
-            p = sqc == sk[r] ? exp2f(p * scale_log2 - l2) : 0.f;
-            ds = p * (ds - dlc) * scale;
+          for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk) {
+          uint32_t ka[4], va[4];
+          if constexpr (MODE != NO_S)
+            ldsm_x4(ka, a_addr<LD>(Ks, warp * 16, kk * 16, lane));
+          if constexpr (MODE != NO_DP)
+            ldsm_x4(va, a_addr<LD>(Vs, warp * 16, kk * 16, lane));
+#pragma unroll
+          for (int jp = 0; jp < NN / 2; ++jp) {
+            uint32_t b[4];
+            if constexpr (MODE != NO_S) {
+              ldsm_x4(b, b_addr<LD>(Qt, c0 + jp * 16, kk * 16, lane));
+              mma_bf16(st[2 * jp], ka, b[0], b[1]);
+              mma_bf16(st[2 * jp + 1], ka, b[2], b[3]);
+            }
+            if constexpr (MODE != NO_DP) {
+              ldsm_x4(b, b_addr<LD>(Dt, c0 + jp * 16, kk * 16, lane));
+              mma_bf16(dpt[2 * jp], va, b[0], b[1]);
+              mma_bf16(dpt[2 * jp + 1], va, b[2], b[3]);
+            }
           }
         }
-      }
 
-      // dV += P^T dO and dK += dS^T Q over the chunk's columns
+        // P^T into st, dS^T into dpt; lane holds q columns
+        // c0 + 8 j + 2 tq + {0, 1} of k rows g (r = 0) and g + 8 (r = 1)
 #pragma unroll
-      for (int kk = 0; kk < NC / 16; ++kk) {
-        uint32_t pa[4], sa[4];
-        acc_to_a(pa, st[2 * kk], st[2 * kk + 1]);
-        acc_to_a(sa, dpt[2 * kk], dpt[2 * kk + 1]);
+        for (int j = 0; j < NN; ++j) {
 #pragma unroll
-        for (int dp = 0; dp < ND / 2; ++dp) {
-          uint32_t b[4];
-          ldsm_x4_trans(b, a_addr<LD>(Dt, c0 + kk * 16, dp * 16, lane));
-          mma_bf16(dva[2 * dp], pa, b[0], b[1]);
-          mma_bf16(dva[2 * dp + 1], pa, b[2], b[3]);
-          ldsm_x4_trans(b, a_addr<LD>(Qt, c0 + kk * 16, dp * 16, lane));
-          mma_bf16(dka[2 * dp], sa, b[0], b[1]);
-          mma_bf16(dka[2 * dp + 1], sa, b[2], b[3]);
+          for (int e = 0; e < 2; ++e) {
+            const int c = c0 + j * 8 + tq * 2 + e;
+            const int sqc = q0 + c < T ? sq[c] : -1;
+            const float l2 = ls[c] * LOG2E;
+            const float dlc = dl[c];
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              float& p = st[j][2 * r + e];
+              float& ds = dpt[j][2 * r + e];
+              if constexpr (MODE == MM_ONLY)
+                p = p * scale;
+              else if constexpr (MODE == NO_EXP)
+                p = (p * scale) * 0.5f + 0.01f;
+              else if constexpr (MODE == NO_MASK)
+                p = exp2f(p * scale_log2 - l2);
+              else if constexpr (MODE == NO_S)   // s = lse
+                p = sqc == sk[r] ? exp2f(ls[c] * LOG2E - l2) : 0.f;
+              else
+                p = sqc == sk[r] ? exp2f(p * scale_log2 - l2) : 0.f;
+              if constexpr (MODE == MM_ONLY)
+                ds = p + ds;
+              else if constexpr (MODE == NO_DP)
+                ds = p * scale;
+              else
+                ds = p * (ds - dlc) * scale;
+            }
+          }
+        }
+
+        if constexpr (MODE == NO_ACC) {
+          // dk row p gains the max over the block's k rows of dS^T's q
+          // column p: over the lane's two rows, the 8 lanes of its column,
+          // then the warps through shared memory
+          static_assert(BKV == BQT && NC == BQT, "no_acc pairs k row p with q column p");
+          float* colmax = reinterpret_cast<float*>(smem + C::bytes);
+#pragma unroll
+          for (int j = 0; j < NN; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float mxc = fmaxf(dpt[j][e], dpt[j][2 + e]);
+#pragma unroll
+              for (int off = 4; off < 32; off <<= 1)
+                mxc = fmaxf(mxc, __shfl_xor_sync(0xffffffffu, mxc, off));
+              if (g == 0) colmax[warp * BQT + j * 8 + tq * 2 + e] = mxc;
+            }
+          __syncthreads();
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int p = warp * 16 + r * 8 + g;
+            float mxr = colmax[p];
+#pragma unroll
+            for (int w = 1; w < BKV / 16; ++w) mxr = fmaxf(mxr, colmax[w * BQT + p]);
+#pragma unroll
+            for (int d = 0; d < ND; ++d) {
+              dka[d][2 * r] += mxr;
+              dka[d][2 * r + 1] += mxr;
+            }
+          }
+        } else {
+          // dV += P^T dO and dK += dS^T Q over the chunk's columns
+#pragma unroll
+          for (int kk = 0; kk < NC / 16; ++kk) {
+            uint32_t pa[4], sa[4];
+            acc_to_a(pa, st[2 * kk], st[2 * kk + 1]);
+            acc_to_a(sa, dpt[2 * kk], dpt[2 * kk + 1]);
+#pragma unroll
+            for (int dp = 0; dp < ND / 2; ++dp) {
+              uint32_t b[4];
+              ldsm_x4_trans(b, a_addr<LD>(Dt, c0 + kk * 16, dp * 16, lane));
+              mma_bf16(dva[2 * dp], pa, b[0], b[1]);
+              mma_bf16(dva[2 * dp + 1], pa, b[2], b[3]);
+              ldsm_x4_trans(b, a_addr<LD>(Qt, c0 + kk * 16, dp * 16, lane));
+              mma_bf16(dka[2 * dp], sa, b[0], b[1]);
+              mma_bf16(dka[2 * dp + 1], sa, b[2], b[3]);
+            }
+          }
         }
       }
     }
@@ -255,7 +353,7 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int DP>
+template <int DP, int MODE>
 __global__ void __launch_bounds__(DqCfg<DP>::NTHREADS)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -290,7 +388,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // this thread's q rows (rows past T match nothing and are not written)
   int row[2], sq[2];
-  float l2[2], dl[2];
+  float l2[2], dl[2], lr[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     row[r] = q0 + warp * 16 + r * 8 + g;
@@ -298,6 +396,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     sq[r] = in ? seg[row[r]] : -2;
     l2[r] = in ? lse[(size_t)h * T + row[r]] * LOG2E : 0.f;
     dl[r] = in ? delta[(size_t)h * T + row[r]] : 0.f;
+    if constexpr (MODE == DMA) lr[r] = in ? lse[(size_t)h * T + row[r]] : 0.f;
   }
 
   auto k_tile = [&](int s) { return DOs + C::QTILE + 2 * s * C::KTILE; };
@@ -332,57 +431,124 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int* sk = segk + s * BK;
     const int k0 = kb * BK;
 
-    // S = Q K^T and dP = dO V^T for this warp's rows and the tile's keys
-    float sc[NK][4], dp[NK][4];
+    if constexpr (MODE == DMA) {
+      // every element of the q, do, k and v tiles (q row p facing k row
+      // p mod BK), then the row's lse and delta (the TPU kernel's sums)
 #pragma unroll
-    for (int j = 0; j < NK; ++j)
+      for (int r = 0; r < 2; ++r) {
+        const int p = warp * 16 + r * 8 + g;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+        for (int d = 0; d < ND; ++d)
 #pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t qa[4], da[4];
-      ldsm_x4(qa, a_addr<LD>(Qs, warp * 16, kk * 16, lane));
-      ldsm_x4(da, a_addr<LD>(DOs, warp * 16, kk * 16, lane));
-#pragma unroll
-      for (int jp = 0; jp < NK / 2; ++jp) {
-        uint32_t b[4];
-        ldsm_x4(b, b_addr<LD>(Kt, jp * 16, kk * 16, lane));
-        mma_bf16(sc[2 * jp], qa, b[0], b[1]);
-        mma_bf16(sc[2 * jp + 1], qa, b[2], b[3]);
-        ldsm_x4(b, b_addr<LD>(Vt, jp * 16, kk * 16, lane));
-        mma_bf16(dp[2 * jp], da, b[0], b[1]);
-        mma_bf16(dp[2 * jp + 1], da, b[2], b[3]);
+          for (int e = 0; e < 2; ++e) {
+            const int c = d * 8 + tq * 2 + e;
+            const int iq = p * LD + c, ik = (p % BK) * LD + c;
+            const float z = ((__bfloat162float(Qs[iq]) +
+                              __bfloat162float(DOs[iq])) +
+                             __bfloat162float(Kt[ik])) +
+                            __bfloat162float(Vt[ik]);
+            acc[d][2 * r + e] = ((acc[d][2 * r + e] + z) + lr[r]) + dl[r];
+          }
       }
-    }
-
-    // dS into sc; lane holds keys 8 j + 2 tq + {0, 1} of rows g and g + 8
+    } else {
+      // S = Q K^T and dP = dO V^T for this warp's rows and the tile's keys
+      float sc[NK][4], dp[NK][4];
 #pragma unroll
-    for (int j = 0; j < NK; ++j) {
+      for (int j = 0; j < NK; ++j)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = j * 8 + tq * 2 + e;
-        const int skc = k0 + c < T ? sk[c] : -1;
+        for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const float p = skc == sq[r]
-                              ? exp2f(sc[j][2 * r + e] * scale_log2 - l2[r])
-                              : 0.f;
-          sc[j][2 * r + e] = p * (dp[j][2 * r + e] - dl[r]) * scale;
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t qa[4], da[4];
+        if constexpr (MODE != NO_S)
+          ldsm_x4(qa, a_addr<LD>(Qs, warp * 16, kk * 16, lane));
+        if constexpr (MODE != NO_DP)
+          ldsm_x4(da, a_addr<LD>(DOs, warp * 16, kk * 16, lane));
+#pragma unroll
+        for (int jp = 0; jp < NK / 2; ++jp) {
+          uint32_t b[4];
+          if constexpr (MODE != NO_S) {
+            ldsm_x4(b, b_addr<LD>(Kt, jp * 16, kk * 16, lane));
+            mma_bf16(sc[2 * jp], qa, b[0], b[1]);
+            mma_bf16(sc[2 * jp + 1], qa, b[2], b[3]);
+          }
+          if constexpr (MODE != NO_DP) {
+            ldsm_x4(b, b_addr<LD>(Vt, jp * 16, kk * 16, lane));
+            mma_bf16(dp[2 * jp], da, b[0], b[1]);
+            mma_bf16(dp[2 * jp + 1], da, b[2], b[3]);
+          }
         }
       }
-    }
 
-    // dQ += dS K
+      // dS into sc; lane holds keys 8 j + 2 tq + {0, 1} of rows g and g + 8
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t sa[4];
-      acc_to_a(sa, sc[2 * kk], sc[2 * kk + 1]);
+      for (int j = 0; j < NK; ++j) {
 #pragma unroll
-      for (int dpi = 0; dpi < ND / 2; ++dpi) {
-        uint32_t b[4];
-        ldsm_x4_trans(b, a_addr<LD>(Kt, kk * 16, dpi * 16, lane));
-        mma_bf16(acc[2 * dpi], sa, b[0], b[1]);
-        mma_bf16(acc[2 * dpi + 1], sa, b[2], b[3]);
+        for (int e = 0; e < 2; ++e) {
+          const int c = j * 8 + tq * 2 + e;
+          const int skc = k0 + c < T ? sk[c] : -1;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            if constexpr (MODE == REAL) {
+              const float p = skc == sq[r]
+                                  ? exp2f(sc[j][2 * r + e] * scale_log2 - l2[r])
+                                  : 0.f;
+              sc[j][2 * r + e] = p * (dp[j][2 * r + e] - dl[r]) * scale;
+            } else {
+              float p;
+              if constexpr (MODE == MM_ONLY)
+                p = sc[j][2 * r + e] * scale;
+              else if constexpr (MODE == NO_EXP)
+                p = (sc[j][2 * r + e] * scale) * 0.5f + 0.01f;
+              else if constexpr (MODE == NO_MASK)
+                p = exp2f(sc[j][2 * r + e] * scale_log2 - l2[r]);
+              else if constexpr (MODE == NO_S)   // s = lse
+                p = skc == sq[r] ? exp2f(l2[r] - l2[r]) : 0.f;
+              else
+                p = skc == sq[r] ? exp2f(sc[j][2 * r + e] * scale_log2 - l2[r])
+                                 : 0.f;
+              if constexpr (MODE == MM_ONLY)
+                sc[j][2 * r + e] = p + dp[j][2 * r + e];
+              else if constexpr (MODE == NO_DP)
+                sc[j][2 * r + e] = p * scale;
+              else
+                sc[j][2 * r + e] = p * (dp[j][2 * r + e] - dl[r]) * scale;
+            }
+          }
+        }
+      }
+
+      if constexpr (MODE == NO_ACC) {
+        // the row's max of dS over the tile's keys, into every column
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float mxr = sc[0][2 * r];
+#pragma unroll
+          for (int j = 0; j < NK; ++j)
+            mxr = fmaxf(mxr, fmaxf(sc[j][2 * r], sc[j][2 * r + 1]));
+#pragma unroll
+          for (int off = 1; off < 4; off <<= 1)
+            mxr = fmaxf(mxr, __shfl_xor_sync(0xffffffffu, mxr, off));
+#pragma unroll
+          for (int d = 0; d < ND; ++d) {
+            acc[d][2 * r] += mxr;
+            acc[d][2 * r + 1] += mxr;
+          }
+        }
+      } else {
+        // dQ += dS K
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          uint32_t sa[4];
+          acc_to_a(sa, sc[2 * kk], sc[2 * kk + 1]);
+#pragma unroll
+          for (int dpi = 0; dpi < ND / 2; ++dpi) {
+            uint32_t b[4];
+            ldsm_x4_trans(b, a_addr<LD>(Kt, kk * 16, dpi * 16, lane));
+            mma_bf16(acc[2 * dpi], sa, b[0], b[1]);
+            mma_bf16(acc[2 * dpi + 1], sa, b[2], b[3]);
+          }
+        }
       }
     }
   }
@@ -412,30 +578,40 @@ struct Args {
   cudaStream_t stream;
 };
 
+template <int DP, int MODE>
+cudaError_t launch_dkv(const Args& a) {
+  const size_t smem = dkv_smem<DP, MODE>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel<DP, MODE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkv_kernel<DP, MODE>
+      <<<dim3((a.T + BKV - 1) / BKV, a.H), DkvCfg<DP>::NTHREADS, smem,
+         a.stream>>>(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.seg, a.qstart,
+                     a.qend, a.dk, a.dv, a.T, a.H, a.D, a.scale,
+                     a.scale * LOG2E);
+  return cudaGetLastError();
+}
+
+template <int DP, int MODE>
+cudaError_t launch_dq(const Args& a) {
+  const size_t smem = DqCfg<DP>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<DP, MODE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_kernel<DP, MODE>
+      <<<dim3((a.T + BQ - 1) / BQ, a.H), DqCfg<DP>::NTHREADS, smem,
+         a.stream>>>(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.seg, a.kstart,
+                     a.kend, a.dq, a.T, a.H, a.D, a.scale, a.scale * LOG2E);
+  return cudaGetLastError();
+}
+
 template <int DP>
 cudaError_t launch(const Args& a) {
-  const size_t s_dkv = DkvCfg<DP>::bytes;
-  const size_t s_dq = DqCfg<DP>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)s_dkv);
+  const cudaError_t err = launch_dkv<DP, REAL>(a);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<DP>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)s_dq);
-  if (err != cudaSuccess) return err;
-  const float scale_log2 = a.scale * LOG2E;
-  flash_bwd_dkv_kernel<DP>
-      <<<dim3((a.T + BKV - 1) / BKV, a.H), DkvCfg<DP>::NTHREADS, s_dkv,
-         a.stream>>>(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.seg, a.qstart,
-                     a.qend, a.dk, a.dv, a.T, a.H, a.D, a.scale, scale_log2);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<DP>
-      <<<dim3((a.T + BQ - 1) / BQ, a.H), DqCfg<DP>::NTHREADS, s_dq,
-         a.stream>>>(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.seg, a.kstart,
-                     a.kend, a.dq, a.T, a.H, a.D, a.scale, scale_log2);
-  return cudaGetLastError();
+  return launch_dq<DP, REAL>(a);
 }
 
 }  // namespace
@@ -477,6 +653,53 @@ int esme_segment_flash_bwd(const void* q, const void* k, const void* v,
     case 128: return (int)launch<128>(a);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// One of H2's kernels (which = 0: dk/dv, 1: dq) in ablation mode `mode`
+// (enum Mode), D = 64 only; the other kernel's outputs are not written.
+// Returns the cudaError_t of the launch (0 on success).
+int esme_segment_flash_bwd_variant(int which, int mode, const void* q,
+                                   const void* k, const void* v,
+                                   const void* dout, const void* lse,
+                                   const void* delta, const void* seg,
+                                   const void* kstart, const void* kend,
+                                   const void* qstart, const void* qend,
+                                   void* dq, void* dk, void* dv, int T, int H,
+                                   int D, float scale, void* stream) {
+  const Args a{static_cast<const esme::bf16*>(q),
+               static_cast<const esme::bf16*>(k),
+               static_cast<const esme::bf16*>(v),
+               static_cast<const esme::bf16*>(dout),
+               static_cast<const float*>(lse),
+               static_cast<const float*>(delta),
+               static_cast<const int*>(seg),
+               static_cast<const int*>(kstart),
+               static_cast<const int*>(kend),
+               static_cast<const int*>(qstart),
+               static_cast<const int*>(qend),
+               static_cast<esme::bf16*>(dq),
+               static_cast<esme::bf16*>(dk),
+               static_cast<esme::bf16*>(dv),
+               T,
+               H,
+               D,
+               scale,
+               static_cast<cudaStream_t>(stream)};
+  if (D != 64 || (which != 0 && which != 1)) return (int)cudaErrorInvalidValue;
+#define ESME_BWD_MODE(M) \
+  case M: return (int)(which == 0 ? launch_dkv<64, M>(a) : launch_dq<64, M>(a));
+  switch (mode) {
+    ESME_BWD_MODE(REAL)
+    ESME_BWD_MODE(DMA)
+    ESME_BWD_MODE(MM_ONLY)
+    ESME_BWD_MODE(NO_S)
+    ESME_BWD_MODE(NO_DP)
+    ESME_BWD_MODE(NO_ACC)
+    ESME_BWD_MODE(NO_EXP)
+    ESME_BWD_MODE(NO_MASK)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef ESME_BWD_MODE
 }
 
 const char* esme_flash_bwd_error_string(int err) {

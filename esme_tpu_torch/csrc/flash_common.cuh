@@ -1,8 +1,9 @@
-// Device helpers shared by the segment-flash kernels H1 (flash_fwd.cu)
-// and H2 (flash_bwd.cu): 16- and 4-byte cp.async copies, ldmatrix,
-// bf16 mma.sync m16n8k16 with an fp32 accumulator, and the row loader
-// that reads one head's D columns of a (T, H*D) tensor into a shared
-// memory tile.
+// Device helpers shared by the segment-flash kernels H1 (flash_fwd.cu),
+// H2 (flash_bwd.cu), H5 (flash_fwd_t.cu) and the probes H8 (probes.cu):
+// 16- and 4-byte cp.async copies, ldmatrix, bf16 mma.sync m16n8k16 with
+// an fp32 accumulator, packed bf16 exp2 and the 8 x 8 register transpose
+// (movmatrix), and the row loader that reads one head's D columns of a
+// (T, H*D) tensor into a shared memory tile.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16): lane = 4 * g + tq.
 // The accumulator of a 16 x 8 tile holds rows g (c[0], c[1]) and g + 8
@@ -80,6 +81,31 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float bf16_lo(uint32_t x) {
+  return __uint_as_float(x << 16);
+}
+
+__device__ __forceinline__ float bf16_hi(uint32_t x) {
+  return __uint_as_float(x & 0xffff0000u);
+}
+
+// 2^x of two bf16 values at once, rounded to bf16 (the SFU's packed form)
+__device__ __forceinline__ uint32_t ex2_bf16x2(uint32_t x) {
+  uint32_t y;
+  asm("ex2.approx.ftz.bf16x2 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
+// The 8 x 8 bf16 matrix whose fragment (row g, columns 2 tq, 2 tq + 1 in
+// lane 4 g + tq) this lane holds, transposed, in the same fragment layout
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
+               : "=r"(y)
+               : "r"(x));
+  return y;
 }
 
 // The A operand of the 16-wide k-step kk from accumulator tiles 2 kk and

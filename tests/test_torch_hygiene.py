@@ -19,6 +19,8 @@ from esme_tpu_torch import ESM, ESM2
 from esme_tpu_torch.models.config import esm2_config
 from esme_tpu_torch.ops import fused_attn, headsplit
 from esme_tpu_torch.ops import flash as tflash
+from esme_tpu_torch.tools import decompose_bwd, flash_variants, \
+    fwd_T_experiment, profile_attn
 
 PKG = Path(esme_tpu_torch.__file__).resolve().parent
 
@@ -70,10 +72,15 @@ def test_entry_points_default_to_cuda(tmp_path):
         assert load(path, device='cpu').device.type == 'cpu'
 
 
+TOOL_COUNTERS = (fwd_T_experiment.fwd_T, flash_variants.variant_fwd,
+                 decompose_bwd.bwd_variant, profile_attn.vpu,
+                 profile_attn.mxu, profile_attn.dma, profile_attn.dma_t)
+
+
 def test_cpu_runs_launch_no_kernel():
     counters = (fused_attn.segment_flash_fwd, fused_attn.rotary_qk,
                 tflash.segment_flash_fwd, headsplit.rotary_qk,
-                headsplit.relayout_heads)
+                headsplit.relayout_heads, *TOOL_COUNTERS)
     before = [f.launches for f in counters]
     model = ESM2(config=esm2_config(2, 32, 2, dtype='float32'), rng=1,
                  device='cpu')
@@ -83,7 +90,22 @@ def test_cpu_runs_launch_no_kernel():
     cu = np.cumsum([0, *lens]).astype(np.int32)
     lp = model.predict_log_prob(tok, pad_args=(cu, max(lens)))
     assert lp.shape == (sum(lens), 33) and torch.isfinite(lp).all()
-    assert [f.launches for f in counters] == before == [0, 0, 0, 0, 0]
+    assert [f.launches for f in counters] == before == [0] * 12
+
+
+def test_cpu_tools_launch_no_kernel(monkeypatch):
+    """Each probe tool run through on the CPU (plain versions) moves no
+    kernel's counter."""
+    import contextlib
+    import io
+    from esme_tpu_torch import tools
+    monkeypatch.setattr(tools, 'CPU_BUDGET', 1100)
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        for tool in (fwd_T_experiment, flash_variants, decompose_bwd,
+                     profile_attn):
+            tool.main(['--device', 'cpu'])
+    assert 'baseline' in out.getvalue() and 'dkv no_acc' in out.getvalue()
+    assert [f.launches for f in TOOL_COUNTERS] == [0] * 7
 
 
 def test_entry_points_pin_fp32_accumulation(monkeypatch):
@@ -129,6 +151,22 @@ def test_kernel_wrappers_fall_back_only_on_cpu():
         headsplit.rotary_qk(q, q, tab, tab, 2)
     with pytest.raises(ValueError, match='unsupported device'):
         headsplit.relayout_heads((q,), 'thd', 'htd', 2)
+    # the probe tools' kernels: D = 64
+    q64 = torch.empty((64, 128), dtype=torch.bfloat16, device='meta')
+    qT = torch.empty((2, 64, 64), dtype=torch.bfloat16, device='meta')
+    lse = torch.empty((2, 64), device='meta')
+    with pytest.raises(ValueError, match='unsupported device'):
+        fwd_T_experiment.fwd_T(qT, qT, qT, seg, spans, spans)
+    with pytest.raises(ValueError, match='unsupported device'):
+        flash_variants.variant_fwd('nomax', q64, q64, q64, seg, spans, spans,
+                                   2)
+    with pytest.raises(ValueError, match='unsupported device'):
+        decompose_bwd.bwd_variant('dq', 'dma', q64, q64, q64, q64, lse, lse,
+                                  seg, spans, spans, spans, spans, 2)
+    with pytest.raises(ValueError, match='unsupported device'):
+        profile_attn.dma(q64, q64, q64, spans, spans, 2)
+    with pytest.raises(ValueError, match='unsupported device'):
+        profile_attn.dma_t(qT, qT, spans, spans)
 
 
 def test_build_needs_nvcc(monkeypatch, tmp_path):
@@ -141,7 +179,11 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
     # builds go under BUILD_ROOT, keyed by a hash of sources and flags
     assert _build._build_dir().parent == tmp_path
     assert sorted(p.name for p in _build.CSRC.glob('*.cu')) == \
-        ['flash_bwd.cu', 'flash_fwd.cu', 'headsplit.cu', 'rope.cu']
+        ['flash_bwd.cu', 'flash_fwd.cu', 'flash_fwd_t.cu', 'headsplit.cu',
+         'probes.cu', 'rope.cu']
+    # every library has its C signatures
+    assert sorted(_build.SIGNATURES) == sorted(
+        p.stem for p in _build.CSRC.glob('*.cu'))
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -25,6 +25,12 @@ Gates:
   reason; a move without rotation copies the bits.
 * ``segment_attention`` on the card: o under H1's gate, each gradient
   under H2's, against the same function through the plain versions.
+* The probe tools' kernels (``esme_tpu_torch/tools``): H5 under H1's
+  gates against its plain version and against H1; each ablation mode of
+  H1 (H6) and H2 (H7), and each ceiling probe (H8), under the gate its
+  tool's ``check`` states; H6 ``baseline`` and H7 ``real`` bit-equal to
+  H1 and H2 (the same instantiations); the 2^x that H6 ``bf16exp``'s
+  plain version takes bit-equal to the instruction the kernel uses.
 """
 
 import numpy as np
@@ -34,6 +40,10 @@ import torch
 from esme_tpu_torch.ops import flash, fused_attn, headsplit
 from esme_tpu_torch.ops.rotary import rotary_cos_sin
 from esme_tpu_torch.ops.segment import segment_ids_from_cu_lens
+from esme_tpu_torch.tools import decompose_bwd as tdb
+from esme_tpu_torch.tools import flash_variants as tfv
+from esme_tpu_torch.tools import fwd_T_experiment as tft
+from esme_tpu_torch.tools import profile_attn as tpa
 
 O_REL, O_FLOOR, LSE_ATOL = 2.0 ** -6, 0.25, 1e-4
 G_REL = 2.0 ** -4
@@ -303,3 +313,171 @@ def test_segment_attention_grad_on_card(cuda, layout, monkeypatch):
         b = b.float()
         gate = G_REL * b.abs().clamp_min(b.square().mean().sqrt())
         assert ((a.float() - b).abs() <= gate).all()
+
+
+# ---------------------------------------------------------------------------
+# The probe tools' kernels: H5 (transposed-score forward), H6 and H7 (H1's
+# and H2's ablation modes), H8 (ceiling probes). Each mode is held to its
+# plain version under the gate its tool states (`check`); H6 `baseline`
+# and H7 `real` are H1's and H2's own instantiations, so bit-equal.
+# ---------------------------------------------------------------------------
+
+H5_LENS = [300, 7, 500, 193]                   # 1,000 tokens
+
+
+def _tm(x2, H):
+    T = x2.shape[0]
+    return x2.view(T, H, -1).permute(1, 2, 0).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('T', [1000, 1001])     # T % 8 != 0 too
+@pytest.mark.parametrize('D', [16, 24, 32, 64, 128])
+def test_fwd_t_kernel_matches_plain(cuda, D, T):
+    """H5 against its plain version and against H1, under H1's gates."""
+    H = 3
+    q, k, v, seg = _packed(H5_LENS, T, H, D, cuda, seed=D + T)
+    ks, ke = flash.block_spans(seg, flash.BLOCK_Q, flash.BLOCK_K)
+    qT, kT, vT = (_tm(x, H) for x in (q, k, v))
+    before = tft.fwd_T.launches
+    oT, lse = tft.fwd_T(qT, kT, vT, seg, ks, ke)
+    oT_p, lse_p = tft.fwd_T_plain(qT, kT, vT, seg, ks, ke)
+    o1, lse1 = flash.segment_flash_fwd(q, k, v, seg, ks, ke, H)
+    torch.cuda.synchronize()
+    assert tft.fwd_T.launches == before + 1
+    assert oT.shape == (H, D, T) and lse.shape == (H, T)
+    for o_ref, l_ref in ((oT_p, lse_p), (_tm(o1, H), lse1)):
+        assert tft.flash_errors(oT, lse, o_ref, l_ref)[3]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mode', list(tfv.MODES))
+def test_flash_variant_kernel_matches_plain(cuda, mode):
+    H, D, T = 4, 64, 3072
+    q, k, v, seg = _packed([30, 7, 250, 900, 2, 400, 1000], T, H, D, cuda,
+                           seed=7)
+    ks, ke = flash.block_spans(seg, flash.BLOCK_Q, flash.BLOCK_K)
+    before = tfv.variant_fwd.launches
+    got = tfv.variant_fwd(mode, q, k, v, seg, ks, ke, H)
+    ref = tfv.variant_fwd_plain(mode, q, k, v, seg, ks, ke, H)
+    torch.cuda.synchronize()
+    assert tfv.variant_fwd.launches == before + 1
+    assert tfv.check(mode, got, ref)['ok']
+    if mode == 'baseline':
+        h1 = flash.segment_flash_fwd(q, k, v, seg, ks, ke, H)
+        assert all(map(torch.equal, got, h1))
+
+
+_EX2_BF16 = r'''
+#include <stdint.h>
+__global__ void ex2(const uint32_t* x, uint32_t* y, int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) asm("ex2.approx.ftz.bf16x2 %0, %1;" : "=r"(y[i]) : "r"(x[i]));
+}
+extern "C" int run(const void* x, void* y, int n) {
+  ex2<<<(n + 255) / 256, 256>>>((const uint32_t*)x, (uint32_t*)y, n);
+  return (int)cudaDeviceSynchronize();
+}
+'''
+
+
+@pytest.mark.cuda
+def test_ex2_bf16_is_the_sfu_instruction(cuda, tmp_path):
+    """H6 ``bf16exp``'s plain 2^x equals ``ex2.approx.ftz.bf16x2`` (the
+    instruction alone, built here) at every bf16 x <= 0."""
+    import ctypes
+    import subprocess
+    from esme_tpu_torch import _build
+    src, lib = tmp_path / 'ex2.cu', tmp_path / 'libex2.so'
+    src.write_text(_EX2_BF16)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, '-o', str(lib),
+                    str(src)], check=True)
+    run = ctypes.CDLL(str(lib)).run
+    run.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    x = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16) \
+        .view(torch.bfloat16).to(cuda)
+    y = torch.empty_like(x)
+    assert run(x.data_ptr(), y.data_ptr(), x.numel() // 2) == 0
+    keep = torch.isfinite(x.float()) & (x.float() <= 0)
+    assert int(keep.sum()) == 32641           # -0, 0 and 32,639 negatives
+    assert torch.equal(tfv.ex2_bf16(x.float()[keep]), y.float()[keep])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kernel', tdb.KERNELS)
+@pytest.mark.parametrize('mode', list(tdb.MODES))
+def test_bwd_variant_kernel_matches_plain(cuda, mode, kernel):
+    H, D, T = 4, 64, 3072
+    q, k, v, seg = _packed([30, 7, 250, 900, 2, 400, 1000], T, H, D, cuda,
+                           seed=8)
+    spans = flash.flash_spans(seg)
+    o, lse = flash.segment_flash_fwd(q, k, v, seg, *spans[:2], H)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(9)
+    do = torch.randn(q.shape, generator=gen, device=cuda).to(torch.bfloat16)
+    delta = flash.attention_delta(o, do, H)
+    args = (q, k, v, do, lse, delta, seg, *spans, H)
+    before = tdb.bwd_variant.launches
+    got = tdb.bwd_variant(kernel, mode, *args)
+    if kernel == 'dq':
+        ref = tdb.dq_variant_plain(mode, q, k, v, do, lse, delta, seg,
+                                   *spans[:2], H)
+    else:
+        ref = tdb.dkv_variant_plain(mode, q, k, v, do, lse, delta, seg,
+                                    *spans[2:], H)
+    torch.cuda.synchronize()
+    assert tdb.bwd_variant.launches == before + 1
+    assert tdb.check(mode, got, ref)['ok']
+    if mode == 'real':
+        dq, dk, dv = flash.segment_flash_bwd(*args)
+        h2 = (dq,) if kernel == 'dq' else (dk, dv)
+        got = got if isinstance(got, tuple) else (got,)
+        assert all(map(torch.equal, got, h2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('probe', tpa.PROBES)
+def test_probe_kernel_matches_plain(cuda, probe):
+    from types import SimpleNamespace
+    H, D, T = 4, 64, 3072
+    q, k, v, seg = _packed([30, 7, 250, 900, 2, 400, 1000], T, H, D, cuda,
+                           seed=10)
+    b = SimpleNamespace(q=q, k=k, v=v, seg=seg, H=H, D=D, T=T, device=cuda,
+                        spans=flash.flash_spans(seg))
+    counter = getattr(tpa, probe)
+    before = counter.launches
+    kernel, plain = tpa.calls(b, tpa.probe_inputs(b))[probe]
+    got, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert tpa.check(probe, got, ref)['ok']
+
+
+@pytest.mark.cuda
+def test_probe_tool_kernels_refuse_what_they_do_not_take(cuda):
+    H = 2
+    q, k, v, seg = _packed([100, 28], 128, H, 64, cuda)
+    ks, ke = flash.block_spans(seg, flash.BLOCK_Q, flash.BLOCK_K)
+    qT = _tm(q, H)
+    with pytest.raises(TypeError, match='bfloat16'):
+        tft.fwd_T(qT.float(), qT.float(), qT.float(), seg, ks, ke)
+    q48 = _tm(_packed([100, 28], 128, H, 48, cuda)[0], H)
+    with pytest.raises(ValueError, match='head dim 48'):
+        tft.fwd_T(q48, q48, q48, seg, ks, ke)
+    with pytest.raises(ValueError, match='unknown mode'):
+        tfv.variant_fwd('noqv', q, k, v, seg, ks, ke, H)
+    q32, k32, v32, _ = _packed([100, 28], 128, H, 32, cuda)
+    with pytest.raises(ValueError, match='head dim 32'):
+        tfv.variant_fwd('nomax', q32, k32, v32, seg, ks, ke, H)
+    spans = flash.flash_spans(seg)
+    lse = torch.zeros((H, 128), device=cuda)
+    with pytest.raises(ValueError, match='unknown mode'):
+        tdb.bwd_variant('dq', 'no_q', q, k, v, q, lse, lse, seg, *spans, H)
+    with pytest.raises(TypeError, match='bfloat16'):
+        tdb.bwd_variant('dkv', 'dma', q.float(), k.float(), v.float(),
+                        q.float(), lse, lse, seg, *spans, H)
+    with pytest.raises(TypeError, match='float32'):
+        tpa.vpu(q[:128, :64].contiguous(), ks, ke, H)
+    with pytest.raises(ValueError, match='T a multiple of 8'):
+        kT = torch.zeros((H, 64, 124), dtype=torch.bfloat16, device=cuda)
+        tpa.dma_t(kT, kT, ks, ke)
