@@ -7,11 +7,17 @@ Phases, in order; any failure exits non-zero before a result is printed:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every kernel from ``esme_tpu_torch/csrc`` with ``nvcc`` (timed);
-   H1's and H2's production instantiations must keep the registers,
-   stack and spills ``ptxas`` gave them before the ablation modes;
+   H1's and H2's mma.sync mode-0 instantiations (``flash_fwd.cu``,
+   ``flash_bwd.cu``) must keep the registers, stack and spills ``ptxas``
+   gave them before the ablation modes, and H2's Hopper kernels
+   (``flash_bwd_sm90.cu``) at D = 64 must have no stack frame and no
+   spills;
 3. hold each kernel against its plain PyTorch version on the card, on a
-   packed 8k-token batch: segment-flash forward (H1) and backward (H2)
-   at head dims 16, 24, 32, 64 and 128, RoPE (H3) forward and inverse,
+   packed 8k-token batch: segment-flash forward (H1) and backward (H2,
+   the Hopper form at D = 32, 64, 128 and the mma.sync form at 16, 24) at
+   head dims 16, 24, 32, 64 and 128, H2 also on 8k tokens of one
+   segment (every tile unmasked), of 1-70-token segments and of
+   interleaved ids (every tile masked), RoPE (H3) forward and inverse,
    the head relayout (H4) in every layout pair and rotation the ops use
    at each head dim (bit-equal), each beside its gate;
 4. the inference path: ESM2-650M (33 layers, width 1280, 20 heads,
@@ -49,9 +55,15 @@ Phases, in order; any failure exits non-zero before a result is printed:
    block-diagonal mask (``library_ms``, T^2 work) and PyTorch's varlen
    flash-attention forward over the same segments
    (``library_varlen_ms``); for H2 PyTorch's varlen flash-attention
-   backward (``library_ms``); for H4, each of its modes at the main
-   shape, with one ``permute(...).contiguous()`` call as the yardstick
-   of a move without rotation. ``--profile DIR`` also writes
+   backward (``library_ms``), each of its passes alone, its mma.sync
+   form, and each pass on T tokens of one segment against the same batch
+   with one token of each 64-token tile given its own id (every tile
+   unmasked, then every tile masked: each pass must be faster on the
+   first, where the mask is skipped); the train batch's count of unmasked
+   tiles, from its segment ids, is logged with the measurements; for H4,
+   each of its modes at the main shape, with one
+   ``permute(...).contiguous()`` call as the yardstick of a move without
+   rotation. ``--profile DIR`` also writes
    ``torch.profiler`` tables of one forward and one train step there;
 8. the probe tools' kernels (``esme_tpu_torch/tools``, none on the model
    path, where their counters must stay 0): on the 8k check batch, H5 (the
@@ -62,10 +74,13 @@ Phases, in order; any failure exits non-zero before a result is printed:
    then each tool's own run at the main shapes (H5 beside H1, every mode
    and probe timed beside the bound of the work it keeps, H6 and H8 on
    the inference batch, H7 on the 50k train batch), with the launch
-   counters set to 0 just before and read just after; H6 ``baseline`` and
-   H7 ``real`` bit-equal to H1 and H2 there; H1's and H2's times within
-   3% of their times before the ablation modes were added, on the card
-   those were taken on (``REF_CARD``; logged on any other).
+   counters set to 0 just before and read just after; H6 ``baseline``
+   bit-equal to H1 there, H7 ``real`` bit-equal to H2's mma.sync form and
+   under H2's gate against the Hopper form; H1's and H7 ``real``'s times
+   within 3% of their times before the ablation modes were added, on the
+   card those were taken on (``REF_CARD``; logged on any other); H2's
+   Hopper form faster than H7 ``real``, its time logged beside it and the
+   library's.
 
 The last three lines are the kernels' JSON, the measurements' JSON and
 ``{"ok": true, "device": {...}}``.
@@ -180,6 +195,9 @@ RELAYOUTS = {
     'to hdt (flash_tm)': ('thd', 'hdt', 'N'),
     'from hdt (flash_tm)': ('hdt', 'thd', 'N'),
 }
+
+# Phase 3's extra H2 batches (``layout_seg``)
+BWD_LAYOUTS = ('one', 'short', 'interleaved')
 
 # Sizes: ESM2-650M at full width and depth, bench.py's 50k-token batch,
 # the 8k-token batch of the kernel checks (where the plain version's
@@ -310,19 +328,53 @@ def grad_errors(got, ref):
     return errs, shares, finite
 
 
-def check_flash_bwd(cu, budget, H, D, dev, seed=0, what=''):
-    """H2 vs its plain version; returns (max |error|, largest gate
-    share) over dq, dk and dv."""
+def layout_seg(layout, T, dev, seed):
+    """Segment ids of phase 3's extra H2 batches: ``one`` segment over all
+    T (every tile unmasked), ``short`` segments of 1-70 tokens (every
+    tile masked) and ``interleaved`` ids 0-2 drawn per token (not
+    monotonic: every tile masked, every span the whole batch)."""
+    rng = np.random.default_rng(seed)
+    if layout == 'one':
+        ids = np.zeros(T, np.int32)
+    elif layout == 'short':
+        ids = np.repeat(np.arange(T), rng.integers(1, 71, T))[:T]
+    else:
+        ids = rng.integers(0, 3, T)
+    return torch.from_numpy(ids.astype(np.int32)).to(dev)
+
+
+def seg_bwd_inputs(seg, H, D, dev, seed):
+    """H2's inputs over given segment ids: random q, k, v and do, H1's o
+    and lse, delta, the spans."""
     from esme_tpu_torch.ops import flash
-    q, k, v, do, lse, delta, seg, spans = bwd_inputs(cu, budget, H, D, dev,
-                                                     seed)
+    T = seg.shape[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    q, k, v, do = (randn((T, H * D), gen, dev) for _ in range(4))
+    spans = flash.flash_spans(seg)
+    o, lse = flash.segment_flash_fwd(q, k, v, seg, *spans[:2], H)
+    return q, k, v, do, lse, flash.attention_delta(o, do, H), seg, spans
+
+
+def check_flash_bwd(cu, budget, H, D, dev, seed=0, what=''):
+    """H2 vs its plain version on a packed batch; returns (max |error|,
+    largest gate share) over dq, dk and dv."""
+    return check_bwd_args(bwd_inputs(cu, budget, H, D, dev, seed), H, D,
+                          what)
+
+
+def check_bwd_args(inputs, H, D, what=''):
+    """H2 vs its plain version on ``bwd_inputs``-shaped inputs."""
+    from esme_tpu_torch.ops import flash
+    q, k, v, do, lse, delta, seg, spans = inputs
     got = flash.segment_flash_bwd(q, k, v, do, lse, delta, seg, *spans, H)
     ref = flash.segment_flash_bwd_plain(q, k, v, do, lse, delta, seg, *spans,
                                         H)
     torch.cuda.synchronize()
     errs, shares, finite = grad_errors(got, ref)
     ok = max(shares) <= 1.0 and finite
-    log(f'H2{what} T={q.shape[0]} H={H} D={D}: max|g-plain| dq/dk/dv '
+    log(f'H2{what} T={q.shape[0]} H={H} D={D} ({flash.bwd_route(D)}): '
+        f'max|g-plain| dq/dk/dv '
         f'{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}, largest share of the '
         f'gate (2^-4*max(|g|, rms g)) {shares[0]:.3f}/{shares[1]:.3f}/'
         f'{shares[2]:.3f}, finite {finite} {"ok" if ok else "FAIL"}')
@@ -491,6 +543,132 @@ def flash_bwd_work(q, seg, spans, H, D):
     return nbytes, flops
 
 
+def bwd_units(seg, spans):
+    """Counts, from a batch's segment ids, of the units on which H2's
+    Hopper form decides the mask (a warp's 16 rows against one 64-row
+    tile), per pass: ``{pass: (unmasked, total)}``. A property of the
+    batch, worked out here by the kernel's rule, not read from the card
+    (``time_mask_skip`` measures the skip). A unit is unmasked
+    when its 16 rows (existing) and the tile's 64 ids share one id: in
+    the dk/dv pass the k rows against a q tile of the block's span (ids
+    past T read as 0, as the kernel's zero-filled copies do), in the dq
+    pass the q rows against a k tile that lies wholly below T."""
+    INT_MIN = -2 ** 31
+    seg = seg.long().cpu()
+    T = seg.numel()
+    kstart, kend, qstart, qend = (s.long().cpu() for s in spans)
+
+    def slices(ids):              # per 16 rows: the common id or None
+        ids = torch.cat([ids, torch.full(((-T) % 128,), INT_MIN)])
+        s16 = ids.view(-1, 16)
+        return torch.where((s16 == s16[:, :1]).all(1), s16[:, 0], INT_MIN)
+
+    def tiles(ids, pad):          # per 64 ids: the common id or a miss
+        t64 = torch.cat([ids, torch.full(((-T) % 64,), pad)]).view(-1, 64)
+        return (t64 == t64[:, :1]).all(1), t64[:, 0]
+
+    r16 = slices(seg)
+    counts = {}
+    rows = 128                    # per CTA in either pass
+    for name, spans_, pad in (('dkv', (qstart, qend), 0),
+                              ('dq', (kstart, kend), INT_MIN)):
+        uni, first = tiles(seg, pad)
+        start, end = spans_
+        if name == 'dkv':             # the union of two 64-row spans
+            pad2 = (-start.numel()) % 2
+            start = torch.cat([start, start[-1:].expand(pad2)]).view(-1, 2) \
+                .amin(1)
+            end = torch.cat([end, end[-1:].expand(pad2)]).view(-1, 2).amax(1)
+        unmasked = total = 0
+        for b in range(start.numel()):
+            t = torch.arange(int(start[b]), int(end[b]))
+            sl = r16[b * rows // 16:(b + 1) * rows // 16]
+            hit = uni[t][None, :] & (first[t][None, :] == sl[:, None]) \
+                & (sl[:, None] != INT_MIN)
+            unmasked += int(hit.sum())
+            total += sl.numel() * t.numel()
+        counts[name] = (unmasked, total)
+    return counts
+
+
+def direct_bwd(args, name, entry, *lead):
+    """H2 launched straight through C entry ``entry`` of library ``name``
+    with ``lead`` before ``segment_flash_bwd``'s arguments; for timing and
+    comparison only, so no counter moves. Returns dq, dk, dv (those the
+    entry does not write are left uninitialised)."""
+    from esme_tpu_torch import _build
+    from esme_tpu_torch.ops import flash
+    q, *_, H = args
+    T, HD = q.shape
+    outs = [torch.empty_like(q) for _ in range(3)]
+    lib = _build.library(name)
+    rc = getattr(lib, entry)(
+        *lead, *(x.data_ptr() for x in (*args[:11], *outs)), T, H, HD // H,
+        (HD // H) ** -0.5, torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, lib, flash.BWD_ROUTES[name][1], entry)
+    return outs
+
+
+def sm90_pass(which, args):
+    """One pass of H2's Hopper form alone: ``which`` 0 writes dk and dv,
+    1 writes dq."""
+    return direct_bwd(args, 'flash_bwd_sm90', 'esme_flash_bwd_sm90_pass',
+                      which)
+
+
+def time_mask_skip(T, H, D, dev):
+    """Each pass of H2's Hopper form on T tokens of one segment (every
+    tile unmasked) and on the same q, k, v and do with the token at 37 of
+    each 64-token tile given an id of its own (the same spans, every tile
+    masked): one call at a time after a 0.2 s pause, eight per batch in
+    the order unmasked, masked, masked, unmasked. On the H100 at 700 W,
+    back-to-back calls of these 50-60 ms drifted by up to 10%; after the
+    pause they agree within ~2%, and a pass's time is its fastest call.
+    Fails unless each
+    pass is faster unmasked, where the kernel skips the mask. Returns
+    ``{pass: {layout: {'min': ms, 'median': ms}}}``."""
+    from esme_tpu_torch.ops import flash
+    one = torch.zeros(T, dtype=torch.int32, device=dev)
+    cut = one.clone()
+    cut[37::64] = torch.arange(1, cut[37::64].numel() + 1, dtype=torch.int32,
+                               device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    q, k, v, do = (randn((T, H * D), gen, dev) for _ in range(4))
+    inputs = {}
+    for name, seg in (('one segment', one), ('every tile masked', cut)):
+        spans = flash.flash_spans(seg)
+        o, lse = flash.segment_flash_fwd(q, k, v, seg, *spans[:2], H)
+        inputs[name] = (q, k, v, do, lse, flash.attention_delta(o, do, H),
+                        seg, *spans, H)
+    times = {}
+    for which, pname in ((0, 'dkv'), (1, 'dq')):
+        runs = {name: [] for name in inputs}
+        for name in [*inputs, *reversed(inputs)] * 4:
+            time.sleep(0.2)
+            runs[name].append(cuda_ms(lambda: sm90_pass(which, inputs[name]),
+                                      reps=1))
+        times[pname] = {name: {'min': min(r), 'median': float(np.median(r))}
+                        for name, r in runs.items()}
+        a, b = (min(r) for r in runs.values())
+        log(f'H2 {pname} pass at T={T}: fastest call {a:.4f} ms on one '
+            f'segment, {b:.4f} ms with every tile masked ({a / b:.4f}); calls '
+            f'{ {n: [round(x, 3) for x in r] for n, r in runs.items()} }')
+        if not a < b:
+            fail(f'H2 {pname} pass is not faster where every tile lies in '
+                 f'one segment ({a:.4f} vs {b:.4f} ms): the mask is not '
+                 'skipped')
+    del inputs, q, k, v, do
+    torch.cuda.empty_cache()
+    return times
+
+
+def mma_sync_bwd(args):
+    """H2's mma.sync form (``csrc/flash_bwd.cu``), the mode-0 pair that H7
+    ``real`` ablates."""
+    return direct_bwd(args, 'flash_bwd', 'esme_segment_flash_bwd')
+
+
 def sdpa_ms(q, k, v, seg, H, D, reps):
     """One ``scaled_dot_product_attention`` call over the whole packed
     batch with a block-diagonal boolean mask (memory-efficient backend;
@@ -604,6 +782,7 @@ def main(argv):
     log(f'build: {build_s:.1f} s wall, per source {compiled} '
         f'(empty: already built in {_build._build_dir()})')
     check_mode0_ptxas()
+    sm90_usage = check_sm90_ptxas()
 
     # 3. kernels vs plain versions
     H = MODEL['attention_heads']
@@ -614,6 +793,11 @@ def main(argv):
         check_flash(cu8k, CHECK_BUDGET, h, d, dev, seed=d)
         h2_check_share = max(h2_check_share, check_flash_bwd(
             cu8k, CHECK_BUDGET, h, d, dev, seed=d)[1])
+    for layout in BWD_LAYOUTS:        # masked and unmasked tiles
+        seg = layout_seg(layout, CHECK_BUDGET, dev, seed=5)
+        for d in flash.HEAD_DIMS:
+            h2_check_share = max(h2_check_share, check_bwd_args(
+                seg_bwd_inputs(seg, 4, d, dev, d), 4, d, f' {layout}')[1])
     for d in (16, 24, 32, 128):
         check_rope(CHECK_BUDGET, 20 if d < 128 else 40, d, dev, seed=d)
     rope_err = check_rope(BUDGET + (-BUDGET) % 256, H, D, dev)
@@ -745,6 +929,17 @@ def main(argv):
     dq = flash.segment_flash_bwd(*h2_args)[0]
     h2_ms = cuda_ms(lambda: flash.segment_flash_bwd(*h2_args), reps=20,
                     warmup=2)
+    # each pass of the Hopper form alone; the mma.sync form (H7 `real`'s
+    # pair); the batch's unmasked tiles by the kernel's rule
+    h2_passes = {name: cuda_ms(lambda: sm90_pass(which, h2_args), reps=20,
+                               warmup=2)
+                 for which, name in ((0, 'dkv'), (1, 'dq'))}
+    mma_sync_ms = cuda_ms(lambda: mma_sync_bwd(h2_args), reps=20, warmup=2)
+    units = {name: {'unmasked': a, 'total': b, 'share': a / b}
+             for name, (a, b) in bwd_units(tseg, tspans).items()}
+    log(f'H2 at the train shape: {h2_ms:.4f} ms (dk/dv, then dq); passes '
+        f'alone {h2_passes}; the mma.sync form {mma_sync_ms:.4f} ms; the '
+        f'batch\'s unmasked (16-row, 64-row tile) units per head {units}')
     h2_plain_ms = cuda_ms(lambda: flash.segment_flash_bwd_plain(*h2_args),
                           reps=2)
     h2_bytes, h2_flops = flash_bwd_work(q, tseg, tspans, H, D)
@@ -755,12 +950,16 @@ def main(argv):
         'H2 dq')
     del q, k, v, do, dq, h2_args
     torch.cuda.empty_cache()
+    mask_skip = time_mask_skip(TT, H, D, dev)
 
     h4_modes = time_relayouts(T, H, D, dev)
     h4 = h4_modes[next(iter(RELAYOUTS))]
 
     # 8. the probe tools' kernels
-    probe_kernels = check_probes(dev, h1_ms, h2_ms, card)
+    probe_kernels = check_probes(
+        dev, h1_ms,
+        {'ms': h2_ms, 'mma_sync_ms': mma_sync_ms, 'library_ms': h2_lib_ms},
+        card)
 
     train_launches = {key: c['launches'] for key, c in cells.items()}
     kernels = [
@@ -781,7 +980,9 @@ def main(argv):
          'shape': f'T={T} H={H} D={D} bf16',
          'bytes': h1_bytes, 'flops': h1_flops},
         {'name': H2_NAME, 'route': 'cuda',
-         'source': 'esme_tpu_torch/csrc/flash_bwd.cu',
+         'source': 'esme_tpu_torch/csrc/flash_bwd_sm90.cu',
+         'routes': {str(d): f'esme_tpu_torch/csrc/{flash.bwd_route(d)}.cu'
+                    for d in flash.HEAD_DIMS},
          'replaces': 'esme_tpu/ops/flash.py:475',
          'also_replaces': ['esme_tpu/ops/flash.py:511',
                            'esme_tpu/ops/flash.py:552',
@@ -795,6 +996,8 @@ def main(argv):
          'max_abs_err': h2_err, 'gate_share': max(h2_share, h2_check_share),
          'ms': h2_ms, 'plain_ms': h2_plain_ms, 'bound_ms': h2_bound,
          'bound_by': h2_by, 'library_ms': h2_lib_ms,
+         'passes_ms': h2_passes, 'mma_sync_form_ms': mma_sync_ms,
+         'mask_skip_ms': mask_skip, 'ptxas': sm90_usage,
          'shape': f'T={TT} H={H} D={D} bf16 (train batch)',
          'bytes': h2_bytes, 'flops': h2_flops},
         {'name': H3_NAME, 'route': 'cuda',
@@ -844,6 +1047,7 @@ def main(argv):
         'real_tokens_per_s': real / fwd_ms * 1e3,
         'peak_mem_gib': peak / 2**30, 'host_enqueue_ms': host_ms,
         'train': cells, 'grad_checks': grad_checks, 'op_api': ops,
+        'train_batch_unmasked_units': units,
         'fit_losses': fit_losses, 'build_s': build_s,
         'model_checks': model_checks, 'torch': torch.__version__,
         'cuda': torch.version.cuda,
@@ -1253,7 +1457,48 @@ def check_mode0_ptxas():
             'registers, no stack, no spills')
 
 
-def check_probes(dev, h1_ms, h2_ms, card):
+def sm90_ptxas_usage(build_log: str) -> dict:
+    """``{(kernel, head dim): (registers, stack frame, spill stores, spill
+    loads)}`` of H2's Hopper kernels in ``nvcc -Xptxas -v`` output."""
+    usage, name, frame = {}, None, None
+    for line in build_log.splitlines():
+        m = re.search(r'Function properties for \S*?\d(bwd_(?:dkv|dq)_sm90_'
+                      r'kernel)ILi(\d+)E', line)
+        if m:
+            name = (m.group(1), int(m.group(2)))
+            continue
+        m = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores, '
+                      r'(\d+) bytes spill loads', line)
+        if m and name:
+            frame = tuple(map(int, m.groups()))
+            continue
+        m = re.search(r'Used (\d+) registers', line)
+        if m and name and frame:
+            usage[name] = (int(m.group(1)), *frame)
+            name = frame = None
+    return usage
+
+
+def check_sm90_ptxas():
+    """H2's Hopper kernels as built: every D = 64 instantiation (the
+    model's head dim) with no stack frame and no spills; fail otherwise.
+    Returns the usage of all of them."""
+    from esme_tpu_torch import _build
+    usage = sm90_ptxas_usage(_build.build_log('flash_bwd_sm90'))
+    d64 = {k: u for k, u in usage.items() if k[1] == 64}
+    if len(d64) != 2:
+        fail(f'ptxas: expected 2 D = 64 kernels of flash_bwd_sm90, found '
+             f'{sorted(d64)}')
+    for (kernel, d), (regs, *frame) in sorted(usage.items()):
+        log(f'ptxas: {kernel}<D={d}>: {regs} registers, stack {frame[0]}, '
+            f'spill stores {frame[1]}, spill loads {frame[2]}')
+        if d == 64 and any(frame):
+            fail(f'ptxas: {kernel}<D=64> has a stack frame or spills: '
+                 f'{frame}')
+    return {f'{k} D={d}': u for (k, d), u in sorted(usage.items())}
+
+
+def check_probes(dev, h1_ms, h2, card):
     """Phase 8: the probe tools' kernels H5-H8 (see the module docstring).
     Returns their entries of the kernels line."""
     from esme_tpu_torch.ops import flash
@@ -1412,18 +1657,26 @@ def check_probes(dev, h1_ms, h2_ms, card):
                  for kernel in tdb.KERNELS for mode in tdb.MODES})
     dq = tdb.bwd_variant('dq', 'real', *bargs)
     dk, dv = tdb.bwd_variant('dkv', 'real', *bargs)
-    if not all(map(torch.equal, (dq, dk, dv),
-                   flash.segment_flash_bwd(*bargs))):
-        fail('H7 real is not bit-equal to H2 at the train shape')
+    if not all(map(torch.equal, (dq, dk, dv), mma_sync_bwd(bargs))):
+        fail('H7 real is not bit-equal to the mma.sync form of H2 at the '
+             'train shape')
+    errs, shares, finite = grad_errors(flash.segment_flash_bwd(*bargs),
+                                       (dq, dk, dv))
+    ok = max(shares) <= 1.0 and finite
+    log(f'H2 (the Hopper form) vs H7 real (the mma.sync form) T={bt.T}: '
+        f'max|diff| {max(errs):.3e}, {max(shares):.3f} of the H2 gate, '
+        f'finite {finite} {"ok" if ok else "FAIL"}')
+    if not ok:
+        fail('H2 disagrees with H7 real, its mma.sync form')
     plain_dq = lambda: tdb.dq_variant_plain('real', *bargs[:9], H)  # noqa
     plain_dkv = lambda: tdb.dkv_variant_plain(  # noqa
         'real', *bargs[:7], *bt.spans[2:], H)
     c7 = tdb.check('real', (dq, dk, dv), (plain_dq(), *plain_dkv()))
-    gate(f'H7 real T={bt.T} vs plain (bit-equal to H2)', c7)
+    gate(f'H7 real T={bt.T} vs plain (bit-equal to the mma.sync form)', c7)
     h7_plain_ms = cuda_ms(plain_dq, reps=1) + cuda_ms(plain_dkv, reps=1)
     real = [modes7[f'{k} real'] for k in tdb.KERNELS]
-    log(f'H2 at the train shape {h2_ms:.4f} ms: dk/dv alone '
-        f'{real[0]["ms"]:.4f}, dq alone {real[1]["ms"]:.4f} ms')
+    log(f'H7 real at the train shape: dk/dv alone {real[0]["ms"]:.4f}, dq '
+        f'alone {real[1]["ms"]:.4f} ms')
     kernels.append({
         'name': H7_NAME, 'route': 'cuda',
         'source': 'esme_tpu_torch/csrc/flash_bwd.cu',
@@ -1433,14 +1686,18 @@ def check_probes(dev, h1_ms, h2_ms, card):
         'ms': sum(r['ms'] for r in real), 'plain_ms': h7_plain_ms,
         'bound_ms': sum(r['bound_ms'] for r in real),
         'bound_by': max(real, key=lambda r: r['bound_ms'])['bound_by'],
-        'library_ms': None, 'mode': 'real (dk/dv + dq, bit-equal to H2)',
-        'modes': modes7, 'h2_ms': h2_ms,
+        'library_ms': None,
+        'mode': 'real (dk/dv + dq, bit-equal to the mma.sync form of H2)',
+        'modes': modes7, 'h2_ms': h2['ms'],
+        'mma_sync_form_ms': h2['mma_sync_ms'],
         'shape': f'T={bt.T} H={H} D={D} bf16 (train batch)'})
     del bt, bargs, dq, dk, dv, lse, delta
     torch.cuda.empty_cache()
+    h7_times = (h2['mma_sync_ms'], sum(r['ms'] for r in real))
     for name, timings, ref in (
             (H1_NAME, (h1_ms, modes6['baseline']['ms']), H1_REF_MS),
-            (H2_NAME, (h2_ms, sum(r['ms'] for r in real)), H2_REF_MS)):
+            (f'{H7_NAME} real (the mma.sync form of H2)', h7_times,
+             H2_REF_MS)):
         ratio = min((t / ref for t in timings), key=lambda x: abs(x - 1))
         within = abs(ratio - 1) <= 0.03
         log(f'{name} {" and ".join(f"{t:.4f}" for t in timings)} ms, best '
@@ -1449,6 +1706,16 @@ def check_probes(dev, h1_ms, h2_ms, card):
             f'{"a gate" if card == REF_CARD else "logged only"} on {card})')
         if card == REF_CARD and not within:
             fail(f'{name} moved by more than 3% from {ref} ms')
+    h7_ms = min(h7_times)
+    lib = h2['library_ms']
+    log(f'{H2_NAME} (the Hopper form) {h2["ms"]:.4f} ms at the train shape: '
+        f'{h2["ms"] / h7_ms:.4f} of H7 real ({h7_ms:.4f} ms, the mma.sync '
+        f'form), '
+        + (f'{h2["ms"] / lib:.4f} of the library ({lib:.4f} ms)' if lib
+           else 'no library time'))
+    if not h2['ms'] < h7_ms:
+        fail(f'H2 ({h2["ms"]:.4f} ms) is not faster than its mma.sync form '
+             f'({h7_ms:.4f} ms)')
     return kernels
 
 

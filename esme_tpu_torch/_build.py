@@ -57,6 +57,11 @@ SIGNATURES = {
                                            + [I, I, I, F, P]),
         'esme_flash_bwd_error_string': (ctypes.c_char_p, [I]),
     },
+    'flash_bwd_sm90': {
+        'esme_segment_flash_bwd_sm90': (I, [P] * 14 + [I, I, I, F, P]),
+        'esme_flash_bwd_sm90_pass': (I, [I] + [P] * 14 + [I, I, I, F, P]),
+        'esme_flash_bwd_sm90_error_string': (ctypes.c_char_p, [I]),
+    },
     'flash_fwd_t': {
         'esme_flash_fwd_t': (I, [P] * 8 + [I, I, I, F, P]),
         'esme_flash_fwd_t_error_string': (ctypes.c_char_p, [I]),

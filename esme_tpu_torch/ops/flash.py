@@ -9,7 +9,9 @@ over a flat token stream where token *t* attends token *s* iff
 (``csrc/flash_fwd.cu``), which replaces the TPU kernels
 ``esme_tpu/ops/flash.py:_fwd_kernel`` and ``:_fwd_jobs_kernel``;
 :func:`segment_flash_bwd` is the wrapper of kernel H2
-(``csrc/flash_bwd.cu``), which replaces the three TPU backward paths
+(``csrc/flash_bwd_sm90.cu`` at head dims 32, 64 and 128, the mma.sync form
+``csrc/flash_bwd.cu`` at 16 and 24), which replaces the three TPU
+backward paths
 ``:_dq_kernel``/``:_dkv_kernel``, ``:_dq_jobs_kernel``/``:_dkv_jobs_kernel``
 and ``:_dkvq_jobs_kernel``. Both read and write the ``(T, H·D)`` layout
 directly (so the TPU relayouts ``headsplit.py:_split_one_kernel_t`` for
@@ -53,6 +55,22 @@ BLOCK_KV = 64
 BLOCK_QT = 64
 
 HEAD_DIMS = (16, 24, 32, 64, 128)
+
+# H2's route, a static rule on the head dim: library, entry, error string.
+# The Hopper form (wgmma fed by TMA) takes 32, 64 and 128; 16 and 24 stay
+# on the mma.sync form, as a 24-column TMA box would read the next head's
+# columns.
+BWD_ROUTES = {
+    'flash_bwd_sm90': ('esme_segment_flash_bwd_sm90',
+                       'esme_flash_bwd_sm90_error_string'),
+    'flash_bwd': ('esme_segment_flash_bwd', 'esme_flash_bwd_error_string'),
+}
+SM90_BWD_HEAD_DIMS = (32, 64, 128)
+
+
+def bwd_route(head_dim: int) -> str:
+    """The library H2 launches at this head dim."""
+    return 'flash_bwd_sm90' if head_dim in SM90_BWD_HEAD_DIMS else 'flash_bwd'
 
 
 def _overlap(seg_ids: torch.Tensor, block_q: int, block_k: int):
@@ -285,6 +303,14 @@ def segment_flash_bwd(q2, k2, v2, do2, lse, delta, seg_ids, kstart, kend,
                       qstart, qend, num_heads: int):
     """Segment-masked flash attention backward (kernel H2).
 
+    Routed by a static rule on the head dim (:func:`bwd_route`): D = 32,
+    64 and 128 launch the Hopper form, ``csrc/flash_bwd_sm90.cu`` (two
+    deterministic passes on ``wgmma`` fed by TMA through a producer
+    warp's ``mbarrier`` ring; the segment mask only on tiles that cross a
+    segment); D = 16 and 24 launch the mma.sync form, ``csrc/flash_bwd.cu``
+    (two ``mma.sync`` kernels). Both compute the same function and are
+    deterministic.
+
     Args:
         q2, k2, v2: the forward's ``(T, H·D)`` inputs (q and k rotated).
         do2: ``(T, H·D)`` gradient of the attention output.
@@ -316,18 +342,20 @@ def segment_flash_bwd(q2, k2, v2, do2, lse, delta, seg_ids, kstart, kend,
         ('qstart', qstart, nkb, torch.int32),
         ('qend', qend, nkb, torch.int32)))
     from .. import _build
-    lib = _build.library('flash_bwd')
+    name = bwd_route(D)
+    entry, error_string = BWD_ROUTES[name]
+    lib = _build.library(name)
     dq = torch.empty_like(q2)
     dk = torch.empty_like(q2)
     dv = torch.empty_like(q2)
     stream = torch.cuda.current_stream(q2.device).cuda_stream
-    rc = lib.esme_segment_flash_bwd(
+    rc = getattr(lib, entry)(
         q2.data_ptr(), k2.data_ptr(), v2.data_ptr(), do2.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), seg_ids.data_ptr(),
         kstart.data_ptr(), kend.data_ptr(), qstart.data_ptr(),
         qend.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         T, H, D, 1.0 / math.sqrt(D), stream)
-    _build.check(rc, lib, 'esme_flash_bwd_error_string', what)
+    _build.check(rc, lib, error_string, what)
     segment_flash_bwd.launches += 1
     return dq, dk, dv
 

@@ -7,9 +7,12 @@ experiments K14-K17, each with its Pallas kernels ported to Hopper.
   the forward costs;
 - :mod:`.decompose_bwd` — H2's ablation modes (K15), the same for each
   backward kernel;
-- :mod:`.profile_attn` — ceiling probes of H1's passes alone (K16).
+- :mod:`.profile_attn` — ceiling probes of H1's passes alone (K16);
+- :mod:`.bwd_ab` — a variant of H2's Hopper source timed against the
+  source (no TPU counterpart; on the card only, with the variant's path
+  as its argument).
 
-Each runs as ``python -m esme_tpu_torch.tools.<name>``: on the card by
+Each of the first four runs as ``python -m esme_tpu_torch.tools.<name>``: on the card by
 default (ESM2-650M's attention, H = 20, D = 64, bf16, on ``bench.py``'s
 packed 50k-token batch), or with ``--device cpu`` through the plain
 versions at a small size. Each prints one line per measurement.

@@ -1,12 +1,13 @@
-"""What each pass of the segment-flash backward costs: H2's two kernels
-with one pass removed at a time ("H7", ``csrc/flash_bwd.cu``'s ablation
-modes).
+"""What each pass of the segment-flash backward costs: the two kernels
+of H2's mma.sync form (``csrc/flash_bwd.cu``) with one pass removed at
+a time ("H7", that file's ablation modes). H2 itself runs
+the Hopper form ``csrc/flash_bwd_sm90.cu`` at head dims 32-128.
 
 Counterpart of ``tools/decompose_bwd.py`` (K15: ``dq_variant`` at 66 and
 ``dkv_variant`` at 125, built into grids by ``build_dq``/``build_dkv``).
 Each mode removes the same pass as on the TPU:
 
-  real     the production kernel (H2's own instantiation)
+  real     the mma.sync form's production kernel (its mode-0 instantiation)
   dma      every element of the tiles read, summed; no compute
   mm_only  the products alone (no mask, no exp: p = s, ds = p + dp)
   no_s     no score product (s = lse)
@@ -16,8 +17,9 @@ Each mode removes the same pass as on the TPU:
   no_mask  no segment mask
 
 Numerics of every mode but ``real`` are wrong on purpose: this is a cost
-model. On the card the modes run at H2's tiles (dq: 128-row q blocks
-over 64-key tiles; dk/dv: 64-row k blocks over 64-query tiles), D = 64.
+model. On the card the modes run at the mma.sync form's tiles (dq: 128-row
+q blocks over 64-key tiles; dk/dv: 64-row k blocks over 64-query
+tiles), D = 64.
 
     python -m esme_tpu_torch.tools.decompose_bwd [--device cpu]
 
@@ -207,10 +209,11 @@ def dkv_variant_plain(mode: str, q2, k2, v2, do2, lse, delta, seg_ids,
 
 def bwd_variant(kernel: str, mode: str, q2, k2, v2, do2, lse, delta,
                 seg_ids, kstart, kend, qstart, qend, num_heads: int):
-    """One of H2's kernels in ablation mode ``mode`` (kernel H7): the
-    arguments of :func:`esme_tpu_torch.ops.flash.segment_flash_bwd`,
-    D = 64 only. ``kernel='dq'`` returns dq, ``'dkv'`` returns (dk, dv).
-    ``real`` launches H2's own instantiations."""
+    """One of the mma.sync form's kernels in ablation mode ``mode`` (kernel
+    H7): the arguments of
+    :func:`esme_tpu_torch.ops.flash.segment_flash_bwd`, D = 64 only.
+    ``kernel='dq'`` returns dq, ``'dkv'`` returns (dk, dv). ``real``
+    launches the mma.sync form's own instantiations."""
     if mode not in MODES or kernel not in KERNELS:
         raise ValueError(f'unknown mode {mode!r} or kernel {kernel!r}; '
                          f'modes {list(MODES)}, kernels {KERNELS}')
@@ -318,7 +321,8 @@ def main(argv=None):
     full = (b.q, b.k, b.v, b.do, lse, delta, b.seg, *b.spans, b.H)
     ms = benchmark(flash.segment_flash_bwd, *full, reps=args.reps,
                    device=args.device) * 1e3
-    print(f'bwd both (H2)  {ms:8.4f} ms', flush=True)
+    print(f'bwd both (H2)  {ms:8.4f} ms ({flash.bwd_route(b.D)})',
+          flush=True)
     return {'bwd_ms': ms, **{f'{kernel} {mode}': run(kernel, mode, b, lse,
                                                     delta, args.reps)
                              for kernel in KERNELS for mode in MODES}}

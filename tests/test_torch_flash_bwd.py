@@ -185,6 +185,63 @@ def test_fused_rotary_flash_grad_matches_jax(mode, dtype):
         _close(g, r, dtype, gate)
 
 
+def _mask_layout(layout, T, rng):
+    """Segment ids that exercise H2's per-tile mask test: ``one`` segment
+    over all T (every tile unmasked) or ``interleaved``, non-monotonic
+    ids (every tile masked, spans over the whole batch)."""
+    if layout == 'one':
+        return np.zeros(T, np.int32)
+    return rng.integers(0, 3, T).astype(np.int32)
+
+
+@pytest.mark.parametrize('path', ['K4', 'K5'])
+@pytest.mark.parametrize('layout', ['one', 'interleaved'])
+def test_flash_bwd_plain_matches_jax_on_mask_layouts(layout, path):
+    """H2's plain version (the oracle of the Hopper kernel's masked and
+    unmasked tiles) vs JAX in fp32 on the two segment layouts that
+    decide the mask test: K4 through ``jax.vjp`` of
+    ``flash_segment_attention``, K5 through the gradient of
+    ``fused_rotary_flash`` with a job list (the port's side runs H3, H1,
+    H2 and H3 inverse as plain versions)."""
+    T, H, D = 1024, 2, 64
+    rng = np.random.default_rng(11)
+    seg = _mask_layout(layout, T, rng)
+    segj, segt = jnp.asarray(seg), torch.from_numpy(seg)
+    if path == 'K4':
+        q, k, v, do = (jnp.asarray(rng.standard_normal((T, H, D)),
+                                   jnp.float32) for _ in range(4))
+        _, vjp = jax.vjp(lambda q, k, v: jflash.flash_segment_attention(
+            q, k, v, segj, block_q=256, block_k=256), q, k, v)
+        ref = [np.asarray(r).reshape(T, H * D) for r in vjp(do)]
+        tq, tk, tv, tdo = (_to_torch(x, torch.float32).reshape(T, H * D)
+                           for x in (q, k, v, do))
+        spans = tflash.flash_spans(segt)
+        o, lse = tflash.segment_flash_fwd(tq, tk, tv, segt, *spans[:2], H)
+        delta = tflash.attention_delta(o, tdo, H)
+        got = tflash.segment_flash_bwd_plain(tq, tk, tv, tdo, lse, delta,
+                                             segt, *spans, H)
+        gate = F32
+    else:
+        q2, k2, v2, w, cos, sin = _fused_inputs(T, H, D, torch.float32, 13)
+        num_jobs = jflash.host_num_jobs(seg, 256, 256)
+
+        def loss(q2, k2, v2):
+            o = jfused.fused_rotary_flash(q2, k2, v2, cos, sin, segj, H, 256,
+                                          256, None, True, num_jobs)
+            return jnp.sum(o * w)
+
+        ref = jax.grad(loss, argnums=(0, 1, 2))(q2, k2, v2)
+        xs = [_to_torch(x, torch.float32).requires_grad_()
+              for x in (q2, k2, v2)]
+        tw, tc, ts = (_to_torch(x, torch.float32) for x in (w, cos, sin))
+        (tfused.fused_rotary_flash(*xs, tc, ts, segt, H) * tw).sum() \
+            .backward()
+        got = [x.grad for x in xs]
+        gate = F32_FUSED
+    for g, r in zip(got, ref):
+        _close(g, r, torch.float32, gate)
+
+
 def test_fused_grad_spans_and_constants():
     """Spans computed inside or passed in give the same gradient, and
     cos, sin and seg_ids get none."""

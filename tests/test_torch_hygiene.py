@@ -108,6 +108,19 @@ def test_cpu_tools_launch_no_kernel(monkeypatch):
     assert [f.launches for f in TOOL_COUNTERS] == [0] * 7
 
 
+def test_bwd_ab_runs_only_on_a_card(monkeypatch, tmp_path):
+    """The A/B tool of H2's Hopper source refuses to run without a card,
+    before it builds anything."""
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA card is present: the tool runs for real')
+    from esme_tpu_torch import _build
+    from esme_tpu_torch.tools import bwd_ab
+    monkeypatch.setattr(_build, 'BUILD_ROOT', tmp_path / 'build')
+    with pytest.raises(RuntimeError, match='needs a card'):
+        bwd_ab.main([str(tmp_path / 'variant.cu')])
+    assert not (tmp_path / 'build').exists()
+
+
 def test_entry_points_pin_fp32_accumulation(monkeypatch):
     """The entry points run their products with fp32 cuBLAS reductions
     and no TF32, and give the caller's settings back after the call."""
@@ -179,11 +192,29 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
     # builds go under BUILD_ROOT, keyed by a hash of sources and flags
     assert _build._build_dir().parent == tmp_path
     assert sorted(p.name for p in _build.CSRC.glob('*.cu')) == \
-        ['flash_bwd.cu', 'flash_fwd.cu', 'flash_fwd_t.cu', 'headsplit.cu',
-         'probes.cu', 'rope.cu']
+        ['flash_bwd.cu', 'flash_bwd_sm90.cu', 'flash_fwd.cu',
+         'flash_fwd_t.cu', 'headsplit.cu', 'probes.cu', 'rope.cu']
     # every library has its C signatures
     assert sorted(_build.SIGNATURES) == sorted(
         p.stem for p in _build.CSRC.glob('*.cu'))
+
+
+def test_bwd_route_is_a_static_rule_on_head_dim():
+    """H2 launches the Hopper form (``flash_bwd_sm90``) at head dims 32,
+    64 and 128 and the mma.sync form (``flash_bwd``) at 16 and 24; each
+    route's entry and error string are bound C functions."""
+    from esme_tpu_torch import _build
+    assert {D: tflash.bwd_route(D) for D in tflash.HEAD_DIMS} == {
+        16: 'flash_bwd', 24: 'flash_bwd', 32: 'flash_bwd_sm90',
+        64: 'flash_bwd_sm90', 128: 'flash_bwd_sm90'}
+    for name, fns in tflash.BWD_ROUTES.items():
+        assert set(fns) <= set(_build.SIGNATURES[name])
+    assert set(_build.SIGNATURES['flash_bwd_sm90']) == {
+        'esme_segment_flash_bwd_sm90', 'esme_flash_bwd_sm90_pass',
+        'esme_flash_bwd_sm90_error_string'}
+    src = (_build.CSRC / 'flash_bwd_sm90.cu').read_text()
+    for fn in _build.SIGNATURES['flash_bwd_sm90']:
+        assert re.search(rf'^\S.* {fn}\(', src, re.M), fn
 
 
 def test_chip_smoke_fails_without_a_card():

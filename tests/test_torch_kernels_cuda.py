@@ -19,6 +19,10 @@ Gates:
   roundings can land on neighbouring bf16 values; one such flip of a
   large ds term moves one gradient element by up to ~2^-8·|ds|·|k|
   (measured up to 0.019·rms(g) at 8k tokens, see ``chip_smoke.py``).
+  Held on both of H2's routes (the Hopper form at D = 32, 64, 128, the
+  mma.sync form at 16, 24) and on one segment, 1-70-token segments and
+  interleaved ids, so on masked and unmasked tiles; the Hopper form is
+  also bit-equal from call to call and pass by pass.
 * H3 (RoPE): bit equality; the kernel rounds each product and each sum
   to bf16 as the plain version does.
 * H4 (head relayout with optional RoPE): bit equality, for the same
@@ -139,6 +143,113 @@ def test_flash_bwd_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match='qstart'):
         flash.segment_flash_bwd(q, k, v, q, lse, lse, seg, *spans[:2],
                                 spans[2][:-1], spans[3], 2)
+
+
+# Segment layouts that decide H2's per-tile mask test: one segment over
+# all T (every tile unmasked), 1-70-token segments (every tile masked) and
+# interleaved, non-monotonic ids (every tile masked, spans over the batch)
+def _bwd_seg(layout, T, dev, seed):
+    rng = np.random.default_rng(seed)
+    if layout == 'one':
+        ids = np.zeros(T, np.int32)
+    elif layout == 'short':
+        lens = rng.integers(1, 71, T)
+        ids = np.repeat(np.arange(T), lens)[:T]
+    else:
+        ids = rng.integers(0, 3, T)
+    return torch.from_numpy(ids.astype(np.int32)).to(dev)
+
+
+def _bwd_inputs(seg, H, D, dev, seed):
+    """Random q, k, v, do, lse and delta from H1's plain version."""
+    T = seg.shape[0]
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((T, H * D))
+                                    .astype(np.float32)).to(dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    spans = flash.flash_spans(seg)
+    o, lse = flash.segment_flash_fwd_plain(q, k, v, seg, *spans[:2], H)
+    return (q, k, v, do, lse, flash.attention_delta(o, do, H), seg, *spans,
+            H)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('layout', ['one', 'short', 'interleaved'])
+@pytest.mark.parametrize('T', [1000, 1001, 8192])
+@pytest.mark.parametrize('D', [16, 24, 32, 64, 128])
+def test_flash_bwd_routes_match_plain_on_mask_layouts(cuda, D, T, layout):
+    """H2 (the Hopper form at D = 32, 64, 128; the mma.sync form at 16, 24)
+    against its plain version on masked and unmasked tiles, under the H2
+    gate."""
+    args = _bwd_inputs(_bwd_seg(layout, T, cuda, T), 2, D, cuda, D + T)
+    before = flash.segment_flash_bwd.launches
+    got = flash.segment_flash_bwd(*args)
+    ref = flash.segment_flash_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert flash.segment_flash_bwd.launches == before + 1
+    for a, b in zip(got, ref):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a.float()).all()
+        b = b.float()
+        gate = G_REL * b.abs().clamp_min(b.square().mean().sqrt())
+        assert ((a.float() - b).abs() <= gate).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('D', [32, 64, 128])
+def test_flash_bwd_sm90_is_deterministic(cuda, D):
+    """Two calls of the Hopper form give bit-equal dq, dk and dv (no
+    atomics), and each of its passes alone (dk/dv, dq) gives the same bits
+    as the pair."""
+    import ctypes
+    from esme_tpu_torch import _build
+    seg = _bwd_seg('short', 4096, cuda, 1)
+    seg = torch.cat([seg[:2048], 100 + torch.arange(2048, device=cuda) // 500]
+                    ).to(torch.int32)
+    args = _bwd_inputs(seg, 2, D, cuda, D)
+    first = flash.segment_flash_bwd(*args)
+    again = flash.segment_flash_bwd(*args)
+    assert all(map(torch.equal, first, again))
+    lib = _build.library('flash_bwd_sm90')
+    for which in (0, 1):
+        outs = [torch.zeros_like(args[0]) for _ in range(3)]
+        ptrs = [x.data_ptr() for x in (*args[:11], *outs)]
+        rc = lib.esme_flash_bwd_sm90_pass(
+            which, *ptrs, 4096, 2, D, D ** -0.5,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        assert rc == 0
+        torch.cuda.synchronize()
+        for i in ((1, 2) if which == 0 else (0,)):
+            assert torch.equal(outs[i], first[i])
+
+
+@pytest.mark.cuda
+def test_flash_bwd_sm90_refuses_what_it_does_not_take(cuda):
+    """The wrapper's checks hold on the Hopper route, and its C entries
+    refuse a head dim or pass they were not built for."""
+    import ctypes
+    from esme_tpu_torch import _build
+    args = list(_bwd_inputs(_bwd_seg('one', 256, cuda, 0), 2, 64, cuda, 0))
+    assert flash.bwd_route(64) == 'flash_bwd_sm90'
+    with pytest.raises(ValueError, match='16-byte aligned'):
+        q = torch.empty(256 * 128 + 4, dtype=torch.bfloat16,
+                        device=cuda)[4:].view(256, 128)
+        flash.segment_flash_bwd(q, *args[1:])
+    with pytest.raises(ValueError, match='lse'):
+        flash.segment_flash_bwd(*args[:4], args[4][:, :-1].contiguous(),
+                                *args[5:])
+    with pytest.raises(TypeError, match='bf16'):
+        flash.segment_flash_bwd(*(x.float() for x in args[:4]), *args[4:])
+    lib = _build.library('flash_bwd_sm90')
+    outs = [torch.empty_like(args[0]) for _ in range(3)]
+    ptrs = [x.data_ptr() for x in (*args[:11], *outs)]
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    for D in (16, 24, 48):
+        assert lib.esme_segment_flash_bwd_sm90(*ptrs, 256, 2, D, 0.1,
+                                               stream) != 0
+    assert lib.esme_flash_bwd_sm90_pass(2, *ptrs, 256, 2, 64, 0.1,
+                                        stream) != 0
+    assert lib.esme_flash_bwd_sm90_pass(0, *ptrs, 256, 2, 48, 0.1,
+                                        stream) != 0
 
 
 @pytest.mark.cuda
