@@ -9,15 +9,18 @@ Phases, in order; any failure exits non-zero before a result is printed:
 2. build every kernel from ``esme_tpu_torch/csrc`` with ``nvcc`` (timed);
    H1's and H2's mma.sync mode-0 instantiations (``flash_fwd.cu``,
    ``flash_bwd.cu``) must keep the registers, stack and spills ``ptxas``
-   gave them before the ablation modes, and H2's Hopper kernels
-   (``flash_bwd_sm90.cu``) at D = 64 must have no stack frame and no
-   spills;
+   gave them before the ablation modes, and H1's and H2's Hopper kernels
+   (``flash_fwd_sm90.cu``, ``flash_bwd_sm90.cu``) at D = 64 must have no
+   stack frame and no spills (every instantiation's ``ptxas`` line and
+   any ``wgmma`` serialisation warning is logged);
 3. hold each kernel against its plain PyTorch version on the card, on a
-   packed 8k-token batch: segment-flash forward (H1) and backward (H2,
-   the Hopper form at D = 32, 64, 128 and the mma.sync form at 16, 24) at
-   head dims 16, 24, 32, 64 and 128, H2 also on 8k tokens of one
-   segment (every tile unmasked), of 1-70-token segments and of
-   interleaved ids (every tile masked), RoPE (H3) forward and inverse,
+   packed 8k-token batch: segment-flash forward (H1) and backward (H2),
+   each on its route (the Hopper form at D = 32, 64, 128, the mma.sync
+   form at 16, 24), at head dims 16, 24, 32, 64 and 128, H1 bit-equal
+   across two calls; both also on 8k tokens of one segment (every tile
+   unmasked), of 1-70-token segments and of interleaved ids (every tile
+   masked), H1 also at a ragged T (T % 64 != 0); RoPE (H3) forward and
+   inverse,
    the head relayout (H4) in every layout pair and rotation the ops use
    at each head dim (bit-equal), each beside its gate;
 4. the inference path: ESM2-650M (33 layers, width 1280, 20 heads,
@@ -54,13 +57,18 @@ Phases, in order; any failure exits non-zero before a result is printed:
    none): for H1 ``scaled_dot_product_attention`` with a dense
    block-diagonal mask (``library_ms``, T^2 work) and PyTorch's varlen
    flash-attention forward over the same segments
-   (``library_varlen_ms``); for H2 PyTorch's varlen flash-attention
-   backward (``library_ms``), each of its passes alone, its mma.sync
-   form, and each pass on T tokens of one segment against the same batch
-   with one token of each 64-token tile given its own id (every tile
-   unmasked, then every tile masked: each pass must be faster on the
-   first, where the mask is skipped); the train batch's count of unmasked
-   tiles, from its segment ids, is logged with the measurements; for H4,
+   (``library_varlen_ms``; its ratio is logged, not gated) and its
+   mma.sync form through its C entry (H1 on its route, the Hopper form at
+   D = 64, must be faster); for H2 PyTorch's varlen flash-attention
+   backward (``library_ms``), each of its passes alone and its mma.sync
+   form; H1's Hopper form and each of H2's passes on T tokens of one
+   segment against the same batch with one token of each 64-token tile
+   given its own id (every tile unmasked, then every tile masked: each
+   must be faster on the first, where the mask is skipped); the counts of
+   (16-row, 64-row tile) units that lie in one segment, worked out from
+   the segment ids by H2's rule (``mask_units``: the train batch's, and
+   the inference batch's over H1's spans), are logged with the
+   measurements as properties of the batches; for H4,
    each of its modes at the main shape, with one
    ``permute(...).contiguous()`` call as the yardstick of a move without
    rotation. ``--profile DIR`` also writes
@@ -74,13 +82,15 @@ Phases, in order; any failure exits non-zero before a result is printed:
    then each tool's own run at the main shapes (H5 beside H1, every mode
    and probe timed beside the bound of the work it keeps, H6 and H8 on
    the inference batch, H7 on the 50k train batch), with the launch
-   counters set to 0 just before and read just after; H6 ``baseline``
-   bit-equal to H1 there, H7 ``real`` bit-equal to H2's mma.sync form and
-   under H2's gate against the Hopper form; H1's and H7 ``real``'s times
-   within 3% of their times before the ablation modes were added, on the
-   card those were taken on (``REF_CARD``; logged on any other); H2's
-   Hopper form faster than H7 ``real``, its time logged beside it and the
-   library's.
+   counters set to 0 just before and read just after; H5 under H1's gates
+   against H1 (its Hopper form); H6 ``baseline`` bit-equal to H1's
+   mma.sync form there and H1's Hopper form under H1's gates against it;
+   H7 ``real`` bit-equal to H2's mma.sync form and under H2's gate against
+   the Hopper form; the mma.sync forms' times (H1's and H6 ``baseline``,
+   H2's and H7 ``real``) within 3% of their times before the ablation
+   modes were added, on the card those were taken on (``REF_CARD``;
+   logged on any other); H2's Hopper form faster than H7 ``real``, its
+   time logged beside it and the library's.
 
 The last three lines are the kernels' JSON, the measurements' JSON and
 ``{"ok": true, "device": {...}}``.
@@ -90,6 +100,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -160,11 +171,11 @@ H1_NAME, H2_NAME, H3_NAME, H4_NAME = (
 # modes), H7 (H2's) and the four H8 probes; none is on the model path
 H5_NAME, H6_NAME, H7_NAME = 'fwd_T', 'variant_fwd', 'bwd_variant'
 H8_NAMES = ('probe_vpu', 'probe_mxu', 'probe_dma', 'probe_dma_t')
-# H1's and H2's times at the main shapes before the ablation modes were
-# added (PERF.md's kernel table), on REF_CARD. The mode-0 instantiations
-# are held to within 3% of them there, on the better of the script's two
-# timings of each (phase 7's and phase 8's); another card or power limit
-# moves them, and there they are logged only.
+# The times of H1's and H2's mma.sync forms at the main shapes before the
+# ablation modes were added (PERF.md's kernel table), on REF_CARD. The
+# mode-0 instantiations are held to within 3% of them there, on the better
+# of the script's two timings of each (phase 7's and phase 8's); another
+# card or power limit moves them, and there they are logged only.
 H1_REF_MS, H2_REF_MS = 1.0984, 4.1524
 REF_CARD = 'NVIDIA H100 80GB HBM3, 700.00 W'
 # ptxas' report of the same instantiations before the modes were added
@@ -283,24 +294,53 @@ def flash_errors(o, lse, o_p, lse_p):
 
 
 def check_flash(cu, budget, H, D, dev, seed=0, what=''):
-    """H1 vs its plain version; returns (o err, lse err)."""
-    from esme_tpu_torch.ops import flash
+    """H1 vs its plain version on a packed batch; returns (o err, lse
+    err)."""
     q, k, v, seg, _, spans = flash_inputs(cu, budget, H, D, dev, seed)
-    ks, ke = spans[:2]
-    o, lse = flash.segment_flash_fwd(q, k, v, seg, ks, ke, H)
-    o_p, lse_p = flash.segment_flash_fwd_plain(q, k, v, seg, ks, ke, H)
+    return check_flash_args((q, k, v, seg, *spans[:2], H), what)
+
+
+def check_flash_args(args, what=''):
+    """H1 (on its route) vs its plain version on ``segment_flash_fwd``'s
+    arguments, under H1's gates, and bit-equal across two calls; returns
+    (o err, lse err)."""
+    from esme_tpu_torch.ops import flash
+    q, *_, H = args
+    D = q.shape[1] // H
+    o, lse = flash.segment_flash_fwd(*args)
+    again = flash.segment_flash_fwd(*args)
+    o_p, lse_p = flash.segment_flash_fwd_plain(*args)
     torch.cuda.synchronize()
     e_o, share, e_l = flash_errors(o, lse, o_p, lse_p)
-    ok = share <= 1.0 and e_l <= FLASH_LSE_ATOL \
+    same = torch.equal(o, again[0]) and torch.equal(lse, again[1])
+    ok = share <= 1.0 and e_l <= FLASH_LSE_ATOL and same \
         and bool(torch.isfinite(o.float()).all())
-    log(f'H1{what} T={q.shape[0]} H={H} D={D}: max|o-plain| {e_o:.3e}, '
-        f'{share:.3f} of the o gate (2^-6*max(|o|, {FLASH_O_FLOOR})), '
-        f'max|lse-plain| {e_l:.3e} (gate {FLASH_LSE_ATOL}) '
+    log(f'H1{what} T={q.shape[0]} H={H} D={D} ({flash.fwd_route(D)}): '
+        f'max|o-plain| {e_o:.3e}, {share:.3f} of the o gate '
+        f'(2^-6*max(|o|, {FLASH_O_FLOOR})), max|lse-plain| {e_l:.3e} (gate '
+        f'{FLASH_LSE_ATOL}), bit-equal across two calls {same} '
         f'{"ok" if ok else "FAIL"}')
     if not ok:
-        fail(f'H1 disagrees with its plain version at T={q.shape[0]} '
-             f'D={D}')
+        fail(f'H1 disagrees with its plain version (or itself) at '
+             f'T={q.shape[0]} D={D}{what}')
     return e_o, e_l
+
+
+def seg_flash_args(seg, H, D, dev, seed):
+    """H1's arguments over given segment ids: random q, k, v and the
+    spans."""
+    from esme_tpu_torch.ops import flash
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    q, k, v = (randn((seg.shape[0], H * D), gen, dev) for _ in range(3))
+    return (q, k, v, seg, *flash.flash_spans(seg)[:2], H)
+
+
+def mma_sync_fwd(args):
+    """H1's mma.sync form (``csrc/flash_fwd.cu``), the mode-0 kernel that
+    H6 ``baseline`` ablates, through its C entry (no counter moves)."""
+    from esme_tpu_torch.ops import flash
+    return flash.launch_fwd('flash_fwd', *args)
 
 
 def bwd_inputs(cu, budget, H, D, dev, seed):
@@ -543,16 +583,18 @@ def flash_bwd_work(q, seg, spans, H, D):
     return nbytes, flops
 
 
-def bwd_units(seg, spans):
+def mask_units(seg, spans):
     """Counts, from a batch's segment ids, of the units on which H2's
     Hopper form decides the mask (a warp's 16 rows against one 64-row
     tile), per pass: ``{pass: (unmasked, total)}``. A property of the
     batch, worked out here by the kernel's rule, not read from the card
-    (``time_mask_skip`` measures the skip). A unit is unmasked
-    when its 16 rows (existing) and the tile's 64 ids share one id: in
-    the dk/dv pass the k rows against a q tile of the block's span (ids
-    past T read as 0, as the kernel's zero-filled copies do), in the dq
-    pass the q rows against a k tile that lies wholly below T."""
+    (``time_mask_skip`` and ``time_fwd_mask_skip`` measure the skip). A
+    unit is unmasked when its 16 rows (existing) and the tile's 64 ids
+    share one id: in the dk/dv pass the k rows against a q tile of the
+    block's span (ids past T read as 0, as the kernel's zero-filled copies
+    do), in the dq pass the q rows against a k tile that lies wholly below
+    T. The dq pass walks H1's spans, so its count is also the batch's
+    (16-row, 64-key) units of the forward."""
     INT_MIN = -2 ** 31
     seg = seg.long().cpu()
     T = seg.numel()
@@ -591,82 +633,103 @@ def bwd_units(seg, spans):
     return counts
 
 
-def direct_bwd(args, name, entry, *lead):
-    """H2 launched straight through C entry ``entry`` of library ``name``
-    with ``lead`` before ``segment_flash_bwd``'s arguments; for timing and
-    comparison only, so no counter moves. Returns dq, dk, dv (those the
-    entry does not write are left uninitialised)."""
+def sm90_pass(which, args):
+    """One pass of H2's Hopper form alone, through its C entry
+    ``esme_flash_bwd_sm90_pass`` on ``segment_flash_bwd``'s arguments (no
+    counter moves): ``which`` 0 writes dk and dv, 1 writes dq; the
+    outputs it does not write are left uninitialised."""
     from esme_tpu_torch import _build
     from esme_tpu_torch.ops import flash
     q, *_, H = args
     T, HD = q.shape
     outs = [torch.empty_like(q) for _ in range(3)]
-    lib = _build.library(name)
+    lib = _build.library('flash_bwd_sm90')
+    entry = 'esme_flash_bwd_sm90_pass'
     rc = getattr(lib, entry)(
-        *lead, *(x.data_ptr() for x in (*args[:11], *outs)), T, H, HD // H,
-        (HD // H) ** -0.5, torch.cuda.current_stream().cuda_stream)
-    _build.check(rc, lib, flash.BWD_ROUTES[name][1], entry)
+        which, *(x.data_ptr() for x in (*args[:11], *outs)), T, H, HD // H,
+        1.0 / math.sqrt(HD // H), torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, lib, flash.BWD_ROUTES['flash_bwd_sm90'][1], entry)
     return outs
 
 
-def sm90_pass(which, args):
-    """One pass of H2's Hopper form alone: ``which`` 0 writes dk and dv,
-    1 writes dq."""
-    return direct_bwd(args, 'flash_bwd_sm90', 'esme_flash_bwd_sm90_pass',
-                      which)
-
-
-def time_mask_skip(T, H, D, dev):
-    """Each pass of H2's Hopper form on T tokens of one segment (every
-    tile unmasked) and on the same q, k, v and do with the token at 37 of
-    each 64-token tile given an id of its own (the same spans, every tile
-    masked): one call at a time after a 0.2 s pause, eight per batch in
-    the order unmasked, masked, masked, unmasked. On the H100 at 700 W,
-    back-to-back calls of these 50-60 ms drifted by up to 10%; after the
-    pause they agree within ~2%, and a pass's time is its fastest call.
-    Fails unless each
-    pass is faster unmasked, where the kernel skips the mask. Returns
-    ``{pass: {layout: {'min': ms, 'median': ms}}}``."""
-    from esme_tpu_torch.ops import flash
+def mask_skip_segs(T, dev):
+    """The segment ids of the mask-skip pair: T tokens of one segment
+    (every tile unmasked), and the same with the token at 37 of each
+    64-token tile given an id of its own (the same spans, every tile
+    masked)."""
     one = torch.zeros(T, dtype=torch.int32, device=dev)
     cut = one.clone()
     cut[37::64] = torch.arange(1, cut[37::64].numel() + 1, dtype=torch.int32,
                                device=dev)
+    return {'one segment': one, 'every tile masked': cut}
+
+
+def fastest_pair(what, run, inputs):
+    """Each of the two ``inputs`` (one segment, every tile masked) through
+    ``run``, one call at a time after a 0.2 s pause, eight per batch in the
+    order unmasked, masked, masked, unmasked. On the H100 at 700 W,
+    back-to-back calls of 50-60 ms drifted by up to 10%; after the pause
+    they agree within ~2%, and a kernel's time is its fastest call. Fails
+    unless the unmasked batch is faster, where the kernel skips the mask.
+    Returns ``{layout: {'min': ms, 'median': ms}}``."""
+    runs = {name: [] for name in inputs}
+    for name in [*inputs, *reversed(inputs)] * 4:
+        time.sleep(0.2)
+        runs[name].append(cuda_ms(lambda: run(inputs[name]), reps=1))
+    a, b = (min(r) for r in runs.values())
+    log(f'{what}: fastest call {a:.4f} ms on one segment, {b:.4f} ms with '
+        f'every tile masked ({a / b:.4f}); calls '
+        f'{ {n: [round(x, 3) for x in r] for n, r in runs.items()} }')
+    if not a < b:
+        fail(f'{what} is not faster where every tile lies in one segment '
+             f'({a:.4f} vs {b:.4f} ms): the mask is not skipped')
+    return {name: {'min': min(r), 'median': float(np.median(r))}
+            for name, r in runs.items()}
+
+
+def time_mask_skip(T, H, D, dev):
+    """Each pass of H2's Hopper form on the mask-skip pair
+    (:func:`mask_skip_segs`, :func:`fastest_pair`). Returns ``{pass:
+    {layout: {'min': ms, 'median': ms}}}``."""
+    from esme_tpu_torch.ops import flash
     gen = torch.Generator(device=dev)
     gen.manual_seed(11)
     q, k, v, do = (randn((T, H * D), gen, dev) for _ in range(4))
     inputs = {}
-    for name, seg in (('one segment', one), ('every tile masked', cut)):
+    for name, seg in mask_skip_segs(T, dev).items():
         spans = flash.flash_spans(seg)
         o, lse = flash.segment_flash_fwd(q, k, v, seg, *spans[:2], H)
         inputs[name] = (q, k, v, do, lse, flash.attention_delta(o, do, H),
                         seg, *spans, H)
-    times = {}
-    for which, pname in ((0, 'dkv'), (1, 'dq')):
-        runs = {name: [] for name in inputs}
-        for name in [*inputs, *reversed(inputs)] * 4:
-            time.sleep(0.2)
-            runs[name].append(cuda_ms(lambda: sm90_pass(which, inputs[name]),
-                                      reps=1))
-        times[pname] = {name: {'min': min(r), 'median': float(np.median(r))}
-                        for name, r in runs.items()}
-        a, b = (min(r) for r in runs.values())
-        log(f'H2 {pname} pass at T={T}: fastest call {a:.4f} ms on one '
-            f'segment, {b:.4f} ms with every tile masked ({a / b:.4f}); calls '
-            f'{ {n: [round(x, 3) for x in r] for n, r in runs.items()} }')
-        if not a < b:
-            fail(f'H2 {pname} pass is not faster where every tile lies in '
-                 f'one segment ({a:.4f} vs {b:.4f} ms): the mask is not '
-                 'skipped')
+    times = {pname: fastest_pair(f'H2 {pname} pass at T={T}',
+                                 lambda a: sm90_pass(which, a), inputs)
+             for which, pname in ((0, 'dkv'), (1, 'dq'))}
     del inputs, q, k, v, do
+    torch.cuda.empty_cache()
+    return times
+
+
+def time_fwd_mask_skip(T, H, D, dev):
+    """H1's Hopper form on the mask-skip pair (:func:`mask_skip_segs`,
+    :func:`fastest_pair`). Returns ``{layout: {'min': ms, 'median':
+    ms}}``."""
+    # the same seed: the same q, k and v over both segment layouts
+    from esme_tpu_torch.ops import flash
+    inputs = {name: seg_flash_args(seg, H, D, dev, 13)
+              for name, seg in mask_skip_segs(T, dev).items()}
+    times = fastest_pair(f'H1 (flash_fwd_sm90) at T={T}',
+                         lambda a: flash.launch_fwd('flash_fwd_sm90', *a),
+                         inputs)
+    del inputs
     torch.cuda.empty_cache()
     return times
 
 
 def mma_sync_bwd(args):
     """H2's mma.sync form (``csrc/flash_bwd.cu``), the mode-0 pair that H7
-    ``real`` ablates."""
-    return direct_bwd(args, 'flash_bwd', 'esme_segment_flash_bwd')
+    ``real`` ablates, through its C entry (no counter moves)."""
+    from esme_tpu_torch.ops import flash
+    return flash.launch_bwd('flash_bwd', *args)
 
 
 def sdpa_ms(q, k, v, seg, H, D, reps):
@@ -798,6 +861,11 @@ def main(argv):
         for d in flash.HEAD_DIMS:
             h2_check_share = max(h2_check_share, check_bwd_args(
                 seg_bwd_inputs(seg, 4, d, dev, d), 4, d, f' {layout}')[1])
+        # H1 there too, and at a ragged T (T % 64 != 0)
+        for t in (CHECK_BUDGET, CHECK_BUDGET - 27):
+            for d in flash.HEAD_DIMS:
+                check_flash_args(seg_flash_args(seg[:t], 4, d, dev, d + t),
+                                 f' {layout}')
     for d in (16, 24, 32, 128):
         check_rope(CHECK_BUDGET, 20 if d < 128 else 40, d, dev, seed=d)
     rope_err = check_rope(BUDGET + (-BUDGET) % 256, H, D, dev)
@@ -891,12 +959,16 @@ def main(argv):
                                      what=' at the main shape')
     q, k, v, seg, pos, spans = flash_inputs(cu, BUDGET, H, D, dev, 7)
     ks, ke = spans[:2]
+    h1_args = (q, k, v, seg, ks, ke, H)
     T = q.shape[0]
-    o, _ = flash.segment_flash_fwd(q, k, v, seg, ks, ke, H)
-    h1_ms = cuda_ms(lambda: flash.segment_flash_fwd(q, k, v, seg, ks, ke,
-                                                    H), reps=20, warmup=2)
-    h1_plain_ms = cuda_ms(lambda: flash.segment_flash_fwd_plain(
-        q, k, v, seg, ks, ke, H), reps=2)
+    o, _ = flash.segment_flash_fwd(*h1_args)
+    h1_ms = cuda_ms(lambda: flash.segment_flash_fwd(*h1_args), reps=20,
+                    warmup=2)
+    # the mma.sync form (H6 `baseline`'s kernel) through its C entry
+    h1_mma_sync_ms = cuda_ms(lambda: mma_sync_fwd(h1_args), reps=20,
+                             warmup=2)
+    h1_plain_ms = cuda_ms(lambda: flash.segment_flash_fwd_plain(*h1_args),
+                          reps=2)
     h1_bytes, h1_flops = flash_work(q, seg, ks, H, D)
     h1_bound, h1_by = bound(h1_bytes, h1_flops, BF16_FLOP_PER_S)
     h1_lib_ms = yardstick(
@@ -905,6 +977,19 @@ def main(argv):
     h1_varlen_ms = yardstick(
         'varlen flash-attention forward (aten)',
         lambda: varlen_flash_ms(q, k, v, seg, H, D, reps=20), o)
+    u, n = mask_units(seg, spans)['dq']
+    h1_units = {'unmasked': u, 'total': n, 'share': u / n}
+    log(f'H1 at the main shape: {h1_ms:.4f} ms ({flash.fwd_route(D)}), the '
+        f'mma.sync form {h1_mma_sync_ms:.4f} ms '
+        f'({h1_ms / h1_mma_sync_ms:.4f}), '
+        + (f'{h1_ms / h1_varlen_ms:.4f} of the varlen library '
+           f'({h1_varlen_ms:.4f} ms; logged, not a gate)' if h1_varlen_ms
+           else 'no varlen library time')
+        + f'; the batch\'s unmasked (16-row, 64-key) units per head '
+        f'{h1_units}')
+    if not h1_ms < h1_mma_sync_ms:
+        fail(f'H1 ({h1_ms:.4f} ms) is not faster than its mma.sync form '
+             f'({h1_mma_sync_ms:.4f} ms) at the main shape')
 
     cos, sin = rotary_cos_sin(pos, D)
     h3_ms = cuda_ms(lambda: headsplit.rotary_qk(q, k, cos, sin, H),
@@ -915,8 +1000,9 @@ def main(argv):
     # [:, :D/2] that H3 reads (csrc/rope.cu)
     h3_bytes = 4 * q.numel() * 2 + cos.numel() * 2
     h3_bound, h3_by = bound(h3_bytes, 6.0 * q.numel(), FP32_FLOP_PER_S)
-    del q, k, v, o, cos, sin
+    del q, k, v, o, cos, sin, h1_args
     torch.cuda.empty_cache()
+    h1_mask_skip = time_fwd_mask_skip(T, H, D, dev)
 
     # H2 at the 50k train cell's shape (bench.py's train batch, seed 2)
     _, tcu, _ = packed_batch(BUDGET, seed=2)
@@ -936,7 +1022,7 @@ def main(argv):
                  for which, name in ((0, 'dkv'), (1, 'dq'))}
     mma_sync_ms = cuda_ms(lambda: mma_sync_bwd(h2_args), reps=20, warmup=2)
     units = {name: {'unmasked': a, 'total': b, 'share': a / b}
-             for name, (a, b) in bwd_units(tseg, tspans).items()}
+             for name, (a, b) in mask_units(tseg, tspans).items()}
     log(f'H2 at the train shape: {h2_ms:.4f} ms (dk/dv, then dq); passes '
         f'alone {h2_passes}; the mma.sync form {mma_sync_ms:.4f} ms; the '
         f'batch\'s unmasked (16-row, 64-row tile) units per head {units}')
@@ -957,14 +1043,16 @@ def main(argv):
 
     # 8. the probe tools' kernels
     probe_kernels = check_probes(
-        dev, h1_ms,
+        dev, {'ms': h1_ms, 'mma_sync_ms': h1_mma_sync_ms},
         {'ms': h2_ms, 'mma_sync_ms': mma_sync_ms, 'library_ms': h2_lib_ms},
         card)
 
     train_launches = {key: c['launches'] for key, c in cells.items()}
     kernels = [
         {'name': H1_NAME, 'route': 'cuda',
-         'source': 'esme_tpu_torch/csrc/flash_fwd.cu',
+         'source': 'esme_tpu_torch/csrc/flash_fwd_sm90.cu',
+         'routes': {str(d): f'esme_tpu_torch/csrc/{flash.fwd_route(d)}.cu'
+                    for d in flash.HEAD_DIMS},
          'replaces': 'esme_tpu/ops/flash.py:370',
          'also_replaces': ['esme_tpu/ops/flash.py:257',
                            'esme_tpu/ops/flash_v2.py:45',
@@ -977,6 +1065,8 @@ def main(argv):
          'lse_max_abs_err': h1_lse_err, 'ms': h1_ms,
          'plain_ms': h1_plain_ms, 'bound_ms': h1_bound, 'bound_by': h1_by,
          'library_ms': h1_lib_ms, 'library_varlen_ms': h1_varlen_ms,
+         'mma_sync_form_ms': h1_mma_sync_ms, 'mask_skip_ms': h1_mask_skip,
+         'ptxas': sm90_usage['flash_fwd_sm90'],
          'shape': f'T={T} H={H} D={D} bf16',
          'bytes': h1_bytes, 'flops': h1_flops},
         {'name': H2_NAME, 'route': 'cuda',
@@ -997,7 +1087,7 @@ def main(argv):
          'ms': h2_ms, 'plain_ms': h2_plain_ms, 'bound_ms': h2_bound,
          'bound_by': h2_by, 'library_ms': h2_lib_ms,
          'passes_ms': h2_passes, 'mma_sync_form_ms': mma_sync_ms,
-         'mask_skip_ms': mask_skip, 'ptxas': sm90_usage,
+         'mask_skip_ms': mask_skip, 'ptxas': sm90_usage['flash_bwd_sm90'],
          'shape': f'T={TT} H={H} D={D} bf16 (train batch)',
          'bytes': h2_bytes, 'flops': h2_flops},
         {'name': H3_NAME, 'route': 'cuda',
@@ -1047,6 +1137,7 @@ def main(argv):
         'real_tokens_per_s': real / fwd_ms * 1e3,
         'peak_mem_gib': peak / 2**30, 'host_enqueue_ms': host_ms,
         'train': cells, 'grad_checks': grad_checks, 'op_api': ops,
+        'inference_batch_unmasked_units': h1_units,
         'train_batch_unmasked_units': units,
         'fit_losses': fit_losses, 'build_s': build_s,
         'model_checks': model_checks, 'torch': torch.__version__,
@@ -1457,13 +1548,21 @@ def check_mode0_ptxas():
             'registers, no stack, no spills')
 
 
+# H1's and H2's Hopper libraries: kernel name -> its count of D = 64
+# instantiations
+SM90_KERNELS = {'flash_fwd_sm90': {'flash_fwd_sm90_kernel': 1},
+                'flash_bwd_sm90': {'bwd_dkv_sm90_kernel': 1,
+                                   'bwd_dq_sm90_kernel': 1}}
+
+
 def sm90_ptxas_usage(build_log: str) -> dict:
     """``{(kernel, head dim): (registers, stack frame, spill stores, spill
-    loads)}`` of H2's Hopper kernels in ``nvcc -Xptxas -v`` output."""
+    loads)}`` of H1's and H2's Hopper kernels in ``nvcc -Xptxas -v``
+    output."""
     usage, name, frame = {}, None, None
     for line in build_log.splitlines():
-        m = re.search(r'Function properties for \S*?\d(bwd_(?:dkv|dq)_sm90_'
-                      r'kernel)ILi(\d+)E', line)
+        m = re.search(r'Function properties for \S*?\d((?:bwd_(?:dkv|dq)|'
+                      r'flash_fwd)_sm90_kernel)ILi(\d+)E', line)
         if m:
             name = (m.group(1), int(m.group(2)))
             continue
@@ -1480,27 +1579,40 @@ def sm90_ptxas_usage(build_log: str) -> dict:
 
 
 def check_sm90_ptxas():
-    """H2's Hopper kernels as built: every D = 64 instantiation (the
-    model's head dim) with no stack frame and no spills; fail otherwise.
-    Returns the usage of all of them."""
+    """H1's and H2's Hopper kernels as built: every D = 64 instantiation
+    (the model's head dim) with no stack frame and no spills; fail
+    otherwise. Logs every instantiation's ``ptxas`` line and any ``wgmma``
+    serialisation warning (C7510-C7520). Returns per library the usage of
+    all its kernels and its warnings."""
     from esme_tpu_torch import _build
-    usage = sm90_ptxas_usage(_build.build_log('flash_bwd_sm90'))
-    d64 = {k: u for k, u in usage.items() if k[1] == 64}
-    if len(d64) != 2:
-        fail(f'ptxas: expected 2 D = 64 kernels of flash_bwd_sm90, found '
-             f'{sorted(d64)}')
-    for (kernel, d), (regs, *frame) in sorted(usage.items()):
-        log(f'ptxas: {kernel}<D={d}>: {regs} registers, stack {frame[0]}, '
-            f'spill stores {frame[1]}, spill loads {frame[2]}')
-        if d == 64 and any(frame):
-            fail(f'ptxas: {kernel}<D=64> has a stack frame or spills: '
-                 f'{frame}')
-    return {f'{k} D={d}': u for (k, d), u in sorted(usage.items())}
+    out = {}
+    for lib, kernels in SM90_KERNELS.items():
+        build_log = _build.build_log(lib)
+        usage = sm90_ptxas_usage(build_log)
+        d64 = sorted(k for k in usage if k[1] == 64)
+        if [k for k, _ in d64] != sorted(kernels):
+            fail(f'ptxas: expected D = 64 kernels {sorted(kernels)} of {lib}, '
+                 f'found {d64}')
+        for (kernel, d), (regs, *frame) in sorted(usage.items()):
+            log(f'ptxas: {lib} {kernel}<D={d}>: {regs} registers, stack '
+                f'{frame[0]}, spill stores {frame[1]}, spill loads {frame[2]}')
+            if d == 64 and any(frame):
+                fail(f'ptxas: {kernel}<D=64> has a stack frame or spills: '
+                     f'{frame}')
+        warnings = sorted({line.strip() for line in build_log.splitlines()
+                           if re.search(r'C75(1\d|20)\b|wgmma', line)})
+        for line in warnings:
+            log(f'ptxas: {lib}: {line}')
+        out[lib] = {'usage': {f'{k} D={d}': u
+                              for (k, d), u in sorted(usage.items())},
+                    'wgmma_warnings': warnings}
+    return out
 
 
-def check_probes(dev, h1_ms, h2, card):
+def check_probes(dev, h1, h2, card):
     """Phase 8: the probe tools' kernels H5-H8 (see the module docstring).
-    Returns their entries of the kernels line."""
+    ``h1`` and ``h2`` hold phase 7's times of H1 and H2. Returns the probes'
+    entries of the kernels line."""
     from esme_tpu_torch.ops import flash
     from esme_tpu_torch.tools import (BWD_SEED, FWD_SEED, attention_batch,
                                       thd_to_hdt)
@@ -1598,15 +1710,26 @@ def check_probes(dev, h1_ms, h2, card):
             'o_err_vs_h1', 'o_gate_share_vs_h1', 'lse_err_vs_h1')},
         'shape': f'T={b.T} H={H} D={D} bf16, (H, D, T) operands'}]
 
-    # H6: every mode timed; baseline bit-equal to H1 and under its gates
+    # H6: every mode timed; baseline bit-equal to H1's mma.sync form and
+    # under its gates; H1's Hopper form under H1's gates against it
     modes6, l6 = tool_run('flash_variants.run, every mode', H6_NAME,
                           lambda: {m: tfv.run(m, b, reps=20)
                                    for m in tfv.MODES})
     got = tfv.variant_fwd('baseline', *args)
-    if not all(map(torch.equal, got, flash.segment_flash_fwd(*args))):
-        fail('H6 baseline is not bit-equal to H1 at the main shape')
+    if not all(map(torch.equal, got, mma_sync_fwd(args))):
+        fail('H6 baseline is not bit-equal to the mma.sync form of H1 at the '
+             'main shape')
     c6 = tfv.check('baseline', got, tfv.variant_fwd_plain('baseline', *args))
-    gate(f'H6 baseline T={b.T} vs plain (bit-equal to H1)', c6)
+    gate(f'H6 baseline T={b.T} vs plain (bit-equal to the mma.sync form)',
+         c6)
+    o, lse = flash.segment_flash_fwd(*args)
+    e_o, share, e_l = flash_errors(o, lse, *got)
+    gate(f'H1 ({flash.fwd_route(D)}) T={b.T} vs H6 baseline (the mma.sync '
+         "form), H1's gates",
+         {'max|o-baseline|': e_o, 'o gate share': share,
+          'max|lse-baseline|': e_l,
+          'ok': share <= 1.0 and e_l <= FLASH_LSE_ATOL})
+    del o, lse
     h6_plain_ms = cuda_ms(lambda: tfv.variant_fwd_plain('baseline', *args),
                           reps=1)
     del got
@@ -1617,8 +1740,10 @@ def check_probes(dev, h1_ms, h2, card):
         'max_abs_err': c6['o_err'], 'ms': modes6['baseline']['ms'],
         'plain_ms': h6_plain_ms, 'bound_ms': modes6['baseline']['bound_ms'],
         'bound_by': modes6['baseline']['bound_by'], 'library_ms': None,
-        'mode': 'baseline (bit-equal to H1)', 'modes': modes6,
-        'h1_ms': h1_ms, 'shape': f'T={b.T} H={H} D={D} bf16'})
+        'mode': 'baseline (bit-equal to the mma.sync form of H1)',
+        'modes': modes6, 'h1_ms': h1['ms'],
+        'mma_sync_form_ms': h1['mma_sync_ms'],
+        'shape': f'T={b.T} H={H} D={D} bf16'})
 
     # H8 probes over H1's steps
     r8, l8 = tool_run('profile_attn.measure', H8_NAMES,
@@ -1695,7 +1820,8 @@ def check_probes(dev, h1_ms, h2, card):
     torch.cuda.empty_cache()
     h7_times = (h2['mma_sync_ms'], sum(r['ms'] for r in real))
     for name, timings, ref in (
-            (H1_NAME, (h1_ms, modes6['baseline']['ms']), H1_REF_MS),
+            (f'{H1_NAME}, the mma.sync form',
+             (h1['mma_sync_ms'], modes6['baseline']['ms']), H1_REF_MS),
             (f'{H7_NAME} real (the mma.sync form of H2)', h7_times,
              H2_REF_MS)):
         ratio = min((t / ref for t in timings), key=lambda x: abs(x - 1))

@@ -51,6 +51,10 @@ SIGNATURES = {
                                                                P]),
         'esme_flash_error_string': (ctypes.c_char_p, [I]),
     },
+    'flash_fwd_sm90': {
+        'esme_segment_flash_fwd_sm90': (I, [P] * 8 + [I, I, I, F, P]),
+        'esme_flash_fwd_sm90_error_string': (ctypes.c_char_p, [I]),
+    },
     'flash_bwd': {
         'esme_segment_flash_bwd': (I, [P] * 14 + [I, I, I, F, P]),
         'esme_segment_flash_bwd_variant': (I, [I, I] + [P] * 14

@@ -1,9 +1,9 @@
 // Hopper (sm_90a) device helpers for the warp-specialised kernels: TMA
 // tile loads through tensor maps, the mbarrier ring that a producer warp
 // and the consumer warpgroups share, and wgmma with its
-// shared-memory descriptors and register fragments. H2's Hopper form
-// (flash_bwd_sm90.cu) is the first user; the mma.sync kernels keep
-// flash_common.cuh alone, so their ptxas lines cannot move.
+// shared-memory descriptors and register fragments. H2's and H1's Hopper
+// forms (flash_bwd_sm90.cu, flash_fwd_sm90.cu) use them; the mma.sync
+// kernels keep flash_common.cuh alone, so their ptxas lines cannot move.
 //
 // Operand tiles. A tile of ROWS rows of a (T, H*D) bf16 tensor comes in
 // by TMA as NH column halves of HALF_COLS = min(D, 64) columns (NH = 2 at
@@ -205,6 +205,21 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
       "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
       : ESME_F16(0), ESME_F16(16)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// the same with N = 128: d (64 x 128 fp32), B (16 x 128)
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : ESME_F16(0), ESME_F16(16), ESME_F16(32), ESME_F16(48)
       : "l"(a), "l"(b), "r"(accumulate));
 }
 

@@ -170,6 +170,23 @@ def _pad_head_row(params, cfg: ESMConfig, log_prob: bool, device):
     return r[0]
 
 
+# The JAX signatures' options whose feature is not ported yet: each
+# raises unless left at None, naming its item in ROADMAP.md Queue 1
+_UNPORTED = {
+    'quantization': 'int8/NF4 weight quantization comes with ROADMAP.md '
+                    'Queue 1, item 22',
+    'lora_names': 'LoRA adapters come with ROADMAP.md Queue 1, item 19',
+}
+
+
+def check_unported(**options):
+    """Raise ``NotImplementedError`` for an option of ``_UNPORTED`` that
+    is not None."""
+    for name, value in options.items():
+        if value is not None:
+            raise NotImplementedError(f'{name}={value!r}: {_UNPORTED[name]}')
+
+
 def resolve_device(device) -> torch.device:
     """The entry points' device: CUDA unless the caller asks for
     another; raises when CUDA is asked for and there is no card."""
@@ -199,13 +216,18 @@ class _ESMBase:
         self.params = params
 
     @classmethod
-    def from_pretrained(cls, path, dtype='bfloat16', device='cuda'):
+    def from_pretrained(cls, path, quantization=None, checkpointing=False,
+                        dtype='bfloat16', device='cuda'):
         """Load a reference-schema safetensors checkpoint
-        (reference: esme/esm.py:342-374)."""
+        (reference: esme/esm.py:342-374). The JAX package's parameters in
+        its order, then ``device``; ``quantization`` other than None
+        raises (:func:`check_unported`)."""
+        check_unported(quantization=quantization)
         device = resolve_device(device)
         cfg, params, name = load_pretrained(path, dtype=dtype, device=device)
         return _class_for(name.split('_')[0])(
-            config=cfg, params=params, name=name, device=device)
+            config=cfg, params=params, checkpointing=checkpointing,
+            name=name, device=device)
 
     def save_pretrained(self, path, name=None):
         save_pretrained(path, self.params, self.config, name or self.name)
@@ -217,8 +239,9 @@ class _ESMBase:
 
     @torch.inference_mode()
     @fp32_accumulation()
-    def _run(self, tokens, pad_args=None, pad_output=False, layers=None,
-             attn_impl='auto', with_head=True, log_prob=False):
+    def _run(self, tokens, pad_args=None, pad_output=False, lora_names=None,
+             layers=None, attn_impl='auto', with_head=True, log_prob=False):
+        check_unported(lora_names=lora_names)
         collect = tuple(layers) if layers else None
         tokens = self._tensor(tokens).to(torch.int32)
 
@@ -256,30 +279,35 @@ class _ESMBase:
             torch.zeros((x.shape[-1],), dtype=x.dtype, device=x.device)
         return _scatter_back_padded(x, dst, valid, fill)
 
+    # The entries take the JAX package's parameters in its order;
+    # ``lora_names`` other than None raises (no adapters yet).
+
     def forward_representation(self, tokens, pad_args=None, pad_output=False,
-                               layers=None, attn_impl='auto'):
+                               lora_names=None, layers=None,
+                               attn_impl='auto'):
         """(reference: esme/esm.py:201-266)"""
-        return self._run(tokens, pad_args, pad_output, layers, attn_impl,
-                         with_head=False)
+        return self._run(tokens, pad_args, pad_output, lora_names, layers,
+                         attn_impl, with_head=False)
 
     def forward(self, tokens, pad_args=None, pad_output=False,
-                attn_impl='auto'):
+                lora_names=None, attn_impl='auto'):
         """Logits (reference: esme/esm.py:268-282)."""
-        return self._run(tokens, pad_args, pad_output, None, attn_impl,
-                         with_head=True)
+        return self._run(tokens, pad_args, pad_output, lora_names, None,
+                         attn_impl, with_head=True)
 
     __call__ = forward
 
     def predict_log_prob(self, tokens, pad_args=None, pad_output=False,
-                         attn_impl='auto'):
+                         lora_names=None, attn_impl='auto'):
         """fp32 log-probabilities (reference: esme/esm.py:284-298)."""
-        return self._run(tokens, pad_args, pad_output, None, attn_impl,
-                         with_head=True, log_prob=True)
+        return self._run(tokens, pad_args, pad_output, lora_names, None,
+                         attn_impl, with_head=True, log_prob=True)
 
     def predict_prob(self, tokens, log=False, pad_args=None,
-                     pad_output=False, attn_impl='auto'):
+                     pad_output=False, lora_names=None, attn_impl='auto'):
         """(reference: esme/esm.py:300-317)"""
-        lp = self.predict_log_prob(tokens, pad_args, pad_output, attn_impl)
+        lp = self.predict_log_prob(tokens, pad_args, pad_output, lora_names,
+                                   attn_impl)
         return lp if log else torch.exp(lp)
 
 
@@ -288,8 +316,8 @@ class ESM2(_ESMBase):
     family = 'esm2'
 
     def __init__(self, num_layers=33, embed_dim=1280, attention_heads=20,
-                 dtype='bfloat16', config=None, params=None, rng=0,
-                 checkpointing=False, name=None, device='cuda'):
+                 checkpointing=False, dtype='bfloat16', config=None,
+                 params=None, rng=0, name=None, device='cuda'):
         config = config or esm2_config(num_layers, embed_dim,
                                        attention_heads, dtype=dtype)
         super().__init__(config, params=params, rng=rng,
@@ -312,11 +340,13 @@ class ESM:
     (reference: esme/esm.py:28-69)."""
 
     @staticmethod
-    def from_pretrained(path, dtype='bfloat16', device='cuda'):
+    def from_pretrained(path, quantization=None, checkpointing=False,
+                        dtype='bfloat16', device='cuda'):
+        check_unported(quantization=quantization)
         if not os.path.isfile(path):
             raise FileNotFoundError(
                 f'{path}: no such checkpoint file (the port does not '
                 'download weights)')
         family = read_metadata(path)['name'].split('_')[0]
-        return _class_for(family).from_pretrained(path, dtype=dtype,
-                                                  device=device)
+        return _class_for(family).from_pretrained(
+            path, checkpointing=checkpointing, dtype=dtype, device=device)

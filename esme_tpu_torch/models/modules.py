@@ -151,6 +151,18 @@ def num_layers(stacked: dict) -> int:
     return leaf.shape[0]
 
 
+def check_remat(remat: str, checkpointing: bool) -> None:
+    """``remat`` is 'full' or 'attn'; 'attn' (save only the flash outputs)
+    raises with checkpointing on, until the memory slice."""
+    if remat not in ('full', 'attn'):
+        raise ValueError(f'unknown remat policy: {remat}')
+    if remat == 'attn' and checkpointing:
+        raise NotImplementedError(
+            "remat='attn' with checkpointing (save only the flash outputs) "
+            'comes with the memory slice, ROADMAP.md Queue 1, item 15; use '
+            "remat='full'")
+
+
 def layer_stack(x, stacked_params, cfg, seg_ids, pos_ids,
                 attn_impl: str = 'auto', checkpointing: bool = False,
                 collect_layers: Optional[Sequence[int]] = None,
@@ -161,17 +173,14 @@ def layer_stack(x, stacked_params, cfg, seg_ids, pos_ids,
 
     ``checkpointing`` with ``remat='full'`` recomputes each layer in the
     backward from its input (``torch.utils.checkpoint``, the counterpart
-    of ``_remat_wrap``, ``esme_tpu/models/modules.py:328-340``).
+    of ``_remat_wrap``, ``esme_tpu/models/modules.py:328-340``). As in
+    JAX, ``remat`` is ignored without ``checkpointing``; with it,
+    ``remat='attn'`` raises until the memory slice.
     Returns ``(x, reps)``: ``reps`` holds the outputs of the layers in
     ``collect_layers`` (negative indices count from the end), in that
     order (reference: esme/esm.py:243-250).
     """
-    if remat != 'full':
-        if remat == 'attn':
-            raise NotImplementedError(
-                "remat='attn' (save only the flash outputs) comes with the "
-                "memory slice; use remat='full'")
-        raise ValueError(f'unknown remat policy: {remat}')
+    check_remat(remat, checkpointing)
     if isinstance(stacked_params, dict):
         layers = [layer_params(stacked_params, i)
                   for i in range(num_layers(stacked_params))]

@@ -6,16 +6,19 @@ over a flat token stream where token *t* attends token *s* iff
 ``seg_ids[t] == seg_ids[s]``.
 
 :func:`segment_flash_fwd` is the wrapper of kernel H1
-(``csrc/flash_fwd.cu``), which replaces the TPU kernels
+(``csrc/flash_fwd_sm90.cu`` at head dims 32, 64 and 128, the mma.sync form
+``csrc/flash_fwd.cu`` at 16 and 24), which replaces the TPU kernels
 ``esme_tpu/ops/flash.py:_fwd_kernel`` and ``:_fwd_jobs_kernel``;
 :func:`segment_flash_bwd` is the wrapper of kernel H2
 (``csrc/flash_bwd_sm90.cu`` at head dims 32, 64 and 128, the mma.sync form
 ``csrc/flash_bwd.cu`` at 16 and 24), which replaces the three TPU
 backward paths
 ``:_dq_kernel``/``:_dkv_kernel``, ``:_dq_jobs_kernel``/``:_dkv_jobs_kernel``
-and ``:_dkvq_jobs_kernel``. Both read and write the ``(T, H·D)`` layout
-directly (so the TPU relayouts ``headsplit.py:_split_one_kernel_t`` for
-v and do and ``:_merge_kernel_t`` for o and dv have no counterpart). On
+and ``:_dkvq_jobs_kernel``. Each routes by a static rule on the head
+dim (:func:`fwd_route`, :func:`bwd_route`). All read and write the
+``(T, H·D)`` layout directly (so the TPU relayouts
+``headsplit.py:_split_one_kernel_t`` for v and do and
+``:_merge_kernel_t`` for o and dv have no counterpart). On
 a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
 it runs its plain PyTorch version (``*_plain``). What bounds each
 kernel and what its design does about it is noted in its CUDA source.
@@ -46,8 +49,8 @@ import torch
 from .attention import NEG_INF
 from .headsplit import relayout
 
-# The kernels' tile sizes (csrc/flash_fwd.cu and csrc/flash_bwd.cu: BQ,
-# BK; keep them equal): q blocks and k tiles of H1 and of H2's dq pass,
+# The kernels' tile sizes (csrc/flash_fwd*.cu and csrc/flash_bwd*.cu: BQ,
+# BK/KT; keep them equal): q blocks and k tiles of H1 and of H2's dq pass,
 # k blocks and q tiles of H2's dk/dv pass
 BLOCK_Q = 128
 BLOCK_K = 64
@@ -56,21 +59,31 @@ BLOCK_QT = 64
 
 HEAD_DIMS = (16, 24, 32, 64, 128)
 
-# H2's route, a static rule on the head dim: library, entry, error string.
-# The Hopper form (wgmma fed by TMA) takes 32, 64 and 128; 16 and 24 stay
-# on the mma.sync form, as a 24-column TMA box would read the next head's
-# columns.
+# H1's and H2's routes, static rules on the head dim: library -> (entry,
+# error string). The Hopper forms (wgmma fed by TMA) take 32, 64 and 128;
+# 16 and 24 stay on the mma.sync forms, as a 24-column TMA box would read
+# the next head's columns.
+FWD_ROUTES = {
+    'flash_fwd_sm90': ('esme_segment_flash_fwd_sm90',
+                       'esme_flash_fwd_sm90_error_string'),
+    'flash_fwd': ('esme_segment_flash_fwd', 'esme_flash_error_string'),
+}
 BWD_ROUTES = {
     'flash_bwd_sm90': ('esme_segment_flash_bwd_sm90',
                        'esme_flash_bwd_sm90_error_string'),
     'flash_bwd': ('esme_segment_flash_bwd', 'esme_flash_bwd_error_string'),
 }
-SM90_BWD_HEAD_DIMS = (32, 64, 128)
+SM90_HEAD_DIMS = (32, 64, 128)
+
+
+def fwd_route(head_dim: int) -> str:
+    """The library H1 launches at this head dim."""
+    return 'flash_fwd_sm90' if head_dim in SM90_HEAD_DIMS else 'flash_fwd'
 
 
 def bwd_route(head_dim: int) -> str:
     """The library H2 launches at this head dim."""
-    return 'flash_bwd_sm90' if head_dim in SM90_BWD_HEAD_DIMS else 'flash_bwd'
+    return 'flash_bwd_sm90' if head_dim in SM90_HEAD_DIMS else 'flash_bwd'
 
 
 def _overlap(seg_ids: torch.Tensor, block_q: int, block_k: int):
@@ -171,6 +184,13 @@ def segment_flash_fwd(q2, k2, v2, seg_ids, kstart, kend, num_heads: int,
                       scale: float | None = None):
     """Segment-masked flash attention forward (kernel H1).
 
+    Routed by a static rule on the head dim (:func:`fwd_route`): D = 32,
+    64 and 128 launch the Hopper form, ``csrc/flash_fwd_sm90.cu`` (``wgmma``
+    fed by TMA through an ``mbarrier`` ring of 128-key stages; the segment
+    mask only on stages that cross a segment); D = 16 and 24 launch the
+    mma.sync form, ``csrc/flash_fwd.cu``. Both compute the same function
+    and are deterministic; ``launches`` counts either.
+
     Args:
         q2, k2, v2: ``(T, H·D)`` with RoPE already applied to q and k.
         seg_ids: ``(T,)`` int32.
@@ -194,21 +214,35 @@ def segment_flash_fwd(q2, k2, v2, seg_ids, kstart, kend, num_heads: int,
         ('seg_ids', seg_ids, T, torch.int32),
         ('kstart', kstart, nqb, torch.int32),
         ('kend', kend, nqb, torch.int32)))
-    from .. import _build
-    lib = _build.library('flash_fwd')
-    o = torch.empty_like(q2)
-    lse = torch.empty((H, T), dtype=torch.float32, device=q2.device)
-    stream = torch.cuda.current_stream(q2.device).cuda_stream
-    rc = lib.esme_segment_flash_fwd(
-        q2.data_ptr(), k2.data_ptr(), v2.data_ptr(), seg_ids.data_ptr(),
-        kstart.data_ptr(), kend.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        T, H, D, 1.0 / math.sqrt(D) if scale is None else scale, stream)
-    _build.check(rc, lib, 'esme_flash_error_string', 'segment_flash_fwd')
+    o, lse = launch_fwd(fwd_route(D), q2, k2, v2, seg_ids, kstart, kend, H,
+                        scale)
     segment_flash_fwd.launches += 1
     return o, lse
 
 
 segment_flash_fwd.launches = 0
+
+
+def launch_fwd(name, q2, k2, v2, seg_ids, kstart, kend, num_heads: int,
+               scale: float | None = None, lib=None):
+    """H1's library ``name`` (a key of ``FWD_ROUTES``) launched through its
+    C entry on :func:`segment_flash_fwd`'s arguments, which it does not
+    check; no counter moves. ``lib``, another build of the same entry
+    (an A/B variant), takes the library's place. The wrapper's launch, and
+    a direct one for timing and comparison. Returns ``o, lse``."""
+    from .. import _build
+    T, HD = q2.shape
+    D = HD // num_heads
+    entry, error_string = FWD_ROUTES[name]
+    lib = _build.library(name) if lib is None else lib
+    o = torch.empty_like(q2)
+    lse = torch.empty((num_heads, T), dtype=torch.float32, device=q2.device)
+    rc = getattr(lib, entry)(
+        *(x.data_ptr() for x in (q2, k2, v2, seg_ids, kstart, kend, o, lse)),
+        T, num_heads, D, 1.0 / math.sqrt(D) if scale is None else scale,
+        torch.cuda.current_stream(q2.device).cuda_stream)
+    _build.check(rc, lib, error_string, f'segment_flash_fwd ({name})')
+    return o, lse
 
 
 def _check_cuda_inputs(what, tensors, H, D):
@@ -341,26 +375,33 @@ def segment_flash_bwd(q2, k2, v2, do2, lse, delta, seg_ids, kstart, kend,
         ('kend', kend, nqb, torch.int32),
         ('qstart', qstart, nkb, torch.int32),
         ('qend', qend, nkb, torch.int32)))
-    from .. import _build
-    name = bwd_route(D)
-    entry, error_string = BWD_ROUTES[name]
-    lib = _build.library(name)
-    dq = torch.empty_like(q2)
-    dk = torch.empty_like(q2)
-    dv = torch.empty_like(q2)
-    stream = torch.cuda.current_stream(q2.device).cuda_stream
-    rc = getattr(lib, entry)(
-        q2.data_ptr(), k2.data_ptr(), v2.data_ptr(), do2.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), seg_ids.data_ptr(),
-        kstart.data_ptr(), kend.data_ptr(), qstart.data_ptr(),
-        qend.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        T, H, D, 1.0 / math.sqrt(D), stream)
-    _build.check(rc, lib, error_string, what)
+    dq, dk, dv = launch_bwd(bwd_route(D), q2, k2, v2, do2, lse, delta,
+                            seg_ids, kstart, kend, qstart, qend, H)
     segment_flash_bwd.launches += 1
     return dq, dk, dv
 
 
 segment_flash_bwd.launches = 0
+
+
+def launch_bwd(name, q2, k2, v2, do2, lse, delta, seg_ids, kstart, kend,
+               qstart, qend, num_heads: int, lib=None):
+    """H2's library ``name`` (a key of ``BWD_ROUTES``) launched through its
+    C entry on :func:`segment_flash_bwd`'s arguments, as
+    :func:`launch_fwd` launches H1. Returns ``dq, dk, dv``."""
+    from .. import _build
+    T, HD = q2.shape
+    D = HD // num_heads
+    entry, error_string = BWD_ROUTES[name]
+    lib = _build.library(name) if lib is None else lib
+    outs = [torch.empty_like(q2) for _ in range(3)]
+    rc = getattr(lib, entry)(
+        *(x.data_ptr() for x in (q2, k2, v2, do2, lse, delta, seg_ids,
+                                 kstart, kend, qstart, qend, *outs)),
+        T, num_heads, D, 1.0 / math.sqrt(D),
+        torch.cuda.current_stream(q2.device).cuda_stream)
+    _build.check(rc, lib, error_string, f'segment_flash_bwd ({name})')
+    return tuple(outs)
 
 
 # ---------------------------------------------------------------------------

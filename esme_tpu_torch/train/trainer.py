@@ -31,7 +31,7 @@ import torch
 
 from ..loss import cross_entropy
 from ..models.esm import forward_flat, packed_meta
-from ..models.modules import layer_params, num_layers
+from ..models.modules import check_remat, layer_params, num_layers
 from ..ops.linear import fp32_accumulation
 
 _LATER = {
@@ -127,8 +127,9 @@ class MaskedPLM:
             at their defaults (later slices).
         attn_impl: the model's attention path ('auto'/'flash' run the
             kernels on the card, 'reference' the einsum).
-        remat: the checkpointing policy when ``model.checkpointing``;
-            only 'full' is ported.
+        remat: the checkpointing policy when ``model.checkpointing``
+            ('full'; 'attn' raises with checkpointing on until the memory
+            slice, and is ignored without it, as in JAX).
     """
 
     def __init__(self, model, learning_rate: float = 1e-4,
@@ -143,12 +144,7 @@ class MaskedPLM:
             if value not in (None, False):
                 raise NotImplementedError(f'MaskedPLM({name}=...): '
                                           f'{_LATER[name]}')
-        if remat == 'attn':
-            raise NotImplementedError(
-                "MaskedPLM(remat='attn'): saving only the flash outputs "
-                "comes with the memory slice; use remat='full'")
-        if remat != 'full':
-            raise ValueError(f'unknown remat policy: {remat}')
+        check_remat(remat, model.checkpointing)
         if grad_accum < 1:
             raise ValueError(f'grad_accum must be >= 1, got {grad_accum}')
         self.model = model

@@ -1,0 +1,135 @@
+"""The port's public call signatures against the JAX package's, and the
+options whose feature is not ported yet.
+
+* Each public entry takes JAX's parameters, by name, in JAX's order; the
+  port may add its own after them (``device``). Checked on
+  ``inspect.signature``, exactly.
+* ``quantization`` (ROADMAP.md Queue 1, item 22) and ``lora_names``
+  (item 19) raise ``NotImplementedError`` unless None.
+* ``from_pretrained(path, checkpointing=True)`` loads the checkpoint bit
+  for bit with the flag set.
+* ``MaskedPLM(remat='attn')`` without checkpointing is ``remat='full'``
+  (JAX ignores ``remat`` there): the same loss and gradients, bit for
+  bit; with checkpointing on it raises (item 15, the memory slice).
+"""
+
+import inspect
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from esme_tpu.models import esm as jesm
+from esme_tpu.models.config import esm2_config as jesm2_config
+
+from esme_tpu_torch import ESM, ESM2, MaskedFastaTokenDataset
+from esme_tpu_torch.models import esm as tesm
+from esme_tpu_torch.models import modules as tmod
+from esme_tpu_torch.models.config import esm2_config
+from esme_tpu_torch.models.io import params_from_jax
+from esme_tpu_torch.train import MaskedPLM
+
+ENTRIES = {
+    'ESM.from_pretrained': (jesm.ESM.from_pretrained, ESM.from_pretrained),
+    'ESM2.from_pretrained': (jesm.ESM2.from_pretrained,
+                             ESM2.from_pretrained),
+    '_ESMBase.from_pretrained': (jesm._ESMBase.from_pretrained,
+                                 tesm._ESMBase.from_pretrained),
+    'forward': (jesm._ESMBase.forward, tesm._ESMBase.forward),
+    'forward_representation': (jesm._ESMBase.forward_representation,
+                                tesm._ESMBase.forward_representation),
+    'predict_log_prob': (jesm._ESMBase.predict_log_prob,
+                         tesm._ESMBase.predict_log_prob),
+    'predict_prob': (jesm._ESMBase.predict_prob,
+                     tesm._ESMBase.predict_prob),
+    'ESM2.__init__': (jesm.ESM2.__init__, ESM2.__init__),
+}
+
+
+def _names(fn):
+    return list(inspect.signature(fn).parameters)
+
+
+@pytest.mark.parametrize('entry', sorted(ENTRIES))
+def test_public_signature_starts_with_jax_parameters(entry):
+    jfn, tfn = ENTRIES[entry]
+    jnames, tnames = _names(jfn), _names(tfn)
+    assert tnames[:len(jnames)] == jnames, (jnames, tnames)
+    assert set(tnames[len(jnames):]) <= {'device'}, tnames
+
+
+def _model(checkpointing=False):
+    cfg = jesm2_config(2, 64, 4, dtype='float32')
+    jm = jesm.ESM2(config=cfg, rng=0)
+    tcfg = esm2_config(2, 64, 4, dtype='float32')
+    return ESM2(config=tcfg, params=params_from_jax(
+        jax.tree.map(np.asarray, jm.params), tcfg), device='cpu',
+        checkpointing=checkpointing)
+
+
+def test_unported_options_raise(tmp_path):
+    path = str(tmp_path / 'esm2_t.safetensors')
+    model = _model().save_pretrained(path)
+    for load in (ESM.from_pretrained, ESM2.from_pretrained):
+        with pytest.raises(NotImplementedError, match='item 22'):
+            load(path, quantization='8bit', device='cpu')
+        with pytest.raises(NotImplementedError, match='item 22'):
+            load(path, '8bit', device='cpu')      # JAX's positional slot
+    tok = np.array([0, 5, 6, 7, 2], dtype=np.int32)
+    pad_args = (np.array([0, 5], np.int32), 5)
+    for fn in (model.forward, model.forward_representation,
+               model.predict_log_prob, model.predict_prob):
+        with pytest.raises(NotImplementedError, match='item 19'):
+            fn(tok, pad_args=pad_args, lora_names=['a'])
+    # None is the default: the same call runs
+    assert model.predict_prob(tok, pad_args=pad_args,
+                              lora_names=None).shape == (5, 33)
+
+
+def test_from_pretrained_passes_checkpointing(tmp_path):
+    path = str(tmp_path / 'esm2_t.safetensors')
+    model = _model().save_pretrained(path)
+    for load in (ESM.from_pretrained, ESM2.from_pretrained):
+        got = load(path, checkpointing=True, dtype='float32', device='cpu')
+        assert type(got) is ESM2 and got.checkpointing is True
+        for (name, a), (_, b) in zip(sorted(_flat(got.params)),
+                                     sorted(_flat(model.params))):
+            assert torch.equal(a, b), name
+        assert load(path, device='cpu').checkpointing is False
+    # ESM2's fourth positional slot is checkpointing, as in JAX
+    assert ESM2(2, 64, 4, True, 'float32', device='cpu').checkpointing
+
+
+def _flat(tree, prefix=''):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, f'{prefix}{k}.')
+        else:
+            yield f'{prefix}{k}', v
+
+
+@pytest.fixture(scope='module')
+def batch(fasta_path):
+    return MaskedFastaTokenDataset(fasta_path, token_per_batch=1024,
+                                   shuffle=False, random_state=0)[0]
+
+
+def test_remat_attn_without_checkpointing_is_full(batch):
+    model = _model()
+    loss_f, grads_f = MaskedPLM(model, remat='full')._grad_step(batch)
+    loss_a, grads_a = MaskedPLM(model, remat='attn')._grad_step(batch)
+    assert torch.equal(loss_f, loss_a)
+    pairs = list(zip(sorted(_flat(grads_a)), sorted(_flat(grads_f))))
+    assert len(pairs) == len(list(_flat(model.params)))
+    for (name, a), (_, b) in pairs:
+        assert torch.equal(a, b), name
+    with pytest.raises(NotImplementedError, match='item 15'):
+        MaskedPLM(_model(checkpointing=True), remat='attn')
+    # switched on after construction, the layer stack refuses it
+    plm = MaskedPLM(model, remat='attn')
+    model.checkpointing = True
+    with pytest.raises(NotImplementedError, match='item 15'):
+        plm._grad_step(batch)
+    with pytest.raises(ValueError, match='unknown remat'):
+        tmod.check_remat('some', False)

@@ -109,15 +109,19 @@ def test_cpu_tools_launch_no_kernel(monkeypatch):
 
 
 def test_bwd_ab_runs_only_on_a_card(monkeypatch, tmp_path):
-    """The A/B tool of H2's Hopper source refuses to run without a card,
-    before it builds anything."""
+    """The A/B tool of H1's and H2's Hopper sources (``tools/sm90_ab.py``)
+    refuses to run without a card, before it builds anything, and takes
+    only the Hopper libraries."""
     if torch.cuda.is_available():
         pytest.skip('a CUDA card is present: the tool runs for real')
     from esme_tpu_torch import _build
-    from esme_tpu_torch.tools import bwd_ab
+    from esme_tpu_torch.tools import sm90_ab
     monkeypatch.setattr(_build, 'BUILD_ROOT', tmp_path / 'build')
-    with pytest.raises(RuntimeError, match='needs a card'):
-        bwd_ab.main([str(tmp_path / 'variant.cu')])
+    for library in ('flash_fwd_sm90', 'flash_bwd_sm90'):
+        with pytest.raises(RuntimeError, match='needs a card'):
+            sm90_ab.main([library, str(tmp_path / 'variant.cu')])
+    with pytest.raises(SystemExit):
+        sm90_ab.main(['flash_fwd', str(tmp_path / 'variant.cu')])
     assert not (tmp_path / 'build').exists()
 
 
@@ -193,7 +197,8 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
     assert _build._build_dir().parent == tmp_path
     assert sorted(p.name for p in _build.CSRC.glob('*.cu')) == \
         ['flash_bwd.cu', 'flash_bwd_sm90.cu', 'flash_fwd.cu',
-         'flash_fwd_t.cu', 'headsplit.cu', 'probes.cu', 'rope.cu']
+         'flash_fwd_sm90.cu', 'flash_fwd_t.cu', 'headsplit.cu', 'probes.cu',
+         'rope.cu']
     # every library has its C signatures
     assert sorted(_build.SIGNATURES) == sorted(
         p.stem for p in _build.CSRC.glob('*.cu'))
@@ -215,6 +220,47 @@ def test_bwd_route_is_a_static_rule_on_head_dim():
     src = (_build.CSRC / 'flash_bwd_sm90.cu').read_text()
     for fn in _build.SIGNATURES['flash_bwd_sm90']:
         assert re.search(rf'^\S.* {fn}\(', src, re.M), fn
+
+
+def test_fwd_route_is_a_static_rule_on_head_dim():
+    """H1 launches the Hopper form (``flash_fwd_sm90``) at head dims 32,
+    64 and 128 and the mma.sync form (``flash_fwd``) at 16 and 24; each
+    route's entry and error string are bound C functions, and each of the
+    Hopper library's bound functions is defined in its source."""
+    from esme_tpu_torch import _build
+    assert {D: tflash.fwd_route(D) for D in tflash.HEAD_DIMS} == {
+        16: 'flash_fwd', 24: 'flash_fwd', 32: 'flash_fwd_sm90',
+        64: 'flash_fwd_sm90', 128: 'flash_fwd_sm90'}
+    for name, fns in tflash.FWD_ROUTES.items():
+        assert set(fns) <= set(_build.SIGNATURES[name])
+    assert set(_build.SIGNATURES['flash_fwd_sm90']) == {
+        'esme_segment_flash_fwd_sm90', 'esme_flash_fwd_sm90_error_string'}
+    # the same C signature as the mma.sync form's entry
+    assert _build.SIGNATURES['flash_fwd_sm90'][
+        'esme_segment_flash_fwd_sm90'] == _build.SIGNATURES['flash_fwd'][
+        'esme_segment_flash_fwd']
+    src = (_build.CSRC / 'flash_fwd_sm90.cu').read_text()
+    for fn in _build.SIGNATURES['flash_fwd_sm90']:
+        assert re.search(rf'^\S.* {fn}\(', src, re.M), fn
+
+
+@pytest.mark.parametrize('D', [16, 64])
+def test_flash_fwd_on_cpu_is_the_plain_version(D):
+    """On a CPU tensor ``segment_flash_fwd`` returns its plain version's
+    outputs, bit for bit, on either route's head dim, and moves no
+    counter."""
+    rng = np.random.default_rng(D)
+    T, H = 300, 2
+    q, k, v = (torch.from_numpy(rng.standard_normal((T, H * D))
+                                .astype(np.float32)) for _ in range(3))
+    seg = torch.from_numpy(np.repeat(np.arange(3), [120, 100, 80])
+                           .astype(np.int32))
+    ks, ke = tflash.block_spans(seg, tflash.BLOCK_Q, tflash.BLOCK_K)
+    before = tflash.segment_flash_fwd.launches
+    got = tflash.segment_flash_fwd(q, k, v, seg, ks, ke, H)
+    ref = tflash.segment_flash_fwd_plain(q, k, v, seg, ks, ke, H)
+    assert all(map(torch.equal, got, ref))
+    assert tflash.segment_flash_fwd.launches == before == 0
 
 
 def test_chip_smoke_fails_without_a_card():

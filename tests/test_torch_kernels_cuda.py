@@ -12,6 +12,10 @@ Gates:
   plain version uses the final one: up to one ulp of the larger value
   apart, plus a small absolute part); lse within 1e-4 (both fp32,
   summed in another order).
+  Held on both of H1's routes (the Hopper form at D = 32, 64, 128, the
+  mma.sync form at 16, 24) and on one segment, 1-70-token segments and
+  interleaved ids, so on masked and unmasked tiles; the Hopper form is
+  also bit-equal from call to call.
 * H2 (segment-flash backward), bf16 inputs: |g - g_plain| within
   2^-4 * max(|g_plain|, rms(g_plain)) for each of dq, dk, dv: p and ds
   are rounded to bf16 before their products, and where the kernel's
@@ -103,6 +107,87 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
         flash.segment_flash_fwd(q48, k48, v48, seg, ks, ke, 2)
 
 
+def _fwd_args(seg, H, D, dev, seed):
+    """Random q, k, v over ``seg`` and H1's spans."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal((seg.shape[0], H * D))
+                                .astype(np.float32)).to(dev)
+               .to(torch.bfloat16) for _ in range(3))
+    return (q, k, v, seg, *flash.flash_spans(seg)[:2], H)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('layout', ['one', 'short', 'interleaved'])
+@pytest.mark.parametrize('T', [1000, 1001, 8192])
+@pytest.mark.parametrize('D', [16, 24, 32, 64, 128])
+def test_flash_fwd_routes_match_plain_on_mask_layouts(cuda, D, T, layout):
+    """H1 (the Hopper form at D = 32, 64, 128; the mma.sync form at 16, 24)
+    against its plain version on masked and unmasked tiles (segment
+    layouts of ``_bwd_seg``), under H1's gates."""
+    args = _fwd_args(_bwd_seg(layout, T, cuda, T), 2, D, cuda, D + T)
+    before = flash.segment_flash_fwd.launches
+    o, lse = flash.segment_flash_fwd(*args)
+    o_p, lse_p = flash.segment_flash_fwd_plain(*args)
+    torch.cuda.synchronize()
+    assert flash.segment_flash_fwd.launches == before + 1
+    assert o.dtype == torch.bfloat16 and torch.isfinite(o.float()).all()
+    gate = O_REL * o_p.float().abs().clamp_min(O_FLOOR)
+    assert ((o.float() - o_p.float()).abs() <= gate).all()
+    assert (lse - lse_p).abs().max().item() <= LSE_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('D', [32, 64, 128])
+def test_flash_fwd_sm90_is_deterministic(cuda, D):
+    """Two calls of H1's Hopper form give bit-equal o and lse (no atomics),
+    the same bits as its C entry called directly, and its outputs stay
+    under H1's gates against the mma.sync form."""
+    seg = _bwd_seg('short', 4096, cuda, 1)
+    seg = torch.cat([seg[:2048], 100 + torch.arange(2048, device=cuda) // 500]
+                    ).to(torch.int32)
+    args = _fwd_args(seg, 2, D, cuda, D)
+    first = flash.segment_flash_fwd(*args)
+    assert all(map(torch.equal, first, flash.segment_flash_fwd(*args)))
+    assert all(map(torch.equal, first,
+                   flash.launch_fwd('flash_fwd_sm90', *args)))
+    o_m, lse_m = flash.launch_fwd('flash_fwd', *args)
+    torch.cuda.synchronize()
+    gate = O_REL * o_m.float().abs().clamp_min(O_FLOOR)
+    assert ((first[0].float() - o_m.float()).abs() <= gate).all()
+    assert (first[1] - lse_m).abs().max().item() <= LSE_ATOL
+
+
+@pytest.mark.cuda
+def test_flash_fwd_sm90_refuses_what_it_does_not_take(cuda):
+    """The wrapper's checks hold on the Hopper route (dtype, shape,
+    alignment, device), and its C entry refuses a head dim it was not
+    built for."""
+    import ctypes
+    from esme_tpu_torch import _build
+    args = list(_fwd_args(_bwd_seg('one', 256, cuda, 0), 2, 64, cuda, 0))
+    assert flash.fwd_route(64) == 'flash_fwd_sm90'
+    with pytest.raises(TypeError, match='bf16'):
+        flash.segment_flash_fwd(*(x.float() for x in args[:3]), *args[3:])
+    with pytest.raises(ValueError, match='16-byte aligned'):
+        q = torch.empty(256 * 128 + 4, dtype=torch.bfloat16,
+                        device=cuda)[4:].view(256, 128)
+        flash.segment_flash_fwd(q, *args[1:])
+    with pytest.raises(ValueError, match='must be a contiguous'):
+        flash.segment_flash_fwd(args[0], args[1][:, :64].contiguous(),
+                                *args[2:])
+    with pytest.raises(ValueError, match='must be a contiguous'):
+        flash.segment_flash_fwd(args[0], args[1].cpu(), *args[2:])
+    with pytest.raises(ValueError, match='kstart'):
+        flash.segment_flash_fwd(*args[:4], args[4][:-1], args[5], 2)
+    lib = _build.library('flash_fwd_sm90')
+    o, lse = torch.empty_like(args[0]), torch.empty((2, 256), device=cuda)
+    ptrs = [x.data_ptr() for x in (*args[:6], o, lse)]
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    for D in (16, 24, 48):
+        assert lib.esme_segment_flash_fwd_sm90(*ptrs, 256, 2, D, 0.1,
+                                               stream) != 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('D', [16, 24, 32, 64, 128])
 @pytest.mark.parametrize('lens,total', [
@@ -145,7 +230,7 @@ def test_flash_bwd_kernel_refuses_what_it_does_not_take(cuda):
                                 spans[2][:-1], spans[3], 2)
 
 
-# Segment layouts that decide H2's per-tile mask test: one segment over
+# Segment layouts that decide H1's and H2's per-tile mask test: one segment over
 # all T (every tile unmasked), 1-70-token segments (every tile masked) and
 # interleaved, non-monotonic ids (every tile masked, spans over the batch)
 def _bwd_seg(layout, T, dev, seed):
@@ -475,8 +560,15 @@ def test_flash_variant_kernel_matches_plain(cuda, mode):
     assert tfv.variant_fwd.launches == before + 1
     assert tfv.check(mode, got, ref)['ok']
     if mode == 'baseline':
-        h1 = flash.segment_flash_fwd(q, k, v, seg, ks, ke, H)
-        assert all(map(torch.equal, got, h1))
+        # bit-equal to H1's mma.sync form, whose mode-0 kernel it is; H1's
+        # Hopper form (the route at D = 64) under H1's gates against it
+        args = (q, k, v, seg, ks, ke, H)
+        assert all(map(torch.equal, got, flash.launch_fwd('flash_fwd', *args)))
+        o, lse = flash.segment_flash_fwd(*args)
+        torch.cuda.synchronize()
+        gate = O_REL * got[0].float().abs().clamp_min(O_FLOOR)
+        assert ((o.float() - got[0].float()).abs() <= gate).all()
+        assert (lse - got[1]).abs().max().item() <= LSE_ATOL
 
 
 _EX2_BF16 = r'''
