@@ -9,10 +9,13 @@ Phases, in order; any failure exits non-zero before a result is printed:
 2. build every kernel from ``esme_tpu_torch/csrc`` with ``nvcc`` (timed);
    H1's and H2's mma.sync mode-0 instantiations (``flash_fwd.cu``,
    ``flash_bwd.cu``) must keep the registers, stack and spills ``ptxas``
-   gave them before the ablation modes, and H1's and H2's Hopper kernels
-   (``flash_fwd_sm90.cu``, ``flash_bwd_sm90.cu``) at D = 64 must have no
-   stack frame and no spills (every instantiation's ``ptxas`` line and
-   any ``wgmma`` serialisation warning is logged);
+   gave them before the ablation modes, H1's and H2's Hopper production
+   kernels (``flash_fwd_sm90.cu``, ``flash_bwd_sm90.cu`` at D = 32, 64,
+   128) the ones they had before the token-minor layout and the Hopper
+   ablation modes (``SM90_PRODUCTION``), H5's Hopper form at D = 64 no
+   stack frame and no spills, and every H7 mode of both Hopper passes
+   must build (every instantiation's ``ptxas`` line and any ``wgmma``
+   serialisation warning is logged);
 3. hold each kernel against its plain PyTorch version on the card, on a
    packed 8k-token batch: segment-flash forward (H1) and backward (H2),
    each on its route (the Hopper form at D = 32, 64, 128, the mma.sync
@@ -74,23 +77,31 @@ Phases, in order; any failure exits non-zero before a result is printed:
    rotation. ``--profile DIR`` also writes
    ``torch.profiler`` tables of one forward and one train step there;
 8. the probe tools' kernels (``esme_tpu_torch/tools``, none on the model
-   path, where their counters must stay 0): on the 8k check batch, H5 (the
-   transposed-score forward on token-minor operands) at head dims 16-128
-   under H1's gates, every ablation mode of H1 (H6, 11 modes) and of H2's
-   two kernels (H7, 8 modes each) and the four ceiling probes (H8), each
-   against its plain version under the gate its tool's ``check`` states;
-   then each tool's own run at the main shapes (H5 beside H1, every mode
-   and probe timed beside the bound of the work it keeps, H6 and H8 on
-   the inference batch, H7 on the 50k train batch), with the launch
-   counters set to 0 just before and read just after; H5 under H1's gates
-   against H1 (its Hopper form); H6 ``baseline`` bit-equal to H1's
+   path, where their counters must stay 0): on the 8k check batch, H5 on
+   its route (``fwd_T_route``: H1's Hopper kernel on token-minor operands
+   at head dims 32-128, the mma.sync form with transposed scores at 16, 24
+   and at a T that is not a multiple of 8, the route counter showing which
+   ran) under H1's gates, every ablation mode of H1 (H6, 11 modes) and of
+   both passes of both forms of H2 (H7, 8 modes each; the Hopper form's
+   dk/dv pass over the union spans it walks) and the four ceiling probes
+   (H8), each against its plain version under the gate its tool's
+   ``check`` states; then each tool's own run at the main shapes (H5 beside
+   H1, every mode and probe timed beside the bound of the work it keeps,
+   H6 and H8 on the inference batch, H7 on the 50k train batch), with the
+   launch counters set to 0 just before and read just after; H5's Hopper
+   form bit-equal to H1's (on the 8k batch too) and faster than its
+   mma.sync form (fastest of 8 calls each, timed on the card alone), which
+   is held under H1's gates against the plain version and H1 there, beside
+   the varlen library and the bound; H6 ``baseline`` bit-equal to H1's
    mma.sync form there and H1's Hopper form under H1's gates against it;
-   H7 ``real`` bit-equal to H2's mma.sync form and under H2's gate against
-   the Hopper form; the mma.sync forms' times (H1's and H6 ``baseline``,
-   H2's and H7 ``real``) within 3% of their times before the ablation
-   modes were added, on the card those were taken on (``REF_CARD``;
-   logged on any other); H2's Hopper form faster than H7 ``real``, its
-   time logged beside it and the library's.
+   H7 ``real`` of the Hopper form bit-equal to H2 and within 3% of H2's
+   own passes timed in turn with it (fastest of 8 calls each, timed on the
+   card alone; a gate on ``REF_CARD``), of the mma.sync form bit-equal to
+   that form and under H2's gate against the Hopper form; the mma.sync forms' times (H1's and
+   H6 ``baseline``, H2's and H7 ``real``) within 3% of their times before
+   the ablation modes were added, on the card those were taken on
+   (``REF_CARD``; logged on any other); H2's Hopper form faster than its
+   mma.sync form, its time logged beside it and the library's.
 
 The last three lines are the kernels' JSON, the measurements' JSON and
 ``{"ok": true, "device": {...}}``.
@@ -228,6 +239,9 @@ TRAIN_CELLS = (('nockpt', 10_000, False, 5, True),
 FIT_BUDGET = 8192
 DEVICE = 'cuda'
 FWD_REPS = 5           # timed forwards of the main path, after one warm-up
+# fastest_calls' spin ahead of each timed call: ~10 ms at the H100's
+# 1.98 GHz boost clock, longer at a lower clock
+SPIN_CYCLES = 20_000_000
 # Published H100 SXM dense bf16 peak for MFU (bench.py's formula)
 MFU_PEAK = BF16_FLOP_PER_S
 
@@ -646,8 +660,9 @@ def sm90_pass(which, args):
     lib = _build.library('flash_bwd_sm90')
     entry = 'esme_flash_bwd_sm90_pass'
     rc = getattr(lib, entry)(
-        which, *(x.data_ptr() for x in (*args[:11], *outs)), T, H, HD // H,
-        1.0 / math.sqrt(HD // H), torch.cuda.current_stream().cuda_stream)
+        which, 0, *(x.data_ptr() for x in (*args[:11], *outs)), T, H,
+        HD // H, 1.0 / math.sqrt(HD // H),
+        torch.cuda.current_stream().cuda_stream)
     _build.check(rc, lib, flash.BWD_ROUTES['flash_bwd_sm90'][1], entry)
     return outs
 
@@ -664,27 +679,61 @@ def mask_skip_segs(T, dev):
     return {'one segment': one, 'every tile masked': cut}
 
 
+def fastest_calls(what, runs):
+    """Each of ``runs`` (name -> a call), one call at a time after a 0.2 s
+    pause, eight each in the order first, ..., last, last, ..., first,
+    four times. On the H100 at 700 W, back-to-back calls of 50-60 ms
+    drifted by up to 10%; after the pause they agree within ~2%, and a
+    kernel's time is its fastest call. A call is timed on the card alone:
+    a spin (``torch.cuda._sleep``, ``SPIN_CYCLES``) is queued before the
+    start event, so the host's work before the launch overlaps the spin
+    instead of landing between the events (that work, 10-70 us more in a
+    checking wrapper than in a bare C-entry call, took H7 ``real`` to
+    1.0317 of H2's own pass in one H100 run). Logs the calls, the shortest
+    spin and the longest host call, which must stay below it for the
+    times to hold the card's work alone; returns ``{name: {'min': ms,
+    'median': ms}}``."""
+    times = {name: [] for name in runs}
+    spin_ms, host_ms = [], []
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    for name in [*runs, *reversed(runs)] * 4:
+        time.sleep(0.2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        torch.cuda._sleep(SPIN_CYCLES)
+        ev[1].record()
+        runs[name]()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        ev[2].record()
+        torch.cuda.synchronize()
+        spin_ms.append(ev[0].elapsed_time(ev[1]))
+        times[name].append(ev[1].elapsed_time(ev[2]))
+    calls = {n: [round(x, 4) for x in t] for n, t in times.items()}
+    log(f'{what}: fastest call '
+        + ', '.join(f'{n} {min(t):.4f} ms' for n, t in times.items())
+        + f'; calls {calls}; shortest spin {min(spin_ms):.3f} ms, longest '
+        f'host call {max(host_ms):.3f} ms')
+    if max(host_ms) >= min(spin_ms):
+        fail(f'{what}: a host call ({max(host_ms):.3f} ms) outlasted the '
+             f'spin ahead of it ({min(spin_ms):.3f} ms), so the times hold '
+             'host work')
+    return {name: {'min': min(t), 'median': float(np.median(t))}
+            for name, t in times.items()}
+
+
 def fastest_pair(what, run, inputs):
     """Each of the two ``inputs`` (one segment, every tile masked) through
-    ``run``, one call at a time after a 0.2 s pause, eight per batch in the
-    order unmasked, masked, masked, unmasked. On the H100 at 700 W,
-    back-to-back calls of 50-60 ms drifted by up to 10%; after the pause
-    they agree within ~2%, and a kernel's time is its fastest call. Fails
-    unless the unmasked batch is faster, where the kernel skips the mask.
-    Returns ``{layout: {'min': ms, 'median': ms}}``."""
-    runs = {name: [] for name in inputs}
-    for name in [*inputs, *reversed(inputs)] * 4:
-        time.sleep(0.2)
-        runs[name].append(cuda_ms(lambda: run(inputs[name]), reps=1))
-    a, b = (min(r) for r in runs.values())
-    log(f'{what}: fastest call {a:.4f} ms on one segment, {b:.4f} ms with '
-        f'every tile masked ({a / b:.4f}); calls '
-        f'{ {n: [round(x, 3) for x in r] for n, r in runs.items()} }')
+    ``run`` (:func:`fastest_calls`). Fails unless the unmasked batch is
+    faster, where the kernel skips the mask. Returns ``{layout: {'min':
+    ms, 'median': ms}}``."""
+    times = fastest_calls(what, {name: (lambda x=x: run(x))
+                                 for name, x in inputs.items()})
+    a, b = (t['min'] for t in times.values())
     if not a < b:
         fail(f'{what} is not faster where every tile lies in one segment '
              f'({a:.4f} vs {b:.4f} ms): the mask is not skipped')
-    return {name: {'min': min(r), 'median': float(np.median(r))}
-            for name, r in runs.items()}
+    return times
 
 
 def time_mask_skip(T, H, D, dev):
@@ -1169,6 +1218,8 @@ def reset_counters():
     for f in _counters().values():
         f.launches = 0
     _counters()[H3_NAME].inverse_launches = 0
+    routes = _counters()[H5_NAME].routes
+    routes.update(dict.fromkeys(routes, 0))
 
 
 def read_counters():
@@ -1548,23 +1599,32 @@ def check_mode0_ptxas():
             'registers, no stack, no spills')
 
 
-# H1's and H2's Hopper libraries: kernel name -> its count of D = 64
-# instantiations
-SM90_KERNELS = {'flash_fwd_sm90': {'flash_fwd_sm90_kernel': 1},
-                'flash_bwd_sm90': {'bwd_dkv_sm90_kernel': 1,
-                                   'bwd_dq_sm90_kernel': 1}}
+# H1's and H2's Hopper kernels as ptxas reported them in the build of this
+# slice's parent (the tree before the token-minor layout and the ablation
+# modes were added; nvcc of CUDA 12.9 on the H100 machine): (registers,
+# stack frame, spill stores, spill loads) by head dim. Their production
+# instantiations (layout or mode 0) must come out unchanged.
+SM90_PRODUCTION = {
+    ('flash_fwd_sm90', 'flash_fwd_sm90_kernel'): {
+        32: (127, 0, 0, 0), 64: (128, 0, 0, 0), 128: (168, 0, 0, 0)},
+    ('flash_bwd_sm90', 'bwd_dkv_sm90_kernel'): {
+        32: (128, 0, 0, 0), 64: (160, 0, 0, 0), 128: (156, 384, 896, 640)},
+    ('flash_bwd_sm90', 'bwd_dq_sm90_kernel'): {
+        32: (111, 0, 0, 0), 64: (123, 0, 0, 0), 128: (155, 0, 0, 0)},
+}
 
 
 def sm90_ptxas_usage(build_log: str) -> dict:
-    """``{(kernel, head dim): (registers, stack frame, spill stores, spill
-    loads)}`` of H1's and H2's Hopper kernels in ``nvcc -Xptxas -v``
-    output."""
+    """``{(kernel, head dim, layout or mode): (registers, stack frame,
+    spill stores, spill loads)}`` of H1's and H2's Hopper kernels in
+    ``nvcc -Xptxas -v`` output (the second template parameter: H1's
+    layout, 0 for H1 and 1 for H5; H2's mode, 0 the production pass)."""
     usage, name, frame = {}, None, None
     for line in build_log.splitlines():
         m = re.search(r'Function properties for \S*?\d((?:bwd_(?:dkv|dq)|'
-                      r'flash_fwd)_sm90_kernel)ILi(\d+)E', line)
+                      r'flash_fwd)_sm90_kernel)ILi(\d+)ELi(\d+)E', line)
         if m:
-            name = (m.group(1), int(m.group(2)))
+            name = (m.group(1), int(m.group(2)), int(m.group(3)))
             continue
         m = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores, '
                       r'(\d+) bytes spill loads', line)
@@ -1579,32 +1639,51 @@ def sm90_ptxas_usage(build_log: str) -> dict:
 
 
 def check_sm90_ptxas():
-    """H1's and H2's Hopper kernels as built: every D = 64 instantiation
-    (the model's head dim) with no stack frame and no spills; fail
-    otherwise. Logs every instantiation's ``ptxas`` line and any ``wgmma``
-    serialisation warning (C7510-C7520). Returns per library the usage of
-    all its kernels and its warnings."""
+    """H1's and H2's Hopper libraries as built: each production
+    instantiation with the parent's registers, stack and spills
+    (``SM90_PRODUCTION``), H5's (H1's kernel, token-minor layout) at
+    D = 64 without stack or spills, and every H7 mode of both passes at
+    D = 64 built; fail otherwise. Logs every instantiation's ``ptxas`` line
+    and any ``wgmma`` serialisation warning (C7510-C7520). Returns per
+    library the usage of all its kernels and its warnings."""
     from esme_tpu_torch import _build
+    from esme_tpu_torch.tools import decompose_bwd as tdb
     out = {}
-    for lib, kernels in SM90_KERNELS.items():
+    for lib in ('flash_fwd_sm90', 'flash_bwd_sm90'):
         build_log = _build.build_log(lib)
         usage = sm90_ptxas_usage(build_log)
-        d64 = sorted(k for k in usage if k[1] == 64)
-        if [k for k, _ in d64] != sorted(kernels):
-            fail(f'ptxas: expected D = 64 kernels {sorted(kernels)} of {lib}, '
-                 f'found {d64}')
-        for (kernel, d), (regs, *frame) in sorted(usage.items()):
-            log(f'ptxas: {lib} {kernel}<D={d}>: {regs} registers, stack '
+        for (kernel, d, p), (regs, *frame) in sorted(usage.items()):
+            log(f'ptxas: {lib} {kernel}<D={d}, {p}>: {regs} registers, stack '
                 f'{frame[0]}, spill stores {frame[1]}, spill loads {frame[2]}')
-            if d == 64 and any(frame):
-                fail(f'ptxas: {kernel}<D=64> has a stack frame or spills: '
-                     f'{frame}')
+        for (name, kernel), want in SM90_PRODUCTION.items():
+            if name != lib:
+                continue
+            for d, usage_d in want.items():
+                got = usage.get((kernel, d, 0))
+                if got != usage_d:
+                    fail(f'ptxas: {kernel}<D={d}, 0> uses (registers, stack, '
+                         f'spill stores, spill loads) {got}, not {usage_d} as '
+                         'in the parent\'s build')
+            log(f'ptxas: {kernel} production as in the parent\'s build: '
+                f'{want}')
+        if lib == 'flash_fwd_sm90':
+            got = usage.get(('flash_fwd_sm90_kernel', 64, 1))
+            if got is None or any(got[1:]):
+                fail(f'ptxas: H5\'s flash_fwd_sm90_kernel<D=64, token-minor> '
+                     f'has a stack frame or spills, or is missing: {got}')
+        else:
+            for kernel in ('bwd_dkv_sm90_kernel', 'bwd_dq_sm90_kernel'):
+                built = sorted(p for k, d, p in usage
+                               if k == kernel and d == 64)
+                if built != list(range(len(tdb.MODES))):
+                    fail(f'ptxas: H7\'s {kernel} modes at D = 64: built '
+                         f'{built}, not all {len(tdb.MODES)}')
         warnings = sorted({line.strip() for line in build_log.splitlines()
                            if re.search(r'C75(1\d|20)\b|wgmma', line)})
         for line in warnings:
             log(f'ptxas: {lib}: {line}')
-        out[lib] = {'usage': {f'{k} D={d}': u
-                              for (k, d), u in sorted(usage.items())},
+        out[lib] = {'usage': {f'{k} D={d} {p}': u
+                              for (k, d, p), u in sorted(usage.items())},
                     'wgmma_warnings': warnings}
     return out
 
@@ -1615,7 +1694,7 @@ def check_probes(dev, h1, h2, card):
     entries of the kernels line."""
     from esme_tpu_torch.ops import flash
     from esme_tpu_torch.tools import (BWD_SEED, FWD_SEED, attention_batch,
-                                      thd_to_hdt)
+                                      hdt_to_thd, thd_to_hdt)
     from esme_tpu_torch.tools import decompose_bwd as tdb
     from esme_tpu_torch.tools import flash_variants as tfv
     from esme_tpu_torch.tools import fwd_T_experiment as tft
@@ -1628,19 +1707,37 @@ def check_probes(dev, h1, h2, card):
         vals = ', '.join(f'{k} {v:.3e}' for k, v in c.items() if k != 'ok')
         log(f'{what}: {vals} {"ok" if c["ok"] else "FAIL"}')
         if not c['ok']:
-            fail(f'{what} disagrees with its plain version')
+            fail(f'{what}: outside its gate')
 
-    # 8a. each kernel against its plain version on the 8k check batch
-    for d, h in ((16, 20), (24, 20), (32, 20), (64, 20), (128, 40)):
+    # 8a. each kernel against its plain version on the 8k check batch; H5
+    # on its route (the Hopper form at D = 32-128, the mma.sync form at 16,
+    # 24 and at a T that is not a multiple of 8), which its counter shows
+    for d, h, cut in ((16, 20, 0), (24, 20, 0), (32, 20, 0), (64, 20, 0),
+                      (128, 40, 0), (64, 20, 27)):
         b = attention_batch(CHECK_BUDGET, 1, h, d, dev)
-        qT, kT, vT = (thd_to_hdt(x, h) for x in (b.q, b.k, b.v))
-        got = tft.fwd_T(qT, kT, vT, b.seg, *b.spans[:2])
-        ref = tft.fwd_T_plain(qT, kT, vT, b.seg, *b.spans[:2])
+        T = b.T - cut
+        seg = b.seg[:T].contiguous()
+        spans = flash.block_spans(seg, flash.BLOCK_Q, flash.BLOCK_K)
+        qT, kT, vT = (thd_to_hdt(x[:T], h) for x in (b.q, b.k, b.v))
+        route = tft.fwd_T_route(d, T)
+        before = dict(tft.fwd_T.routes)
+        got = tft.fwd_T(qT, kT, vT, seg, *spans)
+        ref = tft.fwd_T_plain(qT, kT, vT, seg, *spans)
         torch.cuda.synchronize()
+        moved = {n: c - before[n] for n, c in tft.fwd_T.routes.items()}
+        if moved != {n: int(n == route) for n in moved}:
+            fail(f'H5 at T={T} D={d} launched {moved}, not once on {route}')
         e_o, share, e_l, ok = tft.flash_errors(*got, *ref)
-        gate(f'H5 T={b.T} H={h} D={d} vs plain (H1\'s gates)',
+        gate(f'H5 ({route}) T={T} H={h} D={d} vs plain (H1\'s gates)',
              {'max|o-plain|': e_o, 'o gate share': share,
               'max|lse-plain|': e_l, 'ok': ok})
+        if route == 'flash_fwd_sm90':
+            o1, lse1 = flash.segment_flash_fwd(
+                b.q[:T], b.k[:T], b.v[:T], seg, *spans, h)
+            if not (torch.equal(hdt_to_thd(got[0]), o1)
+                    and torch.equal(got[1], lse1)):
+                fail(f'H5 ({route}) at T={T} D={d} is not bit-equal to H1')
+            log(f'H5 ({route}) T={T} H={h} D={d}: bit-equal to H1')
     b8 = attention_batch(CHECK_BUDGET, 1, H, D, dev, grads=True)
     args8 = (b8.q, b8.k, b8.v, b8.seg, *b8.spans[:2], H)
     for mode in tfv.MODES:
@@ -1649,14 +1746,14 @@ def check_probes(dev, h1, h2, card):
         gate(f'H6 {mode} T={b8.T} vs plain', c)
     lse8, delta8 = tdb.backward_inputs(b8)
     bargs8 = (b8.q, b8.k, b8.v, b8.do, lse8, delta8, b8.seg, *b8.spans, H)
-    for kernel in tdb.KERNELS:
-        for mode in tdb.MODES:
-            got = tdb.bwd_variant(kernel, mode, *bargs8)
-            ref = tdb.dq_variant_plain(mode, *bargs8[:9], H) \
-                if kernel == 'dq' else \
-                tdb.dkv_variant_plain(mode, *bargs8[:7], *b8.spans[2:], H)
-            gate(f'H7 {kernel} {mode} T={b8.T} vs plain',
-                 tdb.check(mode, got, ref))
+    for library in flash.BWD_ROUTES:       # the Hopper form, then mma.sync
+        for kernel in tdb.KERNELS:
+            for mode in tdb.MODES:
+                got = tdb.bwd_variant(kernel, mode, *bargs8, library=library)
+                ref = tdb.bwd_variant_plain(kernel, mode, *bargs8,
+                                            library=library)
+                gate(f'H7 ({library}) {kernel} {mode} T={b8.T} vs plain',
+                     tdb.check(mode, got, ref))
     for probe, (kernel, plain) in tpa.calls(
             b8, tpa.probe_inputs(b8)).items():
         gate(f'H8 {probe} T={b8.T} vs plain',
@@ -1681,33 +1778,72 @@ def check_probes(dev, h1, h2, card):
     b = attention_batch(BUDGET, FWD_SEED, H, D, dev)
     ks, ke = b.spans[:2]
     args = (b.q, b.k, b.v, b.seg, ks, ke, H)
-    # H5 beside H1
+    # H5 beside H1: its Hopper form (the route at this shape) against H1's
+    # Hopper form on the same values, its plain version and its mma.sync
+    # form, which it must beat (fastest of 8 calls each)
     r5, l5 = tool_run('fwd_T_experiment.measure', H5_NAME,
                       lambda: tft.measure(b, reps=20))
-    if not r5['ok_vs_h1']:
-        fail('H5 disagrees with H1 at the main shape')
+    if r5['route'] != 'flash_fwd_sm90':
+        fail(f'H5 ran on {r5["route"]} at the main shape, not its Hopper form')
+    log(f'H5 ({r5["route"]}) vs H1 ({flash.fwd_route(D)}) at T={b.T}: '
+        f'max|o| {r5["o_err_vs_h1"]:.3e} ({r5["o_gate_share_vs_h1"]:.3f} of '
+        f'the gate), max|lse| {r5["lse_err_vs_h1"]:.3e}, bit-equal '
+        f'{r5["bit_equal_to_h1"]}')
+    # bit equality, as the first card run showed at every shape checked: the
+    # same products summed in the same order, from operands laid out apart
+    if not r5['bit_equal_to_h1']:
+        fail('H5 is not bit-equal to H1 at the main shape')
     qT, kT, vT = (thd_to_hdt(x, H) for x in (b.q, b.k, b.v))
-    e_o, share, e_l, ok = tft.flash_errors(
-        *tft.fwd_T(qT, kT, vT, b.seg, ks, ke),
-        *tft.fwd_T_plain(qT, kT, vT, b.seg, ks, ke))
+    targs = (qT, kT, vT, b.seg, ks, ke)
+    ref5 = tft.fwd_T_plain(*targs)
+    e_o, share, e_l, ok = tft.flash_errors(*tft.fwd_T(*targs), *ref5)
     gate(f'H5 T={b.T} vs plain', {'max|o-plain|': e_o, 'o gate share': share,
                                  'max|lse-plain|': e_l, 'ok': ok})
-    h5_plain_ms = cuda_ms(lambda: tft.fwd_T_plain(qT, kT, vT, b.seg, ks, ke),
-                          reps=2)
-    o1 = flash.segment_flash_fwd(*args)[0]
+    # the mma.sync form, timed below, under H1's gates against the plain
+    # version and against H1
+    o1, lse1 = flash.segment_flash_fwd(*args)
+    oT_m, lse_m = tft.launch_fwd_T('flash_fwd_t', *targs)
+    for what, ref in (('plain', ref5), ('H1', (thd_to_hdt(o1, H), lse1))):
+        e_m, share_m, e_lm, ok_m = tft.flash_errors(oT_m, lse_m, *ref)
+        gate(f'H5 mma.sync form T={b.T} vs {what} (H1\'s gates)',
+             {f'max|o-{what}|': e_m, 'o gate share': share_m,
+              f'max|lse-{what}|': e_lm, 'ok': ok_m})
+    del ref5, oT_m, lse_m
+    h5_fastest = fastest_calls(
+        f'H5 at T={b.T}',
+        {'flash_fwd_sm90': lambda: tft.launch_fwd_T('flash_fwd_sm90', *targs),
+         'flash_fwd_t': lambda: tft.launch_fwd_T('flash_fwd_t', *targs)})
+    if not h5_fastest['flash_fwd_sm90']['min'] < \
+            h5_fastest['flash_fwd_t']['min']:
+        fail('H5\'s Hopper form is not faster than its mma.sync form')
+    h5_plain_ms = cuda_ms(lambda: tft.fwd_T_plain(*targs), reps=2)
     h5_lib_ms = yardstick(
         'varlen flash-attention forward (aten), (T, H, D) operands',
         lambda: varlen_flash_ms(b.q, b.k, b.v, b.seg, H, D, reps=20), o1)
-    del qT, kT, vT, o1
+    log(f'H5 (flash_fwd_sm90) {r5["ms"]:.4f} ms: '
+        f'{r5["ms"] / r5["mma_sync_ms"]:.4f} of its mma.sync form '
+        f'({r5["mma_sync_ms"]:.4f} ms), {r5["ms"] / r5["h1_ms"]:.4f} of H1 '
+        f'({r5["h1_ms"]:.4f} ms), {r5["ms"] / r5["bound_ms"]:.2f}x its bound '
+        f'({r5["bound_ms"]:.4f} ms), '
+        + (f'{r5["ms"] / h5_lib_ms:.4f} of the varlen library '
+           f'({h5_lib_ms:.4f} ms)' if h5_lib_ms else 'no library time'))
+    del qT, kT, vT, o1, lse1, targs
     kernels = [{
         'name': H5_NAME, 'route': 'cuda',
-        'source': 'esme_tpu_torch/csrc/flash_fwd_t.cu',
+        'source': 'esme_tpu_torch/csrc/flash_fwd_sm90.cu',
+        'form': 'flash_fwd_sm90 (H1\'s kernel, token-minor layout; entry '
+                'esme_flash_fwd_t_sm90)',
+        'routes': {'D 32-128, T % 8 == 0': 'esme_tpu_torch/csrc/'
+                   'flash_fwd_sm90.cu', 'otherwise': 'esme_tpu_torch/csrc/'
+                   'flash_fwd_t.cu'},
         'replaces': 'tools/fwd_T_experiment.py:27',
         'launches': l5[H5_NAME], 'max_abs_err': e_o, 'lse_max_abs_err': e_l,
         'ms': r5['ms'], 'plain_ms': h5_plain_ms, 'bound_ms': r5['bound_ms'],
         'bound_by': r5['bound_by'], 'library_ms': h5_lib_ms,
+        'mma_sync_form_ms': r5['mma_sync_ms'], 'fastest_ms': h5_fastest,
         'h1_ms': r5['h1_ms'], 'vs_h1': {k: r5[k] for k in (
-            'o_err_vs_h1', 'o_gate_share_vs_h1', 'lse_err_vs_h1')},
+            'o_err_vs_h1', 'o_gate_share_vs_h1', 'lse_err_vs_h1',
+            'bit_equal_to_h1')},
         'shape': f'T={b.T} H={H} D={D} bf16, (H, D, T) operands'}]
 
     # H6: every mode timed; baseline bit-equal to H1's mma.sync form and
@@ -1770,18 +1906,76 @@ def check_probes(dev, h1, h2, card):
     del b, args, k3
     torch.cuda.empty_cache()
 
-    # H7 at the train shape: every mode of each kernel timed; real
-    # bit-equal to H2 and under its gate
+    # H7 at the train shape: every mode of each pass of both forms timed;
+    # the Hopper form's real bit-equal to H2 and as fast as H2's own passes;
+    # the mma.sync form's real bit-equal to that form and under H2's gate
     bt = attention_batch(BUDGET, BWD_SEED, H, D, dev, grads=True)
     lse, delta = tdb.backward_inputs(bt)
     bargs = (bt.q, bt.k, bt.v, bt.do, lse, delta, bt.seg, *bt.spans, H)
+    hopper, mma_sync = flash.BWD_ROUTES
     modes7, l7 = tool_run(
-        'decompose_bwd.run, every mode of each kernel', H7_NAME,
-        lambda: {f'{kernel} {mode}': tdb.run(kernel, mode, bt, lse, delta,
-                                             reps=20)
-                 for kernel in tdb.KERNELS for mode in tdb.MODES})
-    dq = tdb.bwd_variant('dq', 'real', *bargs)
-    dk, dv = tdb.bwd_variant('dkv', 'real', *bargs)
+        'decompose_bwd.run, every mode of each pass of both forms', H7_NAME,
+        lambda: {library: {f'{kernel} {mode}': tdb.run(
+            kernel, mode, bt, lse, delta, reps=20, library=library)
+            for kernel in tdb.KERNELS for mode in tdb.MODES}
+            for library in (hopper, mma_sync)})
+    for kernel in tdb.KERNELS:
+        real = modes7[hopper][f'{kernel} real']['ms']
+        log(f'H7 ({hopper}) {kernel} at the train shape: '
+            + ', '.join(f'{mode} {r["ms"]:.4f} ms ({r["ms"] / real:.3f}; '
+                        f'{r["ms"] / r["bound_ms"]:.2f}x its bound)'
+                        for mode, r in ((m, modes7[hopper][f'{kernel} {m}'])
+                                        for m in tdb.MODES)))
+    got = (tdb.bwd_variant('dq', 'real', *bargs, library=hopper),
+           *tdb.bwd_variant('dkv', 'real', *bargs, library=hopper))
+    if not all(map(torch.equal, got, flash.segment_flash_bwd(*bargs))):
+        fail('H7 real (the Hopper form) is not bit-equal to H2 at the train '
+             'shape')
+    plain_dq = lambda: tdb.bwd_variant_plain(  # noqa
+        'dq', 'real', *bargs, library=hopper)
+    plain_dkv = lambda: tdb.bwd_variant_plain(  # noqa
+        'dkv', 'real', *bargs, library=hopper)
+    c7 = tdb.check('real', got, (plain_dq(), *plain_dkv()))
+    gate(f'H7 ({hopper}) real T={bt.T} vs plain (bit-equal to H2)', c7)
+    h7_plain_ms = cuda_ms(plain_dq, reps=1) + cuda_ms(plain_dkv, reps=1)
+    # mode 0 is H2's own pass: each timed beside H2's launch of it, in turn
+    h7_vs_h2 = {kernel: {side: t['min'] for side, t in fastest_calls(
+        f'H7 real ({hopper}) {kernel} vs H2\'s pass', {
+            'h2': lambda which=which: sm90_pass(which, bargs),
+            'h7': lambda kernel=kernel: tdb.bwd_variant(
+                kernel, 'real', *bargs, library=hopper)}).items()}
+        for which, kernel in enumerate(tdb.KERNELS)}
+    ratio = sum(x['h7'] for x in h7_vs_h2.values()) / \
+        sum(x['h2'] for x in h7_vs_h2.values())
+    within = abs(ratio - 1) <= 0.03
+    log(f'H7 real ({hopper}) vs H2\'s passes at the train shape: '
+        f'{h7_vs_h2}, {ratio:.4f} (within 3%: {within}; '
+        f'{"a gate" if card == REF_CARD else "logged only"} on {card}); H2 '
+        f'both passes in one call {h2["ms"]:.4f} ms')
+    if card == REF_CARD and not within:
+        fail(f'H7 real ({hopper}) took {ratio:.4f} of H2\'s passes')
+    real = [modes7[hopper][f'{k} real'] for k in tdb.KERNELS]
+    kernels.append({
+        'name': H7_NAME, 'route': 'cuda',
+        'source': 'esme_tpu_torch/csrc/flash_bwd_sm90.cu',
+        'form': f'{hopper} (entry esme_flash_bwd_sm90_pass)',
+        'replaces': 'tools/decompose_bwd.py:66',
+        'also_replaces': ['tools/decompose_bwd.py:125'],
+        'launches': l7[H7_NAME], 'max_abs_err': c7['err'],
+        'ms': sum(r['ms'] for r in real), 'plain_ms': h7_plain_ms,
+        'bound_ms': sum(r['bound_ms'] for r in real),
+        'bound_by': max(real, key=lambda r: r['bound_ms'])['bound_by'],
+        'library_ms': None,
+        'mode': 'real (dk/dv + dq, bit-equal to H2)', 'modes': modes7,
+        'h2_ms': h2['ms'], 'h2_passes_ms': h7_vs_h2,
+        'mma_sync_form_ms': sum(modes7[mma_sync][f'{k} real']['ms']
+                                for k in tdb.KERNELS),
+        'shape': f'T={bt.T} H={H} D={D} bf16 (train batch)'})
+
+    # the mma.sync form's real: bit-equal to that form, H2 under its gate
+    # against it, its time held to before the modes were added
+    dq = tdb.bwd_variant('dq', 'real', *bargs, library=mma_sync)
+    dk, dv = tdb.bwd_variant('dkv', 'real', *bargs, library=mma_sync)
     if not all(map(torch.equal, (dq, dk, dv), mma_sync_bwd(bargs))):
         fail('H7 real is not bit-equal to the mma.sync form of H2 at the '
              'train shape')
@@ -1793,32 +1987,10 @@ def check_probes(dev, h1, h2, card):
         f'finite {finite} {"ok" if ok else "FAIL"}')
     if not ok:
         fail('H2 disagrees with H7 real, its mma.sync form')
-    plain_dq = lambda: tdb.dq_variant_plain('real', *bargs[:9], H)  # noqa
-    plain_dkv = lambda: tdb.dkv_variant_plain(  # noqa
-        'real', *bargs[:7], *bt.spans[2:], H)
-    c7 = tdb.check('real', (dq, dk, dv), (plain_dq(), *plain_dkv()))
-    gate(f'H7 real T={bt.T} vs plain (bit-equal to the mma.sync form)', c7)
-    h7_plain_ms = cuda_ms(plain_dq, reps=1) + cuda_ms(plain_dkv, reps=1)
-    real = [modes7[f'{k} real'] for k in tdb.KERNELS]
-    log(f'H7 real at the train shape: dk/dv alone {real[0]["ms"]:.4f}, dq '
-        f'alone {real[1]["ms"]:.4f} ms')
-    kernels.append({
-        'name': H7_NAME, 'route': 'cuda',
-        'source': 'esme_tpu_torch/csrc/flash_bwd.cu',
-        'replaces': 'tools/decompose_bwd.py:66',
-        'also_replaces': ['tools/decompose_bwd.py:125'],
-        'launches': l7[H7_NAME], 'max_abs_err': c7['err'],
-        'ms': sum(r['ms'] for r in real), 'plain_ms': h7_plain_ms,
-        'bound_ms': sum(r['bound_ms'] for r in real),
-        'bound_by': max(real, key=lambda r: r['bound_ms'])['bound_by'],
-        'library_ms': None,
-        'mode': 'real (dk/dv + dq, bit-equal to the mma.sync form of H2)',
-        'modes': modes7, 'h2_ms': h2['ms'],
-        'mma_sync_form_ms': h2['mma_sync_ms'],
-        'shape': f'T={bt.T} H={H} D={D} bf16 (train batch)'})
-    del bt, bargs, dq, dk, dv, lse, delta
+    del bt, bargs, dq, dk, dv, lse, delta, got
     torch.cuda.empty_cache()
-    h7_times = (h2['mma_sync_ms'], sum(r['ms'] for r in real))
+    h7_times = (h2['mma_sync_ms'], sum(modes7[mma_sync][f'{k} real']['ms']
+                                       for k in tdb.KERNELS))
     for name, timings, ref in (
             (f'{H1_NAME}, the mma.sync form',
              (h1['mma_sync_ms'], modes6['baseline']['ms']), H1_REF_MS),

@@ -53,6 +53,7 @@ SIGNATURES = {
     },
     'flash_fwd_sm90': {
         'esme_segment_flash_fwd_sm90': (I, [P] * 8 + [I, I, I, F, P]),
+        'esme_flash_fwd_t_sm90': (I, [P] * 8 + [I, I, I, F, P]),
         'esme_flash_fwd_sm90_error_string': (ctypes.c_char_p, [I]),
     },
     'flash_bwd': {
@@ -63,7 +64,8 @@ SIGNATURES = {
     },
     'flash_bwd_sm90': {
         'esme_segment_flash_bwd_sm90': (I, [P] * 14 + [I, I, I, F, P]),
-        'esme_flash_bwd_sm90_pass': (I, [I] + [P] * 14 + [I, I, I, F, P]),
+        'esme_flash_bwd_sm90_pass': (I, [I, I] + [P] * 14
+                                     + [I, I, I, F, P]),
         'esme_flash_bwd_sm90_error_string': (ctypes.c_char_p, [I]),
     },
     'flash_fwd_t': {

@@ -52,6 +52,17 @@
 // next products still run in series; the other warpgroup of the SM fills
 // the gaps (PERF.md has the H100's times). At D = 128 the dk/dv kernel
 // spills under the 168-register cap of its 384 threads.
+//
+// Ablation modes ("H7"): each pass's MODE parameter removes one part of
+// the work, as tools/decompose_bwd.py:66 dq_variant and :125 dkv_variant
+// (K15) do on the TPU, to measure what each costs; their outputs are wrong
+// on purpose. Mode 0 is the production pass, and the only one
+// esme_segment_flash_bwd_sm90 launches; esme_flash_bwd_sm90_pass
+// launches one pass in mode 0 at any D, or in any mode at D = 64. A dropped product is removed
+// at compile time (no guarded wgmma). Each warpgroup faces square 64 x 64
+// tiles, so dma and no_acc pair a warpgroup's row p with the tile's row or
+// column p; the dk/dv pass walks the union of its two 64-row halves'
+// spans, in every mode.
 
 #include <limits.h>
 
@@ -70,11 +81,53 @@ constexpr int KT = 64;    // dq: k tile rows
 template <int D>
 __host__ __device__ constexpr int stages() { return D > 64 ? 2 : 3; }
 
+// K15's modes, in the order of esme_tpu_torch/tools/decompose_bwd.py:MODES
+enum Mode {
+  REAL = 0,  // the production passes
+  DMA,       // no compute: every element of the tiles read, summed
+  MM_ONLY,   // the products alone: p = s, ds = p + dp
+  NO_S,      // no S product: s = lse
+  NO_DP,     // no dP product: ds = p * scale
+  NO_ACC,    // no accumulating products: the gradient gains max(ds)
+  NO_EXP,    // p = s / 2 + 0.01 instead of the masked exp
+  NO_MASK,   // no segment mask
+};
+
+// The modes that keep the segment mask (skipped on one-segment tiles)
+template <int MODE>
+__host__ __device__ constexpr bool masks() {
+  return MODE == REAL || MODE == NO_S || MODE == NO_DP || MODE == NO_ACC;
+}
+
+// p of one score (s the raw product, l2 the row's lse in base 2) and ds
+// in place of dp, by mode
+template <int MODE>
+__device__ __forceinline__ float mode_p(float s, float l2, float scale,
+                                        float scale_log2) {
+  if constexpr (MODE == MM_ONLY) return s * scale;
+  else if constexpr (MODE == NO_EXP) return (s * scale) * 0.5f + 0.01f;
+  else if constexpr (MODE == NO_S) return exp2f(l2 - l2);   // s = lse
+  else return exp2f(s * scale_log2 - l2);
+}
+
+template <int MODE>
+__device__ __forceinline__ float mode_ds(float p, float dp, float dl,
+                                         float scale) {
+  if constexpr (MODE == MM_ONLY) return p + dp;
+  else if constexpr (MODE == NO_DP) return p * scale;
+  else return p * (dp - dl) * scale;
+}
+
+__device__ __forceinline__ float smem_bf16(const unsigned char* tile,
+                                           int off) {
+  return __bfloat162float(*reinterpret_cast<const bf16*>(tile + off));
+}
+
 // ---------------------------------------------------------------------------
 // dk/dv pass
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <int D, int MODE>
 struct DkvSmem {
   static constexpr int ST = stages<D>();
   static constexpr int KV_TILE = Geo<D>::template tile_bytes<BKV>();
@@ -83,13 +136,16 @@ struct DkvSmem {
   static constexpr int V = K + KV_TILE;
   static constexpr int Q = V + KV_TILE;              // + 2 s Q_TILE
   static constexpr int WORDS = Q + 2 * ST * Q_TILE;  // + s * 3 * QT words
-  static constexpr int BARS = align1k(WORDS + ST * 3 * QT * 4);
+  // NO_ACC: per tile parity and consumer warp, its column maxima of dS^T
+  static constexpr int COLMAX = WORDS + ST * 3 * QT * 4;
+  static constexpr int BARS =
+      align1k(COLMAX + (MODE == NO_ACC ? 2 * 8 * QT * 4 : 0));
   static constexpr int BYTES = BARS + (2 * ST + 1) * 8 + 1024;  // + alignment
 };
 
 // P^T and dS^T of one tile in place of S^T and dP^T: this thread's k rows
 // r (sk[r]) against the tile's q columns c = 8 j + 2 tq + e
-template <bool MASK>
+template <int MODE, bool MASK>
 __device__ __forceinline__ void dkv_scores(float (&s)[32], float (&dp)[32],
                                            const int* sq, const float* lse,
                                            const float* delta,
@@ -109,16 +165,16 @@ __device__ __forceinline__ void dkv_scores(float (&s)[32], float (&dp)[32],
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int i = 4 * j + 2 * r + e;
-        float p = exp2f(s[i] * scale_log2 - l2);
+        float p = mode_p<MODE>(s[i], l2, scale, scale_log2);
         if constexpr (MASK) p = (e ? ids.y : ids.x) == sk[r] ? p : 0.f;
-        dp[i] = p * (dp[i] - dlc) * scale;
+        dp[i] = mode_ds<MODE>(p, dp[i], dlc, scale);
         s[i] = p;
       }
     }
   }
 }
 
-template <int D>
+template <int D, int MODE>
 __global__ void __launch_bounds__(3 * 128, 1)
 bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
@@ -132,7 +188,7 @@ bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                     bf16* __restrict__ dv, int T, int H, float scale,
                     float scale_log2) {
   using G = Geo<D>;
-  using L = DkvSmem<D>;
+  using L = DkvSmem<D, MODE>;
   constexpr int ST = L::ST;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_smem(smem_raw);
@@ -238,54 +294,123 @@ bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       const uint32_t ds = smem_u32(do_tile(s));
       const float* w = words(s);
       const int* sq = reinterpret_cast<const int*>(w);
-      const bool uni = __all_sync(0xffffffffu, kuni && sq[lane] == kref &&
+      const bool uni = masks<MODE>() &&
+                       __all_sync(0xffffffffu, kuni && sq[lane] == kref &&
                                                    sq[lane + 32] == kref);
 
-      float st[32], dpt[32];
-      wgmma_fence();
+      if constexpr (MODE == DMA) {
+        // every element of the four tiles, q row p facing k row p of the
+        // warpgroup's half, into dk; the q rows' lse and delta into dv
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_n64(st, desc_k<D, BKV>(ks, wg * 64, kk),
-                     desc_k<D, QT>(qs, 0, kk), kk > 0);
+        for (int r = 0; r < 2; ++r) {
+          const int p = warp * 16 + r * 8 + g;
+          const float lp = w[QT + p], dlp = w[2 * QT + p];
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_n64(dpt, desc_k<D, BKV>(vs, wg * 64, kk),
-                     desc_k<D, QT>(ds, 0, kk), kk > 0);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(st);
-      fence_regs(dpt);
+          for (int nh = 0; nh < G::NH; ++nh)
+#pragma unroll
+            for (int j = 0; j < G::HALF_COLS / 8; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int c = nh * G::HALF_COLS + 8 * j + 2 * tq + e;
+                const int i = 4 * j + 2 * r + e;
+                const int qo = tile_offset<D, QT>(p, c);
+                const int ko = tile_offset<D, BKV>(wg * 64 + p, c);
+                dka[nh][i] += ((smem_bf16(q_tile(s), qo) +
+                                smem_bf16(do_tile(s), qo)) +
+                               smem_bf16(smem + L::K, ko)) +
+                              smem_bf16(smem + L::V, ko);
+                dva[nh][i] = (dva[nh][i] + lp) + dlp;
+              }
+        }
+      } else {
+        float st[32], dpt[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {   // the product a mode drops reads 0
+          if constexpr (MODE == NO_S) st[i] = 0.f;
+          if constexpr (MODE == NO_DP) dpt[i] = 0.f;
+        }
+        wgmma_fence();
+        if constexpr (MODE != NO_S) {
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk)
+            wgmma_ss_n64(st, desc_k<D, BKV>(ks, wg * 64, kk),
+                         desc_k<D, QT>(qs, 0, kk), kk > 0);
+        }
+        if constexpr (MODE != NO_DP) {
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk)
+            wgmma_ss_n64(dpt, desc_k<D, BKV>(vs, wg * 64, kk),
+                         desc_k<D, QT>(ds, 0, kk), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        if constexpr (MODE != NO_S) fence_regs(st);
+        if constexpr (MODE != NO_DP) fence_regs(dpt);
 
-      if (uni)
-        dkv_scores<false>(st, dpt, sq, w + QT, w + 2 * QT, sk, tq, scale,
-                          scale_log2);
-      else
-        dkv_scores<true>(st, dpt, sq, w + QT, w + 2 * QT, sk, tq, scale,
-                         scale_log2);
+        if (uni || !masks<MODE>())
+          dkv_scores<MODE, false>(st, dpt, sq, w + QT, w + 2 * QT, sk, tq,
+                                  scale, scale_log2);
+        else
+          dkv_scores<MODE, true>(st, dpt, sq, w + QT, w + 2 * QT, sk, tq,
+                                 scale, scale_log2);
 
-      uint32_t pa[4][4], sa[4][4];
+        if constexpr (MODE == NO_ACC) {
+          // dk row p gains the max over the warpgroup's 64 k rows of dS^T's
+          // q column p: over the lane's two rows and the 8 lanes of its
+          // column, then the warpgroup's four warps through shared memory
+          float* colmax = reinterpret_cast<float*>(smem + L::COLMAX) +
+                          ((it & 1) * 8 + wg * 4) * QT;
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        acc_to_a(pa[kk], st, kk);
-        acc_to_a(sa[kk], dpt, kk);
-      }
-      wgmma_fence();
+          for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
+            for (int e = 0; e < 2; ++e) {
+              float mx = fmaxf(dpt[4 * j + e], dpt[4 * j + 2 + e]);
 #pragma unroll
-        for (int nh = 0; nh < G::NH; ++nh)
-          wgmma_rs(dva[nh], pa[kk], desc_mn<D, QT>(ds, kk, nh));
+              for (int off = 4; off < 32; off <<= 1)
+                mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+              if (g == 0) colmax[warp * QT + 8 * j + 2 * tq + e] = mx;
+            }
+          named_barrier(1 + wg, 128);
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
+          for (int r = 0; r < 2; ++r) {
+            const int p = warp * 16 + r * 8 + g;
+            float mx = colmax[p];
 #pragma unroll
-        for (int nh = 0; nh < G::NH; ++nh)
-          wgmma_rs(dka[nh], sa[kk], desc_mn<D, QT>(qs, kk, nh));
-      wgmma_commit();
-      wgmma_wait<0>();
+            for (int w4 = 1; w4 < 4; ++w4) mx = fmaxf(mx, colmax[w4 * QT + p]);
 #pragma unroll
-      for (int nh = 0; nh < G::NH; ++nh) {
-        fence_regs(dka[nh]);
-        fence_regs(dva[nh]);
+            for (int nh = 0; nh < G::NH; ++nh)
+#pragma unroll
+              for (int j = 0; j < G::HALF_COLS / 8; ++j) {
+                dka[nh][4 * j + 2 * r] += mx;
+                dka[nh][4 * j + 2 * r + 1] += mx;
+              }
+          }
+        } else {
+          uint32_t pa[4][4], sa[4][4];
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            acc_to_a(pa[kk], st, kk);
+            acc_to_a(sa[kk], dpt, kk);
+          }
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int nh = 0; nh < G::NH; ++nh)
+              wgmma_rs(dva[nh], pa[kk], desc_mn<D, QT>(ds, kk, nh));
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int nh = 0; nh < G::NH; ++nh)
+              wgmma_rs(dka[nh], sa[kk], desc_mn<D, QT>(qs, kk, nh));
+          wgmma_commit();
+          wgmma_wait<0>();
+#pragma unroll
+          for (int nh = 0; nh < G::NH; ++nh) {
+            fence_regs(dka[nh]);
+            fence_regs(dva[nh]);
+          }
+        }
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[s]);
@@ -330,7 +455,7 @@ struct DqSmem {
 
 // dS of one tile in place of dP: this thread's q rows r against the
 // tile's k columns c = 8 j + 2 tq + e, of which the first kn exist
-template <bool MASK>
+template <int MODE, bool MASK>
 __device__ __forceinline__ void dq_scores(float (&s)[32], float (&dp)[32],
                                           const int* skt, const int (&sq)[2],
                                           const float (&l2)[2],
@@ -346,16 +471,16 @@ __device__ __forceinline__ void dq_scores(float (&s)[32], float (&dp)[32],
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int i = 4 * j + 2 * r + e;
-        float p = exp2f(s[i] * scale_log2 - l2[r]);
+        float p = mode_p<MODE>(s[i], l2[r], scale, scale_log2);
         if constexpr (MASK)
           p = c + e < kn && (e ? ids.y : ids.x) == sq[r] ? p : 0.f;
-        dp[i] = p * (dp[i] - dl[r]) * scale;
+        dp[i] = mode_ds<MODE>(p, dp[i], dl[r], scale);
       }
     }
   }
 }
 
-template <int D>
+template <int D, int MODE>
 __global__ void __launch_bounds__(3 * 128, 1)
 bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
@@ -431,7 +556,7 @@ bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int tq = lane & 3;
     const int row0 = wg * 64 + warp * 16;   // the warp's first q row
     int row[2], sq[2];
-    float l2[2], dl[2];
+    float l2[2], dl[2], lr[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       row[r] = q0 + row0 + r * 8 + g;
@@ -439,6 +564,8 @@ bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       sq[r] = in ? seg[row[r]] : INT_MIN;
       l2[r] = in ? lse[(size_t)h * T + row[r]] * LOG2E : 0.f;
       dl[r] = in ? delta[(size_t)h * T + row[r]] : 0.f;
+      if constexpr (MODE == DMA)
+        lr[r] = in ? lse[(size_t)h * T + row[r]] : 0.f;
     }
     const int qid = lane < 16 && q0 + row0 + lane < T ? seg[q0 + row0 + lane]
                                                       : INT_MIN;
@@ -461,43 +588,101 @@ bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       const uint32_t vs = smem_u32(v_tile(s));
       const int* skt = ids(s);
       const int kn = T - (kb0 + it) * KT;   // the tile's k rows that exist
-      const bool uni = __all_sync(0xffffffffu, quni && kn >= KT &&
+      const bool uni = masks<MODE>() &&
+                       __all_sync(0xffffffffu, quni && kn >= KT &&
                                                    skt[lane] == qref &&
                                                    skt[lane + 32] == qref);
 
-      float sc[32], dp[32];
-      wgmma_fence();
+      if constexpr (MODE == DMA) {
+        // every element of the q, do, k and v tiles (q row p facing k row
+        // p mod KT), then the row's lse and delta
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_n64(sc, desc_k<D, BQ>(qs, wg * 64, kk),
-                     desc_k<D, KT>(ks, 0, kk), kk > 0);
+        for (int r = 0; r < 2; ++r) {
+          const int p = row0 + r * 8 + g;
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_n64(dp, desc_k<D, BQ>(dos, wg * 64, kk),
-                     desc_k<D, KT>(vs, 0, kk), kk > 0);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(sc);
-      fence_regs(dp);
+          for (int nh = 0; nh < G::NH; ++nh)
+#pragma unroll
+            for (int j = 0; j < G::HALF_COLS / 8; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int c = nh * G::HALF_COLS + 8 * j + 2 * tq + e;
+                const int i = 4 * j + 2 * r + e;
+                const int qo = tile_offset<D, BQ>(p, c);
+                const int ko = tile_offset<D, KT>(p % KT, c);
+                const float z = ((smem_bf16(smem + L::Q, qo) +
+                                  smem_bf16(smem + L::DO, qo)) +
+                                 smem_bf16(k_tile(s), ko)) +
+                                smem_bf16(v_tile(s), ko);
+                acc[nh][i] = ((acc[nh][i] + z) + lr[r]) + dl[r];
+              }
+        }
+      } else {
+        float sc[32], dp[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {   // the product a mode drops reads 0
+          if constexpr (MODE == NO_S) sc[i] = 0.f;
+          if constexpr (MODE == NO_DP) dp[i] = 0.f;
+        }
+        wgmma_fence();
+        if constexpr (MODE != NO_S) {
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk)
+            wgmma_ss_n64(sc, desc_k<D, BQ>(qs, wg * 64, kk),
+                         desc_k<D, KT>(ks, 0, kk), kk > 0);
+        }
+        if constexpr (MODE != NO_DP) {
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk)
+            wgmma_ss_n64(dp, desc_k<D, BQ>(dos, wg * 64, kk),
+                         desc_k<D, KT>(vs, 0, kk), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        if constexpr (MODE != NO_S) fence_regs(sc);
+        if constexpr (MODE != NO_DP) fence_regs(dp);
 
-      if (uni)
-        dq_scores<false>(sc, dp, skt, sq, l2, dl, kn, tq, scale, scale_log2);
-      else
-        dq_scores<true>(sc, dp, skt, sq, l2, dl, kn, tq, scale, scale_log2);
+        if (uni || !masks<MODE>())
+          dq_scores<MODE, false>(sc, dp, skt, sq, l2, dl, kn, tq, scale,
+                                 scale_log2);
+        else
+          dq_scores<MODE, true>(sc, dp, skt, sq, l2, dl, kn, tq, scale,
+                                scale_log2);
 
-      uint32_t sa[4][4];
+        if constexpr (MODE == NO_ACC) {
+          // the row's max of dS over the tile's keys, into every column
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) acc_to_a(sa[kk], dp, kk);
-      wgmma_fence();
+          for (int r = 0; r < 2; ++r) {
+            float mx = dp[2 * r];
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
+            for (int j = 0; j < 8; ++j)
+              mx = fmaxf(mx, fmaxf(dp[4 * j + 2 * r], dp[4 * j + 2 * r + 1]));
 #pragma unroll
-        for (int nh = 0; nh < G::NH; ++nh)
-          wgmma_rs(acc[nh], sa[kk], desc_mn<D, KT>(ks, kk, nh));
-      wgmma_commit();
-      wgmma_wait<0>();
+            for (int off = 1; off < 4; off <<= 1)
+              mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
 #pragma unroll
-      for (int nh = 0; nh < G::NH; ++nh) fence_regs(acc[nh]);
+            for (int nh = 0; nh < G::NH; ++nh)
+#pragma unroll
+              for (int j = 0; j < G::HALF_COLS / 8; ++j) {
+                acc[nh][4 * j + 2 * r] += mx;
+                acc[nh][4 * j + 2 * r + 1] += mx;
+              }
+          }
+        } else {
+          uint32_t sa[4][4];
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) acc_to_a(sa[kk], dp, kk);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int nh = 0; nh < G::NH; ++nh)
+              wgmma_rs(acc[nh], sa[kk], desc_mn<D, KT>(ks, kk, nh));
+          wgmma_commit();
+          wgmma_wait<0>();
+#pragma unroll
+          for (int nh = 0; nh < G::NH; ++nh) fence_regs(acc[nh]);
+        }
+      }
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[s]);
     }
@@ -533,9 +718,9 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int D>
+template <int D, int MODE>
 cudaError_t launch_dkv(const Args& a) {
-  using L = DkvSmem<D>;
+  using L = DkvSmem<D, MODE>;
   CUtensorMap tq, tk, tv, tdo;
   const int HD = a.H * D;
   cudaError_t err;
@@ -544,7 +729,7 @@ cudaError_t launch_dkv(const Args& a) {
       (err = tile_map<D>(&tk, a.k, a.T, HD, BKV)) != cudaSuccess ||
       (err = tile_map<D>(&tv, a.v, a.T, HD, BKV)) != cudaSuccess)
     return err;
-  auto kernel = bwd_dkv_sm90_kernel<D>;
+  auto kernel = bwd_dkv_sm90_kernel<D, MODE>;
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              L::BYTES);
@@ -555,7 +740,7 @@ cudaError_t launch_dkv(const Args& a) {
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, int MODE>
 cudaError_t launch_dq(const Args& a) {
   using L = DqSmem<D>;
   CUtensorMap tq, tk, tv, tdo;
@@ -566,7 +751,7 @@ cudaError_t launch_dq(const Args& a) {
       (err = tile_map<D>(&tk, a.k, a.T, HD, KT)) != cudaSuccess ||
       (err = tile_map<D>(&tv, a.v, a.T, HD, KT)) != cudaSuccess)
     return err;
-  auto kernel = bwd_dq_sm90_kernel<D>;
+  auto kernel = bwd_dq_sm90_kernel<D, MODE>;
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              L::BYTES);
@@ -578,9 +763,9 @@ cudaError_t launch_dq(const Args& a) {
 }
 
 // which = 0: dk/dv; 1: dq
-template <int D>
+template <int D, int MODE = REAL>
 cudaError_t launch_pass(const Args& a, int which) {
-  return which == 0 ? launch_dkv<D>(a) : launch_dq<D>(a);
+  return which == 0 ? launch_dkv<D, MODE>(a) : launch_dq<D, MODE>(a);
 }
 
 cudaError_t launch_pass(const Args& a, int D, int which) {
@@ -588,6 +773,26 @@ cudaError_t launch_pass(const Args& a, int D, int which) {
     case 32: return launch_pass<32>(a, which);
     case 64: return launch_pass<64>(a, which);
     case 128: return launch_pass<128>(a, which);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// One pass in ablation mode `mode`: mode 0 (the production pass) at
+// every D, the other modes at D = 64 only (ESM2-650M's head dim)
+cudaError_t launch_pass(const Args& a, int D, int which, int mode) {
+  if (mode == REAL) return launch_pass(a, D, which);
+  if (D != 64) return cudaErrorInvalidValue;
+  switch (mode) {
+#define ESME_BWD_MODE(M) \
+  case M: return launch_pass<64, M>(a, which);
+    ESME_BWD_MODE(DMA)
+    ESME_BWD_MODE(MM_ONLY)
+    ESME_BWD_MODE(NO_S)
+    ESME_BWD_MODE(NO_DP)
+    ESME_BWD_MODE(NO_ACC)
+    ESME_BWD_MODE(NO_EXP)
+    ESME_BWD_MODE(NO_MASK)
+#undef ESME_BWD_MODE
     default: return cudaErrorInvalidValue;
   }
 }
@@ -630,10 +835,12 @@ int esme_segment_flash_bwd_sm90(const void* q, const void* k, const void* v,
   return (int)launch_pass(a, D, 1);
 }
 
-// One pass alone, to time it: which = 0 writes dk and dv, which = 1
+// One pass alone in ablation mode `mode` (kernel H7; decompose_bwd.MODES'
+// order): mode 0, the production pass, at D in {32, 64, 128}, to time it;
+// the other modes at D = 64 only. which = 0 writes dk and dv, which = 1
 // writes dq. Returns the cudaError_t of the launch.
-int esme_flash_bwd_sm90_pass(int which, const void* q, const void* k,
-                             const void* v, const void* dout,
+int esme_flash_bwd_sm90_pass(int which, int mode, const void* q,
+                             const void* k, const void* v, const void* dout,
                              const void* lse, const void* delta,
                              const void* seg, const void* kstart,
                              const void* kend, const void* qstart,
@@ -642,7 +849,7 @@ int esme_flash_bwd_sm90_pass(int which, const void* q, const void* k,
   if (which != 0 && which != 1) return (int)cudaErrorInvalidValue;
   const Args a = make_args(q, k, v, dout, lse, delta, seg, kstart, kend,
                            qstart, qend, dq, dk, dv, T, H, scale, stream);
-  return (int)launch_pass(a, D, which);
+  return (int)launch_pass(a, D, which, mode);
 }
 
 const char* esme_flash_bwd_sm90_error_string(int err) {

@@ -69,6 +69,18 @@
 // Issuing S of the next stage before the softmax of this one (two stages
 // in flight per warpgroup) ran no faster: the four warpgroups of an SM
 // already keep it as busy. PERF.md has the H100's times.
+//
+// H5, the same kernel on token-minor operands (LAYOUT = HDT): q, k, v and
+// o (H, D, T), lse (H, T), T % 8 == 0. Replaces the TPU kernel
+// tools/fwd_T_experiment.py:_fwd_kernel_T (K14), which formed the scores
+// transposed because the TPU reduces cheaply over sublanes; here only the
+// shared-memory descriptors change. Each TMA box is one head's D rows over
+// 64 tokens, 128 bytes wide at every D (128-byte swizzle), so a 128-row
+// tile of H1 is two boxes of the same bytes. S = Q K^T takes Q and K^T
+// MN-major (wgmma's transpose immediates), O += P V takes V as stored,
+// (d, keys), K-major; the scores, the softmax and the mask vote are H1's.
+// O leaves through the warpgroup's Q box, transposed and swizzled, by a
+// TMA store that clips the tokens past T.
 
 #include <limits.h>
 
@@ -177,11 +189,16 @@ __device__ __forceinline__ void softmax_stage(float (&s)[N], float (&m)[2],
   for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + ps[r];
 }
 
-template <int D>
+// The operands' layout: THD, (T, H*D) (H1); HDT, token-minor (H, D, T)
+// (H5, whose o goes out through tm_o)
+enum Layout { THD = 0, HDT = 1 };
+
+template <int D, int LAYOUT>
 __global__ void __launch_bounds__(NTHREADS, ctas_per_sm<D>())
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v,
+                      const __grid_constant__ CUtensorMap tm_o,
                       const int* __restrict__ seg,
                       const int* __restrict__ kstart,
                       const int* __restrict__ kend, bf16* __restrict__ o,
@@ -189,7 +206,9 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       float scale_log2) {
   using G = Geo<D>;
   using L = FwdSmem<D>;
+  using TG = TGeo<D>;
   constexpr int ST = L::ST;
+  constexpr bool hdt = LAYOUT == HDT;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_smem(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BARS);
@@ -230,8 +249,18 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int k0 = (kb0 + 2 * j) * KT;
     if (lane == 0) {
       mbar_expect_tx(&full[s], 2 * L::K_TILE);
-      tma_tile<D, KS>(k_rows(s), &tm_k, &full[s], col0, k0);
-      tma_tile<D, KS>(v_rows(s), &tm_v, &full[s], col0, k0);
+      if constexpr (hdt) {
+#pragma unroll
+        for (int b = 0; b < KS / TG::BOX; ++b) {
+          tma_load_2d(k_rows(s) + b * TG::BOX_BYTES, &tm_k, &full[s],
+                      k0 + b * TG::BOX, col0);
+          tma_load_2d(v_rows(s) + b * TG::BOX_BYTES, &tm_v, &full[s],
+                      k0 + b * TG::BOX, col0);
+        }
+      } else {
+        tma_tile<D, KS>(k_rows(s), &tm_k, &full[s], col0, k0);
+        tma_tile<D, KS>(v_rows(s), &tm_v, &full[s], col0, k0);
+      }
     }
 #pragma unroll
     for (int i = lane; i < KS; i += 32) {
@@ -243,7 +272,14 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (loader) {
     if (lane == 0) {
       mbar_expect_tx(q_bar, L::Q_TILE);
-      tma_tile<D, BQ>(smem + L::Q, &tm_q, q_bar, col0, q0);
+      if constexpr (hdt) {
+#pragma unroll
+        for (int b = 0; b < BQ / TG::BOX; ++b)
+          tma_load_2d(smem + L::Q + b * TG::BOX_BYTES, &tm_q, q_bar,
+                      q0 + b * TG::BOX, col0);
+      } else {
+        tma_tile<D, BQ>(smem + L::Q, &tm_q, q_bar, col0, q0);
+      }
     }
     for (int j = 0; j < ST - 1 && j < ns; ++j) load(j);
   }
@@ -289,9 +325,14 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     float sc[64];
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n128(sc, desc_k<D, BQ>(qs, wg * 64, kk),
-                    desc_k<D, KS>(ks, 0, kk), kk > 0);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      if constexpr (hdt)   // Q and K^T MN-major: tokens along the rows
+        wgmma_ss_n128<1, 1>(sc, desc_t_mn<D>(qs + wg * TG::BOX_BYTES, kk),
+                            desc_t_mn<D>(ks, kk), kk > 0);
+      else
+        wgmma_ss_n128(sc, desc_k<D, BQ>(qs, wg * 64, kk),
+                      desc_k<D, KS>(ks, 0, kk), kk > 0);
+    }
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
@@ -323,8 +364,12 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int kk = 0; kk < KS / 16; ++kk)
 #pragma unroll
-      for (int nh = 0; nh < G::NH; ++nh)
-        wgmma_rs(acc[nh], pa[kk], desc_mn<D, KS>(vs, kk, nh));
+      for (int nh = 0; nh < G::NH; ++nh) {
+        if constexpr (hdt)   // V as stored, (d, keys): K-major
+          wgmma_rs<0>(acc[nh], pa[kk], desc_t_k<D>(vs, kk, nh));
+        else
+          wgmma_rs(acc[nh], pa[kk], desc_mn<D, KS>(vs, kk, nh));
+      }
     wgmma_commit();
     wgmma_wait<0>();
 #pragma unroll
@@ -333,76 +378,137 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (lane == 0) mbar_arrive(&empty[s]);
   }
 
-  // epilogue: full row sums, o = acc / l into (T, H*D), lse into (H, T)
+  // epilogue: full row sums, o = acc / l into (T, H*D), lse into (H, T);
+  // token-minor: o^T into the warpgroup's Q box (read by nothing once its
+  // last S is done), swizzled as the box was loaded, then out by TMA,
+  // which leaves the tokens past T unwritten
+  unsigned char* obox = smem + L::Q + wg * TG::BOX_BYTES;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float lr = l[r];
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1)
       lr += __shfl_xor_sync(0xffffffffu, lr, off);
+    if constexpr (hdt) {
+      const float inv = 1.f / (lr == 0.f ? 1.f : lr);
+      const int qr = warp * 16 + r * 8 + g;   // the row's token in the box
+#pragma unroll
+      for (int nh = 0; nh < G::NH; ++nh)
+#pragma unroll
+        for (int j = 0; j < G::HALF_COLS / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int d = nh * G::HALF_COLS + 8 * j + 2 * tq + e;
+            *reinterpret_cast<bf16*>(obox + d * 128 +
+                                     (((qr >> 3) ^ (d & 7)) << 4) +
+                                     (qr & 7) * 2) =
+                __float2bfloat16_rn(acc[nh][4 * j + 2 * r + e] * inv);
+          }
+    }
     if (row[r] >= T) continue;
     lr = lr == 0.f ? 1.f : lr;
-    const float inv = 1.f / lr;
-    bf16* out = o + (size_t)row[r] * HD + col0;
+    if constexpr (!hdt) {
+      const float inv = 1.f / lr;
+      bf16* out = o + (size_t)row[r] * HD + col0;
 #pragma unroll
-    for (int nh = 0; nh < G::NH; ++nh)
+      for (int nh = 0; nh < G::NH; ++nh)
 #pragma unroll
-      for (int j = 0; j < G::HALF_COLS / 8; ++j) {
-        const int i = 4 * j + 2 * r;
-        *reinterpret_cast<__nv_bfloat162*>(out + nh * G::HALF_COLS + 8 * j +
-                                           2 * tq) =
-            __floats2bfloat162_rn(acc[nh][i] * inv, acc[nh][i + 1] * inv);
-      }
+        for (int j = 0; j < G::HALF_COLS / 8; ++j) {
+          const int i = 4 * j + 2 * r;
+          *reinterpret_cast<__nv_bfloat162*>(out + nh * G::HALF_COLS +
+                                             8 * j + 2 * tq) =
+              __floats2bfloat162_rn(acc[nh][i] * inv, acc[nh][i + 1] * inv);
+        }
+    }
     if (tq == 0) lse[(size_t)h * T + row[r]] = m[r] * LN2 + logf(lr);
+  }
+  if constexpr (hdt) {
+    fence_proxy_async();
+    named_barrier(1 + wg, 128);
+    if (threadIdx.x % 128 == 0) {
+      tma_store_2d(&tm_o, obox, q0 + wg * TG::BOX, col0);
+      tma_store_wait();
+    }
   }
 }
 
-template <int D>
+template <int D, int LAYOUT>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* seg, const int* kstart, const int* kend,
                    void* o, float* lse, int T, int H, float scale,
                    cudaStream_t stream) {
   using L = FwdSmem<D>;
-  CUtensorMap tq, tk, tv;
+  CUtensorMap tq, tk, tv, to;
   const int HD = H * D;
   cudaError_t err;
-  if ((err = tile_map<D>(&tq, q, T, HD, BQ)) != cudaSuccess ||
-      (err = tile_map<D>(&tk, k, T, HD, KS)) != cudaSuccess ||
-      (err = tile_map<D>(&tv, v, T, HD, KS)) != cudaSuccess)
-    return err;
-  auto kernel = flash_fwd_sm90_kernel<D>;
+  if constexpr (LAYOUT == HDT) {
+    if ((err = token_map<D>(&tq, q, T, HD)) != cudaSuccess ||
+        (err = token_map<D>(&tk, k, T, HD)) != cudaSuccess ||
+        (err = token_map<D>(&tv, v, T, HD)) != cudaSuccess ||
+        (err = token_map<D>(&to, o, T, HD)) != cudaSuccess)
+      return err;
+  } else {
+    if ((err = tile_map<D>(&tq, q, T, HD, BQ)) != cudaSuccess ||
+        (err = tile_map<D>(&tk, k, T, HD, KS)) != cudaSuccess ||
+        (err = tile_map<D>(&tv, v, T, HD, KS)) != cudaSuccess)
+      return err;
+    to = tq;   // not read
+  }
+  auto kernel = flash_fwd_sm90_kernel<D, LAYOUT>;
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              L::BYTES);
   if (err != cudaSuccess) return err;
   kernel<<<dim3((T + BQ - 1) / BQ, H), NTHREADS, L::BYTES, stream>>>(
-      tq, tk, tv, seg, kstart, kend, static_cast<bf16*>(o), lse, T, H,
+      tq, tk, tv, to, seg, kstart, kend, static_cast<bf16*>(o), lse, T, H,
       scale * LOG2E);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-// D in {32, 64, 128}. Returns the cudaError_t of the launch (0 on
-// success).
-int esme_segment_flash_fwd_sm90(const void* q, const void* k, const void* v,
-                                const void* seg, const void* kstart,
-                                const void* kend, void* o, void* lse, int T,
-                                int H, int D, float scale, void* stream) {
+template <int LAYOUT>
+int launch_d(const void* q, const void* k, const void* v, const void* seg,
+             const void* kstart, const void* kend, void* o, void* lse, int T,
+             int H, int D, float scale, void* stream) {
   const int* s = static_cast<const int*>(seg);
   const int* ks = static_cast<const int*>(kstart);
   const int* ke = static_cast<const int*>(kend);
   float* l = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return (int)launch<32>(q, k, v, s, ks, ke, o, l, T, H, scale, st);
-    case 64: return (int)launch<64>(q, k, v, s, ks, ke, o, l, T, H, scale, st);
+    case 32:
+      return (int)launch<32, LAYOUT>(q, k, v, s, ks, ke, o, l, T, H, scale,
+                                     st);
+    case 64:
+      return (int)launch<64, LAYOUT>(q, k, v, s, ks, ke, o, l, T, H, scale,
+                                     st);
     case 128:
-      return (int)launch<128>(q, k, v, s, ks, ke, o, l, T, H, scale, st);
+      return (int)launch<128, LAYOUT>(q, k, v, s, ks, ke, o, l, T, H, scale,
+                                      st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+extern "C" {
+
+// H1: q, k, v, o (T, H*D). D in {32, 64, 128}. Returns the cudaError_t of
+// the launch (0 on success).
+int esme_segment_flash_fwd_sm90(const void* q, const void* k, const void* v,
+                                const void* seg, const void* kstart,
+                                const void* kend, void* o, void* lse, int T,
+                                int H, int D, float scale, void* stream) {
+  return launch_d<THD>(q, k, v, seg, kstart, kend, o, lse, T, H, D, scale,
+                       stream);
+}
+
+// H5: the same function on token-minor q, k, v, o (H, D, T); T % 8 == 0.
+int esme_flash_fwd_t_sm90(const void* q, const void* k, const void* v,
+                          const void* seg, const void* kstart,
+                          const void* kend, void* o, void* lse, int T, int H,
+                          int D, float scale, void* stream) {
+  return launch_d<HDT>(q, k, v, seg, kstart, kend, o, lse, T, H, D, scale,
+                       stream);
 }
 
 const char* esme_flash_fwd_sm90_error_string(int err) {

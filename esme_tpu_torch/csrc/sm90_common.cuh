@@ -139,6 +139,33 @@ __device__ __forceinline__ void tma_tile(unsigned char* dst,
                 row0);
 }
 
+// 2-D tile store: shared `src` into box (x, y) of `map`; the box's parts
+// past the tensor's end are not written. Commits one bulk group.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int x, int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
+      "[%1];\n"
+      "cp.async.bulk.commit_group;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(x), "r"(y)
+      : "memory");
+}
+
+// Wait until this thread's bulk stores have read their shared memory
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Make this thread's ordinary shared-memory writes visible to TMA
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier `id` (1-15; 0 is __syncthreads) over `threads` threads
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // wgmma
 // ---------------------------------------------------------------------------
@@ -168,6 +195,44 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk, int nh) {
   using G = Geo<D>;
   return make_desc(tile + nh * ROWS * G::RB + kk * 16 * G::RB, ROWS * G::RB,
                    8 * G::RB, G::LAYOUT);
+}
+
+// Token-minor tiles (a (H*D, T) view of (H, D, T) tensors): a box is the
+// D rows d of one head over 64 tokens, 128 bytes per row with the 128-byte
+// swizzle at every D, BOX_T = 128 D bytes; a 128-token tile is two boxes.
+template <int D>
+struct TGeo {
+  static_assert(D == 32 || D == 64 || D == 128, "head dims 32, 64, 128");
+  static constexpr int BOX = 64;            // tokens per box
+  static constexpr int BOX_BYTES = D * 128;
+};
+
+// MN-major operand whose tokens are M (or N) and d the contraction: d rows
+// [16 kk, 16 kk + 16) of the boxes from `tile` on (the next 64 tokens one
+// box further: LBO), 8-row groups 1024 bytes apart (SBO)
+template <int D>
+__device__ __forceinline__ uint64_t desc_t_mn(uint32_t tile, int kk) {
+  return make_desc(tile + kk * 16 * 128, TGeo<D>::BOX_BYTES, 1024, 1);
+}
+
+// K-major B operand whose tokens are the contraction and d is N: tokens
+// [16 kk, 16 kk + 16) of a two-box tile, d rows [64 nh, 64 nh + N)
+template <int D>
+__device__ __forceinline__ uint64_t desc_t_k(uint32_t tile, int kk, int nh) {
+  return make_desc(tile + (kk / 4) * TGeo<D>::BOX_BYTES + nh * 64 * 128 +
+                       (kk % 4) * 32,
+                   16, 1024, 1);
+}
+
+// Byte offset of element (row, col) of a Geo<D> tile of ROWS rows, as
+// tma_tile lays it out (the swizzle XORs address bits 7.. into the 16-byte
+// chunk bits 4..)
+template <int D, int ROWS>
+__device__ __forceinline__ int tile_offset(int row, int col) {
+  using G = Geo<D>;
+  const int off = (col / G::HALF_COLS) * ROWS * G::RB + row * G::RB +
+                  (col % G::HALF_COLS) * 2;
+  return off ^ (((off >> 7) & (G::RB / 16 - 1)) << 4);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -208,7 +273,9 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
-// the same with N = 128: d (64 x 128 fp32), B (16 x 128)
+// the same with N = 128: d (64 x 128 fp32), B (16 x 128). TA and TB are
+// the transpose immediates: 0 reads A (B) K-major, 1 MN-major.
+template <int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
                                               uint64_t b, int accumulate) {
   asm volatile(
@@ -218,13 +285,14 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
       "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
       "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, %67, %68;\n}\n"
       : ESME_F16(0), ESME_F16(16), ESME_F16(32), ESME_F16(48)
-      : "l"(a), "l"(b), "r"(accumulate));
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
 // d (64 x 64 fp32) += A B, A (64 x 16 bf16) from registers, B (16 x 64)
-// from shared memory, MN-major
+// from shared memory, MN-major (TB = 1) or K-major (TB = 0)
+template <int TB = 1>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32],
                                          const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
@@ -232,21 +300,22 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : ESME_F16(0), ESME_F16(16)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
 }
 
 // the same with N = 32 (head dim 32)
+template <int TB = 1>
 __device__ __forceinline__ void wgmma_rs(float (&d)[16],
                                          const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
       : ESME_F16(0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
 }
 
 #undef ESME_F16
@@ -311,6 +380,26 @@ cudaError_t tile_map(CUtensorMap* map, const void* base, int T, int HD,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
       G::RB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The map of a token-minor (H, D, T) bf16 tensor viewed as (H*D, T): boxes
+// of 64 tokens x D rows (one head), 128-byte swizzle. TMA needs the row
+// stride, 2 T bytes, to be a multiple of 16: T % 8 == 0.
+template <int D>
+cudaError_t token_map(CUtensorMap* map, const void* base, int T, int HD) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  if (T % 8 != 0) return cudaErrorInvalidValue;
+  const cuuint64_t dims[2] = {(cuuint64_t)T, (cuuint64_t)HD};
+  const cuuint64_t strides[1] = {(cuuint64_t)T * sizeof(bf16)};
+  const cuuint32_t box[2] = {(cuuint32_t)TGeo<D>::BOX, (cuuint32_t)D};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

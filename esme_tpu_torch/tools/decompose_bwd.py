@@ -1,13 +1,14 @@
-"""What each pass of the segment-flash backward costs: the two kernels
-of H2's mma.sync form (``csrc/flash_bwd.cu``) with one pass removed at
-a time ("H7", that file's ablation modes). H2 itself runs
-the Hopper form ``csrc/flash_bwd_sm90.cu`` at head dims 32-128.
+"""What each pass of the segment-flash backward costs: H2's two passes
+with one part of the work removed at a time ("H7", their ablation modes),
+on both of H2's forms: the Hopper form ``csrc/flash_bwd_sm90.cu``, the
+one H2 runs at head dims 32-128, and the mma.sync form
+``csrc/flash_bwd.cu``.
 
 Counterpart of ``tools/decompose_bwd.py`` (K15: ``dq_variant`` at 66 and
 ``dkv_variant`` at 125, built into grids by ``build_dq``/``build_dkv``).
-Each mode removes the same pass as on the TPU:
+Each mode removes the same part as on the TPU:
 
-  real     the mma.sync form's production kernel (its mode-0 instantiation)
+  real     the form's production pass (its mode-0 instantiation)
   dma      every element of the tiles read, summed; no compute
   mm_only  the products alone (no mask, no exp: p = s, ds = p + dp)
   no_s     no score product (s = lse)
@@ -17,14 +18,17 @@ Each mode removes the same pass as on the TPU:
   no_mask  no segment mask
 
 Numerics of every mode but ``real`` are wrong on purpose: this is a cost
-model. On the card the modes run at the mma.sync form's tiles (dq: 128-row
-q blocks over 64-key tiles; dk/dv: 64-row k blocks over 64-query
-tiles), D = 64.
+model. The modes run at each form's own walk, D = 64: the dq pass's
+128-row q blocks over 64-key tiles in both; the dk/dv pass's 64-row k
+blocks over 64-query tiles, which on the Hopper form walk the union of
+the spans of the two 64-row halves of a 128-row block
+(:func:`union_spans`), so the modes without a mask add those tiles too.
 
     python -m esme_tpu_torch.tools.decompose_bwd [--device cpu]
 
-prints, on bench.py's 50k train batch, the full backward, each kernel
-alone, and each mode of each kernel, beside the bound of the work kept.
+prints, on bench.py's 50k train batch, the full backward, then each mode
+of each pass of the Hopper form and of the mma.sync form, beside the
+bound of the work kept.
 """
 
 from __future__ import annotations
@@ -54,6 +58,12 @@ MODES = {
     'no_mask': (3, 4, True),
 }
 KERNELS = ('dkv', 'dq')
+# the modes that drop the segment mask: they compute every pair of the
+# tiles they walk
+UNMASKED = ('mm_only', 'no_exp', 'no_mask')
+# each form's C entry of one pass in one mode, by library
+VARIANT_ENTRIES = {'flash_bwd_sm90': 'esme_flash_bwd_sm90_pass',
+                   'flash_bwd': 'esme_segment_flash_bwd_variant'}
 
 
 def _p_ds(mode, s, dp, lse, delta, mask, scale):
@@ -207,26 +217,66 @@ def dkv_variant_plain(mode: str, q2, k2, v2, do2, lse, delta, seg_ids,
     return out(dk), out(dv)
 
 
+def union_spans(qstart, qend):
+    """The q-tile span each 64-row k block walks in the Hopper form's dk/dv
+    pass: the union of the spans of the two 64-row halves of its 128-row
+    block (``csrc/flash_bwd_sm90.cu``; a last odd half keeps its own)."""
+    n = qstart.numel()
+
+    def pair(x, reduce):
+        x = torch.cat([x, x[-1:]]) if n % 2 else x
+        return reduce(x.view(-1, 2), 1).repeat_interleave(2)[:n] \
+            .to(torch.int32).contiguous()
+    return pair(qstart, torch.amin), pair(qend, torch.amax)
+
+
+def _library(library, head_dim: int) -> str:
+    """``library``, a key of ``flash.BWD_ROUTES``, or H2's route at
+    ``head_dim`` when None."""
+    library = flash.bwd_route(head_dim) if library is None else library
+    if library not in flash.BWD_ROUTES:
+        raise ValueError(f'unknown library {library!r}; one of '
+                         f'{list(flash.BWD_ROUTES)}')
+    return library
+
+
+def bwd_variant_plain(kernel: str, mode: str, q2, k2, v2, do2, lse, delta,
+                      seg_ids, kstart, kend, qstart, qend, num_heads: int,
+                      library: str | None = None):
+    """Plain PyTorch version of :func:`bwd_variant`: its pass at the walk
+    of ``library``'s form (the dk/dv pass of the Hopper form over
+    :func:`union_spans`)."""
+    library = _library(library, q2.shape[1] // num_heads)
+    if kernel == 'dq':
+        return dq_variant_plain(mode, q2, k2, v2, do2, lse, delta, seg_ids,
+                                kstart, kend, num_heads)
+    if library == 'flash_bwd_sm90':
+        qstart, qend = union_spans(qstart, qend)
+    return dkv_variant_plain(mode, q2, k2, v2, do2, lse, delta, seg_ids,
+                             qstart, qend, num_heads)
+
+
 def bwd_variant(kernel: str, mode: str, q2, k2, v2, do2, lse, delta,
-                seg_ids, kstart, kend, qstart, qend, num_heads: int):
-    """One of the mma.sync form's kernels in ablation mode ``mode`` (kernel
-    H7): the arguments of
-    :func:`esme_tpu_torch.ops.flash.segment_flash_bwd`, D = 64 only.
-    ``kernel='dq'`` returns dq, ``'dkv'`` returns (dk, dv). ``real``
-    launches the mma.sync form's own instantiations."""
+                seg_ids, kstart, kend, qstart, qend, num_heads: int,
+                library: str | None = None):
+    """One of H2's passes in ablation mode ``mode`` (kernel H7): the
+    arguments of :func:`esme_tpu_torch.ops.flash.segment_flash_bwd`, D =
+    64 only, on ``library``'s form (a key of ``flash.BWD_ROUTES``; H2's
+    route at D when None, the Hopper form at 64). ``kernel='dq'`` returns
+    dq, ``'dkv'`` returns (dk, dv). ``real`` launches the form's own
+    production instantiations."""
     if mode not in MODES or kernel not in KERNELS:
         raise ValueError(f'unknown mode {mode!r} or kernel {kernel!r}; '
                          f'modes {list(MODES)}, kernels {KERNELS}')
+    library = _library(library, q2.shape[1] // num_heads)
     if q2.device.type == 'cpu':
-        if kernel == 'dq':
-            return dq_variant_plain(mode, q2, k2, v2, do2, lse, delta,
-                                    seg_ids, kstart, kend, num_heads)
-        return dkv_variant_plain(mode, q2, k2, v2, do2, lse, delta, seg_ids,
-                                 qstart, qend, num_heads)
+        return bwd_variant_plain(kernel, mode, q2, k2, v2, do2, lse, delta,
+                                 seg_ids, kstart, kend, qstart, qend,
+                                 num_heads, library)
     T, HD = q2.shape
     H = num_heads
     D = HD // H
-    what = f'bwd_variant({kernel!r}, {mode!r})'
+    what = f'bwd_variant({kernel!r}, {mode!r}, {library!r})'
     if D != 64 or HD != H * D:
         raise ValueError(f'{what}: head dim {HD / H:g}: the ablation modes '
                          'are built for D = 64 only')
@@ -242,18 +292,19 @@ def bwd_variant(kernel: str, mode: str, q2, k2, v2, do2, lse, delta,
         ('qstart', qstart, nkb, torch.int32),
         ('qend', qend, nkb, torch.int32)))
     from .. import _build
-    lib = _build.library('flash_bwd')
+    lib = _build.library(library)
+    entry = VARIANT_ENTRIES[library]
     dq = torch.empty_like(q2) if kernel == 'dq' else q2.new_empty(0)
     dk, dv = (torch.empty_like(q2) if kernel == 'dkv' else q2.new_empty(0)
               for _ in range(2))
-    rc = lib.esme_segment_flash_bwd_variant(
+    rc = getattr(lib, entry)(
         KERNELS.index(kernel), list(MODES).index(mode), q2.data_ptr(),
         k2.data_ptr(), v2.data_ptr(), do2.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), seg_ids.data_ptr(), kstart.data_ptr(),
         kend.data_ptr(), qstart.data_ptr(), qend.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), T, H, D, 1.0 / math.sqrt(D),
         torch.cuda.current_stream(q2.device).cuda_stream)
-    _build.check(rc, lib, 'esme_flash_bwd_error_string', what)
+    _build.check(rc, lib, flash.BWD_ROUTES[library][1], what)
     bwd_variant.launches += 1
     return dq if kernel == 'dq' else (dk, dv)
 
@@ -274,14 +325,32 @@ def check(mode: str, got, ref):
     return {'err': err, 'share': share, 'ok': share <= 1.0 and finite}
 
 
-def work(kernel: str, mode: str, b):
-    """Bytes the kernel must move (q, k, v and do read, its gradients
+def walked_pairs(kernel: str, library: str, spans) -> float:
+    """The (q, k) pairs per head of the tiles ``library``'s ``kernel``
+    pass walks over ``spans`` (:func:`esme_tpu_torch.ops.flash.
+    flash_spans`)."""
+    kstart, kend, qstart, qend = spans
+    if kernel == 'dq':
+        return float((kend - kstart).clamp_min(0).sum().item()) \
+            * flash.BLOCK_Q * flash.BLOCK_K
+    if library == 'flash_bwd_sm90':
+        qstart, qend = union_spans(qstart, qend)
+    return float((qend - qstart).clamp_min(0).sum().item()) \
+        * flash.BLOCK_KV * flash.BLOCK_QT
+
+
+def work(kernel: str, mode: str, b, library: str | None = None):
+    """Bytes the pass must move (q, k, v and do read, its gradients
     written, lse and delta read, segment ids and its spans read) and the
     operations the mode keeps: 2·D flops per kept product and one exp
-    per same-segment pair and head."""
+    per pair and head, over the same-segment pairs, or, in the modes
+    without a mask, over every pair of the tiles ``library``'s form
+    walks."""
+    library = _library(library, b.D)
     dq_products, dkv_products, exps = MODES[mode]
     products = dq_products if kernel == 'dq' else dkv_products
-    pairs = segment_pairs(b.seg) * b.H
+    pairs = (walked_pairs(kernel, library, b.spans) if mode in UNMASKED
+             else segment_pairs(b.seg)) * b.H
     nspans = b.spans[0 if kernel == 'dq' else 2].numel() * 2
     nbytes = (4 + (1 if kernel == 'dq' else 2)) * b.q.numel() \
         * b.q.element_size() + 2 * b.H * b.T * 4 + b.T * 4 + nspans * 4
@@ -295,16 +364,18 @@ def backward_inputs(b):
     return lse, flash.attention_delta(o, b.do, b.H)
 
 
-def run(kernel: str, mode: str, b, lse, delta, reps: int):
-    """Time one kernel in one mode: its ms, bound and the work it keeps;
-    prints its line."""
+def run(kernel: str, mode: str, b, lse, delta, reps: int,
+        library: str | None = None):
+    """Time one pass of ``library``'s form in one mode: its ms, bound and
+    the work it keeps; prints its line."""
+    library = _library(library, b.D)
     args = (b.q, b.k, b.v, b.do, lse, delta, b.seg, *b.spans, b.H)
-    ms = benchmark(bwd_variant, kernel, mode, *args, reps=reps,
+    ms = benchmark(bwd_variant, kernel, mode, *args, library, reps=reps,
                    device=b.device.type) * 1e3
-    nbytes, flops, exps = work(kernel, mode, b)
+    nbytes, flops, exps = work(kernel, mode, b, library)
     bms, by = bound_ms(nbytes, flops, exps)
-    print(f'{kernel:3s} {mode:8s} {ms:8.4f} ms (bound {bms:.4f} ms by {by})',
-          flush=True)
+    print(f'{library:14s} {kernel:3s} {mode:8s} {ms:8.4f} ms (bound '
+          f'{bms:.4f} ms by {by})', flush=True)
     return {'ms': ms, 'bound_ms': bms, 'bound_by': by, 'bytes': nbytes,
             'flops': flops, 'exps': exps}
 
@@ -323,9 +394,13 @@ def main(argv=None):
                    device=args.device) * 1e3
     print(f'bwd both (H2)  {ms:8.4f} ms ({flash.bwd_route(b.D)})',
           flush=True)
-    return {'bwd_ms': ms, **{f'{kernel} {mode}': run(kernel, mode, b, lse,
-                                                    delta, args.reps)
-                             for kernel in KERNELS for mode in MODES}}
+    hopper = flash.bwd_route(b.D)
+    return {'bwd_ms': ms, **{
+        library: {f'{kernel} {mode}': run(kernel, mode, b, lse, delta,
+                                          args.reps, library)
+                  for kernel in KERNELS for mode in MODES}
+        for library in (hopper, *(n for n in flash.BWD_ROUTES
+                                  if n != hopper))}}
 
 
 if __name__ == '__main__':

@@ -1,19 +1,25 @@
-"""Transposed-score segment-flash forward on token-minor operands: kernel
-H5 (``csrc/flash_fwd_t.cu``), timed beside H1.
+"""Segment-flash forward on token-minor operands: kernel H5, timed beside
+H1.
 
 Counterpart of ``tools/fwd_T_experiment.py`` (K14: ``_fwd_kernel_T`` at
 27, launched by ``fwd_T`` at 115), the experiment that moved the TPU's
 forward to scores laid out ``(keys, queries)``, so that the softmax's max
 and sum reduce over the keys on the cheap axis. The function is H1's;
 q, k, v and o are token-minor ``(H, D, T)``, lse ``(H, T)``. On the card
-the question becomes what the transposed orientation costs there (see
-the kernel's source). H5 takes H1's spans and tiles (128-query blocks
-over 64-key tiles); there is nothing to sweep.
+the question becomes what the token-minor layout costs there. H5 has two
+forms, routed by a static rule (:func:`fwd_T_route`): H1's Hopper kernel
+with the token-minor layout (``csrc/flash_fwd_sm90.cu``, entry
+``esme_flash_fwd_t_sm90``: only its shared-memory descriptors differ from
+H1's) at D = 32, 64, 128 when T % 8 == 0 (TMA's row stride), and the
+``mma.sync`` form with transposed scores (``csrc/flash_fwd_t.cu``)
+otherwise. Both take H1's spans and tiles (128-query blocks over 64-key
+tiles); there is nothing to sweep.
 
     python -m esme_tpu_torch.tools.fwd_T_experiment [--device cpu]
 
-prints H5's and H1's ms at ESM2-650M's attention on bench.py's 50k batch
-and H5's largest differences from H1.
+prints, at ESM2-650M's attention on bench.py's 50k batch, H5's ms on its
+route, its mma.sync form's and H1's, each beside the bound, and H5's
+largest differences from H1.
 """
 
 from __future__ import annotations
@@ -31,6 +37,21 @@ from . import (FLASH_LSE_ATOL, FLASH_O_FLOOR, FLASH_O_REL, FWD_SEED,
                parse_args, scaled_error, segment_pairs, steps, thd_to_hdt)
 
 BLOCK_Q, BLOCK_K = flash.BLOCK_Q, flash.BLOCK_K
+
+# H5's routes: library -> (entry, error string)
+FWD_T_ROUTES = {
+    'flash_fwd_sm90': ('esme_flash_fwd_t_sm90',
+                       'esme_flash_fwd_sm90_error_string'),
+    'flash_fwd_t': ('esme_flash_fwd_t', 'esme_flash_fwd_t_error_string'),
+}
+
+
+def fwd_T_route(head_dim: int, T: int) -> str:
+    """The library H5 launches: H1's Hopper kernel (token-minor layout) at
+    its head dims when T % 8 == 0, where a token-minor row is a multiple
+    of 16 bytes as TMA requires; the mma.sync form otherwise."""
+    return 'flash_fwd_sm90' if head_dim in flash.SM90_HEAD_DIMS \
+        and T % 8 == 0 else 'flash_fwd_t'
 
 
 def fwd_T_plain(qT, kT, vT, seg_ids, kstart, kend, scale=None,
@@ -73,7 +94,8 @@ def fwd_T_plain(qT, kT, vT, seg_ids, kstart, kend, scale=None,
 
 def fwd_T(qT, kT, vT, seg_ids, kstart, kend, scale=None):
     """Segment-masked flash attention forward over token-minor operands
-    (kernel H5).
+    (kernel H5), on the route :func:`fwd_T_route` picks; ``launches``
+    counts either route, ``routes`` each.
 
     Args:
         qT, kT, vT: ``(H, D, T)``, RoPE already applied to q and k.
@@ -97,21 +119,36 @@ def fwd_T(qT, kT, vT, seg_ids, kstart, kend, scale=None):
         ('seg_ids', seg_ids, T, torch.int32),
         ('kstart', kstart, nqb, torch.int32),
         ('kend', kend, nqb, torch.int32)))
-    from .. import _build
-    lib = _build.library('flash_fwd_t')
-    oT = torch.empty_like(qT)
-    lse = torch.empty((H, T), dtype=torch.float32, device=qT.device)
-    rc = lib.esme_flash_fwd_t(
-        qT.data_ptr(), kT.data_ptr(), vT.data_ptr(), seg_ids.data_ptr(),
-        kstart.data_ptr(), kend.data_ptr(), oT.data_ptr(), lse.data_ptr(),
-        T, H, D, 1.0 / math.sqrt(D) if scale is None else scale,
-        torch.cuda.current_stream(qT.device).cuda_stream)
-    _build.check(rc, lib, 'esme_flash_fwd_t_error_string', what)
+    route = fwd_T_route(D, T)
+    out = launch_fwd_T(route, qT, kT, vT, seg_ids, kstart, kend, scale)
     fwd_T.launches += 1
-    return oT, lse
+    fwd_T.routes[route] += 1
+    return out
 
 
 fwd_T.launches = 0
+fwd_T.routes = dict.fromkeys(FWD_T_ROUTES, 0)
+
+
+def launch_fwd_T(name, qT, kT, vT, seg_ids, kstart, kend, scale=None,
+                 lib=None):
+    """H5's library ``name`` (a key of ``FWD_T_ROUTES``) launched through
+    its C entry on :func:`fwd_T`'s arguments, which it does not check; no
+    counter moves. ``lib``, another build of the same entry (an A/B
+    variant), takes the library's place. Returns ``oT, lse``."""
+    from .. import _build
+    H, D, T = qT.shape
+    entry, error_string = FWD_T_ROUTES[name]
+    lib = _build.library(name) if lib is None else lib
+    oT = torch.empty_like(qT)
+    lse = torch.empty((H, T), dtype=torch.float32, device=qT.device)
+    rc = getattr(lib, entry)(
+        *(x.data_ptr() for x in (qT, kT, vT, seg_ids, kstart, kend, oT,
+                                 lse)),
+        T, H, D, 1.0 / math.sqrt(D) if scale is None else scale,
+        torch.cuda.current_stream(qT.device).cuda_stream)
+    _build.check(rc, lib, error_string, f'fwd_T ({name})')
+    return oT, lse
 
 
 def flash_errors(o, lse, o_ref, lse_ref):
@@ -136,25 +173,30 @@ def work(b):
 
 def measure(b, reps: int):
     """H5 on batch ``b`` (q, k, v made token-minor first) against H1 on
-    the same values: ms of each, H5's bound, and H5's largest
+    the same values: ms of H5 on its route, of its mma.sync form (through
+    its C entry, on the card) and of H1, H5's bound, and H5's largest
     differences from H1 under H1's gates."""
     ks, ke = b.spans[:2]
     qT, kT, vT = (thd_to_hdt(x, b.H) for x in (b.q, b.k, b.v))
-    oT, lse = fwd_T(qT, kT, vT, b.seg, ks, ke)
+    args = (qT, kT, vT, b.seg, ks, ke)
+    oT, lse = fwd_T(*args)
     o1, lse1 = flash.segment_flash_fwd(b.q, b.k, b.v, b.seg, ks, ke, b.H)
     e_o, share, e_l, ok = flash_errors(hdt_to_thd(oT), lse, o1, lse1)
     dev = b.device.type
-    ms = benchmark(fwd_T, qT, kT, vT, b.seg, ks, ke, reps=reps,
-                   device=dev) * 1e3
+    ms = benchmark(fwd_T, *args, reps=reps, device=dev) * 1e3
+    mma_sync_ms = benchmark(launch_fwd_T, 'flash_fwd_t', *args, reps=reps,
+                            device=dev) * 1e3 if dev == 'cuda' else None
     h1_ms = benchmark(flash.segment_flash_fwd, b.q, b.k, b.v, b.seg, ks,
                       ke, b.H, reps=reps, device=dev) * 1e3
     nbytes, flops, exps = work(b)
     bms, by = bound_ms(nbytes, flops, exps)
-    return {'ms': ms, 'h1_ms': h1_ms, 'bound_ms': bms, 'bound_by': by,
-            'bytes': nbytes, 'flops': flops, 'exps': exps,
+    return {'ms': ms, 'route': fwd_T_route(b.D, b.T),
+            'mma_sync_ms': mma_sync_ms, 'h1_ms': h1_ms, 'bound_ms': bms,
+            'bound_by': by, 'bytes': nbytes, 'flops': flops, 'exps': exps,
             'steps': steps(ks, ke) * b.H, 'o_err_vs_h1': e_o,
             'o_gate_share_vs_h1': share, 'lse_err_vs_h1': e_l,
-            'ok_vs_h1': ok}
+            'ok_vs_h1': ok, 'bit_equal_to_h1': bool(
+                torch.equal(hdt_to_thd(oT), o1) and torch.equal(lse, lse1))}
 
 
 def main(argv=None):
@@ -164,13 +206,18 @@ def main(argv=None):
     print(f'shape: H={b.H} D={b.D} T={b.T} {args.dtype} on {args.device}, '
           f'{len(b.cu) - 1} sequences', flush=True)
     r = measure(b, args.reps)
-    print(f'fwd_T (H5) bq={BLOCK_Q} bk={BLOCK_K}: {r["ms"]:8.4f} ms '
-          f'(bound {r["bound_ms"]:.4f} ms by {r["bound_by"]})', flush=True)
-    print(f'H1        bq={BLOCK_Q} bk={BLOCK_K}: {r["h1_ms"]:8.4f} ms '
+    bound = f'bound {r["bound_ms"]:.4f} ms by {r["bound_by"]}'
+    print(f'fwd_T (H5, {r["route"]}) bq={BLOCK_Q} bk={BLOCK_K}: '
+          f'{r["ms"]:8.4f} ms ({bound})', flush=True)
+    if r['mma_sync_ms'] is not None:
+        print(f'fwd_T mma.sync form (flash_fwd_t): {r["mma_sync_ms"]:8.4f} ms '
+              f'(H5 / it {r["ms"] / r["mma_sync_ms"]:.3f})', flush=True)
+    print(f'H1 ({flash.fwd_route(b.D)}): {r["h1_ms"]:8.4f} ms '
           f'(H5 / H1 {r["ms"] / r["h1_ms"]:.3f})', flush=True)
     print(f'   err vs H1: max|o| {r["o_err_vs_h1"]:.3e} '
           f'({r["o_gate_share_vs_h1"]:.3f} of the gate), max|lse| '
-          f'{r["lse_err_vs_h1"]:.3e}', flush=True)
+          f'{r["lse_err_vs_h1"]:.3e}, bit-equal {r["bit_equal_to_h1"]}',
+          flush=True)
     return r
 
 

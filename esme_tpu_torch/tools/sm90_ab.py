@@ -1,15 +1,18 @@
-"""Time a variant of H1's or H2's Hopper source against the source itself.
+"""Time a variant of H1's, H2's or H5's Hopper source against the source.
 
-    python -m esme_tpu_torch.tools.sm90_ab LIBRARY VARIANT.cu
+    python -m esme_tpu_torch.tools.sm90_ab FORM VARIANT.cu
 
-``LIBRARY`` is ``flash_fwd_sm90`` (H1) or ``flash_bwd_sm90`` (H2), and
-``VARIANT.cu`` a copy of its source ``csrc/LIBRARY.cu`` with one change to
-measure: it keeps the source's C entries and may include the headers of
-``csrc``. Both build with ``_build``'s flags (the variant into
-``build/esme_tpu_torch/variant/``), run on ``bench.py``'s 50k batch at
-ESM2-650M's attention (H = 20, D = 64, bf16; H1 on the inference batch,
+``FORM`` is ``flash_fwd_sm90`` (H1), ``flash_bwd_sm90`` (H2) or
+``fwd_T_sm90`` (H5's Hopper form, H1's kernel on token-minor operands),
+and ``VARIANT.cu`` a copy of the form's source, ``csrc/flash_fwd_sm90.cu``
+or ``csrc/flash_bwd_sm90.cu``, with one change to measure: it keeps the
+source's C entries and may include the headers of ``csrc``. Both build
+with ``_build``'s flags (the variant into ``build/esme_tpu_torch/variant/``),
+run on ``bench.py``'s 50k batch at ESM2-650M's attention (H = 20, D = 64,
+bf16; H1 and H5 on the inference batch, H5's operands made token-minor,
 H2 on the masked-LM batch) through the wrapper's launch
-(``ops/flash.py:launch_fwd``, ``launch_bwd``) and are timed with CUDA
+(``ops/flash.py:launch_fwd``, ``launch_bwd``,
+``tools/fwd_T_experiment.py:launch_fwd_T``) and are timed with CUDA
 events, 20 calls a side, in the order source, variant, variant, source.
 Prints the variant's ``ptxas`` lines, each side's ms, the variant's ratio
 and whether its outputs (o and lse; dq, dk and dv) are bit-equal to the
@@ -29,8 +32,9 @@ import torch
 from .. import _build
 from ..ops import flash
 from ..profiling import benchmark
-from . import BWD_SEED, CUDA_REPS, FWD_SEED, attention_batch
+from . import BWD_SEED, CUDA_REPS, FWD_SEED, attention_batch, thd_to_hdt
 from .decompose_bwd import backward_inputs
+from .fwd_T_experiment import launch_fwd_T
 
 
 def forward_args():
@@ -46,10 +50,18 @@ def backward_args():
     return (b.q, b.k, b.v, b.do, lse, delta, b.seg, *b.spans, b.H)
 
 
-# library -> (its wrapper's arguments, its launch)
+def token_minor_args():
+    """H5's arguments on the inference batch: q, k, v token-minor."""
+    b = attention_batch(seed=FWD_SEED)
+    return (*(thd_to_hdt(x, b.H) for x in (b.q, b.k, b.v)), b.seg,
+            *b.spans[:2])
+
+
+# form -> (its library, its wrapper's arguments, its launch)
 SOURCES = {
-    'flash_fwd_sm90': (forward_args, flash.launch_fwd),
-    'flash_bwd_sm90': (backward_args, flash.launch_bwd),
+    'flash_fwd_sm90': ('flash_fwd_sm90', forward_args, flash.launch_fwd),
+    'flash_bwd_sm90': ('flash_bwd_sm90', backward_args, flash.launch_bwd),
+    'fwd_T_sm90': ('flash_fwd_sm90', token_minor_args, launch_fwd_T),
 }
 
 
@@ -74,18 +86,18 @@ def variant_library(path: Path, library: str) -> ctypes.CDLL:
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument('library', choices=sorted(SOURCES))
+    p.add_argument('form', choices=sorted(SOURCES))
     p.add_argument('variant', type=Path)
     a = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError('this tool times CUDA kernels and needs a card')
-    make_args, launch = SOURCES[a.library]
-    libs = {'source': _build.library(a.library),
-            'variant': variant_library(a.variant, a.library)}
+    library, make_args, launch = SOURCES[a.form]
+    libs = {'source': _build.library(library),
+            'variant': variant_library(a.variant, library)}
     args = make_args()
 
     def run(lib):
-        return launch(a.library, *args, lib=lib)
+        return launch(library, *args, lib=lib)
 
     equal = all(map(torch.equal, run(libs['source']), run(libs['variant'])))
     samples = {side: [] for side in libs}
@@ -93,9 +105,8 @@ def main(argv=None):
         samples[side].append(benchmark(run, libs[side], reps=CUDA_REPS,
                                        device='cuda') * 1e3)
     ms = {side: sum(s) / len(s) for side, s in samples.items()}
-    q, *_, H = args
-    print(f'{a.library} T={q.shape[0]} H={H} D={q.shape[1] // H}: source '
-          f'{ms["source"]:.4f} ms, variant {ms["variant"]:.4f} ms '
+    print(f'{a.form} q {tuple(args[0].shape)}: source {ms["source"]:.4f} ms, '
+          f'variant {ms["variant"]:.4f} ms '
           f'({ms["variant"] / ms["source"]:.4f}); samples {samples}; '
           f'outputs bit-equal: {equal}', flush=True)
     return {'ms': ms, 'samples': samples, 'bit_equal': equal}

@@ -109,15 +109,15 @@ def test_cpu_tools_launch_no_kernel(monkeypatch):
 
 
 def test_bwd_ab_runs_only_on_a_card(monkeypatch, tmp_path):
-    """The A/B tool of H1's and H2's Hopper sources (``tools/sm90_ab.py``)
-    refuses to run without a card, before it builds anything, and takes
-    only the Hopper libraries."""
+    """The A/B tool of H1's, H2's and H5's Hopper sources
+    (``tools/sm90_ab.py``) refuses to run without a card, before it builds
+    anything, and takes only the Hopper forms."""
     if torch.cuda.is_available():
         pytest.skip('a CUDA card is present: the tool runs for real')
     from esme_tpu_torch import _build
     from esme_tpu_torch.tools import sm90_ab
     monkeypatch.setattr(_build, 'BUILD_ROOT', tmp_path / 'build')
-    for library in ('flash_fwd_sm90', 'flash_bwd_sm90'):
+    for library in ('flash_fwd_sm90', 'flash_bwd_sm90', 'fwd_T_sm90'):
         with pytest.raises(RuntimeError, match='needs a card'):
             sm90_ab.main([library, str(tmp_path / 'variant.cu')])
     with pytest.raises(SystemExit):
@@ -234,7 +234,8 @@ def test_fwd_route_is_a_static_rule_on_head_dim():
     for name, fns in tflash.FWD_ROUTES.items():
         assert set(fns) <= set(_build.SIGNATURES[name])
     assert set(_build.SIGNATURES['flash_fwd_sm90']) == {
-        'esme_segment_flash_fwd_sm90', 'esme_flash_fwd_sm90_error_string'}
+        'esme_segment_flash_fwd_sm90', 'esme_flash_fwd_t_sm90',
+        'esme_flash_fwd_sm90_error_string'}
     # the same C signature as the mma.sync form's entry
     assert _build.SIGNATURES['flash_fwd_sm90'][
         'esme_segment_flash_fwd_sm90'] == _build.SIGNATURES['flash_fwd'][

@@ -33,12 +33,15 @@ Gates:
   reason; a move without rotation copies the bits.
 * ``segment_attention`` on the card: o under H1's gate, each gradient
   under H2's, against the same function through the plain versions.
-* The probe tools' kernels (``esme_tpu_torch/tools``): H5 under H1's
-  gates against its plain version and against H1; each ablation mode of
-  H1 (H6) and H2 (H7), and each ceiling probe (H8), under the gate its
-  tool's ``check`` states; H6 ``baseline`` and H7 ``real`` bit-equal to
-  H1 and H2 (the same instantiations); the 2^x that H6 ``bf16exp``'s
-  plain version takes bit-equal to the instruction the kernel uses.
+* The probe tools' kernels (``esme_tpu_torch/tools``): H5 on each route
+  under H1's gates against its plain version and against H1, its Hopper
+  form (H1's kernel on token-minor operands) also on the segment layouts
+  of H1's tests, bit-equal to H1 there and from call to call; each
+  ablation mode of H1 (H6) and of both forms of H2 (H7), and each ceiling
+  probe (H8), under the gate its tool's ``check`` states; H6 ``baseline``
+  and H7 ``real`` bit-equal to H1 and H2 (the same instantiations); the
+  2^x that H6 ``bf16exp``'s plain version takes bit-equal to the
+  instruction the kernel uses.
 """
 
 import numpy as np
@@ -299,7 +302,7 @@ def test_flash_bwd_sm90_is_deterministic(cuda, D):
         outs = [torch.zeros_like(args[0]) for _ in range(3)]
         ptrs = [x.data_ptr() for x in (*args[:11], *outs)]
         rc = lib.esme_flash_bwd_sm90_pass(
-            which, *ptrs, 4096, 2, D, D ** -0.5,
+            which, 0, *ptrs, 4096, 2, D, D ** -0.5,
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
         assert rc == 0
         torch.cuda.synchronize()
@@ -331,10 +334,15 @@ def test_flash_bwd_sm90_refuses_what_it_does_not_take(cuda):
     for D in (16, 24, 48):
         assert lib.esme_segment_flash_bwd_sm90(*ptrs, 256, 2, D, 0.1,
                                                stream) != 0
-    assert lib.esme_flash_bwd_sm90_pass(2, *ptrs, 256, 2, 64, 0.1,
+    assert lib.esme_flash_bwd_sm90_pass(2, 0, *ptrs, 256, 2, 64, 0.1,
                                         stream) != 0
-    assert lib.esme_flash_bwd_sm90_pass(0, *ptrs, 256, 2, 48, 0.1,
+    assert lib.esme_flash_bwd_sm90_pass(0, 0, *ptrs, 256, 2, 48, 0.1,
                                         stream) != 0
+    # the ablation modes are built at D = 64 only, and there are eight
+    assert lib.esme_flash_bwd_sm90_pass(0, 1, *ptrs, 256, 2, 128, 0.1,
+                                        stream) != 0
+    assert lib.esme_flash_bwd_sm90_pass(1, len(tdb.MODES), *ptrs, 256, 2,
+                                        64, 0.1, stream) != 0
 
 
 @pytest.mark.cuda
@@ -530,20 +538,70 @@ def _tm(x2, H):
 @pytest.mark.parametrize('T', [1000, 1001])     # T % 8 != 0 too
 @pytest.mark.parametrize('D', [16, 24, 32, 64, 128])
 def test_fwd_t_kernel_matches_plain(cuda, D, T):
-    """H5 against its plain version and against H1, under H1's gates."""
+    """H5 on its route, and its mma.sync form at every shape, against its
+    plain version and against H1, under H1's gates."""
     H = 3
     q, k, v, seg = _packed(H5_LENS, T, H, D, cuda, seed=D + T)
     ks, ke = flash.block_spans(seg, flash.BLOCK_Q, flash.BLOCK_K)
     qT, kT, vT = (_tm(x, H) for x in (q, k, v))
-    before = tft.fwd_T.launches
+    route = tft.fwd_T_route(D, T)
+    assert route == ('flash_fwd_t' if D < 32 or T % 8 else 'flash_fwd_sm90')
+    before, on_route = tft.fwd_T.launches, tft.fwd_T.routes[route]
     oT, lse = tft.fwd_T(qT, kT, vT, seg, ks, ke)
     oT_p, lse_p = tft.fwd_T_plain(qT, kT, vT, seg, ks, ke)
     o1, lse1 = flash.segment_flash_fwd(q, k, v, seg, ks, ke, H)
     torch.cuda.synchronize()
     assert tft.fwd_T.launches == before + 1
+    assert tft.fwd_T.routes[route] == on_route + 1
     assert oT.shape == (H, D, T) and lse.shape == (H, T)
-    for o_ref, l_ref in ((oT_p, lse_p), (_tm(o1, H), lse1)):
-        assert tft.flash_errors(oT, lse, o_ref, l_ref)[3]
+    # the mma.sync form, also where the route is the Hopper form
+    oT_m, lse_m = tft.launch_fwd_T('flash_fwd_t', qT, kT, vT, seg, ks, ke)
+    torch.cuda.synchronize()
+    for got in ((oT, lse), (oT_m, lse_m)):
+        for o_ref, l_ref in ((oT_p, lse_p), (_tm(o1, H), lse1)):
+            assert tft.flash_errors(*got, o_ref, l_ref)[3]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('layout', ['packed', 'one', 'short', 'interleaved'])
+@pytest.mark.parametrize('D', [32, 64, 128])
+def test_fwd_t_sm90_matches_plain_and_h1_on_mask_layouts(cuda, D, layout):
+    """H5's Hopper form against its plain version under H1's gates and
+    bit-equal to H1's Hopper form on the same values, on the packed batch
+    and on the segment layouts of ``_bwd_seg`` (every tile unmasked, every
+    tile masked, non-monotonic ids), T = 8192 and 1000 (a part-box
+    tail)."""
+    H = 3
+    for T in (8192, 1000):
+        seg = _packed(H5_LENS, T, 1, 8, cuda)[3] if layout == 'packed' \
+            else _bwd_seg(layout, T, cuda, T)
+        q, k, v, seg, ks, ke, _ = _fwd_args(seg, H, D, cuda, D + T)
+        qT, kT, vT = (_tm(x, H) for x in (q, k, v))
+        on_route = tft.fwd_T.routes['flash_fwd_sm90']
+        oT, lse = tft.fwd_T(qT, kT, vT, seg, ks, ke)
+        oT_p, lse_p = tft.fwd_T_plain(qT, kT, vT, seg, ks, ke)
+        o1, lse1 = flash.segment_flash_fwd(q, k, v, seg, ks, ke, H)
+        torch.cuda.synchronize()
+        assert tft.fwd_T.routes['flash_fwd_sm90'] == on_route + 1
+        assert torch.isfinite(oT.float()).all()
+        assert tft.flash_errors(oT, lse, oT_p, lse_p)[3]
+        # H1's kernel: the same products in the same order, bit for bit
+        assert torch.equal(oT, _tm(o1, H)) and torch.equal(lse, lse1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('D', [32, 64, 128])
+def test_fwd_t_sm90_is_deterministic(cuda, D):
+    """Two calls of H5's Hopper form on the same inputs give the same
+    bits (no atomics; each output token is written by one CTA)."""
+    H, T = 4, 3072
+    q, k, v, seg = _packed([30, 7, 250, 900, 2, 400, 1000], T, H, D, cuda,
+                           seed=D)
+    ks, ke = flash.block_spans(seg, flash.BLOCK_Q, flash.BLOCK_K)
+    args = (*(_tm(x, H) for x in (q, k, v)), seg, ks, ke)
+    a, b = tft.fwd_T(*args), tft.fwd_T(*args)
+    torch.cuda.synchronize()
+    assert all(map(torch.equal, a, b))
 
 
 @pytest.mark.cuda
@@ -607,9 +665,13 @@ def test_ex2_bf16_is_the_sfu_instruction(cuda, tmp_path):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('library', list(flash.BWD_ROUTES))
 @pytest.mark.parametrize('kernel', tdb.KERNELS)
 @pytest.mark.parametrize('mode', list(tdb.MODES))
-def test_bwd_variant_kernel_matches_plain(cuda, mode, kernel):
+def test_bwd_variant_kernel_matches_plain(cuda, mode, kernel, library):
+    """Each mode of each pass of both of H2's forms against its plain
+    version at the form's walk; ``real`` bit-equal to the form's
+    production launch."""
     H, D, T = 4, 64, 3072
     q, k, v, seg = _packed([30, 7, 250, 900, 2, 400, 1000], T, H, D, cuda,
                            seed=8)
@@ -621,21 +683,19 @@ def test_bwd_variant_kernel_matches_plain(cuda, mode, kernel):
     delta = flash.attention_delta(o, do, H)
     args = (q, k, v, do, lse, delta, seg, *spans, H)
     before = tdb.bwd_variant.launches
-    got = tdb.bwd_variant(kernel, mode, *args)
-    if kernel == 'dq':
-        ref = tdb.dq_variant_plain(mode, q, k, v, do, lse, delta, seg,
-                                   *spans[:2], H)
-    else:
-        ref = tdb.dkv_variant_plain(mode, q, k, v, do, lse, delta, seg,
-                                    *spans[2:], H)
+    got = tdb.bwd_variant(kernel, mode, *args, library=library)
+    ref = tdb.bwd_variant_plain(kernel, mode, *args, library=library)
     torch.cuda.synchronize()
     assert tdb.bwd_variant.launches == before + 1
     assert tdb.check(mode, got, ref)['ok']
     if mode == 'real':
-        dq, dk, dv = flash.segment_flash_bwd(*args)
-        h2 = (dq,) if kernel == 'dq' else (dk, dv)
+        # bit-equal to H2 as routed (the Hopper form at D = 64) and to
+        # the form's own launch
         got = got if isinstance(got, tuple) else (got,)
-        assert all(map(torch.equal, got, h2))
+        for dq, dk, dv in (flash.segment_flash_bwd(*args),
+                           flash.launch_bwd(library, *args)):
+            h2 = (dq,) if kernel == 'dq' else (dk, dv)
+            assert all(map(torch.equal, got, h2))
 
 
 @pytest.mark.cuda

@@ -13,7 +13,9 @@ package's tools, whose Pallas kernels run in interpret mode on the CPU:
 * K15 ``tools/decompose_bwd.py:dq_variant``/``dkv_variant``, each of the
   7 modes and ``real``, swapped into ``esme_tpu.ops.flash`` as the tool
   swaps them and run through ``flash._bwd(interpret=True)``, against
-  ``dq_variant_plain``/``dkv_variant_plain`` (H7's);
+  ``dq_variant_plain``/``dkv_variant_plain`` (H7's), the dk/dv pass also
+  over the union spans H2's Hopper form walks (``union_spans``), given
+  to both as the q-tile spans;
 * K16 ``tools/profile_attn.py``'s four probe kernels, closures of its
   ``main`` and ``extra`` rebuilt from their code objects and run under
   ``pallas_call(interpret=True)`` with the tool's BlockSpecs, against the
@@ -281,6 +283,94 @@ def test_bwd_variant_matches_jax(jtools, monkeypatch, mode, kernel):
         ref = (dk_j, dv_j)
     for a, b in zip(got, ref):
         _close(a, _hdt_to_thd(b), mode)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_bwd_union(mode):
+    """dk, dv of ``flash._bwd`` over the union q-tile spans, with the
+    kernels ``esme_tpu.ops.flash`` holds when first called for ``mode``."""
+    seg, xs, spans, cap, lse, delta = _bwd_case()
+    jseg_ = jnp.asarray(seg)
+    qT, kT, vT, doT = (jnp.asarray(x) for x in xs)
+    qs, qe = tdb.union_spans(*(torch.from_numpy(np.array(x))
+                               for x in spans[2:]))
+    cap_q = max(cap, int((qe - qs).max()))
+    _, dk, dv = jflash._bwd(
+        qT, kT, vT, jseg_.reshape(1, T), jseg_.reshape(T, 1), lse, delta,
+        doT, *spans[:2], jnp.asarray(qs.numpy()), jnp.asarray(qe.numpy()),
+        block_q=BQ, block_k=BK, max_span_q=cap_q, max_span_k=cap,
+        scale=1 / math.sqrt(D), interpret=True)
+    return np.asarray(dk), np.asarray(dv)
+
+
+@pytest.mark.parametrize('mode', list(tdb.MODES))
+def test_bwd_variant_union_spans_match_jax(jtools, monkeypatch, mode):
+    """The dk/dv pass at the Hopper form's walk: each k block over the
+    union of its pair's q-tile spans, which adds tiles the modes without a
+    mask (and ``dma``, ``no_acc``) count."""
+    if mode != 'real':
+        monkeypatch.setattr(jflash, '_dkv_kernel', functools.partial(
+            jtools.db.dkv_variant, mode=mode))
+    dk_j, dv_j = _jax_bwd_union(mode)
+    seg, xs, spans, _, lse, delta = _bwd_case()
+    q2, k2, v2, do2 = (_hdt_to_thd(x) for x in xs)
+    lse_t, delta_t = _t(np.asarray(lse)[:, 0]), _t(np.asarray(delta)[:, 0])
+    qs, qe = tdb.union_spans(*(torch.from_numpy(np.array(x))
+                               for x in spans[2:]))
+    assert not torch.equal(qs, torch.from_numpy(np.array(spans[2])))
+    got = tdb.dkv_variant_plain(mode, q2, k2, v2, do2, lse_t, delta_t,
+                                torch.from_numpy(seg), qs, qe, H, block_k=BK,
+                                block_q=BQ)
+    for a, b in zip(got, (dk_j, dv_j)):
+        _close(a, _hdt_to_thd(b), mode)
+
+
+def test_union_spans_pair_the_k_blocks():
+    """Each pair of 64-row k blocks walks the union of its two spans; a
+    last odd block keeps its own; empty spans (start past end) drop out."""
+    i32 = functools.partial(torch.tensor, dtype=torch.int32)
+    qs, qe = tdb.union_spans(i32([0, 1, 9, 2, 5]), i32([2, 3, 0, 4, 7]))
+    assert qs.tolist() == [0, 0, 2, 2, 5] and qe.tolist() == [3, 3, 4, 4, 7]
+    assert qs.dtype == qe.dtype == torch.int32
+
+
+@pytest.mark.parametrize('D', tflash.HEAD_DIMS)
+def test_fwd_T_route_is_a_static_rule(D):
+    """H5 runs H1's Hopper kernel (token-minor layout) at its head dims
+    when T % 8 == 0, the mma.sync form otherwise; each route's entry and
+    error string are bound C functions."""
+    from esme_tpu_torch import _build
+    for T in (1000, 1001, 1024, 8165, 50176):
+        want = 'flash_fwd_sm90' if D in tflash.SM90_HEAD_DIMS and T % 8 == 0 \
+            else 'flash_fwd_t'
+        assert tft.fwd_T_route(D, T) == want
+    for name, fns in tft.FWD_T_ROUTES.items():
+        assert set(fns) <= set(_build.SIGNATURES[name])
+
+
+def test_bwd_variant_library_argument_on_cpu():
+    """``bwd_variant`` takes a key of ``BWD_ROUTES`` (H2's route when
+    none): on the CPU each form's plain walk, the Hopper form's dk/dv over
+    the union spans; any other name is refused."""
+    seg = torch.from_numpy(_seg(LENS, T))
+    q, k, v, do = (_t(_normal((T, H * D), 30 + i)) for i in range(4))
+    spans = tflash.flash_spans(seg)
+    o, lse = tflash.segment_flash_fwd_plain(q, k, v, seg, *spans[:2], H)
+    args = (q, k, v, do, lse, tflash.attention_delta(o, do, H), seg, *spans,
+            H)
+    hopper = tdb.bwd_variant('dkv', 'no_mask', *args)
+    assert all(map(torch.equal, hopper, tdb.bwd_variant(
+        'dkv', 'no_mask', *args, library='flash_bwd_sm90')))
+    assert all(map(torch.equal, hopper, tdb.dkv_variant_plain(
+        'no_mask', *args[:7], *tdb.union_spans(*spans[2:]), H)))
+    mma_sync = tdb.bwd_variant('dkv', 'no_mask', *args, library='flash_bwd')
+    assert all(map(torch.equal, mma_sync, tdb.dkv_variant_plain(
+        'no_mask', *args[:7], *spans[2:], H)))
+    assert not torch.equal(hopper[0], mma_sync[0])
+    assert tdb.bwd_variant.launches == 0
+    for bad in ('flash_fwd_sm90', 'sm90'):
+        with pytest.raises(ValueError, match='unknown library'):
+            tdb.bwd_variant('dq', 'real', *args, library=bad)
 
 
 def test_bwd_variant_wrapper_runs_plain_on_cpu():
