@@ -12,10 +12,12 @@ Phases, in order; any failure exits non-zero before a result is printed:
    gave them before the ablation modes, H1's and H2's Hopper production
    kernels (``flash_fwd_sm90.cu``, ``flash_bwd_sm90.cu`` at D = 32, 64,
    128) the ones they had before the token-minor layout and the Hopper
-   ablation modes (``SM90_PRODUCTION``), H5's Hopper form at D = 64 no
-   stack frame and no spills, and every H7 mode of both Hopper passes
-   must build (every instantiation's ``ptxas`` line and any ``wgmma``
-   serialisation warning is logged);
+   ablation modes (``SM90_PRODUCTION``), H5's Hopper form at D = 64 and
+   every H6 mode of H1's Hopper form no stack frame and no spills (but
+   ``noqk``'s pinned ``H6_SPILLS``; no ``wgmma`` serialisation warning
+   names an H6 mode), and every H7 mode of
+   both Hopper passes must build (every instantiation's ``ptxas`` line
+   and any ``wgmma`` serialisation warning is logged);
 3. hold each kernel against its plain PyTorch version on the card, on a
    packed 8k-token batch: segment-flash forward (H1) and backward (H2),
    each on its route (the Hopper form at D = 32, 64, 128, the mma.sync
@@ -25,7 +27,9 @@ Phases, in order; any failure exits non-zero before a result is printed:
    masked), H1 also at a ragged T (T % 64 != 0); RoPE (H3) forward and
    inverse,
    the head relayout (H4) in every layout pair and rotation the ops use
-   at each head dim (bit-equal), each beside its gate;
+   at each head dim (bit-equal) at T % 8 == 0 and != 0, on the kernel
+   its rule picks (``relayout_route``, shown by its counter: rows, vec or
+   tile) and at T % 8 == 0 on the tile kernel too, each beside its gate;
 4. the inference path: ESM2-650M (33 layers, width 1280, 20 heads,
    bf16, weights from seed 0) ``predict_log_prob(tokens,
    pad_args=(cu_lens, max_len))`` on ``bench.py``'s packed batch (seed
@@ -72,28 +76,37 @@ Phases, in order; any failure exits non-zero before a result is printed:
    the segment ids by H2's rule (``mask_units``: the train batch's, and
    the inference batch's over H1's spans), are logged with the
    measurements as properties of the batches; for H4,
-   each of its modes at the main shape, with one
+   each of its modes at the main shape on its route, with one
    ``permute(...).contiguous()`` call as the yardstick of a move without
-   rotation. ``--profile DIR`` also writes
+   rotation, and each move with an hdt side (the vec kernel at this T)
+   also on the tile kernel, held bit-equal to the plain version there
+   too and timed in turn with the vec kernel (fastest of 8 calls each,
+   on the card alone): the vec kernel faster where the move rotates, and
+   within 3% of the tile kernel where it does not. ``--profile DIR`` also writes
    ``torch.profiler`` tables of one forward and one train step there;
 8. the probe tools' kernels (``esme_tpu_torch/tools``, none on the model
    path, where their counters must stay 0): on the 8k check batch, H5 on
    its route (``fwd_T_route``: H1's Hopper kernel on token-minor operands
    at head dims 32-128, the mma.sync form with transposed scores at 16, 24
    and at a T that is not a multiple of 8, the route counter showing which
-   ran) under H1's gates, every ablation mode of H1 (H6, 11 modes) and of
+   ran) under H1's gates, every ablation mode of both forms of H1 (H6, 11
+   modes each) and of
    both passes of both forms of H2 (H7, 8 modes each; the Hopper form's
    dk/dv pass over the union spans it walks) and the four ceiling probes
    (H8), each against its plain version under the gate its tool's
-   ``check`` states; then each tool's own run at the main shapes (H5 beside
+   ``check`` states (H6 on both forms against the plain version of the
+   form's walk, the Hopper form's ``baseline`` bit-equal to H1); then each
+   tool's own run at the main shapes (H5 beside
    H1, every mode and probe timed beside the bound of the work it keeps,
    H6 and H8 on the inference batch, H7 on the 50k train batch), with the
    launch counters set to 0 just before and read just after; H5's Hopper
    form bit-equal to H1's (on the 8k batch too) and faster than its
    mma.sync form (fastest of 8 calls each, timed on the card alone), which
    is held under H1's gates against the plain version and H1 there, beside
-   the varlen library and the bound; H6 ``baseline`` bit-equal to H1's
-   mma.sync form there and H1's Hopper form under H1's gates against it;
+   the varlen library and the bound; every H6 mode of both forms timed,
+   the Hopper form's ``baseline`` bit-equal to H1 there, the mma.sync
+   form's to H1's mma.sync form, and H1's Hopper form under H1's gates
+   against the latter;
    H7 ``real`` of the Hopper form bit-equal to H2 and within 3% of H2's
    own passes timed in turn with it (fastest of 8 calls each, timed on the
    card alone; a gate on ``REF_CARD``), of the mma.sync form bit-equal to
@@ -217,6 +230,12 @@ RELAYOUTS = {
     'to hdt (flash_tm)': ('thd', 'hdt', 'N'),
     'from hdt (flash_tm)': ('hdt', 'thd', 'N'),
 }
+
+# The tile kernel's times of H4's moves without rotation that have an hdt
+# side, at the main shape on REF_CARD before the vec kernel took them
+# (PERF.md's H4 modes): the vec kernel's ratio to each is logged.
+H4_TILE_REF_MS = {'to thd (fwd_v2)': 0.2812, 'to hdt (flash_tm)': 0.0979,
+                  'from hdt (flash_tm)': 0.0978}
 
 # Phase 3's extra H2 batches (``layout_seg``)
 BWD_LAYOUTS = ('one', 'short', 'interleaved')
@@ -482,22 +501,38 @@ def relayout_args(mode, T, H, D, dev, seed):
 
 
 def check_relayout(T, H, D, dev):
-    """H4 vs its plain version in every mode: bit equality (the rotation
-    rounds each product and each sum to bf16 as the plain version does;
-    a move without rotation copies the bits)."""
+    """H4 vs its plain version in every mode, on the route its rule picks
+    (``relayout_route``; the route counter must show it) and, where that
+    is the vec kernel, on the tile kernel launched by name too: bit
+    equality (the rotation rounds each product and each sum to bf16 as
+    the plain version does; a move without rotation copies the bits)."""
     from esme_tpu_torch.ops import headsplit
+    routes = set()
     for i, mode in enumerate(RELAYOUTS):
         args = relayout_args(mode, T, H, D, dev, seed=D + i)
-        got = headsplit.relayout_heads(*args)
+        route = headsplit.relayout_route(*args[1:3], T)
+        before = dict(headsplit.relayout_heads.routes)
+        runs = {route: headsplit.relayout_heads(*args)}
+        moved = {n: c - before[n]
+                 for n, c in headsplit.relayout_heads.routes.items()}
+        if moved != {n: int(n == route) for n in moved}:
+            fail(f'H4 {mode} at T={T} D={D} launched {moved}, not once on '
+                 f'{route}')
+        if route == 'vec':
+            runs['tile'] = headsplit.launch_relayout('tile', *args)
         ref = headsplit.relayout_heads_plain(*args)
         torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
-            e = max((a.float() - b.float()).abs().max().item()
-                    for a, b in zip(got, ref))
-            fail(f'H4 {mode} at T={T} H={H} D={D} differs from its plain '
-                 f'version by up to {e:.3e} (gate: bit equality)')
+        for name, got in runs.items():
+            routes.add(name)
+            if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+                e = max((a.float() - b.float()).abs().max().item()
+                        for a, b in zip(got, ref))
+                fail(f'H4 {mode} ({name}) at T={T} H={H} D={D} differs '
+                     f'from its plain version by up to {e:.3e} (gate: bit '
+                     'equality)')
     log(f'H4 T={T} H={H} D={D}: all {len(RELAYOUTS)} modes bit-equal to '
-        'the plain version (gate: bit equality) ok')
+        f'the plain version on the routes {sorted(routes)} (gate: bit '
+        'equality) ok')
 
 
 @contextlib.contextmanager
@@ -1087,7 +1122,7 @@ def main(argv):
     torch.cuda.empty_cache()
     mask_skip = time_mask_skip(TT, H, D, dev)
 
-    h4_modes = time_relayouts(T, H, D, dev)
+    h4_modes = time_relayouts(T, H, D, dev, card)
     h4 = h4_modes[next(iter(RELAYOUTS))]
 
     # 8. the probe tools' kernels
@@ -1155,6 +1190,9 @@ def main(argv):
          'shape': f'T={T} H={H} D={D} bf16', 'bytes': h3_bytes},
         {'name': H4_NAME, 'route': 'cuda',
          'source': 'esme_tpu_torch/csrc/headsplit.cu',
+         'routes': {'no hdt side': 'relayout_rows_kernel',
+                    'an hdt side, T % 8 == 0': 'relayout_vec_kernel',
+                    'an hdt side, T % 8 != 0': 'relayout_tile_kernel'},
          'replaces': 'esme_tpu/ops/headsplit.py:52',
          'also_replaces': ['esme_tpu/ops/headsplit.py:70',
                            'esme_tpu/ops/headsplit.py:75',
@@ -1218,8 +1256,10 @@ def reset_counters():
     for f in _counters().values():
         f.launches = 0
     _counters()[H3_NAME].inverse_launches = 0
-    routes = _counters()[H5_NAME].routes
-    routes.update(dict.fromkeys(routes, 0))
+    for name in (H4_NAME, H5_NAME):
+        # (a plain version standing in for H4 counts no routes)
+        routes = getattr(_counters()[name], 'routes', {})
+        routes.update(dict.fromkeys(routes, 0))
 
 
 def read_counters():
@@ -1614,17 +1654,28 @@ SM90_PRODUCTION = {
 }
 
 
+# H6's modes of H1's Hopper form that spill, with (stack frame, spill
+# stores, spill loads) as ptxas reported them (nvcc of CUDA 12.9 on the
+# H100 machine): noqk builds its scores by register arithmetic instead of
+# a wgmma, which puts the 128-register kernel over its cap (it spills
+# about as much with no K read at all). Any other mode, or a larger
+# spill, fails.
+H6_SPILLS = {'noqk': (24, 24, 36)}
+
+
 def sm90_ptxas_usage(build_log: str) -> dict:
-    """``{(kernel, head dim, layout or mode): (registers, stack frame,
-    spill stores, spill loads)}`` of H1's and H2's Hopper kernels in
-    ``nvcc -Xptxas -v`` output (the second template parameter: H1's
-    layout, 0 for H1 and 1 for H5; H2's mode, 0 the production pass)."""
+    """``{(kernel, head dim, *params): (registers, stack frame, spill
+    stores, spill loads)}`` of H1's and H2's Hopper kernels in ``nvcc
+    -Xptxas -v`` output, ``params`` the template parameters after D: H1's
+    layout (0 for H1, 1 for H5) and mode (0 the production kernel, else
+    H6's), H2's mode (0 the production pass, else H7's)."""
     usage, name, frame = {}, None, None
     for line in build_log.splitlines():
         m = re.search(r'Function properties for \S*?\d((?:bwd_(?:dkv|dq)|'
-                      r'flash_fwd)_sm90_kernel)ILi(\d+)ELi(\d+)E', line)
+                      r'flash_fwd)_sm90_kernel)I((?:Li\d+E)+)E', line)
         if m:
-            name = (m.group(1), int(m.group(2)), int(m.group(3)))
+            name = (m.group(1), *map(int, re.findall(r'Li(\d+)E',
+                                                     m.group(2))))
             continue
         m = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores, '
                       r'(\d+) bytes spill loads', line)
@@ -1638,39 +1689,69 @@ def sm90_ptxas_usage(build_log: str) -> dict:
     return usage
 
 
+def production_key(kernel: str, d: int):
+    """The usage key of a Hopper kernel's production instantiation: H1's
+    layout and mode 0, H2's mode 0."""
+    return (kernel, d, 0, 0) if kernel == 'flash_fwd_sm90_kernel' \
+        else (kernel, d, 0)
+
+
 def check_sm90_ptxas():
     """H1's and H2's Hopper libraries as built: each production
     instantiation with the parent's registers, stack and spills
     (``SM90_PRODUCTION``), H5's (H1's kernel, token-minor layout) at
-    D = 64 without stack or spills, and every H7 mode of both passes at
-    D = 64 built; fail otherwise. Logs every instantiation's ``ptxas`` line
-    and any ``wgmma`` serialisation warning (C7510-C7520). Returns per
-    library the usage of all its kernels and its warnings."""
+    D = 64 without stack or spills, every H6 mode (H1's kernel at D = 64)
+    built without a ``wgmma`` serialisation warning (C7510-C7520) naming
+    it and without stack or spills but for ``H6_SPILLS``, and every H7
+    mode of both passes at D = 64
+    built; fail otherwise. Logs every instantiation's ``ptxas`` line and
+    any serialisation warning. Returns per library the usage of all its
+    kernels and its warnings."""
     from esme_tpu_torch import _build
     from esme_tpu_torch.tools import decompose_bwd as tdb
+    from esme_tpu_torch.tools import flash_variants as tfv
     out = {}
     for lib in ('flash_fwd_sm90', 'flash_bwd_sm90'):
         build_log = _build.build_log(lib)
         usage = sm90_ptxas_usage(build_log)
-        for (kernel, d, p), (regs, *frame) in sorted(usage.items()):
-            log(f'ptxas: {lib} {kernel}<D={d}, {p}>: {regs} registers, stack '
-                f'{frame[0]}, spill stores {frame[1]}, spill loads {frame[2]}')
+        for (kernel, d, *p), (regs, *frame) in sorted(usage.items()):
+            log(f'ptxas: {lib} {kernel}<D={d}, {", ".join(map(str, p))}>: '
+                f'{regs} registers, stack {frame[0]}, spill stores '
+                f'{frame[1]}, spill loads {frame[2]}')
         for (name, kernel), want in SM90_PRODUCTION.items():
             if name != lib:
                 continue
             for d, usage_d in want.items():
-                got = usage.get((kernel, d, 0))
+                got = usage.get(production_key(kernel, d))
                 if got != usage_d:
-                    fail(f'ptxas: {kernel}<D={d}, 0> uses (registers, stack, '
-                         f'spill stores, spill loads) {got}, not {usage_d} as '
-                         'in the parent\'s build')
+                    fail(f'ptxas: {kernel}<D={d}> production uses '
+                         f'(registers, stack, spill stores, spill loads) '
+                         f'{got}, not {usage_d} as in the parent\'s build')
             log(f'ptxas: {kernel} production as in the parent\'s build: '
                 f'{want}')
+        warnings = sorted({line.strip() for line in build_log.splitlines()
+                           if re.search(r'C75(1\d|20)\b|wgmma', line)})
+        for line in warnings:
+            log(f'ptxas: {lib}: {line}')
         if lib == 'flash_fwd_sm90':
-            got = usage.get(('flash_fwd_sm90_kernel', 64, 1))
+            got = usage.get(('flash_fwd_sm90_kernel', 64, 1, 0))
             if got is None or any(got[1:]):
                 fail(f'ptxas: H5\'s flash_fwd_sm90_kernel<D=64, token-minor> '
                      f'has a stack frame or spills, or is missing: {got}')
+            for mode, name in enumerate(tfv.MODES):
+                got = usage.get(('flash_fwd_sm90_kernel', 64, 0, mode))
+                want = H6_SPILLS.get(name, (0, 0, 0))
+                if mode and (got is None or got[1:] != want):
+                    fail(f'ptxas: H6 mode {name} (flash_fwd_sm90_kernel<64, '
+                         f'0, {mode}>) has (stack, spill stores, spill loads) '
+                         f'{got and got[1:]}, not {want}')
+                mangled = f'flash_fwd_sm90_kernelILi64ELi0ELi{mode}EE'
+                if any(mangled in line for line in warnings):
+                    fail(f'ptxas serialises the wgmma of H6 mode '
+                         f'{list(tfv.MODES)[mode]}')
+            log(f'ptxas: H6\'s {len(tfv.MODES) - 1} modes at D = 64 built '
+                f'without a wgmma serialisation warning, and without stack or '
+                f'spills but for {H6_SPILLS}')
         else:
             for kernel in ('bwd_dkv_sm90_kernel', 'bwd_dq_sm90_kernel'):
                 built = sorted(p for k, d, p in usage
@@ -1678,12 +1759,8 @@ def check_sm90_ptxas():
                 if built != list(range(len(tdb.MODES))):
                     fail(f'ptxas: H7\'s {kernel} modes at D = 64: built '
                          f'{built}, not all {len(tdb.MODES)}')
-        warnings = sorted({line.strip() for line in build_log.splitlines()
-                           if re.search(r'C75(1\d|20)\b|wgmma', line)})
-        for line in warnings:
-            log(f'ptxas: {lib}: {line}')
         out[lib] = {'usage': {f'{k} D={d} {p}': u
-                              for (k, d, p), u in sorted(usage.items())},
+                              for (k, d, *p), u in sorted(usage.items())},
                     'wgmma_warnings': warnings}
     return out
 
@@ -1740,10 +1817,17 @@ def check_probes(dev, h1, h2, card):
             log(f'H5 ({route}) T={T} H={h} D={d}: bit-equal to H1')
     b8 = attention_batch(CHECK_BUDGET, 1, H, D, dev, grads=True)
     args8 = (b8.q, b8.k, b8.v, b8.seg, *b8.spans[:2], H)
-    for mode in tfv.MODES:
-        c = tfv.check(mode, tfv.variant_fwd(mode, *args8),
-                      tfv.variant_fwd_plain(mode, *args8))
-        gate(f'H6 {mode} T={b8.T} vs plain', c)
+    for library in flash.FWD_ROUTES:       # the Hopper form, then mma.sync
+        for mode in tfv.MODES:
+            got = tfv.variant_fwd(mode, *args8, library=library)
+            gate(f'H6 ({library}) {mode} T={b8.T} vs plain', tfv.check(
+                mode, got, tfv.variant_fwd_plain(mode, *args8,
+                                                 library=library), library))
+            if library == flash.fwd_route(D) and mode == 'baseline' and not \
+                    all(map(torch.equal, got, flash.segment_flash_fwd(
+                        *args8))):
+                fail(f'H6 ({library}) baseline at T={b8.T} is not bit-equal '
+                     'to H1')
     lse8, delta8 = tdb.backward_inputs(b8)
     bargs8 = (b8.q, b8.k, b8.v, b8.do, lse8, delta8, b8.seg, *b8.spans, H)
     for library in flash.BWD_ROUTES:       # the Hopper form, then mma.sync
@@ -1846,18 +1930,35 @@ def check_probes(dev, h1, h2, card):
             'bit_equal_to_h1')},
         'shape': f'T={b.T} H={H} D={D} bf16, (H, D, T) operands'}]
 
-    # H6: every mode timed; baseline bit-equal to H1's mma.sync form and
-    # under its gates; H1's Hopper form under H1's gates against it
-    modes6, l6 = tool_run('flash_variants.run, every mode', H6_NAME,
-                          lambda: {m: tfv.run(m, b, reps=20)
-                                   for m in tfv.MODES})
-    got = tfv.variant_fwd('baseline', *args)
+    # H6: every mode of both forms timed; the Hopper form's baseline
+    # bit-equal to H1, the mma.sync form's to that form, each under its
+    # gates against its plain walk; H1 under its gates against the latter
+    hopper6, mma_sync6 = flash.fwd_route(D), 'flash_fwd'
+    modes6, l6 = tool_run(
+        'flash_variants.run, every mode of both forms', H6_NAME,
+        lambda: {library: {m: tfv.run(m, b, reps=20, library=library)
+                           for m in tfv.MODES}
+                 for library in (hopper6, mma_sync6)})
+    for library, runs in modes6.items():
+        base = runs['baseline']['ms']
+        log(f'H6 ({library}) at T={b.T}: ' + ', '.join(
+            f'{m} {r["ms"]:.4f} ms ({r["ms"] / base:.3f}; '
+            f'{r["ms"] / r["bound_ms"]:.2f}x its bound)'
+            for m, r in runs.items()))
+    got = tfv.variant_fwd('baseline', *args, library=hopper6)
+    if not all(map(torch.equal, got, flash.segment_flash_fwd(*args))):
+        fail(f'H6 ({hopper6}) baseline is not bit-equal to H1 at the main '
+             'shape')
+    c6 = tfv.check('baseline', got, tfv.variant_fwd_plain(
+        'baseline', *args, library=hopper6))
+    gate(f'H6 ({hopper6}) baseline T={b.T} vs plain (bit-equal to H1)', c6)
+    got = tfv.variant_fwd('baseline', *args, library=mma_sync6)
     if not all(map(torch.equal, got, mma_sync_fwd(args))):
         fail('H6 baseline is not bit-equal to the mma.sync form of H1 at the '
              'main shape')
-    c6 = tfv.check('baseline', got, tfv.variant_fwd_plain('baseline', *args))
-    gate(f'H6 baseline T={b.T} vs plain (bit-equal to the mma.sync form)',
-         c6)
+    gate(f'H6 ({mma_sync6}) baseline T={b.T} vs plain (bit-equal to the '
+         'mma.sync form)', tfv.check('baseline', got, tfv.variant_fwd_plain(
+             'baseline', *args, library=mma_sync6), mma_sync6))
     o, lse = flash.segment_flash_fwd(*args)
     e_o, share, e_l = flash_errors(o, lse, *got)
     gate(f'H1 ({flash.fwd_route(D)}) T={b.T} vs H6 baseline (the mma.sync '
@@ -1865,20 +1966,27 @@ def check_probes(dev, h1, h2, card):
          {'max|o-baseline|': e_o, 'o gate share': share,
           'max|lse-baseline|': e_l,
           'ok': share <= 1.0 and e_l <= FLASH_LSE_ATOL})
-    del o, lse
-    h6_plain_ms = cuda_ms(lambda: tfv.variant_fwd_plain('baseline', *args),
-                          reps=1)
-    del got
+    del o, lse, got
+    h6_plain_ms = {library: cuda_ms(
+        lambda library=library: tfv.variant_fwd_plain(
+            'baseline', *args, library=library), reps=1)
+        for library in (hopper6, mma_sync6)}
     kernels.append({
         'name': H6_NAME, 'route': 'cuda',
-        'source': 'esme_tpu_torch/csrc/flash_fwd.cu',
+        'source': 'esme_tpu_torch/csrc/flash_fwd_sm90.cu',
+        'form': f'{hopper6} (entry esme_segment_flash_fwd_sm90_variant)',
+        'forms': {hopper6: 'esme_tpu_torch/csrc/flash_fwd_sm90.cu',
+                  mma_sync6: 'esme_tpu_torch/csrc/flash_fwd.cu'},
         'replaces': 'tools/flash_variants.py:32', 'launches': l6[H6_NAME],
-        'max_abs_err': c6['o_err'], 'ms': modes6['baseline']['ms'],
-        'plain_ms': h6_plain_ms, 'bound_ms': modes6['baseline']['bound_ms'],
-        'bound_by': modes6['baseline']['bound_by'], 'library_ms': None,
-        'mode': 'baseline (bit-equal to the mma.sync form of H1)',
-        'modes': modes6, 'h1_ms': h1['ms'],
-        'mma_sync_form_ms': h1['mma_sync_ms'],
+        'max_abs_err': c6['o_err'], 'ms': modes6[hopper6]['baseline']['ms'],
+        'plain_ms': h6_plain_ms[hopper6],
+        'bound_ms': modes6[hopper6]['baseline']['bound_ms'],
+        'bound_by': modes6[hopper6]['baseline']['bound_by'],
+        'library_ms': None,
+        'mode': 'baseline (bit-equal to H1)', 'modes': modes6,
+        'h1_ms': h1['ms'],
+        'mma_sync_form_ms': modes6[mma_sync6]['baseline']['ms'],
+        'mma_sync_form_plain_ms': h6_plain_ms[mma_sync6],
         'shape': f'T={b.T} H={H} D={D} bf16'})
 
     # H8 probes over H1's steps
@@ -1993,7 +2101,8 @@ def check_probes(dev, h1, h2, card):
                                        for k in tdb.KERNELS))
     for name, timings, ref in (
             (f'{H1_NAME}, the mma.sync form',
-             (h1['mma_sync_ms'], modes6['baseline']['ms']), H1_REF_MS),
+             (h1['mma_sync_ms'], modes6[mma_sync6]['baseline']['ms']),
+             H1_REF_MS),
             (f'{H7_NAME} real (the mma.sync form of H2)', h7_times,
              H2_REF_MS)):
         ratio = min((t / ref for t in timings), key=lambda x: abs(x - 1))
@@ -2017,19 +2126,29 @@ def check_probes(dev, h1, h2, card):
     return kernels
 
 
-def time_relayouts(T, H, D, dev):
-    """H4 in each mode at the main shape, held bit-equal to its plain
-    version: ms beside its bound (bytes: each tensor read and written
-    once and, where a tensor rotates, the halves ``[:, :D/2]`` of the
-    cos and sin tables that H4 and its plain version read, once), its
-    plain version's ms and, for a move of one tensor without rotation,
-    one ``permute(...).contiguous()`` call's ms."""
+def time_relayouts(T, H, D, dev, card):
+    """H4 in each mode at the main shape on the route its rule picks,
+    held bit-equal to its plain version: ms beside its bound (bytes: each
+    tensor read and written once and, where a tensor rotates, the halves
+    ``[:, :D/2]`` of the cos and sin tables that H4 and its plain version
+    read, once), its plain version's ms and, for a move of one tensor
+    without rotation, one ``permute(...).contiguous()`` call's ms. A mode
+    with an hdt side (the vec route at this T) is also timed on the tile
+    kernel, its route where T % 8 != 0, in turn with the vec kernel
+    (``fastest_calls``, the card alone), after the tile kernel's output
+    too is held bit-equal to the plain version: the vec kernel's fastest
+    call must be faster where the move rotates, and where it does not,
+    within 3% of the tile kernel's fastest call (its ratio to the tile
+    kernel's earlier times, ``H4_TILE_REF_MS``, is logged). A 20-call mean of a 0.1 ms
+    move through the checking wrapper can hold host time between the
+    launches, so the gates read the card alone."""
     from esme_tpu_torch.ops import headsplit
     order = {'thd': (0, 1, 2), 'htd': (1, 0, 2), 'hdt': (1, 2, 0)}
     modes = {}
     for mode in RELAYOUTS:
         args = relayout_args(mode, T, H, D, dev, seed=3)
         xs, src, dst, _, rot, cos, sin = args
+        route = headsplit.relayout_route(src, dst, T)
         got = headsplit.relayout_heads(*args)
         ref = headsplit.relayout_heads_plain(*args)
         err = max((a.float() - b.float()).abs().max().item()
@@ -2053,12 +2172,43 @@ def time_relayouts(T, H, D, dev):
                 fail(f'H4 {mode}: the library yardstick computes another '
                      'function')
             lib = cuda_ms(lambda: view.contiguous(), reps=20, warmup=2)
-        modes[mode] = {'ms': ms, 'plain_ms': plain_ms, 'bound_ms': b,
-                       'bound_by': by, 'library_ms': lib, 'bytes': nbytes,
-                       'max_abs_err': err}
-        log(f'H4 {mode} at T={T} H={H} D={D}: {ms:.4f} ms (bound {b:.4f} '
-            f'ms by {by}, {ms / b:.2f}x), plain {plain_ms:.3f} ms, library '
-            f'{lib}, max|err| {err}')
+        modes[mode] = {'route': route, 'ms': ms, 'plain_ms': plain_ms,
+                       'bound_ms': b, 'bound_by': by, 'library_ms': lib,
+                       'bytes': nbytes, 'max_abs_err': err}
+        log(f'H4 {mode} at T={T} H={H} D={D} ({route}): {ms:.4f} ms (bound '
+            f'{b:.4f} ms by {by}, {ms / b:.2f}x), plain {plain_ms:.3f} ms, '
+            f'library {lib}, max|err| {err}')
+        if route == 'vec':
+            tile = headsplit.launch_relayout('tile', *args)
+            torch.cuda.synchronize()
+            if not all(map(torch.equal, tile, ref)):
+                e = max((a.float() - b.float()).abs().max().item()
+                        for a, b in zip(tile, ref))
+                fail(f'H4 {mode} (tile) at T={T} H={H} D={D} differs from '
+                     f'its plain version by up to {e:.3e} (gate: bit '
+                     'equality)')
+            del tile
+            fastest = fastest_calls(f'H4 {mode}, vec vs tile kernel', {
+                r: lambda r=r: headsplit.launch_relayout(r, *args)
+                for r in ('vec', 'tile')})
+            vec, tile = fastest['vec']['min'], fastest['tile']['min']
+            modes[mode]['fastest'] = fastest
+            log(f'H4 {mode}: the tile kernel bit-equal to the plain version '
+                f'too; fastest calls vec {vec:.4f} ms ({vec / b:.2f}x its '
+                f'bound), tile {tile:.4f} ms ({tile / b:.2f}x), vec/tile '
+                f'{vec / tile:.4f}')
+            if rotates and not vec < tile:
+                fail(f'H4 {mode}: the vec kernel ({vec:.4f} ms) is not '
+                     f'faster than the tile kernel ({tile:.4f} ms)')
+            if not rotates:
+                ref_ms = H4_TILE_REF_MS[mode]
+                log(f'H4 {mode}: vec {vec / ref_ms:.4f} of the tile '
+                    f'kernel\'s earlier {ref_ms} ms on {REF_CARD} (logged '
+                    f'only; this card: {card})')
+                if not vec <= 1.03 * tile:
+                    fail(f'H4 {mode}: the vec kernel took {vec / tile:.4f} '
+                         'of the tile kernel\'s time in this run (gate: '
+                         'within 3%)')
         del args, xs, got, ref
         torch.cuda.empty_cache()
     return modes

@@ -54,6 +54,8 @@ SIGNATURES = {
     'flash_fwd_sm90': {
         'esme_segment_flash_fwd_sm90': (I, [P] * 8 + [I, I, I, F, P]),
         'esme_flash_fwd_t_sm90': (I, [P] * 8 + [I, I, I, F, P]),
+        'esme_segment_flash_fwd_sm90_variant': (I, [I] + [P] * 8
+                                                + [I, I, I, F, P]),
         'esme_flash_fwd_sm90_error_string': (ctypes.c_char_p, [I]),
     },
     'flash_bwd': {
@@ -80,7 +82,8 @@ SIGNATURES = {
         'esme_probe_error_string': (ctypes.c_char_p, [I]),
     },
     'headsplit': {
-        'esme_relayout_heads': (I, [P] * 6 + [I] * 4 + [P, P, I, I, I, P]),
+        'esme_relayout_heads': (I, [P] * 6 + [I] * 4
+                                + [P, P, I, I, I, I, P]),
         'esme_relayout_error_string': (ctypes.c_char_p, [I]),
     },
     'rope': {

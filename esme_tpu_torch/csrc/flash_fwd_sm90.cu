@@ -81,6 +81,38 @@
 // (d, keys), K-major; the scores, the softmax and the mask vote are H1's.
 // O leaves through the warpgroup's Q box, transposed and swizzled, by a
 // TMA store that clips the tokens past T.
+//
+// H6, the kernel's ablation modes (MODE, D = 64 and LAYOUT = THD only):
+// each removes one pass, as tools/flash_variants.py:32 variant_kernel
+// (K17) does on the TPU, to measure what the pass costs; the outputs of
+// every mode but BASELINE are wrong on purpose. MODE 0 is the production
+// kernel, and esme_segment_flash_fwd_sm90 launches only that one;
+// esme_segment_flash_fwd_sm90_variant launches any mode. Every dropped
+// pass is an `if constexpr` branch (a guarded wgmma would be serialised
+// by ptxas), and a mode without a product issues none of its
+// fence/commit/wait. The modes take their meaning from this form's walk,
+// 128-key stages that pair the span's 64-key tiles (an odd span's last
+// stage reads the next tile, whose ids match no q row):
+//   NOALPHA  the running max kept per stage; no rescale of l or O (alpha
+//            is 1, so the rescale's vote never fires)
+//   MAXFREE  no max: p = e^(s - 20), no rescale
+//   SUMFREE  l sums the first key of each stage only
+//   NOMAX    no max: p = e^s, no rescale
+//   NOMASK   no vote and no mask on any stage (keys past T score 0)
+//   NOEXP    p = s / 2 + 0.1 (s in base e, masked to -1e30), no max
+//   BF16EXP  p = ex2.approx.ftz.bf16x2 of (s log2 e - m) rounded to bf16
+//   NOPV     no P V product: O gains p's first 64 keys of each stage
+//   NOQK     no Q K^T product: s = O[:, 0] + K[:, 0] (K's column 0 read
+//            from the swizzled stage), unscaled. Its scores come from
+//            register arithmetic, not a wgmma, and ptxas then spills a
+//            little at the 128-register cap (24 bytes of stack; as much
+//            with no K read at all); the other modes do not spill
+//   NOTHING  no products and no softmax: the first element of the Q
+//            tile, of each stage's K and V and of the q block's and the
+//            stage's segment ids, summed, is added to every O element;
+//            the ring, TMA and mbarriers run as in production
+// The modes without a max (MAXFREE, NOMAX, NOEXP, NOTHING) keep m at
+// -1e30 and write lse = -1e30 + log(l).
 
 #include <limits.h>
 
@@ -123,6 +155,35 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// H6's modes in K17's order (esme_tpu_torch/tools/flash_variants.py:MODES)
+enum Mode {
+  BASELINE = 0,
+  NOALPHA,
+  MAXFREE,
+  SUMFREE,
+  NOMAX,
+  NOMASK,
+  NOEXP,
+  BF16EXP,
+  NOPV,
+  NOQK,
+  NOTHING,
+};
+
+// 1.f, unknown to the compiler: NOALPHA keeps the production's vote on
+// alpha (with alpha a constant 1 the schedule changes and spills)
+__device__ __forceinline__ float opaque_one() {
+  float one;
+  asm("mov.b32 %0, 0x3f800000;\n" : "=f"(one));
+  return one;
+}
+
+// modes in which m keeps its start value (-1e30) and alpha is 1
+__host__ __device__ constexpr bool fixed_m(int mode) {
+  return mode == MAXFREE || mode == NOMAX || mode == NOEXP ||
+         mode == NOTHING;
+}
+
 // How a stage is masked, by each warp's vote: none, every key in the
 // rows' segment; keys, the warp's 16 rows in one segment and the stage
 // below T, so one id compare per key serves both of a thread's rows; any.
@@ -133,8 +194,9 @@ enum class Mask { none, keys, any };
 // e): s becomes p = 2^(s scale_log2 - m) against the new running max m,
 // l is this lane's share of the row sums, and alpha the factor that
 // rescales the accumulator. Masked, a key of another segment or past T
-// (c >= kn) scores -1e30 as in the mma.sync form.
-template <Mask MASK, int N>
+// (c >= kn) scores -1e30 as in the mma.sync form. MODE drops a pass (see
+// the header); its branches are compiled out of mode 0.
+template <Mask MASK, int MODE, int N>
 __device__ __forceinline__ void softmax_stage(float (&s)[N], float (&m)[2],
                                               float (&l)[2],
                                               float (&alpha)[2],
@@ -142,6 +204,10 @@ __device__ __forceinline__ void softmax_stage(float (&s)[N], float (&m)[2],
                                               const int (&sq)[2], int kn,
                                               int tq, float scale_log2) {
   constexpr bool masked = MASK != Mask::none;
+  constexpr bool no_max = fixed_m(MODE);
+  // scores scaled before the max and the exps (production folds the
+  // scale of an unmasked stage into both)
+  constexpr bool scaled = masked || no_max || MODE == BF16EXP;
   float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
   for (int j = 0; j < N / 4; ++j) {
@@ -159,32 +225,66 @@ __device__ __forceinline__ void softmax_stage(float (&s)[N], float (&m)[2],
           const bool ok =
               MASK == Mask::keys ? in : c + e < kn && ide == sq[r];
           x = ok ? x * scale_log2 : NEG_INF;
+        } else if constexpr (scaled) {
+          x = __fmul_rn(x, scale_log2);   // rounded before any sum
         }
-        mx[r] = fmaxf(mx[r], x);
+        if constexpr (!no_max) mx[r] = fmaxf(mx[r], x);
       }
     }
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
+    if constexpr (no_max) {
+      alpha[r] = 1.f;
+    } else {
 #pragma unroll
-    for (int off = 1; off < 4; off <<= 1)
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], off));
-    // unmasked scores are still raw: max(s) scale_log2 = max(s scale_log2)
-    const float mn = fmaxf(m[r], masked ? mx[r] : mx[r] * scale_log2);
-    alpha[r] = ex2(m[r] - mn);
-    m[r] = mn;
+      for (int off = 1; off < 4; off <<= 1)
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], off));
+      // unmasked scores are still raw: max(s) scale_log2 = max(s scale_log2)
+      const float mn = fmaxf(m[r], scaled ? mx[r] : mx[r] * scale_log2);
+      if constexpr (MODE == NOALPHA)
+        alpha[r] = opaque_one();   // the rescale's vote stays, never fires
+      else
+        alpha[r] = ex2(m[r] - mn);
+      m[r] = mn;
+    }
   }
   float ps[2] = {0.f, 0.f};
+  if constexpr (MODE == BF16EXP) {
 #pragma unroll
-  for (int j = 0; j < N / 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e)
+    for (int j = 0; j < N / 4; ++j)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        float& x = s[4 * j + 2 * r + e];
-        x = masked ? ex2(x - m[r]) : ex2(fmaf(x, scale_log2, -m[r]));
-        ps[r] += x;
+        float* x = s + 4 * j + 2 * r;
+        const uint32_t p2 = ex2_bf16x2(pack_bf16(x[0] - m[r], x[1] - m[r]));
+        x[0] = bf16_lo(p2);
+        x[1] = bf16_hi(p2);
+        ps[r] += x[0];
+        ps[r] += x[1];
       }
+  } else {
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float& x = s[4 * j + 2 * r + e];
+          if constexpr (MODE == NOEXP)
+            x = x * 0.5f + 0.1f;
+          else if constexpr (MODE == MAXFREE)
+            x = ex2(x - 20.f * LOG2E);
+          else if constexpr (MODE == NOMAX)
+            x = ex2(x);
+          else
+            x = scaled ? ex2(x - m[r]) : ex2(fmaf(x, scale_log2, -m[r]));
+          ps[r] += x;
+        }
+  }
+  if constexpr (MODE == SUMFREE) {   // the stage's first key only
+#pragma unroll
+    for (int r = 0; r < 2; ++r) ps[r] = tq == 0 ? s[2 * r] : 0.f;
+  }
 #pragma unroll
   for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + ps[r];
 }
@@ -193,7 +293,7 @@ __device__ __forceinline__ void softmax_stage(float (&s)[N], float (&m)[2],
 // (H5, whose o goes out through tm_o)
 enum Layout { THD = 0, HDT = 1 };
 
-template <int D, int LAYOUT>
+template <int D, int LAYOUT, int MODE = BASELINE>
 __global__ void __launch_bounds__(NTHREADS, ctas_per_sm<D>())
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
@@ -209,6 +309,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   using TG = TGeo<D>;
   constexpr int ST = L::ST;
   constexpr bool hdt = LAYOUT == HDT;
+  static_assert(MODE == BASELINE || (D == 64 && !hdt),
+                "the ablation modes are built at D = 64, THD only");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_smem(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BARS);
@@ -316,64 +418,110 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     const uint32_t vs = smem_u32(v_rows(s));
     const int* sid = ids(s);
     const int kn = T - (kb0 + 2 * it) * KT;   // the stage's k rows below T
-    const bool uni = __all_sync(0xffffffffu, quni && kn >= KS &&
-                                                 sid[lane] == qref &&
-                                                 sid[lane + 32] == qref &&
-                                                 sid[lane + 64] == qref &&
-                                                 sid[lane + 96] == qref);
-
-    float sc[64];
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      if constexpr (hdt)   // Q and K^T MN-major: tokens along the rows
-        wgmma_ss_n128<1, 1>(sc, desc_t_mn<D>(qs + wg * TG::BOX_BYTES, kk),
-                            desc_t_mn<D>(ks, kk), kk > 0);
-      else
-        wgmma_ss_n128(sc, desc_k<D, BQ>(qs, wg * 64, kk),
-                      desc_k<D, KS>(ks, 0, kk), kk > 0);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(sc);
-
-    float alpha[2];
-    if (uni)
-      softmax_stage<Mask::none>(sc, m, l, alpha, sid, sq, kn, tq,
-                                scale_log2);
-    else if (quni && kn >= KS)
-      softmax_stage<Mask::keys>(sc, m, l, alpha, sid, sq, kn, tq,
-                                scale_log2);
-    else
-      softmax_stage<Mask::any>(sc, m, l, alpha, sid, sq, kn, tq,
-                               scale_log2);
-
-    uint32_t pa[KS / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < KS / 16; ++kk) acc_to_a(pa[kk], sc, kk);
-    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+    if constexpr (MODE == NOTHING) {
+      // one element of each tile the stage and the block hold, in the
+      // TPU kernel's order, into every accumulator
+      const float t =
+          (((__bfloat162float(*reinterpret_cast<const bf16*>(smem + L::Q)) +
+             __bfloat162float(*reinterpret_cast<const bf16*>(k_rows(s)))) +
+            __bfloat162float(*reinterpret_cast<const bf16*>(v_rows(s)))) +
+           (float)seg[q0]) +
+          (float)sid[0];
 #pragma unroll
       for (int nh = 0; nh < G::NH; ++nh)
 #pragma unroll
-        for (int i = 0; i < G::HALF_COLS / 2; ++i)
-          acc[nh][i] *= alpha[(i >> 1) & 1];
-    }
+        for (int i = 0; i < G::HALF_COLS / 2; ++i) acc[nh][i] += t;
+    } else {
+      bool uni = true;
+      if constexpr (MODE != NOMASK)
+        uni = __all_sync(0xffffffffu, quni && kn >= KS &&
+                                          sid[lane] == qref &&
+                                          sid[lane + 32] == qref &&
+                                          sid[lane + 64] == qref &&
+                                          sid[lane + 96] == qref);
+
+      float sc[64];
+      if constexpr (MODE == NOQK) {
+        // s = o[row, 0] + k[key, 0], unscaled: column 0 of the accumulator
+        // lives in the quad's lane tq = 0, k's column 0 in the swizzled stage
+        float a0[2];
 #pragma unroll
-    for (int nh = 0; nh < G::NH; ++nh) fence_regs(acc[nh]);
-    wgmma_fence();
+        for (int r = 0; r < 2; ++r)
+          a0[r] = __shfl_sync(0xffffffffu, acc[0][2 * r], lane & ~3);
 #pragma unroll
-    for (int kk = 0; kk < KS / 16; ++kk)
+        for (int j = 0; j < 16; ++j)
 #pragma unroll
-      for (int nh = 0; nh < G::NH; ++nh) {
-        if constexpr (hdt)   // V as stored, (d, keys): K-major
-          wgmma_rs<0>(acc[nh], pa[kk], desc_t_k<D>(vs, kk, nh));
-        else
-          wgmma_rs(acc[nh], pa[kk], desc_mn<D, KS>(vs, kk, nh));
+          for (int e = 0; e < 2; ++e) {
+            const float kc = __bfloat162float(*reinterpret_cast<const bf16*>(
+                k_rows(s) + tile_offset<D, KS>(8 * j + 2 * tq + e, 0)));
+#pragma unroll
+            for (int r = 0; r < 2; ++r) sc[4 * j + 2 * r + e] = a0[r] + kc;
+          }
+      } else {
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          if constexpr (hdt)   // Q and K^T MN-major: tokens along the rows
+            wgmma_ss_n128<1, 1>(sc, desc_t_mn<D>(qs + wg * TG::BOX_BYTES, kk),
+                                desc_t_mn<D>(ks, kk), kk > 0);
+          else
+            wgmma_ss_n128(sc, desc_k<D, BQ>(qs, wg * 64, kk),
+                          desc_k<D, KS>(ks, 0, kk), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
       }
-    wgmma_commit();
-    wgmma_wait<0>();
+
+      // the scores' scale: 1/sqrt(D) log2 e; log2 e on noqk's unscaled sums;
+      // base e for noexp, whose p is linear in s
+      const float sl = MODE == NOQK    ? LOG2E
+                       : MODE == NOEXP ? scale_log2 * LN2
+                                       : scale_log2;
+      float alpha[2];
+      if (uni)
+        softmax_stage<Mask::none, MODE>(sc, m, l, alpha, sid, sq, kn, tq, sl);
+      else if (quni && kn >= KS)
+        softmax_stage<Mask::keys, MODE>(sc, m, l, alpha, sid, sq, kn, tq, sl);
+      else
+        softmax_stage<Mask::any, MODE>(sc, m, l, alpha, sid, sq, kn, tq, sl);
+
+      uint32_t pa[KS / 16][4];
+      if constexpr (MODE != NOPV) {
 #pragma unroll
-    for (int nh = 0; nh < G::NH; ++nh) fence_regs(acc[nh]);
+        for (int kk = 0; kk < KS / 16; ++kk) acc_to_a(pa[kk], sc, kk);
+      }
+      if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+        for (int nh = 0; nh < G::NH; ++nh)
+#pragma unroll
+          for (int i = 0; i < G::HALF_COLS / 2; ++i)
+            acc[nh][i] *= alpha[(i >> 1) & 1];
+      }
+      if constexpr (MODE == NOPV) {
+        // o gains p's first 64 keys, unrounded: at D = 64 the first 32
+        // score registers and the accumulator share one layout
+#pragma unroll
+        for (int i = 0; i < G::HALF_COLS / 2; ++i) acc[0][i] += sc[i];
+      } else {
+#pragma unroll
+        for (int nh = 0; nh < G::NH; ++nh) fence_regs(acc[nh]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KS / 16; ++kk)
+#pragma unroll
+          for (int nh = 0; nh < G::NH; ++nh) {
+            if constexpr (hdt)   // V as stored, (d, keys): K-major
+              wgmma_rs<0>(acc[nh], pa[kk], desc_t_k<D>(vs, kk, nh));
+            else
+              wgmma_rs(acc[nh], pa[kk], desc_mn<D, KS>(vs, kk, nh));
+          }
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int nh = 0; nh < G::NH; ++nh) fence_regs(acc[nh]);
+      }
+    }
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);
   }
@@ -420,7 +568,9 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
               __floats2bfloat162_rn(acc[nh][i] * inv, acc[nh][i + 1] * inv);
         }
     }
-    if (tq == 0) lse[(size_t)h * T + row[r]] = m[r] * LN2 + logf(lr);
+    if (tq == 0)
+      lse[(size_t)h * T + row[r]] =
+          fixed_m(MODE) ? NEG_INF + logf(lr) : m[r] * LN2 + logf(lr);
   }
   if constexpr (hdt) {
     fence_proxy_async();
@@ -432,7 +582,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-template <int D, int LAYOUT>
+template <int D, int LAYOUT, int MODE = BASELINE>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* seg, const int* kstart, const int* kend,
                    void* o, float* lse, int T, int H, float scale,
@@ -454,7 +604,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       return err;
     to = tq;   // not read
   }
-  auto kernel = flash_fwd_sm90_kernel<D, LAYOUT>;
+  auto kernel = flash_fwd_sm90_kernel<D, LAYOUT, MODE>;
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              L::BYTES);
@@ -509,6 +659,40 @@ int esme_flash_fwd_t_sm90(const void* q, const void* k, const void* v,
                           int D, float scale, void* stream) {
   return launch_d<HDT>(q, k, v, seg, kstart, kend, o, lse, T, H, D, scale,
                        stream);
+}
+
+// H6: H1 (THD) in ablation mode `mode` (enum Mode), D = 64 only; mode 0
+// is H1's own instantiation.
+int esme_segment_flash_fwd_sm90_variant(int mode, const void* q,
+                                        const void* k, const void* v,
+                                        const void* seg, const void* kstart,
+                                        const void* kend, void* o, void* lse,
+                                        int T, int H, int D, float scale,
+                                        void* stream) {
+  const int* s = static_cast<const int*>(seg);
+  const int* ks = static_cast<const int*>(kstart);
+  const int* ke = static_cast<const int*>(kend);
+  float* l = static_cast<float*>(lse);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D != 64) return (int)cudaErrorInvalidValue;
+#define ESME_FWD_MODE(M) \
+  case M:                \
+    return (int)launch<64, THD, M>(q, k, v, s, ks, ke, o, l, T, H, scale, st);
+  switch (mode) {
+    ESME_FWD_MODE(BASELINE)
+    ESME_FWD_MODE(NOALPHA)
+    ESME_FWD_MODE(MAXFREE)
+    ESME_FWD_MODE(SUMFREE)
+    ESME_FWD_MODE(NOMAX)
+    ESME_FWD_MODE(NOMASK)
+    ESME_FWD_MODE(NOEXP)
+    ESME_FWD_MODE(BF16EXP)
+    ESME_FWD_MODE(NOPV)
+    ESME_FWD_MODE(NOQK)
+    ESME_FWD_MODE(NOTHING)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef ESME_FWD_MODE
 }
 
 const char* esme_flash_fwd_sm90_error_string(int err) {

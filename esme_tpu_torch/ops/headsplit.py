@@ -13,6 +13,8 @@ Counterpart of ``esme_tpu/ops/headsplit.py``. Two kernels:
   ``:_split_kernel_t`` (K7): up to three tensors per launch move between
   the layouts ``'thd'`` ``(T, H·D)``, ``'htd'`` ``(H, T, D)`` and
   ``'hdt'`` ``(H, D, T)``, each with its own rotation (none, R or Rᵀ).
+  Each launch runs one of H4's three kernels, by a static rule on the
+  layouts and T (:func:`relayout_route`).
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
 it runs its plain version (:func:`rotary_qk_plain`,
@@ -40,6 +42,9 @@ ROT_NONE, ROT_R, ROT_RT = 0, 1, 2
 # the rotation of the gradient of a move with each rotation
 _ROT_VJP = {ROT_NONE: ROT_NONE, ROT_R: ROT_RT, ROT_RT: ROT_R}
 HEAD_DIMS = (16, 24, 32, 64, 128)
+# H4's kernels, in the C entry's order: rows (no hdt side), tile (an hdt
+# side, T % 8 != 0) and vec (an hdt side, T % 8 == 0)
+RELAYOUT_ROUTES = ('rows', 'tile', 'vec')
 
 
 def rotary_qk_plain(q2, k2, cos, sin, num_heads: int,
@@ -190,6 +195,21 @@ def relayout_heads_plain(xs, src, dst, num_heads: int, rot=None, cos=None,
     return tuple(out)
 
 
+def relayout_route(src, dst, T: int) -> str:
+    """The kernel of a launch whose tensors move from layouts ``src`` to
+    ``dst`` (one or one per tensor) over T tokens: ``'rows'`` where no
+    move has an hdt side (D contiguous on both sides); else ``'vec'``
+    where T % 8 == 0, so that an hdt row is whole 16-byte vectors (8
+    tokens of a thread transposed in registers, the rotation on
+    token-major rows); else ``'tile'`` (64-token tiles through shared
+    memory, element by element at a ragged end)."""
+    sides = {src} if isinstance(src, str) else set(src)
+    sides |= {dst} if isinstance(dst, str) else set(dst)
+    if 'hdt' not in sides:
+        return 'rows'
+    return 'vec' if T % 8 == 0 else 'tile'
+
+
 def relayout_heads(xs, src, dst, num_heads: int, rot=None, cos=None,
                    sin=None):
     """Move up to three tensors between head layouts in one launch
@@ -206,7 +226,8 @@ def relayout_heads(xs, src, dst, num_heads: int, rot=None, cos=None,
             their first ``D/2`` columns are read.
     Returns:
         A tuple of new tensors in the destination layouts.
-    ``launches`` counts every launch.
+    ``launches`` counts every launch, ``routes`` those of each kernel
+    (:func:`relayout_route`).
     """
     if xs[0].device.type == 'cpu':
         return relayout_heads_plain(xs, src, dst, num_heads, rot, cos, sin)
@@ -233,8 +254,19 @@ def relayout_heads(xs, src, dst, num_heads: int, rot=None, cos=None,
                              f'16-byte aligned tensor on {dev}')
     if D not in HEAD_DIMS:
         raise ValueError(f'{what}: head dim {D} is not one of {HEAD_DIMS}')
+    route = relayout_route(src, dst, T)
+    ys = _launch(route, xs, src, dst, num_heads, rot, cos, sin, T, D)
+    relayout_heads.launches += 1
+    relayout_heads.routes[route] += 1
+    return ys
+
+
+def _launch(route, xs, src, dst, num_heads, rot, cos, sin, T, D,
+            lib=None):
     from .. import _build
-    lib = _build.library('headsplit')
+    lib = _build.library('headsplit') if lib is None else lib
+    dev = xs[0].device
+    rotates = any(r != ROT_NONE for r in rot)
     ys = [torch.empty(_shape(d, T, num_heads, D), dtype=torch.bfloat16,
                       device=dev) for d in dst]
     ptrs = [x.data_ptr() for x in xs] + [None] * (3 - len(xs))
@@ -245,13 +277,28 @@ def relayout_heads(xs, src, dst, num_heads: int, rot=None, cos=None,
     rc = lib.esme_relayout_heads(
         *ptrs, *outs, *specs, len(xs),
         cos.data_ptr() if rotates else None,
-        sin.data_ptr() if rotates else None, T, num_heads, D, stream)
-    _build.check(rc, lib, 'esme_relayout_error_string', what)
-    relayout_heads.launches += 1
+        sin.data_ptr() if rotates else None, T, num_heads, D,
+        RELAYOUT_ROUTES.index(route), stream)
+    _build.check(rc, lib, 'esme_relayout_error_string',
+                 f'relayout_heads ({route})')
     return tuple(ys)
 
 
+def launch_relayout(route: str, xs, src, dst, num_heads: int, rot=None,
+                    cos=None, sin=None, lib=None):
+    """H4's kernel ``route`` (a name of ``RELAYOUT_ROUTES``) launched
+    through its C entry on :func:`relayout_heads`' arguments, which it
+    does not check beyond their shapes; no counter moves. For timing one
+    kernel against another: ``'tile'`` takes any launch, ``'vec'`` needs
+    T % 8 == 0, ``'rows'`` no hdt side (the C entry refuses the rest).
+    ``lib``, another build of the same entry (an A/B variant), takes the
+    library's place."""
+    xs, src, dst, rot, T, D = _prepare(xs, src, dst, num_heads, rot)
+    return _launch(route, xs, src, dst, num_heads, rot, cos, sin, T, D, lib)
+
+
 relayout_heads.launches = 0
+relayout_heads.routes = dict.fromkeys(RELAYOUT_ROUTES, 0)
 
 
 class _Relayout(torch.autograd.Function):

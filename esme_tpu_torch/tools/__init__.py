@@ -122,12 +122,15 @@ def hdt_to_thd(xT):
     return xT.permute(2, 0, 1).reshape(T, H * D)
 
 
-def parse_args(argv, description: str):
+def parse_args(argv, description: str, libraries=()):
     """``--device {cuda,cpu}``, and from it the batch, the timed calls
     and the dtype: 50,000 tokens, 20 calls, bf16 on the card (raise
-    without one); 2,048 tokens, 1 call, fp32 on the CPU."""
+    without one); 2,048 tokens, 1 call, fp32 on the CPU. With
+    ``libraries``, also ``--library``, one of them (None: every one)."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument('--device', default='cuda', choices=('cuda', 'cpu'))
+    if libraries:
+        p.add_argument('--library', choices=libraries, default=None)
     args = p.parse_args(argv)
     on_card = args.device == 'cuda'
     if on_card and not torch.cuda.is_available():

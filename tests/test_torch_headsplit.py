@@ -216,3 +216,27 @@ def test_relayout_refuses_bad_arguments():
     before = ths.relayout_heads.launches
     ths.relayout_heads([x], 'thd', 'hdt', 2)
     assert ths.relayout_heads.launches == before      # no kernel here
+
+
+@pytest.mark.parametrize('D', ths.HEAD_DIMS)
+def test_relayout_route_is_a_static_rule(D):
+    """H4's kernel is a rule on the layouts and T alone: the rows kernel
+    where no move has an hdt side, the vec kernel where one has and
+    T % 8 == 0 (an hdt row is whole 16-byte vectors), the tile kernel
+    otherwise; the C entry takes the route by its index in
+    ``RELAYOUT_ROUTES``. On the CPU no route counter moves."""
+    from esme_tpu_torch import _build
+    moves = [('thd', 'htd'), ('htd', 'thd'), ('thd', 'hdt'), ('hdt', 'thd'),
+             ('thd', ('htd', 'hdt', 'hdt')), (('htd', 'hdt', 'hdt'), 'thd')]
+    for src, dst in moves:
+        hdt = 'hdt' in (src, dst) or 'hdt' in src or 'hdt' in dst
+        for T in (1000, 1001, 1024, 8165, 50176):
+            want = 'rows' if not hdt else 'vec' if T % 8 == 0 else 'tile'
+            assert ths.relayout_route(src, dst, T) == want
+    assert ths.RELAYOUT_ROUTES == ('rows', 'tile', 'vec')
+    _, argtypes = _build.SIGNATURES['headsplit']['esme_relayout_heads']
+    assert len(argtypes) == 17
+    _, (x, _, _) = _inputs(64, 2, D, torch.float32, 0, n=1)
+    before = dict(ths.relayout_heads.routes)
+    ths.relayout_heads([x], 'thd', 'hdt', 2)
+    assert ths.relayout_heads.routes == before

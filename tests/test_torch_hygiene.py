@@ -109,15 +109,16 @@ def test_cpu_tools_launch_no_kernel(monkeypatch):
 
 
 def test_bwd_ab_runs_only_on_a_card(monkeypatch, tmp_path):
-    """The A/B tool of H1's, H2's and H5's Hopper sources
-    (``tools/sm90_ab.py``) refuses to run without a card, before it builds
-    anything, and takes only the Hopper forms."""
+    """The A/B tool of H1's, H2's and H5's Hopper sources and H4's vec
+    kernel (``tools/sm90_ab.py``) refuses to run without a card, before it
+    builds anything, and takes only those forms."""
     if torch.cuda.is_available():
         pytest.skip('a CUDA card is present: the tool runs for real')
     from esme_tpu_torch import _build
     from esme_tpu_torch.tools import sm90_ab
     monkeypatch.setattr(_build, 'BUILD_ROOT', tmp_path / 'build')
-    for library in ('flash_fwd_sm90', 'flash_bwd_sm90', 'fwd_T_sm90'):
+    for library in ('flash_fwd_sm90', 'flash_bwd_sm90', 'fwd_T_sm90',
+                    'headsplit_vec'):
         with pytest.raises(RuntimeError, match='needs a card'):
             sm90_ab.main([library, str(tmp_path / 'variant.cu')])
     with pytest.raises(SystemExit):
@@ -235,11 +236,13 @@ def test_fwd_route_is_a_static_rule_on_head_dim():
         assert set(fns) <= set(_build.SIGNATURES[name])
     assert set(_build.SIGNATURES['flash_fwd_sm90']) == {
         'esme_segment_flash_fwd_sm90', 'esme_flash_fwd_t_sm90',
+        'esme_segment_flash_fwd_sm90_variant',
         'esme_flash_fwd_sm90_error_string'}
-    # the same C signature as the mma.sync form's entry
-    assert _build.SIGNATURES['flash_fwd_sm90'][
-        'esme_segment_flash_fwd_sm90'] == _build.SIGNATURES['flash_fwd'][
-        'esme_segment_flash_fwd']
+    # the same C signatures as the mma.sync form's entries (H1's, H6's)
+    for entry in ('esme_segment_flash_fwd', 'esme_segment_flash_fwd_variant'):
+        assert _build.SIGNATURES['flash_fwd_sm90'][
+            entry.replace('fwd', 'fwd_sm90', 1)] == \
+            _build.SIGNATURES['flash_fwd'][entry]
     src = (_build.CSRC / 'flash_fwd_sm90.cu').read_text()
     for fn in _build.SIGNATURES['flash_fwd_sm90']:
         assert re.search(rf'^\S.* {fn}\(', src, re.M), fn

@@ -30,14 +30,16 @@ Gates:
 * H3 (RoPE): bit equality; the kernel rounds each product and each sum
   to bf16 as the plain version does.
 * H4 (head relayout with optional RoPE): bit equality, for the same
-  reason; a move without rotation copies the bits.
+  reason; a move without rotation copies the bits. Held on the kernel
+  its rule picks (rows, vec or tile, shown by its counter) and on the
+  tile and vec kernels by name.
 * ``segment_attention`` on the card: o under H1's gate, each gradient
   under H2's, against the same function through the plain versions.
 * The probe tools' kernels (``esme_tpu_torch/tools``): H5 on each route
   under H1's gates against its plain version and against H1, its Hopper
   form (H1's kernel on token-minor operands) also on the segment layouts
   of H1's tests, bit-equal to H1 there and from call to call; each
-  ablation mode of H1 (H6) and of both forms of H2 (H7), and each ceiling
+  ablation mode of both forms of H1 (H6) and of H2 (H7), and each ceiling
   probe (H8), under the gate its tool's ``check`` states; H6 ``baseline``
   and H7 ``real`` bit-equal to H1 and H2 (the same instantiations); the
   2^x that H6 ``bf16exp``'s plain version takes bit-equal to the
@@ -437,25 +439,66 @@ def _relayout_inputs(src, n, T, H, D, dev, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('T', [1000, 1001])     # ragged tile; T % 8 != 0
+@pytest.mark.parametrize('T', [1000, 1001])     # T % 64 != 0; T % 8 != 0
 @pytest.mark.parametrize('D', [16, 24, 32, 64, 128])
 @pytest.mark.parametrize('mode', sorted(RELAYOUTS))
 def test_relayout_kernel_matches_plain(cuda, mode, D, T):
     """H4 is bit-equal to its plain version in every mode the ops use
     (the rotation rounds each product and each sum to bf16 as the plain
-    version does; a move without rotation copies the bits)."""
+    version does; a move without rotation copies the bits), on the route
+    its rule picks (a move with an hdt side: the vec kernel at T = 1000,
+    the tile kernel at 1001), as the route counter shows."""
     src, dst, rot = RELAYOUTS[mode]
     H = 3
     xs, (cos, sin) = _relayout_inputs(src, len(rot), T, H, D, cuda, D + T)
     x0 = [x.clone() for x in xs]
+    route = headsplit.relayout_route(src, dst, T)
+    sides = [x for side in (src, dst)
+             for x in ((side,) if isinstance(side, str) else side)]
+    assert route == ('rows' if 'hdt' not in sides
+                     else 'vec' if T % 8 == 0 else 'tile')
     before = headsplit.relayout_heads.launches
+    on_route = dict(headsplit.relayout_heads.routes)
     got = headsplit.relayout_heads(xs, src, dst, H, rot, cos, sin)
     ref = headsplit.relayout_heads_plain(xs, src, dst, H, rot, cos, sin)
     torch.cuda.synchronize()
     assert headsplit.relayout_heads.launches == before + 1
+    assert {n: c - on_route[n] for n, c in
+            headsplit.relayout_heads.routes.items()} == \
+        {n: int(n == route) for n in headsplit.RELAYOUT_ROUTES}
     for a, b in zip(got, ref):
         assert a.shape == b.shape and torch.equal(a, b)
     assert all(torch.equal(a, b) for a, b in zip(xs, x0))  # not in place
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('T', [1000, 2048])     # a ragged last tile; none
+@pytest.mark.parametrize('D', [16, 24, 32, 64, 128])
+@pytest.mark.parametrize('mode', sorted(RELAYOUTS))
+def test_relayout_kernels_by_name_match_plain(cuda, mode, D, T):
+    """Launched by name at T % 8 == 0, the tile kernel (the vec kernel's
+    yardstick) and the vec kernel are both bit-equal to the plain version
+    in every mode, with a ragged last 64-token tile (T = 1000) and
+    without; the C entry refuses vec at T % 8 != 0 and rows where a move
+    has an hdt side."""
+    src, dst, rot = RELAYOUTS[mode]
+    H = 3
+    xs, (cos, sin) = _relayout_inputs(src, len(rot), T, H, D, cuda, D + T)
+    ref = headsplit.relayout_heads_plain(xs, src, dst, H, rot, cos, sin)
+    before = headsplit.relayout_heads.launches
+    for route in ('tile', 'vec'):
+        got = headsplit.launch_relayout(route, xs, src, dst, H, rot, cos,
+                                        sin)
+        torch.cuda.synchronize()
+        assert all(map(torch.equal, got, ref)), route
+    assert headsplit.relayout_heads.launches == before
+    ragged, (c1, s1) = _relayout_inputs(src, len(rot), T - 1, H, D, cuda, 1)
+    with pytest.raises(RuntimeError, match='CUDA error'):
+        headsplit.launch_relayout('vec', ragged, src, dst, H, rot, c1, s1)
+    if headsplit.relayout_route(src, dst, T) != 'rows':
+        with pytest.raises(RuntimeError, match='CUDA error'):
+            headsplit.launch_relayout('rows', xs, src, dst, H, rot, cos,
+                                      sin)
 
 
 @pytest.mark.cuda
@@ -605,28 +648,36 @@ def test_fwd_t_sm90_is_deterministic(cuda, D):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('library', list(flash.FWD_ROUTES))
 @pytest.mark.parametrize('mode', list(tfv.MODES))
-def test_flash_variant_kernel_matches_plain(cuda, mode):
+def test_flash_variant_kernel_matches_plain(cuda, mode, library):
+    """Each mode of both of H1's forms against its plain version at the
+    form's walk; ``baseline`` bit-equal to the form's production launch,
+    and on the Hopper form (H1's route at D = 64) to H1 itself."""
     H, D, T = 4, 64, 3072
     q, k, v, seg = _packed([30, 7, 250, 900, 2, 400, 1000], T, H, D, cuda,
                            seed=7)
     ks, ke = flash.block_spans(seg, flash.BLOCK_Q, flash.BLOCK_K)
     before = tfv.variant_fwd.launches
-    got = tfv.variant_fwd(mode, q, k, v, seg, ks, ke, H)
-    ref = tfv.variant_fwd_plain(mode, q, k, v, seg, ks, ke, H)
+    got = tfv.variant_fwd(mode, q, k, v, seg, ks, ke, H, library=library)
+    ref = tfv.variant_fwd_plain(mode, q, k, v, seg, ks, ke, H,
+                                library=library)
     torch.cuda.synchronize()
     assert tfv.variant_fwd.launches == before + 1
-    assert tfv.check(mode, got, ref)['ok']
+    c = tfv.check(mode, got, ref, library)
+    assert c['ok'], c
     if mode == 'baseline':
-        # bit-equal to H1's mma.sync form, whose mode-0 kernel it is; H1's
-        # Hopper form (the route at D = 64) under H1's gates against it
         args = (q, k, v, seg, ks, ke, H)
-        assert all(map(torch.equal, got, flash.launch_fwd('flash_fwd', *args)))
+        assert all(map(torch.equal, got, flash.launch_fwd(library, *args)))
         o, lse = flash.segment_flash_fwd(*args)
         torch.cuda.synchronize()
-        gate = O_REL * got[0].float().abs().clamp_min(O_FLOOR)
-        assert ((o.float() - got[0].float()).abs() <= gate).all()
-        assert (lse - got[1]).abs().max().item() <= LSE_ATOL
+        if library == flash.fwd_route(D):
+            assert torch.equal(o, got[0]) and torch.equal(lse, got[1])
+        else:
+            # H1's Hopper form under H1's gates against the mma.sync form
+            gate = O_REL * got[0].float().abs().clamp_min(O_FLOOR)
+            assert ((o.float() - got[0].float()).abs() <= gate).all()
+            assert (lse - got[1]).abs().max().item() <= LSE_ATOL
 
 
 _EX2_BF16 = r'''

@@ -10,6 +10,9 @@ package's tools, whose Pallas kernels run in interpret mode on the CPU:
   token-minor ``(hb, D, bk)``: today's ``flash._fwd`` passes q
   token-minor, and the tool's own ``run`` fails there), against
   ``variant_fwd_plain`` (H6's) at the same 256x256 tiles and head groups;
+  that plain version's walk of H1's Hopper form (128-key stages) against
+  H1's plain version, the TPU walk in the modes that do not depend on it,
+  and the tile an odd span's last stage reads;
 * K15 ``tools/decompose_bwd.py:dq_variant``/``dkv_variant``, each of the
   7 modes and ``real``, swapped into ``esme_tpu.ops.flash`` as the tool
   swaps them and run through ``flash._bwd(interpret=True)``, against
@@ -208,8 +211,9 @@ def test_flash_variant_matches_jax(jtools, mode):
 
 
 def test_flash_variant_wrapper_runs_plain_on_cpu():
-    """On the CPU the H6 wrapper is its plain version at the kernel's
-    tiles, launches nothing, and its baseline is H1's plain version."""
+    """On the CPU the H6 wrapper is its plain version at the walk of H1's
+    route (the Hopper form's at D = 64), launches nothing, and its
+    baseline is H1's plain version."""
     seg = torch.from_numpy(_seg(LENS, T))
     q, k, v = (_t(_normal((T, H * D), i)) for i in range(3))
     spans = tflash.block_spans(seg, tflash.BLOCK_Q, tflash.BLOCK_K)
@@ -220,6 +224,99 @@ def test_flash_variant_wrapper_runs_plain_on_cpu():
     assert tfv.variant_fwd.launches == 0
     with pytest.raises(ValueError, match='unknown mode'):
         tfv.variant_fwd('nomode', q, k, v, seg, *spans, H)
+
+
+def _fwd_case(seed=40):
+    seg = torch.from_numpy(_seg(LENS, T))
+    q, k, v = (_t(_normal((T, H * D), seed + i)) for i in range(3))
+    return q, k, v, seg, tflash.block_spans(seg, tflash.BLOCK_Q,
+                                            tflash.BLOCK_K)
+
+
+def test_flash_variant_hopper_walk_baseline_is_h1():
+    """The Hopper form's walk (128-key stages of paired 64-key tiles, odd
+    spans reading the tile after the span) computes H1 in ``baseline``:
+    H1's plain version within the fp32 gate."""
+    q, k, v, seg, spans = _fwd_case()
+    assert any((e - s) % 2 for s, e in zip(*map(torch.Tensor.tolist, spans)))
+    o, lse = tfv.variant_fwd_plain('baseline', q, k, v, seg, *spans, H,
+                                   library='flash_fwd_sm90')
+    o_p, lse_p = tflash.segment_flash_fwd_plain(q, k, v, seg, *spans, H)
+    _close(o, o_p)
+    _close(lse, lse_p)
+
+
+@pytest.mark.parametrize('mode', ['maxfree', 'nomax', 'noexp'])
+def test_flash_variant_walk_free_modes_agree(mode):
+    """The modes without a running max give the same o and lse whatever
+    the walk: the TPU tool's (256x256 tiles) and the Hopper form's (128
+    rows over 128-key stages) agree within the fp32 gate (``_close``).
+    ``noexp`` sums p = s/2 + 0.1 over every key it walks, the masked ones
+    (s = -1e30) included, so its o depends on the walk: only its lse
+    (NaN where l < 0, -1e30 elsewhere, on both sides) is compared."""
+    q, k, v, seg, spans = _fwd_case()
+    hopper = tfv.variant_fwd_plain(mode, q, k, v, seg, *spans, H,
+                                   library='flash_fwd_sm90')
+    tpu_spans = tflash.block_spans(seg, BQ, BK)
+    tpu = tfv.variant_fwd_plain(mode, q, k, v, seg, *tpu_spans, H,
+                                block_q=BQ, block_k=BK, exp2_bf16=False)
+    if mode != 'noexp':
+        _close(hopper[0], tpu[0])
+    _close(hopper[1], tpu[1], mode)
+
+
+def test_flash_variant_odd_span_extra_tile_changes_no_baseline_row():
+    """An odd span's last stage reads the tile after the span: its keys
+    are masked out of every row of the block, so ``baseline``'s rows stay
+    bit-equal when that tile's k and v change, while ``nomask``, which
+    reads it unmasked, moves."""
+    q, k, v, seg, spans = _fwd_case()
+    ks, ke = spans[0].tolist(), spans[1].tolist()
+    b = next(i for i in range(len(ks)) if (ke[i] - ks[i]) % 2
+             and (ke[i] + 1) * tflash.BLOCK_K <= T)
+    rows = slice(b * tflash.BLOCK_Q, (b + 1) * tflash.BLOCK_Q)
+    extra = slice(ke[b] * tflash.BLOCK_K, (ke[b] + 1) * tflash.BLOCK_K)
+    k2, v2 = k.clone(), v.clone()
+    k2[extra] *= 1e3
+    v2[extra] = 1e3
+    hopper = 'flash_fwd_sm90'
+    for mode, same in (('baseline', True), ('nomask', False)):
+        o, lse = tfv.variant_fwd_plain(mode, q, k, v, seg, *spans, H,
+                                       library=hopper)
+        o2, lse2 = tfv.variant_fwd_plain(mode, q, k2, v2, seg, *spans, H,
+                                         library=hopper)
+        assert (torch.equal(o[rows], o2[rows])
+                and torch.equal(lse[:, rows], lse2[:, rows])) == same, mode
+
+
+def test_variant_fwd_library_argument_on_cpu():
+    """``variant_fwd`` takes a key of ``FORMS``, the libraries of
+    ``FWD_ROUTES`` (H1's route, the Hopper form, when none): on the CPU it
+    runs the plain version of that form's walk and launches nothing; any
+    other name is refused, by the plain version too. Without a library
+    the plain version walks one tile per step, the mma.sync form's walk
+    at its tiles."""
+    q, k, v, seg, spans = _fwd_case()
+    args = (q, k, v, seg, *spans, H)
+    assert set(tfv.FORMS) == set(tflash.FWD_ROUTES)
+    for library in tfv.FORMS:
+        got = tfv.variant_fwd('nomask', *args, library=library)
+        ref = tfv.variant_fwd_plain('nomask', *args, library=library)
+        assert all(map(torch.equal, got, ref))
+    assert all(map(torch.equal, tfv.variant_fwd_plain('nomask', *args),
+                   tfv.variant_fwd_plain('nomask', *args,
+                                         library='flash_fwd')))
+    hopper = tfv.variant_fwd('nomask', *args)
+    assert all(map(torch.equal, hopper, tfv.variant_fwd(
+        'nomask', *args, library='flash_fwd_sm90')))
+    assert not torch.equal(hopper[0], tfv.variant_fwd(
+        'nomask', *args, library='flash_fwd')[0])
+    assert tfv.variant_fwd.launches == 0
+    for bad in ('flash_bwd_sm90', 'sm90'):
+        with pytest.raises(ValueError, match='unknown library'):
+            tfv.variant_fwd('baseline', *args, library=bad)
+        with pytest.raises(ValueError, match='unknown library'):
+            tfv.variant_fwd_plain('baseline', *args, library=bad)
 
 
 # ---------------------------------------------------------------------------
