@@ -15,9 +15,11 @@ Phases, in order; any failure exits non-zero before a result is printed:
    ablation modes (``SM90_PRODUCTION``), H5's Hopper form at D = 64 and
    every H6 mode of H1's Hopper form no stack frame and no spills (but
    ``noqk``'s pinned ``H6_SPILLS``; no ``wgmma`` serialisation warning
-   names an H6 mode), and every H7 mode of
+   names an H6 mode), every H7 mode of
    both Hopper passes must build (every instantiation's ``ptxas`` line
-   and any ``wgmma`` serialisation warning is logged);
+   and any ``wgmma`` serialisation warning is logged), and H8's Hopper
+   kernels (``probes_sm90.cu``: dma alone and in pairs, dma_t) must have
+   no stack frame and no spills;
 3. hold each kernel against its plain PyTorch version on the card, on a
    packed 8k-token batch: segment-flash forward (H1) and backward (H2),
    each on its route (the Hopper form at D = 32, 64, 128, the mma.sync
@@ -93,9 +95,12 @@ Phases, in order; any failure exits non-zero before a result is printed:
    modes each) and of
    both passes of both forms of H2 (H7, 8 modes each; the Hopper form's
    dk/dv pass over the union spans it walks) and the four ceiling probes
-   (H8), each against its plain version under the gate its tool's
+   (H8; the streaming ones, dma and dma_t, in both forms, the Hopper form
+   ``probes_sm90.cu`` and the cp.async form ``probes.cu``, and dma also in
+   2-CTA pairs), each against its plain version under the gate its tool's
    ``check`` states (H6 on both forms against the plain version of the
-   form's walk, the Hopper form's ``baseline`` bit-equal to H1); then each
+   form's walk, the Hopper form's ``baseline`` bit-equal to H1; H8's
+   Hopper forms and pairs bit-equal to the cp.async form); then each
    tool's own run at the main shapes (H5 beside
    H1, every mode and probe timed beside the bound of the work it keeps,
    H6 and H8 on the inference batch, H7 on the 50k train batch), with the
@@ -114,7 +119,10 @@ Phases, in order; any failure exits non-zero before a result is printed:
    H6 ``baseline``, H2's and H7 ``real``) within 3% of their times before
    the ablation modes were added, on the card those were taken on
    (``REF_CARD``; logged on any other); H2's Hopper form faster than its
-   mma.sync form, its time logged beside it and the library's.
+   mma.sync form, its time logged beside it and the library's; H8's
+   Hopper forms and pairs bit-equal to the cp.async form there too, and
+   each Hopper form faster than its cp.async form (fastest of 8 calls each,
+   on the card alone; the pairs are timed beside them, not gated).
 
 The last three lines are the kernels' JSON, the measurements' JSON and
 ``{"ok": true, "device": {...}}``.
@@ -930,6 +938,7 @@ def main(argv):
         f'(empty: already built in {_build._build_dir()})')
     check_mode0_ptxas()
     sm90_usage = check_sm90_ptxas()
+    h8_ptxas = check_probes_sm90_ptxas()
 
     # 3. kernels vs plain versions
     H = MODEL['attention_heads']
@@ -1129,7 +1138,7 @@ def main(argv):
     probe_kernels = check_probes(
         dev, {'ms': h1_ms, 'mma_sync_ms': h1_mma_sync_ms},
         {'ms': h2_ms, 'mma_sync_ms': mma_sync_ms, 'library_ms': h2_lib_ms},
-        card)
+        card, h8_ptxas)
 
     train_launches = {key: c['launches'] for key, c in cells.items()}
     kernels = [
@@ -1663,16 +1672,19 @@ SM90_PRODUCTION = {
 H6_SPILLS = {'noqk': (24, 24, 36)}
 
 
-def sm90_ptxas_usage(build_log: str) -> dict:
+def sm90_ptxas_usage(build_log: str,
+                     kernels: str = r'bwd_(?:dkv|dq)|flash_fwd') -> dict:
     """``{(kernel, head dim, *params): (registers, stack frame, spill
     stores, spill loads)}`` of H1's and H2's Hopper kernels in ``nvcc
     -Xptxas -v`` output, ``params`` the template parameters after D: H1's
     layout (0 for H1, 1 for H5) and mode (0 the production kernel, else
-    H6's), H2's mode (0 the production pass, else H7's)."""
+    H6's), H2's mode (0 the production pass, else H7's). ``kernels``
+    matches the names before ``_sm90_kernel`` (H8's ``stream``: its
+    template parameters, layout and cluster size, stand in D's place)."""
     usage, name, frame = {}, None, None
     for line in build_log.splitlines():
-        m = re.search(r'Function properties for \S*?\d((?:bwd_(?:dkv|dq)|'
-                      r'flash_fwd)_sm90_kernel)I((?:Li\d+E)+)E', line)
+        m = re.search(r'Function properties for \S*?\d((?:' + kernels +
+                      r')_sm90_kernel)I((?:Li\d+E)+)E', line)
         if m:
             name = (m.group(1), *map(int, re.findall(r'Li(\d+)E',
                                                      m.group(2))))
@@ -1765,10 +1777,36 @@ def check_sm90_ptxas():
     return out
 
 
-def check_probes(dev, h1, h2, card):
+# H8's Hopper kernels (csrc/probes_sm90.cu) by (layout, cluster size): dma
+# alone and in pairs, dma_t
+H8_SM90_KERNELS = ((0, 1), (0, 2), (1, 1))
+
+
+def check_probes_sm90_ptxas():
+    """H8's Hopper kernels as built: each of ``H8_SM90_KERNELS`` without a
+    stack frame or spills; fail otherwise. Logs their ``ptxas`` lines and
+    returns them."""
+    from esme_tpu_torch import _build
+    usage = sm90_ptxas_usage(_build.build_log('probes_sm90'), 'stream')
+    for (kernel, *p), (regs, *frame) in sorted(usage.items()):
+        log(f'ptxas: probes_sm90 {kernel}<layout {p[0]}, cluster {p[1]}>: '
+            f'{regs} registers, stack {frame[0]}, spill stores {frame[1]}, '
+            f'spill loads {frame[2]}')
+    for layout, cluster in H8_SM90_KERNELS:
+        got = usage.get(('stream_sm90_kernel', layout, cluster))
+        if got is None or any(got[1:]):
+            fail(f'ptxas: H8\'s stream_sm90_kernel<{layout}, {cluster}> has '
+                 f'a stack frame or spills, or is missing: {got}')
+    return {f'stream_sm90_kernel layout={layout} cluster={cluster}':
+            usage[('stream_sm90_kernel', layout, cluster)]
+            for layout, cluster in H8_SM90_KERNELS}
+
+
+def check_probes(dev, h1, h2, card, h8_ptxas):
     """Phase 8: the probe tools' kernels H5-H8 (see the module docstring).
-    ``h1`` and ``h2`` hold phase 7's times of H1 and H2. Returns the probes'
-    entries of the kernels line."""
+    ``h1`` and ``h2`` hold phase 7's times of H1 and H2, ``h8_ptxas`` the
+    ``ptxas`` lines of H8's Hopper kernels. Returns the probes' entries of
+    the kernels line."""
     from esme_tpu_torch.ops import flash
     from esme_tpu_torch.tools import (BWD_SEED, FWD_SEED, attention_batch,
                                       hdt_to_thd, thd_to_hdt)
@@ -1838,11 +1876,20 @@ def check_probes(dev, h1, h2, card):
                                             library=library)
                 gate(f'H7 ({library}) {kernel} {mode} T={b8.T} vs plain',
                      tdb.check(mode, got, ref))
-    for probe, (kernel, plain) in tpa.calls(
+    # H8: each probe, the streaming ones in both forms and dma in both
+    # modes, the Hopper forms bit-equal to the cp.async form
+    outs8 = {}
+    for run, (kernel, plain) in tpa.calls(
             b8, tpa.probe_inputs(b8)).items():
-        gate(f'H8 {probe} T={b8.T} vs plain',
-             tpa.check(probe, kernel(), plain()))
-    del b8, args8, bargs8, lse8, delta8
+        outs8[run] = kernel()
+        gate(f'H8 {run} ({tpa.RUNS[run][1]}) T={b8.T} vs plain',
+             tpa.check(run, outs8[run], plain()))
+    for run, ref in tpa.SAME_AS.items():
+        if not torch.equal(outs8[run], outs8[ref]):
+            fail(f'H8 {run} at T={b8.T} is not bit-equal to {ref}')
+    log(f'H8 T={b8.T}: {", ".join(tpa.SAME_AS)} bit-equal to their cp.async '
+        'form')
+    del b8, args8, bargs8, lse8, delta8, outs8
     torch.cuda.empty_cache()
 
     # 8b. each tool's own run at the main shapes, the launch counters set
@@ -1989,19 +2036,44 @@ def check_probes(dev, h1, h2, card):
         'mma_sync_form_plain_ms': h6_plain_ms[mma_sync6],
         'shape': f'T={b.T} H={H} D={D} bf16'})
 
-    # H8 probes over H1's steps
+    # H8 probes over H1's steps: every run (the streaming probes in both
+    # forms, dma in both modes) under its gate, the Hopper forms bit-equal
+    # to the cp.async form; each Hopper form faster than its cp.async form
+    # (fastest of 8 calls each, on the card alone)
     r8, l8 = tool_run('profile_attn.measure', H8_NAMES,
                       lambda: tpa.measure(b, reps=20))
-    plains = {p: cuda_ms(plain, reps=2) for p, (_, plain) in tpa.calls(
-        b, tpa.probe_inputs(b)).items()}
+    for run in tpa.RUNS:
+        if not r8[run]['ok']:
+            fail(f'H8 {run} disagrees with its plain version')
+    for run, ref in tpa.SAME_AS.items():
+        if not r8[run]['bit_equal']:
+            fail(f'H8 {run} is not bit-equal to {ref} at the main shape')
+    calls8 = tpa.calls(b, tpa.probe_inputs(b))
+    plains = {p: cuda_ms(calls8[p][1], reps=2) for p in tpa.PROBES}
+    kT8, vT8 = (thd_to_hdt(x, H) for x in (b.k, b.v))
+    fastest8 = {
+        'dma': fastest_calls(f'H8 dma at T={b.T}', {
+            'probes_sm90': lambda: tpa.launch_dma('probes_sm90', b.q, b.k,
+                                                  b.v, ks, ke, H),
+            'pair': lambda: tpa.launch_dma('probes_sm90', b.q, b.k, b.v, ks,
+                                           ke, H, cluster=2),
+            'probes': lambda: tpa.launch_dma('probes', b.q, b.k, b.v, ks, ke,
+                                             H)}),
+        'dma_t': fastest_calls(f'H8 dma_t at T={b.T}', {
+            'probes_sm90': lambda: tpa.launch_dma_t('probes_sm90', kT8, vT8,
+                                                    ks, ke),
+            'probes': lambda: tpa.launch_dma_t('probes', kT8, vT8, ks,
+                                               ke)})}
+    for probe, fastest in fastest8.items():
+        if not fastest['probes_sm90']['min'] < fastest['probes']['min']:
+            fail(f'H8 {probe}\'s Hopper form is not faster than its cp.async '
+                 'form')
     k3 = b.k.view(b.T, H, D)
     lib_ms = cuda_ms(lambda: k3.permute(1, 2, 0).contiguous(), reps=20,
                      warmup=2)
     for probe, line in zip(tpa.PROBES, (81, 115, 155, 209)):
         r = r8[probe]
-        if not r['ok']:
-            fail(f'H8 {probe} disagrees with its plain version')
-        kernels.append({
+        entry = {
             'name': f'probe_{probe}', 'route': 'cuda',
             'source': 'esme_tpu_torch/csrc/probes.cu',
             'replaces': f'tools/profile_attn.py:{line}',
@@ -2010,8 +2082,36 @@ def check_probes(dev, h1, h2, card):
             'bound_ms': r['bound_ms'], 'bound_by': r['bound_by'],
             'library_ms': lib_ms if probe.startswith('dma') else None,
             'tile_bytes': r['tile_bytes'], 'h1_ms': r8['h1']['ms'],
-            'shape': f'T={b.T} H={H} D={D}, H1\'s steps'})
-    del b, args, k3
+            'shape': f'T={b.T} H={H} D={D}, H1\'s steps'}
+        if probe in fastest8:
+            cp = r8[f'{probe}_cp_async']
+            entry.update({
+                'source': 'esme_tpu_torch/csrc/probes_sm90.cu',
+                'forms': {'probes_sm90': 'esme_tpu_torch/csrc/'
+                          'probes_sm90.cu',
+                          'probes': 'esme_tpu_torch/csrc/probes.cu'},
+                'l2_tb_per_s': r['l2_tb_per_s'], 'cp_async_form_ms': cp['ms'],
+                'cp_async_l2_tb_per_s': cp['l2_tb_per_s'],
+                'cp_async_max_abs_err': cp['err'],
+                'bit_equal_to_cp_async': r['bit_equal'],
+                'fastest_ms': fastest8[probe], 'ptxas': h8_ptxas})
+            if probe == 'dma':
+                pair = r8['dma_pair']
+                entry.update({
+                    'pair_ms': pair['ms'], 'pair_tile_bytes':
+                    pair['tile_bytes'], 'pair_l2_tb_per_s':
+                    pair['l2_tb_per_s'], 'pair_max_abs_err': pair['err'],
+                    'pair_bit_equal_to_cp_async': pair['bit_equal']})
+        kernels.append(entry)
+        if probe in fastest8:
+            log(f'H8 {probe}: ' + '; '.join(
+                f'{run} {r8[run]["ms"]:.4f} ms, tiles '
+                f'{r8[run]["tile_bytes"] / 1e9:.3f} GB'
+                + ('' if r8[run]['l2_tb_per_s'] is None else
+                   f' at {r8[run]["l2_tb_per_s"]:.3f} TB/s')
+                for run in tpa.RUNS if tpa.RUNS[run][0] == probe)
+                + f'; bound {r["bound_ms"]:.4f} ms by {r["bound_by"]}')
+    del b, args, k3, kT8, vT8, calls8
     torch.cuda.empty_cache()
 
     # H7 at the train shape: every mode of each pass of both forms timed;

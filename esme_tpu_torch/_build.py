@@ -81,6 +81,11 @@ SIGNATURES = {
         'esme_probe_dma_t': (I, [P] * 5 + [I, I, P]),
         'esme_probe_error_string': (ctypes.c_char_p, [I]),
     },
+    'probes_sm90': {
+        'esme_probe_dma_sm90': (I, [P] * 6 + [I, I, I, P]),
+        'esme_probe_dma_t_sm90': (I, [P] * 5 + [I, I, P]),
+        'esme_probe_sm90_error_string': (ctypes.c_char_p, [I]),
+    },
     'headsplit': {
         'esme_relayout_heads': (I, [P] * 6 + [I] * 4
                                 + [P, P, I, I, I, I, P]),

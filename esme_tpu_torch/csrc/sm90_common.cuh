@@ -30,6 +30,8 @@
 
 #include <cuda.h>
 
+#include <utility>
+
 #include "flash_common.cuh"
 
 namespace esme {
@@ -164,6 +166,62 @@ __device__ __forceinline__ void fence_proxy_async() {
 // Barrier `id` (1-15; 0 is __syncthreads) over `threads` threads
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Thread block clusters (launched by launch_clustered)
+// ---------------------------------------------------------------------------
+
+// This CTA's rank in its cluster (blockIdx.x % cluster size along x)
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every CTA of the cluster; orders the shared-memory
+// writes before it (barrier initialisation included) before the cluster's
+// accesses after it. A CTA must not exit while another CTA of its cluster
+// may still arrive on its barriers or multicast into it: end with one.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+// Arrive on the barrier at `bar`'s offset in the shared memory of CTA
+// `rank` of this cluster (this CTA's own at its own rank); its owner waits
+// on it with mbar_wait. The default semantics, as CUTLASS's cluster
+// pipelines hand a stage back to a TMA multicast: on the H100 the
+// .release.cluster arrive with an .acquire.cluster wait made a ring shared
+// by two CTAs 1.9x as slow.
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
+                                                    uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(
+          smem_u32(bar)),
+      "r"(rank)
+      : "memory");
+}
+
+// tma_load_2d into the same offset of the shared memory of every CTA of
+// the cluster in `ctas` (bit r: rank r), each completing the box's bytes
+// on the barrier at `bar`'s offset in its own shared memory: one read of
+// the box from L2 for all of them.
+__device__ __forceinline__ void tma_load_2d_multicast(void* dst,
+                                                      const CUtensorMap* map,
+                                                      uint64_t* bar, int x,
+                                                      int y, uint16_t ctas) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes.multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x), "r"(y),
+      "h"(ctas)
+      : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -401,6 +459,27 @@ cudaError_t token_map(CUtensorMap* map, const void* base, int T, int HD) {
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Launch `kernel` in clusters of `cluster` CTAs along x (grid.x a
+// multiple of it). Returns the launch's error.
+template <typename... Params, typename... Args>
+cudaError_t launch_clustered(void (*kernel)(Params...), dim3 grid,
+                             dim3 block, size_t smem, cudaStream_t stream,
+                             int cluster, Args&&... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
 }
 
 }  // namespace sm90

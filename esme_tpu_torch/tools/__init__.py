@@ -7,10 +7,12 @@ experiments K14-K17, each with its Pallas kernels ported to Hopper.
   the forward costs;
 - :mod:`.decompose_bwd` — H2's ablation modes (K15), the same for each
   backward kernel;
-- :mod:`.profile_attn` — ceiling probes of H1's passes alone (K16);
-- :mod:`.sm90_ab` — a variant of H1's or H2's Hopper source timed against
-  the source (no TPU counterpart; on the card only, with the library's
-  name and the variant's path as its arguments).
+- :mod:`.profile_attn` — ceiling probes of H1's passes alone (K16; the
+  streaming ones in a Hopper and a cp.async form);
+- :mod:`.sm90_ab` — a variant of a Hopper source (H1's, H2's, H4's vec
+  kernel, H8's streaming probes) timed against the source (no TPU
+  counterpart; on the card only, with the form's name and the variant's
+  path as its arguments).
 
 Each of the first four runs as ``python -m esme_tpu_torch.tools.<name>``: on the card by
 default (ESM2-650M's attention, H = 20, D = 64, bf16, on ``bench.py``'s

@@ -1,26 +1,30 @@
-"""Time a variant of H1's, H2's or H5's Hopper source, or of H4's, against
-the source.
+"""Time a variant of H1's, H2's or H5's Hopper source, or of H4's or H8's,
+against the source.
 
     python -m esme_tpu_torch.tools.sm90_ab FORM VARIANT.cu
 
 ``FORM`` is ``flash_fwd_sm90`` (H1), ``flash_bwd_sm90`` (H2),
-``fwd_T_sm90`` (H5's Hopper form, H1's kernel on token-minor operands)
-or ``headsplit_vec`` (H4's vec kernel), and ``VARIANT.cu`` a copy of the
-form's source, ``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_sm90.cu`` or
-``csrc/headsplit.cu``, with one change to measure: it keeps the
+``fwd_T_sm90`` (H5's Hopper form, H1's kernel on token-minor operands),
+``headsplit_vec`` (H4's vec kernel) or ``probes_sm90`` (H8's streaming
+probes on Hopper), and ``VARIANT.cu`` a copy of the form's source,
+``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_sm90.cu``,
+``csrc/headsplit.cu`` or ``csrc/probes_sm90.cu``, with one change to
+measure: it keeps the
 source's C entries and may include the headers of ``csrc``. Both build
 with ``_build``'s flags (the variant into ``build/esme_tpu_torch/variant/``),
 run on ``bench.py``'s 50k batch at ESM2-650M's attention (H = 20, D = 64,
 bf16; H1 and H5 on the inference batch, H5's operands made token-minor,
 H2 on the masked-LM batch; H4 on the inference batch's q, k, v and
-positions, in each move with a token-minor side that the ops make)
-through the wrapper's launch (``ops/flash.py:launch_fwd``, ``launch_bwd``,
-``tools/fwd_T_experiment.py:launch_fwd_T``,
-``ops/headsplit.py:launch_relayout('vec', ...)``) and are timed with CUDA
+positions, in each move with a token-minor side that the ops make; H8's
+dma, alone and in pairs, and dma_t, on the inference batch over H1's
+spans) through the wrapper's launch (``ops/flash.py:launch_fwd``,
+``launch_bwd``, ``tools/fwd_T_experiment.py:launch_fwd_T``,
+``ops/headsplit.py:launch_relayout('vec', ...)``,
+``tools/profile_attn.py:launch_dma``, ``launch_dma_t``) and are timed with CUDA
 events, 20 calls a side, in the order source, variant, variant, source.
 Prints the variant's ``ptxas`` lines, each side's ms, the variant's ratio
-and whether its outputs (o and lse; dq, dk and dv; the moved tensors) are
-bit-equal to the source's. On the card only.
+and whether its outputs (o and lse; dq, dk and dv; the moved tensors; the
+probes' outputs) are bit-equal to the source's. On the card only.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from ..ops import headsplit
 from ..ops.rotary import rotary_cos_sin
 from .decompose_bwd import backward_inputs
 from .fwd_T_experiment import launch_fwd_T
+from . import profile_attn
 
 
 def forward_args():
@@ -93,6 +98,27 @@ def launch_vec(library, *args, lib=None):
     return headsplit.launch_relayout('vec', *args, lib=lib)
 
 
+def probe_cases():
+    """H8's streaming probes on the inference batch over H1's spans: dma
+    alone and in pairs, dma_t on k and v made token-minor: ``{case:
+    (probe, cluster size, the launch's arguments)}``."""
+    b = attention_batch(seed=FWD_SEED)
+    ks, ke = b.spans[:2]
+    kT, vT = (thd_to_hdt(x, b.H) for x in (b.k, b.v))
+    dma = (b.q, b.k, b.v, ks, ke, b.H)
+    return {'dma': ('dma', 1, dma), 'dma pair': ('dma', 2, dma),
+            'dma_t': ('dma_t', 1, (kT, vT, ks, ke))}
+
+
+def launch_probe(library, probe, cluster, args, lib=None):
+    """One of H8's streaming probes on ``library``'s form (``probes_sm90``),
+    its output as a tuple."""
+    if probe == 'dma':
+        return (profile_attn.launch_dma(library, *args, cluster=cluster,
+                                        lib=lib),)
+    return (profile_attn.launch_dma_t(library, *args, lib=lib),)
+
+
 # form -> (its library, its cases: name -> the wrapper's arguments, its
 # launch)
 SOURCES = {
@@ -103,6 +129,7 @@ SOURCES = {
     'fwd_T_sm90': ('flash_fwd_sm90', lambda: {'H5': token_minor_args()},
                    launch_fwd_T),
     'headsplit_vec': ('headsplit', relayout_cases, launch_vec),
+    'probes_sm90': ('probes_sm90', probe_cases, launch_probe),
 }
 
 

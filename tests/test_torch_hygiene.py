@@ -109,16 +109,17 @@ def test_cpu_tools_launch_no_kernel(monkeypatch):
 
 
 def test_bwd_ab_runs_only_on_a_card(monkeypatch, tmp_path):
-    """The A/B tool of H1's, H2's and H5's Hopper sources and H4's vec
-    kernel (``tools/sm90_ab.py``) refuses to run without a card, before it
-    builds anything, and takes only those forms."""
+    """The A/B tool of H1's, H2's and H5's Hopper sources, H4's vec
+    kernel and H8's Hopper streaming probes (``tools/sm90_ab.py``) refuses
+    to run without a card, before it builds anything, and takes only
+    those forms."""
     if torch.cuda.is_available():
         pytest.skip('a CUDA card is present: the tool runs for real')
     from esme_tpu_torch import _build
     from esme_tpu_torch.tools import sm90_ab
     monkeypatch.setattr(_build, 'BUILD_ROOT', tmp_path / 'build')
     for library in ('flash_fwd_sm90', 'flash_bwd_sm90', 'fwd_T_sm90',
-                    'headsplit_vec'):
+                    'headsplit_vec', 'probes_sm90'):
         with pytest.raises(RuntimeError, match='needs a card'):
             sm90_ab.main([library, str(tmp_path / 'variant.cu')])
     with pytest.raises(SystemExit):
@@ -199,7 +200,7 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
     assert sorted(p.name for p in _build.CSRC.glob('*.cu')) == \
         ['flash_bwd.cu', 'flash_bwd_sm90.cu', 'flash_fwd.cu',
          'flash_fwd_sm90.cu', 'flash_fwd_t.cu', 'headsplit.cu', 'probes.cu',
-         'rope.cu']
+         'probes_sm90.cu', 'rope.cu']
     # every library has its C signatures
     assert sorted(_build.SIGNATURES) == sorted(
         p.stem for p in _build.CSRC.glob('*.cu'))

@@ -750,21 +750,74 @@ def test_bwd_variant_kernel_matches_plain(cuda, mode, kernel, library):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('probe', tpa.PROBES)
+@pytest.mark.parametrize('probe', list(tpa.RUNS))
 def test_probe_kernel_matches_plain(cuda, probe):
+    """Each H8 run (the streaming probes in both forms, dma alone and in
+    pairs) under its gate against its plain version; the Hopper forms and
+    the pairs bit-equal to the cp.async form."""
     from types import SimpleNamespace
     H, D, T = 4, 64, 3072
     q, k, v, seg = _packed([30, 7, 250, 900, 2, 400, 1000], T, H, D, cuda,
                            seed=10)
     b = SimpleNamespace(q=q, k=k, v=v, seg=seg, H=H, D=D, T=T, device=cuda,
                         spans=flash.flash_spans(seg))
-    counter = getattr(tpa, probe)
+    counter = getattr(tpa, tpa.RUNS[probe][0])
     before = counter.launches
-    kernel, plain = tpa.calls(b, tpa.probe_inputs(b))[probe]
+    runs = tpa.calls(b, tpa.probe_inputs(b))
+    kernel, plain = runs[probe]
     got, ref = kernel(), plain()
     torch.cuda.synchronize()
     assert counter.launches == before + 1
     assert tpa.check(probe, got, ref)['ok']
+    if probe in tpa.SAME_AS:
+        assert torch.equal(got, runs[tpa.SAME_AS[probe]][0]())
+
+
+def _stream_case(case, dev):
+    """H8's streaming probes' edge cases: (q, k, v, kstart, kend, H)."""
+    H, D = 4, 64
+    T = {'ragged': 3048, 'wrap': 3072, 'zero': 3072, 'odd_nqb': 2944}[case]
+    q, k, v, seg = _packed([30, 7, 250, 900, 2, 400, 1000], T, H, D, dev,
+                           seed=12)
+    ks, ke = flash.flash_spans(seg)[:2]
+    nqb, nkb = -(-T // 128), -(-T // 64)
+    i = torch.arange(nqb, dtype=torch.int32, device=dev)
+    if case == 'wrap':        # late blocks walk past the last tile
+        ks, ke = torch.zeros_like(i), ((i * 7) % 17 + nkb - nqb).int()
+    elif case == 'zero':      # no steps: a whole pair, each half of others
+        ke = torch.where((i % 6 == 2) | (i % 6 == 3) | (i % 5 == 0), ks, ke)
+    return q, k, v, ks.contiguous(), ke.contiguous(), H
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['ragged', 'wrap', 'zero', 'odd_nqb'])
+def test_streaming_probes_edge_cases(cuda, case):
+    """dma (alone and in pairs) and dma_t on both forms at a T that is not
+    a multiple of 64, on walks past the last tile, with blocks of no steps
+    and with an odd number of q blocks (a pair's second CTA without a
+    block): each under its gate against its plain version, the Hopper
+    forms bit-equal to the cp.async form."""
+    q, k, v, ks, ke, H = _stream_case(case, cuda)
+    T = q.shape[0]
+    if case == 'wrap':
+        assert bool(((torch.arange(ks.numel(), device=cuda) + ke - ks)
+                     > -(-T // 64)).any())
+    if case == 'odd_nqb':
+        assert ks.numel() % 2 == 1
+    kT, vT = _tm(k, H), _tm(v, H)
+    n = ke - ks
+    ref = tpa.dma_plain(q, k, v, n, H)
+    ref_t = tpa.dma_t_plain(kT, vT, n)
+    base = tpa.dma(q, k, v, ks, ke, H, library='probes')
+    base_t = tpa.dma_t(kT, vT, ks, ke, library='probes')
+    assert tpa.check('dma', base, ref)['ok']
+    assert tpa.check('dma_t', base_t, ref_t)['ok']
+    for cluster in (1, 2):
+        got = tpa.dma(q, k, v, ks, ke, H, cluster=cluster)
+        assert tpa.check('dma', got, ref)['ok'] and torch.equal(got, base)
+    got_t = tpa.dma_t(kT, vT, ks, ke)
+    assert tpa.check('dma_t', got_t, ref_t)['ok'] and torch.equal(got_t,
+                                                                  base_t)
 
 
 @pytest.mark.cuda
@@ -792,6 +845,17 @@ def test_probe_tool_kernels_refuse_what_they_do_not_take(cuda):
                         q.float(), lse, lse, seg, *spans, H)
     with pytest.raises(TypeError, match='float32'):
         tpa.vpu(q[:128, :64].contiguous(), ks, ke, H)
-    with pytest.raises(ValueError, match='T a multiple of 8'):
-        kT = torch.zeros((H, 64, 124), dtype=torch.bfloat16, device=cuda)
-        tpa.dma_t(kT, kT, ks, ke)
+    for library in tpa.FORMS:
+        with pytest.raises(ValueError, match='T a multiple of 8'):
+            kT = torch.zeros((H, 64, 124), dtype=torch.bfloat16, device=cuda)
+            tpa.dma_t(kT, kT, ks, ke, library=library)
+        with pytest.raises(TypeError, match='bfloat16'):
+            tpa.dma(q.float(), k.float(), v.float(), ks, ke, H, library)
+    with pytest.raises(ValueError, match='unknown library'):
+        tpa.dma(q, k, v, ks, ke, H, library='flash_fwd_sm90')
+    with pytest.raises(ValueError, match='cluster 2: the probes form'):
+        tpa.dma(q, k, v, ks, ke, H, library='probes', cluster=2)
+    with pytest.raises(ValueError, match='cluster 4'):
+        tpa.dma(q, k, v, ks, ke, H, cluster=4)
+    with pytest.raises(ValueError, match='head dim 32'):
+        tpa.dma(q32, k32, v32, ks, ke, H, cluster=2)

@@ -36,6 +36,7 @@ relative to the tensor's largest value: |Δ| <= 1e-5·max|ref|. NaN
 
 import functools
 import math
+import re
 import types
 
 import jax
@@ -615,3 +616,121 @@ def test_probe_wrappers_run_plain_on_cpu():
                        tpa.dma_t_plain(kT, vT, ke - ks))
     assert [f.launches for f in (tpa.vpu, tpa.mxu, tpa.dma, tpa.dma_t)] \
         == [0, 0, 0, 0]
+
+
+# ---------------------------------------------------------------------------
+# H8's streaming probes: the Hopper form's walk, forms and pair mode
+# ---------------------------------------------------------------------------
+
+def _walk_steps(seed, nqb=13, nkb=16):
+    """Random step counts in [0, nkb] with zeros (block 0, and the whole
+    pair 4, 5), odd counts, and walks past ``nkb - 1`` (block 12, alone
+    in its pair at nqb = 13)."""
+    n = np.random.default_rng(seed).integers(0, nkb + 1, nqb)
+    n[0] = n[4] = n[5] = 0
+    n[1], n[12] = 5, 7
+    return n
+
+
+@pytest.mark.parametrize('cluster', [1, 2])
+@pytest.mark.parametrize('seed', range(3))
+def test_stream_walk_covers_the_tpu_walk(cluster, seed):
+    """``stream_walk`` (the walk ``csrc/probes_sm90.cu`` launches): each
+    block's tiles, read off its unit's stages in order, are the TPU
+    probe's ``(i + j) % nkb`` for ``j < n_i``; its last one is
+    ``_last_tiles``'s; a stage holds one or two tiles, one box of two only
+    where they are adjacent and go to the same blocks, every box to some
+    block; a pair loads the union of its blocks' walks, each position
+    once, and never more than its blocks read."""
+    nqb, nkb = 13, 16
+    n = _walk_steps(seed, nqb, nkb)
+    assert any(i + m > nkb for i, m in enumerate(n))   # a walk wraps
+    units = tpa.stream_walk(n, nkb, cluster)
+    assert len(units) == -(-nqb // cluster)
+    last, read = tpa._last_tiles(torch.from_numpy(n), nqb, nkb, 1)
+    for u, stages in enumerate(units):
+        i0 = u * cluster
+        ns = [int(n[i0 + r]) if i0 + r < nqb else 0 for r in range(cluster)]
+        for stage in stages:
+            assert 1 <= sum(t for _, t, _ in stage) <= 2
+            for t0, t, mask in stage:
+                assert 0 < mask < 1 << cluster and 0 <= t0 < nkb
+                assert t == 1 or (len(stage) == 1 and t0 + 1 < nkb)
+            if len(stage) == 2:
+                (a, _, ma), (b, _, mb) = stage
+                assert b != a + 1 or mb != ma
+        for r, m in enumerate(ns):
+            tiles = [t0 + k for stage in stages for t0, t, mask in stage
+                     if mask >> r & 1 for k in range(t)]
+            assert tiles == [(i0 + r + j) % nkb for j in range(m)]
+            if m:
+                assert read[i0 + r] and tiles[-1] == int(last[i0 + r])
+        positions = {r + j for r, m in enumerate(ns) for j in range(m)}
+        assert tpa.walk_tiles([stages]) == len(positions) <= sum(ns)
+    assert (tpa.walk_tiles(units) == int(n.sum())) == (cluster == 1)
+
+
+def test_stream_walk_pairs_load_fewer_tiles():
+    """On the probe tool's batch the pair mode's ``work`` counts the tiles
+    of the pairs' runs (each shared tile once), fewer than the walks'
+    own; both forms load the same tiles one block to a CTA."""
+    from esme_tpu_torch.tools import attention_batch
+    b = attention_batch(4096, 0, device='cpu', dtype=torch.float32)
+    ks, ke = b.spans[:2]
+    tile = 2 * tflash.BLOCK_K * 64 * b.q.element_size() * b.H
+    kw, one = tpa.work('dma', b)
+    assert one == int((ke - ks).sum()) * tile
+    _, pair = tpa.work('dma', b, cluster=2)
+    units = tpa.stream_walk((ke - ks).tolist(), -(-b.T // 64), 2)
+    assert pair == tpa.walk_tiles(units) * tile and pair < 0.8 * one
+    assert tpa.work('dma', b, cluster=2)[0] == kw     # the same DRAM bytes
+
+
+@pytest.mark.parametrize('library', [None, 'probes_sm90', 'probes'])
+def test_streaming_probe_forms_run_plain_on_cpu(library):
+    """``dma`` and ``dma_t`` take a key of ``FORMS`` (the Hopper form when
+    None) and ``dma`` a cluster size of that form: on the CPU each is the
+    plain version and launches nothing. Each form's C entries are bound
+    and defined in its source."""
+    from esme_tpu_torch import _build
+    seg = torch.from_numpy(_seg(LENS, T))
+    q, k, v = (_t(_normal((T, H * D), 70 + i)) for i in range(3))
+    ks, ke = tflash.block_spans(seg, tflash.BLOCK_Q, tflash.BLOCK_K)
+    kT = k.view(T, H, D).permute(1, 2, 0).contiguous()
+    vT = v.view(T, H, D).permute(1, 2, 0).contiguous()
+    name = library or list(tpa.FORMS)[0]
+    assert name == 'probes_sm90' or library is not None
+    for cluster in tpa.FORMS[name].clusters:
+        assert torch.equal(tpa.dma(q, k, v, ks, ke, H, library, cluster),
+                           tpa.dma_plain(q, k, v, ke - ks, H))
+    assert torch.equal(tpa.dma_t(kT, vT, ks, ke, library),
+                       tpa.dma_t_plain(kT, vT, ke - ks))
+    assert tpa.dma.launches == tpa.dma_t.launches == 0
+    form = tpa.FORMS[name]
+    src = (_build.CSRC / f'{name}.cu').read_text()
+    for fn in (form.dma, form.dma_t, form.error):
+        assert fn in _build.SIGNATURES[name]
+        assert re.search(rf'^\S.* {fn}\(', src, re.M), fn
+
+
+def test_streaming_probe_arguments_refused_on_cpu():
+    """An unknown library, or a cluster size the form does not take, is
+    refused on the CPU too, before the plain version runs."""
+    q = torch.zeros((256, 2 * D))
+    kT = torch.zeros((2, D, 256))
+    ks = ke = torch.zeros(2, dtype=torch.int32)
+    for bad in ('flash_fwd_sm90', 'sm90'):
+        with pytest.raises(ValueError, match='unknown library'):
+            tpa.dma(q, q, q, ks, ke, 2, library=bad)
+        with pytest.raises(ValueError, match='unknown library'):
+            tpa.dma_t(kT, kT, ks, ke, library=bad)
+    with pytest.raises(ValueError, match='cluster 2: the probes form'):
+        tpa.dma(q, q, q, ks, ke, 2, library='probes', cluster=2)
+    for cluster in (0, 3, 4):
+        with pytest.raises(ValueError, match=f'cluster {cluster}'):
+            tpa.dma(q, q, q, ks, ke, 2, cluster=cluster)
+    assert set(tpa.RUNS) == set(tpa.calls(
+        types.SimpleNamespace(q=q, k=q, v=q, H=2, spans=(ks, ke)),
+        (None,) * 5))
+    assert all(tpa.RUNS[r][0] == tpa.RUNS[s][0]
+               for r, s in tpa.SAME_AS.items())
