@@ -37,9 +37,9 @@ Phases, in order; any failure exits non-zero before a result is printed:
    pad_args=(cu_lens, max_len))`` on ``bench.py``'s packed batch (seed
    0, 100-1000 aa, 50,000-token budget), with every launch counter set
    to 0 just before and read just after; then, on a smaller batch at
-   full depth, the port with kernels against the port with plain
-   versions and against its einsum attention path; its time (CUDA
-   events after warm-up, peak memory);
+   full depth, the port with kernels (launches exact) against the port
+   with plain versions and against its einsum attention path; its time
+   (CUDA events after warm-up, peak memory);
 5. the training path: ``MaskedPLM(model, learning_rate=1e-4)
    .training_step(batch)`` on ``bench.py``'s masked-LM batch recipe
    (lengths and tokens seed 2, masking seed 1, no loss on the tail), at
@@ -85,7 +85,8 @@ Phases, in order; any failure exits non-zero before a result is printed:
    too and timed in turn with the vec kernel (fastest of 8 calls each,
    on the card alone): the vec kernel faster where the move rotates, and
    within 3% of the tile kernel where it does not. ``--profile DIR`` also writes
-   ``torch.profiler`` tables of one forward and one train step there;
+   ``torch.profiler`` tables of one forward and one train step there (and
+   of phase 9's models' cells under ``DIR/<model>/``);
 8. the probe tools' kernels (``esme_tpu_torch/tools``, none on the model
    path, where their counters must stay 0): on the 8k check batch, H5 on
    its route (``fwd_T_route``: H1's Hopper kernel on token-minor operands
@@ -122,7 +123,23 @@ Phases, in order; any failure exits non-zero before a result is printed:
    mma.sync form, its time logged beside it and the library's; H8's
    Hopper forms and pairs bit-equal to the cp.async form there too, and
    each Hopper form faster than its cp.async form (fastest of 8 calls each,
-   on the card alone; the pairs are timed beside them, not gated).
+   on the card alone; the pairs are timed beside them, not gated);
+9. the other families: H1, H2 and H3 at ESMC's head counts (15 and 18,
+   D = 64) against their plain versions on the 8k check batch; with 15
+   heads at the main shapes, timed beside their bounds, plain versions
+   and varlen library calls; H1 and H3 with 18 heads against their plain
+   versions at the main inference shape; then ESMC-300M (30 layers, width
+   960, 15 heads), ESM1b (33, 1280, 20), ESMC-600M (36, 1152, 18) and
+   ESM1v, at full width and depth, with seeded random weights written
+   through the safetensors schema and loaded with ``ESM.from_pretrained``
+   (every leaf bit-equal): ESMC-300M, ESM1b and ESMC-600M through phase
+   4's inference cell on the main batch (launches exact: H1 once per
+   layer, H3 once per layer in ESMC and never in ESM1b), all four through
+   phase 4's comparisons on the 4k batch (ahead of the timed forwards, as
+   in phase 4), ESMC-300M and ESM1b through phase 5's ``nockpt@10k`` cell
+   and gradient checks (H3 and its inverse 0 times in ESM1b), and a
+   4,095-residue ESM1b sequence refused with ``ValueError`` before any
+   launch on both entry routes.
 
 The last three lines are the kernels' JSON, the measurements' JSON and
 ``{"ok": true, "device": {...}}``.
@@ -196,6 +213,13 @@ GRAD_MAX_REL = 0.1
 # value and the loss must be equal. (The cosine of two equal vectors
 # computed in fp32 can fall a few 1e-7 below 1.)
 REMAT_MIN_COS, REMAT_MAX_REL = 0.9999, 2.0 ** -8
+# Without RoPE (ESM1b, ESM1v) k's bias adds one constant to each row of
+# scores, which the softmax removes: its gradient is 0 in exact arithmetic,
+# and what either side computes is the bf16 rounding of ds (each row of ds
+# sums to 0 before it) summed over the keys, noise with no scale of its
+# own and no cosine to compare. That leaf is held to be noise on both
+# sides: at most ZERO_GRAD_REL of the largest gradient of k's kernel.
+ZERO_GRAD_REL = 2.0 ** -4
 
 H1_NAME, H2_NAME, H3_NAME, H4_NAME = (
     'segment_flash_fwd', 'segment_flash_bwd', 'rotary_qk', 'relayout_heads')
@@ -264,6 +288,21 @@ SMALL_BUDGET = 4096
 TRAIN_CELLS = (('nockpt', 10_000, False, 5, True),
                ('ckpt', 50_000, True, 3, False))
 FIT_BUDGET = 8192
+# Phase 9, the other families at full width and depth: (metadata name,
+# class, constructor arguments, runs). Runs: 'infer' the inference cell
+# on the main batch, 'plain' the kernels-vs-plain comparison on the 4k
+# batch, 'train' TRAIN_CELLS' nockpt@10k cell and every leaf's gradient
+# against plain versions, 'overflow' the position table's guard.
+FAMILY_RUNS = (
+    ('esmc_300m', 'ESMC', {}, ('infer', 'plain', 'train')),
+    ('esm1b', 'ESM1b', {}, ('infer', 'plain', 'train', 'overflow')),
+    ('esmc_600m', 'ESMC', dict(num_layers=36, embed_dim=1152,
+                               attention_heads=18), ('infer', 'plain')),
+    ('esm1v_t33_650m_ur90s_1', 'ESM1v', {}, ('plain',)),
+)
+# ESMC-300M's and ESMC-600M's head counts (D = 64), checked on the 8k
+# batch; the first also timed at the main shapes
+FAMILY_HEADS = (15, 18)
 DEVICE = 'cuda'
 FWD_REPS = 5           # timed forwards of the main path, after one warm-up
 # fastest_calls' spin ahead of each timed call: ~10 ms at the H100's
@@ -592,6 +631,94 @@ def compare_logp(got, ref, what):
     if not ok:
         fail(f'{what} out of gate')
     return {'min_cos': c, 'max_abs': e, 'mean_abs': m}
+
+
+def inference_run(model, batch, what, expected):
+    """One packed ``predict_log_prob(tokens, pad_args=(cu_lens,
+    max_len))`` on ``batch`` with the launch counters set to 0 just
+    before and read just after (fails unless they equal ``expected``);
+    the log-probs finite rows of the model's vocabulary that sum to 1.
+    Returns the launches."""
+    tokens, cu, max_len = batch
+    real = int(cu[-1])
+    reset_counters()
+    lp = model.predict_log_prob(tokens, pad_args=(cu, max_len))
+    torch.cuda.synchronize()
+    launches = read_counters()
+    log(f'{what} launches per forward: {launches} (expected {expected})')
+    if launches != expected:
+        fail(f'{what}: a kernel of the inference path launched {launches}, '
+             f'not {expected}')
+    V = model.config.vocab_size
+    if tuple(lp.shape) != (len(tokens), V) or lp.dtype != torch.float32:
+        fail(f'{what}: log-probs have shape {tuple(lp.shape)} {lp.dtype}')
+    lpr = lp[:real]
+    lse_err = lpr.logsumexp(-1).abs().max().item()
+    finite = bool(torch.isfinite(lp).all())
+    log(f'{what}: log-probs finite {finite}, max|logsumexp| {lse_err:.2e} '
+        f'(gate {LOGSUMEXP_ATOL})')
+    if not finite or lse_err > LOGSUMEXP_ATOL:
+        fail(f'{what}: log-probs are not finite normalised rows')
+    del lp, lpr
+    return launches
+
+
+def inference_times(model, batch, what):
+    """``FWD_REPS`` timed forwards of ``inference_run``'s call (CUDA
+    events, the first after a warm-up), the host's enqueue time and peak
+    memory: the cell's measurements."""
+    tokens, cu, max_len = batch
+    real = int(cu[-1])
+    torch.cuda.reset_peak_memory_stats()
+    samples = [cuda_ms(lambda: model.predict_log_prob(
+        tokens, pad_args=(cu, max_len)), reps=1, warmup=int(i == 0))
+        for i in range(FWD_REPS)]
+    ms = float(np.median(samples))
+    t0 = time.perf_counter()
+    model.predict_log_prob(tokens, pad_args=(cu, max_len))
+    host_ms = (time.perf_counter() - t0) * 1e3     # enqueue, no sync
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    log(f'{what}: median {ms:.2f} ms per batch of {FWD_REPS} '
+        f'(min {min(samples):.2f}, max {max(samples):.2f}), '
+        f'{real / ms * 1e3:.1f} real tokens/s, peak memory '
+        f'{peak / 2**30:.2f} GiB; host returns after {host_ms:.2f} ms')
+    torch.cuda.empty_cache()
+    return {'ms_per_batch': ms, 'ms_per_batch_samples': samples,
+            'real_tokens_per_s': real / ms * 1e3,
+            'peak_mem_gib': peak / 2**30, 'host_enqueue_ms': host_ms}
+
+
+def plain_checks(model, what):
+    """At full depth on the 4k batch (bench.py's recipe, seed 2): the
+    model with kernels, its launches exact (H1 per layer, H3 per layer
+    where it has RoPE), against the model with the kernels' plain
+    versions and against its einsum attention path, under phase 4's
+    gates."""
+    cfg = model.config
+    L = cfg.num_layers
+    stok, scu, sml = packed_batch(SMALL_BUDGET, seed=2)
+    sreal = int(scu[-1])
+    reset_counters()
+    small = model.predict_log_prob(stok, pad_args=(scu, sml))[:sreal]
+    torch.cuda.synchronize()
+    expect_launches(f'{what}{L} layers, {sreal} tokens', read_counters(),
+                    **{H1_NAME: L, H3_NAME: L if cfg.rotary else 0})
+    with plain_versions():
+        small_plain = model.predict_log_prob(stok, pad_args=(scu, sml))
+    small_ref = model.predict_log_prob(stok, pad_args=(scu, sml),
+                                       attn_impl='reference')
+    checks = {
+        'vs_plain': compare_logp(small, small_plain[:sreal],
+                                 f'{what}{L} layers, {sreal} tokens: kernels '
+                                 f'vs plain versions'),
+        'vs_einsum': compare_logp(small, small_ref[:sreal],
+                                  f'{what}{L} layers, {sreal} tokens: kernels '
+                                  f'vs einsum attention'),
+    }
+    del small, small_plain, small_ref
+    torch.cuda.empty_cache()
+    return checks
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -978,57 +1105,11 @@ def main(argv):
     real = int(cu[-1])
     log(f'main batch: {len(cu) - 1} sequences, {real} real tokens, '
         f'budget {BUDGET}, max_len {max_len}')
-    reset_counters()
-    lp = model.predict_log_prob(tokens, pad_args=(cu, max_len))
-    torch.cuda.synchronize()
-    launches = read_counters()
     L = model.config.num_layers
-    log(f'inference path launches per forward: {launches} (expected one of '
-        f'H1 and H3 per layer, no H4)')
-    if launches != expected_launches(**{H1_NAME: L, H3_NAME: L}):
-        fail(f'the inference path did not launch H1 and H3 once per layer: '
-             f'{launches}')
-    if tuple(lp.shape) != (BUDGET, 33) or lp.dtype != torch.float32:
-        fail(f'log-probs have shape {tuple(lp.shape)} {lp.dtype}')
-    lpr = lp[:real]
-    lse_err = lpr.logsumexp(-1).abs().max().item()
-    finite = bool(torch.isfinite(lp).all())
-    log(f'log-probs finite {finite}, max|logsumexp| {lse_err:.2e} '
-        f'(gate {LOGSUMEXP_ATOL})')
-    if not finite or lse_err > LOGSUMEXP_ATOL:
-        fail('main path log-probs are not finite normalised rows')
-
-    stok, scu, sml = packed_batch(SMALL_BUDGET, seed=2)
-    sreal = int(scu[-1])
-    small = model.predict_log_prob(stok, pad_args=(scu, sml))[:sreal]
-    with plain_versions():
-        small_plain = model.predict_log_prob(stok, pad_args=(scu, sml))
-    small_ref = model.predict_log_prob(stok, pad_args=(scu, sml),
-                                       attn_impl='reference')
-    model_checks = {
-        'vs_plain': compare_logp(small, small_plain[:sreal],
-                                 f'{L} layers, {sreal} tokens: kernels vs '
-                                 f'plain versions'),
-        'vs_einsum': compare_logp(small, small_ref[:sreal],
-                                  f'{L} layers, {sreal} tokens: kernels vs '
-                                  f'einsum attention'),
-    }
-    del small, small_plain, small_ref, lp, lpr
-
-    torch.cuda.reset_peak_memory_stats()
-    fwd_samples = [cuda_ms(lambda: model.predict_log_prob(
-        tokens, pad_args=(cu, max_len)), reps=1, warmup=int(i == 0))
-        for i in range(FWD_REPS)]
-    fwd_ms = float(np.median(fwd_samples))
-    t0 = time.perf_counter()
-    model.predict_log_prob(tokens, pad_args=(cu, max_len))
-    host_ms = (time.perf_counter() - t0) * 1e3     # enqueue, no sync
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
-    log(f'inference path: median {fwd_ms:.2f} ms per batch of {FWD_REPS} '
-        f'(min {min(fwd_samples):.2f}, max {max(fwd_samples):.2f}), '
-        f'{real / fwd_ms * 1e3:.1f} real tokens/s, peak memory '
-        f'{peak / 2**30:.2f} GiB; host returns after {host_ms:.2f} ms')
+    launches = inference_run(model, (tokens, cu, max_len), 'inference path',
+                             expected_launches(**{H1_NAME: L, H3_NAME: L}))
+    model_checks = plain_checks(model, '')
+    infer = inference_times(model, (tokens, cu, max_len), 'inference path')
     if profile_dir:
         _profile(lambda: model.predict_log_prob(tokens,
                                                 pad_args=(cu, max_len)),
@@ -1140,6 +1221,10 @@ def main(argv):
         {'ms': h2_ms, 'mma_sync_ms': mma_sync_ms, 'library_ms': h2_lib_ms},
         card, h8_ptxas)
 
+    # 9. the other families
+    family_kernels, families = check_families(
+        dev, MaskedPLM, (tokens, cu, max_len), profile_dir)
+
     train_launches = {key: c['launches'] for key, c in cells.items()}
     kernels = [
         {'name': H1_NAME, 'route': 'cuda',
@@ -1219,6 +1304,7 @@ def main(argv):
          'modes': h4_modes, 'shape': f'T={T} H={H} D={D} bf16',
          'bytes': h4['bytes']},
         *probe_kernels,
+        *family_kernels,
     ]
     for kd in kernels:
         log(f"{kd['name']}: {kd['ms']:.4f} ms (bound {kd['bound_ms']:.4f} "
@@ -1229,13 +1315,12 @@ def main(argv):
         'card': card, 'model': f'ESM2 {MODEL} bf16, seed-0 random weights',
         'batch': f'bench.py seed 0: {len(cu) - 1} seqs, {real} real tokens, '
         f'budget {BUDGET}',
-        'ms_per_batch': fwd_ms, 'ms_per_batch_samples': fwd_samples,
-        'real_tokens_per_s': real / fwd_ms * 1e3,
-        'peak_mem_gib': peak / 2**30, 'host_enqueue_ms': host_ms,
+        **infer,
         'train': cells, 'grad_checks': grad_checks, 'op_api': ops,
         'inference_batch_unmasked_units': h1_units,
         'train_batch_unmasked_units': units,
-        'fit_losses': fit_losses, 'build_s': build_s,
+        'fit_losses': fit_losses, 'families': families,
+        'build_s': build_s,
         'model_checks': model_checks, 'torch': torch.__version__,
         'cuda': torch.version.cuda,
         'wall_s': time.perf_counter() - t_start,
@@ -1245,6 +1330,237 @@ def main(argv):
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)
+
+
+def family_model(name, cls_name, kwargs, seed, dev, tmp):
+    """``cls_name(**kwargs)`` with weights from ``seed`` on the card,
+    written through the safetensors schema as ``name`` and loaded back
+    with ``ESM.from_pretrained``: the loaded model must be of the same
+    class and config, every leaf bit-equal."""
+    import esme_tpu_torch
+    t0 = time.perf_counter()
+    src = getattr(esme_tpu_torch, cls_name)(**kwargs, rng=seed, device=dev)
+    path = os.path.join(tmp, f'{name}.safetensors')
+    src.save_pretrained(path, name=name)
+    t1 = time.perf_counter()
+    model = esme_tpu_torch.ESM.from_pretrained(path, device=dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    size = os.path.getsize(path)
+    os.remove(path)
+    if type(model) is not type(src) or model.config != src.config \
+            or model.name != name:
+        fail(f'{name}: from_pretrained gave {type(model).__name__} '
+             f'{model.config} named {model.name}')
+    for leaf, a, b in _leaf_pairs(model.params, src.params):
+        if not torch.equal(a, b):
+            fail(f'{name}: {leaf} changed through the safetensors file')
+    n_params = sum(p.numel() for p in _leaves(model.params))
+    del src
+    torch.cuda.empty_cache()
+    cfg = model.config
+    log(f'{name}: {type(model).__name__} {cfg.num_layers} layers, width '
+        f'{cfg.embed_dim}, {cfg.attention_heads} heads, vocab '
+        f'{cfg.vocab_size}, {n_params:,} params; init and write '
+        f'{t1 - t0:.1f} s, load {t2 - t1:.1f} s ({size / 2**30:.2f} GiB), '
+        'every leaf bit-equal')
+    return model, n_params
+
+
+def check_overflow(model, what):
+    """A sequence wider than the learned position table raises
+    ``ValueError`` before any launch, on the ``pad_args`` route and the
+    padded route; one at the table's width runs."""
+    from esme_tpu_torch import Alphabet
+    n = model.config.learned_positions
+    rng = np.random.default_rng(3)
+
+    def seq(residues):
+        return np.concatenate([[Alphabet.cls_idx],
+                               rng.integers(4, 24, residues),
+                               [Alphabet.eos_idx]]).astype(np.int32)
+    over = seq(n - 1)
+    calls = {'pad_args': lambda: model.predict_log_prob(
+        over, pad_args=(np.array([0, n + 1], np.int32), n + 1)),
+        'padded': lambda: model.predict_log_prob(over[None])}
+    torch.cuda.synchronize()
+    reset_counters()
+    for route, call in calls.items():
+        try:
+            call()
+        except ValueError as e:
+            log(f'{what}: {n - 1} residues on the {route} route: '
+                f'ValueError({e})')
+        else:
+            fail(f'{what}: {n - 1} residues ran on the {route} route')
+    torch.cuda.synchronize()
+    expect_launches(f'{what}: the overflowing calls', read_counters())
+    lp = model.predict_log_prob(seq(n - 2)[None])
+    if not bool(torch.isfinite(lp).all()):
+        fail(f'{what}: {n - 2} residues gave log-probs that are not finite')
+    log(f'{what}: {n - 2} residues ({n} tokens) run, finite')
+    return {'residues_refused': n - 1, 'residues_run': n - 2}
+
+
+def family_kernel_rows(dev, H):
+    """H1, H2 and H3 at head count ``H`` (D = 64) on the main shapes:
+    each against its plain version under phase 3's gates, timed beside its
+    bound, its plain version and the varlen library call (H1 on the
+    inference batch, H2 on the 50k train batch, H3 on the inference
+    batch's positions). Returns the kernels line's rows without launches
+    (the model runs give those)."""
+    from esme_tpu_torch.ops import flash, headsplit
+    from esme_tpu_torch.ops.rotary import rotary_cos_sin
+    D = 64
+    _, cu, _ = packed_batch(BUDGET, seed=0)
+    e_o, e_l = check_flash(cu, BUDGET, H, D, dev, seed=7,
+                           what=f' (H={H}) at the main shape')
+    q, k, v, seg, pos, spans = flash_inputs(cu, BUDGET, H, D, dev, 7)
+    T = q.shape[0]
+    args = (q, k, v, seg, *spans[:2], H)
+    o, _ = flash.segment_flash_fwd(*args)
+    ms = cuda_ms(lambda: flash.segment_flash_fwd(*args), reps=20, warmup=2)
+    plain_ms = cuda_ms(lambda: flash.segment_flash_fwd_plain(*args), reps=2)
+    nbytes, flops = flash_work(q, seg, spans[0], H, D)
+    b, by = bound(nbytes, flops, BF16_FLOP_PER_S)
+    lib = yardstick(f'varlen flash-attention forward (aten), H={H}',
+                    lambda: varlen_flash_ms(q, k, v, seg, H, D, reps=20), o)
+    rows = {H1_NAME: {'max_abs_err': e_o, 'lse_max_abs_err': e_l, 'ms': ms,
+                      'plain_ms': plain_ms, 'bound_ms': b, 'bound_by': by,
+                      'library_ms': lib, 'shape': f'T={T} H={H} D={D} bf16',
+                      'bytes': nbytes, 'flops': flops}}
+    rope_err = check_rope(T, H, D, dev, seed=H)
+    cos, sin = rotary_cos_sin(pos, D)
+    ms = cuda_ms(lambda: headsplit.rotary_qk(q, k, cos, sin, H), reps=20,
+                 warmup=2)
+    plain_ms = cuda_ms(lambda: headsplit.rotary_qk_plain(q, k, cos, sin, H),
+                       reps=5)
+    nbytes = 4 * q.numel() * 2 + cos.numel() * 2
+    b, by = bound(nbytes, 6.0 * q.numel(), FP32_FLOP_PER_S)
+    rows[H3_NAME] = {'max_abs_err': rope_err, 'ms': ms, 'plain_ms': plain_ms,
+                     'bound_ms': b, 'bound_by': by, 'library_ms': None,
+                     'shape': f'T={T} H={H} D={D} bf16', 'bytes': nbytes}
+    del q, k, v, o, cos, sin, args
+    torch.cuda.empty_cache()
+
+    _, tcu, _ = packed_batch(BUDGET, seed=2)
+    err, share = check_flash_bwd(tcu, BUDGET, H, D, dev, seed=9,
+                                 what=f' (H={H}) at the train shape')
+    q, k, v, do, lse, delta, tseg, tspans = bwd_inputs(tcu, BUDGET, H, D,
+                                                       dev, 9)
+    args = (q, k, v, do, lse, delta, tseg, *tspans, H)
+    dq = flash.segment_flash_bwd(*args)[0]
+    ms = cuda_ms(lambda: flash.segment_flash_bwd(*args), reps=20, warmup=2)
+    plain_ms = cuda_ms(lambda: flash.segment_flash_bwd_plain(*args), reps=2)
+    nbytes, flops = flash_bwd_work(q, tseg, tspans, H, D)
+    b, by = bound(nbytes, flops, BF16_FLOP_PER_S)
+    lib = yardstick(f'varlen flash-attention backward (aten), H={H}',
+                    lambda: varlen_flash_bwd_ms(q, k, v, do, tseg, H, D,
+                                                reps=20), dq, 'H2 dq')
+    rows[H2_NAME] = {'max_abs_err': err, 'gate_share': share, 'ms': ms,
+                     'plain_ms': plain_ms, 'bound_ms': b, 'bound_by': by,
+                     'library_ms': lib,
+                     'shape': f'T={q.shape[0]} H={H} D={D} bf16 (train '
+                     'batch)', 'bytes': nbytes, 'flops': flops}
+    del q, k, v, do, dq, args
+    torch.cuda.empty_cache()
+    for name, r in rows.items():
+        log(f'{name} at H={H}: {r["ms"]:.4f} ms (bound {r["bound_ms"]:.4f} '
+            f'ms by {r["bound_by"]}, {r["ms"] / r["bound_ms"]:.2f}x), plain '
+            f'{r["plain_ms"]:.3f} ms, library {r["library_ms"]}')
+    return rows
+
+
+def check_families(dev, plm_cls, main_batch, profile_dir=None):
+    """Phase 9: ESMC, ESM1b and ESM1v. H1, H2 and H3 at ESMC's head
+    counts against their plain versions on the 8k check batch, and at
+    the main shapes with ESMC-300M's (timed); then each of
+    ``FAMILY_RUNS`` at full width and depth from seeded random weights
+    through the safetensors schema and ``ESM.from_pretrained``, its
+    inference cell (launches exact: H1 and, with RoPE, H3 once per layer),
+    its kernels against plain versions, its train cell and gradients, the
+    position table's guard. Returns the kernels line's rows (named with
+    their head count; ``launches`` from ESMC-300M's main paths) and the
+    measurements. With ``profile_dir``, each model's inference and train
+    cells are profiled into ``profile_dir/<name>/``."""
+    D = 64
+    _, cu8k, _ = packed_batch(CHECK_BUDGET, seed=1)
+    for h in FAMILY_HEADS:
+        check_flash(cu8k, CHECK_BUDGET, h, D, dev, seed=h, what=f' (H={h})')
+        check_flash_bwd(cu8k, CHECK_BUDGET, h, D, dev, seed=h,
+                        what=f' (H={h})')
+        check_rope(CHECK_BUDGET, h, D, dev, seed=h)
+    rows = family_kernel_rows(dev, FAMILY_HEADS[0])
+    # the other head counts' forward kernels at the main inference shape,
+    # which ESMC-600M's inference cell launches them at
+    _, cu, _ = packed_batch(BUDGET, seed=0)
+    T = flat_meta(cu, BUDGET, dev)[0].shape[0]
+    for h in FAMILY_HEADS[1:]:
+        check_flash(cu, BUDGET, h, D, dev, seed=h,
+                    what=f' (H={h}) at the main shape')
+        check_rope(T, h, D, dev, seed=h)
+    torch.cuda.empty_cache()
+
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for seed, (name, cls_name, kwargs, runs) in enumerate(FAMILY_RUNS):
+            model, n_params = family_model(name, cls_name, kwargs, seed, dev,
+                                           tmp)
+            cfg = model.config
+            L, rot = cfg.num_layers, int(cfg.rotary)
+            res = {'class': cls_name, 'layers': L, 'width': cfg.embed_dim,
+                   'heads': cfg.attention_heads, 'params': n_params}
+            prof = os.path.join(profile_dir, name) if profile_dir else None
+            if 'infer' in runs:
+                res['launches'] = inference_run(
+                    model, main_batch, f'{name} inference',
+                    expected_launches(**{H1_NAME: L, H3_NAME: rot * L}))
+            if 'plain' in runs:
+                res['model_checks'] = plain_checks(model, f'{name}: ')
+            if 'infer' in runs:
+                res['inference'] = inference_times(model, main_batch,
+                                                   f'{name} inference')
+                if prof:
+                    tokens, cu, max_len = main_batch
+                    _profile(lambda: model.predict_log_prob(
+                        tokens, pad_args=(cu, max_len)), prof,
+                        'profile_main.txt', f'{name} forward')
+            if 'train' in runs:
+                key, budget, ckpt, reps, falls = TRAIN_CELLS[0]
+                res['train'] = {key: train_cell(
+                    model, plm_cls, key, budget, ckpt, reps, falls, n_params,
+                    prof, what=f'{name}: ')}
+                res['grad_checks'] = check_grads(model, plm_cls,
+                                                 what=f'{name}: ')
+            if 'overflow' in runs:
+                res['overflow'] = check_overflow(model, name)
+            results[name] = res
+            del model
+            torch.cuda.empty_cache()
+
+    first = results[FAMILY_RUNS[0][0]]
+    kernels = []
+    for kname, launches in (
+            (H1_NAME, first['launches'][H1_NAME]),
+            (H2_NAME, first['train']['nockpt']['launches'][H2_NAME]),
+            (H3_NAME, first['launches'][H3_NAME])):
+        by_model = {n: {'inference': r['launches'][kname]} if 'launches' in r
+                    else {} for n, r in results.items()}
+        for n, r in results.items():
+            if 'train' in r:
+                by_model[n]['train_nockpt'] = r['train']['nockpt'][
+                    'launches'][kname]
+        kernels.append({
+            'name': f'{kname} (H={FAMILY_HEADS[0]})', 'route': 'cuda',
+            'source': {H1_NAME: 'esme_tpu_torch/csrc/flash_fwd_sm90.cu',
+                       H2_NAME: 'esme_tpu_torch/csrc/flash_bwd_sm90.cu',
+                       H3_NAME: 'esme_tpu_torch/csrc/rope.cu'}[kname],
+            'replaces': {H1_NAME: 'esme_tpu/ops/flash.py:370',
+                         H2_NAME: 'esme_tpu/ops/flash.py:475',
+                         H3_NAME: 'esme_tpu/ops/headsplit.py:119'}[kname],
+            'launches': launches, 'launches_by_model': by_model,
+            **rows[kname]})
+    return kernels, results
 
 
 def _counters():
@@ -1275,33 +1591,36 @@ def read_counters():
     return _launch_totals(_counters())
 
 
-def train_batch(budget: int):
+def train_batch(budget: int, model):
     """``bench.py``'s masked-LM batch (``bench.py:50-85``): sequences and
-    residues from seed 2, 80/10/10 masking from seed 1, no loss on the
-    padding tail. Returns the batch and the attention flops of one
-    forward (4·Σn²·C·L, bench.py's ``attn_flops``)."""
-    from esme_tpu_torch.alphabet import Alphabet, mask_tokens
+    residues from seed 2, 80/10/10 masking from seed 1 in the model's
+    alphabet, no loss on the padding tail. Returns the batch and the
+    attention flops of one forward of ``model`` (4·Σn²·C·L, bench.py's
+    ``attn_flops``)."""
+    from esme_tpu_torch.alphabet import mask_tokens
     tokens, cu, max_len = packed_batch(budget, seed=2)
-    masked, mask = mask_tokens(tokens[None], alphabet=Alphabet,
+    masked, mask = mask_tokens(tokens[None], alphabet=model.alphabet,
                                rng=np.random.default_rng(1))
     masked, mask = masked[0], mask[0]
     mask[cu[-1]:] = False
     lens = np.diff(cu).astype(np.float64)
-    attn = 4 * float((lens ** 2).sum()) * MODEL['embed_dim'] \
-        * MODEL['num_layers']
+    attn = 4 * float((lens ** 2).sum()) * model.config.embed_dim \
+        * model.config.num_layers
     return SimpleNamespace(tokens=tokens, masked_tokens=masked, mask=mask,
                            cu_lens=cu, max_len=max_len), attn
 
 
 def train_cell(model, plm_cls, key, budget, ckpt, reps, falls, n_params,
-               profile_dir):
+               profile_dir, what=''):
     """One train cell: a warm-up step with the launch counters set to 0
     just before it and read just after, then ``reps`` timed steps on the
     same batch. MFU as bench.py computes it: (6·N·tokens + 3.5·attention
-    forward flops) / time / 989 TFLOP/s."""
+    forward flops) / time / 989 TFLOP/s. H3 runs only in a model with
+    RoPE."""
     L = model.config.num_layers
+    rot = int(model.config.rotary)
     model.checkpointing = ckpt
-    batch, attn_flops = train_batch(budget)
+    batch, attn_flops = train_batch(budget, model)
     real = int(batch.cu_lens[-1])
     plm = plm_cls(model, learning_rate=1e-4)
     torch.cuda.synchronize()
@@ -1313,11 +1632,11 @@ def train_cell(model, plm_cls, key, budget, ckpt, reps, falls, n_params,
     launches = read_counters()
     expected = expected_launches(**{
         H1_NAME: 2 * L if ckpt else L, H2_NAME: L,
-        H3_NAME: (3 if ckpt else 2) * L, 'rope_inverse': L})
-    log(f'train {key}@{budget}: launches in one step {launches} (expected '
-        f'{expected})')
+        H3_NAME: rot * (3 if ckpt else 2) * L, 'rope_inverse': rot * L})
+    log(f'{what}train {key}@{budget}: launches in one step {launches} '
+        f'(expected {expected})')
     if launches != expected:
-        fail(f'train {key}: a kernel of the training path launched '
+        fail(f'{what}train {key}: a kernel of the training path launched '
              f'{launches}, not {expected}')
     samples = []
     for _ in range(reps):
@@ -1335,32 +1654,49 @@ def train_cell(model, plm_cls, key, budget, ckpt, reps, falls, n_params,
             'real_tokens_per_s': real / ms * 1e3,
             'mfu': flops / (ms * 1e-3) / MFU_PEAK,
             'peak_mem_gib': peak / 2**30}
-    log(f'train {key}@{budget}: losses {[round(x, 4) for x in losses]}, '
+    log(f'{what}train {key}@{budget}: losses {[round(x, 4) for x in losses]}, '
         f'median {ms:.2f} ms per step of {reps} (samples '
         f'{[round(x, 2) for x in samples]}), {cell["real_tokens_per_s"]:.1f} '
         f'real tokens/s, MFU {cell["mfu"]:.4f}, peak memory '
         f'{cell["peak_mem_gib"]:.2f} GiB')
     if not all(np.isfinite(losses)):
-        fail(f'train {key}: losses not finite: {losses}')
+        fail(f'{what}train {key}: losses not finite: {losses}')
     if falls and not losses[-1] < losses[0]:
-        fail(f'train {key}: the last loss is not below the first: {losses}')
+        fail(f'{what}train {key}: the last loss is not below the first: '
+             f'{losses}')
     if profile_dir:
         _profile(lambda: plm.training_step(batch), profile_dir,
-                 f'profile_train_{key}.txt', f'train step {key}@{budget}')
+                 f'profile_train_{key}.txt',
+                 f'{what}train step {key}@{budget}')
     model.checkpointing = False
     del plm
     torch.cuda.empty_cache()
     return cell
 
 
-def compare_grads(got, ref, min_cos, max_rel, what):
+def compare_grads(got, ref, min_cos, max_rel, what, zero=None):
     """Per-leaf cosine and largest difference relative to the leaf's
-    largest value; fails outside the gates."""
+    largest value; fails outside the gates. ``zero`` maps a leaf whose
+    gradient is 0 in exact arithmetic to the leaf whose largest gradient
+    scales its noise (``ZERO_GRAD_REL``)."""
     worst_cos, worst_rel, equal, n = 1.0, 0.0, 0, 0
+    zero = zero or {}
+    scales = {name: b.float().abs().max().item()
+              for name, _, b in _leaf_pairs(got, ref) if name in
+              zero.values()}
+    noise = {}
     for name, a, b in _leaf_pairs(got, ref):
         n += 1
         equal += bool(torch.equal(a, b))
         a, b = a.float().ravel(), b.float().ravel()
+        if name in zero:
+            noise[name] = max(a.abs().max().item(), b.abs().max().item()) \
+                / scales[zero[name]]
+            if noise[name] > ZERO_GRAD_REL:
+                fail(f'{what}: {name}, 0 in exact arithmetic, is '
+                     f'{noise[name]:.4f} of max|g| of {zero[name]} (gate '
+                     f'{ZERO_GRAD_REL})')
+            continue
         scale = b.abs().max().item()
         if scale == 0.0:
             if a.abs().max().item() != 0.0:
@@ -1375,15 +1711,17 @@ def compare_grads(got, ref, min_cos, max_rel, what):
                  f'rel err {rel:.4f} (gate {max_rel})')
     log(f'{what}: {n} leaves, min cosine {worst_cos:.6f} (gate {min_cos}), '
         f'max|err|/max|g| {worst_rel:.5f} (gate {max_rel}), bit-equal '
-        f'{equal} of {n}')
+        f'{equal} of {n}' + (f'; zero in exact arithmetic: {noise} of the '
+                             f'scale of {zero} (gate {ZERO_GRAD_REL})'
+                             if zero else ''))
     return {'min_cos': worst_cos, 'max_rel': worst_rel, 'bit_equal': equal,
-            'leaves': n}
+            'leaves': n, **({'zero_noise': noise} if zero else {})}
 
 
-def check_grads(model, plm_cls):
+def check_grads(model, plm_cls, what=''):
     """Every leaf's gradient of one masked-LM step at full depth on a 4k
     batch: kernels vs plain versions, and remat='full' vs none."""
-    batch, _ = train_batch(SMALL_BUDGET)
+    batch, _ = train_batch(SMALL_BUDGET, model)
     plm = plm_cls(model)
     loss, grads = plm._grad_step(batch)
     with plain_versions():
@@ -1394,19 +1732,24 @@ def check_grads(model, plm_cls):
     finally:
         model.checkpointing = False
     L = model.config.num_layers
-    log(f'{L} layers, {int(batch.cu_lens[-1])} tokens: loss with kernels '
-        f'{loss.item():.6f}, plain versions {loss_p.item():.6f}, '
+    cfg = model.config
+    zero = {'layers.attn.k.bias': 'layers.attn.k.kernel'} \
+        if cfg.bias and not cfg.rotary else None
+    log(f'{what}{L} layers, {int(batch.cu_lens[-1])} tokens: loss with '
+        f'kernels {loss.item():.6f}, plain versions {loss_p.item():.6f}, '
         f'remat {loss_c.item():.6f}')
     checks = {
         'vs_plain': compare_grads(grads, grads_p, GRAD_MIN_COS, GRAD_MAX_REL,
-                                  'gradients, kernels vs plain versions'),
+                                  f'{what}gradients, kernels vs plain '
+                                  'versions', zero),
         'remat_vs_none': compare_grads(grads_c, grads, REMAT_MIN_COS,
                                        REMAT_MAX_REL,
-                                       "gradients, remat='full' vs none"),
+                                       f"{what}gradients, remat='full' vs "
+                                       'none'),
         'loss': loss.item(), 'loss_plain': loss_p.item(),
     }
     if not torch.equal(loss, loss_c):
-        fail(f"remat='full' changed the loss: {loss_c.item()} vs "
+        fail(f"{what}remat='full' changed the loss: {loss_c.item()} vs "
              f'{loss.item()}')
     del plm, grads, grads_p, grads_c
     torch.cuda.empty_cache()

@@ -1,6 +1,7 @@
 """esme_tpu_torch — the PyTorch/CUDA port of the JAX package ``esme_tpu``.
 
-Packed ("varlen") ESM2 inference and masked-LM training in PyTorch,
+Packed ("varlen") ESM inference and masked-LM training in PyTorch, for
+every family of the JAX package (ESM2, ESM1b, ESM1v, ESMC),
 with hand-written CUDA kernels for Hopper (``sm_90a``) where the JAX
 package had Pallas kernels: the segment-flash attention forward and
 backward, RoPE, the head relayouts and the attention probes of
@@ -21,6 +22,6 @@ from .data import (FastaTokenDataset, MaskedFastaTokenDataset, PackedBatch,
 from .fasta import Fasta
 from .models.config import (ESMConfig, config_for, esm1b_config,
                             esm1v_config, esm2_config, esmc_config)
-from .models.esm import ESM, ESM2
+from .models.esm import ESM, ESM1b, ESM1v, ESM2, ESMC
 
 __version__ = '0.1.0'

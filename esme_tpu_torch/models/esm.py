@@ -1,6 +1,8 @@
 """ESM models: packed forward and the user-facing classes.
 
-Counterpart of ``esme_tpu/models/esm.py`` (ESM2). The forward is a
+Counterpart of ``esme_tpu/models/esm.py``: ESM2, ESM1b, ESM1v and ESMC
+(:class:`ESM2`, :class:`ESM1b`, :class:`ESM1v`, :class:`ESMC`; the
+:class:`ESM` dispatcher loads any of them). The forward is a
 plain function over a params dict, differentiable for training
 (:class:`esme_tpu_torch.train.MaskedPLM`); the classes hold
 ``(config, params, device, checkpointing)`` and mirror the reference's
@@ -25,23 +27,38 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..alphabet import Alphabet
+from ..alphabet import Alphabet, Alphabet3
 from ..ops.flash import flash_spans
 from ..ops.linear import fp32_accumulation
 from ..ops.norm import apply_norm
 from ..ops.rotary import rotary_cos_sin
 from ..ops.segment import (positions_from_cu_lens, segment_ids_from_cu_lens,
                            unpad_gather_meta)
-from .config import ESMConfig, esm2_config
+from .config import (ESMConfig, esm1b_config, esm1v_config, esm2_config,
+                     esmc_config)
 from .init import init_params
 from .io import load_pretrained, read_metadata, save_pretrained
-from .modules import embed_tokens, layer_stack, roberta_lm_head
+from .modules import (embed_tokens, layer_stack, learned_positions_flat,
+                      roberta_lm_head)
 
 # The packed batch is padded once per forward to a multiple of ALIGN
 # tokens, with one fake tail segment that real tokens never attend (as
 # in the JAX package, whose flash kernels ran zero-copy at this
 # multiple). The flash kernel's own tiles are smaller and independent.
 ALIGN = 256
+
+
+def _embed_flat(params, cfg: ESMConfig, tokens, pos_ids):
+    """Embedding over flat tokens: tokens, then learned positions and the
+    embedding LayerNorm where the family has them
+    (``esme_tpu/models/esm.py:54-62``; reference: esme/esm.py:176-199
+    ESM2, 636-655 ESM1b, 698-715 ESM1v, 876 ESMC)."""
+    x = embed_tokens(tokens, params, cfg)
+    if cfg.learned_positions is not None:
+        x = x + learned_positions_flat(pos_ids, params, cfg)
+    if cfg.emb_layer_norm_before:
+        x = apply_norm(x, params['emb_norm_before'])
+    return x
 
 
 def forward_flat(params, cfg: ESMConfig, tokens, seg_ids, pos_ids, *,
@@ -61,14 +78,11 @@ def forward_flat(params, cfg: ESMConfig, tokens, seg_ids, pos_ids, *,
     with the JAX signature and unused: the kernels walk each block's
     exact span, so they need no static span cap and no job budget.
 
-    Pads once to ``ALIGN``; the RoPE tables and the flash block spans
-    depend only on positions and segment ids, so they are computed once
-    here and shared by every layer. The padded rows are sliced off.
+    Pads once to ``ALIGN``; the RoPE tables (only for a family with
+    rotary embeddings) and the flash block spans depend only on positions
+    and segment ids, so they are computed once here and shared by every
+    layer. The padded rows are sliced off.
     """
-    if cfg.family != 'esm2':
-        raise NotImplementedError(
-            f'{cfg.family}: only ESM2 is ported; ESMC, ESM1b and ESM1v '
-            'are still to port (ROADMAP.md Queue 1, item 12)')
     T = tokens.shape[0]
     spans = None
     if attn_impl == 'reference':
@@ -80,8 +94,9 @@ def forward_flat(params, cfg: ESMConfig, tokens, seg_ids, pos_ids, *,
             (seg_ids.shape[0] - T,), pad_token, dtype=tokens.dtype,
             device=tokens.device)])
 
-    x = embed_tokens(tokens, params, cfg)
-    rope = rotary_cos_sin(pos_ids, cfg.head_dim, dtype=x.dtype)
+    x = _embed_flat(params, cfg, tokens, pos_ids)
+    rope = rotary_cos_sin(pos_ids, cfg.head_dim, dtype=x.dtype) \
+        if cfg.rotary else None
 
     x, reps = layer_stack(x, params['layers'], cfg, seg_ids, pos_ids,
                           attn_impl=attn_impl, checkpointing=checkpointing,
@@ -237,6 +252,18 @@ class _ESMBase:
         return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x)
                                else x).to(self.device)
 
+    def _check_positions(self, width: int):
+        """Raise before any launch when a sequence is wider than the
+        learned position table (``esme_tpu/models/esm.py:299-309``;
+        reference: esme/embedding.py:47-51,69-74); the table has 2 more
+        rows than positions."""
+        if self.config.learned_positions is None:
+            return
+        max_positions = int(self.params['embed_positions'].shape[0]) - 2
+        if width > max_positions:
+            raise ValueError(f'sequence length {width} above maximum '
+                             f'position table size {max_positions}')
+
     @torch.inference_mode()
     @fp32_accumulation()
     def _run(self, tokens, pad_args=None, pad_output=False, lora_names=None,
@@ -244,6 +271,8 @@ class _ESMBase:
         check_unported(lora_names=lora_names)
         collect = tuple(layers) if layers else None
         tokens = self._tensor(tokens).to(torch.int32)
+        self._check_positions(int(pad_args[1]) if pad_args is not None
+                              else int(tokens.shape[-1]))
 
         if pad_args is not None:
             if tokens.dim() != 1:
@@ -325,14 +354,52 @@ class ESM2(_ESMBase):
                          device=device)
 
 
+class ESM1b(_ESMBase):
+    """(reference: esme/esm.py:618-679)"""
+    family = 'esm1b'
+
+    def __init__(self, checkpointing=False, dtype='bfloat16', config=None,
+                 params=None, rng=0, name=None, device='cuda'):
+        config = config or esm1b_config(dtype=dtype)
+        super().__init__(config, params=params, rng=rng,
+                         checkpointing=checkpointing, name=name,
+                         device=device)
+
+
+class ESM1v(_ESMBase):
+    """(reference: esme/esm.py:682-735)"""
+    family = 'esm1v'
+
+    def __init__(self, checkpointing=False, dtype='bfloat16', config=None,
+                 params=None, rng=0, name=None, device='cuda'):
+        config = config or esm1v_config(dtype=dtype)
+        super().__init__(config, params=params, rng=rng,
+                         checkpointing=checkpointing, name=name,
+                         device=device)
+
+
+class ESMC(_ESMBase):
+    """(reference: esme/esm.py:738-946)"""
+    family = 'esmc'
+    alphabet = Alphabet3
+
+    def __init__(self, num_layers=30, embed_dim=960, attention_heads=15,
+                 checkpointing=False, dtype='bfloat16', config=None,
+                 params=None, rng=0, name=None, device='cuda'):
+        config = config or esmc_config(num_layers, embed_dim,
+                                       attention_heads, dtype=dtype)
+        super().__init__(config, params=params, rng=rng,
+                         checkpointing=checkpointing, name=name,
+                         device=device)
+
+
+_CLASSES = {'esm2': ESM2, 'esm1b': ESM1b, 'esm1v': ESM1v, 'esmc': ESMC}
+
+
 def _class_for(family: str):
-    if family == 'esm2':
-        return ESM2
-    if family in ('esm1b', 'esm1v', 'esmc'):
-        raise NotImplementedError(
-            f'{family}: only ESM2 is ported; ESMC, ESM1b and ESM1v are '
-            'still to port (ROADMAP.md Queue 1, item 12)')
-    raise ValueError(f'unknown model family: {family}')
+    if family not in _CLASSES:
+        raise ValueError(f'unknown model family: {family}')
+    return _CLASSES[family]
 
 
 class ESM:

@@ -1,9 +1,12 @@
-"""Seeded random parameter init for ESM2.
+"""Seeded random parameter init for every ESM family.
 
-Counterpart of ``esme_tpu/models/init.py``: the same param tree
-(per-layer tensors stacked on axis 0, linear kernels stored
-``(in, out)``), truncated-normal kernels scaled by fan-in, ones/zeros
-norms, a zero padding row in the embedding. Random numbers come from a
+Counterpart of ``esme_tpu/models/init.py``: for each family the same
+param tree, key for key and shape for shape (per-layer tensors stacked
+on axis 0, linear kernels stored ``(in, out)``; the learned position
+table, the embedding LayerNorm, q/k LayerNorms and SwiGLU's gate, up and
+down where the family has them), truncated-normal kernels scaled by
+fan-in, ones/zeros norms, a zero padding row in the embedding and the
+position table. Random numbers come from a
 ``torch.Generator`` on the target device, so the same seed gives other
 numbers than the JAX package's random keys (tests carry JAX weights
 across with :func:`esme_tpu_torch.models.io.params_from_jax` instead).
@@ -19,10 +22,6 @@ from .config import ESMConfig
 def init_params(cfg: ESMConfig, seed: int = 0, device='cpu') -> dict:
     """Create a randomly initialised param tree for ``cfg`` on
     ``device``."""
-    if cfg.family != 'esm2':
-        raise NotImplementedError(
-            f'{cfg.family}: only ESM2 is ported; ESMC, ESM1b and ESM1v '
-            'are still to port (ROADMAP.md Queue 1, item 12)')
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -56,6 +55,15 @@ def init_params(cfg: ESMConfig, seed: int = 0, device='cpu') -> dict:
                       generator=gen) * 0.02
     emb[cfg.padding_idx] = 0        # like nn.Embedding(padding_idx=...)
     params = {'embed_tokens': emb.to(dt)}
+    if cfg.learned_positions is not None:
+        # +2 rows like the reference table (reference: esme/embedding.py:31)
+        pos = torch.randn((cfg.learned_positions + 2, D),
+                          dtype=torch.float32, device=device,
+                          generator=gen) * 0.02
+        pos[cfg.padding_idx] = 0
+        params['embed_positions'] = pos.to(dt)
+    if cfg.emb_layer_norm_before:
+        params['emb_norm_before'] = norm(D)
     attn = {
         'norm': norm(D, bias=cfg.norm_bias, stacked=L),
         'q': lin(D, D, cfg.bias, stacked=L),
@@ -63,11 +71,17 @@ def init_params(cfg: ESMConfig, seed: int = 0, device='cpu') -> dict:
         'v': lin(D, D, cfg.bias, stacked=L),
         'out': lin(D, D, cfg.bias, stacked=L),
     }
-    mlp = {
-        'norm': norm(D, bias=cfg.norm_bias, stacked=L),
-        'fc1': lin(D, F, cfg.bias, stacked=L),
-        'fc2': lin(F, D, cfg.bias, stacked=L),
-    }
+    if cfg.qk_layernorm:
+        attn['ln_q'] = norm(D, bias=cfg.bias, stacked=L)
+        attn['ln_k'] = norm(D, bias=cfg.bias, stacked=L)
+    mlp = {'norm': norm(D, bias=cfg.norm_bias, stacked=L)}
+    if cfg.mlp == 'swiglu':
+        mlp.update(gate=lin(D, F, cfg.bias, stacked=L),
+                   up=lin(D, F, cfg.bias, stacked=L),
+                   down=lin(F, D, cfg.bias, stacked=L))
+    else:
+        mlp.update(fc1=lin(D, F, cfg.bias, stacked=L),
+                   fc2=lin(F, D, cfg.bias, stacked=L))
     params['layers'] = {'attn': attn, 'mlp': mlp}
     params['emb_norm_after'] = norm(D, bias=cfg.final_ln_bias)
     params['lm_head'] = {

@@ -1,11 +1,16 @@
 """Safetensors weight IO in the reference's key schema.
 
 Counterpart of ``esme_tpu/models/io.py`` (dense weights). Keys are
-``embed_tokens.weight``, ``layers.{i}.self_attn.{norm,q,k,v,out}.*``,
-``layers.{i}.final.{0,1,3}.*``, ``emb_layer_norm_after.*`` and
-``lm_head.{dense,layer_norm,final}.*`` (reference: esme/esm.py:376-411),
-with metadata ``{name, num_layers, embed_dim, attention_heads}``. Files
-written by either package load in the other.
+``embed_tokens.weight``, ``embed_positions.weight`` and
+``emb_layer_norm_before.*`` (ESM1b/1v),
+``layers.{i}.self_attn.{norm,q,k,v,out,layernorm_q,layernorm_k}.*``,
+``layers.{i}.final.{0,1,3}.*`` (GELU MLP) or
+``layers.{i}.final.{0,1.activation,1.fc,2}.*`` (ESMC's SwiGLU),
+``emb_layer_norm_after.*`` and ``lm_head.{dense,layer_norm,final}.*``
+(reference: esme/esm.py:376-411, workflow/common/safetensor_c.py:19-49),
+with metadata ``{name, num_layers, embed_dim, attention_heads}``; the
+family is the name's first word. Files written by either package load
+in the other.
 
 Torch stores linear weights ``(out, in)``; the param tree keeps kernels
 ``(in, out)`` stacked per layer on axis 0, and both transforms happen
@@ -27,7 +32,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from .config import ESMConfig, esm2_config
+from .config import (ESMConfig, esm1b_config, esm1v_config, esm2_config,
+                     esmc_config)
 
 # safetensors dtype tag -> (torch dtype, numpy dtype of the raw words)
 _DTYPES = {
@@ -102,18 +108,24 @@ def config_from_metadata(metadata: Dict[str, str],
     """Dispatch on the metadata ``name`` (reference: esme/esm.py:50-68)."""
     name = metadata['name']
     family = name.split('_')[0]
-    if family == 'esm2':
-        cfg = esm2_config(num_layers=int(metadata['num_layers']),
-                          embed_dim=int(metadata['embed_dim']),
-                          attention_heads=int(metadata['attention_heads']),
-                          dtype=dtype)
-    elif family in ('esmc', 'esm1b', 'esm1v'):
-        raise NotImplementedError(
-            f'{family}: only ESM2 is ported; ESMC, ESM1b and ESM1v are '
-            'still to port (ROADMAP.md Queue 1, item 12)')
+    if family in ('esm2', 'esmc'):
+        cfg = {'esm2': esm2_config, 'esmc': esmc_config}[family](
+            num_layers=int(metadata['num_layers']),
+            embed_dim=int(metadata['embed_dim']),
+            attention_heads=int(metadata['attention_heads']), dtype=dtype)
+    elif family in ('esm1b', 'esm1v'):
+        # fixed sizes (reference: esme/esm.py:627-634, 691-696)
+        cfg = {'esm1b': esm1b_config, 'esm1v': esm1v_config}[family](
+            dtype=dtype)
     else:
         raise ValueError(f'unknown model family in metadata: {name}')
     return cfg, name
+
+
+# the MLP's linears: (param key, file key under layers.{i}.final.)
+_MLP_KEYS = {'gelu': (('fc1', '1'), ('fc2', '3')),
+             'swiglu': (('gate', '1.activation'), ('up', '1.fc'),
+                        ('down', '2'))}
 
 
 def _map(fn, tree):
@@ -125,6 +137,8 @@ def params_to_flat(params: dict, cfg: ESMConfig) -> Dict[str, torch.Tensor]:
     """Flatten the stacked param tree into the reference key schema."""
     flat: Dict[str, torch.Tensor] = {'embed_tokens.weight':
                                      params['embed_tokens']}
+    if cfg.learned_positions is not None:
+        flat['embed_positions.weight'] = params['embed_positions']
 
     def put_norm(prefix, p):
         flat[f'{prefix}.weight'] = p['scale']
@@ -140,6 +154,8 @@ def params_to_flat(params: dict, cfg: ESMConfig) -> Dict[str, torch.Tensor]:
         if 'bias' in p:
             flat[f'{prefix}.bias'] = p['bias']
 
+    if cfg.emb_layer_norm_before:
+        put_norm('emb_layer_norm_before', params['emb_norm_before'])
     layers = params['layers']
     for i in range(cfg.num_layers):
         attn = _map(lambda x: x[i], layers['attn'])
@@ -147,9 +163,12 @@ def params_to_flat(params: dict, cfg: ESMConfig) -> Dict[str, torch.Tensor]:
         put_norm(f'layers.{i}.self_attn.norm', attn['norm'])
         for j in ('q', 'k', 'v', 'out'):
             put_linear(f'layers.{i}.self_attn.{j}', attn[j])
+        if cfg.qk_layernorm:
+            put_norm(f'layers.{i}.self_attn.layernorm_q', attn['ln_q'])
+            put_norm(f'layers.{i}.self_attn.layernorm_k', attn['ln_k'])
         put_norm(f'layers.{i}.final.0', mlp['norm'])
-        put_linear(f'layers.{i}.final.1', mlp['fc1'])
-        put_linear(f'layers.{i}.final.3', mlp['fc2'])
+        for key, j in _MLP_KEYS[cfg.mlp]:
+            put_linear(f'layers.{i}.final.{j}', mlp[key])
 
     put_norm('emb_layer_norm_after', params['emb_norm_after'])
     put_linear('lm_head.dense', params['lm_head']['dense'])
@@ -193,20 +212,20 @@ def flat_to_params(flat: Dict[str, torch.Tensor], cfg: ESMConfig,
                 for k in per_layer[0]}
 
     params = {'embed_tokens': get('embed_tokens.weight')}
-    params['layers'] = {
-        'attn': {
-            'norm': stack(norm, 'layers.{i}.self_attn.norm'),
-            'q': stack(lin, 'layers.{i}.self_attn.q'),
-            'k': stack(lin, 'layers.{i}.self_attn.k'),
-            'v': stack(lin, 'layers.{i}.self_attn.v'),
-            'out': stack(lin, 'layers.{i}.self_attn.out'),
-        },
-        'mlp': {
-            'norm': stack(norm, 'layers.{i}.final.0'),
-            'fc1': stack(lin, 'layers.{i}.final.1'),
-            'fc2': stack(lin, 'layers.{i}.final.3'),
-        },
-    }
+    if cfg.learned_positions is not None:
+        params['embed_positions'] = get('embed_positions.weight')
+    if cfg.emb_layer_norm_before:
+        params['emb_norm_before'] = norm('emb_layer_norm_before')
+    attn = {'norm': stack(norm, 'layers.{i}.self_attn.norm')}
+    for j in ('q', 'k', 'v', 'out'):
+        attn[j] = stack(lin, f'layers.{{i}}.self_attn.{j}')
+    if cfg.qk_layernorm:
+        attn['ln_q'] = stack(norm, 'layers.{i}.self_attn.layernorm_q')
+        attn['ln_k'] = stack(norm, 'layers.{i}.self_attn.layernorm_k')
+    mlp = {'norm': stack(norm, 'layers.{i}.final.0')}
+    for key, j in _MLP_KEYS[cfg.mlp]:
+        mlp[key] = stack(lin, f'layers.{{i}}.final.{j}')
+    params['layers'] = {'attn': attn, 'mlp': mlp}
     params['emb_norm_after'] = norm('emb_layer_norm_after')
     if cfg.tie_lm_head:
         final = {}
@@ -253,11 +272,8 @@ def load_pretrained(path: str, dtype='bfloat16', device='cpu'
 def params_from_jax(params_np: dict, cfg: ESMConfig, device='cpu') -> dict:
     """Carry a JAX param tree with numpy leaves over to the port's
     params, bit for bit (bf16 leaves travel as raw 16-bit words).
-    ``cfg`` is the port's config of the same model."""
-    if cfg.family != 'esm2':
-        raise NotImplementedError(
-            f'{cfg.family}: only ESM2 is ported; the other families are '
-            'still to port (ROADMAP.md Queue 1, item 12)')
+    ``cfg`` is the port's config of the same model: every family has
+    the same tree in both packages."""
 
     def convert(a):
         a = np.asarray(a)

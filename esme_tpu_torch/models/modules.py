@@ -1,7 +1,8 @@
 """Transformer layer, embedding and head apply functions.
 
-Counterpart of ``esme_tpu/models/modules.py`` (ESM2 path, forward and
-gradient): plain functions over a params dict of tensors, with
+Counterpart of ``esme_tpu/models/modules.py`` (every family: ESM2,
+ESM1b, ESM1v and ESMC; forward and gradient): plain functions over a
+params dict of tensors, with
 per-layer tensors stacked on axis 0 and linear kernels stored
 ``(in, out)``. The layer stack is a Python loop, optionally
 checkpointed per layer. There is one layer path: on the card
@@ -24,6 +25,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention_reference
+from ..ops.flash import flash_spans, segment_flash
 from ..ops.fused_attn import fused_rotary_flash
 from ..ops.linear import linear, matmul
 from ..ops.norm import apply_norm
@@ -76,30 +78,42 @@ def attention_block(x, params, cfg, seg_ids, pos_ids,
     """Multi-head self-attention over the packed layout
     (reference: esme/attention.py:91-139). ``x``: ``(T, C)``.
 
-    ``attn_impl``: 'flash' (or 'auto') runs RoPE kernel H3 and the
-    segment-flash kernel H1 on a CUDA tensor, their plain versions on a
-    CPU tensor; 'reference' runs the einsum oracle.
+    With ``cfg.qk_layernorm`` (ESMC) q and k are layer-normed over the
+    full width before the head split and RoPE
+    (``esme_tpu/models/modules.py:141-143``).
+
+    ``attn_impl``: 'flash' (or 'auto') runs the segment-flash kernel H1
+    (H2 in the backward) on a CUDA tensor, their plain versions on a CPU
+    tensor; with ``cfg.rotary`` (ESM2, ESMC) RoPE kernel H3 rotates q
+    and k first (:func:`fused_rotary_flash`), without it (ESM1b, ESM1v)
+    H1 takes the projections as they are (:func:`segment_flash`; JAX
+    rotates by identity tables there, which is exact, so the port skips
+    the rotation and launches no H3). 'reference' runs the einsum oracle,
+    with RoPE only when ``cfg.rotary``.
     """
-    if cfg.qk_layernorm or not cfg.rotary:
-        raise NotImplementedError(
-            f'{cfg.family}: only the ESM2 attention block is ported; '
-            'ESMC, ESM1b and ESM1v are still to port (ROADMAP.md Queue 1, '
-            'item 12)')
     h = apply_norm(x, params['norm'])
     q = linear(h, params['q'])
     k = linear(h, params['k'])
     v = linear(h, params['v'])
+    if cfg.qk_layernorm:
+        q = apply_norm(q, params['ln_q'])
+        k = apply_norm(k, params['ln_k'])
     T = x.shape[0]
     H, Dh = cfg.attention_heads, cfg.head_dim
-    if rope is None:
+    if cfg.rotary and rope is None:
         rope = rotary_cos_sin(pos_ids, Dh, dtype=x.dtype)
-    cos, sin = rope
 
     if attn_impl in ('auto', 'flash'):
-        o = fused_rotary_flash(q, k, v, cos, sin, seg_ids, H, spans=spans)
+        if cfg.rotary:
+            o = fused_rotary_flash(q, k, v, *rope, seg_ids, H, spans=spans)
+        else:
+            o = segment_flash(q, k, v, seg_ids, H,
+                              flash_spans(seg_ids) if spans is None
+                              else spans)
     elif attn_impl == 'reference':
-        qh = apply_rotary(q.reshape(T, H, Dh), cos, sin)
-        kh = apply_rotary(k.reshape(T, H, Dh), cos, sin)
+        qh, kh = q.reshape(T, H, Dh), k.reshape(T, H, Dh)
+        if cfg.rotary:
+            qh, kh = apply_rotary(qh, *rope), apply_rotary(kh, *rope)
         o = attention_reference(qh, kh, v.reshape(T, H, Dh), seg_ids)
         o = o.reshape(T, H * Dh)
     else:
@@ -107,14 +121,64 @@ def attention_block(x, params, cfg, seg_ids, pos_ids,
     return linear(o, params['out'])
 
 
+class _SwigluLinear(torch.autograd.Function):
+    """``(silu(h @ gk) * (h @ uk)) @ dk`` saving only h and the three
+    kernels (``esme_tpu/models/modules.py:235-280``): the backward
+    recomputes gate and up (two matmuls and one SiLU) instead of keeping
+    three ``(T, F)`` tensors per layer. Bias-free, as ESMC's MLP is.
+    SiLU and its derivative each round once to the activation dtype,
+    where XLA rounds each op of its expansion (the bf16 gate of
+    ``tests/test_torch_families.py`` holds the difference)."""
+
+    @staticmethod
+    def forward(ctx, h, gk, uk, dk):
+        ctx.save_for_backward(h, gk, uk, dk)
+        return matmul(F.silu(matmul(h, gk)) * matmul(h, uk), dk)
+
+    @staticmethod
+    def backward(ctx, dy):
+        h, gk, uk, dk = ctx.saved_tensors
+        dt = h.dtype
+        h2 = h.reshape(-1, h.shape[-1])
+        dy = dy.to(dt).reshape(-1, dy.shape[-1])
+        g, u = matmul(h2, gk), matmul(h2, uk)
+        sg = F.silu(g)
+        dsu = matmul(dy, dk.T)
+        dg = torch.ops.aten.silu_backward(dsu * u, g)
+        du = dsu * sg
+        dh = matmul(dg, gk.T) + matmul(du, uk.T)
+        dgk = torch.matmul(h2.T, dg).to(gk.dtype)
+        duk = torch.matmul(h2.T, du).to(uk.dtype)
+        ddk = torch.matmul((sg * u).T, dy).to(dk.dtype)
+        return dh.reshape(h.shape), dgk, duk, ddk
+
+
+def swiglu_linear(h, gk, uk, dk):
+    """``(silu(h @ gk) * (h @ uk)) @ dk`` with the memory-lean
+    gradient."""
+    return _SwigluLinear.apply(h, gk, uk, dk)
+
+
+def _plain_swiglu_params(params) -> bool:
+    """True when gate, up and down are bias-free dense kernels: the
+    contract of :func:`swiglu_linear`
+    (``esme_tpu/models/modules.py:283-288``)."""
+    return all('kernel' in params[k] and 'bias' not in params[k]
+               for k in ('gate', 'up', 'down'))
+
+
 def mlp_block(x, params, cfg):
-    """Position-wise MLP: LN -> fc1 -> GELU -> fc2 (ESM2,
-    reference: esme/attention.py:228-236)."""
-    if cfg.mlp != 'gelu':
-        raise NotImplementedError(
-            f'{cfg.family}: the SwiGLU MLP is still to port (ROADMAP.md '
-            'Queue 1, item 12)')
+    """Position-wise MLP: LN -> fc1 -> GELU -> fc2 (ESM2, ESM1b, ESM1v,
+    reference: esme/attention.py:228-236) or LN -> SwiGLU -> down (ESMC,
+    reference: esme/attention.py:217-227,258-281)."""
     h = apply_norm(x, params['norm'])
+    if cfg.mlp == 'swiglu':
+        if _plain_swiglu_params(params):
+            return swiglu_linear(h, params['gate']['kernel'],
+                                 params['up']['kernel'],
+                                 params['down']['kernel'])
+        return linear(F.silu(linear(h, params['gate']))
+                      * linear(h, params['up']), params['down'])
     h = linear(h, params['fc1'])
     fc2 = params['fc2']
     if 'kernel' in fc2:
@@ -126,9 +190,13 @@ def transformer_layer(x, params, cfg, seg_ids, pos_ids,
                       attn_impl: str = 'auto',
                       rope: Optional[tuple] = None, spans=None):
     """Pre-norm residual block with residue scaling
-    (reference: esme/attention.py:241-255). ESM2's scaling is 1, and
-    the multiply by 1.0 (an exact no-op) is skipped."""
-    inv_scale = 1.0 / cfg.residue_scaling
+    (reference: esme/attention.py:241-255). The branch is multiplied by
+    ``1 / residue_scaling`` rounded to the activation dtype first, as JAX
+    rounds a Python scalar to a bf16 operand's dtype (ESMC-300M's
+    1/sqrt(30/36) is 1.09375 in bf16). ESM2's scaling is 1, and the
+    multiply by 1.0 (an exact no-op) is skipped."""
+    inv_scale = torch.tensor(1.0 / cfg.residue_scaling,
+                             dtype=x.dtype).item()
 
     def scaled(y):
         return y if inv_scale == 1.0 else y * inv_scale
@@ -203,15 +271,28 @@ def layer_stack(x, stacked_params, cfg, seg_ids, pos_ids,
 
 
 def embed_tokens(tokens, params, cfg):
-    """Token embedding with ``<mask>`` zeroing
-    (reference: esme/esm.py:176-199). ``F.embedding``'s gradient sorts
-    the tokens and sums each row's contributions in fp32 (indexing would
-    add them with atomics in the weight's dtype)."""
+    """Token embedding with ``<mask>`` zeroing where the config asks for
+    it (reference: esme/esm.py:176-199; ESMC does not zero, esm.py:876).
+    ``F.embedding``'s gradient sorts the tokens and sums each row's
+    contributions in fp32 (indexing would add them with atomics in the
+    weight's dtype)."""
     x = F.embedding(tokens.long(), params['embed_tokens'])
     if cfg.zero_mask_embedding:
         x = torch.where((tokens == cfg.mask_idx)[..., None],
                         torch.zeros_like(x), x)
     return x
+
+
+def learned_positions_flat(pos_ids, params, cfg):
+    """Learned position embedding over packed positions (ESM1b, ESM1v):
+    the 0-based in-sequence position maps to table row
+    ``pos + 1 + padding_idx``, clipped to the table
+    (``esme_tpu/models/modules.py:403-409``; reference:
+    esme/embedding.py:54-81)."""
+    table = params['embed_positions']
+    rows = (pos_ids.long() + 1 + cfg.padding_idx).clamp(0,
+                                                        table.shape[0] - 1)
+    return F.embedding(rows, table)
 
 
 def roberta_lm_head(x, params, embed=None):

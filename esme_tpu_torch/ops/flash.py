@@ -27,7 +27,9 @@ The public entries with a gradient, :func:`flash_segment_attention`
 (``(T, H, D)`` or ``(H, T, D)``) and :func:`flash_tm` (token-minor
 ``(H, D, T)``), run H1 forward and H2 backward through one autograd
 Function over ``(T, H·D)``, with kernel H4 (``ops/headsplit.py``)
-relayouting the other layouts on either side.
+relayouting the other layouts on either side. :func:`segment_flash` is
+the same Function on ``(T, H·D)`` itself: the model's attention without
+RoPE (ESM1b, ESM1v).
 
 Block spans: packed batches make attention block-diagonal. For each q
 block the contiguous span ``[kstart, kend)`` of k blocks that share a
@@ -442,11 +444,26 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+def segment_flash(q2, k2, v2, seg_ids, num_heads: int, spans):
+    """Segment-flash attention over ``(T, H·D)`` q/k/v as they are (no
+    RoPE): H1 forward and, where q, k or v needs a gradient, H2 backward
+    through :class:`_FlashAttention`. The model's route without rotary
+    embeddings (ESM1b, ESM1v), where JAX runs ``fused_rotary_flash`` with
+    identity tables (``esme_tpu/models/modules.py:189-194``), an exact
+    rotation: the same o, with no H3 launch in either direction.
+    ``seg_ids``: int32; ``spans``: :func:`flash_spans` of them."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q2, k2, v2)):
+        return _FlashAttention.apply(q2, k2, v2, seg_ids, num_heads,
+                                     tuple(spans))
+    return segment_flash_fwd(q2, k2, v2, seg_ids, spans[0], spans[1],
+                             num_heads)[0]
+
+
 def _flash_thd(q2, k2, v2, seg_ids, num_heads: int):
     seg = seg_ids.to(torch.int32).contiguous()
-    return _FlashAttention.apply(q2.contiguous(), k2.contiguous(),
-                                 v2.contiguous(), seg, num_heads,
-                                 tuple(flash_spans(seg)))
+    return segment_flash(q2.contiguous(), k2.contiguous(), v2.contiguous(),
+                         seg, num_heads, flash_spans(seg))
 
 
 def flash_segment_attention(q, k, v, seg_ids, *, block_q: int = BLOCK_Q,

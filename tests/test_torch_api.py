@@ -23,7 +23,8 @@ import torch
 from esme_tpu.models import esm as jesm
 from esme_tpu.models.config import esm2_config as jesm2_config
 
-from esme_tpu_torch import ESM, ESM2, MaskedFastaTokenDataset
+from esme_tpu_torch import (ESM, ESM1b, ESM1v, ESM2, ESMC,
+                            MaskedFastaTokenDataset)
 from esme_tpu_torch.models import esm as tesm
 from esme_tpu_torch.models import modules as tmod
 from esme_tpu_torch.models.config import esm2_config
@@ -44,6 +45,15 @@ ENTRIES = {
     'predict_prob': (jesm._ESMBase.predict_prob,
                      tesm._ESMBase.predict_prob),
     'ESM2.__init__': (jesm.ESM2.__init__, ESM2.__init__),
+    'ESM1b.__init__': (jesm.ESM1b.__init__, ESM1b.__init__),
+    'ESM1v.__init__': (jesm.ESM1v.__init__, ESM1v.__init__),
+    'ESMC.__init__': (jesm.ESMC.__init__, ESMC.__init__),
+    'ESM1b.from_pretrained': (jesm.ESM1b.from_pretrained,
+                              ESM1b.from_pretrained),
+    'ESM1v.from_pretrained': (jesm.ESM1v.from_pretrained,
+                              ESM1v.from_pretrained),
+    'ESMC.from_pretrained': (jesm.ESMC.from_pretrained,
+                             ESMC.from_pretrained),
 }
 
 

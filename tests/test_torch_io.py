@@ -14,7 +14,7 @@ from esme_tpu.models.config import esm2_config as jesm2_config
 from esme_tpu.models.config import esmc_config as jesmc_config
 from esme_tpu.models.init import init_params as jinit
 
-from esme_tpu_torch import ESM, ESM2
+from esme_tpu_torch import ESM, ESM2, ESMC, tokenize_unpad
 from esme_tpu_torch.models import io as tio
 from esme_tpu_torch.models.config import esm2_config as tesm2_config
 
@@ -112,12 +112,18 @@ def test_metadata_dispatch(tmp_path):
     m32 = ESM2.from_pretrained(path, dtype='float32', device='cpu')
     assert m32.params['embed_tokens'].dtype == torch.float32
 
+    # an ESMC file dispatches to ESMC, which loads and runs it
     ccfg = jesmc_config(num_layers=1, embed_dim=48, attention_heads=4)
     cpath = str(tmp_path / 'esmc_t.safetensors')
     jio.save_pretrained(cpath, jinit(ccfg, jax.random.key(1)), ccfg,
                         'esmc_t')
-    with pytest.raises(NotImplementedError, match='Queue 1, item 12'):
-        ESM.from_pretrained(cpath, device='cpu')
+    mc = ESM.from_pretrained(cpath, device='cpu')
+    assert isinstance(mc, ESMC) and mc.name == 'esmc_t'
+    assert (mc.config.num_layers, mc.config.embed_dim) == (1, 48)
+    tok, _, cu, ml = tokenize_unpad(['MKTAYIAK', 'LLG'],
+                                    alphabet=mc.alphabet)
+    lp = mc.predict_log_prob(tok, pad_args=(cu, ml))
+    assert lp.shape == (tok.shape[0], 64) and torch.isfinite(lp).all()
     with pytest.raises(FileNotFoundError):
         ESM.from_pretrained(str(tmp_path / 'missing.safetensors'),
                             device='cpu')

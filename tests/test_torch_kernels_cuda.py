@@ -44,6 +44,9 @@ Gates:
   and H7 ``real`` bit-equal to H1 and H2 (the same instantiations); the
   2^x that H6 ``bf16exp``'s plain version takes bit-equal to the
   instruction the kernel uses.
+* ESMC's head counts (H = 15, 18 at D = 64): H1, H2 and H3 under the
+  gates above; the RoPE-free route of ESM1b and ESM1v
+  (``flash.segment_flash``): H1 and H2 under theirs, no H3.
 """
 
 import numpy as np
@@ -383,6 +386,81 @@ def test_fused_rotary_flash_grad_kernels_match_plain(cuda, monkeypatch):
     monkeypatch.setattr(fused_attn, 'segment_flash_bwd',
                         flash.segment_flash_bwd_plain)
     ref = grads()
+    for a, b in zip(got, ref):
+        b = b.float()
+        gate = G_REL * b.abs().clamp_min(b.square().mean().sqrt())
+        assert ((a.float() - b).abs() <= gate).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('H', [15, 18])
+@pytest.mark.parametrize('lens,total', [
+    ([30, 7, 250, 900, 2, 400, 1000], 3072),   # ALIGN multiple, a tail
+    ([1000, 513, 77], 1700),                   # ragged last tiles
+])
+def test_kernels_at_esmc_head_counts_match_plain(cuda, H, lens, total):
+    """H1, H2 and H3 (forward and inverse) at ESMC-300M's and ESMC-600M's
+    head counts, D = 64: odd and even H, rows of 1,920 and 2,304 bytes in
+    the TMA descriptors. H1 and H2 under their gates, H3 bit-equal."""
+    D = 64
+    q, k, v, seg = _packed(lens, total, H, D, cuda, seed=H)
+    spans = flash.flash_spans(seg)
+    o, lse = flash.segment_flash_fwd(q, k, v, seg, *spans[:2], H)
+    o_p, lse_p = flash.segment_flash_fwd_plain(q, k, v, seg, *spans[:2], H)
+    gate = O_REL * o_p.float().abs().clamp_min(O_FLOOR)
+    assert ((o.float() - o_p.float()).abs() <= gate).all()
+    assert (lse - lse_p).abs().max().item() <= LSE_ATOL
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(H + 1)
+    do = torch.randn(q.shape, generator=gen, device=cuda).to(torch.bfloat16)
+    delta = flash.attention_delta(o, do, H)
+    got = flash.segment_flash_bwd(q, k, v, do, lse, delta, seg, *spans, H)
+    ref = flash.segment_flash_bwd_plain(q, k, v, do, lse, delta, seg,
+                                        *spans, H)
+    for a, b in zip(got, ref):
+        b = b.float()
+        gate = G_REL * b.abs().clamp_min(b.square().mean().sqrt())
+        assert torch.isfinite(a.float()).all()
+        assert ((a.float() - b).abs() <= gate).all()
+    cos, sin = rotary_cos_sin(torch.arange(total, device=cuda) % 1000, D)
+    for inverse in (False, True):
+        for a, b in zip(headsplit.rotary_qk(q, k, cos, sin, H, inverse),
+                        headsplit.rotary_qk_plain(q, k, cos, sin, H,
+                                                  inverse)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_segment_flash_grad_kernels_match_plain(cuda, monkeypatch):
+    """The RoPE-free autograd route of ESM1b and ESM1v on the card:
+    forward H1, backward H2 (one launch each) and no H3, against the same
+    function through the plain versions, under H1's and H2's gates."""
+    T, H, D = 3072, 20, 64
+    q, k, v, seg = _packed([30, 7, 250, 900, 2, 400, 1000], T, H, D, cuda)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(4)
+    w = torch.randn(q.shape, generator=gen, device=cuda).to(torch.bfloat16)
+    spans = flash.flash_spans(seg)
+
+    def run():
+        xs = [x.clone().requires_grad_() for x in (q, k, v)]
+        o = flash.segment_flash(*xs, seg, H, spans)
+        (o.float() * w.float()).sum().backward()
+        return o.detach(), [x.grad for x in xs]
+
+    counters = (flash.segment_flash_fwd, flash.segment_flash_bwd,
+                headsplit.rotary_qk)
+    before = [f.launches for f in counters]
+    o, got = run()
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 0]
+    monkeypatch.setattr(flash, 'segment_flash_fwd',
+                        flash.segment_flash_fwd_plain)
+    monkeypatch.setattr(flash, 'segment_flash_bwd',
+                        flash.segment_flash_bwd_plain)
+    o_p, ref = run()
+    gate = O_REL * o_p.float().abs().clamp_min(O_FLOOR)
+    assert ((o.float() - o_p.float()).abs() <= gate).all()
     for a, b in zip(got, ref):
         b = b.float()
         gate = G_REL * b.abs().clamp_min(b.square().mean().sqrt())

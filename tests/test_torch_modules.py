@@ -14,8 +14,6 @@ error at most 8 bf16 ulps of the largest output (2**-5 * max|ref|) and
 the mean error at most one ulp of the mean output (2**-8 * mean|ref|).
 """
 
-from dataclasses import replace
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,12 +22,14 @@ import torch
 
 from esme_tpu.models import modules as jmod
 from esme_tpu.models.config import esm2_config as jesm2_config
+from esme_tpu.models.config import esmc_config as jesmc_config
 from esme_tpu.models.init import init_params as jinit
 from esme_tpu.ops import linear as jlin
 from esme_tpu.ops import norm as jnorm
 
 from esme_tpu_torch.models import modules as tmod
 from esme_tpu_torch.models.config import esm2_config as tesm2_config
+from esme_tpu_torch.models.config import esmc_config as tesmc_config
 from esme_tpu_torch.models.io import params_from_jax
 from esme_tpu_torch.ops import flash as tflash
 from esme_tpu_torch.ops import linear as tlin
@@ -144,7 +144,23 @@ def test_embed_tokens_zeroes_mask():
 
 
 def test_unported_family_raises():
-    jcfg, tcfg, jp, tp = _model('float32')
-    with pytest.raises(NotImplementedError, match='Queue 1, item 12'):
-        tmod.mlp_block(torch.zeros(4, 64), tmod.layer_params(
-            tp['layers'], 0)['mlp'], replace(tcfg, mlp='swiglu'))
+    """Once a stub for every family but ESM2; now ESMC's SwiGLU MLP runs
+    and matches JAX's ``mlp_block`` (fp32), and what is still unported
+    in it, a linear that is not dense (a quantized one), raises."""
+    jcfg = jesmc_config(num_layers=2, embed_dim=64, attention_heads=4,
+                        dtype='float32')
+    tcfg = tesmc_config(num_layers=2, embed_dim=64, attention_heads=4,
+                        dtype='float32')
+    jp = jinit(jcfg, jax.random.key(0))
+    rng = np.random.default_rng(0)
+    jp = jax.tree.map(lambda a: (a + jnp.asarray(
+        rng.standard_normal(a.shape) * 0.1, a.dtype)), jp)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg)
+    jx, tx = _x(200, 64, 'float32')
+    mlp = tmod.layer_params(tp['layers'], 1)['mlp']
+    _close(tmod.mlp_block(tx, mlp, tcfg),
+           jmod.mlp_block(jx, _layer(jp['layers'], 1)['mlp'], jcfg),
+           'float32')
+    with pytest.raises(NotImplementedError, match='quantized'):
+        tmod.mlp_block(tx, {**mlp, 'gate': {'qvalue': mlp['gate'][
+            'kernel']}}, tcfg)
