@@ -19,7 +19,11 @@ Phases, in order; any failure exits non-zero before a result is printed:
    both Hopper passes must build (every instantiation's ``ptxas`` line
    and any ``wgmma`` serialisation warning is logged), and H8's Hopper
    kernels (``probes_sm90.cu``: dma alone and in pairs, dma_t) must have
-   no stack frame and no spills;
+   no stack frame and no spills; H9's instantiations (the rectangular
+   forward, ``flash_fwd_rect_sm90_kernel`` at D = 32, 64, 128 and
+   ``flash_fwd_rect_kernel`` at every padded width) logged, with no more
+   stack and spills than H1's production kernel of the same form and width
+   (none);
 3. hold each kernel against its plain PyTorch version on the card, on a
    packed 8k-token batch: segment-flash forward (H1) and backward (H2),
    each on its route (the Hopper form at D = 32, 64, 128, the mma.sync
@@ -32,6 +36,15 @@ Phases, in order; any failure exits non-zero before a result is printed:
    at each head dim (bit-equal) at T % 8 == 0 and != 0, on the kernel
    its rule picks (``relayout_route``, shown by its counter: rows, vec or
    tile) and at T % 8 == 0 on the tile kernel too, each beside its gate;
+   H9, the rectangular forward (``segment_flash_fwd(..., seg_k=)``), on
+   every rank r of n = 2, 4 and 8 ranks of the check batch (rows
+   [r·T/n, (r+1)·T/n) over all T keys) at D = 16, 24, 32, 64, 128, on its
+   route and, where that is the Hopper form, on the mma.sync form's
+   rectangular entry too, under H1's gates and bit-equal across two calls;
+   where the rank's first row starts a q block (every split of the check
+   batch), H9's o and lse bit-equal to H1's rows on the whole batch; a
+   ragged split (Tq % 128 != 0); a q block whose ids match no key written
+   as o = 0, lse = ``EMPTY_LSE`` on both forms;
 4. the inference path: ESM2-650M (33 layers, width 1280, 20 heads,
    bf16, weights from seed 0) ``predict_log_prob(tokens,
    pad_args=(cu_lens, max_len))`` on ``bench.py``'s packed batch (seed
@@ -139,7 +152,25 @@ Phases, in order; any failure exits non-zero before a result is printed:
    in phase 4), ESMC-300M and ESM1b through phase 5's ``nockpt@10k`` cell
    and gradient checks (H3 and its inverse 0 times in ESM1b), and a
    4,095-residue ESM1b sequence refused with ``ValueError`` before any
-   launch on both entry routes.
+   launch on both entry routes;
+10. context parallelism: a one-rank NCCL world on 127.0.0.1 and its
+   ``seq`` ``DeviceMesh`` on the card; ESM2 at phase 4's size and weights
+   through ``context_parallel_log_prob`` on the main batch, with every
+   launch counter set to 0 just before and read just after (H9 and H3 once
+   per layer, H1 and H2 never), its log-probs finite normalised rows held
+   against the same model's ``predict_log_prob`` under phase 4's gate and
+   bit-equal to them (one rank), its time (CUDA events after a warm-up),
+   real tokens/s and peak memory beside phase 4's; the process group
+   destroyed; then H9 against its plain version under H1's gates at the
+   shapes of the path (Tq = Tk = 50,000, H = 20, D = 64, no ALIGN pad)
+   and of each rank of a 4-rank split of the main batch (12,500 query
+   rows over all 50,000 keys, on both forms), and its times there beside
+   the bound of the
+   rank's same-segment pairs, the plain version, its mma.sync form and, as
+   a yardstick only, PyTorch's varlen forward with ``cu_seqlens_q`` over
+   the rank's pieces of its segments and ``cu_seqlens_k`` over those
+   segments whole; the Hopper form faster on rank 0's queries where every
+   tile lies in one segment than where every tile is masked.
 
 The last three lines are the kernels' JSON, the measurements' JSON and
 ``{"ok": true, "device": {...}}``.
@@ -223,6 +254,9 @@ ZERO_GRAD_REL = 2.0 ** -4
 
 H1_NAME, H2_NAME, H3_NAME, H4_NAME = (
     'segment_flash_fwd', 'segment_flash_bwd', 'rotary_qk', 'relayout_heads')
+# H9, the rectangular forward (segment_flash_fwd with seg_k), counted on
+# H1's wrapper under its own name (rect_launches)
+H9_NAME = 'segment_flash_fwd_rect'
 # the probe tools' kernels (esme_tpu_torch/tools): H5, H6 (H1's ablation
 # modes), H7 (H2's) and the four H8 probes; none is on the model path
 H5_NAME, H6_NAME, H7_NAME = 'fwd_T', 'variant_fwd', 'bwd_variant'
@@ -377,33 +411,44 @@ def check_flash(cu, budget, H, D, dev, seed=0, what=''):
     """H1 vs its plain version on a packed batch; returns (o err, lse
     err)."""
     q, k, v, seg, _, spans = flash_inputs(cu, budget, H, D, dev, seed)
-    return check_flash_args((q, k, v, seg, *spans[:2], H), what)
+    return check_flash_args((q, k, v, seg, *spans[:2], H), what)[:2]
 
 
-def check_flash_args(args, what=''):
-    """H1 (on its route) vs its plain version on ``segment_flash_fwd``'s
-    arguments, under H1's gates, and bit-equal across two calls; returns
-    (o err, lse err)."""
+def check_flash_args(args, what='', seg_k=None, library=None):
+    """H1 (on its route, or through ``library``'s C entry) vs its plain
+    version on ``segment_flash_fwd``'s arguments, under H1's gates, and
+    bit-equal across two calls; with ``seg_k``, H9 (the keys' own ids)
+    under the same gates. Returns (o err, lse err, o, lse)."""
     from esme_tpu_torch.ops import flash
     q, *_, H = args
     D = q.shape[1] // H
-    o, lse = flash.segment_flash_fwd(*args)
-    again = flash.segment_flash_fwd(*args)
-    o_p, lse_p = flash.segment_flash_fwd_plain(*args)
+    kw = {} if seg_k is None else {'seg_k': seg_k}
+    name = 'H1' if seg_k is None else 'H9'
+    form = library or flash.fwd_route(D)
+    rows = f'T={q.shape[0]}' if seg_k is None \
+        else f'Tq={q.shape[0]} Tk={seg_k.shape[0]}'
+
+    def run():
+        if library is None:
+            return flash.segment_flash_fwd(*args, **kw)
+        return flash.launch_fwd(library, *args, **kw)
+    o, lse = run()
+    again = run()
+    o_p, lse_p = flash.segment_flash_fwd_plain(*args, **kw)
     torch.cuda.synchronize()
     e_o, share, e_l = flash_errors(o, lse, o_p, lse_p)
     same = torch.equal(o, again[0]) and torch.equal(lse, again[1])
     ok = share <= 1.0 and e_l <= FLASH_LSE_ATOL and same \
         and bool(torch.isfinite(o.float()).all())
-    log(f'H1{what} T={q.shape[0]} H={H} D={D} ({flash.fwd_route(D)}): '
+    log(f'{name}{what} {rows} H={H} D={D} ({form}): '
         f'max|o-plain| {e_o:.3e}, {share:.3f} of the o gate '
         f'(2^-6*max(|o|, {FLASH_O_FLOOR})), max|lse-plain| {e_l:.3e} (gate '
         f'{FLASH_LSE_ATOL}), bit-equal across two calls {same} '
         f'{"ok" if ok else "FAIL"}')
     if not ok:
-        fail(f'H1 disagrees with its plain version (or itself) at '
-             f'T={q.shape[0]} D={D}{what}')
-    return e_o, e_l
+        fail(f'{name} ({form}) disagrees with its plain version (or itself) '
+             f'at {rows} D={D}{what}')
+    return e_o, e_l, o, lse
 
 
 def seg_flash_args(seg, H, D, dev, seed):
@@ -614,6 +659,7 @@ def plain_versions():
 
 def _launch_totals(kernels):
     c = {name: f.launches for name, f in kernels.items()}
+    c[H9_NAME] = kernels[H1_NAME].rect_launches
     c['rope_inverse'] = kernels[H3_NAME].inverse_launches
     return c
 
@@ -1025,6 +1071,330 @@ def yardstick(name, fn, ref, ref_name='H1'):
     return ms
 
 
+# H9 (the rectangular forward): phase 3 checks every rank of the check
+# batch at these world sizes, and a ragged split (rows [lo, hi), Tq % 128
+# != 0); phase 10 times every rank of one world at the main shape.
+RECT_WORLDS = (2, 4, 8)
+RECT_RAGGED = (700, 1701)
+RECT_TIMED_WORLD = 4
+
+
+def rect_args(q, k, v, seg, lo, hi, H):
+    """H9's arguments but ``seg_k`` (= ``seg``): the queries of rows
+    ``[lo, hi)`` over all of ``k``, ``v`` and their spans."""
+    from esme_tpu_torch.ops import flash
+    sq = seg[lo:hi].contiguous()
+    return (q[lo:hi].contiguous(), k, v, sq, *flash.rect_spans(sq, seg), H)
+
+
+def check_rect(cu, dev):
+    """Phase 3's H9 checks on the check batch: every rank of each world in
+    ``RECT_WORLDS`` at D = 16, 24, 32, 64, 128 on H9's route (and on the
+    mma.sync form's rectangular entry where the route is the Hopper form)
+    under H1's gates; o and lse bit-equal to H1's rows on the whole batch
+    where the rank's first row is a multiple of ``BLOCK_Q``; the ragged
+    split ``RECT_RAGGED``; a q block whose ids match no key (an empty span)
+    written as o = 0, lse = ``EMPTY_LSE`` on both routes. Returns the largest o
+    and lse errors."""
+    from esme_tpu_torch.ops import flash
+    e_o = e_l = 0.0
+    for d, h in ((16, 20), (24, 20), (32, 20), (64, 20), (128, 40)):
+        q, k, v, seg, _, spans = flash_inputs(cu, CHECK_BUDGET, h, d, dev,
+                                              seed=d + 100)
+        T = q.shape[0]
+        o_sq, lse_sq = flash.segment_flash_fwd(q, k, v, seg, *spans[:2], h)
+        forms = [None] if flash.fwd_route(d) == 'flash_fwd' \
+            else [None, 'flash_fwd']
+        equal = 0
+        for n in RECT_WORLDS:
+            for r in range(n):
+                lo, hi = r * T // n, (r + 1) * T // n
+                args = rect_args(q, k, v, seg, lo, hi, h)
+                for lib in forms:
+                    eo, el, o, lse = check_flash_args(
+                        args, f' rank {r} of {n}', seg_k=seg, library=lib)
+                    e_o, e_l = max(e_o, eo), max(e_l, el)
+                    if lib is None and lo % flash.BLOCK_Q == 0:
+                        if not (torch.equal(o, o_sq[lo:hi])
+                                and torch.equal(lse, lse_sq[:, lo:hi])):
+                            fail(f'H9 rank {r} of {n} at D={d}: o or lse not '
+                                 'bit-equal to H1\'s rows on the whole batch')
+                        equal += 1
+        for lib in forms:
+            eo, el, *_ = check_flash_args(
+                rect_args(q, k, v, seg, *RECT_RAGGED, h),
+                f' ragged rows {RECT_RAGGED}', seg_k=seg, library=lib)
+            e_o, e_l = max(e_o, eo), max(e_l, el)
+        log(f'H9 D={d}: {equal} aligned ranks bit-equal to H1\'s rows on the '
+            f'whole batch (gate: bit equality) ok')
+        if d in (16, 64):
+            sq = seg[:1024].clone()
+            sq[:flash.BLOCK_Q] += 10 ** 6
+            ks, ke = flash.rect_spans(sq, seg)
+            args = (q[:1024].contiguous(), k, v, sq, ks, ke, h)
+            for lib in forms:
+                *_, o, lse = check_flash_args(args, ' (empty span)',
+                                              seg_k=seg, library=lib)
+                if not (ke[0] <= ks[0] and not o[:flash.BLOCK_Q].any() and
+                        bool((lse[:, :flash.BLOCK_Q] ==
+                              flash.EMPTY_LSE).all())):
+                    fail(f'H9 ({lib or flash.fwd_route(d)}) at D={d}: a q '
+                         'block with an empty span is not o = 0, lse = '
+                         'EMPTY_LSE')
+        del q, k, v, o_sq, lse_sq
+        torch.cuda.empty_cache()
+    return e_o, e_l
+
+
+def check_rect_ptxas():
+    """H9's instantiations as built: each one's ``ptxas`` line logged; the
+    Hopper form's at D = 32, 64, 128 and the mma.sync form's at every
+    padded width with no more stack and spills than H1's production
+    kernel of the same form and width (``SM90_PRODUCTION``,
+    ``MODE0_REGISTERS``: none); fail otherwise. Returns the usage."""
+    from esme_tpu_torch import _build
+    sm90 = sm90_ptxas_usage(_build.build_log('flash_fwd_sm90'),
+                            'flash_fwd_rect')
+    mma = ptxas_usage(_build.build_log('flash_fwd'))
+    h1 = SM90_PRODUCTION[('flash_fwd_sm90', 'flash_fwd_sm90_kernel')]
+    rows = [('flash_fwd_sm90', d, sm90.get(('flash_fwd_rect_sm90_kernel', d)),
+             h1[d]) for d in (32, 64, 128)]
+    rows += [('flash_fwd', d, mma.get(('flash_fwd_rect_kernel', d)),
+              (0, 0, 0, 0)) for d in (16, 32, 64, 128)]
+    for lib, d, got, want in rows:
+        log(f'ptxas: {lib} H9 (rectangular) D={d}: {got and got[0]} '
+            f'registers, (stack, spill stores, spill loads) '
+            f'{got and got[1:]}; H1\'s production kernel: {want}')
+        if got is None or any(a > b for a, b in zip(got[1:], want[1:])):
+            fail(f'ptxas: H9\'s {lib} instantiation at D={d} has more stack '
+                 f'or spills than H1\'s ({got} vs {want}), or is missing')
+    return {lib: {str(d): got for name, d, got, _ in rows if name == lib}
+            for lib in ('flash_fwd_sm90', 'flash_fwd')}
+
+
+def rect_work(args, seg_k, H, D):
+    """Bytes H9 must move and the operations its rows need, as this run's
+    ids decide them: q read and o written (Tq rows), the rows of k and v
+    whose ids some query carries read once (the rest of the gathered stream
+    is not needed), lse written, those rows' ids, the queries' ids and the
+    spans read; 2·2·D flops per (query row, same-segment key) pair and head
+    (QKᵀ and PV)."""
+    q, _, _, sq, ks, _, _ = args
+    Tq, HD = q.shape
+    keys = torch.bincount(seg_k.long())
+    needed = int(keys[torch.unique(sq).long()].sum().item())
+    nbytes = 2 * Tq * HD * 2 + 2 * needed * HD * 2 + H * Tq * 4 \
+        + (Tq + needed) * 4 + 2 * ks.numel() * 4
+    flops = 4.0 * D * H * float(keys[sq.long()].double().sum().item())
+    return nbytes, flops
+
+
+def varlen_rect_ms(args, seg_k, H, D, reps):
+    """One call of PyTorch's varlen flash-attention forward over a rank's
+    queries: ``cu_seqlens_q`` over the rank's piece of each segment it
+    touches, ``cu_seqlens_k`` over those segments whole (monotonic ids).
+    Yardstick only; returns its o ``(Tq, H·D)``."""
+    q, k, v, sq = args[:4]
+    Tq = q.shape[0]
+    ids, qc = torch.unique_consecutive(sq, return_counts=True)
+    kc = torch.bincount(seg_k.long())[ids.long()]
+    k0 = int(torch.searchsorted(seg_k, ids[:1]).item())
+    k1 = k0 + int(kc.sum().item())
+    cu_q = torch.nn.functional.pad(qc.cumsum(0), (1, 0)).to(torch.int32)
+    cu_k = torch.nn.functional.pad(kc.cumsum(0), (1, 0)).to(torch.int32)
+    qh = q.view(Tq, H, D)
+    kh, vh = (x[k0:k1].view(k1 - k0, H, D) for x in (k, v))
+    mq, mk = int(qc.max()), int(kc.max())
+
+    def run():
+        return torch.ops.aten._flash_attention_forward(
+            qh, kh, vh, cu_q, cu_k, mq, mk, 0.0, False, False,
+            scale=D ** -0.5)[0]
+    out = run()
+    return cuda_ms(run, reps), out.reshape(Tq, H * D)
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        return sock.getsockname()[1]
+
+
+def check_cp(dev, batch, phase4_ms):
+    """Phase 10, the context-parallel path: a one-rank world (NCCL on the
+    card) on 127.0.0.1 and its ``seq`` mesh; ESM2 at ``MODEL`` (bf16,
+    seed-0 weights, as phase 4 builds it) through
+    ``context_parallel_log_prob`` on the main batch with the launch
+    counters set to 0 just before and read just after (H9 and H3 once per
+    layer, nothing else); the log-probs finite normalised rows, against
+    the same model's ``predict_log_prob`` under phase 4's gate and
+    bit-equal to them (a world of one); its time
+    (CUDA events after a warm-up), real tokens/s and peak memory beside
+    phase 4's. The process group is destroyed at the end."""
+    import torch.distributed as dist
+    from esme_tpu_torch import ESM2
+    from esme_tpu_torch.parallel import (context_parallel_log_prob,
+                                         initialize_distributed, make_mesh)
+    tokens, cu, max_len = batch
+    real = int(cu[-1])
+    initialize_distributed(f'127.0.0.1:{free_port()}', 1, 0,
+                           device=dev.type)
+    try:
+        mesh = make_mesh(seq=1, device=dev.type)
+        log(f'context parallel: {dist.get_backend()} world of '
+            f'{dist.get_world_size()}, mesh {mesh}')
+        model = ESM2(**MODEL, dtype='bfloat16', rng=0, device=dev)
+        L = model.config.num_layers
+
+        def run():
+            return context_parallel_log_prob(model, tokens, (cu, max_len),
+                                             mesh)
+        reset_counters()
+        lp = run()
+        torch.cuda.synchronize()
+        launches = read_counters()
+        log(f'context-parallel path launches per forward: {launches}')
+        expect_launches('context-parallel path', launches,
+                        **{H9_NAME: L, H3_NAME: L})
+        V = model.config.vocab_size
+        if tuple(lp.shape) != (len(tokens), V) or lp.dtype != torch.float32:
+            fail(f'context-parallel log-probs have shape '
+                 f'{tuple(lp.shape)} {lp.dtype}')
+        lse_err = lp[:real].logsumexp(-1).abs().max().item()
+        finite = bool(torch.isfinite(lp).all())
+        log(f'context-parallel path: log-probs finite {finite}, '
+            f'max|logsumexp| {lse_err:.2e} (gate {LOGSUMEXP_ATOL})')
+        if not finite or lse_err > LOGSUMEXP_ATOL:
+            fail('context-parallel log-probs are not finite normalised rows')
+        ref = model.predict_log_prob(tokens, pad_args=(cu, max_len))
+        check = compare_logp(lp[:real], ref[:real],
+                             f'context-parallel path ({L} layers, {real} '
+                             f'tokens) vs predict_log_prob')
+        # one rank: H9 walks H1's spans over the same rows, and the pad rows
+        # of predict_log_prob touch no real row
+        same = torch.equal(lp[:real], ref[:real])
+        log(f'context-parallel path: log-probs bit-equal to '
+            f'predict_log_prob\'s in a world of one {same} '
+            f'{"ok" if same else "FAIL"}')
+        if not same:
+            fail('a one-rank context-parallel forward is not bit-equal to '
+                 'predict_log_prob')
+        check['bit_equal'] = same
+        del lp, ref
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        samples = [cuda_ms(run, reps=1, warmup=int(i == 0))
+                   for i in range(FWD_REPS)]
+        peak = torch.cuda.max_memory_allocated()
+        ms = float(np.median(samples))
+        log(f'context-parallel path: median {ms:.2f} ms per batch of '
+            f'{FWD_REPS} (min {min(samples):.2f}, max {max(samples):.2f}), '
+            f'{real / ms * 1e3:.1f} real tokens/s, peak memory '
+            f'{peak / 2**30:.2f} GiB; predict_log_prob (phase 4) '
+            f'{phase4_ms:.2f} ms ({ms / phase4_ms:.4f})')
+        del model
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return {'launches': launches, 'vs_predict_log_prob': check,
+            'ms_per_batch': ms, 'ms_per_batch_samples': samples,
+            'real_tokens_per_s': real / ms * 1e3,
+            'peak_mem_gib': peak / 2**30, 'phase4_ms_per_batch': phase4_ms}
+
+
+def time_rect(cu, dev):
+    """H9's times at the main inference shape (H = 20, D = 64) for each
+    rank of a ``RECT_TIMED_WORLD``-rank world over the main batch's T
+    tokens (the split ``forward_flat_cp`` makes, T / n query rows over all
+    T keys): the kernel, its mma.sync form through its rectangular entry,
+    its plain version, the bound of the rank's work and, as a yardstick
+    only, PyTorch's varlen forward over the rank's pieces of its segments;
+    the Hopper form on rank 0 on the mask-skip pair. Each rank's inputs
+    are held first against the plain version under H1's gates, on H9's
+    route and on the mma.sync form (``check_flash_args``), and so is the
+    one-rank shape that phase 10's path gives H9 (Tq = Tk = T, no ALIGN
+    pad, a ragged last block). Returns the kernels line's row (times
+    summed over the ranks, the largest errors of those checks) without
+    launches."""
+    from esme_tpu_torch.models.esm import packed_meta
+    from esme_tpu_torch.ops import flash
+    H = MODEL['attention_heads']
+    D = MODEL['embed_dim'] // H
+    T, n = BUDGET, RECT_TIMED_WORLD
+    seg = packed_meta(torch.as_tensor(cu, device=dev), T)[0].contiguous()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    q, k, v = (randn((T, H * D), gen, dev) for _ in range(3))
+    ranks = []
+    e_o, e_l, o, _ = check_flash_args(rect_args(q, k, v, seg, 0, T, H),
+                                      ' one rank of 1 at the main shape',
+                                      seg_k=seg)
+    del o
+    for r in range(n):
+        lo, hi = r * T // n, (r + 1) * T // n
+        args = rect_args(q, k, v, seg, lo, hi, H)
+        what = f' rank {r} of {n} at the main shape'
+        eo, el, *_ = check_flash_args(args, what, seg_k=seg,
+                                      library='flash_fwd')
+        e_o, e_l = max(e_o, eo), max(e_l, el)
+        eo, el, o, _ = check_flash_args(args, what, seg_k=seg)
+        e_o, e_l = max(e_o, eo), max(e_l, el)
+        ms = cuda_ms(lambda: flash.segment_flash_fwd(*args, seg_k=seg),
+                     reps=20, warmup=2)
+        mma_ms = cuda_ms(lambda: flash.launch_fwd('flash_fwd', *args,
+                                                  seg_k=seg),
+                         reps=20, warmup=2)
+        plain_ms = cuda_ms(lambda: flash.segment_flash_fwd_plain(
+            *args, seg_k=seg), reps=2)
+        nbytes, flops = rect_work(args, seg, H, D)
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+        lib_ms = yardstick(f'varlen flash-attention forward (aten), rank {r} '
+                           f'of {n}', lambda: varlen_rect_ms(args, seg, H, D,
+                                                             reps=20), o, 'H9')
+        ranks.append({'rows': [lo, hi], 'ms': ms, 'mma_sync_form_ms': mma_ms,
+                      'plain_ms': plain_ms, 'bound_ms': b_ms,
+                      'bound_by': b_by, 'library_varlen_ms': lib_ms,
+                      'bytes': nbytes, 'flops': flops})
+        log(f'H9 rank {r} of {n} (rows {lo}-{hi} over {T} keys, H={H} '
+            f'D={D}): {ms:.4f} ms ({flash.fwd_route(D)}), the mma.sync form '
+            f'{mma_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms '
+            f'by {b_by} ({b_ms / ms:.3f} of it), varlen library {lib_ms}')
+        del o
+    sk = {name: sseg for name, sseg in mask_skip_segs(T, dev).items()}
+    inputs = {name: (rect_args(q, k, v, sseg, 0, T // n, H), sseg)
+              for name, sseg in sk.items()}
+    skip = fastest_pair(f'H9 (flash_fwd_sm90) rank 0 of {n} at T={T}',
+                        lambda a: flash.launch_fwd('flash_fwd_sm90', *a[0],
+                                                   seg_k=a[1]), inputs)
+    del q, k, v, inputs
+    torch.cuda.empty_cache()
+    total = {key: sum(rk[key] for rk in ranks)
+             for key in ('ms', 'mma_sync_form_ms', 'plain_ms', 'bound_ms',
+                         'bytes', 'flops')}
+    libs = [rk['library_varlen_ms'] for rk in ranks]
+    lib = sum(libs) if None not in libs else None
+    by = bound(total['bytes'], total['flops'], BF16_FLOP_PER_S)[1]
+    log(f'H9 over the {n} ranks: {total["ms"]:.4f} ms, bound '
+        f'{total["bound_ms"]:.4f} ms by {by}, plain {total["plain_ms"]:.3f} '
+        f'ms, varlen library {lib}')
+    return {'name': H9_NAME, 'route': 'cuda',
+            'source': 'esme_tpu_torch/csrc/flash_fwd_sm90.cu',
+            'routes': {str(d): f'esme_tpu_torch/csrc/{flash.fwd_route(d)}.cu'
+                       for d in flash.HEAD_DIMS},
+            'replaces': 'esme_tpu/ops/flash.py:1168',
+            'also_replaces': ['esme_tpu/ops/flash.py:459'],
+            'max_abs_err': e_o, 'lse_max_abs_err': e_l,
+            'ms': total['ms'], 'plain_ms': total['plain_ms'],
+            'bound_ms': total['bound_ms'], 'bound_by': by,
+            'library_ms': lib, 'library_varlen_ms': lib,
+            'mma_sync_form_ms': total['mma_sync_form_ms'],
+            'mask_skip_ms': skip, 'ranks': ranks,
+            'shape': f'T={T} H={H} D={D} bf16: {n} ranks of {T // n} query '
+                     f'rows over all {T} keys, times summed over the ranks',
+            'bytes': total['bytes'], 'flops': total['flops']}
+
+
 def main(argv):
     if not torch.cuda.is_available():
         fail('no CUDA device: this script runs the port on the card')
@@ -1066,6 +1436,7 @@ def main(argv):
     check_mode0_ptxas()
     sm90_usage = check_sm90_ptxas()
     h8_ptxas = check_probes_sm90_ptxas()
+    rect_ptxas = check_rect_ptxas()
 
     # 3. kernels vs plain versions
     H = MODEL['attention_heads']
@@ -1086,6 +1457,7 @@ def main(argv):
             for d in flash.HEAD_DIMS:
                 check_flash_args(seg_flash_args(seg[:t], 4, d, dev, d + t),
                                  f' {layout}')
+    rect_err, rect_lse_err = check_rect(cu8k, dev)
     for d in (16, 24, 32, 128):
         check_rope(CHECK_BUDGET, 20 if d < 128 else 40, d, dev, seed=d)
     rope_err = check_rope(BUDGET + (-BUDGET) % 256, H, D, dev)
@@ -1225,6 +1597,13 @@ def main(argv):
     family_kernels, families = check_families(
         dev, MaskedPLM, (tokens, cu, max_len), profile_dir)
 
+    # 10. context parallelism: the path, then H9's times
+    cp = check_cp(dev, (tokens, cu, max_len), infer['ms_per_batch'])
+    h9 = time_rect(cu, dev)
+    h9.update(launches=cp['launches'][H9_NAME],
+              check_batch_max_abs_err=rect_err,
+              check_batch_lse_max_abs_err=rect_lse_err, ptxas=rect_ptxas)
+
     train_launches = {key: c['launches'] for key, c in cells.items()}
     kernels = [
         {'name': H1_NAME, 'route': 'cuda',
@@ -1303,6 +1682,7 @@ def main(argv):
          'library_ms': h4['library_ms'], 'mode': next(iter(RELAYOUTS)),
          'modes': h4_modes, 'shape': f'T={T} H={H} D={D} bf16',
          'bytes': h4['bytes']},
+        h9,
         *probe_kernels,
         *family_kernels,
     ]
@@ -1320,6 +1700,7 @@ def main(argv):
         'inference_batch_unmasked_units': h1_units,
         'train_batch_unmasked_units': units,
         'fit_losses': fit_losses, 'families': families,
+        'context_parallel': cp,
         'build_s': build_s,
         'model_checks': model_checks, 'torch': torch.__version__,
         'cuda': torch.version.cuda,
@@ -1580,6 +1961,7 @@ def _counters():
 def reset_counters():
     for f in _counters().values():
         f.launches = 0
+    _counters()[H1_NAME].rect_launches = 0
     _counters()[H3_NAME].inverse_launches = 0
     for name in (H4_NAME, H5_NAME):
         # (a plain version standing in for H4 counts no routes)
@@ -1804,8 +2186,8 @@ def op_run(fn, xs, w):
 
 def expected_launches(**counts):
     """Every counter at 0 but those given."""
-    return {**{name: 0 for name in _counters()}, 'rope_inverse': 0,
-            **counts}
+    return {**{name: 0 for name in _counters()}, H9_NAME: 0,
+            'rope_inverse': 0, **counts}
 
 
 def expect_launches(what, got, **expected):
@@ -1953,13 +2335,15 @@ def check_op_api(cu, dev):
 def ptxas_usage(build_log: str) -> dict:
     """``{(kernel, padded head dim, mode): (registers, stack frame, spill
     stores, spill loads)}`` of the H1/H2 kernels in ``nvcc -Xptxas -v``
-    output."""
+    output (H9's mma.sync kernel, which has no mode: ``(kernel, padded head
+    dim)``)."""
     usage, name, frame = {}, None, None
     for line in build_log.splitlines():
-        m = re.search(r'Function properties for \S*\d(flash_(?:fwd|bwd_dq|'
-                      r'bwd_dkv)_kernel)ILi(\d+)ELi(\d+)E', line)
+        m = re.search(r'Function properties for \S*\d(flash_(?:fwd|fwd_rect|'
+                      r'bwd_dq|bwd_dkv)_kernel)I((?:Li\d+E)+)E', line)
         if m:
-            name = (m.group(1), int(m.group(2)), int(m.group(3)))
+            name = (m.group(1), *map(int, re.findall(r'Li(\d+)E',
+                                                     m.group(2))))
             continue
         m = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores, '
                       r'(\d+) bytes spill loads', line)

@@ -1,10 +1,13 @@
 """esme_tpu_torch — the PyTorch/CUDA port of the JAX package ``esme_tpu``.
 
 Packed ("varlen") ESM inference and masked-LM training in PyTorch, for
-every family of the JAX package (ESM2, ESM1b, ESM1v, ESMC),
+every family of the JAX package (ESM2, ESM1b, ESM1v, ESMC), and
+context-parallel inference over several processes
+(:mod:`esme_tpu_torch.parallel`),
 with hand-written CUDA kernels for Hopper (``sm_90a``) where the JAX
 package had Pallas kernels: the segment-flash attention forward and
-backward, RoPE, the head relayouts and the attention probes of
+backward, its rectangular forward, RoPE, the head relayouts and the
+attention probes of
 :mod:`esme_tpu_torch.tools` (``csrc/``, built at first use by
 :mod:`esme_tpu_torch._build`).
 Everything else is plain PyTorch. The JAX package ``esme_tpu`` is the

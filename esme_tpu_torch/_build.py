@@ -49,6 +49,7 @@ SIGNATURES = {
                                        P]),
         'esme_segment_flash_fwd_variant': (I, [I] + [P] * 8 + [I, I, I, F,
                                                                P]),
+        'esme_segment_flash_fwd_rect': (I, [P] * 9 + [I, I, I, I, F, P]),
         'esme_flash_error_string': (ctypes.c_char_p, [I]),
     },
     'flash_fwd_sm90': {
@@ -56,6 +57,8 @@ SIGNATURES = {
         'esme_flash_fwd_t_sm90': (I, [P] * 8 + [I, I, I, F, P]),
         'esme_segment_flash_fwd_sm90_variant': (I, [I] + [P] * 8
                                                 + [I, I, I, F, P]),
+        'esme_segment_flash_fwd_rect_sm90': (I, [P] * 9
+                                             + [I, I, I, I, F, P]),
         'esme_flash_fwd_sm90_error_string': (ctypes.c_char_p, [I]),
     },
     'flash_bwd': {

@@ -41,6 +41,19 @@
 // Mode 0 is the production kernel, and esme_segment_flash_fwd launches
 // only that one; esme_segment_flash_fwd_variant launches any mode, at
 // D = 64 only (ESM2-650M's head dim; `nopv` needs D == BK).
+//
+// H9, the rectangular form (flash_fwd_rect_kernel, the body in mode 0 at
+// every padded width, in a kernel of its own; the wrapper routes D = 16
+// and 24 here, as for H1): Tq query rows with ids seg_q over Tk key rows
+// with ids seg_k, the forward of the TPU kernel K-rect
+// (esme_tpu/ops/flash.py:1168 flash_rect_attention -> _fwd). The k/v and
+// id loads read seg_k and zero-fill past Tk, and the key mask tests Tk;
+// the q rows, the grid, o and lse stay on the query side. Nothing else
+// differs: where H9 walks H1's span (a rank whose first row starts a q
+// block), its o and lse are H1's bit for bit. A q block whose span is
+// empty (no key shares its ids) walks no tile: o = 0, and lse is the
+// running max of no key, -1e30 in base 2, times ln 2 (EMPTY_LSE in
+// ops/flash.py).
 
 #include "flash_common.cuh"
 
@@ -82,14 +95,16 @@ struct Cfg {
   static constexpr size_t bytes = (size_t)(QTILE + 4 * KTILE) * 2 + 2 * BK * 4;
 };
 
+// The kernel's body, shared by H1 (and H6) and H9: the queries have ids
+// seg over T rows and the keys ids segk_g over Tk rows; H1's kernel passes
+// its one seg and T for both, H9's kernel the two sides' own.
 template <int DP, int MODE>
-__global__ void __launch_bounds__(Cfg<DP>::NTHREADS)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const int* __restrict__ seg,
-                 const int* __restrict__ kstart,
-                 const int* __restrict__ kend, bf16* __restrict__ o,
-                 float* __restrict__ lse, int T, int H, int D,
-                 float scale_log2) {
+__device__ __forceinline__ void fwd_body(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const int* __restrict__ seg,
+    const int* __restrict__ segk_g, const int* __restrict__ kstart,
+    const int* __restrict__ kend, bf16* __restrict__ o,
+    float* __restrict__ lse, int T, int Tk, int H, int D, float scale_log2) {
   using C = Cfg<DP>;
   constexpr int LD = C::LD;
   constexpr int MT = C::MT;
@@ -131,11 +146,12 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   auto v_tile = [&](int s) { return Qs + C::QTILE + (2 * s + 1) * C::KTILE; };
   auto load_kv = [&](int kb, int s) {
     const int k0 = kb * BK;
-    load_rows<DP, LD, BK, C::NTHREADS>(k_tile(s), k, k0, T, HD, col0, D);
-    load_rows<DP, LD, BK, C::NTHREADS>(v_tile(s), v, k0, T, HD, col0, D);
+    load_rows<DP, LD, BK, C::NTHREADS>(k_tile(s), k, k0, Tk, HD, col0, D);
+    load_rows<DP, LD, BK, C::NTHREADS>(v_tile(s), v, k0, Tk, HD, col0, D);
     for (int i = threadIdx.x; i < BK; i += C::NTHREADS) {
       const int t = k0 + i;
-      cp_async4(smem_u32(segk + s * BK + i), seg + (t < T ? t : 0), t < T);
+      cp_async4(smem_u32(segk + s * BK + i), segk_g + (t < Tk ? t : 0),
+                t < Tk);
     }
   };
 
@@ -245,7 +261,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int c = j * 8 + tq * 2 + e;
-          const int skc = k0 + c < T ? sk[c] : -1;
+          const int skc = k0 + c < Tk ? sk[c] : -1;
 #pragma unroll
           for (int m = 0; m < MT; ++m)
 #pragma unroll
@@ -388,6 +404,33 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int DP, int MODE>
+__global__ void __launch_bounds__(Cfg<DP>::NTHREADS)
+flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const int* __restrict__ seg,
+                 const int* __restrict__ kstart,
+                 const int* __restrict__ kend, bf16* __restrict__ o,
+                 float* __restrict__ lse, int T, int H, int D,
+                 float scale_log2) {
+  fwd_body<DP, MODE>(q, k, v, seg, seg, kstart, kend, o, lse, T, T, H, D,
+                     scale_log2);
+}
+
+// H9: T (Tq) query rows with ids seg_q over Tk key rows with ids seg_k
+template <int DP>
+__global__ void __launch_bounds__(Cfg<DP>::NTHREADS)
+flash_fwd_rect_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v,
+                      const int* __restrict__ seg_q,
+                      const int* __restrict__ seg_k,
+                      const int* __restrict__ kstart,
+                      const int* __restrict__ kend, bf16* __restrict__ o,
+                      float* __restrict__ lse, int Tq, int Tk, int H, int D,
+                      float scale_log2) {
+  fwd_body<DP, BASELINE>(q, k, v, seg_q, seg_k, kstart, kend, o, lse, Tq, Tk,
+                         H, D, scale_log2);
+}
+
+template <int DP, int MODE>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* seg, const int* kstart, const int* kend,
                    void* o, float* lse, int T, int H, int D, float scale,
@@ -403,6 +446,24 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       static_cast<const bf16*>(v), seg, kstart, kend, static_cast<bf16*>(o),
       lse, T, H, D, scale * LOG2E);
   return cudaGetLastError();
+}
+
+template <int DP>
+int launch_rect(const void* q, const void* k, const void* v,
+                const int* seg_q, const int* seg_k, const int* kstart,
+                const int* kend, void* o, float* lse, int Tq, int Tk, int H,
+                int D, float scale, cudaStream_t stream) {
+  const size_t smem = Cfg<DP>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_rect_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((Tq + BQ - 1) / BQ, H);
+  flash_fwd_rect_kernel<DP><<<grid, Cfg<DP>::NTHREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), seg_q, seg_k, kstart, kend,
+      static_cast<bf16*>(o), lse, Tq, Tk, H, D, scale * LOG2E);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -426,6 +487,37 @@ int esme_segment_flash_fwd(const void* q, const void* k, const void* v,
     case 64: return launch<64, BASELINE>(q, k, v, s, ks, ke, o, l, T, H, D, scale, st);
     case 128:
       return launch<128, BASELINE>(q, k, v, s, ks, ke, o, l, T, H, D, scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// H9: H1 with per-side ids and lengths, q and o (Tq, H*D), k and v (Tk,
+// H*D), lse (H, Tq). Returns the cudaError_t of the launch (0 on success).
+int esme_segment_flash_fwd_rect(const void* q, const void* k, const void* v,
+                                const void* seg_q, const void* seg_k,
+                                const void* kstart, const void* kend,
+                                void* o, void* lse, int Tq, int Tk, int H,
+                                int D, float scale, void* stream) {
+  const int* sq = static_cast<const int*>(seg_q);
+  const int* sk = static_cast<const int*>(seg_k);
+  const int* ks = static_cast<const int*>(kstart);
+  const int* ke = static_cast<const int*>(kend);
+  float* l = static_cast<float*>(lse);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16:
+      return launch_rect<16>(q, k, v, sq, sk, ks, ke, o, l, Tq, Tk, H, D,
+                             scale, st);
+    case 24:
+    case 32:
+      return launch_rect<32>(q, k, v, sq, sk, ks, ke, o, l, Tq, Tk, H, D,
+                             scale, st);
+    case 64:
+      return launch_rect<64>(q, k, v, sq, sk, ks, ke, o, l, Tq, Tk, H, D,
+                             scale, st);
+    case 128:
+      return launch_rect<128>(q, k, v, sq, sk, ks, ke, o, l, Tq, Tk, H, D,
+                              scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -113,6 +113,26 @@
 //            the ring, TMA and mbarriers run as in production
 // The modes without a max (MAXFREE, NOMAX, NOEXP, NOTHING) keep m at
 // -1e30 and write lse = -1e30 + log(l).
+//
+// H9, the rectangular form (flash_fwd_rect_sm90_kernel, the body at D = 32,
+// 64, 128, THD, mode 0, in a kernel of its own): H1 with queries and keys
+// of their own, Tq query rows with ids seg_q over Tk key rows with ids
+// seg_k (context parallelism: a rank's tokens over the keys gathered from
+// every rank). Replaces the forward of the TPU kernel K-rect,
+// esme_tpu/ops/flash.py:1168 flash_rect_attention -> _fwd (K1 with
+// segq_row != segk_col). Only the key side changes: its tensor maps have
+// Tk rows, the stage loader copies seg_k's ids and zero-fills past Tk, and
+// the stage's in-range count kn is taken against Tk; the grid, the q ids,
+// the warp's one-segment vote, the o store and lse stay on the query side.
+// The vote compares key ids with the q tile's, which is right because the
+// ids are global on both sides. Nothing else differs: where H9 walks H1's
+// span (a rank whose first row starts a q block), its o and lse are H1's
+// bit for bit. A q block whose span is empty (no key shares its ids) walks
+// no stage: o = 0, and lse is the running max of no key, -1e30 in base 2,
+// times ln 2 (EMPTY_LSE in ops/flash.py).
+// The work and what bounds it are H1's, over the rank's same-segment
+// pairs; H1's instantiations compile as they did (the body is shared, not
+// their parameters).
 
 #include <limits.h>
 
@@ -293,17 +313,16 @@ __device__ __forceinline__ void softmax_stage(float (&s)[N], float (&m)[2],
 // (H5, whose o goes out through tm_o)
 enum Layout { THD = 0, HDT = 1 };
 
-template <int D, int LAYOUT, int MODE = BASELINE>
-__global__ void __launch_bounds__(NTHREADS, ctas_per_sm<D>())
-flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
-                      const __grid_constant__ CUtensorMap tm_k,
-                      const __grid_constant__ CUtensorMap tm_v,
-                      const __grid_constant__ CUtensorMap tm_o,
-                      const int* __restrict__ seg,
-                      const int* __restrict__ kstart,
-                      const int* __restrict__ kend, bf16* __restrict__ o,
-                      float* __restrict__ lse, int T, int H,
-                      float scale_log2) {
+// The kernel's body, shared by H1 (and H5, H6) and H9: the queries have
+// ids seg over T rows and the keys ids segk over Tk rows; H1's kernel
+// passes its one seg and T for both, H9's kernel the two sides' own.
+template <int D, int LAYOUT, int MODE>
+__device__ __forceinline__ void fwd_body(
+    const CUtensorMap& tm_q, const CUtensorMap& tm_k, const CUtensorMap& tm_v,
+    const CUtensorMap& tm_o, const int* __restrict__ seg,
+    const int* __restrict__ segk, const int* __restrict__ kstart,
+    const int* __restrict__ kend, bf16* __restrict__ o,
+    float* __restrict__ lse, int T, int Tk, int H, float scale_log2) {
   using G = Geo<D>;
   using L = FwdSmem<D>;
   using TG = TGeo<D>;
@@ -367,7 +386,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int i = lane; i < KS; i += 32) {
       const int t = k0 + i;
-      cp_async4(smem_u32(ids(s) + i), seg + (t < T ? t : 0), t < T);
+      cp_async4(smem_u32(ids(s) + i), segk + (t < Tk ? t : 0), t < Tk);
     }
     mbar_arrive_cp_async(&full[s]);
   };
@@ -417,7 +436,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     const uint32_t ks = smem_u32(k_rows(s));
     const uint32_t vs = smem_u32(v_rows(s));
     const int* sid = ids(s);
-    const int kn = T - (kb0 + 2 * it) * KT;   // the stage's k rows below T
+    const int kn = Tk - (kb0 + 2 * it) * KT;   // the stage's k rows below Tk
     if constexpr (MODE == NOTHING) {
       // one element of each tile the stage and the block hold, in the
       // TPU kernel's order, into every accumulator
@@ -583,6 +602,37 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 template <int D, int LAYOUT, int MODE = BASELINE>
+__global__ void __launch_bounds__(NTHREADS, ctas_per_sm<D>())
+flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const __grid_constant__ CUtensorMap tm_o,
+                      const int* __restrict__ seg,
+                      const int* __restrict__ kstart,
+                      const int* __restrict__ kend, bf16* __restrict__ o,
+                      float* __restrict__ lse, int T, int H,
+                      float scale_log2) {
+  fwd_body<D, LAYOUT, MODE>(tm_q, tm_k, tm_v, tm_o, seg, seg, kstart, kend, o,
+                            lse, T, T, H, scale_log2);
+}
+
+// H9: T (Tq) query rows with ids seg_q over Tk key rows with ids seg_k
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, ctas_per_sm<D>())
+flash_fwd_rect_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const int* __restrict__ seg_q,
+                           const int* __restrict__ seg_k,
+                           const int* __restrict__ kstart,
+                           const int* __restrict__ kend,
+                           bf16* __restrict__ o, float* __restrict__ lse,
+                           int Tq, int Tk, int H, float scale_log2) {
+  fwd_body<D, THD, BASELINE>(tm_q, tm_k, tm_v, tm_q, seg_q, seg_k, kstart,
+                             kend, o, lse, Tq, Tk, H, scale_log2);
+}
+
+template <int D, int LAYOUT, int MODE = BASELINE>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* seg, const int* kstart, const int* kend,
                    void* o, float* lse, int T, int H, float scale,
@@ -638,6 +688,30 @@ int launch_d(const void* q, const void* k, const void* v, const void* seg,
   }
 }
 
+template <int D>
+cudaError_t launch_rect(const void* q, const void* k, const void* v,
+                        const int* seg_q, const int* seg_k, const int* kstart,
+                        const int* kend, void* o, float* lse, int Tq, int Tk,
+                        int H, float scale, cudaStream_t stream) {
+  using L = FwdSmem<D>;
+  CUtensorMap tq, tk, tv;
+  const int HD = H * D;
+  cudaError_t err;
+  if ((err = tile_map<D>(&tq, q, Tq, HD, BQ)) != cudaSuccess ||
+      (err = tile_map<D>(&tk, k, Tk, HD, KS)) != cudaSuccess ||
+      (err = tile_map<D>(&tv, v, Tk, HD, KS)) != cudaSuccess)
+    return err;
+  auto kernel = flash_fwd_rect_sm90_kernel<D>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             L::BYTES);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((Tq + BQ - 1) / BQ, H), NTHREADS, L::BYTES, stream>>>(
+      tq, tk, tv, seg_q, seg_k, kstart, kend, static_cast<bf16*>(o), lse, Tq,
+      Tk, H, scale * LOG2E);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -659,6 +733,34 @@ int esme_flash_fwd_t_sm90(const void* q, const void* k, const void* v,
                           int D, float scale, void* stream) {
   return launch_d<HDT>(q, k, v, seg, kstart, kend, o, lse, T, H, D, scale,
                        stream);
+}
+
+// H9: H1 with per-side ids and lengths, q and o (Tq, H*D), k and v (Tk,
+// H*D), lse (H, Tq). D in {32, 64, 128}.
+int esme_segment_flash_fwd_rect_sm90(const void* q, const void* k,
+                                     const void* v, const void* seg_q,
+                                     const void* seg_k, const void* kstart,
+                                     const void* kend, void* o, void* lse,
+                                     int Tq, int Tk, int H, int D,
+                                     float scale, void* stream) {
+  const int* sq = static_cast<const int*>(seg_q);
+  const int* sk = static_cast<const int*>(seg_k);
+  const int* ks = static_cast<const int*>(kstart);
+  const int* ke = static_cast<const int*>(kend);
+  float* l = static_cast<float*>(lse);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32:
+      return (int)launch_rect<32>(q, k, v, sq, sk, ks, ke, o, l, Tq, Tk, H,
+                                  scale, st);
+    case 64:
+      return (int)launch_rect<64>(q, k, v, sq, sk, ks, ke, o, l, Tq, Tk, H,
+                                  scale, st);
+    case 128:
+      return (int)launch_rect<128>(q, k, v, sq, sk, ks, ke, o, l, Tq, Tk, H,
+                                   scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // H6: H1 (THD) in ablation mode `mode` (enum Mode), D = 64 only; mode 0

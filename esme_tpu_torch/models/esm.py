@@ -38,8 +38,8 @@ from .config import (ESMConfig, esm1b_config, esm1v_config, esm2_config,
                      esmc_config)
 from .init import init_params
 from .io import load_pretrained, read_metadata, save_pretrained
-from .modules import (embed_tokens, layer_stack, learned_positions_flat,
-                      roberta_lm_head)
+from .modules import (embed_tokens, layer_stack,
+                      learned_positions_flat, roberta_lm_head)
 
 # The packed batch is padded once per forward to a multiple of ALIGN
 # tokens, with one fake tail segment that real tokens never attend (as
@@ -65,7 +65,7 @@ def forward_flat(params, cfg: ESMConfig, tokens, seg_ids, pos_ids, *,
                  with_head: bool = True, log_prob: bool = False,
                  attn_impl: str = 'auto', checkpointing: bool = False,
                  collect_layers=None, max_seqlen=None, num_jobs=None,
-                 remat: str = 'full'):
+                 remat: str = 'full', kv_gather=None, spans=None):
     """Trunk (+ optional LM head) over flat tokens with explicit
     segment/position metadata. Returns ``(T, C)``; with
     ``collect_layers`` the requested layer outputs are concatenated on
@@ -82,10 +82,18 @@ def forward_flat(params, cfg: ESMConfig, tokens, seg_ids, pos_ids, *,
     rotary embeddings) and the flash block spans depend only on positions
     and segment ids, so they are computed once here and shared by every
     layer. The padded rows are sliced off.
+
+    ``kv_gather``: the context-parallel hook (``esme_tpu/models/esm.py:
+    97-100``; :func:`esme_tpu_torch.parallel.forward_flat_cp` passes it).
+    The tokens are then this rank's contiguous slice of the global batch,
+    and nothing is padded: a shard-local pad would corrupt the gathered
+    key layout, and H9 takes any length. ``spans`` is then H9's
+    ``(kstart, kend)`` over the local and the gathered ids, which every
+    layer shares (:func:`~esme_tpu_torch.ops.flash.rect_spans`; the
+    caller holds both sets of ids), or None to compute them in each layer.
     """
     T = tokens.shape[0]
-    spans = None
-    if attn_impl == 'reference':
+    if kv_gather is not None or attn_impl == 'reference':
         seg_ids = seg_ids.to(torch.int32).contiguous()
     else:
         seg_ids, pos_ids, spans = pad_flat_meta(seg_ids, pos_ids)
@@ -101,7 +109,7 @@ def forward_flat(params, cfg: ESMConfig, tokens, seg_ids, pos_ids, *,
     x, reps = layer_stack(x, params['layers'], cfg, seg_ids, pos_ids,
                           attn_impl=attn_impl, checkpointing=checkpointing,
                           collect_layers=collect_layers, rope=rope,
-                          spans=spans, remat=remat)
+                          spans=spans, remat=remat, kv_gather=kv_gather)
     x = apply_norm(x, params['emb_norm_after'])
     x = x[:T]
     reps = [r[:T] for r in reps]

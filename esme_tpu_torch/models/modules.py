@@ -24,9 +24,11 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.attention import attention_reference
-from ..ops.flash import flash_spans, segment_flash
+from ..ops.attention import attention_rect, attention_reference
+from ..ops.flash import flash_spans, segment_flash, \
+    segment_flash_rect
 from ..ops.fused_attn import fused_rotary_flash
+from ..ops import headsplit
 from ..ops.linear import linear, matmul
 from ..ops.norm import apply_norm
 from ..ops.rotary import apply_rotary, rotary_cos_sin
@@ -74,7 +76,8 @@ def gelu_linear(x, kernel, bias=None):
 
 def attention_block(x, params, cfg, seg_ids, pos_ids,
                     attn_impl: str = 'auto',
-                    rope: Optional[tuple] = None, spans=None):
+                    rope: Optional[tuple] = None, spans=None,
+                    kv_gather=None):
     """Multi-head self-attention over the packed layout
     (reference: esme/attention.py:91-139). ``x``: ``(T, C)``.
 
@@ -90,6 +93,19 @@ def attention_block(x, params, cfg, seg_ids, pos_ids,
     rotates by identity tables there, which is exact, so the port skips
     the rotation and launches no H3). 'reference' runs the einsum oracle,
     with RoPE only when ``cfg.rotary``.
+
+    ``kv_gather`` (context parallelism, ``esme_tpu/models/modules.py:
+    148-173``): ``x`` holds this rank's tokens, and
+    ``kv_gather(k, v, seg_ids) -> (k_full, v_full, seg_full)`` gathers the
+    keys, values (``(T, H, D)``) and ids of every rank
+    (:func:`esme_tpu_torch.parallel.make_kv_gather`). q and k are rotated
+    locally before the gather (H3 on the 'flash' route, the plain rotation
+    on 'reference', as JAX rotates before it), then the local queries
+    attend the gathered stream: kernel H9 (:func:`segment_flash_rect`,
+    'flash' or 'auto') or :func:`attention_rect` ('reference'). ``spans``
+    is then H9's ``(kstart, kend)`` over the local and the gathered ids
+    (:func:`~esme_tpu_torch.ops.flash.rect_spans`), or None to compute
+    them here.
     """
     h = apply_norm(x, params['norm'])
     q = linear(h, params['q'])
@@ -103,7 +119,10 @@ def attention_block(x, params, cfg, seg_ids, pos_ids,
     if cfg.rotary and rope is None:
         rope = rotary_cos_sin(pos_ids, Dh, dtype=x.dtype)
 
-    if attn_impl in ('auto', 'flash'):
+    if kv_gather is not None:
+        o = _attention_cp(q, k, v, cfg, seg_ids, attn_impl, rope, spans,
+                          kv_gather)
+    elif attn_impl in ('auto', 'flash'):
         if cfg.rotary:
             o = fused_rotary_flash(q, k, v, *rope, seg_ids, H, spans=spans)
         else:
@@ -119,6 +138,33 @@ def attention_block(x, params, cfg, seg_ids, pos_ids,
     else:
         raise ValueError(f'unknown attention impl: {attn_impl}')
     return linear(o, params['out'])
+
+
+def _attention_cp(q, k, v, cfg, seg_ids, attn_impl, rope, spans, kv_gather):
+    """The context-parallel branch of :func:`attention_block`: ``(T, H·D)``
+    q, k, v of this rank's tokens -> ``(T, H·D)`` attention output over
+    every rank's keys."""
+    T = q.shape[0]
+    H, Dh = cfg.attention_heads, cfg.head_dim
+    if attn_impl not in ('auto', 'flash', 'reference'):
+        raise ValueError(f'unknown attention impl: {attn_impl}')
+    flash = attn_impl != 'reference'
+    if cfg.rotary:
+        if flash:
+            q, k = headsplit.rotary_qk(q, k, *rope, H)
+        else:
+            q, k = (apply_rotary(x.reshape(T, H, Dh), *rope)
+                    .reshape(T, H * Dh) for x in (q, k))
+    k_full, v_full, seg_k = kv_gather(k.reshape(T, H, Dh),
+                                      v.reshape(T, H, Dh), seg_ids)
+    Tk = k_full.shape[0]
+    if flash:
+        seg_k = seg_k.to(torch.int32).contiguous()
+        return segment_flash_rect(
+            q.contiguous(), k_full.reshape(Tk, H * Dh),
+            v_full.reshape(Tk, H * Dh), seg_ids, seg_k, H, spans)
+    o = attention_rect(q.reshape(T, H, Dh), k_full, v_full, seg_ids, seg_k)
+    return o.reshape(T, H * Dh)
 
 
 class _SwigluLinear(torch.autograd.Function):
@@ -188,7 +234,8 @@ def mlp_block(x, params, cfg):
 
 def transformer_layer(x, params, cfg, seg_ids, pos_ids,
                       attn_impl: str = 'auto',
-                      rope: Optional[tuple] = None, spans=None):
+                      rope: Optional[tuple] = None, spans=None,
+                      kv_gather=None):
     """Pre-norm residual block with residue scaling
     (reference: esme/attention.py:241-255). The branch is multiplied by
     ``1 / residue_scaling`` rounded to the activation dtype first, as JAX
@@ -202,7 +249,7 @@ def transformer_layer(x, params, cfg, seg_ids, pos_ids,
         return y if inv_scale == 1.0 else y * inv_scale
 
     x = x + scaled(attention_block(x, params['attn'], cfg, seg_ids, pos_ids,
-                                   attn_impl, rope, spans))
+                                   attn_impl, rope, spans, kv_gather))
     return x + scaled(mlp_block(x, params['mlp'], cfg))
 
 
@@ -235,7 +282,7 @@ def layer_stack(x, stacked_params, cfg, seg_ids, pos_ids,
                 attn_impl: str = 'auto', checkpointing: bool = False,
                 collect_layers: Optional[Sequence[int]] = None,
                 rope: Optional[tuple] = None, spans=None,
-                remat: str = 'full'):
+                remat: str = 'full', kv_gather=None):
     """Run every layer over the per-layer params: a dict of stacked
     leaves, or a list of one dict per layer.
 
@@ -246,7 +293,9 @@ def layer_stack(x, stacked_params, cfg, seg_ids, pos_ids,
     ``remat='attn'`` raises until the memory slice.
     Returns ``(x, reps)``: ``reps`` holds the outputs of the layers in
     ``collect_layers`` (negative indices count from the end), in that
-    order (reference: esme/esm.py:243-250).
+    order (reference: esme/esm.py:243-250). ``kv_gather``: the
+    context-parallel hook of :func:`attention_block`, the same in every
+    layer.
     """
     check_remat(remat, checkpointing)
     if isinstance(stacked_params, dict):
@@ -258,7 +307,8 @@ def layer_stack(x, stacked_params, cfg, seg_ids, pos_ids,
     collect = [i % L for i in (collect_layers or ())]
     reps = [None] * len(collect)
     for i in range(L):
-        args = (x, layers[i], cfg, seg_ids, pos_ids, attn_impl, rope, spans)
+        args = (x, layers[i], cfg, seg_ids, pos_ids, attn_impl, rope, spans,
+                kv_gather)
         if checkpointing and torch.is_grad_enabled():
             x = checkpoint(transformer_layer, *args, use_reentrant=False,
                            preserve_rng_state=False)

@@ -15,8 +15,12 @@ over a flat token stream where token *t* attends token *s* iff
 backward paths
 ``:_dq_kernel``/``:_dkv_kernel``, ``:_dq_jobs_kernel``/``:_dkv_jobs_kernel``
 and ``:_dkvq_jobs_kernel``. Each routes by a static rule on the head
-dim (:func:`fwd_route`, :func:`bwd_route`). All read and write the
-``(T, H·D)`` layout directly (so the TPU relayouts
+dim (:func:`fwd_route`, :func:`bwd_route`). With the keys' own ids
+(``seg_k``), :func:`segment_flash_fwd` launches kernel H9, a kernel of
+its own over the body of H1's forms, which replaces the forward of
+``:flash_rect_attention`` (K-rect) for context parallelism
+(:func:`segment_flash_rect`, :func:`flash_rect_attention`). All read and
+write the ``(T, H·D)`` layout directly (so the TPU relayouts
 ``headsplit.py:_split_one_kernel_t`` for v and do and
 ``:_merge_kernel_t`` for o and dv have no counterpart). On
 a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
@@ -76,6 +80,17 @@ BWD_ROUTES = {
     'flash_bwd': ('esme_segment_flash_bwd', 'esme_flash_bwd_error_string'),
 }
 SM90_HEAD_DIMS = (32, 64, 128)
+# The lse of a query row that no key shares a segment with (a q block with
+# an empty span, which only H9 meets): the kernels' running max of no key,
+# -1e30 in base 2, carried to base e by an fp32 product with ln 2
+EMPTY_LSE = (torch.tensor(NEG_INF, dtype=torch.float32)
+             * torch.tensor(math.log(2), dtype=torch.float32)).item()
+# H9, the rectangular forward: the entry of each of H1's libraries that
+# launches its rectangular kernel (per-side ids and lengths)
+FWD_RECT_ENTRIES = {
+    'flash_fwd_sm90': 'esme_segment_flash_fwd_rect_sm90',
+    'flash_fwd': 'esme_segment_flash_fwd_rect',
+}
 
 
 def fwd_route(head_dim: int) -> str:
@@ -88,20 +103,21 @@ def bwd_route(head_dim: int) -> str:
     return 'flash_bwd_sm90' if head_dim in SM90_HEAD_DIMS else 'flash_bwd'
 
 
-def _overlap(seg_ids: torch.Tensor, block_q: int, block_k: int):
+def _overlap(seg_ids: torch.Tensor, block_q: int, block_k: int,
+             seg_k: torch.Tensor | None = None):
     """``(nqb, nkb)`` bool: q block i and k block j share a segment id
-    range. A ragged last block is padded with its last id, which leaves
-    its min/max unchanged."""
-    def blocks(b):
-        s = seg_ids
+    range; the keys' ids are ``seg_k`` (self-attention when None). A
+    ragged last block of either side is padded with that side's last id,
+    which leaves its min/max unchanged."""
+    def blocks(s, b):
         pad = (-s.shape[0]) % b
         if pad:
             s = torch.cat([s, s[-1:].expand(pad)])
         s = s.reshape(-1, b)
         return s.amin(1), s.amax(1)
 
-    qmin, qmax = blocks(block_q)
-    kmin, kmax = blocks(block_k)
+    qmin, qmax = blocks(seg_ids, block_q)
+    kmin, kmax = blocks(seg_ids if seg_k is None else seg_k, block_k)
     return (kmin[None, :] <= qmax[:, None]) & (kmax[None, :] >= qmin[:, None])
 
 
@@ -113,21 +129,27 @@ def _spans(overlap: torch.Tensor):
     return start.to(torch.int32), end.to(torch.int32)
 
 
-def block_spans(seg_ids: torch.Tensor, block_q: int, block_k: int):
+def block_spans(seg_ids: torch.Tensor, block_q: int, block_k: int,
+                seg_k: torch.Tensor | None = None):
     """Per-q-block ``[kstart, kend)`` span of overlapping k blocks, int32
-    (``esme_tpu/ops/flash.py:88-122``, its first two outputs).
+    (``esme_tpu/ops/flash.py:88-122``, its first two outputs). ``seg_k``:
+    the keys' own ids for rectangular attention (context parallelism:
+    local queries over the gathered keys); None means self-attention.
 
     Exact for monotonic (packed) segment ids; for others the span is the
     min..max overlapping block and the in-kernel mask removes the rest.
+    A q block that shares no id range with any k block gets an empty span
+    (``kstart = nkb``, ``kend = 0``).
     """
-    return _spans(_overlap(seg_ids, block_q, block_k))
+    return _spans(_overlap(seg_ids, block_q, block_k, seg_k))
 
 
-def transposed_spans(seg_ids: torch.Tensor, block_q: int, block_k: int):
+def transposed_spans(seg_ids: torch.Tensor, block_q: int, block_k: int,
+                     seg_k: torch.Tensor | None = None):
     """Per-k-block ``[qstart, qend)`` span of overlapping q blocks, int32:
     the backward's dk/dv direction (``esme_tpu/ops/flash.py:88-122``,
-    its last two outputs)."""
-    return _spans(_overlap(seg_ids, block_q, block_k).T)
+    its last two outputs); ``seg_k`` as in :func:`block_spans`."""
+    return _spans(_overlap(seg_ids, block_q, block_k, seg_k).T)
 
 
 def flash_spans(seg_ids: torch.Tensor):
@@ -140,22 +162,30 @@ def flash_spans(seg_ids: torch.Tensor):
 
 
 def segment_flash_fwd_plain(q2, k2, v2, seg_ids, kstart, kend,
-                            num_heads: int, scale: float | None = None):
-    """Plain PyTorch version of H1: the same inputs, the same outputs.
+                            num_heads: int, scale: float | None = None,
+                            seg_k=None):
+    """Plain PyTorch version of H1, and with ``seg_k`` of H9: the same
+    inputs, the same outputs.
 
-    Processes 1024 query rows at a time against the union of their k
-    spans, so memory stays ``O(H · 1024 · span)``. Scores, the max,
-    the sum and lse are fp32; p is rounded to the value dtype before the
-    product with v and normalised after it, as in the kernel.
-    Returns ``o (T, H·D)`` in q's dtype and ``lse (H, T)`` fp32.
+    Queries ``q2 (Tq, H·D)`` with ids ``seg_ids`` attend keys and values
+    ``k2``/``v2 (Tk, H·D)`` with ids ``seg_k`` (``seg_ids`` and Tk = Tq
+    when None). Processes 1024 query rows at a time against the union of
+    their k spans, so memory stays ``O(H · 1024 · span)``. Scores, the
+    max, the sum and lse are fp32; p is rounded to the value dtype before
+    the product with v and normalised after it, as in the kernel. A q
+    block with an empty span (``kend <= kstart``: no key shares its ids)
+    gets o = 0 and lse = ``EMPTY_LSE``, as the kernels write it.
+    Returns ``o (Tq, H·D)`` in q's dtype and ``lse (H, Tq)`` fp32.
     """
     T, HD = q2.shape
+    Tk = k2.shape[0]
     H = num_heads
     D = HD // H
     scale = 1.0 / math.sqrt(D) if scale is None else scale
+    seg_k = seg_ids if seg_k is None else seg_k
     q = q2.reshape(T, H, D)
-    k = k2.reshape(T, H, D)
-    v = v2.reshape(T, H, D)
+    k = k2.reshape(Tk, H, D)
+    v = v2.reshape(Tk, H, D)
     o = torch.empty_like(q2)
     lse = torch.empty((H, T), dtype=torch.float32, device=q2.device)
     ks, ke = kstart.tolist(), kend.tolist()
@@ -165,10 +195,12 @@ def segment_flash_fwd_plain(q2, k2, v2, seg_ids, kstart, kend,
         b1 = min(nqb, b0 + per)
         r0, r1 = b0 * BLOCK_Q, min(T, b1 * BLOCK_Q)
         k0 = min(ks[b0:b1]) * BLOCK_K
-        k1 = min(T, max(ke[b0:b1]) * BLOCK_K)
+        k1 = min(Tk, max(ke[b0:b1]) * BLOCK_K)
+        if k1 <= k0:
+            continue
         s = torch.einsum('thd,shd->hts', q[r0:r1].float(),
                          k[k0:k1].float()) * scale
-        mask = seg_ids[r0:r1, None] == seg_ids[None, k0:k1]
+        mask = seg_ids[r0:r1, None] == seg_k[None, k0:k1]
         s = torch.where(mask[None], s, NEG_INF)
         m = s.amax(-1, keepdim=True)
         p = torch.exp(s - m)
@@ -179,12 +211,17 @@ def segment_flash_fwd_plain(q2, k2, v2, seg_ids, kstart, kend,
         o[r0:r1] = (pv / l_safe).transpose(0, 1).reshape(r1 - r0, HD) \
             .to(q2.dtype)
         lse[:, r0:r1] = (m + torch.log(l_safe))[..., 0]
+    for b in range(nqb):
+        if ke[b] <= ks[b]:
+            o[b * BLOCK_Q:(b + 1) * BLOCK_Q] = 0
+            lse[:, b * BLOCK_Q:(b + 1) * BLOCK_Q] = EMPTY_LSE
     return o, lse
 
 
 def segment_flash_fwd(q2, k2, v2, seg_ids, kstart, kend, num_heads: int,
-                      scale: float | None = None):
-    """Segment-masked flash attention forward (kernel H1).
+                      scale: float | None = None, seg_k=None):
+    """Segment-masked flash attention forward (kernel H1; with ``seg_k``,
+    kernel H9).
 
     Routed by a static rule on the head dim (:func:`fwd_route`): D = 32,
     64 and 128 launch the Hopper form, ``csrc/flash_fwd_sm90.cu`` (``wgmma``
@@ -193,45 +230,66 @@ def segment_flash_fwd(q2, k2, v2, seg_ids, kstart, kend, num_heads: int,
     mma.sync form, ``csrc/flash_fwd.cu``. Both compute the same function
     and are deterministic; ``launches`` counts either.
 
+    With ``seg_k`` the keys have ids of their own and may be a different
+    stream (context parallelism: the rank's queries over the gathered
+    keys): the same route launches H9, the rectangular kernel of
+    the same library, which replaces the TPU kernel K-rect's forward
+    (``esme_tpu/ops/flash.py:1168 flash_rect_attention`` → ``_fwd``);
+    ``rect_launches`` counts it.
+
     Args:
-        q2, k2, v2: ``(T, H·D)`` with RoPE already applied to q and k.
-        seg_ids: ``(T,)`` int32.
-        kstart, kend: ``(ceil(T / BLOCK_Q),)`` int32 spans in units of
-            ``BLOCK_K`` from :func:`block_spans` at the kernel's tiles.
+        q2: ``(Tq, H·D)`` with RoPE already applied.
+        k2, v2: ``(Tk, H·D)``, k with RoPE already applied; Tk = Tq
+            without ``seg_k``.
+        seg_ids: ``(Tq,)`` int32, the queries' ids (and the keys' without
+            ``seg_k``).
+        kstart, kend: ``(ceil(Tq / BLOCK_Q),)`` int32 spans in units of
+            ``BLOCK_K`` from :func:`block_spans` at the kernel's tiles
+            (with ``seg_k`` given to it too).
         num_heads: H.
         scale: the scores' scale, ``1/sqrt(D)`` when None.
+        seg_k: ``(Tk,)`` int32, the keys' ids; None for self-attention.
     Returns:
-        ``o (T, H·D)`` in q's dtype and ``lse (H, T)`` fp32.
+        ``o (Tq, H·D)`` in q's dtype and ``lse (H, Tq)`` fp32.
     """
     if q2.device.type == 'cpu':
         return segment_flash_fwd_plain(q2, k2, v2, seg_ids, kstart, kend,
-                                       num_heads, scale)
-    T, HD = q2.shape
+                                       num_heads, scale, seg_k)
+    Tq, HD = q2.shape
+    Tk = Tq if seg_k is None else k2.shape[0]
     H = num_heads
     D = HD // H
     what = 'segment_flash_fwd'
-    _check_cuda_inputs(what, (('q', q2), ('k', k2), ('v', v2)), H, D)
-    nqb = -(-T // BLOCK_Q)
+    _check_cuda_inputs(what, (('q', q2, Tq), ('k', k2, Tk), ('v', v2, Tk)),
+                       H, D)
+    nqb = -(-Tq // BLOCK_Q)
     _check_index_inputs(what, q2.device, (
-        ('seg_ids', seg_ids, T, torch.int32),
+        ('seg_ids', seg_ids, Tq, torch.int32),
+        *((('seg_k', seg_k, Tk, torch.int32),) if seg_k is not None else ()),
         ('kstart', kstart, nqb, torch.int32),
         ('kend', kend, nqb, torch.int32)))
     o, lse = launch_fwd(fwd_route(D), q2, k2, v2, seg_ids, kstart, kend, H,
-                        scale)
-    segment_flash_fwd.launches += 1
+                        scale, seg_k=seg_k)
+    if seg_k is None:
+        segment_flash_fwd.launches += 1
+    else:
+        segment_flash_fwd.rect_launches += 1
     return o, lse
 
 
 segment_flash_fwd.launches = 0
+segment_flash_fwd.rect_launches = 0
 
 
 def launch_fwd(name, q2, k2, v2, seg_ids, kstart, kend, num_heads: int,
-               scale: float | None = None, lib=None):
+               scale: float | None = None, lib=None, seg_k=None):
     """H1's library ``name`` (a key of ``FWD_ROUTES``) launched through its
     C entry on :func:`segment_flash_fwd`'s arguments, which it does not
-    check; no counter moves. ``lib``, another build of the same entry
-    (an A/B variant), takes the library's place. The wrapper's launch, and
-    a direct one for timing and comparison. Returns ``o, lse``."""
+    check; no counter moves. With ``seg_k`` the library's rectangular
+    entry (``FWD_RECT_ENTRIES``) launches H9. ``lib``, another build of
+    the same entry (an A/B variant), takes the library's place. The
+    wrapper's launch, and a direct one for timing and comparison. Returns
+    ``o, lse``."""
     from .. import _build
     T, HD = q2.shape
     D = HD // num_heads
@@ -239,29 +297,40 @@ def launch_fwd(name, q2, k2, v2, seg_ids, kstart, kend, num_heads: int,
     lib = _build.library(name) if lib is None else lib
     o = torch.empty_like(q2)
     lse = torch.empty((num_heads, T), dtype=torch.float32, device=q2.device)
-    rc = getattr(lib, entry)(
-        *(x.data_ptr() for x in (q2, k2, v2, seg_ids, kstart, kend, o, lse)),
-        T, num_heads, D, 1.0 / math.sqrt(D) if scale is None else scale,
-        torch.cuda.current_stream(q2.device).cuda_stream)
-    _build.check(rc, lib, error_string, f'segment_flash_fwd ({name})')
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    stream = torch.cuda.current_stream(q2.device).cuda_stream
+    if seg_k is None:
+        rc = getattr(lib, entry)(
+            *(x.data_ptr() for x in (q2, k2, v2, seg_ids, kstart, kend, o,
+                                     lse)),
+            T, num_heads, D, scale, stream)
+        _build.check(rc, lib, error_string, f'segment_flash_fwd ({name})')
+    else:
+        rc = getattr(lib, FWD_RECT_ENTRIES[name])(
+            *(x.data_ptr() for x in (q2, k2, v2, seg_ids, seg_k, kstart,
+                                     kend, o, lse)),
+            T, k2.shape[0], num_heads, D, scale, stream)
+        _build.check(rc, lib, error_string,
+                     f'segment_flash_fwd, rectangular ({name})')
     return o, lse
 
 
 def _check_cuda_inputs(what, tensors, H, D):
-    """The kernels take contiguous, 16-byte aligned bf16 ``(T, H·D)``
-    tensors on one CUDA device with D in ``HEAD_DIMS``."""
+    """The kernels take contiguous, 16-byte aligned bf16 ``(rows, H·D)``
+    tensors on one CUDA device with D in ``HEAD_DIMS``; ``tensors`` holds
+    ``(name, tensor, rows)``, q first."""
     q2 = tensors[0][1]
     if q2.device.type != 'cuda':
         raise ValueError(f'{what}: unsupported device {q2.device}')
-    for name, t in tensors:
+    for name, t, rows in tensors:
         if t.dtype != torch.bfloat16:
             raise TypeError(f'{what}: the CUDA kernel takes bf16; {name} '
                             f'is {t.dtype} (fp32 runs on the CPU through '
                             'the plain version)')
-        if t.shape != q2.shape or t.device != q2.device \
+        if t.shape != (rows, q2.shape[1]) or t.device != q2.device \
                 or not t.is_contiguous():
             raise ValueError(f'{what}: {name} must be a contiguous '
-                             f'{tuple(q2.shape)} tensor on {q2.device}')
+                             f'{(rows, q2.shape[1])} tensor on {q2.device}')
         if t.data_ptr() % 16:
             raise ValueError(f'{what}: {name} must be 16-byte aligned')
     if q2.dim() != 2 or q2.shape[1] != H * D or D not in HEAD_DIMS:
@@ -366,8 +435,8 @@ def segment_flash_bwd(q2, k2, v2, do2, lse, delta, seg_ids, kstart, kend,
     H = num_heads
     D = HD // H
     what = 'segment_flash_bwd'
-    _check_cuda_inputs(what, (('q', q2), ('k', k2), ('v', v2), ('do', do2)),
-                       H, D)
+    _check_cuda_inputs(what, tuple((n, t, T) for n, t in (
+        ('q', q2), ('k', k2), ('v', v2), ('do', do2))), H, D)
     nqb, nkb = -(-T // BLOCK_Q), -(-T // BLOCK_KV)
     _check_index_inputs(what, q2.device, (
         ('seg_ids', seg_ids, T, torch.int32),
@@ -516,3 +585,81 @@ def flash_tm(qT, kT, vT, seg_ids, block_q: int = BLOCK_Q,
     H = qT.shape[0]
     o = _flash_thd(*relayout((qT, kT, vT), 'hdt', 'thd', H), seg_ids, H)
     return relayout((o,), 'thd', 'hdt', H)[0]
+
+
+# ---------------------------------------------------------------------------
+# Rectangular attention (kernel H9): local queries over another key/value
+# stream with ids of its own (esme_tpu/ops/flash.py:1168-1210)
+# ---------------------------------------------------------------------------
+
+# K-rect's backward is not ported: it comes with context-parallel training
+RECT_BWD_UNPORTED = (
+    'the gradient of rectangular flash attention (K-rect\'s backward, H2 '
+    'with per-side ids) comes with context-parallel training, ROADMAP.md '
+    'Queue 1, item 25b')
+
+
+def rect_spans(seg_q: torch.Tensor, seg_k: torch.Tensor):
+    """H9's spans, ``(kstart, kend)`` per ``BLOCK_Q`` block of the queries'
+    ids over ``BLOCK_K`` tiles of the keys' ids. They depend only on the
+    ids, so a forward computes them once for every layer."""
+    return block_spans(seg_q, BLOCK_Q, BLOCK_K, seg_k)
+
+
+class _FlashRect(torch.autograd.Function):
+    """H9 as an autograd boundary whose backward raises: K-rect's
+    backward is still to port (``RECT_BWD_UNPORTED``)."""
+
+    @staticmethod
+    def forward(ctx, q2, k2, v2, seg_q, seg_k, num_heads, spans):
+        return segment_flash_fwd(q2, k2, v2, seg_q, spans[0], spans[1],
+                                 num_heads, seg_k=seg_k)[0]
+
+    @staticmethod
+    def backward(ctx, do2):
+        raise NotImplementedError(RECT_BWD_UNPORTED)
+
+
+def segment_flash_rect(q2, k2, v2, seg_q, seg_k, num_heads: int,
+                       spans=None):
+    """Rectangular segment-flash attention over ``(Tq, H·D)`` queries and
+    ``(Tk, H·D)`` keys/values as they are (RoPE, where the family has it,
+    already applied): H9 on a CUDA tensor, its plain version on a CPU
+    tensor. Query t attends key s iff ``seg_q[t] == seg_k[s]``. ``seg_q``,
+    ``seg_k``: int32; ``spans``: :func:`rect_spans` of them, computed here
+    when None. Where q, k or v needs a gradient, the call goes through an
+    autograd Function whose backward raises (``RECT_BWD_UNPORTED``)."""
+    spans = tuple(rect_spans(seg_q, seg_k) if spans is None else spans)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q2, k2, v2)):
+        return _FlashRect.apply(q2, k2, v2, seg_q, seg_k, num_heads, spans)
+    return segment_flash_fwd(q2, k2, v2, seg_q, spans[0], spans[1],
+                             num_heads, seg_k=seg_k)[0]
+
+
+def flash_rect_attention(q, k, v, seg_q, seg_k, *, block_q: int = BLOCK_Q,
+                         block_k: int = BLOCK_K,
+                         max_seqlen: int | None = None,
+                         interpret: bool | None = None):
+    """Rectangular segment-flash attention, as ``esme_tpu``'s function of
+    the same name: local queries ``q (Tq, H, D)`` over a different (e.g.
+    all-gathered) stream ``k``/``v (Tk, H, D)``, with per-side segment
+    ids. Returns ``(Tq, H, D)``.
+
+    Any Tq and Tk: H9 takes a ragged last block on either side, so
+    nothing is padded (JAX pads the queries with an id one past its fake
+    key id, and the keys with the fake id, which match nothing real and
+    leave the real rows as they are). ``block_q``/``block_k`` are checked
+    as in :func:`flash_segment_attention`; ``max_seqlen`` and
+    ``interpret`` are accepted for call compatibility and unused. The
+    gradient raises ``NotImplementedError`` (``RECT_BWD_UNPORTED``).
+    """
+    check_tiles('flash_rect_attention', block_q, block_k)
+    Tq, H, D = q.shape
+    Tk = k.shape[0]
+    o = segment_flash_rect(
+        q.reshape(Tq, H * D).contiguous(), k.reshape(Tk, H * D).contiguous(),
+        v.reshape(Tk, H * D).contiguous(),
+        seg_q.to(torch.int32).contiguous(),
+        seg_k.to(torch.int32).contiguous(), H)
+    return o.view(Tq, H, D)

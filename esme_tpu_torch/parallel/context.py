@@ -1,0 +1,123 @@
+"""Context (sequence) parallelism over a mesh axis, for inference.
+
+Counterpart of ``esme_tpu/parallel/context.py``. The packed token axis
+is split contiguously over a mesh axis: embeddings, LayerNorms, MLPs and
+the LM head are token-local and run on the rank's tokens untouched, and
+attention gathers keys, values and segment ids from every rank
+(``all_gather_into_tensor``, in rank order, as JAX's ``all_gather(...,
+tiled=True)``) while the queries stay local: kernel H9, the rectangular
+segment-flash forward (:func:`esme_tpu_torch.ops.flash.segment_flash_rect`).
+Per-rank activation memory drops by the axis size.
+
+Where JAX runs one program over the mesh (``shard_map``), the port runs
+one process per rank: every rank calls the same function with the same
+global inputs and takes its slice. Only the forward is ported; the
+gradient (K-rect's backward) comes with context-parallel training
+(ROADMAP.md Queue 1, item 25b).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+
+
+def axis_size(mesh: DeviceMesh, axis: str) -> int:
+    """The number of ranks along ``axis`` (JAX's ``mesh.shape[axis]``)."""
+    return mesh.size(mesh.mesh_dim_names.index(axis))
+
+
+# one collective under two names: PyTorch 2.13 renamed
+# all_gather_into_tensor to all_gather_single
+_GATHER = getattr(dist, 'all_gather_single', None) \
+    or dist.all_gather_into_tensor
+
+
+def _all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along axis 0 in rank order."""
+    n = dist.get_world_size(group)
+    x = x.contiguous()
+    out = x.new_empty((n * x.shape[0], *x.shape[1:]))
+    _GATHER(out, x, group=group)
+    return out
+
+
+def make_kv_gather(group_or_mesh_dim):
+    """The attention hook: gather this rank's ``(T_loc, H, D)`` keys and
+    values and ``(T_loc,)`` segment ids into the global ``(T, H, D)`` and
+    ``(T,)`` over ``group_or_mesh_dim``, a process group or a
+    one-dimensional DeviceMesh (one axis of a mesh, ``mesh['seq']``)."""
+    group = group_or_mesh_dim.get_group() \
+        if isinstance(group_or_mesh_dim, DeviceMesh) else group_or_mesh_dim
+
+    def kv_gather(k, v, seg_ids):
+        return (_all_gather(k, group), _all_gather(v, group),
+                _all_gather(seg_ids, group))
+    return kv_gather
+
+
+def forward_flat_cp(params, cfg, tokens, seg_ids, pos_ids, *,
+                    mesh: DeviceMesh, axis: str = 'seq',
+                    with_head: bool = True, log_prob: bool = False,
+                    attn_impl: str = 'auto', checkpointing: bool = False,
+                    max_seqlen: Optional[int] = None):
+    """Context-parallel :func:`esme_tpu_torch.models.esm.forward_flat`:
+    every rank of ``mesh``'s ``axis`` holds the global ``tokens``,
+    ``seg_ids`` and ``pos_ids`` (``(T,)``), takes its contiguous slice of
+    ``T / n`` tokens and returns its token-local rows ``(T / n, C)``.
+
+    ``T`` must be divisible by the axis size (``ValueError``, as in JAX).
+    ``attn_impl``: 'auto' or 'flash' runs H9 (its plain version on a CPU
+    tensor), 'reference' the einsum ``attention_rect``. ``checkpointing``
+    and ``max_seqlen`` are passed on as JAX passes them.
+    """
+    from ..models.esm import forward_flat
+    from ..ops.flash import rect_spans
+    n = axis_size(mesh, axis)
+    T = tokens.shape[0]
+    if T % n:
+        raise ValueError(f'token count {T} not divisible by '
+                         f'{axis} axis size {n}')
+    r = mesh.get_local_rank(axis)
+    lo, hi = r * (T // n), (r + 1) * (T // n)
+    seg_ids = seg_ids.to(torch.int32).contiguous()
+    # the gathered ids are the global ones, so H9's spans are known here
+    spans = None if attn_impl == 'reference' \
+        else rect_spans(seg_ids[lo:hi], seg_ids)
+    return forward_flat(
+        params, cfg, tokens[lo:hi], seg_ids[lo:hi], pos_ids[lo:hi],
+        with_head=with_head, log_prob=log_prob, attn_impl=attn_impl,
+        checkpointing=checkpointing, max_seqlen=max_seqlen,
+        kv_gather=make_kv_gather(mesh.get_group(axis)), spans=spans)
+
+
+def context_parallel_log_prob(model, tokens, pad_args, mesh: DeviceMesh,
+                              axis: str = 'seq'):
+    """Packed ``predict_log_prob`` under context parallelism: the flat
+    tokens are padded with ``padding_idx`` to a multiple of the axis size
+    (the pad forms one fake trailing segment), each rank runs its slice,
+    and the rows are gathered back, so every rank returns the ``(T, V)``
+    fp32 log-probabilities of the unpadded tokens (JAX's global array)."""
+    from ..models.esm import packed_meta
+    from ..ops.linear import fp32_accumulation
+    cu_lens, max_len = pad_args
+    model._check_positions(int(max_len))
+    tokens = model._tensor(tokens).to(torch.int32)
+    n = axis_size(mesh, axis)
+    T = tokens.shape[0]
+    pad = (-T) % n
+    if pad:
+        fill = model.config.padding_idx or 0
+        tokens = torch.cat([tokens, tokens.new_full((pad,), fill)])
+    cu = model._tensor(cu_lens).to(torch.int32)
+    seg_ids, pos_ids = packed_meta(cu, tokens.shape[0])
+    with torch.inference_mode(), fp32_accumulation():
+        out = forward_flat_cp(model.params, model.config, tokens, seg_ids,
+                              pos_ids, mesh=mesh, axis=axis, log_prob=True,
+                              checkpointing=model.checkpointing,
+                              max_seqlen=int(max_len))
+        out = _all_gather(out, mesh.get_group(axis))
+    return out[:T]

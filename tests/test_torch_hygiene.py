@@ -238,15 +238,23 @@ def test_fwd_route_is_a_static_rule_on_head_dim():
     assert set(_build.SIGNATURES['flash_fwd_sm90']) == {
         'esme_segment_flash_fwd_sm90', 'esme_flash_fwd_t_sm90',
         'esme_segment_flash_fwd_sm90_variant',
+        'esme_segment_flash_fwd_rect_sm90',
         'esme_flash_fwd_sm90_error_string'}
-    # the same C signatures as the mma.sync form's entries (H1's, H6's)
-    for entry in ('esme_segment_flash_fwd', 'esme_segment_flash_fwd_variant'):
-        assert _build.SIGNATURES['flash_fwd_sm90'][
-            entry.replace('fwd', 'fwd_sm90', 1)] == \
+    # the same C signatures as the mma.sync form's entries (H1's, H6's,
+    # H9's)
+    for entry in ('esme_segment_flash_fwd', 'esme_segment_flash_fwd_variant',
+                  'esme_segment_flash_fwd_rect'):
+        sm90 = entry.replace('fwd', 'fwd_sm90', 1) if 'rect' not in entry \
+            else entry + '_sm90'
+        assert _build.SIGNATURES['flash_fwd_sm90'][sm90] == \
             _build.SIGNATURES['flash_fwd'][entry]
-    src = (_build.CSRC / 'flash_fwd_sm90.cu').read_text()
-    for fn in _build.SIGNATURES['flash_fwd_sm90']:
-        assert re.search(rf'^\S.* {fn}\(', src, re.M), fn
+    # H9's entry of each of H1's libraries is bound
+    for name, entry in tflash.FWD_RECT_ENTRIES.items():
+        assert entry in _build.SIGNATURES[name]
+    for name in ('flash_fwd_sm90', 'flash_fwd'):
+        src = (_build.CSRC / f'{name}.cu').read_text()
+        for fn in _build.SIGNATURES[name]:
+            assert re.search(rf'^\S.* {fn}\(', src, re.M), fn
 
 
 @pytest.mark.parametrize('D', [16, 64])

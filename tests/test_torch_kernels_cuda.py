@@ -47,6 +47,13 @@ Gates:
 * ESMC's head counts (H = 15, 18 at D = 64): H1, H2 and H3 under the
   gates above; the RoPE-free route of ESM1b and ESM1v
   (``flash.segment_flash``): H1 and H2 under theirs, no H3.
+* H9 (the rectangular forward, ``seg_k``): under H1's gates against its
+  plain version on every rank of a packed batch split over 2 and 4 ranks
+  and on a ragged split, on both of H1's routes; o and lse bit-equal to
+  H1's rows on the whole batch where the rank's first row is a multiple of
+  ``BLOCK_Q`` (each q block walks the same span in the same order), and
+  from call to call; a q block whose ids match no key writes o = 0 and
+  lse = ``EMPTY_LSE``, as the plain version does.
 """
 
 import numpy as np
@@ -113,6 +120,73 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
     q48, k48, v48, _ = _packed([100, 28], 128, 2, 48, cuda)
     with pytest.raises(ValueError, match='head dim 48'):
         flash.segment_flash_fwd(q48, k48, v48, seg, ks, ke, 2)
+
+
+def _rect_check(q, k, v, seg, lo, hi, H):
+    """H9 on rows [lo, hi) of q over all of k, v: against its plain
+    version under H1's gates, bit-equal from call to call; returns o,
+    lse."""
+    sq = seg[lo:hi].contiguous()
+    ks, ke = flash.rect_spans(sq, seg)
+    args = (q[lo:hi].contiguous(), k, v, sq, ks, ke, H)
+    before = flash.segment_flash_fwd.rect_launches
+    o, lse = flash.segment_flash_fwd(*args, seg_k=seg)
+    again = flash.segment_flash_fwd(*args, seg_k=seg)
+    o_p, lse_p = flash.segment_flash_fwd_plain(*args, seg_k=seg)
+    torch.cuda.synchronize()
+    assert flash.segment_flash_fwd.rect_launches == before + 2
+    assert o.shape == (hi - lo, k.shape[1]) and lse.shape == (H, hi - lo)
+    gate = O_REL * o_p.float().abs().clamp_min(O_FLOOR)
+    assert ((o.float() - o_p.float()).abs() <= gate).all()
+    assert (lse - lse_p).abs().max().item() <= LSE_ATOL
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+    return o, lse
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('D', [16, 24, 32, 64, 128])
+def test_flash_rect_kernel_matches_plain(cuda, D):
+    """H9 (``segment_flash_fwd(..., seg_k=)``) on every rank of n = 2 and
+    4 of a packed 4,096-token batch and on a ragged split (Tq = 1,001 from
+    row 700), against its plain version; bit-equal to H1's rows where the
+    rank starts on a q block; H1's counter does not move."""
+    H, T = 4, 4096
+    q, k, v, seg = _packed([30, 7, 250, 900, 2, 400, 1000, 700, 333], T, H,
+                           D, cuda, seed=D)
+    ks, ke = flash.block_spans(seg, flash.BLOCK_Q, flash.BLOCK_K)
+    o_sq, lse_sq = flash.segment_flash_fwd(q, k, v, seg, ks, ke, H)
+    h1 = flash.segment_flash_fwd.launches
+    for n in (2, 4):
+        for r in range(n):
+            lo, hi = r * T // n, (r + 1) * T // n
+            o, lse = _rect_check(q, k, v, seg, lo, hi, H)
+            assert torch.equal(o, o_sq[lo:hi])
+            assert torch.equal(lse, lse_sq[:, lo:hi])
+    _rect_check(q, k, v, seg, 700, 1701, H)
+    assert flash.segment_flash_fwd.launches == h1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('D', [16, 64])
+def test_flash_rect_kernel_empty_span(cuda, D):
+    """A q block whose ids match no key (an empty span) gets o = 0 and
+    lse = ``EMPTY_LSE`` from H9, as from its plain version; the next blocks
+    are unaffected."""
+    H = 2
+    q, k, v, seg = _packed([300, 500, 224], 1024, H, D, cuda, seed=1)
+    sq = seg[:512].clone()
+    sq[:flash.BLOCK_Q] += 10 ** 6
+    ks, ke = flash.rect_spans(sq, seg)
+    assert ke[0] <= ks[0]
+    args = (q[:512].contiguous(), k, v, sq, ks, ke, H)
+    o, lse = flash.segment_flash_fwd(*args, seg_k=seg)
+    o_p, lse_p = flash.segment_flash_fwd_plain(*args, seg_k=seg)
+    torch.cuda.synchronize()
+    assert not o[:flash.BLOCK_Q].any()
+    assert (lse[:, :flash.BLOCK_Q] == flash.EMPTY_LSE).all()
+    assert torch.equal(lse[:, :flash.BLOCK_Q], lse_p[:, :flash.BLOCK_Q])
+    gate = O_REL * o_p.float().abs().clamp_min(O_FLOOR)
+    assert ((o.float() - o_p.float()).abs() <= gate).all()
 
 
 def _fwd_args(seg, H, D, dev, seed):
