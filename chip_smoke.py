@@ -23,7 +23,11 @@ Phases, in order; any failure exits non-zero before a result is printed:
    forward, ``flash_fwd_rect_sm90_kernel`` at D = 32, 64, 128 and
    ``flash_fwd_rect_kernel`` at every padded width) logged, with no more
    stack and spills than H1's production kernel of the same form and width
-   (none);
+   (none); H10's (the rectangular backward: ``bwd_dkv_rect_sm90_kernel``
+   and ``bwd_dq_rect_sm90_kernel`` at D = 32, 64, 128, ``flash_bwd_dkv_rect_kernel`` and
+   ``flash_bwd_dq_rect_kernel`` at every padded width) logged, with no
+   more stack and spills than H2's production pass of the same form and
+   width (its Hopper dk/dv pass spills at D = 128);
 3. hold each kernel against its plain PyTorch version on the card, on a
    packed 8k-token batch: segment-flash forward (H1) and backward (H2),
    each on its route (the Hopper form at D = 32, 64, 128, the mma.sync
@@ -44,7 +48,17 @@ Phases, in order; any failure exits non-zero before a result is printed:
    where the rank's first row starts a q block (every split of the check
    batch), H9's o and lse bit-equal to H1's rows on the whole batch; a
    ragged split (Tq % 128 != 0); a q block whose ids match no key written
-   as o = 0, lse = ``EMPTY_LSE`` on both forms;
+   as o = 0, lse = ``EMPTY_LSE`` on both forms; H10, the rectangular
+   backward (``segment_flash_bwd(..., seg_k=)``), on one rank and every
+   rank of 2, 4 and 8 ranks of the check batch at D = 16, 24, 32, 64, 128
+   on its route and, where that is the Hopper form, on the mma.sync form's
+   rectangular entry too, under H2's gate (dk and dv on the key rows the
+   rank's queries touch, exactly 0 on the rest) and bit-equal across two
+   calls; on each form, dq bit-equal to that form's H2 rows where the
+   rank's first row starts a q block, every output bit-equal to H2 with
+   one rank, and dk, dv summed over the ranks under H2's gate against H2;
+   a ragged split; a q block whose ids match no key (dq = 0) and key
+   blocks no query touches (dk = dv = 0);
 4. the inference path: ESM2-650M (33 layers, width 1280, 20 heads,
    bf16, weights from seed 0) ``predict_log_prob(tokens,
    pad_args=(cu_lens, max_len))`` on ``bench.py``'s packed batch (seed
@@ -170,7 +184,28 @@ Phases, in order; any failure exits non-zero before a result is printed:
    a yardstick only, PyTorch's varlen forward with ``cu_seqlens_q`` over
    the rank's pieces of its segments and ``cu_seqlens_k`` over those
    segments whole; the Hopper form faster on rank 0's queries where every
-   tile lies in one segment than where every tile is masked.
+   tile lies in one segment than where every tile is masked;
+11. context-parallel training: a one-rank NCCL world on 127.0.0.1 and its
+   ``(data, fsdp, seq)`` mesh of (1, 1, 1); ESM2 at phase 4's size and
+   weights with ``checkpointing=True`` on phase 5's ``ckpt@50k`` batch:
+   the loss and every leaf's gradient of one step of
+   ``ShardedMaskedPLM(model, mesh, seq_axis='seq')`` against
+   ``MaskedPLM``'s (the loss equal, each leaf under phase 5's gates; the
+   largest difference and the bit-equal leaves logged); then phase 5's
+   cell with the sharded trainer, with every launch counter set to 0 just
+   before its first step and read just after (H9 66, H10 33, H3 99 of
+   which 33 inverse, H1 and H2 never), losses finite and falling, its ms
+   per step, real tokens/s, MFU and peak memory beside phase 5's
+   ``ckpt@50k``; then both trainers from the same fresh weights for
+   ``CP_COMPARE_STEPS`` steps on that batch, each step's loss within
+   ``CP_LOSS_REL`` and the params after the first update within
+   :func:`compare_updates`' gates; the process group destroyed; then H10 against its plain
+   version under H2's gate at the path's shape (Tq = Tk = 50,000) and per
+   rank of a 4-rank split of the 50k train batch (12,500 query rows over
+   all 50,000 keys, on both forms), and its times there beside the bound
+   of the rank's same-segment pairs and zero rows, the plain version, its
+   mma.sync form, each pass of its Hopper form alone, PyTorch's varlen backward per rank (a
+   yardstick only) and H2 on the whole batch.
 
 The last three lines are the kernels' JSON, the measurements' JSON and
 ``{"ok": true, "device": {...}}``.
@@ -255,8 +290,10 @@ ZERO_GRAD_REL = 2.0 ** -4
 H1_NAME, H2_NAME, H3_NAME, H4_NAME = (
     'segment_flash_fwd', 'segment_flash_bwd', 'rotary_qk', 'relayout_heads')
 # H9, the rectangular forward (segment_flash_fwd with seg_k), counted on
-# H1's wrapper under its own name (rect_launches)
+# H1's wrapper under its own name (rect_launches); H10, the rectangular
+# backward (segment_flash_bwd with seg_k), likewise on H2's
 H9_NAME = 'segment_flash_fwd_rect'
+H10_NAME = 'segment_flash_bwd_rect'
 # the probe tools' kernels (esme_tpu_torch/tools): H5, H6 (H1's ablation
 # modes), H7 (H2's) and the four H8 probes; none is on the model path
 H5_NAME, H6_NAME, H7_NAME = 'fwd_T', 'variant_fwd', 'bwd_variant'
@@ -660,6 +697,7 @@ def plain_versions():
 def _launch_totals(kernels):
     c = {name: f.launches for name, f in kernels.items()}
     c[H9_NAME] = kernels[H1_NAME].rect_launches
+    c[H10_NAME] = kernels[H2_NAME].rect_launches
     c['rope_inverse'] = kernels[H3_NAME].inverse_launches
     return c
 
@@ -1395,6 +1433,560 @@ def time_rect(cu, dev):
             'bytes': total['bytes'], 'flops': total['flops']}
 
 
+# H10 (the rectangular backward): phase 3 checks one rank and every rank
+# of RECT_WORLDS on the check batch; phase 11 runs it on the one-rank path
+# and times every rank of a RECT_TIMED_WORLD split of the 50k train batch.
+RECT_BWD_WORLDS = (1, *RECT_WORLDS)
+# Phase 11's timed steps after its warm-up: a fresh Adam's first updates
+# (lr·sign(g) on every leaf) raise the loss before it falls (phase 5's
+# cells: the 10k cell's six losses fall by the fifth), so six steps in
+# all, and the last loss must be below the first
+CP_TRAIN_STEPS = 5
+# Phase 11 then steps ShardedMaskedPLM and MaskedPLM from the same fresh
+# weights on the same batch. Each step's loss must agree to 2^-8 of it:
+# below half the smallest step-to-step change of these losses on the H100
+# (3.687 -> 3.721, 0.034), so the two take the same steps.
+CP_COMPARE_STEPS = 3
+CP_LOSS_REL = 2 ** -8
+# The params after the first update, per leaf (compare_updates): Adam's
+# first step moves an element by at most lr, so gradients that differ only
+# in rounding (phase 5's gates) can move it 2·lr apart at most, where the
+# sign of a near-zero gradient flips, plus one bf16 rounding of each side
+# (2^-7 of the element) and 2^-7 of lr for the update's own rounding; and
+# the summed |difference of the two updates| within 2^-4 of the summed
+# |update| (a lost update gives 1, a doubled or negated one 1 or 2).
+UPDATE_ROUND = 2 ** -7
+UPDATE_MASS_REL = 2 ** -4
+
+
+def rect_bwd_args(q, k, v, do, seg, lo, hi, H):
+    """H10's arguments but ``seg_k`` (= ``seg``): the queries and output
+    gradients of rows ``[lo, hi)`` over all of ``k`` and ``v``, H9's lse
+    (on its route), delta and H10's spans."""
+    from esme_tpu_torch.ops import flash
+    sq = seg[lo:hi].contiguous()
+    spans = flash.rect_flash_spans(sq, seg)
+    qr, dor = q[lo:hi].contiguous(), do[lo:hi].contiguous()
+    o, lse = flash.segment_flash_fwd(qr, k, v, sq, *spans[:2], H, seg_k=seg)
+    return (qr, k, v, dor, lse, flash.attention_delta(o, dor, H), sq,
+            *spans, H)
+
+
+def rect_grad_errors(got, ref, touched):
+    """H10's outputs against its plain version: dq under H2's gate as
+    :func:`grad_errors` takes it; dk and dv under it on the key rows
+    ``touched`` (those whose ids a query carries; the gate's rms over
+    them), and exactly 0 elsewhere. Returns (errors, gate shares, finite
+    and the zero rows zero)."""
+    errs, shares, ok = grad_errors(got[:1], ref[:1])
+    errs, shares = list(errs), list(shares)
+    e, sh, fin = grad_errors([g[touched] for g in got[1:]],
+                             [r[touched] for r in ref[1:]])
+    zero = all(not g[~touched].any() for g in got[1:])
+    return errs + e, shares + sh, ok and fin and zero
+
+
+def check_rect_bwd_args(args, seg_k, what='', library=None):
+    """H10 (on its route, or through ``library``'s rectangular entry) vs
+    its plain version on ``segment_flash_bwd``'s arguments with
+    ``seg_k``, under H2's gate (:func:`rect_grad_errors`), and bit-equal
+    across two calls. Returns (largest error, largest gate share, dq, dk,
+    dv)."""
+    from esme_tpu_torch.ops import flash
+    q, *_, H = args
+    D = q.shape[1] // H
+    form = library or flash.bwd_route(D)
+
+    def run():
+        if library is None:
+            return flash.segment_flash_bwd(*args, seg_k=seg_k)
+        return flash.launch_bwd(library, *args, seg_k=seg_k)
+    got = run()
+    again = run()
+    ref = flash.segment_flash_bwd_plain(*args, seg_k=seg_k)
+    torch.cuda.synchronize()
+    touched = torch.isin(seg_k, args[6])
+    errs, shares, ok = rect_grad_errors(got, ref, touched)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    ok = ok and max(shares) <= 1.0 and same
+    log(f'H10{what} Tq={q.shape[0]} Tk={seg_k.shape[0]} H={H} D={D} '
+        f'({form}): max|g-plain| dq/dk/dv {errs[0]:.3e}/{errs[1]:.3e}/'
+        f'{errs[2]:.3e}, largest share of the gate (2^-4*max(|g|, rms g); '
+        f'dk, dv on the {int(touched.sum())} key rows the queries touch, 0 '
+        f'on the rest) {shares[0]:.3f}/{shares[1]:.3f}/{shares[2]:.3f}, '
+        f'bit-equal across two calls {same} {"ok" if ok else "FAIL"}')
+    if not ok:
+        fail(f'H10 ({form}) disagrees with its plain version (or itself) '
+             f'at Tq={q.shape[0]} D={D}{what}')
+    return max(errs), max(shares), *got
+
+
+def check_rect_bwd(cu, dev):
+    """Phase 3's H10 checks on the check batch: one rank and every rank of
+    each world in ``RECT_WORLDS`` at D = 16, 24, 32, 64, 128 on H10's route
+    and, where the route is the Hopper form, on the mma.sync form's
+    rectangular entry too (:func:`check_rect_bwd_args`); on each form, dq
+    bit-equal to that form's H2 rows on the whole batch where the rank's
+    first row is a multiple of ``BLOCK_Q``, every output bit-equal to it
+    with one rank, and dk, dv summed over the ranks under H2's gate against
+    it; the ragged split ``RECT_RAGGED``; a q block whose ids match no key
+    (dq = 0 there) and key blocks no query shares an id with (dk = dv = 0).
+    Returns the largest error and gate share."""
+    from esme_tpu_torch.ops import flash
+    e_max = share_max = 0.0
+    for d, h in ((16, 20), (24, 20), (32, 20), (64, 20), (128, 40)):
+        q, k, v, do, lse, delta, seg, spans = bwd_inputs(
+            cu, CHECK_BUDGET, h, d, dev, seed=d + 200)
+        T = q.shape[0]
+        forms = [None] if flash.bwd_route(d) == 'flash_bwd' \
+            else [None, 'flash_bwd']
+        square = {lib: flash.launch_bwd(lib or flash.bwd_route(d), q, k, v,
+                                        do, lse, delta, seg, *spans, h)
+                  for lib in forms}
+        equal = 0
+        for n in RECT_BWD_WORLDS:
+            sums = {lib: [torch.zeros_like(k, dtype=torch.float32)
+                          for _ in range(2)] for lib in forms}
+            for r in range(n):
+                lo, hi = r * T // n, (r + 1) * T // n
+                args = rect_bwd_args(q, k, v, do, seg, lo, hi, h)
+                for lib in forms:
+                    e, share, dq, dk, dv = check_rect_bwd_args(
+                        args, seg, f' rank {r} of {n}', lib)
+                    e_max, share_max = max(e_max, e), max(share_max, share)
+                    sums[lib][0] += dk.float()
+                    sums[lib][1] += dv.float()
+                    sq_dq, sq_dk, sq_dv = square[lib]
+                    name = lib or flash.bwd_route(d)
+                    if lo % flash.BLOCK_Q == 0:
+                        if not torch.equal(dq, sq_dq[lo:hi]):
+                            fail(f'H10 ({name}) rank {r} of {n} at D={d}: dq '
+                                 'not bit-equal to H2\'s rows on the whole '
+                                 'batch')
+                        equal += 1
+                    if n == 1 and not (torch.equal(dk, sq_dk)
+                                       and torch.equal(dv, sq_dv)):
+                        fail(f'H10 ({name}) with one rank at D={d}: dk or '
+                             'dv not bit-equal to H2\'s')
+            for lib in forms:
+                errs, shares, finite = grad_errors(sums[lib], square[lib][1:])
+                log(f'H10 ({lib or flash.bwd_route(d)}) D={d}: dk/dv summed '
+                    f'over the {n} ranks vs H2 on the whole batch: max|diff| '
+                    f'{errs[0]:.3e}/{errs[1]:.3e}, largest share of H2\'s gate '
+                    f'{shares[0]:.3f}/{shares[1]:.3f}')
+                if max(shares) > 1.0 or not finite:
+                    fail(f'H10 at D={d}: dk, dv summed over {n} ranks out of '
+                         'H2\'s gate against H2')
+        for lib in forms:
+            e, share, *_ = check_rect_bwd_args(
+                rect_bwd_args(q, k, v, do, seg, *RECT_RAGGED, h), seg,
+                f' ragged rows {RECT_RAGGED}', lib)
+            e_max, share_max = max(e_max, e), max(share_max, share)
+        log(f'H10 D={d}: {equal} aligned ranks\' dq and the one-rank '
+            f'outputs bit-equal to H2\'s (gate: bit equality) ok')
+        if d in (16, 64):
+            sq = seg[:1024].clone()
+            sq[:flash.BLOCK_Q] += 10 ** 6
+            ks, ke, qs, qe = flash.rect_flash_spans(sq, seg)
+            o, lse_r = flash.segment_flash_fwd(q[:1024].contiguous(), k, v, sq,
+                                               ks, ke, h, seg_k=seg)
+            dor = do[:1024].contiguous()
+            args = (q[:1024].contiguous(), k, v, dor, lse_r,
+                    flash.attention_delta(o, dor, h), sq, ks, ke, qs, qe, h)
+            empty = (qe <= qs).repeat_interleave(flash.BLOCK_KV)[:T]
+            for lib in forms:
+                *_, dq, dk, dv = check_rect_bwd_args(args, seg, ' (empty span)',
+                                                     lib)
+                if not (ke[0] <= ks[0] and bool(empty.any())
+                        and not dq[:flash.BLOCK_Q].any()
+                        and not dk[empty].any() and not dv[empty].any()):
+                    fail(f'H10 ({lib or flash.bwd_route(d)}) at D={d}: an '
+                         'empty span does not give dq = 0, or key blocks no '
+                         'query touches not dk = dv = 0')
+        del q, k, v, do, square
+        torch.cuda.empty_cache()
+    return e_max, share_max
+
+
+def check_rect_bwd_ptxas():
+    """H10's instantiations as built: each one's ``ptxas`` line logged; the
+    Hopper form's at D = 32, 64, 128 and the mma.sync form's at every padded width with no more
+    stack and spills than H2's production pass of the same form and width
+    (``SM90_PRODUCTION``: H2's dk/dv pass spills at D = 128;
+    ``MODE0_REGISTERS``: none); fail otherwise. Returns the usage."""
+    from esme_tpu_torch import _build
+    sm90 = sm90_ptxas_usage(_build.build_log('flash_bwd_sm90'),
+                            r'bwd_(?:dkv|dq)_rect')
+    mma = ptxas_usage(_build.build_log('flash_bwd'))
+    rows = []
+    for p in ('dkv', 'dq'):
+        kernel = f'bwd_{p}_rect_sm90_kernel'
+        h2 = SM90_PRODUCTION[('flash_bwd_sm90', f'bwd_{p}_sm90_kernel')]
+        for d in (32, 64, 128):
+            keys = sorted(key for key in sm90 if key[:2] == (kernel, d))
+            if len(keys) != 1:
+                fail(f'ptxas: H10\'s {kernel} at D={d}: {len(keys)} '
+                     f'instantiations built, not 1')
+            rows += [('flash_bwd_sm90', key, sm90[key], h2[d])
+                     for key in keys]
+    for kernel in ('flash_bwd_dkv_rect_kernel', 'flash_bwd_dq_rect_kernel'):
+        rows += [('flash_bwd', (kernel, d), mma.get((kernel, d)),
+                  (0, 0, 0, 0)) for d in (16, 32, 64, 128)]
+    for lib, key, got, want in rows:
+        log(f'ptxas: {lib} H10 {key[0]}<{", ".join(map(str, key[1:]))}>: '
+            f'{got and got[0]} registers, (stack, spill stores, spill loads) '
+            f'{got and got[1:]}; H2\'s production pass: {want}')
+        if got is None or any(a > b for a, b in zip(got[1:], want[1:])):
+            fail(f'ptxas: H10\'s {lib} instantiation {key} has more stack or '
+                 f'spills than H2\'s ({got} vs {want}), or is missing')
+    return {lib: {' '.join(map(str, key)): got
+                  for name, key, got, _ in rows if name == lib}
+            for lib in ('flash_bwd_sm90', 'flash_bwd')}
+
+
+def rect_bwd_work(args, seg_k, H, D):
+    """Bytes H10 must move and the operations its rows need, as this run's
+    ids decide them: q and do read and dq written (Tq rows), the rows of k
+    and v whose ids some query carries read once, dk and dv written over
+    all Tk rows (the rows no query touches as zeros), lse and delta read,
+    those rows' ids, the queries' ids and the spans read; five products
+    of 2·D flops per (query row, same-segment key) pair and head (S, dP,
+    dV, dK, dQ), as H2's row counts them."""
+    q, k, *_, sq, ks, ke, qs, qe, _ = args
+    Tq, HD = q.shape
+    Tk = k.shape[0]
+    keys = torch.bincount(seg_k.long())
+    needed = int(keys[torch.unique(sq).long()].sum().item())
+    nbytes = 3 * Tq * HD * 2 + 2 * needed * HD * 2 + 2 * Tk * HD * 2 \
+        + 2 * H * Tq * 4 + (Tq + needed) * 4 \
+        + sum(x.numel() for x in (ks, ke, qs, qe)) * 4
+    flops = 10.0 * D * H * float(keys[sq.long()].double().sum().item())
+    return nbytes, flops
+
+
+def varlen_rect_bwd_ms(args, seg_k, H, D, reps):
+    """One call of PyTorch's varlen flash-attention backward over a rank's
+    queries (``cu_seqlens_q`` over the rank's piece of each segment it
+    touches, ``cu_seqlens_k`` over those segments whole), on its own
+    forward's output and lse. Yardstick only; returns its dq ``(Tq,
+    H·D)``."""
+    q, k, v, do, _, _, sq = args[:7]
+    Tq = q.shape[0]
+    ids, qc = torch.unique_consecutive(sq, return_counts=True)
+    kc = torch.bincount(seg_k.long())[ids.long()]
+    k0 = int(torch.searchsorted(seg_k, ids[:1]).item())
+    k1 = k0 + int(kc.sum().item())
+    cu_q = torch.nn.functional.pad(qc.cumsum(0), (1, 0)).to(torch.int32)
+    cu_k = torch.nn.functional.pad(kc.cumsum(0), (1, 0)).to(torch.int32)
+    qh, doh = q.view(Tq, H, D), do.view(Tq, H, D)
+    kh, vh = (x[k0:k1].view(k1 - k0, H, D) for x in (k, v))
+    mq, mk = int(qc.max()), int(kc.max())
+    out, lse, rng_state, unused, _ = torch.ops.aten._flash_attention_forward(
+        qh, kh, vh, cu_q, cu_k, mq, mk, 0.0, False, False, scale=D ** -0.5)
+
+    def run():
+        return torch.ops.aten._flash_attention_backward(
+            doh, qh, kh, vh, out, lse, cu_q, cu_k, mq, mk, 0.0, False,
+            rng_state, unused, scale=D ** -0.5)[0]
+    dq = run()
+    return cuda_ms(run, reps), dq.reshape(Tq, H * D)
+
+
+def rect_bwd_pass(which, args, seg_k):
+    """One pass of H10's Hopper form alone, through its C entry
+    ``esme_flash_bwd_rect_sm90_pass`` (no counter moves): ``which`` 0
+    writes dk and dv, 1 writes dq."""
+    from esme_tpu_torch import _build
+    from esme_tpu_torch.ops import flash
+    q, k, *_, H = args
+    Tq, HD = q.shape
+    outs = [torch.empty_like(q), torch.empty_like(k), torch.empty_like(k)]
+    lib = _build.library('flash_bwd_sm90')
+    entry = 'esme_flash_bwd_rect_sm90_pass'
+    rc = getattr(lib, entry)(
+        which, *(x.data_ptr() for x in (*args[:6], args[6], seg_k,
+                                              *args[7:11], *outs)),
+        Tq, k.shape[0], H, HD // H, 1.0 / math.sqrt(HD // H),
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, lib, flash.BWD_ROUTES['flash_bwd_sm90'][1], entry)
+    return outs
+
+
+def time_rect_bwd(dev):
+    """H10's times at the train shape (H = 20, D = 64) for each rank of a
+    ``RECT_TIMED_WORLD``-rank split of the 50k train batch (bench.py's
+    recipe, seed 2; T / n query rows over all T keys, no ALIGN pad, as
+    ``ShardedMaskedPLM`` splits it): the kernel, its mma.sync form through
+    its rectangular entry, each pass of the Hopper form alone, its plain
+    version, the bound of the
+    rank's work and, as a yardstick only, PyTorch's varlen backward over
+    the rank's pieces of its segments; H2 on the whole batch in the same
+    call. Each rank's inputs are held first against the plain version under
+    H2's gate on both forms, and so is the one-rank shape of phase 11's
+    path (Tq = Tk = T). Returns the kernels line's row (times summed over
+    the ranks, the largest errors of those checks) without launches."""
+    from esme_tpu_torch.models.esm import packed_meta
+    from esme_tpu_torch.ops import flash
+    H = MODEL['attention_heads']
+    D = MODEL['embed_dim'] // H
+    T, n = BUDGET, RECT_TIMED_WORLD
+    _, tcu, _ = packed_batch(BUDGET, seed=2)
+    seg = packed_meta(torch.as_tensor(tcu, device=dev), T)[0].contiguous()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    q, k, v, do = (randn((T, H * D), gen, dev) for _ in range(4))
+    e_max, share_max, *_ = check_rect_bwd_args(
+        rect_bwd_args(q, k, v, do, seg, 0, T, H), seg,
+        ' one rank of 1 at the train shape')
+    torch.cuda.empty_cache()
+    spans = flash.flash_spans(seg)
+    o, lse = flash.segment_flash_fwd(q, k, v, seg, *spans[:2], H)
+    h2_args = (q, k, v, do, lse, flash.attention_delta(o, do, H), seg,
+               *spans, H)
+    h2_ms = cuda_ms(lambda: flash.segment_flash_bwd(*h2_args), reps=20,
+                    warmup=2)
+    del o, lse, h2_args
+    ranks = []
+    for r in range(n):
+        lo, hi = r * T // n, (r + 1) * T // n
+        args = rect_bwd_args(q, k, v, do, seg, lo, hi, H)
+        what = f' rank {r} of {n} at the train shape'
+        for lib in ('flash_bwd', None):
+            e, share, dq, *_ = check_rect_bwd_args(args, seg, what, lib)
+            e_max, share_max = max(e_max, e), max(share_max, share)
+        ms = cuda_ms(lambda: flash.segment_flash_bwd(*args, seg_k=seg),
+                     reps=20, warmup=2)
+        mma_ms = cuda_ms(lambda: flash.launch_bwd('flash_bwd', *args,
+                                                  seg_k=seg),
+                         reps=20, warmup=2)
+        passes = {name: cuda_ms(lambda: rect_bwd_pass(which, args, seg),
+                                reps=20, warmup=2)
+                  for name, which in (('dkv', 0), ('dq', 1))}
+        plain_ms = cuda_ms(lambda: flash.segment_flash_bwd_plain(
+            *args, seg_k=seg), reps=2)
+        nbytes, flops = rect_bwd_work(args, seg, H, D)
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+        lib_ms = yardstick(f'varlen flash-attention backward (aten), rank {r} '
+                           f'of {n}', lambda: varlen_rect_bwd_ms(
+                               args, seg, H, D, reps=20), dq, 'H10 dq')
+        empty = int((args[10] <= args[9]).sum())
+        ranks.append({'rows': [lo, hi], 'ms': ms, 'mma_sync_form_ms': mma_ms,
+                      'passes_ms': passes, 'plain_ms': plain_ms,
+                      'bound_ms': b_ms, 'bound_by': b_by,
+                      'library_varlen_ms': lib_ms, 'bytes': nbytes,
+                      'flops': flops, 'empty_kv_blocks': empty,
+                      'kv_blocks': int(args[9].numel())})
+        log(f'H10 rank {r} of {n} (rows {lo}-{hi} over {T} keys, H={H} '
+            f'D={D}): {ms:.4f} ms ({flash.bwd_route(D)}), passes {passes}, '
+            f'the mma.sync form {mma_ms:.4f} ms, plain {plain_ms:.3f} ms, '
+            f'bound {b_ms:.4f} ms by {b_by} ({b_ms / ms:.3f} of it), varlen '
+            f'library {lib_ms}; {empty} of {args[9].numel()} 64-row key '
+            f'blocks with an empty span')
+        del args, dq
+        torch.cuda.empty_cache()
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    total = {key: sum(rk[key] for rk in ranks)
+             for key in ('ms', 'mma_sync_form_ms', 'plain_ms', 'bound_ms',
+                         'bytes', 'flops')}
+    passes = {name: sum(rk['passes_ms'][name] for rk in ranks)
+              for name in ranks[0]['passes_ms']}
+    libs = [rk['library_varlen_ms'] for rk in ranks]
+    lib = sum(libs) if None not in libs else None
+    by = bound(total['bytes'], total['flops'], BF16_FLOP_PER_S)[1]
+    ratio = total['ms'] / h2_ms
+    log(f'H10 over the {n} ranks: {total["ms"]:.4f} ms ({ratio:.4f} of H2 '
+        f'on the whole batch, {h2_ms:.4f} ms), passes {passes}, '
+        f'bound {total["bound_ms"]:.4f} ms by {by}, plain '
+        f'{total["plain_ms"]:.3f} ms, varlen library {lib}')
+    return {'name': H10_NAME, 'route': 'cuda',
+            'source': 'esme_tpu_torch/csrc/flash_bwd_sm90.cu',
+            'routes': {str(d): f'esme_tpu_torch/csrc/{flash.bwd_route(d)}.cu'
+                       for d in flash.HEAD_DIMS},
+            'replaces': 'esme_tpu/ops/flash.py:1083',
+            'also_replaces': ['esme_tpu/ops/flash.py:807',
+                              'esme_tpu/ops/flash.py:855'],
+            'max_abs_err': e_max, 'gate_share': share_max,
+            'ms': total['ms'], 'plain_ms': total['plain_ms'],
+            'bound_ms': total['bound_ms'], 'bound_by': by,
+            'library_ms': lib, 'library_varlen_ms': lib,
+            'mma_sync_form_ms': total['mma_sync_form_ms'],
+            'passes_ms': passes, 'h2_whole_batch_ms': h2_ms, 'ranks': ranks,
+            'shape': f'T={T} H={H} D={D} bf16 (train batch): {n} ranks of '
+                     f'{T // n} query rows over all {T} keys, times summed '
+                     'over the ranks',
+            'bytes': total['bytes'], 'flops': total['flops']}
+
+
+def compare_updates(got, ref, before, lr, what):
+    """Each leaf of ``got`` and ``ref`` (params after one Adam step from
+    ``before`` at learning rate ``lr``) within ``UPDATE_ROUND``'s
+    elementwise bound and ``UPDATE_MASS_REL``'s bound on the updates'
+    difference; fails otherwise. Returns the bit-equal leaves, the count
+    of elements that differ, the largest difference and the largest
+    update-mass ratio."""
+    out = {'leaves': 0, 'bit_equal': 0, 'elements_differ': 0,
+           'max_abs': 0.0, 'max_mass_ratio': 0.0}
+    for path, a, b in _leaf_pairs(got, ref):
+        a = a.to(b.device)
+        p0 = _leaf_at(before, path)
+        a32, b32, p32 = a.float(), b.float(), p0.float()
+        diff = (a32 - b32).abs()
+        limit = 2 * lr * (1 + UPDATE_ROUND) \
+            + UPDATE_ROUND * torch.maximum(a32.abs(), b32.abs())
+        mass = (b32 - p32).abs().sum().item()
+        moved = diff.sum().item()
+        ratio = moved / mass if mass else (0.0 if moved == 0 else math.inf)
+        out['leaves'] += 1
+        out['bit_equal'] += bool(torch.equal(a, b))
+        out['elements_differ'] += int((a != b).sum().item())
+        out['max_abs'] = max(out['max_abs'], diff.max().item())
+        out['max_mass_ratio'] = max(out['max_mass_ratio'], ratio)
+        if not bool((diff <= limit).all()) or not ratio <= UPDATE_MASS_REL:
+            fail(f'{what}: leaf {path} after one update: max |delta| '
+                 f'{diff.max().item():.3e} (over 2·lr + {UPDATE_ROUND}·|p| '
+                 f'in {int((diff > limit).sum().item())} elements), the '
+                 f'updates\' difference {ratio:.4f} of the update (gate '
+                 f'{UPDATE_MASS_REL})')
+    return out
+
+
+def _leaf_at(tree, path):
+    for k in path.split('.'):
+        tree = tree[k]
+    return tree
+
+
+def check_cp_steps(model, mesh, batch, lr, dev):
+    """``ShardedMaskedPLM(seq_axis='seq')`` and ``MaskedPLM`` from the
+    same weights (``model``'s, which the sharded trainer copies and
+    ``MaskedPLM`` then updates in place) for ``CP_COMPARE_STEPS`` steps on
+    ``batch``: each step's loss within ``CP_LOSS_REL`` of MaskedPLM's, the
+    params after the first update under :func:`compare_updates`."""
+    from esme_tpu_torch.train import MaskedPLM, ShardedMaskedPLM
+
+    def clone(tree):
+        return {k: clone(v) if isinstance(v, dict) else v.clone()
+                for k, v in tree.items()}
+    before = clone(model.params)
+    plm = ShardedMaskedPLM(model, mesh, learning_rate=lr, seq_axis='seq')
+    losses = [plm.training_step([batch])]
+    after = plm.unsharded_params()
+    losses += [plm.training_step([batch])
+               for _ in range(CP_COMPARE_STEPS - 1)]
+    del plm
+    torch.cuda.empty_cache()
+    ref = MaskedPLM(model, learning_rate=lr)
+    ref_losses = [ref.training_step(batch)]
+    what = 'context-parallel training: ShardedMaskedPLM vs MaskedPLM'
+    check = compare_updates(after, model.params, before, lr, what)
+    ref_losses += [ref.training_step(batch)
+                   for _ in range(CP_COMPARE_STEPS - 1)]
+    del ref, after, before
+    torch.cuda.empty_cache()
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+    check.update(losses=losses, losses_masked_plm=ref_losses,
+                 loss_rel=rel)
+    log(f'{what}, {CP_COMPARE_STEPS} steps from the same weights: losses '
+        f'{losses} vs {ref_losses} (relative {[f"{x:.2e}" for x in rel]}, '
+        f'gate {CP_LOSS_REL}); after the first update {check["bit_equal"]} '
+        f'of {check["leaves"]} leaves bit-equal, {check["elements_differ"]} '
+        f'elements differ, max |delta| {check["max_abs"]:.3e}, the updates\' '
+        f'difference at most {check["max_mass_ratio"]:.3e} of the update')
+    if not all(np.isfinite(losses)) or max(rel) > CP_LOSS_REL:
+        fail(f'{what}: a step\'s loss differs by more than {CP_LOSS_REL} '
+             f'of MaskedPLM\'s: {losses} vs {ref_losses}')
+    return check
+
+
+def check_cp_train(dev, phase5, profile_dir=None):
+    """Phase 11, context-parallel training: a one-rank world (NCCL on the
+    card) on 127.0.0.1 and its ``(data, fsdp, seq)`` mesh of (1, 1, 1);
+    ESM2 at ``MODEL`` (bf16, seed-0 weights, as phase 4 builds it) with
+    ``checkpointing=True`` on TRAIN_CELLS' ``ckpt@50k`` batch. The loss and
+    every leaf's gradient of one step of ``ShardedMaskedPLM(seq_axis=
+    'seq')`` against ``MaskedPLM``'s in the same call (the loss equal,
+    each leaf under phase 5's gates; the largest difference and the count
+    of bit-equal leaves logged); then ``train_cell`` with the sharded
+    trainer: launches exact in one step (H9 twice and H10 once per layer,
+    H3 three times, its inverse once; H1 and H2 never), the losses of
+    ``CP_TRAIN_STEPS`` more steps finite and the last below the first, ms
+    per step, real tokens/s, MFU and peak memory beside phase
+    5's ``ckpt@50k`` cell (``phase5``); then :func:`check_cp_steps`. The
+    process group is destroyed at the end."""
+    import torch.distributed as dist
+    from esme_tpu_torch import ESM2
+    from esme_tpu_torch.parallel import initialize_distributed, make_mesh
+    from esme_tpu_torch.train import MaskedPLM, ShardedMaskedPLM
+    key, budget, ckpt, _, _ = TRAIN_CELLS[1]
+    initialize_distributed(f'127.0.0.1:{free_port()}', 1, 0,
+                           device=dev.type)
+    try:
+        mesh = make_mesh(1, 1, seq=1, device=dev.type)
+        log(f'context-parallel training: {dist.get_backend()} world of '
+            f'{dist.get_world_size()}, mesh {mesh}')
+        model = ESM2(**MODEL, dtype='bfloat16', rng=0, device=dev,
+                     checkpointing=True)
+        n_params = sum(p.numel() for p in _leaves(model.params))
+        L = model.config.num_layers
+        batch, _ = train_batch(budget, model)
+
+        class sharded:
+            """The sharded trainer on the mesh, stepped with the one data
+            row's batch (R = 1), as ``train_cell`` steps a trainer."""
+
+            def __init__(self, m, learning_rate):
+                self.plm = ShardedMaskedPLM(m, mesh,
+                                            learning_rate=learning_rate,
+                                            seq_axis='seq')
+
+            def training_step(self, batch):
+                return self.plm.training_step([batch])
+        loss_ref, grads_ref = MaskedPLM(model)._grad_step(batch)
+        loss, grads = sharded(model, 1e-4).plm._grad_step([batch])
+        what = (f'context-parallel training ({L} layers, '
+                f'{int(batch.cu_lens[-1])} tokens): gradients, '
+                'ShardedMaskedPLM vs MaskedPLM')
+        check = compare_grads(grads, grads_ref, GRAD_MIN_COS, GRAD_MAX_REL,
+                              what)
+        check['max_abs'] = max((a.float() - b.float()).abs().max().item()
+                               for _, a, b in _leaf_pairs(grads, grads_ref))
+        check.update(loss=loss.item(), loss_masked_plm=loss_ref.item(),
+                     loss_equal=bool(torch.equal(loss, loss_ref)))
+        log(f'{what}: loss {loss.item():.6f} vs {loss_ref.item():.6f}, equal '
+            f'{check["loss_equal"]}; max|g - g_MaskedPLM| over every leaf '
+            f'{check["max_abs"]:.3e}; {check["bit_equal"]} of '
+            f'{check["leaves"]} leaves bit-equal')
+        if not check['loss_equal']:
+            fail('a one-rank ShardedMaskedPLM step\'s loss is not '
+                 'MaskedPLM\'s')
+        del grads, grads_ref
+        torch.cuda.empty_cache()
+        cell = train_cell(
+            model, sharded, f'cp_{key}', budget, ckpt, CP_TRAIN_STEPS, True,
+            n_params, profile_dir, what='ShardedMaskedPLM(seq_axis=seq): ',
+            expected=expected_launches(**{
+                H9_NAME: 2 * L, H10_NAME: L, H3_NAME: 3 * L,
+                'rope_inverse': L}))
+        cell['vs_masked_plm'] = check
+        cell['phase5_ms_per_step'] = phase5['ms_per_step']
+        model.checkpointing = ckpt
+        cell['steps_vs_masked_plm'] = check_cp_steps(model, mesh, batch,
+                                                     1e-4, dev)
+        log(f'context-parallel training: {cell["ms_per_step"]:.2f} ms per '
+            f'step, {cell["real_tokens_per_s"]:.1f} real tokens/s, MFU '
+            f'{cell["mfu"]:.4f}, peak memory {cell["peak_mem_gib"]:.2f} GiB; '
+            f'MaskedPLM\'s ckpt@50k (phase 5) {phase5["ms_per_step"]:.2f} ms, '
+            f'{phase5["real_tokens_per_s"]:.1f} real tokens/s, MFU '
+            f'{phase5["mfu"]:.4f}, {phase5["peak_mem_gib"]:.2f} GiB '
+            f'({cell["ms_per_step"] / phase5["ms_per_step"]:.4f} of its time)')
+        del model
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return cell
+
+
 def main(argv):
     if not torch.cuda.is_available():
         fail('no CUDA device: this script runs the port on the card')
@@ -1437,6 +2029,7 @@ def main(argv):
     sm90_usage = check_sm90_ptxas()
     h8_ptxas = check_probes_sm90_ptxas()
     rect_ptxas = check_rect_ptxas()
+    rect_bwd_ptxas = check_rect_bwd_ptxas()
 
     # 3. kernels vs plain versions
     H = MODEL['attention_heads']
@@ -1458,6 +2051,7 @@ def main(argv):
                 check_flash_args(seg_flash_args(seg[:t], 4, d, dev, d + t),
                                  f' {layout}')
     rect_err, rect_lse_err = check_rect(cu8k, dev)
+    rect_bwd_err, rect_bwd_share = check_rect_bwd(cu8k, dev)
     for d in (16, 24, 32, 128):
         check_rope(CHECK_BUDGET, 20 if d < 128 else 40, d, dev, seed=d)
     rope_err = check_rope(BUDGET + (-BUDGET) % 256, H, D, dev)
@@ -1604,6 +2198,13 @@ def main(argv):
               check_batch_max_abs_err=rect_err,
               check_batch_lse_max_abs_err=rect_lse_err, ptxas=rect_ptxas)
 
+    # 11. context-parallel training: the path, then H10's times
+    cp_train = check_cp_train(dev, cells['ckpt'], profile_dir)
+    h10 = time_rect_bwd(dev)
+    h10.update(launches=cp_train['launches'][H10_NAME],
+               check_batch_max_abs_err=rect_bwd_err,
+               check_batch_gate_share=rect_bwd_share, ptxas=rect_bwd_ptxas)
+
     train_launches = {key: c['launches'] for key, c in cells.items()}
     kernels = [
         {'name': H1_NAME, 'route': 'cuda',
@@ -1683,6 +2284,7 @@ def main(argv):
          'modes': h4_modes, 'shape': f'T={T} H={H} D={D} bf16',
          'bytes': h4['bytes']},
         h9,
+        h10,
         *probe_kernels,
         *family_kernels,
     ]
@@ -1701,6 +2303,7 @@ def main(argv):
         'train_batch_unmasked_units': units,
         'fit_losses': fit_losses, 'families': families,
         'context_parallel': cp,
+        'context_parallel_training': cp_train,
         'build_s': build_s,
         'model_checks': model_checks, 'torch': torch.__version__,
         'cuda': torch.version.cuda,
@@ -1962,6 +2565,7 @@ def reset_counters():
     for f in _counters().values():
         f.launches = 0
     _counters()[H1_NAME].rect_launches = 0
+    _counters()[H2_NAME].rect_launches = 0
     _counters()[H3_NAME].inverse_launches = 0
     for name in (H4_NAME, H5_NAME):
         # (a plain version standing in for H4 counts no routes)
@@ -1993,12 +2597,13 @@ def train_batch(budget: int, model):
 
 
 def train_cell(model, plm_cls, key, budget, ckpt, reps, falls, n_params,
-               profile_dir, what=''):
+               profile_dir, what='', expected=None):
     """One train cell: a warm-up step with the launch counters set to 0
-    just before it and read just after, then ``reps`` timed steps on the
-    same batch. MFU as bench.py computes it: (6·N·tokens + 3.5·attention
-    forward flops) / time / 989 TFLOP/s. H3 runs only in a model with
-    RoPE."""
+    just before it and read just after (``expected``, or MaskedPLM's
+    launches: H1 once per layer, twice with checkpointing, H2 once; H3 only
+    in a model with RoPE), then ``reps`` timed steps on the same batch. MFU
+    as bench.py computes it: (6·N·tokens + 3.5·attention forward flops) /
+    time / 989 TFLOP/s."""
     L = model.config.num_layers
     rot = int(model.config.rotary)
     model.checkpointing = ckpt
@@ -2012,9 +2617,10 @@ def train_cell(model, plm_cls, key, budget, ckpt, reps, falls, n_params,
     losses = [plm.training_step(batch)]
     first_ms = (time.perf_counter() - t0) * 1e3
     launches = read_counters()
-    expected = expected_launches(**{
-        H1_NAME: 2 * L if ckpt else L, H2_NAME: L,
-        H3_NAME: rot * (3 if ckpt else 2) * L, 'rope_inverse': rot * L})
+    if expected is None:
+        expected = expected_launches(**{
+            H1_NAME: 2 * L if ckpt else L, H2_NAME: L,
+            H3_NAME: rot * (3 if ckpt else 2) * L, 'rope_inverse': rot * L})
     log(f'{what}train {key}@{budget}: launches in one step {launches} '
         f'(expected {expected})')
     if launches != expected:
@@ -2186,7 +2792,7 @@ def op_run(fn, xs, w):
 
 def expected_launches(**counts):
     """Every counter at 0 but those given."""
-    return {**{name: 0 for name in _counters()}, H9_NAME: 0,
+    return {**{name: 0 for name in _counters()}, H9_NAME: 0, H10_NAME: 0,
             'rope_inverse': 0, **counts}
 
 
@@ -2335,12 +2941,13 @@ def check_op_api(cu, dev):
 def ptxas_usage(build_log: str) -> dict:
     """``{(kernel, padded head dim, mode): (registers, stack frame, spill
     stores, spill loads)}`` of the H1/H2 kernels in ``nvcc -Xptxas -v``
-    output (H9's mma.sync kernel, which has no mode: ``(kernel, padded head
-    dim)``)."""
+    output (H9's and H10's mma.sync kernels, which have no mode:
+    ``(kernel, padded head dim)``)."""
     usage, name, frame = {}, None, None
     for line in build_log.splitlines():
         m = re.search(r'Function properties for \S*\d(flash_(?:fwd|fwd_rect|'
-                      r'bwd_dq|bwd_dkv)_kernel)I((?:Li\d+E)+)E', line)
+                      r'bwd_dq|bwd_dkv|bwd_dq_rect|bwd_dkv_rect)_kernel)'
+                      r'I((?:Li\d+E)+)E', line)
         if m:
             name = (m.group(1), *map(int, re.findall(r'Li(\d+)E',
                                                      m.group(2))))

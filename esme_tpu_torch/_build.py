@@ -65,12 +65,17 @@ SIGNATURES = {
         'esme_segment_flash_bwd': (I, [P] * 14 + [I, I, I, F, P]),
         'esme_segment_flash_bwd_variant': (I, [I, I] + [P] * 14
                                            + [I, I, I, F, P]),
+        'esme_segment_flash_bwd_rect': (I, [P] * 15 + [I, I, I, I, F, P]),
         'esme_flash_bwd_error_string': (ctypes.c_char_p, [I]),
     },
     'flash_bwd_sm90': {
         'esme_segment_flash_bwd_sm90': (I, [P] * 14 + [I, I, I, F, P]),
         'esme_flash_bwd_sm90_pass': (I, [I, I] + [P] * 14
                                      + [I, I, I, F, P]),
+        'esme_segment_flash_bwd_rect_sm90': (I, [P] * 15
+                                             + [I, I, I, I, F, P]),
+        'esme_flash_bwd_rect_sm90_pass': (I, [I] + [P] * 15
+                                          + [I, I, I, I, F, P]),
         'esme_flash_bwd_sm90_error_string': (ctypes.c_char_p, [I]),
     },
     'flash_fwd_t': {

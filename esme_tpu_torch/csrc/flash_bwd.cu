@@ -59,6 +59,17 @@
 // purpose. Mode 0 is the production pair, and esme_segment_flash_bwd
 // launches only that; esme_segment_flash_bwd_variant launches one kernel
 // in any mode, at D = 64 only (ESM2-650M's head dim).
+//
+// H10, the rectangular form (flash_bwd_dkv_rect_kernel and
+// flash_bwd_dq_rect_kernel, the two bodies in mode 0 at every padded width,
+// in kernels of their own; the wrapper routes D = 16 and 24 here, as for
+// H2): Tq query rows with ids seg_q over Tk key rows with ids seg_k, the
+// backward of the TPU kernel K-rect (esme_tpu/ops/flash.py:1083
+// _flash_bwd_vjp -> _bwd). The q, do, lse, delta and q-id loads, the dq
+// grid and dq's stores are over Tq; the k, v and k-id loads, the dk/dv
+// grid and dk's and dv's stores over Tk. A 64-row k block that no query
+// shares an id with walks no q tile and writes zeros. Where H10 walks H2's
+// span its dq rows are H2's bit for bit.
 
 #include "flash_common.cuh"
 
@@ -113,17 +124,21 @@ constexpr size_t dkv_smem() {
   return DkvCfg<DP>::bytes + (MODE == NO_ACC ? DkvCfg<DP>::colmax_bytes : 0);
 }
 
-template <int DP, int MODE>
-__global__ void __launch_bounds__(DkvCfg<DP>::NTHREADS)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta,
-                     const int* __restrict__ seg,
-                     const int* __restrict__ qstart,
-                     const int* __restrict__ qend, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int T, int H, int D, float scale,
-                     float scale_log2) {
+// The dk/dv kernel's body, shared by H2 (and H7) and H10: the queries
+// have ids seg over T rows and the keys ids segk over Tk rows; H2's
+// kernel passes its one seg and T for both, H10's kernel (RECT) the two
+// sides' own. With RECT a k row past Tk is marked by krow = -1 before the
+// walk, so Tk is not live across it: at DP = 128 the kernel sits at the
+// 255-register cap, and the extra length spilled a register.
+template <int DP, int MODE, bool RECT = false>
+__device__ __forceinline__ void dkv_body(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const int* __restrict__ seg, const int* __restrict__ segk,
+    const int* __restrict__ qstart, const int* __restrict__ qend,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int T, int Tk, int H, int D,
+    float scale, float scale_log2) {
   using C = DkvCfg<DP>;
   constexpr int LD = C::LD;
   constexpr int NC = C::NC;
@@ -152,7 +167,8 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     krow[r] = k0 + warp * 16 + r * 8 + g;
-    sk[r] = krow[r] < T ? seg[krow[r]] : -2;
+    sk[r] = krow[r] < Tk ? segk[krow[r]] : -2;
+    if constexpr (RECT) krow[r] = krow[r] < Tk ? krow[r] : -1;
   }
 
   auto q_tile = [&](int s) { return Ks + (2 + 2 * s) * C::TILE; };
@@ -171,8 +187,8 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     load_words<C::NTHREADS>(delta_s(s), delta_h, q0, BQT, T);
   };
 
-  load_rows<DP, LD, BKV, C::NTHREADS>(Ks, k, k0, T, HD, col0, D);
-  load_rows<DP, LD, BKV, C::NTHREADS>(Vs, v, k0, T, HD, col0, D);
+  load_rows<DP, LD, BKV, C::NTHREADS>(Ks, k, k0, Tk, HD, col0, D);
+  load_rows<DP, LD, BKV, C::NTHREADS>(Vs, v, k0, Tk, HD, col0, D);
   if (qb0 < qb1) load_q(qb0, 0);
   cp_async_commit();
 
@@ -337,7 +353,7 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    if (krow[r] >= T) continue;
+    if (RECT ? krow[r] < 0 : krow[r] >= Tk) continue;
     bf16* dkrow = dk + (size_t)krow[r] * HD + col0;
     bf16* dvrow = dv + (size_t)krow[r] * HD + col0;
 #pragma unroll
@@ -354,15 +370,47 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int DP, int MODE>
-__global__ void __launch_bounds__(DqCfg<DP>::NTHREADS)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta,
-                    const int* __restrict__ seg,
-                    const int* __restrict__ kstart,
-                    const int* __restrict__ kend, bf16* __restrict__ dq,
-                    int T, int H, int D, float scale, float scale_log2) {
+__global__ void __launch_bounds__(DkvCfg<DP>::NTHREADS)
+flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     const int* __restrict__ seg,
+                     const int* __restrict__ qstart,
+                     const int* __restrict__ qend, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, int T, int H, int D, float scale,
+                     float scale_log2) {
+  dkv_body<DP, MODE>(q, k, v, dout, lse, delta, seg, seg, qstart, qend, dk,
+                     dv, T, T, H, D, scale, scale_log2);
+}
+
+// H10's dk/dv kernel: Tq query rows with ids seg_q over Tk key rows with
+// ids seg_k
+template <int DP>
+__global__ void __launch_bounds__(DkvCfg<DP>::NTHREADS)
+flash_bwd_dkv_rect_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const int* __restrict__ seg_q, const int* __restrict__ seg_k,
+    const int* __restrict__ qstart, const int* __restrict__ qend,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int Tq, int Tk, int H,
+    int D, float scale, float scale_log2) {
+  dkv_body<DP, REAL, true>(q, k, v, dout, lse, delta, seg_q, seg_k, qstart,
+                           qend, dk, dv, Tq, Tk, H, D, scale, scale_log2);
+}
+
+// The dq kernel's body, shared by H2 (and H7) and H10, with the two sides'
+// ids and lengths as in dkv_body
+template <int DP, int MODE>
+__device__ __forceinline__ void dq_body(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const int* __restrict__ seg, const int* __restrict__ segk_g,
+    const int* __restrict__ kstart, const int* __restrict__ kend,
+    bf16* __restrict__ dq, int T, int Tk, int H, int D, float scale,
+    float scale_log2) {
   using C = DqCfg<DP>;
   constexpr int LD = C::LD;
   constexpr int KD = DP / 16;
@@ -403,9 +451,9 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   auto v_tile = [&](int s) { return DOs + C::QTILE + (2 * s + 1) * C::KTILE; };
   auto load_kv = [&](int kb, int s) {
     const int k0 = kb * BK;
-    load_rows<DP, LD, BK, C::NTHREADS>(k_tile(s), k, k0, T, HD, col0, D);
-    load_rows<DP, LD, BK, C::NTHREADS>(v_tile(s), v, k0, T, HD, col0, D);
-    load_words<C::NTHREADS>(segk + s * BK, seg, k0, BK, T);
+    load_rows<DP, LD, BK, C::NTHREADS>(k_tile(s), k, k0, Tk, HD, col0, D);
+    load_rows<DP, LD, BK, C::NTHREADS>(v_tile(s), v, k0, Tk, HD, col0, D);
+    load_words<C::NTHREADS>(segk + s * BK, segk_g, k0, BK, Tk);
   };
 
   load_rows<DP, LD, BQ, C::NTHREADS>(Qs, q, q0, T, HD, col0, D);
@@ -486,7 +534,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int c = j * 8 + tq * 2 + e;
-          const int skc = k0 + c < T ? sk[c] : -1;
+          const int skc = k0 + c < Tk ? sk[c] : -1;
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
             if constexpr (MODE == REAL) {
@@ -568,6 +616,36 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+template <int DP, int MODE>
+__global__ void __launch_bounds__(DqCfg<DP>::NTHREADS)
+flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    const int* __restrict__ seg,
+                    const int* __restrict__ kstart,
+                    const int* __restrict__ kend, bf16* __restrict__ dq,
+                    int T, int H, int D, float scale, float scale_log2) {
+  dq_body<DP, MODE>(q, k, v, dout, lse, delta, seg, seg, kstart, kend, dq, T,
+                    T, H, D, scale, scale_log2);
+}
+
+// H10's dq kernel: Tq query rows with ids seg_q over Tk key rows with ids
+// seg_k
+template <int DP>
+__global__ void __launch_bounds__(DqCfg<DP>::NTHREADS)
+flash_bwd_dq_rect_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const int* __restrict__ seg_q, const int* __restrict__ seg_k,
+    const int* __restrict__ kstart, const int* __restrict__ kend,
+    bf16* __restrict__ dq, int Tq, int Tk, int H, int D, float scale,
+    float scale_log2) {
+  dq_body<DP, REAL>(q, k, v, dout, lse, delta, seg_q, seg_k, kstart, kend, dq,
+                    Tq, Tk, H, D, scale, scale_log2);
+}
+
 struct Args {
   const bf16 *q, *k, *v, *dout;
   const float *lse, *delta;
@@ -612,6 +690,34 @@ cudaError_t launch(const Args& a) {
   const cudaError_t err = launch_dkv<DP, REAL>(a);
   if (err != cudaSuccess) return err;
   return launch_dq<DP, REAL>(a);
+}
+
+// H10: both kernels, dk/dv then dq, over Tq query rows (q, do, dq, lse,
+// delta; seg_q) and Tk key rows (k, v, dk, dv; seg_k)
+template <int DP>
+int launch_rect(const Args& a, const int* seg_k, int Tk) {
+  const size_t dkv_bytes = dkv_smem<DP, REAL>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_rect_kernel<DP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dkv_bytes);
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dkv_rect_kernel<DP>
+      <<<dim3((Tk + BKV - 1) / BKV, a.H), DkvCfg<DP>::NTHREADS, dkv_bytes,
+         a.stream>>>(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.seg, seg_k,
+                     a.qstart, a.qend, a.dk, a.dv, a.T, Tk, a.H, a.D, a.scale,
+                     a.scale * LOG2E);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const size_t dq_bytes = DqCfg<DP>::bytes;
+  err = cudaFuncSetAttribute(flash_bwd_dq_rect_kernel<DP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)dq_bytes);
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dq_rect_kernel<DP>
+      <<<dim3((a.T + BQ - 1) / BQ, a.H), DqCfg<DP>::NTHREADS, dq_bytes,
+         a.stream>>>(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.seg, seg_k,
+                     a.kstart, a.kend, a.dq, a.T, Tk, a.H, a.D, a.scale,
+                     a.scale * LOG2E);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -700,6 +806,45 @@ int esme_segment_flash_bwd_variant(int which, int mode, const void* q,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef ESME_BWD_MODE
+}
+
+// H10: H2 with per-side ids and lengths, q, do and dq (Tq, H*D), k, v,
+// dk and dv (Tk, H*D), lse and delta (H, Tq). Returns the cudaError_t of
+// the launches (0 on success).
+int esme_segment_flash_bwd_rect(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, const void* seg_q, const void* seg_k,
+    const void* kstart, const void* kend, const void* qstart,
+    const void* qend, void* dq, void* dk, void* dv, int Tq, int Tk, int H,
+    int D, float scale, void* stream) {
+  const Args a{static_cast<const esme::bf16*>(q),
+               static_cast<const esme::bf16*>(k),
+               static_cast<const esme::bf16*>(v),
+               static_cast<const esme::bf16*>(dout),
+               static_cast<const float*>(lse),
+               static_cast<const float*>(delta),
+               static_cast<const int*>(seg_q),
+               static_cast<const int*>(kstart),
+               static_cast<const int*>(kend),
+               static_cast<const int*>(qstart),
+               static_cast<const int*>(qend),
+               static_cast<esme::bf16*>(dq),
+               static_cast<esme::bf16*>(dk),
+               static_cast<esme::bf16*>(dv),
+               Tq,
+               H,
+               D,
+               scale,
+               static_cast<cudaStream_t>(stream)};
+  const int* sk = static_cast<const int*>(seg_k);
+  switch (D) {
+    case 16: return launch_rect<16>(a, sk, Tk);
+    case 24:
+    case 32: return launch_rect<32>(a, sk, Tk);
+    case 64: return launch_rect<64>(a, sk, Tk);
+    case 128: return launch_rect<128>(a, sk, Tk);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* esme_flash_bwd_error_string(int err) {

@@ -63,6 +63,28 @@
 // tiles, so dma and no_acc pair a warpgroup's row p with the tile's row or
 // column p; the dk/dv pass walks the union of its two 64-row halves'
 // spans, in every mode.
+//
+// H10, the rectangular form (bwd_dkv_rect_sm90_kernel and
+// bwd_dq_rect_sm90_kernel, the two bodies at D = 32, 64, 128 in mode 0, in
+// kernels of their own): H2 with queries and keys of their own, Tq query
+// rows with ids seg_q over Tk key rows with ids seg_k (context-parallel
+// training: a rank's queries over the keys gathered from every rank).
+// Replaces the backward of the TPU kernel K-rect, esme_tpu/ops/flash.py:1083
+// _flash_bwd_vjp -> _bwd (K4's :_dq_kernel and :_dkv_kernel with
+// segq_row != segk_col). Every length in the bodies is one side's: the q
+// ring, q's and do's tensor maps, lse, delta and the q ids over Tq; the
+// k and v maps, the k ids, the dk/dv grid and its stores over Tk; the dq
+// grid and its stores over Tq. H2's kernels pass their one seg and T for
+// both sides, so their instantiations compile as they did. Where H10's dq
+// pass walks H2's span (a rank whose first row starts a q block), its dq
+// rows are H2's bit for bit; its dk and dv hold this rank's queries' share
+// of the keys' gradients, which the caller sums over the ranks. Packed
+// ids are monotonic, so a rank's queries touch one contiguous range of
+// k blocks; a 128-row k CTA outside it (about 3/4 of the grid with 4
+// ranks) writes its rows of dk and dv as zeros and leaves before any
+// barrier or load, in the kernel and not in the shared body, whose
+// arithmetic stays H2's. The work and what bounds it are H2's over the
+// rank's same-segment pairs, plus the zero rows' stores.
 
 #include <limits.h>
 
@@ -174,19 +196,18 @@ __device__ __forceinline__ void dkv_scores(float (&s)[32], float (&dp)[32],
   }
 }
 
+// The dk/dv pass's body, shared by H2 (and H7) and H10: the queries have
+// ids seg over T rows and the keys ids segk over Tk rows; H2's kernel
+// passes its one seg and T for both, H10's kernel the two sides' own.
 template <int D, int MODE>
-__global__ void __launch_bounds__(3 * 128, 1)
-bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
-                    const __grid_constant__ CUtensorMap tm_k,
-                    const __grid_constant__ CUtensorMap tm_v,
-                    const __grid_constant__ CUtensorMap tm_do,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta,
-                    const int* __restrict__ seg,
-                    const int* __restrict__ qstart,
-                    const int* __restrict__ qend, bf16* __restrict__ dk,
-                    bf16* __restrict__ dv, int T, int H, float scale,
-                    float scale_log2) {
+__device__ __forceinline__ void dkv_body(
+    const CUtensorMap& tm_q, const CUtensorMap& tm_k, const CUtensorMap& tm_v,
+    const CUtensorMap& tm_do, const float* __restrict__ lse,
+    const float* __restrict__ delta, const int* __restrict__ seg,
+    const int* __restrict__ segk, const int* __restrict__ qstart,
+    const int* __restrict__ qend, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, int T, int Tk, int H, float scale,
+    float scale_log2) {
   using G = Geo<D>;
   using L = DkvSmem<D, MODE>;
   constexpr int ST = L::ST;
@@ -208,7 +229,7 @@ bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int col0 = h * D;
   // the q tiles of the block's two 64-row k blocks, as one span
   int qb0 = qstart[2 * kb], qb1 = qend[2 * kb];
-  if (2 * kb + 1 < (T + 63) / 64) {
+  if (2 * kb + 1 < (Tk + 63) / 64) {
     qb0 = min(qb0, qstart[2 * kb + 1]);
     qb1 = max(qb1, qend[2 * kb + 1]);
   }
@@ -270,11 +291,12 @@ bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       krow[r] = k0 + row0 + r * 8 + g;
-      sk[r] = krow[r] < T ? seg[krow[r]] : INT_MIN;
+      sk[r] = krow[r] < Tk ? segk[krow[r]] : INT_MIN;
     }
     // one segment over the warp's 16 k rows?
-    const int kid = lane < 16 && k0 + row0 + lane < T ? seg[k0 + row0 + lane]
-                                                      : INT_MIN;
+    const int kid = lane < 16 && k0 + row0 + lane < Tk
+                        ? segk[k0 + row0 + lane]
+                        : INT_MIN;
     const int kref = __shfl_sync(0xffffffffu, kid, 0);
     const bool kuni = __all_sync(0xffffffffu, lane >= 16 || kid == kref);
 
@@ -418,7 +440,7 @@ bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      if (krow[r] >= T) continue;
+      if (krow[r] >= Tk) continue;
       bf16* dkrow = dk + (size_t)krow[r] * HD + col0;
       bf16* dvrow = dv + (size_t)krow[r] * HD + col0;
 #pragma unroll
@@ -434,6 +456,63 @@ bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
     }
   }
+}
+
+template <int D, int MODE>
+__global__ void __launch_bounds__(3 * 128, 1)
+bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_do,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    const int* __restrict__ seg,
+                    const int* __restrict__ qstart,
+                    const int* __restrict__ qend, bf16* __restrict__ dk,
+                    bf16* __restrict__ dv, int T, int H, float scale,
+                    float scale_log2) {
+  dkv_body<D, MODE>(tm_q, tm_k, tm_v, tm_do, lse, delta, seg, seg, qstart,
+                    qend, dk, dv, T, T, H, scale, scale_log2);
+}
+
+// H10's dk/dv pass: Tq query rows with ids seg_q over Tk key rows with ids
+// seg_k. A CTA whose k rows no query shares an id with (an empty span)
+// writes its zero rows of dk and dv and leaves, before any barrier or
+// load.
+template <int D>
+__global__ void __launch_bounds__(3 * 128, 1)
+bwd_dkv_rect_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_do,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         const int* __restrict__ seg_q,
+                         const int* __restrict__ seg_k,
+                         const int* __restrict__ qstart,
+                         const int* __restrict__ qend, bf16* __restrict__ dk,
+                         bf16* __restrict__ dv, int Tq, int Tk, int H,
+                         float scale, float scale_log2) {
+  const int kb = blockIdx.x;
+  int qb0 = qstart[2 * kb], qb1 = qend[2 * kb];
+  if (2 * kb + 1 < (Tk + 63) / 64) {
+    qb0 = min(qb0, qstart[2 * kb + 1]);
+    qb1 = max(qb1, qend[2 * kb + 1]);
+  }
+  if (qb1 <= qb0) {
+    const int HD = H * D;
+    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+    for (int i = threadIdx.x; i < BKV * D / 8; i += blockDim.x) {
+      const int t = kb * BKV + i / (D / 8);
+      if (t >= Tk) break;
+      const size_t off = (size_t)t * HD + blockIdx.y * D + i % (D / 8) * 8;
+      *reinterpret_cast<uint4*>(dk + off) = zero;
+      *reinterpret_cast<uint4*>(dv + off) = zero;
+    }
+    return;
+  }
+  dkv_body<D, REAL>(tm_q, tm_k, tm_v, tm_do, lse, delta, seg_q, seg_k, qstart,
+                    qend, dk, dv, Tq, Tk, H, scale, scale_log2);
 }
 
 // ---------------------------------------------------------------------------
@@ -480,17 +559,16 @@ __device__ __forceinline__ void dq_scores(float (&s)[32], float (&dp)[32],
   }
 }
 
+// The dq pass's body, shared by H2 (and H7) and H10, with the two sides'
+// ids and lengths as in dkv_body
 template <int D, int MODE>
-__global__ void __launch_bounds__(3 * 128, 1)
-bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
-                   const __grid_constant__ CUtensorMap tm_k,
-                   const __grid_constant__ CUtensorMap tm_v,
-                   const __grid_constant__ CUtensorMap tm_do,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ delta,
-                   const int* __restrict__ seg, const int* __restrict__ kstart,
-                   const int* __restrict__ kend, bf16* __restrict__ dq, int T,
-                   int H, float scale, float scale_log2) {
+__device__ __forceinline__ void dq_body(
+    const CUtensorMap& tm_q, const CUtensorMap& tm_k, const CUtensorMap& tm_v,
+    const CUtensorMap& tm_do, const float* __restrict__ lse,
+    const float* __restrict__ delta, const int* __restrict__ seg,
+    const int* __restrict__ segk, const int* __restrict__ kstart,
+    const int* __restrict__ kend, bf16* __restrict__ dq, int T, int Tk, int H,
+    float scale, float scale_log2) {
   using G = Geo<D>;
   using L = DqSmem<D>;
   constexpr int ST = L::ST;
@@ -545,7 +623,7 @@ bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int i = lane; i < KT; i += 32) {
         const int t = k0 + i;
-        cp_async4(smem_u32(ids(s) + i), seg + (t < T ? t : 0), t < T);
+        cp_async4(smem_u32(ids(s) + i), segk + (t < Tk ? t : 0), t < Tk);
       }
       mbar_arrive_cp_async(&full[s]);
     }
@@ -587,7 +665,7 @@ bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       const uint32_t ks = smem_u32(k_tile(s));
       const uint32_t vs = smem_u32(v_tile(s));
       const int* skt = ids(s);
-      const int kn = T - (kb0 + it) * KT;   // the tile's k rows that exist
+      const int kn = Tk - (kb0 + it) * KT;   // the tile's k rows that exist
       const bool uni = masks<MODE>() &&
                        __all_sync(0xffffffffu, quni && kn >= KT &&
                                                    skt[lane] == qref &&
@@ -704,6 +782,40 @@ bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+template <int D, int MODE>
+__global__ void __launch_bounds__(3 * 128, 1)
+bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const __grid_constant__ CUtensorMap tm_do,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta,
+                   const int* __restrict__ seg, const int* __restrict__ kstart,
+                   const int* __restrict__ kend, bf16* __restrict__ dq, int T,
+                   int H, float scale, float scale_log2) {
+  dq_body<D, MODE>(tm_q, tm_k, tm_v, tm_do, lse, delta, seg, seg, kstart, kend,
+                   dq, T, T, H, scale, scale_log2);
+}
+
+// H10's dq pass: Tq query rows with ids seg_q over Tk key rows with ids
+// seg_k
+template <int D>
+__global__ void __launch_bounds__(3 * 128, 1)
+bwd_dq_rect_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v,
+                        const __grid_constant__ CUtensorMap tm_do,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        const int* __restrict__ seg_q,
+                        const int* __restrict__ seg_k,
+                        const int* __restrict__ kstart,
+                        const int* __restrict__ kend, bf16* __restrict__ dq,
+                        int Tq, int Tk, int H, float scale, float scale_log2) {
+  dq_body<D, REAL>(tm_q, tm_k, tm_v, tm_do, lse, delta, seg_q, seg_k, kstart,
+                   kend, dq, Tq, Tk, H, scale, scale_log2);
+}
+
 // ---------------------------------------------------------------------------
 // Launch
 // ---------------------------------------------------------------------------
@@ -716,9 +828,14 @@ struct Args {
   int T, H;
   float scale;
   cudaStream_t stream;
+  // the keys' own ids and length (H10); H2's are seg and T
+  const int* segk;
+  int Tk;
 };
 
-template <int D, int MODE>
+// One pass of H2 (RECT false, in mode MODE) or of H10 (RECT true, mode 0).
+// The q and do maps have a.T rows, the k and v maps a.Tk.
+template <int D, int MODE, bool RECT = false>
 cudaError_t launch_dkv(const Args& a) {
   using L = DkvSmem<D, MODE>;
   CUtensorMap tq, tk, tv, tdo;
@@ -726,21 +843,31 @@ cudaError_t launch_dkv(const Args& a) {
   cudaError_t err;
   if ((err = tile_map<D>(&tq, a.q, a.T, HD, QT)) != cudaSuccess ||
       (err = tile_map<D>(&tdo, a.dout, a.T, HD, QT)) != cudaSuccess ||
-      (err = tile_map<D>(&tk, a.k, a.T, HD, BKV)) != cudaSuccess ||
-      (err = tile_map<D>(&tv, a.v, a.T, HD, BKV)) != cudaSuccess)
+      (err = tile_map<D>(&tk, a.k, a.Tk, HD, BKV)) != cudaSuccess ||
+      (err = tile_map<D>(&tv, a.v, a.Tk, HD, BKV)) != cudaSuccess)
     return err;
-  auto kernel = bwd_dkv_sm90_kernel<D, MODE>;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             L::BYTES);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3((a.T + BKV - 1) / BKV, a.H), 3 * 128, L::BYTES, a.stream>>>(
-      tq, tk, tv, tdo, a.lse, a.delta, a.seg, a.qstart, a.qend, a.dk, a.dv,
-      a.T, a.H, a.scale, a.scale * LOG2E);
+  const dim3 grid((a.Tk + BKV - 1) / BKV, a.H);
+  if constexpr (RECT) {
+    auto kernel = bwd_dkv_rect_sm90_kernel<D>;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, 3 * 128, L::BYTES, a.stream>>>(
+        tq, tk, tv, tdo, a.lse, a.delta, a.seg, a.segk, a.qstart, a.qend,
+        a.dk, a.dv, a.T, a.Tk, a.H, a.scale, a.scale * LOG2E);
+  } else {
+    auto kernel = bwd_dkv_sm90_kernel<D, MODE>;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, 3 * 128, L::BYTES, a.stream>>>(
+        tq, tk, tv, tdo, a.lse, a.delta, a.seg, a.qstart, a.qend, a.dk, a.dv,
+        a.T, a.H, a.scale, a.scale * LOG2E);
+  }
   return cudaGetLastError();
 }
 
-template <int D, int MODE>
+template <int D, int MODE, bool RECT = false>
 cudaError_t launch_dq(const Args& a) {
   using L = DqSmem<D>;
   CUtensorMap tq, tk, tv, tdo;
@@ -748,17 +875,27 @@ cudaError_t launch_dq(const Args& a) {
   cudaError_t err;
   if ((err = tile_map<D>(&tq, a.q, a.T, HD, BQ)) != cudaSuccess ||
       (err = tile_map<D>(&tdo, a.dout, a.T, HD, BQ)) != cudaSuccess ||
-      (err = tile_map<D>(&tk, a.k, a.T, HD, KT)) != cudaSuccess ||
-      (err = tile_map<D>(&tv, a.v, a.T, HD, KT)) != cudaSuccess)
+      (err = tile_map<D>(&tk, a.k, a.Tk, HD, KT)) != cudaSuccess ||
+      (err = tile_map<D>(&tv, a.v, a.Tk, HD, KT)) != cudaSuccess)
     return err;
-  auto kernel = bwd_dq_sm90_kernel<D, MODE>;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             L::BYTES);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3((a.T + BQ - 1) / BQ, a.H), 3 * 128, L::BYTES, a.stream>>>(
-      tq, tk, tv, tdo, a.lse, a.delta, a.seg, a.kstart, a.kend, a.dq, a.T,
-      a.H, a.scale, a.scale * LOG2E);
+  const dim3 grid((a.T + BQ - 1) / BQ, a.H);
+  if constexpr (RECT) {
+    auto kernel = bwd_dq_rect_sm90_kernel<D>;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, 3 * 128, L::BYTES, a.stream>>>(
+        tq, tk, tv, tdo, a.lse, a.delta, a.seg, a.segk, a.kstart, a.kend,
+        a.dq, a.T, a.Tk, a.H, a.scale, a.scale * LOG2E);
+  } else {
+    auto kernel = bwd_dq_sm90_kernel<D, MODE>;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, 3 * 128, L::BYTES, a.stream>>>(
+        tq, tk, tv, tdo, a.lse, a.delta, a.seg, a.kstart, a.kend, a.dq, a.T,
+        a.H, a.scale, a.scale * LOG2E);
+  }
   return cudaGetLastError();
 }
 
@@ -797,11 +934,28 @@ cudaError_t launch_pass(const Args& a, int D, int which, int mode) {
   }
 }
 
+// One pass of H10 (which = 0: dk/dv, 1: dq)
+template <int D>
+cudaError_t launch_rect_pass(const Args& a, int which) {
+  return which == 0 ? launch_dkv<D, REAL, true>(a)
+                    : launch_dq<D, REAL, true>(a);
+}
+
+cudaError_t launch_rect_pass(const Args& a, int D, int which) {
+  switch (D) {
+    case 32: return launch_rect_pass<32>(a, which);
+    case 64: return launch_rect_pass<64>(a, which);
+    case 128: return launch_rect_pass<128>(a, which);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 Args make_args(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, const void* seg,
                const void* kstart, const void* kend, const void* qstart,
                const void* qend, void* dq, void* dk, void* dv, int T, int H,
-               float scale, void* stream) {
+               float scale, void* stream, const void* segk = nullptr,
+               int Tk = -1) {
   return Args{static_cast<const bf16*>(q),      static_cast<const bf16*>(k),
               static_cast<const bf16*>(v),      static_cast<const bf16*>(dout),
               static_cast<const float*>(lse),   static_cast<const float*>(delta),
@@ -812,7 +966,9 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
               T,
               H,
               scale,
-              static_cast<cudaStream_t>(stream)};
+              static_cast<cudaStream_t>(stream),
+              static_cast<const int*>(segk ? segk : seg),
+              Tk < 0 ? T : Tk};
 }
 
 }  // namespace
@@ -850,6 +1006,39 @@ int esme_flash_bwd_sm90_pass(int which, int mode, const void* q,
   const Args a = make_args(q, k, v, dout, lse, delta, seg, kstart, kend,
                            qstart, qend, dq, dk, dv, T, H, scale, stream);
   return (int)launch_pass(a, D, which, mode);
+}
+
+// H10: H2 with per-side ids and lengths, q, do and dq (Tq, H*D), k, v,
+// dk and dv (Tk, H*D), lse and delta (H, Tq); dk/dv then dq. D in {32,
+// 64, 128}. Returns the cudaError_t of the launches (0 on success).
+int esme_segment_flash_bwd_rect_sm90(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, const void* seg_q, const void* seg_k,
+    const void* kstart, const void* kend, const void* qstart,
+    const void* qend, void* dq, void* dk, void* dv, int Tq, int Tk, int H,
+    int D, float scale, void* stream) {
+  const Args a = make_args(q, k, v, dout, lse, delta, seg_q, kstart, kend,
+                           qstart, qend, dq, dk, dv, Tq, H, scale, stream,
+                           seg_k, Tk);
+  const cudaError_t err = launch_rect_pass(a, D, 0);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_rect_pass(a, D, 1);
+}
+
+// One pass of H10 alone, to time it: which = 0 writes dk and dv, which =
+// 1 writes dq. The other arguments are esme_segment_flash_bwd_rect_sm90's.
+// Returns the cudaError_t of the launch.
+int esme_flash_bwd_rect_sm90_pass(
+    int which, const void* q, const void* k, const void* v,
+    const void* dout, const void* lse, const void* delta, const void* seg_q,
+    const void* seg_k, const void* kstart, const void* kend,
+    const void* qstart, const void* qend, void* dq, void* dk, void* dv,
+    int Tq, int Tk, int H, int D, float scale, void* stream) {
+  if (which != 0 && which != 1) return (int)cudaErrorInvalidValue;
+  const Args a = make_args(q, k, v, dout, lse, delta, seg_q, kstart, kend,
+                           qstart, qend, dq, dk, dv, Tq, H, scale, stream,
+                           seg_k, Tk);
+  return (int)launch_rect_pass(a, D, which);
 }
 
 const char* esme_flash_bwd_sm90_error_string(int err) {

@@ -65,7 +65,8 @@ def forward_flat(params, cfg: ESMConfig, tokens, seg_ids, pos_ids, *,
                  with_head: bool = True, log_prob: bool = False,
                  attn_impl: str = 'auto', checkpointing: bool = False,
                  collect_layers=None, max_seqlen=None, num_jobs=None,
-                 remat: str = 'full', kv_gather=None, spans=None):
+                 remat: str = 'full', kv_gather=None, spans=None,
+                 layer_gather=None, outer_gather=None):
     """Trunk (+ optional LM head) over flat tokens with explicit
     segment/position metadata. Returns ``(T, C)``; with
     ``collect_layers`` the requested layer outputs are concatenated on
@@ -87,11 +88,22 @@ def forward_flat(params, cfg: ESMConfig, tokens, seg_ids, pos_ids, *,
     97-100``; :func:`esme_tpu_torch.parallel.forward_flat_cp` passes it).
     The tokens are then this rank's contiguous slice of the global batch,
     and nothing is padded: a shard-local pad would corrupt the gathered
-    key layout, and H9 takes any length. ``spans`` is then H9's
-    ``(kstart, kend)`` over the local and the gathered ids, which every
-    layer shares (:func:`~esme_tpu_torch.ops.flash.rect_spans`; the
+    key layout, and H9 and H10 take any length. ``spans`` is then H9's and
+    H10's four spans over the local and the gathered ids, which every
+    layer shares (:func:`~esme_tpu_torch.ops.flash.rect_flash_spans`; the
     caller holds both sets of ids), or None to compute them in each layer.
+
+    ``layer_gather``/``outer_gather``: the FSDP all-gather hooks
+    (``esme_tpu/models/esm.py:75-86``;
+    :func:`esme_tpu_torch.parallel.make_layer_gather`,
+    :func:`~esme_tpu_torch.parallel.make_outer_gather`) when ``params``
+    holds this rank's shards: the non-layer leaves are gathered here, each
+    layer's inside its (checkpointed) step of the layer stack.
     """
+    if outer_gather is not None:
+        params = {**outer_gather({k: v for k, v in params.items()
+                                  if k != 'layers'}),
+                  'layers': params['layers']}
     T = tokens.shape[0]
     if kv_gather is not None or attn_impl == 'reference':
         seg_ids = seg_ids.to(torch.int32).contiguous()
@@ -109,7 +121,8 @@ def forward_flat(params, cfg: ESMConfig, tokens, seg_ids, pos_ids, *,
     x, reps = layer_stack(x, params['layers'], cfg, seg_ids, pos_ids,
                           attn_impl=attn_impl, checkpointing=checkpointing,
                           collect_layers=collect_layers, rope=rope,
-                          spans=spans, remat=remat, kv_gather=kv_gather)
+                          spans=spans, remat=remat, kv_gather=kv_gather,
+                          layer_gather=layer_gather)
     x = apply_norm(x, params['emb_norm_after'])
     x = x[:T]
     reps = [r[:T] for r in reps]

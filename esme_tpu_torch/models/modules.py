@@ -99,13 +99,15 @@ def attention_block(x, params, cfg, seg_ids, pos_ids,
     ``kv_gather(k, v, seg_ids) -> (k_full, v_full, seg_full)`` gathers the
     keys, values (``(T, H, D)``) and ids of every rank
     (:func:`esme_tpu_torch.parallel.make_kv_gather`). q and k are rotated
-    locally before the gather (H3 on the 'flash' route, the plain rotation
-    on 'reference', as JAX rotates before it), then the local queries
-    attend the gathered stream: kernel H9 (:func:`segment_flash_rect`,
-    'flash' or 'auto') or :func:`attention_rect` ('reference'). ``spans``
-    is then H9's ``(kstart, kend)`` over the local and the gathered ids
-    (:func:`~esme_tpu_torch.ops.flash.rect_spans`), or None to compute
-    them here.
+    locally before the gather (H3 on the 'flash' route, with H3's inverse
+    in the backward, the plain rotation on 'reference', as JAX rotates
+    before it), then the local queries
+    attend the gathered stream: kernel H9, H10 in the backward
+    (:func:`segment_flash_rect`, 'flash' or 'auto') or
+    :func:`attention_rect` ('reference'). ``spans`` is then H9's and H10's
+    spans over the local and the gathered ids
+    (:func:`~esme_tpu_torch.ops.flash.rect_flash_spans`), or None to
+    compute them here.
     """
     h = apply_norm(x, params['norm'])
     q = linear(h, params['q'])
@@ -151,7 +153,7 @@ def _attention_cp(q, k, v, cfg, seg_ids, attn_impl, rope, spans, kv_gather):
     flash = attn_impl != 'reference'
     if cfg.rotary:
         if flash:
-            q, k = headsplit.rotary_qk(q, k, *rope, H)
+            q, k = headsplit.rotate_qk(q, k, *rope, H)
         else:
             q, k = (apply_rotary(x.reshape(T, H, Dh), *rope)
                     .reshape(T, H * Dh) for x in (q, k))
@@ -278,11 +280,21 @@ def check_remat(remat: str, checkpointing: bool) -> None:
             "remat='full'")
 
 
+def _gathered_layer(x, params, cfg, seg_ids, pos_ids, attn_impl, rope, spans,
+                    kv_gather, layer_gather):
+    """:func:`transformer_layer` on the layer's params gathered by
+    ``layer_gather`` (FSDP shards), or on ``params`` as they are."""
+    if layer_gather is not None:
+        params = layer_gather(params)
+    return transformer_layer(x, params, cfg, seg_ids, pos_ids, attn_impl,
+                             rope, spans, kv_gather)
+
+
 def layer_stack(x, stacked_params, cfg, seg_ids, pos_ids,
                 attn_impl: str = 'auto', checkpointing: bool = False,
                 collect_layers: Optional[Sequence[int]] = None,
                 rope: Optional[tuple] = None, spans=None,
-                remat: str = 'full', kv_gather=None):
+                remat: str = 'full', kv_gather=None, layer_gather=None):
     """Run every layer over the per-layer params: a dict of stacked
     leaves, or a list of one dict per layer.
 
@@ -295,7 +307,9 @@ def layer_stack(x, stacked_params, cfg, seg_ids, pos_ids,
     ``collect_layers`` (negative indices count from the end), in that
     order (reference: esme/esm.py:243-250). ``kv_gather``: the
     context-parallel hook of :func:`attention_block`, the same in every
-    layer.
+    layer. ``layer_gather``: the FSDP hook that all-gathers a layer's
+    param shards (``esme_tpu/models/modules.py:367-371``), called inside
+    the checkpointed layer so that the recompute gathers again.
     """
     check_remat(remat, checkpointing)
     if isinstance(stacked_params, dict):
@@ -308,12 +322,12 @@ def layer_stack(x, stacked_params, cfg, seg_ids, pos_ids,
     reps = [None] * len(collect)
     for i in range(L):
         args = (x, layers[i], cfg, seg_ids, pos_ids, attn_impl, rope, spans,
-                kv_gather)
+                kv_gather, layer_gather)
         if checkpointing and torch.is_grad_enabled():
-            x = checkpoint(transformer_layer, *args, use_reentrant=False,
+            x = checkpoint(_gathered_layer, *args, use_reentrant=False,
                            preserve_rng_state=False)
         else:
-            x = transformer_layer(*args)
+            x = _gathered_layer(*args)
         for j, ci in enumerate(collect):
             if ci == i:
                 reps[j] = x

@@ -18,7 +18,9 @@ and ``:_dkvq_jobs_kernel``. Each routes by a static rule on the head
 dim (:func:`fwd_route`, :func:`bwd_route`). With the keys' own ids
 (``seg_k``), :func:`segment_flash_fwd` launches kernel H9, a kernel of
 its own over the body of H1's forms, which replaces the forward of
-``:flash_rect_attention`` (K-rect) for context parallelism
+``:flash_rect_attention`` (K-rect) for context parallelism, and
+:func:`segment_flash_bwd` launches kernel H10, kernels of their own over
+the bodies of H2's forms, which replace its backward
 (:func:`segment_flash_rect`, :func:`flash_rect_attention`). All read and
 write the ``(T, H·D)`` layout directly (so the TPU relayouts
 ``headsplit.py:_split_one_kernel_t`` for v and do and
@@ -90,6 +92,12 @@ EMPTY_LSE = (torch.tensor(NEG_INF, dtype=torch.float32)
 FWD_RECT_ENTRIES = {
     'flash_fwd_sm90': 'esme_segment_flash_fwd_rect_sm90',
     'flash_fwd': 'esme_segment_flash_fwd_rect',
+}
+# H10, the rectangular backward: the entry of each of H2's libraries that
+# launches its rectangular kernels
+BWD_RECT_ENTRIES = {
+    'flash_bwd_sm90': 'esme_segment_flash_bwd_rect_sm90',
+    'flash_bwd': 'esme_segment_flash_bwd_rect',
 }
 
 
@@ -358,27 +366,34 @@ def attention_delta(o2, do2, num_heads: int):
 
 
 def segment_flash_bwd_plain(q2, k2, v2, do2, lse, delta, seg_ids, kstart,
-                            kend, qstart, qend, num_heads: int):
-    """Plain PyTorch version of H2: the same inputs, the same outputs.
+                            kend, qstart, qend, num_heads: int, seg_k=None):
+    """Plain PyTorch version of H2, and with ``seg_k`` of H10: the same
+    inputs, the same outputs.
 
-    Processes 1024 query rows at a time against the union of their k
-    spans (``qstart``/``qend`` are taken for the kernel's signature and
-    not needed: dk and dv of each chunk are added into fp32 sums). Per
-    same-segment pair and head, as K4/K5 (``esme_tpu/ops/flash.py:
-    496-508, 533-549``): ``p = exp(q·k·scale - lse)``, ``dp = do·v``,
-    ``ds = p·(dp - delta)·scale`` in fp32; dv sums ``p·do`` with p
-    rounded to the value dtype, dk and dq sum ``ds·q`` and ``ds·k``
-    with ds rounded to it; each gradient is rounded once at the end.
-    Returns ``dq, dk, dv`` ``(T, H·D)`` in q's dtype.
+    Queries ``q2``/``do2 (Tq, H·D)`` with ids ``seg_ids`` over keys and
+    values ``k2``/``v2 (Tk, H·D)`` with ids ``seg_k`` (``seg_ids`` and
+    Tk = Tq when None). Processes 1024 query rows at a time against the
+    union of their k spans (``qstart``/``qend`` are taken for the
+    kernel's signature and not needed: dk and dv of each chunk are added
+    into fp32 sums, and a key row that no query shares an id with keeps
+    dk = dv = 0). Per same-segment pair and head, as K4/K5
+    (``esme_tpu/ops/flash.py:496-508, 533-549``): ``p = exp(q·k·scale -
+    lse)``, ``dp = do·v``, ``ds = p·(dp - delta)·scale`` in fp32; dv sums
+    ``p·do`` with p rounded to the value dtype, dk and dq sum ``ds·q``
+    and ``ds·k`` with ds rounded to it; each gradient is rounded once at
+    the end. Returns ``dq (Tq, H·D)``, ``dk, dv (Tk, H·D)`` in q's dtype.
     """
     T, HD = q2.shape
+    Tk = k2.shape[0]
     H = num_heads
     D = HD // H
     scale = 1.0 / math.sqrt(D)
     dt = q2.dtype
-    q, k, v, do = (x.reshape(T, H, D) for x in (q2, k2, v2, do2))
-    dq = torch.empty_like(q2)
-    dk = torch.zeros((T, H, D), dtype=torch.float32, device=q2.device)
+    seg_k = seg_ids if seg_k is None else seg_k
+    q, do = (x.reshape(T, H, D) for x in (q2, do2))
+    k, v = (x.reshape(Tk, H, D) for x in (k2, v2))
+    dq = torch.zeros_like(q2)
+    dk = torch.zeros((Tk, H, D), dtype=torch.float32, device=q2.device)
     dv = torch.zeros_like(dk)
     ks, ke = kstart.tolist(), kend.tolist()
     per = max(1, 1024 // BLOCK_Q)
@@ -387,11 +402,13 @@ def segment_flash_bwd_plain(q2, k2, v2, do2, lse, delta, seg_ids, kstart,
         b1 = min(nqb, b0 + per)
         r0, r1 = b0 * BLOCK_Q, min(T, b1 * BLOCK_Q)
         k0 = min(ks[b0:b1]) * BLOCK_K
-        k1 = min(T, max(ke[b0:b1]) * BLOCK_K)
+        k1 = min(Tk, max(ke[b0:b1]) * BLOCK_K)
+        if k1 <= k0:
+            continue
         qf, dof = q[r0:r1].float(), do[r0:r1].float()
         kf, vf = k[k0:k1].float(), v[k0:k1].float()
         s = torch.einsum('thd,shd->hts', qf, kf) * scale
-        mask = seg_ids[r0:r1, None] == seg_ids[None, k0:k1]
+        mask = seg_ids[r0:r1, None] == seg_k[None, k0:k1]
         p = torch.where(mask[None], torch.exp(s - lse[:, r0:r1, None]), 0.0)
         dp = torch.einsum('thd,shd->hts', dof, vf)
         ds = p * (dp - delta[:, r0:r1, None]) * scale
@@ -401,12 +418,13 @@ def segment_flash_bwd_plain(q2, k2, v2, do2, lse, delta, seg_ids, kstart,
         dk[k0:k1] += torch.einsum('hts,thd->shd', ds, qf)
         dq[r0:r1] = torch.einsum('hts,shd->thd', ds, kf) \
             .reshape(r1 - r0, HD).to(dt)
-    return dq, dk.reshape(T, HD).to(dt), dv.reshape(T, HD).to(dt)
+    return dq, dk.reshape(Tk, HD).to(dt), dv.reshape(Tk, HD).to(dt)
 
 
 def segment_flash_bwd(q2, k2, v2, do2, lse, delta, seg_ids, kstart, kend,
-                      qstart, qend, num_heads: int):
-    """Segment-masked flash attention backward (kernel H2).
+                      qstart, qend, num_heads: int, seg_k=None):
+    """Segment-masked flash attention backward (kernel H2; with ``seg_k``,
+    kernel H10).
 
     Routed by a static rule on the head dim (:func:`bwd_route`): D = 32,
     64 and 128 launch the Hopper form, ``csrc/flash_bwd_sm90.cu`` (two
@@ -414,32 +432,47 @@ def segment_flash_bwd(q2, k2, v2, do2, lse, delta, seg_ids, kstart, kend,
     warp's ``mbarrier`` ring; the segment mask only on tiles that cross a
     segment); D = 16 and 24 launch the mma.sync form, ``csrc/flash_bwd.cu``
     (two ``mma.sync`` kernels). Both compute the same function and are
-    deterministic.
+    deterministic; ``launches`` counts either.
+
+    With ``seg_k`` the keys have ids of their own and may be a different
+    stream (context parallelism: the rank's queries over the gathered
+    keys): the same route launches H10, the rectangular kernels of the
+    same library, which replace the TPU kernel K-rect's backward
+    (``esme_tpu/ops/flash.py:1083 _flash_bwd_vjp`` → ``_bwd``);
+    ``rect_launches`` counts it. dk and dv then hold this rank's queries'
+    share of the keys' gradients (0 on key rows no query shares an id
+    with), which the caller sums over the ranks.
 
     Args:
-        q2, k2, v2: the forward's ``(T, H·D)`` inputs (q and k rotated).
-        do2: ``(T, H·D)`` gradient of the attention output.
-        lse: ``(H, T)`` fp32 from :func:`segment_flash_fwd`.
-        delta: ``(H, T)`` fp32 from :func:`attention_delta`.
-        seg_ids: ``(T,)`` int32.
-        kstart, kend, qstart, qend: :func:`flash_spans` for ``seg_ids``.
+        q2, k2, v2: the forward's ``(Tq, H·D)`` queries and ``(Tk, H·D)``
+            keys and values (q and k rotated); Tk = Tq without ``seg_k``.
+        do2: ``(Tq, H·D)`` gradient of the attention output.
+        lse: ``(H, Tq)`` fp32 from :func:`segment_flash_fwd`.
+        delta: ``(H, Tq)`` fp32 from :func:`attention_delta`.
+        seg_ids: ``(Tq,)`` int32, the queries' ids (and the keys' without
+            ``seg_k``).
+        kstart, kend, qstart, qend: :func:`flash_spans` for ``seg_ids``
+            (:func:`rect_flash_spans` with ``seg_k``).
         num_heads: H.
+        seg_k: ``(Tk,)`` int32, the keys' ids; None for self-attention.
     Returns:
-        ``dq, dk, dv`` ``(T, H·D)`` in q's dtype.
+        ``dq (Tq, H·D)``, ``dk, dv (Tk, H·D)`` in q's dtype.
     """
     if q2.device.type == 'cpu':
         return segment_flash_bwd_plain(q2, k2, v2, do2, lse, delta, seg_ids,
                                        kstart, kend, qstart, qend,
-                                       num_heads)
+                                       num_heads, seg_k)
     T, HD = q2.shape
+    Tk = T if seg_k is None else k2.shape[0]
     H = num_heads
     D = HD // H
     what = 'segment_flash_bwd'
-    _check_cuda_inputs(what, tuple((n, t, T) for n, t in (
-        ('q', q2), ('k', k2), ('v', v2), ('do', do2))), H, D)
-    nqb, nkb = -(-T // BLOCK_Q), -(-T // BLOCK_KV)
+    _check_cuda_inputs(what, (('q', q2, T), ('k', k2, Tk), ('v', v2, Tk),
+                              ('do', do2, T)), H, D)
+    nqb, nkb = -(-T // BLOCK_Q), -(-Tk // BLOCK_KV)
     _check_index_inputs(what, q2.device, (
         ('seg_ids', seg_ids, T, torch.int32),
+        *((('seg_k', seg_k, Tk, torch.int32),) if seg_k is not None else ()),
         ('lse', lse, (H, T), torch.float32),
         ('delta', delta, (H, T), torch.float32),
         ('kstart', kstart, nqb, torch.int32),
@@ -447,31 +480,47 @@ def segment_flash_bwd(q2, k2, v2, do2, lse, delta, seg_ids, kstart, kend,
         ('qstart', qstart, nkb, torch.int32),
         ('qend', qend, nkb, torch.int32)))
     dq, dk, dv = launch_bwd(bwd_route(D), q2, k2, v2, do2, lse, delta,
-                            seg_ids, kstart, kend, qstart, qend, H)
-    segment_flash_bwd.launches += 1
+                            seg_ids, kstart, kend, qstart, qend, H,
+                            seg_k=seg_k)
+    if seg_k is None:
+        segment_flash_bwd.launches += 1
+    else:
+        segment_flash_bwd.rect_launches += 1
     return dq, dk, dv
 
 
 segment_flash_bwd.launches = 0
+segment_flash_bwd.rect_launches = 0
 
 
 def launch_bwd(name, q2, k2, v2, do2, lse, delta, seg_ids, kstart, kend,
-               qstart, qend, num_heads: int, lib=None):
+               qstart, qend, num_heads: int, lib=None, seg_k=None):
     """H2's library ``name`` (a key of ``BWD_ROUTES``) launched through its
     C entry on :func:`segment_flash_bwd`'s arguments, as
-    :func:`launch_fwd` launches H1. Returns ``dq, dk, dv``."""
+    :func:`launch_fwd` launches H1; with ``seg_k`` the library's
+    rectangular entry (``BWD_RECT_ENTRIES``) launches H10. Returns ``dq,
+    dk, dv``."""
     from .. import _build
     T, HD = q2.shape
     D = HD // num_heads
     entry, error_string = BWD_ROUTES[name]
     lib = _build.library(name) if lib is None else lib
-    outs = [torch.empty_like(q2) for _ in range(3)]
-    rc = getattr(lib, entry)(
-        *(x.data_ptr() for x in (q2, k2, v2, do2, lse, delta, seg_ids,
+    stream = torch.cuda.current_stream(q2.device).cuda_stream
+    if seg_k is None:
+        outs = [torch.empty_like(q2) for _ in range(3)]
+        rc = getattr(lib, entry)(
+            *(x.data_ptr() for x in (q2, k2, v2, do2, lse, delta, seg_ids,
+                                     kstart, kend, qstart, qend, *outs)),
+            T, num_heads, D, 1.0 / math.sqrt(D), stream)
+        _build.check(rc, lib, error_string, f'segment_flash_bwd ({name})')
+        return tuple(outs)
+    outs = [torch.empty_like(q2), torch.empty_like(k2), torch.empty_like(k2)]
+    rc = getattr(lib, BWD_RECT_ENTRIES[name])(
+        *(x.data_ptr() for x in (q2, k2, v2, do2, lse, delta, seg_ids, seg_k,
                                  kstart, kend, qstart, qend, *outs)),
-        T, num_heads, D, 1.0 / math.sqrt(D),
-        torch.cuda.current_stream(q2.device).cuda_stream)
-    _build.check(rc, lib, error_string, f'segment_flash_bwd ({name})')
+        T, k2.shape[0], num_heads, D, 1.0 / math.sqrt(D), stream)
+    _build.check(rc, lib, error_string,
+                 f'segment_flash_bwd, rectangular ({name})')
     return tuple(outs)
 
 
@@ -588,16 +637,9 @@ def flash_tm(qT, kT, vT, seg_ids, block_q: int = BLOCK_Q,
 
 
 # ---------------------------------------------------------------------------
-# Rectangular attention (kernel H9): local queries over another key/value
-# stream with ids of its own (esme_tpu/ops/flash.py:1168-1210)
+# Rectangular attention (kernels H9 and H10): local queries over another
+# key/value stream with ids of their own (esme_tpu/ops/flash.py:1083-1210)
 # ---------------------------------------------------------------------------
-
-# K-rect's backward is not ported: it comes with context-parallel training
-RECT_BWD_UNPORTED = (
-    'the gradient of rectangular flash attention (K-rect\'s backward, H2 '
-    'with per-side ids) comes with context-parallel training, ROADMAP.md '
-    'Queue 1, item 25b')
-
 
 def rect_spans(seg_q: torch.Tensor, seg_k: torch.Tensor):
     """H9's spans, ``(kstart, kend)`` per ``BLOCK_Q`` block of the queries'
@@ -606,30 +648,52 @@ def rect_spans(seg_q: torch.Tensor, seg_k: torch.Tensor):
     return block_spans(seg_q, BLOCK_Q, BLOCK_K, seg_k)
 
 
+def rect_flash_spans(seg_q: torch.Tensor, seg_k: torch.Tensor):
+    """Every span H9 and H10 walk, as :func:`flash_spans` for two streams:
+    H9's and H10's dq pass's ``(kstart, kend)`` (:func:`rect_spans`) and
+    H10's dk/dv pass's ``(qstart, qend)`` per ``BLOCK_KV`` block of the
+    keys over ``BLOCK_QT`` tiles of the queries. A key block that no query
+    shares an id with gets an empty span."""
+    return (*rect_spans(seg_q, seg_k),
+            *transposed_spans(seg_q, BLOCK_QT, BLOCK_KV, seg_k))
+
+
 class _FlashRect(torch.autograd.Function):
-    """H9 as an autograd boundary whose backward raises: K-rect's
-    backward is still to port (``RECT_BWD_UNPORTED``)."""
+    """Rectangular segment-flash attention with its gradient: forward H9,
+    backward ``delta = rowsum(do·o)`` and H10. The ids and the spans get
+    no gradient; the kernels are looked up in this module at call time,
+    as in :class:`_FlashAttention`."""
 
     @staticmethod
     def forward(ctx, q2, k2, v2, seg_q, seg_k, num_heads, spans):
-        return segment_flash_fwd(q2, k2, v2, seg_q, spans[0], spans[1],
-                                 num_heads, seg_k=seg_k)[0]
+        o, lse = segment_flash_fwd(q2, k2, v2, seg_q, spans[0], spans[1],
+                                   num_heads, seg_k=seg_k)
+        ctx.save_for_backward(q2, k2, v2, o, lse, seg_q, seg_k, *spans)
+        ctx.num_heads = num_heads
+        return o
 
     @staticmethod
     def backward(ctx, do2):
-        raise NotImplementedError(RECT_BWD_UNPORTED)
+        q2, k2, v2, o, lse, seg_q, seg_k, *spans = ctx.saved_tensors
+        H = ctx.num_heads
+        do2 = do2.to(o.dtype).contiguous()
+        delta = attention_delta(o, do2, H)
+        dq, dk, dv = segment_flash_bwd(q2, k2, v2, do2, lse, delta, seg_q,
+                                       *spans, H, seg_k=seg_k)
+        return dq, dk, dv, None, None, None, None
 
 
 def segment_flash_rect(q2, k2, v2, seg_q, seg_k, num_heads: int,
                        spans=None):
     """Rectangular segment-flash attention over ``(Tq, H·D)`` queries and
     ``(Tk, H·D)`` keys/values as they are (RoPE, where the family has it,
-    already applied): H9 on a CUDA tensor, its plain version on a CPU
-    tensor. Query t attends key s iff ``seg_q[t] == seg_k[s]``. ``seg_q``,
-    ``seg_k``: int32; ``spans``: :func:`rect_spans` of them, computed here
-    when None. Where q, k or v needs a gradient, the call goes through an
-    autograd Function whose backward raises (``RECT_BWD_UNPORTED``)."""
-    spans = tuple(rect_spans(seg_q, seg_k) if spans is None else spans)
+    already applied): H9 forward and, where q, k or v needs a gradient,
+    H10 backward through :class:`_FlashRect` (their plain versions on a
+    CPU tensor). Query t attends key s iff ``seg_q[t] == seg_k[s]``.
+    ``seg_q``, ``seg_k``: int32; ``spans``: :func:`rect_flash_spans` of
+    them (the forward reads only the first two), computed here when
+    None."""
+    spans = tuple(rect_flash_spans(seg_q, seg_k) if spans is None else spans)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q2, k2, v2)):
         return _FlashRect.apply(q2, k2, v2, seg_q, seg_k, num_heads, spans)
@@ -641,18 +705,19 @@ def flash_rect_attention(q, k, v, seg_q, seg_k, *, block_q: int = BLOCK_Q,
                          block_k: int = BLOCK_K,
                          max_seqlen: int | None = None,
                          interpret: bool | None = None):
-    """Rectangular segment-flash attention, as ``esme_tpu``'s function of
-    the same name: local queries ``q (Tq, H, D)`` over a different (e.g.
-    all-gathered) stream ``k``/``v (Tk, H, D)``, with per-side segment
-    ids. Returns ``(Tq, H, D)``.
+    """Rectangular segment-flash attention with a gradient, as
+    ``esme_tpu``'s function of the same name: local queries ``q (Tq, H,
+    D)`` over a different (e.g. all-gathered) stream ``k``/``v (Tk, H,
+    D)``, with per-side segment ids. Returns ``(Tq, H, D)``; its gradient
+    is H10's (dk and dv over all Tk rows, 0 where no query shares the
+    key's id).
 
-    Any Tq and Tk: H9 takes a ragged last block on either side, so
+    Any Tq and Tk: H9 and H10 take a ragged last block on either side, so
     nothing is padded (JAX pads the queries with an id one past its fake
     key id, and the keys with the fake id, which match nothing real and
     leave the real rows as they are). ``block_q``/``block_k`` are checked
     as in :func:`flash_segment_attention`; ``max_seqlen`` and
-    ``interpret`` are accepted for call compatibility and unused. The
-    gradient raises ``NotImplementedError`` (``RECT_BWD_UNPORTED``).
+    ``interpret`` are accepted for call compatibility and unused.
     """
     check_tiles('flash_rect_attention', block_q, block_k)
     Tq, H, D = q.shape

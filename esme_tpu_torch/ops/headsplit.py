@@ -100,6 +100,37 @@ rotary_qk.launches = 0
 rotary_qk.inverse_launches = 0
 
 
+class _RotaryQK(torch.autograd.Function):
+    """:func:`rotary_qk` with its gradient: R on q and k forward, Rᵀ on
+    their gradients backward (H3 with ``inverse=True``; RoPE is
+    orthogonal). The tables get no gradient. H3 is looked up in this
+    module at call time, so a caller may swap in its plain version."""
+
+    @staticmethod
+    def forward(ctx, q2, k2, cos, sin, num_heads):
+        ctx.save_for_backward(cos, sin)
+        ctx.num_heads = num_heads
+        return rotary_qk(q2, k2, cos, sin, num_heads)
+
+    @staticmethod
+    def backward(ctx, dq, dk):
+        cos, sin = ctx.saved_tensors
+        dq2, dk2 = rotary_qk(dq.contiguous(), dk.contiguous(), cos, sin,
+                             ctx.num_heads, inverse=True)
+        return dq2, dk2, None, None, None
+
+
+def rotate_qk(q2, k2, cos, sin, num_heads: int):
+    """RoPE on q and k ``(T, H·D)`` (kernel H3), with a gradient where q
+    or k needs one (H3 with ``inverse=True`` in the backward): the
+    rotation of context-parallel attention, which rotates the rank's q and
+    k before the keys are gathered (``fused_rotary_flash`` rotates inside
+    its own Function)."""
+    if torch.is_grad_enabled() and (q2.requires_grad or k2.requires_grad):
+        return _RotaryQK.apply(q2, k2, cos, sin, num_heads)
+    return rotary_qk(q2, k2, cos, sin, num_heads)
+
+
 # ---------------------------------------------------------------------------
 # H4: relayout between (T, H·D), (H, T, D) and (H, D, T), optional RoPE
 # ---------------------------------------------------------------------------

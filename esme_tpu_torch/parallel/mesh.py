@@ -15,6 +15,7 @@ Axes:
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -84,3 +85,22 @@ def make_mesh(data: int = 1, fsdp: Optional[int] = None,
         shape, names = shape + (seq,), names + ('seq',)
     return DeviceMesh(device, torch.tensor(ranks).reshape(shape),
                       mesh_dim_names=names)
+
+
+def axes_group(mesh: DeviceMesh, axes: Sequence[str]):
+    """The process group of the ranks that share this rank's place on
+    every axis of ``mesh`` but ``axes`` (JAX's collective over a tuple of
+    mesh axes, ``psum(x, axes)``). Every rank of the process group must
+    call it, in the same order: each group is created collectively."""
+    names = mesh.mesh_dim_names
+    keep = [names.index(a) for a in axes]
+    other = [i for i in range(len(names)) if i not in keep]
+    ranks = mesh.mesh.permute(*other, *keep).reshape(
+        -1, math.prod(mesh.size(i) for i in keep)).tolist()
+    me = dist.get_rank()
+    mine = None
+    for row in ranks:
+        group = dist.new_group(row)
+        if me in row:
+            mine = group
+    return mine

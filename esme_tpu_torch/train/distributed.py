@@ -1,0 +1,311 @@
+"""Multi-process masked-LM training: data parallelism, FSDP and context
+parallelism over a named mesh.
+
+Counterpart of ``ShardedMaskedPLM`` and ``stack_batches`` in
+``esme_tpu/train/distributed.py:56-301``. The JAX class runs one
+``shard_map`` program over a ``(data, fsdp[, seq])`` mesh; the port runs
+one process per rank over a ``DeviceMesh`` with those axes
+(:func:`esme_tpu_torch.parallel.make_mesh`):
+
+* every rank receives the same R packed batches (R = the ``data`` axis
+  size), takes its data row and, with ``seq_axis``, its contiguous slice
+  of the row's tokens (attention gathers the keys over that axis: kernels
+  H9 and H10, :mod:`esme_tpu_torch.parallel.context`);
+* every rank holds its shards of the params and of the Adam/AdamW state
+  (:mod:`esme_tpu_torch.parallel.fsdp`); the forward gathers the
+  non-layer leaves once and each layer's leaves inside its checkpointed
+  step, and the gathers' backward reduce-scatters the gradients over
+  ``fsdp``;
+* the gradients are then summed over the loss axes (``data`` and
+  ``seq``), and a replicated leaf's over ``fsdp`` too, and the optimizer
+  updates each rank's shards in place.
+
+The gradient is the single-device gradient of the global masked mean
+(the loss of :class:`esme_tpu_torch.train.MaskedPLM` over the union of
+the R batches). The ranks of one data row along ``fsdp`` compute the same
+loss, so each counts it once: its local loss is divided by the ``fsdp``
+size before the backward. (The JAX class ``psum``s gradients of a loss
+it had already ``psum``'d and sums the ``fsdp`` copies in the gather's
+transpose, which scales its update; ROADMAP.md Queue 3, item 17.)
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+
+from ..models.esm import forward_flat, packed_meta
+from ..models.modules import check_remat
+from ..ops.flash import rect_flash_spans
+from ..ops.linear import fp32_accumulation
+from ..parallel.context import axis_size, make_kv_gather
+from ..parallel.fsdp import (_map, fsdp_partition_specs, gather_dim,
+                             make_layer_gather, make_outer_gather,
+                             shard_params)
+from ..parallel.mesh import axes_group
+from .trainer import _LATER, _grad_tree, _leaves, _tensor, train_views
+
+
+def stack_batches(batches):
+    """Stack R PackedBatches (one per data row) into leading-axis arrays
+    ``(masked_tokens, tokens, mask, cu_lens, max_len)``. All must share
+    their shapes."""
+    return (
+        np.stack([b.masked_tokens for b in batches]),
+        np.stack([b.tokens for b in batches]),
+        np.stack([b.mask for b in batches]),
+        np.stack([b.cu_lens for b in batches]),
+        max(int(b.max_len) for b in batches),
+    )
+
+
+def _all_reduce(tensors, group):
+    """Sum each tensor over ``group`` in place, one collective per dtype
+    (nothing to do on a group of one)."""
+    if dist.get_world_size(group) == 1:
+        return
+    for dtype in {t.dtype for t in tensors}:
+        ts = [t for t in tensors if t.dtype == dtype]
+        flat = _flatten_dense_tensors(ts)
+        dist.all_reduce(flat, group=group)
+        for t, r in zip(ts, _unflatten_dense_tensors(flat, ts)):
+            t.copy_(r)
+
+
+class ShardedMaskedPLM:
+    """Masked-LM trainer over a ``(data, fsdp)`` or ``(data, fsdp, seq)``
+    mesh (``esme_tpu/train/distributed.py:68``); every rank of the mesh's
+    process group constructs it and calls its steps.
+
+    Args:
+        model: an :class:`esme_tpu_torch.models.esm._ESMBase` instance,
+            the same weights on every rank.
+        mesh: a DeviceMesh with ``data`` and ``fsdp`` axes (and
+            ``seq_axis``).
+        learning_rate, weight_decay: Adam, or AdamW with decoupled decay
+            when non-zero (as :class:`MaskedPLM`).
+        attn_impl: the model's attention path ('auto'/'flash' run the
+            kernels on the card, their plain versions on the CPU;
+            'reference' the einsum).
+        grad_accum: micro-batches accumulated per update (the mean, as
+            ``optax.MultiSteps``).
+        lora_only, train_lmhead, trainable_mask, optimizer: raise unless
+            left at their defaults (later slices).
+        seq_axis: the mesh axis the packed token axis is split over
+            (context parallelism), or None.
+        remat: the checkpointing policy when ``model.checkpointing``, as
+            in :class:`MaskedPLM`.
+    """
+
+    def __init__(self, model, mesh, learning_rate: float = 1e-4,
+                 weight_decay: float = 0.0, attn_impl: str = 'auto',
+                 grad_accum: int = 1, lora_only=None,
+                 train_lmhead: bool = False, trainable_mask=None,
+                 optimizer=None, seq_axis=None, remat: str = 'full'):
+        for name, value, later in (
+                ('lora_only', lora_only, 'lora_only'),
+                ('train_lmhead', train_lmhead, 'lora_only'),
+                ('trainable_mask', trainable_mask, 'trainable_mask'),
+                ('optimizer', optimizer, 'optimizer')):
+            if value not in (None, False):
+                raise NotImplementedError(f'ShardedMaskedPLM({name}=...): '
+                                          f'{_LATER[later]}')
+        names = mesh.mesh_dim_names
+        if seq_axis is not None and seq_axis not in names:
+            raise ValueError(f'mesh has no axis {seq_axis!r}')
+        check_remat(remat, model.checkpointing)
+        if grad_accum < 1:
+            raise ValueError(f'grad_accum must be >= 1, got {grad_accum}')
+        self.model = model
+        self.mesh = mesh
+        self.attn_impl = attn_impl
+        self.remat = remat
+        self.grad_accum = int(grad_accum)
+        self.step = 0
+        self._seq_axis = seq_axis
+        self._fsdp_size = axis_size(mesh, 'fsdp')
+
+        self.specs = fsdp_partition_specs(model.params, mesh)
+        # this rank's shards, updated in place through per-layer views
+        self.params, _ = shard_params(model.params, mesh, self.specs)
+        self._views = train_views(self.params)
+        layers = self._views['layers']
+        view_specs = {k: [self.specs[k]] * len(layers) if k == 'layers'
+                      else self.specs[k] for k in self.specs}
+        pairs = [(t, d) for t, d in zip(_leaves(self._views),
+                                        _leaves(view_specs))
+                 if torch.is_tensor(t) and t.requires_grad]
+        self._sharded = [t for t, d in pairs if d is not None]
+        self._replicated = [t for t, d in pairs if d is None]
+        leaves = [t for t, _ in pairs]
+        if weight_decay:
+            self.optimizer = torch.optim.AdamW(leaves, lr=learning_rate,
+                                               weight_decay=weight_decay)
+        else:
+            self.optimizer = torch.optim.Adam(leaves, lr=learning_rate)
+
+        self._layer_gather = make_layer_gather(self.specs['layers'], mesh)
+        self._outer_gather = make_outer_gather(
+            {k: v for k, v in self.specs.items() if k != 'layers'}, mesh)
+        # the loss axes ('data' and seq_axis) and the whole mesh; every
+        # rank creates them in this order
+        loss_axes = ('data', seq_axis) if seq_axis else ('data',)
+        self._loss_group = axes_group(mesh, loss_axes)
+        self._mesh_group = axes_group(mesh, names)
+        self._fsdp_group = mesh.get_group('fsdp')
+
+    # -- the loss ---------------------------------------------------------
+
+    def _rows(self, batches):
+        """This rank's data row of the stacked batches, as tensors on the
+        model's device: masked tokens, targets, mask, cu_lens, max_len."""
+        if isinstance(batches, (list, tuple)) and hasattr(batches[0],
+                                                          'tokens'):
+            batches = stack_batches(batches)
+        masked, targets, mask, cu_lens, max_len = batches
+        rows = axis_size(self.mesh, 'data')
+        if len(masked) != rows:
+            raise ValueError(f'{len(masked)} batches for a data axis of '
+                             f'size {rows}')
+        d = self.mesh.get_local_rank('data')
+        dev = self.model.device
+        return (_tensor(masked[d], torch.int32, dev),
+                _tensor(targets[d], torch.int64, dev),
+                _tensor(mask[d], torch.float32, dev),
+                _tensor(cu_lens[d], torch.int32, dev), int(max_len))
+
+    def _local(self, params, batches):
+        """This rank's sum of the masked log-likelihoods and its count of
+        masked tokens (``esme_tpu/train/distributed.py:127-162``)."""
+        tok, tgt, w, cu, max_len = self._rows(batches)
+        T = tok.shape[0]
+        seg, pos = packed_meta(cu, T)
+        kv_gather = spans = None
+        if self._seq_axis:
+            # the global segment and position metadata from the row's
+            # cu_lens, sliced to this rank's window; attention gathers k/v
+            n = axis_size(self.mesh, self._seq_axis)
+            if T % n:
+                raise ValueError(f'token count {T} not divisible by '
+                                 f'{self._seq_axis} axis size {n}')
+            r = self.mesh.get_local_rank(self._seq_axis)
+            lo, hi = r * (T // n), (r + 1) * (T // n)
+            seg_all = seg.to(torch.int32).contiguous()
+            seg, pos = seg_all[lo:hi].contiguous(), pos[lo:hi]
+            tok, tgt, w = tok[lo:hi], tgt[lo:hi], w[lo:hi]
+            kv_gather = make_kv_gather(self.mesh.get_group(self._seq_axis))
+            if self.attn_impl != 'reference':
+                spans = rect_flash_spans(seg, seg_all)
+        logits = forward_flat(
+            params, self.model.config, tok, seg, pos, with_head=True,
+            attn_impl=self.attn_impl,
+            checkpointing=self.model.checkpointing, max_seqlen=max_len,
+            remat=self.remat, kv_gather=kv_gather, spans=spans,
+            layer_gather=self._layer_gather,
+            outer_gather=self._outer_gather)
+        ll = torch.log_softmax(logits.float(), dim=-1) \
+            .gather(-1, tgt[:, None])[:, 0]
+        return (ll * w).sum(), w.sum()
+
+    def _loss(self, params, batches):
+        """``(local, loss)``: the loss this rank differentiates (its share
+        of the global masked mean, counted once over ``fsdp``) and the
+        global masked mean."""
+        s, c = self._local(params, batches)
+        total = torch.stack([s.detach(), c])
+        _all_reduce([total], self._loss_group)
+        count = total[1].clamp_min(1.0)
+        return -(s / count) / self._fsdp_size, -(total[0] / count)
+
+    def _reduce_grads(self):
+        """Sum the gradients over the loss axes (a sharded leaf's are
+        already summed over ``fsdp`` by the gathers' backward) and a
+        replicated leaf's over the whole mesh."""
+        for group, leaves in ((self._loss_group, self._sharded),
+                              (self._mesh_group, self._replicated)):
+            for t in leaves:
+                if t.grad is None:
+                    t.grad = torch.zeros_like(t)
+            _all_reduce([t.grad for t in leaves], group)
+
+    # -- public steps -------------------------------------------------------
+
+    def _grad_step(self, batches):
+        """Loss and full gradients of one step, without an update: returns
+        ``(loss, grads)`` with ``grads`` in the layout of ``model.params``
+        (the same on every rank). Drops any gradient still being
+        accumulated."""
+        self.optimizer.zero_grad(set_to_none=True)
+        with fp32_accumulation():
+            local, loss = self._loss(self._views, batches)
+            local.backward()
+            self._reduce_grads()
+        grads = _map(lambda g, d: g if d is None
+                     else gather_dim(g, d, self._fsdp_group),
+                     _grad_tree(self._views), self.specs)
+        self.optimizer.zero_grad(set_to_none=True)
+        return loss, grads
+
+    def training_step(self, batches) -> float:
+        """One (micro-)step; returns the global loss. ``batches``: a list
+        of R PackedBatches (R = the ``data`` axis size), the same on every
+        rank, or a tuple from :func:`stack_batches`."""
+        with fp32_accumulation():
+            local, loss = self._loss(self._views, batches)
+            local.backward()
+            self.step += 1
+            if self.step % self.grad_accum == 0:
+                self._reduce_grads()
+                if self.grad_accum > 1:
+                    for t in self._sharded + self._replicated:
+                        t.grad.div_(self.grad_accum)
+                self.optimizer.step()
+                self.optimizer.zero_grad(set_to_none=True)
+        return float(loss)
+
+    @torch.no_grad()
+    def validation_step(self, batches) -> float:
+        """Global loss without updates (reference: esme/trainer.py:37-41)."""
+        with fp32_accumulation():
+            return float(self._loss(self.params, batches)[1])
+
+    def fit(self, dataset, epochs: int = 1, val_dataset=None,
+            log_every: int = 0, set_epoch=None, logger=None):
+        """Epoch loop over an iterable of replica-batch lists, as
+        :meth:`MaskedPLM.fit` (``logger`` receives ``train_loss`` and
+        ``val_loss``; without one, those lines are printed). Returns the
+        per-step losses."""
+        history = []
+        for epoch in range(epochs):
+            if set_epoch is not None:
+                set_epoch(epoch)
+            for i, batches in enumerate(dataset):
+                loss = self.training_step(batches)
+                history.append(loss)
+                if log_every and i % log_every == 0:
+                    if logger is not None:
+                        logger.log({'epoch': epoch, 'train_loss': loss},
+                                   step=self.step)
+                    else:
+                        print(f'epoch {epoch} step {i}: loss {loss:.4f}')
+            if val_dataset is not None:
+                vloss = float(np.mean(
+                    [self.validation_step(b) for b in val_dataset]))
+                if logger is not None:
+                    logger.log({'epoch': epoch, 'val_loss': vloss},
+                               step=self.step)
+                    logger.track_best({'val_loss': vloss})
+                else:
+                    print(f'epoch {epoch}: val_loss {vloss:.4f}')
+        return history
+
+    def unsharded_params(self) -> dict:
+        """The full params, gathered from every rank's shards, on the host
+        (for ``save_pretrained``): copies, which later steps leave as they
+        are."""
+        with torch.no_grad():
+            return _map(lambda x, d: (x if d is None else gather_dim(
+                x, d, self._fsdp_group)).to('cpu', copy=True), self.params,
+                self.specs)

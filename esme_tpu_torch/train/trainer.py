@@ -37,8 +37,8 @@ from ..ops.linear import fp32_accumulation
 _LATER = {
     'lora_only': 'LoRA adapters come with the fine-tuning slice',
     'trainable_mask': 'trainable masks come with the fine-tuning slice',
-    'offload_optimizer': 'the host-offloaded optimizer comes with the '
-                         'multi-GPU slice',
+    'offload_optimizer': 'the host-offloaded optimizer comes with '
+                         'ROADMAP.md Queue 1, item 17',
     'optimizer': 'optax optimizers have no counterpart; adam8bit comes '
                  'with the memory slice',
 }

@@ -212,18 +212,6 @@ def test_attention_rect_matches_jax(rect):
                                rtol=RTOL)
 
 
-def test_flash_rect_backward_is_refused():
-    """K-rect's backward is still to port: the op's gradient raises,
-    naming its ROADMAP item."""
-    T, H, D = 200, 2, 16
-    seg = torch.from_numpy(_packed_ids(T, 30, 90, seed=1))
-    q, k, v = (torch.from_numpy(x).requires_grad_()
-               for x in _qkv(T, T, H, D, seed=2))
-    o = tflash.flash_rect_attention(q[100:], k, v, seg[100:], seg)
-    with pytest.raises(NotImplementedError, match='Queue 1, item 25b'):
-        o.sum().backward()
-
-
 # -------------------------------------------------------------------------
 # the slice: ranks of forward_flat_cp / context_parallel_log_prob
 # -------------------------------------------------------------------------

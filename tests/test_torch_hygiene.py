@@ -218,10 +218,19 @@ def test_bwd_route_is_a_static_rule_on_head_dim():
         assert set(fns) <= set(_build.SIGNATURES[name])
     assert set(_build.SIGNATURES['flash_bwd_sm90']) == {
         'esme_segment_flash_bwd_sm90', 'esme_flash_bwd_sm90_pass',
+        'esme_segment_flash_bwd_rect_sm90', 'esme_flash_bwd_rect_sm90_pass',
         'esme_flash_bwd_sm90_error_string'}
-    src = (_build.CSRC / 'flash_bwd_sm90.cu').read_text()
-    for fn in _build.SIGNATURES['flash_bwd_sm90']:
-        assert re.search(rf'^\S.* {fn}\(', src, re.M), fn
+    # H10's entry of each of H2's libraries is bound, with one C signature
+    # across the two forms (per-side ids and lengths)
+    for name, entry in tflash.BWD_RECT_ENTRIES.items():
+        assert entry in _build.SIGNATURES[name]
+    assert _build.SIGNATURES['flash_bwd_sm90'][
+        'esme_segment_flash_bwd_rect_sm90'] == \
+        _build.SIGNATURES['flash_bwd']['esme_segment_flash_bwd_rect']
+    for name in ('flash_bwd_sm90', 'flash_bwd'):
+        src = (_build.CSRC / f'{name}.cu').read_text()
+        for fn in _build.SIGNATURES[name]:
+            assert re.search(rf'^\S.* {fn}\(', src, re.M), fn
 
 
 def test_fwd_route_is_a_static_rule_on_head_dim():

@@ -54,6 +54,14 @@ Gates:
   ``BLOCK_Q`` (each q block walks the same span in the same order), and
   from call to call; a q block whose ids match no key writes o = 0 and
   lse = ``EMPTY_LSE``, as the plain version does.
+* H10 (the rectangular backward, ``seg_k``): under H2's gate against its
+  plain version on every rank of a packed batch split over 2 and 4 ranks
+  and on a ragged split, on both of H2's routes, and bit-equal from call
+  to call; dq bit-equal to H2's rows where the rank's first row is a
+  multiple of ``BLOCK_Q``, and dk, dv summed over the ranks under H2's
+  gate against H2's on the whole batch (each rank rounds its share to
+  bf16); key rows no query shares an id with get dk = dv = 0, and a q
+  block whose ids match no key dq = 0.
 """
 
 import numpy as np
@@ -187,6 +195,106 @@ def test_flash_rect_kernel_empty_span(cuda, D):
     assert torch.equal(lse[:, :flash.BLOCK_Q], lse_p[:, :flash.BLOCK_Q])
     gate = O_REL * o_p.float().abs().clamp_min(O_FLOOR)
     assert ((o.float() - o_p.float()).abs() <= gate).all()
+
+
+def _rect_bwd_check(q, k, v, do, seg, lo, hi, H):
+    """H10 on rows [lo, hi) of q and do over all of k, v (lse from H9):
+    against its plain version under H2's gate, bit-equal from call to
+    call; the key rows no query shares an id with get dk = dv = 0;
+    returns dq, dk, dv."""
+    sq = seg[lo:hi].contiguous()
+    spans = flash.rect_flash_spans(sq, seg)
+    qr, dor = q[lo:hi].contiguous(), do[lo:hi].contiguous()
+    o, lse = flash.segment_flash_fwd(qr, k, v, sq, *spans[:2], H, seg_k=seg)
+    delta = flash.attention_delta(o, dor, H)
+    args = (qr, k, v, dor, lse, delta, sq, *spans, H)
+    before = flash.segment_flash_bwd.rect_launches
+    h2 = flash.segment_flash_bwd.launches
+    got = flash.segment_flash_bwd(*args, seg_k=seg)
+    again = flash.segment_flash_bwd(*args, seg_k=seg)
+    ref = flash.segment_flash_bwd_plain(*args, seg_k=seg)
+    torch.cuda.synchronize()
+    assert flash.segment_flash_bwd.rect_launches == before + 2
+    assert flash.segment_flash_bwd.launches == h2
+    untouched = ~torch.isin(seg, sq)
+    for a, b, c, rows in zip(got, ref, again, (hi - lo, *k.shape[:1] * 2)):
+        assert a.dtype == torch.bfloat16 and a.shape == (rows, q.shape[1])
+        assert torch.equal(a, c) and torch.isfinite(a.float()).all()
+        b = b.float()
+        gate = G_REL * b.abs().clamp_min(b.square().mean().sqrt())
+        assert ((a.float() - b).abs() <= gate).all()
+    for a in got[1:]:
+        assert not a[untouched].any()
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('D', [16, 24, 32, 64, 128])
+def test_flash_rect_bwd_kernel_matches_plain(cuda, D):
+    """H10 (``segment_flash_bwd(..., seg_k=)``) on every rank of n = 2 and
+    4 of a packed 4,096-token batch and on a ragged split (Tq = 1,001 from
+    row 700), against its plain version; dq bit-equal to H2's rows where
+    the rank starts on a q block, and dk, dv summed over the ranks under
+    H2's gate against H2's; H2's counter does not move."""
+    H, T = 4, 4096
+    q, k, v, seg = _packed([30, 7, 250, 900, 2, 400, 1000, 700, 333], T, H,
+                           D, cuda, seed=D)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(D + 2)
+    do = torch.randn(q.shape, generator=gen, device=cuda).to(torch.bfloat16)
+    spans = flash.flash_spans(seg)
+    o, lse = flash.segment_flash_fwd(q, k, v, seg, *spans[:2], H)
+    sq = flash.segment_flash_bwd(q, k, v, do, lse,
+                                 flash.attention_delta(o, do, H), seg,
+                                 *spans, H)
+    for n in (2, 4):
+        dk = torch.zeros_like(k, dtype=torch.float32)
+        dv = torch.zeros_like(dk)
+        for r in range(n):
+            lo, hi = r * T // n, (r + 1) * T // n
+            dq_r, dk_r, dv_r = _rect_bwd_check(q, k, v, do, seg, lo, hi, H)
+            assert torch.equal(dq_r, sq[0][lo:hi])
+            dk += dk_r.float()
+            dv += dv_r.float()
+        for a, b in ((dk, sq[1]), (dv, sq[2])):
+            b = b.float()
+            gate = G_REL * b.abs().clamp_min(b.square().mean().sqrt())
+            assert ((a - b).abs() <= gate).all()
+    _rect_bwd_check(q, k, v, do, seg, 700, 1701, H)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('D', [16, 64])
+def test_flash_rect_bwd_kernel_empty_span(cuda, D):
+    """A q block whose ids match no key (an empty span) gets dq = 0 from
+    H10, as from its plain version, and the key blocks no query shares an
+    id with (empty dk/dv spans) get dk = dv = 0; the rest under H2's
+    gate."""
+    H = 2
+    q, k, v, seg = _packed([300, 500, 224], 1024, H, D, cuda, seed=1)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3)
+    do = torch.randn(q.shape, generator=gen, device=cuda).to(torch.bfloat16)
+    sq = seg[:512].clone()
+    sq[:flash.BLOCK_Q] += 10 ** 6
+    ks, ke, qs, qe = flash.rect_flash_spans(sq, seg)
+    assert ke[0] <= ks[0] and bool((qe <= qs).any())
+    o, lse = flash.segment_flash_fwd(q[:512].contiguous(), k, v, sq, ks, ke,
+                                     H, seg_k=seg)
+    dor = do[:512].contiguous()
+    args = (q[:512].contiguous(), k, v, dor, lse,
+            flash.attention_delta(o, dor, H), sq, ks, ke, qs, qe, H)
+    got = flash.segment_flash_bwd(*args, seg_k=seg)
+    ref = flash.segment_flash_bwd_plain(*args, seg_k=seg)
+    torch.cuda.synchronize()
+    assert not got[0][:flash.BLOCK_Q].any()
+    empty = (qe <= qs).repeat_interleave(flash.BLOCK_KV)[:k.shape[0]]
+    for a, b in zip(got, ref):
+        b = b.float()
+        gate = G_REL * b.abs().clamp_min(b.square().mean().sqrt())
+        assert ((a.float() - b).abs() <= gate).all()
+    for a in got[1:]:
+        assert not a[empty].any()
 
 
 def _fwd_args(seg, H, D, dev, seed):
