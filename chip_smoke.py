@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port ``esme_tpu_torch`` on one CUDA card.
 
-    python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py [--profile DIR] [--sizes NAME,...]
 
-Phases, in order; any failure exits non-zero before a result is printed:
+Phases, in order; any failure exits non-zero before a result is printed.
+With ``--sizes`` (names of ``SIZE_RUNS``, e.g. ``esm2_8m,esm2_35m``) only
+phases 1, 2 and 12 run, on those sizes and their head dims, and the last
+line is phase 12's JSON:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every kernel from ``esme_tpu_torch/csrc`` with ``nvcc`` (timed);
@@ -12,7 +15,8 @@ Phases, in order; any failure exits non-zero before a result is printed:
    gave them before the ablation modes, H1's and H2's Hopper production
    kernels (``flash_fwd_sm90.cu``, ``flash_bwd_sm90.cu`` at D = 32, 64,
    128) the ones they had before the token-minor layout and the Hopper
-   ablation modes (``SM90_PRODUCTION``), H5's Hopper form at D = 64 and
+   ablation modes (``SM90_PRODUCTION``), and at D = 16, 24 (32-column
+   tiles) no stack frame and no spills, H5's Hopper form at D = 64 and
    every H6 mode of H1's Hopper form no stack frame and no spills (but
    ``noqk``'s pinned ``H6_SPILLS``; no ``wgmma`` serialisation warning
    names an H6 mode), every H7 mode of
@@ -20,19 +24,20 @@ Phases, in order; any failure exits non-zero before a result is printed:
    and any ``wgmma`` serialisation warning is logged), and H8's Hopper
    kernels (``probes_sm90.cu``: dma alone and in pairs, dma_t) must have
    no stack frame and no spills; H9's instantiations (the rectangular
-   forward, ``flash_fwd_rect_sm90_kernel`` at D = 32, 64, 128 and
+   forward, ``flash_fwd_rect_sm90_kernel`` at D = 16-128 and
    ``flash_fwd_rect_kernel`` at every padded width) logged, with no more
    stack and spills than H1's production kernel of the same form and width
    (none); H10's (the rectangular backward: ``bwd_dkv_rect_sm90_kernel``
-   and ``bwd_dq_rect_sm90_kernel`` at D = 32, 64, 128, ``flash_bwd_dkv_rect_kernel`` and
+   and ``bwd_dq_rect_sm90_kernel`` at D = 16-128, ``flash_bwd_dkv_rect_kernel`` and
    ``flash_bwd_dq_rect_kernel`` at every padded width) logged, with no
    more stack and spills than H2's production pass of the same form and
    width (its Hopper dk/dv pass spills at D = 128);
 3. hold each kernel against its plain PyTorch version on the card, on a
    packed 8k-token batch: segment-flash forward (H1) and backward (H2),
-   each on its route (the Hopper form at D = 32, 64, 128, the mma.sync
-   form at 16, 24), at head dims 16, 24, 32, 64 and 128, H1 bit-equal
-   across two calls; both also on 8k tokens of one segment (every tile
+   each on its route (``fwd_route``, ``bwd_route``: the Hopper form at
+   every head dim) and at 16 and 24 on the other form too, at head dims
+   16, 24, 32, 64 and 128, each bit-equal across two calls; both also on
+   8k tokens of one segment (every tile
    unmasked), of 1-70-token segments and of interleaved ids (every tile
    masked), H1 also at a ragged T (T % 64 != 0); RoPE (H3) forward and
    inverse,
@@ -205,7 +210,23 @@ Phases, in order; any failure exits non-zero before a result is printed:
    all 50,000 keys, on both forms), and its times there beside the bound
    of the rank's same-segment pairs and zero rows, the plain version, its
    mma.sync form, each pass of its Hopper form alone, PyTorch's varlen backward per rank (a
-   yardstick only) and H2 on the whole batch.
+   yardstick only) and H2 on the whole batch;
+12. every ESM2 size beside 650M (``SIZE_RUNS``: 8M, 35M, 150M, 3B, 15B at
+   full width and depth, bf16, seed-0 weights, each freed before the
+   next): phase 4's inference cell on the main batch (launches exact, the
+   4k comparisons, the median of 5 timed forwards, real tokens/s, peak
+   memory; init time and peak logged), phase 5's ``nockpt@10k`` cell
+   for 8M, 35M, 150M and 3B (10 timed steps for 3B, ``SIZE_TRAIN_REPS``)
+   and ``ckpt@50k`` for 8M and 35M, with
+   every leaf's gradient checked, under phases 4's and 5's gates; then H1
+   and H2 at each head dim of those sizes (``SIZE_HEAD_DIMS``: 16, 24 and
+   32 at 20 heads, 128 at 40) on the 50k inference and train batches:
+   each held against its plain version on its route and on the other
+   form, then timed on its route and on both forms through their C
+   entries (H2's Hopper passes alone too) beside its plain version, the
+   varlen library call (its ratio logged, not gated) and the bound with
+   the exps at the SFU rate as a third term; at 16 and 24, where the
+   route is the Hopper form, that form must beat the mma.sync form.
 
 The last three lines are the kernels' JSON, the measurements' JSON and
 ``{"ok": true, "device": {...}}``.
@@ -232,6 +253,9 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 FP32_FLOP_PER_S = 67e12
+# The SFU's exponentials, 16 per SM per clock (Shah et al.,
+# FlashAttention-3, 2024, section 3.1; esme_tpu_torch/tools' figure)
+SFU_EXP_PER_S = 3.9e12
 
 # Gates of phase 3, kernel vs plain version on the same bf16 inputs.
 # o: each output is rounded to bf16, and the kernel rounds p to bf16
@@ -565,23 +589,34 @@ def check_flash_bwd(cu, budget, H, D, dev, seed=0, what=''):
                           what)
 
 
-def check_bwd_args(inputs, H, D, what=''):
-    """H2 vs its plain version on ``bwd_inputs``-shaped inputs."""
+def check_bwd_args(inputs, H, D, what='', library=None):
+    """H2 (on its route, or through ``library``'s C entry) vs its plain
+    version on ``bwd_inputs``-shaped inputs."""
     from esme_tpu_torch.ops import flash
     q, k, v, do, lse, delta, seg, spans = inputs
-    got = flash.segment_flash_bwd(q, k, v, do, lse, delta, seg, *spans, H)
+    def run():
+        if library is None:
+            return flash.segment_flash_bwd(q, k, v, do, lse, delta, seg,
+                                           *spans, H)
+        return flash.launch_bwd(library, q, k, v, do, lse, delta, seg,
+                                *spans, H)
+    got = run()
+    same = all(map(torch.equal, got, run()))
     ref = flash.segment_flash_bwd_plain(q, k, v, do, lse, delta, seg, *spans,
                                         H)
     torch.cuda.synchronize()
     errs, shares, finite = grad_errors(got, ref)
-    ok = max(shares) <= 1.0 and finite
-    log(f'H2{what} T={q.shape[0]} H={H} D={D} ({flash.bwd_route(D)}): '
+    ok = max(shares) <= 1.0 and finite and same
+    log(f'H2{what} T={q.shape[0]} H={H} D={D} '
+        f'({library or flash.bwd_route(D)}): '
         f'max|g-plain| dq/dk/dv '
         f'{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}, largest share of the '
         f'gate (2^-4*max(|g|, rms g)) {shares[0]:.3f}/{shares[1]:.3f}/'
-        f'{shares[2]:.3f}, finite {finite} {"ok" if ok else "FAIL"}')
+        f'{shares[2]:.3f}, finite {finite}, bit-equal across two calls '
+        f'{same} {"ok" if ok else "FAIL"}')
     if not ok:
-        fail(f'H2 disagrees with its plain version at T={q.shape[0]} D={D}')
+        fail(f'H2 ({library or flash.bwd_route(D)}) disagrees with its plain '
+             f'version (or itself) at T={q.shape[0]} D={D}{what}')
     return max(errs), max(shares)
 
 
@@ -1186,17 +1221,18 @@ def check_rect(cu, dev):
 
 def check_rect_ptxas():
     """H9's instantiations as built: each one's ``ptxas`` line logged; the
-    Hopper form's at D = 32, 64, 128 and the mma.sync form's at every
+    Hopper form's at every head dim and the mma.sync form's at every
     padded width with no more stack and spills than H1's production
     kernel of the same form and width (``SM90_PRODUCTION``,
-    ``MODE0_REGISTERS``: none); fail otherwise. Returns the usage."""
+    ``MODE0_REGISTERS``: none; none at D = 16, 24); fail otherwise.
+    Returns the usage."""
     from esme_tpu_torch import _build
     sm90 = sm90_ptxas_usage(_build.build_log('flash_fwd_sm90'),
                             'flash_fwd_rect')
     mma = ptxas_usage(_build.build_log('flash_fwd'))
     h1 = SM90_PRODUCTION[('flash_fwd_sm90', 'flash_fwd_sm90_kernel')]
     rows = [('flash_fwd_sm90', d, sm90.get(('flash_fwd_rect_sm90_kernel', d)),
-             h1[d]) for d in (32, 64, 128)]
+             h1.get(d, (0, 0, 0, 0))) for d in (16, 24, 32, 64, 128)]
     rows += [('flash_fwd', d, mma.get(('flash_fwd_rect_kernel', d)),
               (0, 0, 0, 0)) for d in (16, 32, 64, 128)]
     for lib, d, got, want in rows:
@@ -1610,10 +1646,11 @@ def check_rect_bwd(cu, dev):
 
 def check_rect_bwd_ptxas():
     """H10's instantiations as built: each one's ``ptxas`` line logged; the
-    Hopper form's at D = 32, 64, 128 and the mma.sync form's at every padded width with no more
-    stack and spills than H2's production pass of the same form and width
-    (``SM90_PRODUCTION``: H2's dk/dv pass spills at D = 128;
-    ``MODE0_REGISTERS``: none); fail otherwise. Returns the usage."""
+    Hopper form's at every head dim and the mma.sync form's at every padded
+    width with no more stack and spills than H2's production pass of the
+    same form and width (``SM90_PRODUCTION``: H2's dk/dv pass spills at
+    D = 128; ``MODE0_REGISTERS``: none; none at D = 16, 24); fail
+    otherwise. Returns the usage."""
     from esme_tpu_torch import _build
     sm90 = sm90_ptxas_usage(_build.build_log('flash_bwd_sm90'),
                             r'bwd_(?:dkv|dq)_rect')
@@ -1622,13 +1659,13 @@ def check_rect_bwd_ptxas():
     for p in ('dkv', 'dq'):
         kernel = f'bwd_{p}_rect_sm90_kernel'
         h2 = SM90_PRODUCTION[('flash_bwd_sm90', f'bwd_{p}_sm90_kernel')]
-        for d in (32, 64, 128):
+        for d in (16, 24, 32, 64, 128):
             keys = sorted(key for key in sm90 if key[:2] == (kernel, d))
             if len(keys) != 1:
                 fail(f'ptxas: H10\'s {kernel} at D={d}: {len(keys)} '
                      f'instantiations built, not 1')
-            rows += [('flash_bwd_sm90', key, sm90[key], h2[d])
-                     for key in keys]
+            rows += [('flash_bwd_sm90', key, sm90[key],
+                      h2.get(d, (0, 0, 0, 0))) for key in keys]
     for kernel in ('flash_bwd_dkv_rect_kernel', 'flash_bwd_dq_rect_kernel'):
         rows += [('flash_bwd', (kernel, d), mma.get((kernel, d)),
                   (0, 0, 0, 0)) for d in (16, 32, 64, 128)]
@@ -1987,14 +2024,30 @@ def check_cp_train(dev, phase5, profile_dir=None):
     return cell
 
 
+def parse_args(argv):
+    """``[--profile DIR] [--sizes NAME,...]``: returns ``(profile_dir,
+    runs)``, ``runs`` the entries of ``SIZE_RUNS`` named (None without
+    ``--sizes``: every phase)."""
+    usage = ('usage: python3 chip_smoke.py [--profile DIR] '
+             f'[--sizes NAME,...] (NAME in {[n for n, _ in SIZE_RUNS]}); '
+             f'got {argv}')
+    opts = dict(zip(argv[::2], argv[1::2]))
+    if len(argv) % 2 or len(opts) != len(argv) // 2 \
+            or set(opts) - {'--profile', '--sizes'}:
+        fail(usage)
+    runs = None
+    if '--sizes' in opts:
+        names = opts['--sizes'].split(',')
+        runs = tuple(r for r in SIZE_RUNS if r[0] in names)
+        if len(runs) != len(set(names)):
+            fail(usage)
+    return opts.get('--profile'), runs
+
+
 def main(argv):
     if not torch.cuda.is_available():
         fail('no CUDA device: this script runs the port on the card')
-    profile_dir = None
-    if argv[:1] == ['--profile'] and len(argv) == 2:
-        profile_dir = argv[1]
-    elif argv:
-        fail(f'usage: python3 chip_smoke.py [--profile DIR]; got {argv}')
+    profile_dir, size_runs = parse_args(argv)
     try:
         from esme_tpu_torch import _build
         from esme_tpu_torch.ops import flash, headsplit
@@ -2030,6 +2083,19 @@ def main(argv):
     h8_ptxas = check_probes_sm90_ptxas()
     rect_ptxas = check_rect_ptxas()
     rect_bwd_ptxas = check_rect_bwd_ptxas()
+    if size_runs is not None:      # phase 12 alone, on the sizes named
+        from esme_tpu_torch.models.config import ESM2_SIZES
+        dims = {(c['embed_dim'] // c['attention_heads'],
+                 c['attention_heads'])
+                for c in (ESM2_SIZES[n] for n, _ in size_runs)}
+        sizes, rows = check_sizes(
+            dev, MaskedPLM, packed_batch(BUDGET, seed=0), size_runs,
+            tuple(dh for dh in SIZE_HEAD_DIMS if dh in dims), profile_dir)
+        print(json.dumps({'card': card, 'sizes': sizes,
+                          'head_dims': rows,
+                          'wall_s': time.perf_counter() - t_start}),
+              flush=True)
+        return
 
     # 3. kernels vs plain versions
     H = MODEL['attention_heads']
@@ -2040,6 +2106,18 @@ def main(argv):
         check_flash(cu8k, CHECK_BUDGET, h, d, dev, seed=d)
         h2_check_share = max(h2_check_share, check_flash_bwd(
             cu8k, CHECK_BUDGET, h, d, dev, seed=d)[1])
+        if d in PADDED_HEAD_DIMS:      # the other form of each, there too
+            q, k, v, seg, _, spans = flash_inputs(cu8k, CHECK_BUDGET, h, d,
+                                                  dev, d)
+            for lib in flash.FWD_ROUTES:
+                if lib != flash.fwd_route(d):
+                    check_flash_args((q, k, v, seg, *spans[:2], h),
+                                     library=lib)
+            inputs = bwd_inputs(cu8k, CHECK_BUDGET, h, d, dev, d)
+            for lib in flash.BWD_ROUTES:
+                if lib != flash.bwd_route(d):
+                    check_bwd_args(inputs, h, d, library=lib)
+            del q, k, v, inputs
     for layout in BWD_LAYOUTS:        # masked and unmasked tiles
         seg = layout_seg(layout, CHECK_BUDGET, dev, seed=5)
         for d in flash.HEAD_DIMS:
@@ -2205,6 +2283,19 @@ def main(argv):
                check_batch_max_abs_err=rect_bwd_err,
                check_batch_gate_share=rect_bwd_share, ptxas=rect_bwd_ptxas)
 
+    # 12. every ESM2 size, then H1's and H2's times at their head dims
+    sizes, head_dim_rows = check_sizes(dev, MaskedPLM, (tokens, cu, max_len),
+                                       profile_dir=profile_dir)
+    for kernel, row in head_dim_rows.items():
+        for d, r in row.items():
+            size = next(n for n, s in sizes.items()
+                        if str(s['head_dim']) == d)
+            r['size'] = size
+            r['launches'] = sizes[size]['launches'][kernel] \
+                if kernel == H1_NAME else {
+                    key: c['launches'][kernel]
+                    for key, c in sizes[size]['train'].items()}
+
     train_launches = {key: c['launches'] for key, c in cells.items()}
     kernels = [
         {'name': H1_NAME, 'route': 'cuda',
@@ -2224,6 +2315,7 @@ def main(argv):
          'plain_ms': h1_plain_ms, 'bound_ms': h1_bound, 'bound_by': h1_by,
          'library_ms': h1_lib_ms, 'library_varlen_ms': h1_varlen_ms,
          'mma_sync_form_ms': h1_mma_sync_ms, 'mask_skip_ms': h1_mask_skip,
+         'head_dims': head_dim_rows[H1_NAME],
          'ptxas': sm90_usage['flash_fwd_sm90'],
          'shape': f'T={T} H={H} D={D} bf16',
          'bytes': h1_bytes, 'flops': h1_flops},
@@ -2245,7 +2337,8 @@ def main(argv):
          'ms': h2_ms, 'plain_ms': h2_plain_ms, 'bound_ms': h2_bound,
          'bound_by': h2_by, 'library_ms': h2_lib_ms,
          'passes_ms': h2_passes, 'mma_sync_form_ms': mma_sync_ms,
-         'mask_skip_ms': mask_skip, 'ptxas': sm90_usage['flash_bwd_sm90'],
+         'mask_skip_ms': mask_skip, 'head_dims': head_dim_rows[H2_NAME],
+         'ptxas': sm90_usage['flash_bwd_sm90'],
          'shape': f'T={TT} H={H} D={D} bf16 (train batch)',
          'bytes': h2_bytes, 'flops': h2_flops},
         {'name': H3_NAME, 'route': 'cuda',
@@ -2304,6 +2397,7 @@ def main(argv):
         'fit_losses': fit_losses, 'families': families,
         'context_parallel': cp,
         'context_parallel_training': cp_train,
+        'sizes': sizes,
         'build_s': build_s,
         'model_checks': model_checks, 'torch': torch.__version__,
         'cuda': torch.version.cuda,
@@ -3044,8 +3138,9 @@ def production_key(kernel: str, d: int):
 
 def check_sm90_ptxas():
     """H1's and H2's Hopper libraries as built: each production
-    instantiation with the parent's registers, stack and spills
-    (``SM90_PRODUCTION``), H5's (H1's kernel, token-minor layout) at
+    instantiation at D = 32, 64, 128 with the parent's registers, stack
+    and spills (``SM90_PRODUCTION``), at 16 and 24 without stack or
+    spills, H5's (H1's kernel, token-minor layout) at
     D = 64 without stack or spills, every H6 mode (H1's kernel at D = 64)
     built without a ``wgmma`` serialisation warning (C7510-C7520) naming
     it and without stack or spills but for ``H6_SPILLS``, and every H7
@@ -3075,6 +3170,14 @@ def check_sm90_ptxas():
                          f'{got}, not {usage_d} as in the parent\'s build')
             log(f'ptxas: {kernel} production as in the parent\'s build: '
                 f'{want}')
+            for d in PADDED_HEAD_DIMS:
+                got = usage.get(production_key(kernel, d))
+                if got is None or any(got[1:]):
+                    fail(f'ptxas: {kernel}<D={d}> production has a stack '
+                         f'frame or spills, or is missing: {got}')
+            log(f'ptxas: {kernel} production at D = '
+                f'{", ".join(map(str, PADDED_HEAD_DIMS))} (32-column tiles): '
+                'no stack, no spills')
         warnings = sorted({line.strip() for line in build_log.splitlines()
                            if re.search(r'C75(1\d|20)\b|wgmma', line)})
         for line in warnings:
@@ -3646,6 +3749,215 @@ def time_relayouts(T, H, D, dev, card):
         del args, xs, got, ref
         torch.cuda.empty_cache()
     return modes
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: every ESM2 size on the card
+# ---------------------------------------------------------------------------
+
+# The ESM2 sizes beside phase 4's 650M (esme_tpu_torch/models/config.py:
+# ESM2_SIZES), bf16, seed-0 random weights, each freed before the next:
+# (name, the TRAIN_CELLS it trains in). 3B's nockpt@10k fits one 80 GB
+# card (37.8 GiB at its peak on the H100); 15B runs inference only: its
+# training needs an optimizer offload or more cards.
+SIZE_RUNS = (
+    ('esm2_8m', ('nockpt', 'ckpt')),
+    ('esm2_35m', ('nockpt', 'ckpt')),
+    ('esm2_150m', ('nockpt',)),
+    ('esm2_3b', ('nockpt',)),
+    ('esm2_15b', ()),
+)
+# Timed steps of a size's cell where phase 5's count is too few for its
+# losses to fall: 3B's fresh Adam (lr·sign(g) on 2.8 billion weights)
+# raises the loss at the third step, and six steps ended above the first
+# on the H100 (3.7815, 3.7091, 5.5828, 5.0666, 4.4764, 4.0110).
+SIZE_TRAIN_REPS = {('esm2_3b', 'nockpt'): 10}
+# H1's and H2's head dims in those sizes, each timed at its size's head
+# count on the 50k inference and train batches (64 at 20 heads is phase
+# 7's). At the padded head dims the Hopper form, where it is the route,
+# must beat the mma.sync form there.
+SIZE_HEAD_DIMS = ((16, 20), (24, 20), (32, 20), (128, 40))
+PADDED_HEAD_DIMS = (16, 24)
+
+
+def exp_bound(nbytes: float, flops: float, exps: float):
+    """The least time of a flash kernel's work with its exponentials at
+    the SFU's rate as a third term: ``(ms, 'bytes' or 'operations', what
+    binds: 'bytes', 'tensor cores' or 'exps')``."""
+    t = {'bytes': nbytes / HBM_BYTES_PER_S,
+         'tensor cores': flops / BF16_FLOP_PER_S,
+         'exps': exps / SFU_EXP_PER_S}
+    binds = max(t, key=t.get)
+    return t[binds] * 1e3, 'bytes' if binds == 'bytes' else 'operations', \
+        binds
+
+
+def time_head_dim(D, H, cu, tcu, dev):
+    """Phase 12's kernel times at head dim D with H heads: H1 on the 50k
+    inference batch (``cu``) and H2 on the 50k train batch (``tcu``), each
+    first held against its plain version on its route and on the other
+    form (``check_flash_args``, ``check_bwd_args``); then the route's
+    wrapper, both forms through their C entries, H2's Hopper passes alone,
+    the plain version, the varlen library call (a yardstick, its ratio
+    logged) and the bound with its exps (one per same-segment pair and
+    head in H1, two in H2, where both passes recompute P). Fails where D
+    is a padded head dim whose route is the Hopper form and that form is
+    not faster than the mma.sync form. Returns ``{H1_NAME: row, H2_NAME:
+    row}``."""
+    from esme_tpu_torch.ops import flash
+    out = {}
+    q, k, v, seg, _, spans = flash_inputs(cu, BUDGET, H, D, dev, D + 300)
+    args = (q, k, v, seg, *spans[:2], H)
+    route = flash.fwd_route(D)
+    e_o, e_l, o, _ = check_flash_args(args, ' at the main shape')
+    for lib in flash.FWD_ROUTES:
+        if lib != route:
+            check_flash_args(args, ' at the main shape', library=lib)
+    ms = cuda_ms(lambda: flash.segment_flash_fwd(*args), reps=20, warmup=2)
+    forms = {lib: cuda_ms(lambda: flash.launch_fwd(lib, *args), reps=20,
+                          warmup=2) for lib in flash.FWD_ROUTES}
+    plain_ms = cuda_ms(lambda: flash.segment_flash_fwd_plain(*args), reps=2)
+    nbytes, flops = flash_work(q, seg, spans[0], H, D)
+    b_ms, by, binds = exp_bound(nbytes, flops, flops / (4 * D))
+    lib_ms = yardstick(f'varlen flash-attention forward (aten) D={D}',
+                       lambda: varlen_flash_ms(q, k, v, seg, H, D, reps=20),
+                       o)
+    out[H1_NAME] = {'route': route, 'ms': ms, 'forms_ms': forms,
+                 'max_abs_err': e_o, 'lse_max_abs_err': e_l,
+                 'plain_ms': plain_ms, 'bound_ms': b_ms, 'bound_by': by,
+                 'bound_binds': binds, 'library_ms': lib_ms,
+                 'shape': f'T={q.shape[0]} H={H} D={D} bf16',
+                 'bytes': nbytes, 'flops': flops}
+    del q, k, v, o, args
+    q, k, v, do, lse, delta, tseg, tspans = bwd_inputs(tcu, BUDGET, H, D,
+                                                       dev, D + 400)
+    inputs = (q, k, v, do, lse, delta, tseg, tspans)
+    h2_args = (q, k, v, do, lse, delta, tseg, *tspans, H)
+    broute = flash.bwd_route(D)
+    err, share = check_bwd_args(inputs, H, D, ' at the train shape')
+    for lib in flash.BWD_ROUTES:
+        if lib != broute:
+            check_bwd_args(inputs, H, D, ' at the train shape', library=lib)
+    dq = flash.segment_flash_bwd(*h2_args)[0]
+    bms = cuda_ms(lambda: flash.segment_flash_bwd(*h2_args), reps=20,
+                  warmup=2)
+    bforms = {lib: cuda_ms(lambda: flash.launch_bwd(lib, *h2_args), reps=20,
+                           warmup=2) for lib in flash.BWD_ROUTES}
+    passes = {name: cuda_ms(lambda: sm90_pass(which, h2_args), reps=20,
+                            warmup=2)
+              for which, name in ((0, 'dkv'), (1, 'dq'))}
+    bplain_ms = cuda_ms(lambda: flash.segment_flash_bwd_plain(*h2_args),
+                        reps=1)
+    bbytes, bflops = flash_bwd_work(q, tseg, tspans, H, D)
+    bb_ms, bby, bbinds = exp_bound(bbytes, bflops, 2 * bflops / (10 * D))
+    blib_ms = yardstick(f'varlen flash-attention backward (aten) D={D}',
+                        lambda: varlen_flash_bwd_ms(q, k, v, do, tseg, H, D,
+                                                    reps=20), dq, 'H2 dq')
+    out[H2_NAME] = {'route': broute, 'ms': bms, 'forms_ms': bforms,
+                 'sm90_passes_ms': passes, 'max_abs_err': err,
+                 'gate_share': share, 'plain_ms': bplain_ms,
+                 'bound_ms': bb_ms, 'bound_by': bby, 'bound_binds': bbinds,
+                 'library_ms': blib_ms,
+                 'shape': f'T={q.shape[0]} H={H} D={D} bf16 (train batch)',
+                 'bytes': bbytes, 'flops': bflops}
+    del q, k, v, do, dq, inputs, h2_args
+    torch.cuda.empty_cache()
+    for name, row, sm90, mma in (('H1', out[H1_NAME], 'flash_fwd_sm90',
+                                  'flash_fwd'),
+                                 ('H2', out[H2_NAME], 'flash_bwd_sm90',
+                                  'flash_bwd')):
+        f = row['forms_ms']
+        lib = row['library_ms']
+        log(f'{name} D={D} H={H} ({row["shape"]}): {row["ms"]:.4f} ms on its '
+            f'route ({row["route"]}); Hopper form {f[sm90]:.4f} ms, mma.sync '
+            f'form {f[mma]:.4f} ms ({f[sm90] / f[mma]:.4f}); bound '
+            f'{row["bound_ms"]:.4f} ms by {row["bound_binds"]} '
+            f'({row["ms"] / row["bound_ms"]:.2f}x); plain '
+            f'{row["plain_ms"]:.3f} ms; varlen library '
+            + (f'{lib:.4f} ms ({row["ms"] / lib:.4f}; logged, not a gate)'
+               if lib else 'did not run'))
+        if D in PADDED_HEAD_DIMS and row['route'] == sm90 \
+                and not f[sm90] < f[mma]:
+            fail(f'{name}\'s Hopper form ({f[sm90]:.4f} ms) is not faster '
+                 f'than its mma.sync form ({f[mma]:.4f} ms) at D={D}, the '
+                 'main shape')
+    return out
+
+
+def check_size(name, trains, dev, plm_cls, batch, profile_dir=None):
+    """One ESM2 size of phase 12 (``SIZE_RUNS``): built on the card from
+    seed 0 (its init time and peak memory logged), then phase 4's
+    inference cell on the main ``batch`` (launches exact, then the 4k
+    comparisons ahead of the timed forwards) and the ``trains`` cells of
+    phase 5, each with phase 5's gates, and every leaf's gradient against
+    the plain versions and with remat; ``--profile`` tables of the
+    inference and train cells under ``profile_dir/<name>``. The model is
+    freed at the end. Returns the size's measurements."""
+    from esme_tpu_torch import ESM2
+    from esme_tpu_torch.models.config import ESM2_SIZES
+    cfg = ESM2_SIZES[name]
+    L, H = cfg['num_layers'], cfg['attention_heads']
+    D = cfg['embed_dim'] // H
+    prof = os.path.join(profile_dir, name) if profile_dir else None
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = ESM2(**cfg, dtype='bfloat16', rng=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 2**30
+    n_params = sum(p.numel() for p in _leaves(model.params))
+    log(f'{name} {cfg} (D = {D}) init on the card: {init_s:.1f} s, '
+        f'{n_params:,} params, peak memory {init_peak:.2f} GiB')
+    what = f'{name} inference'
+    out = {'config': cfg, 'head_dim': D, 'params': n_params,
+           'init_s': init_s, 'init_peak_mem_gib': init_peak,
+           'launches': inference_run(model, batch, what, expected_launches(
+               **{H1_NAME: L, H3_NAME: L})),
+           'model_checks': plain_checks(model, f'{name} ')}
+    out.update(inference_times(model, batch, what))
+    if prof:
+        tokens, cu, max_len = batch
+        _profile(lambda: model.predict_log_prob(tokens,
+                                                pad_args=(cu, max_len)),
+                 prof, 'profile_main.txt', f'{name} forward')
+    out['train'] = {}
+    for key, budget, ckpt, reps, falls in TRAIN_CELLS:
+        if key in trains:
+            out['train'][key] = train_cell(
+                model, plm_cls, key, budget, ckpt,
+                SIZE_TRAIN_REPS.get((name, key), reps), falls, n_params,
+                prof, what=f'{name} ')
+    if trains:
+        out['grad_checks'] = check_grads(model, plm_cls, f'{name} ')
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_sizes(dev, plm_cls, batch, runs=SIZE_RUNS, head_dims=SIZE_HEAD_DIMS,
+                profile_dir=None):
+    """Phase 12: each size of ``runs`` (``check_size``), then H1's and H2's
+    times at ``head_dims`` (``time_head_dim``). Returns ``(sizes,
+    {H1_NAME: {D: row}, H2_NAME: {D: row}})``."""
+    sizes = {name: check_size(name, trains, dev, plm_cls, batch, profile_dir)
+             for name, trains in runs}
+    for name, s in sizes.items():
+        cells = ', '.join(f'{key}@{c["budget"]} {c["ms_per_step"]:.2f} ms '
+                          f'({c["real_tokens_per_s"]:.1f} real tokens/s, '
+                          f'{c["peak_mem_gib"]:.2f} GiB)'
+                          for key, c in s['train'].items())
+        log(f'{name} (D = {s["head_dim"]}): inference '
+            f'{s["ms_per_batch"]:.2f} ms ({s["real_tokens_per_s"]:.1f} real '
+            f'tokens/s, {s["peak_mem_gib"]:.2f} GiB)'
+            + (f'; train {cells}' if cells else ''))
+    _, cu, _ = batch
+    _, tcu, _ = packed_batch(BUDGET, seed=2)
+    rows = {H1_NAME: {}, H2_NAME: {}}
+    for d, h in head_dims:
+        for kernel, row in time_head_dim(d, h, cu, tcu, dev).items():
+            rows[kernel][str(d)] = row
+    return sizes, rows
 
 
 def _leaf_pairs(got, ref, path=()):

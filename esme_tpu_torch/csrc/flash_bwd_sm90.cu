@@ -14,8 +14,13 @@
 //   ds = p (dp - delta) scale   (fp32),
 //   dv += p^T do  (p rounded to bf16),  dk += ds^T q,  dq += ds k  (ds
 //   rounded to bf16), fp32 sums, each gradient rounded to bf16 once.
-// Head dims 32, 64 and 128; the wrapper sends 16 and 24 to the mma.sync form
-// (a 24-column box cannot be read without the next head's columns).
+// Head dims 16, 24, 32, 64 and 128; 16 and 24 (ESM2-8M and -35M) on D =
+// 32's tiles (sm90_common.cuh: Geo): 32-column boxes, the products over d
+// (S and dP) in one k-step at D = 16 and two at D = 24, where each
+// consumer warpgroup zeros columns 24-31 of its 64 rows of the resident
+// tiles once after their load (K and V in the dk/dv pass, Q and dO in the
+// dq pass), so the streamed tiles' extra columns (the next head's) add
+// nothing; the extra columns of dV, dK and dQ are never stored.
 //
 // Two deterministic passes, no atomics, no band buffer (so remat='full'
 // stays bit-equal):
@@ -51,7 +56,9 @@
 // one-segment tiles. Within a warpgroup the products, the exps and the
 // next products still run in series; the other warpgroup of the SM fills
 // the gaps (PERF.md has the H100's times). At D = 128 the dk/dv kernel
-// spills under the 168-register cap of its 384 threads.
+// spills under the 168-register cap of its 384 threads. At D = 16 and 24
+// the exps bound it instead (P recomputed in both passes, two per pair),
+// as in H1.
 //
 // Ablation modes ("H7"): each pass's MODE parameter removes one part of
 // the work, as tools/decompose_bwd.py:66 dq_variant and :125 dkv_variant
@@ -65,7 +72,7 @@
 // spans, in every mode.
 //
 // H10, the rectangular form (bwd_dkv_rect_sm90_kernel and
-// bwd_dq_rect_sm90_kernel, the two bodies at D = 32, 64, 128 in mode 0, in
+// bwd_dq_rect_sm90_kernel, the two bodies at D = 16-128 in mode 0, in
 // kernels of their own): H2 with queries and keys of their own, Tq query
 // rows with ids seg_q over Tk key rows with ids seg_k (context-parallel
 // training: a rank's queries over the keys gathered from every rank).
@@ -309,6 +316,14 @@ __device__ __forceinline__ void dkv_body(
     const uint32_t ks = smem_u32(smem + L::K);
     const uint32_t vs = smem_u32(smem + L::V);
     mbar_wait(kv_bar, 0);
+    if constexpr (G::PAD) {
+      // the warpgroup's 64 rows of K (threads 0-63) and of V (64-127):
+      // columns past D to 0
+      const int t = threadIdx.x % 128;
+      zero_pad<D, BKV>(smem + (t < 64 ? L::K : L::V), wg * 64 + t % 64);
+      fence_proxy_async();
+      named_barrier(1 + wg, 128);
+    }
     for (int it = 0; it < n; ++it) {
       const int s = it % ST;
       mbar_wait(&full[s], (it / ST) & 1);
@@ -354,13 +369,13 @@ __device__ __forceinline__ void dkv_body(
         wgmma_fence();
         if constexpr (MODE != NO_S) {
 #pragma unroll
-          for (int kk = 0; kk < D / 16; ++kk)
+          for (int kk = 0; kk < G::KSTEPS; ++kk)
             wgmma_ss_n64(st, desc_k<D, BKV>(ks, wg * 64, kk),
                          desc_k<D, QT>(qs, 0, kk), kk > 0);
         }
         if constexpr (MODE != NO_DP) {
 #pragma unroll
-          for (int kk = 0; kk < D / 16; ++kk)
+          for (int kk = 0; kk < G::KSTEPS; ++kk)
             wgmma_ss_n64(dpt, desc_k<D, BKV>(vs, wg * 64, kk),
                          desc_k<D, QT>(ds, 0, kk), kk > 0);
         }
@@ -446,7 +461,7 @@ __device__ __forceinline__ void dkv_body(
 #pragma unroll
       for (int nh = 0; nh < G::NH; ++nh)
 #pragma unroll
-        for (int j = 0; j < G::HALF_COLS / 8; ++j) {
+        for (int j = 0; j < G::OWN_COLS / 8; ++j) {
           const int c = nh * G::HALF_COLS + 8 * j + 2 * tq;
           const int i = 4 * j + 2 * r;
           *reinterpret_cast<__nv_bfloat162*>(dkrow + c) =
@@ -659,6 +674,14 @@ __device__ __forceinline__ void dq_body(
     const uint32_t qs = smem_u32(smem + L::Q);
     const uint32_t dos = smem_u32(smem + L::DO);
     mbar_wait(qdo_bar, 0);
+    if constexpr (G::PAD) {
+      // the warpgroup's 64 rows of Q (threads 0-63) and of dO (64-127):
+      // columns past D to 0
+      const int t = threadIdx.x % 128;
+      zero_pad<D, BQ>(smem + (t < 64 ? L::Q : L::DO), wg * 64 + t % 64);
+      fence_proxy_async();
+      named_barrier(1 + wg, 128);
+    }
     for (int it = 0; it < n; ++it) {
       const int s = it % ST;
       mbar_wait(&full[s], (it / ST) & 1);
@@ -704,13 +727,13 @@ __device__ __forceinline__ void dq_body(
         wgmma_fence();
         if constexpr (MODE != NO_S) {
 #pragma unroll
-          for (int kk = 0; kk < D / 16; ++kk)
+          for (int kk = 0; kk < G::KSTEPS; ++kk)
             wgmma_ss_n64(sc, desc_k<D, BQ>(qs, wg * 64, kk),
                          desc_k<D, KT>(ks, 0, kk), kk > 0);
         }
         if constexpr (MODE != NO_DP) {
 #pragma unroll
-          for (int kk = 0; kk < D / 16; ++kk)
+          for (int kk = 0; kk < G::KSTEPS; ++kk)
             wgmma_ss_n64(dp, desc_k<D, BQ>(dos, wg * 64, kk),
                          desc_k<D, KT>(vs, 0, kk), kk > 0);
         }
@@ -772,7 +795,7 @@ __device__ __forceinline__ void dq_body(
 #pragma unroll
       for (int nh = 0; nh < G::NH; ++nh)
 #pragma unroll
-        for (int j = 0; j < G::HALF_COLS / 8; ++j) {
+        for (int j = 0; j < G::OWN_COLS / 8; ++j) {
           const int i = 4 * j + 2 * r;
           *reinterpret_cast<__nv_bfloat162*>(out + nh * G::HALF_COLS + 8 * j +
                                              2 * tq) =
@@ -907,6 +930,8 @@ cudaError_t launch_pass(const Args& a, int which) {
 
 cudaError_t launch_pass(const Args& a, int D, int which) {
   switch (D) {
+    case 16: return launch_pass<16>(a, which);
+    case 24: return launch_pass<24>(a, which);
     case 32: return launch_pass<32>(a, which);
     case 64: return launch_pass<64>(a, which);
     case 128: return launch_pass<128>(a, which);
@@ -943,6 +968,8 @@ cudaError_t launch_rect_pass(const Args& a, int which) {
 
 cudaError_t launch_rect_pass(const Args& a, int D, int which) {
   switch (D) {
+    case 16: return launch_rect_pass<16>(a, which);
+    case 24: return launch_rect_pass<24>(a, which);
     case 32: return launch_rect_pass<32>(a, which);
     case 64: return launch_rect_pass<64>(a, which);
     case 128: return launch_rect_pass<128>(a, which);
@@ -975,8 +1002,8 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
 
 extern "C" {
 
-// Both passes, dk/dv then dq. D in {32, 64, 128}. Returns the cudaError_t
-// of the launches (0 on success).
+// Both passes, dk/dv then dq. D in {16, 24, 32, 64, 128}. Returns the
+// cudaError_t of the launches (0 on success).
 int esme_segment_flash_bwd_sm90(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* delta, const void* seg,
@@ -992,9 +1019,9 @@ int esme_segment_flash_bwd_sm90(const void* q, const void* k, const void* v,
 }
 
 // One pass alone in ablation mode `mode` (kernel H7; decompose_bwd.MODES'
-// order): mode 0, the production pass, at D in {32, 64, 128}, to time it;
-// the other modes at D = 64 only. which = 0 writes dk and dv, which = 1
-// writes dq. Returns the cudaError_t of the launch.
+// order): mode 0, the production pass, at D in {16, 24, 32, 64, 128}, to
+// time it; the other modes at D = 64 only. which = 0 writes dk and dv,
+// which = 1 writes dq. Returns the cudaError_t of the launch.
 int esme_flash_bwd_sm90_pass(int which, int mode, const void* q,
                              const void* k, const void* v, const void* dout,
                              const void* lse, const void* delta,
@@ -1009,8 +1036,8 @@ int esme_flash_bwd_sm90_pass(int which, int mode, const void* q,
 }
 
 // H10: H2 with per-side ids and lengths, q, do and dq (Tq, H*D), k, v,
-// dk and dv (Tk, H*D), lse and delta (H, Tq); dk/dv then dq. D in {32,
-// 64, 128}. Returns the cudaError_t of the launches (0 on success).
+// dk and dv (Tk, H*D), lse and delta (H, Tq); dk/dv then dq. D in {16,
+// 24, 32, 64, 128}. Returns the cudaError_t of the launches (0 on success).
 int esme_segment_flash_bwd_rect_sm90(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, const void* seg_q, const void* seg_k,

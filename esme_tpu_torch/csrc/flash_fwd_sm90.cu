@@ -12,9 +12,12 @@
 // ids differ, online softmax with m, l and the accumulator in fp32 (base
 // 2 on scores pre-multiplied by log2(e)), p rounded to bf16 before the
 // product with v, o normalised by l (rows with l == 0 kept finite), lse
-// = m + log(l) in base e, fp32, (H, T). Head dims 32, 64 and 128; the
-// wrapper sends 16 and 24 to the mma.sync form (a 24-column TMA box would
-// read the next head's columns).
+// = m + log(l) in base e, fp32, (H, T). Head dims 16, 24, 32, 64 and
+// 128; 16 and 24 (ESM2-8M and -35M) on D = 32's tiles (sm90_common.cuh:
+// Geo): 32-column boxes, one k-step of S at D = 16 and two at D = 24,
+// where warpgroup w zeros columns 24-31 of its 64 rows of Q once after
+// the Q load, so the K tiles' extra columns (the next head's) add
+// nothing to S; O's extra columns are never stored.
 //
 // Deterministic, no atomics: each output row is written by one CTA, so
 // remat='full' stays bit-equal.
@@ -27,7 +30,7 @@
 // q row of the block, so it masks itself). Warp 0 also loads: the block's
 // Q once by TMA, then stage j + stages - 1 at the top of step j, once the
 // stage's previous round is handed back on its "empty" mbarrier: the K
-// and V rows by TMA (128-byte swizzle at D >= 64, 64-byte at D = 32; rows
+// and V rows by TMA (128-byte swizzle at D >= 64, 64-byte at D <= 32; rows
 // past T arrive as zeros) and their segment ids by cp.async, all landing
 // on the stage's "full" mbarrier. Per stage and warpgroup: S = Q K^T
 // (wgmma m64n128k16, both operands from shared memory, K-major), the
@@ -68,7 +71,10 @@
 //   only the keys cross a segment (5% at the 50k shape).
 // Issuing S of the next stage before the softmax of this one (two stages
 // in flight per warpgroup) ran no faster: the four warpgroups of an SM
-// already keep it as busy. PERF.md has the H100's times.
+// already keep it as busy. At D = 16 and 24 (ESM2-8M, -35M) the products
+// shrink with D and the exps do not: one per pair at the SFU's 16 per SM
+// per clock bounds the kernel, and the padded tiles cost products and L2
+// reads that this bound leaves room for. PERF.md has the H100's times.
 //
 // H5, the same kernel on token-minor operands (LAYOUT = HDT): q, k, v and
 // o (H, D, T), lse (H, T), T % 8 == 0. Replaces the TPU kernel
@@ -114,8 +120,8 @@
 // The modes without a max (MAXFREE, NOMAX, NOEXP, NOTHING) keep m at
 // -1e30 and write lse = -1e30 + log(l).
 //
-// H9, the rectangular form (flash_fwd_rect_sm90_kernel, the body at D = 32,
-// 64, 128, THD, mode 0, in a kernel of its own): H1 with queries and keys
+// H9, the rectangular form (flash_fwd_rect_sm90_kernel, the body at every
+// head dim, THD, mode 0, in a kernel of its own): H1 with queries and keys
 // of their own, Tq query rows with ids seg_q over Tk key rows with ids
 // seg_k (context parallelism: a rank's tokens over the keys gathered from
 // every rank). Replaces the forward of the TPU kernel K-rect,
@@ -148,9 +154,10 @@ constexpr int KT = 64;         // k rows per tile of the span
 constexpr int KS = 2 * KT;     // k rows per stage: two tiles
 constexpr int NTHREADS = 256;  // two warpgroups
 
-// two stages fit twice per SM at D = 64 (Q 16 KiB, a stage 32 KiB)
+// two stages fit twice per SM at D = 64 (Q 16 KiB, a stage 32 KiB); four
+// on D = 32's tiles
 template <int D>
-__host__ __device__ constexpr int stages() { return D == 32 ? 4 : 2; }
+__host__ __device__ constexpr int stages() { return D <= 32 ? 4 : 2; }
 
 // CTAs per SM: two where their registers fit (at most 128 a thread)
 template <int D>
@@ -325,11 +332,12 @@ __device__ __forceinline__ void fwd_body(
     float* __restrict__ lse, int T, int Tk, int H, float scale_log2) {
   using G = Geo<D>;
   using L = FwdSmem<D>;
-  using TG = TGeo<D>;
-  constexpr int ST = L::ST;
   constexpr bool hdt = LAYOUT == HDT;
   static_assert(MODE == BASELINE || (D == 64 && !hdt),
                 "the ablation modes are built at D = 64, THD only");
+  static_assert(D >= 32 || !hdt, "the token-minor layout takes D >= 32");
+  using TG = TGeo<(D < 32 ? 32 : D)>;   // read only by the token-minor layout
+  constexpr int ST = L::ST;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_smem(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BARS);
@@ -429,6 +437,13 @@ __device__ __forceinline__ void fwd_body(
 
   const uint32_t qs = smem_u32(smem + L::Q);
   mbar_wait(q_bar, 0);
+  if constexpr (G::PAD) {
+    // the warpgroup's 64 rows of Q: columns past D to 0 (threads 0-63)
+    if (threadIdx.x % 128 < 64)
+      zero_pad<D, BQ>(smem + L::Q, wg * 64 + threadIdx.x % 128);
+    fence_proxy_async();
+    named_barrier(1 + wg, 128);
+  }
   for (int it = 0; it < ns; ++it) {
     if (loader && it + ST - 1 < ns) load(it + ST - 1);
     const int s = it % ST;
@@ -479,7 +494,7 @@ __device__ __forceinline__ void fwd_body(
       } else {
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
+        for (int kk = 0; kk < G::KSTEPS; ++kk) {
           if constexpr (hdt)   // Q and K^T MN-major: tokens along the rows
             wgmma_ss_n128<1, 1>(sc, desc_t_mn<D>(qs + wg * TG::BOX_BYTES, kk),
                                 desc_t_mn<D>(ks, kk), kk > 0);
@@ -580,7 +595,7 @@ __device__ __forceinline__ void fwd_body(
 #pragma unroll
       for (int nh = 0; nh < G::NH; ++nh)
 #pragma unroll
-        for (int j = 0; j < G::HALF_COLS / 8; ++j) {
+        for (int j = 0; j < G::OWN_COLS / 8; ++j) {
           const int i = 4 * j + 2 * r;
           *reinterpret_cast<__nv_bfloat162*>(out + nh * G::HALF_COLS +
                                              8 * j + 2 * tq) =
@@ -674,6 +689,12 @@ int launch_d(const void* q, const void* k, const void* v, const void* seg,
   const int* ke = static_cast<const int*>(kend);
   float* l = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if constexpr (LAYOUT == THD) {   // the padded head dims: THD only
+    if (D == 16)
+      return (int)launch<16, THD>(q, k, v, s, ks, ke, o, l, T, H, scale, st);
+    if (D == 24)
+      return (int)launch<24, THD>(q, k, v, s, ks, ke, o, l, T, H, scale, st);
+  }
   switch (D) {
     case 32:
       return (int)launch<32, LAYOUT>(q, k, v, s, ks, ke, o, l, T, H, scale,
@@ -716,8 +737,8 @@ cudaError_t launch_rect(const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// H1: q, k, v, o (T, H*D). D in {32, 64, 128}. Returns the cudaError_t of
-// the launch (0 on success).
+// H1: q, k, v, o (T, H*D). D in {16, 24, 32, 64, 128}. Returns the
+// cudaError_t of the launch (0 on success).
 int esme_segment_flash_fwd_sm90(const void* q, const void* k, const void* v,
                                 const void* seg, const void* kstart,
                                 const void* kend, void* o, void* lse, int T,
@@ -726,7 +747,8 @@ int esme_segment_flash_fwd_sm90(const void* q, const void* k, const void* v,
                        stream);
 }
 
-// H5: the same function on token-minor q, k, v, o (H, D, T); T % 8 == 0.
+// H5: the same function on token-minor q, k, v, o (H, D, T); T % 8 == 0;
+// D in {32, 64, 128}.
 int esme_flash_fwd_t_sm90(const void* q, const void* k, const void* v,
                           const void* seg, const void* kstart,
                           const void* kend, void* o, void* lse, int T, int H,
@@ -736,7 +758,7 @@ int esme_flash_fwd_t_sm90(const void* q, const void* k, const void* v,
 }
 
 // H9: H1 with per-side ids and lengths, q and o (Tq, H*D), k and v (Tk,
-// H*D), lse (H, Tq). D in {32, 64, 128}.
+// H*D), lse (H, Tq). D in {16, 24, 32, 64, 128}.
 int esme_segment_flash_fwd_rect_sm90(const void* q, const void* k,
                                      const void* v, const void* seg_q,
                                      const void* seg_k, const void* kstart,
@@ -750,6 +772,12 @@ int esme_segment_flash_fwd_rect_sm90(const void* q, const void* k,
   float* l = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 16:
+      return (int)launch_rect<16>(q, k, v, sq, sk, ks, ke, o, l, Tq, Tk, H,
+                                  scale, st);
+    case 24:
+      return (int)launch_rect<24>(q, k, v, sq, sk, ks, ke, o, l, Tq, Tk, H,
+                                  scale, st);
     case 32:
       return (int)launch_rect<32>(q, k, v, sq, sk, ks, ke, o, l, Tq, Tk, H,
                                   scale, st);

@@ -19,6 +19,19 @@
 // Every tile starts on a 1024-byte boundary, so each k-step keeps the
 // swizzle's phase and the descriptors' base offset is 0.
 //
+// Head dims 16 and 24 ride on D = 32's tiles: their rows of 32 and 48
+// bytes have no TMA swizzle of their own and wgmma's bf16 k-step is 16
+// wide, so a box is 32 columns from the head's first (64-byte swizzle).
+// Its columns past D are the next head's (zeros past the tensor's last
+// column). A product that contracts over d takes ceil(D/16) k-steps
+// (KSTEPS); at D = 24 the second reads columns 24-31, which the kernels
+// zero once in their resident operand (zero_pad), so the streamed
+// tile's extra columns meet zeros. A product whose columns are d
+// computes 32 of them, and the epilogues store the first D (OWN_COLS).
+// The kernels' arithmetic on a head's own columns is D = 32's; a
+// non-finite value in the next head's first columns would reach this
+// head's products as 0 * inf.
+//
 // Fragments (PTX ISA, wgmma .m64nNk16): warp w of the warpgroup holds
 // rows 16 w + g and 16 w + g + 8 (lane = 4 g + tq). Accumulator register
 // 4 j + 2 r + e holds row 16 w + g + 8 r, column 8 j + 2 tq + e, as
@@ -43,11 +56,18 @@ namespace sm90 {
 
 template <int D>
 struct Geo {
-  static_assert(D == 32 || D == 64 || D == 128, "head dims 32, 64, 128");
-  static constexpr int HALF_COLS = D < 64 ? D : 64;  // columns per TMA box
-  static constexpr int RB = 2 * HALF_COLS;           // bytes per box row
-  static constexpr int NH = D / HALF_COLS;           // boxes per row
-  static constexpr int LAYOUT = RB == 128 ? 1 : 2;   // wgmma: B128, B64
+  static_assert(D == 16 || D == 24 || D == 32 || D == 64 || D == 128,
+                "head dims 16, 24, 32, 64, 128");
+  static constexpr int HALF_COLS = D <= 32 ? 32 : 64;  // columns per TMA box
+  static constexpr int RB = 2 * HALF_COLS;             // bytes per box row
+  static constexpr int NH = D > 64 ? 2 : 1;            // boxes per row
+  static constexpr int LAYOUT = RB == 128 ? 1 : 2;     // wgmma: B128, B64
+  // columns of a box that are the head's own (stored), and the k-steps
+  // of a product over d
+  static constexpr int OWN_COLS = D < HALF_COLS ? D : HALF_COLS;
+  static constexpr int KSTEPS = (D + 15) / 16;
+  // the last k-step reads columns past D: zero them in the resident tile
+  static constexpr bool PAD = D % 16 != 0;
   template <int ROWS>
   static constexpr int tile_bytes() { return ROWS * RB * NH; }
 };
@@ -291,6 +311,18 @@ __device__ __forceinline__ int tile_offset(int row, int col) {
   const int off = (col / G::HALF_COLS) * ROWS * G::RB + row * G::RB +
                   (col % G::HALF_COLS) * 2;
   return off ^ (((off >> 7) & (G::RB / 16 - 1)) << 4);
+}
+
+// Columns [D, 32) of row `row` of a Geo<D> tile of ROWS rows set to 0
+// (D = 24: the row's fourth 16-byte chunk, wherever the swizzle put it).
+// wgmma reads them through the async proxy: the writers then run
+// fence_proxy_async and a barrier with the warps whose products read
+// the row.
+template <int D, int ROWS>
+__device__ __forceinline__ void zero_pad(unsigned char* tile, int row) {
+  static_assert(D == 24, "only D = 24 has columns past D in a k-step");
+  *reinterpret_cast<uint4*>(tile + tile_offset<D, ROWS>(row, D)) =
+      make_uint4(0u, 0u, 0u, 0u);
 }
 
 __device__ __forceinline__ void wgmma_fence() {

@@ -29,10 +29,12 @@ def init_params(cfg: ESMConfig, seed: int = 0, device='cpu') -> dict:
     D, F, L, V = cfg.embed_dim, cfg.ffn_dim, cfg.num_layers, cfg.vocab_size
 
     def dense(*shape):
+        # scaled in place: one fp32 copy of a stacked kernel at a time
+        # (ESM2-15B's fc1 stack is 20 GB in fp32)
         fan_in = shape[-2]
         w = torch.empty(shape, dtype=torch.float32, device=device)
         torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-        return (w * fan_in ** -0.5).to(dt)
+        return w.mul_(fan_in ** -0.5).to(dt)
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=dt, device=device)

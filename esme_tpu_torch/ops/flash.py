@@ -6,12 +6,12 @@ over a flat token stream where token *t* attends token *s* iff
 ``seg_ids[t] == seg_ids[s]``.
 
 :func:`segment_flash_fwd` is the wrapper of kernel H1
-(``csrc/flash_fwd_sm90.cu`` at head dims 32, 64 and 128, the mma.sync form
-``csrc/flash_fwd.cu`` at 16 and 24), which replaces the TPU kernels
-``esme_tpu/ops/flash.py:_fwd_kernel`` and ``:_fwd_jobs_kernel``;
+(``csrc/flash_fwd_sm90.cu`` at every head dim; its mma.sync form
+``csrc/flash_fwd.cu`` stays built as a yardstick), which replaces the TPU
+kernels ``esme_tpu/ops/flash.py:_fwd_kernel`` and ``:_fwd_jobs_kernel``;
 :func:`segment_flash_bwd` is the wrapper of kernel H2
-(``csrc/flash_bwd_sm90.cu`` at head dims 32, 64 and 128, the mma.sync form
-``csrc/flash_bwd.cu`` at 16 and 24), which replaces the three TPU
+(``csrc/flash_bwd_sm90.cu`` at every head dim; its mma.sync form
+``csrc/flash_bwd.cu`` likewise), which replaces the three TPU
 backward paths
 ``:_dq_kernel``/``:_dkv_kernel``, ``:_dq_jobs_kernel``/``:_dkv_jobs_kernel``
 and ``:_dkvq_jobs_kernel``. Each routes by a static rule on the head
@@ -68,9 +68,11 @@ BLOCK_QT = 64
 HEAD_DIMS = (16, 24, 32, 64, 128)
 
 # H1's and H2's routes, static rules on the head dim: library -> (entry,
-# error string). The Hopper forms (wgmma fed by TMA) take 32, 64 and 128;
-# 16 and 24 stay on the mma.sync forms, as a 24-column TMA box would read
-# the next head's columns.
+# error string). The Hopper forms (wgmma fed by TMA) take every head dim,
+# 16 and 24 on 32-column tiles (csrc/sm90_common.cuh: Geo). The mma.sync
+# forms stay built: chip_smoke.py checks and times the Hopper forms
+# against them, and the probe tools run them at 16 and 24
+# (esme_tpu_torch/tools: SM90_HEAD_DIMS).
 FWD_ROUTES = {
     'flash_fwd_sm90': ('esme_segment_flash_fwd_sm90',
                        'esme_flash_fwd_sm90_error_string'),
@@ -81,7 +83,7 @@ BWD_ROUTES = {
                        'esme_flash_bwd_sm90_error_string'),
     'flash_bwd': ('esme_segment_flash_bwd', 'esme_flash_bwd_error_string'),
 }
-SM90_HEAD_DIMS = (32, 64, 128)
+SM90_HEAD_DIMS = (16, 24, 32, 64, 128)
 # The lse of a query row that no key shares a segment with (a q block with
 # an empty span, which only H9 meets): the kernels' running max of no key,
 # -1e30 in base 2, carried to base e by an fp32 product with ln 2
@@ -231,10 +233,11 @@ def segment_flash_fwd(q2, k2, v2, seg_ids, kstart, kend, num_heads: int,
     """Segment-masked flash attention forward (kernel H1; with ``seg_k``,
     kernel H9).
 
-    Routed by a static rule on the head dim (:func:`fwd_route`): D = 32,
-    64 and 128 launch the Hopper form, ``csrc/flash_fwd_sm90.cu`` (``wgmma``
-    fed by TMA through an ``mbarrier`` ring of 128-key stages; the segment
-    mask only on stages that cross a segment); D = 16 and 24 launch the
+    Routed by a static rule on the head dim (:func:`fwd_route`): every
+    head dim in ``SM90_HEAD_DIMS`` launches the Hopper form,
+    ``csrc/flash_fwd_sm90.cu`` (``wgmma`` fed by TMA through an
+    ``mbarrier`` ring of 128-key stages; the segment mask only on stages
+    that cross a segment; D = 16 and 24 on 32-column tiles), any other the
     mma.sync form, ``csrc/flash_fwd.cu``. Both compute the same function
     and are deterministic; ``launches`` counts either.
 
@@ -426,13 +429,14 @@ def segment_flash_bwd(q2, k2, v2, do2, lse, delta, seg_ids, kstart, kend,
     """Segment-masked flash attention backward (kernel H2; with ``seg_k``,
     kernel H10).
 
-    Routed by a static rule on the head dim (:func:`bwd_route`): D = 32,
-    64 and 128 launch the Hopper form, ``csrc/flash_bwd_sm90.cu`` (two
-    deterministic passes on ``wgmma`` fed by TMA through a producer
-    warp's ``mbarrier`` ring; the segment mask only on tiles that cross a
-    segment); D = 16 and 24 launch the mma.sync form, ``csrc/flash_bwd.cu``
-    (two ``mma.sync`` kernels). Both compute the same function and are
-    deterministic; ``launches`` counts either.
+    Routed by a static rule on the head dim (:func:`bwd_route`): every
+    head dim in ``SM90_HEAD_DIMS`` launches the Hopper form,
+    ``csrc/flash_bwd_sm90.cu`` (two deterministic passes on ``wgmma`` fed
+    by TMA through a producer warp's ``mbarrier`` ring; the segment mask
+    only on tiles that cross a segment; D = 16 and 24 on 32-column tiles),
+    any other the mma.sync form, ``csrc/flash_bwd.cu`` (two ``mma.sync``
+    kernels). Both compute the same function and are deterministic;
+    ``launches`` counts either.
 
     With ``seg_k`` the keys have ids of their own and may be a different
     stream (context parallelism: the rank's queries over the gathered

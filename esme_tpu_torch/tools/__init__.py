@@ -64,6 +64,23 @@ FLASH_O_REL, FLASH_O_FLOOR, FLASH_LSE_ATOL = 2.0 ** -6, 0.25, 1e-4
 FLASH_G_REL = 2.0 ** -4
 SUM_REL = 2.0 ** -7
 
+# The head dims at which the tools' Hopper forms are built: H5's
+# token-minor layout of H1's kernel, and the modes of H6 and H7 (D = 64,
+# on the form H1's and H2's routes gave 64). H1 and H2 take 16 and 24 on
+# their Hopper forms too, but these are not built there, so at 16 and 24
+# the tools keep the mma.sync forms.
+SM90_HEAD_DIMS = (32, 64, 128)
+
+
+def fwd_route(head_dim: int) -> str:
+    """The form of H1 the tools take by default at this head dim."""
+    return 'flash_fwd_sm90' if head_dim in SM90_HEAD_DIMS else 'flash_fwd'
+
+
+def bwd_route(head_dim: int) -> str:
+    """The form of H2 the tools take by default at this head dim."""
+    return 'flash_bwd_sm90' if head_dim in SM90_HEAD_DIMS else 'flash_bwd'
+
 
 def packed_cu_lens(budget: int, seed: int) -> np.ndarray:
     """``bench.py``'s packed batch: cumulative lengths of sequences of

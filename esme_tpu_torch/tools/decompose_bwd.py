@@ -41,8 +41,8 @@ import torch
 from ..ops import flash
 from ..profiling import benchmark
 from . import (BWD_SEED, FLASH_G_REL, SUM_REL, attention_batch, bound_ms,
-               check_cuda_tensors, pad_rows, parse_args, scaled_error,
-               segment_pairs)
+               bwd_route, check_cuda_tensors, pad_rows, parse_args,
+               scaled_error, segment_pairs)
 
 # K15's modes in the kernels' order (csrc/flash_bwd.cu: enum Mode), with
 # the products each keeps in the dq kernel (S, dP, dQ) and in the dk/dv
@@ -231,9 +231,10 @@ def union_spans(qstart, qend):
 
 
 def _library(library, head_dim: int) -> str:
-    """``library``, a key of ``flash.BWD_ROUTES``, or H2's route at
-    ``head_dim`` when None."""
-    library = flash.bwd_route(head_dim) if library is None else library
+    """``library``, a key of ``flash.BWD_ROUTES``, or the tools' form of
+    H2 at ``head_dim`` (:func:`esme_tpu_torch.tools.bwd_route`) when
+    None."""
+    library = bwd_route(head_dim) if library is None else library
     if library not in flash.BWD_ROUTES:
         raise ValueError(f'unknown library {library!r}; one of '
                          f'{list(flash.BWD_ROUTES)}')
@@ -261,8 +262,8 @@ def bwd_variant(kernel: str, mode: str, q2, k2, v2, do2, lse, delta,
                 library: str | None = None):
     """One of H2's passes in ablation mode ``mode`` (kernel H7): the
     arguments of :func:`esme_tpu_torch.ops.flash.segment_flash_bwd`, D =
-    64 only, on ``library``'s form (a key of ``flash.BWD_ROUTES``; H2's
-    route at D when None, the Hopper form at 64). ``kernel='dq'`` returns
+    64 only, on ``library``'s form (a key of ``flash.BWD_ROUTES``; the tools'
+    form at D, the Hopper form at 64, when None). ``kernel='dq'`` returns
     dq, ``'dkv'`` returns (dk, dv). ``real`` launches the form's own
     production instantiations."""
     if mode not in MODES or kernel not in KERNELS:
@@ -394,7 +395,7 @@ def main(argv=None):
                    device=args.device) * 1e3
     print(f'bwd both (H2)  {ms:8.4f} ms ({flash.bwd_route(b.D)})',
           flush=True)
-    hopper = flash.bwd_route(b.D)
+    hopper = bwd_route(b.D)
     return {'bwd_ms': ms, **{
         library: {f'{kernel} {mode}': run(kernel, mode, b, lse, delta,
                                           args.reps, library)

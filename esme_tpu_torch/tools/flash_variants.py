@@ -37,7 +37,7 @@ from ..ops.attention import NEG_INF
 from ..profiling import benchmark
 from . import (FLASH_LSE_ATOL, FLASH_O_FLOOR, FLASH_O_REL, FWD_SEED,
                SUM_REL, attention_batch, bound_ms, check_cuda_tensors,
-               pad_rows, parse_args, scaled_error, segment_pairs)
+               fwd_route, pad_rows, parse_args, scaled_error, segment_pairs)
 from .fwd_T_experiment import work as flash_work
 
 LOG2E, LN2 = math.log2(math.e), math.log(2.0)
@@ -203,9 +203,9 @@ def variant_fwd_plain(mode: str, q2, k2, v2, seg_ids, kstart, kend,
 
 
 def _library(library, head_dim: int) -> str:
-    """``library``, a key of ``FORMS``, or H1's route at ``head_dim``
-    when None."""
-    library = flash.fwd_route(head_dim) if library is None else library
+    """``library``, a key of ``FORMS``, or the tools' form of H1 at
+    ``head_dim`` (:func:`esme_tpu_torch.tools.fwd_route`) when None."""
+    library = fwd_route(head_dim) if library is None else library
     if library not in FORMS:
         raise ValueError(f'unknown library {library!r}; one of '
                          f'{list(FORMS)}')
@@ -215,7 +215,7 @@ def _library(library, head_dim: int) -> str:
 def variant_fwd(mode: str, q2, k2, v2, seg_ids, kstart, kend,
                 num_heads: int, scale=None, library: str | None = None):
     """H1 in ablation mode ``mode`` (kernel H6) on ``library``'s form (a
-    key of ``FORMS``; H1's route at D when None, the Hopper
+    key of ``FORMS``; the tools' form at D when None, the Hopper
     form at 64): the arguments and outputs of
     :func:`esme_tpu_torch.ops.flash.segment_flash_fwd`, D = 64 only.
     ``baseline`` launches the form's own production instantiation. On the
@@ -362,7 +362,7 @@ def main(argv=None):
                         dtype=args.dtype)
     print(f'shape: H={b.H} D={b.D} T={b.T} {args.dtype} on {args.device}',
           flush=True)
-    hopper = flash.fwd_route(b.D)
+    hopper = fwd_route(b.D)
     libraries = (args.library,) if args.library else \
         (hopper, *(n for n in FORMS if n != hopper))
     return {library: {mode: run(mode, b, args.reps, library)

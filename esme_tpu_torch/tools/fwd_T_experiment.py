@@ -33,8 +33,9 @@ from ..ops import flash
 from ..ops.attention import NEG_INF
 from ..profiling import benchmark
 from . import (FLASH_LSE_ATOL, FLASH_O_FLOOR, FLASH_O_REL, FWD_SEED,
-               attention_batch, bound_ms, check_cuda_tensors, hdt_to_thd,
-               parse_args, scaled_error, segment_pairs, steps, thd_to_hdt)
+               SM90_HEAD_DIMS, attention_batch, bound_ms, check_cuda_tensors,
+               hdt_to_thd, parse_args, scaled_error, segment_pairs, steps,
+               thd_to_hdt)
 
 BLOCK_Q, BLOCK_K = flash.BLOCK_Q, flash.BLOCK_K
 
@@ -48,9 +49,10 @@ FWD_T_ROUTES = {
 
 def fwd_T_route(head_dim: int, T: int) -> str:
     """The library H5 launches: H1's Hopper kernel (token-minor layout) at
-    its head dims when T % 8 == 0, where a token-minor row is a multiple
+    the head dims it is built for (``esme_tpu_torch.tools.SM90_HEAD_DIMS``)
+    when T % 8 == 0, where a token-minor row is a multiple
     of 16 bytes as TMA requires; the mma.sync form otherwise."""
-    return 'flash_fwd_sm90' if head_dim in flash.SM90_HEAD_DIMS \
+    return 'flash_fwd_sm90' if head_dim in SM90_HEAD_DIMS \
         and T % 8 == 0 else 'flash_fwd_t'
 
 

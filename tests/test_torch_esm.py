@@ -4,8 +4,11 @@ Pallas path in interpret mode; and ``'reference'``: einsum attention)
 and vs the independent torch oracle (``tests/torch_oracle.py``), on the
 same weights, real tokens only.
 
-Shapes: ESM2-8M (6 layers, width 320, 20 heads, head dim 16) and
-ESM2-650M's width cut to 2 layers (1280, 20 heads, head dim 64).
+Shapes: ESM2-8M (6 layers, width 320, 20 heads, head dim 16),
+ESM2-650M's width cut to 2 layers (1280, 20 heads, head dim 64), and
+narrow cases of the other head dims, each cut to 2 layers: ESM2-35M
+(480, 20 heads, head dim 24), ESM2-150M's width (640, 20 heads, head dim
+32) and head dim 128 at 4 heads (width 512; ESM2-15B's head dim).
 
 Gates on the log-probabilities:
 * fp32 — 5e-5 absolute: the same fp32 math in another summation order
@@ -40,7 +43,8 @@ from esme_tpu_torch.models.io import params_from_jax
 from torch_oracle import forward_oracle
 
 AA = list('LAGVSERTIDPKQNFYMHWC')
-SHAPES = {'8m': (6, 320, 20), '650m_w': (2, 1280, 20)}
+SHAPES = {'8m': (6, 320, 20), '650m_w': (2, 1280, 20),
+          '35m': (2, 480, 20), '150m_w': (2, 640, 20), 'd128': (2, 512, 4)}
 FP32_ATOL = 5e-5
 
 

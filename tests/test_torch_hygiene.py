@@ -207,13 +207,15 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
 
 
 def test_bwd_route_is_a_static_rule_on_head_dim():
-    """H2 launches the Hopper form (``flash_bwd_sm90``) at head dims 32,
-    64 and 128 and the mma.sync form (``flash_bwd``) at 16 and 24; each
-    route's entry and error string are bound C functions."""
+    """H2 launches the Hopper form (``flash_bwd_sm90``) at every head dim,
+    16 and 24 included; the mma.sync form (``flash_bwd``) stays a bound
+    library. Each route's entry and error string are bound C
+    functions."""
     from esme_tpu_torch import _build
     assert {D: tflash.bwd_route(D) for D in tflash.HEAD_DIMS} == {
-        16: 'flash_bwd', 24: 'flash_bwd', 32: 'flash_bwd_sm90',
+        16: 'flash_bwd_sm90', 24: 'flash_bwd_sm90', 32: 'flash_bwd_sm90',
         64: 'flash_bwd_sm90', 128: 'flash_bwd_sm90'}
+    assert tflash.bwd_route(48) == 'flash_bwd'
     for name, fns in tflash.BWD_ROUTES.items():
         assert set(fns) <= set(_build.SIGNATURES[name])
     assert set(_build.SIGNATURES['flash_bwd_sm90']) == {
@@ -234,14 +236,16 @@ def test_bwd_route_is_a_static_rule_on_head_dim():
 
 
 def test_fwd_route_is_a_static_rule_on_head_dim():
-    """H1 launches the Hopper form (``flash_fwd_sm90``) at head dims 32,
-    64 and 128 and the mma.sync form (``flash_fwd``) at 16 and 24; each
-    route's entry and error string are bound C functions, and each of the
-    Hopper library's bound functions is defined in its source."""
+    """H1 launches the Hopper form (``flash_fwd_sm90``) at every head dim,
+    16 and 24 included; the mma.sync form (``flash_fwd``) stays a bound
+    library. Each route's entry and error string are bound C functions,
+    and each of the Hopper library's bound functions is defined in its
+    source."""
     from esme_tpu_torch import _build
     assert {D: tflash.fwd_route(D) for D in tflash.HEAD_DIMS} == {
-        16: 'flash_fwd', 24: 'flash_fwd', 32: 'flash_fwd_sm90',
+        16: 'flash_fwd_sm90', 24: 'flash_fwd_sm90', 32: 'flash_fwd_sm90',
         64: 'flash_fwd_sm90', 128: 'flash_fwd_sm90'}
+    assert tflash.fwd_route(48) == 'flash_fwd'
     for name, fns in tflash.FWD_ROUTES.items():
         assert set(fns) <= set(_build.SIGNATURES[name])
     assert set(_build.SIGNATURES['flash_fwd_sm90']) == {
@@ -264,6 +268,26 @@ def test_fwd_route_is_a_static_rule_on_head_dim():
         src = (_build.CSRC / f'{name}.cu').read_text()
         for fn in _build.SIGNATURES[name]:
             assert re.search(rf'^\S.* {fn}\(', src, re.M), fn
+
+
+def test_probe_tools_route_is_their_own_rule():
+    """The probe tools keep the forms they are built on where H1 and H2
+    moved: H5's token-minor Hopper kernel and H6's and H7's Hopper modes
+    at head dims 32-128, the mma.sync forms at 16 and 24 (where H1's and
+    H2's routes are the Hopper forms)."""
+    from esme_tpu_torch import tools
+    from esme_tpu_torch.tools import fwd_T_experiment
+    assert tools.SM90_HEAD_DIMS == (32, 64, 128)
+    assert {D: (tools.fwd_route(D), tools.bwd_route(D))
+            for D in tflash.HEAD_DIMS} == {
+        16: ('flash_fwd', 'flash_bwd'), 24: ('flash_fwd', 'flash_bwd'),
+        **{D: ('flash_fwd_sm90', 'flash_bwd_sm90') for D in (32, 64, 128)}}
+    assert [fwd_T_experiment.fwd_T_route(D, 1024) for D in (16, 24, 32)] \
+        == ['flash_fwd_t', 'flash_fwd_t', 'flash_fwd_sm90']
+    assert flash_variants._library(None, 24) == 'flash_fwd'
+    assert decompose_bwd._library(None, 16) == 'flash_bwd'
+    assert flash_variants._library(None, 64) == tflash.fwd_route(64)
+    assert decompose_bwd._library(None, 64) == tflash.bwd_route(64)
 
 
 @pytest.mark.parametrize('D', [16, 64])

@@ -12,8 +12,8 @@ Gates:
   plain version uses the final one: up to one ulp of the larger value
   apart, plus a small absolute part); lse within 1e-4 (both fp32,
   summed in another order).
-  Held on both of H1's routes (the Hopper form at D = 32, 64, 128, the
-  mma.sync form at 16, 24) and on one segment, 1-70-token segments and
+  Held on H1's route (the Hopper form at every head dim, 16 and 24 on
+  32-column tiles; the mma.sync form checked beside it) and on one segment, 1-70-token segments and
   interleaved ids, so on masked and unmasked tiles; the Hopper form is
   also bit-equal from call to call.
 * H2 (segment-flash backward), bf16 inputs: |g - g_plain| within
@@ -23,8 +23,8 @@ Gates:
   roundings can land on neighbouring bf16 values; one such flip of a
   large ds term moves one gradient element by up to ~2^-8·|ds|·|k|
   (measured up to 0.019·rms(g) at 8k tokens, see ``chip_smoke.py``).
-  Held on both of H2's routes (the Hopper form at D = 32, 64, 128, the
-  mma.sync form at 16, 24) and on one segment, 1-70-token segments and
+  Held on H2's route (the Hopper form at every head dim, 16 and 24 on
+  32-column tiles; the mma.sync form checked beside it) and on one segment, 1-70-token segments and
   interleaved ids, so on masked and unmasked tiles; the Hopper form is
   also bit-equal from call to call and pass by pass.
 * H3 (RoPE): bit equality; the kernel rounds each product and each sum
@@ -311,9 +311,9 @@ def _fwd_args(seg, H, D, dev, seed):
 @pytest.mark.parametrize('T', [1000, 1001, 8192])
 @pytest.mark.parametrize('D', [16, 24, 32, 64, 128])
 def test_flash_fwd_routes_match_plain_on_mask_layouts(cuda, D, T, layout):
-    """H1 (the Hopper form at D = 32, 64, 128; the mma.sync form at 16, 24)
-    against its plain version on masked and unmasked tiles (segment
-    layouts of ``_bwd_seg``), under H1's gates."""
+    """H1 on its route (the Hopper form at every head dim, 16 and 24 on
+    32-column tiles) against its plain version on masked and unmasked
+    tiles (segment layouts of ``_bwd_seg``), under H1's gates."""
     args = _fwd_args(_bwd_seg(layout, T, cuda, T), 2, D, cuda, D + T)
     before = flash.segment_flash_fwd.launches
     o, lse = flash.segment_flash_fwd(*args)
@@ -327,7 +327,7 @@ def test_flash_fwd_routes_match_plain_on_mask_layouts(cuda, D, T, layout):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('D', [32, 64, 128])
+@pytest.mark.parametrize('D', [16, 24, 32, 64, 128])
 def test_flash_fwd_sm90_is_deterministic(cuda, D):
     """Two calls of H1's Hopper form give bit-equal o and lse (no atomics),
     the same bits as its C entry called directly, and its outputs stay
@@ -350,8 +350,9 @@ def test_flash_fwd_sm90_is_deterministic(cuda, D):
 @pytest.mark.cuda
 def test_flash_fwd_sm90_refuses_what_it_does_not_take(cuda):
     """The wrapper's checks hold on the Hopper route (dtype, shape,
-    alignment, device), and its C entry refuses a head dim it was not
-    built for."""
+    alignment, device); its C entry takes head dims 16 and 24 and refuses
+    one it was not built for, and H5's token-minor entry refuses 16 and
+    24."""
     import ctypes
     from esme_tpu_torch import _build
     args = list(_fwd_args(_bwd_seg('one', 256, cuda, 0), 2, 64, cuda, 0))
@@ -373,9 +374,18 @@ def test_flash_fwd_sm90_refuses_what_it_does_not_take(cuda):
     o, lse = torch.empty_like(args[0]), torch.empty((2, 256), device=cuda)
     ptrs = [x.data_ptr() for x in (*args[:6], o, lse)]
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    for D in (16, 24, 48):
+    for D in (8, 40, 48):
         assert lib.esme_segment_flash_fwd_sm90(*ptrs, 256, 2, D, 0.1,
                                                stream) != 0
+    for D in (16, 24):
+        assert lib.esme_flash_fwd_t_sm90(*ptrs, 256, 2, D, 0.1, stream) != 0
+        args = _fwd_args(_bwd_seg('one', 256, cuda, 0), 2, D, cuda, D)
+        o, lse = torch.empty_like(args[0]), torch.empty((2, 256), device=cuda)
+        assert lib.esme_segment_flash_fwd_sm90(
+            *(x.data_ptr() for x in (*args[:6], o, lse)), 256, 2, D,
+            D ** -0.5, stream) == 0
+        torch.cuda.synchronize()
+        assert all(map(torch.equal, (o, lse), flash.segment_flash_fwd(*args)))
 
 
 @pytest.mark.cuda
@@ -453,9 +463,9 @@ def _bwd_inputs(seg, H, D, dev, seed):
 @pytest.mark.parametrize('T', [1000, 1001, 8192])
 @pytest.mark.parametrize('D', [16, 24, 32, 64, 128])
 def test_flash_bwd_routes_match_plain_on_mask_layouts(cuda, D, T, layout):
-    """H2 (the Hopper form at D = 32, 64, 128; the mma.sync form at 16, 24)
-    against its plain version on masked and unmasked tiles, under the H2
-    gate."""
+    """H2 on its route (the Hopper form at every head dim, 16 and 24 on
+    32-column tiles) against its plain version on masked and unmasked
+    tiles, under the H2 gate."""
     args = _bwd_inputs(_bwd_seg(layout, T, cuda, T), 2, D, cuda, D + T)
     before = flash.segment_flash_bwd.launches
     got = flash.segment_flash_bwd(*args)
@@ -470,7 +480,7 @@ def test_flash_bwd_routes_match_plain_on_mask_layouts(cuda, D, T, layout):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('D', [32, 64, 128])
+@pytest.mark.parametrize('D', [16, 24, 32, 64, 128])
 def test_flash_bwd_sm90_is_deterministic(cuda, D):
     """Two calls of the Hopper form give bit-equal dq, dk and dv (no
     atomics), and each of its passes alone (dk/dv, dq) gives the same bits
@@ -499,8 +509,9 @@ def test_flash_bwd_sm90_is_deterministic(cuda, D):
 
 @pytest.mark.cuda
 def test_flash_bwd_sm90_refuses_what_it_does_not_take(cuda):
-    """The wrapper's checks hold on the Hopper route, and its C entries
-    refuse a head dim or pass they were not built for."""
+    """The wrapper's checks hold on the Hopper route; its C entries take
+    head dims 16 and 24 and refuse a head dim or pass they were not built
+    for (the ablation modes at 16 and 24 too)."""
     import ctypes
     from esme_tpu_torch import _build
     args = list(_bwd_inputs(_bwd_seg('one', 256, cuda, 0), 2, 64, cuda, 0))
@@ -518,9 +529,19 @@ def test_flash_bwd_sm90_refuses_what_it_does_not_take(cuda):
     outs = [torch.empty_like(args[0]) for _ in range(3)]
     ptrs = [x.data_ptr() for x in (*args[:11], *outs)]
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    for D in (16, 24, 48):
+    for D in (8, 40, 48):
         assert lib.esme_segment_flash_bwd_sm90(*ptrs, 256, 2, D, 0.1,
                                                stream) != 0
+    for D in (16, 24):
+        assert lib.esme_flash_bwd_sm90_pass(0, 1, *ptrs, 256, 2, D, 0.1,
+                                            stream) != 0
+        args = _bwd_inputs(_bwd_seg('one', 256, cuda, 0), 2, D, cuda, D)
+        outs = [torch.empty_like(args[0]) for _ in range(3)]
+        assert lib.esme_segment_flash_bwd_sm90(
+            *(x.data_ptr() for x in (*args[:11], *outs)), 256, 2, D,
+            D ** -0.5, stream) == 0
+        torch.cuda.synchronize()
+        assert all(map(torch.equal, outs, flash.segment_flash_bwd(*args)))
     assert lib.esme_flash_bwd_sm90_pass(2, 0, *ptrs, 256, 2, 64, 0.1,
                                         stream) != 0
     assert lib.esme_flash_bwd_sm90_pass(0, 0, *ptrs, 256, 2, 48, 0.1,

@@ -49,6 +49,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from esme_tpu.ops import flash as jflash
 from esme_tpu.ops import segment as jseg
+from esme_tpu_torch import tools as ttools
 from esme_tpu_torch.ops import flash as tflash
 from esme_tpu_torch.tools import decompose_bwd as tdb
 from esme_tpu_torch.tools import flash_variants as tfv
@@ -434,13 +435,13 @@ def test_union_spans_pair_the_k_blocks():
 
 @pytest.mark.parametrize('D', tflash.HEAD_DIMS)
 def test_fwd_T_route_is_a_static_rule(D):
-    """H5 runs H1's Hopper kernel (token-minor layout) at its head dims
+    """H5 runs H1's Hopper kernel (token-minor layout) at the tools' head dims
     when T % 8 == 0, the mma.sync form otherwise; each route's entry and
     error string are bound C functions."""
     from esme_tpu_torch import _build
     for T in (1000, 1001, 1024, 8165, 50176):
-        want = 'flash_fwd_sm90' if D in tflash.SM90_HEAD_DIMS and T % 8 == 0 \
-            else 'flash_fwd_t'
+        want = 'flash_fwd_sm90' \
+            if D in ttools.SM90_HEAD_DIMS and T % 8 == 0 else 'flash_fwd_t'
         assert tft.fwd_T_route(D, T) == want
     for name, fns in tft.FWD_T_ROUTES.items():
         assert set(fns) <= set(_build.SIGNATURES[name])
