@@ -226,9 +226,38 @@ line is phase 12's JSON:
    entries (H2's Hopper passes alone too) beside its plain version, the
    varlen library call (its ratio logged, not gated) and the bound with
    the exps at the SFU rate as a third term; at 16 and 24, where the
-   route is the Hopper form, that form must beat the mma.sync form.
+   route is the Hopper form, that form must beat the mma.sync form;
+13. the memory slice, every line naming the card and its power limit
+   (``check_memory``): first, how many repeated calls of the card's
+   embedding backward give other bits (logged, not gated); (a) ESM2-650M
+   (seed-0 weights) on phase 5's ``ckpt@50k`` batch, one step's loss,
+   every leaf's gradient and the gradient reaching the token embedding
+   with ``remat='attn'`` bit-equal to ``remat='full'``'s (but a leaf whose backward is not reproducible
+   from call to call on the card, ``NONDETERMINISTIC_LEAVES``, which is
+   held under the remat gates), then the ``ckpt@50k`` cell with each
+   policy (launches exact: H1 66 with 'full', 33 with 'attn'; H2 33; H3
+   99), ms per step, real tokens/s, MFU and peak memory side by side;
+   (b) the same for ESMC-300M and ESM1b (seeded as in phase 9), with
+   phase 5's gradient checks at 4k; (c) phase 11's one-rank
+   ``ShardedMaskedPLM(seq_axis='seq')`` cell with ``remat='attn'``:
+   gradients bit-equal to ``'full'``'s and H9 33, H10 33 per step; (d)
+   ESM2-650M ``nockpt@10k`` with ``optimizer=adam8bit(1e-4)``: the first
+   update on the card bit-equal (codes, scales, params) to the same
+   arithmetic on the CPU from the same gradients, its state exactly one
+   byte per param and moment plus two fp32 scales per leaf, each
+   optimizer's step timed alone beside Adam's, then an Adam and an
+   ``adam8bit`` cell (10 timed steps, the losses finite and falling) with
+   their peaks; (e) ESM2-3B ``nockpt@10k`` with ``adam8bit`` (10 timed
+   steps) beside phase 12's Adam peak; (f) ESM2-650M ``nockpt@10k`` with
+   ``offload_optimizer=True`` for three steps from fresh weights: each
+   loss within ``CP_LOSS_REL`` of the same arithmetic on the card
+   (``MasterAdam``: fp32 masters and Adam there), the first equal to
+   ``MaskedPLM``'s, each step's parts timed alone (device, grads down,
+   host update, params up), the peaks, the host memory the offload holds
+   and the cores.
 
-The last three lines are the kernels' JSON, the measurements' JSON and
+Each phase's seconds are logged and kept in the measurements line
+(``phase_s``). The last three lines are the kernels' JSON, the measurements' JSON and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -2057,6 +2086,13 @@ def main(argv):
         fail(f'the esme_tpu_torch package is not beside this script ({e})')
     t_start = time.perf_counter()
     dev = torch.device(DEVICE)
+    phase_s, t_phase = {}, [t_start]
+
+    def phase_done(n):
+        now = time.perf_counter()
+        phase_s[n] = now - t_phase[0]
+        t_phase[0] = now
+        log(f'phase {n}: {phase_s[n]:.1f} s')
 
     # 1. the card
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
@@ -2069,6 +2105,7 @@ def main(argv):
     log(f'torch {torch.__version__}, CUDA {torch.version.cuda}, '
         f'{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} '
         f'device(s), python {sys.version.split()[0]}')
+    phase_done(1)
 
     # 2. build
     t0 = time.perf_counter()
@@ -2083,6 +2120,7 @@ def main(argv):
     h8_ptxas = check_probes_sm90_ptxas()
     rect_ptxas = check_rect_ptxas()
     rect_bwd_ptxas = check_rect_bwd_ptxas()
+    phase_done(2)
     if size_runs is not None:      # phase 12 alone, on the sizes named
         from esme_tpu_torch.models.config import ESM2_SIZES
         dims = {(c['embed_dim'] // c['attention_heads'],
@@ -2136,6 +2174,7 @@ def main(argv):
     for d in (16, 24, 32, 64, 128):
         for t in (CHECK_BUDGET, CHECK_BUDGET - 1):    # T % 8 != 0 too
             check_relayout(t, 20 if d < 128 else 40, d, dev)
+    phase_done(3)
 
     # 4. the inference path
     from esme_tpu_torch import ESM2
@@ -2158,6 +2197,7 @@ def main(argv):
         _profile(lambda: model.predict_log_prob(tokens,
                                                 pad_args=(cu, max_len)),
                  profile_dir, 'profile_main.txt', 'forward')
+    phase_done(4)
 
     # 5. the training path
     cells = {}
@@ -2168,9 +2208,11 @@ def main(argv):
     fit_losses = check_fit(model, MaskedPLM)
     del model
     torch.cuda.empty_cache()
+    phase_done(5)
 
     # 6. the attention op API
     ops = check_op_api(cu, dev)
+    phase_done(6)
 
     # 7. times
     h1_err, h1_lse_err = check_flash(cu, BUDGET, H, D, dev, seed=7,
@@ -2258,16 +2300,19 @@ def main(argv):
 
     h4_modes = time_relayouts(T, H, D, dev, card)
     h4 = h4_modes[next(iter(RELAYOUTS))]
+    phase_done(7)
 
     # 8. the probe tools' kernels
     probe_kernels = check_probes(
         dev, {'ms': h1_ms, 'mma_sync_ms': h1_mma_sync_ms},
         {'ms': h2_ms, 'mma_sync_ms': mma_sync_ms, 'library_ms': h2_lib_ms},
         card, h8_ptxas)
+    phase_done(8)
 
     # 9. the other families
     family_kernels, families = check_families(
         dev, MaskedPLM, (tokens, cu, max_len), profile_dir)
+    phase_done(9)
 
     # 10. context parallelism: the path, then H9's times
     cp = check_cp(dev, (tokens, cu, max_len), infer['ms_per_batch'])
@@ -2275,6 +2320,7 @@ def main(argv):
     h9.update(launches=cp['launches'][H9_NAME],
               check_batch_max_abs_err=rect_err,
               check_batch_lse_max_abs_err=rect_lse_err, ptxas=rect_ptxas)
+    phase_done(10)
 
     # 11. context-parallel training: the path, then H10's times
     cp_train = check_cp_train(dev, cells['ckpt'], profile_dir)
@@ -2282,6 +2328,7 @@ def main(argv):
     h10.update(launches=cp_train['launches'][H10_NAME],
                check_batch_max_abs_err=rect_bwd_err,
                check_batch_gate_share=rect_bwd_share, ptxas=rect_bwd_ptxas)
+    phase_done(11)
 
     # 12. every ESM2 size, then H1's and H2's times at their head dims
     sizes, head_dim_rows = check_sizes(dev, MaskedPLM, (tokens, cu, max_len),
@@ -2295,6 +2342,13 @@ def main(argv):
                 if kernel == H1_NAME else {
                     key: c['launches'][kernel]
                     for key, c in sizes[size]['train'].items()}
+    phase_done(12)
+
+    # 13. the memory slice
+    memory = check_memory(dev, card, cp_train, sizes)
+    phase_done(13)
+    attn_cells = {'esm2_650m': memory['a_esm2_650m'],
+                  **{name: memory[f'b_{name}'] for name in MEMORY_FAMILIES}}
 
     train_launches = {key: c['launches'] for key, c in cells.items()}
     kernels = [
@@ -2310,6 +2364,9 @@ def main(argv):
          'launches': launches[H1_NAME],
          'train_launches': {key: c[H1_NAME]
                             for key, c in train_launches.items()},
+         'remat_launches': {f'{name} ckpt {remat}': cell[remat]['launches'][
+             H1_NAME] for name, cell in attn_cells.items()
+             for remat in ('full', 'attn')},
          'max_abs_err': h1_err,
          'lse_max_abs_err': h1_lse_err, 'ms': h1_ms,
          'plain_ms': h1_plain_ms, 'bound_ms': h1_bound, 'bound_by': h1_by,
@@ -2376,7 +2433,8 @@ def main(argv):
          'library_ms': h4['library_ms'], 'mode': next(iter(RELAYOUTS)),
          'modes': h4_modes, 'shape': f'T={T} H={H} D={D} bf16',
          'bytes': h4['bytes']},
-        h9,
+        {**h9, 'attn_train_launches': memory['c_context_parallel']['attn'][
+            'launches'][H9_NAME]},
         h10,
         *probe_kernels,
         *family_kernels,
@@ -2398,6 +2456,8 @@ def main(argv):
         'context_parallel': cp,
         'context_parallel_training': cp_train,
         'sizes': sizes,
+        'memory': memory,
+        'phase_s': phase_s,
         'build_s': build_s,
         'model_checks': model_checks, 'torch': torch.__version__,
         'cuda': torch.version.cuda,
@@ -3958,6 +4018,508 @@ def check_sizes(dev, plm_cls, batch, runs=SIZE_RUNS, head_dims=SIZE_HEAD_DIMS,
         for kernel, row in time_head_dim(d, h, cu, tcu, dev).items():
             rows[kernel][str(d)] = row
     return sizes, rows
+
+
+# Phase 13, the memory slice. The ESM2-650M cells of (d) and (f) are
+# phase 5's nockpt@10k; (d) and (e) take ten timed steps (phase 12's count
+# for 3B, whose fresh optimizer lifts the loss at step 3); (f) compares
+# CP_COMPARE_STEPS steps with MaskedPLM's under CP_LOSS_REL.
+MEMORY_FAMILIES = ('esmc_300m', 'esm1b')
+ADAM8BIT_REPS = 10
+OPTIMIZER_REPS = 3
+
+
+def build_esm2(cfg, dev):
+    from esme_tpu_torch import ESM2
+    model = ESM2(**cfg, dtype='bfloat16', rng=0, device=dev)
+    torch.cuda.synchronize()
+    return model, sum(p.numel() for p in _leaves(model.params))
+
+
+# The one leaf whose gradient is not reproducible from call to call on
+# the card: ``aten::embedding_dense_backward`` (``F.embedding``'s backward,
+# models/modules.py:embed_tokens) gives other bits in repeated calls on the
+# same inputs at ESMC's vocabulary of 64 (``embedding_backward_repeats``
+# counts them in each run). Phase 13 holds that leaf under the remat gates
+# and the gradient that reaches the embedding bit-equal.
+NONDETERMINISTIC_LEAVES = ('embed_tokens',)
+EMBEDDING_REPEATS = 4
+
+
+def embedding_backward_repeats(dev, card):
+    """How many of ``EMBEDDING_REPEATS`` calls of
+    ``aten::embedding_dense_backward`` after a first give other bits than
+    the first, on the same bf16 gradient and ids (50,176 tokens, seed 0),
+    at ESMC's vocabulary and width (64, 960) and ESM2's (33, 1280). Logged,
+    not gated: the reason for ``NONDETERMINISTIC_LEAVES``."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for vocab, width in ((64, 960), (33, 1280)):
+        ids = torch.randint(0, vocab, (50_176,), device=dev, generator=gen)
+        dy = torch.randn(50_176, width, device=dev, generator=gen) \
+            .to(torch.bfloat16)
+        first, *rest = [torch.ops.aten.embedding_dense_backward(
+            dy, ids, vocab, -1, False) for _ in range(EMBEDDING_REPEATS + 1)]
+        out[f'vocab {vocab}, width {width}'] = sum(
+            not torch.equal(first, r) for r in rest)
+    log(f'[{card}] aten::embedding_dense_backward: repeated calls on the '
+        f'same inputs whose bits differ from the first, of '
+        f'{EMBEDDING_REPEATS}: {out}')
+    return out
+
+
+def grads_and_embedding_grad(plm, batch):
+    """``plm._grad_step(batch)`` and the gradient of the loss with respect
+    to the token embedding's output (a hook on ``embed_tokens``)."""
+    from esme_tpu_torch.models import esm as mesm
+    embed, box = mesm.embed_tokens, {}
+
+    def hooked(tokens, params, cfg):
+        x = embed(tokens, params, cfg)
+        if x.requires_grad:
+            x.register_hook(lambda g: box.__setitem__('dx', g.clone()))
+        return x
+    mesm.embed_tokens = hooked
+    try:
+        loss, grads = plm._grad_step(batch)
+    finally:
+        mesm.embed_tokens = embed
+    return loss, grads, box['dx']
+
+
+def remat_grads(plm_cls, model, batch, what):
+    """The loss, every leaf's gradient and the gradient reaching the token
+    embedding of one step under ``remat='full'`` and ``remat='attn'``
+    (``plm_cls(model, remat)``, a step of ``_grad_step(batch)``): fails
+    unless the loss, the embedding's incoming gradient and every leaf are
+    bit-equal, but a leaf of ``NONDETERMINISTIC_LEAVES``, which may differ
+    within the remat gates (``REMAT_MIN_COS``, ``REMAT_MAX_REL``)."""
+    loss_f, grads_f, dx_f = grads_and_embedding_grad(plm_cls(model, 'full'),
+                                                     batch)
+    loss_a, grads_a, dx_a = grads_and_embedding_grad(plm_cls(model, 'attn'),
+                                                     batch)
+    pairs = list(_leaf_pairs(grads_a, grads_f))
+    differ = [name for name, a, b in pairs if not torch.equal(a, b)]
+    noisy = {name: a for name, a, _ in pairs
+             if name in differ and name in NONDETERMINISTIC_LEAVES}
+    check = compare_grads(noisy,
+                          {name: b for name, _, b in pairs if name in noisy},
+                          REMAT_MIN_COS, REMAT_MAX_REL,
+                          f'{what}: the nondeterministic leaves') \
+        if noisy else None
+    dx_equal = bool(torch.equal(dx_a, dx_f))
+    log(f"{what}: remat='attn' vs 'full', one step: loss {loss_a.item():.6f} "
+        f'vs {loss_f.item():.6f}; the gradient reaching the embedding '
+        f'bit-equal {dx_equal}; {len(pairs) - len(differ)} of {len(pairs)} '
+        f'leaves bit-equal' + (f', {sorted(noisy)} within the remat gates '
+                               f'({check})' if noisy else ''))
+    if not torch.equal(loss_a, loss_f) or not dx_equal \
+            or set(differ) - set(noisy):
+        fail(f"{what}: remat='attn' is not bit-equal to 'full': loss "
+             f'{loss_a.item()} vs {loss_f.item()}, the embedding\'s incoming '
+             f'gradient equal {dx_equal}, leaves {differ}')
+    del grads_f, grads_a
+    torch.cuda.empty_cache()
+    return {'loss': loss_a.item(), 'leaves': len(pairs),
+            'bit_equal': len(pairs) - len(differ),
+            'embedding_grad_bit_equal': dx_equal,
+            'nondeterministic_leaves': check}
+
+
+def check_remat_attn(card, name, model, n_params, grad_checks=False):
+    """Phase 13 (a), (b): ``model`` in TRAIN_CELLS' ``ckpt@50k`` cell with
+    ``remat='attn'`` beside ``remat='full'``: one step's loss and every
+    leaf's gradient bit-equal, then each policy's cell (launches exact:
+    H1 2·L with 'full' and L with 'attn', H2 L, H3 3·L of which L inverse
+    where the family has RoPE), ms per step, real tokens/s, MFU and peak
+    memory; with ``grad_checks``, phase 5's gradient checks at 4k."""
+    import functools
+    from esme_tpu_torch.train import MaskedPLM
+    key, budget, ckpt, reps, falls = TRAIN_CELLS[1]
+    L, rot = model.config.num_layers, int(model.config.rotary)
+    what = f'[{card}] {name} {key}@{budget}'
+    model.checkpointing = True
+    batch, _ = train_batch(budget, model)
+    out = {'grads': remat_grads(lambda m, r: MaskedPLM(m, remat=r), model,
+                                batch, what)}
+    model.checkpointing = False
+    if grad_checks:
+        out['grad_checks'] = check_grads(model, MaskedPLM, f'[{card}] {name} ')
+    for remat in ('full', 'attn'):
+        out[remat] = train_cell(
+            model, functools.partial(MaskedPLM, remat=remat),
+            f'{key}_{remat}', budget, ckpt, reps, falls, n_params, None,
+            what=f'[{card}] {name} remat={remat!r} ',
+            expected=expected_launches(**{
+                H1_NAME: (2 if remat == 'full' else 1) * L, H2_NAME: L,
+                H3_NAME: rot * 3 * L, 'rope_inverse': rot * L}))
+    f, a = out['full'], out['attn']
+    out['ms_ratio'] = a['ms_per_step'] / f['ms_per_step']
+    out['peak_delta_gib'] = a['peak_mem_gib'] - f['peak_mem_gib']
+    log(f"{what}: remat='attn' {a['ms_per_step']:.2f} ms per step "
+        f"({a['real_tokens_per_s']:.1f} real tokens/s, MFU {a['mfu']:.4f}, "
+        f"peak {a['peak_mem_gib']:.2f} GiB) against 'full' "
+        f"{f['ms_per_step']:.2f} ms ({f['real_tokens_per_s']:.1f}, "
+        f"{f['mfu']:.4f}, {f['peak_mem_gib']:.2f} GiB): "
+        f"{out['ms_ratio']:.4f} of its time, "
+        f"{out['peak_delta_gib']:+.2f} GiB")
+    return out
+
+
+def check_cp_remat_attn(dev, card, phase11):
+    """Phase 13 (c): phase 11's one-rank ``ShardedMaskedPLM(seq_axis=
+    'seq')`` ``ckpt@50k`` with ``remat='attn'``: one step's loss and every
+    leaf's gradient bit-equal to ``remat='full'``'s, then its cell with
+    launches exact (H9 L, H10 L, H3 3·L of which L inverse), beside phase
+    11's cell. The process group is destroyed at the end."""
+    import torch.distributed as dist
+    from esme_tpu_torch.parallel import initialize_distributed, make_mesh
+    from esme_tpu_torch.train import ShardedMaskedPLM
+    key, budget, ckpt, reps, _ = TRAIN_CELLS[1]
+    initialize_distributed(f'127.0.0.1:{free_port()}', 1, 0,
+                           device=dev.type)
+    try:
+        mesh = make_mesh(1, 1, seq=1, device=dev.type)
+        model, n_params = build_esm2(MODEL, dev)
+        L = model.config.num_layers
+        model.checkpointing = True
+        batch, _ = train_batch(budget, model)
+
+        class sharded:
+            def __init__(self, m, learning_rate=1e-4, remat='attn'):
+                self.plm = ShardedMaskedPLM(m, mesh, seq_axis='seq',
+                                            learning_rate=learning_rate,
+                                            remat=remat)
+
+            def training_step(self, batch):
+                return self.plm.training_step([batch])
+
+            def _grad_step(self, batch):
+                return self.plm._grad_step([batch])
+        what = f'[{card}] context-parallel {key}@{budget}'
+        out = {'grads': remat_grads(lambda m, r: sharded(m, remat=r), model,
+                                    batch, what)}
+        cell = train_cell(
+            model, sharded, f'cp_{key}_attn', budget, ckpt, CP_TRAIN_STEPS,
+            True, n_params, None,
+            what=f"[{card}] ShardedMaskedPLM(seq_axis=seq, remat='attn'): ",
+            expected=expected_launches(**{
+                H9_NAME: L, H10_NAME: L, H3_NAME: 3 * L, 'rope_inverse': L}))
+        out['attn'] = cell
+        out['phase11_ms_per_step'] = phase11['ms_per_step']
+        out['phase11_peak_mem_gib'] = phase11['peak_mem_gib']
+        log(f"{what}: remat='attn' {cell['ms_per_step']:.2f} ms per step, "
+            f"peak {cell['peak_mem_gib']:.2f} GiB; 'full' (phase 11) "
+            f"{phase11['ms_per_step']:.2f} ms, "
+            f"{phase11['peak_mem_gib']:.2f} GiB")
+        del model
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def optimizer_ms(plm, batch):
+    """The median host-clock ms of ``plm.optimizer.step()`` alone, on one
+    batch's gradients, between synchronisations (``OPTIMIZER_REPS``)."""
+    from esme_tpu_torch.ops.linear import fp32_accumulation
+    with fp32_accumulation():
+        plm._loss(plm._views, batch).backward()
+    samples = []
+    for _ in range(OPTIMIZER_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plm.optimizer.step()
+        torch.cuda.synchronize()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    plm._zero_grads()
+    return float(np.median(samples))
+
+
+def check_first_update(model, batch, card):
+    """Phase 13 (d)'s gate: the first ``adam8bit`` update on the card
+    against the same arithmetic on the CPU from the same gradients and
+    params. Every step of it is IEEE fp32 on both sides (the bias
+    corrections from the host, the divisors device tensors, the square
+    roots correctly rounded), so the codes, the scales and the updated
+    params must be bit-equal. Also its state's bytes: exactly one code
+    byte per param and moment, and two fp32 scales per leaf."""
+    from esme_tpu_torch.train import MaskedPLM, adam8bit
+    from esme_tpu_torch.train.trainer import (_leaves as tleaves, _map,
+                                              _rows, leaf_groups,
+                                              train_views)
+    plm = MaskedPLM(model, optimizer=adam8bit(1e-4))
+    _, grads = plm._grad_step(batch)
+    cpu_params = _map(lambda t: t.detach().to('cpu', copy=True), model.params)
+    cpu_views = train_views(cpu_params)
+    cpu_opt = adam8bit(1e-4)([{'params': g} for g in leaf_groups(cpu_views)])
+    cpu_rows = [t for t in tleaves(cpu_views) if t.requires_grad]
+    for p, g in zip(cpu_rows, _rows(_map(lambda t: t.cpu(), grads))):
+        p.grad = g
+    for p, g in zip(plm._params, _rows(grads)):
+        p.grad = g
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plm.optimizer.step()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cpu_opt.step()
+    t2 = time.perf_counter()
+    out = {'groups': len(plm.optimizer.param_groups), 'tensors': 0,
+           'codes_differ': 0, 'params_differ': 0, 'scales_differ': 0,
+           'card_ms': (t1 - t0) * 1e3, 'cpu_ms': (t2 - t1) * 1e3}
+    code_bytes = scale_bytes = 0
+    for g, cg in zip(plm.optimizer.param_groups, cpu_opt.param_groups):
+        head, chead = plm.optimizer.state[g['params'][0]], \
+            cpu_opt.state[cg['params'][0]]
+        for k in ('mu_scale', 'nu_scale'):
+            out['scales_differ'] += not torch.equal(head[k].cpu(), chead[k])
+            scale_bytes += head[k].numel() * head[k].element_size()
+        for p, cp in zip(g['params'], cg['params']):
+            out['tensors'] += 1
+            out['params_differ'] += int((p.detach().cpu() != cp.detach())
+                                        .sum())
+            for k in ('mu', 'nu'):
+                code = plm.optimizer.state[p][k]
+                code_bytes += code.numel() * code.element_size()
+                out['codes_differ'] += int(
+                    (code.view(torch.uint8).cpu()
+                     != cpu_opt.state[cp][k].view(torch.uint8)).sum())
+    n_params = sum(p.numel() for p in _leaves(model.params))
+    out.update(code_bytes=code_bytes, scale_bytes=scale_bytes,
+               params=n_params)
+    log(f'[{card}] adam8bit, the first update on the card against the CPU '
+        f'from the same gradients: {out}')
+    if out['codes_differ'] or out['params_differ'] or out['scales_differ']:
+        fail(f'adam8bit: the card\'s first update is not the CPU\'s: {out}')
+    if code_bytes != 2 * n_params or scale_bytes != 8 * out['groups']:
+        fail(f'adam8bit: the state holds {code_bytes} code bytes and '
+             f'{scale_bytes} scale bytes for {n_params} params in '
+             f'{out["groups"]} leaves')
+    del plm, cpu_opt, cpu_params, cpu_views, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_adam8bit(dev, card, size, cfg, check_update, phase_peak=None):
+    """Phase 13 (d), (e): ``size`` (an ESM2 config) in TRAIN_CELLS'
+    ``nockpt@10k`` cell with ``optimizer=adam8bit(1e-4)``, fresh seed-0
+    weights, ``ADAM8BIT_REPS`` timed steps under phase 5's gates; with
+    ``check_update``, first the first update against the CPU and an Adam
+    cell from the same weights beside it, and both optimizers' step
+    timed alone. ``phase_peak``: an earlier Adam cell's peak, logged."""
+    import functools
+    from esme_tpu_torch.train import MaskedPLM, adam8bit
+    key, budget, ckpt, _, falls = TRAIN_CELLS[0]
+    out = {}
+    plms = {'adam': MaskedPLM,
+            'adam8bit': functools.partial(MaskedPLM,
+                                          optimizer=adam8bit(1e-4))}
+    for opt in ('adam', 'adam8bit') if check_update else ('adam8bit',):
+        model, n_params = build_esm2(cfg, dev)
+        batch, _ = train_batch(budget, model)
+        if check_update and opt == 'adam8bit':
+            out['first_update'] = check_first_update(model, batch, card)
+            model, n_params = build_esm2(cfg, dev)
+        if check_update:
+            plm = plms[opt](model, learning_rate=1e-4)
+            out[f'{opt}_optimizer_ms'] = optimizer_ms(plm, batch)
+            del plm
+            model, n_params = build_esm2(cfg, dev)
+        out[opt] = train_cell(model, plms[opt], f'{key}_{opt}', budget, ckpt,
+                              ADAM8BIT_REPS, falls, n_params, None,
+                              what=f'[{card}] {size} {opt} ')
+        del model
+        torch.cuda.empty_cache()
+    cell = out['adam8bit']
+    line = (f"[{card}] {size} {key}@{budget} with adam8bit: "
+            f"{cell['ms_per_step']:.2f} ms per step, peak "
+            f"{cell['peak_mem_gib']:.2f} GiB")
+    if check_update:
+        out['peak_delta_gib'] = cell['peak_mem_gib'] \
+            - out['adam']['peak_mem_gib']
+        line += (f"; Adam {out['adam']['ms_per_step']:.2f} ms, "
+                 f"{out['adam']['peak_mem_gib']:.2f} GiB "
+                 f"({out['peak_delta_gib']:+.2f} GiB); optimizer step alone "
+                 f"{out['adam8bit_optimizer_ms']:.2f} ms against Adam's "
+                 f"{out['adam_optimizer_ms']:.2f} ms")
+    if phase_peak is not None:
+        out['adam_peak_mem_gib_phase12'] = phase_peak
+        line += f'; Adam (phase 12) {phase_peak:.2f} GiB'
+    log(line)
+    return out
+
+
+def rss_gib() -> float:
+    """This process's resident host memory (``/proc/self/status``)."""
+    with open('/proc/self/status') as f:
+        for row in f:
+            if row.startswith('VmRSS:'):
+                return int(row.split()[1]) / 2**20
+    return float('nan')
+
+
+class MasterAdam:
+    """The offload's arithmetic with everything on the card: ``MaskedPLM``'s
+    forward and backward on the bf16 params, fp32 master copies and
+    ``torch.optim.Adam(fused=True)`` over them on the card, the masters
+    rounded into the params after each update. Phase 13 (f) holds the
+    host-offloaded trainer to it."""
+
+    def __init__(self, model, learning_rate):
+        from esme_tpu_torch.train import MaskedPLM
+        from esme_tpu_torch.train.trainer import (_leaves as tleaves, _map,
+                                                  train_views)
+        self.plm = MaskedPLM(model, learning_rate=learning_rate)
+        self.masters = _map(lambda t: t.float(), model.params)
+        views = [t for t in tleaves(train_views(self.masters))
+                 if t.requires_grad]
+        self.pairs = list(zip(self.plm._params, views))
+        self.up = list(zip(_leaves(model.params), _leaves(self.masters)))
+        self.opt = torch.optim.Adam(views, lr=learning_rate, fused=True)
+
+    def training_step(self, batch):
+        from esme_tpu_torch.ops.linear import fp32_accumulation
+        with fp32_accumulation():
+            loss = self.plm._loss(self.plm._views, batch)
+            loss.backward()
+        for p, m in self.pairs:
+            m.grad = p.grad.float()
+            p.grad = None
+        self.opt.step()
+        with torch.no_grad():
+            for param, master in self.up:
+                param.copy_(master)
+        return float(loss.detach())
+
+
+def check_offload(dev, card):
+    """Phase 13 (f): ESM2-650M in TRAIN_CELLS' ``nockpt@10k`` cell with
+    ``offload_optimizer=True``, against the same arithmetic on the card
+    (:class:`MasterAdam`) and beside ``MaskedPLM`` on the card, each from
+    fresh seed-0 weights for ``CP_COMPARE_STEPS`` steps. Gates: each loss
+    within ``CP_LOSS_REL`` of :class:`MasterAdam`'s, the first equal to
+    ``MaskedPLM``'s (the same weights and forward), launches exact in the
+    first step (phase 5's). ``MaskedPLM``'s later losses are logged, not
+    gated: its Adam updates the bf16 params themselves, and at lr 1e-4 an
+    update under half an ulp of a weight is rounded away, where the fp32
+    masters keep it. Logged: each step's parts timed alone on the host
+    clock (the device's forward and backward, grads down, the host
+    update, params up), the peak device memory of each trainer, the host
+    memory the offload holds, the process's resident memory and the
+    host's cores."""
+    from esme_tpu_torch.train import MaskedPLM
+    key, budget, _, _, _ = TRAIN_CELLS[0]
+    L = MODEL['num_layers']
+    runs = {}
+    for name in ('masked_plm', 'master_adam', 'offload'):
+        model, _ = build_esm2(MODEL, dev)
+        batch, _ = train_batch(budget, model)
+        rss0 = rss_gib()
+        t0 = time.perf_counter()
+        plm = MasterAdam(model, 1e-4) if name == 'master_adam' else \
+            MaskedPLM(model, learning_rate=1e-4,
+                      offload_optimizer=name == 'offload')
+        setup_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        losses, ms, parts = [], [], []
+        for i in range(CP_COMPARE_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(plm.training_step(batch))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if name == 'offload':
+                parts.append(dict(plm._host.ms))
+            if i == 0:
+                expect_launches(f'[{card}] {name} {key}', read_counters(),
+                                **{H1_NAME: L, H2_NAME: L, H3_NAME: 2 * L,
+                                   'rope_inverse': L})
+        run = {'losses': losses, 'ms_per_step_samples': ms,
+               'ms_per_step': float(np.median(ms)), 'setup_s': setup_s,
+               'peak_mem_gib': torch.cuda.max_memory_allocated() / 2**30}
+        if name == 'offload':
+            run.update(parts=parts, host_gib=plm._host.host_bytes() / 2**30,
+                       rss_delta_gib=rss_gib() - rss0,
+                       cpu_count=os.cpu_count(),
+                       parts_median_ms={k: float(np.median([p[k]
+                                                            for p in parts]))
+                                        for k in parts[0]})
+        runs[name] = run
+        del plm, model
+        torch.cuda.empty_cache()
+    off, ref, bf = runs['offload'], runs['master_adam'], runs['masked_plm']
+
+    def rel(a, b):
+        return [abs(x - y) / abs(y) for x, y in zip(a['losses'],
+                                                    b['losses'])]
+    runs.update(loss_rel=rel(off, ref), loss_rel_masked_plm=rel(off, bf),
+                peak_delta_gib=off['peak_mem_gib'] - bf['peak_mem_gib'])
+    log(f'[{card}] ESM2-650M {key}@{budget}, offload_optimizer=True: losses '
+        f"{off['losses']} vs the same arithmetic on the card "
+        f"{ref['losses']} (relative {[f'{x:.2e}' for x in runs['loss_rel']]}"
+        f", gate {CP_LOSS_REL}) and MaskedPLM's {bf['losses']} (relative "
+        f"{[f'{x:.2e}' for x in runs['loss_rel_masked_plm']]}, the first "
+        f"equal); {off['ms_per_step']:.1f} ms per step (parts, medians "
+        f"{off['parts_median_ms']}) against MaskedPLM's "
+        f"{bf['ms_per_step']:.1f}; peak device memory "
+        f"{off['peak_mem_gib']:.2f} GiB against {bf['peak_mem_gib']:.2f} "
+        f"({runs['peak_delta_gib']:+.2f}); host memory held "
+        f"{off['host_gib']:.2f} GiB, resident {off['rss_delta_gib']:+.2f} "
+        f"GiB, {off['cpu_count']} cores, setup {off['setup_s']:.1f} s")
+    if not all(np.isfinite(off['losses'])) \
+            or max(runs['loss_rel']) > CP_LOSS_REL \
+            or off['losses'][0] != bf['losses'][0]:
+        fail(f'offload_optimizer: losses {off["losses"]} against the same '
+             f'arithmetic on the card {ref["losses"]} (gate {CP_LOSS_REL}) '
+             f'and MaskedPLM\'s {bf["losses"]} (the first equal)')
+    return runs
+
+
+def check_memory(dev, card, phase11, sizes):
+    """Phase 13, the memory slice: (a) ESM2-650M ``ckpt@50k`` with
+    ``remat='attn'`` beside ``'full'``; (b) ESMC-300M's and ESM1b's
+    ``ckpt@50k`` cells, both policies; (c) phase 11's one-rank CP cell with
+    ``remat='attn'``; (d) ESM2-650M ``nockpt@10k`` with ``adam8bit``; (e)
+    ESM2-3B ``nockpt@10k`` with ``adam8bit``; (f) ESM2-650M ``nockpt@10k``
+    with ``offload_optimizer=True``. Each part's seconds are logged."""
+    import esme_tpu_torch
+    from esme_tpu_torch.models.config import ESM2_SIZES
+    out, seconds = {}, {}
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        seconds[key] = time.perf_counter() - t0
+        log(f'[{card}] phase 13 {key}: {seconds[key]:.1f} s')
+
+    timed('embedding_backward_repeats',
+          lambda: embedding_backward_repeats(dev, card))
+    timed('a_esm2_650m', lambda: check_remat_attn(
+        card, 'esm2_650m', *build_esm2(MODEL, dev)))
+    for seed, (name, cls_name, kwargs, _) in enumerate(FAMILY_RUNS):
+        if name not in MEMORY_FAMILIES:
+            continue
+
+        def family(seed=seed, name=name, cls_name=cls_name, kwargs=kwargs):
+            model = getattr(esme_tpu_torch, cls_name)(**kwargs, rng=seed,
+                                                      device=dev)
+            n = sum(p.numel() for p in _leaves(model.params))
+            return check_remat_attn(card, name, model, n,
+                                    grad_checks=True)
+        timed(f'b_{name}', family)
+    timed('c_context_parallel', lambda: check_cp_remat_attn(dev, card,
+                                                            phase11))
+    timed('d_esm2_650m_adam8bit', lambda: check_adam8bit(
+        dev, card, 'esm2_650m', MODEL, True))
+    three_b = sizes.get('esm2_3b', {}).get('train', {}).get('nockpt', {})
+    timed('e_esm2_3b_adam8bit', lambda: check_adam8bit(
+        dev, card, 'esm2_3b', ESM2_SIZES['esm2_3b'], False,
+        three_b.get('peak_mem_gib')))
+    timed('f_offload', lambda: check_offload(dev, card))
+    out['seconds'] = seconds
+    return out
 
 
 def _leaf_pairs(got, ref, path=()):

@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention_rect, attention_reference
-from ..ops.flash import flash_spans, segment_flash, \
+from ..ops.flash import AttnStash, flash_spans, segment_flash, \
     segment_flash_rect
 from ..ops.fused_attn import fused_rotary_flash
 from ..ops import headsplit
@@ -77,7 +77,7 @@ def gelu_linear(x, kernel, bias=None):
 def attention_block(x, params, cfg, seg_ids, pos_ids,
                     attn_impl: str = 'auto',
                     rope: Optional[tuple] = None, spans=None,
-                    kv_gather=None):
+                    kv_gather=None, stash=None):
     """Multi-head self-attention over the packed layout
     (reference: esme/attention.py:91-139). ``x``: ``(T, C)``.
 
@@ -108,6 +108,11 @@ def attention_block(x, params, cfg, seg_ids, pos_ids,
     spans over the local and the gathered ids
     (:func:`~esme_tpu_torch.ops.flash.rect_flash_spans`), or None to
     compute them here.
+
+    ``stash``: the checkpointed layer's
+    :class:`~esme_tpu_torch.ops.flash.AttnStash` under ``remat='attn'``
+    (the flash routes keep o and lse in it, and the recompute launches no
+    H1 or H9), or None.
     """
     h = apply_norm(x, params['norm'])
     q = linear(h, params['q'])
@@ -123,14 +128,15 @@ def attention_block(x, params, cfg, seg_ids, pos_ids,
 
     if kv_gather is not None:
         o = _attention_cp(q, k, v, cfg, seg_ids, attn_impl, rope, spans,
-                          kv_gather)
+                          kv_gather, stash)
     elif attn_impl in ('auto', 'flash'):
         if cfg.rotary:
-            o = fused_rotary_flash(q, k, v, *rope, seg_ids, H, spans=spans)
+            o = fused_rotary_flash(q, k, v, *rope, seg_ids, H, spans=spans,
+                                   stash=stash)
         else:
             o = segment_flash(q, k, v, seg_ids, H,
                               flash_spans(seg_ids) if spans is None
-                              else spans)
+                              else spans, stash)
     elif attn_impl == 'reference':
         qh, kh = q.reshape(T, H, Dh), k.reshape(T, H, Dh)
         if cfg.rotary:
@@ -142,7 +148,8 @@ def attention_block(x, params, cfg, seg_ids, pos_ids,
     return linear(o, params['out'])
 
 
-def _attention_cp(q, k, v, cfg, seg_ids, attn_impl, rope, spans, kv_gather):
+def _attention_cp(q, k, v, cfg, seg_ids, attn_impl, rope, spans, kv_gather,
+                  stash=None):
     """The context-parallel branch of :func:`attention_block`: ``(T, H·D)``
     q, k, v of this rank's tokens -> ``(T, H·D)`` attention output over
     every rank's keys."""
@@ -164,7 +171,7 @@ def _attention_cp(q, k, v, cfg, seg_ids, attn_impl, rope, spans, kv_gather):
         seg_k = seg_k.to(torch.int32).contiguous()
         return segment_flash_rect(
             q.contiguous(), k_full.reshape(Tk, H * Dh),
-            v_full.reshape(Tk, H * Dh), seg_ids, seg_k, H, spans)
+            v_full.reshape(Tk, H * Dh), seg_ids, seg_k, H, spans, stash)
     o = attention_rect(q.reshape(T, H, Dh), k_full, v_full, seg_ids, seg_k)
     return o.reshape(T, H * Dh)
 
@@ -237,7 +244,7 @@ def mlp_block(x, params, cfg):
 def transformer_layer(x, params, cfg, seg_ids, pos_ids,
                       attn_impl: str = 'auto',
                       rope: Optional[tuple] = None, spans=None,
-                      kv_gather=None):
+                      kv_gather=None, stash=None):
     """Pre-norm residual block with residue scaling
     (reference: esme/attention.py:241-255). The branch is multiplied by
     ``1 / residue_scaling`` rounded to the activation dtype first, as JAX
@@ -251,7 +258,7 @@ def transformer_layer(x, params, cfg, seg_ids, pos_ids,
         return y if inv_scale == 1.0 else y * inv_scale
 
     x = x + scaled(attention_block(x, params['attn'], cfg, seg_ids, pos_ids,
-                                   attn_impl, rope, spans, kv_gather))
+                                   attn_impl, rope, spans, kv_gather, stash))
     return x + scaled(mlp_block(x, params['mlp'], cfg))
 
 
@@ -268,26 +275,21 @@ def num_layers(stacked: dict) -> int:
     return leaf.shape[0]
 
 
-def check_remat(remat: str, checkpointing: bool) -> None:
-    """``remat`` is 'full' or 'attn'; 'attn' (save only the flash outputs)
-    raises with checkpointing on, until the memory slice."""
+def check_remat(remat: str) -> None:
+    """``remat`` is 'full' (recompute the whole layer) or 'attn' (keep
+    the attention output and its lse, recompute the rest)."""
     if remat not in ('full', 'attn'):
         raise ValueError(f'unknown remat policy: {remat}')
-    if remat == 'attn' and checkpointing:
-        raise NotImplementedError(
-            "remat='attn' with checkpointing (save only the flash outputs) "
-            'comes with the memory slice, ROADMAP.md Queue 1, item 15; use '
-            "remat='full'")
 
 
 def _gathered_layer(x, params, cfg, seg_ids, pos_ids, attn_impl, rope, spans,
-                    kv_gather, layer_gather):
+                    kv_gather, layer_gather, stash=None):
     """:func:`transformer_layer` on the layer's params gathered by
     ``layer_gather`` (FSDP shards), or on ``params`` as they are."""
     if layer_gather is not None:
         params = layer_gather(params)
     return transformer_layer(x, params, cfg, seg_ids, pos_ids, attn_impl,
-                             rope, spans, kv_gather)
+                             rope, spans, kv_gather, stash)
 
 
 def layer_stack(x, stacked_params, cfg, seg_ids, pos_ids,
@@ -298,11 +300,18 @@ def layer_stack(x, stacked_params, cfg, seg_ids, pos_ids,
     """Run every layer over the per-layer params: a dict of stacked
     leaves, or a list of one dict per layer.
 
-    ``checkpointing`` with ``remat='full'`` recomputes each layer in the
-    backward from its input (``torch.utils.checkpoint``, the counterpart
-    of ``_remat_wrap``, ``esme_tpu/models/modules.py:328-340``). As in
-    JAX, ``remat`` is ignored without ``checkpointing``; with it,
-    ``remat='attn'`` raises until the memory slice.
+    ``checkpointing`` recomputes each layer in the backward from its input
+    (``torch.utils.checkpoint``, the counterpart of ``_remat_wrap``,
+    ``esme_tpu/models/modules.py:328-340``): all of it with
+    ``remat='full'``; with ``remat='attn'`` all but the flash kernel, whose
+    output o and lse the layer keeps (an
+    :class:`~esme_tpu_torch.ops.flash.AttnStash` per layer call, freed by
+    the attention's backward). That is JAX's policy of saving only
+    ``flash_out`` and ``flash_lse``: one H1 (or H9) launch per layer and
+    step instead of two, for ``T·H·D`` activations and ``H·T`` fp32 lse
+    kept per layer. The einsum route (``attn_impl='reference'``) has no
+    such outputs, so there 'attn' recomputes all, as in JAX. As in JAX,
+    ``remat`` is ignored without ``checkpointing``.
     Returns ``(x, reps)``: ``reps`` holds the outputs of the layers in
     ``collect_layers`` (negative indices count from the end), in that
     order (reference: esme/esm.py:243-250). ``kv_gather``: the
@@ -311,7 +320,7 @@ def layer_stack(x, stacked_params, cfg, seg_ids, pos_ids,
     param shards (``esme_tpu/models/modules.py:367-371``), called inside
     the checkpointed layer so that the recompute gathers again.
     """
-    check_remat(remat, checkpointing)
+    check_remat(remat)
     if isinstance(stacked_params, dict):
         layers = [layer_params(stacked_params, i)
                   for i in range(num_layers(stacked_params))]
@@ -324,7 +333,8 @@ def layer_stack(x, stacked_params, cfg, seg_ids, pos_ids,
         args = (x, layers[i], cfg, seg_ids, pos_ids, attn_impl, rope, spans,
                 kv_gather, layer_gather)
         if checkpointing and torch.is_grad_enabled():
-            x = checkpoint(_gathered_layer, *args, use_reentrant=False,
+            stash = AttnStash() if remat == 'attn' else None
+            x = checkpoint(_gathered_layer, *args, stash, use_reentrant=False,
                            preserve_rng_state=False)
         else:
             x = _gathered_layer(*args)

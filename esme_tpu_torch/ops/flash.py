@@ -541,43 +541,99 @@ def check_tiles(what: str, block_q: int, block_k: int) -> None:
                          f'{BLOCK_Q}x{BLOCK_K}, not {block_q}x{block_k}')
 
 
+class AttnStash:
+    """The attention output o and its lse that one checkpointed layer
+    keeps under ``remat='attn'``: the counterpart of JAX's
+    ``checkpoint_name`` marks ``flash_out``/``flash_lse``
+    (``esme_tpu/ops/fused_attn.py:128-130``, ``ops/flash.py:1076-1078``,
+    ``:1258-1260``) and the policy that saves only them
+    (``esme_tpu/models/modules.py:328-340``).
+
+    ``models/modules.py:layer_stack`` gives each checkpointed layer call
+    one stash, and its attention Function (:class:`_FlashAttention`,
+    :class:`_FlashRect`, ``ops/fused_attn.py:_FusedRotaryFlash``) passes
+    its forward through :meth:`forward`: the first forward launches the
+    kernel and keeps o and lse; the recompute in the backward launches
+    nothing and takes them back. The Function's backward clears the
+    stash once it has used them. A torch
+    selective-checkpoint policy cannot do this: it sees dispatcher ops
+    only, and the kernels launch through ``ctypes``."""
+
+    __slots__ = ('o', 'lse')
+
+    def __init__(self):
+        self.o = self.lse = None
+
+    def forward(self, launch):
+        """``launch() -> (o, lse)`` on the first call; on the next, the
+        kept pair. Either way aliases that share the kept storage
+        (``detach()``): the stored objects never come back, since a second
+        ``Function.apply`` would rewrite their autograd metadata, and
+        never as copies, which would cost what the stash saves."""
+        if self.o is None:
+            o, lse = launch()
+            self.o, self.lse = o.detach(), lse.detach()
+            return o, lse
+        return self.o.detach(), self.lse.detach()
+
+    def clear(self):
+        self.o = self.lse = None
+
+
+def _stashed(stash, launch):
+    """``launch()`` through ``stash`` (:class:`AttnStash`), or straight
+    without one."""
+    return launch() if stash is None else stash.forward(launch)
+
+
+def _release(stash):
+    if stash is not None:
+        stash.clear()
+
+
 class _FlashAttention(torch.autograd.Function):
     """Segment-flash attention over ``(T, H·D)`` with its gradient:
     forward H1, backward ``delta = rowsum(do·o)`` and H2. ``seg_ids`` and
     the spans get no gradient. The kernels are looked up in this module
-    at call time, so a caller may swap in their plain versions."""
+    at call time, so a caller may swap in their plain versions. With a
+    ``stash`` (:class:`AttnStash`) a checkpointed layer's recompute takes
+    o and lse from it instead of launching H1."""
 
     @staticmethod
-    def forward(ctx, q2, k2, v2, seg_ids, num_heads, spans):
-        o, lse = segment_flash_fwd(q2, k2, v2, seg_ids, spans[0], spans[1],
-                                   num_heads)
+    def forward(ctx, q2, k2, v2, seg_ids, num_heads, spans, stash):
+        o, lse = _stashed(stash, lambda: segment_flash_fwd(
+            q2, k2, v2, seg_ids, spans[0], spans[1], num_heads))
         ctx.save_for_backward(q2, k2, v2, o, lse, seg_ids, *spans)
         ctx.num_heads = num_heads
+        ctx.stash = stash
         return o
 
     @staticmethod
     def backward(ctx, do2):
         q2, k2, v2, o, lse, seg_ids, *spans = ctx.saved_tensors
+        _release(ctx.stash)
         H = ctx.num_heads
         do2 = do2.to(o.dtype).contiguous()
         delta = attention_delta(o, do2, H)
         dq, dk, dv = segment_flash_bwd(q2, k2, v2, do2, lse, delta, seg_ids,
                                        *spans, H)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
-def segment_flash(q2, k2, v2, seg_ids, num_heads: int, spans):
+def segment_flash(q2, k2, v2, seg_ids, num_heads: int, spans, stash=None):
     """Segment-flash attention over ``(T, H·D)`` q/k/v as they are (no
     RoPE): H1 forward and, where q, k or v needs a gradient, H2 backward
     through :class:`_FlashAttention`. The model's route without rotary
     embeddings (ESM1b, ESM1v), where JAX runs ``fused_rotary_flash`` with
     identity tables (``esme_tpu/models/modules.py:189-194``), an exact
     rotation: the same o, with no H3 launch in either direction.
-    ``seg_ids``: int32; ``spans``: :func:`flash_spans` of them."""
+    ``seg_ids``: int32; ``spans``: :func:`flash_spans` of them;
+    ``stash``: the checkpointed layer's :class:`AttnStash` under
+    ``remat='attn'``, or None."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q2, k2, v2)):
         return _FlashAttention.apply(q2, k2, v2, seg_ids, num_heads,
-                                     tuple(spans))
+                                     tuple(spans), stash)
     return segment_flash_fwd(q2, k2, v2, seg_ids, spans[0], spans[1],
                              num_heads)[0]
 
@@ -666,29 +722,31 @@ class _FlashRect(torch.autograd.Function):
     """Rectangular segment-flash attention with its gradient: forward H9,
     backward ``delta = rowsum(do·o)`` and H10. The ids and the spans get
     no gradient; the kernels are looked up in this module at call time,
-    as in :class:`_FlashAttention`."""
+    and a ``stash`` is taken, as in :class:`_FlashAttention`."""
 
     @staticmethod
-    def forward(ctx, q2, k2, v2, seg_q, seg_k, num_heads, spans):
-        o, lse = segment_flash_fwd(q2, k2, v2, seg_q, spans[0], spans[1],
-                                   num_heads, seg_k=seg_k)
+    def forward(ctx, q2, k2, v2, seg_q, seg_k, num_heads, spans, stash):
+        o, lse = _stashed(stash, lambda: segment_flash_fwd(
+            q2, k2, v2, seg_q, spans[0], spans[1], num_heads, seg_k=seg_k))
         ctx.save_for_backward(q2, k2, v2, o, lse, seg_q, seg_k, *spans)
         ctx.num_heads = num_heads
+        ctx.stash = stash
         return o
 
     @staticmethod
     def backward(ctx, do2):
         q2, k2, v2, o, lse, seg_q, seg_k, *spans = ctx.saved_tensors
+        _release(ctx.stash)
         H = ctx.num_heads
         do2 = do2.to(o.dtype).contiguous()
         delta = attention_delta(o, do2, H)
         dq, dk, dv = segment_flash_bwd(q2, k2, v2, do2, lse, delta, seg_q,
                                        *spans, H, seg_k=seg_k)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def segment_flash_rect(q2, k2, v2, seg_q, seg_k, num_heads: int,
-                       spans=None):
+                       spans=None, stash=None):
     """Rectangular segment-flash attention over ``(Tq, H·D)`` queries and
     ``(Tk, H·D)`` keys/values as they are (RoPE, where the family has it,
     already applied): H9 forward and, where q, k or v needs a gradient,
@@ -696,11 +754,12 @@ def segment_flash_rect(q2, k2, v2, seg_q, seg_k, num_heads: int,
     CPU tensor). Query t attends key s iff ``seg_q[t] == seg_k[s]``.
     ``seg_q``, ``seg_k``: int32; ``spans``: :func:`rect_flash_spans` of
     them (the forward reads only the first two), computed here when
-    None."""
+    None; ``stash``: as in :func:`segment_flash`."""
     spans = tuple(rect_flash_spans(seg_q, seg_k) if spans is None else spans)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q2, k2, v2)):
-        return _FlashRect.apply(q2, k2, v2, seg_q, seg_k, num_heads, spans)
+        return _FlashRect.apply(q2, k2, v2, seg_q, seg_k, num_heads, spans,
+                                stash)
     return segment_flash_fwd(q2, k2, v2, seg_q, spans[0], spans[1],
                              num_heads, seg_k=seg_k)[0]
 

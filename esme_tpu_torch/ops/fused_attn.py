@@ -26,35 +26,41 @@ from __future__ import annotations
 
 import torch
 
-from .flash import (BLOCK_K, BLOCK_Q, attention_delta, check_tiles,
-                    flash_spans, segment_flash_bwd, segment_flash_fwd)
+from .flash import (BLOCK_K, BLOCK_Q, _release, _stashed, attention_delta,
+                    check_tiles, flash_spans, segment_flash_bwd,
+                    segment_flash_fwd)
 from .headsplit import rotary_qk
 
 
-def _forward(q2, k2, v2, cos, sin, seg_ids, num_heads, spans):
+def _forward(q2, k2, v2, cos, sin, seg_ids, num_heads, spans, stash=None):
     qr, kr = rotary_qk(q2, k2, cos, sin, num_heads)
-    o, lse = segment_flash_fwd(qr, kr, v2, seg_ids, spans[0], spans[1],
-                               num_heads)
+    o, lse = _stashed(stash, lambda: segment_flash_fwd(
+        qr, kr, v2, seg_ids, spans[0], spans[1], num_heads))
     return qr, kr, o, lse
 
 
 class _FusedRotaryFlash(torch.autograd.Function):
     """The autograd boundary; ``cos``, ``sin``, ``seg_ids`` and the spans
     get no gradient. The kernels are looked up in this module at call
-    time, so a caller may swap in their plain versions."""
+    time, so a caller may swap in their plain versions. With a ``stash``
+    (``ops/flash.py:AttnStash``, ``remat='attn'``) a checkpointed layer's
+    recompute still rotates q and k (H3: the backward needs them) but
+    takes o and lse from the stash instead of launching H1."""
 
     @staticmethod
-    def forward(ctx, q2, k2, v2, cos, sin, seg_ids, num_heads, spans):
+    def forward(ctx, q2, k2, v2, cos, sin, seg_ids, num_heads, spans, stash):
         qr, kr, o, lse = _forward(q2, k2, v2, cos, sin, seg_ids, num_heads,
-                                  spans)
+                                  spans, stash)
         ctx.save_for_backward(qr, kr, v2, o, lse, cos, sin, seg_ids,
                               *spans)
         ctx.num_heads = num_heads
+        ctx.stash = stash
         return o
 
     @staticmethod
     def backward(ctx, do2):
         qr, kr, v2, o, lse, cos, sin, seg_ids, *spans = ctx.saved_tensors
+        _release(ctx.stash)
         H = ctx.num_heads
         do2 = do2.to(o.dtype).contiguous()
         delta = attention_delta(o, do2, H)
@@ -62,14 +68,15 @@ class _FusedRotaryFlash(torch.autograd.Function):
                                        *spans, H)
         # RoPE is orthogonal: the gradient of R x is R^T dy
         dq2, dk2 = rotary_qk(dq, dk, cos, sin, H, inverse=True)
-        return dq2, dk2, dv, None, None, None, None, None
+        return dq2, dk2, dv, None, None, None, None, None, None
 
 
 def fused_rotary_flash(q2, k2, v2, cos, sin, seg_ids, num_heads: int,
                        block_q: int = BLOCK_Q, block_k: int = BLOCK_K,
                        max_seqlen: int | None = None,
                        interpret: bool | None = None,
-                       num_jobs: int | None = None, *, spans=None):
+                       num_jobs: int | None = None, *, spans=None,
+                       stash=None):
     """RoPE + segment-flash attention with a gradient, as
     ``esme_tpu``'s function of the same name.
 
@@ -88,6 +95,8 @@ def fused_rotary_flash(q2, k2, v2, cos, sin, seg_ids, num_heads: int,
         spans: :func:`~esme_tpu_torch.ops.flash.flash_spans` for these
             ``seg_ids``; computed here when None. The model computes
             them once per forward.
+        stash: the checkpointed layer's ``AttnStash`` under
+            ``remat='attn'`` (``ops/flash.py``), or None.
     Returns:
         ``(T, H·D)`` attention output.
     """
@@ -96,5 +105,5 @@ def fused_rotary_flash(q2, k2, v2, cos, sin, seg_ids, num_heads: int,
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q2, k2, v2)):
         return _FusedRotaryFlash.apply(q2, k2, v2, cos, sin, seg_ids,
-                                       num_heads, spans)
+                                       num_heads, spans, stash)
     return _forward(q2, k2, v2, cos, sin, seg_ids, num_heads, spans)[2]

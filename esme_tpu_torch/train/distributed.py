@@ -11,14 +11,16 @@ one process per rank over a ``DeviceMesh`` with those axes
   size), takes its data row and, with ``seq_axis``, its contiguous slice
   of the row's tokens (attention gathers the keys over that axis: kernels
   H9 and H10, :mod:`esme_tpu_torch.parallel.context`);
-* every rank holds its shards of the params and of the Adam/AdamW state
+* every rank holds its shards of the params and of the optimizer state
   (:mod:`esme_tpu_torch.parallel.fsdp`); the forward gathers the
   non-layer leaves once and each layer's leaves inside its checkpointed
   step, and the gathers' backward reduce-scatters the gradients over
   ``fsdp``;
 * the gradients are then summed over the loss axes (``data`` and
   ``seq``), and a replicated leaf's over ``fsdp`` too, and the optimizer
-  updates each rank's shards in place.
+  updates each rank's shards in place (``adam8bit``'s per-leaf max of
+  |g| is all-reduced over ``fsdp``, as JAX's ``jnp.max`` of a sharded
+  array is global).
 
 The gradient is the single-device gradient of the global masked mean
 (the loss of :class:`esme_tpu_torch.train.MaskedPLM` over the union of
@@ -34,6 +36,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.distributed import ReduceOp
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from ..models.esm import forward_flat, packed_meta
@@ -45,7 +48,8 @@ from ..parallel.fsdp import (_map, fsdp_partition_specs, gather_dim,
                              make_layer_gather, make_outer_gather,
                              shard_params)
 from ..parallel.mesh import axes_group
-from .trainer import _LATER, _grad_tree, _leaves, _tensor, train_views
+from .trainer import (_LATER, _grad_tree, _leaves, _tensor, build_optimizer,
+                      train_views)
 
 
 def stack_batches(batches):
@@ -86,13 +90,18 @@ class ShardedMaskedPLM:
             ``seq_axis``).
         learning_rate, weight_decay: Adam, or AdamW with decoupled decay
             when non-zero (as :class:`MaskedPLM`).
+        optimizer: None, or a factory of param groups as in
+            :class:`MaskedPLM` (``optim.adam8bit(...)``); each group holds
+            this rank's shards of one JAX leaf. An optimizer with a
+            ``reduce_max`` attribute (``Adam8bit``) gets the all-reduce
+            that makes its per-leaf max global over ``fsdp``.
         attn_impl: the model's attention path ('auto'/'flash' run the
             kernels on the card, their plain versions on the CPU;
             'reference' the einsum).
         grad_accum: micro-batches accumulated per update (the mean, as
             ``optax.MultiSteps``).
-        lora_only, train_lmhead, trainable_mask, optimizer: raise unless
-            left at their defaults (later slices).
+        lora_only, train_lmhead, trainable_mask: raise unless left at
+            their defaults (later slices).
         seq_axis: the mesh axis the packed token axis is split over
             (context parallelism), or None.
         remat: the checkpointing policy when ``model.checkpointing``, as
@@ -107,15 +116,14 @@ class ShardedMaskedPLM:
         for name, value, later in (
                 ('lora_only', lora_only, 'lora_only'),
                 ('train_lmhead', train_lmhead, 'lora_only'),
-                ('trainable_mask', trainable_mask, 'trainable_mask'),
-                ('optimizer', optimizer, 'optimizer')):
+                ('trainable_mask', trainable_mask, 'trainable_mask')):
             if value not in (None, False):
                 raise NotImplementedError(f'ShardedMaskedPLM({name}=...): '
                                           f'{_LATER[later]}')
         names = mesh.mesh_dim_names
         if seq_axis is not None and seq_axis not in names:
             raise ValueError(f'mesh has no axis {seq_axis!r}')
-        check_remat(remat, model.checkpointing)
+        check_remat(remat)
         if grad_accum < 1:
             raise ValueError(f'grad_accum must be >= 1, got {grad_accum}')
         self.model = model
@@ -139,12 +147,8 @@ class ShardedMaskedPLM:
                  if torch.is_tensor(t) and t.requires_grad]
         self._sharded = [t for t, d in pairs if d is not None]
         self._replicated = [t for t, d in pairs if d is None]
-        leaves = [t for t, _ in pairs]
-        if weight_decay:
-            self.optimizer = torch.optim.AdamW(leaves, lr=learning_rate,
-                                               weight_decay=weight_decay)
-        else:
-            self.optimizer = torch.optim.Adam(leaves, lr=learning_rate)
+        self.optimizer = build_optimizer(self._views, optimizer,
+                                         learning_rate, weight_decay)
 
         self._layer_gather = make_layer_gather(self.specs['layers'], mesh)
         self._outer_gather = make_outer_gather(
@@ -155,6 +159,12 @@ class ShardedMaskedPLM:
         self._loss_group = axes_group(mesh, loss_axes)
         self._mesh_group = axes_group(mesh, names)
         self._fsdp_group = mesh.get_group('fsdp')
+        if hasattr(self.optimizer, 'reduce_max') \
+                and dist.get_world_size(self._fsdp_group) > 1:
+            self.optimizer.reduce_max = self._max_over_fsdp
+
+    def _max_over_fsdp(self, t: torch.Tensor) -> None:
+        dist.all_reduce(t, op=ReduceOp.MAX, group=self._fsdp_group)
 
     # -- the loss ---------------------------------------------------------
 

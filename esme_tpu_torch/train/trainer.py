@@ -7,11 +7,17 @@ and runs the step eagerly:
 
 * ``optax.adam`` -> ``torch.optim.Adam``; with ``weight_decay``,
   ``optax.adamw`` -> ``torch.optim.AdamW`` (the same decoupled decay);
-* gradient accumulation as ``optax.MultiSteps``: the mean of
-  ``grad_accum`` micro-batch gradients, one update every
-  ``grad_accum``-th step;
+  ``optimizer=`` takes a factory of the trainer's param groups, one per
+  JAX leaf (:func:`leaf_groups`), such as
+  :func:`esme_tpu_torch.train.optim.adam8bit`;
+* gradient accumulation as ``optax.MultiSteps``: the running mean of
+  ``grad_accum`` micro-batch gradients in MultiSteps' arithmetic
+  (``acc + (g - acc) / (n + 1)``), one update every ``grad_accum``-th
+  step;
 * activation checkpointing from the model's ``checkpointing`` flag
-  (``remat='full'``).
+  (``remat='full'`` or ``'attn'``, ``models/modules.py:layer_stack``);
+* ``offload_optimizer``: fp32 master copies and the optimizer state on
+  the host (:class:`_HostOptimizer`).
 
 Every floating leaf trains (``esme_tpu/lora.py:178-215`` without
 adapters). The optimizer's leaves are views of the model's params: each
@@ -26,6 +32,8 @@ input gradients are cuBLAS products too.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -37,10 +45,6 @@ from ..ops.linear import fp32_accumulation
 _LATER = {
     'lora_only': 'LoRA adapters come with the fine-tuning slice',
     'trainable_mask': 'trainable masks come with the fine-tuning slice',
-    'offload_optimizer': 'the host-offloaded optimizer comes with '
-                         'ROADMAP.md Queue 1, item 17',
-    'optimizer': 'optax optimizers have no counterpart; adam8bit comes '
-                 'with the memory slice',
 }
 
 
@@ -100,6 +104,61 @@ def _grad_tree(views: dict) -> dict:
     return out
 
 
+def leaf_groups(views: dict) -> list:
+    """The gradient targets of :func:`train_views` grouped by the JAX leaf
+    they belong to: a stacked layer leaf's per-layer views together, every
+    other leaf alone. An optimizer that keeps one statistic per leaf (as
+    ``adam8bit``'s scale) takes one param group per list."""
+    groups = []
+    for key, v in views.items():
+        if key == 'layers':
+            groups.extend(list(g) for g in zip(
+                *(list(_leaves(layer)) for layer in v)))
+        elif isinstance(v, dict):
+            groups.extend([t] for t in _leaves(v))
+        else:
+            groups.append([v])
+    return [g for g in groups if g[0].requires_grad]
+
+
+def build_optimizer(views: dict, optimizer, learning_rate: float,
+                    weight_decay: float, **adam):
+    """The trainers' optimizer over ``views``: ``optimizer(groups)`` for a
+    factory (one param group per JAX leaf, :func:`leaf_groups`), else
+    Adam, or AdamW with decoupled ``weight_decay`` (``adam``: extra
+    arguments of both)."""
+    groups = leaf_groups(views)
+    if optimizer is not None:
+        if not callable(optimizer):
+            raise TypeError('optimizer: a factory of param groups, such as '
+                            f'train.optim.adam8bit(...), not {optimizer!r}')
+        return optimizer([{'params': g} for g in groups])
+    leaves = [t for t in _leaves(views) if t.requires_grad]
+    if weight_decay:
+        return torch.optim.AdamW(leaves, lr=learning_rate,
+                                 weight_decay=weight_decay, **adam)
+    return torch.optim.Adam(leaves, lr=learning_rate, **adam)
+
+
+def accumulate(acc: dict, params, n: int) -> None:
+    """Fold each param's ``.grad``, micro-batch ``n`` of a cycle (0 first),
+    into its running mean ``acc[p]`` as ``optax.MultiSteps`` does
+    (``acc + (g - acc) / (n + 1)``, in the gradient's dtype), and clear
+    the ``.grad``. The divisor is a device tensor: a CUDA division by a
+    Python number multiplies by its reciprocal, which rounds otherwise."""
+    div = None
+    for p in params:
+        g = torch.zeros_like(p) if p.grad is None else p.grad
+        p.grad = None
+        if n == 0:
+            acc[p] = g
+            continue
+        if div is None:
+            div = torch.full((), n + 1.0, dtype=torch.float32,
+                             device=p.device)
+        acc[p].add_((g - acc[p]).div_(div))
+
+
 def _map_stack(per_layer: list):
     first = per_layer[0]
     if isinstance(first, dict):
@@ -112,24 +171,140 @@ def _tensor(x, dtype, device):
         .to(device=device, dtype=dtype)
 
 
+def _pinned(like: torch.Tensor, dtype, pin: bool) -> torch.Tensor:
+    return torch.empty(like.shape, dtype=dtype, pin_memory=pin)
+
+
+def _rows(tree: dict) -> list:
+    """The per-layer rows of :func:`train_views` over ``tree``, plain views
+    (no autograd), in the order of its trainable leaves."""
+    return [t.detach() for t in _leaves(train_views(tree)) if t.requires_grad]
+
+
+class _HostOptimizer:
+    """The optimizer offloaded to the host, as ``MaskedPLM(offload_optimizer=
+    True)`` in JAX (``esme_tpu/train/trainer.py:94-163``; DeepSpeed's CPU
+    optimizer offload, reference: esme/deepspeed.py:18-21): fp32 master
+    copies of the trainable leaves and the whole optimizer state live in
+    host memory, pinned where the params are on the card, and the update
+    runs there; the device keeps its working params and computes the
+    gradients.
+
+    :meth:`take_grads` brings one micro-batch's gradients down as fp32
+    into the masters' ``.grad`` (several micro-batches folded into their
+    running mean in fp32 on the host, as JAX's ``optax.MultiSteps`` over
+    the host state does); :meth:`update` steps the host optimizer on the
+    masters, rounds them to the params' dtype on the host and copies them
+    back into the device params in place. ``ms`` holds the host-clock
+    times of the last step's parts (``grads_down``, ``host_update``,
+    ``params_up``; the trainer adds ``device``, forward and backward up to
+    the grads' readiness)."""
+
+    def __init__(self, params: dict, build):
+        pin = any(t.is_cuda for t in _leaves(params))
+        self._pin = pin
+        leaves = [t for t in _leaves(params) if t.is_floating_point()]
+        masters = _map(lambda t: _pinned(t, torch.float32, pin).copy_(t)
+                       if t.is_floating_point() else t, params)
+        self._up = [(t, m, None if t.dtype == torch.float32
+                     else _pinned(t, t.dtype, pin))
+                    for t, m in zip(leaves, (m for m in _leaves(masters)
+                                             if m.is_floating_point()))]
+        self.views = train_views(masters)
+        masters_rows = [t for t in _leaves(self.views) if t.requires_grad]
+        grads = _map(lambda t: _pinned(t, torch.float32, pin)
+                     if t.is_floating_point() else t, params)
+        self._grads = _rows(grads)
+        for m, g in zip(masters_rows, self._grads):
+            m.grad = g
+        self._tmp = None
+        self.optimizer = build(self.views)
+        self.ms = {}
+
+    def sync(self):
+        if self._pin:
+            torch.cuda.synchronize()
+
+    def take_grads(self, device_params, n: int) -> None:
+        """Micro-batch ``n``'s gradients (0 first in a cycle) of
+        ``device_params`` (the device views, in :func:`train_views`' order)
+        down into the masters' ``.grad``; the device ``.grad`` cleared."""
+        t0 = time.perf_counter()
+        if n and self._tmp is None:
+            self._tmp = [torch.empty_like(g, pin_memory=self._pin)
+                         for g in self._grads]
+        bufs = self._grads if n == 0 else self._tmp
+        for p, buf in zip(device_params, bufs):
+            if p.grad is None:
+                buf.zero_()
+            else:
+                buf.copy_(p.grad, non_blocking=True)
+            p.grad = None
+        self.sync()
+        if n:
+            div = torch.full((), n + 1.0, dtype=torch.float32)
+            for g, t in zip(self._grads, self._tmp):
+                g.add_((t - g).div_(div))
+        self.ms['grads_down'] = (time.perf_counter() - t0) * 1e3
+
+    def update(self) -> None:
+        """Step the host optimizer, then round the masters and copy them
+        into the device params."""
+        t0 = time.perf_counter()
+        self.optimizer.step()
+        t1 = time.perf_counter()
+        for param, master, work in self._up:
+            if work is None:
+                param.copy_(master, non_blocking=True)
+            else:
+                param.copy_(work.copy_(master), non_blocking=True)
+        self.sync()
+        self.ms['host_update'] = (t1 - t0) * 1e3
+        self.ms['params_up'] = (time.perf_counter() - t1) * 1e3
+
+    def host_bytes(self) -> int:
+        """Bytes of host memory the offload holds: masters, gradient
+        buffers, rounding buffers and the optimizer state."""
+        tensors = [m for _, m, _ in self._up] + [w for _, _, w in self._up
+                                                 if w is not None]
+        tensors += self._grads + (self._tmp or [])
+        tensors += [v for st in self.optimizer.state.values()
+                    for v in st.values() if torch.is_tensor(v)]
+        # the gradient buffers are rows of one tensor per leaf: count each
+        # storage once
+        seen, total = set(), 0
+        for t in tensors:
+            key = t.untyped_storage().data_ptr()
+            if key not in seen:
+                seen.add(key)
+                total += t.untyped_storage().nbytes()
+        return total
+
+
 class MaskedPLM:
     """Masked-LM training (reference: esme/trainer.py:8-44).
 
     Args:
         model: an :class:`esme_tpu_torch.models.esm._ESMBase` instance.
         learning_rate: Adam learning rate (reference default 1e-4).
-        grad_accum: accumulate this many micro-batches per update.
+        grad_accum: accumulate this many micro-batches per update (their
+            running mean, as ``optax.MultiSteps``).
         lora_only, train_lmhead: the JAX signature's LoRA options; the
             port has no adapters yet, so ``lora_only=True`` raises and
             every floating leaf trains.
         weight_decay: decoupled decay (AdamW) when non-zero.
-        optimizer, trainable_mask, offload_optimizer: raise unless left
-            at their defaults (later slices).
+        optimizer: None (Adam or AdamW), or a factory of param groups, one
+            per JAX leaf (:func:`leaf_groups`): ``optim.adam8bit(...)``, or
+            e.g. ``functools.partial(torch.optim.SGD, lr=...)``.
+        trainable_mask: raises unless None (a later slice).
+        offload_optimizer: keep fp32 masters and the optimizer state on
+            the host and update there (:class:`_HostOptimizer`).
         attn_impl: the model's attention path ('auto'/'flash' run the
             kernels on the card, 'reference' the einsum).
-        remat: the checkpointing policy when ``model.checkpointing``
-            ('full'; 'attn' raises with checkpointing on until the memory
-            slice, and is ignored without it, as in JAX).
+        remat: the checkpointing policy when ``model.checkpointing``:
+            'full' recomputes each layer, 'attn' keeps the attention
+            output and its lse (``models/modules.py:layer_stack``);
+            ignored without checkpointing, as in JAX.
     """
 
     def __init__(self, model, learning_rate: float = 1e-4,
@@ -138,13 +313,11 @@ class MaskedPLM:
                  attn_impl: str = 'auto', trainable_mask=None,
                  offload_optimizer: bool = False, remat: str = 'full'):
         for name, value in (('lora_only', lora_only),
-                            ('trainable_mask', trainable_mask),
-                            ('offload_optimizer', offload_optimizer),
-                            ('optimizer', optimizer)):
+                            ('trainable_mask', trainable_mask)):
             if value not in (None, False):
                 raise NotImplementedError(f'MaskedPLM({name}=...): '
                                           f'{_LATER[name]}')
-        check_remat(remat, model.checkpointing)
+        check_remat(remat)
         if grad_accum < 1:
             raise ValueError(f'grad_accum must be >= 1, got {grad_accum}')
         self.model = model
@@ -153,12 +326,19 @@ class MaskedPLM:
         self.grad_accum = int(grad_accum)
         self.step = 0
         self._views = train_views(model.params)
-        leaves = [t for t in _leaves(self._views) if t.requires_grad]
-        if weight_decay:
-            self.optimizer = torch.optim.AdamW(leaves, lr=learning_rate,
-                                               weight_decay=weight_decay)
+        self._params = [t for t in _leaves(self._views) if t.requires_grad]
+        self._acc = {}
+        self._host = None
+        if offload_optimizer:
+            # torch's one-pass CPU kernel for Adam and AdamW on the host
+            adam = {} if optimizer else {'fused': True}
+            self._host = _HostOptimizer(model.params, lambda views: (
+                build_optimizer(views, optimizer, learning_rate,
+                                weight_decay, **adam)))
+            self.optimizer = self._host.optimizer
         else:
-            self.optimizer = torch.optim.Adam(leaves, lr=learning_rate)
+            self.optimizer = build_optimizer(self._views, optimizer,
+                                             learning_rate, weight_decay)
 
     def _loss(self, params, batch) -> torch.Tensor:
         dev = self.model.device
@@ -173,33 +353,47 @@ class MaskedPLM:
         return cross_entropy(logits, _tensor(batch.tokens, torch.int64, dev),
                              _tensor(batch.mask, torch.bool, dev))
 
+    def _zero_grads(self):
+        for p in self._params:
+            p.grad = None
+
     def _grad_step(self, batch):
         """Loss and gradients of one batch, without an update: returns
         ``(loss, grads)`` with ``grads`` in the layout of
         ``model.params``. Drops any gradient still being accumulated."""
-        self.optimizer.zero_grad(set_to_none=True)
+        self._zero_grads()
+        self._acc.clear()
         with fp32_accumulation():
             loss = self._loss(self._views, batch)
             loss.backward()
         grads = _grad_tree(self._views)
-        self.optimizer.zero_grad(set_to_none=True)
+        self._zero_grads()
         return loss.detach(), grads
 
     def training_step(self, batch) -> float:
         """One (micro-)batch step; returns its loss
         (reference: esme/trainer.py:31-35)."""
+        t0 = time.perf_counter()
+        n = self.step % self.grad_accum
         with fp32_accumulation():
             loss = self._loss(self._views, batch)
             loss.backward()
             self.step += 1
-            if self.step % self.grad_accum == 0:
+            emit = self.step % self.grad_accum == 0
+            if self._host is not None:
+                self._host.sync()
+                self._host.ms = {'device': (time.perf_counter() - t0) * 1e3}
+                self._host.take_grads(self._params, n)
+                if emit:
+                    self._host.update()
+            else:
                 if self.grad_accum > 1:
-                    for group in self.optimizer.param_groups:
-                        for p in group['params']:
-                            if p.grad is not None:
-                                p.grad.div_(self.grad_accum)
-                self.optimizer.step()
-                self.optimizer.zero_grad(set_to_none=True)
+                    accumulate(self._acc, self._params, n)
+                if emit:
+                    for p in self._params:
+                        p.grad = self._acc.pop(p, p.grad)
+                    self.optimizer.step()
+                    self._zero_grads()
         return float(loss.detach())
 
     @torch.no_grad()

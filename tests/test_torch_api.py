@@ -10,7 +10,8 @@ options whose feature is not ported yet.
   for bit with the flag set.
 * ``MaskedPLM(remat='attn')`` without checkpointing is ``remat='full'``
   (JAX ignores ``remat`` there): the same loss and gradients, bit for
-  bit; with checkpointing on it raises (item 15, the memory slice).
+  bit; with checkpointing on it runs (the memory slice,
+  ``tests/test_torch_memory.py`` holds it to ``'full'`` and to JAX).
 """
 
 import inspect
@@ -134,12 +135,17 @@ def test_remat_attn_without_checkpointing_is_full(batch):
     assert len(pairs) == len(list(_flat(model.params)))
     for (name, a), (_, b) in pairs:
         assert torch.equal(a, b), name
-    with pytest.raises(NotImplementedError, match='item 15'):
-        MaskedPLM(_model(checkpointing=True), remat='attn')
-    # switched on after construction, the layer stack refuses it
+    # with checkpointing on, 'attn' runs and gives 'full''s loss
+    ckpt = _model(checkpointing=True)
+    loss_c, _ = MaskedPLM(ckpt, remat='attn')._grad_step(batch)
+    assert torch.equal(loss_c, loss_f)
+    # switched on after construction too
     plm = MaskedPLM(model, remat='attn')
     model.checkpointing = True
-    with pytest.raises(NotImplementedError, match='item 15'):
-        plm._grad_step(batch)
+    loss_s, grads_s = plm._grad_step(batch)
+    assert torch.equal(loss_s, loss_f)
+    for (name, a), (_, b) in zip(sorted(_flat(grads_s)),
+                                 sorted(_flat(grads_f))):
+        assert torch.equal(a, b), name
     with pytest.raises(ValueError, match='unknown remat'):
-        tmod.check_remat('some', False)
+        tmod.check_remat('some')

@@ -1140,3 +1140,150 @@ def test_probe_tool_kernels_refuse_what_they_do_not_take(cuda):
         tpa.dma(q, k, v, ks, ke, H, cluster=4)
     with pytest.raises(ValueError, match='head dim 32'):
         tpa.dma(q32, k32, v32, ks, ke, H, cluster=2)
+
+
+# -------------------------------------------------------------------------
+# The memory slice on the card: remat='attn', adam8bit, the offload
+# -------------------------------------------------------------------------
+
+def _mlm_batch(seed, T=2048):
+    """A packed masked-LM batch of T tokens (sequences of 20-400 residues,
+    a padding tail), as the trainers take it."""
+    from types import SimpleNamespace
+    from esme_tpu_torch import Alphabet, mask_tokens, tokenize_unpad
+    rng = np.random.default_rng(seed)
+    lens, total = [], 0
+    while total < T - 450:
+        n = int(rng.integers(20, 400))
+        lens.append(n)
+        total += n + 2
+    seqs = [''.join(rng.choice(list('LAGVSERTIDPKQNFYMHWC'), n))
+            for n in lens]
+    tok, _, cu, ml = tokenize_unpad(seqs)
+    masked, mask = mask_tokens(tok, rng=np.random.default_rng(seed + 1))
+    pad = T - tok.shape[0]
+    fill = Alphabet.padding_idx
+    return SimpleNamespace(
+        tokens=np.pad(tok, (0, pad), constant_values=fill),
+        masked_tokens=np.pad(masked, (0, pad), constant_values=fill),
+        mask=np.pad(mask, (0, pad), constant_values=False), cu_lens=cu,
+        max_len=ml)
+
+
+def _flat_tree(tree, path=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat_tree(v, path + (k,))
+        else:
+            yield '.'.join(path + (k,)), v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('family', ['ESM2', 'ESM1b'])
+def test_remat_attn_on_the_card_is_full_bit_for_bit(cuda, family):
+    """``remat='attn'`` with checkpointing: the loss and every leaf's
+    gradient bit-equal to ``'full'``'s (H1 is bit-equal from call to
+    call), with H1 launched once per layer instead of twice (H2 once, H3
+    three times in ESM2 and never in ESM1b) on the two attention
+    boundaries of the trunk."""
+    import esme_tpu_torch
+    from dataclasses import replace
+    from esme_tpu_torch.train import MaskedPLM
+    cls = getattr(esme_tpu_torch, family)
+    kw = dict(num_layers=2, embed_dim=128, attention_heads=2) \
+        if family == 'ESM2' else {}
+    batch = _mlm_batch(3)
+    out = {}
+    for remat in ('full', 'attn'):
+        if family == 'ESM2':
+            model = cls(**kw, rng=0, device=cuda, checkpointing=True)
+        else:
+            cfg = replace(esme_tpu_torch.esm1b_config(), num_layers=2,
+                          embed_dim=128, attention_heads=2)
+            model = cls(config=cfg, rng=0, device=cuda, checkpointing=True)
+        counters = (flash.segment_flash_fwd, flash.segment_flash_bwd,
+                    headsplit.rotary_qk)
+        before = [c.launches for c in counters]
+        out[remat] = MaskedPLM(model, remat=remat)._grad_step(batch)
+        torch.cuda.synchronize()
+        out[remat + '_launches'] = [c.launches - b
+                                    for c, b in zip(counters, before)]
+    L, rot = 2, int(family == 'ESM2')
+    assert out['full_launches'] == [2 * L, L, 3 * L * rot]
+    assert out['attn_launches'] == [L, L, 3 * L * rot]
+    assert torch.equal(out['full'][0], out['attn'][0])
+    for (name, a), (_, b) in zip(_flat_tree(out['full'][1]),
+                                 _flat_tree(out['attn'][1])):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_adam8bit_on_the_card_is_the_cpu_arithmetic(cuda, dtype):
+    """Three ``Adam8bit`` updates on the card and on the CPU from the same
+    params and gradients (magnitudes over eight decades; a stacked leaf as
+    three views in one group, and a leaf alone; AdamW): codes, scales and
+    params bit-equal. Every step is IEEE fp32 on both sides: the bias
+    corrections are computed on the host, the divisors are device
+    tensors, the square roots correctly rounded."""
+    from esme_tpu_torch.train.optim import Adam8bit
+    rng = np.random.default_rng(0)
+    init = [rng.standard_normal((3, 256, 300)), rng.standard_normal(4099)]
+    sides = {}
+    for dev in (cuda, torch.device('cpu')):
+        leaves = [torch.from_numpy(x.astype(np.float32)).to(dev, dtype)
+                  for x in init]
+        groups = [[leaves[0][i].detach().requires_grad_() for i in range(3)],
+                  [leaves[1].detach().requires_grad_()]]
+        opt = Adam8bit([{'params': g} for g in groups], lr=1e-3,
+                       weight_decay=0.01)
+        grng = np.random.default_rng(1)
+        for _ in range(3):
+            for x, g in zip(init, groups):
+                grad = torch.from_numpy((grng.standard_normal(x.shape)
+                                         * 10.0 ** grng.integers(
+                                             -6, 2, x.shape))
+                                        .astype(np.float32)).to(dev, dtype)
+                for i, p in enumerate(g):
+                    p.grad = grad[i] if len(g) > 1 else grad
+            opt.step()
+        sides[dev.type] = (leaves, opt, groups)
+    (gl, gopt, gg), (cl, copt, cg) = sides['cuda'], sides['cpu']
+    for a, b in zip(gl, cl):
+        assert torch.equal(a.cpu(), b)
+    for ga, ca in zip(gg, cg):
+        for key in ('mu_scale', 'nu_scale'):
+            assert torch.equal(gopt.state[ga[0]][key].cpu(),
+                               copt.state[ca[0]][key]), key
+        for p, q in zip(ga, ca):
+            for key in ('mu', 'nu'):
+                assert torch.equal(gopt.state[p][key].view(torch.uint8).cpu(),
+                                   copt.state[q][key].view(torch.uint8)), key
+
+
+@pytest.mark.cuda
+def test_offload_optimizer_on_the_card(cuda):
+    """``MaskedPLM(offload_optimizer=True)`` with bf16 params on the card:
+    pinned fp32 masters and Adam's state on the host, the card's params
+    updated in place, three steps' losses within 2^-8 of the on-card
+    trainer's (the host keeps fp32 masters, the card bf16 params)."""
+    from esme_tpu_torch import ESM2
+    from esme_tpu_torch.train import MaskedPLM
+    batch = _mlm_batch(4)
+    losses = {}
+    for offload in (False, True):
+        model = ESM2(num_layers=2, embed_dim=128, attention_heads=2, rng=0,
+                     device=cuda)
+        ptr = model.params['embed_tokens'].data_ptr()
+        plm = MaskedPLM(model, learning_rate=1e-3, offload_optimizer=offload)
+        losses[offload] = [plm.training_step(batch) for _ in range(3)]
+        assert model.params['embed_tokens'].data_ptr() == ptr
+    host = plm._host
+    assert all(m.is_pinned() and m.dtype == torch.float32
+               for _, m, _ in host._up)
+    assert all(v.device.type == 'cpu' for st in plm.optimizer.state.values()
+               for v in st.values() if torch.is_tensor(v))
+    for param, master, _ in host._up:
+        assert torch.equal(param.cpu(), master.to(param.dtype))
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses[True], losses[False])]
+    assert max(rel) <= 2.0 ** -8, (losses, rel)

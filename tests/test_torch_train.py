@@ -324,18 +324,8 @@ def test_cpu_training_launches_no_kernel(batches):
 @pytest.mark.parametrize('kw,match', [
     ({'lora_only': True}, 'LoRA'),
     ({'trainable_mask': {}}, 'trainable masks'),
-    ({'offload_optimizer': True}, 'offloaded'),
-    ({'optimizer': object()}, 'adam8bit'),
-    ({'remat': 'attn'}, 'memory slice'),
 ])
 def test_masked_plm_refuses_later_slices(kw, match):
-    # remat='attn' is refused only with checkpointing on (without it JAX
-    # ignores remat, and so does the port)
-    _, tm = _tiny_pair(checkpointing='remat' in kw)
+    _, tm = _tiny_pair()
     with pytest.raises(NotImplementedError, match=match):
         MaskedPLM(tm, **kw)
-    if 'remat' in kw:
-        with pytest.raises(NotImplementedError, match='memory slice'):
-            tmod.layer_stack(torch.zeros(4, 64), tm.params['layers'],
-                             tm.config, None, None, checkpointing=True,
-                             remat='attn')

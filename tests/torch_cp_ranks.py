@@ -1,5 +1,6 @@
 """The ranks of the port's context-parallel tests
-(``tests/test_torch_context.py``, ``tests/test_torch_cp_train.py``): each
+(``tests/test_torch_context.py``, ``tests/test_torch_cp_train.py``,
+``tests/test_torch_memory.py``): each
 runs in a process of its own, spawned by the test, and joins a gloo group
 of ``n`` ranks on ``127.0.0.1``. This module imports neither JAX nor the JAX package, so
 that a spawned rank loads only the port."""
@@ -11,10 +12,11 @@ import torch
 import torch.distributed as dist
 
 from esme_tpu_torch.models.esm import ESM1b, ESM1v, ESM2, ESMC, packed_meta
+from esme_tpu_torch.ops import flash
 from esme_tpu_torch.parallel import (context_parallel_log_prob,
                                      forward_flat_cp, initialize_distributed,
                                      make_kv_gather, make_mesh)
-from esme_tpu_torch.train import ShardedMaskedPLM
+from esme_tpu_torch.train import ShardedMaskedPLM, adam8bit
 
 CLASSES = {'esm2': ESM2, 'esmc': ESMC, 'esm1b': ESM1b, 'esm1v': ESM1v}
 IMPLS = ('flash', 'reference')
@@ -96,11 +98,15 @@ def train_rank(rank, n, port, mesh_shape, family, cfg, params, batches,
         else:
             refused.append(seq == 1)
         for kw in ({'lora_only': True}, {'train_lmhead': True},
-                   {'trainable_mask': {}}, {'optimizer': object()}):
+                   {'trainable_mask': {}}):
             try:
                 ShardedMaskedPLM(model, mesh, **kw)
             except NotImplementedError as e:
                 refused.append('slice' in str(e))
+        try:          # an optimizer is a factory of param groups
+            ShardedMaskedPLM(model, mesh, optimizer=object())
+        except TypeError as e:
+            refused.append('factory' in str(e))
         res['refused'] = np.array(refused)
         np.savez(f'{out}/rank{rank}.npz', **res)
     finally:
@@ -172,6 +178,73 @@ def fit_rank(rank, n, port, mesh_shape, cfg, params, batches, out):
         res = {'history': np.array(history), 'step': np.array(plm.step),
                'val': np.array([r['val_loss'] for _, r in log.lines
                                 if 'val_loss' in r])}
+        res.update({f'param.{k}': v
+                    for k, v in _flat(plm.unsharded_params()).items()})
+        np.savez(f'{out}/rank{rank}.npz', **res)
+    finally:
+        dist.destroy_process_group()
+
+
+def remat_rank(rank, n, port, mesh_shape, family, cfg, params, batches, out):
+    """Rank ``rank`` of a ``(data, fsdp, seq)`` world: the loss and full
+    gradients of one ``_grad_step`` of ``ShardedMaskedPLM(seq_axis='seq')``
+    with checkpointing, under ``remat='full'`` and ``remat='attn'``, and
+    how many times each called ``flash.segment_flash_fwd`` with the keys'
+    own ids (H9's wrapper, looked up by ``_FlashRect`` at call time);
+    written to ``out``/rank<r>.npz (``<remat>.grad.<leaf>``,
+    ``<remat>.loss``, ``<remat>.calls``)."""
+    torch.set_num_threads(1)
+    initialize_distributed(f'127.0.0.1:{port}', n, rank, device='cpu')
+    fwd = flash.segment_flash_fwd
+    calls = [0]
+
+    def counted(*args, **kw):
+        calls[0] += kw.get('seg_k') is not None
+        return fwd(*args, **kw)
+    flash.segment_flash_fwd = counted
+    try:
+        data, fsdp, seq = mesh_shape
+        mesh = make_mesh(data, fsdp, seq=seq, device='cpu')
+        res = {}
+        for remat in ('full', 'attn'):
+            model = CLASSES[family](config=cfg, params=params, device='cpu',
+                                    checkpointing=True)
+            plm = ShardedMaskedPLM(model, mesh, seq_axis='seq', remat=remat)
+            calls[0] = 0
+            loss, grads = plm._grad_step(batches)
+            res[f'{remat}.calls'] = np.array(calls[0])
+            res[f'{remat}.loss'] = loss.numpy()
+            res.update({f'{remat}.grad.{k}': v
+                        for k, v in _flat(grads).items()})
+        np.savez(f'{out}/rank{rank}.npz', **res)
+    finally:
+        flash.segment_flash_fwd = fwd
+        dist.destroy_process_group()
+
+
+def adam8bit_rank(rank, n, port, mesh_shape, cfg, params, batches, out):
+    """Rank ``rank`` of a ``(data, fsdp, seq)`` world: three steps of
+    ``ShardedMaskedPLM(optimizer=adam8bit(1e-3))``; written to
+    ``out``/rank<r>.npz (the losses, the params gathered back, the state's
+    code dtypes and this rank's scales, one per leaf)."""
+    torch.set_num_threads(1)
+    initialize_distributed(f'127.0.0.1:{port}', n, rank, device='cpu')
+    try:
+        data, fsdp, seq = mesh_shape
+        mesh = make_mesh(data, fsdp, seq=seq, device='cpu')
+        model = ESM2(config=cfg, params=params, device='cpu')
+        plm = ShardedMaskedPLM(model, mesh, optimizer=adam8bit(1e-3),
+                               seq_axis='seq')
+        res = {'losses': np.array([plm.training_step(batches)
+                                   for _ in range(3)])}
+        opt = plm.optimizer
+        res['scales'] = np.array([
+            [float(opt.state[g['params'][0]][k]) for k in ('mu_scale',
+                                                           'nu_scale')]
+            for g in opt.param_groups])
+        res['f8'] = np.array([opt.state[p][k].dtype == torch.float8_e5m2
+                              for g in opt.param_groups for p in g['params']
+                              for k in ('mu', 'nu')])
         res.update({f'param.{k}': v
                     for k, v in _flat(plm.unsharded_params()).items()})
         np.savez(f'{out}/rank{rank}.npz', **res)
