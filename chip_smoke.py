@@ -254,7 +254,35 @@ line is phase 12's JSON:
    (``MasterAdam``: fp32 masters and Adam there), the first equal to
    ``MaskedPLM``'s, each step's parts timed alone (device, grads down,
    host update, params up), the peaks, the host memory the offload holds
-   and the cores.
+   and the cores;
+14. the fine-tune slice (``check_finetune``), every line naming the card
+   and its power limit: ESM2-650M (seed-0 weights) with LoRA rank 16 on
+   query, value and output and the learned-aggregation head (4 heads),
+   through ``LabeledDataset`` at 10,000 tokens, truncation 1,000, on full
+   batches of seeded sequences at the tasks' lengths (``FT_LENGTHS``:
+   GB1's 265 residues; 1,000-1,400 cut to 1,000) and on the synthetic
+   GB1-like regression and TF-like binary splits of the task script's
+   smoke mode (``benchmarks/tasks.py``'s ``synthetic_splits``, copied;
+   20-59 residues): (a) on each task-length batch one
+   ``RegressionTrainer`` step from the same params, every ``b`` non-zero,
+   with the kernels and with the plain versions: the loss within
+   ``FT_LOSS_REL``, every adapter's and head leaf's gradient under phase
+   5's gates (the head's key bias, 0 in exact arithmetic, under
+   ``ZERO_GRAD_REL`` of its kernel's; the entries of the head's ReLU units
+   whose input changed sign between the two runs, at most
+   ``FT_MAX_FLIPPED`` of them, logged, under the cosine gate alone),
+   frozen leaves without a gradient;
+   (b) its launches exact: H1 33, H2 33, H3 66 of which 33 inverse (and
+   ``predict``: H1 33, H3 33); (c) each task as ``benchmarks/tasks.py``
+   runs it, two epochs of steps, ``validation_metrics``, a
+   ``MetricLogger`` line and ``CheckpointManager.save`` each, then the
+   latest checkpoint restored into a fresh trainer (params, step and
+   predictions bit-equal) and the adapters through ``save_lora`` into a
+   fresh model (predictions bit-equal), on the smoke-mode splits; (d) on
+   each ``FT_LENGTHS`` batch ms per fine-tune step, real tokens/s, the
+   optimizer's state bytes, peak memory and one ``predict``'s time beside
+   phase 5's ``nockpt@10k`` MLM step, and each ``validation_metrics``
+   pass's seconds in (c).
 
 Each phase's seconds are logged and kept in the measurements line
 (``phase_s``). The last three lines are the kernels' JSON, the measurements' JSON and
@@ -2347,6 +2375,12 @@ def main(argv):
     # 13. the memory slice
     memory = check_memory(dev, card, cp_train, sizes)
     phase_done(13)
+
+    # 14. the fine-tune slice
+    finetune = check_finetune(dev, card, cells['nockpt'], profile_dir)
+    phase_done(14)
+    ft_step = finetune['d_times']['gb1_265']['launches']
+    ft_predict = finetune['d_times']['gb1_265']['predict_launches']
     attn_cells = {'esm2_650m': memory['a_esm2_650m'],
                   **{name: memory[f'b_{name}'] for name in MEMORY_FAMILIES}}
 
@@ -2367,6 +2401,8 @@ def main(argv):
          'remat_launches': {f'{name} ckpt {remat}': cell[remat]['launches'][
              H1_NAME] for name, cell in attn_cells.items()
              for remat in ('full', 'attn')},
+         'finetune_launches': {'step': ft_step[H1_NAME],
+                               'predict': ft_predict[H1_NAME]},
          'max_abs_err': h1_err,
          'lse_max_abs_err': h1_lse_err, 'ms': h1_ms,
          'plain_ms': h1_plain_ms, 'bound_ms': h1_bound, 'bound_by': h1_by,
@@ -2390,6 +2426,8 @@ def main(argv):
          'launches': train_launches['nockpt'][H2_NAME],
          'train_launches': {key: c[H2_NAME]
                             for key, c in train_launches.items()},
+         'finetune_launches': {'step': ft_step[H2_NAME],
+                               'predict': ft_predict[H2_NAME]},
          'max_abs_err': h2_err, 'gate_share': max(h2_share, h2_check_share),
          'ms': h2_ms, 'plain_ms': h2_plain_ms, 'bound_ms': h2_bound,
          'bound_by': h2_by, 'library_ms': h2_lib_ms,
@@ -2408,6 +2446,9 @@ def main(argv):
                             for key, c in train_launches.items()},
          'inverse_launches': {key: c['rope_inverse']
                               for key, c in train_launches.items()},
+         'finetune_launches': {'step': ft_step[H3_NAME],
+                               'predict': ft_predict[H3_NAME]},
+         'finetune_inverse_launches': ft_step['rope_inverse'],
          'max_abs_err': rope_err,
          'ms': h3_ms, 'plain_ms': h3_plain_ms, 'bound_ms': h3_bound,
          'bound_by': h3_by, 'library_ms': None,
@@ -2457,6 +2498,7 @@ def main(argv):
         'context_parallel_training': cp_train,
         'sizes': sizes,
         'memory': memory,
+        'finetune': finetune,
         'phase_s': phase_s,
         'build_s': build_s,
         'model_checks': model_checks, 'torch': torch.__version__,
@@ -2816,13 +2858,15 @@ def train_cell(model, plm_cls, key, budget, ckpt, reps, falls, n_params,
     return cell
 
 
-def compare_grads(got, ref, min_cos, max_rel, what, zero=None):
+def compare_grads(got, ref, min_cos, max_rel, what, zero=None,
+                  part=None):
     """Per-leaf cosine and largest difference relative to the leaf's
     largest value; fails outside the gates. ``zero`` maps a leaf whose
     gradient is 0 in exact arithmetic to the leaf whose largest gradient
-    scales its noise (``ZERO_GRAD_REL``)."""
+    scales its noise (``ZERO_GRAD_REL``); ``part`` maps a leaf to the part
+    of it that the difference gate holds (the cosine holds all of it)."""
     worst_cos, worst_rel, equal, n = 1.0, 0.0, 0, 0
-    zero = zero or {}
+    zero, part = zero or {}, part or {}
     scales = {name: b.float().abs().max().item()
               for name, _, b in _leaf_pairs(got, ref) if name in
               zero.values()}
@@ -2830,6 +2874,8 @@ def compare_grads(got, ref, min_cos, max_rel, what, zero=None):
     for name, a, b in _leaf_pairs(got, ref):
         n += 1
         equal += bool(torch.equal(a, b))
+        held = (part[name](a).float(), part[name](b).float()) \
+            if name in part else None
         a, b = a.float().ravel(), b.float().ravel()
         if name in zero:
             noise[name] = max(a.abs().max().item(), b.abs().max().item()) \
@@ -2846,6 +2892,9 @@ def compare_grads(got, ref, min_cos, max_rel, what, zero=None):
                      'has none')
             continue
         cos = (a @ b / (a.norm() * b.norm())).item()
+        if held is not None:
+            a, b = held
+            scale = b.abs().max().item()
         rel = (a - b).abs().max().item() / scale
         worst_cos, worst_rel = min(worst_cos, cos), max(worst_rel, rel)
         if cos < min_cos or rel > max_rel:
@@ -4518,6 +4567,468 @@ def check_memory(dev, card, phase11, sizes):
         dev, card, 'esm2_3b', ESM2_SIZES['esm2_3b'], False,
         three_b.get('peak_mem_gib')))
     timed('f_offload', lambda: check_offload(dev, card))
+    out['seconds'] = seconds
+    return out
+
+
+# -------------------------------------------------------------------------
+# Phase 14: the fine-tune slice. ESM2-650M at phase 4's size and seed-0
+# weights with LoRA rank 16 on query, value and output and the
+# learned-aggregation head of 4 heads (benchmarks/tasks.py's defaults), at
+# the budget and truncation of the task script (benchmarks/tasks.py:
+# 134-140). The step is held and timed on full batches at the lengths of
+# the tasks (FT_LENGTHS); the task loop runs on the script's smoke-mode
+# splits (synthetic GB1-like regression, TF-like binary).
+# -------------------------------------------------------------------------
+
+FT_BUDGET = 10_000
+FT_TRUNCATE = 1000
+FT_RANK = 16
+FT_HEAD_HEADS = 4
+FT_LR, FT_HEAD_LR = 1e-4, 1e-3
+# sequences per train split (val and test a quarter): ~20k tokens of 20-59
+# residues, so an epoch is two full 10k batches and a remainder
+FT_SPLIT_N = 480
+FT_EPOCHS = 2
+FT_REPS = 5             # timed fine-tune steps after a warm-up
+# b of every adapter drawn from FT_B_STD·N(0, 1): with b = 0 the gradient
+# of a is exactly 0 and holds nothing against the plain versions
+FT_B_STD = 0.01
+# kernels vs plain versions: the loss within the bf16 resolution (the
+# kernels round p and o to bf16 at other points, phase 3's gates), every
+# trainable leaf's gradient under phase 5's gates
+FT_LOSS_REL = 2.0 ** -8
+# the most of the head's ReLU units whose input may change sign between the
+# kernels' run and the plain versions' (their gradient entries are then
+# held by the cosine gate alone: flipped_units)
+FT_MAX_FLIPPED = 1 / 8
+FT_TASKS = (('gb1', False), ('tf', True))
+# the step's batches, (shortest, longest) residues of seeded random
+# sequences: FLIP's GB1 sets hold one 265-residue construct; sequences past
+# the task script's truncation (Meltome's long proteins) cut to 1,000; the
+# smoke-mode splits' 20-59 for comparison with the task loop's batches
+FT_LENGTHS = {'gb1_265': (265, 265), 'trunc_1000': (1000, 1400),
+              'smoke': (20, 59)}
+FT_GRAD_CELLS = ('gb1_265', 'trunc_1000')
+
+
+def synthetic_splits(task, n=48, seed=None):
+    """``benchmarks/tasks.py:106-124``'s smoke-mode data, copied: per-task
+    seeds, ``n`` train sequences of 20-59 residues (val and test ``n //
+    4``), labels ``len / 60`` (regression) or ``len > 40`` (tf)."""
+    if seed is None:
+        seed = {'meltome': 11, 'gb1': 22, 'aav': 33, 'tf': 44}[task]
+    rng = np.random.default_rng(seed)
+    aas = list('LAGVSERTIDPKQNFYMHWC')
+    splits = {}
+    for name, k in [('train', n), ('val', n // 4), ('test', n // 4)]:
+        seqs = [''.join(rng.choice(aas, rng.integers(20, 60)))
+                for _ in range(k)]
+        if task == 'tf':
+            labels = [float(len(s) > 40) for s in seqs]
+        else:
+            labels = [len(s) / 60.0 for s in seqs]
+        splits[name] = (seqs, labels)
+    return splits
+
+
+def ft_dataset(splits, split, model, binary, epoch=0, shuffle=False):
+    """The task script's ``dataset`` (``benchmarks/tasks.py:197-205``):
+    the train split of a binary task upsampled to balance."""
+    from esme_tpu_torch import LabeledDataset, balance_binary
+    seqs, labels = splits[split]
+    if binary and split == 'train':
+        seqs, labels = balance_binary(seqs, labels, 'upsample')
+    return LabeledDataset(seqs, labels, token_per_batch=FT_BUDGET,
+                          shuffle=shuffle, random_state=epoch,
+                          truncate_len=FT_TRUNCATE, alphabet=model.alphabet)
+
+
+def length_batch(model, lengths, seed=7):
+    """The first batch of ``LabeledDataset`` at the task's budget and
+    truncation over seeded random sequences of ``lengths`` residues (both
+    ends included) with N(0, 1) regression labels: a full batch."""
+    lo, hi = lengths
+    rng = np.random.default_rng(seed)
+    n = 2 * FT_BUDGET // (min(lo, FT_TRUNCATE) + 2)
+    aas = list('LAGVSERTIDPKQNFYMHWC')
+    seqs = [''.join(rng.choice(aas, rng.integers(lo, hi + 1)))
+            for _ in range(n)]
+    labels = rng.standard_normal(n).tolist()
+    return ft_dataset({'train': (seqs, labels)}, 'train', model, False)[0]
+
+
+def ft_model(dev, lift_b=False):
+    """ESM2 at ``MODEL`` from seed 0 with the task's adapters; with
+    ``lift_b`` every ``b`` drawn from ``FT_B_STD``·N(0, 1) (seed 1)."""
+    from esme_tpu_torch import ESM2
+    model = ESM2(**MODEL, dtype='bfloat16', rng=0, device=dev)
+    model.add_lora(rank=FT_RANK, alpha=FT_RANK,
+                   layers=('query', 'value', 'output'), adapter_names=['ft'])
+    if lift_b:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(1)
+        for p in model.params['layers']['attn'].values():
+            for ad in p.get('lora', {}).values():
+                ad['b'].copy_(torch.randn(ad['b'].shape, generator=gen,
+                                          device=dev) * FT_B_STD)
+    return model
+
+
+def ft_head(dev, seed=0):
+    from esme_tpu_torch.models.heads import init_learned_aggregation
+    return init_learned_aggregation(seed, MODEL['embed_dim'], num_cls=1,
+                                    attention_heads=FT_HEAD_HEADS,
+                                    dtype=torch.bfloat16, device=dev)
+
+
+def ft_grads(trainer):
+    """The gradients a trainer's ``_grad_step`` left: the trunk's in the
+    layout of ``model.params`` (None for a frozen leaf), the head's."""
+    from esme_tpu_torch.train.trainer import _grad_tree, _map
+    return {'plm': _grad_tree(trainer._views),
+            'head': _map(lambda t: t.grad.detach().clone(),
+                         trainer._head_views)}
+
+
+def _trained_only(tree):
+    """``tree`` without its None leaves (frozen), and how many it had."""
+    out, frozen = {}, 0
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            sub, n = _trained_only(v)
+            frozen += n
+            if sub:
+                out[k] = sub
+        elif v is None:
+            frozen += 1
+        else:
+            out[k] = v
+    return out, frozen
+
+
+@contextlib.contextmanager
+def head_preactivations(store):
+    """Append the aggregation head's ReLU inputs ``(S, C, units)`` of each
+    fine-tune trainer call to ``store``."""
+    from esme_tpu_torch.models import heads
+    from esme_tpu_torch.train import trainer
+    apply = trainer.apply_learned_aggregation
+
+    def recorded(params, x, seg_ids, num_segments, attention_heads):
+        with torch.no_grad():
+            pooled = heads.apply_learned_attention_pool(
+                params, x, seg_ids, num_segments, attention_heads)
+            store.append(heads.linear(pooled, params['linear']).float())
+        return apply(params, x, seg_ids, num_segments, attention_heads)
+
+    trainer.apply_learned_aggregation = recorded
+    try:
+        yield
+    finally:
+        trainer.apply_learned_aggregation = apply
+
+
+def flipped_units(pre, what):
+    """The head's ReLU units whose input changed sign between the kernels'
+    run and the plain versions' for some segment (bf16 representations
+    an ulp apart move a unit near 0 across it, and its gradient entries
+    then differ by their whole size): the gradient parts of the units that
+    did not flip, for :func:`compare_grads`, and the counts. Fails if more
+    than ``FT_MAX_FLIPPED`` of the units flipped."""
+    flips = (pre[0] > 0) != (pre[1] > 0)
+    flipped = flips.flatten(0, -2).any(0)
+    n = int(flipped.sum())
+    info = {'units': n, 'of_units': flipped.numel(),
+            'segment_unit_pairs': int(flips.sum()),
+            'of_pairs': flips.numel(),
+            'max_abs_preactivation': pre[1][flips].abs().max().item()
+            if n else 0.0}
+    if n > FT_MAX_FLIPPED * flipped.numel():
+        fail(f'fine-tune step {what}: {n} of the head\'s {flipped.numel()} '
+             f'units changed sign between the kernels\' run and the plain '
+             f'versions\' (gate {FT_MAX_FLIPPED} of them)')
+    keep = ~flipped
+    part = {'head.linear.kernel': lambda g: g[:, keep],
+            'head.linear.bias': lambda g: g[keep],
+            'head.final.kernel': lambda g: g[keep]}
+    return part, info
+
+
+def check_finetune_grads(model, head, batch, card, what):
+    """(a) and (b): one ``RegressionTrainer`` step's loss and gradients
+    with the kernels (launches counted from 0: H1 L, H2 L, H3 2L of which
+    L inverse) and through the plain versions, from the same params, on
+    the batch ``what`` names. The head's units that :func:`flipped_units`
+    finds leave their gradient entries to the cosine gate alone."""
+    from esme_tpu_torch.train import RegressionTrainer
+    L = model.config.num_layers
+    tt = RegressionTrainer(model, head, head_lr=FT_HEAD_LR, lr=FT_LR,
+                           head_attention_heads=FT_HEAD_HEADS)
+    pre = []
+    with head_preactivations(pre):
+        reset_counters()
+        loss = tt._grad_step(batch)
+        torch.cuda.synchronize()
+        launches = read_counters()
+        got = ft_grads(tt)
+        with plain_versions():
+            loss_p = tt._grad_step(batch)
+        ref = ft_grads(tt)
+    part, flips = flipped_units(pre, what)
+    expected = expected_launches(**{H1_NAME: L, H2_NAME: L, H3_NAME: 2 * L,
+                                    'rope_inverse': L})
+    log(f'[{card}] fine-tune step {what}: launches {launches} (expected '
+        f'{expected}); loss with kernels {loss.item():.6f}, plain versions '
+        f'{loss_p.item():.6f}')
+    if launches != expected:
+        fail(f'fine-tune step {what}: a kernel launched {launches}, not '
+             f'{expected}')
+    rel = abs(loss.item() - loss_p.item()) / abs(loss_p.item())
+    if not rel <= FT_LOSS_REL:
+        fail(f'fine-tune step {what}: the loss with the kernels is '
+             f'{rel:.3e} off the plain versions\' (gate {FT_LOSS_REL})')
+    got, frozen = _trained_only(got)
+    ref, frozen_p = _trained_only(ref)
+    n_lora = sum(1 for t in model.params['layers']['attn'].values()
+                 for _ in t.get('lora', {}).values()) * 2
+    trained = sum(1 for _ in _leaves(got['plm']))
+    if trained != n_lora or frozen != frozen_p or not frozen:
+        fail(f'fine-tune step {what}: {trained} trunk leaves with a '
+             f'gradient (expected {n_lora}: the adapters), frozen {frozen} '
+             f'/ {frozen_p}')
+    log(f'[{card}] fine-tune step {what}: {flips["units"]} of the head\'s '
+        f'{flips["of_units"]} units changed sign ({flips["segment_unit_pairs"]}'
+        f' of {flips["of_pairs"]} segment-unit pairs, |input| at most '
+        f'{flips["max_abs_preactivation"]:.3g})')
+    checks = compare_grads(got, ref, GRAD_MIN_COS, GRAD_MAX_REL,
+                           f'[{card}] fine-tune gradients {what}, kernels '
+                           'vs plain versions',
+                           {'head.k.bias': 'head.k.kernel'}, part)
+    del tt, got, ref
+    torch.cuda.empty_cache()
+    return {'launches': launches, 'loss': loss.item(),
+            'real_tokens': int(batch.cu_lens[-1]),
+            'sequences': int((np.diff(batch.cu_lens) > 0).sum()),
+            'loss_plain': loss_p.item(), 'loss_rel': rel,
+            'frozen_leaves_without_grad': frozen, 'grads_vs_plain': checks,
+            'flipped_head_units': flips}
+
+
+def time_finetune(model, head, batch, card, phase5, what,
+                  profile_dir=None):
+    """(d) on the batch ``what`` names: a warm-up
+    ``RegressionTrainer.training_step`` with the counters set to 0 just
+    before it (the launches of (b)), ``FT_REPS`` timed steps on the same
+    full batch, one ``predict``'s launches (H1 L, H3 L), the optimizer's
+    state bytes and the peak, beside phase 5's full MLM step at
+    ``nockpt@10k``. The trained leaves are put back afterwards, so every
+    batch's steps start from the same params."""
+    from esme_tpu_torch.train import RegressionTrainer
+    L = model.config.num_layers
+    real = int(batch.cu_lens[-1])
+    tt = RegressionTrainer(model, head, head_lr=FT_HEAD_LR, lr=FT_LR,
+                           head_attention_heads=FT_HEAD_HEADS)
+    start = [p.detach().clone() for p in tt._params]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    losses = [tt.training_step(batch)]
+    launches = read_counters()
+    expected = expected_launches(**{H1_NAME: L, H2_NAME: L, H3_NAME: 2 * L,
+                                    'rope_inverse': L})
+    if launches != expected:
+        fail(f'fine-tune training_step {what}: launches {launches}, not '
+             f'{expected}')
+    samples = []
+    for _ in range(FT_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(tt.training_step(batch))        # float(): a sync
+        samples.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    ms = float(np.median(samples))
+    state_bytes = sum(t.numel() * t.element_size()
+                      for st in tt.optimizer.state.values()
+                      for t in st.values() if torch.is_tensor(t))
+    trained = sum(p.numel() for p in tt._params)
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred = tt.predict(batch)
+    predict_ms = (time.perf_counter() - t0) * 1e3
+    predict_launches = read_counters()
+    if predict_launches != expected_launches(**{H1_NAME: L, H3_NAME: L}):
+        fail(f'fine-tune predict {what}: launches {predict_launches}')
+    if not (np.isfinite(losses).all() and np.isfinite(pred).all()):
+        fail(f'fine-tune steps {what}: losses {losses}, predictions finite '
+             f'{np.isfinite(pred).all()}')
+    cell = {'budget': FT_BUDGET, 'lengths': FT_LENGTHS[what],
+            'truncate_len': FT_TRUNCATE, 'real_tokens': real,
+            'sequences': int((np.diff(batch.cu_lens) > 0).sum()),
+            'launches': launches, 'predict_launches': predict_launches,
+            'losses': losses, 'ms_per_step': ms,
+            'ms_per_step_samples': samples,
+            'real_tokens_per_s': real / ms * 1e3,
+            'trained_params': trained, 'optimizer_state_bytes': state_bytes,
+            'peak_mem_gib': peak / 2**30, 'predict_ms': predict_ms,
+            'mlm_nockpt_10k_ms_per_step': phase5['ms_per_step'],
+            'mlm_nockpt_10k_real_tokens_per_s': phase5['real_tokens_per_s'],
+            'mlm_nockpt_10k_peak_mem_gib': phase5['peak_mem_gib']}
+    log(f'[{card}] fine-tune step {what} (LoRA r{FT_RANK} q/v/out + '
+        f'aggregation head) at {FT_BUDGET}: {cell["sequences"]} sequences '
+        f'of {FT_LENGTHS[what]} residues, {real} real tokens; median {ms:.2f} ms of {FT_REPS} (samples '
+        f'{[round(x, 2) for x in samples]}), {cell["real_tokens_per_s"]:.1f} '
+        f'real tokens/s, {trained:,} trained params, optimizer state '
+        f'{state_bytes:,} B, peak {cell["peak_mem_gib"]:.2f} GiB; losses '
+        f'{[round(x, 5) for x in losses]}; predict {predict_ms:.2f} ms. '
+        f'Full MLM step nockpt@10k (phase 5): {phase5["ms_per_step"]:.2f} ms,'
+        f' {phase5["real_tokens_per_s"]:.1f} real tokens/s, '
+        f'{phase5["peak_mem_gib"]:.2f} GiB')
+    if profile_dir:
+        _profile(lambda: tt.training_step(batch), profile_dir,
+                 f'profile_finetune_{what}.txt', f'fine-tune step {what}')
+    with torch.no_grad():
+        for p, t in zip(tt._params, start):
+            p.copy_(t)
+    del tt, start
+    torch.cuda.empty_cache()
+    return cell
+
+
+def _state_equal(a, b):
+    return all(torch.equal(x, y) for x, y in zip(_leaves(a), _leaves(b)))
+
+
+def finetune_task(dev, card, task, binary, tmp):
+    """(c) one task as ``benchmarks/tasks.py:main`` runs it: epochs of
+    ``training_step``, ``validation_metrics``, a ``MetricLogger`` line and
+    ``CheckpointManager.save``; then the latest checkpoint restored into a
+    fresh trainer (params, step and predictions bit-equal), and the
+    adapters through ``save_lora`` into a fresh model (predictions with the
+    trained head bit-equal)."""
+    from esme_tpu_torch import ESM2, MetricLogger, read_log
+    from esme_tpu_torch.train import (CheckpointManager,
+                                      ClassificationTrainer,
+                                      RegressionTrainer)
+    cls = ClassificationTrainer if binary else RegressionTrainer
+    monitor = 'val_auroc' if binary else 'val_spearman'
+    splits = synthetic_splits(task, n=FT_SPLIT_N)
+    model = ft_model(dev)
+    tt = cls(model, ft_head(dev), head_lr=FT_HEAD_LR, lr=FT_LR,
+             head_attention_heads=FT_HEAD_HEADS)
+    out_dir = os.path.join(tmp, task)
+    mgr = CheckpointManager(os.path.join(out_dir, 'ckpts'),
+                            max_to_keep=FT_EPOCHS, monitor=monitor,
+                            mode='max')
+    val = ft_dataset(splits, 'val', model, binary)
+    seconds = {}
+    t_task = time.perf_counter()
+    with MetricLogger(os.path.join(out_dir, 'metrics.jsonl'),
+                      run=task) as logger:
+        for epoch in range(FT_EPOCHS):
+            train = ft_dataset(splits, 'train', model, binary, epoch, True)
+            t0 = time.perf_counter()
+            losses = [tt.training_step(b) for b in train]
+            seconds[f'train_{epoch}'] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            metrics = tt.validation_metrics(val)
+            seconds[f'validate_{epoch}'] = time.perf_counter() - t0
+            rec = {'epoch': epoch, 'train_loss': float(np.mean(losses)),
+                   **metrics}
+            logger.log(rec, step=tt.step)
+            logger.track_best(metrics)
+            t0 = time.perf_counter()
+            mgr.save(epoch, tt.state, metrics)
+            seconds[f'save_{epoch}'] = time.perf_counter() - t0
+    records = read_log(os.path.join(out_dir, 'metrics.jsonl'))
+    if len(records) != FT_EPOCHS or not all(
+            np.isfinite(r[k]) for r in records for k in r
+            if k.startswith(('train_', 'val_'))):
+        fail(f'fine-tune {task}: logged {records}')
+    best = mgr.best_step()
+    want = max(range(FT_EPOCHS), key=lambda e: (records[e][monitor], e))
+    if mgr.all_steps() != list(range(FT_EPOCHS)) or best != want:
+        fail(f'fine-tune {task}: checkpoints {mgr.all_steps()}, best {best} '
+             f'(by the log {want})')
+    vb = val[0]
+    pred = tt.predict(vb)
+
+    t0 = time.perf_counter()
+    fresh = cls(ft_model(dev), ft_head(dev, seed=5), head_lr=FT_HEAD_LR,
+                lr=FT_LR, head_attention_heads=FT_HEAD_HEADS)
+    fresh.state = mgr.restore(fresh.state)
+    seconds['restore'] = time.perf_counter() - t0
+    if not (fresh.step == tt.step
+            and _state_equal(fresh.state.params, tt.state.params)
+            and np.array_equal(fresh.predict(vb), pred)):
+        fail(f'fine-tune {task}: the restored trainer differs from the one '
+             'it was saved from')
+    del fresh
+    lora_path = os.path.join(out_dir, 'lora.safetensors')
+    model.save_lora(lora_path)
+    reloaded = ESM2(**MODEL, dtype='bfloat16', rng=0,
+                    device=dev).load_lora(lora_path)
+    if reloaded.lora_kwargs != model.lora_kwargs or not np.array_equal(
+            cls(reloaded, tt.head_params,
+                head_attention_heads=FT_HEAD_HEADS).predict(vb), pred):
+        fail(f'fine-tune {task}: predictions through save_lora/load_lora '
+             'differ')
+    out = {'records': records, 'best_step': best,
+           'checkpoint_bytes': sum(
+               os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(os.path.join(out_dir, 'ckpts'))
+               for f in fs),
+           'lora_file_bytes': os.path.getsize(lora_path),
+           'train_batches': len(ft_dataset(splits, 'train', model, binary)),
+           'steps': tt.step, 'seconds': seconds,
+           'wall_s': time.perf_counter() - t_task}
+    log(f'[{card}] fine-tune task {task} ({cls.__name__}, {FT_EPOCHS} '
+        f'epochs of {out["train_batches"]} batches): '
+        + '; '.join(f'epoch {int(r["epoch"])} train_loss '
+                    f'{r["train_loss"]:.5f} ' + ' '.join(
+                        f'{k} {v:.4f}' for k, v in r.items()
+                        if k.startswith('val_')) for r in records)
+        + f'; best {best}; checkpoint and save_lora round trips bit-equal; '
+        f'seconds {({k: round(v, 2) for k, v in seconds.items()})}')
+    del tt, model, reloaded
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_finetune(dev, card, phase5, profile_dir=None):
+    """Phase 14, the fine-tune slice at ESM2-650M's full width: (a) and (b)
+    :func:`check_finetune_grads` on the full batches of GB1's length and
+    of the truncation's, (d) :func:`time_finetune` on those and on a
+    smoke-mode batch, (c) :func:`finetune_task` for GB1 (regression) and
+    TF (binary, upsampled) on the smoke-mode splits. Each part's seconds
+    are logged."""
+    out, seconds = {}, {}
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        seconds[key] = time.perf_counter() - t0
+        log(f'[{card}] phase 14 {key}: {seconds[key]:.1f} s')
+
+    model = ft_model(dev, lift_b=True)
+    head = ft_head(dev)
+    batches = {what: length_batch(model, lengths)
+               for what, lengths in FT_LENGTHS.items()}
+    for what in FT_GRAD_CELLS:
+        timed(f'a_grads_{what}', lambda what=what: check_finetune_grads(
+            model, head, batches[what], card, what))
+    for what, batch in batches.items():
+        timed(f'd_{what}', lambda what=what, batch=batch: time_finetune(
+            model, head, batch, card, phase5, what, profile_dir))
+    out['d_times'] = {what: out.pop(f'd_{what}') for what in batches}
+    del model, head, batches
+    torch.cuda.empty_cache()
+    for task, binary in FT_TASKS:
+        # one directory a task: its checkpoints hold the whole trunk
+        with tempfile.TemporaryDirectory() as tmp:
+            timed(f'c_{task}', lambda task=task, binary=binary, tmp=tmp:
+                  finetune_task(dev, card, task, binary, tmp))
     out['seconds'] = seconds
     return out
 

@@ -1,7 +1,10 @@
 """esme_tpu_torch — the PyTorch/CUDA port of the JAX package ``esme_tpu``.
 
-Packed ("varlen") ESM inference and masked-LM training in PyTorch, for
-every family of the JAX package (ESM2, ESM1b, ESM1v, ESMC), and
+Packed ("varlen") ESM inference, masked-LM training and LoRA fine-tuning
+with pooled heads (:mod:`esme_tpu_torch.lora`,
+:mod:`esme_tpu_torch.models.heads`, the trainers of
+:mod:`esme_tpu_torch.train`) in PyTorch, for every family of the JAX
+package (ESM2, ESM1b, ESM1v, ESMC), and
 context-parallel inference over several processes
 (:mod:`esme_tpu_torch.parallel`),
 with hand-written CUDA kernels for Hopper (``sm_90a``) where the JAX
@@ -20,9 +23,11 @@ CPU, where every kernel runs through its plain PyTorch version.
 from .alphabet import (Alphabet, Alphabet3, mask_tokens, pack_tokens,
                        pad_tokens, padding_mask, tokenize, tokenize_unpad,
                        token_to_str)
-from .data import (FastaTokenDataset, MaskedFastaTokenDataset, PackedBatch,
-                   TokenSizeBatchSampler)
+from .data import (FastaTokenDataset, LabeledDataset,
+                   MaskedFastaTokenDataset, PackedBatch, TokenSizeBatchSampler,
+                   balance_binary)
 from .fasta import Fasta
+from .logger import MetricLogger, read_log
 from .models.config import (ESMConfig, config_for, esm1b_config,
                             esm1v_config, esm2_config, esmc_config)
 from .models.esm import ESM, ESM1b, ESM1v, ESM2, ESMC

@@ -1,15 +1,16 @@
 """Token-budget batching and the packed masked-LM FASTA dataset.
 
-Counterpart of ``esme_tpu/data.py`` (reference: esme/data.py:12-244):
+Counterpart of ``esme_tpu/data.py`` (reference: esme/data.py:12-415):
 :class:`TokenSizeBatchSampler`, :class:`PackedBatch`, the Python path of
-:class:`FastaTokenDataset` and :class:`MaskedFastaTokenDataset`, with the
-same batches for the same ``random_state``. Batches are numpy arrays;
+:class:`FastaTokenDataset` and :class:`MaskedFastaTokenDataset`, the
+fine-tuning data :class:`LabeledDataset` and :func:`balance_binary`, with
+the same batches for the same ``random_state``. Batches are numpy arrays;
 the trainer moves them to the model's device. Batches are padded to a
 static ``(token_per_batch, max_segments)`` shape as in the JAX package,
 whose jitted step compiled once per shape; here the static shape keeps
-every step's allocations alike. The C++ mmap reader, the prefetcher,
-the labelled datasets and the data modules come with the data-plane
-slice.
+every step's allocations alike. The C++ mmap reader, the prefetcher
+and the data modules come with the data-plane slice (ROADMAP.md Queue 1,
+item 18).
 """
 
 from __future__ import annotations
@@ -207,3 +208,78 @@ class MaskedFastaTokenDataset(FastaTokenDataset):
                                      constant_values=self.alphabet.padding_idx)
         batch.mask = np.pad(mask, (0, pad), constant_values=False)
         return batch
+
+
+class LabeledDataset:
+    """Packed batches of ``(sequence, label)`` pairs for fine-tuning
+    (``esme_tpu/data.py:379-424``, reference: esme/data.py:377-415), with
+    ``truncate_len``. With ``pad_to_budget`` the tokens are padded to
+    ``token_per_batch`` and the segments to the dataset's most per batch:
+    ``cu_lens`` repeats its last value (empty segments) and the labels
+    take zeros there."""
+
+    def __init__(self, seqs, labels, token_per_batch, shuffle=True,
+                 random_state=None, truncate_len=None, alphabet=Alphabet3,
+                 pad_to_budget=True):
+        self.seqs = list(seqs)
+        self.labels = list(labels)
+        self.truncate_len = truncate_len
+        self.alphabet = alphabet
+        self.token_per_batch = token_per_batch
+        self.pad_to_budget = pad_to_budget
+
+        self.sampler = list(TokenSizeBatchSampler(
+            [min(len(s), truncate_len or len(s)) for s in self.seqs],
+            token_per_batch, shuffle=shuffle, random_state=random_state))
+        self.max_segments = max(len(b) for b in self.sampler) \
+            if self.sampler else 0
+
+    def truncate(self, seq):
+        if self.truncate_len is not None and len(seq) > self.truncate_len:
+            return seq[:self.truncate_len]
+        return seq
+
+    def __len__(self):
+        return len(self.sampler)
+
+    def __getitem__(self, idx) -> PackedBatch:
+        indices = self.sampler[idx]
+        tokens, tok_indices, cu_lens, max_len = tokenize_unpad(
+            [self.truncate(self.seqs[i]) for i in indices],
+            alphabet=self.alphabet)
+        labels = np.asarray([self.labels[i] for i in indices],
+                            dtype=np.float32)
+        if self.pad_to_budget:
+            tokens, cu_lens = _pad_packed(
+                tokens, cu_lens, self.token_per_batch, self.max_segments,
+                self.alphabet.padding_idx)
+            labels = np.pad(labels, (0, self.max_segments - len(indices)))
+        return PackedBatch(tokens=tokens, cu_lens=cu_lens, max_len=max_len,
+                           indices=tok_indices, labels=labels)
+
+    def __iter__(self) -> Iterator[PackedBatch]:
+        for i in range(len(self)):
+            yield self[i]
+
+
+def balance_binary(seqs, labels, balance: Optional[str] = 'upsample',
+                   rng=None):
+    """Class-balance a binary ``(sequence, label)`` set by repeating the
+    positive class (``'upsample'``) or subsampling the negative class
+    (``'downsample'``), as the reference's TF dataset does (reference:
+    workflow/tf/finetune.py:21-56; ``esme_tpu/data.py:427-446``)."""
+    if balance not in (None, 'upsample', 'downsample'):
+        raise ValueError(f'unknown balance: {balance!r}')
+    if balance is None:
+        return list(seqs), list(labels)
+    seqs, labels = list(seqs), list(labels)
+    pos = [s for s, y in zip(seqs, labels) if y]
+    neg = [s for s, y in zip(seqs, labels) if not y]
+    if balance == 'upsample':
+        imbalance = max(len(neg) // max(len(pos), 1), 1)
+        pos = pos * imbalance
+    else:
+        rng = rng or np.random.default_rng()
+        idx = rng.permutation(len(neg))[:max(len(pos), 1)]
+        neg = [neg[i] for i in idx]
+    return pos + neg, [1.0] * len(pos) + [0.0] * len(neg)

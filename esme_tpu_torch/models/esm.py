@@ -8,7 +8,9 @@ plain function over a params dict, differentiable for training
 ``(config, params, device, checkpointing)`` and mirror the reference's
 API:
 ``from_pretrained``, ``forward_representation``, ``forward``,
-``predict_log_prob`` and ``predict_prob`` (reference: esme/esm.py).
+``predict_log_prob``, ``predict_prob``, and the LoRA methods ``add_lora``,
+``lora_state_dict``, ``save_lora``/``load_lora`` and ``trainable_filter``
+(reference: esme/esm.py).
 
 Computation always runs over the packed flat token layout. Padded
 ``(B, L)`` inputs are repacked valid-tokens-first with one gather
@@ -66,7 +68,8 @@ def forward_flat(params, cfg: ESMConfig, tokens, seg_ids, pos_ids, *,
                  attn_impl: str = 'auto', checkpointing: bool = False,
                  collect_layers=None, max_seqlen=None, num_jobs=None,
                  remat: str = 'full', kv_gather=None, spans=None,
-                 layer_gather=None, outer_gather=None):
+                 layer_gather=None, outer_gather=None, lora_names=None,
+                 lora_dropout: float = 0.0, dropout_key=None):
     """Trunk (+ optional LM head) over flat tokens with explicit
     segment/position metadata. Returns ``(T, C)``; with
     ``collect_layers`` the requested layer outputs are concatenated on
@@ -99,6 +102,11 @@ def forward_flat(params, cfg: ESMConfig, tokens, seg_ids, pos_ids, *,
     :func:`~esme_tpu_torch.parallel.make_outer_gather`) when ``params``
     holds this rank's shards: the non-layer leaves are gathered here, each
     layer's inside its (checkpointed) step of the layer stack.
+
+    ``lora_names``: the LoRA adapters applied (None: every adapter of a
+    layer, in sorted order); ``lora_dropout``, ``dropout_key``: their
+    output dropout in training (the key None: none), as
+    :func:`~esme_tpu_torch.models.modules.layer_stack` takes them.
     """
     if outer_gather is not None:
         params = {**outer_gather({k: v for k, v in params.items()
@@ -122,7 +130,8 @@ def forward_flat(params, cfg: ESMConfig, tokens, seg_ids, pos_ids, *,
                           attn_impl=attn_impl, checkpointing=checkpointing,
                           collect_layers=collect_layers, rope=rope,
                           spans=spans, remat=remat, kv_gather=kv_gather,
-                          layer_gather=layer_gather)
+                          layer_gather=layer_gather, lora_names=lora_names,
+                          lora_dropout=lora_dropout, dropout_key=dropout_key)
     x = apply_norm(x, params['emb_norm_after'])
     x = x[:T]
     reps = [r[:T] for r in reps]
@@ -211,7 +220,6 @@ def _pad_head_row(params, cfg: ESMConfig, log_prob: bool, device):
 _UNPORTED = {
     'quantization': 'int8/NF4 weight quantization comes with ROADMAP.md '
                     'Queue 1, item 22',
-    'lora_names': 'LoRA adapters come with ROADMAP.md Queue 1, item 19',
 }
 
 
@@ -247,6 +255,7 @@ class _ESMBase:
         self.config = config
         self.checkpointing = bool(checkpointing)
         self.name = name or self.family
+        self.lora_kwargs = None
         if params is None:
             params = init_params(config, rng, device=self.device)
         self.params = params
@@ -289,7 +298,7 @@ class _ESMBase:
     @fp32_accumulation()
     def _run(self, tokens, pad_args=None, pad_output=False, lora_names=None,
              layers=None, attn_impl='auto', with_head=True, log_prob=False):
-        check_unported(lora_names=lora_names)
+        lora_names = tuple(lora_names) if lora_names is not None else None
         collect = tuple(layers) if layers else None
         tokens = self._tensor(tokens).to(torch.int32)
         self._check_positions(int(pad_args[1]) if pad_args is not None
@@ -305,7 +314,7 @@ class _ESMBase:
             x = forward_flat(self.params, self.config, tokens, seg_ids,
                              pos_ids, with_head=with_head,
                              log_prob=log_prob, attn_impl=attn_impl,
-                             collect_layers=collect)
+                             collect_layers=collect, lora_names=lora_names)
             if pad_output:
                 fill = _pad_head_row(self.params, self.config, log_prob,
                                      self.device) if with_head else None
@@ -320,7 +329,8 @@ class _ESMBase:
             tokens, self.config.padding_idx)
         x = forward_flat(self.params, self.config, flat, seg_ids, pos_ids,
                          with_head=with_head, log_prob=log_prob,
-                         attn_impl=attn_impl, collect_layers=collect)
+                         attn_impl=attn_impl, collect_layers=collect,
+                         lora_names=lora_names)
         # representation pads are zeros (pad_input zero-fill), logits
         # pads are lm_head(0) because the reference runs the head after
         # the scatter (reference: esme/esm.py:255,281)
@@ -330,7 +340,7 @@ class _ESMBase:
         return _scatter_back_padded(x, dst, valid, fill)
 
     # The entries take the JAX package's parameters in its order;
-    # ``lora_names`` other than None raises (no adapters yet).
+    # ``lora_names`` selects the LoRA adapters (None: all of them).
 
     def forward_representation(self, tokens, pad_args=None, pad_output=False,
                                lora_names=None, layers=None,
@@ -359,6 +369,41 @@ class _ESMBase:
         lp = self.predict_log_prob(tokens, pad_args, pad_output, lora_names,
                                    attn_impl)
         return lp if log else torch.exp(lp)
+
+    # -- LoRA (esme_tpu/models/esm.py:387-420) --------------------------
+
+    def add_lora(self, rank=16, alpha=16, layers=('query', 'value', 'output'),
+                 adapter_names=None, dropout_p: float = 0.0, rng=0):
+        """(reference: esme/esm.py:495-543). ``dropout_p`` drops each
+        adapter's output in training steps (reference:
+        esme/lora.py:84-88)."""
+        from ..lora import add_lora_params
+        self.params, self.lora_kwargs = add_lora_params(
+            self.params, self.config, rank=rank, alpha=alpha, layers=layers,
+            adapter_names=adapter_names, dropout_p=dropout_p, rng=rng)
+        return self
+
+    def lora_state_dict(self, adapter_names=None):
+        from ..lora import lora_state_dict
+        return lora_state_dict(self.params, adapter_names)
+
+    def save_lora(self, path, adapter_names=None):
+        from ..lora import save_lora
+        save_lora(path, self.params, self.lora_kwargs, adapter_names)
+        return self
+
+    def load_lora(self, path, names=None):
+        from ..lora import load_lora
+        self.params, self.lora_kwargs = load_lora(path, self.params, names)
+        return self
+
+    def trainable_filter(self, lora_only=None, train_lmhead=False):
+        """The trainable mask of ``params``, a tree of bools
+        (``mark_only_lora_as_trainable`` / ``mark_lmhead``, reference:
+        esme/lora.py:97-108, esme/esm.py:609-615)."""
+        from ..lora import trainable_mask
+        return trainable_mask(self.params, lora_only=lora_only,
+                              train_lmhead=train_lmhead)
 
 
 class ESM2(_ESMBase):

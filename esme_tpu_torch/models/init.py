@@ -19,6 +19,15 @@ import torch
 from .config import ESMConfig
 
 
+def host_generator(rng) -> torch.Generator:
+    """``rng`` if it is a ``torch.Generator``, else a CPU generator seeded
+    by it (the LoRA and head inits draw on the host, then move, so a seed
+    gives the same values on every device)."""
+    if isinstance(rng, torch.Generator):
+        return rng
+    return torch.Generator().manual_seed(int(rng))
+
+
 def init_params(cfg: ESMConfig, seed: int = 0, device='cpu') -> dict:
     """Create a randomly initialised param tree for ``cfg`` on
     ``device``."""

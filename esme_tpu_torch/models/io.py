@@ -271,9 +271,12 @@ def load_pretrained(path: str, dtype='bfloat16', device='cpu'
 
 def params_from_jax(params_np: dict, cfg: ESMConfig, device='cpu') -> dict:
     """Carry a JAX param tree with numpy leaves over to the port's
-    params, bit for bit (bf16 leaves travel as raw 16-bit words).
-    ``cfg`` is the port's config of the same model: every family has
-    the same tree in both packages."""
+    params, bit for bit (bf16 leaves travel as raw 16-bit words), as
+    copies. ``cfg`` is the port's config of the same model: every family
+    has the same tree in both packages, LoRA adapters included
+    (``{'a', 'b', 'scale'}`` under ``layers.attn.<t>.lora.<name>``); a
+    head's tree (``cls``, ``k``, ``linear``, ``final``; or ``fc1``,
+    ``fc2``) comes over the same way."""
 
     def convert(a):
         a = np.asarray(a)

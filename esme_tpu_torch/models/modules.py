@@ -29,7 +29,7 @@ from ..ops.flash import AttnStash, flash_spans, segment_flash, \
     segment_flash_rect
 from ..ops.fused_attn import fused_rotary_flash
 from ..ops import headsplit
-from ..ops.linear import linear, matmul
+from ..ops.linear import fold_in, linear, matmul
 from ..ops.norm import apply_norm
 from ..ops.rotary import apply_rotary, rotary_cos_sin
 
@@ -64,8 +64,10 @@ class _GeluLinear(torch.autograd.Function):
         dx = torch.ops.aten.gelu_backward(
             dh, x, approximate='tanh' if x.dtype == torch.bfloat16
             else 'none')
-        dkernel = torch.matmul(gelu(x).T, dy).to(kernel.dtype)
-        dbias = dy.sum(0) if ctx.has_bias else None
+        dkernel = torch.matmul(gelu(x).T, dy).to(kernel.dtype) \
+            if ctx.needs_input_grad[1] else None
+        dbias = dy.sum(0) if ctx.has_bias and ctx.needs_input_grad[2] \
+            else None
         return dx, dkernel, dbias
 
 
@@ -77,7 +79,8 @@ def gelu_linear(x, kernel, bias=None):
 def attention_block(x, params, cfg, seg_ids, pos_ids,
                     attn_impl: str = 'auto',
                     rope: Optional[tuple] = None, spans=None,
-                    kv_gather=None, stash=None):
+                    kv_gather=None, stash=None, lora_names=None,
+                    lora_dropout: float = 0.0, dropout_key=None):
     """Multi-head self-attention over the packed layout
     (reference: esme/attention.py:91-139). ``x``: ``(T, C)``.
 
@@ -113,11 +116,20 @@ def attention_block(x, params, cfg, seg_ids, pos_ids,
     :class:`~esme_tpu_torch.ops.flash.AttnStash` under ``remat='attn'``
     (the flash routes keep o and lse in it, and the recompute launches no
     H1 or H9), or None.
+
+    ``lora_names``, ``lora_dropout``, ``dropout_key``: the LoRA adapters of
+    q, k, v and out (:func:`~esme_tpu_torch.ops.linear.linear`), the
+    dropout key folded with the projection's index (0-3), as JAX folds it
+    (``esme_tpu/models/modules.py:120-134``). Adapters on q, k and v act
+    before RoPE and the attention kernels, the one on out after them.
     """
     h = apply_norm(x, params['norm'])
-    q = linear(h, params['q'])
-    k = linear(h, params['k'])
-    v = linear(h, params['v'])
+    keys = [None] * 4
+    if dropout_key is not None and lora_dropout > 0.0:
+        keys = [fold_in(dropout_key, i) for i in range(4)]
+    q = linear(h, params['q'], lora_names, lora_dropout, keys[0])
+    k = linear(h, params['k'], lora_names, lora_dropout, keys[1])
+    v = linear(h, params['v'], lora_names, lora_dropout, keys[2])
     if cfg.qk_layernorm:
         q = apply_norm(q, params['ln_q'])
         k = apply_norm(k, params['ln_k'])
@@ -145,7 +157,7 @@ def attention_block(x, params, cfg, seg_ids, pos_ids,
         o = o.reshape(T, H * Dh)
     else:
         raise ValueError(f'unknown attention impl: {attn_impl}')
-    return linear(o, params['out'])
+    return linear(o, params['out'], lora_names, lora_dropout, keys[3])
 
 
 def _attention_cp(q, k, v, cfg, seg_ids, attn_impl, rope, spans, kv_gather,
@@ -202,9 +214,10 @@ class _SwigluLinear(torch.autograd.Function):
         dg = torch.ops.aten.silu_backward(dsu * u, g)
         du = dsu * sg
         dh = matmul(dg, gk.T) + matmul(du, uk.T)
-        dgk = torch.matmul(h2.T, dg).to(gk.dtype)
-        duk = torch.matmul(h2.T, du).to(uk.dtype)
-        ddk = torch.matmul((sg * u).T, dy).to(dk.dtype)
+        need = ctx.needs_input_grad
+        dgk = torch.matmul(h2.T, dg).to(gk.dtype) if need[1] else None
+        duk = torch.matmul(h2.T, du).to(uk.dtype) if need[2] else None
+        ddk = torch.matmul((sg * u).T, dy).to(dk.dtype) if need[3] else None
         return dh.reshape(h.shape), dgk, duk, ddk
 
 
@@ -215,17 +228,19 @@ def swiglu_linear(h, gk, uk, dk):
 
 
 def _plain_swiglu_params(params) -> bool:
-    """True when gate, up and down are bias-free dense kernels: the
-    contract of :func:`swiglu_linear`
+    """True when gate, up and down are bias-free dense kernels without
+    LoRA adapters: the contract of :func:`swiglu_linear`
     (``esme_tpu/models/modules.py:283-288``)."""
-    return all('kernel' in params[k] and 'bias' not in params[k]
-               for k in ('gate', 'up', 'down'))
+    return all('kernel' in params[k] and not params[k].get('lora')
+               and 'bias' not in params[k] for k in ('gate', 'up', 'down'))
 
 
 def mlp_block(x, params, cfg):
     """Position-wise MLP: LN -> fc1 -> GELU -> fc2 (ESM2, ESM1b, ESM1v,
     reference: esme/attention.py:228-236) or LN -> SwiGLU -> down (ESMC,
-    reference: esme/attention.py:217-227,258-281)."""
+    reference: esme/attention.py:217-227,258-281). A LoRA adapter on fc2
+    (or gate, up, down) leaves the memory-lean routes, as in JAX
+    (``esme_tpu/models/modules.py:291-309``)."""
     h = apply_norm(x, params['norm'])
     if cfg.mlp == 'swiglu':
         if _plain_swiglu_params(params):
@@ -236,7 +251,7 @@ def mlp_block(x, params, cfg):
                       * linear(h, params['up']), params['down'])
     h = linear(h, params['fc1'])
     fc2 = params['fc2']
-    if 'kernel' in fc2:
+    if 'kernel' in fc2 and not fc2.get('lora'):
         return gelu_linear(h, fc2['kernel'], fc2.get('bias'))
     return linear(gelu(h), fc2)
 
@@ -244,7 +259,8 @@ def mlp_block(x, params, cfg):
 def transformer_layer(x, params, cfg, seg_ids, pos_ids,
                       attn_impl: str = 'auto',
                       rope: Optional[tuple] = None, spans=None,
-                      kv_gather=None, stash=None):
+                      kv_gather=None, stash=None, lora_names=None,
+                      lora_dropout: float = 0.0, dropout_key=None):
     """Pre-norm residual block with residue scaling
     (reference: esme/attention.py:241-255). The branch is multiplied by
     ``1 / residue_scaling`` rounded to the activation dtype first, as JAX
@@ -258,7 +274,8 @@ def transformer_layer(x, params, cfg, seg_ids, pos_ids,
         return y if inv_scale == 1.0 else y * inv_scale
 
     x = x + scaled(attention_block(x, params['attn'], cfg, seg_ids, pos_ids,
-                                   attn_impl, rope, spans, kv_gather, stash))
+                                   attn_impl, rope, spans, kv_gather, stash,
+                                   lora_names, lora_dropout, dropout_key))
     return x + scaled(mlp_block(x, params['mlp'], cfg))
 
 
@@ -283,20 +300,23 @@ def check_remat(remat: str) -> None:
 
 
 def _gathered_layer(x, params, cfg, seg_ids, pos_ids, attn_impl, rope, spans,
-                    kv_gather, layer_gather, stash=None):
+                    kv_gather, layer_gather, lora, stash=None):
     """:func:`transformer_layer` on the layer's params gathered by
-    ``layer_gather`` (FSDP shards), or on ``params`` as they are."""
+    ``layer_gather`` (FSDP shards), or on ``params`` as they are;
+    ``lora``: ``(lora_names, lora_dropout, dropout_key)``."""
     if layer_gather is not None:
         params = layer_gather(params)
     return transformer_layer(x, params, cfg, seg_ids, pos_ids, attn_impl,
-                             rope, spans, kv_gather, stash)
+                             rope, spans, kv_gather, stash, *lora)
 
 
 def layer_stack(x, stacked_params, cfg, seg_ids, pos_ids,
                 attn_impl: str = 'auto', checkpointing: bool = False,
                 collect_layers: Optional[Sequence[int]] = None,
                 rope: Optional[tuple] = None, spans=None,
-                remat: str = 'full', kv_gather=None, layer_gather=None):
+                remat: str = 'full', kv_gather=None, layer_gather=None,
+                lora_names=None, lora_dropout: float = 0.0,
+                dropout_key=None):
     """Run every layer over the per-layer params: a dict of stacked
     leaves, or a list of one dict per layer.
 
@@ -319,6 +339,12 @@ def layer_stack(x, stacked_params, cfg, seg_ids, pos_ids,
     layer. ``layer_gather``: the FSDP hook that all-gathers a layer's
     param shards (``esme_tpu/models/modules.py:367-371``), called inside
     the checkpointed layer so that the recompute gathers again.
+    ``lora_names``, ``lora_dropout``: the LoRA adapters' selection and
+    dropout rate; ``dropout_key``: None (no dropout) or the forward's key,
+    folded with the layer index for each layer, as JAX folds it
+    (``esme_tpu/models/modules.py:373-374``). The key, not a generator's
+    state, fixes each mask, so a checkpointed layer's recompute draws the
+    masks of its forward.
     """
     check_remat(remat)
     if isinstance(stacked_params, dict):
@@ -330,8 +356,9 @@ def layer_stack(x, stacked_params, cfg, seg_ids, pos_ids,
     collect = [i % L for i in (collect_layers or ())]
     reps = [None] * len(collect)
     for i in range(L):
+        key = None if dropout_key is None else fold_in(dropout_key, i)
         args = (x, layers[i], cfg, seg_ids, pos_ids, attn_impl, rope, spans,
-                kv_gather, layer_gather)
+                kv_gather, layer_gather, (lora_names, lora_dropout, key))
         if checkpointing and torch.is_grad_enabled():
             stash = AttnStash() if remat == 'attn' else None
             x = checkpoint(_gathered_layer, *args, stash, use_reentrant=False,

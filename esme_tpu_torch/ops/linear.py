@@ -1,10 +1,19 @@
-"""Dense linear layer over a ``{'kernel': (in, out), 'bias'?: (out,)}``
-param dict.
+"""Linear layer over a ``{'kernel': (in, out), 'bias'?: (out,),
+'lora'?: {name: {'a': (in, r), 'b': (r, out), 'scale': ()}}}`` param dict.
 
-Counterpart of the dense path of ``esme_tpu/ops/linear.py:39-61``:
-operands in the activation dtype, fp32 accumulation, the product
-rounded once to the activation dtype, and the bias added after that
-cast. LoRA and quantized layers come in a later slice.
+Counterpart of ``esme_tpu/ops/linear.py:39-79``: operands in the
+activation dtype, fp32 accumulation, the product rounded once to the
+activation dtype, and the bias added after that cast. Then each selected
+LoRA adapter adds ``matmul(matmul(x, a), b) * scale`` (reference:
+esme/lora.py:73-91), in sorted-name order unless ``lora_names`` names
+them; ``scale`` (alpha / rank) is detached, never trained, and cast to
+the activation dtype. With ``lora_dropout`` and a ``dropout_key``
+(training), each adapter's output is dropped by inverted dropout
+(reference: esme/lora.py:84-88) under a mask drawn from a generator
+seeded by ``fold_in(dropout_key, j)`` for adapter ``j``, as JAX folds
+its key: the same key draws the same mask, so a checkpointed layer's
+recompute drops what its forward dropped. Quantized layers (no
+``kernel``) raise: they come with ROADMAP.md Queue 1, item 22.
 
 On CUDA, cuBLAS may reduce bf16 split-K partial sums in bf16 unless
 ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
@@ -40,12 +49,50 @@ def matmul(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, kernel.to(x.dtype))
 
 
-def linear(x: torch.Tensor, params: dict) -> torch.Tensor:
+_MASK64 = (1 << 64) - 1
+
+
+def fold_in(key: int, data: int) -> int:
+    """A new dropout key from ``key`` and ``data`` (a step, layer,
+    projection or adapter index), as JAX's ``random.fold_in`` derives one:
+    SplitMix64's finaliser over the pair, 63 bits (a generator's seed)."""
+    z = (int(key) * 0x9E3779B97F4A7C15 + int(data) + 1) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (z ^ (z >> 31)) >> 1
+
+
+def dropout(x: torch.Tensor, rate: float, key: int) -> torch.Tensor:
+    """Inverted dropout of ``x``: each element kept with probability
+    ``1 - rate`` and divided by it, the rest zero, under a mask drawn
+    from a generator seeded by ``key`` on ``x``'s device."""
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(key)
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def linear(x: torch.Tensor, params: dict, lora_names=None,
+           lora_dropout: float = 0.0, dropout_key=None) -> torch.Tensor:
+    """Apply a linear param dict and its selected LoRA adapters
+    (``dropout_key`` None: no dropout, as in evaluation)."""
     if 'kernel' not in params:
         raise NotImplementedError(
-            'only dense linear layers are ported; quantized and LoRA '
-            'layers come in a later slice')
+            'only dense linear layers are ported; quantized layers come '
+            'with ROADMAP.md Queue 1, item 22')
     y = matmul(x, params['kernel'])
     if params.get('bias') is not None:
         y = y + params['bias']
+    lora = params.get('lora')
+    if lora:
+        names = lora_names if lora_names is not None else sorted(lora)
+        for j, name in enumerate(names):
+            adapter = lora[name]
+            scale = adapter['scale'].detach().to(x.dtype)
+            contrib = matmul(matmul(x, adapter['a']), adapter['b']) * scale
+            if dropout_key is not None and lora_dropout > 0.0:
+                contrib = dropout(contrib, lora_dropout,
+                                  fold_in(dropout_key, j))
+            y = y + contrib
     return y

@@ -46,6 +46,21 @@ def positions_from_cu_lens(cu_lens: torch.Tensor, total: int,
     return (t - starts).to(torch.int32)
 
 
+def padded_to_flat_meta(batch: int, seq_len: int, valid: torch.Tensor):
+    """Segment ids and positions of a padded ``(B, L)`` batch viewed as a
+    flat ``(B*L,)`` packed vector (``esme_tpu/ops/segment.py:58-72``):
+    the valid tokens of row ``b`` form segment ``b`` and pad positions get
+    the fake id ``B``; positions are the column index. Returns
+    ``(seg_ids, pos_ids)``, int32."""
+    dev = valid.device
+    row = torch.arange(batch, dtype=torch.int32,
+                       device=dev).repeat_interleave(seq_len)
+    col = torch.arange(seq_len, dtype=torch.int32, device=dev).repeat(batch)
+    seg_ids = torch.where(valid.reshape(-1).bool(), row,
+                          torch.full_like(row, batch))
+    return seg_ids, col
+
+
 def unpad_gather_meta(valid: torch.Tensor):
     """Repack metadata for a padded ``(B, L)`` batch: valid tokens move
     to the front in row-major order, pads to the tail (flash-attn's
@@ -76,3 +91,9 @@ def unpad_gather_meta(valid: torch.Tensor):
                           torch.zeros_like(slot))
     return (src.to(torch.int32), dst.to(torch.int32),
             seg_ids.to(torch.int32), pos_ids.to(torch.int32))
+
+
+def segment_lengths(cu_lens: torch.Tensor) -> torch.Tensor:
+    """Each segment's length from cumulative lengths
+    (``esme_tpu/ops/segment.py:114-115``)."""
+    return cu_lens[1:] - cu_lens[:-1]

@@ -48,7 +48,7 @@ from ..parallel.fsdp import (_map, fsdp_partition_specs, gather_dim,
                              make_layer_gather, make_outer_gather,
                              shard_params)
 from ..parallel.mesh import axes_group
-from .trainer import (_LATER, _grad_tree, _leaves, _tensor, build_optimizer,
+from .trainer import (_grad_tree, _leaves, _tensor, build_optimizer,
                       train_views)
 
 
@@ -101,7 +101,8 @@ class ShardedMaskedPLM:
         grad_accum: micro-batches accumulated per update (the mean, as
             ``optax.MultiSteps``).
         lora_only, train_lmhead, trainable_mask: raise unless left at
-            their defaults (later slices).
+            their defaults: every leaf trains (LoRA over a mesh is a later
+            slice, ROADMAP.md Queue 1).
         seq_axis: the mesh axis the packed token axis is split over
             (context parallelism), or None.
         remat: the checkpointing policy when ``model.checkpointing``, as
@@ -113,13 +114,17 @@ class ShardedMaskedPLM:
                  grad_accum: int = 1, lora_only=None,
                  train_lmhead: bool = False, trainable_mask=None,
                  optimizer=None, seq_axis=None, remat: str = 'full'):
-        for name, value, later in (
-                ('lora_only', lora_only, 'lora_only'),
-                ('train_lmhead', train_lmhead, 'lora_only'),
-                ('trainable_mask', trainable_mask, 'trainable_mask')):
+        for name, value in (('lora_only', lora_only),
+                            ('train_lmhead', train_lmhead),
+                            ('trainable_mask', trainable_mask)):
             if value not in (None, False):
-                raise NotImplementedError(f'ShardedMaskedPLM({name}=...): '
-                                          f'{_LATER[later]}')
+                raise NotImplementedError(
+                    f'ShardedMaskedPLM({name}=...): LoRA and trainable masks '
+                    'over a mesh come in a later slice (ROADMAP.md Queue 1)')
+        if model.lora_kwargs is not None:
+            raise NotImplementedError(
+                'ShardedMaskedPLM: a model with LoRA adapters comes in a '
+                'later slice (ROADMAP.md Queue 1)')
         names = mesh.mesh_dim_names
         if seq_axis is not None and seq_axis not in names:
             raise ValueError(f'mesh has no axis {seq_axis!r}')

@@ -1,9 +1,11 @@
-"""Masked-LM training.
+"""Training loops: masked-LM training and fine-tuning with a pooled head.
 
-Counterpart of ``MaskedPLM`` in ``esme_tpu/train/trainer.py:45-258``
-(reference: esme/trainer.py:8-44). The JAX class owns an optax
-optimizer and a jitted step; this one owns a ``torch.optim`` optimizer
-and runs the step eagerly:
+Counterpart of ``esme_tpu/train/trainer.py`` (reference:
+esme/trainer.py:8-104): :class:`MaskedPLM` (``:45-258``),
+:class:`RegressionTrainer` (``:261-401``) and
+:class:`ClassificationTrainer` (``:404-432``). The JAX classes own an
+optax optimizer and a jitted step; these own a ``torch.optim`` optimizer
+and run the step eagerly:
 
 * ``optax.adam`` -> ``torch.optim.Adam``; with ``weight_decay``,
   ``optax.adamw`` -> ``torch.optim.AdamW`` (the same decoupled decay);
@@ -17,13 +19,23 @@ and runs the step eagerly:
 * activation checkpointing from the model's ``checkpointing`` flag
   (``remat='full'`` or ``'attn'``, ``models/modules.py:layer_stack``);
 * ``offload_optimizer``: fp32 master copies and the optimizer state on
-  the host (:class:`_HostOptimizer`).
+  the host (:class:`_HostOptimizer`);
+* ``lora_only``/``train_lmhead``/``trainable_mask``: the model's
+  ``trainable_filter`` (``esme_tpu/lora.py:178-215``) or the caller's
+  mask; a frozen leaf takes no gradient and joins no optimizer
+  (``train/partition.py``), so its bits never change, where JAX zeroes
+  its update (``optax.set_to_zero``);
+* LoRA dropout (the model's ``lora_kwargs['dropout_p']``) in training
+  steps, its key folded from ``DROPOUT_KEY`` and the step count, as JAX
+  folds its ``random.key(0x10ad)``;
+* the fine-tune trainers' two learning rates (``optax.multi_transform``
+  in JAX): one Adam, a param group for the trunk's trainable leaves at
+  ``lr`` and one for the head at ``head_lr``.
 
-Every floating leaf trains (``esme_tpu/lora.py:178-215`` without
-adapters). The optimizer's leaves are views of the model's params: each
-layer's row of a stacked leaf is its own gradient target (see
-``models/modules.py``) and is updated in place, so ``model.params``
-always holds the trained weights.
+The optimizer's leaves are views of the model's params: each layer's row
+of a stacked leaf is its own gradient target (see ``models/modules.py``)
+and is updated in place, so ``model.params`` (and a fine-tune trainer's
+``head_params``) always hold the trained weights.
 
 Each step runs forward, loss, backward and update inside
 :func:`~esme_tpu_torch.ops.linear.fp32_accumulation`: the weight and
@@ -33,24 +45,42 @@ input gradients are cuBLAS products too.
 from __future__ import annotations
 
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..loss import cross_entropy
+from ..loss import bce_with_logits, cross_entropy, mse_loss
+from ..metrics import auprc, auroc, spearman as _spearman
 from ..models.esm import forward_flat, packed_meta
+from ..models.heads import apply_cls_head, apply_learned_aggregation
 from ..models.modules import check_remat, layer_params, num_layers
-from ..ops.linear import fp32_accumulation
+from ..ops.linear import fold_in, fp32_accumulation
+from .partition import expand_mask
 
-_LATER = {
-    'lora_only': 'LoRA adapters come with the fine-tuning slice',
-    'trainable_mask': 'trainable masks come with the fine-tuning slice',
-}
+# the LoRA dropout's base key, JAX's ``random.key(0x10ad)``; each step
+# folds its count into it
+DROPOUT_KEY = 0x10ad
+
+
+class TrainState(NamedTuple):
+    """A trainer's state, as JAX's ``TrainState``: ``params`` (the
+    fine-tune trainers': ``{'plm', 'head'}``), ``opt_state`` (the torch
+    optimizer's ``state_dict()``) and ``step``."""
+    params: dict
+    opt_state: dict
+    step: int
 
 
 def _map(fn, tree):
     return {k: _map(fn, v) if isinstance(v, dict) else fn(v)
             for k, v in tree.items()}
+
+
+def _map2(fn, tree, flags):
+    """``fn(leaf, flag)`` over a tree and a bool tree of its structure."""
+    return {k: _map2(fn, v, flags[k]) if isinstance(v, dict)
+            else fn(v, flags[k]) for k, v in tree.items()}
 
 
 def _leaves(tree):
@@ -62,35 +92,44 @@ def _leaves(tree):
             yield v
 
 
-def _trainable(t: torch.Tensor) -> torch.Tensor:
+def _trainable(t: torch.Tensor, train: bool = True) -> torch.Tensor:
     """A leaf sharing ``t``'s storage that autograd differentiates
-    (floating leaves only)."""
-    if not t.is_floating_point():
+    (floating leaves that ``train`` only; the others as they are)."""
+    if not (train and t.is_floating_point()):
         return t
     return t.detach().requires_grad_()
 
 
-def train_views(params: dict) -> dict:
-    """``params`` with every floating leaf replaced by a gradient target
-    that shares its storage, and ``layers`` by a list of per-layer dicts
-    of such targets (rows of the stacked leaves)."""
+def train_views(params: dict, mask=None) -> dict:
+    """``params`` with every floating leaf that ``mask`` trains (a tree of
+    bools of ``params``' structure, or None: all) replaced by a gradient
+    target that shares its storage, and ``layers`` by a list of per-layer
+    dicts (rows of the stacked leaves). Frozen leaves stay as they are
+    and take no gradient."""
+    mask = expand_mask(mask, params)
     out = {}
     for key, v in params.items():
         if key == 'layers':
-            out[key] = [_map(_trainable, layer_params(v, i))
+            out[key] = [_map2(_trainable, layer_params(v, i), mask[key])
                         for i in range(num_layers(v))]
         elif isinstance(v, dict):
-            out[key] = _map(_trainable, v)
+            out[key] = _map2(_trainable, v, mask[key])
         else:
-            out[key] = _trainable(v)
+            out[key] = _trainable(v, mask[key])
     return out
+
+
+def _trained(views) -> list:
+    """The gradient targets among ``views``' leaves, in order."""
+    return [t for t in _leaves(views) if t.requires_grad]
 
 
 def _grad_tree(views: dict) -> dict:
     """The gradients of :func:`train_views`' leaves, in the layout of
     the model's params (layers stacked on axis 0)."""
     def grad(t):
-        return None if t.grad is None else t.grad.detach().clone()
+        return None if not torch.is_tensor(t) or t.grad is None \
+            else t.grad.detach().clone()
 
     out = {}
     for key, v in views.items():
@@ -163,7 +202,7 @@ def _map_stack(per_layer: list):
     first = per_layer[0]
     if isinstance(first, dict):
         return {k: _map_stack([p[k] for p in per_layer]) for k in first}
-    return torch.stack(per_layer)
+    return None if first is None else torch.stack(per_layer)
 
 
 def _tensor(x, dtype, device):
@@ -175,10 +214,11 @@ def _pinned(like: torch.Tensor, dtype, pin: bool) -> torch.Tensor:
     return torch.empty(like.shape, dtype=dtype, pin_memory=pin)
 
 
-def _rows(tree: dict) -> list:
-    """The per-layer rows of :func:`train_views` over ``tree``, plain views
-    (no autograd), in the order of its trainable leaves."""
-    return [t.detach() for t in _leaves(train_views(tree)) if t.requires_grad]
+def _rows(tree: dict, mask=None) -> list:
+    """The per-layer rows of :func:`train_views` over ``tree`` (``mask``:
+    the trainable leaves, None: all), plain views (no autograd), in the
+    order of its trainable leaves."""
+    return [t.detach() for t in _trained(train_views(tree, mask))]
 
 
 class _HostOptimizer:
@@ -200,21 +240,26 @@ class _HostOptimizer:
     ``params_up``; the trainer adds ``device``, forward and backward up to
     the grads' readiness)."""
 
-    def __init__(self, params: dict, build):
+    def __init__(self, params: dict, build, mask=None):
         pin = any(t.is_cuda for t in _leaves(params))
         self._pin = pin
-        leaves = [t for t in _leaves(params) if t.is_floating_point()]
-        masters = _map(lambda t: _pinned(t, torch.float32, pin).copy_(t)
-                       if t.is_floating_point() else t, params)
+        mask = expand_mask(mask, params)
+
+        def trains(t, f):
+            return f and t.is_floating_point()
+
+        # fp32 copies of the trainable leaves; the frozen stay on the card
+        masters = _map2(lambda t, f: _pinned(t, torch.float32, pin).copy_(t)
+                        if trains(t, f) else t, params, mask)
         self._up = [(t, m, None if t.dtype == torch.float32
                      else _pinned(t, t.dtype, pin))
-                    for t, m in zip(leaves, (m for m in _leaves(masters)
-                                             if m.is_floating_point()))]
-        self.views = train_views(masters)
-        masters_rows = [t for t in _leaves(self.views) if t.requires_grad]
-        grads = _map(lambda t: _pinned(t, torch.float32, pin)
-                     if t.is_floating_point() else t, params)
-        self._grads = _rows(grads)
+                    for t, m, f in zip(_leaves(params), _leaves(masters),
+                                       _leaves(mask)) if trains(t, f)]
+        self.views = train_views(masters, mask)
+        masters_rows = _trained(self.views)
+        grads = _map2(lambda t, f: _pinned(t, torch.float32, pin)
+                      if trains(t, f) else t, params, mask)
+        self._grads = _rows(grads, mask)
         for m, g in zip(masters_rows, self._grads):
             m.grad = g
         self._tmp = None
@@ -281,6 +326,17 @@ class _HostOptimizer:
         return total
 
 
+def _lora_dropout_rate(model) -> float:
+    """The LoRA dropout of training steps: the model's
+    ``lora_kwargs['dropout_p']``, 0 without adapters."""
+    return float((model.lora_kwargs or {}).get('dropout_p', 0.0) or 0.0)
+
+
+def _dropout_key(rate: float, step: int):
+    """Step ``step``'s LoRA dropout key, or None without dropout."""
+    return fold_in(DROPOUT_KEY, step) if rate > 0.0 else None
+
+
 class MaskedPLM:
     """Masked-LM training (reference: esme/trainer.py:8-44).
 
@@ -289,14 +345,15 @@ class MaskedPLM:
         learning_rate: Adam learning rate (reference default 1e-4).
         grad_accum: accumulate this many micro-batches per update (their
             running mean, as ``optax.MultiSteps``).
-        lora_only, train_lmhead: the JAX signature's LoRA options; the
-            port has no adapters yet, so ``lora_only=True`` raises and
-            every floating leaf trains.
+        lora_only: train the LoRA adapters only (None: iff the model has
+            any; a list: those adapters), ``train_lmhead`` the LM head
+            too (the model's ``trainable_filter``).
         weight_decay: decoupled decay (AdamW) when non-zero.
         optimizer: None (Adam or AdamW), or a factory of param groups, one
             per JAX leaf (:func:`leaf_groups`): ``optim.adam8bit(...)``, or
             e.g. ``functools.partial(torch.optim.SGD, lr=...)``.
-        trainable_mask: raises unless None (a later slice).
+        trainable_mask: a tree of bools over ``model.params`` (a bool may
+            cover a subtree) that overrides ``lora_only``/``train_lmhead``.
         offload_optimizer: keep fp32 masters and the optimizer state on
             the host and update there (:class:`_HostOptimizer`).
         attn_impl: the model's attention path ('auto'/'flash' run the
@@ -312,11 +369,6 @@ class MaskedPLM:
                  weight_decay: float = 0.0, optimizer=None,
                  attn_impl: str = 'auto', trainable_mask=None,
                  offload_optimizer: bool = False, remat: str = 'full'):
-        for name, value in (('lora_only', lora_only),
-                            ('trainable_mask', trainable_mask)):
-            if value not in (None, False):
-                raise NotImplementedError(f'MaskedPLM({name}=...): '
-                                          f'{_LATER[name]}')
         check_remat(remat)
         if grad_accum < 1:
             raise ValueError(f'grad_accum must be >= 1, got {grad_accum}')
@@ -325,8 +377,15 @@ class MaskedPLM:
         self.remat = remat
         self.grad_accum = int(grad_accum)
         self.step = 0
-        self._views = train_views(model.params)
-        self._params = [t for t in _leaves(self._views) if t.requires_grad]
+        self._mask = trainable_mask if trainable_mask is not None else \
+            model.trainable_filter(lora_only=lora_only,
+                                   train_lmhead=train_lmhead)
+        self._lora_dropout = _lora_dropout_rate(model)
+        self._views = train_views(model.params, self._mask)
+        self._params = _trained(self._views)
+        if not self._params:
+            raise ValueError('MaskedPLM: no leaf of the model trains under '
+                             'this mask (lora_only without adapters?)')
         self._acc = {}
         self._host = None
         if offload_optimizer:
@@ -334,13 +393,13 @@ class MaskedPLM:
             adam = {} if optimizer else {'fused': True}
             self._host = _HostOptimizer(model.params, lambda views: (
                 build_optimizer(views, optimizer, learning_rate,
-                                weight_decay, **adam)))
+                                weight_decay, **adam)), self._mask)
             self.optimizer = self._host.optimizer
         else:
             self.optimizer = build_optimizer(self._views, optimizer,
                                              learning_rate, weight_decay)
 
-    def _loss(self, params, batch) -> torch.Tensor:
+    def _loss(self, params, batch, dropout_key=None) -> torch.Tensor:
         dev = self.model.device
         tokens = _tensor(batch.masked_tokens, torch.int32, dev)
         cu_lens = _tensor(batch.cu_lens, torch.int32, dev)
@@ -349,7 +408,8 @@ class MaskedPLM:
             params, self.model.config, tokens, seg_ids, pos_ids,
             with_head=True, attn_impl=self.attn_impl,
             checkpointing=self.model.checkpointing,
-            max_seqlen=int(batch.max_len), remat=self.remat)
+            max_seqlen=int(batch.max_len), remat=self.remat,
+            lora_dropout=self._lora_dropout, dropout_key=dropout_key)
         return cross_entropy(logits, _tensor(batch.tokens, torch.int64, dev),
                              _tensor(batch.mask, torch.bool, dev))
 
@@ -364,7 +424,8 @@ class MaskedPLM:
         self._zero_grads()
         self._acc.clear()
         with fp32_accumulation():
-            loss = self._loss(self._views, batch)
+            loss = self._loss(self._views, batch,
+                              _dropout_key(self._lora_dropout, self.step))
             loss.backward()
         grads = _grad_tree(self._views)
         self._zero_grads()
@@ -376,7 +437,8 @@ class MaskedPLM:
         t0 = time.perf_counter()
         n = self.step % self.grad_accum
         with fp32_accumulation():
-            loss = self._loss(self._views, batch)
+            loss = self._loss(self._views, batch,
+                              _dropout_key(self._lora_dropout, self.step))
             loss.backward()
             self.step += 1
             emit = self.step % self.grad_accum == 0
@@ -407,8 +469,8 @@ class MaskedPLM:
         """Epoch loop over an iterable of PackedBatch; returns the
         per-step losses.
 
-        ``logger``: an object with ``log(dict, step=...)`` and
-        ``track_best(dict)`` (the JAX package's ``MetricLogger``)
+        ``logger``: an :class:`esme_tpu_torch.logger.MetricLogger` (or an
+        object with its ``log(dict, step=...)`` and ``track_best(dict)``)
         receiving ``train_loss`` every ``log_every`` steps and
         ``val_loss`` per epoch; without one, those lines are printed."""
         history = []
@@ -434,3 +496,195 @@ class MaskedPLM:
                 else:
                     print(f'epoch {epoch}: val_loss {vloss:.4f}')
         return history
+
+
+class RegressionTrainer:
+    """PLM and pooled-head regression fine-tuning (reference:
+    esme/trainer.py:47-104; ``esme_tpu/train/trainer.py:261-401``).
+
+    ``head='aggregation'``: the learned-attention-aggregation head
+    (:func:`~esme_tpu_torch.models.heads.apply_learned_aggregation`,
+    ``head_attention_heads`` heads); ``head='cls'``: the mean-pool MLP head.
+    The trunk's leaves that ``model.trainable_filter(lora_only)`` marks
+    train with Adam at ``lr``, the head's with Adam at ``head_lr``
+    (reference: esme/trainer.py:92-103); the others take no gradient and
+    keep their bits. ``head_params`` is updated in place.
+
+    A batch is a :class:`~esme_tpu_torch.data.PackedBatch` with ``labels``
+    (:class:`~esme_tpu_torch.data.LabeledDataset`); its padded segments
+    (length 0) weigh 0 in the loss and are cut from :meth:`predict`.
+    """
+
+    def __init__(self, model, head_params, head: str = 'aggregation',
+                 head_lr: float = 1e-3, lr: float = 1e-4,
+                 head_attention_heads: int = 4, lora_only=None,
+                 attn_impl: str = 'auto'):
+        if head not in ('aggregation', 'cls'):
+            raise ValueError(f'unknown head: {head}')
+        self.model = model
+        self.head = head
+        self.head_params = head_params
+        self.head_attention_heads = head_attention_heads
+        self.attn_impl = attn_impl
+        self.step = 0
+        self._lora_dropout = _lora_dropout_rate(model)
+        self._views = train_views(model.params,
+                                  model.trainable_filter(lora_only=lora_only))
+        self._head_views = _map(_trainable, head_params)
+        groups = [{'params': ps, 'lr': rate} for ps, rate in (
+            (_trained(self._views), lr),
+            (_trained(self._head_views), head_lr)) if ps]
+        self._params = [p for g in groups for p in g['params']]
+        self.optimizer = torch.optim.Adam(groups, lr=lr)
+
+    # -- state ------------------------------------------------------------
+
+    @property
+    def state(self) -> TrainState:
+        """The params (``{'plm': model.params, 'head': head_params}``, the
+        live tensors), the optimizer's state and the step."""
+        return TrainState({'plm': self.model.params,
+                           'head': self.head_params},
+                          self.optimizer.state_dict(), self.step)
+
+    @state.setter
+    def state(self, state: TrainState) -> None:
+        """Take a saved state (:meth:`CheckpointManager.restore
+        <esme_tpu_torch.train.checkpoint.CheckpointManager.restore>`):
+        its params copied into the live tensors, bit for bit."""
+        with torch.no_grad():
+            for name, live in (('plm', self.model.params),
+                               ('head', self.head_params)):
+                for t, saved in zip(_leaves(live),
+                                    _leaves(state.params[name])):
+                    t.copy_(saved)
+        self.optimizer.load_state_dict(state.opt_state)
+        self.step = int(state.step)
+
+    # -- the step ---------------------------------------------------------
+
+    def _batch_meta(self, batch):
+        """Segment ids and positions, the segment count and each segment's
+        loss weight (0 for a padded, empty segment)."""
+        dev = self.model.device
+        tokens = _tensor(batch.tokens, torch.int32, dev)
+        cu_lens = _tensor(batch.cu_lens, torch.int32, dev)
+        seg_ids, pos_ids = packed_meta(cu_lens, tokens.shape[0])
+        lens = np.diff(np.asarray(batch.cu_lens))
+        weight = torch.as_tensor((lens > 0).astype(np.float32), device=dev)
+        return tokens, seg_ids, pos_ids, len(lens), weight
+
+    def _predict(self, plm, head, tokens, seg_ids, pos_ids, num_segments,
+                 max_seqlen, dropout_key=None):
+        rep = forward_flat(
+            plm, self.model.config, tokens, seg_ids, pos_ids,
+            with_head=False, attn_impl=self.attn_impl,
+            checkpointing=self.model.checkpointing, max_seqlen=max_seqlen,
+            lora_dropout=self._lora_dropout, dropout_key=dropout_key)
+        if self.head == 'aggregation':
+            return apply_learned_aggregation(head, rep, seg_ids, num_segments,
+                                             self.head_attention_heads)
+        return apply_cls_head(head, rep, seg_ids, num_segments)
+
+    def _loss_fn(self, pred, labels, weight):
+        return mse_loss(pred, labels, weight)
+
+    def _grad_step(self, batch):
+        """The loss of one batch with the gradients in the trainable
+        views' ``.grad`` (the dropout of this step's key), without an
+        update."""
+        tokens, seg_ids, pos_ids, S, weight = self._batch_meta(batch)
+        key = _dropout_key(self._lora_dropout, self.step)
+        for p in self._params:
+            p.grad = None
+        with fp32_accumulation():
+            pred = self._predict(self._views, self._head_views, tokens,
+                                 seg_ids, pos_ids, S, int(batch.max_len), key)
+            loss = self._loss_fn(pred, _tensor(batch.labels, torch.float32,
+                                               self.model.device), weight)
+            loss.backward()
+        return loss.detach()
+
+    def training_step(self, batch) -> float:
+        """One update; returns the batch's loss."""
+        loss = self._grad_step(batch)
+        with fp32_accumulation():
+            self.optimizer.step()
+        for p in self._params:
+            p.grad = None
+        self.step += 1
+        return float(loss)
+
+    @torch.no_grad()
+    def predict(self, batch) -> np.ndarray:
+        """The head's outputs for the batch's real (non-padded) sequences,
+        fp32 on the host; no dropout."""
+        tokens, seg_ids, pos_ids, S, weight = self._batch_meta(batch)
+        with fp32_accumulation():
+            pred = self._predict(self.model.params, self.head_params, tokens,
+                                 seg_ids, pos_ids, S, int(batch.max_len))
+        n_real = int((np.diff(np.asarray(batch.cu_lens)) > 0).sum())
+        return pred[:n_real].float().cpu().numpy()
+
+    def fit(self, dataset, epochs: int = 1, val_dataset=None,
+            set_epoch=None, logger=None):
+        """Epoch loop with per-epoch validation metrics; ``dataset`` may
+        be a callable ``epoch -> iterable`` (a reshuffle or re-balance per
+        epoch) or an iterable. ``logger``: a
+        :class:`~esme_tpu_torch.logger.MetricLogger` receiving each
+        epoch's record; without one it is printed."""
+        history = []
+        for epoch in range(epochs):
+            if set_epoch is not None:
+                set_epoch(epoch)
+            ds = dataset(epoch) if callable(dataset) else dataset
+            losses = [self.training_step(b) for b in ds]
+            rec = {'epoch': epoch,
+                   'train_loss': float(np.mean(losses)) if losses
+                   else float('nan')}
+            if val_dataset is not None:
+                rec.update(self.validation_metrics(val_dataset))
+            history.append(rec)
+            if logger is not None:
+                logger.log(rec, step=self.step)
+                logger.track_best(rec)
+            else:
+                print(' '.join(f'{k}={v:.5g}' if isinstance(v, float)
+                               else f'{k}={v}' for k, v in rec.items()))
+        return history
+
+    def _predictions(self, dataset):
+        preds, targets = [], []
+        for batch in dataset:
+            p = self.predict(batch)
+            preds.append(p)
+            targets.append(np.asarray(batch.labels)[:len(p)])
+        return np.concatenate(preds), np.concatenate(targets)
+
+    def validation_metrics(self, dataset) -> dict:
+        """``val_mse`` and ``val_spearman`` (reference:
+        esme/trainer.py:59-60,95-98)."""
+        pred, target = self._predictions(dataset)
+        return {'val_mse': float(((pred - target) ** 2).mean()),
+                'val_spearman': _spearman(pred, target)}
+
+
+class ClassificationTrainer(RegressionTrainer):
+    """PLM and pooled-head binary classification with BCE on logits
+    (reference: workflow/tf/finetune.py; ``esme_tpu/train/trainer.py:
+    404-432``): :class:`RegressionTrainer`'s machinery, ``predict``
+    returns logits, validation reports BCE, AUROC and AUPRC."""
+
+    def _loss_fn(self, pred, labels, weight):
+        return bce_with_logits(pred, labels, weight)
+
+    def validation_metrics(self, dataset) -> dict:
+        """``val_bce``, ``val_auroc`` and ``val_auprc`` (in float64)."""
+        logits, target = self._predictions(dataset)
+        logits = logits.astype(np.float64)
+        target = target.astype(np.float64)
+        per = np.maximum(logits, 0) - logits * target \
+            + np.log1p(np.exp(-np.abs(logits)))
+        return {'val_bce': float(per.mean()),
+                'val_auroc': auroc(target, logits),
+                'val_auprc': auprc(target, logits)}

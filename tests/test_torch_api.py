@@ -4,8 +4,11 @@ options whose feature is not ported yet.
 * Each public entry takes JAX's parameters, by name, in JAX's order; the
   port may add its own after them (``device``). Checked on
   ``inspect.signature``, exactly.
-* ``quantization`` (ROADMAP.md Queue 1, item 22) and ``lora_names``
-  (item 19) raise ``NotImplementedError`` unless None.
+* ``quantization`` (ROADMAP.md Queue 1, item 22) raises
+  ``NotImplementedError`` unless None. ``lora_names`` (item 19, ported
+  with the LoRA adapters) selects adapters: on a model without any it
+  changes nothing, as in JAX (``tests/test_torch_lora.py`` holds the
+  adapters to JAX's).
 * ``from_pretrained(path, checkpointing=True)`` loads the checkpoint bit
   for bit with the flag set.
 * ``MaskedPLM(remat='attn')`` without checkpointing is ``remat='full'``
@@ -89,10 +92,12 @@ def test_unported_options_raise(tmp_path):
             load(path, '8bit', device='cpu')      # JAX's positional slot
     tok = np.array([0, 5, 6, 7, 2], dtype=np.int32)
     pad_args = (np.array([0, 5], np.int32), 5)
+    # lora_names on a model without adapters: the call runs, and gives
+    # the output without it, bit for bit
     for fn in (model.forward, model.forward_representation,
                model.predict_log_prob, model.predict_prob):
-        with pytest.raises(NotImplementedError, match='item 19'):
-            fn(tok, pad_args=pad_args, lora_names=['a'])
+        assert torch.equal(fn(tok, pad_args=pad_args, lora_names=['a']),
+                           fn(tok, pad_args=pad_args))
     # None is the default: the same call runs
     assert model.predict_prob(tok, pad_args=pad_args,
                               lora_names=None).shape == (5, 33)

@@ -44,6 +44,29 @@ def test_import_loads_no_jax_and_no_jax_package():
     assert out[1] == '[]', out[1]
 
 
+FINE_TUNE_MODULES = ('esme_tpu_torch.metrics', 'esme_tpu_torch.logger',
+                     'esme_tpu_torch.lora', 'esme_tpu_torch.ops.pooling',
+                     'esme_tpu_torch.models.heads',
+                     'esme_tpu_torch.train.partition',
+                     'esme_tpu_torch.train.checkpoint')
+
+
+def test_fine_tune_modules_load_no_jax():
+    """The fine-tuning slice's modules, each imported alone in a fresh
+    interpreter, load no JAX and nothing of the JAX package."""
+    code = ('import importlib, sys\n'
+            f'for m in {FINE_TUNE_MODULES!r}:\n'
+            '    importlib.import_module(m)\n'
+            "print(sorted(n for n in sys.modules if n.split('.')[0] in "
+            "('jax', 'jaxlib', 'esme_tpu')))")
+    out = subprocess.run([sys.executable, '-c', code], capture_output=True,
+                         text=True, check=True, cwd=PKG.parent).stdout
+    assert out.strip() == '[]', out
+    for m in FINE_TUNE_MODULES:
+        path = PKG.parent / (m.replace('.', '/') + '.py')
+        assert path.is_file(), path
+
+
 def test_sources_name_no_jax():
     # a module reference or an import, not the word in prose
     # (``params_from_jax`` is the carry-over's name)

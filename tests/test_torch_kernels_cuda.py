@@ -1287,3 +1287,156 @@ def test_offload_optimizer_on_the_card(cuda):
         assert torch.equal(param.cpu(), master.to(param.dtype))
     rel = [abs(a - b) / abs(b) for a, b in zip(losses[True], losses[False])]
     assert max(rel) <= 2.0 ** -8, (losses, rel)
+
+
+# -------------------------------------------------------------------------
+# The fine-tune slice on the card: a LoRA step through H1, H2 and H3
+# -------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_lora_fine_tune_step_kernels_match_plain(cuda, monkeypatch):
+    """One ``RegressionTrainer`` step of a LoRA trunk (rank 8 on query,
+    value and output, every ``b`` non-zero) with the learned-aggregation
+    head, bf16, 2 layers of width 128 and head dim 64: launches exact (H1
+    L, H2 L, H3 2L of which L inverse), the loss within 2^-8 of the plain
+    versions' and every trained leaf's gradient under ``chip_smoke.py``'s
+    phase 5 gates (cosine at least 0.99, max|Δ| at most 0.1·max|g|);
+    frozen leaves take no gradient. The head's key bias is 0 in exact
+    arithmetic and held as noise under 2^-4 of its kernel's.
+
+    The head's hidden ReLU units whose pre-activation changes sign between
+    the two runs (bf16 representations an ulp apart move a unit near 0
+    across it) take their whole share of the batch's gradient in one run
+    and none in the other: their columns of ``linear``'s kernel, entries
+    of its bias and rows of ``final``'s kernel are left out of the
+    max|Δ| gate (cosine still over all), and at most an eighth of the
+    units may flip."""
+    from esme_tpu_torch import ESM2, LabeledDataset
+    from esme_tpu_torch.models import heads
+    from esme_tpu_torch.models.heads import init_learned_aggregation
+    from esme_tpu_torch.train import RegressionTrainer
+    from esme_tpu_torch.train import trainer as trainer_mod
+    from esme_tpu_torch.train.trainer import _grad_tree, _map
+    rng = np.random.default_rng(5)
+    seqs = [''.join(rng.choice(list('LAGVSERTIDPKQNFYMHWC'), int(n)))
+            for n in rng.integers(20, 300, 16)]
+    batch = LabeledDataset(seqs, [len(s) / 300 for s in seqs],
+                           token_per_batch=4096, shuffle=False)[0]
+    model = ESM2(num_layers=2, embed_dim=128, attention_heads=2, rng=0,
+                 device=cuda)
+    model.add_lora(rank=8, alpha=8)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1)
+    for p in model.params['layers']['attn'].values():
+        for ad in p.get('lora', {}).values():
+            ad['b'].copy_(torch.randn(ad['b'].shape, generator=gen,
+                                      device=cuda) * 0.05)
+    head = init_learned_aggregation(0, 128, device=cuda)
+    tt = RegressionTrainer(model, head, head_attention_heads=4)
+    pre = []        # each run's pre-activations of the head's ReLU units
+
+    def recorded(params, x, seg_ids, num_segments, attention_heads):
+        with torch.no_grad():
+            pooled = heads.apply_learned_attention_pool(
+                params, x, seg_ids, num_segments, attention_heads)
+            pre.append(heads.linear(pooled, params['linear']).float())
+        return heads.apply_learned_aggregation(params, x, seg_ids,
+                                               num_segments, attention_heads)
+
+    monkeypatch.setattr(trainer_mod, 'apply_learned_aggregation', recorded)
+
+    def step():
+        loss = tt._grad_step(batch)
+        torch.cuda.synchronize()
+        return loss, {'plm': _grad_tree(tt._views),
+                      'head': _map(lambda t: t.grad.clone(), tt._head_views)}
+
+    counters = (flash.segment_flash_fwd, flash.segment_flash_bwd,
+                headsplit.rotary_qk)
+    before = [c.launches for c in counters] + [
+        headsplit.rotary_qk.inverse_launches]
+    loss, got = step()
+    after = [c.launches for c in counters] + [
+        headsplit.rotary_qk.inverse_launches]
+    assert [b - a for a, b in zip(before, after)] == [2, 2, 4, 2]
+    monkeypatch.setattr(fused_attn, 'rotary_qk', headsplit.rotary_qk_plain)
+    monkeypatch.setattr(fused_attn, 'segment_flash_fwd',
+                        flash.segment_flash_fwd_plain)
+    monkeypatch.setattr(fused_attn, 'segment_flash_bwd',
+                        flash.segment_flash_bwd_plain)
+    loss_p, ref = step()
+    assert abs(loss.item() - loss_p.item()) <= 2.0 ** -8 * abs(loss_p.item())
+    assert len(pre) == 2 and pre[0].shape == pre[1].shape
+    flips = (pre[0] > 0) != (pre[1] > 0)            # (S, C, units)
+    flipped = flips.flatten(0, -2).any(0)
+    keep = ~flipped
+    print(f'head units whose pre-activation changed sign: '
+          f'{int(flipped.sum())} of {flipped.numel()} '
+          f'({int(flips.sum())} of {flips.numel()} segment-unit pairs), '
+          f'the flipped |pre| at most '
+          f'{pre[1][flips].abs().max().item() if flips.any() else 0:.3g}')
+    assert int(flipped.sum()) <= flipped.numel() // 8
+    # the gradient entries of each unit: linear.kernel's column, its
+    # bias's entry, final.kernel's row
+    unit_of = {'head.linear.kernel': lambda g: g[:, keep],
+               'head.linear.bias': lambda g: g[keep],
+               'head.final.kernel': lambda g: g[keep]}
+    n = 0
+    pairs = dict(_flat_tree(ref))
+    for name, a in _flat_tree(got):
+        b = pairs[name]
+        if a is None or b is None:         # frozen: the trunk, the scales
+            assert a is None and b is None, name
+            assert '.lora.' not in name or name.endswith('.scale'), name
+            continue
+        if name == 'head.k.bias':
+            scale = pairs['head.k.kernel'].float().abs().max()
+            assert max(a.abs().max(), b.abs().max()) <= 2.0 ** -4 * scale
+            continue
+        a, b = a.float(), b.float()
+        af, bf = a.ravel(), b.ravel()
+        cos = (af @ bf / (af.norm() * bf.norm())).item()
+        assert cos >= 0.99, (name, cos)
+        if name in unit_of:
+            a, b = unit_of[name](a), unit_of[name](b)
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        assert rel <= 0.1, (name, cos, rel)
+        n += 1
+    assert n == 3 * 2 + 6          # a and b of q, v, out; the head's rest
+
+
+@pytest.mark.cuda
+def test_lora_dropout_on_the_card(cuda):
+    """LoRA dropout on a CUDA tensor: the keep rate within 5 standard
+    deviations of 1 - p over 2^20 draws, kept values scaled by exactly
+    1/(1 - p), the key fixing the mask. A checkpointed ``MaskedPLM`` step
+    with dropout gives the same loss and adapter gradients, bit for bit,
+    with ``remat='attn'`` (the kept attention output meets q, k and v
+    recomputed under the recompute's masks) as with ``'full'`` (all
+    recomputed): the recompute draws the forward's masks."""
+    from esme_tpu_torch import ESM2
+    from esme_tpu_torch.ops.linear import dropout, fold_in
+    from esme_tpu_torch.train import MaskedPLM
+    x = torch.ones(2 ** 20, device=cuda)
+    y = dropout(x, 0.3, fold_in(5, 0))
+    kept = y != 0
+    assert abs(kept.float().mean().item() - 0.7) <= 5 * (0.21 / x.numel()) \
+        ** 0.5
+    assert torch.equal(y[kept], torch.full_like(y[kept], 1.0 / 0.7))
+    assert torch.equal(y, dropout(x, 0.3, fold_in(5, 0)))
+    batch = _mlm_batch(6)
+    out = {}
+    for remat, rate in (('full', 0.3), ('attn', 0.3), ('full', 0.0)):
+        model = ESM2(num_layers=2, embed_dim=128, attention_heads=2, rng=0,
+                     device=cuda, checkpointing=True)
+        model.add_lora(rank=8, alpha=8, dropout_p=rate)
+        for p in model.params['layers']['attn'].values():
+            for ad in p.get('lora', {}).values():
+                ad['b'].fill_(0.05)
+        out[remat, rate] = MaskedPLM(model, remat=remat)._grad_step(batch)
+    torch.cuda.synchronize()
+    full, attn, plain = out['full', 0.3], out['attn', 0.3], out['full', 0.0]
+    assert torch.equal(full[0], attn[0]) and not torch.equal(full[0],
+                                                             plain[0])
+    for (name, a), (_, b) in zip(_flat_tree(full[1]), _flat_tree(attn[1])):
+        assert (a is None and b is None) or torch.equal(a, b), name

@@ -235,8 +235,11 @@ def _grads(rng, dtype):
 
 def _port_groups(jp, dtype):
     """Each stacked leaf as L per-layer views in one param group (one JAX
-    leaf), 'e' alone, as the trainers group them."""
-    tp = {k: torch.from_numpy(np.asarray(v.astype(jnp.float32))).to(dtype)
+    leaf), 'e' alone, as the trainers group them. The port's params are
+    copies: ``np.asarray`` of an fp32 JAX array is a view of JAX's buffer,
+    and the optimizer's in-place update would write into it while JAX's
+    asynchronously dispatched ``apply_updates`` may still be reading it."""
+    tp = {k: torch.from_numpy(np.array(v.astype(jnp.float32))).to(dtype)
           for k, v in jp.items()}
     return tp, [{'params': [tp[k][i].detach().requires_grad_()
                             for i in range(L_STACK)]} if k != 'e'
@@ -261,6 +264,21 @@ def _assert_state_equal(opt, groups, jstate, tp, jp):
             tp[k].float().numpy().view(np.uint32),
             np.asarray(jp[k].astype(jnp.float32)).view(np.uint32),
             err_msg=f'{k} params')
+
+
+def test_port_groups_copy_jax_buffers():
+    """The port's params of ``test_adam8bit_matches_jax`` own their
+    memory. The view this replaced shared JAX's buffer (``np.asarray`` of
+    an fp32 JAX array), which the port's in-place update then wrote while
+    JAX's asynchronously dispatched ``apply_updates`` could still read it
+    (ROADMAP.md Queue 3, item 16)."""
+    jp = {k: jnp.asarray(np.ones(s, np.float32)) for k, s in SHAPES.items()}
+    for dtype in (torch.float32, torch.bfloat16):
+        tp, groups = _port_groups(jp, dtype)
+        for k, v in jp.items():
+            assert tp[k].data_ptr() != v.unsafe_buffer_pointer()
+    view = torch.from_numpy(np.asarray(jp['w'].astype(jnp.float32)))
+    assert view.data_ptr() == jp['w'].unsafe_buffer_pointer()
 
 
 @pytest.mark.parametrize('dtype,wd,accum', [
@@ -290,7 +308,7 @@ def test_adam8bit_matches_jax(dtype, wd, accum):
             u, state = tx.update(jg, state, jp)
         jp = optax.apply_updates(jp, u)
         for group, k in zip(groups, SHAPES):
-            g = torch.from_numpy(np.asarray(jg[k].astype(jnp.float32))).to(td)
+            g = torch.from_numpy(np.array(jg[k].astype(jnp.float32))).to(td)
             for i, p in enumerate(group['params']):
                 p.grad = g[i].clone() if k != 'e' else g.clone()
         if accum > 1:

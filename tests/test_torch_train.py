@@ -322,10 +322,14 @@ def test_cpu_training_launches_no_kernel(batches):
 
 
 @pytest.mark.parametrize('kw,match', [
-    ({'lora_only': True}, 'LoRA'),
-    ({'trainable_mask': {}}, 'trainable masks'),
+    ({'lora_only': True}, 'no leaf of the model trains'),
+    ({'trainable_mask': {}}, 'mask does not match'),
 ])
 def test_masked_plm_refuses_later_slices(kw, match):
+    """The LoRA options came with the fine-tuning slice: ``lora_only=True``
+    on a model without adapters leaves nothing to train, and a mask that is
+    not a tree of the params' structure is refused (JAX asserts it,
+    ``esme_tpu/train/partition.py:26-27``); both raise before any step."""
     _, tm = _tiny_pair()
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         MaskedPLM(tm, **kw)
