@@ -228,13 +228,15 @@ line is phase 12's JSON:
    the exps at the SFU rate as a third term; at 16 and 24, where the
    route is the Hopper form, that form must beat the mma.sync form;
 13. the memory slice, every line naming the card and its power limit
-   (``check_memory``): first, how many repeated calls of the card's
-   embedding backward give other bits (logged, not gated); (a) ESM2-650M
-   (seed-0 weights) on phase 5's ``ckpt@50k`` batch, one step's loss,
-   every leaf's gradient and the gradient reaching the token embedding
-   with ``remat='attn'`` bit-equal to ``remat='full'``'s (but a leaf whose backward is not reproducible
-   from call to call on the card, ``NONDETERMINISTIC_LEAVES``, which is
-   held under the remat gates), then the ``ckpt@50k`` cell with each
+   (``check_memory``): first, the port's token-embedding gradient
+   repeated on the same inputs must give the same bits every time, at
+   ESMC's vocabulary and ESM2's (``embedding_backward_repeats``; the
+   card's ``aten::embedding_dense_backward`` beside it, logged); (a)
+   ESM2-650M (seed-0 weights) on phase 5's ``ckpt@50k`` batch, one step's
+   loss, every leaf's gradient and the gradient reaching the token
+   embedding with ``remat='attn'`` bit-equal to ``remat='full'``'s
+   (``NONDETERMINISTIC_LEAVES``, held under the remat gates instead, is
+   empty), then the ``ckpt@50k`` cell with each
    policy (launches exact: H1 66 with 'full', 33 with 'attn'; H2 33; H3
    99), ms per step, real tokens/s, MFU and peak memory side by side;
    (b) the same for ESMC-300M and ESM1b (seeded as in phase 9), with
@@ -282,7 +284,37 @@ line is phase 12's JSON:
    each ``FT_LENGTHS`` batch ms per fine-tune step, real tokens/s, the
    optimizer's state bytes, peak memory and one ``predict``'s time beside
    phase 5's ``nockpt@10k`` MLM step, and each ``validation_metrics``
-   pass's seconds in (c).
+   pass's seconds in (c);
+15. variant scoring, the host data plane, position extension and the CLI
+   (``check_phase15``), every line naming the card and its power limit:
+   ESM2-650M from seed-0 weights written through the safetensors schema
+   and loaded back; (a) ``predict_mask_margin`` on a seeded 265-residue
+   sequence (5,300 variants, 9 forwards of (32, 267) on the padded route;
+   launches exact: H1 and H3 33 a forward, nothing else), the same bits on
+   a second call, against the same call through the plain versions (every
+   variant: max|Δscore| <= ``SCORE_MAX_ABS``, Spearman ρ >=
+   ``SCORE_MIN_SPEARMAN``), ms a sequence, variants/s and peak memory;
+   ``predict_pseudoperplexity`` on it; a seeded 1,500-residue sequence at
+   ``max_len`` 1,024 (47 forwards, launches exact; the batches at
+   ``LONG_CHECK_STARTS`` under the same gates); (b)
+   ``predict_pseudoperplexity_margin`` on a seeded 16-residue peptide
+   (launches exact; under ``PPPL_MAX_ABS`` and the ρ gate); (c) a seeded
+   FASTA of >= 10 MiB (100-1000 residues) indexed with ``write_fai``:
+   ``MaskedFastaTokenDataModule`` batches at 10k from the native reader
+   bit-equal to the Python reader's over an epoch, the native one taken,
+   host ms a batch of each and of ``Prefetcher`` with 1 and 4 workers;
+   ESM2-650M's and ESM2-8M's ``nockpt@10k`` ``MaskedPLM`` steps fed
+   through ``Prefetcher`` (copies to the card from pinned memory) beside
+   the same batches built on the card first: ms a step, launches exact,
+   losses finite, the device's idle share of each under the profiler; (d)
+   phase 13's gate on the token embedding's gradient (above); (e) ESM1b at
+   full size (seed 5) with the published 1,024-position table: a
+   500-residue sequence's log-probs bit-equal after ``extend_positions(...,
+   4096)``, a 3,000-residue forward refused before and run after (H1 33,
+   no H3), one ``MaskedPLM`` step under ``positions_only_mask`` changing
+   ``embed_positions`` and no other leaf (H1 33, H2 33); (f) ``python -m
+   esme_tpu_torch.cli score`` in its own process on the same file and
+   sequence: 5,300 CSV rows equal to (a)'s scores, its wall time logged.
 
 Each phase's seconds are logged and kept in the measurements line
 (``phase_s``). The last three lines are the kernels' JSON, the measurements' JSON and
@@ -2379,6 +2411,16 @@ def main(argv):
     # 14. the fine-tune slice
     finetune = check_finetune(dev, card, cells['nockpt'], profile_dir)
     phase_done(14)
+
+    # 15. variant scoring, the data plane, position extension, the CLI
+    phase15 = check_phase15(dev, card)
+    phase_done(15)
+    scoring = phase15['a_b_scoring']
+    fwd_launches = {key: {k: v // scoring[key]['forwards']
+                          for k, v in scoring[key]['launches'].items()}
+                    for key in ('mask_margin', 'long')}
+    data_fed = {name: {k: v // DATA_STEPS for k, v in c['launches'].items()}
+                for name, c in phase15['c_data_plane']['steps'].items()}
     ft_step = finetune['d_times']['gb1_265']['launches']
     ft_predict = finetune['d_times']['gb1_265']['predict_launches']
     attn_cells = {'esm2_650m': memory['a_esm2_650m'],
@@ -2403,6 +2445,12 @@ def main(argv):
              for remat in ('full', 'attn')},
          'finetune_launches': {'step': ft_step[H1_NAME],
                                'predict': ft_predict[H1_NAME]},
+         'scoring_launches_per_forward': {
+             key: c[H1_NAME] for key, c in fwd_launches.items()},
+         'data_fed_launches_per_step': {
+             key: c[H1_NAME] for key, c in data_fed.items()},
+         'esm1b_extended_launches': phase15['e_extension'][
+             'long_launches'][H1_NAME],
          'max_abs_err': h1_err,
          'lse_max_abs_err': h1_lse_err, 'ms': h1_ms,
          'plain_ms': h1_plain_ms, 'bound_ms': h1_bound, 'bound_by': h1_by,
@@ -2428,6 +2476,8 @@ def main(argv):
                             for key, c in train_launches.items()},
          'finetune_launches': {'step': ft_step[H2_NAME],
                                'predict': ft_predict[H2_NAME]},
+         'data_fed_launches_per_step': {
+             key: c[H2_NAME] for key, c in data_fed.items()},
          'max_abs_err': h2_err, 'gate_share': max(h2_share, h2_check_share),
          'ms': h2_ms, 'plain_ms': h2_plain_ms, 'bound_ms': h2_bound,
          'bound_by': h2_by, 'library_ms': h2_lib_ms,
@@ -2449,6 +2499,10 @@ def main(argv):
          'finetune_launches': {'step': ft_step[H3_NAME],
                                'predict': ft_predict[H3_NAME]},
          'finetune_inverse_launches': ft_step['rope_inverse'],
+         'scoring_launches_per_forward': {
+             key: c[H3_NAME] for key, c in fwd_launches.items()},
+         'data_fed_launches_per_step': {
+             key: c[H3_NAME] for key, c in data_fed.items()},
          'max_abs_err': rope_err,
          'ms': h3_ms, 'plain_ms': h3_plain_ms, 'bound_ms': h3_bound,
          'bound_by': h3_by, 'library_ms': None,
@@ -2499,6 +2553,7 @@ def main(argv):
         'sizes': sizes,
         'memory': memory,
         'finetune': finetune,
+        'phase15': phase15,
         'phase_s': phase_s,
         'build_s': build_s,
         'model_checks': model_checks, 'torch': torch.__version__,
@@ -2512,11 +2567,12 @@ def main(argv):
         'count': torch.cuda.device_count()}}), flush=True)
 
 
-def family_model(name, cls_name, kwargs, seed, dev, tmp):
+def family_model(name, cls_name, kwargs, seed, dev, tmp, keep=False):
     """``cls_name(**kwargs)`` with weights from ``seed`` on the card,
     written through the safetensors schema as ``name`` and loaded back
     with ``ESM.from_pretrained``: the loaded model must be of the same
-    class and config, every leaf bit-equal."""
+    class and config, every leaf bit-equal. The file is removed unless
+    ``keep``."""
     import esme_tpu_torch
     t0 = time.perf_counter()
     src = getattr(esme_tpu_torch, cls_name)(**kwargs, rng=seed, device=dev)
@@ -2527,7 +2583,8 @@ def family_model(name, cls_name, kwargs, seed, dev, tmp):
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     size = os.path.getsize(path)
-    os.remove(path)
+    if not keep:
+        os.remove(path)
     if type(model) is not type(src) or model.config != src.config \
             or model.name != name:
         fail(f'{name}: from_pretrained gave {type(model).__name__} '
@@ -4085,35 +4142,58 @@ def build_esm2(cfg, dev):
     return model, sum(p.numel() for p in _leaves(model.params))
 
 
-# The one leaf whose gradient is not reproducible from call to call on
-# the card: ``aten::embedding_dense_backward`` (``F.embedding``'s backward,
-# models/modules.py:embed_tokens) gives other bits in repeated calls on the
-# same inputs at ESMC's vocabulary of 64 (``embedding_backward_repeats``
-# counts them in each run). Phase 13 holds that leaf under the remat gates
-# and the gradient that reaches the embedding bit-equal.
-NONDETERMINISTIC_LEAVES = ('embed_tokens',)
+# Leaves whose gradient may give other bits from call to call on the card,
+# held under the remat gates instead of bit for bit: none since the token
+# embedding's backward became a fixed-order product
+# (models/modules.py:embedding_grad); ``aten::embedding_dense_backward``
+# was not reproducible at ESMC's vocabulary of 64.
+NONDETERMINISTIC_LEAVES = ()
 EMBEDDING_REPEATS = 4
 
 
 def embedding_backward_repeats(dev, card):
-    """How many of ``EMBEDDING_REPEATS`` calls of
-    ``aten::embedding_dense_backward`` after a first give other bits than
-    the first, on the same bf16 gradient and ids (50,176 tokens, seed 0),
-    at ESMC's vocabulary and width (64, 960) and ESM2's (33, 1280). Logged,
-    not gated: the reason for ``NONDETERMINISTIC_LEAVES``."""
+    """How many of ``EMBEDDING_REPEATS`` gradients of the port's token
+    embedding (``models/modules.py:embed_tokens`` through autograd) after a
+    first give other bits than the first, on the same bf16 output gradient
+    and ids (50,176 tokens, seed 0), at ESMC's vocabulary and width (64,
+    960) and ESM2's (33, 1280): fails unless 0. The fixed-order gradient
+    (``embedding_grad``) and ``aten::embedding_dense_backward`` (the
+    backward it replaced, and its count of differing repeats) are timed
+    alone, logged, not gated."""
+    from esme_tpu_torch.models.config import esm2_config, esmc_config
+    from esme_tpu_torch.models.modules import embed_tokens, embedding_grad
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {}
-    for vocab, width in ((64, 960), (33, 1280)):
+    for cfg in (esmc_config(), esm2_config()):
+        vocab, width = cfg.vocab_size, cfg.embed_dim
         ids = torch.randint(0, vocab, (50_176,), device=dev, generator=gen)
         dy = torch.randn(50_176, width, device=dev, generator=gen) \
             .to(torch.bfloat16)
-        first, *rest = [torch.ops.aten.embedding_dense_backward(
+        table = torch.randn(vocab, width, device=dev, generator=gen) \
+            .to(torch.bfloat16).requires_grad_()
+
+        def port():
+            x = embed_tokens(ids, {'embed_tokens': table}, cfg)
+            return torch.autograd.grad(x, table, dy)[0]
+        first, *rest = [port() for _ in range(EMBEDDING_REPEATS + 1)]
+        aten = [torch.ops.aten.embedding_dense_backward(
             dy, ids, vocab, -1, False) for _ in range(EMBEDDING_REPEATS + 1)]
-        out[f'vocab {vocab}, width {width}'] = sum(
-            not torch.equal(first, r) for r in rest)
-    log(f'[{card}] aten::embedding_dense_backward: repeated calls on the '
-        f'same inputs whose bits differ from the first, of '
-        f'{EMBEDDING_REPEATS}: {out}')
+        key = f'vocab {vocab}, width {width}'
+        out[key] = {
+            'differing_repeats': sum(not torch.equal(first, r)
+                                     for r in rest),
+            'aten_differing_repeats': sum(not torch.equal(aten[0], r)
+                                          for r in aten[1:]),
+            'ms': cuda_ms(lambda: embedding_grad(ids, dy, vocab), reps=20),
+            'aten_ms': cuda_ms(lambda: torch.ops.aten.embedding_dense_backward(
+                dy, ids, vocab, -1, False), reps=20)}
+    log(f'[{card}] the token embedding\'s gradient, repeated '
+        f'{EMBEDDING_REPEATS} times after a first on the same inputs: '
+        f'{out} (gate: the port\'s differing repeats 0)')
+    bad = {k: v['differing_repeats'] for k, v in out.items()
+           if v['differing_repeats']}
+    if bad:
+        fail(f'the token embedding\'s gradient is not reproducible: {bad}')
     return out
 
 
@@ -5033,6 +5113,532 @@ def check_finetune(dev, card, phase5, profile_dir=None):
     return out
 
 
+# -------------------------------------------------------------------------
+# Phase 15: variant scoring, the host data plane, position extension and
+# the CLI. ESM2-650M from seed-0 weights written through the safetensors
+# schema at full width and depth (the CLI loads the same file).
+SCORE_LEN = 265             # FLIP GB1's length: 5,300 variants
+SCORE_BATCH = 32            # 9 forwards of (32, 267)
+LONG_LEN, LONG_MAX_LEN = 1500, 1024     # windows of ESM2's context
+# the long sequence's batches held against the plain versions: the
+# windows clamped at the start, centred, clamped at the end
+LONG_CHECK_STARTS = (0, 734, 1468)
+# (b) cut to a peptide: 16 positions x 20 residues x 16 masks = 5,120
+# items, 40 forwards of (128, 18)
+PPPL_LEN, PPPL_BATCH = 16, 128
+# Gates of (a) and (b) against the same call through the plain versions:
+# a mask-margin score is the difference of two log-probs, each under
+# phase 4's MODEL_MAX_ABS; a pseudo-perplexity margin is a mean of
+# log-probs, so under MODEL_MAX_ABS; the variants' ranking must survive
+# the kernels' bf16 rounding as phase 4's per-token rows do
+# (MODEL_MIN_COS).
+SCORE_MAX_ABS = 2 * MODEL_MAX_ABS
+PPPL_MAX_ABS = MODEL_MAX_ABS
+SCORE_MIN_SPEARMAN = MODEL_MIN_COS
+# (c) a seeded FASTA of 100-1000 residues, 60 a line, at least this big;
+# batches at the 10k budget; DATA_STEPS timed steps a feed after a
+# warm-up step; Prefetcher timed with these worker counts
+DATA_FASTA_BYTES = 10 * 2 ** 20
+DATA_BUDGET = 10_000
+DATA_STEPS = 10
+PROFILED_STEPS = 3          # a feed's steps under torch.profiler
+DATA_WORKERS = (1, 4)
+DATA_MODELS = (('esm2_650m', MODEL), ('esm2_8m', dict(
+    num_layers=6, embed_dim=320, attention_heads=20)))
+# (e) the published ESM1b's table (1,024 positions, 1,026 rows) grown to
+# the reference's 4,096; the lengths run before and after
+ESM1B_POSITIONS, EXTEND_TO = 1024, 4096
+EXTEND_SHORT, EXTEND_LONG = 500, 3000
+EXTEND_TRAIN_LENS = (4000, 3000, 2990)      # 9,996 of a 10k batch
+AMINO = 'LAGVSERTIDPKQNFYMHWC'
+
+
+def seeded_seq(n, seed):
+    rng = np.random.default_rng(seed)
+    return ''.join(np.asarray(list(AMINO))[rng.integers(0, 20, n)])
+
+
+def _score_arrays(got: dict, ref: dict):
+    if list(got) != list(ref):
+        fail('the scores of the kernels and of the plain versions have '
+             'other variants')
+    return (np.array(list(got.values())), np.array(list(ref.values())))
+
+
+def compare_scores(got, ref, max_abs, what, card):
+    """max|Δscore| and Spearman ρ of ``got`` (kernels) against ``ref``
+    (plain versions) over every variant; fails outside the gates."""
+    from esme_tpu_torch.metrics import spearman
+    a, b = _score_arrays(got, ref)
+    err, rho = float(np.abs(a - b).max()), spearman(a, b)
+    ok = err <= max_abs and rho >= SCORE_MIN_SPEARMAN and \
+        bool(np.isfinite(a).all())
+    log(f'[{card}] {what}: {len(a)} variants, kernels vs plain versions '
+        f'max|Δscore| {err:.4f} (gate {max_abs}), mean {np.abs(a - b).mean():.5f}'
+        f', Spearman ρ {rho:.6f} (gate {SCORE_MIN_SPEARMAN}); scores in '
+        f'[{a.min():.3f}, {a.max():.3f}] {"ok" if ok else "FAIL"}')
+    if not ok:
+        fail(f'{what}: scores out of gate')
+    return {'variants': len(a), 'max_abs_err': err, 'spearman': rho}
+
+
+def timed_scoring(fn, forwards, L, what, card):
+    """``fn()`` (a scoring call) with the launch counters set to 0 just
+    before and read just after (H1 and H3 ``L`` per forward, nothing
+    else), timed on the host clock (the call ends on the host: its scores
+    are host floats), with its peak memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    out = fn()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counters()
+    expect_launches(f'{what} ({forwards} forwards)', launches,
+                    **{H1_NAME: L * forwards, H3_NAME: L * forwards})
+    return out, ms, launches, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def check_scoring(model, card):
+    """(a) ``predict_mask_margin`` on a seeded 265-residue sequence (a
+    first call counts the launches, a second is timed), against the plain
+    versions over all 5,300 variants; ``predict_pseudoperplexity`` on it;
+    the seeded 1,500-residue sequence at ``max_len`` 1,024, its
+    ``LONG_CHECK_STARTS`` batches against the plain versions; (b)
+    ``predict_pseudoperplexity_margin`` on a seeded 16-residue peptide,
+    against the plain versions."""
+    from esme_tpu_torch.variant import (MaskMarginDataset,
+                                        predict_mask_margin,
+                                        predict_pseudoperplexity,
+                                        predict_pseudoperplexity_margin)
+    L = model.config.num_layers
+    seq = seeded_seq(SCORE_LEN, 11)
+    fwd = math.ceil(SCORE_LEN / SCORE_BATCH)
+    run = lambda: predict_mask_margin(model, seq, batch_size=SCORE_BATCH)
+    first, _, launches, _ = timed_scoring(run, fwd, L, 'mask margin', card)
+    scores, ms, _, peak = timed_scoring(run, fwd, L, 'mask margin', card)
+    if scores != first:
+        fail('mask-margin scores differ from call to call')
+    with plain_versions():
+        plain = run()
+    out = {'mask_margin': {
+        'seq_len': SCORE_LEN, 'batch_size': SCORE_BATCH, 'forwards': fwd,
+        'launches': launches, 'ms_per_sequence': ms,
+        'variants_per_s': len(scores) / ms * 1e3, 'peak_mem_gib': peak,
+        'vs_plain': compare_scores(scores, plain, SCORE_MAX_ABS,
+                                   f'mask margin, {SCORE_LEN} residues',
+                                   card)}}
+    log(f'[{card}] mask margin, {SCORE_LEN} residues, batch {SCORE_BATCH}: '
+        f'{fwd} forwards, launches {launches}; {ms:.1f} ms a sequence, '
+        f'{out["mask_margin"]["variants_per_s"]:.1f} variants/s, peak '
+        f'{peak:.2f} GiB; the same bits on a second call')
+    pppl, pppl_ms, _, _ = timed_scoring(
+        lambda: predict_pseudoperplexity(model, seq, batch_size=SCORE_BATCH),
+        fwd, L, 'pseudo-perplexity', card)
+    if not (np.isfinite(pppl) and pppl > 1.0):
+        fail(f'pseudo-perplexity {pppl}')
+    out.update(pseudoperplexity=pppl, pseudoperplexity_ms=pppl_ms)
+    log(f'[{card}] pseudo-perplexity, {SCORE_LEN} residues: {pppl:.4f} in '
+        f'{pppl_ms:.1f} ms')
+
+    long_seq = seeded_seq(LONG_LEN, 12)
+    lfwd = math.ceil(LONG_LEN / SCORE_BATCH)
+    long_scores, lms, llaunch, lpeak = timed_scoring(
+        lambda: predict_mask_margin(model, long_seq, batch_size=SCORE_BATCH,
+                                    max_len=LONG_MAX_LEN),
+        lfwd, L, f'mask margin at max_len {LONG_MAX_LEN}', card)
+
+    class Positions(MaskMarginDataset):
+        def __init__(self, positions):
+            super().__init__(long_seq, max_len=LONG_MAX_LEN,
+                             alphabet=model.alphabet)
+            self.positions = positions
+
+        def __len__(self):
+            return len(self.positions)
+
+        def __getitem__(self, i):
+            return super().__getitem__(self.positions[i])
+    part = Positions([p for s in LONG_CHECK_STARTS
+                      for p in range(s, min(s + SCORE_BATCH, LONG_LEN))])
+    got = predict_mask_margin(model, part, batch_size=SCORE_BATCH)
+    with plain_versions():
+        ref = predict_mask_margin(model, part, batch_size=SCORE_BATCH)
+    out['long'] = {
+        'seq_len': LONG_LEN, 'max_len': LONG_MAX_LEN, 'forwards': lfwd,
+        'launches': llaunch, 'ms_per_sequence': lms,
+        'variants_per_s': len(long_scores) / lms * 1e3,
+        'peak_mem_gib': lpeak,
+        'vs_plain': compare_scores(
+            got, ref, SCORE_MAX_ABS, f'mask margin, {LONG_LEN} residues at '
+            f'max_len {LONG_MAX_LEN}, batches at {LONG_CHECK_STARTS}', card)}
+    log(f'[{card}] mask margin, {LONG_LEN} residues at max_len '
+        f'{LONG_MAX_LEN}: {lfwd} forwards of ({SCORE_BATCH}, {LONG_MAX_LEN}),'
+        f' {lms:.1f} ms, {out["long"]["variants_per_s"]:.1f} variants/s, '
+        f'peak {lpeak:.2f} GiB')
+
+    pep = seeded_seq(PPPL_LEN, 13)
+    pfwd = math.ceil(PPPL_LEN * 20 * PPPL_LEN / PPPL_BATCH)
+    margin, mms, _, _ = timed_scoring(
+        lambda: predict_pseudoperplexity_margin(model, pep,
+                                                batch_size=PPPL_BATCH),
+        pfwd, L, 'pseudo-perplexity margin', card)
+    with plain_versions():
+        mref = predict_pseudoperplexity_margin(model, pep,
+                                               batch_size=PPPL_BATCH)
+    out['pppl_margin'] = {
+        'seq_len': PPPL_LEN, 'batch_size': PPPL_BATCH, 'forwards': pfwd,
+        'ms': mms, 'vs_plain': compare_scores(
+            margin, mref, PPPL_MAX_ABS,
+            f'pseudo-perplexity margin, {PPPL_LEN} residues', card)}
+    log(f'[{card}] pseudo-perplexity margin, {PPPL_LEN} residues, batch '
+        f'{PPPL_BATCH}: {pfwd} forwards, {mms:.1f} ms')
+    return out, scores, seq
+
+
+def write_fasta(path, min_bytes, seed):
+    """A FASTA of seeded sequences of 100-1000 residues, 60 a line, until
+    the file holds ``min_bytes``; returns the number of sequences."""
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(AMINO.encode(), np.uint8)
+    size = n = 0
+    with open(path, 'wb') as f:
+        while size < min_bytes:
+            lens = rng.integers(100, 1001, 1000)
+            res = letters[rng.integers(0, 20, int(lens.sum()))].tobytes()
+            parts, lo = [], 0
+            for i, m in enumerate(lens):
+                s = res[lo:lo + m]
+                lo += m
+                parts.append(b'>S%07d\n' % (n + i) + b''.join(
+                    s[j:j + 60] + b'\n' for j in range(0, m, 60)))
+            chunk = b''.join(parts)
+            f.write(chunk)
+            size += len(chunk)
+            n += len(lens)
+    return n
+
+
+def batch_to(dev):
+    """A ``Prefetcher`` ``device_put``: the batch's arrays to the card
+    from pinned memory, ``non_blocking``."""
+    def put(b):
+        arrays = {name: torch.from_numpy(getattr(b, name)).pin_memory()
+                  .to(dev, non_blocking=True)
+                  for name in ('tokens', 'cu_lens', 'masked_tokens', 'mask')}
+        return SimpleNamespace(**arrays, max_len=b.max_len)
+    return put
+
+
+class _Head:
+    """The first ``n`` items of an indexable dataset."""
+
+    def __init__(self, ds, n):
+        self.ds, self.n = ds, min(n, len(ds))
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        return self.ds[i]
+
+    def __iter__(self):
+        return (self.ds[i] for i in range(self.n))
+
+
+def host_pass(items):
+    """Host ms a batch over one pass of ``items``."""
+    t0 = time.perf_counter()
+    n = sum(1 for _ in items)
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def busy_share(run):
+    """Device busy ms (:func:`_busy_ms`) and wall ms of ``run()`` under
+    ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    return _busy_ms(prof.key_averages()), wall
+
+
+def data_fed_steps(name, cfg, module, dev, card):
+    """``MaskedPLM`` steps of ESM2 ``cfg`` (seed-0 weights, Adam) at the
+    10k budget fed through ``Prefetcher`` (native reader, one worker,
+    ``batch_to``) from ``module``'s train loader, beside the same batches
+    built on the card first: ``DATA_STEPS`` steps each after a warm-up,
+    ms a step (wall over the steps / steps, and the median step), launches
+    exact in the fed run (H1, H2 L a step, H3 2L of which L inverse); the
+    device's idle share of each feed from ``PROFILED_STEPS`` more steps
+    under the profiler. Losses must be finite."""
+    from esme_tpu_torch import Prefetcher
+    from esme_tpu_torch.train import MaskedPLM
+    model, _ = build_esm2(cfg, dev)
+    L = model.config.num_layers
+    plm = MaskedPLM(model, learning_rate=1e-4)
+    put = batch_to(dev)
+    prebuilt = [put(b) for b in _Head(module.train_dataloader(),
+                                      DATA_STEPS)]
+    torch.cuda.synchronize()
+    plm.training_step(prebuilt[0])                    # warm-up
+
+    def steps(batches):
+        losses, samples = [], []
+        torch.cuda.synchronize()
+        t0 = t = time.perf_counter()
+        for b in batches:
+            losses.append(plm.training_step(b))       # float(): a sync
+            now = time.perf_counter()
+            samples.append((now - t) * 1e3)
+            t = now
+        return losses, samples, (t - t0) * 1e3 / len(samples)
+
+    def fed(n=DATA_STEPS):
+        return Prefetcher(_Head(module.train_dataloader(), n), depth=2,
+                          device_put=put)
+    out = {}
+    reset_counters()
+    losses, samples, wall = steps(fed())
+    launches = read_counters()
+    expect_launches(f'{name} data-fed steps', launches, **{
+        H1_NAME: L * DATA_STEPS, H2_NAME: L * DATA_STEPS,
+        H3_NAME: 2 * L * DATA_STEPS, 'rope_inverse': L * DATA_STEPS})
+    out['prefetched'] = {'losses': losses, 'ms_per_step': wall,
+                         'median_step_ms': float(np.median(samples))}
+    losses_p, samples_p, wall_p = steps(prebuilt)
+    out['on_card'] = {'losses': losses_p, 'ms_per_step': wall_p,
+                      'median_step_ms': float(np.median(samples_p))}
+    if not np.isfinite(losses + losses_p).all():
+        fail(f'{name}: data-fed losses not finite: {losses}, {losses_p}')
+    for key, run in (('prefetched', lambda: steps(fed(PROFILED_STEPS))),
+                     ('on_card', lambda: steps(prebuilt[:PROFILED_STEPS]))):
+        busy, wall = busy_share(run)
+        out[key].update(profiled_busy_ms=busy, profiled_wall_ms=wall,
+                        idle_share=1 - busy / wall)
+    out['launches'] = launches
+    out['real_tokens'] = [int(b.cu_lens[-1]) for b in prebuilt]
+    log(f'[{card}] {name} nockpt@{DATA_BUDGET // 1000}k, {DATA_STEPS} '
+        f'steps a feed: through Prefetcher {out["prefetched"]["ms_per_step"]:.2f}'
+        f' ms a step (median {out["prefetched"]["median_step_ms"]:.2f}, '
+        f'idle {out["prefetched"]["idle_share"]:.1%} profiled), batches on '
+        f'the card {out["on_card"]["ms_per_step"]:.2f} ms (median '
+        f'{out["on_card"]["median_step_ms"]:.2f}, idle '
+        f'{out["on_card"]["idle_share"]:.1%}); losses '
+        f'{[round(x, 4) for x in losses]}; launches {launches}')
+    del plm, model, prebuilt
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_data_plane(dev, card, tmp):
+    """(c) a seeded FASTA of at least ``DATA_FASTA_BYTES`` indexed with
+    ``write_fai``; ``MaskedFastaTokenDataModule`` at the 10k budget on the
+    native reader and on the Python reader: every batch of an epoch
+    bit-equal, host ms a batch of each reader (timed in that pass: read,
+    pack and mask) and of ``Prefetcher`` over the native reader with
+    ``DATA_WORKERS`` workers (host only, no copy); then :func:`data_fed_steps` for
+    ``DATA_MODELS``."""
+    from esme_tpu_torch import MaskedFastaTokenDataModule, Prefetcher
+    from esme_tpu_torch.fasta import write_fai
+    path = os.path.join(tmp, 'seeded.fa')
+    t0 = time.perf_counter()
+    n_seqs = write_fasta(path, DATA_FASTA_BYTES, seed=15)
+    write_fai(path)
+    setup_s = time.perf_counter() - t0
+    mods = {use: MaskedFastaTokenDataModule(path, token_per_batch=DATA_BUDGET,
+                                            use_native=use)
+            for use in (True, False)}
+    nat, py = (mods[use].train_dataloader() for use in (True, False))
+    if (nat.reader, py.reader) != ('native', 'python'):
+        fail(f'the readers taken: {nat.reader}, {py.reader}')
+    out = {'fasta_bytes': os.path.getsize(path), 'sequences': n_seqs,
+           'write_and_index_s': setup_s, 'batches': len(nat),
+           'reader': nat.reader}
+    read_s = {'native': 0.0, 'python': 0.0}
+    for i in range(len(nat)):
+        t0 = time.perf_counter()
+        a = nat[i]
+        t1 = time.perf_counter()
+        b = py[i]
+        read_s['native'] += t1 - t0
+        read_s['python'] += time.perf_counter() - t1
+        for name in ('tokens', 'cu_lens', 'indices', 'masked_tokens',
+                     'mask'):
+            x, y = getattr(a, name), getattr(b, name)
+            if x.dtype != y.dtype or not np.array_equal(x, y):
+                fail(f'batch {i}: {name} of the native reader differs from '
+                     "the Python reader's")
+        if a.max_len != b.max_len:
+            fail(f'batch {i}: max_len {a.max_len} != {b.max_len}')
+    out['host_ms_per_batch'] = {
+        **{key: v * 1e3 / len(nat) for key, v in read_s.items()},
+        **{f'prefetcher_{w}_workers': host_pass(Prefetcher(
+            mods[True].train_dataloader(), num_workers=w))
+           for w in DATA_WORKERS}}
+    log(f'[{card}] data plane: {out["fasta_bytes"]:,} B FASTA, {n_seqs} '
+        f'sequences of 100-1000 residues, written and indexed in '
+        f'{setup_s:.1f} s; {len(nat)} batches at {DATA_BUDGET}, the native '
+        "reader's bit-equal to the Python reader's; host ms a batch "
+        f'{out["host_ms_per_batch"]}')
+    module = mods[True]
+    out['steps'] = {name: data_fed_steps(name, cfg, module, dev, card)
+                    for name, cfg in DATA_MODELS}
+    return out
+
+
+def check_extension(dev, card):
+    """(e) ESM1b at full width and depth, seed 5, with the published
+    table of ``ESM1B_POSITIONS``: a seeded 500-residue sequence's
+    log-probs bit-equal before and after ``extend_positions(model,
+    4096)``; a 3,000-residue forward refused before and run after (launches
+    exact: H1 L, no H3), finite and normalised; one ``MaskedPLM`` step
+    under ``positions_only_mask`` on sequences of ``EXTEND_TRAIN_LENS``
+    (H1 L, H2 L, no H3): ``embed_positions`` changes, every other leaf
+    keeps its bits."""
+    from dataclasses import replace
+    from esme_tpu_torch import ESM1b, tokenize_unpad
+    from esme_tpu_torch.alphabet import mask_tokens, pack_tokens
+    from esme_tpu_torch.extend import extend_positions, positions_only_mask
+    from esme_tpu_torch.models.config import esm1b_config
+    from esme_tpu_torch.train import MaskedPLM
+    cfg = replace(esm1b_config(), learned_positions=ESM1B_POSITIONS)
+    model = ESM1b(config=cfg, rng=5, device=dev)
+    L = cfg.num_layers
+
+    def logp(seq):
+        tok, _, cu, ml = tokenize_unpad([seq], alphabet=model.alphabet)
+        return model.predict_log_prob(tok, pad_args=(cu, ml))
+    short, long = seeded_seq(EXTEND_SHORT, 21), seeded_seq(EXTEND_LONG, 22)
+    before = logp(short)
+    try:
+        logp(long)
+    except ValueError:
+        pass
+    else:
+        fail(f'a {EXTEND_LONG}-residue forward ran on a table of '
+             f'{ESM1B_POSITIONS} positions')
+    extend_positions(model, EXTEND_TO, rng=0)
+    rows = model.params['embed_positions'].shape[0]
+    after = logp(short)
+    if rows != EXTEND_TO + 2 or not torch.equal(before, after):
+        fail(f'extend_positions: {rows} rows; {EXTEND_SHORT}-residue '
+             f'log-probs bit-equal {torch.equal(before, after)}')
+    torch.cuda.synchronize()
+    reset_counters()
+    lp = logp(long)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    expect_launches(f'ESM1b {EXTEND_LONG}-residue forward', launches,
+                    **{H1_NAME: L})
+    lse = lp.logsumexp(-1).abs().max().item()
+    if not torch.isfinite(lp).all() or lse > LOGSUMEXP_ATOL:
+        fail(f'ESM1b {EXTEND_LONG} residues: log-probs not normalised')
+
+    seqs = [seeded_seq(n, 30 + i) for i, n in enumerate(EXTEND_TRAIN_LENS)]
+    tokens, _, cu, max_len = pack_tokens(seqs, DATA_BUDGET,
+                                         alphabet=model.alphabet)
+    masked, mask = mask_tokens(tokens[None], alphabet=model.alphabet,
+                               rng=np.random.default_rng(1))
+    mask[0, cu[-1]:] = False
+    batch = SimpleNamespace(tokens=tokens, masked_tokens=masked[0],
+                            mask=mask[0], cu_lens=cu, max_len=max_len)
+    snapshot = {name: a.clone() for name, a, _ in
+                _leaf_pairs(model.params, model.params)}
+    plm = MaskedPLM(model, learning_rate=1e-4,
+                    trainable_mask=positions_only_mask(model.params))
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    loss = plm.training_step(batch)
+    step_ms = (time.perf_counter() - t0) * 1e3
+    step_launches = read_counters()
+    expect_launches('ESM1b positions-only step', step_launches,
+                    **{H1_NAME: L, H2_NAME: L})
+    changed = [name for name, a, _ in _leaf_pairs(model.params,
+                                                   model.params)
+               if not torch.equal(a, snapshot[name])]
+    moved = int((model.params['embed_positions'] != snapshot[
+        'embed_positions']).any(-1).sum())
+    log(f'[{card}] ESM1b ({L} layers, width {cfg.embed_dim}, table '
+        f'{ESM1B_POSITIONS} -> {EXTEND_TO}): {EXTEND_SHORT}-residue log-probs bit-equal after '
+        f'the extension; {EXTEND_LONG}-residue forward launches {launches}, '
+        f'max|logsumexp| {lse:.2e}; a positions-only step on '
+        f'{EXTEND_TRAIN_LENS} residues: loss {loss:.4f}, {step_ms:.1f} ms, '
+        f'launches {step_launches}, leaves changed {changed} ({moved} rows)')
+    if changed != ['embed_positions'] or not np.isfinite(loss):
+        fail(f'the positions-only step changed {changed} (loss {loss})')
+    del plm, model, snapshot
+    torch.cuda.empty_cache()
+    return {'positions': [ESM1B_POSITIONS, EXTEND_TO],
+            'long_launches': launches, 'step_launches': step_launches,
+            'step_ms': step_ms, 'loss': loss, 'rows_moved': moved}
+
+
+def check_cli(path, seq, scores, card):
+    """(f) ``python -m esme_tpu_torch.cli score`` in its own process on the
+    phase's safetensors file and (a)'s sequence: its CSV must hold
+    ``variant,score`` and 5,300 rows equal to (a)'s scores (the same bits:
+    the same weights, batches and kernels). Its wall time includes the
+    interpreter, the load and the kernels' libraries."""
+    import csv
+    out_csv = path + '.csv'
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, '-m', 'esme_tpu_torch.cli',
+                          'score', '--model', path, '--seq', seq,
+                          '--batch-size', str(SCORE_BATCH), '--out',
+                          out_csv], cwd=root, capture_output=True, text=True,
+                         timeout=600)
+    wall = time.perf_counter() - t0
+    if run.returncode != 0:
+        fail(f'the CLI failed: {run.stderr[-2000:]}')
+    with open(out_csv, newline='') as f:
+        rows = list(csv.reader(f))
+    got = {v: float(s) for v, s in rows[1:]}
+    equal = rows[0] == ['variant', 'score'] and got == scores
+    err = max((abs(got[v] - s) for v, s in scores.items() if v in got),
+              default=float('nan'))
+    log(f'[{card}] CLI score: {len(rows) - 1} rows in {wall:.1f} s wall '
+        f'(start, load, scoring); equal to (a) {equal} (max|Δ| {err:.3e})')
+    if not equal or len(rows) - 1 != len(scores):
+        fail('the CLI\'s CSV differs from (a)\'s scores')
+    return {'rows': len(rows) - 1, 'wall_s': wall}
+
+
+def check_phase15(dev, card):
+    """Phase 15: (a), (b) :func:`check_scoring` on ESM2-650M loaded from its
+    seeded safetensors file; (c) :func:`check_data_plane`; (d) phase 13's
+    embedding gate (reported there); (e) :func:`check_extension`; (f)
+    :func:`check_cli`. Each part's seconds are logged."""
+    out, seconds = {}, {}
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        seconds[key] = time.perf_counter() - t0
+        log(f'[{card}] phase 15 {key}: {seconds[key]:.1f} s')
+
+    with tempfile.TemporaryDirectory() as tmp:
+        model, _ = family_model('esm2_650m', 'ESM2', MODEL, 0, dev, tmp,
+                                keep=True)
+        path = os.path.join(tmp, 'esm2_650m.safetensors')
+        timed('a_b_scoring', lambda: check_scoring(model, card))
+        out['a_b_scoring'], scores, seq = out['a_b_scoring']
+        del model
+        torch.cuda.empty_cache()
+        timed('f_cli', lambda: check_cli(path, seq, scores, card))
+        os.remove(path)
+        timed('c_data_plane', lambda: check_data_plane(dev, card, tmp))
+    timed('e_extension', lambda: check_extension(dev, card))
+    out['seconds'] = seconds
+    return out
+
+
 def _leaf_pairs(got, ref, path=()):
     for k, v in ref.items():
         if isinstance(v, dict):
@@ -5047,6 +5653,17 @@ def _leaves(tree):
             yield from _leaves(v)
         else:
             yield v
+
+
+def _busy_ms(stats):
+    """Device ms of the kernels and copies themselves in a profile's
+    ``key_averages()``: CPU-side ops also carry the device time of what
+    they launch, and CUPTI's "Command Buffer Full" is the host waiting for
+    room in the launch queue."""
+    return sum(e.self_device_time_total for e in stats
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation
+               and e.key != 'Command Buffer Full') / 1e3
 
 
 def _profile(run, out_dir, table, what):
@@ -5064,13 +5681,7 @@ def _profile(run, out_dir, table, what):
         end.record()
         torch.cuda.synchronize()
     stats = prof.key_averages()
-    # device time of the kernels and copies themselves: CPU-side ops also
-    # carry the device time of what they launch, and CUPTI's "Command
-    # Buffer Full" is the host waiting for room in the launch queue
-    busy = sum(e.self_device_time_total for e in stats
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.is_user_annotation
-               and e.key != 'Command Buffer Full') / 1e3
+    busy = _busy_ms(stats)
     wall = start.elapsed_time(end)
     with open(os.path.join(out_dir, table), 'w') as f:
         f.write(stats.table(sort_by='self_device_time_total', row_limit=40))

@@ -1,6 +1,10 @@
 """esme_tpu_torch — the PyTorch/CUDA port of the JAX package ``esme_tpu``.
 
-Packed ("varlen") ESM inference, masked-LM training and LoRA fine-tuning
+Packed ("varlen") ESM inference, variant-effect scoring
+(:mod:`esme_tpu_torch.variant`, ``python -m esme_tpu_torch.cli``),
+masked-LM training fed from indexed FASTA (:mod:`esme_tpu_torch.data`,
+the C++ reader of :mod:`esme_tpu_torch.native`), position extension
+(:mod:`esme_tpu_torch.extend`) and LoRA fine-tuning
 with pooled heads (:mod:`esme_tpu_torch.lora`,
 :mod:`esme_tpu_torch.models.heads`, the trainers of
 :mod:`esme_tpu_torch.train`) in PyTorch, for every family of the JAX
@@ -23,10 +27,11 @@ CPU, where every kernel runs through its plain PyTorch version.
 from .alphabet import (Alphabet, Alphabet3, mask_tokens, pack_tokens,
                        pad_tokens, padding_mask, tokenize, tokenize_unpad,
                        token_to_str)
-from .data import (FastaTokenDataset, LabeledDataset,
-                   MaskedFastaTokenDataset, PackedBatch, TokenSizeBatchSampler,
-                   balance_binary)
-from .fasta import Fasta
+from .data import (FastaDataset, FastaTokenDataset, MaskedFastaDataset,
+                   MaskedFastaDataModule, MaskedFastaTokenDataset,
+                   MaskedFastaTokenDataModule, LabeledDataset, PackedBatch,
+                   Prefetcher, TokenSizeBatchSampler, balance_binary)
+from .fasta import Fasta, read_fai, write_fai
 from .logger import MetricLogger, read_log
 from .models.config import (ESMConfig, config_for, esm1b_config,
                             esm1v_config, esm2_config, esmc_config)

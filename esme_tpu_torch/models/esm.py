@@ -475,11 +475,17 @@ class ESM:
     @staticmethod
     def from_pretrained(path, quantization=None, checkpointing=False,
                         dtype='bfloat16', device='cuda'):
+        """``path``: a safetensors file, or a model name of the registry
+        (:func:`esme_tpu_torch.download.download_model`: the cache, then
+        the hub)."""
         check_unported(quantization=quantization)
         if not os.path.isfile(path):
-            raise FileNotFoundError(
-                f'{path}: no such checkpoint file (the port does not '
-                'download weights)')
+            from ..download import download_model, model_names
+            if path not in model_names:
+                raise FileNotFoundError(
+                    f'{path}: no such checkpoint file, nor a model name '
+                    f'of the registry {model_names}')
+            path = download_model(path)
         family = read_metadata(path)['name'].split('_')[0]
         return _class_for(family).from_pretrained(
             path, checkpointing=checkpointing, dtype=dtype, device=device)

@@ -371,13 +371,39 @@ def layer_stack(x, stacked_params, cfg, seg_ids, pos_ids,
     return x, reps
 
 
+def embedding_grad(ids, dy, vocab: int):
+    """The embedding table's gradient, ``onehot(ids)ᵀ @ dy``: one product
+    with the ``(vocab, T)`` indicator, which sums each row's
+    contributions with fp32 accumulation in an order fixed by the shapes
+    alone. ``F.embedding``'s own backward
+    (``aten::embedding_dense_backward``) gives other bits from call to
+    call on the card at ESMC's vocabulary of 64."""
+    rows = torch.arange(vocab, device=ids.device, dtype=ids.dtype)
+    onehot = (rows[:, None] == ids.reshape(1, -1)).to(dy.dtype)
+    return matmul(onehot, dy.reshape(-1, dy.shape[-1]))
+
+
+class _Embedding(torch.autograd.Function):
+    """A gather forward; the table's gradient from :func:`embedding_grad`."""
+
+    @staticmethod
+    def forward(ctx, ids, table):
+        ctx.save_for_backward(ids)
+        ctx.vocab = table.shape[0]
+        return F.embedding(ids, table)
+
+    @staticmethod
+    def backward(ctx, dy):
+        ids, = ctx.saved_tensors
+        return None, embedding_grad(ids, dy, ctx.vocab)
+
+
 def embed_tokens(tokens, params, cfg):
     """Token embedding with ``<mask>`` zeroing where the config asks for
     it (reference: esme/esm.py:176-199; ESMC does not zero, esm.py:876).
-    ``F.embedding``'s gradient sorts the tokens and sums each row's
-    contributions in fp32 (indexing would add them with atomics in the
-    weight's dtype)."""
-    x = F.embedding(tokens.long(), params['embed_tokens'])
+    The table's gradient is reproducible bit for bit from call to call
+    (:func:`embedding_grad`)."""
+    x = _Embedding.apply(tokens.long(), params['embed_tokens'])
     if cfg.zero_mask_embedding:
         x = torch.where((tokens == cfg.mask_idx)[..., None],
                         torch.zeros_like(x), x)

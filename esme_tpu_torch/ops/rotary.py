@@ -41,3 +41,12 @@ def apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
     cos = cos[:, None, :]
     sin = sin[:, None, :]
     return x * cos + rotate_half(x) * sin
+
+
+def apply_rotary_qk(q: torch.Tensor, k: torch.Tensor, pos_ids: torch.Tensor,
+                    base: float = 10000.0):
+    """Apply RoPE to q and k ``(T, H, D)`` with packed per-token positions
+    (``esme_tpu/ops/rotary.py:55-61``; reference: esme/rotary.py:151-165).
+    Plain PyTorch; the model path rotates with the RoPE kernel."""
+    cos, sin = rotary_cos_sin(pos_ids, q.shape[-1], base, dtype=q.dtype)
+    return apply_rotary(q, cos, sin), apply_rotary(k, cos, sin)

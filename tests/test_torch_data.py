@@ -115,8 +115,11 @@ def test_masked_fasta_token_dataset_bit_equal(fasta_path, shuffle, budget):
 
 
 def test_fasta_token_dataset_checks(fasta_path):
-    with pytest.raises(NotImplementedError, match='native'):
-        tdata.FastaTokenDataset(fasta_path, use_native=True)
+    assert tdata.FastaTokenDataset(fasta_path, use_native=True).reader == \
+        'native'
+    with pytest.raises(ValueError, match='pad_to_budget'):
+        tdata.FastaTokenDataset(fasta_path, use_native=True,
+                                pad_to_budget=False)
     with pytest.raises(ValueError, match='token_per_batch=512'):
         tdata.FastaTokenDataset(fasta_path, token_per_batch=512)
     ds = tdata.FastaTokenDataset(fasta_path, token_per_batch=1024,

@@ -79,6 +79,25 @@ def test_sources_name_no_jax():
     assert hits == []
 
 
+_IMPORT_ALL_PANDAS = _IMPORT_ALL.replace("('jax', 'jaxlib', 'esme_tpu')",
+                                         "('pandas',)")
+
+
+def test_port_loads_and_names_no_pandas():
+    """The card's machine has no pandas: importing every module of the
+    port loads none, and no source file of it imports it (the variant
+    scores are dicts, ``esme_tpu_torch/variant.py``)."""
+    assert "('pandas',)" in _IMPORT_ALL_PANDAS
+    out = subprocess.run([sys.executable, '-c', _IMPORT_ALL_PANDAS],
+                         capture_output=True, text=True, check=True,
+                         cwd=PKG.parent).stdout.split('\n')
+    assert int(out[0]) >= 15 and out[1] == '[]', out
+    pattern = re.compile(r'^\s*(from|import)\s+pandas\b', re.M)
+    files = sorted(PKG.rglob('*.py'))
+    assert [f.name for f in files if pattern.search(f.read_text())] == []
+    assert (PKG / 'variant.py') in files
+
+
 def test_entry_points_default_to_cuda(tmp_path):
     cfg = esm2_config(1, 32, 2)
     if torch.cuda.is_available():
@@ -340,3 +359,16 @@ def test_chip_smoke_fails_without_a_card():
                          cwd=PKG.parent)
     assert run.returncode != 0
     assert run.stdout == '' and 'no CUDA device' in run.stderr
+
+
+def test_first_call_tool_compares_traces():
+    """``tools/first_call.py`` names the first op whose output differs
+    between two traces of the same calls (None when all agree), and one
+    process's three traced CPU forwards run."""
+    from esme_tpu_torch.tools import first_call
+    a = [('aten.mm', torch.ones(2)), ('aten.cos', torch.zeros(3))]
+    b = [('aten.mm', torch.ones(2)), ('aten.cos', torch.full((3,), 0.5))]
+    assert first_call.first_difference(a, a) is None
+    assert first_call.first_difference(a, b) == ('aten.cos', 0.5)
+    out = first_call.one_process()
+    assert out == 'equal' or out.startswith('aten.')

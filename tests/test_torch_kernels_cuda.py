@@ -1440,3 +1440,61 @@ def test_lora_dropout_on_the_card(cuda):
                                                              plain[0])
     for (name, a), (_, b) in zip(_flat_tree(full[1]), _flat_tree(attn[1])):
         assert (a is None and b is None) or torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_embedding_grad_is_reproducible_on_the_card(cuda):
+    """The token embedding's gradient (``models/modules.py:embed_tokens``,
+    a fixed-order indicator product) at ESMC's vocabulary and width (64,
+    960) on 50,176 bf16 rows: bit-equal over four repeats (the card's
+    ``aten::embedding_dense_backward`` was not), and each entry within one
+    bf16 rounding (2^-8 relative) of the fp64 sum."""
+    from esme_tpu_torch.models.config import esmc_config
+    from esme_tpu_torch.models.modules import embed_tokens
+    cfg = esmc_config()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    ids = torch.randint(0, 64, (50_176,), device=cuda, generator=gen)
+    dy = torch.randn(50_176, 960, device=cuda, generator=gen) \
+        .to(torch.bfloat16)
+    table = torch.zeros(64, 960, device=cuda, dtype=torch.bfloat16,
+                        requires_grad=True)
+
+    def grad():
+        x = embed_tokens(ids, {'embed_tokens': table}, cfg)
+        return torch.autograd.grad(x, table, dy)[0]
+    first = grad()
+    assert all(torch.equal(grad(), first) for _ in range(4))
+    exact = torch.zeros(64, 960, dtype=torch.float64, device=cuda) \
+        .index_add_(0, ids, dy.double())
+    assert ((first.double() - exact).abs()
+            <= 2.0 ** -8 * exact.abs()).all()
+
+
+@pytest.mark.cuda
+def test_scoring_kernels_match_plain(cuda, monkeypatch):
+    """``predict_mask_margin`` on a 2-layer bf16 ESM2 (width 128, head dim
+    64) over a 60-residue sequence in batches of 16: launches exact (H1
+    and H3 once a layer a forward), the same scores on a second call, and
+    against the same call through the plain versions max|Δscore| <= 0.5
+    (twice ``chip_smoke.py``'s per-log-prob gate) and Spearman ρ >= 0.99
+    over the 1,200 variants."""
+    from esme_tpu_torch import ESM2
+    from esme_tpu_torch.metrics import spearman
+    from esme_tpu_torch.variant import predict_mask_margin
+    model = ESM2(num_layers=2, embed_dim=128, attention_heads=2, rng=0,
+                 device=cuda)
+    rng = np.random.default_rng(3)
+    seq = ''.join(rng.choice(list('LAGVSERTIDPKQNFYMHWC'), 60))
+    counters = (flash.segment_flash_fwd, headsplit.rotary_qk)
+    before = [c.launches for c in counters]
+    got = predict_mask_margin(model, seq, batch_size=16)
+    assert [c.launches - b for c, b in zip(counters, before)] == [8, 8]
+    assert predict_mask_margin(model, seq, batch_size=16) == got
+    monkeypatch.setattr(fused_attn, 'rotary_qk', headsplit.rotary_qk_plain)
+    monkeypatch.setattr(fused_attn, 'segment_flash_fwd',
+                        flash.segment_flash_fwd_plain)
+    ref = predict_mask_margin(model, seq, batch_size=16)
+    assert list(got) == list(ref) and len(got) == 1200
+    a, b = np.array(list(got.values())), np.array(list(ref.values()))
+    assert np.abs(a - b).max() <= 0.5
+    assert spearman(a, b) >= 0.99
