@@ -227,6 +227,10 @@ line is phase 12's JSON:
    varlen library call (its ratio logged, not gated) and the bound with
    the exps at the SFU rate as a third term; at 16 and 24, where the
    route is the Hopper form, that form must beat the mma.sync form;
+   ESM2-15B, after its bf16 inference cell, ``quantize('4bit')`` on the
+   card one layer slice at a time (``SIZE_QUANTIZE``) and the same cell
+   again (launches exact: H1 and H3 48; finite log-probs; its time, real
+   tokens/s and peak beside the bf16 cell's);
 13. the memory slice, every line naming the card and its power limit
    (``check_memory``): first, the port's token-embedding gradient
    repeated on the same inputs must give the same bits every time, at
@@ -268,12 +272,12 @@ line is phase 12's JSON:
    20-59 residues): (a) on each task-length batch one
    ``RegressionTrainer`` step from the same params, every ``b`` non-zero,
    with the kernels and with the plain versions: the loss within
-   ``FT_LOSS_REL``, every adapter's and head leaf's gradient under phase
-   5's gates (the head's key bias, 0 in exact arithmetic, under
-   ``ZERO_GRAD_REL`` of its kernel's; the entries of the head's ReLU units
+   ``FT_LOSS_REL``; every adapter's and head leaf's gradient, every entry,
+   under phase 5's gates against a second plain run with the head's ReLU
+   pattern of the kernels' run (the head's key bias, 0 in exact
+   arithmetic, under ``ZERO_GRAD_REL`` of its kernel's; the head's units
    whose input changed sign between the two runs, at most
-   ``FT_MAX_FLIPPED`` of them, logged, under the cosine gate alone),
-   frozen leaves without a gradient;
+   ``FT_MAX_FLIPPED`` of them, logged); frozen leaves without a gradient;
    (b) its launches exact: H1 33, H2 33, H3 66 of which 33 inverse (and
    ``predict``: H1 33, H3 33); (c) each task as ``benchmarks/tasks.py``
    runs it, two epochs of steps, ``validation_metrics``, a
@@ -314,7 +318,39 @@ line is phase 12's JSON:
    no H3), one ``MaskedPLM`` step under ``positions_only_mask`` changing
    ``embed_positions`` and no other leaf (H1 33, H2 33); (f) ``python -m
    esme_tpu_torch.cli score`` in its own process on the same file and
-   sequence: 5,300 CSV rows equal to (a)'s scores, its wall time logged.
+   sequence: 5,300 CSV rows equal to (a)'s scores, its wall time logged;
+16. weight quantization (``check_quant``), every line naming the card and
+   its power limit: ESM2-650M from seed-0 weights written through the
+   safetensors schema; (a) ``ESM.from_pretrained(path, quantization=m)``
+   for ``m`` in 8bit and 4bit (quantized on the host as it is read): the
+   load's seconds, the leaves' bytes and the device memory allocated
+   after it and at its peak, at most the leaves' bytes and
+   ``QUANT_LOAD_SLACK`` (the dense linears never reach the card);
+   ``quantize(m)`` of the dense model on the card bit-equal, leaf by leaf
+   and dtypes included, to the same call on the CPU (how many leaves the
+   two routes share is logged: ROADMAP.md Queue 3, item 23); (b) each
+   loaded model through phase 4's comparisons on the 4k batch (launches
+   exact: H1 and H3 33, no H2) and against the dense model on the same
+   weights, per-token cosine of the log-probs above ``QUANT_MIN_COS`` (8bit
+   0.999, 4bit 0.99); ``benchmarks/quant_accuracy.py``'s cell under the
+   same gates, on its weights (JAX's seed-0 draw, ``jax_seed_params``) and
+   its batch, without and with its ``inject_outliers`` (8 rows x 20 per
+   linear, seed 7); ESMC-300M (seeded as in phase 9) loaded in 4bit under
+   the same gates; (c) the 50k inference cell dense, 8bit, 4bit, dense
+   (launches exact; median of 5, real tokens/s, peak memory), one
+   forward's dequantization alone (CUDA events, beside its bytes' bound),
+   ``predict_mask_margin`` on phase 15's 265-residue sequence dense and
+   4bit (ms a sequence, variants/s); (d) phase 14's ``gb1_265``
+   ``RegressionTrainer`` step over the trunk quantized to NF4 on the card
+   (LoRA rank 16 on query, value, output; the 4-head aggregation head):
+   loss and gradients against the plain versions under phase 14's rule,
+   no quantized leaf with a gradient, launches exact (H1 33, H2 33, H3 66
+   of which 33 inverse), ms a step, real tokens/s, peak and optimizer
+   bytes beside phase 14's dense step; (e) the NF4 model through
+   ``save_pretrained`` and ``ESM.from_pretrained``: every leaf and the
+   log-probs bit-equal, the file without its ``qoutlier_*`` keys refused.
+   With ``--profile``, each quantized forward's table
+   (``profile_quant_<mode>.txt``).
 
 Each phase's seconds are logged and kept in the measurements line
 (``phase_s``). The last three lines are the kernels' JSON, the measurements' JSON and
@@ -2415,6 +2451,18 @@ def main(argv):
     # 15. variant scoring, the data plane, position extension, the CLI
     phase15 = check_phase15(dev, card)
     phase_done(15)
+
+    # 16. weight quantization
+    quant = check_quant(dev, card, cells['nockpt'], finetune,
+                        phase15['a_b_scoring'], profile_dir)
+    phase_done(16)
+    quant_fwd = {mode: quant['c_times']['launches'][mode]
+                 for mode in QUANT_MODES}
+    qlora_step = quant['d_qlora']['times']['launches']
+    big = next((n for n in SIZE_QUANTIZE if n in sizes), None)
+    if big:
+        quant_fwd[f'{big} {SIZE_QUANTIZE[big]}'] = sizes[big]['quantized'][
+            'launches']
     scoring = phase15['a_b_scoring']
     fwd_launches = {key: {k: v // scoring[key]['forwards']
                           for k, v in scoring[key]['launches'].items()}
@@ -2451,6 +2499,9 @@ def main(argv):
              key: c[H1_NAME] for key, c in data_fed.items()},
          'esm1b_extended_launches': phase15['e_extension'][
              'long_launches'][H1_NAME],
+         'quant_launches': {**{key: c[H1_NAME]
+                               for key, c in quant_fwd.items()},
+                            'qlora_step': qlora_step[H1_NAME]},
          'max_abs_err': h1_err,
          'lse_max_abs_err': h1_lse_err, 'ms': h1_ms,
          'plain_ms': h1_plain_ms, 'bound_ms': h1_bound, 'bound_by': h1_by,
@@ -2478,6 +2529,9 @@ def main(argv):
                                'predict': ft_predict[H2_NAME]},
          'data_fed_launches_per_step': {
              key: c[H2_NAME] for key, c in data_fed.items()},
+         'quant_launches': {**{key: c[H2_NAME]
+                               for key, c in quant_fwd.items()},
+                            'qlora_step': qlora_step[H2_NAME]},
          'max_abs_err': h2_err, 'gate_share': max(h2_share, h2_check_share),
          'ms': h2_ms, 'plain_ms': h2_plain_ms, 'bound_ms': h2_bound,
          'bound_by': h2_by, 'library_ms': h2_lib_ms,
@@ -2503,6 +2557,10 @@ def main(argv):
              key: c[H3_NAME] for key, c in fwd_launches.items()},
          'data_fed_launches_per_step': {
              key: c[H3_NAME] for key, c in data_fed.items()},
+         'quant_launches': {**{key: c[H3_NAME]
+                               for key, c in quant_fwd.items()},
+                            'qlora_step': qlora_step[H3_NAME],
+                            'qlora_step_inverse': qlora_step['rope_inverse']},
          'max_abs_err': rope_err,
          'ms': h3_ms, 'plain_ms': h3_plain_ms, 'bound_ms': h3_bound,
          'bound_by': h3_by, 'library_ms': None,
@@ -2554,6 +2612,7 @@ def main(argv):
         'memory': memory,
         'finetune': finetune,
         'phase15': phase15,
+        'quant': quant,
         'phase_s': phase_s,
         'build_s': build_s,
         'model_checks': model_checks, 'torch': torch.__version__,
@@ -2915,15 +2974,13 @@ def train_cell(model, plm_cls, key, budget, ckpt, reps, falls, n_params,
     return cell
 
 
-def compare_grads(got, ref, min_cos, max_rel, what, zero=None,
-                  part=None):
+def compare_grads(got, ref, min_cos, max_rel, what, zero=None):
     """Per-leaf cosine and largest difference relative to the leaf's
     largest value; fails outside the gates. ``zero`` maps a leaf whose
     gradient is 0 in exact arithmetic to the leaf whose largest gradient
-    scales its noise (``ZERO_GRAD_REL``); ``part`` maps a leaf to the part
-    of it that the difference gate holds (the cosine holds all of it)."""
+    scales its noise (``ZERO_GRAD_REL``)."""
     worst_cos, worst_rel, equal, n = 1.0, 0.0, 0, 0
-    zero, part = zero or {}, part or {}
+    zero = zero or {}
     scales = {name: b.float().abs().max().item()
               for name, _, b in _leaf_pairs(got, ref) if name in
               zero.values()}
@@ -2931,8 +2988,6 @@ def compare_grads(got, ref, min_cos, max_rel, what, zero=None,
     for name, a, b in _leaf_pairs(got, ref):
         n += 1
         equal += bool(torch.equal(a, b))
-        held = (part[name](a).float(), part[name](b).float()) \
-            if name in part else None
         a, b = a.float().ravel(), b.float().ravel()
         if name in zero:
             noise[name] = max(a.abs().max().item(), b.abs().max().item()) \
@@ -2949,9 +3004,6 @@ def compare_grads(got, ref, min_cos, max_rel, what, zero=None,
                      'has none')
             continue
         cos = (a @ b / (a.norm() * b.norm())).item()
-        if held is not None:
-            a, b = held
-            scale = b.abs().max().item()
         rel = (a - b).abs().max().item() / scale
         worst_cos, worst_rel = min(worst_cos, cos), max(worst_rel, rel)
         if cos < min_cos or rel > max_rel:
@@ -4087,6 +4139,9 @@ def check_size(name, trains, dev, plm_cls, batch, profile_dir=None):
         _profile(lambda: model.predict_log_prob(tokens,
                                                 pad_args=(cu, max_len)),
                  prof, 'profile_main.txt', f'{name} forward')
+    if name in SIZE_QUANTIZE:
+        out['quantized'] = quantized_size(model, SIZE_QUANTIZE[name], batch,
+                                          what)
     out['train'] = {}
     for key, budget, ckpt, reps, falls in TRAIN_CELLS:
         if key in trains:
@@ -4098,6 +4153,42 @@ def check_size(name, trains, dev, plm_cls, batch, profile_dir=None):
         out['grad_checks'] = check_grads(model, plm_cls, f'{name} ')
     del model
     torch.cuda.empty_cache()
+    return out
+
+
+def quantized_size(model, mode, batch, what):
+    """Phase 12 (f): ``quantize(mode)`` of a size's model on the card (one
+    layer slice at a time), then phase 4's inference cell again on the same
+    batch: launches exact, log-probs finite normalised rows, the median of
+    the timed forwards, real tokens/s and peak memory."""
+    L = model.config.num_layers
+    dense_bytes = sum(p['kernel'].numel() * p['kernel'].element_size()
+                      for sub in model.params['layers'].values()
+                      for name, p in sub.items() if name in QUANT_LINEARS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model.quantize(mode)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    qpeak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.empty_cache()
+    q, other = quant_bytes(model.params)
+    if dense_linears(model.params):
+        fail(f'{what} {mode}: dense linears {dense_linears(model.params)}')
+    out = {'mode': mode, 'quantize_s': secs, 'quantize_peak_mem_gib': qpeak,
+           'dense_linear_bytes': dense_bytes, 'quantized_bytes': q,
+           'other_bytes': other,
+           'launches': inference_run(model, batch, f'{what} {mode}',
+                                     expected_launches(**{H1_NAME: L,
+                                                          H3_NAME: L}))}
+    out.update(inference_times(model, batch, f'{what} {mode}'))
+    log(f'{what} {mode}: quantize() {secs:.1f} s (peak {qpeak:.2f} GiB), '
+        f'the linears {dense_bytes / 1e9:.2f} GB in bf16 -> '
+        f'{q / 1e9:.2f} GB quantized (dense leaves {other / 1e9:.2f} GB); '
+        f'50k forward {out["ms_per_batch"]:.2f} ms, '
+        f'{out["real_tokens_per_s"]:.1f} real tokens/s, peak '
+        f'{out["peak_mem_gib"]:.2f} GiB')
     return out
 
 
@@ -4679,8 +4770,8 @@ FT_B_STD = 0.01
 # trainable leaf's gradient under phase 5's gates
 FT_LOSS_REL = 2.0 ** -8
 # the most of the head's ReLU units whose input may change sign between the
-# kernels' run and the plain versions' (their gradient entries are then
-# held by the cosine gate alone: flipped_units)
+# kernels' run and the plain versions' (flipped_units; the gradients are
+# held against a plain run with the kernels' pattern, pinned_head_relu)
 FT_MAX_FLIPPED = 1 / 8
 FT_TASKS = (('gb1', False), ('tf', True))
 # the step's batches, (shortest, longest) residues of seeded random
@@ -4738,11 +4829,13 @@ def length_batch(model, lengths, seed=7):
     return ft_dataset({'train': (seqs, labels)}, 'train', model, False)[0]
 
 
-def ft_model(dev, lift_b=False):
-    """ESM2 at ``MODEL`` from seed 0 with the task's adapters; with
-    ``lift_b`` every ``b`` drawn from ``FT_B_STD``·N(0, 1) (seed 1)."""
+def ft_model(dev, lift_b=False, model=None):
+    """ESM2 at ``MODEL`` from seed 0 (or ``model``) with the task's
+    adapters; with ``lift_b`` every ``b`` drawn from ``FT_B_STD``·N(0, 1)
+    (seed 1)."""
     from esme_tpu_torch import ESM2
-    model = ESM2(**MODEL, dtype='bfloat16', rng=0, device=dev)
+    if model is None:
+        model = ESM2(**MODEL, dtype='bfloat16', rng=0, device=dev)
     model.add_lora(rank=FT_RANK, alpha=FT_RANK,
                    layers=('query', 'value', 'output'), adapter_names=['ft'])
     if lift_b:
@@ -4809,12 +4902,35 @@ def head_preactivations(store):
         trainer.apply_learned_aggregation = apply
 
 
+@contextlib.contextmanager
+def pinned_head_relu(masks):
+    """The aggregation head with each call's ReLU replaced by a 0/1 mask
+    of ``masks`` (in call order): given the kernels' run's pattern, the
+    plain versions' run differentiates the same linear piece of the head,
+    so the gradients differ by the kernels' rounding alone."""
+    from esme_tpu_torch.models import heads
+    from esme_tpu_torch.train import trainer
+    apply = trainer.apply_learned_aggregation
+    it = iter(masks)
+
+    def pinned(params, x, seg_ids, num_segments, attention_heads):
+        pooled = heads.apply_learned_attention_pool(
+            params, x, seg_ids, num_segments, attention_heads)
+        h = heads.linear(pooled, params['linear'])
+        out = heads.linear(h * next(it).to(h.dtype), params['final'])[..., 0]
+        return out[..., 0] if out.shape[-1] == 1 else out
+
+    trainer.apply_learned_aggregation = pinned
+    try:
+        yield
+    finally:
+        trainer.apply_learned_aggregation = apply
+
+
 def flipped_units(pre, what):
     """The head's ReLU units whose input changed sign between the kernels'
     run and the plain versions' for some segment (bf16 representations
-    an ulp apart move a unit near 0 across it, and its gradient entries
-    then differ by their whole size): the gradient parts of the units that
-    did not flip, for :func:`compare_grads`, and the counts. Fails if more
+    an ulp apart move a unit near 0 across it), counted. Fails if more
     than ``FT_MAX_FLIPPED`` of the units flipped."""
     flips = (pre[0] > 0) != (pre[1] > 0)
     flipped = flips.flatten(0, -2).any(0)
@@ -4828,21 +4944,25 @@ def flipped_units(pre, what):
         fail(f'fine-tune step {what}: {n} of the head\'s {flipped.numel()} '
              f'units changed sign between the kernels\' run and the plain '
              f'versions\' (gate {FT_MAX_FLIPPED} of them)')
-    keep = ~flipped
-    part = {'head.linear.kernel': lambda g: g[:, keep],
-            'head.linear.bias': lambda g: g[keep],
-            'head.final.kernel': lambda g: g[keep]}
-    return part, info
+    return info
 
 
-def check_finetune_grads(model, head, batch, card, what):
+def check_finetune_grads(model, head, batch, card, what, label=None):
     """(a) and (b): one ``RegressionTrainer`` step's loss and gradients
     with the kernels (launches counted from 0: H1 L, H2 L, H3 2L of which
     L inverse) and through the plain versions, from the same params, on
-    the batch ``what`` names. The head's units that :func:`flipped_units`
-    finds leave their gradient entries to the cosine gate alone."""
+    the batch ``what`` names (``label`` in the logs, ``what`` if None).
+    The loss is held against the plain versions' own run. The gradients,
+    every entry, are held against a second plain run with the head's ReLU
+    pattern of the kernels' run (:func:`pinned_head_relu`): a unit that
+    :func:`flipped_units` finds (at most ``FT_MAX_FLIPPED`` of them) moves
+    its own gradient entries and the gradient it sends the trunk's
+    adapters by its whole contribution, which no rounding of the kernels
+    explains. No quantized leaf may have a gradient."""
+    from esme_tpu_torch.quant import NON_TRAINABLE_QUANT_LEAVES
     from esme_tpu_torch.train import RegressionTrainer
     L = model.config.num_layers
+    what = label or what
     tt = RegressionTrainer(model, head, head_lr=FT_HEAD_LR, lr=FT_LR,
                            head_attention_heads=FT_HEAD_HEADS)
     pre = []
@@ -4854,13 +4974,23 @@ def check_finetune_grads(model, head, batch, card, what):
         got = ft_grads(tt)
         with plain_versions():
             loss_p = tt._grad_step(batch)
-        ref = ft_grads(tt)
-    part, flips = flipped_units(pre, what)
+    flips = flipped_units(pre, what)
+    with pinned_head_relu([pre[0] > 0]), plain_versions():
+        loss_pin = tt._grad_step(batch)
+    ref = ft_grads(tt)
+    quant_grads = [name for name, g in _named_leaves(got['plm'])
+                   if name.split('.')[-1] in NON_TRAINABLE_QUANT_LEAVES
+                   and name.split('.')[-2] in QUANT_LINEARS
+                   and g is not None]
+    if quant_grads:
+        fail(f'fine-tune step {what}: quantized leaves with a gradient: '
+             f'{quant_grads}')
     expected = expected_launches(**{H1_NAME: L, H2_NAME: L, H3_NAME: 2 * L,
                                     'rope_inverse': L})
     log(f'[{card}] fine-tune step {what}: launches {launches} (expected '
         f'{expected}); loss with kernels {loss.item():.6f}, plain versions '
-        f'{loss_p.item():.6f}')
+        f'{loss_p.item():.6f} ({loss_pin.item():.6f} with the kernels\' '
+        f'ReLU pattern)')
     if launches != expected:
         fail(f'fine-tune step {what}: a kernel launched {launches}, not '
              f'{expected}')
@@ -4883,21 +5013,22 @@ def check_finetune_grads(model, head, batch, card, what):
         f'{flips["max_abs_preactivation"]:.3g})')
     checks = compare_grads(got, ref, GRAD_MIN_COS, GRAD_MAX_REL,
                            f'[{card}] fine-tune gradients {what}, kernels '
-                           'vs plain versions',
-                           {'head.k.bias': 'head.k.kernel'}, part)
+                           'vs plain versions with the kernels\' ReLU '
+                           'pattern', {'head.k.bias': 'head.k.kernel'})
     del tt, got, ref
     torch.cuda.empty_cache()
     return {'launches': launches, 'loss': loss.item(),
             'real_tokens': int(batch.cu_lens[-1]),
             'sequences': int((np.diff(batch.cu_lens) > 0).sum()),
             'loss_plain': loss_p.item(), 'loss_rel': rel,
+            'loss_plain_pinned': loss_pin.item(),
             'frozen_leaves_without_grad': frozen, 'grads_vs_plain': checks,
             'flipped_head_units': flips}
 
 
 def time_finetune(model, head, batch, card, phase5, what,
-                  profile_dir=None):
-    """(d) on the batch ``what`` names: a warm-up
+                  profile_dir=None, label=None):
+    """(d) on the batch ``what`` names (``label`` in the logs): a warm-up
     ``RegressionTrainer.training_step`` with the counters set to 0 just
     before it (the launches of (b)), ``FT_REPS`` timed steps on the same
     full batch, one ``predict``'s launches (H1 L, H3 L), the optimizer's
@@ -4907,6 +5038,7 @@ def time_finetune(model, head, batch, card, phase5, what,
     from esme_tpu_torch.train import RegressionTrainer
     L = model.config.num_layers
     real = int(batch.cu_lens[-1])
+    lengths, what = FT_LENGTHS[what], label or what
     tt = RegressionTrainer(model, head, head_lr=FT_HEAD_LR, lr=FT_LR,
                            head_attention_heads=FT_HEAD_HEADS)
     start = [p.detach().clone() for p in tt._params]
@@ -4943,7 +5075,7 @@ def time_finetune(model, head, batch, card, phase5, what,
     if not (np.isfinite(losses).all() and np.isfinite(pred).all()):
         fail(f'fine-tune steps {what}: losses {losses}, predictions finite '
              f'{np.isfinite(pred).all()}')
-    cell = {'budget': FT_BUDGET, 'lengths': FT_LENGTHS[what],
+    cell = {'budget': FT_BUDGET, 'lengths': lengths,
             'truncate_len': FT_TRUNCATE, 'real_tokens': real,
             'sequences': int((np.diff(batch.cu_lens) > 0).sum()),
             'launches': launches, 'predict_launches': predict_launches,
@@ -4957,7 +5089,7 @@ def time_finetune(model, head, batch, card, phase5, what,
             'mlm_nockpt_10k_peak_mem_gib': phase5['peak_mem_gib']}
     log(f'[{card}] fine-tune step {what} (LoRA r{FT_RANK} q/v/out + '
         f'aggregation head) at {FT_BUDGET}: {cell["sequences"]} sequences '
-        f'of {FT_LENGTHS[what]} residues, {real} real tokens; median {ms:.2f} ms of {FT_REPS} (samples '
+        f'of {lengths} residues, {real} real tokens; median {ms:.2f} ms of {FT_REPS} (samples '
         f'{[round(x, 2) for x in samples]}), {cell["real_tokens_per_s"]:.1f} '
         f'real tokens/s, {trained:,} trained params, optimizer state '
         f'{state_bytes:,} B, peak {cell["peak_mem_gib"]:.2f} GiB; losses '
@@ -5635,6 +5767,628 @@ def check_phase15(dev, card):
         os.remove(path)
         timed('c_data_plane', lambda: check_data_plane(dev, card, tmp))
     timed('e_extension', lambda: check_extension(dev, card))
+    out['seconds'] = seconds
+    return out
+
+
+# -------------------------------------------------------------------------
+# Phase 16: weight quantization (esme_tpu_torch/quant.py) at ESM2-650M's
+# full width, from seed-0 weights written through the safetensors schema
+# (phase 15's file): quantize-at-load, the quantized forward (H1, H3), a
+# QLoRA step (H1, H2, H3), the quantized file's round trip. ESM2-15B's
+# capacity run is part of phase 12 (SIZE_QUANTIZE).
+QUANT_MODES = ('8bit', '4bit')
+# the per-token cosine of the quantized model's log-probs against the dense
+# model's on the same weights, uncentred: the JAX package's own thresholds
+# and form (benchmarks/quant_accuracy.py:40, its all(sim > t))
+QUANT_MIN_COS = {'8bit': 0.999, '4bit': 0.99}
+# device memory after a quantize-at-load, over the leaves' own bytes: the
+# allocator's rounding and the loader's stacking; a dense copy of the
+# linears on the card would add 100% (int8) to 250% (NF4)
+QUANT_LOAD_SLACK = 0.05
+# benchmarks/quant_accuracy.py --outliers: 8 random input rows of every
+# attention and MLP linear scaled 20x, seed 7 (inject_outliers, copied).
+# Its thresholds hold its own cell (quant_accuracy_cell): JAX's seed-0
+# draw of the weights, not phase 15's, since under the injection the
+# cosine is the draw's (tests/torch_quant_witness.py: both packages read
+# the same value on either draw, and int8 falls below 0.999 on some)
+OUTLIER_ROWS, OUTLIER_FACTOR, OUTLIER_SEED = 8, 20.0, 7
+QUANT_REGIMES = ('randn', 'outlier')
+# (b)'s other family: ESMC-300M as phase 9 seeds it (its first run), 4bit
+QUANT_FAMILY = ('esmc_300m', 'ESMC', {})
+# dequant_ms' chunks: linears a chunk (an NF4 dequantization is up to 7
+# launches) and the spin queued ahead of each, ~25 ms at the H100's 1.98 GHz
+# boost clock, above the host's enqueue of a chunk
+DEQUANT_CHUNK = 66
+DEQUANT_SPIN_CYCLES = 50_000_000
+# phase 12 (f): a size quantized on the card after its bf16 inference cell,
+# then the same cell again
+SIZE_QUANTIZE = {'esm2_15b': '4bit'}
+# the linears that quantize_model_params quantizes
+QUANT_LINEARS = ('q', 'k', 'v', 'out', 'fc1', 'fc2', 'gate', 'up', 'down')
+
+
+def _named_leaves(tree, path=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _named_leaves(v, path + (k,))
+        else:
+            yield '.'.join(path + (k,)), v
+
+
+def quant_bytes(params):
+    """(bytes of the quantized linears' storage, bytes of every other
+    leaf) of a params tree."""
+    from esme_tpu_torch.quant import NON_TRAINABLE_QUANT_LEAVES
+    q = other = 0
+    for name, t in _named_leaves(params):
+        n = t.numel() * t.element_size()
+        parts = name.split('.')
+        if parts[-1] in NON_TRAINABLE_QUANT_LEAVES and len(parts) > 1 \
+                and parts[-2] in QUANT_LINEARS:
+            q += n
+        else:
+            other += n
+    return q, other
+
+
+def dense_linears(params):
+    """The attention and MLP linears that still hold a dense kernel."""
+    return [f'{grp}.{name}' for grp, sub in params['layers'].items()
+            for name, p in sub.items()
+            if name in QUANT_LINEARS and 'kernel' in p]
+
+
+_M32 = 0xFFFFFFFF
+# elements a chunk of jax_seed_params' draws (int64 counters: 128 MiB each)
+JAX_DRAW_CHUNK = 1 << 24
+
+
+def _threefry2x32(key, x0, x1):
+    """JAX's threefry2x32 block cipher (``jax._src.prng``) of the counter
+    words ``x0``, ``x1`` (int64 tensors holding uint32 values) under
+    ``key``, a pair of ints."""
+    k1, k2 = key
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x0, x1 = (x0 + ks[0]) & _M32, (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in ((13, 15, 26, 6), (17, 29, 16, 24))[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = (((x1 << r) | (x1 >> (32 - r))) & _M32) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x0, x1
+
+
+def _jax_split(key, n):
+    """``jax.random.split(key, n)``'s key words (partitionable threefry,
+    JAX's default)."""
+    b1, b2 = _threefry2x32(key, torch.zeros(n, dtype=torch.int64),
+                           torch.arange(n, dtype=torch.int64))
+    return [(int(a), int(b)) for a, b in zip(b1, b2)]
+
+
+def _jax_draw(key, shape, kind, scale, dtype, device):
+    """``(jax.random.<kind>(key, ..., shape, float32) * scale)
+    .astype(dtype)``, ``kind`` 'truncated_normal' (at ±2) or 'normal':
+    JAX's counter bits and uniforms bit for bit, its ``erf_inv`` as
+    fp64's rounded to fp32 (XLA's fp32 approximation differs by a few
+    ulps: about 1 bf16 weight in 20,000 lands an ulp away, and weights
+    near 0 ~1e-9 away)."""
+    sqrt2 = torch.tensor(math.sqrt(2), dtype=torch.float32, device=device)
+    if kind == 'truncated_normal':
+        # erf(∓2/√2) in fp32, as XLA computes it
+        lo, hi = np.float32(-0.9544997), np.float32(0.9544997)
+        clip = (float(np.nextafter(np.float32(-2), np.float32(np.inf))),
+                float(np.nextafter(np.float32(2), np.float32(-np.inf))))
+    else:
+        lo, hi, clip = np.nextafter(np.float32(-1), np.float32(0)), \
+            np.float32(1), None
+    lo_t, hi_t = (torch.tensor(v, dtype=torch.float32, device=device)
+                  for v in (lo, hi))
+    n = math.prod(shape)
+    out = torch.empty(n, dtype=dtype, device=device)
+    for start in range(0, n, JAX_DRAW_CHUNK):
+        i = torch.arange(start, min(n, start + JAX_DRAW_CHUNK),
+                         dtype=torch.int64, device=device)
+        b1, b2 = _threefry2x32(key, i >> 32, i & _M32)
+        bits = ((b1 ^ b2) >> 9) | 0x3F800000
+        u = bits.to(torch.int32).view(torch.float32) - 1.0
+        u = torch.maximum(lo_t, u * (hi_t - lo_t) + lo_t)
+        x = sqrt2 * torch.erfinv(u.double()).float()
+        if clip is not None:
+            x = x.clamp(*clip)
+        out[start:start + i.numel()] = (x * scale).to(dtype)
+    return out.reshape(shape)
+
+
+def jax_seed_params(cfg, seed, device):
+    """The JAX package's ``ESM2(config=cfg, rng=seed).params``
+    (``esme_tpu/models/init.py``: ESM2's tree, GELU MLP, no position
+    table), drawn on ``device`` through JAX's PRNG reproduced here (no
+    JAX): ``benchmarks/quant_accuracy.py``'s weights at ``seed`` 0."""
+    keys = iter(_jax_split((0, seed), 16))
+    dt = cfg.torch_dtype
+    D, F, L, V = cfg.embed_dim, cfg.ffn_dim, cfg.num_layers, cfg.vocab_size
+
+    def lin(d_in, d_out, stacked=None):
+        shape = (d_in, d_out) if stacked is None else (stacked, d_in, d_out)
+        p = {'kernel': _jax_draw(next(keys), shape, 'truncated_normal',
+                                 d_in ** -0.5, dt, device)}
+        if cfg.bias or stacked is None:
+            p['bias'] = torch.zeros(shape[:-2] + (d_out,), dtype=dt,
+                                    device=device)
+        return p
+
+    def norm(bias=True, stacked=None):
+        shape = (D,) if stacked is None else (stacked, D)
+        p = {'scale': torch.ones(shape, dtype=dt, device=device)}
+        if bias:
+            p['bias'] = torch.zeros(shape, dtype=dt, device=device)
+        return p
+
+    emb = _jax_draw(next(keys), (V, D), 'normal', 0.02, dt, device)
+    emb[cfg.padding_idx] = 0
+    attn = {'norm': norm(cfg.norm_bias, L)}
+    attn.update({n: lin(D, D, L) for n in ('q', 'k', 'v', 'out')})
+    mlp = {'norm': norm(cfg.norm_bias, L), 'fc1': lin(D, F, L),
+           'fc2': lin(F, D, L)}
+    return {'embed_tokens': emb, 'layers': {'attn': attn, 'mlp': mlp},
+            'emb_norm_after': norm(cfg.final_ln_bias),
+            'lm_head': {'dense': lin(D, D), 'norm': norm(),
+                        'final': lin(D, V)}}
+
+
+def inject_outliers(params, cfg, n_rows=OUTLIER_ROWS, factor=OUTLIER_FACTOR,
+                    seed=OUTLIER_SEED):
+    """``benchmarks/quant_accuracy.py:inject_outliers``, copied: ``n_rows``
+    random input rows of every attention and MLP linear (the same rows in
+    every layer) scaled by ``factor``, the product in fp32."""
+    rng = np.random.default_rng(seed)
+
+    def scale_kernel(k):
+        d_in = k.shape[-2]
+        rows = rng.choice(d_in, size=min(n_rows, d_in), replace=False)
+        mult = torch.ones((d_in, 1), dtype=torch.float32, device=k.device)
+        mult[torch.as_tensor(rows, device=k.device)] = factor
+        return (k.float() * mult).to(k.dtype)
+
+    params = dict(params)
+    layers = {k: dict(v) for k, v in params['layers'].items()}
+    names = {'attn': ('q', 'k', 'v', 'out'),
+             'mlp': ('gate', 'up', 'down') if cfg.mlp == 'swiglu'
+             else ('fc1', 'fc2')}
+    for grp, lin_names in names.items():
+        for name in lin_names:
+            lin = dict(layers[grp][name])
+            lin['kernel'] = scale_kernel(lin['kernel'])
+            layers[grp][name] = lin
+    params['layers'] = layers
+    return params
+
+
+def quant_load(path, mode, dev, card):
+    """(a) ``ESM.from_pretrained(path, quantization=mode)``: the load's
+    seconds, the leaves' bytes, the device memory it left allocated and
+    its peak, each over what was allocated before it; both within
+    ``QUANT_LOAD_SLACK`` of the leaves' bytes, every linear quantized."""
+    from esme_tpu_torch import ESM
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = ESM.from_pretrained(path, quantization=mode, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    alloc = torch.cuda.memory_allocated() - base
+    peak = torch.cuda.max_memory_allocated() - base
+    q, other = quant_bytes(model.params)
+    limit = (q + other) * (1 + QUANT_LOAD_SLACK)
+    out = {'load_s': load_s, 'quantized_bytes': q, 'other_bytes': other,
+           'allocated_bytes': alloc, 'peak_bytes': peak,
+           'limit_bytes': limit}
+    log(f'[{card}] {mode} quantize-at-load of ESM2-650M: {load_s:.1f} s; '
+        f'quantized leaves {q / 2**20:.1f} MiB, dense leaves '
+        f'{other / 2**20:.1f} MiB; device memory after the load '
+        f'{alloc / 2**20:.1f} MiB, its peak {peak / 2**20:.1f} MiB (gate '
+        f'{limit / 2**20:.1f} MiB)')
+    if dense_linears(model.params):
+        fail(f'{mode} load: dense linears {dense_linears(model.params)}')
+    if alloc > limit or peak > limit:
+        fail(f'{mode} load: {alloc} B allocated, peak {peak} B, above the '
+             f'leaves\' {q + other} B and {QUANT_LOAD_SLACK:.0%}')
+    return model, out
+
+
+def quantize_card_vs_cpu(dense, mode, card):
+    """(a) ``quantize(mode)`` of the dense model on the card, bit-equal leaf
+    by leaf (dtypes included) to the same call on the CPU over the same
+    weights. Returns the card's model and the seconds of each."""
+    from esme_tpu_torch import ESM2
+    from esme_tpu_torch.train.trainer import _map
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qm = ESM2(config=dense.config, params=dense.params,
+              device=dense.device).quantize(mode)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    cpu = ESM2(config=dense.config, params=_map(
+        lambda t: t.cpu(), dense.params), device='cpu')
+    t0 = time.perf_counter()
+    cpu.quantize(mode)
+    cpu_s = time.perf_counter() - t0
+    n = 0
+    for leaf, a, b in _leaf_pairs(qm.params, cpu.params):
+        n += 1
+        if a.dtype != b.dtype or not torch.equal(a.cpu(), b):
+            fail(f'{mode} quantize(): {leaf} on the card differs from the '
+                 f'CPU ({a.dtype}, {b.dtype})')
+    log(f'[{card}] {mode} quantize() on the card {card_s:.2f} s, on the CPU '
+        f'{cpu_s:.2f} s: {n} leaves bit-equal, dtypes included')
+    return qm, {'card_s': card_s, 'cpu_s': cpu_s, 'leaves': n}
+
+
+def routes_agree(loaded, quantized, mode, card):
+    """Which linears the streaming load and ``quantize()`` quantize to the
+    same leaves, and to the same dequantized weights in every layer (the
+    JAX package's twins disagree on tied NF4 row maxima: ROADMAP.md Queue
+    3, item 23); logged, not gated."""
+    from esme_tpu_torch.quant import NON_TRAINABLE_QUANT_LEAVES, dequantize
+    out = {'same_leaves': [], 'same_weights': [], 'differ': []}
+    for grp, sub in quantized.params['layers'].items():
+        for name, p in sub.items():
+            if name not in QUANT_LINEARS:
+                continue
+            q = loaded.params['layers'][grp][name]
+            what = f'{grp}.{name}'
+            if all(torch.equal(q[k].float(), p[k].float())
+                   for k in NON_TRAINABLE_QUANT_LEAVES if k in p):
+                out['same_leaves'].append(what)
+            elif torch.equal(dequantize(q), dequantize(p)):
+                out['same_weights'].append(what)
+            else:
+                out['differ'].append(what)
+    log(f'[{card}] {mode}: the streaming load and quantize() give the same '
+        f'leaves for {out["same_leaves"]}, other leaves but the same '
+        f'weights for {out["same_weights"]}, other weights for '
+        f'{out["differ"]}')
+    return out
+
+
+def quant_cos(lp, ref, mode, what, card):
+    """The quantized model's log-probs against the dense model's, per real
+    token: uncentred cosine (min over tokens) under ``QUANT_MIN_COS``; the
+    centred cosine and max|Δ| logged."""
+    cos = (lp * ref).sum(-1) / (lp.norm(dim=-1) * ref.norm(dim=-1)) \
+        .clamp_min(1e-9)
+    a, b = lp - lp.mean(-1, keepdim=True), ref - ref.mean(-1, keepdim=True)
+    ccos = (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))
+    out = {'min_cos': cos.min().item(), 'mean_cos': cos.mean().item(),
+           'min_centred_cos': ccos.min().item(),
+           'max_abs': (lp - ref).abs().max().item()}
+    finite = bool(torch.isfinite(lp).all())
+    ok = out['min_cos'] > QUANT_MIN_COS[mode] and finite
+    log(f'[{card}] {what}, {mode} vs dense: per-token cosine min '
+        f'{out["min_cos"]:.6f} (gate > {QUANT_MIN_COS[mode]}), mean '
+        f'{out["mean_cos"]:.6f}; centred min {out["min_centred_cos"]:.6f}, '
+        f'max|Δ| {out["max_abs"]:.4f} {"ok" if ok else "FAIL"}')
+    if not ok:
+        fail(f'{what}: the {mode} model is out of gate against the dense')
+    return out
+
+
+def small_logp(model, batch=None):
+    """Log-probs of the real tokens of the 4k batch (phase 4's) or of
+    ``batch``."""
+    stok, scu, sml = batch or packed_batch(SMALL_BUDGET, seed=2)
+    return model.predict_log_prob(stok, pad_args=(scu, sml))[:int(scu[-1])]
+
+
+def script_batch(T=8192):
+    """``benchmarks/quant_accuracy.py``'s batch, copied: 514-token
+    sequences (cls, 512 residues from seed 0, eos) packed into ``T``."""
+    from esme_tpu_torch.alphabet import Alphabet
+    rng = np.random.default_rng(0)
+    lens, total = [], 0
+    while total + 514 <= T - 128:
+        lens.append(514)
+        total += 514
+    cu = np.cumsum([0, *lens]).astype(np.int32)
+    tokens = np.full(T, Alphabet.padding_idx, np.int32)
+    tokens[:cu[-1]] = rng.integers(4, 24, cu[-1])
+    for i in range(len(lens)):
+        tokens[cu[i]] = Alphabet.cls_idx
+        tokens[cu[i + 1] - 1] = Alphabet.eos_idx
+    return tokens, cu, 514
+
+
+def quant_correctness(dense, models, what, card):
+    """(b) each quantized model through phase 4's comparisons on the 4k
+    batch (launches exact: H1 and H3 once a layer, no H2) and against the
+    dense model on the same weights."""
+    out = {}
+    ref = small_logp(dense)
+    for mode, model in models.items():
+        out[mode] = {'vs_dense': quant_cos(small_logp(model), ref, mode,
+                                           what, card),
+                     'model_checks': plain_checks(model, f'{what} {mode}: ')}
+    del ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def quant_accuracy_cell(dev, card):
+    """(b) ``benchmarks/quant_accuracy.py``'s own cell: its weights (JAX's
+    seed-0 ESM2-650M, :func:`jax_seed_params`) and its batch
+    (:func:`script_batch`), without and with its outlier injection
+    (:func:`inject_outliers`); each mode against the dense model on the
+    same weights under its thresholds (``QUANT_MIN_COS``)."""
+    from esme_tpu_torch import ESM2
+    from esme_tpu_torch.models.config import esm2_config
+    cfg = esm2_config(**MODEL)
+    batch = script_batch()
+    base = jax_seed_params(cfg, 0, dev)
+    out = {}
+    for regime in QUANT_REGIMES:
+        params = base if regime == 'randn' else inject_outliers(base, cfg)
+        ref = small_logp(ESM2(config=cfg, params=params, device=dev), batch)
+        for mode in QUANT_MODES:
+            q = ESM2(config=cfg, params=params, device=dev).quantize(mode)
+            out[f'{regime}_{mode}'] = quant_cos(
+                small_logp(q, batch), ref, mode,
+                f'quant_accuracy.py\'s cell, JAX\'s seed-0 draw, {regime}',
+                card)
+            del q
+        del ref, params
+    del base
+    torch.cuda.empty_cache()
+    return out
+
+
+def dequant_ms(model, card, mode):
+    """One forward's dequantization, every quantized linear of every layer
+    through ``dequantize`` to bf16: its device ms on the card alone and
+    with the host in it (CUDA events around back-to-back loops), beside
+    the bound of its bytes (the storage read once, the bf16 kernels
+    written once). On the card alone: ``DEQUANT_CHUNK`` linears at a time,
+    each chunk behind a spin of ``DEQUANT_SPIN_CYCLES`` (the host's
+    enqueue overlaps the spin; the launch queue holds about a thousand
+    launches, so a chunk stays well under it), the chunks' device times
+    summed; the fastest of three. Fails if a host enqueue outlasts its
+    spin."""
+    from esme_tpu_torch.models.modules import layer_params, num_layers
+    from esme_tpu_torch.quant import dequantize
+    stacked = model.params['layers']
+    layers = [layer_params(stacked, i) for i in range(num_layers(stacked))]
+    lins = [p for layer in layers for grp in layer.values()
+            for name, p in grp.items() if name in QUANT_LINEARS]
+
+    def run(ps=lins):
+        for p in ps:
+            dequantize(p, torch.bfloat16)
+    with_host = cuda_ms(run, reps=3, warmup=1)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    alone = []
+    for _ in range(3):
+        total = 0.0
+        for c in range(0, len(lins), DEQUANT_CHUNK):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev[0].record()
+            torch.cuda._sleep(DEQUANT_SPIN_CYCLES)
+            ev[1].record()
+            run(lins[c:c + DEQUANT_CHUNK])
+            host = (time.perf_counter() - t0) * 1e3
+            ev[2].record()
+            torch.cuda.synchronize()
+            if host >= ev[0].elapsed_time(ev[1]):
+                fail(f'{mode} dequantization: the host\'s enqueue of '
+                     f'{DEQUANT_CHUNK} linears ({host:.1f} ms) outlasted the '
+                     f'spin ahead of it ({ev[0].elapsed_time(ev[1]):.1f} ms)')
+            total += ev[1].elapsed_time(ev[2])
+        alone.append(total)
+    ms = min(alone)
+    q, _ = quant_bytes(model.params)
+    weights = sum(p['qvalue'].numel() * (2 if mode == '4bit' else 1)
+                  for p in lins)
+    nbytes = q + 2 * weights
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f'[{card}] {mode} dequantization of one forward ({len(lins)} '
+        f'linears, {weights:,} weights): {ms:.3f} ms on the card alone '
+        f'(calls {[round(x, 3) for x in alone]}), {with_host:.3f} ms with '
+        f'the host\'s enqueue; bound {bound_ms:.3f} ms by bytes '
+        f'({nbytes / 1e9:.3f} GB)')
+    return {'ms': ms, 'ms_calls': alone, 'ms_with_host': with_host,
+            'bound_ms': bound_ms, 'bytes': nbytes, 'weights': weights}
+
+
+def quant_times(dense, models, card, profile_dir=None):
+    """(c) the 50k inference cell of the dense model and of each quantized
+    one in turns (dense, 8bit, 4bit, dense; launches exact), each
+    quantized forward's dequantization alone, and ``predict_mask_margin``
+    on phase 15's 265-residue sequence, dense and 4bit."""
+    from esme_tpu_torch.variant import predict_mask_margin
+    batch = packed_batch(BUDGET, seed=0)
+    L = dense.config.num_layers
+    out = {'launches': {}}
+    for mode, model in models.items():
+        out['launches'][mode] = inference_run(
+            model, batch, f'{mode} inference', expected_launches(
+                **{H1_NAME: L, H3_NAME: L}))
+    order = [('dense', dense), *models.items(), ('dense_again', dense)]
+    out['inference'] = {key: inference_times(m, batch, f'[{card}] {key} '
+                                             'inference')
+                        for key, m in order}
+    out['dequant'] = {mode: dequant_ms(m, card, mode)
+                      for mode, m in models.items()}
+    if profile_dir:
+        tokens, cu, max_len = batch
+        for mode, m in models.items():
+            _profile(lambda m=m: m.predict_log_prob(
+                tokens, pad_args=(cu, max_len)), profile_dir,
+                f'profile_quant_{mode}.txt', f'{mode} forward')
+    seq = seeded_seq(SCORE_LEN, 11)
+    fwd = math.ceil(SCORE_LEN / SCORE_BATCH)
+    scores = {}
+    for key, m in (('dense', dense), ('4bit', models['4bit'])):
+        run = lambda m=m: predict_mask_margin(m, seq, batch_size=SCORE_BATCH)
+        timed_scoring(run, fwd, L, f'{key} mask margin', card)
+        scores[key], ms, _, peak = timed_scoring(
+            run, fwd, L, f'{key} mask margin', card)
+        out[f'mask_margin_{key}'] = {
+            'ms_per_sequence': ms, 'peak_mem_gib': peak,
+            'variants_per_s': len(scores[key]) / ms * 1e3}
+    from esme_tpu_torch.metrics import spearman
+    a, b = _score_arrays(scores['4bit'], scores['dense'])
+    out['mask_margin_4bit']['spearman_vs_dense'] = spearman(a, b)
+    for key in ('dense', '4bit'):
+        c = out[f'mask_margin_{key}']
+        log(f'[{card}] mask margin ({SCORE_LEN} residues, {fwd} forwards) '
+            f'{key}: {c["ms_per_sequence"]:.2f} ms a sequence, '
+            f'{c["variants_per_s"]:.1f} variants/s, peak '
+            f'{c["peak_mem_gib"]:.2f} GiB')
+    log(f'[{card}] 4bit scores against dense: Spearman ρ '
+        f'{out["mask_margin_4bit"]["spearman_vs_dense"]:.6f} (logged)')
+    return out
+
+
+def check_qlora(nf4, card, phase5):
+    """(d) phase 14's ``gb1_265`` ``RegressionTrainer`` step over an NF4
+    trunk, ``nf4`` (``quantize('4bit')`` of the seed-0 weights on the
+    card; the phase's other models freed, so its peak is comparable to
+    phase 14's), with LoRA rank 16 on query, value and output (every
+    ``b`` lifted) and the 4-head aggregation head; the gradients against
+    the plain versions under phase 14's rule, no quantized leaf with a
+    gradient, then the step's times."""
+    model = ft_model(nf4.device, lift_b=True, model=nf4)
+    head = ft_head(nf4.device)
+    batch = length_batch(model, FT_LENGTHS['gb1_265'])
+    out = {'grads': check_finetune_grads(model, head, batch, card, 'gb1_265',
+                                         label='gb1_265_nf4'),
+           'times': time_finetune(model, head, batch, card, phase5,
+                                  'gb1_265', label='gb1_265_nf4')}
+    del model, head, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def quant_round_trip(model, tmp, card):
+    """(e) ``save_pretrained`` of an NF4 model and ``ESM.from_pretrained``
+    back: every leaf bit-equal (dtypes included) and the 4k batch's
+    log-probs bit for bit; the same file without its ``qoutlier_*`` keys
+    refused with ``ValueError``."""
+    from esme_tpu_torch import ESM
+    from esme_tpu_torch.models.io import read_safetensors, write_safetensors
+    path = os.path.join(tmp, 'esm2_650m_nf4.safetensors')
+    t0 = time.perf_counter()
+    model.save_pretrained(path, name='esm2_650m')
+    back = ESM.from_pretrained(path, device=model.device)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    for leaf, a, b in _leaf_pairs(back.params, model.params):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            fail(f'NF4 round trip: {leaf} changed')
+    if not torch.equal(small_logp(back), small_logp(model)):
+        fail('NF4 round trip: the log-probs changed')
+    flat, meta = read_safetensors(path)
+    size = os.path.getsize(path)
+    write_safetensors(path, {k: v for k, v in flat.items()
+                             if '.qoutlier_' not in k}, meta)
+    try:
+        ESM.from_pretrained(path, device=model.device)
+        fail('NF4 file without its qoutlier_* keys loaded')
+    except ValueError as e:
+        refused = str(e).split(';')[0]
+    os.remove(path)
+    log(f'[{card}] NF4 save and load: {size / 2**20:.1f} MiB file, '
+        f'{secs:.1f} s, every leaf and the log-probs bit-equal; without '
+        f'its outlier keys refused ({refused})')
+    return {'file_bytes': size, 'seconds': secs, 'metadata': {
+        k: meta.get(k) for k in ('quantization', 'qscheme')}}
+
+
+def check_quant(dev, card, phase5, finetune, scoring, profile_dir=None):
+    """Phase 16: (a) quantize-at-load of ESM2-650M in both modes and
+    ``quantize()`` on the card against the CPU; (b) the quantized models
+    against their plain versions and the dense model, ``quant_accuracy.py``'s
+    cell (also after ``inject_outliers``), and ESMC-300M in 4bit; (c)
+    times; (d) the QLoRA step; (e) the NF4 round trip. Each part's seconds
+    are logged."""
+    from esme_tpu_torch import ESM
+    out, seconds = {}, {}
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        seconds[key] = time.perf_counter() - t0
+        log(f'[{card}] phase 16 {key}: {seconds[key]:.1f} s')
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dense, _ = family_model('esm2_650m', 'ESM2', MODEL, 0, dev, tmp,
+                                keep=True)
+        path = os.path.join(tmp, 'esm2_650m.safetensors')
+        loaded, cards = {}, {}
+
+        def part_a():
+            res = {}
+            for mode in QUANT_MODES:
+                loaded[mode], res[f'load_{mode}'] = quant_load(path, mode,
+                                                               dev, card)
+            for mode in QUANT_MODES:
+                cards[mode], res[f'quantize_{mode}'] = quantize_card_vs_cpu(
+                    dense, mode, card)
+                res[f'routes_{mode}'] = routes_agree(loaded[mode],
+                                                     cards[mode], mode, card)
+            return res
+        timed('a_load', part_a)
+        os.remove(path)
+        timed('b_esm2', lambda: quant_correctness(dense, loaded, 'ESM2-650M',
+                                                  card))
+
+        timed('b_quant_accuracy', lambda: quant_accuracy_cell(dev, card))
+
+        def esmc():
+            name, cls_name, kwargs = QUANT_FAMILY
+            src, _ = family_model(name, cls_name, kwargs, 0, dev, tmp,
+                                  keep=True)
+            fpath = os.path.join(tmp, f'{name}.safetensors')
+            q = ESM.from_pretrained(fpath, quantization='4bit', device=dev)
+            os.remove(fpath)
+            res = quant_correctness(src, {'4bit': q}, name, card)
+            del src, q
+            return res
+        timed('b_esmc', esmc)
+        timed('c_times', lambda: quant_times(dense, loaded, card,
+                                             profile_dir))
+        timed('e_round_trip', lambda: quant_round_trip(cards['4bit'], tmp,
+                                                       card))
+    nf4 = cards.pop('4bit')
+    del dense, loaded, cards
+    torch.cuda.empty_cache()
+    timed('d_qlora', lambda: check_qlora(nf4, card, phase5))
+    del nf4
+    torch.cuda.empty_cache()
+    c, d = out['c_times'], out['d_qlora']['times']
+    inf = c['inference']
+    ft = finetune['d_times']['gb1_265']
+    log(f'[{card}] phase 16 summary: 50k forward dense '
+        f'{inf["dense"]["ms_per_batch"]:.2f} / {inf["dense_again"]["ms_per_batch"]:.2f} ms, '
+        f'8bit {inf["8bit"]["ms_per_batch"]:.2f} ms '
+        f'({inf["8bit"]["real_tokens_per_s"]:.1f} real tokens/s, '
+        f'{inf["8bit"]["peak_mem_gib"]:.2f} GiB), 4bit '
+        f'{inf["4bit"]["ms_per_batch"]:.2f} ms '
+        f'({inf["4bit"]["real_tokens_per_s"]:.1f}, '
+        f'{inf["4bit"]["peak_mem_gib"]:.2f} GiB); dequantization 8bit '
+        f'{c["dequant"]["8bit"]["ms"]:.3f} ms, 4bit '
+        f'{c["dequant"]["4bit"]["ms"]:.3f} ms a forward; mask margin 4bit '
+        f'{c["mask_margin_4bit"]["ms_per_sequence"]:.2f} ms against dense '
+        f'{c["mask_margin_dense"]["ms_per_sequence"]:.2f} (phase 15: '
+        f'{scoring["mask_margin"]["ms_per_sequence"]:.2f}); QLoRA step '
+        f'{d["ms_per_step"]:.2f} ms ({d["real_tokens_per_s"]:.1f} real '
+        f'tokens/s, peak {d["peak_mem_gib"]:.2f} GiB, optimizer '
+        f'{d["optimizer_state_bytes"]:,} B) against the dense LoRA step '
+        f'{ft["ms_per_step"]:.2f} ms ({ft["peak_mem_gib"]:.2f} GiB, phase 14)')
     out['seconds'] = seconds
     return out
 

@@ -7,6 +7,11 @@ Adapters live inside the attention projections' param dicts,
 :func:`esme_tpu_torch.ops.linear.linear` applies them
 (``y + (x @ a) @ b * scale``, scale = alpha / rank, never trained).
 
+Adapters work over a quantized base (:mod:`esme_tpu_torch.quant`) as over
+a dense one: ``add_lora_params`` makes them in the config's dtype,
+``load_lora`` in the kernel's dtype, or bf16 where the projection is
+quantized (``esme_tpu/lora.py:155-157``); quantized storage never trains.
+
 The init follows the reference: ``a`` uniform in ±in^-1/2 (kaiming-uniform
 with a = √5), ``b`` zero, so adding adapters leaves the output unchanged
 (reference: esme/lora.py:68-71). ``a`` is drawn from a ``torch.Generator``
@@ -28,16 +33,13 @@ import torch
 
 from .models.init import host_generator
 from .models.io import read_safetensors, write_safetensors
+from .quant import NON_TRAINABLE_QUANT_LEAVES
 
 _LAYER_TO_TARGET = {'query': 'q', 'key': 'k', 'value': 'v', 'output': 'out'}
 
-# the linear layers' keys, and the leaves of a quantized linear that never
-# train (``esme_tpu/quant.py:225``; the port's quantization is ROADMAP.md
-# Queue 1, item 22, so its params have none of them yet)
+# the linear layers' keys, under which NON_TRAINABLE_QUANT_LEAVES never train
 _LINEARS = {'q', 'k', 'v', 'out', 'fc1', 'fc2', 'gate', 'up', 'down',
             'dense', 'final'}
-NON_TRAINABLE_QUANT_LEAVES = ('qvalue', 'scale', 'outlier_idx',
-                              'outlier_rows')
 
 
 def _targets(layers: Sequence[str]) -> List[str]:
@@ -46,6 +48,12 @@ def _targets(layers: Sequence[str]) -> List[str]:
         raise ValueError(
             f'layers must be a subset of {set(_LAYER_TO_TARGET)}, got {extra}')
     return [_LAYER_TO_TARGET[name] for name in layers]
+
+
+def _base(p: dict) -> torch.Tensor:
+    """A projection's weight storage: its kernel, or its quantized
+    values."""
+    return p['kernel'] if 'kernel' in p else p['qvalue']
 
 
 def _with_attn(params: dict) -> Tuple[dict, dict]:
@@ -67,7 +75,7 @@ def add_lora_params(params: dict, cfg, rank: int = 16, alpha: float = 16,
     L, D = cfg.num_layers, cfg.embed_dim
     params, attn = _with_attn(params)
     for t in _targets(layers):
-        device = attn[t]['kernel'].device
+        device = _base(attn[t]).device
         dtype = cfg.torch_dtype
         adapters = dict(attn[t].get('lora', {}))
         bound = D ** -0.5
@@ -120,14 +128,15 @@ def save_lora(path: str, params: dict, lora_kwargs: dict,
 def load_lora(path: str, params: dict, names=None, cfg=None
               ) -> Tuple[dict, dict]:
     """Attach the adapters the file's metadata describes and fill their
-    weights, in the dtype of each projection's kernel and on its device
-    (reference: esme/esm.py:587-607)."""
+    weights, in the dtype of each projection's kernel (bf16 over a
+    quantized projection) and on its device (reference:
+    esme/esm.py:587-607)."""
     flat, metadata = read_safetensors(path)
     names = names or metadata['names']
     adapter_names = names.split(',') if isinstance(names, str) \
         else list(names)
     num_layers = cfg.num_layers if cfg is not None else \
-        params['layers']['attn']['q']['kernel'].shape[0]
+        _base(params['layers']['attn']['q']).shape[0]
     rank = int(metadata['rank'])
     alpha = float(metadata['alpha'])
     layer_names = metadata['layers'].split(',')
@@ -135,19 +144,20 @@ def load_lora(path: str, params: dict, names=None, cfg=None
     params, attn = _with_attn(params)
     for lname in layer_names:
         t = _LAYER_TO_TARGET[lname]
-        kernel = attn[t]['kernel']
+        base = _base(attn[t])
+        dtype = base.dtype if 'kernel' in attn[t] else torch.bfloat16
         adapters = dict(attn[t].get('lora', {}))
         for name in adapter_names:
             a, b = (torch.stack([
                 flat[f'layers.{i}.self_attn.{t}.lora_{ab}.{name}'].T
-                for i in range(num_layers)]).to(device=kernel.device,
-                                                dtype=kernel.dtype)
+                for i in range(num_layers)]).to(device=base.device,
+                                                dtype=dtype)
                 for ab in 'AB')
             adapters[name] = {
                 'a': a, 'b': b,
                 'scale': torch.full((num_layers,), alpha / rank,
                                     dtype=torch.float32,
-                                    device=kernel.device)}
+                                    device=base.device)}
         attn[t] = {**attn[t], 'lora': adapters}
     lora_kwargs = {'rank': rank, 'alpha': alpha,
                    'dropout_p': float(metadata['dropout_p']),

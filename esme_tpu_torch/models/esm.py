@@ -7,7 +7,8 @@ plain function over a params dict, differentiable for training
 (:class:`esme_tpu_torch.train.MaskedPLM`); the classes hold
 ``(config, params, device, checkpointing)`` and mirror the reference's
 API:
-``from_pretrained``, ``forward_representation``, ``forward``,
+``from_pretrained`` (optionally quantizing), ``quantize``,
+``forward_representation``, ``forward``,
 ``predict_log_prob``, ``predict_prob``, and the LoRA methods ``add_lora``,
 ``lora_state_dict``, ``save_lora``/``load_lora`` and ``trainable_filter``
 (reference: esme/esm.py).
@@ -215,22 +216,6 @@ def _pad_head_row(params, cfg: ESMConfig, log_prob: bool, device):
     return r[0]
 
 
-# The JAX signatures' options whose feature is not ported yet: each
-# raises unless left at None, naming its item in ROADMAP.md Queue 1
-_UNPORTED = {
-    'quantization': 'int8/NF4 weight quantization comes with ROADMAP.md '
-                    'Queue 1, item 22',
-}
-
-
-def check_unported(**options):
-    """Raise ``NotImplementedError`` for an option of ``_UNPORTED`` that
-    is not None."""
-    for name, value in options.items():
-        if value is not None:
-            raise NotImplementedError(f'{name}={value!r}: {_UNPORTED[name]}')
-
-
 def resolve_device(device) -> torch.device:
     """The entry points' device: CUDA unless the caller asks for
     another; raises when CUDA is asked for and there is no card."""
@@ -265,17 +250,28 @@ class _ESMBase:
                         dtype='bfloat16', device='cuda'):
         """Load a reference-schema safetensors checkpoint
         (reference: esme/esm.py:342-374). The JAX package's parameters in
-        its order, then ``device``; ``quantization`` other than None
-        raises (:func:`check_unported`)."""
-        check_unported(quantization=quantization)
+        its order, then ``device``. ``quantization`` in {None, '8bit',
+        '4bit'} quantizes each linear on the host as it is read, so the
+        full-precision linears never reach ``device`` (reference streams
+        per layer likewise, esme/esm.py:448-472); a quantized file loads
+        as it is."""
         device = resolve_device(device)
-        cfg, params, name = load_pretrained(path, dtype=dtype, device=device)
+        cfg, params, name = load_pretrained(
+            path, dtype=dtype, quantization=quantization, device=device)
         return _class_for(name.split('_')[0])(
             config=cfg, params=params, checkpointing=checkpointing,
             name=name, device=device)
 
     def save_pretrained(self, path, name=None):
         save_pretrained(path, self.params, self.config, name or self.name)
+        return self
+
+    def quantize(self, mode='8bit'):
+        """Quantize the attention and MLP linears in place, on the
+        model's device, one layer slice at a time (reference loads
+        bitsandbytes layers, esme/esm.py:420-446). Returns the model."""
+        from ..quant import quantize_model_params
+        self.params = quantize_model_params(self.params, self.config, mode)
         return self
 
     def _tensor(self, x):
@@ -478,7 +474,6 @@ class ESM:
         """``path``: a safetensors file, or a model name of the registry
         (:func:`esme_tpu_torch.download.download_model`: the cache, then
         the hub)."""
-        check_unported(quantization=quantization)
         if not os.path.isfile(path):
             from ..download import download_model, model_names
             if path not in model_names:
@@ -488,4 +483,5 @@ class ESM:
             path = download_model(path)
         family = read_metadata(path)['name'].split('_')[0]
         return _class_for(family).from_pretrained(
-            path, checkpointing=checkpointing, dtype=dtype, device=device)
+            path, quantization=quantization, checkpointing=checkpointing,
+            dtype=dtype, device=device)

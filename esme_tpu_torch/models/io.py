@@ -1,6 +1,6 @@
 """Safetensors weight IO in the reference's key schema.
 
-Counterpart of ``esme_tpu/models/io.py`` (dense weights). Keys are
+Counterpart of ``esme_tpu/models/io.py``. Keys are
 ``embed_tokens.weight``, ``embed_positions.weight`` and
 ``emb_layer_norm_before.*`` (ESM1b/1v),
 ``layers.{i}.self_attn.{norm,q,k,v,out,layernorm_q,layernorm_k}.*``,
@@ -14,7 +14,11 @@ in the other.
 
 Torch stores linear weights ``(out, in)``; the param tree keeps kernels
 ``(in, out)`` stacked per layer on axis 0, and both transforms happen
-here at the file boundary.
+here at the file boundary. A quantized linear (:mod:`esme_tpu_torch.quant`)
+is stored in the kernel's ``(in, out)`` layout as ``{prefix}.qweight``,
+``.qscale`` and, for NF4, ``.qoutlier_idx`` and ``.qoutlier_rows``, with
+metadata ``quantization`` (``8bit`` or ``4bit``) and ``qscheme:
+outlier-rows-v1`` (the JAX package's extension of the schema).
 
 The safetensors format is read and written by a small codec of its own
 (:func:`read_safetensors`, :func:`write_safetensors`): an 8-byte
@@ -27,11 +31,12 @@ from __future__ import annotations
 import json
 import struct
 from dataclasses import replace
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..quant import quantize_kernel_np
 from .config import (ESMConfig, esm1b_config, esm1v_config, esm2_config,
                      esmc_config)
 
@@ -49,6 +54,8 @@ _DTYPES = {
     'BOOL': (torch.bool, np.bool_),
 }
 _TAGS = {td: tag for tag, (td, _) in _DTYPES.items()}
+# a qweight's storage dtype -> the file's ``quantization`` metadata
+_QUANT_MODES = {torch.int8: '8bit', torch.uint8: '4bit'}
 
 
 def read_safetensors(path: str) -> Tuple[Dict[str, torch.Tensor],
@@ -146,11 +153,15 @@ def params_to_flat(params: dict, cfg: ESMConfig) -> Dict[str, torch.Tensor]:
             flat[f'{prefix}.bias'] = p['bias']
 
     def put_linear(prefix, p):
-        if 'kernel' not in p:
-            raise NotImplementedError('quantized layers come in a later '
-                                      'slice')
-        flat[f'{prefix}.weight'] = p['kernel'].transpose(-1, -2) \
-            .contiguous()
+        if 'qvalue' in p:
+            flat[f'{prefix}.qweight'] = p['qvalue']
+            flat[f'{prefix}.qscale'] = p['scale']
+            if 'outlier_idx' in p:
+                flat[f'{prefix}.qoutlier_idx'] = p['outlier_idx']
+                flat[f'{prefix}.qoutlier_rows'] = p['outlier_rows']
+        else:
+            flat[f'{prefix}.weight'] = p['kernel'].transpose(-1, -2) \
+                .contiguous()
         if 'bias' in p:
             flat[f'{prefix}.bias'] = p['bias']
 
@@ -185,9 +196,17 @@ def params_to_flat(params: dict, cfg: ESMConfig) -> Dict[str, torch.Tensor]:
 
 
 def flat_to_params(flat: Dict[str, torch.Tensor], cfg: ESMConfig,
-                   device='cpu') -> dict:
+                   quantization: Optional[str] = None, device='cpu') -> dict:
     """Rebuild the stacked param tree from reference-schema tensors,
-    cast to ``cfg.dtype`` on ``device``."""
+    cast to ``cfg.dtype`` on ``device``.
+
+    ``quantization`` in {None, '8bit', '4bit'} quantizes each attention
+    and MLP linear on the host as it is read (fp32, the numpy twins of
+    :mod:`esme_tpu_torch.quant`; NF4's outlier rows stay fp32, as in
+    JAX's streaming loader), so only the quantized leaves reach
+    ``device``. Quantized tensors in ``flat`` are taken as they are
+    (their outlier rows cast to ``cfg.dtype``). Embeddings, norms and the
+    LM head stay in ``cfg.dtype``."""
     dt = cfg.torch_dtype
 
     def get(key):
@@ -199,16 +218,28 @@ def flat_to_params(flat: Dict[str, torch.Tensor], cfg: ESMConfig,
             p['bias'] = get(f'{prefix}.bias')
         return p
 
-    def lin(prefix):
-        p = {'kernel': get(f'{prefix}.weight').transpose(-1, -2)
-             .contiguous()}
+    def lin(prefix, quant=None):
+        if f'{prefix}.qweight' in flat:
+            p = {'qvalue': flat[f'{prefix}.qweight'],
+                 'scale': flat[f'{prefix}.qscale']}
+            if f'{prefix}.qoutlier_idx' in flat:
+                p['outlier_idx'] = flat[f'{prefix}.qoutlier_idx']
+                p['outlier_rows'] = get(f'{prefix}.qoutlier_rows')
+        elif quant is not None:
+            kernel = flat[f'{prefix}.weight'].float().transpose(-1, -2)
+            p = {k: torch.from_numpy(v) for k, v in quantize_kernel_np(
+                kernel.contiguous().numpy(), quant).items()}
+        else:
+            p = {'kernel': get(f'{prefix}.weight').transpose(-1, -2)
+                 .contiguous()}
         if f'{prefix}.bias' in flat:
             p['bias'] = get(f'{prefix}.bias')
         return p
 
-    def stack(fn, pattern):
-        per_layer = [fn(pattern.format(i=i)) for i in range(cfg.num_layers)]
-        return {k: torch.stack([p[k] for p in per_layer])
+    def stack(fn, pattern, **kw):
+        per_layer = [fn(pattern.format(i=i), **kw)
+                     for i in range(cfg.num_layers)]
+        return {k: torch.stack([p[k] for p in per_layer]).to(device)
                 for k in per_layer[0]}
 
     params = {'embed_tokens': get('embed_tokens.weight')}
@@ -218,13 +249,14 @@ def flat_to_params(flat: Dict[str, torch.Tensor], cfg: ESMConfig,
         params['emb_norm_before'] = norm('emb_layer_norm_before')
     attn = {'norm': stack(norm, 'layers.{i}.self_attn.norm')}
     for j in ('q', 'k', 'v', 'out'):
-        attn[j] = stack(lin, f'layers.{{i}}.self_attn.{j}')
+        attn[j] = stack(lin, f'layers.{{i}}.self_attn.{j}',
+                        quant=quantization)
     if cfg.qk_layernorm:
         attn['ln_q'] = stack(norm, 'layers.{i}.self_attn.layernorm_q')
         attn['ln_k'] = stack(norm, 'layers.{i}.self_attn.layernorm_k')
     mlp = {'norm': stack(norm, 'layers.{i}.final.0')}
     for key, j in _MLP_KEYS[cfg.mlp]:
-        mlp[key] = stack(lin, f'layers.{{i}}.final.{j}')
+        mlp[key] = stack(lin, f'layers.{{i}}.final.{j}', quant=quantization)
     params['layers'] = {'attn': attn, 'mlp': mlp}
     params['emb_norm_after'] = norm('emb_layer_norm_after')
     if cfg.tie_lm_head:
@@ -242,7 +274,10 @@ def flat_to_params(flat: Dict[str, torch.Tensor], cfg: ESMConfig,
 
 
 def save_pretrained(path: str, params: dict, cfg: ESMConfig, name: str):
-    """Write a reference-compatible safetensors checkpoint."""
+    """Write a reference-compatible safetensors checkpoint. Quantized
+    params save too, with the ``quantization`` and ``qscheme`` metadata
+    (the reference cannot save quantized models)."""
+    flat = params_to_flat(params, cfg)
     metadata = {
         'name': name,
         'num_layers': str(cfg.num_layers),
@@ -250,23 +285,48 @@ def save_pretrained(path: str, params: dict, cfg: ESMConfig, name: str):
         'attention_heads': str(cfg.attention_heads),
         'format': 'pt',
     }
-    write_safetensors(path, params_to_flat(params, cfg), metadata)
+    for key, t in flat.items():
+        if key.endswith('.qweight'):
+            metadata['quantization'] = _QUANT_MODES[t.dtype]
+        if key.endswith('.qoutlier_idx'):
+            # the qweight rows at qoutlier_idx are stored zeroed and their
+            # values in qoutlier_rows: load_pretrained refuses a file that
+            # declares this and lacks those keys
+            metadata['qscheme'] = 'outlier-rows-v1'
+    write_safetensors(path, flat, metadata)
 
 
-def load_pretrained(path: str, dtype='bfloat16', device='cpu'
+def load_pretrained(path: str, dtype='bfloat16',
+                    quantization: Optional[str] = None, device='cpu'
                     ) -> Tuple[ESMConfig, dict, str]:
     """Load a reference-schema checkpoint into ``(config, params,
-    name)``. Detects an lm_head tied to the embedding (the reference's
+    name)``. ``quantization`` (None: the file's ``quantization``
+    metadata, if any) quantizes the linears on the host as they are read
+    (:func:`flat_to_params`). Raises ``ValueError`` for a file whose
+    ``qscheme`` declares outlier rows that its ``qweight`` tensors lack.
+    Detects an lm_head tied to the embedding (the reference's
     pretrained checkpoints carry the tie) and realises it: the head then
     projects through ``embed_tokens``."""
     flat, metadata = read_safetensors(path)
     cfg, name = config_from_metadata(metadata, dtype=dtype)
+    if 'quantization' in metadata and quantization is None:
+        quantization = metadata['quantization']
+    if metadata.get('qscheme') == 'outlier-rows-v1':
+        missing = [k for k in sorted(flat) if k.endswith('.qweight')
+                   and k[:-len('.qweight')] + '.qoutlier_idx' not in flat]
+        if missing:
+            raise ValueError(
+                'checkpoint metadata declares qscheme=outlier-rows-v1 but '
+                f'{len(missing)} qweight tensors lack qoutlier_idx/'
+                f'qoutlier_rows keys (first: {missing[0]}); the quantized '
+                'weights cannot be reconstructed without them')
     if 'lm_head.final.weight' in flat:
         head = flat['lm_head.final.weight']
         emb = flat['embed_tokens.weight']
         if head.shape == emb.shape and bool(torch.equal(head, emb)):
             cfg = replace(cfg, tie_lm_head=True)
-    return cfg, flat_to_params(flat, cfg, device=device), name
+    return cfg, flat_to_params(flat, cfg, quantization=quantization,
+                               device=device), name
 
 
 def params_from_jax(params_np: dict, cfg: ESMConfig, device='cpu') -> dict:

@@ -1,5 +1,7 @@
 """Linear layer over a ``{'kernel': (in, out), 'bias'?: (out,),
-'lora'?: {name: {'a': (in, r), 'b': (r, out), 'scale': ()}}}`` param dict.
+'lora'?: {name: {'a': (in, r), 'b': (r, out), 'scale': ()}}}`` param dict,
+or a quantized one (``{'qvalue', 'scale', ...}`` in place of ``kernel``:
+:mod:`esme_tpu_torch.quant`).
 
 Counterpart of ``esme_tpu/ops/linear.py:39-79``: operands in the
 activation dtype, fp32 accumulation, the product rounded once to the
@@ -12,8 +14,10 @@ the activation dtype. With ``lora_dropout`` and a ``dropout_key``
 (reference: esme/lora.py:84-88) under a mask drawn from a generator
 seeded by ``fold_in(dropout_key, j)`` for adapter ``j``, as JAX folds
 its key: the same key draws the same mask, so a checkpointed layer's
-recompute drops what its forward dropped. Quantized layers (no
-``kernel``) raise: they come with ROADMAP.md Queue 1, item 22.
+recompute drops what its forward dropped. A quantized layer is
+dequantized to the activation dtype and then multiplied
+(:func:`esme_tpu_torch.quant.quantized_matmul`), its bias and adapters
+added as a dense layer's.
 
 On CUDA, cuBLAS may reduce bf16 split-K partial sums in bf16 unless
 ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
@@ -28,6 +32,8 @@ from __future__ import annotations
 import contextlib
 
 import torch
+
+from ..quant import quantized_matmul
 
 
 @contextlib.contextmanager
@@ -77,11 +83,10 @@ def linear(x: torch.Tensor, params: dict, lora_names=None,
            lora_dropout: float = 0.0, dropout_key=None) -> torch.Tensor:
     """Apply a linear param dict and its selected LoRA adapters
     (``dropout_key`` None: no dropout, as in evaluation)."""
-    if 'kernel' not in params:
-        raise NotImplementedError(
-            'only dense linear layers are ported; quantized layers come '
-            'with ROADMAP.md Queue 1, item 22')
-    y = matmul(x, params['kernel'])
+    if 'qvalue' in params:
+        y = quantized_matmul(x, params)
+    else:
+        y = matmul(x, params['kernel'])
     if params.get('bias') is not None:
         y = y + params['bias']
     lora = params.get('lora')

@@ -1,14 +1,15 @@
 """The port's public call signatures against the JAX package's, and the
-options whose feature is not ported yet.
+options of the JAX signatures.
 
 * Each public entry takes JAX's parameters, by name, in JAX's order; the
   port may add its own after them (``device``). Checked on
   ``inspect.signature``, exactly.
-* ``quantization`` (ROADMAP.md Queue 1, item 22) raises
-  ``NotImplementedError`` unless None. ``lora_names`` (item 19, ported
-  with the LoRA adapters) selects adapters: on a model without any it
-  changes nothing, as in JAX (``tests/test_torch_lora.py`` holds the
-  adapters to JAX's).
+* ``quantization`` ('8bit', '4bit'), by keyword and in JAX's positional
+  slot, loads the quantized params JAX's ``from_pretrained`` gives, bit
+  for bit (``tests/test_torch_quant.py`` holds the rest of the
+  quantization). ``lora_names`` (ported with the LoRA adapters) selects
+  adapters: on a model without any it changes nothing, as in JAX
+  (``tests/test_torch_lora.py`` holds the adapters to JAX's).
 * ``from_pretrained(path, checkpointing=True)`` loads the checkpoint bit
   for bit with the flag set.
 * ``MaskedPLM(remat='attn')`` without checkpointing is ``remat='full'``
@@ -82,14 +83,25 @@ def _model(checkpointing=False):
         checkpointing=checkpointing)
 
 
-def test_unported_options_raise(tmp_path):
+def test_quantization_and_lora_names_options(tmp_path):
     path = str(tmp_path / 'esm2_t.safetensors')
     model = _model().save_pretrained(path)
-    for load in (ESM.from_pretrained, ESM2.from_pretrained):
-        with pytest.raises(NotImplementedError, match='item 22'):
-            load(path, quantization='8bit', device='cpu')
-        with pytest.raises(NotImplementedError, match='item 22'):
-            load(path, '8bit', device='cpu')      # JAX's positional slot
+    for mode in ('8bit', '4bit'):
+        ref = jesm.ESM.from_pretrained(path, quantization=mode,
+                                       dtype='float32').params
+        for load in (ESM.from_pretrained, ESM2.from_pretrained):
+            for got in (load(path, quantization=mode, dtype='float32',
+                             device='cpu'),
+                        load(path, mode, dtype='float32', device='cpu')):
+                assert type(got) is ESM2
+                names = dict(_flat(got.params))
+                assert sorted(names) == sorted(
+                    n for n, _ in _flat(ref))
+                for name, r in _flat(ref):
+                    r = np.asarray(r)
+                    a = names[name].numpy()
+                    assert a.dtype == r.dtype and np.array_equal(
+                        a.view(np.uint8), r.view(np.uint8)), name
     tok = np.array([0, 5, 6, 7, 2], dtype=np.int32)
     pad_args = (np.array([0, 5], np.int32), 5)
     # lora_names on a model without adapters: the call runs, and gives

@@ -54,6 +54,10 @@ Gates:
   ``BLOCK_Q`` (each q block walks the same span in the same order), and
   from call to call; a q block whose ids match no key writes o = 0 and
   lse = ``EMPTY_LSE``, as the plain version does.
+* Quantization (plain PyTorch on the card): ``quantize_int8``,
+  ``quantize_nf4`` and ``dequantize`` bit-equal to the CPU's; a quantized
+  model's forward against its plain versions under ``chip_smoke.py``'s
+  phase-4 gates (per-token centred cosine 0.99, max|Δ| 0.25).
 * H10 (the rectangular backward, ``seg_k``): under H2's gate against its
   plain version on every rank of a packed batch split over 2 and 4 ranks
   and on a ragged split, on both of H2's routes, and bit-equal from call
@@ -1498,3 +1502,69 @@ def test_scoring_kernels_match_plain(cuda, monkeypatch):
     a, b = np.array(list(got.values())), np.array(list(ref.values()))
     assert np.abs(a - b).max() <= 0.5
     assert spearman(a, b) >= 0.99
+
+
+def _quant_kernels(dtype):
+    """Seeded ``(in, out)`` kernels as torch stores them, transposed:
+    ESM2-650M's fc1 (its 16th and 17th row maxima tie in bf16, seed 0) and
+    a stack of three."""
+    out = {}
+    for name, shape, seed in (('fc1', (1280, 5120), 0),
+                              ('stacked', (3, 256, 192), 1)):
+        w = np.random.default_rng(seed).standard_normal(
+            (*shape[:-2], shape[-1], shape[-2])) * 0.02
+        out[name] = torch.from_numpy(np.swapaxes(w, -1, -2).copy()) \
+            .float().to(dtype)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_quantizers_on_the_card_are_the_cpu_arithmetic(cuda, dtype):
+    """``quantize_int8``, ``quantize_nf4`` and ``dequantize`` on the card
+    bit-equal to the CPU on the same weights, dtypes included, the tied
+    NF4 outlier rows in the same (lower index first) order."""
+    from esme_tpu_torch import quant
+    for name, w in _quant_kernels(dtype).items():
+        for fn in (quant.quantize_int8, quant.quantize_nf4):
+            ref = fn(w)
+            got = fn(w.to(cuda))
+            assert sorted(got) == sorted(ref)
+            for k in ref:
+                assert got[k].dtype == ref[k].dtype and torch.equal(
+                    got[k].cpu(), ref[k]), (name, fn.__name__, k)
+            for out in (torch.float32, torch.bfloat16):
+                assert torch.equal(quant.dequantize(got, out).cpu(),
+                                   quant.dequantize(ref, out)), (name, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mode', ['8bit', '4bit'])
+def test_quantized_model_kernels_match_plain(cuda, mode, monkeypatch):
+    """A 2-layer bf16 ESM2 (width 128, head dim 64), quantized on the
+    card: its forward launches H1 and H3 once a layer and no H2, and its
+    log-probs against the same model through the plain versions have
+    per-token centred cosine >= 0.99 and max|Δ| <= 0.25
+    (``chip_smoke.py``'s phase-4 gates)."""
+    from esme_tpu_torch import ESM2, tokenize_unpad
+    model = ESM2(num_layers=2, embed_dim=128, attention_heads=2, rng=0,
+                 device=cuda).quantize(mode)
+    assert 'qvalue' in model.params['layers']['mlp']['fc2']
+    rng = np.random.default_rng(4)
+    seqs = [''.join(rng.choice(list('LAGVSERTIDPKQNFYMHWC'), n))
+            for n in (200, 37, 310)]
+    tok, _, cu, ml = tokenize_unpad(seqs)
+    counters = (flash.segment_flash_fwd, headsplit.rotary_qk,
+                flash.segment_flash_bwd)
+    before = [c.launches for c in counters]
+    got = model.predict_log_prob(tok, pad_args=(cu, ml))
+    assert [c.launches - b for c, b in zip(counters, before)] == [2, 2, 0]
+    monkeypatch.setattr(fused_attn, 'rotary_qk', headsplit.rotary_qk_plain)
+    monkeypatch.setattr(fused_attn, 'segment_flash_fwd',
+                        flash.segment_flash_fwd_plain)
+    ref = model.predict_log_prob(tok, pad_args=(cu, ml))
+    a = got - got.mean(-1, keepdim=True)
+    b = ref - ref.mean(-1, keepdim=True)
+    cos = (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))
+    assert bool(torch.isfinite(got).all())
+    assert cos.min().item() >= 0.99 and (got - ref).abs().max().item() <= 0.25

@@ -1,7 +1,8 @@
 """LoRA in the port against the JAX package: the adapter branch of
 ``linear``, adapters on every family's forward and their gradients,
 ``trainable_mask``, adapter dropout, the LoRA files in both directions,
-and the task artefacts checked into the repo (``task_gb1/``).
+and the task artefacts checked into the repo (``task_gb1/``, ``task_aav/``,
+``task_meltome/``, ``task_tf/``; GB1's also over an int8 trunk).
 
 Models are built tiny (2 layers, width 64, 4 heads) from JAX's init, with
 adapters added by JAX and every ``b`` set non-zero (with ``b = 0``, ``a``'s
@@ -28,7 +29,9 @@ Gates (each with its reason):
   checkpointing bit-equal (the recompute draws the forward's masks).
 * the checked-in ESM2-8M artefacts (``benchmarks/tasks.py`` made them from
   ``config_for('esm2_8m')`` at seed 0, bf16): the full 6-layer model at
-  width 320 with ``task_gb1/lora.safetensors`` and ``head.safetensors``.
+  width 320 with ``task_<task>/lora.safetensors`` and ``head.safetensors``
+  (GB1 in fp32 and bf16, the other three in bf16; GB1 over the int8
+  trunk in fp32, its adapters bf16 on both sides).
   fp32 (the same bf16 weights in fp32 on both sides): representations
   5e-5 absolute, predictions 1e-5 of their scale (measured 3.2e-6 and
   5.1e-7); bf16, as the task ran: representations within 2^-5 of their
@@ -52,6 +55,7 @@ from esme_tpu.data import LabeledDataset as JLabeledDataset
 from esme_tpu.models import config as jconfig
 from esme_tpu.models import esm as jesm
 from esme_tpu.ops import linear as jlinear
+from esme_tpu.train import ClassificationTrainer as JClassificationTrainer
 from esme_tpu.train import RegressionTrainer as JRegressionTrainer
 
 from esme_tpu_torch import ESM2, LabeledDataset, tokenize_unpad
@@ -59,7 +63,8 @@ from esme_tpu_torch import lora as tlora
 from esme_tpu_torch.models import config as tconfig
 from esme_tpu_torch.models import io as tio
 from esme_tpu_torch.ops import linear as tlinear
-from esme_tpu_torch.train import MaskedPLM, RegressionTrainer
+from esme_tpu_torch.train import (ClassificationTrainer, MaskedPLM,
+                                  RegressionTrainer)
 
 from test_torch_families import FAMILIES, JCLASSES, _batch, _configs, \
     _jax_params, _leaves, _seqs
@@ -318,11 +323,11 @@ def _nest(flat):
     return out
 
 
-@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
-def test_task_gb1_artefacts_match_jax(dtype):
-    """ESM2-8M from seed 0 (bf16, as ``benchmarks/tasks.py`` built it), the
-    GB1 adapters and head checked into ``task_gb1/``: representations and
-    the head's predictions on seeded GB1-like sequences."""
+def _check_task(task, dtype, quantization=None):
+    """ESM2-8M from seed 0 (bf16, as ``benchmarks/tasks.py`` built it),
+    optionally quantized, with ``task_<task>/``'s adapters and head:
+    representations and the head's predictions on seeded GB1-like
+    sequences against JAX's (the classification head for ``tf``)."""
     jm = jesm.ESM2(config=jconfig.config_for('esm2_8m'), rng=0)
     jp = jax.tree.map(lambda a: np.asarray(a.astype(jnp.float32)).astype(
         dtype if dtype == 'float32' else jnp.bfloat16), jm.params)
@@ -330,11 +335,19 @@ def test_task_gb1_artefacts_match_jax(dtype):
     tcfg = tconfig.config_for('esm2_8m', dtype=dtype)
     jm = jesm.ESM2(config=jcfg, params=jax.tree.map(jnp.asarray, jp))
     tm = ESM2(config=tcfg, params=tio.params_from_jax(jp, tcfg), device='cpu')
-    jm.load_lora('task_gb1/lora.safetensors')
-    tm.load_lora('task_gb1/lora.safetensors')
+    if quantization:
+        jm.quantize(quantization)
+        tm.quantize(quantization)
+    jm.load_lora(f'task_{task}/lora.safetensors')
+    tm.load_lora(f'task_{task}/lora.safetensors')
     assert tm.lora_kwargs == jm.lora_kwargs
-    assert tm.lora_kwargs['names'] == ['gb1'] and tm.config.num_layers == 6
-    raw = stnp.load_file('task_gb1/head.safetensors')
+    assert tm.lora_kwargs['names'] == [task] and tm.config.num_layers == 6
+    for t in ('q', 'v', 'out'):
+        for leaf in ('a', 'b'):
+            x = tm.params['layers']['attn'][t]['lora'][task][leaf]
+            y = jm.params['layers']['attn'][t]['lora'][task][leaf]
+            assert str(x.dtype).split('.')[-1] == y.dtype.name, (t, leaf)
+    raw = stnp.load_file(f'task_{task}/head.safetensors')
     jhead = jax.tree.map(lambda a: jnp.asarray(a.astype(np.float32)).astype(
         jcfg.jnp_dtype), _nest(raw))
     thead = tio.params_from_jax(jax.tree.map(np.asarray, jhead), tcfg)
@@ -355,14 +368,42 @@ def test_task_gb1_artefacts_match_jax(dtype):
             / np.linalg.norm(ref, axis=-1)
         assert err <= 2.0 ** -5 * np.abs(ref).max() and cos.min() >= 0.999, \
             (err, cos.min())
-    labels = [len(s) / 60.0 for s in seqs]
+    binary = task == 'tf'
+    labels = [float(len(s) > 40) if binary else len(s) / 60.0
+              for s in seqs]
     jds = JLabeledDataset(seqs, labels, token_per_batch=512, shuffle=False)
     tds = LabeledDataset(seqs, labels, token_per_batch=512, shuffle=False)
-    jpred = np.concatenate([np.asarray(JRegressionTrainer(jm, jhead).predict(
+    jcls, tcls = ((JClassificationTrainer, ClassificationTrainer) if binary
+                  else (JRegressionTrainer, RegressionTrainer))
+    jpred = np.concatenate([np.asarray(jcls(jm, jhead).predict(
         b)).astype(np.float32) for b in jds])
-    tpred = np.concatenate([RegressionTrainer(tm, thead).predict(b)
-                            for b in tds])
+    tpred = np.concatenate([tcls(tm, thead).predict(b) for b in tds])
     assert tpred.shape == (12,) and tpred.dtype == np.float32
     tol = 1e-5 if dtype == 'float32' else 2.0 ** -5
     assert np.abs(tpred - jpred).max() <= tol * np.abs(jpred).max(), \
         (np.abs(tpred - jpred).max(), np.abs(jpred).max())
+    return tm
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_task_gb1_artefacts_match_jax(dtype):
+    """``task_gb1/`` on the dense trunk in fp32 and bf16."""
+    _check_task('gb1', dtype)
+
+
+@pytest.mark.parametrize('task', ['aav', 'meltome', 'tf'])
+def test_task_artefacts_match_jax(task):
+    """The other three task artefacts in bf16, as the tasks ran; ``tf``
+    holds ``ClassificationTrainer``'s head."""
+    _check_task(task, 'bfloat16')
+
+
+def test_task_artefact_over_int8_base_matches_jax():
+    """``task_gb1/`` loaded over an int8 trunk in fp32: JAX's
+    ``load_lora`` makes bf16 adapters where the projection has no kernel,
+    and so does the port's; fp32 gates (the bf16 adapters are exact in the
+    fp32 products on both sides)."""
+    tm = _check_task('gb1', 'float32', quantization='8bit')
+    assert tm.params['layers']['attn']['q']['lora']['gb1']['a'].dtype == \
+        torch.bfloat16
+    assert tm.params['layers']['attn']['q']['qvalue'].dtype == torch.int8

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from esme_tpu import quant as jquant
 from esme_tpu.models import modules as jmod
 from esme_tpu.models.config import esm2_config as jesm2_config
 from esme_tpu.models.config import esmc_config as jesmc_config
@@ -145,8 +146,9 @@ def test_embed_tokens_zeroes_mask():
 
 def test_unported_family_raises():
     """Once a stub for every family but ESM2; now ESMC's SwiGLU MLP runs
-    and matches JAX's ``mlp_block`` (fp32), and what is still unported
-    in it, a linear that is not dense (a quantized one), raises."""
+    and matches JAX's ``mlp_block`` (fp32). A quantized gate, which once
+    raised here, leaves the fused SwiGLU route for ``linear``, as in JAX,
+    and matches JAX's block over the same NF4 leaves (fp32)."""
     jcfg = jesmc_config(num_layers=2, embed_dim=64, attention_heads=4,
                         dtype='float32')
     tcfg = tesmc_config(num_layers=2, embed_dim=64, attention_heads=4,
@@ -161,6 +163,11 @@ def test_unported_family_raises():
     _close(tmod.mlp_block(tx, mlp, tcfg),
            jmod.mlp_block(jx, _layer(jp['layers'], 1)['mlp'], jcfg),
            'float32')
-    with pytest.raises(NotImplementedError, match='quantized'):
-        tmod.mlp_block(tx, {**mlp, 'gate': {'qvalue': mlp['gate'][
-            'kernel']}}, tcfg)
+    jmlp = _layer(jp['layers'], 1)['mlp']
+    jq_mlp = {**jmlp, 'gate': jquant.quantize_params(jmlp['gate'], '4bit')}
+    tq_mlp = {**mlp, 'gate': {k: params_from_jax({'x': np.asarray(v)},
+                                                 None)['x']
+                              for k, v in jq_mlp['gate'].items()}}
+    assert not tmod._plain_swiglu_params(tq_mlp)
+    _close(tmod.mlp_block(tx, tq_mlp, tcfg),
+           jmod.mlp_block(jx, jq_mlp, jcfg), 'float32')

@@ -4,8 +4,8 @@ counterpart of the same name, but for the listed exceptions, each with
 its reason. The names are read from the ``__init__`` sources (their
 ``from .module import`` lists), so a submodule attribute counts for
 nothing.
-The data-plane, variant, extension and CLI modules export every public
-name of their JAX counterparts.
+The data-plane, variant, extension, CLI and quantization modules export
+every public name of their JAX counterparts.
 
 Every check is exact (names).
 """
@@ -34,11 +34,9 @@ MODULE_EXCEPTIONS = {
         "enable_compilation_cache configures JAX's persistent XLA cache; "
         'the port compiles nothing per shape, and esme_tpu_torch._build '
         'is its persistent kernel cache',
-    'esme_tpu.quant':
-        'int8/NF4 weight quantization, ROADMAP.md Queue 1 item 22',
 }
 PORTED_MODULES = ('data', 'variant', 'extend', 'download', 'cli', 'native',
-                  'fasta')
+                  'fasta', 'quant')
 
 
 def _exports(init: Path):
