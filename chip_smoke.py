@@ -230,7 +230,14 @@ line is phase 12's JSON:
    ESM2-15B, after its bf16 inference cell, ``quantize('4bit')`` on the
    card one layer slice at a time (``SIZE_QUANTIZE``) and the same cell
    again (launches exact: H1 and H3 48; finite log-probs; its time, real
-   tokens/s and peak beside the bf16 cell's);
+   tokens/s and peak beside the bf16 cell's); (g) on that NF4 model
+   phase 14's adapters (rank 16 on query, value, output, every ``b``
+   lifted) and ``MaskedPLM(lora_only=True, remat='full')`` with
+   checkpointing on phase 5's 10k batch (``SIZE_QLORA``): launches exact
+   (H1 96, H2 48, H3 144 of which 48 inverse), finite losses, the adapters
+   moved, the trunk bit-unchanged, no frozen or quantized leaf with a
+   gradient, the optimizer's state the adapters' two moments exactly, ms
+   a step, real tokens/s and peak memory;
 13. the memory slice, every line naming the card and its power limit
    (``check_memory``): first, the port's token-embedding gradient
    repeated on the same inputs must give the same bits every time, at
@@ -350,7 +357,27 @@ line is phase 12's JSON:
    ``save_pretrained`` and ``ESM.from_pretrained``: every leaf and the
    log-probs bit-equal, the file without its ``qoutlier_*`` keys refused.
    With ``--profile``, each quantized forward's table
-   (``profile_quant_<mode>.txt``).
+   (``profile_quant_<mode>.txt``);
+17. LoRA over the mesh and resume (``check_phase17``), every line naming
+   the card and its power limit: (a) ESM2-650M (seed-0 weights) with
+   phase 14's adapters in a one-rank NCCL world on a (1, 1, 1) mesh, on
+   phase 5's ``nockpt@10k`` batch: one step's loss of
+   ``ShardedMaskedPLM(lora_only=True, seq_axis='seq')`` within
+   ``CP_LOSS_REL`` of ``MaskedPLM(lora_only=True)``'s and every adapter's
+   gradient under phase 5's gates, the same leaves frozen; then each
+   trainer's cell (``LORA_REPS`` timed steps after a warm-up; launches
+   exact: H9 33, H10 33, H3 66 of which 33 inverse, H1 and H2 never for
+   the sharded trainer, H1 33, H2 33, H3 66 for ``MaskedPLM``), ms a step,
+   real tokens/s, peak memory, and after its steps no frozen view with a
+   gradient, the frozen leaves bit-unchanged, every adapter moved, the
+   optimizer's state exactly the adapters' two Adam moments; (b) the
+   same over the trunk quantized to NF4 on the card (no quantized leaf
+   with a gradient); (c) resumes through ``CheckpointManager`` in a
+   temporary directory: ``MaskedPLM`` with Adam, with
+   ``offload_optimizer=True`` and (a)'s sharded trainer, each cut after
+   ``RESUME_CUT`` steps, saved, restored into a fresh trainer: the next
+   step's loss and every param bit-equal to the uninterrupted run's; the
+   checkpoint's bytes and its save and restore seconds logged.
 
 Each phase's seconds are logged and kept in the measurements line
 (``phase_s``). The last three lines are the kernels' JSON, the measurements' JSON and
@@ -2456,6 +2483,19 @@ def main(argv):
     quant = check_quant(dev, card, cells['nockpt'], finetune,
                         phase15['a_b_scoring'], profile_dir)
     phase_done(16)
+
+    # 17. LoRA and QLoRA over the mesh; checkpoint and resume
+    phase17 = check_phase17(dev, card)
+    phase_done(17)
+    lora_launches = {f'{trainer} {trunk}': phase17[cell][trainer]['launches']
+                     for cell, trunk in (('a_lora', 'dense'),
+                                         ('b_qlora', 'nf4'))
+                     for trainer in ('sharded', 'masked_plm')}
+    big_qlora = next((n for n in SIZE_QLORA if 'qlora' in sizes.get(n, {})),
+                     None)
+    if big_qlora:
+        lora_launches[f'{big_qlora} qlora'] = sizes[big_qlora]['qlora'][
+            'launches']
     quant_fwd = {mode: quant['c_times']['launches'][mode]
                  for mode in QUANT_MODES}
     qlora_step = quant['d_qlora']['times']['launches']
@@ -2502,6 +2542,8 @@ def main(argv):
          'quant_launches': {**{key: c[H1_NAME]
                                for key, c in quant_fwd.items()},
                             'qlora_step': qlora_step[H1_NAME]},
+         'lora_step_launches': {key: c[H1_NAME]
+                                for key, c in lora_launches.items()},
          'max_abs_err': h1_err,
          'lse_max_abs_err': h1_lse_err, 'ms': h1_ms,
          'plain_ms': h1_plain_ms, 'bound_ms': h1_bound, 'bound_by': h1_by,
@@ -2532,6 +2574,8 @@ def main(argv):
          'quant_launches': {**{key: c[H2_NAME]
                                for key, c in quant_fwd.items()},
                             'qlora_step': qlora_step[H2_NAME]},
+         'lora_step_launches': {key: c[H2_NAME]
+                                for key, c in lora_launches.items()},
          'max_abs_err': h2_err, 'gate_share': max(h2_share, h2_check_share),
          'ms': h2_ms, 'plain_ms': h2_plain_ms, 'bound_ms': h2_bound,
          'bound_by': h2_by, 'library_ms': h2_lib_ms,
@@ -2561,6 +2605,10 @@ def main(argv):
                                for key, c in quant_fwd.items()},
                             'qlora_step': qlora_step[H3_NAME],
                             'qlora_step_inverse': qlora_step['rope_inverse']},
+         'lora_step_launches': {key: c[H3_NAME]
+                                for key, c in lora_launches.items()},
+         'lora_step_inverse_launches': {key: c['rope_inverse'] for key, c
+                                        in lora_launches.items()},
          'max_abs_err': rope_err,
          'ms': h3_ms, 'plain_ms': h3_plain_ms, 'bound_ms': h3_bound,
          'bound_by': h3_by, 'library_ms': None,
@@ -2587,8 +2635,11 @@ def main(argv):
          'modes': h4_modes, 'shape': f'T={T} H={H} D={D} bf16',
          'bytes': h4['bytes']},
         {**h9, 'attn_train_launches': memory['c_context_parallel']['attn'][
-            'launches'][H9_NAME]},
-        h10,
+            'launches'][H9_NAME],
+         'lora_step_launches': {key: c[H9_NAME]
+                                for key, c in lora_launches.items()}},
+        {**h10, 'lora_step_launches': {key: c[H10_NAME]
+                                       for key, c in lora_launches.items()}},
         *probe_kernels,
         *family_kernels,
     ]
@@ -2613,6 +2664,7 @@ def main(argv):
         'finetune': finetune,
         'phase15': phase15,
         'quant': quant,
+        'phase17': phase17,
         'phase_s': phase_s,
         'build_s': build_s,
         'model_checks': model_checks, 'torch': torch.__version__,
@@ -2909,13 +2961,14 @@ def train_batch(budget: int, model):
 
 
 def train_cell(model, plm_cls, key, budget, ckpt, reps, falls, n_params,
-               profile_dir, what='', expected=None):
+               profile_dir, what='', expected=None, after=None):
     """One train cell: a warm-up step with the launch counters set to 0
     just before it and read just after (``expected``, or MaskedPLM's
     launches: H1 once per layer, twice with checkpointing, H2 once; H3 only
     in a model with RoPE), then ``reps`` timed steps on the same batch. MFU
     as bench.py computes it: (6·N·tokens + 3.5·attention forward flops) /
-    time / 989 TFLOP/s."""
+    time / 989 TFLOP/s. ``after(plm)``, when given, checks the trainer
+    after its steps; its dict joins the cell's."""
     L = model.config.num_layers
     rot = int(model.config.rotary)
     model.checkpointing = ckpt
@@ -2964,6 +3017,8 @@ def train_cell(model, plm_cls, key, budget, ckpt, reps, falls, n_params,
     if falls and not losses[-1] < losses[0]:
         fail(f'{what}train {key}: the last loss is not below the first: '
              f'{losses}')
+    if after is not None:
+        cell.update(after(plm))
     if profile_dir:
         _profile(lambda: plm.training_step(batch), profile_dir,
                  f'profile_train_{key}.txt',
@@ -4142,6 +4197,9 @@ def check_size(name, trains, dev, plm_cls, batch, profile_dir=None):
     if name in SIZE_QUANTIZE:
         out['quantized'] = quantized_size(model, SIZE_QUANTIZE[name], batch,
                                           what)
+        if name in SIZE_QLORA:
+            out['qlora'] = qlora_size(model, n_params,
+                                      f'{name} {SIZE_QUANTIZE[name]}')
     out['train'] = {}
     for key, budget, ckpt, reps, falls in TRAIN_CELLS:
         if key in trains:
@@ -6391,6 +6449,322 @@ def check_quant(dev, card, phase5, finetune, scoring, profile_dir=None):
         f'{ft["ms_per_step"]:.2f} ms ({ft["peak_mem_gib"]:.2f} GiB, phase 14)')
     out['seconds'] = seconds
     return out
+
+
+# Phase 17: LoRA, trainable masks and QLoRA over the mesh
+# (ShardedMaskedPLM with adapters) and the masked-LM trainers' state
+# through CheckpointManager. (a) and (b) run on phase 5's nockpt@10k batch
+# in a one-rank NCCL world; each trainer takes 1 + LORA_REPS steps, after
+# which its frozen leaves are held bit-unchanged. (c) cuts a run after
+# RESUME_CUT steps and holds the next step of a restored trainer bit-equal
+# to the uninterrupted one.
+LORA_REPS = 5
+RESUME_CUT = 2
+# phase 12 (g): a size's QLoRA step, on its quantized model (SIZE_QUANTIZE)
+# with phase 14's adapters, checkpointing on (remat='full')
+SIZE_QLORA = ('esm2_15b',)
+SIZE_QLORA_REPS = 3
+
+
+def lora_model(dev, quant=None):
+    """ESM2 at ``MODEL`` (bf16, seed-0 weights) with phase 14's adapters
+    (rank 16 on query, value and output, every ``b`` lifted), its trunk
+    quantized on the card to ``quant`` first (None: dense)."""
+    from esme_tpu_torch import ESM2
+    model = ESM2(**MODEL, dtype='bfloat16', rng=0, device=dev)
+    if quant:
+        model.quantize(quant)
+    return ft_model(dev, lift_b=True, model=model)
+
+
+def lora_leaves(model):
+    """The names of ``model``'s frozen and of its trained leaves under
+    ``lora_only=True``."""
+    from esme_tpu_torch.train.partition import expand_mask
+    flags = expand_mask(model.trainable_filter(lora_only=True), model.params)
+    names = [n for n, _ in _named_leaves(model.params)]
+    trains = list(_leaves(flags))
+    return ({n for n, f in zip(names, trains) if not f},
+            {n for n, f in zip(names, trains) if f})
+
+
+def _is_quant_leaf(name):
+    from esme_tpu_torch.quant import NON_TRAINABLE_QUANT_LEAVES
+    parts = name.split('.')
+    return parts[-1] in NON_TRAINABLE_QUANT_LEAVES and len(parts) > 1 \
+        and parts[-2] in QUANT_LINEARS
+
+
+def host_copies(params, names):
+    """Host copies of the leaves of ``params`` named in ``names``."""
+    return {name: t.to('cpu', copy=True) for name, t in _named_leaves(params)
+            if name in names}
+
+
+def trainer_checks(plm, params, frozen, trained, what):
+    """After a trainer's steps: no frozen view requires or holds a
+    gradient; every leaf of ``frozen`` (host copies from before the steps)
+    bit-unchanged in ``params`` (the tree the trainer updates: the model's
+    params, or a sharded trainer's shards); every leaf of ``trained``
+    (host copies) moved; the optimizer's state exactly the trained views'
+    two Adam moments. Fails otherwise."""
+    from esme_tpu_torch.train.trainer import _leaves as view_leaves
+    views = list(view_leaves(plm._views))
+    trained_views = getattr(plm, '_trained', None) or plm._params
+    ids = {id(t) for t in trained_views}
+    graded = sum(1 for t in views if id(t) not in ids
+                 and (t.requires_grad or t.grad is not None))
+    now = dict(_named_leaves(params))
+    changed = [n for n, t in frozen.items()
+               if not torch.equal(now[n].to('cpu'), t)]
+    still = [n for n, t in trained.items()
+             if torch.equal(now[n].to('cpu'), t)]
+    opt = plm.optimizer
+    state_bytes = sum(v.numel() * v.element_size()
+                      for st in opt.state.values() for v in st.values()
+                      if torch.is_tensor(v) and v.dim() > 0)
+    moment_bytes = sum(2 * t.numel() * t.element_size()
+                       for t in trained_views)
+    quant = sum(1 for n in frozen if _is_quant_leaf(n))
+    log(f'{what}: {len(frozen)} frozen leaves ({quant} quantized) '
+        f'bit-unchanged: {not changed}; {len(trained)} trained leaves, '
+        f'unmoved: {still}; frozen views with a gradient: {graded}; '
+        f'optimizer state {state_bytes:,} bytes, the trained views\' '
+        f'moments {moment_bytes:,}')
+    if changed or still or graded or state_bytes != moment_bytes:
+        fail(f'{what}: frozen leaves changed {changed}, trained leaves '
+             f'unmoved {still}, frozen views with a gradient {graded}, '
+             f'optimizer state {state_bytes} bytes against the moments\' '
+             f'{moment_bytes}')
+    return {'frozen_leaves': len(frozen), 'quantized_frozen_leaves': quant,
+            'trained_leaves': len(trained), 'optimizer_bytes': state_bytes}
+
+
+def check_lora_cells(model, mesh, card, what):
+    """(a) or (b) on ``model``: one step's loss and adapters' gradients of
+    ``ShardedMaskedPLM(lora_only=True, seq_axis='seq')`` against
+    ``MaskedPLM(lora_only=True)``'s (loss within ``CP_LOSS_REL``, each
+    adapter under phase 5's gates, the same leaves frozen, no quantized
+    leaf with a gradient); then both trainers' cells (launches exact, ms
+    a step, real tokens/s, peak), each followed by
+    :func:`trainer_checks`."""
+    import functools
+    from esme_tpu_torch.train import MaskedPLM, ShardedMaskedPLM
+    key, budget, ckpt, _, _ = TRAIN_CELLS[0]
+    L = model.config.num_layers
+    n_params = sum(p.numel() for p in _leaves(model.params))
+    batch, _ = train_batch(budget, model)
+    frozen_names, trained_names = lora_leaves(model)
+
+    class sharded:
+        def __init__(self, m, learning_rate):
+            self.plm = ShardedMaskedPLM(m, mesh, learning_rate=learning_rate,
+                                        lora_only=True, seq_axis='seq')
+
+        def training_step(self, batch):
+            return self.plm.training_step([batch])
+    loss_ref, g_ref = MaskedPLM(model, lora_only=True)._grad_step(batch)
+    loss, g = sharded(model, 1e-4).plm._grad_step([batch])
+    got, nf = _trained_only(g)
+    ref, nf_ref = _trained_only(g_ref)
+    names = [n for n, _ in _named_leaves(got)]
+    if names != [n for n, _ in _named_leaves(ref)] or nf != nf_ref \
+            or set(names) != trained_names:
+        fail(f'{what}: the trained leaves differ: {names} against '
+             f'{[n for n, _ in _named_leaves(ref)]} ({nf} and {nf_ref} '
+             'frozen)')
+    graded_quant = [n for n, t in _named_leaves(g)
+                    if _is_quant_leaf(n) and t is not None]
+    rel = abs(loss.item() - loss_ref.item()) / abs(loss_ref.item())
+    check = compare_grads(got, ref, GRAD_MIN_COS, GRAD_MAX_REL,
+                          f'[{card}] {what}: adapters\' gradients, '
+                          'ShardedMaskedPLM vs MaskedPLM')
+    check.update(loss=loss.item(), loss_masked_plm=loss_ref.item(),
+                 loss_rel=rel, frozen_leaves=nf)
+    log(f'[{card}] {what}: loss {loss.item():.6f} vs MaskedPLM '
+        f'{loss_ref.item():.6f} (relative {rel:.2e}, gate {CP_LOSS_REL}); '
+        f'{len(names)} trained leaves, {nf} frozen; quantized leaves with a '
+        f'gradient: {graded_quant}')
+    if rel > CP_LOSS_REL or graded_quant:
+        fail(f'{what}: loss {loss.item()} vs {loss_ref.item()}, quantized '
+             f'leaves with a gradient {graded_quant}')
+    del g, g_ref, got, ref
+    torch.cuda.empty_cache()
+
+    def after(params_of):
+        def check_trainer(plm):
+            plm = getattr(plm, 'plm', plm)
+            return trainer_checks(plm, params_of(plm), frozen, trained,
+                                  f'[{card}] {what} {type(plm).__name__}')
+        return check_trainer
+    frozen = host_copies(model.params, frozen_names)
+    trained = host_copies(model.params, trained_names)
+    out = {'grads': check}
+    out['sharded'] = train_cell(
+        model, sharded, f'lora_{key}', budget, ckpt, LORA_REPS, False,
+        n_params, None, what=f'[{card}] {what} ShardedMaskedPLM: ',
+        expected=expected_launches(**{H9_NAME: L, H10_NAME: L, H3_NAME: 2 * L,
+                                      'rope_inverse': L}),
+        after=after(lambda plm: plm.params))
+    # MaskedPLM updates the model's adapters in place: last
+    out['masked_plm'] = train_cell(
+        model, functools.partial(MaskedPLM, lora_only=True), f'lora_{key}',
+        budget, ckpt, LORA_REPS, False, n_params, None,
+        what=f'[{card}] {what} MaskedPLM: ',
+        after=after(lambda plm: plm.model.params))
+    s, m = out['sharded'], out['masked_plm']
+    log(f'[{card}] {what}: ShardedMaskedPLM {s["ms_per_step"]:.2f} ms a step '
+        f'({s["real_tokens_per_s"]:.1f} real tokens/s, peak '
+        f'{s["peak_mem_gib"]:.2f} GiB, optimizer {s["optimizer_bytes"]:,} '
+        f'bytes); MaskedPLM {m["ms_per_step"]:.2f} ms '
+        f'({m["real_tokens_per_s"]:.1f}, {m["peak_mem_gib"]:.2f} GiB, '
+        f'{m["optimizer_bytes"]:,} bytes)')
+    return out
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def check_resume(make, tree_of, batch, card, what, sharded=False):
+    """(c) One run of ``make()``'s trainer: ``RESUME_CUT`` steps on
+    ``batch``, ``CheckpointManager.save`` in a temporary directory, one more
+    step; then a fresh ``make()`` trainer that restores the checkpoint
+    takes the same step: its loss and every leaf of ``tree_of(trainer)``
+    bit-equal to the uninterrupted step's. The checkpoint's bytes, save
+    and restore seconds are logged; the directory is deleted."""
+    from esme_tpu_torch.train import CheckpointManager
+
+    def step(plm):
+        return plm.training_step([batch] if sharded else batch)
+    with tempfile.TemporaryDirectory() as tmp:
+        plm = make()
+        for _ in range(RESUME_CUT):
+            step(plm)
+        mgr = CheckpointManager(tmp, monitor=None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(plm.step, plm.state)
+        save_s = time.perf_counter() - t0
+        nbytes = _dir_bytes(tmp)
+        loss = step(plm)
+        want = {n: t.clone() for n, t in _named_leaves(tree_of(plm))}
+        del plm
+        torch.cuda.empty_cache()
+        fresh = make()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fresh.state = mgr.restore(fresh.state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        got = step(fresh)
+        differ = [n for n, t in _named_leaves(tree_of(fresh))
+                  if not torch.equal(t, want[n])]
+        del fresh, want
+        torch.cuda.empty_cache()
+    log(f'[{card}] {what} resume: checkpoint of {nbytes / 2**20:.1f} MiB '
+        f'after {RESUME_CUT} steps, saved in {save_s:.2f} s, restored in '
+        f'{restore_s:.2f} s; step {RESUME_CUT + 1} loss {got!r} resumed vs '
+        f'{loss!r} uninterrupted; leaves that differ: {differ}')
+    if got != loss or differ:
+        fail(f'{what}: the resumed step is not the uninterrupted one: loss '
+             f'{got} vs {loss}, leaves {differ}')
+    return {'bytes': nbytes, 'save_s': save_s, 'restore_s': restore_s,
+            'loss': loss}
+
+
+def check_phase17(dev, card):
+    """Phase 17: (a) ESM2-650M with phase 14's adapters through
+    ``ShardedMaskedPLM(lora_only=True, seq_axis='seq')`` in a one-rank NCCL
+    world against ``MaskedPLM(lora_only=True)`` (:func:`check_lora_cells`);
+    (b) the same over the trunk quantized to NF4 on the card; (c) resumes
+    through ``CheckpointManager``: ``MaskedPLM`` with Adam, with
+    ``offload_optimizer=True``, and (a)'s sharded trainer
+    (:func:`check_resume`)."""
+    import torch.distributed as dist
+    from esme_tpu_torch import ESM2
+    from esme_tpu_torch.parallel import initialize_distributed, make_mesh
+    from esme_tpu_torch.train import MaskedPLM, ShardedMaskedPLM
+    out, seconds = {}, {}
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        seconds[key] = time.perf_counter() - t0
+        log(f'[{card}] phase 17 {key}: {seconds[key]:.1f} s')
+
+    initialize_distributed(f'127.0.0.1:{free_port()}', 1, 0,
+                           device=dev.type)
+    try:
+        mesh = make_mesh(1, 1, seq=1, device=dev.type)
+        model = lora_model(dev)
+        timed('a_lora', lambda: check_lora_cells(
+            model, mesh, card, 'phase 17 (a) LoRA'))
+        batch, _ = train_batch(TRAIN_CELLS[0][1], model)
+        timed('c_sharded_resume', lambda: check_resume(
+            lambda: ShardedMaskedPLM(model, mesh, learning_rate=1e-4,
+                                     lora_only=True, seq_axis='seq'),
+            lambda plm: plm.params, batch, card,
+            'phase 17 (c) ShardedMaskedPLM(lora_only=True)', sharded=True))
+        del model
+        torch.cuda.empty_cache()
+        model = lora_model(dev, '4bit')
+        timed('b_qlora', lambda: check_lora_cells(
+            model, mesh, card, 'phase 17 (b) LoRA over NF4'))
+        del model
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    base = ESM2(**MODEL, dtype='bfloat16', rng=0, device=dev)
+
+    def dense(**kw):
+        def make():
+            model = ESM2(config=base.config, params=_clone(base.params),
+                         device=dev)
+            return MaskedPLM(model, learning_rate=1e-4, **kw)
+        return make
+    timed('c_adam_resume', lambda: check_resume(
+        dense(), lambda plm: plm.model.params, batch, card,
+        'phase 17 (c) MaskedPLM, Adam'))
+    timed('c_offload_resume', lambda: check_resume(
+        dense(offload_optimizer=True), lambda plm: plm.model.params, batch,
+        card, 'phase 17 (c) MaskedPLM(offload_optimizer=True)'))
+    del base
+    torch.cuda.empty_cache()
+    out['seconds'] = seconds
+    return out
+
+
+def _clone(tree):
+    return {k: _clone(v) if isinstance(v, dict) else v.clone()
+            for k, v in tree.items()}
+
+
+def qlora_size(model, n_params, what):
+    """Phase 12 (g): phase 14's adapters on a size's quantized model, then
+    ``MaskedPLM(lora_only=True, remat='full')`` with checkpointing on phase
+    5's 10k batch (:func:`train_cell`: launches exact, losses finite, ms a
+    step, real tokens/s, peak memory) and :func:`trainer_checks` after its
+    steps (adapters moved, the trunk bit-unchanged, no frozen or quantized
+    leaf with a gradient)."""
+    import functools
+    from esme_tpu_torch.train import MaskedPLM
+    ft_model(model.device, lift_b=True, model=model)
+    frozen_names, trained_names = lora_leaves(model)
+    frozen = host_copies(model.params, frozen_names)
+    trained = host_copies(model.params, trained_names)
+    cell = train_cell(
+        model, functools.partial(MaskedPLM, lora_only=True, remat='full'),
+        'qlora', TRAIN_CELLS[0][1], True, SIZE_QLORA_REPS, False, n_params,
+        None, what=f'{what} LoRA ', after=lambda plm: trainer_checks(
+            plm, plm.model.params, frozen, trained, f'{what} LoRA MaskedPLM'))
+    log(f'{what} LoRA (rank {FT_RANK} on query, value, output; '
+        f"remat='full'): {cell['ms_per_step']:.2f} ms a step, "
+        f"{cell['real_tokens_per_s']:.1f} real tokens/s, peak "
+        f"{cell['peak_mem_gib']:.2f} GiB, optimizer "
+        f"{cell['optimizer_bytes']:,} bytes")
+    return cell
 
 
 def _leaf_pairs(got, ref, path=()):

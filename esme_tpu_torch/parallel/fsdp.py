@@ -10,15 +10,24 @@ over the ``fsdp`` axis of a mesh:
   (:func:`make_layer_gather`) and the non-layer leaves are gathered once
   (:func:`make_outer_gather`), so peak memory is one layer's full
   weights plus every layer's shards;
-* each gather is an autograd Function whose backward reduce-scatters
-  (sums over the ranks, each keeping its block) the gradient, JAX's
-  transpose of ``all_gather(..., tiled=True)``;
+* the gather of a leaf that takes a gradient is an autograd Function
+  whose backward reduce-scatters (sums over the ranks, each keeping its
+  block) the gradient, JAX's transpose of ``all_gather(..., tiled=True)``;
+  a frozen leaf, and an integer one (int8 and NF4 storage, NF4's outlier
+  indices), is gathered with no autograd node, so no reduce-scatter ever
+  runs for it. A gather concatenates bytes in rank order, so a quantized
+  projection's gathered leaves are the unsharded ones bit for bit (NF4's
+  nibble pairs lie along the input dim, never split by a shard of the
+  output dim);
 * the layer gather runs inside the checkpointed layer, so with
   checkpointing it runs again in the backward instead of keeping the
   full weights (ZeRO-3 semantics).
 
 JAX's ``PartitionSpec`` tree becomes a tree of shard dims: per leaf the
-dimension sharded over the axis, or None for a replicated leaf.
+dimension sharded over the axis, or None for a replicated leaf. The rule
+reads only a leaf's shape, so LoRA leaves (``lora.<name>.a``, ``.b``,
+``.scale``) and quantized ones (``qvalue``, ``scale``, ``outlier_idx``,
+``outlier_rows``) take JAX's specs as the dense ones do.
 """
 
 from __future__ import annotations
@@ -113,9 +122,19 @@ class _GatherDim(torch.autograd.Function):
         return reduce_scatter_dim(g, ctx.dim, ctx.group), None, None
 
 
+def _gather_leaf(x: torch.Tensor, d: Optional[int], group) -> torch.Tensor:
+    """``x`` gathered along ``d`` (as it is for None): through
+    :class:`_GatherDim` where it takes a gradient, else without an
+    autograd node (frozen and integer leaves)."""
+    if d is None:
+        return x
+    if x.requires_grad:
+        return _GatherDim.apply(x, d, group)
+    return gather_dim(x, d, group)
+
+
 def _gather_tree(params: dict, dims: dict, group) -> dict:
-    return _map(lambda x, d: x if d is None else _GatherDim.apply(x, d, group),
-                params, dims)
+    return _map(lambda x, d: _gather_leaf(x, d, group), params, dims)
 
 
 def make_layer_gather(layer_specs: dict, mesh: DeviceMesh,

@@ -6,16 +6,30 @@ from the newest checkpoint, workflow/meltome/finetune_meltome.py:31-41).
 The JAX manager writes orbax checkpoints; this one writes torch state
 files, and reads no orbax file:
 
-    DIR/<step>/state.pt      the trainer's state (``torch.save``)
+    DIR/<step>/state.pt      a trainer's state (``torch.save``)
+    DIR/<step>/rank<r>.pt    or rank r's part of a sharded trainer's
     DIR/<step>/metrics.json  the metrics saved with it
 
 A state is a trainer's :class:`~esme_tpu_torch.train.trainer.TrainState`
-(params, the optimizer's ``state_dict()``, step), or a tree of dicts,
-lists, tensors and numbers; it is read back with ``weights_only=True``,
-which runs no pickled code. ``max_to_keep`` checkpoints stay: with a
-``monitor`` metric the best of them by ``mode`` (a tie keeps the newer),
-else the newest. A checkpoint is written under a temporary name and
-renamed when complete, so a crash leaves no half-written one.
+(params, the optimizer's ``state_dict()``, step, and for
+:class:`~esme_tpu_torch.train.MaskedPLM` an open accumulation cycle and
+the offloaded masters), a
+:class:`~esme_tpu_torch.train.distributed.ShardedTrainState`, or a tree
+of dicts, lists, tensors and numbers; it is read back with
+``weights_only=True``, which runs no pickled code. ``max_to_keep``
+checkpoints stay: with a ``monitor`` metric the best of them by ``mode``
+(a tie keeps the newer), else the newest. A checkpoint is written under a
+temporary name and renamed when complete, so a crash leaves no
+half-written one.
+
+A sharded trainer's state is saved as JAX's orbax manager saves a sharded
+one, each part from where it lives: every rank of the default process
+group calls :meth:`CheckpointManager.save` with its own part and writes
+``rank<r>.pt`` into the temporary directory, and rank 0 renames the
+directory into place once every rank's part is complete (barriers of the
+process group around it); :meth:`~CheckpointManager.restore` reads each
+rank's own part back. A part restores only on a mesh of the shape and at
+the rank it was saved from.
 """
 
 from __future__ import annotations
@@ -27,8 +41,13 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
+from .distributed import ShardedTrainState
 from .trainer import TrainState
+
+_STATES = {'train_state': TrainState,
+           'sharded_train_state': ShardedTrainState}
 
 
 def _to_devices(saved, template):
@@ -39,7 +58,7 @@ def _to_devices(saved, template):
     if isinstance(saved, (list, tuple)) and isinstance(
             template, (list, tuple)) and len(saved) == len(template):
         out = [_to_devices(s, t) for s, t in zip(saved, template)]
-        return TrainState(*out) if isinstance(saved, TrainState) \
+        return type(saved)(*out) if hasattr(saved, '_fields') \
             else type(saved)(out)
     if torch.is_tensor(saved) and torch.is_tensor(template):
         return saved.to(template.device)
@@ -64,7 +83,8 @@ class CheckpointManager:
     def all_steps(self) -> list:
         """The steps of the complete checkpoints on disk, ascending."""
         return sorted(int(p.name) for p in self.directory.iterdir()
-                      if p.name.isdigit() and (p / 'state.pt').is_file())
+                      if p.name.isdigit() and ((p / 'state.pt').is_file()
+                                               or (p / 'rank0.pt').is_file()))
 
     def metrics(self, step: int) -> dict:
         with open(self.directory / str(step) / 'metrics.json') as f:
@@ -79,19 +99,35 @@ class CheckpointManager:
 
     def save(self, step: int, state, metrics: Optional[dict] = None):
         """Write ``state`` and ``metrics`` as checkpoint ``step``, then
-        drop the checkpoints past ``max_to_keep``."""
+        drop the checkpoints past ``max_to_keep``. Every rank calls it with
+        its part of a :class:`ShardedTrainState`."""
         step = int(step)
         final = self.directory / str(step)
         tmp = self.directory / f'.{step}.tmp'
-        shutil.rmtree(tmp, ignore_errors=True)
-        tmp.mkdir()
-        if isinstance(state, TrainState):
-            state = {'train_state': state._asdict()}
-        torch.save(state, tmp / 'state.pt')
-        with open(tmp / 'metrics.json', 'w') as f:
-            json.dump({k: float(v) for k, v in (metrics or {}).items()}, f)
-        shutil.rmtree(final, ignore_errors=True)
-        os.replace(tmp, final)
+        sharded = isinstance(state, ShardedTrainState)
+        rank = dist.get_rank() if sharded else 0
+        if rank == 0:
+            shutil.rmtree(tmp, ignore_errors=True)
+            tmp.mkdir()
+        if sharded:
+            dist.barrier()
+        key = next((k for k, cls in _STATES.items()
+                    if isinstance(state, cls)), None)
+        name = f'rank{rank}.pt' if sharded else 'state.pt'
+        torch.save({key: state._asdict()} if key else state, tmp / name)
+        if sharded:
+            dist.barrier()
+        if rank == 0:
+            with open(tmp / 'metrics.json', 'w') as f:
+                json.dump({k: float(v) for k, v in (metrics or {}).items()},
+                          f)
+            shutil.rmtree(final, ignore_errors=True)
+            os.replace(tmp, final)
+            self._prune()
+        if sharded:
+            dist.barrier()
+
+    def _prune(self) -> None:
         steps = self.all_steps()
         if len(steps) > self.max_to_keep:
             keep = sorted(steps, key=self._rank_key) if self.monitor \
@@ -116,13 +152,18 @@ class CheckpointManager:
         """The state of checkpoint ``step`` (the latest by default; None if
         there is none), each tensor on the device of ``state_template``'s
         tensor at its place (the CPU without a template). A trainer takes
-        it back with ``trainer.state = manager.restore(trainer.state)``."""
+        it back with ``trainer.state = manager.restore(trainer.state)``; a
+        sharded trainer's ranks each take their own part so."""
         step = step if step is not None else self.latest_step()
         if step is None:
             return None
-        saved = torch.load(self.directory / str(step) / 'state.pt',
+        name = f'rank{dist.get_rank()}.pt' if isinstance(
+            state_template, ShardedTrainState) else 'state.pt'
+        saved = torch.load(self.directory / str(step) / name,
                            map_location='cpu', weights_only=True)
-        if isinstance(saved, dict) and set(saved) == {'train_state'}:
-            saved = TrainState(**saved['train_state'])
+        if isinstance(saved, dict) and len(saved) == 1 \
+                and next(iter(saved)) in _STATES:
+            key, fields = next(iter(saved.items()))
+            saved = _STATES[key](**fields)
         return _to_devices(saved, state_template) \
             if state_template is not None else saved

@@ -29,9 +29,27 @@ loss, so each counts it once: its local loss is divided by the ``fsdp``
 size before the backward. (The JAX class ``psum``s gradients of a loss
 it had already ``psum``'d and sums the ``fsdp`` copies in the gather's
 transpose, which scales its update; ROADMAP.md Queue 3, item 17.)
+
+Only the trainable leaves take part, as JAX differentiates only them
+(``split_by_mask``): the mask is ``trainable_mask`` or the model's
+``trainable_filter(lora_only, train_lmhead)``, as in
+:class:`~esme_tpu_torch.train.MaskedPLM`. A frozen leaf (the dense trunk
+under LoRA, a quantized projection's int8 or NF4 storage) is gathered
+without an autograd node and takes no gradient, no optimizer state and no
+all-reduce, so its bits never change; LoRA over a quantized trunk (QLoRA)
+trains over the mesh as on one device.
+
+:attr:`ShardedMaskedPLM.state` is this rank's part of the training
+state (:class:`ShardedTrainState`: its shards of the params and of the
+optimizer state, the step, any gradient being accumulated), which
+:class:`~esme_tpu_torch.train.CheckpointManager` saves and restores on
+every rank, as JAX's orbax manager writes each shard from its device: no
+rank gathers the whole optimizer state.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -48,8 +66,25 @@ from ..parallel.fsdp import (_map, fsdp_partition_specs, gather_dim,
                              make_layer_gather, make_outer_gather,
                              shard_params)
 from ..parallel.mesh import axes_group
-from .trainer import (_grad_tree, _leaves, _tensor, build_optimizer,
-                      train_views)
+from .trainer import (_copy_leaves, _grad_tree, _leaves, _tensor,
+                      build_optimizer, load_optimizer_state, train_views)
+
+
+class ShardedTrainState(NamedTuple):
+    """One rank's part of a :class:`ShardedMaskedPLM`'s state, as JAX's
+    ``ShardedTrainState(params, opt_state, step)``
+    (``esme_tpu/train/distributed.py:53-56``), whose arrays orbax writes
+    shard by shard: ``params``, this rank's shards (the layout of
+    ``model.params``, each sharded leaf its block); ``opt_state``, the
+    optimizer's ``state_dict()`` over those shards; ``step``; ``accum``,
+    the ``.grad`` of each trainable leaf while a ``grad_accum`` cycle is
+    open (None otherwise); ``mesh``, the mesh's axis names and sizes and
+    this rank, which a restore must match."""
+    params: dict
+    opt_state: dict
+    step: int
+    accum: Optional[list]
+    mesh: dict
 
 
 def stack_batches(batches):
@@ -100,9 +135,13 @@ class ShardedMaskedPLM:
             'reference' the einsum).
         grad_accum: micro-batches accumulated per update (the mean, as
             ``optax.MultiSteps``).
-        lora_only, train_lmhead, trainable_mask: raise unless left at
-            their defaults: every leaf trains (LoRA over a mesh is a later
-            slice, ROADMAP.md Queue 1).
+        lora_only, train_lmhead, trainable_mask: the trainable leaves, as
+            in :class:`MaskedPLM` (the model's ``trainable_filter``, or the
+            caller's tree of bools); LoRA adapters over a dense or a
+            quantized trunk train over the mesh. Unlike ``MaskedPLM`` no
+            LoRA dropout is applied (the model's ``dropout_p`` is ignored),
+            as JAX's class passes none to its forward (ROADMAP.md Queue 3,
+            item 26).
         seq_axis: the mesh axis the packed token axis is split over
             (context parallelism), or None.
         remat: the checkpointing policy when ``model.checkpointing``, as
@@ -114,17 +153,6 @@ class ShardedMaskedPLM:
                  grad_accum: int = 1, lora_only=None,
                  train_lmhead: bool = False, trainable_mask=None,
                  optimizer=None, seq_axis=None, remat: str = 'full'):
-        for name, value in (('lora_only', lora_only),
-                            ('train_lmhead', train_lmhead),
-                            ('trainable_mask', trainable_mask)):
-            if value not in (None, False):
-                raise NotImplementedError(
-                    f'ShardedMaskedPLM({name}=...): LoRA and trainable masks '
-                    'over a mesh come in a later slice (ROADMAP.md Queue 1)')
-        if model.lora_kwargs is not None:
-            raise NotImplementedError(
-                'ShardedMaskedPLM: a model with LoRA adapters comes in a '
-                'later slice (ROADMAP.md Queue 1)')
         names = mesh.mesh_dim_names
         if seq_axis is not None and seq_axis not in names:
             raise ValueError(f'mesh has no axis {seq_axis!r}')
@@ -141,28 +169,40 @@ class ShardedMaskedPLM:
         self._fsdp_size = axis_size(mesh, 'fsdp')
 
         self.specs = fsdp_partition_specs(model.params, mesh)
-        # this rank's shards, updated in place through per-layer views
+        # this rank's shards, updated in place through per-layer views of
+        # the trainable leaves
         self.params, _ = shard_params(model.params, mesh, self.specs)
-        self._views = train_views(self.params)
+        self._mask = trainable_mask if trainable_mask is not None else \
+            model.trainable_filter(lora_only=lora_only,
+                                   train_lmhead=train_lmhead)
+        self._views = train_views(self.params, self._mask)
         layers = self._views['layers']
         view_specs = {k: [self.specs[k]] * len(layers) if k == 'layers'
                       else self.specs[k] for k in self.specs}
         pairs = [(t, d) for t, d in zip(_leaves(self._views),
                                         _leaves(view_specs))
                  if torch.is_tensor(t) and t.requires_grad]
+        if not pairs:
+            raise ValueError('ShardedMaskedPLM: no leaf of the model trains '
+                             'under this mask (lora_only without adapters?)')
         self._sharded = [t for t, d in pairs if d is not None]
         self._replicated = [t for t, d in pairs if d is None]
+        self._trained = [t for t, _ in pairs]
         self.optimizer = build_optimizer(self._views, optimizer,
                                          learning_rate, weight_decay)
 
         self._layer_gather = make_layer_gather(self.specs['layers'], mesh)
         self._outer_gather = make_outer_gather(
             {k: v for k, v in self.specs.items() if k != 'layers'}, mesh)
-        # the loss axes ('data' and seq_axis) and the whole mesh; every
-        # rank creates them in this order
+        # the loss axes ('data' and seq_axis), and those with 'fsdp': the
+        # ranks a replicated leaf's gradient is summed over. An axis that
+        # splits nothing (a 'seq' axis without seq_axis) holds replicas of
+        # the same step, whose gradients are not summed. Every rank
+        # creates the groups in this order.
         loss_axes = ('data', seq_axis) if seq_axis else ('data',)
         self._loss_group = axes_group(mesh, loss_axes)
-        self._mesh_group = axes_group(mesh, names)
+        self._replica_group = axes_group(
+            mesh, tuple(a for a in names if a in (*loss_axes, 'fsdp')))
         self._fsdp_group = mesh.get_group('fsdp')
         if hasattr(self.optimizer, 'reduce_max') \
                 and dist.get_world_size(self._fsdp_group) > 1:
@@ -237,9 +277,9 @@ class ShardedMaskedPLM:
     def _reduce_grads(self):
         """Sum the gradients over the loss axes (a sharded leaf's are
         already summed over ``fsdp`` by the gathers' backward) and a
-        replicated leaf's over the whole mesh."""
+        replicated leaf's over the loss axes and ``fsdp``."""
         for group, leaves in ((self._loss_group, self._sharded),
-                              (self._mesh_group, self._replicated)):
+                              (self._replica_group, self._replicated)):
             for t in leaves:
                 if t.grad is None:
                     t.grad = torch.zeros_like(t)
@@ -250,14 +290,14 @@ class ShardedMaskedPLM:
     def _grad_step(self, batches):
         """Loss and full gradients of one step, without an update: returns
         ``(loss, grads)`` with ``grads`` in the layout of ``model.params``
-        (the same on every rank). Drops any gradient still being
-        accumulated."""
+        (the same on every rank; None at a frozen leaf). Drops any gradient
+        still being accumulated."""
         self.optimizer.zero_grad(set_to_none=True)
         with fp32_accumulation():
             local, loss = self._loss(self._views, batches)
             local.backward()
             self._reduce_grads()
-        grads = _map(lambda g, d: g if d is None
+        grads = _map(lambda g, d: g if g is None or d is None
                      else gather_dim(g, d, self._fsdp_group),
                      _grad_tree(self._views), self.specs)
         self.optimizer.zero_grad(set_to_none=True)
@@ -316,10 +356,45 @@ class ShardedMaskedPLM:
                     print(f'epoch {epoch}: val_loss {vloss:.4f}')
         return history
 
+    # -- state ----------------------------------------------------------------
+
+    def _mesh_key(self) -> dict:
+        return {'axes': list(self.mesh.mesh_dim_names),
+                'shape': list(self.mesh.mesh.shape), 'rank': dist.get_rank()}
+
+    @property
+    def state(self) -> ShardedTrainState:
+        """This rank's part of the state: its shards (the live tensors),
+        the optimizer's state over them, the step and, inside a
+        ``grad_accum`` cycle, the gradients gathered so far."""
+        accum = None
+        if self.step % self.grad_accum:
+            accum = [t.grad for t in self._trained]
+        return ShardedTrainState(self.params, self.optimizer.state_dict(),
+                                 self.step, accum, self._mesh_key())
+
+    @state.setter
+    def state(self, state: ShardedTrainState) -> None:
+        """Take this rank's part of a saved state
+        (:meth:`CheckpointManager.restore
+        <esme_tpu_torch.train.checkpoint.CheckpointManager.restore>` on
+        every rank): its shards copied into the live tensors bit for bit.
+        Raises ``ValueError`` for a state of another mesh shape or
+        rank."""
+        if state.mesh != self._mesh_key():
+            raise ValueError(f'a state of mesh {state.mesh} cannot be '
+                             f'restored on mesh {self._mesh_key()}')
+        _copy_leaves(self.params, state.params)
+        load_optimizer_state(self.optimizer, state.opt_state)
+        self.step = int(state.step)
+        for t, g in zip(self._trained, state.accum or [None] *
+                        len(self._trained)):
+            t.grad = None if g is None else g.to(t.device, copy=True)
+
     def unsharded_params(self) -> dict:
         """The full params, gathered from every rank's shards, on the host
-        (for ``save_pretrained``): copies, which later steps leave as they
-        are."""
+        (for ``save_pretrained``; quantized leaves keep their dtypes):
+        copies, which later steps leave as they are."""
         with torch.no_grad():
             return _map(lambda x, d: (x if d is None else gather_dim(
                 x, d, self._fsdp_group)).to('cpu', copy=True), self.params,

@@ -30,7 +30,13 @@ and run the step eagerly:
   folds its ``random.key(0x10ad)``;
 * the fine-tune trainers' two learning rates (``optax.multi_transform``
   in JAX): one Adam, a param group for the trunk's trainable leaves at
-  ``lr`` and one for the head at ``head_lr``.
+  ``lr`` and one for the head at ``head_lr``;
+* ``state`` (a :class:`TrainState`) for
+  :class:`~esme_tpu_torch.train.CheckpointManager`: a restored trainer
+  continues bit for bit, inside a ``grad_accum`` cycle and under
+  ``offload_optimizer`` too (JAX's ``TrainState`` holds no offloaded
+  masters, so its offloaded resume restarts from the new trainer's own:
+  ROADMAP.md Queue 3, item 25).
 
 The optimizer's leaves are views of the model's params: each layer's row
 of a stacked leaf is its own gradient target (see ``models/modules.py``)
@@ -45,7 +51,7 @@ input gradients are cuBLAS products too.
 from __future__ import annotations
 
 import time
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -66,10 +72,16 @@ DROPOUT_KEY = 0x10ad
 class TrainState(NamedTuple):
     """A trainer's state, as JAX's ``TrainState``: ``params`` (the
     fine-tune trainers': ``{'plm', 'head'}``), ``opt_state`` (the torch
-    optimizer's ``state_dict()``) and ``step``."""
+    optimizer's ``state_dict()``) and ``step``; :class:`MaskedPLM`'s also
+    ``accum``, the running mean of an open ``grad_accum`` cycle (which JAX
+    keeps in ``optax.MultiSteps``' state; None between cycles), and
+    ``masters``, the fp32 master copies of ``offload_optimizer`` (None
+    without it)."""
     params: dict
     opt_state: dict
     step: int
+    accum: Optional[list] = None
+    masters: Optional[list] = None
 
 
 def _map(fn, tree):
@@ -90,6 +102,37 @@ def _leaves(tree):
             yield from _leaves(v)
         else:
             yield v
+
+
+def _copy_leaves(live, saved) -> None:
+    """Copy each leaf of ``saved`` into the leaf of ``live`` at its place
+    (trees of dicts and lists of the same structure), bit for bit; raises
+    ``ValueError`` where the leaves' count, shapes or dtypes differ."""
+    live, saved = list(_leaves(live)), list(_leaves(saved))
+    if len(live) != len(saved):
+        raise ValueError(f'the saved state has {len(saved)} leaves where '
+                         f'the trainer has {len(live)}')
+    for t, v in zip(live, saved):
+        if t.shape != v.shape or t.dtype != v.dtype:
+            raise ValueError(f'a saved leaf of {tuple(v.shape)} {v.dtype} '
+                             f'for one of {tuple(t.shape)} {t.dtype}')
+    with torch.no_grad():
+        for t, v in zip(live, saved):
+            t.copy_(v)
+
+
+def load_optimizer_state(optimizer, state_dict: dict) -> None:
+    """``optimizer.load_state_dict(state_dict)``, then a copy of each state
+    tensor that still shares memory with ``state_dict``'s (the base class
+    keeps a saved tensor already on its param's device and dtype), so that
+    the trainer's updates leave the saved state as it was."""
+    optimizer.load_state_dict(state_dict)
+    saved = {v.data_ptr() for st in state_dict['state'].values()
+             for v in st.values() if torch.is_tensor(v) and v.numel()}
+    for st in optimizer.state.values():
+        for k, v in st.items():
+            if torch.is_tensor(v) and v.numel() and v.data_ptr() in saved:
+                st[k] = v.clone()
 
 
 def _trainable(t: torch.Tensor, train: bool = True) -> torch.Tensor:
@@ -399,6 +442,56 @@ class MaskedPLM:
             self.optimizer = build_optimizer(self._views, optimizer,
                                              learning_rate, weight_decay)
 
+    # -- state ------------------------------------------------------------
+
+    @property
+    def state(self) -> TrainState:
+        """The params (``model.params``, the live tensors), the optimizer's
+        state, the step, inside a ``grad_accum`` cycle the running mean of
+        its gradients so far, and under ``offload_optimizer`` the fp32
+        masters, so that a restored trainer continues as the saved one
+        would have, bit for bit."""
+        host = self._host
+        accum = None
+        if self.step % self.grad_accum:
+            accum = list(host._grads) if host is not None else \
+                [self._acc.get(p) for p in self._params]
+        masters = None if host is None else [m for _, m, _ in host._up]
+        return TrainState(self.model.params, self.optimizer.state_dict(),
+                          self.step, accum, masters)
+
+    @state.setter
+    def state(self, state: TrainState) -> None:
+        """Take a saved state (:meth:`CheckpointManager.restore
+        <esme_tpu_torch.train.checkpoint.CheckpointManager.restore>`): the
+        params, masters and running mean copied into the live tensors, bit
+        for bit. A state without masters restored under
+        ``offload_optimizer`` takes its params as masters, as a new
+        trainer does."""
+        _copy_leaves(self.model.params, state.params)
+        host = self._host
+        if host is not None:
+            with torch.no_grad():
+                for param, master, _ in host._up:
+                    master.copy_(param)
+            if state.masters is not None:
+                _copy_leaves([m for _, m, _ in host._up], state.masters)
+        load_optimizer_state(self.optimizer, state.opt_state)
+        self.step = int(state.step)
+        self._acc.clear()
+        if self.step % self.grad_accum:
+            if state.accum is None:
+                raise ValueError('the state is inside a grad_accum cycle '
+                                 'but holds no accumulated gradients')
+            if host is not None:
+                _copy_leaves(host._grads, state.accum)
+            else:
+                for p, g in zip(self._params, state.accum):
+                    self._acc[p] = torch.zeros_like(p) if g is None \
+                        else g.to(p.device, copy=True)
+
+    # -- the step ---------------------------------------------------------
+
     def _loss(self, params, batch, dropout_key=None) -> torch.Tensor:
         dev = self.model.device
         tokens = _tensor(batch.masked_tokens, torch.int32, dev)
@@ -552,13 +645,9 @@ class RegressionTrainer:
         """Take a saved state (:meth:`CheckpointManager.restore
         <esme_tpu_torch.train.checkpoint.CheckpointManager.restore>`):
         its params copied into the live tensors, bit for bit."""
-        with torch.no_grad():
-            for name, live in (('plm', self.model.params),
-                               ('head', self.head_params)):
-                for t, saved in zip(_leaves(live),
-                                    _leaves(state.params[name])):
-                    t.copy_(saved)
-        self.optimizer.load_state_dict(state.opt_state)
+        _copy_leaves([self.model.params, self.head_params],
+                     [state.params['plm'], state.params['head']])
+        load_optimizer_state(self.optimizer, state.opt_state)
         self.step = int(state.step)
 
     # -- the step ---------------------------------------------------------

@@ -405,7 +405,9 @@ def test_sharded_masked_plm_matches_jax(family, shape, dtype, ckpt,
     mesh of the same shape, and the validation loss after them against
     the second step's loss moved by the update; the params gathered back
     from the shards; ``seq_axis`` not in the mesh, a token count the seq
-    axis does not divide and the options of later slices refused."""
+    axis does not divide and an optimizer that is not a factory refused
+    (LoRA and trainable masks over a mesh are
+    ``tests/test_torch_sharded_lora.py``'s)."""
     jcfg, tcfg = _configs(family, dtype)
     jp = _jax_params(family, dtype)
     params = tio.params_from_jax(jax.tree.map(np.asarray, jp), tcfg)
@@ -422,7 +424,7 @@ def test_sharded_masked_plm_matches_jax(family, shape, dtype, ckpt,
     for res in ranks:
         np.testing.assert_allclose(float(res['loss']), float(jval),
                                    rtol=rtol)
-        assert bool(res['refused'].all()) and len(res['refused']) == 6
+        assert bool(res['refused'].all()) and len(res['refused']) == 3
         for name in want:
             np.testing.assert_array_equal(res[f'grad.{name}'],
                                           ranks[0][f'grad.{name}'])

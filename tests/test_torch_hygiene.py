@@ -135,18 +135,38 @@ def test_cpu_runs_launch_no_kernel():
     assert [f.launches for f in counters] == before == [0] * 12
 
 
-def test_cpu_tools_launch_no_kernel(monkeypatch):
-    """Each probe tool run through on the CPU (plain versions) moves no
-    kernel's counter."""
+# What each tool's CPU run prints of its modes; the heads of its batch
+# there (its other shapes as the tool sets them: the 1,100-token budget
+# gives one sequence and the padding tail, a ragged last tile)
+TOOL_OUTPUT = {fwd_T_experiment: 'fwd_T', flash_variants: 'baseline',
+               decompose_bwd: 'dkv no_acc', profile_attn: 'dma'}
+TOOL_CPU_HEADS = 2
+
+
+@pytest.mark.parametrize('tool', list(TOOL_OUTPUT),
+                         ids=lambda t: t.__name__.rsplit('.', 1)[-1])
+def test_cpu_tools_launch_no_kernel(tool, monkeypatch):
+    """Each probe tool run through on the CPU (plain versions, every mode)
+    moves no kernel's counter. Its batch has 2 heads, and torch takes one
+    thread: the plain versions' work is ~75 CPU-seconds at 20 heads, and
+    beside other test processes each taking every core, its threads
+    contend (680 s in one run of the suite on six workers)."""
     import contextlib
+    import functools
     import io
     from esme_tpu_torch import tools
     monkeypatch.setattr(tools, 'CPU_BUDGET', 1100)
-    with contextlib.redirect_stdout(io.StringIO()) as out:
-        for tool in (fwd_T_experiment, flash_variants, decompose_bwd,
-                     profile_attn):
+    monkeypatch.setattr(tool, 'attention_batch', functools.partial(
+        tools.attention_batch, heads=TOOL_CPU_HEADS))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as out:
             tool.main(['--device', 'cpu'])
-    assert 'baseline' in out.getvalue() and 'dkv no_acc' in out.getvalue()
+    finally:
+        torch.set_num_threads(threads)
+    assert TOOL_OUTPUT[tool] in out.getvalue()
+    assert f'H={TOOL_CPU_HEADS} ' in out.getvalue()
     assert [f.launches for f in TOOL_COUNTERS] == [0] * 7
 
 

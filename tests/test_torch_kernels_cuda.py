@@ -1410,6 +1410,89 @@ def test_lora_fine_tune_step_kernels_match_plain(cuda, monkeypatch):
 
 
 @pytest.mark.cuda
+def test_sharded_lora_step_kernels_match_plain(cuda, monkeypatch):
+    """One step of ``ShardedMaskedPLM(lora_only=True, seq_axis='seq')`` in
+    a one-rank NCCL world on a ``(1, 1, 1)`` mesh, LoRA rank 8 on query,
+    value and output (every ``b`` non-zero), bf16, 2 layers of width 128
+    and head dim 64: launches exact (H9 L, H10 L, H3 2L of which L
+    inverse, H1 and H2 never); the loss within 2^-8 of the plain versions'
+    and every adapter's gradient under ``chip_smoke.py``'s phase 5 gates
+    (cosine at least 0.99, max|Δ| at most 0.1·max|g|); frozen leaves take
+    no gradient, and an update leaves them bit-unchanged."""
+    import socket
+    import torch.distributed as dist
+    from esme_tpu_torch import ESM2, mask_tokens, tokenize_unpad
+    from esme_tpu_torch.parallel import initialize_distributed, make_mesh
+    from esme_tpu_torch.train import ShardedMaskedPLM
+    from types import SimpleNamespace
+    rng = np.random.default_rng(6)
+    seqs = [''.join(rng.choice(list('LAGVSERTIDPKQNFYMHWC'), int(n)))
+            for n in rng.integers(30, 400, 12)]
+    tok, _, cu, max_len = tokenize_unpad(seqs)
+    masked, mask = mask_tokens(tok, rng=np.random.default_rng(7))
+    batch = SimpleNamespace(tokens=tok, masked_tokens=masked, mask=mask,
+                            cu_lens=cu, max_len=max_len)
+    model = ESM2(num_layers=2, embed_dim=128, attention_heads=2, rng=0,
+                 device=cuda)
+    model.add_lora(rank=8, alpha=8)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1)
+    for p in model.params['layers']['attn'].values():
+        for ad in p.get('lora', {}).values():
+            ad['b'].copy_(torch.randn(ad['b'].shape, generator=gen,
+                                      device=cuda) * 0.05)
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        port = sock.getsockname()[1]
+    initialize_distributed(f'127.0.0.1:{port}', 1, 0, device='cuda')
+    try:
+        mesh = make_mesh(1, 1, seq=1, device='cuda')
+        plm = ShardedMaskedPLM(model, mesh, lora_only=True, seq_axis='seq')
+        counters = (flash.segment_flash_fwd, flash.segment_flash_bwd,
+                    headsplit.rotary_qk)
+
+        def count():
+            return [c.launches for c in counters] + [
+                flash.segment_flash_fwd.rect_launches,
+                flash.segment_flash_bwd.rect_launches,
+                headsplit.rotary_qk.inverse_launches]
+        before = count()
+        loss, got = plm._grad_step([batch])
+        torch.cuda.synchronize()
+        assert [b - a for a, b in zip(before, count())] == [0, 0, 4, 2, 2, 2]
+        with monkeypatch.context() as m:
+            m.setattr(flash, 'segment_flash_fwd',
+                      flash.segment_flash_fwd_plain)
+            m.setattr(flash, 'segment_flash_bwd',
+                      flash.segment_flash_bwd_plain)
+            m.setattr(headsplit, 'rotary_qk', headsplit.rotary_qk_plain)
+            loss_p, ref = plm._grad_step([batch])
+        assert abs(loss.item() - loss_p.item()) <= \
+            2.0 ** -8 * abs(loss_p.item())
+        pairs = dict(_flat_tree(ref))
+        n = 0
+        for name, a in _flat_tree(got):
+            b = pairs[name]
+            if a is None or b is None:
+                assert a is None and b is None, name
+                assert '.lora.' not in name or name.endswith('.scale'), name
+                continue
+            a, b = a.float().ravel(), b.float().ravel()
+            cos = (a @ b / (a.norm() * b.norm())).item()
+            rel = ((a - b).abs().max() / b.abs().max()).item()
+            assert cos >= 0.99 and rel <= 0.1, (name, cos, rel)
+            n += 1
+        assert n == 3 * 2
+        frozen = {name: t.clone() for name, t in _flat_tree(plm.params)
+                  if '.lora.' not in name or name.endswith('.scale')}
+        plm.training_step([batch])
+        now = dict(_flat_tree(plm.params))
+        assert all(torch.equal(now[k], t) for k, t in frozen.items())
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
 def test_lora_dropout_on_the_card(cuda):
     """LoRA dropout on a CUDA tensor: the keep rate within 5 standard
     deviations of 1 - p over 2^20 draws, kept values scaled by exactly

@@ -1,6 +1,6 @@
 """The ranks of the port's context-parallel tests
 (``tests/test_torch_context.py``, ``tests/test_torch_cp_train.py``,
-``tests/test_torch_memory.py``): each
+``tests/test_torch_memory.py``, ``tests/test_torch_sharded_lora.py``): each
 runs in a process of its own, spawned by the test, and joins a gloo group
 of ``n`` ranks on ``127.0.0.1``. This module imports neither JAX nor the JAX package, so
 that a spawned rank loads only the port."""
@@ -16,7 +16,8 @@ from esme_tpu_torch.ops import flash
 from esme_tpu_torch.parallel import (context_parallel_log_prob,
                                      forward_flat_cp, initialize_distributed,
                                      make_kv_gather, make_mesh)
-from esme_tpu_torch.train import ShardedMaskedPLM, adam8bit
+from esme_tpu_torch.train import CheckpointManager, ShardedMaskedPLM, adam8bit
+from esme_tpu_torch.train.trainer import _leaves as _tensors
 
 CLASSES = {'esm2': ESM2, 'esmc': ESMC, 'esm1b': ESM1b, 'esm1v': ESM1v}
 IMPLS = ('flash', 'reference')
@@ -63,8 +64,9 @@ def train_rank(rank, n, port, mesh_shape, family, cfg, params, batches,
     ``ShardedMaskedPLM(seq_axis='seq')``'s loss and full gradients of one
     step without an update (``_grad_step``), then the losses of two
     ``training_step``s, the params gathered back from the shards after
-    them, and the checks that its constructor and step refuse what JAX
-    refuses; written to ``out``/rank<r>.npz (the gradients under
+    them, and the checks that its constructor and step refuse what they
+    must (an axis the mesh lacks, a token count the seq axis does not
+    divide, an optimizer that is not a factory); written to ``out``/rank<r>.npz (the gradients under
     ``grad.<leaf>``, the params under ``param.<leaf>``)."""
     torch.set_num_threads(1)
     initialize_distributed(f'127.0.0.1:{port}', n, rank, device='cpu')
@@ -97,12 +99,6 @@ def train_rank(rank, n, port, mesh_shape, family, cfg, params, batches,
             refused.append(seq == 1 or 'not divisible' in str(e))
         else:
             refused.append(seq == 1)
-        for kw in ({'lora_only': True}, {'train_lmhead': True},
-                   {'trainable_mask': {}}):
-            try:
-                ShardedMaskedPLM(model, mesh, **kw)
-            except NotImplementedError as e:
-                refused.append('slice' in str(e))
         try:          # an optimizer is a factory of param groups
             ShardedMaskedPLM(model, mesh, optimizer=object())
         except TypeError as e:
@@ -247,6 +243,106 @@ def adam8bit_rank(rank, n, port, mesh_shape, cfg, params, batches, out):
                               for k in ('mu', 'nu')])
         res.update({f'param.{k}': v
                     for k, v in _flat(plm.unsharded_params()).items()})
+        np.savez(f'{out}/rank{rank}.npz', **res)
+    finally:
+        dist.destroy_process_group()
+
+
+def _named(tree, path=()):
+    """``(dotted path, tensor)`` for every leaf of ``tree``."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _named(v, path + (k,))
+        else:
+            yield '.'.join(path + (k,)), v
+
+
+def lora_rank(rank, n, port, mesh_shape, cfg, params, lora_kwargs, batches,
+              opts, out):
+    """Rank ``rank`` of a ``(data, fsdp, seq)`` world: ``ShardedMaskedPLM``
+    over a model with LoRA adapters (``lora_kwargs``; a dense or quantized
+    trunk), with ``opts``' ``seq_axis``, ``lora_only``, ``train_lmhead``
+    and ``trainable_mask``. Writes to ``out``/rank<r>.npz: the loss and
+    the trainable leaves' gradients of one ``_grad_step``
+    (``grad.<leaf>``); the losses of two ``training_step``s; the params
+    gathered back after them (``param.<leaf>``, their own dtypes); the
+    trained leaves' paths (``trained``), whether a frozen view has a
+    ``.grad`` or requires one (``frozen_grads``), the optimizer's state
+    tensors, their bytes and the bytes of the trained shards' two
+    moments; with ``opts['dropout']``, the loss of a ``_grad_step`` of the
+    same model with ``dropout_p`` set to it (``dropout_loss``); with
+    ``opts['resume']``, a checkpoint of the state after the two steps in
+    ``out``/ckpt, a third step, and the same third step of a fresh trainer
+    that restored the checkpoint (``resume.*``); and with ``grad_accum=2``
+    a checkpoint inside the first cycle, the update that ends it, and the
+    same update of a fresh trainer that restored it
+    (``resume.accum.*``)."""
+    torch.set_num_threads(1)
+    initialize_distributed(f'127.0.0.1:{port}', n, rank, device='cpu')
+    try:
+        data, fsdp, seq = mesh_shape
+        mesh = make_mesh(data, fsdp, seq=seq, device='cpu')
+        model = ESM2(config=cfg, params=params, device='cpu')
+        model.lora_kwargs = dict(lora_kwargs)
+        kw = {k: opts[k] for k in ('seq_axis', 'lora_only', 'train_lmhead',
+                                   'trainable_mask') if k in opts}
+
+        def trainer(**extra):
+            return ShardedMaskedPLM(model, mesh, learning_rate=1e-3, **kw,
+                                    **extra)
+        plm = trainer()
+        loss, grads = plm._grad_step(batches)
+        res = {'loss': loss.numpy()}
+        res.update({f'grad.{k}': v.numpy()
+                    for k, v in _named(grads) if v is not None})
+        res['losses'] = np.array([plm.training_step(batches)
+                                  for _ in range(2)])
+        res.update({f'param.{k}': v.numpy()
+                    for k, v in _named(plm.unsharded_params())})
+        views = list(_tensors(plm._views))
+        res['frozen_grads'] = np.array([
+            t.requires_grad or t.grad is not None for t in views
+            if not any(t is u for u in plm._trained)])
+        res['trained'] = np.array([
+            k for k, v in _named(grads) if v is not None])
+        opt = plm.optimizer
+        res['opt_tensors'] = np.array(sum(
+            torch.is_tensor(v) and v.dim() > 0
+            for st in opt.state.values() for v in st.values()))
+        res['opt_bytes'] = np.array(sum(
+            v.numel() * v.element_size() for st in opt.state.values()
+            for v in st.values() if torch.is_tensor(v) and v.dim() > 0))
+        res['moment_bytes'] = np.array(sum(
+            2 * t.numel() * t.element_size() for t in plm._trained))
+        if opts.get('dropout'):
+            model.lora_kwargs['dropout_p'] = opts['dropout']
+            res['dropout_loss'] = trainer()._grad_step(batches)[0].numpy()
+            model.lora_kwargs = dict(lora_kwargs)
+        if opts.get('resume'):
+            mgr = CheckpointManager(f'{out}/ckpt', monitor=None)
+            mgr.save(plm.step, plm.state)
+            res['resume.loss'] = np.array(plm.training_step(batches))
+            fresh = trainer()
+            fresh.state = mgr.restore(fresh.state)
+            res['resume.step'] = np.array(fresh.step)
+            res['resume.fresh_loss'] = np.array(fresh.training_step(batches))
+            res['resume.steps'] = np.array(mgr.all_steps())
+            for tag, t in (('', plm), ('fresh.', fresh)):
+                res.update({f'resume.{tag}param.{k}': v.numpy()
+                            for k, v in _named(t.unsharded_params())})
+            # inside a grad_accum cycle: the gradients gathered so far
+            # are part of the state
+            mgr = CheckpointManager(f'{out}/ckpt_accum', monitor=None)
+            cut = trainer(grad_accum=2)
+            cut.training_step(batches)
+            mgr.save(cut.step, cut.state)
+            cut.training_step(batches)
+            fresh = trainer(grad_accum=2)
+            fresh.state = mgr.restore(fresh.state)
+            fresh.training_step(batches)
+            for tag, t in (('', cut), ('fresh.', fresh)):
+                res.update({f'resume.accum.{tag}param.{k}': v.numpy()
+                            for k, v in _named(t.unsharded_params())})
         np.savez(f'{out}/rank{rank}.npz', **res)
     finally:
         dist.destroy_process_group()
