@@ -378,6 +378,27 @@ line is phase 12's JSON:
    ``RESUME_CUT`` steps, saved, restored into a fresh trainer: the next
    step's loss and every param bit-equal to the uninterrupted run's; the
    checkpoint's bytes and its save and restore seconds logged.
+18. a sharded training state restored on a mesh of another shape
+   (``check_phase18``), every line naming the card and its power limit,
+   for each cell of ``RESHARD_CELLS`` in a one-rank NCCL world on a (1, 1,
+   1) mesh: (a) ``ShardedMaskedPLM(grad_accum=2, seq_axis='seq')`` over
+   ESM2-650M (seed-0 weights) trains ``RESHARD_CUT`` micro-steps on phase
+   5's ``nockpt@10k`` batch (one update, a cycle left open) and
+   ``CheckpointManager`` saves its part; (b) a gloo world of spawned
+   processes on the host (another machine's ranks; they import only the
+   port, build the model's skeleton with zero weights, run no forward and
+   take ``RESHARD_HOST_THREADS`` threads each) restores that checkpoint on
+   the cell's mesh and saves it again; (c) a fresh trainer on the card
+   restores (b)'s parts: every param, optimizer tensor and scalar, the step
+   and the open cycle's gradients bit-equal to (a)'s saved part, the next
+   micro-step's loss and every param after it bit-equal to the
+   uninterrupted run's, its launches exact (H9 33, H10 33, H3 66 of which
+   33 inverse, H1 and H2 never). Cells: every leaf under Adam with the host
+   world on (2, 2, 1); phase 14's adapters over the trunk quantized to NF4
+   on the card, ``lora_only`` under ``adam8bit`` (e5m2 codes, the frozen
+   uint8 and int32 leaves), its host world on (1, 2, 1). Logged: the
+   checkpoints' bytes, the save and restore seconds on the card and on the
+   host, the host ranks' peak resident memory.
 
 Each phase's seconds are logged and kept in the measurements line
 (``phase_s``). The last three lines are the kernels' JSON, the measurements' JSON and
@@ -2491,6 +2512,12 @@ def main(argv):
                      for cell, trunk in (('a_lora', 'dense'),
                                          ('b_qlora', 'nf4'))
                      for trainer in ('sharded', 'masked_plm')}
+
+    # 18. a sharded state restored on a mesh of another shape
+    phase18 = check_phase18(dev, card)
+    phase_done(18)
+    reshard_launches = {kind: phase18[kind]['launches']
+                        for kind, _ in RESHARD_CELLS}
     big_qlora = next((n for n in SIZE_QLORA if 'qlora' in sizes.get(n, {})),
                      None)
     if big_qlora:
@@ -2544,6 +2571,8 @@ def main(argv):
                             'qlora_step': qlora_step[H1_NAME]},
          'lora_step_launches': {key: c[H1_NAME]
                                 for key, c in lora_launches.items()},
+         'reshard_step_launches': {key: c[H1_NAME]
+                                   for key, c in reshard_launches.items()},
          'max_abs_err': h1_err,
          'lse_max_abs_err': h1_lse_err, 'ms': h1_ms,
          'plain_ms': h1_plain_ms, 'bound_ms': h1_bound, 'bound_by': h1_by,
@@ -2576,6 +2605,8 @@ def main(argv):
                             'qlora_step': qlora_step[H2_NAME]},
          'lora_step_launches': {key: c[H2_NAME]
                                 for key, c in lora_launches.items()},
+         'reshard_step_launches': {key: c[H2_NAME]
+                                   for key, c in reshard_launches.items()},
          'max_abs_err': h2_err, 'gate_share': max(h2_share, h2_check_share),
          'ms': h2_ms, 'plain_ms': h2_plain_ms, 'bound_ms': h2_bound,
          'bound_by': h2_by, 'library_ms': h2_lib_ms,
@@ -2609,6 +2640,10 @@ def main(argv):
                                 for key, c in lora_launches.items()},
          'lora_step_inverse_launches': {key: c['rope_inverse'] for key, c
                                         in lora_launches.items()},
+         'reshard_step_launches': {key: c[H3_NAME]
+                                   for key, c in reshard_launches.items()},
+         'reshard_step_inverse_launches': {
+             key: c['rope_inverse'] for key, c in reshard_launches.items()},
          'max_abs_err': rope_err,
          'ms': h3_ms, 'plain_ms': h3_plain_ms, 'bound_ms': h3_bound,
          'bound_by': h3_by, 'library_ms': None,
@@ -2637,9 +2672,13 @@ def main(argv):
         {**h9, 'attn_train_launches': memory['c_context_parallel']['attn'][
             'launches'][H9_NAME],
          'lora_step_launches': {key: c[H9_NAME]
-                                for key, c in lora_launches.items()}},
+                                for key, c in lora_launches.items()},
+         'reshard_step_launches': {key: c[H9_NAME]
+                                   for key, c in reshard_launches.items()}},
         {**h10, 'lora_step_launches': {key: c[H10_NAME]
-                                       for key, c in lora_launches.items()}},
+                                       for key, c in lora_launches.items()},
+         'reshard_step_launches': {key: c[H10_NAME]
+                                   for key, c in reshard_launches.items()}},
         *probe_kernels,
         *family_kernels,
     ]
@@ -2665,6 +2704,7 @@ def main(argv):
         'phase15': phase15,
         'quant': quant,
         'phase17': phase17,
+        'phase18': phase18,
         'phase_s': phase_s,
         'build_s': build_s,
         'model_checks': model_checks, 'torch': torch.__version__,
@@ -6732,6 +6772,287 @@ def check_phase17(dev, card):
         card, 'phase 17 (c) MaskedPLM(offload_optimizer=True)'))
     del base
     torch.cuda.empty_cache()
+    out['seconds'] = seconds
+    return out
+
+
+# Phase 18: a sharded training state restored on a mesh of another shape
+# (CheckpointManager.restore with a ShardedMaskedPLM state as template).
+# Each cell of RESHARD_CELLS: (a) ESM2-650M trains on the card in a
+# one-rank NCCL world on a (1, 1, 1) mesh through
+# ShardedMaskedPLM(grad_accum=2, seq_axis='seq') for RESHARD_CUT
+# micro-steps on phase 5's nockpt@10k batch (an update, then a cycle left
+# open) and saves; (b) a gloo world of host ranks on the cell's mesh
+# (another machine's ranks: processes that import only the port and run
+# no forward) restores that checkpoint and saves it again; (c) the card
+# restores (b)'s parts on (1, 1, 1) and takes the next micro-step.
+RESHARD_CUT = 3
+RESHARD_CELLS = (('dense', (2, 2, 1)), ('nf4_lora', (1, 2, 1)))
+RESHARD_HOST_THREADS = 2
+RESHARD_HOST_TIMEOUT = 600
+
+
+def reshard_skeleton(kind):
+    """ESM2 at ``MODEL`` on the host, bf16, with zero weights: a one-layer
+    model's tree (for ``'nf4_lora'`` quantized to NF4, with phase 14's
+    adapters) with each stacked leaf widened to ``MODEL``'s depth, so that
+    every leaf has the model's shape and dtype without a 33-layer init
+    on the host (a restore writes every leaf)."""
+    from esme_tpu_torch import ESM2
+    from esme_tpu_torch.models.config import esm2_config
+    one = ESM2(**{**MODEL, 'num_layers': 1}, dtype='bfloat16', rng=0,
+               device='cpu')
+    if kind == 'nf4_lora':
+        one.quantize('4bit')
+        one.add_lora(rank=FT_RANK, alpha=FT_RANK,
+                     layers=('query', 'value', 'output'),
+                     adapter_names=['ft'])
+    depth = (MODEL['num_layers'],)
+
+    def zeros(tree, stacked):
+        return {k: zeros(v, stacked) if isinstance(v, dict) else torch.zeros(
+            depth + v.shape[1:] if stacked else v.shape, dtype=v.dtype)
+            for k, v in tree.items()}
+    params = zeros({k: v for k, v in one.params.items() if k != 'layers'},
+                   False)
+    params['layers'] = zeros(one.params['layers'], True)
+    model = ESM2(config=esm2_config(**MODEL, dtype='bfloat16'),
+                 params=params, device='cpu')
+    model.lora_kwargs = one.lora_kwargs
+    return model
+
+
+def reshard_trainer(kind, model, mesh):
+    """The cell's trainer: ``ShardedMaskedPLM(grad_accum=2,
+    seq_axis='seq')`` with Adam (``'dense'``) or over the adapters with
+    ``adam8bit`` (``'nf4_lora'``)."""
+    from esme_tpu_torch.train import ShardedMaskedPLM, adam8bit
+    opts = dict(lora_only=True, optimizer=adam8bit(1e-4)) \
+        if kind == 'nf4_lora' else {}
+    return ShardedMaskedPLM(model, mesh, learning_rate=1e-4, grad_accum=2,
+                            seq_axis='seq', **opts)
+
+
+def reshard_host_rank(rank, n, port, kind, shape, src, dst, out):
+    """Rank ``rank`` of (b)'s host world of ``n`` ranks on the ``(data,
+    fsdp, seq)`` mesh ``shape``: the cell's trainer over
+    :func:`reshard_skeleton` restores checkpoint directory ``src`` and
+    saves its part to ``dst``; writes its seconds, its resident memory at
+    its start and its peak (sampled every 10 ms) to
+    ``out``/host_rank<r>.json."""
+    import threading
+    import torch.distributed as dist
+    from esme_tpu_torch.parallel import initialize_distributed, make_mesh
+    from esme_tpu_torch.train import CheckpointManager
+    torch.set_num_threads(RESHARD_HOST_THREADS)
+    # the peak resident memory, sampled: the card's host has no VmHWM
+    # in /proc, and getrusage's peak carries the parent's over the exec
+    start = rss_gib()
+    peak, stop = [start], threading.Event()
+
+    def sample():
+        while not stop.wait(0.01):
+            peak[0] = max(peak[0], rss_gib())
+    threading.Thread(target=sample, daemon=True).start()
+    t0 = time.perf_counter()
+    model = reshard_skeleton(kind)
+    initialize_distributed(f'127.0.0.1:{port}', n, rank, device='cpu')
+    try:
+        mesh = make_mesh(shape[0], shape[1], seq=shape[2], device='cpu')
+        plm = reshard_trainer(kind, model, mesh)
+        t1 = time.perf_counter()
+        plm.state = CheckpointManager(src, monitor=None).restore(plm.state)
+        t2 = time.perf_counter()
+        CheckpointManager(dst, monitor=None).save(plm.step, plm.state)
+        t3 = time.perf_counter()
+    finally:
+        dist.destroy_process_group()
+    stop.set()
+    with open(os.path.join(out, f'host_rank{rank}.json'), 'w') as f:
+        json.dump({'build_s': t1 - t0, 'restore_s': t2 - t1,
+                   'save_s': t3 - t2, 'step': plm.step,
+                   'start_rss_gib': start,
+                   'peak_rss_gib': max(peak[0], rss_gib())}, f)
+
+
+def reshard_host_world(kind, shape, src, dst, tmp, what):
+    """(b): one spawned process per rank of ``shape`` running
+    :func:`reshard_host_rank`; every process is joined or killed. Fails
+    unless each exits 0. Returns the world's wall seconds and the
+    ranks' largest seconds and peak resident memory."""
+    import multiprocessing
+    n = math.prod(shape)
+    ctx = multiprocessing.get_context('spawn')
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=reshard_host_rank,
+                         args=(r, n, port, kind, shape, src, dst, tmp))
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + RESHARD_HOST_TIMEOUT
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    wall = time.perf_counter() - t0
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * n:
+        fail(f'{what}: the host ranks exited with {codes}')
+    ranks = []
+    for r in range(n):
+        with open(os.path.join(tmp, f'host_rank{r}.json')) as f:
+            ranks.append(json.load(f))
+    out = {'ranks': n, 'mesh': list(shape), 'wall_s': wall,
+           'peak_rss_gib_sum': sum(r['peak_rss_gib'] for r in ranks),
+           'steps': sorted({r['step'] for r in ranks})}
+    out.update({key: max(r[key] for r in ranks) for key in (
+        'build_s', 'restore_s', 'save_s', 'start_rss_gib', 'peak_rss_gib')})
+    return out
+
+
+def _same_bits(a, b) -> bool:
+    b = b.to(a.device)
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def state_differs(state, saved) -> list:
+    """Where the sharded state ``state`` differs from the part ``saved``,
+    bit for bit: params, the optimizer's tensors, scalars and groups, the
+    step, the open cycle's gradients."""
+    out = []
+    a, b = dict(_named_leaves(state.params)), dict(_named_leaves(saved.params))
+    out += [f'param {k}' for k in sorted(set(a) | set(b))
+            if k not in a or k not in b or not _same_bits(a[k], b[k])]
+    so, sb = state.opt_state, saved.opt_state
+    if so['param_groups'] != sb['param_groups']:
+        out.append('optimizer groups')
+    if so['state'].keys() != sb['state'].keys():
+        out.append('optimizer ids')
+    for pid, st in so['state'].items():
+        for key, v in st.items():
+            w = sb['state'].get(pid, {}).get(key)
+            same = _same_bits(v, w) if torch.is_tensor(v) and \
+                torch.is_tensor(w) else v == w
+            if not same:
+                out.append(f'optimizer {pid} {key}')
+    if state.step != saved.step:
+        out.append('step')
+    ga, gb = state.accum, saved.accum
+    if ga is None or gb is None or len(ga) != len(gb):
+        if not (ga is None and gb is None):
+            out.append('accum')
+    else:
+        out += [f'accum {i}' for i, (x, y) in enumerate(zip(ga, gb))
+                if (x is None) != (y is None)
+                or (x is not None and not _same_bits(x, y))]
+    return out
+
+
+def reshard_cell(kind, model, mesh, host_shape, batch, card, tmp):
+    """One cell of phase 18 ((a)-(c) above) in ``tmp``. Gates: the state
+    restored in (c) bit-equal to (a)'s saved part (params, optimizer
+    state, step, open cycle); the resumed micro-step's loss and every
+    param bit-equal to the uninterrupted one's; its launches exact (H9 L,
+    H10 L, H3 2L of which L inverse, H1 and H2 never). Logs the
+    checkpoints' bytes, the save and restore seconds on the card and on
+    the host, and the host ranks' peak resident memory."""
+    from esme_tpu_torch.train import CheckpointManager
+    from esme_tpu_torch.train.checkpoint import _load
+    what = f'[{card}] phase 18 {kind}'
+    L = model.config.num_layers
+    src, dst = os.path.join(tmp, 'a'), os.path.join(tmp, 'b')
+    plm = reshard_trainer(kind, model, mesh)
+    for _ in range(RESHARD_CUT):
+        plm.training_step([batch])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    CheckpointManager(src, monitor=None).save(plm.step, plm.state)
+    save_s = time.perf_counter() - t0
+    loss = plm.training_step([batch])
+    want = {n: t.clone() for n, t in _named_leaves(plm.params)}
+    del plm
+    torch.cuda.empty_cache()
+    host = reshard_host_world(kind, host_shape, src, dst, tmp, what)
+    log(f'{what} (b): {host["ranks"]} gloo ranks on the host on a '
+        f'{tuple(host_shape)} mesh (another machine\'s ranks, no forward) '
+        f'restored and saved again in {host["wall_s"]:.2f} s wall (build '
+        f'{host["build_s"]:.2f} s, restore {host["restore_s"]:.2f} s, save '
+        f'{host["save_s"]:.2f} s, the slowest rank of each); peak resident '
+        f'memory {host["peak_rss_gib"]:.2f} GiB a rank (at its start, '
+        f'the port imported: {host["start_rss_gib"]:.2f} GiB), '
+        f'{host["peak_rss_gib_sum"]:.2f} GiB summed')
+    if host['steps'] != [RESHARD_CUT]:
+        fail(f'{what}: the host ranks restored steps {host["steps"]}')
+    fresh = reshard_trainer(kind, model, mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh.state = CheckpointManager(dst, monitor=None).restore(fresh.state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    saved = _load(os.path.join(src, str(RESHARD_CUT), 'rank0.pt'),
+                  mmap=True)
+    differ = state_differs(fresh.state, saved)
+    del saved
+    reset_counters()
+    got = fresh.training_step([batch])
+    torch.cuda.synchronize()
+    launches = read_counters()
+    leaves = [n for n, t in _named_leaves(fresh.params)
+              if not _same_bits(t, want[n])]
+    del fresh, want
+    torch.cuda.empty_cache()
+    sizes = {k: _dir_bytes(d) for k, d in (('a', src), ('b', dst))}
+    log(f'{what}: (a) checkpoint of {sizes["a"]:,} bytes after '
+        f'{RESHARD_CUT} micro-steps saved in {save_s:.2f} s on the card; '
+        f'(b)\'s {sizes["b"]:,} bytes in {host["ranks"]} parts; (c) '
+        f'restored on (1, 1, 1) in {restore_s:.2f} s; the state against '
+        f'(a)\'s, places that differ: {differ[:8]} ({len(differ)}); '
+        f'micro-step {RESHARD_CUT + 1} loss {got!r} resumed vs {loss!r} '
+        f'uninterrupted; leaves that differ: {leaves[:8]} ({len(leaves)}); '
+        f'launches {launches}')
+    expect_launches(f'{what} (c)', launches, **{
+        H9_NAME: L, H10_NAME: L, H3_NAME: 2 * L, 'rope_inverse': L})
+    if differ or got != loss or leaves:
+        fail(f'{what}: the round trip is not bit-equal: state {differ}, '
+             f'loss {got} vs {loss}, leaves {leaves}')
+    return {'bytes_a': sizes['a'], 'bytes_b': sizes['b'],
+            'save_s': save_s, 'restore_s': restore_s, 'host': host,
+            'loss': loss, 'launches': launches}
+
+
+def check_phase18(dev, card):
+    """Phase 18: each cell of ``RESHARD_CELLS`` through
+    :func:`reshard_cell`, in one one-rank NCCL world on a (1, 1, 1) mesh:
+    ESM2-650M (seed-0 weights) trained fully under Adam, its host world
+    on (2, 2, 1); the same with phase 14's adapters over the trunk
+    quantized to NF4 on the card, ``lora_only`` under ``adam8bit``, its
+    host world on (1, 2, 1)."""
+    import torch.distributed as dist
+    from esme_tpu_torch import ESM2
+    from esme_tpu_torch.parallel import initialize_distributed, make_mesh
+    out, seconds = {}, {}
+    initialize_distributed(f'127.0.0.1:{free_port()}', 1, 0,
+                           device=dev.type)
+    try:
+        mesh = make_mesh(1, 1, seq=1, device=dev.type)
+        for kind, host_shape in RESHARD_CELLS:
+            t0 = time.perf_counter()
+            model = lora_model(dev, '4bit') if kind == 'nf4_lora' else \
+                ESM2(**MODEL, dtype='bfloat16', rng=0, device=dev)
+            batch, _ = train_batch(TRAIN_CELLS[0][1], model)
+            with tempfile.TemporaryDirectory() as tmp:
+                out[kind] = reshard_cell(kind, model, mesh, host_shape,
+                                         batch, card, tmp)
+            del model
+            torch.cuda.empty_cache()
+            seconds[kind] = time.perf_counter() - t0
+            log(f'[{card}] phase 18 {kind}: {seconds[kind]:.1f} s')
+    finally:
+        dist.destroy_process_group()
     out['seconds'] = seconds
     return out
 

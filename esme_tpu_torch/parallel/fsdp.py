@@ -21,7 +21,11 @@ over the ``fsdp`` axis of a mesh:
   output dim);
 * the layer gather runs inside the checkpointed layer, so with
   checkpointing it runs again in the backward instead of keeping the
-  full weights (ZeRO-3 semantics).
+  full weights (ZeRO-3 semantics);
+* :func:`reshard_leaf` moves a leaf between two layouts (another shard
+  count, dim, or none), one leaf at a time and without a collective: a
+  checkpoint's restore on a mesh of another shape
+  (``train/checkpoint.py``).
 
 JAX's ``PartitionSpec`` tree becomes a tree of shard dims: per leaf the
 dimension sharded over the axis, or None for a replicated leaf. The rule
@@ -90,6 +94,27 @@ def shard_params(params: dict, mesh: DeviceMesh, specs: Optional[dict] = None,
         return (leaf if d is None else leaf.chunk(n, d)[r]) \
             .clone(memory_format=torch.contiguous_format)
     return _map(shard, params, specs), specs
+
+
+def reshard_leaf(blocks: list, dim: Optional[int], new_dim: Optional[int],
+                 new_n: int, index: int) -> torch.Tensor:
+    """The block that rank ``index`` of ``new_n`` holds of a leaf that
+    another layout saved as ``blocks``: the ``len(blocks)`` blocks of its
+    dim ``dim`` in rank order, or, for ``dim`` None (replicated), copies
+    of the whole leaf (the first is read). ``new_dim`` None: the whole
+    leaf. A contiguous copy, exact for every dtype (int8 and NF4 storage,
+    e5m2 codes): the leaf is rebuilt by concatenation and cut anew, so
+    the two layouts may shard different dims, and at most one whole leaf
+    and its blocks are in memory at once."""
+    whole = blocks[0] if dim is None or len(blocks) == 1 \
+        else torch.cat(list(blocks), dim)
+    if new_dim is not None:
+        if whole.shape[new_dim] % new_n:
+            raise ValueError(f'dim {new_dim} of a leaf of '
+                             f'{tuple(whole.shape)} does not split in '
+                             f'{new_n}')
+        whole = whole.chunk(new_n, new_dim)[index]
+    return whole.clone(memory_format=torch.contiguous_format)
 
 
 def gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:

@@ -27,14 +27,42 @@ one, each part from where it lives: every rank of the default process
 group calls :meth:`CheckpointManager.save` with its own part and writes
 ``rank<r>.pt`` into the temporary directory, and rank 0 renames the
 directory into place once every rank's part is complete (barriers of the
-process group around it); :meth:`~CheckpointManager.restore` reads each
-rank's own part back. A part restores only on a mesh of the shape and at
-the rank it was saved from.
+process group around it). :meth:`~CheckpointManager.restore` with a
+sharded trainer's state as template gives each rank its own part: on a
+mesh of the layout the state was saved from, the rank's own file; on a
+mesh of another shape (other ``data``, ``fsdp`` or ``seq`` sizes, or
+another ``seq_axis``), its part resharded from the saved ones, as orbax
+restores into the template's shardings (``esme_tpu/train/checkpoint.py:
+54-86``). Each rank reads the files, memory-mapped and one leaf at a
+time, and runs no collective, so parts saved by a gloo world on the host
+restore in an NCCL world on the card and the other way round:
+
+* params (frozen and quantized leaves included) and every optimizer
+  state tensor of its param's shape (Adam's moments, ``adam8bit``'s e5m2
+  codes) are rebuilt from the blocks of data row 0 and ``seq`` 0 and cut
+  along the template's shard dim
+  (:func:`~esme_tpu_torch.parallel.fsdp.reshard_leaf`); a scalar (a step
+  count, ``adam8bit``'s scales, global over ``fsdp``) is taken once and
+  must be equal in every part;
+* an open ``grad_accum`` cycle keeps what the cycle's end would sum
+  (``ShardedMaskedPLM._reduce_grads``): each leaf's ``.grad`` summed over
+  its old reduce group in coordinate order (the loss axes, and for a
+  replicated leaf ``fsdp`` too: its gradient is each rank's share of a
+  loss divided by the ``fsdp`` size) goes to the rank at coordinate 0 of
+  its new group, and ``-0.0`` to the others, so that the new cycle's sum
+  is that total (``x + -0.0`` is ``x`` for every ``x``, the sign of a
+  zero included). JAX needs no such step: ``optax.MultiSteps`` keeps its
+  gradients already reduced;
+* a template of another model, trainable mask or optimizer raises
+  ``ValueError`` naming the leaf, as does a checkpoint saved before a part
+  recorded its layout (no ``specs``), which restores only on its own mesh
+  shape.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 from pathlib import Path
@@ -43,7 +71,8 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from .distributed import ShardedTrainState
+from ..parallel.fsdp import reshard_leaf
+from .distributed import ShardedTrainState, _named, check_views
 from .trainer import TrainState
 
 _STATES = {'train_state': TrainState,
@@ -63,6 +92,198 @@ def _to_devices(saved, template):
     if torch.is_tensor(saved) and torch.is_tensor(template):
         return saved.to(template.device)
     return saved
+
+
+def _load(path, mmap: bool = False):
+    """A state file's content (a trainer state as its class); with
+    ``mmap`` its tensors map the file and are read where used."""
+    saved = torch.load(path, map_location='cpu', weights_only=True,
+                       mmap=mmap)
+    if isinstance(saved, dict) and len(saved) == 1 \
+            and next(iter(saved)) in _STATES:
+        key, fields = next(iter(saved.items()))
+        saved = _STATES[key](**fields)
+    return saved
+
+
+def _same_layout(saved: dict, mine: dict) -> bool:
+    """Whether a rank's own part of layout ``saved``
+    (``ShardedTrainState.mesh``) is its part on a mesh of layout
+    ``mine``: the same axes and sizes, and where ``saved`` records them,
+    the same loss axes and shard dims."""
+    keys = ('axes', 'shape', 'loss_axes', 'specs') if 'specs' in saved \
+        else ('axes', 'shape')
+    return all(saved[k] == mine[k] for k in keys)
+
+
+def _map_named(fn, tree: dict, path: str = '') -> dict:
+    """``fn(dotted path, leaf)`` over a dict tree."""
+    return {k: _map_named(fn, v, f'{path}{k}.') if isinstance(v, dict)
+            else fn(f'{path}{k}', v) for k, v in tree.items()}
+
+
+class _Parts:
+    """A sharded checkpoint's parts by mesh coordinate, memory-mapped."""
+
+    def __init__(self, step_dir: Path, first: ShardedTrainState):
+        mesh = first.mesh
+        if 'specs' not in mesh or first.views is None:
+            raise ValueError(
+                f'the checkpoint {step_dir} records no shard dims (its '
+                'parts were saved before a part recorded its layout): it '
+                f"restores only on a mesh of its own shape {mesh['shape']} "
+                f"over {mesh['axes']}")
+        self.axes = list(mesh['axes'])
+        self.size = dict(zip(self.axes, mesh['shape']))
+        self.loss_axes = list(mesh['loss_axes'])
+        self.specs = dict(_named(mesh['specs']))
+        self.parts = {}
+        for r in range(math.prod(mesh['shape'])):
+            part = first if r == 0 else _load(step_dir / f'rank{r}.pt',
+                                              mmap=True)
+            self.parts[tuple(part.mesh['coords'])] = part
+
+    def select(self, free=(), **at) -> list:
+        """The parts at coordinate ``at`` (0 where not given) on every
+        axis but ``free``, in coordinate order."""
+        fixed = [(i, at.get(a, 0)) for i, a in enumerate(self.axes)
+                 if a not in free]
+        return [p for c, p in sorted(self.parts.items())
+                if all(c[i] == v for i, v in fixed)]
+
+    def blocks(self, dim: Optional[int], get) -> list:
+        """``get(part)`` of data row 0 and ``seq`` 0 for each ``fsdp``
+        block of a leaf sharded on ``dim`` (one part for a replicated
+        leaf)."""
+        n = self.size['fsdp'] if dim is not None else 1
+        return [get(self.select(fsdp=i)[0]) for i in range(n)]
+
+
+def _view_dim(specs: dict, name) -> Optional[int]:
+    """The shard dim of a trained view ``[path, layer]``: its leaf's, less
+    the stacked layer axis for a per-layer view."""
+    path, layer = name
+    d = specs[path]
+    return d - 1 if d is not None and layer is not None else d
+
+
+def _sum(tensors: list):
+    """The sum of ``tensors`` in order, None terms skipped (None if every
+    term is)."""
+    out = None
+    for t in tensors:
+        if t is not None:
+            out = t.clone() if out is None else out.add_(t)
+    return out
+
+
+def _check_params(old: _Parts, saved: dict, live: dict, specs: dict,
+                  n: int) -> None:
+    """Raise ``ValueError`` naming the first leaf whose path, whole shape
+    or dtype differs between the saved part and the template."""
+    def whole(t, d, k):
+        return tuple(s * k if i == d else s for i, s in enumerate(t.shape))
+    for path in sorted(set(live) | set(saved)):
+        if path not in live or path not in saved:
+            where = ('the template', 'the saved state')
+            raise ValueError(f'leaf {path} is in {where[path in saved]} '
+                             f'but not in {where[path in live]}: another '
+                             'model')
+        a = whole(saved[path], old.specs[path], old.size['fsdp'])
+        b = whole(live[path], specs[path], n)
+        if a != b or saved[path].dtype != live[path].dtype:
+            raise ValueError(
+                f'leaf {path} was saved as {a} {saved[path].dtype}; the '
+                f'template has {b} {live[path].dtype}: another model')
+
+
+def _reshard(step_dir: Path, first: ShardedTrainState,
+             template: ShardedTrainState) -> ShardedTrainState:
+    """``template``'s part of the sharded state saved in ``step_dir`` on a
+    mesh of another layout (the module docstring)."""
+    old = _Parts(step_dir, first)
+    mesh = template.mesh
+    at = dict(zip(mesh['axes'], mesh['coords']))
+    n, f = dict(zip(mesh['axes'], mesh['shape']))['fsdp'], at['fsdp']
+    specs = dict(_named(mesh['specs']))
+    check_views(first.views, template.views)
+    live = dict(_named(template.params))
+    _check_params(old, dict(_named(first.params)), live, specs, n)
+    steps = {int(p.step) for p in old.parts.values()}
+    if len(steps) != 1:
+        raise ValueError(f'the saved parts are at steps {sorted(steps)}')
+
+    def leaf(tree, path):
+        for k in path.split('.'):
+            tree = tree[k]
+        return tree
+
+    params = _map_named(lambda path, t: reshard_leaf(
+        old.blocks(old.specs[path], lambda p: leaf(p.params, path)),
+        old.specs[path], specs[path], n, f).to(t.device), template.params)
+
+    # the optimizer's state by view: the template's param ids and groups,
+    # each group's hyperparameters and each id's state from the saved id
+    # of the same view (the trees of two models of the same leaves may
+    # list them in other orders)
+    ids = {tuple(v): i for i, v in enumerate(first.views['optimizer'])}
+    order = [ids[tuple(v)] for v in template.views['optimizer']]
+    saved_group = {i: g for g in first.opt_state['param_groups']
+                   for i in g['params']}
+    groups = []
+    for g in template.opt_state['param_groups']:
+        sg = saved_group[order[g['params'][0]]]
+        if sorted(order[i] for i in g['params']) != sorted(sg['params']):
+            raise ValueError('the saved optimizer groups the leaves '
+                             'otherwise (another optimizer)')
+        groups.append({**sg, 'params': list(g['params'])})
+    state = {}
+    for pid, name in enumerate(template.views['optimizer']):
+        entries = [p.opt_state['state'].get(order[pid])
+                   for p in old.parts.values()]
+        if entries[0] is None:
+            if any(e is not None for e in entries):
+                raise ValueError(f'optimizer state of {name[0]} saved by '
+                                 'some parts only')
+            continue
+        device = live[name[0]].device
+        od, nd = _view_dim(old.specs, name), _view_dim(specs, name)
+        state[pid] = {}
+        for key, v in entries[0].items():
+            if torch.is_tensor(v) and v.dim() > 0:
+                v = reshard_leaf(old.blocks(od, lambda p: p.opt_state[
+                    'state'][order[pid]][key]), od, nd, n, f).to(device)
+            elif any(not (torch.equal(e[key], v) if torch.is_tensor(v)
+                          else e[key] == v) for e in entries):
+                raise ValueError(f'optimizer state {key!r} of {name[0]} '
+                                 'differs between the saved parts')
+            state[pid][key] = v
+    opt_state = {'state': state, 'param_groups': groups}
+
+    # the open cycle as the sums its end would take (the module
+    # docstring); JAX's optax.MultiSteps keeps its gradients reduced and
+    # needs no such step
+    accum = None
+    if first.accum is not None:
+        lead = all(at[a] == 0 for a in mesh['loss_axes'])
+        index = {tuple(v): i for i, v in enumerate(first.views['trained'])}
+        accum = []
+        for name in template.views['trained']:
+            i = index[tuple(name)]
+            od, nd = _view_dim(old.specs, name), _view_dim(specs, name)
+            reduce = [old.select((*old.loss_axes, 'fsdp'))] if od is None \
+                else [old.select(old.loss_axes, fsdp=j)
+                      for j in range(old.size['fsdp'])]
+            blocks = [_sum([p.accum[i] for p in parts]) for parts in reduce]
+            if any(b is None for b in blocks):
+                accum.append(None)
+                continue
+            g = reshard_leaf(blocks, od, nd, n, f)
+            if not (lead and (nd is not None or f == 0)):
+                g = torch.zeros_like(g).neg_()
+            accum.append(g.to(live[name[0]].device))
+    return ShardedTrainState(params, opt_state, int(first.step), accum, mesh,
+                             template.views)
 
 
 class CheckpointManager:
@@ -153,17 +374,19 @@ class CheckpointManager:
         there is none), each tensor on the device of ``state_template``'s
         tensor at its place (the CPU without a template). A trainer takes
         it back with ``trainer.state = manager.restore(trainer.state)``; a
-        sharded trainer's ranks each take their own part so."""
+        sharded trainer's ranks each take their own part so, on a mesh of
+        the saved shape or, resharded, of another (module docstring)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             return None
-        name = f'rank{dist.get_rank()}.pt' if isinstance(
-            state_template, ShardedTrainState) else 'state.pt'
-        saved = torch.load(self.directory / str(step) / name,
-                           map_location='cpu', weights_only=True)
-        if isinstance(saved, dict) and len(saved) == 1 \
-                and next(iter(saved)) in _STATES:
-            key, fields = next(iter(saved.items()))
-            saved = _STATES[key](**fields)
+        directory = self.directory / str(step)
+        name = 'state.pt'
+        if isinstance(state_template, ShardedTrainState):
+            first = _load(directory / 'rank0.pt', mmap=True)
+            if not _same_layout(first.mesh, state_template.mesh) or (
+                    first.views not in (None, state_template.views)):
+                return _reshard(directory, first, state_template)
+            name = f'rank{dist.get_rank()}.pt'
+        saved = _load(directory / name)
         return _to_devices(saved, state_template) \
             if state_template is not None else saved

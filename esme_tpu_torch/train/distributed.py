@@ -44,7 +44,12 @@ state (:class:`ShardedTrainState`: its shards of the params and of the
 optimizer state, the step, any gradient being accumulated), which
 :class:`~esme_tpu_torch.train.CheckpointManager` saves and restores on
 every rank, as JAX's orbax manager writes each shard from its device: no
-rank gathers the whole optimizer state.
+rank gathers the whole optimizer state. A part records its layout (the
+shard dims, the rank's coordinates, the loss axes and the trained views),
+so that a trainer on a mesh of another shape can take its own part of a
+saved state (:meth:`CheckpointManager.restore
+<esme_tpu_torch.train.checkpoint.CheckpointManager.restore>` reshards
+it, as orbax restores into the template's shardings).
 """
 
 from __future__ import annotations
@@ -78,13 +83,71 @@ class ShardedTrainState(NamedTuple):
     ``model.params``, each sharded leaf its block); ``opt_state``, the
     optimizer's ``state_dict()`` over those shards; ``step``; ``accum``,
     the ``.grad`` of each trainable leaf while a ``grad_accum`` cycle is
-    open (None otherwise); ``mesh``, the mesh's axis names and sizes and
-    this rank, which a restore must match."""
+    open (None otherwise); ``mesh``, the part's layout: the mesh's axis
+    names (``axes``) and sizes (``shape``), this rank (``rank``) and its
+    coordinate on each axis (``coords``), the axes the loss is summed
+    over (``loss_axes``) and each leaf's shard dim (``specs``, the tree of
+    :func:`~esme_tpu_torch.parallel.fsdp.fsdp_partition_specs`);
+    ``views``, the trained views as ``[leaf path, layer]`` (layer None
+    outside the stacked layers) in the order of ``accum`` (``trained``)
+    and of the optimizer's param ids (``optimizer``), and the optimizer's
+    class (``optimizer_class``). A part saved before ``coords``, ``specs``
+    and ``views`` were recorded has neither, and restores only on the mesh
+    shape it was saved from."""
     params: dict
     opt_state: dict
     step: int
     accum: Optional[list]
     mesh: dict
+    views: Optional[dict] = None
+
+
+def _named(tree: dict, path: str = ''):
+    """``(dotted path, leaf)`` for every leaf of a dict tree, in order."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _named(v, f'{path}{k}.')
+        else:
+            yield f'{path}{k}', v
+
+
+def view_names(views: dict) -> list:
+    """``[leaf path, layer]`` of every leaf of a
+    :func:`~esme_tpu_torch.train.trainer.train_views` tree, in the order
+    its leaves are visited: a stacked leaf's per-layer views carry their
+    layer, the others None."""
+    out = []
+    for key, v in views.items():
+        if key == 'layers':
+            out += [[f'layers.{n}', i] for i, layer in enumerate(v)
+                    for n, _ in _named(layer)]
+        elif isinstance(v, dict):
+            out += [[f'{key}.{n}', None] for n, _ in _named(v)]
+        else:
+            out.append([key, None])
+    return out
+
+
+def _label(view) -> str:
+    path, layer = view
+    return path if layer is None else f'{path} (layer {layer})'
+
+
+def check_views(saved: dict, mine: dict) -> None:
+    """Raise ``ValueError`` where a saved part's trained views or
+    optimizer (``ShardedTrainState.views``) are not this trainer's in any
+    order, naming the first leaf that differs."""
+    if saved['optimizer_class'] != mine['optimizer_class']:
+        raise ValueError(f"the state was saved with optimizer "
+                         f"{saved['optimizer_class']}; this trainer's is "
+                         f"{mine['optimizer_class']}")
+    a, b = ({tuple(v) for v in views['trained']} for views in (saved, mine))
+    if a != b:
+        view = min(a ^ b, key=str)
+        where = ('here but not in the saved state' if view in b
+                 else 'in the saved state but not here')
+        raise ValueError(f'{_label(view)} trains {where} (another '
+                         'trainable mask or model)')
 
 
 def stack_batches(batches):
@@ -179,17 +242,24 @@ class ShardedMaskedPLM:
         layers = self._views['layers']
         view_specs = {k: [self.specs[k]] * len(layers) if k == 'layers'
                       else self.specs[k] for k in self.specs}
-        pairs = [(t, d) for t, d in zip(_leaves(self._views),
-                                        _leaves(view_specs))
-                 if torch.is_tensor(t) and t.requires_grad]
+        pairs = [(t, d, n) for t, d, n in zip(
+            _leaves(self._views), _leaves(view_specs),
+            view_names(self._views))
+            if torch.is_tensor(t) and t.requires_grad]
         if not pairs:
             raise ValueError('ShardedMaskedPLM: no leaf of the model trains '
                              'under this mask (lora_only without adapters?)')
-        self._sharded = [t for t, d in pairs if d is not None]
-        self._replicated = [t for t, d in pairs if d is None]
-        self._trained = [t for t, _ in pairs]
+        self._sharded = [t for t, d, _ in pairs if d is not None]
+        self._replicated = [t for t, d, _ in pairs if d is None]
+        self._trained = [t for t, _, _ in pairs]
         self.optimizer = build_optimizer(self._views, optimizer,
                                          learning_rate, weight_decay)
+        name_of = {id(t): n for t, _, n in pairs}
+        self._view_key = {
+            'trained': [n for _, _, n in pairs],
+            'optimizer': [name_of[id(p)] for g in self.optimizer.param_groups
+                          for p in g['params']],
+            'optimizer_class': type(self.optimizer).__name__}
 
         self._layer_gather = make_layer_gather(self.specs['layers'], mesh)
         self._outer_gather = make_outer_gather(
@@ -200,6 +270,7 @@ class ShardedMaskedPLM:
         # the same step, whose gradients are not summed. Every rank
         # creates the groups in this order.
         loss_axes = ('data', seq_axis) if seq_axis else ('data',)
+        self._loss_axes = loss_axes
         self._loss_group = axes_group(mesh, loss_axes)
         self._replica_group = axes_group(
             mesh, tuple(a for a in names if a in (*loss_axes, 'fsdp')))
@@ -359,31 +430,52 @@ class ShardedMaskedPLM:
     # -- state ----------------------------------------------------------------
 
     def _mesh_key(self) -> dict:
-        return {'axes': list(self.mesh.mesh_dim_names),
-                'shape': list(self.mesh.mesh.shape), 'rank': dist.get_rank()}
+        names = self.mesh.mesh_dim_names
+        return {'axes': list(names), 'shape': list(self.mesh.mesh.shape),
+                'rank': dist.get_rank(),
+                'coords': [self.mesh.get_local_rank(a) for a in names],
+                'loss_axes': list(self._loss_axes), 'specs': self.specs}
 
     @property
     def state(self) -> ShardedTrainState:
         """This rank's part of the state: its shards (the live tensors),
-        the optimizer's state over them, the step and, inside a
-        ``grad_accum`` cycle, the gradients gathered so far."""
+        the optimizer's state over them, the step, inside a
+        ``grad_accum`` cycle the gradients gathered so far, and the
+        part's layout (``mesh``, ``views``). ``CheckpointManager.restore``
+        gives a trainer on a mesh of any shape its own part of it."""
         accum = None
         if self.step % self.grad_accum:
             accum = [t.grad for t in self._trained]
         return ShardedTrainState(self.params, self.optimizer.state_dict(),
-                                 self.step, accum, self._mesh_key())
+                                 self.step, accum, self._mesh_key(),
+                                 self._view_key)
 
     @state.setter
     def state(self, state: ShardedTrainState) -> None:
-        """Take this rank's part of a saved state
+        """Take this rank's part of a state
         (:meth:`CheckpointManager.restore
         <esme_tpu_torch.train.checkpoint.CheckpointManager.restore>` on
-        every rank): its shards copied into the live tensors bit for bit.
-        Raises ``ValueError`` for a state of another mesh shape or
-        rank."""
-        if state.mesh != self._mesh_key():
-            raise ValueError(f'a state of mesh {state.mesh} cannot be '
-                             f'restored on mesh {self._mesh_key()}')
+        every rank, which reshards a state saved on a mesh of another
+        shape): its shards copied into the live tensors bit for bit.
+        Raises ``ValueError`` for a part keyed to another mesh, rank or
+        layout, or to other trained views or another optimizer. A part
+        saved before the layout was recorded is checked on the mesh's
+        axes, shape and rank only."""
+        mine = self._mesh_key()
+        keys = mine if 'specs' in state.mesh else ('axes', 'shape', 'rank')
+        differ = [k for k in keys if state.mesh.get(k) != mine[k]]
+        if differ:
+            raise ValueError(
+                f"a part of rank {state.mesh['rank']} of a "
+                f"{state.mesh['shape']} mesh cannot be taken by rank "
+                f"{mine['rank']} of a {mine['shape']} mesh (its {differ} "
+                'differ); CheckpointManager.restore reshards a saved state')
+        if state.views is not None:
+            check_views(state.views, self._view_key)
+            if state.views != self._view_key:
+                raise ValueError('the part lists the trained leaves in '
+                                 'another order; CheckpointManager.restore '
+                                 'reorders a saved state')
         _copy_leaves(self.params, state.params)
         load_optimizer_state(self.optimizer, state.opt_state)
         self.step = int(state.step)

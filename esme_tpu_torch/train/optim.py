@@ -116,6 +116,9 @@ class Adam8bit(torch.optim.Optimizer):
     scalars on the tensor's device) and ``'step'``. ``reduce_max``: None,
     or a function that makes the ``(G,)`` fp32 tensor of the groups' max
     |g| global in place (the sharded trainer's all-reduce over ``fsdp``).
+    So the scales and the step are the same on every rank of a mesh, and
+    a restore on a mesh of another shape takes them once and reshards
+    ``mu`` and ``nu`` like their params (``train/checkpoint.py``).
     """
 
     def __init__(self, params, lr=1e-3, betas=(0.9, 0.999), eps=1e-8,

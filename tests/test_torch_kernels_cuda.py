@@ -1651,3 +1651,114 @@ def test_quantized_model_kernels_match_plain(cuda, mode, monkeypatch):
     cos = (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))
     assert bool(torch.isfinite(got).all())
     assert cos.min().item() >= 0.99 and (got - ref).abs().max().item() <= 0.25
+
+
+@pytest.mark.cuda
+def test_reshard_host_parts_onto_card(cuda, monkeypatch, tmp_path):
+    """A (1, 2, 1) gloo world on the host (``tests/torch_cp_ranks.py:
+    host_parts_rank``) trains ``ShardedMaskedPLM(grad_accum=2,
+    seq_axis='seq')`` over a bf16 ESM2 of 2 layers, width 128, head dim 64
+    for three micro-steps (an update, then a cycle left open) and saves
+    its parts; a one-rank NCCL trainer on a (1, 1, 1) mesh on the card
+    restores them (resharded): its params bit-equal to the host's at the
+    cut; the micro-step that closes the cycle launches H9 L, H10 L, H3 2L
+    of which L inverse, H1 and H2 never; the same micro-step through the
+    plain versions from the same restore: the loss within 2^-8 and every
+    gradient the update takes under ``chip_smoke.py``'s phase 5 gates
+    (cosine at least 0.99, max|Δ| at most 0.1·max|g|)."""
+    import multiprocessing
+    import socket
+    import torch.distributed as dist
+    from types import SimpleNamespace
+    from esme_tpu_torch import ESM2, mask_tokens, tokenize_unpad
+    from esme_tpu_torch.parallel import initialize_distributed, make_mesh
+    from esme_tpu_torch.train import CheckpointManager, ShardedMaskedPLM
+    from esme_tpu_torch.train.trainer import _grad_tree
+    from torch_cp_ranks import host_parts_rank
+
+    def port():
+        with socket.socket() as sock:
+            sock.bind(('127.0.0.1', 0))
+            return sock.getsockname()[1]
+    rng = np.random.default_rng(6)
+    seqs = [''.join(rng.choice(list('LAGVSERTIDPKQNFYMHWC'), int(n)))
+            for n in rng.integers(30, 400, 12)]
+    tok, _, cu, max_len = tokenize_unpad(seqs)
+    masked, mask = mask_tokens(tok, rng=np.random.default_rng(7))
+    batch = SimpleNamespace(tokens=tok, masked_tokens=masked, mask=mask,
+                            cu_lens=cu, max_len=max_len)
+    host = ESM2(num_layers=2, embed_dim=128, attention_heads=2, rng=0,
+                device='cpu')
+    ctx = multiprocessing.get_context('spawn')
+    p0 = port()
+    procs = [ctx.Process(target=host_parts_rank, args=(
+        r, 2, p0, host.config, host.params, [batch], str(tmp_path)))
+        for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(300)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    assert [p.exitcode for p in procs] == [0, 0]
+    cut = torch.load(tmp_path / 'params.pt', weights_only=True)
+    def to_card(tree):
+        return {k: to_card(v) if isinstance(v, dict) else v.to(cuda)
+                for k, v in tree.items()}
+    model = ESM2(config=host.config, params=to_card(host.params),
+                 device=cuda)
+    L = model.config.num_layers
+    initialize_distributed(f'127.0.0.1:{port()}', 1, 0, device='cuda')
+    try:
+        mesh = make_mesh(1, 1, seq=1, device='cuda')
+        mgr = CheckpointManager(tmp_path / 'ckpt', monitor=None)
+
+        def resumed():
+            plm = ShardedMaskedPLM(model, mesh, learning_rate=1e-3,
+                                   grad_accum=2, seq_axis='seq')
+            plm.state = mgr.restore(plm.state)
+            grads = {}
+            step = plm.optimizer.step
+
+            def take(*args, **kw):
+                grads.update(_flat_tree(_grad_tree(plm._views)))
+                return step(*args, **kw)
+            plm.optimizer.step = take
+            return plm, grads
+        plm, got = resumed()
+        assert plm.step == 3
+        cut = dict(_flat_tree(cut))
+        for name, t in _flat_tree(plm.params):
+            assert torch.equal(t.cpu().view(torch.uint8),
+                               cut[name].view(torch.uint8)), name
+        counters = (flash.segment_flash_fwd, flash.segment_flash_bwd,
+                    headsplit.rotary_qk)
+
+        def count():
+            return [c.launches for c in counters] + [
+                flash.segment_flash_fwd.rect_launches,
+                flash.segment_flash_bwd.rect_launches,
+                headsplit.rotary_qk.inverse_launches]
+        before = count()
+        loss = plm.training_step([batch])
+        torch.cuda.synchronize()
+        assert [b - a for a, b in zip(before, count())] == \
+            [0, 0, 2 * L, L, L, L]
+        plain, ref = resumed()
+        with monkeypatch.context() as m:
+            m.setattr(flash, 'segment_flash_fwd',
+                      flash.segment_flash_fwd_plain)
+            m.setattr(flash, 'segment_flash_bwd',
+                      flash.segment_flash_bwd_plain)
+            m.setattr(headsplit, 'rotary_qk', headsplit.rotary_qk_plain)
+            loss_p = plain.training_step([batch])
+        assert abs(loss - loss_p) <= 2.0 ** -8 * abs(loss_p)
+        assert sorted(got) == sorted(ref) and got
+        for name, a in got.items():
+            a, b = a.float().ravel(), ref[name].float().ravel()
+            cos = (a @ b / (a.norm() * b.norm())).item()
+            rel = ((a - b).abs().max() / b.abs().max()).item()
+            assert cos >= 0.99 and rel <= 0.1, (name, cos, rel)
+    finally:
+        dist.destroy_process_group()

@@ -1,6 +1,7 @@
 """The ranks of the port's context-parallel tests
 (``tests/test_torch_context.py``, ``tests/test_torch_cp_train.py``,
-``tests/test_torch_memory.py``, ``tests/test_torch_sharded_lora.py``): each
+``tests/test_torch_memory.py``, ``tests/test_torch_sharded_lora.py``,
+``tests/test_torch_reshard.py``): each
 runs in a process of its own, spawned by the test, and joins a gloo group
 of ``n`` ranks on ``127.0.0.1``. This module imports neither JAX nor the JAX package, so
 that a spawned rank loads only the port."""
@@ -16,8 +17,10 @@ from esme_tpu_torch.ops import flash
 from esme_tpu_torch.parallel import (context_parallel_log_prob,
                                      forward_flat_cp, initialize_distributed,
                                      make_kv_gather, make_mesh)
+from esme_tpu_torch.parallel.fsdp import gather_dim
 from esme_tpu_torch.train import CheckpointManager, ShardedMaskedPLM, adam8bit
-from esme_tpu_torch.train.trainer import _leaves as _tensors
+from esme_tpu_torch.train.distributed import ShardedTrainState
+from esme_tpu_torch.train.trainer import _grad_tree, _leaves as _tensors
 
 CLASSES = {'esm2': ESM2, 'esmc': ESMC, 'esm1b': ESM1b, 'esm1v': ESM1v}
 IMPLS = ('flash', 'reference')
@@ -344,5 +347,192 @@ def lora_rank(rank, n, port, mesh_shape, cfg, params, lora_kwargs, batches,
                 res.update({f'resume.accum.{tag}param.{k}': v.numpy()
                             for k, v in _named(t.unsharded_params())})
         np.savez(f'{out}/rank{rank}.npz', **res)
+    finally:
+        dist.destroy_process_group()
+
+
+def _capture_update(plm, res):
+    """Wrap ``plm``'s optimizer so that its next update first writes the
+    gradients it takes into ``res`` (``grad.<leaf>``, gathered over
+    ``fsdp``; every rank calls the gathers in the same order)."""
+    step = plm.optimizer.step
+    specs = dict(_named(plm.specs))
+
+    def wrapped(*args, **kw):
+        for name, g in _named(_grad_tree(plm._views)):
+            if g is not None:
+                d = specs[name]
+                res[f'grad.{name}'] = (g if d is None else gather_dim(
+                    g, d, plm._fsdp_group)).numpy()
+        return step(*args, **kw)
+    plm.optimizer.step = wrapped
+
+
+def reshard_rank(rank, n, ports, pair, runs, out):
+    """Rank ``rank`` of the worlds of a reshard round trip, one process
+    for every world of ``pair`` (the ``(data, fsdp, seq)`` shapes A and
+    B): for each run of ``runs`` (name -> config, params, LoRA kwargs,
+    trainer options, the global batch as stacked rows for each ``data``
+    size), three worlds one after another, each on a port of ``ports``
+    (a rank outside a world skips it):
+
+    * A: ``ShardedMaskedPLM(grad_accum=2, seq_axis='seq')`` takes three
+      micro-steps (one update, then a cycle left open) and every rank
+      saves its part to ``out/<run>/a``; then the fourth micro-step,
+      which closes the cycle;
+    * B: a fresh trainer restores ``a`` (resharded), saves its part to
+      ``out/<run>/b`` and takes the fourth micro-step;
+    * A again: a fresh trainer restores ``b`` and saves to
+      ``out/<run>/a2``.
+
+    Written to ``out/<run>/<world>_rank<r>.npz``: the losses, the params
+    gathered before the fourth micro-step (``before.<leaf>``, on B the
+    restored ones) and after it (``param.<leaf>``), the gradients its
+    update took (``grad.<leaf>``) and the step."""
+    torch.set_num_threads(1)
+    ports = iter(ports)
+    for name, run in runs.items():
+        for world, shape in (('a', pair[0]), ('b', pair[1]),
+                             ('a2', pair[0])):
+            port, size = next(ports), int(np.prod(shape))
+            if rank >= size:
+                continue
+            initialize_distributed(f'127.0.0.1:{port}', size, rank,
+                                   device='cpu')
+            try:
+                _reshard_world(rank, world, shape, run, f'{out}/{name}')
+            finally:
+                dist.destroy_process_group()
+
+
+def _reshard_world(rank, world, shape, run, out):
+    data, fsdp, seq = shape
+    mesh = make_mesh(data, fsdp, seq=seq, device='cpu')
+    model = ESM2(config=run['cfg'], params=run['params'], device='cpu')
+    model.lora_kwargs = dict(run['lora_kwargs'])
+    opts = dict(run['opts'])
+    if opts.pop('optimizer', None) == 'adam8bit':
+        opts['optimizer'] = adam8bit(1e-3)
+    plm = ShardedMaskedPLM(model, mesh, learning_rate=1e-3, grad_accum=2,
+                           seq_axis='seq', **opts)
+    rows = run['rows'][data]
+    res = {}
+    if world == 'a':
+        res['losses'] = np.array([plm.training_step(rows)
+                                  for _ in range(3)])
+    else:
+        source = 'b' if world == 'a2' else 'a'
+        plm.state = CheckpointManager(f'{out}/{source}',
+                                      monitor=None).restore(plm.state)
+    res['step'] = np.array(plm.step)
+    CheckpointManager(f'{out}/{world}', monitor=None).save(plm.step,
+                                                           plm.state)
+    if world != 'a2':
+        res.update({f'before.{k}': v.numpy()
+                    for k, v in _named(plm.unsharded_params())})
+        _capture_update(plm, res)
+        res['loss'] = np.array(plm.training_step(rows))
+        res.update({f'param.{k}': v.numpy()
+                    for k, v in _named(plm.unsharded_params())})
+    np.savez(f'{out}/{world}_rank{rank}.npz', **res)
+
+
+def _refused(fn) -> str:
+    """The ``ValueError`` ``fn()`` raises, as ``'ValueError: ...'``."""
+    try:
+        fn()
+    except ValueError as e:
+        return f'ValueError: {e}'
+    return 'no error'
+
+
+def reshard_refusal_rank(rank, n, ports, run, other_cfg, out):
+    """Rank ``rank`` of two worlds. On a (1, 2, 1) mesh: three micro-steps
+    of ``run``'s dense Adam trainer (``grad_accum=2``) saved to
+    ``out/a``, and the same parts without their layout (a part as saved
+    before it recorded ``coords``, ``specs`` and ``views``) to
+    ``out/old``; a fresh trainer takes ``out/old`` back on its own shape
+    (``own_shape_restored``: every param bit-equal) and a trainer on a
+    (2, 1, 1) mesh refuses a (1, 2, 1) part through its setter
+    (``setter``); written to ``out/rank<r>.npz``. Then rank 0 alone, on
+    a (1, 1, 1) mesh, restores ``out/a`` into a trainer of ``other_cfg``
+    (``model``), one whose mask freezes the token embedding (``mask``),
+    one with ``adam8bit`` (``optimizer``), and ``out/old`` into the dense
+    Adam trainer (``no_specs``); the messages are added to rank 0's
+    file."""
+    torch.set_num_threads(1)
+    res = {}
+
+    def trainer(mesh, cfg=None, **kw):
+        model = ESM2(config=cfg or run['cfg'],
+                     params=None if cfg else run['params'], device='cpu',
+                     rng=0)
+        return ShardedMaskedPLM(model, mesh, learning_rate=1e-3,
+                                grad_accum=2, seq_axis='seq', **kw)
+    initialize_distributed(f'127.0.0.1:{ports[0]}', n, rank, device='cpu')
+    try:
+        mesh = make_mesh(1, 2, seq=1, device='cpu')
+        plm = trainer(mesh)
+        rows = run['rows'][1]
+        for _ in range(3):
+            plm.training_step(rows)
+        CheckpointManager(f'{out}/a', monitor=None).save(3, plm.state)
+        state = plm.state
+        old = ShardedTrainState(
+            state.params, state.opt_state, state.step, state.accum,
+            {k: state.mesh[k] for k in ('axes', 'shape', 'rank')})
+        CheckpointManager(f'{out}/old', monitor=None).save(3, old)
+        fresh = trainer(mesh)
+        fresh.state = CheckpointManager(f'{out}/old').restore(fresh.state)
+        res['own_shape_restored'] = np.array(all(
+            torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+            for x, y in zip(_tensors(fresh.params), _tensors(plm.params))))
+        other = trainer(make_mesh(2, 1, seq=1, device='cpu'))
+
+        def take():
+            other.state = plm.state
+        res['setter'] = np.array(_refused(take))
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        initialize_distributed(f'127.0.0.1:{ports[1]}', 1, 0, device='cpu')
+        try:
+            mesh = make_mesh(1, 1, seq=1, device='cpu')
+            frozen = {k: k != 'embed_tokens' for k in run['params']}
+            for case, t, source in (
+                    ('model', trainer(mesh, other_cfg), 'a'),
+                    ('mask', trainer(mesh, trainable_mask=frozen), 'a'),
+                    ('optimizer', trainer(mesh, optimizer=adam8bit(1e-3)),
+                     'a'),
+                    ('no_specs', trainer(mesh), 'old')):
+                mgr = CheckpointManager(f'{out}/{source}', monitor=None)
+                res[case] = np.array(_refused(
+                    lambda: mgr.restore(t.state)))
+        finally:
+            dist.destroy_process_group()
+    np.savez(f'{out}/rank{rank}.npz', **res)
+
+
+def host_parts_rank(rank, n, port, cfg, params, batches, out):
+    """Rank ``rank`` of a (1, n, 1) gloo world on the host:
+    ``ShardedMaskedPLM(grad_accum=2, seq_axis='seq')`` over ESM2 of
+    ``cfg`` from ``params`` takes three micro-steps (one update, then a
+    cycle left open) on ``batches``; every rank saves its part to
+    ``out``/ckpt, and rank 0 the params gathered at the cut to
+    ``out``/params.pt."""
+    torch.set_num_threads(1)
+    initialize_distributed(f'127.0.0.1:{port}', n, rank, device='cpu')
+    try:
+        mesh = make_mesh(1, n, seq=1, device='cpu')
+        model = ESM2(config=cfg, params=params, device='cpu')
+        plm = ShardedMaskedPLM(model, mesh, learning_rate=1e-3,
+                               grad_accum=2, seq_axis='seq')
+        for _ in range(3):
+            plm.training_step(batches)
+        CheckpointManager(f'{out}/ckpt', monitor=None).save(plm.step,
+                                                           plm.state)
+        params = plm.unsharded_params()
+        if rank == 0:
+            torch.save(params, f'{out}/params.pt')
     finally:
         dist.destroy_process_group()
