@@ -396,9 +396,30 @@ line is phase 12's JSON:
    33 inverse, H1 and H2 never). Cells: every leaf under Adam with the host
    world on (2, 2, 1); phase 14's adapters over the trunk quantized to NF4
    on the card, ``lora_only`` under ``adam8bit`` (e5m2 codes, the frozen
-   uint8 and int32 leaves), its host world on (1, 2, 1). Logged: the
-   checkpoints' bytes, the save and restore seconds on the card and on the
-   host, the host ranks' peak resident memory.
+   uint8 and int32 leaves), its host world on (1, 2, 1). Each replicated
+   shard is written once: in (b)'s parts, those at a ``data`` or ``seq``
+   coordinate other than 0 hold no param or optimizer tensor (gate), and
+   each part's bytes are logged. Logged: the checkpoints' bytes, the save
+   and restore seconds on the card and on the host, the host ranks' peak
+   resident memory.
+19. trainer states restored by leaf path (``check_phase19``), every line
+   naming the card and its power limit: ESM2-650M (bf16, seed-0 weights
+   written to a safetensors file) in three cells, each saving trainer A's
+   state through ``CheckpointManager`` and restoring it into a fresh
+   trainer B whose params tree lists the same leaves in another order
+   (gate: the orders differ); B's resumed step bit-equal to A's
+   uninterrupted one, its loss and every param by path (a leaf held in
+   another dtype, NF4's outlier rows, by value), its launches exact (H1
+   33, H2 33, H3 66 of which 33 inverse). (a) ``MaskedPLM`` under Adam with
+   ``grad_accum=2`` on phase 5's ``nockpt@10k`` batch, cut after
+   ``STATE_CUT`` micro-steps (mid-cycle), A over ``from_pretrained``, B
+   over the same weights in ``params_from_jax``'s sorted order; (b) phase
+   14's adapters over NF4, ``lora_only`` under ``adam8bit``, A over
+   ``from_pretrained(quantization='4bit')``, B over
+   ``from_pretrained(...).quantize('4bit')``; (c) ``RegressionTrainer``
+   with phase 14's adapters and aggregation head on the ``gb1_265``
+   batch, B's trees in reverse key order. Logged: each checkpoint's bytes,
+   save and restore seconds.
 
 Each phase's seconds are logged and kept in the measurements line
 (``phase_s``). The last three lines are the kernels' JSON, the measurements' JSON and
@@ -2518,6 +2539,12 @@ def main(argv):
     phase_done(18)
     reshard_launches = {kind: phase18[kind]['launches']
                         for kind, _ in RESHARD_CELLS}
+
+    # 19. trainer states restored by leaf path
+    phase19 = check_phase19(dev, card)
+    phase_done(19)
+    state_launches = {key: c['launches'] for key, c in phase19.items()
+                      if key != 'seconds'}
     big_qlora = next((n for n in SIZE_QLORA if 'qlora' in sizes.get(n, {})),
                      None)
     if big_qlora:
@@ -2573,6 +2600,8 @@ def main(argv):
                                 for key, c in lora_launches.items()},
          'reshard_step_launches': {key: c[H1_NAME]
                                    for key, c in reshard_launches.items()},
+         'state_resume_launches': {key: c[H1_NAME]
+                                   for key, c in state_launches.items()},
          'max_abs_err': h1_err,
          'lse_max_abs_err': h1_lse_err, 'ms': h1_ms,
          'plain_ms': h1_plain_ms, 'bound_ms': h1_bound, 'bound_by': h1_by,
@@ -2607,6 +2636,8 @@ def main(argv):
                                 for key, c in lora_launches.items()},
          'reshard_step_launches': {key: c[H2_NAME]
                                    for key, c in reshard_launches.items()},
+         'state_resume_launches': {key: c[H2_NAME]
+                                   for key, c in state_launches.items()},
          'max_abs_err': h2_err, 'gate_share': max(h2_share, h2_check_share),
          'ms': h2_ms, 'plain_ms': h2_plain_ms, 'bound_ms': h2_bound,
          'bound_by': h2_by, 'library_ms': h2_lib_ms,
@@ -2644,6 +2675,10 @@ def main(argv):
                                    for key, c in reshard_launches.items()},
          'reshard_step_inverse_launches': {
              key: c['rope_inverse'] for key, c in reshard_launches.items()},
+         'state_resume_launches': {key: c[H3_NAME]
+                                   for key, c in state_launches.items()},
+         'state_resume_inverse_launches': {
+             key: c['rope_inverse'] for key, c in state_launches.items()},
          'max_abs_err': rope_err,
          'ms': h3_ms, 'plain_ms': h3_plain_ms, 'bound_ms': h3_bound,
          'bound_by': h3_by, 'library_ms': None,
@@ -2705,6 +2740,7 @@ def main(argv):
         'quant': quant,
         'phase17': phase17,
         'phase18': phase18,
+        'phase19': phase19,
         'phase_s': phase_s,
         'build_s': build_s,
         'model_checks': model_checks, 'torch': torch.__version__,
@@ -6667,51 +6703,73 @@ def _dir_bytes(path):
                for d, _, files in os.walk(path) for f in files)
 
 
-def check_resume(make, tree_of, batch, card, what, sharded=False):
-    """(c) One run of ``make()``'s trainer: ``RESUME_CUT`` steps on
-    ``batch``, ``CheckpointManager.save`` in a temporary directory, one more
-    step; then a fresh ``make()`` trainer that restores the checkpoint
-    takes the same step: its loss and every leaf of ``tree_of(trainer)``
-    bit-equal to the uninterrupted step's. The checkpoint's bytes, save
-    and restore seconds are logged; the directory is deleted."""
+def check_resume(make, tree_of, step, card, what, cut=RESUME_CUT,
+                 make_b=None, expected=None):
+    """A resume through ``CheckpointManager`` (phase 17 (c), phase 19):
+    trainer ``make()`` takes ``cut`` steps (``step(trainer)``), its state
+    is saved in a temporary directory, and it takes one more; a fresh
+    trainer ``make_b()`` (default ``make()``) restores the checkpoint and
+    takes the same step. Gates: the resumed loss and every leaf of
+    ``tree_of(trainer)`` (by path) bit-equal to the uninterrupted run's
+    (by value for a leaf B holds in another dtype: NF4's outlier rows are
+    fp32 from quantize-at-load, bf16 from ``quantize()``); with
+    ``expected``, the resumed step's launches. Logs the checkpoint's
+    bytes, save and restore seconds; ``reordered`` in the result: whether
+    B's tree lists the same leaves in another order."""
     from esme_tpu_torch.train import CheckpointManager
-
-    def step(plm):
-        return plm.training_step([batch] if sharded else batch)
     with tempfile.TemporaryDirectory() as tmp:
-        plm = make()
-        for _ in range(RESUME_CUT):
-            step(plm)
+        ta = make()
+        for _ in range(cut):
+            step(ta)
         mgr = CheckpointManager(tmp, monitor=None)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        mgr.save(plm.step, plm.state)
+        mgr.save(ta.step, ta.state)
         save_s = time.perf_counter() - t0
         nbytes = _dir_bytes(tmp)
-        loss = step(plm)
-        want = {n: t.clone() for n, t in _named_leaves(tree_of(plm))}
-        del plm
+        loss = step(ta)
+        want = {n: t.clone() for n, t in _named_leaves(tree_of(ta))}
+        del ta
         torch.cuda.empty_cache()
-        fresh = make()
+        tb = (make_b or make)()
+        order = [n for n, _ in _named_leaves(tree_of(tb))]
+        reordered = order != list(want) and set(order) == set(want)
+        before = sum(n in want and not _same_values(t, want[n])
+                     for n, t in _named_leaves(tree_of(tb)))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        fresh.state = mgr.restore(fresh.state)
+        tb.state = mgr.restore(tb.state)
         torch.cuda.synchronize()
         restore_s = time.perf_counter() - t0
-        got = step(fresh)
-        differ = [n for n, t in _named_leaves(tree_of(fresh))
-                  if not torch.equal(t, want[n])]
-        del fresh, want
+        reset_counters()
+        got = step(tb)
+        torch.cuda.synchronize()
+        launches = read_counters()
+        leaves = dict(_named_leaves(tree_of(tb)))
+        differ = [n for n, t in leaves.items() if n not in want
+                  or not _same_values(t, want[n])]
+        missing = sorted(set(want) - set(leaves))
+        cast = [n for n, t in leaves.items()
+                if n in want and t.dtype != want[n].dtype]
+        del tb, want, leaves
         torch.cuda.empty_cache()
-    log(f'[{card}] {what} resume: checkpoint of {nbytes / 2**20:.1f} MiB '
-        f'after {RESUME_CUT} steps, saved in {save_s:.2f} s, restored in '
-        f'{restore_s:.2f} s; step {RESUME_CUT + 1} loss {got!r} resumed vs '
-        f'{loss!r} uninterrupted; leaves that differ: {differ}')
-    if got != loss or differ:
+    log(f'[{card}] {what} resume: checkpoint of {nbytes:,} bytes after '
+        f'{cut} steps, saved in {save_s:.2f} s, restored in {restore_s:.2f} '
+        f's into a trainer whose tree lists its {len(order)} leaves in '
+        f'{"another" if reordered else "the same"} order ({before} of them '
+        f'held other values before the restore); step {cut + 1} loss '
+        f'{got!r} resumed vs {loss!r} uninterrupted; leaves that differ: '
+        f'{differ[:8]} ({len(differ)}), missing {missing}; compared by value '
+        f'in another dtype: {len(cast)} {cast[:2]}; launches {launches}')
+    if got != loss or differ or missing:
         fail(f'{what}: the resumed step is not the uninterrupted one: loss '
-             f'{got} vs {loss}, leaves {differ}')
+             f'{got} vs {loss}, leaves {differ[:8]}, missing {missing}')
+    if expected is not None and launches != expected:
+        fail(f'{what}: launches {launches}, not {expected}')
     return {'bytes': nbytes, 'save_s': save_s, 'restore_s': restore_s,
-            'loss': loss}
+            'loss': loss, 'launches': launches, 'leaves': len(order),
+            'reordered': reordered, 'differed_before_restore': before,
+            'compared_by_value': cast}
 
 
 def check_phase17(dev, card):
@@ -6745,8 +6803,8 @@ def check_phase17(dev, card):
         timed('c_sharded_resume', lambda: check_resume(
             lambda: ShardedMaskedPLM(model, mesh, learning_rate=1e-4,
                                      lora_only=True, seq_axis='seq'),
-            lambda plm: plm.params, batch, card,
-            'phase 17 (c) ShardedMaskedPLM(lora_only=True)', sharded=True))
+            lambda plm: plm.params, lambda plm: plm.training_step([batch]),
+            card, 'phase 17 (c) ShardedMaskedPLM(lora_only=True)'))
         del model
         torch.cuda.empty_cache()
         model = lora_model(dev, '4bit')
@@ -6764,11 +6822,13 @@ def check_phase17(dev, card):
                          device=dev)
             return MaskedPLM(model, learning_rate=1e-4, **kw)
         return make
+    def step(plm):
+        return plm.training_step(batch)
     timed('c_adam_resume', lambda: check_resume(
-        dense(), lambda plm: plm.model.params, batch, card,
+        dense(), lambda plm: plm.model.params, step, card,
         'phase 17 (c) MaskedPLM, Adam'))
     timed('c_offload_resume', lambda: check_resume(
-        dense(offload_optimizer=True), lambda plm: plm.model.params, batch,
+        dense(offload_optimizer=True), lambda plm: plm.model.params, step,
         card, 'phase 17 (c) MaskedPLM(offload_optimizer=True)'))
     del base
     torch.cuda.empty_cache()
@@ -6952,14 +7012,43 @@ def state_differs(state, saved) -> list:
     return out
 
 
+def part_bytes(step_dir, what):
+    """The bytes of each part of a sharded checkpoint (by rank). Fails
+    unless the parts at a ``data`` or ``seq`` coordinate other than 0 hold
+    no param or optimizer tensor (their replica at ``data`` and ``seq`` 0
+    writes them, as orbax writes each replicated shard once) and every
+    other part holds both."""
+    from esme_tpu_torch.train.checkpoint import _load
+    sizes, wrong = {}, []
+    for name in sorted(os.listdir(step_dir)):
+        if not name.startswith('rank'):
+            continue
+        part = _load(os.path.join(step_dir, name), mmap=True)
+        mesh = part.mesh
+        replica = any(c for a, c in zip(mesh['axes'], mesh['coords'])
+                      if a != 'fsdp')
+        holds = part.params is not None or part.opt_state is not None
+        if holds == replica or (not replica and part.opt_state is None):
+            wrong.append((name, mesh['coords']))
+        sizes[name] = {'bytes': os.path.getsize(os.path.join(step_dir, name)),
+                       'coords': list(mesh['coords']), 'replica': replica}
+        del part
+    if wrong:
+        fail(f'{what}: parts that hold params or optimizer state where they '
+             f'should not, or lack them: {wrong}')
+    return sizes
+
+
 def reshard_cell(kind, model, mesh, host_shape, batch, card, tmp):
     """One cell of phase 18 ((a)-(c) above) in ``tmp``. Gates: the state
     restored in (c) bit-equal to (a)'s saved part (params, optimizer
     state, step, open cycle); the resumed micro-step's loss and every
     param bit-equal to the uninterrupted one's; its launches exact (H9 L,
-    H10 L, H3 2L of which L inverse, H1 and H2 never). Logs the
-    checkpoints' bytes, the save and restore seconds on the card and on
-    the host, and the host ranks' peak resident memory."""
+    H10 L, H3 2L of which L inverse, H1 and H2 never); (b)'s parts at a
+    ``data`` or ``seq`` coordinate other than 0 without param or optimizer
+    tensors (:func:`part_bytes`). Logs the checkpoints' bytes (each of
+    (b)'s parts too), the save and restore seconds on the card and on the
+    host, and the host ranks' peak resident memory."""
     from esme_tpu_torch.train import CheckpointManager
     from esme_tpu_torch.train.checkpoint import _load
     what = f'[{card}] phase 18 {kind}'
@@ -6987,6 +7076,11 @@ def reshard_cell(kind, model, mesh, host_shape, batch, card, tmp):
         f'{host["peak_rss_gib_sum"]:.2f} GiB summed')
     if host['steps'] != [RESHARD_CUT]:
         fail(f'{what}: the host ranks restored steps {host["steps"]}')
+    parts = part_bytes(os.path.join(dst, str(RESHARD_CUT)), f'{what} (b)')
+    log(f'{what} (b): its parts\' bytes ' + ', '.join(
+        f'{name} at {tuple(p["coords"])} {p["bytes"]:,}'
+        + (' (replica)' if p['replica'] else '')
+        for name, p in parts.items()))
     fresh = reshard_trainer(kind, model, mesh)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -7020,6 +7114,7 @@ def reshard_cell(kind, model, mesh, host_shape, batch, card, tmp):
         fail(f'{what}: the round trip is not bit-equal: state {differ}, '
              f'loss {got} vs {loss}, leaves {leaves}')
     return {'bytes_a': sizes['a'], 'bytes_b': sizes['b'],
+            'parts_b': parts,
             'save_s': save_s, 'restore_s': restore_s, 'host': host,
             'loss': loss, 'launches': launches}
 
@@ -7053,6 +7148,137 @@ def check_phase18(dev, card):
             log(f'[{card}] phase 18 {kind}: {seconds[kind]:.1f} s')
     finally:
         dist.destroy_process_group()
+    out['seconds'] = seconds
+    return out
+
+
+# Phase 19: trainer states restored by leaf path. Each cell saves a
+# trainer's state through CheckpointManager and restores it into a fresh
+# trainer whose params tree lists the same leaves in another order; the
+# resumed step is held bit-equal to the uninterrupted one. (a) MaskedPLM
+# under Adam with grad_accum=2 on phase 5's nockpt@10k batch, cut after
+# STATE_CUT micro-steps (an update, then a cycle left open); (b) phase
+# 14's adapters over NF4 under adam8bit, lora_only, cut after RESUME_CUT
+# steps; (c) RegressionTrainer with the aggregation head on phase 14's
+# gb1_265 batch, cut after RESUME_CUT steps.
+STATE_CUT = 3
+
+
+def sorted_tree(tree, dev):
+    """``tree``'s weights laid out as ``models/io.py:params_from_jax``
+    gives them from JAX's pytree: every dict's keys sorted, each leaf
+    through host numpy (a bf16 leaf as its raw 16-bit words, as that
+    function carries it), without JAX."""
+    def leaf(t):
+        if t.dtype == torch.bfloat16:
+            words = t.cpu().view(torch.int16).numpy().copy()
+            return torch.from_numpy(words).view(torch.bfloat16).to(dev)
+        return torch.from_numpy(t.cpu().numpy().copy()).to(dev)
+    return {k: sorted_tree(tree[k], dev) if isinstance(tree[k], dict)
+            else leaf(tree[k]) for k in sorted(tree)}
+
+
+def reversed_tree(tree):
+    """``tree``'s leaves (the same tensors) with every dict's keys in
+    reverse order: ``k`` before ``q``, the head's ``final`` first."""
+    return {k: reversed_tree(tree[k]) if isinstance(tree[k], dict)
+            else tree[k] for k in reversed(list(tree))}
+
+
+def _same_values(a, b) -> bool:
+    """Bit-equal, or for leaves of two dtypes (NF4's outlier rows: fp32
+    from quantize-at-load, bf16 from ``quantize()``) equal values."""
+    if a.dtype == b.dtype:
+        return _same_bits(a, b)
+    return a.shape == b.shape and torch.equal(a.to(b.device, b.dtype), b)
+
+
+def check_phase19(dev, card):
+    """Phase 19: three cross-order resumes (:func:`check_resume`) at
+    ESM2-650M's full width (bf16, seed-0 weights written to a safetensors
+    file in a temporary directory): (a) ``MaskedPLM`` under Adam with
+    ``grad_accum=2``, A over ``ESM.from_pretrained(file)``, B over the same
+    weights in :func:`sorted_tree`'s order; (b) phase 14's adapters over
+    NF4, ``lora_only`` under ``adam8bit``, A over ``from_pretrained(file,
+    quantization='4bit')``, B over ``from_pretrained(file).quantize('4bit')``
+    (another NF4 draw and leaf order: the restore replaces B's trunk);
+    (c) ``RegressionTrainer`` with phase 14's adapters and aggregation
+    head, B's model and head in :func:`reversed_tree`'s order. Launches of
+    each resumed step: H1 33, H2 33, H3 66 of which 33 inverse."""
+    import functools
+    from esme_tpu_torch import ESM2
+    from esme_tpu_torch.models.config import esm2_config
+    from esme_tpu_torch.train import MaskedPLM, RegressionTrainer, adam8bit
+    out, seconds = {}, {}
+    cfg = esm2_config(**MODEL, dtype='bfloat16')
+    L = cfg.num_layers
+    expected = expected_launches(**{H1_NAME: L, H2_NAME: L, H3_NAME: 2 * L,
+                                    'rope_inverse': L})
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        seconds[key] = time.perf_counter() - t0
+        log(f'[{card}] phase 19 {key}: {seconds[key]:.1f} s')
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'esm2_650m.safetensors')
+        base = ESM2(**MODEL, dtype='bfloat16', rng=0, device=dev)
+        base.save_pretrained(path)
+        batch, _ = train_batch(TRAIN_CELLS[0][1], base)
+        ft_batch = length_batch(base, FT_LENGTHS['gb1_265'])
+        del base
+        torch.cuda.empty_cache()
+
+        def mlm_step(plm):
+            return plm.training_step(batch)
+        dense = functools.partial(MaskedPLM, learning_rate=1e-4,
+                                  grad_accum=2)
+
+        def sorted_model():
+            fresh = ESM2(**MODEL, dtype='bfloat16', rng=0, device=dev)
+            params = sorted_tree(fresh.params, dev)
+            del fresh
+            return ESM2(config=cfg, params=params, device=dev)
+        timed('a_masked_plm', lambda: check_resume(
+            lambda: dense(ESM2.from_pretrained(path, device=dev)),
+            lambda t: t.model.params, mlm_step, card,
+            'phase 19 (a) MaskedPLM, Adam, grad_accum=2, from_pretrained '
+            "against params_from_jax's sorted order", cut=STATE_CUT,
+            make_b=lambda: dense(sorted_model()), expected=expected))
+
+        def qlora(model):
+            return MaskedPLM(ft_model(dev, lift_b=True, model=model),
+                             lora_only=True, optimizer=adam8bit(1e-4))
+        timed('b_qlora', lambda: check_resume(
+            lambda: qlora(ESM2.from_pretrained(path, quantization='4bit',
+                                               device=dev)),
+            lambda t: t.model.params, mlm_step, card,
+            "phase 19 (b) QLoRA (NF4, adam8bit, lora_only), "
+            "from_pretrained(quantization='4bit') against quantize('4bit')",
+            make_b=lambda: qlora(ESM2.from_pretrained(path, device=dev)
+                                 .quantize('4bit')), expected=expected))
+
+        def regression(reorder, head_seed):
+            model = ft_model(dev, lift_b=True)
+            head = ft_head(dev, seed=head_seed)
+            if reorder:
+                model.params = reversed_tree(model.params)
+                head = reversed_tree(head)
+            return RegressionTrainer(model, head, head_lr=FT_HEAD_LR,
+                                     lr=FT_LR,
+                                     head_attention_heads=FT_HEAD_HEADS)
+        timed('c_regression', lambda: check_resume(
+            lambda: regression(False, 0),
+            lambda t: {'plm': t.model.params, 'head': t.head_params},
+            lambda t: t.training_step(ft_batch), card,
+            'phase 19 (c) RegressionTrainer, aggregation head, gb1_265, '
+            'every dict of the tree in reverse order',
+            make_b=lambda: regression(True, 5), expected=expected))
+    stale = [key for key, c in out.items() if not c['reordered']]
+    if stale:
+        fail(f'phase 19 {stale}: the resumed trainer lists its leaves in the '
+             'saved order, or other leaves')
     out['seconds'] = seconds
     return out
 

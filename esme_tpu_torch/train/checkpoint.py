@@ -13,10 +13,23 @@ files, and reads no orbax file:
 A state is a trainer's :class:`~esme_tpu_torch.train.trainer.TrainState`
 (params, the optimizer's ``state_dict()``, step, and for
 :class:`~esme_tpu_torch.train.MaskedPLM` an open accumulation cycle and
-the offloaded masters), a
+the offloaded masters; ``views``, the names of the optimizer's param ids
+and of the lists' entries), a
 :class:`~esme_tpu_torch.train.distributed.ShardedTrainState`, or a tree
 of dicts, lists, tensors and numbers; it is read back with
-``weights_only=True``, which runs no pickled code. ``max_to_keep``
+``weights_only=True``, which runs no pickled code. A trainer takes a
+state back by leaf path, as orbax restores JAX's by tree path: params by
+dotted path, the optimizer's state, the open cycle and the masters by
+the view (``[leaf path, layer]``) that ``views`` names, so that two
+models of the same leaves listed in other orders (the init's tree,
+``params_from_jax``'s sorted one, quantize-at-load against
+``quantize()``) restore into each other bit for bit; a leaf missing on
+either side or of another shape or dtype raises ``ValueError`` naming it
+(a frozen leaf saved in a dtype whose values convert exactly, as NF4's
+outlier rows of the two quantize routes, is taken). A state saved
+before ``views`` were recorded restores where its params list the
+trainer's paths in the same order, and raises naming the first leaf
+that differs otherwise. ``max_to_keep``
 checkpoints stay: with a ``monitor`` metric the best of them by ``mode``
 (a tie keeps the newer), else the newest. A checkpoint is written under a
 temporary name and renamed when complete, so a crash leaves no
@@ -27,9 +40,15 @@ one, each part from where it lives: every rank of the default process
 group calls :meth:`CheckpointManager.save` with its own part and writes
 ``rank<r>.pt`` into the temporary directory, and rank 0 renames the
 directory into place once every rank's part is complete (barriers of the
-process group around it). :meth:`~CheckpointManager.restore` with a
+process group around it). As orbax writes each replicated shard once, a
+rank at a ``data`` or ``seq`` coordinate other than 0 writes no param or
+optimizer tensor: the rank at ``data`` and ``seq`` 0 of its ``fsdp``
+coordinate holds the same bits and writes them; the replica writes its
+own open cycle's gradients (each rank's partial sums differ, below), its
+step and its layout. :meth:`~CheckpointManager.restore` with a
 sharded trainer's state as template gives each rank its own part: on a
-mesh of the layout the state was saved from, the rank's own file; on a
+mesh of the layout the state was saved from, the rank's own file (a
+replica's params and optimizer state from its holder's); on a
 mesh of another shape (other ``data``, ``fsdp`` or ``seq`` sizes, or
 another ``seq_axis``), its part resharded from the saved ones, as orbax
 restores into the template's shardings (``esme_tpu/train/checkpoint.py:
@@ -43,7 +62,7 @@ restore in an NCCL world on the card and the other way round:
   along the template's shard dim
   (:func:`~esme_tpu_torch.parallel.fsdp.reshard_leaf`); a scalar (a step
   count, ``adam8bit``'s scales, global over ``fsdp``) is taken once and
-  must be equal in every part;
+  must be equal in every part that holds optimizer state;
 * an open ``grad_accum`` cycle keeps what the cycle's end would sum
   (``ShardedMaskedPLM._reduce_grads``): each leaf's ``.grad`` summed over
   its old reduce group in coordinate order (the loss axes, and for a
@@ -72,8 +91,8 @@ import torch
 import torch.distributed as dist
 
 from ..parallel.fsdp import reshard_leaf
-from .distributed import ShardedTrainState, _named, check_views
-from .trainer import TrainState
+from .distributed import ShardedTrainState
+from .trainer import TrainState, _named, check_views, optimizer_ids
 
 _STATES = {'train_state': TrainState,
            'sharded_train_state': ShardedTrainState}
@@ -81,7 +100,14 @@ _STATES = {'train_state': TrainState,
 
 def _to_devices(saved, template):
     """``saved`` with each tensor on the device of ``template``'s tensor
-    at the same place (a tree of dicts, lists and tuples)."""
+    of the same name: in a trainer's state the params by dotted path, its
+    lists and optimizer state left on the host (the trainer's setter
+    pairs them by view and puts each on its tensor's device); in any
+    other tree of dicts, lists and tuples, at the same place."""
+    if isinstance(saved, tuple(_STATES.values())) \
+            and type(template) is type(saved):
+        return saved._replace(params=_to_devices(saved.params,
+                                                 template.params))
     if isinstance(saved, dict) and isinstance(template, dict):
         return {k: _to_devices(v, template.get(k)) for k, v in saved.items()}
     if isinstance(saved, (list, tuple)) and isinstance(
@@ -106,6 +132,26 @@ def _load(path, mmap: bool = False):
     return saved
 
 
+def _replica(mesh: dict) -> bool:
+    """Whether the rank of a part of layout ``mesh`` is a replica: at a
+    coordinate other than 0 on an axis other than ``fsdp``."""
+    return any(c for a, c in zip(mesh['axes'], mesh.get('coords', ()))
+               if a != 'fsdp')
+
+
+def _holder(step_dir: Path, mesh: dict) -> ShardedTrainState:
+    """The part (memory-mapped) that holds the params and optimizer
+    state of a replica's part of layout ``mesh``: the part at its
+    ``fsdp`` coordinate and at 0 on every other axis."""
+    want = [c if a == 'fsdp' else 0
+            for a, c in zip(mesh['axes'], mesh['coords'])]
+    for r in range(math.prod(mesh['shape'])):
+        part = _load(step_dir / f'rank{r}.pt', mmap=True)
+        if list(part.mesh['coords']) == want:
+            return part
+    raise ValueError(f'no part of {step_dir} is at coordinates {want}')
+
+
 def _same_layout(saved: dict, mine: dict) -> bool:
     """Whether a rank's own part of layout ``saved``
     (``ShardedTrainState.mesh``) is its part on a mesh of layout
@@ -123,7 +169,10 @@ def _map_named(fn, tree: dict, path: str = '') -> dict:
 
 
 class _Parts:
-    """A sharded checkpoint's parts by mesh coordinate, memory-mapped."""
+    """A sharded checkpoint's parts by mesh coordinate, memory-mapped;
+    ``lead``, the part at 0 on every axis; ``holders``, the parts that hold
+    params and optimizer state (every part, in a checkpoint written before
+    replicas left theirs out)."""
 
     def __init__(self, step_dir: Path, first: ShardedTrainState):
         mesh = first.mesh
@@ -142,6 +191,9 @@ class _Parts:
             part = first if r == 0 else _load(step_dir / f'rank{r}.pt',
                                               mmap=True)
             self.parts[tuple(part.mesh['coords'])] = part
+        self.lead = self.select()[0]
+        self.holders = [p for p in self.parts.values()
+                        if p.opt_state is not None]
 
     def select(self, free=(), **at) -> list:
         """The parts at coordinate ``at`` (0 where not given) on every
@@ -152,9 +204,9 @@ class _Parts:
                 if all(c[i] == v for i, v in fixed)]
 
     def blocks(self, dim: Optional[int], get) -> list:
-        """``get(part)`` of data row 0 and ``seq`` 0 for each ``fsdp``
-        block of a leaf sharded on ``dim`` (one part for a replicated
-        leaf)."""
+        """``get(part)`` of data row 0 and ``seq`` 0 (the parts that hold
+        params and optimizer state) for each ``fsdp`` block of a leaf
+        sharded on ``dim`` (one part for a replicated leaf)."""
         n = self.size['fsdp'] if dim is not None else 1
         return [get(self.select(fsdp=i)[0]) for i in range(n)]
 
@@ -206,9 +258,10 @@ def _reshard(step_dir: Path, first: ShardedTrainState,
     at = dict(zip(mesh['axes'], mesh['coords']))
     n, f = dict(zip(mesh['axes'], mesh['shape']))['fsdp'], at['fsdp']
     specs = dict(_named(mesh['specs']))
-    check_views(first.views, template.views)
+    lead = old.lead
+    check_views(lead.views, template.views)
     live = dict(_named(template.params))
-    _check_params(old, dict(_named(first.params)), live, specs, n)
+    _check_params(old, dict(_named(lead.params)), live, specs, n)
     steps = {int(p.step) for p in old.parts.values()}
     if len(steps) != 1:
         raise ValueError(f'the saved parts are at steps {sorted(steps)}')
@@ -225,22 +278,13 @@ def _reshard(step_dir: Path, first: ShardedTrainState,
     # the optimizer's state by view: the template's param ids and groups,
     # each group's hyperparameters and each id's state from the saved id
     # of the same view (the trees of two models of the same leaves may
-    # list them in other orders)
-    ids = {tuple(v): i for i, v in enumerate(first.views['optimizer'])}
-    order = [ids[tuple(v)] for v in template.views['optimizer']]
-    saved_group = {i: g for g in first.opt_state['param_groups']
-                   for i in g['params']}
-    groups = []
-    for g in template.opt_state['param_groups']:
-        sg = saved_group[order[g['params'][0]]]
-        if sorted(order[i] for i in g['params']) != sorted(sg['params']):
-            raise ValueError('the saved optimizer groups the leaves '
-                             'otherwise (another optimizer)')
-        groups.append({**sg, 'params': list(g['params'])})
+    # list them in other orders), over the parts that hold it
+    order, groups = optimizer_ids(lead.views, lead.opt_state,
+                                  template.views, template.opt_state)
     state = {}
     for pid, name in enumerate(template.views['optimizer']):
         entries = [p.opt_state['state'].get(order[pid])
-                   for p in old.parts.values()]
+                   for p in old.holders]
         if entries[0] is None:
             if any(e is not None for e in entries):
                 raise ValueError(f'optimizer state of {name[0]} saved by '
@@ -321,7 +365,11 @@ class CheckpointManager:
     def save(self, step: int, state, metrics: Optional[dict] = None):
         """Write ``state`` and ``metrics`` as checkpoint ``step``, then
         drop the checkpoints past ``max_to_keep``. Every rank calls it with
-        its part of a :class:`ShardedTrainState`."""
+        its part of a :class:`ShardedTrainState`; a replica (a rank at
+        ``data`` or ``seq`` other than 0) writes its own open cycle's
+        gradients, step and layout, and leaves its params and optimizer
+        state to the rank at ``data`` and ``seq`` 0 of its ``fsdp``
+        coordinate, whose are the same bits."""
         step = int(step)
         final = self.directory / str(step)
         tmp = self.directory / f'.{step}.tmp'
@@ -335,6 +383,8 @@ class CheckpointManager:
         key = next((k for k, cls in _STATES.items()
                     if isinstance(state, cls)), None)
         name = f'rank{rank}.pt' if sharded else 'state.pt'
+        if sharded and _replica(state.mesh):
+            state = state._replace(params=None, opt_state=None)
         torch.save({key: state._asdict()} if key else state, tmp / name)
         if sharded:
             dist.barrier()
@@ -371,11 +421,12 @@ class CheckpointManager:
 
     def restore(self, state_template=None, step: Optional[int] = None):
         """The state of checkpoint ``step`` (the latest by default; None if
-        there is none), each tensor on the device of ``state_template``'s
-        tensor at its place (the CPU without a template). A trainer takes
-        it back with ``trainer.state = manager.restore(trainer.state)``; a
-        sharded trainer's ranks each take their own part so, on a mesh of
-        the saved shape or, resharded, of another (module docstring)."""
+        there is none), its params on the devices of ``state_template``'s
+        leaves of the same paths (the CPU without a template). A trainer
+        takes it back with ``trainer.state = manager.restore(
+        trainer.state)``; a sharded trainer's ranks each take their own
+        part so, on a mesh of the saved shape or, resharded, of another
+        (module docstring)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             return None
@@ -388,5 +439,9 @@ class CheckpointManager:
                 return _reshard(directory, first, state_template)
             name = f'rank{dist.get_rank()}.pt'
         saved = _load(directory / name)
+        if isinstance(saved, ShardedTrainState) and saved.params is None:
+            held = _holder(directory, saved.mesh)
+            saved = saved._replace(params=held.params,
+                                   opt_state=held.opt_state)
         return _to_devices(saved, state_template) \
             if state_template is not None else saved

@@ -71,8 +71,10 @@ from ..parallel.fsdp import (_map, fsdp_partition_specs, gather_dim,
                              make_layer_gather, make_outer_gather,
                              shard_params)
 from ..parallel.mesh import axes_group
-from .trainer import (_copy_leaves, _grad_tree, _leaves, _tensor,
-                      build_optimizer, load_optimizer_state, train_views)
+from .trainer import (_grad_tree, _leaves, _same_paths, _tensor,
+                      build_optimizer, check_views, copy_named,
+                      load_optimizer_state, named_views, train_views,
+                      view_key)
 
 
 class ShardedTrainState(NamedTuple):
@@ -91,63 +93,20 @@ class ShardedTrainState(NamedTuple):
     ``views``, the trained views as ``[leaf path, layer]`` (layer None
     outside the stacked layers) in the order of ``accum`` (``trained``)
     and of the optimizer's param ids (``optimizer``), and the optimizer's
-    class (``optimizer_class``). A part saved before ``coords``, ``specs``
-    and ``views`` were recorded has neither, and restores only on the mesh
-    shape it was saved from."""
+    class (``optimizer_class``). As written by
+    :class:`~esme_tpu_torch.train.CheckpointManager`, the part of a rank
+    whose ``data`` or ``seq`` coordinate is not 0 has ``params`` and
+    ``opt_state`` None: it is a replica of the rank at ``data`` and
+    ``seq`` 0 of its ``fsdp`` coordinate, whose part holds them, as orbax
+    writes each replicated shard once. A part saved before ``coords``,
+    ``specs`` and ``views`` were recorded has neither, and restores only
+    on the mesh shape it was saved from."""
     params: dict
     opt_state: dict
     step: int
     accum: Optional[list]
     mesh: dict
     views: Optional[dict] = None
-
-
-def _named(tree: dict, path: str = ''):
-    """``(dotted path, leaf)`` for every leaf of a dict tree, in order."""
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            yield from _named(v, f'{path}{k}.')
-        else:
-            yield f'{path}{k}', v
-
-
-def view_names(views: dict) -> list:
-    """``[leaf path, layer]`` of every leaf of a
-    :func:`~esme_tpu_torch.train.trainer.train_views` tree, in the order
-    its leaves are visited: a stacked leaf's per-layer views carry their
-    layer, the others None."""
-    out = []
-    for key, v in views.items():
-        if key == 'layers':
-            out += [[f'layers.{n}', i] for i, layer in enumerate(v)
-                    for n, _ in _named(layer)]
-        elif isinstance(v, dict):
-            out += [[f'{key}.{n}', None] for n, _ in _named(v)]
-        else:
-            out.append([key, None])
-    return out
-
-
-def _label(view) -> str:
-    path, layer = view
-    return path if layer is None else f'{path} (layer {layer})'
-
-
-def check_views(saved: dict, mine: dict) -> None:
-    """Raise ``ValueError`` where a saved part's trained views or
-    optimizer (``ShardedTrainState.views``) are not this trainer's in any
-    order, naming the first leaf that differs."""
-    if saved['optimizer_class'] != mine['optimizer_class']:
-        raise ValueError(f"the state was saved with optimizer "
-                         f"{saved['optimizer_class']}; this trainer's is "
-                         f"{mine['optimizer_class']}")
-    a, b = ({tuple(v) for v in views['trained']} for views in (saved, mine))
-    if a != b:
-        view = min(a ^ b, key=str)
-        where = ('here but not in the saved state' if view in b
-                 else 'in the saved state but not here')
-        raise ValueError(f'{_label(view)} trains {where} (another '
-                         'trainable mask or model)')
 
 
 def stack_batches(batches):
@@ -242,24 +201,18 @@ class ShardedMaskedPLM:
         layers = self._views['layers']
         view_specs = {k: [self.specs[k]] * len(layers) if k == 'layers'
                       else self.specs[k] for k in self.specs}
-        pairs = [(t, d, n) for t, d, n in zip(
-            _leaves(self._views), _leaves(view_specs),
-            view_names(self._views))
-            if torch.is_tensor(t) and t.requires_grad]
+        named = named_views(self._views)
+        pairs = [(t, d) for (t, _), d in zip(named, _leaves(view_specs))
+                 if torch.is_tensor(t) and t.requires_grad]
         if not pairs:
             raise ValueError('ShardedMaskedPLM: no leaf of the model trains '
                              'under this mask (lora_only without adapters?)')
-        self._sharded = [t for t, d, _ in pairs if d is not None]
-        self._replicated = [t for t, d, _ in pairs if d is None]
-        self._trained = [t for t, _, _ in pairs]
+        self._sharded = [t for t, d in pairs if d is not None]
+        self._replicated = [t for t, d in pairs if d is None]
+        self._trained = [t for t, _ in pairs]
         self.optimizer = build_optimizer(self._views, optimizer,
                                          learning_rate, weight_decay)
-        name_of = {id(t): n for t, _, n in pairs}
-        self._view_key = {
-            'trained': [n for _, _, n in pairs],
-            'optimizer': [name_of[id(p)] for g in self.optimizer.param_groups
-                          for p in g['params']],
-            'optimizer_class': type(self.optimizer).__name__}
+        self._view_key = view_key(named, self.optimizer)
 
         self._layer_gather = make_layer_gather(self.specs['layers'], mesh)
         self._outer_gather = make_outer_gather(
@@ -456,11 +409,14 @@ class ShardedMaskedPLM:
         (:meth:`CheckpointManager.restore
         <esme_tpu_torch.train.checkpoint.CheckpointManager.restore>` on
         every rank, which reshards a state saved on a mesh of another
-        shape): its shards copied into the live tensors bit for bit.
-        Raises ``ValueError`` for a part keyed to another mesh, rank or
-        layout, or to other trained views or another optimizer. A part
-        saved before the layout was recorded is checked on the mesh's
-        axes, shape and rank only."""
+        shape): its shards copied into the live tensors by leaf path, bit
+        for bit. Raises ``ValueError`` for a part keyed to another mesh,
+        rank or layout, or to other trained views or another optimizer,
+        and for a replica's part as saved (``CheckpointManager`` writes the
+        params and optimizer state of the ranks at ``data`` and ``seq`` 0
+        only; its ``restore`` fills them in). A part saved before the
+        layout was recorded is checked on the mesh's axes, shape and rank
+        only, and its params must list this trainer's paths in order."""
         mine = self._mesh_key()
         keys = mine if 'specs' in state.mesh else ('axes', 'shape', 'rank')
         differ = [k for k in keys if state.mesh.get(k) != mine[k]]
@@ -470,13 +426,20 @@ class ShardedMaskedPLM:
                 f"{state.mesh['shape']} mesh cannot be taken by rank "
                 f"{mine['rank']} of a {mine['shape']} mesh (its {differ} "
                 'differ); CheckpointManager.restore reshards a saved state')
+        if state.params is None or state.opt_state is None:
+            raise ValueError('the part of a replica holds no params or '
+                             'optimizer state (its replica at data and seq '
+                             '0 does); CheckpointManager.restore fills them')
         if state.views is not None:
             check_views(state.views, self._view_key)
             if state.views != self._view_key:
                 raise ValueError('the part lists the trained leaves in '
                                  'another order; CheckpointManager.restore '
                                  'reorders a saved state')
-        _copy_leaves(self.params, state.params)
+        else:
+            _same_paths(self.params, state.params)
+        copy_named(self.params, state.params,
+                   {p for p, _ in self._view_key['trained']})
         load_optimizer_state(self.optimizer, state.opt_state)
         self.step = int(state.step)
         for t, g in zip(self._trained, state.accum or [None] *

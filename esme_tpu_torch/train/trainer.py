@@ -50,6 +50,7 @@ input gradients are cuBLAS products too.
 
 from __future__ import annotations
 
+import itertools
 import time
 from typing import NamedTuple, Optional
 
@@ -76,12 +77,26 @@ class TrainState(NamedTuple):
     ``accum``, the running mean of an open ``grad_accum`` cycle (which JAX
     keeps in ``optax.MultiSteps``' state; None between cycles), and
     ``masters``, the fp32 master copies of ``offload_optimizer`` (None
-    without it)."""
+    without it). ``views`` names what the lists and the optimizer's
+    integer param ids hold, as
+    :class:`~esme_tpu_torch.train.distributed.ShardedTrainState`'s does:
+    the trained views as ``[leaf path, layer]`` (layer None outside the
+    stacked layers) in the order of ``accum`` (``trained``) and of the
+    optimizer's param ids (``optimizer``), the optimizer's class
+    (``optimizer_class``) and, offloaded, the masters' ``[leaf path,
+    None]`` (``masters``). A setter pairs every saved leaf with the
+    trainer's of the same path, as orbax restores JAX's state by tree
+    path, so two trees that list the same leaves in other orders (the
+    init's, ``models/io.py:params_from_jax``'s sorted one, quantize-at-load
+    against ``quantize()``) restore into each other. A state saved before
+    ``views`` were recorded (None) restores only into a trainer whose
+    params list the same paths in the same order."""
     params: dict
     opt_state: dict
     step: int
     accum: Optional[list] = None
     masters: Optional[list] = None
+    views: Optional[dict] = None
 
 
 def _map(fn, tree):
@@ -104,21 +119,212 @@ def _leaves(tree):
             yield v
 
 
-def _copy_leaves(live, saved) -> None:
-    """Copy each leaf of ``saved`` into the leaf of ``live`` at its place
-    (trees of dicts and lists of the same structure), bit for bit; raises
-    ``ValueError`` where the leaves' count, shapes or dtypes differ."""
-    live, saved = list(_leaves(live)), list(_leaves(saved))
-    if len(live) != len(saved):
-        raise ValueError(f'the saved state has {len(saved)} leaves where '
-                         f'the trainer has {len(live)}')
-    for t, v in zip(live, saved):
-        if t.shape != v.shape or t.dtype != v.dtype:
-            raise ValueError(f'a saved leaf of {tuple(v.shape)} {v.dtype} '
-                             f'for one of {tuple(t.shape)} {t.dtype}')
+def _named(tree: dict, path: str = ''):
+    """``(dotted path, leaf)`` for every leaf of a dict tree, in order."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _named(v, f'{path}{k}.')
+        else:
+            yield f'{path}{k}', v
+
+
+def view_names(views: dict) -> list:
+    """``[leaf path, layer]`` of every leaf of a :func:`train_views` tree,
+    in the order its leaves are visited: a stacked leaf's per-layer views
+    carry their layer, the others None."""
+    out = []
+    for key, v in views.items():
+        if key == 'layers':
+            out += [[f'layers.{n}', i] for i, layer in enumerate(v)
+                    for n, _ in _named(layer)]
+        elif isinstance(v, dict):
+            out += [[f'{key}.{n}', None] for n, _ in _named(v)]
+        else:
+            out.append([key, None])
+    return out
+
+
+def _label(view) -> str:
+    path, layer = view
+    return path if layer is None else f'{path} (layer {layer})'
+
+
+def check_views(saved: dict, mine: dict) -> None:
+    """Raise ``ValueError`` where a saved state's trained views or
+    optimizer (``TrainState.views``) are not this trainer's in any order,
+    naming the first leaf that differs."""
+    if saved['optimizer_class'] != mine['optimizer_class']:
+        raise ValueError(f"the state was saved with optimizer "
+                         f"{saved['optimizer_class']}; this trainer's is "
+                         f"{mine['optimizer_class']}")
+    a, b = ({tuple(v) for v in views['trained']} for views in (saved, mine))
+    if a != b:
+        view = min(a ^ b, key=str)
+        where = ('here but not in the saved state' if view in b
+                 else 'in the saved state but not here')
+        raise ValueError(f'{_label(view)} trains {where} (another '
+                         'trainable mask or model)')
+
+
+def named_views(views: dict, prefix: str = '') -> list:
+    """``(view, [leaf path, layer])`` for every leaf of a
+    :func:`train_views` tree, each path after ``prefix``."""
+    return [(t, [prefix + path, layer]) for t, (path, layer) in
+            zip(_leaves(views), view_names(views))]
+
+
+def view_key(named: list, optimizer) -> dict:
+    """``TrainState.views`` of a trainer: ``named``'s trained views (from
+    :func:`named_views`) and the optimizer's param ids by name."""
+    trained = [(t, n) for t, n in named
+               if torch.is_tensor(t) and t.requires_grad]
+    name_of = {id(t): n for t, n in trained}
+    return {'trained': [n for _, n in trained],
+            'optimizer': [name_of[id(p)] for g in optimizer.param_groups
+                          for p in g['params']],
+            'optimizer_class': type(optimizer).__name__}
+
+
+def _same_paths(live: dict, saved: dict) -> None:
+    """For a state saved without ``views``: raise ``ValueError`` naming
+    the first leaf where ``saved`` lists another path than ``live``."""
+    a, b = ([p for p, _ in _named(t)] for t in (saved, live))
+    for x, y in itertools.zip_longest(a, b):
+        if x != y:
+            raise ValueError(
+                f'the state records no views (saved before states were '
+                f'keyed by leaf path) and lists leaf {x} where this trainer '
+                f'lists {y}: it restores only into a trainer whose params '
+                'list the same leaves in the same order')
+
+
+def _converts_exactly(v: torch.Tensor, dtype) -> bool:
+    """Whether every value of ``v`` survives a round trip through
+    ``dtype``, bit for bit."""
+    if not (v.is_floating_point() and dtype.is_floating_point):
+        return False
+    back = v.to(dtype).to(v.dtype)
+    return torch.equal(back.reshape(-1).view(torch.uint8),
+                       v.reshape(-1).contiguous().view(torch.uint8))
+
+
+def _check_leaf(name: str, v: torch.Tensor, t: torch.Tensor,
+                cast: bool = False) -> None:
+    """Raise ``ValueError`` naming ``name`` where the saved ``v`` has
+    another shape or dtype than the trainer's ``t`` (with ``cast``, a
+    dtype its values convert to exactly passes)."""
+    if v.shape != t.shape or (v.dtype != t.dtype and not (
+            cast and _converts_exactly(v, t.dtype))):
+        raise ValueError(f'a saved leaf {name} of {tuple(v.shape)} {v.dtype} '
+                         f'for one of {tuple(t.shape)} {t.dtype}')
+
+
+def copy_named(live: dict, saved: dict, trained=()) -> None:
+    """Copy each leaf of ``saved`` into the leaf of ``live`` at the same
+    dotted path, bit for bit. Raises ``ValueError`` naming a leaf missing
+    on either side, or whose shape or dtype differs; a frozen leaf (not
+    in ``trained``, a set of paths) saved in another dtype is taken where
+    its values convert exactly (a quantized trunk's NF4 outlier rows are
+    fp32 from quantize-at-load, as in JAX, and in the model's dtype from
+    ``quantize()``)."""
+    live, saved = dict(_named(live)), dict(_named(saved))
+    for path in sorted(set(live) | set(saved)):
+        if path not in live or path not in saved:
+            where = ('this trainer', 'the saved state')
+            raise ValueError(f'leaf {path} is in {where[path in saved]} '
+                             f'but not in {where[path in live]}: another '
+                             'model')
+        _check_leaf(path, saved[path], live[path],
+                    cast=path not in trained)
     with torch.no_grad():
-        for t, v in zip(live, saved):
-            t.copy_(v)
+        for path, t in live.items():
+            t.copy_(saved[path])
+
+
+def by_view(values: list, saved: list, live: list, like: list) -> list:
+    """``values``, listed by the views ``saved``, in the order of the
+    views ``live`` (``[leaf path, layer]`` each); raises ``ValueError``
+    naming a view missing from ``saved`` or whose value (not None) has
+    another shape or dtype than its tensor in ``like``."""
+    if len(values) != len(saved):
+        raise ValueError(f'the saved state lists {len(values)} tensors for '
+                         f'{len(saved)} views')
+    index = {tuple(n): i for i, n in enumerate(saved)}
+    out = []
+    for name, t in zip(live, like):
+        if tuple(name) not in index:
+            raise ValueError(f'{_label(name)}: nothing saved for it')
+        v = values[index[tuple(name)]]
+        if v is not None:
+            _check_leaf(_label(name), v, t)
+        out.append(v)
+    return out
+
+
+def optimizer_ids(saved: dict, saved_opt: dict, live: dict,
+                  live_opt: dict):
+    """``(order, groups)``, a saved optimizer state laid onto a trainer's
+    by view: ``order[i]`` the saved param id of the view of the trainer's
+    id ``i`` (``saved`` and ``live``: the two ``views`` records), and the
+    trainer's param groups with the saved groups' hyperparameters.
+    Raises ``ValueError`` where a view has no saved id or the saved
+    optimizer groups the views otherwise (another optimizer)."""
+    ids = {tuple(v): i for i, v in enumerate(saved['optimizer'])}
+    missing = [v for v in live['optimizer'] if tuple(v) not in ids]
+    if missing:
+        raise ValueError(f'{_label(missing[0])} has no saved optimizer id '
+                         '(another optimizer or trainable mask)')
+    order = [ids[tuple(v)] for v in live['optimizer']]
+    saved_group = {i: g for g in saved_opt['param_groups']
+                   for i in g['params']}
+    groups = []
+    for g in live_opt['param_groups']:
+        sg = saved_group.get(order[g['params'][0]])
+        if sg is None or sorted(order[i] for i in g['params']) \
+                != sorted(sg['params']):
+            raise ValueError('the saved optimizer groups the leaves '
+                             'otherwise (another optimizer)')
+        groups.append({**sg, 'params': list(g['params'])})
+    return order, groups
+
+
+def _load_optimizer(optimizer, opt_state: dict, saved: dict,
+                    live: dict) -> None:
+    """Load a saved ``state_dict`` into ``optimizer`` by view (the
+    ``views`` records ``saved`` and ``live``): each param's state from
+    the saved id of its view, each tensor of a param's shape checked."""
+    order, groups = optimizer_ids(saved, opt_state, live,
+                                  optimizer.state_dict())
+    params = [p for g in optimizer.param_groups for p in g['params']]
+    state = {}
+    for pid, (sid, name) in enumerate(zip(order, live['optimizer'])):
+        st = opt_state['state'].get(sid)
+        if st is None:
+            continue
+        for k, v in st.items():
+            if torch.is_tensor(v) and v.dim() > 0 \
+                    and v.shape != params[pid].shape:
+                raise ValueError(
+                    f'optimizer state {k!r} of {_label(name)} saved as '
+                    f'{tuple(v.shape)}; the leaf is '
+                    f'{tuple(params[pid].shape)}')
+        state[pid] = st
+    load_optimizer_state(optimizer, {'state': state, 'param_groups': groups})
+
+
+def restore_params(params: dict, state, key: dict) -> dict:
+    """The first part of a setter: check the saved ``state``'s views
+    against the trainer's (``key``), then copy its params into
+    ``params`` by path (:func:`copy_named`). Returns the saved views: for
+    a state saved without them, after checking that its params list the
+    trainer's paths in order, the trainer's own."""
+    saved = state.views
+    if saved is None:
+        _same_paths(params, state.params)
+        saved = key
+    check_views(saved, key)
+    copy_named(params, state.params, {p for p, _ in key['trained']})
+    return saved
 
 
 def load_optimizer_state(optimizer, state_dict: dict) -> None:
@@ -294,10 +500,13 @@ class _HostOptimizer:
         # fp32 copies of the trainable leaves; the frozen stay on the card
         masters = _map2(lambda t, f: _pinned(t, torch.float32, pin).copy_(t)
                         if trains(t, f) else t, params, mask)
-        self._up = [(t, m, None if t.dtype == torch.float32
-                     else _pinned(t, t.dtype, pin))
-                    for t, m, f in zip(_leaves(params), _leaves(masters),
-                                       _leaves(mask)) if trains(t, f)]
+        up = [((name, t), m, None if t.dtype == torch.float32
+               else _pinned(t, t.dtype, pin))
+              for (name, t), m, f in zip(_named(params), _leaves(masters),
+                                         _leaves(mask)) if trains(t, f)]
+        self._up = [(t, m, w) for (_, t), m, w in up]
+        # the masters' names in a TrainState's views
+        self.names = [[name, None] for (name, _), _, _ in up]
         self.views = train_views(masters, mask)
         masters_rows = _trained(self.views)
         grads = _map2(lambda t, f: _pinned(t, torch.float32, pin)
@@ -441,6 +650,11 @@ class MaskedPLM:
         else:
             self.optimizer = build_optimizer(self._views, optimizer,
                                              learning_rate, weight_decay)
+        # the optimizer's params are the masters' rows when offloaded
+        self._view_key = view_key(named_views(
+            self._host.views if self._host else self._views), self.optimizer)
+        if self._host is not None:
+            self._view_key['masters'] = self._host.names
 
     # -- state ------------------------------------------------------------
 
@@ -448,9 +662,9 @@ class MaskedPLM:
     def state(self) -> TrainState:
         """The params (``model.params``, the live tensors), the optimizer's
         state, the step, inside a ``grad_accum`` cycle the running mean of
-        its gradients so far, and under ``offload_optimizer`` the fp32
-        masters, so that a restored trainer continues as the saved one
-        would have, bit for bit."""
+        its gradients so far, under ``offload_optimizer`` the fp32
+        masters, and the views that name them, so that a restored trainer
+        continues as the saved one would have, bit for bit."""
         host = self._host
         accum = None
         if self.step % self.grad_accum:
@@ -458,35 +672,47 @@ class MaskedPLM:
                 [self._acc.get(p) for p in self._params]
         masters = None if host is None else [m for _, m, _ in host._up]
         return TrainState(self.model.params, self.optimizer.state_dict(),
-                          self.step, accum, masters)
+                          self.step, accum, masters, self._view_key)
 
     @state.setter
     def state(self, state: TrainState) -> None:
         """Take a saved state (:meth:`CheckpointManager.restore
         <esme_tpu_torch.train.checkpoint.CheckpointManager.restore>`): the
-        params, masters and running mean copied into the live tensors, bit
-        for bit. A state without masters restored under
-        ``offload_optimizer`` takes its params as masters, as a new
-        trainer does."""
-        _copy_leaves(self.model.params, state.params)
+        params, masters and running mean copied into the live tensors by
+        leaf path and view, bit for bit, and the optimizer's state by
+        view. Raises ``ValueError`` naming a leaf missing on either side
+        or of another shape or dtype (:class:`TrainState`). A state without
+        masters restored under ``offload_optimizer`` takes its params as
+        masters, as a new trainer does."""
+        key = self._view_key
+        saved = restore_params(self.model.params, state, key)
         host = self._host
         if host is not None:
+            masters = [m for _, m, _ in host._up]
             with torch.no_grad():
                 for param, master, _ in host._up:
                     master.copy_(param)
-            if state.masters is not None:
-                _copy_leaves([m for _, m, _ in host._up], state.masters)
-        load_optimizer_state(self.optimizer, state.opt_state)
+                if state.masters is not None:
+                    for m, v in zip(masters, by_view(
+                            state.masters, saved.get('masters', key[
+                                'masters']), key['masters'], masters)):
+                        m.copy_(v)
+        _load_optimizer(self.optimizer, state.opt_state, saved, key)
         self.step = int(state.step)
         self._acc.clear()
         if self.step % self.grad_accum:
             if state.accum is None:
                 raise ValueError('the state is inside a grad_accum cycle '
                                  'but holds no accumulated gradients')
+            like = host._grads if host is not None else self._params
+            accum = by_view(state.accum, saved['trained'], key['trained'],
+                            like)
             if host is not None:
-                _copy_leaves(host._grads, state.accum)
+                with torch.no_grad():
+                    for t, g in zip(host._grads, accum):
+                        t.copy_(g)
             else:
-                for p, g in zip(self._params, state.accum):
+                for p, g in zip(self._params, accum):
                     self._acc[p] = torch.zeros_like(p) if g is None \
                         else g.to(p.device, copy=True)
 
@@ -629,25 +855,34 @@ class RegressionTrainer:
             (_trained(self._head_views), head_lr)) if ps]
         self._params = [p for g in groups for p in g['params']]
         self.optimizer = torch.optim.Adam(groups, lr=lr)
+        self._view_key = view_key(
+            named_views(self._views, 'plm.')
+            + named_views(self._head_views, 'head.'), self.optimizer)
 
     # -- state ------------------------------------------------------------
 
     @property
     def state(self) -> TrainState:
         """The params (``{'plm': model.params, 'head': head_params}``, the
-        live tensors), the optimizer's state and the step."""
+        live tensors), the optimizer's state, the step and the views that
+        name the optimizer's ids (``plm.``- and ``head.``-prefixed)."""
         return TrainState({'plm': self.model.params,
                            'head': self.head_params},
-                          self.optimizer.state_dict(), self.step)
+                          self.optimizer.state_dict(), self.step,
+                          views=self._view_key)
 
     @state.setter
     def state(self, state: TrainState) -> None:
         """Take a saved state (:meth:`CheckpointManager.restore
         <esme_tpu_torch.train.checkpoint.CheckpointManager.restore>`):
-        its params copied into the live tensors, bit for bit."""
-        _copy_leaves([self.model.params, self.head_params],
-                     [state.params['plm'], state.params['head']])
-        load_optimizer_state(self.optimizer, state.opt_state)
+        its params copied into the live tensors by leaf path, bit for bit,
+        and the optimizer's state (both learning-rate groups) by view, as
+        :meth:`MaskedPLM.state`'s setter."""
+        saved = restore_params({'plm': self.model.params,
+                                'head': self.head_params}, state,
+                               self._view_key)
+        _load_optimizer(self.optimizer, state.opt_state, saved,
+                        self._view_key)
         self.step = int(state.step)
 
     # -- the step ---------------------------------------------------------

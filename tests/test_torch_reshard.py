@@ -63,7 +63,17 @@ Gates (each with its reason):
   ``tests/test_torch_sharded_lora.py`` holds two steps to. The update
   after it is not compared: JAX's resumed update mixes the two meshes'
   multiples (ROADMAP.md Queue 3, item 29);
-* the refusals: ``ValueError`` naming the cause, never a silent restore.
+* the refusals: ``ValueError`` naming the cause, never a silent restore;
+* each replicated shard written once, as orbax writes it: before each
+  save the ranks of an ``fsdp`` coordinate (the replicas along ``data``
+  and ``seq``) hold the same params and optimizer state, bit for bit (so
+  one of them can stand for all), and in every checkpoint the parts at a
+  ``data`` or ``seq`` coordinate other than 0 hold no param or optimizer
+  tensor, while each still holds its own open cycle's gradients, step
+  and layout;
+* parts written in the old form (every rank its whole part) still
+  restore: on B, resharded, to the state B restored from the new form,
+  and on A's own shape to A's saved part, bit for bit in every field.
 """
 
 import functools
@@ -297,18 +307,55 @@ def _pair(name):
 
 
 def _results(name, run, world):
-    shape = PAIRS[name][0 if world == 'a' else 1]
+    shape = PAIRS[name][1 if world == 'b' else 0]
     out = _pair(name) / run
     return [dict(np.load(out / f'{world}_rank{r}.npz'))
             for r in range(int(np.prod(shape)))]
 
 
 def _parts(name, run, world):
-    """A checkpoint's parts (the trainer state of every rank), by rank."""
+    """A checkpoint's parts (the trainer state of every rank), by rank;
+    ``world`` a, b, a2 (the round trip) or a_old, b_old, a2_old."""
     root = _pair(name) / run / world
     (step,) = [p for p in root.iterdir() if p.name.isdigit()]
     return [_load(step / f'rank{r}.pt')
             for r in range(len(list(step.glob('rank*.pt'))))]
+
+
+def _assert_parts_equal(q, p, accum=True):
+    """Part ``q`` is part ``p``, bit for bit: layout, views, step, params
+    and optimizer state (tensors byte for byte, scalars and groups equal;
+    None in both for a replica), with ``accum`` the open cycle's
+    gradients too."""
+    assert q.mesh == p.mesh and q.views == p.views and q.step == p.step
+    assert (q.params is None) == (p.params is None)
+    assert (q.opt_state is None) == (p.opt_state is None)
+    if p.params is not None:
+        for (k, x), (k2, y) in zip(_named(p.params), _named(q.params)):
+            assert k == k2 and x.dtype == y.dtype and x.shape == y.shape
+            np.testing.assert_array_equal(_bits(y), _bits(x), k)
+    if p.opt_state is not None:
+        assert q.opt_state['param_groups'] == p.opt_state['param_groups']
+        assert q.opt_state['state'].keys() == p.opt_state['state'].keys()
+        for pid, st_p in p.opt_state['state'].items():
+            st_q = q.opt_state['state'][pid]
+            assert st_q.keys() == st_p.keys()
+            for key, v in st_p.items():
+                if torch.is_tensor(v):
+                    assert st_q[key].dtype == v.dtype, (pid, key)
+                    np.testing.assert_array_equal(_bits(st_q[key]), _bits(v))
+                else:
+                    assert st_q[key] == v, (pid, key)
+    if accum:
+        assert len(q.accum) == len(p.accum)
+        for x, y in zip(p.accum, q.accum):
+            np.testing.assert_array_equal(_bits(y), _bits(x))
+
+
+def _is_replica(part) -> bool:
+    mesh = part.mesh
+    return any(c for a, c in zip(mesh['axes'], mesh['coords'])
+               if a != 'fsdp')
 
 
 def _group_sums(parts, i):
@@ -349,21 +396,7 @@ def test_round_trip_is_bit_equal(name, run):
     a, a2 = _parts(name, run, 'a'), _parts(name, run, 'a2')
     assert len(a) == len(a2) == int(np.prod(PAIRS[name][0]))
     for p, q in zip(a, a2):
-        assert q.mesh == p.mesh and q.views == p.views and q.step == p.step
-        for (k, x), (k2, y) in zip(_named(p.params), _named(q.params)):
-            assert k == k2 and x.dtype == y.dtype and x.shape == y.shape
-            np.testing.assert_array_equal(_bits(y), _bits(x), k)
-        assert q.opt_state['param_groups'] == p.opt_state['param_groups']
-        assert q.opt_state['state'].keys() == p.opt_state['state'].keys()
-        for pid, st_p in p.opt_state['state'].items():
-            st_q = q.opt_state['state'][pid]
-            assert st_q.keys() == st_p.keys()
-            for key, v in st_p.items():
-                if torch.is_tensor(v):
-                    assert st_q[key].dtype == v.dtype, (pid, key)
-                    np.testing.assert_array_equal(_bits(st_q[key]), _bits(v))
-                else:
-                    assert st_q[key] == v, (pid, key)
+        _assert_parts_equal(q, p, accum=False)
         assert p.accum is not None and q.accum is not None
     assert len(a[0].opt_state['state']) == len(a[0].views['optimizer'])
     if run == 'adam8bit':
@@ -417,6 +450,7 @@ def test_leaves_move_between_layouts(name):
     leaf differ, and with ``fsdp`` 4 on one side some leaf is replicated
     there and sharded on the other."""
     a, b = (_parts(name, 'adam', w)[0] for w in ('a', 'b'))
+    assert not (_is_replica(a) or _is_replica(b))
     sa, sb = (dict(_named(p.mesh['specs'])) for p in (a, b))
     moved = [k for k in sa if sa[k] != sb[k]]
     fsdp = {PAIRS[name][0][1], PAIRS[name][1][1]}
@@ -428,6 +462,61 @@ def test_leaves_move_between_layouts(name):
         assert any(qa[k] != qb[k] and None not in (qa[k], qb[k])
                    and '.lora.' in k for k in qa)
     assert a.mesh['shape'] != b.mesh['shape']
+
+
+@pytest.mark.parametrize('run', RUNS)
+@pytest.mark.parametrize('name', list(PAIRS))
+def test_replicas_are_bit_equal_before_the_save(name, run):
+    """On every rank of A, B and A again, before its save: the ranks of
+    its ``fsdp`` coordinate hold the same params and optimizer state, bit
+    for bit, so a replica's part can be left to the part at ``data`` and
+    ``seq`` 0."""
+    for world in ('a', 'b', 'a2'):
+        ranks = _results(name, run, world)
+        assert all(bool(r['replicas_equal']) for r in ranks), world
+
+
+@pytest.mark.parametrize('run', RUNS)
+@pytest.mark.parametrize('name', list(PAIRS))
+def test_replica_parts_hold_no_params(name, run):
+    """In every checkpoint of the round trip, the parts at a ``data`` or
+    ``seq`` coordinate other than 0 hold no param or optimizer tensor (no
+    optimizer state at all), yet their own open cycle's gradients, step,
+    layout and views; the others hold all of it. Pairs with a replicated
+    axis have such parts, and their files are the smaller."""
+    shapes = dict(zip(('a', 'b', 'a2'), (*PAIRS[name], PAIRS[name][0])))
+    for world, shape in shapes.items():
+        parts = _parts(name, run, world)
+        replicas = [p for p in parts if _is_replica(p)]
+        assert len(replicas) == len(parts) - shape[1], world
+        for p in parts:
+            assert p.accum is not None and p.step == 3 and p.views
+            assert (p.params is None) == (p.opt_state is None) \
+                == _is_replica(p), (world, p.mesh['coords'])
+        root = _pair(name) / run / world / '3'
+        sizes = [(root / f'rank{r}.pt').stat().st_size
+                 for r in range(len(parts))]
+        for p, size in zip(parts, sizes):
+            if _is_replica(p):
+                assert size < min(s for q, s in zip(parts, sizes)
+                                  if not _is_replica(q))
+
+
+@pytest.mark.parametrize('run', RUNS)
+@pytest.mark.parametrize('name', list(PAIRS))
+def test_old_form_parts_still_restore(name, run):
+    """Parts written in the old form, where every rank saved its whole
+    part (``a_old``): B restores them, resharded, to the very state it
+    restored from the new form (``b_old`` against ``b``), and A restores
+    them on its own shape to its saved part (``a2_old`` against ``a``),
+    bit for bit in every field."""
+    old = _parts(name, run, 'a_old')
+    assert all(p.params is not None for p in old)
+    for new, ref in (('b_old', 'b'), ('a2_old', 'a')):
+        got, want = _parts(name, run, new), _parts(name, run, ref)
+        assert len(got) == len(want)
+        for q, p in zip(got, want):
+            _assert_parts_equal(q, p)
 
 
 def _jax_mesh(shape):

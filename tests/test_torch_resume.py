@@ -1,8 +1,9 @@
-"""Checkpoint and resume of masked-LM training: ``MaskedPLM.state``
-through ``CheckpointManager`` into a fresh trainer, against the run that
-was never interrupted; and a witness that JAX's ``MaskedPLM`` cannot
-resume under ``offload_optimizer=True`` (ROADMAP.md Queue 3, item 25)
-while the port's does.
+"""Checkpoint and resume of training: ``MaskedPLM.state`` (and the
+fine-tune trainers') through ``CheckpointManager`` into a fresh trainer,
+against the run that was never interrupted, also where the fresh
+trainer's params tree lists the same leaves in another order; a witness
+that JAX's ``MaskedPLM`` cannot resume under ``offload_optimizer=True``
+(ROADMAP.md Queue 3, item 25) while the port's does.
 
 The model is ESM2 with 2 layers of width 64 and 4 heads, fp32, its
 weights from seed 0; the batches are ``tests/test_torch_cp_train.py``'s
@@ -12,12 +13,31 @@ steps restored into a fresh trainer on a fresh model, which takes the
 rest. The sharded trainer's round trip runs in a gloo world of
 ``tests/test_torch_sharded_lora.py``.
 
+The orders of the cross-order resumes (ROADMAP.md Queue 3, item 28: the
+setters paired leaves by position): ``reordered``, every dict of the
+tree in reverse key order (``k`` before ``q``); ``sorted``, the tree
+``models/io.py:params_from_jax`` gives from JAX's pytree of the same
+weights (keys sorted); ``nf4``, a saved file loaded with
+``quantization='4bit'`` for the run and quantized after loading
+(``quantize('4bit')``) for the resumed trainer, which list a quantized
+linear's leaves in other orders (and draw other NF4 codes where row
+maxima tie: the restore replaces the trunk). The fine-tune trainers run
+on packed labelled batches of 300 tokens with the aggregation head.
+
 Gates (each with its reason):
 * the resumed run: every loss after the cut and every param at the end
   bit-equal to the run without a break (the same arithmetic on the same
   state: Adam's moments and step, ``adam8bit``'s codes and scales, the
   running mean of an open ``grad_accum`` cycle, the offloaded fp32
   masters, the LoRA dropout's step-folded keys).
+* the cross-order resumes: the same, every leaf compared by path (the
+  trees list the leaves in other orders);
+* the ``k``-before-``q`` witness: after ``tb.state = ta.state`` every
+  leaf of B is A's leaf of the same path, bit for bit (a positional copy
+  gives B's ``q`` A's ``k``);
+* a state without ``views`` (as saved before states were keyed by leaf
+  path): bit for bit where its params list the trainer's paths in the
+  same order, ``ValueError`` naming the first leaf that differs otherwise;
 * the witness: JAX's offloaded trainer, its state copied into a fresh
   one after 3 steps at learning rate 1e-2, differs from the trainer it
   was copied from after one more step by more than the learning rate in
@@ -39,25 +59,43 @@ from esme_tpu.models import esm as jesm
 from esme_tpu.train import MaskedPLM as JMaskedPLM
 
 from esme_tpu_torch import ESM2
+from esme_tpu_torch.data import LabeledDataset
+from esme_tpu_torch.models import io as tio
 from esme_tpu_torch.models.config import esm2_config
-from esme_tpu_torch.train import CheckpointManager, MaskedPLM, adam8bit
+from esme_tpu_torch.models.heads import init_learned_aggregation
+from esme_tpu_torch.train import (CheckpointManager, ClassificationTrainer,
+                                  MaskedPLM, RegressionTrainer, adam8bit)
 
-from test_torch_cp_train import _batch
+from test_torch_cp_train import AA, _batch
 
 LR = 1e-2
 STEPS = 4
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """Each test on one torch thread: beside the other test workers, each
+    using every core, this file's many small steps ran 13x slower on the
+    default count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _add_lora(model):
+    model.add_lora(rank=4, alpha=8, dropout_p=0.1, rng=1)
+    gen = torch.Generator().manual_seed(2)
+    for p in model.params['layers']['attn'].values():
+        for ad in p.get('lora', {}).values():
+            ad['b'].copy_(torch.randn(ad['b'].shape, generator=gen) * 0.1)
+    return model
+
+
 def _model(lora=False):
     model = ESM2(config=esm2_config(2, 64, 4, dtype='float32'), rng=0,
                  device='cpu')
-    if lora:
-        model.add_lora(rank=4, alpha=8, dropout_p=0.1, rng=1)
-        gen = torch.Generator().manual_seed(2)
-        for p in model.params['layers']['attn'].values():
-            for ad in p.get('lora', {}).values():
-                ad['b'].copy_(torch.randn(ad['b'].shape, generator=gen) * 0.1)
-    return model
+    return _add_lora(model) if lora else model
 
 
 CASES = {
@@ -174,3 +212,264 @@ def test_state_refuses_another_model(tmp_path):
     fresh = MaskedPLM(_model(), learning_rate=LR, grad_accum=2)
     with pytest.raises(ValueError, match='accumulated'):
         fresh.state = state._replace(accum=None)
+
+
+# -------------------------------------------------------------------------
+# states keyed by leaf path
+# -------------------------------------------------------------------------
+
+def _reordered(tree):
+    """``tree``'s leaves (copies) with every dict's keys reversed."""
+    return {k: _reordered(tree[k]) if isinstance(tree[k], dict)
+            else tree[k].clone() for k in reversed(list(tree))}
+
+
+def _sorted(tree):
+    """``tree`` as ``params_from_jax`` gives it from JAX's pytree of the
+    same weights: every dict's keys sorted, bit for bit."""
+    return tio.params_from_jax(
+        jax.tree.map(lambda t: np.array(t.numpy()), tree), None)
+
+
+def _orders(order, tmp, lora=False):
+    """The models of run A and resumed trainer B for ``order``: the same
+    weights, trees of the same leaves listed in other orders."""
+    if order == 'nf4':
+        path = str(tmp / 'model.safetensors')
+        _model().save_pretrained(path)
+        kw = dict(dtype='float32', device='cpu')
+        a = ESM2.from_pretrained(path, quantization='4bit', **kw)
+        b = ESM2.from_pretrained(path, **kw).quantize('4bit')
+        return (_add_lora(a), _add_lora(b)) if lora else (a, b)
+    a = _model(lora)
+    b = ESM2(config=a.config, device='cpu', params=(
+        _reordered if order == 'reordered' else _sorted)(a.params))
+    b.lora_kwargs = a.lora_kwargs
+    return a, b
+
+
+def _paths(tree):
+    return [name for name, _ in _leaves(tree)]
+
+
+def _assert_same_leaves(got, want):
+    """Every leaf of ``got`` bit-equal to ``want``'s of the same path, the
+    two trees listing them in other orders."""
+    assert _paths(got) != _paths(want)
+    got, want = dict(_leaves(got)), dict(_leaves(want))
+    assert got.keys() == want.keys()
+    for name, ref in want.items():
+        assert got[name].dtype == ref.dtype and torch.equal(
+            got[name], ref), name
+
+
+ORDERS = ('reordered', 'sorted', 'nf4')
+
+
+def _cross_run(make, batches, cut, directory):
+    """Run ``make(a)``'s trainer over ``batches``, saving its state before
+    step ``cut``; a trainer ``make(b)`` restores it and takes the rest.
+    Returns both runs' losses after the cut."""
+    ta, tb = make('a'), make('b')
+    mgr = CheckpointManager(str(directory), monitor=None)
+    losses = []
+    for i, batch in enumerate(batches):
+        if i == cut:
+            mgr.save(ta.step, ta.state)
+        losses.append(ta.training_step(batch))
+    tb.state = mgr.restore(tb.state)
+    assert tb.step == cut
+    return [tb.training_step(b) for b in batches[cut:]], losses[cut:]
+
+
+@pytest.mark.parametrize('order', ORDERS)
+@pytest.mark.parametrize('case', list(CASES))
+def test_masked_plm_resumes_across_orders(case, order, tmp_path):
+    """A run cut after ``cut`` steps and restored into a ``MaskedPLM`` over
+    the same weights in another order gives the losses and the params of
+    the run without a break, bit for bit: params, moments, ``adam8bit``'s
+    codes and scales, the open cycle and the offloaded masters all paired
+    by leaf path and view."""
+    kw, lora, cut = CASES[case]
+    models = dict(zip('ab', _orders(order, tmp_path, lora)))
+    batches = [_batch(70 + i, ESM2.alphabet) for i in range(STEPS)]
+    got, want = _cross_run(lambda w: MaskedPLM(models[w], **kw), batches,
+                           cut, tmp_path / 'ckpt')
+    assert got == want
+    _assert_same_leaves(models['b'].params, models['a'].params)
+
+
+def _labelled(n, seed):
+    rng = np.random.default_rng(seed)
+    seqs = [''.join(rng.choice(AA, int(rng.integers(20, 60))))
+            for _ in range(n)]
+    return seqs, rng.integers(0, 2, n).astype(np.float32)
+
+
+def _head(order):
+    head = init_learned_aggregation(3, 64, dtype='float32', device='cpu')
+    return {'reordered': _reordered, 'sorted': _sorted}.get(
+        order, lambda t: t)(head)
+
+
+TRAINERS = {'regression': RegressionTrainer,
+            'classification': ClassificationTrainer}
+
+
+@pytest.mark.parametrize('order', ORDERS)
+@pytest.mark.parametrize('trainer', list(TRAINERS))
+def test_fine_tune_resumes_across_orders(trainer, order, tmp_path):
+    """The fine-tune trainers (LoRA on the trunk at ``lr``, the
+    aggregation head at ``head_lr``): cut after 2 of 4 steps and restored
+    into a trainer over the same weights in another order (the head's
+    tree too), the same losses and params, bit for bit."""
+    models = dict(zip('ab', _orders(order, tmp_path, lora=True)))
+    heads = {'a': _head(None), 'b': _head(order)}
+    seqs, labels = _labelled(24, 5)
+    ds = LabeledDataset(seqs, labels, token_per_batch=300, shuffle=False)
+    batches = [ds[i % len(ds)] for i in range(4)]
+
+    def make(w):
+        return TRAINERS[trainer](models[w], heads[w], lr=1e-3,
+                                 head_lr=5e-3)
+    got, want = _cross_run(make, batches, 2, tmp_path / 'ckpt')
+    assert got == want
+    _assert_same_leaves({'plm': models['b'].params, 'head': heads['b']},
+                        {'plm': models['a'].params, 'head': heads['a']})
+
+
+def _k_before_q(model):
+    """A model of ``model``'s config (fresh weights, seed 5) whose
+    ``params['layers']['attn']`` lists ``k`` before ``q``."""
+    fresh = ESM2(config=model.config, rng=5, device='cpu').params
+    attn = fresh['layers']['attn']
+    swap = {'q': 'k', 'k': 'q'}
+    fresh['layers']['attn'] = {swap.get(n, n): attn[swap.get(n, n)]
+                               for n in attn}
+    return ESM2(config=model.config, params=fresh, device='cpu')
+
+
+@pytest.mark.parametrize('trainer', ['masked_plm', 'regression'])
+def test_state_pairs_q_and_k_by_path(trainer):
+    """The witness of ROADMAP.md Queue 3, item 28: trainer B over a model
+    whose attention lists ``k`` before ``q`` (its forward reads by key)
+    takes trainer A's state; every leaf of B is then A's of the same
+    path, bit for bit, where the positional copy gave B's ``q`` A's
+    ``k``."""
+    a = _model()
+    b = _k_before_q(a)
+    keys = list(b.params['layers']['attn'])
+    assert keys.index('k') < keys.index('q')
+    seqs, labels = _labelled(12, 6)
+    batch = LabeledDataset(seqs, labels, token_per_batch=300,
+                           shuffle=False)[0]
+    if trainer == 'masked_plm':
+        ta, tb = MaskedPLM(a, learning_rate=LR), MaskedPLM(b,
+                                                           learning_rate=LR)
+        ta.training_step(_batch(91, ESM2.alphabet))
+        trees = b.params, a.params
+    else:
+        ha = init_learned_aggregation(3, 64, dtype='float32', device='cpu')
+        hb = init_learned_aggregation(4, 64, dtype='float32', device='cpu')
+        ta, tb = RegressionTrainer(a, ha), RegressionTrainer(b, hb)
+        ta.training_step(batch)
+        trees = {'plm': b.params, 'head': hb}, {'plm': a.params, 'head': ha}
+    q, k = (a.params['layers']['attn'][n]['kernel'] for n in 'qk')
+    assert q.shape == k.shape and not torch.equal(q, k)
+    tb.state = ta.state
+    _assert_same_leaves(*trees)
+    batch = _batch(92, ESM2.alphabet) if trainer == 'masked_plm' else batch
+    assert tb.training_step(batch) == ta.training_step(batch)
+
+
+@pytest.mark.parametrize('trainer', ['masked_plm', 'regression'])
+def test_state_without_views(trainer, tmp_path):
+    """A state as the trainers saved it before states were keyed by leaf
+    path (no ``views``): it restores bit for bit into a trainer whose
+    params list the same paths in the same order (mid-cycle under
+    ``grad_accum=2`` for ``MaskedPLM``), and raises ``ValueError`` naming
+    the first leaf that differs into one that lists them otherwise."""
+    seqs, labels = _labelled(24, 7)
+    ds = LabeledDataset(seqs, labels, token_per_batch=300, shuffle=False)
+    if trainer == 'masked_plm':
+        batches = [_batch(60 + i, ESM2.alphabet) for i in range(4)]
+
+        def make(model):
+            return MaskedPLM(model, learning_rate=LR, weight_decay=0.05,
+                             grad_accum=2)
+    else:
+        batches = [ds[i % len(ds)] for i in range(4)]
+
+        def make(model):
+            return RegressionTrainer(model, init_learned_aggregation(
+                3, 64, dtype='float32', device='cpu'))
+    run = make(_model())
+    losses = [run.training_step(b) for b in batches]
+    cut = make(_model())
+    for b in batches[:3]:
+        cut.training_step(b)
+    old = cut.state._replace(views=None)
+    mgr = CheckpointManager(str(tmp_path / 'old'), monitor=None)
+    mgr.save(cut.step, old)
+    fresh = make(_model())
+    fresh.state = mgr.restore(fresh.state)
+    assert fresh.training_step(batches[3]) == losses[3]
+    for name, ref in _leaves(run.model.params):
+        assert torch.equal(dict(_leaves(fresh.model.params))[name], ref), name
+    other = make(_k_before_q(_model()))
+    with pytest.raises(ValueError, match=r'lists leaf (plm\.)?layers\.attn'
+                       r'\.q\.kernel where this trainer lists (plm\.)?'
+                       r'layers\.attn\.k\.kernel'):
+        other.state = old
+
+
+def test_frozen_leaf_of_another_dtype_restores_exactly(tmp_path):
+    """bf16 QLoRA: quantize-at-load keeps NF4's outlier rows in fp32 (as
+    JAX's numpy twin), ``quantize()`` in the model's dtype. A state over
+    the first restores into a trainer over the second: the rows' values
+    convert exactly (they are the file's bf16 weights), and every other
+    leaf is bit-equal. A frozen leaf whose values would round, and a
+    trained leaf of another dtype, raise ``ValueError`` naming them."""
+    path = str(tmp_path / 'model.safetensors')
+    ESM2(config=esm2_config(2, 64, 4, dtype='bfloat16'), rng=0,
+         device='cpu').save_pretrained(path)
+    a = _add_lora(ESM2.from_pretrained(path, quantization='4bit',
+                                       device='cpu'))
+    b = _add_lora(ESM2.from_pretrained(path, device='cpu').quantize('4bit'))
+    rows = 'layers.attn.q.outlier_rows'
+    la, lb = dict(_leaves(a.params)), dict(_leaves(b.params))
+    assert la[rows].dtype == torch.float32 and lb[rows].dtype == torch.bfloat16
+    state = MaskedPLM(a, lora_only=True).state
+    tb = MaskedPLM(b, lora_only=True)
+    tb.state = state
+    lb = dict(_leaves(b.params))
+    for name, ref in la.items():
+        assert torch.equal(lb[name].to(ref.dtype), ref), name
+        assert lb[name].dtype == ref.dtype or name.endswith('outlier_rows')
+    la[rows].add_(2.0 ** -20)
+    with pytest.raises(ValueError, match=f'saved leaf {rows} of'):
+        tb.state = state
+    la[rows].sub_(2.0 ** -20)
+    c = _add_lora(ESM2.from_pretrained(path, device='cpu',
+                                       dtype='float32').quantize('4bit'))
+    tc = MaskedPLM(c, lora_only=True)
+    with pytest.raises(ValueError,
+                       match=r'saved leaf layers\.attn\.\w+\.lora\.'):
+        tc.state = state
+
+
+def test_state_names_the_leaf_it_refuses():
+    """A saved state missing a leaf of the trainer, or holding one it does
+    not have, raises ``ValueError`` naming that leaf."""
+    plm = MaskedPLM(_model(), learning_rate=LR)
+    state = plm.state
+    params = {k: v for k, v in state.params.items() if k != 'lm_head'}
+    with pytest.raises(ValueError, match=r'leaf lm_head\.\S+ is in this '
+                       'trainer but not in the saved state'):
+        MaskedPLM(_model(), learning_rate=LR).state = state._replace(
+            params=params)
+    extra = {**state.params, 'extra': torch.zeros(3)}
+    with pytest.raises(ValueError, match='leaf extra is in the saved state '
+                       'but not in this trainer'):
+        MaskedPLM(_model(), learning_rate=LR).state = state._replace(
+            params=extra)

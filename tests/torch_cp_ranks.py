@@ -8,6 +8,9 @@ that a spawned rank loads only the port."""
 
 from __future__ import annotations
 
+import hashlib
+from pathlib import Path
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -385,10 +388,17 @@ def reshard_rank(rank, n, ports, pair, runs, out):
     * A again: a fresh trainer restores ``b`` and saves to
       ``out/<run>/a2``.
 
+    Beside ``a``, every rank of A also writes its whole part as the
+    manager wrote it before replicas left their params and optimizer
+    state out (``out/<run>/a_old``); on B and on A again a second fresh
+    trainer restores ``a_old`` and saves to ``b_old`` and ``a2_old``.
+
     Written to ``out/<run>/<world>_rank<r>.npz``: the losses, the params
     gathered before the fourth micro-step (``before.<leaf>``, on B the
     restored ones) and after it (``param.<leaf>``), the gradients its
-    update took (``grad.<leaf>``) and the step."""
+    update took (``grad.<leaf>``), the step, and whether before each save
+    the replicas' params and optimizer state were bit-equal
+    (``replicas_equal``: the ranks of each ``fsdp`` coordinate)."""
     torch.set_num_threads(1)
     ports = iter(ports)
     for name, run in runs.items():
@@ -405,6 +415,45 @@ def reshard_rank(rank, n, ports, pair, runs, out):
                 dist.destroy_process_group()
 
 
+def _raw(t) -> bytes:
+    return t.detach().reshape(-1).contiguous().view(torch.uint8) \
+        .numpy().tobytes()
+
+
+def _digest(state) -> str:
+    """A hash of a sharded part's params and optimizer state, bytes and
+    scalars."""
+    h = hashlib.sha256()
+    for name, t in _named(state.params):
+        h.update(name.encode() + _raw(t))
+    for pid, st in sorted(state.opt_state['state'].items()):
+        for key, v in sorted(st.items()):
+            h.update(f'{pid}.{key}'.encode())
+            h.update(_raw(v) if torch.is_tensor(v) else repr(v).encode())
+    h.update(repr(state.opt_state['param_groups']).encode())
+    return h.hexdigest()
+
+
+def _replicas_equal(state) -> bool:
+    """Whether every rank of this rank's ``fsdp`` coordinate holds the
+    same params and optimizer state, bit for bit (every rank calls it)."""
+    mesh = state.mesh
+    f = mesh['coords'][mesh['axes'].index('fsdp')]
+    mine, got = _digest(state), [None] * dist.get_world_size()
+    dist.all_gather_object(got, (f, mine))
+    return all(d == mine for g, d in got if g == f)
+
+
+def _save_old_form(state, directory):
+    """This rank's whole part as ``CheckpointManager.save`` wrote it
+    before replicas left their params and optimizer state out."""
+    step_dir = Path(directory) / str(state.step)
+    step_dir.mkdir(parents=True, exist_ok=True)
+    torch.save({'sharded_train_state': state._asdict()},
+               step_dir / f'rank{dist.get_rank()}.pt')
+    dist.barrier()
+
+
 def _reshard_world(rank, world, shape, run, out):
     data, fsdp, seq = shape
     mesh = make_mesh(data, fsdp, seq=seq, device='cpu')
@@ -413,18 +462,29 @@ def _reshard_world(rank, world, shape, run, out):
     opts = dict(run['opts'])
     if opts.pop('optimizer', None) == 'adam8bit':
         opts['optimizer'] = adam8bit(1e-3)
-    plm = ShardedMaskedPLM(model, mesh, learning_rate=1e-3, grad_accum=2,
-                           seq_axis='seq', **opts)
+
+    def trainer():
+        return ShardedMaskedPLM(model, mesh, learning_rate=1e-3,
+                                grad_accum=2, seq_axis='seq', **opts)
+    plm = trainer()
     rows = run['rows'][data]
     res = {}
     if world == 'a':
         res['losses'] = np.array([plm.training_step(rows)
                                   for _ in range(3)])
+        _save_old_form(plm.state, f'{out}/a_old')
     else:
         source = 'b' if world == 'a2' else 'a'
         plm.state = CheckpointManager(f'{out}/{source}',
                                       monitor=None).restore(plm.state)
+        old = trainer()
+        old.state = CheckpointManager(f'{out}/a_old',
+                                      monitor=None).restore(old.state)
+        CheckpointManager(f'{out}/{world}_old', monitor=None).save(
+            old.step, old.state)
+        del old
     res['step'] = np.array(plm.step)
+    res['replicas_equal'] = np.array(_replicas_equal(plm.state))
     CheckpointManager(f'{out}/{world}', monitor=None).save(plm.step,
                                                            plm.state)
     if world != 'a2':
