@@ -1,12 +1,17 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port ``esme_tpu_torch`` on one CUDA card.
+"""Smoke run of the PyTorch/CUDA port ``esme_tpu_torch`` on one CUDA card,
+or with ``--ranks 4`` on four.
 
     python3 chip_smoke.py [--profile DIR] [--sizes NAME,...]
+    python3 chip_smoke.py --ranks 4 [--profile DIR]
 
 Phases, in order; any failure exits non-zero before a result is printed.
 With ``--sizes`` (names of ``SIZE_RUNS``, e.g. ``esm2_8m,esm2_35m``) only
 phases 1, 2 and 12 run, on those sizes and their head dims, and the last
-line is phase 12's JSON:
+line is phase 12's JSON. With ``--ranks N`` (N in ``RANK_CHOICES``; it
+fails unless the machine has N cards) phases 1 (every card's line), 2 and
+20 run, and the last three lines are phase 20's kernels, its measurements
+and the contract's line:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every kernel from ``esme_tpu_torch/csrc`` with ``nvcc`` (timed);
@@ -421,6 +426,40 @@ line is phase 12's JSON:
    batch, B's trees in reverse key order. Logged: each checkpoint's bytes,
    save and restore seconds.
 
+20. the mesh on N cards (``--ranks N`` alone): the kernels built once, in
+   the parent, then one spawned process per card, which joins a process
+   group (NCCL, ``WORLD_TIMEOUT_S`` for it and every group of its meshes)
+   for each cell with the ranks the cell's world holds; the parent stops
+   every rank as soon as one fails, or after ``RANKS_DEADLINE_S``.
+   Launches are exact on every rank in every cell. (a) phase 10's cell
+   through ``context_parallel_log_prob`` on ``seq`` = 1, 2 and 4 cards:
+   the weights the same on every rank, each rank's (T, V) log-probs under
+   phase 4's gate against its card's ``predict_log_prob`` (bit equality
+   logged), ms a forward, real tokens/s, peak memory, one k gather's bus
+   bandwidth, the NCCL kernels' device time of a profiled forward on rank
+   0; (b) phase 11's ``ckpt@50k`` through ``ShardedMaskedPLM(seq_axis=
+   'seq')`` on (1, 1, 2), (1, 1, 4), (1, 2, 2) and (1, 4, 1), each three
+   steps from the seed-0 weights against ``MaskedPLM`` on one card (losses
+   within ``CP_LOSS_REL``, :func:`compare_updates` after the first
+   update), ms a step, real tokens/s, MFU, peak on every card, and a
+   profiled step's all-gathers, reduce-scatters and all-reduces and their
+   overlap with compute on rank 0; (c) phase 17's adapters, dense and
+   NF4, on ``nockpt@10k`` through ``ShardedMaskedPLM(lora_only=True,
+   seq_axis='seq')`` on (1, 4, 1) and (2, 2, 1) (two data rows, two
+   batches) against the single-device gradient of the global masked mean
+   under phase 17's gates, :func:`trainer_checks` on every rank; (d)
+   phase 18's dense state saved by 4 ranks on (2, 2, 1) (each rank's
+   write seconds), resumed there bit for bit and restored on one card,
+   then a one-card state restored on (1, 4, 1), each resumed step against
+   the uninterrupted one under phase 11's gates, a replica's part without
+   param or optimizer tensors; (e) ESM2-15B trained fully over FSDP on (1,
+   4, 1) (``remat='full'``, Adam): 2 layers at full width against
+   ``MaskedPLM`` on one card, then 48 layers at 10k and, where it fits,
+   50k tokens: losses finite and falling, ms a step, real tokens/s, MFU,
+   peak a card, host memory a rank; then on rank 0 H9, H10 and H3 at the
+   cells' per-rank shapes against their plain versions, timed beside
+   their bounds, plain versions and the varlen library call.
+
 Each phase's seconds are logged and kept in the measurements line
 (``phase_s``). The last three lines are the kernels' JSON, the measurements' JSON and
 ``{"ok": true, "device": {...}}``.
@@ -601,13 +640,22 @@ SPIN_CYCLES = 20_000_000
 MFU_PEAK = BF16_FLOP_PER_S
 
 
+# ' rank r' in a rank process of phase 20 (``--ranks N``), '' elsewhere
+RANK_TAG = ''
+
+
 def fail(msg: str):
-    print(f'chip_smoke: FAIL: {msg}', file=sys.stderr, flush=True)
+    print(f'chip_smoke{RANK_TAG}: FAIL: {msg}', file=sys.stderr, flush=True)
+    if RANK_TAG:
+        # at once: a process group's teardown could wait on ranks that
+        # wait on this one; the parent sees the code and stops the rest
+        sys.stdout.flush()
+        os._exit(1)
     sys.exit(1)
 
 
 def log(msg: str):
-    print(f'[chip_smoke] {msg}', flush=True)
+    print(f'[chip_smoke{RANK_TAG}] {msg}', flush=True)
 
 
 def packed_batch(budget: int, seed: int):
@@ -1571,14 +1619,15 @@ def check_cp(dev, batch, phase4_ms):
             'peak_mem_gib': peak / 2**30, 'phase4_ms_per_batch': phase4_ms}
 
 
-def time_rect(cu, dev):
-    """H9's times at the main inference shape (H = 20, D = 64) for each
-    rank of a ``RECT_TIMED_WORLD``-rank world over the main batch's T
-    tokens (the split ``forward_flat_cp`` makes, T / n query rows over all
-    T keys): the kernel, its mma.sync form through its rectangular entry,
-    its plain version, the bound of the rank's work and, as a yardstick
-    only, PyTorch's varlen forward over the rank's pieces of its segments;
-    the Hopper form on rank 0 on the mask-skip pair. Each rank's inputs
+def time_rect(cu, dev, H=None, D=None, T=None, n=None, mask_skip=True):
+    """H9's times at the main inference shape (H = 20, D = 64, or ``H``
+    heads of ``D``) for each rank of an ``n``-rank world over the T tokens
+    of the batch ``cu`` (the split ``forward_flat_cp`` makes, T / n query
+    rows over all T keys): the kernel, its mma.sync form through its
+    rectangular entry, its plain version, the bound of the rank's work
+    and, as a yardstick only, PyTorch's varlen forward over the rank's
+    pieces of its segments; with ``mask_skip``, the Hopper form on rank 0
+    on the mask-skip pair. Each rank's inputs
     are held first against the plain version under H1's gates, on H9's
     route and on the mma.sync form (``check_flash_args``), and so is the
     one-rank shape that phase 10's path gives H9 (Tq = Tk = T, no ALIGN
@@ -1587,9 +1636,9 @@ def time_rect(cu, dev):
     launches."""
     from esme_tpu_torch.models.esm import packed_meta
     from esme_tpu_torch.ops import flash
-    H = MODEL['attention_heads']
-    D = MODEL['embed_dim'] // H
-    T, n = BUDGET, RECT_TIMED_WORLD
+    H = H or MODEL['attention_heads']
+    D = D or MODEL['embed_dim'] // H
+    T, n = T or BUDGET, n or RECT_TIMED_WORLD
     seg = packed_meta(torch.as_tensor(cu, device=dev), T)[0].contiguous()
     gen = torch.Generator(device=dev)
     gen.manual_seed(17)
@@ -1629,13 +1678,17 @@ def time_rect(cu, dev):
             f'{mma_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms '
             f'by {b_by} ({b_ms / ms:.3f} of it), varlen library {lib_ms}')
         del o
-    sk = {name: sseg for name, sseg in mask_skip_segs(T, dev).items()}
-    inputs = {name: (rect_args(q, k, v, sseg, 0, T // n, H), sseg)
-              for name, sseg in sk.items()}
-    skip = fastest_pair(f'H9 (flash_fwd_sm90) rank 0 of {n} at T={T}',
-                        lambda a: flash.launch_fwd('flash_fwd_sm90', *a[0],
-                                                   seg_k=a[1]), inputs)
-    del q, k, v, inputs
+    skip = None
+    if mask_skip:
+        sk = {name: sseg for name, sseg in mask_skip_segs(T, dev).items()}
+        inputs = {name: (rect_args(q, k, v, sseg, 0, T // n, H), sseg)
+                  for name, sseg in sk.items()}
+        skip = fastest_pair(f'H9 (flash_fwd_sm90) rank 0 of {n} at T={T}',
+                            lambda a: flash.launch_fwd('flash_fwd_sm90',
+                                                       *a[0], seg_k=a[1]),
+                            inputs)
+        del inputs
+    del q, k, v
     torch.cuda.empty_cache()
     total = {key: sum(rk[key] for rk in ranks)
              for key in ('ms', 'mma_sync_form_ms', 'plain_ms', 'bound_ms',
@@ -1943,11 +1996,11 @@ def rect_bwd_pass(which, args, seg_k):
     return outs
 
 
-def time_rect_bwd(dev):
-    """H10's times at the train shape (H = 20, D = 64) for each rank of a
-    ``RECT_TIMED_WORLD``-rank split of the 50k train batch (bench.py's
-    recipe, seed 2; T / n query rows over all T keys, no ALIGN pad, as
-    ``ShardedMaskedPLM`` splits it): the kernel, its mma.sync form through
+def time_rect_bwd(dev, H=None, D=None, T=None, n=None):
+    """H10's times at the train shape (H = 20, D = 64, or ``H`` heads of
+    ``D``) for each rank of an ``n``-rank split of the train batch of T
+    tokens (bench.py's recipe, seed 2; T / n query rows over all T keys,
+    no ALIGN pad, as ``ShardedMaskedPLM`` splits it): the kernel, its mma.sync form through
     its rectangular entry, each pass of the Hopper form alone, its plain
     version, the bound of the
     rank's work and, as a yardstick only, PyTorch's varlen backward over
@@ -1958,10 +2011,10 @@ def time_rect_bwd(dev):
     the ranks, the largest errors of those checks) without launches."""
     from esme_tpu_torch.models.esm import packed_meta
     from esme_tpu_torch.ops import flash
-    H = MODEL['attention_heads']
-    D = MODEL['embed_dim'] // H
-    T, n = BUDGET, RECT_TIMED_WORLD
-    _, tcu, _ = packed_batch(BUDGET, seed=2)
+    H = H or MODEL['attention_heads']
+    D = D or MODEL['embed_dim'] // H
+    T, n = T or BUDGET, n or RECT_TIMED_WORLD
+    _, tcu, _ = packed_batch(T, seed=2)
     seg = packed_meta(torch.as_tensor(tcu, device=dev), T)[0].contiguous()
     gen = torch.Generator(device=dev)
     gen.manual_seed(19)
@@ -2219,29 +2272,38 @@ def check_cp_train(dev, phase5, profile_dir=None):
 
 
 def parse_args(argv):
-    """``[--profile DIR] [--sizes NAME,...]``: returns ``(profile_dir,
-    runs)``, ``runs`` the entries of ``SIZE_RUNS`` named (None without
-    ``--sizes``: every phase)."""
+    """``[--profile DIR] [--sizes NAME,...] [--ranks N]``: returns
+    ``(profile_dir, runs, ranks)``, ``runs`` the entries of ``SIZE_RUNS``
+    named (None without ``--sizes``: every phase), ``ranks`` the cards of
+    phase 20 (None without ``--ranks``; N in ``RANK_CHOICES``)."""
     usage = ('usage: python3 chip_smoke.py [--profile DIR] '
-             f'[--sizes NAME,...] (NAME in {[n for n, _ in SIZE_RUNS]}); '
-             f'got {argv}')
+             f'[--sizes NAME,...] (NAME in {[n for n, _ in SIZE_RUNS]}) | '
+             f'[--profile DIR] [--ranks N] (N in {RANK_CHOICES}); got {argv}')
     opts = dict(zip(argv[::2], argv[1::2]))
     if len(argv) % 2 or len(opts) != len(argv) // 2 \
-            or set(opts) - {'--profile', '--sizes'}:
+            or set(opts) - {'--profile', '--sizes', '--ranks'} \
+            or {'--sizes', '--ranks'} <= set(opts):
         fail(usage)
-    runs = None
+    runs = ranks = None
     if '--sizes' in opts:
         names = opts['--sizes'].split(',')
         runs = tuple(r for r in SIZE_RUNS if r[0] in names)
         if len(runs) != len(set(names)):
             fail(usage)
-    return opts.get('--profile'), runs
+    if '--ranks' in opts:
+        if opts['--ranks'] not in [str(n) for n in RANK_CHOICES]:
+            fail(usage)
+        ranks = int(opts['--ranks'])
+    return opts.get('--profile'), runs, ranks
 
 
 def main(argv):
     if not torch.cuda.is_available():
         fail('no CUDA device: this script runs the port on the card')
-    profile_dir, size_runs = parse_args(argv)
+    profile_dir, size_runs, ranks = parse_args(argv)
+    if ranks is not None and torch.cuda.device_count() < ranks:
+        fail(f'--ranks {ranks} needs {ranks} cards; this machine has '
+             f'{torch.cuda.device_count()}')
     try:
         from esme_tpu_torch import _build
         from esme_tpu_torch.ops import flash, headsplit
@@ -2265,8 +2327,14 @@ def main(argv):
                          text=True, timeout=60)
     if smi.returncode != 0 or not smi.stdout.strip():
         fail(f'nvidia-smi failed: {smi.stderr.strip()}')
-    card = smi.stdout.strip().splitlines()[0].strip()
-    print(card, flush=True)
+    cards = [line.strip() for line in smi.stdout.strip().splitlines()]
+    card = cards[0]
+    for line in cards:
+        print(line, flush=True)
+    if ranks is not None:          # how the cards are joined
+        topo = subprocess.run(['nvidia-smi', 'topo', '-m'],
+                              capture_output=True, text=True, timeout=60)
+        log(f'nvidia-smi topo -m:\n{topo.stdout.strip()}')
     log(f'torch {torch.__version__}, CUDA {torch.version.cuda}, '
         f'{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} '
         f'device(s), python {sys.version.split()[0]}')
@@ -2286,6 +2354,10 @@ def main(argv):
     rect_ptxas = check_rect_ptxas()
     rect_bwd_ptxas = check_rect_bwd_ptxas()
     phase_done(2)
+    if ranks is not None:          # phase 20 alone, on `ranks` cards
+        phase20_main(ranks, cards, profile_dir, phase_done, phase_s,
+                     build_s, t_start)
+        return
     if size_runs is not None:      # phase 12 alone, on the sizes named
         from esme_tpu_torch.models.config import ESM2_SIZES
         dims = {(c['embed_dim'] // c['attention_heads'],
@@ -3017,16 +3089,16 @@ def read_counters():
     return _launch_totals(_counters())
 
 
-def train_batch(budget: int, model):
+def train_batch(budget: int, model, seeds=(2, 1)):
     """``bench.py``'s masked-LM batch (``bench.py:50-85``): sequences and
     residues from seed 2, 80/10/10 masking from seed 1 in the model's
-    alphabet, no loss on the padding tail. Returns the batch and the
-    attention flops of one forward of ``model`` (4·Σn²·C·L, bench.py's
-    ``attn_flops``)."""
+    alphabet (or ``seeds``), no loss on the padding tail. Returns the
+    batch and the attention flops of one forward of ``model`` (4·Σn²·C·L,
+    bench.py's ``attn_flops``)."""
     from esme_tpu_torch.alphabet import mask_tokens
-    tokens, cu, max_len = packed_batch(budget, seed=2)
+    tokens, cu, max_len = packed_batch(budget, seed=seeds[0])
     masked, mask = mask_tokens(tokens[None], alphabet=model.alphabet,
-                               rng=np.random.default_rng(1))
+                               rng=np.random.default_rng(seeds[1]))
     masked, mask = masked[0], mask[0]
     mask[cu[-1]:] = False
     lens = np.diff(cu).astype(np.float64)
@@ -7281,6 +7353,1126 @@ def check_phase19(dev, card):
              'saved order, or other leaves')
     out['seconds'] = seconds
     return out
+
+
+# Phase 20 (``python3 chip_smoke.py --ranks N``): the mesh on N cards. The
+# parent builds every kernel once, then spawns one process per card
+# (``phase20_rank``); each joins a process group per cell (NCCL on its
+# card, ``WORLD_TIMEOUT_S``) with the ranks 0..w-1 of that cell's world of
+# w, and the parent stops every rank when one fails or the deadline
+# passes. Cells, in order:
+# (a) ESM2-650M (seed-0 weights) through context_parallel_log_prob on the
+#     50k inference batch, seq = each of CP_WORLDS;
+# (b) phase 11's ckpt@50k through ShardedMaskedPLM(seq_axis='seq') on
+#     each of DENSE_MESHES against MaskedPLM on one card;
+# (c) phase 17's adapters (dense, then NF4) on nockpt@10k through
+#     ShardedMaskedPLM(lora_only=True, seq_axis='seq') on each of
+#     LORA_MESHES against the single-device gradient of the global masked
+#     mean (MaskedPLM(lora_only=True) on each data row's batch, weighted
+#     by its masked tokens);
+# (d) phase 18's dense state (Adam, grad_accum=2, cut after RESHARD_CUT
+#     micro-steps) saved by the ranks of SAVE_MESH and restored there and
+#     on one card, then a one-card state restored on RESTORE_MESH;
+# (e) ESM2-15B trained fully over FSDP on BIG_MESH (remat='full', Adam):
+#     BIG_CUT layers at full width against MaskedPLM on one card, then the
+#     whole model at each of BIG_BUDGETS that fits.
+RANK_CHOICES = (4,)
+WORLD_TIMEOUT_S = 180
+RANKS_DEADLINE_S = 900
+RANK_THREADS = 2
+RANK_PORTS = 24
+CP_WORLDS = (1, 2, 4)
+DENSE_MESHES = ((1, 1, 2), (1, 1, 4), (1, 2, 2), (1, 4, 1))
+LORA_MESHES = ((1, 4, 1), (2, 2, 1))
+# each mesh's steps: the first timed apart, the first CP_COMPARE_STEPS
+# held to the one card's in (b)
+DENSE_STEPS = LORA_STEPS = 5
+SAVE_MESH, RESTORE_MESH = (2, 2, 1), (1, 4, 1)
+BIG_SIZE = 'esm2_15b'
+BIG_MESH = (1, 4, 1)
+BIG_CUT = 2
+# (budget, steps): the 50k cell runs where the 10k cell's memory, scaled,
+# leaves BIG_MEM_SHARE of the card
+BIG_BUDGETS = ((10_000, 5), (50_000, 3))
+BIG_MEM_SHARE = 0.92
+GATHER_REPS = 20
+
+
+class _RssPeak:
+    """This process's peak resident host memory since ``reset``, sampled
+    every 10 ms by a daemon thread (the card's host has no VmHWM)."""
+
+    def __init__(self):
+        import threading
+        self.peak = rss_gib()
+        self._stop = threading.Event()
+        threading.Thread(target=self._sample, daemon=True).start()
+
+    def _sample(self):
+        while not self._stop.wait(0.01):
+            self.peak = max(self.peak, rss_gib())
+
+    def reset(self) -> float:
+        self.peak = rss_gib()
+        return self.peak
+
+    def read(self) -> float:
+        return max(self.peak, rss_gib())
+
+
+class _Worlds:
+    """One rank's process groups in phase 20: each cell's world takes the
+    next port of ``ports`` on every rank, in the same order."""
+
+    def __init__(self, rank, ports, dev):
+        self.rank, self.dev, self._ports = rank, dev, iter(ports)
+
+    @contextlib.contextmanager
+    def world(self, size):
+        """The world of ranks 0..size-1 (NCCL on the card, gloo on the
+        CPU; ``WORLD_TIMEOUT_S`` for it and every group of its meshes),
+        destroyed at the end; yields whether this rank is in it."""
+        from datetime import timedelta
+        import torch.distributed as dist
+        from esme_tpu_torch.parallel import initialize_distributed
+        port = next(self._ports)
+        if self.rank >= size:
+            yield False
+            return
+        initialize_distributed(f'127.0.0.1:{port}', size, self.rank,
+                               device=self.dev.type,
+                               timeout=timedelta(seconds=WORLD_TIMEOUT_S))
+        try:
+            yield True
+        finally:
+            dist.destroy_process_group()
+
+
+def _merge(intervals):
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _overlap(x, y) -> float:
+    """The length of the intersection of two merged interval lists."""
+    i = j = 0
+    total = 0.0
+    while i < len(x) and j < len(y):
+        lo, hi = max(x[i][0], y[j][0]), min(x[i][1], y[j][1])
+        total += max(0.0, hi - lo)
+        if x[i][1] < y[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+NCCL_KINDS = ('AllGather', 'ReduceScatter', 'AllReduce')
+
+
+def profile_collectives(run, out_dir, table, what):
+    """One call of ``run`` under ``torch.profiler``: the device ms of the
+    NCCL kernels by kind (all-gather, reduce-scatter, all-reduce, other)
+    and their calls, the device ms of every other kernel and copy, how much
+    of the NCCL kernels' time overlaps them, and the call's wall ms; with
+    ``out_dir``, the table by kernel in ``out_dir/table``."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if DEVICE == 'cuda' else [])
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kinds = {k: {'ms': 0.0, 'calls': 0} for k in (*NCCL_KINDS, 'other')}
+    nccl, compute = [], []
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or e.is_user_annotation:
+            continue
+        span = (e.time_range.start, e.time_range.end)
+        if 'nccl' in e.name.lower():
+            kind = next((k for k in NCCL_KINDS if k in e.name), 'other')
+            kinds[kind]['ms'] += (span[1] - span[0]) / 1e3
+            kinds[kind]['calls'] += 1
+            nccl.append(span)
+        else:
+            compute.append(span)
+    nccl, compute = _merge(nccl), _merge(compute)
+    out = {'nccl': kinds,
+           'nccl_busy_ms': sum(b - a for a, b in nccl) / 1e3,
+           'compute_busy_ms': sum(b - a for a, b in compute) / 1e3,
+           'overlap_ms': _overlap(nccl, compute) / 1e3, 'wall_ms': wall}
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, table), 'w') as f:
+            f.write(prof.key_averages().table(
+                sort_by='self_device_time_total', row_limit=40))
+    log(f'profiled {what}: NCCL kernels {kinds}; NCCL busy '
+        f'{out["nccl_busy_ms"]:.2f} ms, the rest {out["compute_busy_ms"]:.2f}'
+        f' ms, overlapping {out["overlap_ms"]:.2f} ms, wall {wall:.2f} ms'
+        + (f'; table in {out_dir}/{table}' if out_dir else ''))
+    return out
+
+
+def gather_busbw(group, rows, width, dev):
+    """One layer's k all-gather over ``group`` alone (``rows`` × ``width``
+    bf16 a rank, ``parallel/context.py:_all_gather``), ``GATHER_REPS``
+    calls after a warm-up, CUDA events: ms a gather and the bus bandwidth,
+    (n-1)/n of the gathered bytes over that time (NCCL's busbw)."""
+    import torch.distributed as dist
+    from esme_tpu_torch.parallel.context import _all_gather
+    n = dist.get_world_size(group)
+    x = torch.randn(rows, width, device=dev).to(torch.bfloat16)
+    _all_gather(x, group)
+    dist.barrier(group=group)
+    ms = cuda_ms(lambda: _all_gather(x, group), GATHER_REPS)
+    nbytes = n * x.numel() * x.element_size()
+    return {'ms': ms, 'bytes': nbytes, 'ranks': n,
+            'busbw_gb_s': (n - 1) / n * nbytes / (ms * 1e-3) / 1e9}
+
+
+def same_weights(params, what):
+    """Every rank of the world holds the same weights: each leaf's sum and
+    sum of squares in float64, gathered and held equal; fails otherwise."""
+    import torch.distributed as dist
+    d = torch.stack([torch.stack([t.double().sum(), t.double().square()
+                                  .sum()]) for t in _leaves(params)])
+    got = [torch.empty_like(d) for _ in range(dist.get_world_size())]
+    dist.all_gather(got, d)
+    if not all(torch.equal(g, d) for g in got):
+        fail(f'{what}: the ranks\' weights differ')
+
+
+def reference_steps(model, make, batches, steps, what, keep_after=True):
+    """``make(copy of model)`` on this card (the copy's params and
+    ``lora_kwargs``): ``steps`` steps on ``batches`` (a PackedBatch, or a
+    list of them, one a step in turn), the first timed apart. Returns its
+    cell (losses, ms a step, peak) and, with ``keep_after``, the params
+    after the first update (on the card)."""
+    m = type(model)(config=model.config, params=_clone(model.params),
+                    checkpointing=model.checkpointing, device=model.device)
+    m.lora_kwargs = model.lora_kwargs
+    plm = make(m)
+    seq = batches if isinstance(batches, list) else [batches]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, samples, after, first = [], [], None, 0.0
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(plm.training_step(seq[i % len(seq)]))
+        ms = (time.perf_counter() - t0) * 1e3
+        if i == 0:
+            first = ms
+            after = _clone(m.params) if keep_after else None
+        else:
+            samples.append(ms)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del plm, m
+    torch.cuda.empty_cache()
+    cell = {'losses': losses, 'first_step_ms': first,
+            'ms_per_step': float(np.median(samples)) if samples else None,
+            'ms_per_step_samples': samples, 'peak_mem_gib': peak}
+    log(f'{what}: losses {losses}, first step {first:.2f} ms, then '
+        f'{[round(x, 2) for x in samples]} ms, peak {peak:.2f} GiB')
+    return cell, after
+
+
+def mesh_steps(plm, batches, steps, expected, what, keep_after=False):
+    """``steps`` training steps of the sharded trainer ``plm`` on
+    ``batches`` (its data rows' batches), the launch counters set to 0
+    just before the first and read just after it (fails unless they are
+    ``expected``), the first timed apart (NCCL makes a group's
+    communicator at its first collective), the rest on the host clock
+    from a barrier of the world to the end of a step (``float(loss)``).
+    Returns the cell and, with ``keep_after``, the params gathered after
+    the first update (host)."""
+    import torch.distributed as dist
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    losses = [plm.training_step(batches)]
+    first = (time.perf_counter() - t0) * 1e3
+    launches = read_counters()
+    if launches != expected:
+        fail(f'{what}: launches {launches}, not {expected}')
+    after = plm.unsharded_params() if keep_after else None
+    samples = []
+    for _ in range(steps - 1):
+        torch.cuda.synchronize()
+        # every rank starts the step together, so that a rank's time is
+        # the world's step and not its offset from the slowest rank's
+        dist.barrier()
+        t0 = time.perf_counter()
+        losses.append(plm.training_step(batches))
+        samples.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not all(np.isfinite(losses)):
+        fail(f'{what}: losses not finite: {losses}')
+    cell = {'losses': losses, 'launches': launches, 'first_step_ms': first,
+            'ms_per_step': float(np.median(samples)),
+            'ms_per_step_samples': samples, 'peak_mem_gib': peak}
+    log(f'{what}: launches {launches}; losses {losses}; first step '
+        f'{first:.2f} ms, then {[round(x, 2) for x in samples]} ms; peak '
+        f'{peak:.2f} GiB')
+    return cell, after
+
+
+def hold_to_reference(cell, after, ref, ref_after, before, lr, what):
+    """Phase 11's gates on rank 0: each of the reference's steps' loss
+    within ``CP_LOSS_REL`` of the one-card reference's, the params after
+    the first update under :func:`compare_updates`. Returns the comparison
+    (and whether the losses and params were bit-equal)."""
+    n = len(ref['losses'])
+    got = cell['losses'][:n]
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, ref['losses'])]
+    check = compare_updates(after, ref_after, before, lr, what)
+    check.update(loss_rel=rel, losses_equal=got == ref['losses'])
+    log(f'{what}: losses {got} vs {ref["losses"]} (relative '
+        f'{[f"{x:.2e}" for x in rel]}, gate {CP_LOSS_REL}); after the first '
+        f'update {check["bit_equal"]} of {check["leaves"]} leaves bit-equal, '
+        f'max |delta| {check["max_abs"]:.3e}, the updates\' difference at '
+        f'most {check["max_mass_ratio"]:.3e} of the update')
+    if max(rel) > CP_LOSS_REL:
+        fail(f'{what}: a step\'s loss differs by more than {CP_LOSS_REL}')
+    return check
+
+
+def cp_cells20(worlds, dev, profile_dir):
+    """(a): ESM2-650M (seed-0 weights, built on every card) through
+    ``context_parallel_log_prob`` on the 50k inference batch on ``seq`` =
+    each of ``CP_WORLDS`` (the ranks 0..w-1): the weights the same on
+    every rank, launches exact on every rank (H9 and H3 once a layer, H1
+    never), each rank's (T, V) log-probs finite normalised rows under
+    phase 4's gate against this card's ``predict_log_prob`` (bit equality
+    logged); ms a forward (CUDA events after a warm-up), real tokens/s,
+    peak memory; one k gather alone (its ms and bus bandwidth); on rank 0
+    one forward profiled (the NCCL kernels' device time)."""
+    from esme_tpu_torch import ESM2
+    from esme_tpu_torch.parallel import context_parallel_log_prob, make_mesh
+    model = ESM2(**MODEL, dtype='bfloat16', rng=0, device=dev)
+    L = model.config.num_layers
+    tokens, cu, max_len = packed_batch(BUDGET, seed=0)
+    real = int(cu[-1])
+    ref = model.predict_log_prob(tokens, pad_args=(cu, max_len))[:real] \
+        .clone()
+    out = {}
+    for w in CP_WORLDS:
+        with worlds.world(w) as inside:
+            if not inside:
+                continue
+            what = f'phase 20 (a) context parallel, seq={w}'
+            mesh = make_mesh(seq=w, device=dev.type)
+            same_weights(model.params, what)
+
+            def run():
+                return context_parallel_log_prob(model, tokens,
+                                                 (cu, max_len), mesh)
+            reset_counters()
+            lp = run()
+            torch.cuda.synchronize()
+            launches = read_counters()
+            expect_launches(what, launches, **{H9_NAME: L, H3_NAME: L})
+            lse_err = lp[:real].logsumexp(-1).abs().max().item()
+            if tuple(lp.shape) != (len(tokens), model.config.vocab_size) \
+                    or not bool(torch.isfinite(lp).all()) \
+                    or lse_err > LOGSUMEXP_ATOL:
+                fail(f'{what}: log-probs of {tuple(lp.shape)} are not '
+                     f'finite normalised rows (max|logsumexp| {lse_err})')
+            check = compare_logp(lp[:real], ref, f'{what}: the rank\'s '
+                                 '(T, V) vs predict_log_prob on its card')
+            check['bit_equal'] = bool(torch.equal(lp[:real], ref))
+            log(f'{what}: bit-equal to predict_log_prob '
+                f'{check["bit_equal"]}')
+            del lp
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            samples = [cuda_ms(run, reps=1, warmup=int(i == 0))
+                       for i in range(FWD_REPS)]
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            ms = float(np.median(samples))
+            cell = {'launches': launches, 'vs_predict_log_prob': check,
+                    'ms_per_batch': ms, 'ms_per_batch_samples': samples,
+                    'real_tokens_per_s': real / ms * 1e3,
+                    'real_tokens_per_s_per_card': real / ms * 1e3 / w,
+                    'peak_mem_gib': peak}
+            if w > 1:
+                cell['k_gather'] = gather_busbw(
+                    mesh.get_group('seq'), len(tokens) // w,
+                    MODEL['embed_dim'], dev)
+            if worlds.rank == 0:
+                cell['profile'] = profile_collectives(
+                    run, profile_dir, f'profile_p20_cp{w}.txt', what)
+            else:
+                run()
+            log(f'{what}: median {ms:.2f} ms a forward of {FWD_REPS}, '
+                f'{real / ms * 1e3:.1f} real tokens/s ({real / ms * 1e3 / w:.1f}'
+                f' a card), peak {peak:.2f} GiB; k gather '
+                f'{cell.get("k_gather")}')
+            out[str(w)] = cell
+    del model, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def dense_cells20(worlds, dev, profile_dir):
+    """(b): phase 11's ``ckpt@50k`` (ESM2-650M, seed-0 weights,
+    checkpointing, ``remat='full'``, Adam at 1e-4) through
+    ``ShardedMaskedPLM(seq_axis='seq')`` on each of ``DENSE_MESHES``, each
+    from the same weights for ``DENSE_STEPS`` steps: launches exact on
+    every rank (H9 66, H10 33, H3 99 of which 33 inverse, H1 and H2
+    never), losses finite; on rank 0 the first ``CP_COMPARE_STEPS``
+    against ``MaskedPLM`` on its card (:func:`hold_to_reference`); ms a
+    step, real tokens/s, MFU, peak on
+    every card; one more step profiled on rank 0 (the NCCL kernels'
+    device time and overlap)."""
+    from esme_tpu_torch import ESM2
+    from esme_tpu_torch.parallel import make_mesh
+    from esme_tpu_torch.train import MaskedPLM, ShardedMaskedPLM
+    lr = 1e-4
+    _, budget, ckpt, _, _ = TRAIN_CELLS[1]
+    model = ESM2(**MODEL, dtype='bfloat16', rng=0, device=dev,
+                 checkpointing=ckpt)
+    L = model.config.num_layers
+    n_params = sum(p.numel() for p in _leaves(model.params))
+    batch, attn = train_batch(budget, model)
+    real = int(batch.cu_lens[-1])
+    flops = 6 * n_params * real + 3.5 * attn
+    out = {}
+    ref = ref_after = None
+    if worlds.rank == 0:
+        ref, ref_after = reference_steps(
+            model, lambda m: MaskedPLM(m, learning_rate=lr), batch,
+            CP_COMPARE_STEPS, 'phase 20 (b) MaskedPLM on one card')
+        ref['real_tokens_per_s'] = real / ref['ms_per_step'] * 1e3
+        ref['mfu'] = flops / (ref['ms_per_step'] * 1e-3) / MFU_PEAK
+        out['one_card'] = ref
+    expected = expected_launches(**{H9_NAME: 2 * L, H10_NAME: L,
+                                    H3_NAME: 3 * L, 'rope_inverse': L})
+    for shape in DENSE_MESHES:
+        w = math.prod(shape)
+        with worlds.world(w) as inside:
+            if not inside:
+                continue
+            what = f'phase 20 (b) ShardedMaskedPLM on {shape}'
+            mesh = make_mesh(shape[0], shape[1], seq=shape[2],
+                             device=dev.type)
+            plm = ShardedMaskedPLM(model, mesh, learning_rate=lr,
+                                   seq_axis='seq')
+            batches = [batch] * shape[0]
+            cell, after = mesh_steps(plm, batches, DENSE_STEPS, expected,
+                                     what, keep_after=True)
+            ms = cell['ms_per_step']
+            cell.update(real_tokens_per_s=real * shape[0] / ms * 1e3,
+                        real_tokens_per_s_per_card=real * shape[0] / ms
+                        * 1e3 / w,
+                        mfu=flops * shape[0] / (ms * 1e-3) / (MFU_PEAK * w))
+            if worlds.rank == 0:
+                cell['vs_masked_plm'] = hold_to_reference(
+                    cell, after, ref, ref_after, model.params, lr,
+                    f'{what} vs MaskedPLM')
+                cell['profile'] = profile_collectives(
+                    lambda: plm.training_step(batches), profile_dir,
+                    f'profile_p20_train_{"x".join(map(str, shape))}.txt',
+                    f'{what}: a step')
+            else:
+                plm.training_step(batches)
+            del plm, after
+            torch.cuda.empty_cache()
+            out['x'.join(map(str, shape))] = cell
+    del model, ref_after
+    torch.cuda.empty_cache()
+    return out
+
+
+def lora_cells20(worlds, dev):
+    """(c): phase 17's adapters (rank 16 on query, value, output, every
+    ``b`` lifted) over ESM2-650M, dense and then NF4, on ``nockpt@10k``
+    through ``ShardedMaskedPLM(lora_only=True, seq_axis='seq')`` on each
+    of ``LORA_MESHES`` (data row r takes batch r: bench.py's recipe, then
+    seeds 3 and 4): one step's loss and adapters' gradients on rank 0
+    against the single-device gradient of the global masked mean
+    (``MaskedPLM(lora_only=True)._grad_step`` on each row's batch, weighted
+    by its masked tokens) under phase 17's gates, the same leaves trained;
+    then ``LORA_STEPS`` steps (launches exact on every rank: H9 33, H10 33,
+    H3 66 of which 33 inverse) and :func:`trainer_checks` on every rank;
+    ``MaskedPLM(lora_only=True)``'s steps on rank 0's card beside them."""
+    from esme_tpu_torch.parallel import make_mesh
+    from esme_tpu_torch.train import MaskedPLM, ShardedMaskedPLM
+    lr = 1e-4
+    _, budget, _, _, _ = TRAIN_CELLS[0]
+    out = {}
+    for trunk, quant in (('dense', None), ('nf4', '4bit')):
+        model = lora_model(dev, quant)
+        L = model.config.num_layers
+        batches = edge_padded([train_batch(budget, model)[0],
+                               train_batch(budget, model, seeds=(3, 4))[0]])
+        real = [int(b.cu_lens[-1]) for b in batches]
+        frozen_names, trained_names = lora_leaves(model)
+        frozen = host_copies(model.params, frozen_names)
+        trained = host_copies(model.params, trained_names)
+        refs = None
+        if worlds.rank == 0:
+            plm = MaskedPLM(model, lora_only=True)
+            refs = [(plm._grad_step(b), float(b.mask.sum())) for b in batches]
+            del plm
+            out[f'{trunk}_one_card'], _ = reference_steps(
+                model, lambda m: MaskedPLM(m, learning_rate=lr,
+                                           lora_only=True),
+                batches[0], LORA_STEPS, f'phase 20 (c) {trunk} MaskedPLM('
+                'lora_only=True) on one card', keep_after=False)
+        expected = expected_launches(**{H9_NAME: L, H10_NAME: L,
+                                        H3_NAME: 2 * L, 'rope_inverse': L})
+        for shape in LORA_MESHES:
+            w = math.prod(shape)
+            with worlds.world(w) as inside:
+                if not inside:
+                    continue
+                what = f'phase 20 (c) {trunk} LoRA on {shape}'
+                mesh = make_mesh(shape[0], shape[1], seq=shape[2],
+                                 device=dev.type)
+                plm = ShardedMaskedPLM(model, mesh, learning_rate=lr,
+                                       lora_only=True, seq_axis='seq')
+                rows = batches[:shape[0]]
+                loss, g = plm._grad_step(rows)
+                cell = {}
+                if worlds.rank == 0:
+                    cell['grads'] = union_check(loss, g, refs[:shape[0]],
+                                                trained_names, what)
+                del g
+                step, _ = mesh_steps(plm, rows, LORA_STEPS, expected, what)
+                cell.update(step)
+                ms = cell['ms_per_step']
+                tok = sum(real[:shape[0]])
+                cell.update(real_tokens_per_s=tok / ms * 1e3,
+                            real_tokens_per_s_per_card=tok / ms * 1e3 / w)
+                cell.update(trainer_checks(plm, plm.unsharded_params(),
+                                           frozen, trained, what))
+                del plm
+                torch.cuda.empty_cache()
+                out[f'{trunk} {"x".join(map(str, shape))}'] = cell
+        del model, refs
+        torch.cuda.empty_cache()
+    return out
+
+
+def edge_padded(batches):
+    """The batches with their ``cu_lens`` padded to one length by
+    repeating the last offset (empty segments), as the data plane pads
+    them to a static shape, so that they stack into a mesh's data rows."""
+    n = max(len(b.cu_lens) for b in batches)
+    return [SimpleNamespace(**{**vars(b), 'cu_lens': np.pad(
+        b.cu_lens, (0, n - len(b.cu_lens)), mode='edge')}) for b in batches]
+
+
+def union_check(loss, grads, refs, trained_names, what):
+    """The sharded step's loss and trained leaves' gradients against the
+    single-device gradient of the global masked mean over the rows'
+    batches, made from each batch's (``refs``: ``((loss, grads),
+    masked tokens)``) as their masked-token-weighted mean; phase 17's gates
+    (loss within ``CP_LOSS_REL``, each trained leaf under phase 5's), the
+    same leaves trained."""
+    from esme_tpu_torch.parallel.fsdp import _map
+    total = sum(c for _, c in refs)
+    ref_loss = sum(c * l.item() for (l, _), c in refs) / total
+    got, nf = _trained_only(grads)
+    mean = None
+    for (_, g), c in refs:
+        part, nf_ref = _trained_only(g)
+        part = _map(lambda t: t.float() * (c / total), part)
+        mean = part if mean is None else _map(
+            lambda a, b: a + b, mean, part)
+    names = [n for n, _ in _named_leaves(got)]
+    if set(names) != trained_names or nf != nf_ref:
+        fail(f'{what}: the trained leaves differ: {names} ({nf} frozen) '
+             f'against {sorted(trained_names)} ({nf_ref})')
+    rel = abs(loss.item() - ref_loss) / abs(ref_loss)
+    check = compare_grads(_map(lambda t: t.float(), got), mean,
+                          GRAD_MIN_COS, GRAD_MAX_REL,
+                          f'{what}: adapters\' gradients vs the single-'
+                          'device gradient of the global masked mean')
+    check.update(loss=loss.item(), loss_reference=ref_loss, loss_rel=rel)
+    log(f'{what}: loss {loss.item():.6f} vs {ref_loss:.6f} (relative '
+        f'{rel:.2e}, gate {CP_LOSS_REL})')
+    if rel > CP_LOSS_REL:
+        fail(f'{what}: loss {loss.item()} vs {ref_loss}')
+    return check
+
+
+@contextlib.contextmanager
+def timed_writes(seconds):
+    """Append each ``torch.save``'s seconds to ``seconds`` (a
+    checkpoint's part is one ``torch.save`` of its rank)."""
+    save = torch.save
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        save(*args, **kwargs)
+        seconds.append(time.perf_counter() - t0)
+    torch.save = timed
+    try:
+        yield seconds
+    finally:
+        torch.save = save
+
+
+def _holder_filled(step_dir, rank):
+    """Rank ``rank``'s saved part, a replica's params and optimizer state
+    taken from its holder's part (as ``CheckpointManager.restore`` fills
+    them)."""
+    from esme_tpu_torch.train.checkpoint import _holder, _load
+    from pathlib import Path
+    part = _load(os.path.join(step_dir, f'rank{rank}.pt'), mmap=True)
+    if part.params is None:
+        held = _holder(Path(step_dir), part.mesh)
+        part = part._replace(params=held.params, opt_state=held.opt_state)
+    return part
+
+
+def _differing(got, want):
+    """The leaf paths where the trees ``got`` and ``want`` differ in
+    bits."""
+    want = dict(_named_leaves(want))
+    return [n for n, t in _named_leaves(got) if not _same_bits(t, want[n])]
+
+
+def ckpt_cells20(worlds, dev, tmp, rss):
+    """(d): phase 18's dense trainer (ESM2-650M, seed-0 weights, Adam,
+    ``grad_accum=2``, ``seq_axis='seq'``) on phase 5's ``nockpt@10k`` batch
+    (every data row the same batch, so that the mesh's step is the one
+    card's), cut after ``RESHARD_CUT`` micro-steps: (i) the ranks of
+    ``SAVE_MESH`` save their parts (each rank's write seconds, the world's
+    wall seconds), take the uninterrupted micro-step, and fresh trainers
+    there restore the parts and take it again: the state bit-equal to the
+    saved part, the loss and every param bit-equal, launches exact (H9 33,
+    H10 33, H3 66 of which 33 inverse); a replica's part without param or
+    optimizer tensors (:func:`part_bytes`); (ii) one card (a one-rank
+    world) restores them: its params bit-equal to the saved step's, its
+    micro-step against (i)'s under phase 11's gates (bit equality logged);
+    (iii) one card trains a state of its own from the same weights and
+    saves it, and (iv) the ranks of ``RESTORE_MESH`` restore it: their
+    params bit-equal to the saved step's, their micro-step against the one
+    card's under phase 11's gates. Each rank's peak resident memory."""
+    from esme_tpu_torch import ESM2
+    from esme_tpu_torch.parallel import make_mesh
+    from esme_tpu_torch.train import CheckpointManager
+    lr = 1e-4
+    rank = worlds.rank
+    model = ESM2(**MODEL, dtype='bfloat16', rng=0, device=dev)
+    L = model.config.num_layers
+    batch, _ = train_batch(TRAIN_CELLS[0][1], model)
+    dir_a, dir_b = os.path.join(tmp, 'ckpt_a'), os.path.join(tmp, 'ckpt_b')
+    rss.reset()
+    out = {}
+    mine = {}           # rank 0's host copies for (ii) and (iv)
+
+    def save(plm, path, what):
+        writes = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with timed_writes(writes):
+            CheckpointManager(path, monitor=None).save(plm.step, plm.state)
+        wall = time.perf_counter() - t0
+        log(f'{what}: saved in {wall:.2f} s (this rank wrote its part in '
+            f'{writes[0]:.2f} s)')
+        return {'write_s': writes[0], 'save_s': wall}
+
+    def restore(plm, path):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plm.state = CheckpointManager(path, monitor=None).restore(plm.state)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def resumed_step(plm, rows, what):
+        reset_counters()
+        loss = plm.training_step(rows)
+        torch.cuda.synchronize()
+        expect_launches(what, read_counters(), **{
+            H9_NAME: L, H10_NAME: L, H3_NAME: 2 * L, 'rope_inverse': L})
+        return loss
+
+    # (i) the mesh saves, resumes on itself
+    w = math.prod(SAVE_MESH)
+    with worlds.world(w) as inside:
+        if inside:
+            what = f'phase 20 (d) (i) {SAVE_MESH}'
+            mesh = make_mesh(SAVE_MESH[0], SAVE_MESH[1], seq=SAVE_MESH[2],
+                             device=dev.type)
+            rows = [batch] * SAVE_MESH[0]
+            plm = reshard_trainer('dense', model, mesh)
+            for _ in range(RESHARD_CUT):
+                plm.training_step(rows)
+            cell = save(plm, dir_a, what)
+            mine['saved'] = plm.unsharded_params()
+            loss = plm.training_step(rows)
+            want = plm.unsharded_params()
+            del plm
+            torch.cuda.empty_cache()
+            fresh = reshard_trainer('dense', model, mesh)
+            cell['restore_s'] = restore(fresh, dir_a)
+            step_dir = os.path.join(dir_a, str(RESHARD_CUT))
+            differ = state_differs(fresh.state, _holder_filled(step_dir, rank))
+            got = resumed_step(fresh, rows, what)
+            leaves = _differing(fresh.unsharded_params(), want)
+            log(f'{what}: restored state against the saved part, places '
+                f'that differ {differ[:8]} ({len(differ)}); micro-step '
+                f'{RESHARD_CUT + 1} loss {got!r} resumed vs {loss!r}; leaves '
+                f'that differ {leaves[:8]} ({len(leaves)})')
+            if differ or got != loss or leaves:
+                fail(f'{what}: the resumed micro-step is not the '
+                     f'uninterrupted one: state {differ[:8]}, loss {got} vs '
+                     f'{loss}, leaves {leaves[:8]}')
+            del fresh
+            torch.cuda.empty_cache()
+            cell['loss'] = loss
+            if rank == 0:
+                cell['parts'] = part_bytes(step_dir, what)
+                mine['loss'], mine['after'] = loss, want
+            out['i_save'] = cell
+    # (ii) one card takes the mesh's parts; (iii) one card saves its own
+    with worlds.world(1) as inside:
+        if inside:
+            what = f'phase 20 (d) (ii) {SAVE_MESH} -> (1, 1, 1)'
+            mesh = make_mesh(1, 1, seq=1, device=dev.type)
+            one = reshard_trainer('dense', model, mesh)
+            cell = {'restore_s': restore(one, dir_a)}
+            differ = _differing(one.params, mine['saved'])
+            if differ or one.step != RESHARD_CUT:
+                fail(f'{what}: restored params differ from the saved '
+                     f'step\'s: {differ[:8]}, step {one.step}')
+            cell['loss'] = resumed_step(one, [batch], what)
+            after = one.unsharded_params()
+            check = hold_to_reference(
+                {'losses': [cell['loss']]}, after,
+                {'losses': [mine['loss']]}, mine['after'], mine['saved'], lr,
+                f'{what}: the micro-step on one card vs on the mesh')
+            check['params_bit_equal'] = not _differing(after, mine['after'])
+            cell['vs_mesh'] = check
+            del one, after
+            out['ii_restore_one_card'] = cell
+            what = 'phase 20 (d) (iii) (1, 1, 1)'
+            plm = reshard_trainer('dense', model, mesh)
+            for _ in range(RESHARD_CUT):
+                plm.training_step([batch])
+            cell = save(plm, dir_b, what)
+            cell['bytes'] = _dir_bytes(dir_b)
+            mine['saved'] = plm.unsharded_params()
+            mine['loss'] = plm.training_step([batch])
+            mine['after'] = plm.unsharded_params()
+            del plm
+            torch.cuda.empty_cache()
+            out['iii_save_one_card'] = cell
+    # (iv) the mesh takes one card's state
+    w = math.prod(RESTORE_MESH)
+    with worlds.world(w) as inside:
+        if inside:
+            what = f'phase 20 (d) (iv) (1, 1, 1) -> {RESTORE_MESH}'
+            mesh = make_mesh(RESTORE_MESH[0], RESTORE_MESH[1],
+                             seq=RESTORE_MESH[2], device=dev.type)
+            plm = reshard_trainer('dense', model, mesh)
+            cell = {'restore_s': restore(plm, dir_b)}
+            restored = plm.unsharded_params()
+            loss = resumed_step(plm, [batch] * RESTORE_MESH[0], what)
+            after = plm.unsharded_params()
+            if rank == 0:
+                differ = _differing(restored, mine['saved'])
+                if differ or plm.step != RESHARD_CUT + 1:
+                    fail(f'{what}: restored params differ from the saved '
+                         f'step\'s: {differ[:8]}')
+                check = hold_to_reference(
+                    {'losses': [loss]}, after, {'losses': [mine['loss']]},
+                    mine['after'], mine['saved'], lr,
+                    f'{what}: the micro-step on the mesh vs on one card')
+                check['params_bit_equal'] = not _differing(after,
+                                                           mine['after'])
+                cell['vs_one_card'] = check
+            cell['loss'] = loss
+            del plm, restored, after
+            torch.cuda.empty_cache()
+            out['iv_restore_mesh'] = cell
+    out['peak_rss_gib'] = rss.read()
+    del model, mine
+    torch.cuda.empty_cache()
+    if rank == 0:          # every rank is past (iv)
+        import shutil
+        for path in (dir_a, dir_b):
+            shutil.rmtree(path, ignore_errors=True)
+    return out
+
+
+def big_cells20(worlds, dev, rss, profile_dir):
+    """(e): ESM2-15B (``BIG_SIZE``: 48 layers, width 5120, 40 heads, D =
+    128, bf16, seed-0 weights built on every card) over FSDP on
+    ``BIG_MESH`` (``checkpointing=True``, ``remat='full'``, Adam at
+    1e-4): first ``BIG_CUT`` layers at full width against ``MaskedPLM`` on
+    rank 0's card under phase 11's gates; then the whole model, each rank
+    dropping its full copy once the trainer holds its shards, at each of
+    ``BIG_BUDGETS``' budgets (the 50k one where the 10k cell's peak,
+    scaled, leaves ``BIG_MEM_SHARE`` of every card): launches exact on
+    every rank (H9 96, H10 48, H3 144 of which 48 inverse), losses finite
+    and falling by the run's end (its last below its largest), ms a step,
+    real tokens/s, MFU, peak on every card, host memory of every rank."""
+    import torch.distributed as dist
+    from esme_tpu_torch import ESM2
+    from esme_tpu_torch.models.config import ESM2_SIZES
+    from esme_tpu_torch.parallel import make_mesh
+    from esme_tpu_torch.train import MaskedPLM, ShardedMaskedPLM
+    lr = 1e-4
+    cfg = dict(ESM2_SIZES[BIG_SIZE])
+    w = math.prod(BIG_MESH)
+    out = {}
+
+    def mesh_of():
+        return make_mesh(BIG_MESH[0], BIG_MESH[1], seq=BIG_MESH[2],
+                         device=dev.type)
+
+    def launches(L):
+        return expected_launches(**{H9_NAME: 2 * L, H10_NAME: L,
+                                    H3_NAME: 3 * L, 'rope_inverse': L})
+    cut = ESM2(**{**cfg, 'num_layers': BIG_CUT}, dtype='bfloat16', rng=0,
+               device=dev, checkpointing=True)
+    budget = BIG_BUDGETS[0][0]
+    batch, _ = train_batch(budget, cut)
+    ref = ref_after = None
+    if worlds.rank == 0:
+        ref, ref_after = reference_steps(
+            cut, lambda m: MaskedPLM(m, learning_rate=lr), batch,
+            CP_COMPARE_STEPS, f'phase 20 (e) {BIG_SIZE} cut to {BIG_CUT} '
+            'layers, MaskedPLM on one card')
+        out['cut_one_card'] = ref
+    with worlds.world(w) as inside:
+        if inside:
+            what = f'phase 20 (e) {BIG_SIZE} cut to {BIG_CUT} layers on ' \
+                   f'{BIG_MESH}'
+            plm = ShardedMaskedPLM(cut, mesh_of(), learning_rate=lr,
+                                   seq_axis='seq')
+            cell, after = mesh_steps(plm, [batch] * BIG_MESH[0],
+                                     CP_COMPARE_STEPS, launches(BIG_CUT),
+                                     what, keep_after=True)
+            if worlds.rank == 0:
+                cell['vs_masked_plm'] = hold_to_reference(
+                    cell, after, ref, ref_after, cut.params, lr,
+                    f'{what} vs MaskedPLM')
+            out['cut'] = cell
+            del plm, after
+    del cut, ref_after
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = ESM2(**cfg, dtype='bfloat16', rng=0, device=dev,
+                 checkpointing=True)
+    torch.cuda.synchronize()
+    L = model.config.num_layers
+    n_params = sum(p.numel() for p in _leaves(model.params))
+    out['init'] = {'s': time.perf_counter() - t0, 'params': n_params,
+                   'peak_mem_gib': torch.cuda.max_memory_allocated() / 2**30}
+    log(f'phase 20 (e) {BIG_SIZE} {cfg} init on the card: '
+        f'{out["init"]["s"]:.1f} s, {n_params:,} params, peak '
+        f'{out["init"]["peak_mem_gib"]:.2f} GiB')
+    card_bytes = torch.cuda.get_device_properties(dev).total_memory
+    with worlds.world(w) as inside:
+        if inside:
+            plm = ShardedMaskedPLM(model, mesh_of(), learning_rate=lr,
+                                   seq_axis='seq')
+            # the caller's full copy goes once the trainer holds its shards
+            model.params = None
+            torch.cuda.empty_cache()
+            shard_bytes = sum(t.numel() * t.element_size()
+                              for t in _leaves(plm.params))
+            out['shard_bytes'] = shard_bytes
+            losses = []
+            rss.reset()
+            for budget, steps in BIG_BUDGETS:
+                what = f'phase 20 (e) {BIG_SIZE} on {BIG_MESH} at {budget}'
+                if losses:
+                    # the 10k cell's activations scaled to this budget,
+                    # beside the shards, their gradients and moments
+                    prev = out[str(BIG_BUDGETS[0][0])]
+                    resident = 4 * shard_bytes
+                    act = prev['peak_mem_gib'] * 2**30 - resident
+                    pred = torch.tensor(
+                        [resident + act * budget / BIG_BUDGETS[0][0]],
+                        dtype=torch.float64, device=dev)
+                    dist.all_reduce(pred, op=dist.ReduceOp.MAX)
+                    fits = pred.item() <= BIG_MEM_SHARE * card_bytes
+                    log(f'{what}: predicted peak {pred.item() / 2**30:.2f} '
+                        f'GiB of {card_bytes / 2**30:.2f} GiB a card: '
+                        f'{"run" if fits else "not run"}')
+                    if not fits:
+                        out[str(budget)] = {
+                            'not_run': 'predicted peak '
+                            f'{pred.item() / 2**30:.2f} GiB over '
+                            f'{BIG_MEM_SHARE} of the card'}
+                        continue
+                batch, attn = train_batch(budget, model)
+                real = int(batch.cu_lens[-1])
+                cell, _ = mesh_steps(plm, [batch] * BIG_MESH[0], steps,
+                                     launches(L), what)
+                ms = cell['ms_per_step']
+                flops = 6 * n_params * real + 3.5 * attn
+                cell.update(real_tokens=real,
+                            real_tokens_per_s=real / ms * 1e3,
+                            real_tokens_per_s_per_card=real / ms * 1e3 / w,
+                            mfu=flops / (ms * 1e-3) / MFU_PEAK,
+                            mfu_world=flops / (ms * 1e-3) / (MFU_PEAK * w),
+                            peak_rss_gib=rss.read())
+                losses += cell['losses']
+                log(f'{what}: {ms:.2f} ms a step, {real / ms * 1e3:.1f} real '
+                    f'tokens/s, MFU {cell["mfu"]:.4f} of one card '
+                    f'({cell["mfu_world"]:.4f} of the {w}), peak '
+                    f'{cell["peak_mem_gib"]:.2f} GiB, host '
+                    f'{cell["peak_rss_gib"]:.2f} GiB')
+                out[str(budget)] = cell
+            # a fresh Adam's first updates (lr·sign(g) on every leaf) raise
+            # the loss of random weights before it falls (phase 11's note;
+            # 3.81 -> 6.26 -> 4.81 over 8 steps at 6 of these layers on an
+            # H100 80GB HBM3), so the run must turn: its last loss below
+            # its largest
+            log(f'phase 20 (e) {BIG_SIZE}: losses over the run {losses}')
+            if not losses[-1] < max(losses):
+                fail(f'phase 20 (e) {BIG_SIZE}: the loss does not fall: '
+                     f'{losses}')
+            del plm
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def rope_row(T, H, D, dev):
+    """H3 at ``T`` rows of ``H`` heads of ``D``: held against its plain
+    version (:func:`check_rope`), then timed beside it and the bound (q
+    and k read and written once, the tables' halves H3 reads)."""
+    from esme_tpu_torch.ops import headsplit
+    from esme_tpu_torch.ops.rotary import rotary_cos_sin
+    err = check_rope(T, H, D, dev, seed=T + D)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(D)
+    q, k = (randn((T, H * D), gen, dev) for _ in range(2))
+    cos, sin = rotary_cos_sin(torch.arange(T, device=dev) % 1024, D)
+    ms = cuda_ms(lambda: headsplit.rotary_qk(q, k, cos, sin, H), reps=20,
+                 warmup=2)
+    plain = cuda_ms(lambda: headsplit.rotary_qk_plain(q, k, cos, sin, H),
+                    reps=5)
+    nbytes = 4 * q.numel() * 2 + cos.numel() * 2
+    b_ms, b_by = bound(nbytes, 6.0 * q.numel(), FP32_FLOP_PER_S)
+    log(f'H3 T={T} H={H} D={D}: {ms:.4f} ms, plain {plain:.3f} ms, bound '
+        f'{b_ms:.4f} ms by {b_by}')
+    return {'max_abs_err': err, 'ms': ms, 'plain_ms': plain, 'bound_ms': b_ms,
+            'bound_by': b_by, 'library_ms': None, 'bytes': nbytes,
+            'shape': f'T={T} H={H} D={D} bf16'}
+
+
+def phase20_kernels(dev):
+    """H9, H10 and H3 at phase 20's per-rank shapes on this card, each
+    held against its plain version under phase 3's gates and timed beside
+    it, its bound and the varlen library call per rank: ESM2-650M's (every
+    rank of a 4-way ``seq`` split of the 50k batches: H9 on the inference
+    batch, H10 on the train batch, H3 on a rank's 12,500 rows) and
+    ``BIG_SIZE``'s (one rank of ``BIG_MESH``'s, whose ``seq`` is 1: the
+    whole 10k train batch, 40 heads of D = 128)."""
+    from esme_tpu_torch.models.config import ESM2_SIZES
+    H = MODEL['attention_heads']
+    D = MODEL['embed_dim'] // H
+    big = ESM2_SIZES[BIG_SIZE]
+    Hb = big['attention_heads']
+    Db = big['embed_dim'] // Hb
+    Tb = BIG_BUDGETS[0][0]
+    _, cu, _ = packed_batch(BUDGET, seed=0)
+    _, cub, _ = packed_batch(Tb, seed=2)
+    n = max(w for w in CP_WORLDS)
+    rows = {H9_NAME: time_rect(cu, dev, n=n),
+            H10_NAME: time_rect_bwd(dev, n=n),
+            H3_NAME: rope_row(BUDGET // n, H, D, dev)}
+    big_rows = {H9_NAME: time_rect(cub, dev, H=Hb, D=Db, T=Tb, n=1,
+                                   mask_skip=False),
+                H10_NAME: time_rect_bwd(dev, H=Hb, D=Db, T=Tb, n=1),
+                H3_NAME: rope_row(Tb, Hb, Db, dev)}
+    for name, row in rows.items():
+        row['d128'] = big_rows[name]
+    return rows
+
+
+def phase20_rank(rank, n, ports, tmp, profile_dir):
+    """Rank ``rank`` of phase 20's ``n``: card ``rank``, then cells (a) to
+    (e) in their worlds (:class:`_Worlds`), then on rank 0 the kernels'
+    rows (:func:`phase20_kernels`); writes its results to
+    ``tmp``/rank<r>.json. Any exception or failed gate ends the process
+    with a non-zero code at once."""
+    global RANK_TAG
+    RANK_TAG = f' rank {rank}'
+    try:
+        torch.set_num_threads(RANK_THREADS)
+        dev = torch.device(DEVICE, rank) if DEVICE == 'cuda' \
+            else torch.device('cpu')
+        if dev.type == 'cuda':
+            torch.cuda.set_device(dev)
+        worlds = _Worlds(rank, ports, dev)
+        seconds, t0 = {}, [time.perf_counter()]
+
+        def done(key):
+            now = time.perf_counter()
+            seconds[key] = now - t0[0]
+            t0[0] = now
+            log(f'phase 20 {key}: {seconds[key]:.1f} s')
+        res = {'rank': rank, 'device': str(dev), 'start_rss_gib': rss_gib()}
+        res['a_context_parallel'] = cp_cells20(worlds, dev, profile_dir)
+        done('a')
+        res['b_dense'] = dense_cells20(worlds, dev, profile_dir)
+        done('b')
+        res['c_lora'] = lora_cells20(worlds, dev)
+        done('c')
+        # host memory is sampled from here on, off the timed steps of (a)-(c)
+        rss = _RssPeak()
+        res['d_checkpoints'] = ckpt_cells20(worlds, dev, tmp, rss)
+        done('d')
+        res['e_big'] = big_cells20(worlds, dev, rss, profile_dir)
+        done('e')
+        if rank == 0:
+            res['kernels'] = phase20_kernels(dev)
+            done('kernels')
+        res['seconds'] = seconds
+        res['peak_rss_gib_d_e'] = rss.read()
+        with open(os.path.join(tmp, f'rank{rank}.json'), 'w') as f:
+            json.dump(res, f, default=float)
+    except BaseException:
+        import traceback
+        traceback.print_exc()
+        sys.stderr.flush()
+        sys.stdout.flush()
+        os._exit(1)
+
+
+def free_ports(k):
+    ports = set()
+    while len(ports) < k:
+        ports.add(free_port())
+    return sorted(ports)
+
+
+def run_ranks(n, profile_dir):
+    """Spawn phase 20's ``n`` rank processes and wait for them: fails (and
+    kills the rest) as soon as one exits non-zero, or when
+    ``RANKS_DEADLINE_S`` pass. Returns every rank's results."""
+    import multiprocessing
+    ctx = multiprocessing.get_context('spawn')
+    ports = free_ports(RANK_PORTS)
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=phase20_rank,
+                             args=(r, n, ports, tmp, profile_dir))
+                 for r in range(n)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + RANKS_DEADLINE_S
+        try:
+            while True:
+                codes = [p.exitcode for p in procs]
+                if codes == [0] * n:
+                    break
+                bad = {r: c for r, c in enumerate(codes) if c not in (None, 0)}
+                if bad:
+                    fail(f'phase 20: rank(s) exited with {bad}')
+                if time.monotonic() > deadline:
+                    fail(f'phase 20: ranks still running after '
+                         f'{RANKS_DEADLINE_S} s')
+                time.sleep(0.5)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        results = []
+        for r in range(n):
+            with open(os.path.join(tmp, f'rank{r}.json')) as f:
+                results.append(json.load(f))
+    return results
+
+
+def phase20_main(n, cards, profile_dir, phase_done, phase_s, build_s,
+                 t_start):
+    """Phase 20 after phases 1 and 2 (every card's line printed, every
+    kernel built once here): the ranks' cells (:func:`run_ranks`), then
+    the kernels' line (H9, H10, H3 at phase 20's per-rank shapes, with
+    their launches on every rank of each cell), the measurements' line and
+    the contract's last line. With ``profile_dir``, every rank's results
+    in ``profile_dir``/phase20_ranks.json beside rank 0's tables."""
+    results = run_ranks(n, profile_dir)
+    phase_done(20)
+    if profile_dir:
+        os.makedirs(profile_dir, exist_ok=True)
+        with open(os.path.join(profile_dir, 'phase20_ranks.json'), 'w') as f:
+            json.dump(results, f)
+    parts = ('a_context_parallel', 'b_dense', 'c_lora', 'd_checkpoints',
+             'e_big')
+    summary, launches = {}, {}
+    for part in parts:
+        summary[part] = {}
+        for key, cell in results[0][part].items():
+            mine = [r[part].get(key) for r in results]
+            if not isinstance(cell, dict):
+                summary[part][key] = mine
+                continue
+            row = dict(cell)
+            for field in ('ms_per_step', 'ms_per_batch', 'peak_mem_gib',
+                          'write_s', 'save_s', 'restore_s', 'peak_rss_gib'):
+                if field in cell:
+                    row[f'{field}_by_rank'] = [c and c.get(field)
+                                               for c in mine]
+            if 'launches' in cell:
+                launches[f'{part} {key}'] = [c and c['launches']
+                                             for c in mine]
+            summary[part][key] = row
+    main_cell = 'b_dense ' + 'x'.join(map(str, DENSE_MESHES[1]))
+    kernels = []
+    for name, row in results[0]['kernels'].items():
+        row = dict(row, name=name)
+        if name == H3_NAME:
+            row.update(route='cuda', source='esme_tpu_torch/csrc/rope.cu',
+                       replaces='esme_tpu/ops/headsplit.py:119')
+        row['launches'] = launches[main_cell][0][name]
+        row['phase20_launches'] = {
+            cell: [c and c[name] for c in per_rank]
+            for cell, per_rank in launches.items()}
+        if name == H3_NAME:
+            row['phase20_inverse_launches'] = {
+                cell: [c and c['rope_inverse'] for c in per_rank]
+                for cell, per_rank in launches.items()}
+        got = [c[name] for c in launches[main_cell] if c]
+        if len(got) != math.prod(DENSE_MESHES[1]) or min(got) < 1:
+            fail(f'phase 20: {name} was not launched on every rank of '
+                 f'{main_cell}: {got}')
+        kernels.append(row)
+    for kd in kernels:
+        log(f"{kd['name']} (phase 20's shapes): {kd['ms']:.4f} ms (bound "
+            f"{kd['bound_ms']:.4f} ms by {kd['bound_by']}), plain "
+            f"{kd['plain_ms']:.3f} ms, library {kd['library_ms']}; "
+            f"launches a step on each rank of {main_cell}: "
+            f"{kd['phase20_launches'][main_cell]}")
+    measured = {'cards': cards, 'ranks': n,
+                'model': f'ESM2 {MODEL} bf16 and {BIG_SIZE}, seed-0 random '
+                         'weights',
+                'phase20': summary,
+                'seconds_by_rank': [r['seconds'] for r in results],
+                'start_rss_gib_by_rank': [r['start_rss_gib'] for r in results],
+                'peak_rss_gib_d_e_by_rank': [r['peak_rss_gib_d_e']
+                                             for r in results],
+                'phase_s': phase_s, 'build_s': build_s,
+                'torch': torch.__version__, 'cuda': torch.version.cuda,
+                'wall_s': time.perf_counter() - t_start}
+    print(json.dumps({'kernels': kernels}), flush=True)
+    print(json.dumps(measured), flush=True)
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}), flush=True)
 
 
 def _clone(tree):

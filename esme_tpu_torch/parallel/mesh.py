@@ -16,6 +16,7 @@ Axes:
 from __future__ import annotations
 
 import math
+from datetime import timedelta
 from typing import Optional, Sequence
 
 import torch
@@ -29,13 +30,17 @@ BACKENDS = {'cuda': 'nccl', 'cpu': 'gloo'}
 def initialize_distributed(coordinator_address: Optional[str] = None,
                            num_processes: Optional[int] = None,
                            process_id: Optional[int] = None, *,
-                           device: str = 'cuda'):
+                           device: str = 'cuda',
+                           timeout: Optional[timedelta] = None):
     """Join the default process group: ``num_processes`` processes meet at
     ``coordinator_address`` (``'host:port'``, as JAX takes it), this one
     as rank ``process_id``. NCCL on ``device='cuda'`` (the default; each
-    process then takes card ``process_id % device_count``), gloo on
-    ``'cpu'``. A no-op without an address, as in JAX; raises when a group
-    already exists."""
+    process then takes card ``process_id % device_count`` before anything
+    touches a card), gloo on ``'cpu'``. ``timeout``: how long a collective
+    (and the meeting itself) may wait before it fails, for this group and
+    every group :func:`make_mesh` and :func:`axes_group` create (None: the
+    backend's default, 10 minutes for NCCL, 30 for gloo). A no-op without
+    an address, as in JAX; raises when a group already exists."""
     if coordinator_address is None:
         return
     if device not in BACKENDS:
@@ -51,7 +56,36 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
         torch.cuda.set_device(process_id % torch.cuda.device_count())
     dist.init_process_group(BACKENDS[device],
                             init_method=f'tcp://{coordinator_address}',
-                            world_size=num_processes, rank=process_id)
+                            world_size=num_processes, rank=process_id,
+                            timeout=timeout)
+
+
+def world_timeout() -> timedelta:
+    """The default process group's timeout, which every group this module
+    creates takes: c10d would give a new group its backend's default
+    instead, so a collective hung in a mesh axis's group would wait 10
+    minutes (NCCL) or 30 (gloo) whatever the world was given."""
+    device = 'cuda' if dist.get_backend() == 'nccl' else 'cpu'
+    return dist.distributed_c10d._get_default_group()._get_backend(
+        torch.device(device)).options._timeout
+
+
+def _row_group(ranks: torch.Tensor, keep: Sequence[int]):
+    """This rank's group among the rows of the rank grid ``ranks`` along
+    its dims ``keep`` (None if it is in none): every row's group is
+    created, in the same order on every rank (each is created
+    collectively), with the world's timeout."""
+    other = [i for i in range(ranks.dim()) if i not in keep]
+    rows = ranks.permute(*other, *keep).reshape(
+        -1, math.prod(ranks.shape[i] for i in keep)).tolist()
+    timeout = world_timeout()
+    me = dist.get_rank()
+    mine = None
+    for row in rows:
+        group = dist.new_group(row, timeout=timeout)
+        if me in row:
+            mine = group
+    return mine
 
 
 def make_mesh(data: int = 1, fsdp: Optional[int] = None,
@@ -64,7 +98,10 @@ def make_mesh(data: int = 1, fsdp: Optional[int] = None,
     ``devices``: the ranks, in mesh order (every rank when None).
     ``fsdp=None`` takes all remaining ranks. ``device``: the mesh's device
     type, ``'cuda'`` by default or ``'cpu'`` for a gloo group. Needs
-    :func:`initialize_distributed` first.
+    :func:`initialize_distributed` first. Every rank of the process group
+    calls it: each axis's groups are created here, collectively, with the
+    world's timeout (:func:`world_timeout`), and the mesh is built over
+    them. A rank outside ``devices`` gets None.
     """
     if not dist.is_initialized():
         raise RuntimeError('make_mesh: no process group; call '
@@ -83,24 +120,19 @@ def make_mesh(data: int = 1, fsdp: Optional[int] = None,
     shape, names = (data, fsdp), ('data', 'fsdp')
     if seq is not None:
         shape, names = shape + (seq,), names + ('seq',)
-    return DeviceMesh(device, torch.tensor(ranks).reshape(shape),
-                      mesh_dim_names=names)
+    grid = torch.tensor(ranks).reshape(shape)
+    groups = [_row_group(grid, [i]) for i in range(len(shape))]
+    if dist.get_rank() not in ranks:
+        return None
+    return DeviceMesh.from_group(groups, device, mesh=grid,
+                                 mesh_dim_names=names)
 
 
 def axes_group(mesh: DeviceMesh, axes: Sequence[str]):
     """The process group of the ranks that share this rank's place on
     every axis of ``mesh`` but ``axes`` (JAX's collective over a tuple of
-    mesh axes, ``psum(x, axes)``). Every rank of the process group must
-    call it, in the same order: each group is created collectively."""
+    mesh axes, ``psum(x, axes)``), with the world's timeout. Every rank of
+    the process group must call it, in the same order: each group is
+    created collectively."""
     names = mesh.mesh_dim_names
-    keep = [names.index(a) for a in axes]
-    other = [i for i in range(len(names)) if i not in keep]
-    ranks = mesh.mesh.permute(*other, *keep).reshape(
-        -1, math.prod(mesh.size(i) for i in keep)).tolist()
-    me = dist.get_rank()
-    mine = None
-    for row in ranks:
-        group = dist.new_group(row)
-        if me in row:
-            mine = group
-    return mine
+    return _row_group(mesh.mesh, [names.index(a) for a in axes])

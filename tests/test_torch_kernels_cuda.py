@@ -1762,3 +1762,72 @@ def test_reshard_host_parts_onto_card(cuda, monkeypatch, tmp_path):
             assert cos >= 0.99 and rel <= 0.1, (name, cos, rel)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_kv_gather_two_nccl_ranks(cuda, tmp_path):
+    """A two-rank NCCL world, one card a rank (``tests/torch_cp_ranks.py:
+    nccl_gather_rank``), gathers one layer's k and v (ESM2-650M's width:
+    20 heads of 64, bf16, 4,096 rows split in two) and the ids through
+    ``parallel/context.py:make_kv_gather``, and reduce-scatters their
+    gradients (every rank's own cotangent over all rows); the one-rank
+    result is the same gather and backward in a one-rank NCCL world on
+    the whole rows under the summed cotangent. Gates: each rank ran on
+    its own card; its gathered k, v and ids bit-equal to the one-rank
+    ones; its dk and dv bit-equal to the one-rank gradient's rows (a sum
+    of two bf16 terms is rounded once, by NCCL and by the card alike)."""
+    import multiprocessing
+    import socket
+    import torch.distributed as dist
+    from esme_tpu_torch.parallel import (initialize_distributed,
+                                         make_kv_gather, make_mesh)
+    from torch_cp_ranks import nccl_gather_rank
+    if torch.cuda.device_count() < 2:
+        pytest.skip('needs two CUDA cards (a two-rank NCCL world)')
+
+    def port():
+        with socket.socket() as sock:
+            sock.bind(('127.0.0.1', 0))
+            return sock.getsockname()[1]
+    n, T, HD = 2, 4096, 1280
+    gen = torch.Generator().manual_seed(21)
+    k, v = (torch.randn(T, HD, generator=gen).to(torch.bfloat16)
+            for _ in range(2))
+    dk, dv = (torch.randn(n, T, HD, generator=gen).to(torch.bfloat16)
+              for _ in range(2))
+    ctx = multiprocessing.get_context('spawn')
+    p0 = port()
+    procs = [ctx.Process(target=nccl_gather_rank,
+                         args=(r, n, p0, k, v, dk, dv, str(tmp_path)))
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(300)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    assert [p.exitcode for p in procs] == [0] * n
+    ranks = [torch.load(tmp_path / f'rank{r}.pt', weights_only=True)
+             for r in range(n)]
+    assert [r['device'] for r in ranks] == list(range(n))
+
+    initialize_distributed(f'127.0.0.1:{port()}', 1, 0, device='cuda')
+    try:
+        mesh = make_mesh(1, 1, seq=1, device='cuda')
+        kr, vr = (x.to(cuda).requires_grad_() for x in (k, v))
+        ids = torch.arange(T, dtype=torch.int32, device=cuda)
+        kf, vf, sf = make_kv_gather(mesh['seq'])(kr, vr, ids)
+        ((kf * (dk[0].to(cuda) + dk[1].to(cuda))).sum()
+         + (vf * (dv[0].to(cuda) + dv[1].to(cuda))).sum()).backward()
+        one = {'k': kf.detach().cpu(), 'v': vf.detach().cpu(),
+               'ids': sf.cpu(), 'dk': kr.grad.cpu(), 'dv': vr.grad.cpu()}
+    finally:
+        dist.destroy_process_group()
+    for r, res in enumerate(ranks):
+        lo, hi = r * T // n, (r + 1) * T // n
+        for key in ('k', 'v', 'ids'):
+            assert torch.equal(res[key], one[key]), (r, key)
+        for key in ('dk', 'dv'):
+            assert torch.equal(res[key].view(torch.int16),
+                               one[key][lo:hi].view(torch.int16)), (r, key)

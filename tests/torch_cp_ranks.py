@@ -596,3 +596,65 @@ def host_parts_rank(rank, n, port, cfg, params, batches, out):
             torch.save(params, f'{out}/params.pt')
     finally:
         dist.destroy_process_group()
+
+
+def nccl_gather_rank(rank, n, port, k, v, dk, dv, out):
+    """Rank ``rank`` of an NCCL world of ``n`` ranks, one card each (card
+    ``rank``): ``make_kv_gather`` over the ``seq`` axis of a ``(1, 1, n)``
+    mesh on its rows of one layer's bf16 ``k``, ``v`` (``(T, H·D)`` on the
+    host) and of a ramp of ids, then the gradients of ``<k_full, dk[rank]>
+    + <v_full, dv[rank]>`` with respect to its rows (the reduce-scatter of
+    every rank's cotangent); written to ``out``/rank<r>.pt (host copies)."""
+    from datetime import timedelta
+    initialize_distributed(f'127.0.0.1:{port}', n, rank, device='cuda',
+                           timeout=timedelta(seconds=120))
+    try:
+        mesh = make_mesh(1, 1, seq=n, device='cuda')
+        dev = torch.device('cuda', torch.cuda.current_device())
+        lo, hi = rank * k.shape[0] // n, (rank + 1) * k.shape[0] // n
+        kr, vr = (x[lo:hi].to(dev).requires_grad_() for x in (k, v))
+        ids = torch.arange(lo, hi, dtype=torch.int32, device=dev)
+        kf, vf, sf = make_kv_gather(mesh['seq'])(kr, vr, ids)
+        ((kf * dk[rank].to(dev)).sum()
+         + (vf * dv[rank].to(dev)).sum()).backward()
+        torch.save({'device': dev.index, 'k': kf.detach().cpu(),
+                    'v': vf.detach().cpu(), 'ids': sf.cpu(),
+                    'dk': kr.grad.cpu(), 'dv': vr.grad.cpu()},
+                   f'{out}/rank{rank}.pt')
+    finally:
+        dist.destroy_process_group()
+
+
+def silent_peer_rank(rank, n, port, timeout_s, out):
+    """Rank ``rank`` of a gloo world of ``n`` (4) ranks given a timeout of
+    ``timeout_s`` seconds, on a ``(1, 2, 2)`` mesh: rank 0 sums over its
+    mesh ``seq`` group ({0, 1}) and rank 2 over ``axes_group(mesh, ('data',
+    'seq'))`` ({2, 3}) while their partners stay silent; each writes how
+    many seconds its collective took to fail (or -1 if it returned) to
+    ``out``/rank<r>.npz, then leaves at once (a timed-out group is not
+    torn down). The silent ranks leave when both have written, or after a
+    minute."""
+    import os
+    import time
+    from datetime import timedelta
+    from esme_tpu_torch.parallel.mesh import axes_group
+    torch.set_num_threads(1)
+    initialize_distributed(f'127.0.0.1:{port}', n, rank, device='cpu',
+                           timeout=timedelta(seconds=timeout_s))
+    mesh = make_mesh(1, 2, seq=2, device='cpu')
+    group = {0: mesh.get_group('seq'),
+             2: axes_group(mesh, ('data', 'seq'))}.get(rank)
+    if group is not None:
+        t0 = time.monotonic()
+        try:
+            dist.all_reduce(torch.ones(1), group=group)
+            took = -1.0
+        except RuntimeError:
+            took = time.monotonic() - t0
+        np.savez(f'{out}/rank{rank}.npz', seconds=np.array(took))
+    else:
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and not all(
+                os.path.exists(f'{out}/rank{r}.npz') for r in (0, 2)):
+            time.sleep(0.1)
+    os._exit(0)
