@@ -36,7 +36,8 @@ and the contract's line:
    and ``bwd_dq_rect_sm90_kernel`` at D = 16-128, ``flash_bwd_dkv_rect_kernel`` and
    ``flash_bwd_dq_rect_kernel`` at every padded width) logged, with no
    more stack and spills than H2's production pass of the same form and
-   width (its Hopper dk/dv pass spills at D = 128);
+   width (none: the Hopper dk/dv pass at D = 128 runs in a 256-thread
+   CTA whose registers fit it);
 3. hold each kernel against its plain PyTorch version on the card, on a
    packed 8k-token batch: segment-flash forward (H1) and backward (H2),
    each on its route (``fwd_route``, ``bwd_route``: the Hopper form at
@@ -231,7 +232,9 @@ and the contract's line:
    entries (H2's Hopper passes alone too) beside its plain version, the
    varlen library call (its ratio logged, not gated) and the bound with
    the exps at the SFU rate as a third term; at 16 and 24, where the
-   route is the Hopper form, that form must beat the mma.sync form;
+   route is the Hopper form, that form must beat the mma.sync form; at
+   128 also H10 on one rank of ``BIG_MESH`` (the whole 10k train batch,
+   40 heads), held and timed as phase 11 holds and times it;
    ESM2-15B, after its bf16 inference cell, ``quantize('4bit')`` on the
    card one layer slice at a time (``SIZE_QUANTIZE``) and the same cell
    again (launches exact: H1 and H3 48; finite log-probs; its time, real
@@ -1895,9 +1898,9 @@ def check_rect_bwd_ptxas():
     """H10's instantiations as built: each one's ``ptxas`` line logged; the
     Hopper form's at every head dim and the mma.sync form's at every padded
     width with no more stack and spills than H2's production pass of the
-    same form and width (``SM90_PRODUCTION``: H2's dk/dv pass spills at
-    D = 128; ``MODE0_REGISTERS``: none; none at D = 16, 24); fail
-    otherwise. Returns the usage."""
+    same form and width (``SM90_PRODUCTION``, ``MODE0_REGISTERS``: none,
+    and none at D = 16, 24), so none at all; fail otherwise. Returns the
+    usage."""
     from esme_tpu_torch import _build
     sm90 = sm90_ptxas_usage(_build.build_log('flash_bwd_sm90'),
                             r'bwd_(?:dkv|dq)_rect')
@@ -2579,6 +2582,7 @@ def main(argv):
                 if kernel == H1_NAME else {
                     key: c['launches'][kernel]
                     for key, c in sizes[size]['train'].items()}
+    h10['head_dims'] = head_dim_rows[H10_NAME]
     phase_done(12)
 
     # 13. the memory slice
@@ -3501,12 +3505,15 @@ def check_mode0_ptxas():
 # slice's parent (the tree before the token-minor layout and the ablation
 # modes were added; nvcc of CUDA 12.9 on the H100 machine): (registers,
 # stack frame, spill stores, spill loads) by head dim. Their production
-# instantiations (layout or mode 0) must come out unchanged.
+# instantiations (layout or mode 0) must come out unchanged. H2's dk/dv
+# pass at D = 128 is its 256-thread form (flash_bwd_sm90.cu:dkv_threads),
+# pinned without the stack and spills (384 bytes of frame, 896 of spill
+# stores, 640 of loads at 156 registers) of the 384-thread form before it.
 SM90_PRODUCTION = {
     ('flash_fwd_sm90', 'flash_fwd_sm90_kernel'): {
         32: (127, 0, 0, 0), 64: (128, 0, 0, 0), 128: (168, 0, 0, 0)},
     ('flash_bwd_sm90', 'bwd_dkv_sm90_kernel'): {
-        32: (128, 0, 0, 0), 64: (160, 0, 0, 0), 128: (156, 384, 896, 640)},
+        32: (128, 0, 0, 0), 64: (160, 0, 0, 0), 128: (228, 0, 0, 0)},
     ('flash_bwd_sm90', 'bwd_dq_sm90_kernel'): {
         32: (111, 0, 0, 0), 64: (123, 0, 0, 0), 128: (155, 0, 0, 0)},
 }
@@ -4401,8 +4408,11 @@ def quantized_size(model, mode, batch, what):
 def check_sizes(dev, plm_cls, batch, runs=SIZE_RUNS, head_dims=SIZE_HEAD_DIMS,
                 profile_dir=None):
     """Phase 12: each size of ``runs`` (``check_size``), then H1's and H2's
-    times at ``head_dims`` (``time_head_dim``). Returns ``(sizes,
-    {H1_NAME: {D: row}, H2_NAME: {D: row}})``."""
+    times at ``head_dims`` (``time_head_dim``), and at ``BIG_SIZE``'s head
+    dim H10's on one rank of ``BIG_MESH`` (``time_rect_bwd``: the whole
+    10k train batch, the shape of phase 20's 15B step). Returns ``(sizes,
+    {H1_NAME: {D: row}, H2_NAME: {D: row}, H10_NAME: {D: row}})``."""
+    from esme_tpu_torch.models.config import ESM2_SIZES
     sizes = {name: check_size(name, trains, dev, plm_cls, batch, profile_dir)
              for name, trains in runs}
     for name, s in sizes.items():
@@ -4416,10 +4426,16 @@ def check_sizes(dev, plm_cls, batch, runs=SIZE_RUNS, head_dims=SIZE_HEAD_DIMS,
             + (f'; train {cells}' if cells else ''))
     _, cu, _ = batch
     _, tcu, _ = packed_batch(BUDGET, seed=2)
-    rows = {H1_NAME: {}, H2_NAME: {}}
+    rows = {H1_NAME: {}, H2_NAME: {}, H10_NAME: {}}
+    big = ESM2_SIZES[BIG_SIZE]
+    big_dh = (big['embed_dim'] // big['attention_heads'],
+              big['attention_heads'])
     for d, h in head_dims:
         for kernel, row in time_head_dim(d, h, cu, tcu, dev).items():
             rows[kernel][str(d)] = row
+        if (d, h) == big_dh:
+            rows[H10_NAME][str(d)] = time_rect_bwd(
+                dev, H=h, D=d, T=BIG_BUDGETS[0][0], n=1)
     return sizes, rows
 
 

@@ -35,7 +35,9 @@
 //   (wgmma, both operands from shared memory, K-major), P^T and dS^T in
 //   registers, then dV += P^T dO and dK += dS^T Q (wgmma, A = P^T and
 //   dS^T straight from the accumulator registers, B = dO and Q MN-major,
-//   the transposed descriptor).
+//   the transposed descriptor). At D = 128 there is no producer warp:
+//   the CTA is the two consumer warpgroups, and the first consumer warp
+//   issues the same loads at the top of each step (dkv_threads).
 // - dq: one CTA per (128-row q block, head), two consumer warpgroups of
 //   64 q rows over the k tiles [kstart, kend) (H1's spans); per tile
 //   S = Q K^T, dP = dO V^T, dS in registers, dQ += dS K (K MN-major).
@@ -55,10 +57,13 @@
 // run a ring ahead of the products, and the mask is skipped on
 // one-segment tiles. Within a warpgroup the products, the exps and the
 // next products still run in series; the other warpgroup of the SM fills
-// the gaps (PERF.md has the H100's times). At D = 128 the dk/dv kernel
-// spills under the 168-register cap of its 384 threads. At D = 16 and 24
-// the exps bound it instead (P recomputed in both passes, two per pair),
-// as in H1.
+// the gaps (PERF.md has the H100's times). At D = 128 (ESM2-15B) the
+// same chain bounds the dk/dv pass once its registers fit: its 256-thread
+// CTA gives a thread the 228 registers its accumulators and scores take,
+// where 384 threads capped them at 168 and the pass kept half of dK and
+// dV in local memory, loaded and stored around every tile's products. At
+// D = 16 and 24 the exps bound it instead (P recomputed in both passes,
+// two per pair), as in H1.
 //
 // Ablation modes ("H7"): each pass's MODE parameter removes one part of
 // the work, as tools/decompose_bwd.py:66 dq_variant and :125 dkv_variant
@@ -109,6 +114,23 @@ constexpr int KT = 64;    // dq: k tile rows
 
 template <int D>
 __host__ __device__ constexpr int stages() { return D > 64 ? 2 : 3; }
+
+// The dk/dv pass's threads. At D = 128 a consumer thread holds dK and dV
+// (64 fp32 each), S^T and dP^T (32 each) and their bf16 fragments: 228
+// registers as ptxas allocates them. A 384-thread CTA puts three of its
+// twelve warps on one of the SM's four register files, which caps every
+// thread at 168: ptxas spilled the pass there, and setmaxnreg (the
+// producer warpgroup's registers handed to the consumers) left its
+// allocation as it was. So at D = 128 the CTA is the two consumer
+// warpgroups alone, two warps on each register file and up to 255
+// registers a thread, and the first consumer warp also loads, as H1's
+// warp 0 does.
+template <int D>
+__host__ __device__ constexpr bool warp0_loads() { return D == 128; }
+template <int D>
+__host__ __device__ constexpr int dkv_threads() {
+  return warp0_loads<D>() ? 2 * 128 : 3 * 128;
+}
 
 // K15's modes, in the order of esme_tpu_torch/tools/decompose_bwd.py:MODES
 enum Mode {
@@ -252,8 +274,40 @@ __device__ __forceinline__ void dkv_body(
   }
   __syncthreads();
 
+  // The first consumer warp's loads at D = 128 (warp0_loads): K and V of
+  // the block, then q tile j (q, do, the tile's ids, lse and delta) into
+  // stage j % ST once the stage's last round is handed back. The producer
+  // warp below keeps its own copy of these steps: run through these
+  // lambdas, its D = 64 pass took 3% longer on the H100.
+  auto load_kv = [&]() {
+    mbar_expect_tx(kv_bar, 2 * L::KV_TILE);
+    tma_tile<D, BKV>(smem + L::K, &tm_k, kv_bar, col0, k0);
+    tma_tile<D, BKV>(smem + L::V, &tm_v, kv_bar, col0, k0);
+  };
+  auto load_q = [&](int j, int lane) {
+    const int s = j % ST;
+    mbar_wait(&empty[s], ((j / ST) & 1) ^ 1);
+    const int q0 = (qb0 + j) * QT;
+    if (lane == 0) {
+      mbar_expect_tx(&full[s], 2 * L::Q_TILE);
+      tma_tile<D, QT>(q_tile(s), &tm_q, &full[s], col0, q0);
+      tma_tile<D, QT>(do_tile(s), &tm_do, &full[s], col0, q0);
+    }
+    float* w = words(s);
+#pragma unroll
+    for (int i = lane; i < QT; i += 32) {
+      const int t = q0 + i;
+      const bool ok = t < T;
+      const int ts = ok ? t : 0;
+      cp_async4(smem_u32(w + i), seg + ts, ok);
+      cp_async4(smem_u32(w + QT + i), lse + (size_t)h * T + ts, ok);
+      cp_async4(smem_u32(w + 2 * QT + i), delta + (size_t)h * T + ts, ok);
+    }
+    mbar_arrive_cp_async(&full[s]);
+  };
+
   const int wg = threadIdx.x / 128;
-  if (wg == 2) {
+  if (!warp0_loads<D>() && wg == 2) {
     // producer warpgroup: its first warp loads, the others leave
     if (threadIdx.x % 128 >= 32) return;
     const int lane = threadIdx.x & 31;
@@ -315,6 +369,11 @@ __device__ __forceinline__ void dkv_body(
 
     const uint32_t ks = smem_u32(smem + L::K);
     const uint32_t vs = smem_u32(smem + L::V);
+    const bool loader = warp0_loads<D>() && threadIdx.x < 32;
+    if (loader) {
+      if (lane == 0) load_kv();
+      for (int j = 0; j < ST - 1 && j < n; ++j) load_q(j, lane);
+    }
     mbar_wait(kv_bar, 0);
     if constexpr (G::PAD) {
       // the warpgroup's 64 rows of K (threads 0-63) and of V (64-127):
@@ -325,6 +384,7 @@ __device__ __forceinline__ void dkv_body(
       named_barrier(1 + wg, 128);
     }
     for (int it = 0; it < n; ++it) {
+      if (loader && it + ST - 1 < n) load_q(it + ST - 1, lane);
       const int s = it % ST;
       mbar_wait(&full[s], (it / ST) & 1);
       const uint32_t qs = smem_u32(q_tile(s));
@@ -474,7 +534,7 @@ __device__ __forceinline__ void dkv_body(
 }
 
 template <int D, int MODE>
-__global__ void __launch_bounds__(3 * 128, 1)
+__global__ void __launch_bounds__(dkv_threads<D>(), 1)
 bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v,
@@ -495,7 +555,7 @@ bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 // writes its zero rows of dk and dv and leaves, before any barrier or
 // load.
 template <int D>
-__global__ void __launch_bounds__(3 * 128, 1)
+__global__ void __launch_bounds__(dkv_threads<D>(), 1)
 bwd_dkv_rect_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const __grid_constant__ CUtensorMap tm_k,
                          const __grid_constant__ CUtensorMap tm_v,
@@ -875,7 +935,7 @@ cudaError_t launch_dkv(const Args& a) {
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
     if (err != cudaSuccess) return err;
-    kernel<<<grid, 3 * 128, L::BYTES, a.stream>>>(
+    kernel<<<grid, dkv_threads<D>(), L::BYTES, a.stream>>>(
         tq, tk, tv, tdo, a.lse, a.delta, a.seg, a.segk, a.qstart, a.qend,
         a.dk, a.dv, a.T, a.Tk, a.H, a.scale, a.scale * LOG2E);
   } else {
@@ -883,7 +943,7 @@ cudaError_t launch_dkv(const Args& a) {
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
     if (err != cudaSuccess) return err;
-    kernel<<<grid, 3 * 128, L::BYTES, a.stream>>>(
+    kernel<<<grid, dkv_threads<D>(), L::BYTES, a.stream>>>(
         tq, tk, tv, tdo, a.lse, a.delta, a.seg, a.qstart, a.qend, a.dk, a.dv,
         a.T, a.H, a.scale, a.scale * LOG2E);
   }

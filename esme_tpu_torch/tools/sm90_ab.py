@@ -1,7 +1,8 @@
 """Time a variant of H1's, H2's or H5's Hopper source, or of H4's or H8's,
 against the source.
 
-    python -m esme_tpu_torch.tools.sm90_ab FORM VARIANT.cu
+    python -m esme_tpu_torch.tools.sm90_ab FORM VARIANT.cu [--heads H]
+        [--head-dim D]
 
 ``FORM`` is ``flash_fwd_sm90`` (H1), ``flash_bwd_sm90`` (H2),
 ``fwd_T_sm90`` (H5's Hopper form, H1's kernel on token-minor operands),
@@ -13,12 +14,15 @@ measure: it keeps the
 source's C entries and may include the headers of ``csrc``. Both build
 with ``_build``'s flags (the variant into ``build/esme_tpu_torch/variant/``),
 run on ``bench.py``'s 50k batch at ESM2-650M's attention (H = 20, D = 64,
-bf16; H1 and H5 on the inference batch, H5's operands made token-minor,
-H2 on the masked-LM batch; H4 on the inference batch's q, k, v and
-positions, in each move with a token-minor side that the ops make; H8's
-dma, alone and in pairs, and dma_t, on the inference batch over H1's
-spans) through the wrapper's launch (``ops/flash.py:launch_fwd``,
-``launch_bwd``, ``tools/fwd_T_experiment.py:launch_fwd_T``,
+bf16; ``--heads 40 --head-dim 128`` is ESM2-15B's; H1 and H5 on the
+inference batch, H5's operands made token-minor, H2 on the masked-LM
+batch, both passes and each alone, and H10 with that batch's queries
+over its keys (one rank: Tq = Tk); H4 on the inference batch's q, k, v
+and positions, in each move with a token-minor side that the ops make;
+H8's dma, alone and in pairs, and dma_t, on the inference batch over
+H1's spans) through the wrapper's launch (``ops/flash.py:launch_fwd``,
+``launch_bwd``, the pass entry ``esme_flash_bwd_sm90_pass``,
+``tools/fwd_T_experiment.py:launch_fwd_T``,
 ``ops/headsplit.py:launch_relayout('vec', ...)``,
 ``tools/profile_attn.py:launch_dma``, ``launch_dma_t``) and are timed with CUDA
 events, 20 calls a side, in the order source, variant, variant, source.
@@ -31,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import math
 import subprocess
 import sys
 from pathlib import Path
@@ -40,7 +45,8 @@ import torch
 from .. import _build
 from ..ops import flash
 from ..profiling import benchmark
-from . import BWD_SEED, CUDA_REPS, FWD_SEED, attention_batch, thd_to_hdt
+from . import (BWD_SEED, CUDA_REPS, FWD_SEED, HEAD_DIM, HEADS,
+               attention_batch, thd_to_hdt)
 from ..ops import headsplit
 from ..ops.rotary import rotary_cos_sin
 from .decompose_bwd import backward_inputs
@@ -48,30 +54,65 @@ from .fwd_T_experiment import launch_fwd_T
 from . import profile_attn
 
 
-def forward_args():
+def forward_args(heads, head_dim):
     """H1's arguments on the inference batch."""
-    b = attention_batch(seed=FWD_SEED)
+    b = attention_batch(seed=FWD_SEED, heads=heads, head_dim=head_dim)
     return (b.q, b.k, b.v, b.seg, *b.spans[:2], b.H)
 
 
-def backward_args():
+def backward_args(heads, head_dim):
     """H2's arguments on the masked-LM batch."""
-    b = attention_batch(seed=BWD_SEED, grads=True)
+    b = attention_batch(seed=BWD_SEED, heads=heads, head_dim=head_dim,
+                        grads=True)
     lse, delta = backward_inputs(b)
     return (b.q, b.k, b.v, b.do, lse, delta, b.seg, *b.spans, b.H)
 
 
-def token_minor_args():
+def backward_cases(heads, head_dim):
+    """H2 on the masked-LM batch, both passes (``'both'``) and each alone
+    (``'dkv'``, ``'dq'``), and H10 (``'rect'``) with the batch's queries
+    over its keys, the one-rank shape: ``{case: (kind, arguments)}``."""
+    args = backward_args(heads, head_dim)
+    seg = args[6]
+    rect = (*args[:7], *flash.rect_flash_spans(seg, seg), args[-1])
+    return {'H2': ('both', args), 'H2 dk/dv': ('dkv', args),
+            'H2 dq': ('dq', args), 'H10 one rank': ('rect', rect)}
+
+
+def launch_backward(library, kind, args, lib=None):
+    """One of :func:`backward_cases`' launches on ``library``'s form: dq,
+    dk and dv of both passes or of H10, dk and dv of the dk/dv pass, dq of
+    the dq pass."""
+    if kind == 'both':
+        return flash.launch_bwd(library, *args, lib=lib)
+    if kind == 'rect':
+        return flash.launch_bwd(library, *args, lib=lib, seg_k=args[6])
+    q = args[0]
+    T, HD = q.shape
+    H = args[-1]
+    which = ('dkv', 'dq').index(kind)
+    outs = [torch.empty_like(q) for _ in range(3)]
+    lib = _build.library(library) if lib is None else lib
+    rc = lib.esme_flash_bwd_sm90_pass(
+        which, 0, *(x.data_ptr() for x in (*args[:11], *outs)), T, H,
+        HD // H, 1.0 / math.sqrt(HD // H),
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, lib, flash.BWD_ROUTES[library][1],
+                 f'esme_flash_bwd_sm90_pass ({kind})')
+    return tuple(outs[1:]) if kind == 'dkv' else (outs[0],)
+
+
+def token_minor_args(heads, head_dim):
     """H5's arguments on the inference batch: q, k, v token-minor."""
-    b = attention_batch(seed=FWD_SEED)
+    b = attention_batch(seed=FWD_SEED, heads=heads, head_dim=head_dim)
     return (*(thd_to_hdt(x, b.H) for x in (b.q, b.k, b.v)), b.seg,
             *b.spans[:2])
 
 
-def relayout_cases():
+def relayout_cases(heads, head_dim):
     """H4's moves with a token-minor side, as the ops make them, on the
     inference batch: ``{move: relayout_heads' arguments}``."""
-    b = attention_batch(seed=FWD_SEED)
+    b = attention_batch(seed=FWD_SEED, heads=heads, head_dim=head_dim)
     H = b.H
     cos, sin = rotary_cos_sin(b.pos, b.D)
     qT, kT, vT = (thd_to_hdt(x, H) for x in (b.q, b.k, b.v))
@@ -98,11 +139,11 @@ def launch_vec(library, *args, lib=None):
     return headsplit.launch_relayout('vec', *args, lib=lib)
 
 
-def probe_cases():
+def probe_cases(heads, head_dim):
     """H8's streaming probes on the inference batch over H1's spans: dma
     alone and in pairs, dma_t on k and v made token-minor: ``{case:
     (probe, cluster size, the launch's arguments)}``."""
-    b = attention_batch(seed=FWD_SEED)
+    b = attention_batch(seed=FWD_SEED, heads=heads, head_dim=head_dim)
     ks, ke = b.spans[:2]
     kT, vT = (thd_to_hdt(x, b.H) for x in (b.k, b.v))
     dma = (b.q, b.k, b.v, ks, ke, b.H)
@@ -119,15 +160,15 @@ def launch_probe(library, probe, cluster, args, lib=None):
     return (profile_attn.launch_dma_t(library, *args, lib=lib),)
 
 
-# form -> (its library, its cases: name -> the wrapper's arguments, its
-# launch)
+# form -> (its library, its cases at (heads, head dim): name -> the
+# launch's arguments, its launch)
 SOURCES = {
-    'flash_fwd_sm90': ('flash_fwd_sm90', lambda: {'H1': forward_args()},
+    'flash_fwd_sm90': ('flash_fwd_sm90',
+                       lambda *hd: {'H1': forward_args(*hd)},
                        flash.launch_fwd),
-    'flash_bwd_sm90': ('flash_bwd_sm90', lambda: {'H2': backward_args()},
-                       flash.launch_bwd),
-    'fwd_T_sm90': ('flash_fwd_sm90', lambda: {'H5': token_minor_args()},
-                   launch_fwd_T),
+    'flash_bwd_sm90': ('flash_bwd_sm90', backward_cases, launch_backward),
+    'fwd_T_sm90': ('flash_fwd_sm90',
+                   lambda *hd: {'H5': token_minor_args(*hd)}, launch_fwd_T),
     'headsplit_vec': ('headsplit', relayout_cases, launch_vec),
     'probes_sm90': ('probes_sm90', probe_cases, launch_probe),
 }
@@ -156,6 +197,9 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument('form', choices=sorted(SOURCES))
     p.add_argument('variant', type=Path)
+    p.add_argument('--heads', type=int, default=HEADS)
+    p.add_argument('--head-dim', type=int, default=HEAD_DIM,
+                   choices=flash.HEAD_DIMS)
     a = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError('this tool times CUDA kernels and needs a card')
@@ -163,7 +207,7 @@ def main(argv=None):
     libs = {'source': _build.library(library),
             'variant': variant_library(a.variant, library)}
     out = {}
-    for case, args in make_cases().items():
+    for case, args in make_cases(a.heads, a.head_dim).items():
         def run(lib):
             return launch(library, *args, lib=lib)
 
@@ -174,7 +218,8 @@ def main(argv=None):
             samples[side].append(benchmark(run, libs[side], reps=CUDA_REPS,
                                            device='cuda') * 1e3)
         ms = {side: sum(s) / len(s) for side, s in samples.items()}
-        print(f'{a.form} {case}: source {ms["source"]:.4f} ms, variant '
+        print(f'{a.form} {case} (H = {a.heads}, D = {a.head_dim}): source '
+              f'{ms["source"]:.4f} ms, variant '
               f'{ms["variant"]:.4f} ms ({ms["variant"] / ms["source"]:.4f}); '
               f'samples {samples}; outputs bit-equal: {equal}', flush=True)
         out[case] = {'ms': ms, 'samples': samples, 'bit_equal': equal}

@@ -125,7 +125,7 @@ def test_rect_block_spans_cover_the_mask_on_a_ragged_split():
 # -------------------------------------------------------------------------
 
 def _rect_cases():
-    return [(n, D) for n in (2, 4) for D in (16, 32, 64)]
+    return [(n, D) for n in (2, 4) for D in (16, 32, 64, 128)]
 
 
 @pytest.mark.parametrize('n,D', _rect_cases())

@@ -114,7 +114,8 @@ def _check_rect_grads(q, k, v, seg_q, seg_k, seed):
     return got
 
 
-@pytest.mark.parametrize('n,D', [(n, D) for n in (2, 4) for D in (16, 32, 64)])
+@pytest.mark.parametrize('n,D', [(n, D) for n in (2, 4)
+                                 for D in (16, 32, 64, 128)])
 def test_flash_rect_grad_matches_jax(n, D):
     """Every rank of a 1,024-token packed batch (segments crossing the
     ranks' boundaries) over the whole batch: the port's

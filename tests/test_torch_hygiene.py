@@ -189,6 +189,39 @@ def test_bwd_ab_runs_only_on_a_card(monkeypatch, tmp_path):
     assert not (tmp_path / 'build').exists()
 
 
+def test_sm90_ab_takes_a_head_shape(monkeypatch, tmp_path):
+    """``tools/sm90_ab.py`` takes ESM2-15B's attention (``--heads 40
+    --head-dim 128``) and still refuses to run without a card before it
+    builds anything; a head dim no kernel is built for is refused; its
+    backward cases are H2's two passes together and alone and H10 on one
+    rank."""
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA card is present: the tool runs for real')
+    from esme_tpu_torch import _build
+    from esme_tpu_torch.tools import sm90_ab
+    monkeypatch.setattr(_build, 'BUILD_ROOT', tmp_path / 'build')
+    variant = str(tmp_path / 'variant.cu')
+    with pytest.raises(RuntimeError, match='needs a card'):
+        sm90_ab.main(['flash_bwd_sm90', variant, '--heads', '40',
+                      '--head-dim', '128'])
+    with pytest.raises(SystemExit):
+        sm90_ab.main(['flash_bwd_sm90', variant, '--head-dim', '48'])
+    assert not (tmp_path / 'build').exists()
+    b = sm90_ab.attention_batch
+
+    def small(**kw):
+        return b(budget=2048, device='cpu', dtype=torch.float32, **kw)
+    monkeypatch.setattr(sm90_ab, 'attention_batch', small)
+    cases = sm90_ab.backward_cases(4, 128)
+    assert {k: kind for k, (kind, _) in cases.items()} == {
+        'H2': 'both', 'H2 dk/dv': 'dkv', 'H2 dq': 'dq',
+        'H10 one rank': 'rect'}
+    h2, rect = cases['H2'][1], cases['H10 one rank'][1]
+    assert h2[0].shape[1] == 4 * 128 and rect[-1] == h2[-1] == 4
+    # one rank: H10's spans are H2's
+    assert all(map(torch.equal, h2[7:11], rect[7:11]))
+
+
 def test_entry_points_pin_fp32_accumulation(monkeypatch):
     """The entry points run their products with fp32 cuBLAS reductions
     and no TF32, and give the caller's settings back after the call."""

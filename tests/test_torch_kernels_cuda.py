@@ -483,6 +483,100 @@ def test_flash_bwd_routes_match_plain_on_mask_layouts(cuda, D, T, layout):
         assert ((a.float() - b).abs() <= gate).all()
 
 
+def _ptxas_lines(build_log: str, kernel: str):
+    """``(registers, stack frame, spill stores, spill loads)`` of each
+    instantiation of ``kernel`` in ``nvcc -Xptxas -v`` output, by its
+    mangled template arguments."""
+    import re
+    out, name, frame = {}, None, None
+    for line in build_log.splitlines():
+        m = re.search(rf'Function properties for \S*?\d{kernel}I((?:Li\d+E)+)E',
+                      line)
+        if m:
+            name = tuple(map(int, re.findall(r'Li(\d+)E', m.group(1))))
+            continue
+        m = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores, '
+                      r'(\d+) bytes spill loads', line)
+        if m and name:
+            frame = tuple(map(int, m.groups()))
+            continue
+        m = re.search(r'Used (\d+) registers', line)
+        if m and name and frame:
+            out[name] = (int(m.group(1)), *frame)
+            name = frame = None
+    return out
+
+
+@pytest.mark.cuda
+def test_flash_bwd_d128_dkv_has_no_stack_or_spills(cuda):
+    """The dk/dv pass at D = 128 (ESM2-15B), H2's production instantiation
+    and H10's, builds with no stack frame and no spills: its consumer
+    warpgroups take the producer's registers (setmaxnreg)."""
+    from esme_tpu_torch import _build
+    log = _build.build_log('flash_bwd_sm90')
+    for kernel, key in (('bwd_dkv_sm90_kernel', (128, 0)),
+                        ('bwd_dkv_rect_sm90_kernel', (128,))):
+        got = _ptxas_lines(log, kernel).get(key)
+        assert got is not None, f'{kernel}<{key}> not in the build log'
+        assert got[1:] == (0, 0, 0), f'{kernel}<{key}>: {got}'
+
+
+def _d128_inputs(dev, T=4096, H=40, D=128):
+    """A packed batch at ESM2-15B's attention (40 heads of 128) with H2's
+    inputs: q, k, v, do, lse and delta from H1, the ids and H2's spans."""
+    q, k, v, seg = _packed([30, 7, 250, 900, 2, 400, 1000, 700, 333], T, H,
+                           D, dev, seed=128)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(129)
+    do = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
+    spans = flash.flash_spans(seg)
+    o, lse = flash.segment_flash_fwd(q, k, v, seg, *spans[:2], H)
+    return (q, k, v, do, lse, flash.attention_delta(o, do, H), seg, *spans,
+            H)
+
+
+@pytest.mark.cuda
+def test_flash_rect_bwd_d128_is_h2_rows(cuda):
+    """At D = 128 and 40 heads, H10 on one rank (Tq = Tk) gives H2's dq, dk
+    and dv bit for bit (the same spans, walked in the same order), and on
+    a rank whose first row starts a q block H2's dq rows."""
+    args = _d128_inputs(cuda)
+    q, k, v, do, _, _, seg = args[:7]
+    H, T = args[-1], q.shape[0]
+    h2 = flash.segment_flash_bwd(*args)
+    assert all(map(torch.equal, h2,
+                   flash.segment_flash_bwd(*args, seg_k=seg)))
+    lo, hi = T // 4, T // 2
+    assert lo % flash.BLOCK_Q == 0
+    sq = seg[lo:hi].contiguous()
+    spans = flash.rect_flash_spans(sq, seg)
+    qr, dor = q[lo:hi].contiguous(), do[lo:hi].contiguous()
+    o, lse = flash.segment_flash_fwd(qr, k, v, sq, *spans[:2], H, seg_k=seg)
+    dq = flash.segment_flash_bwd(qr, k, v, dor, lse,
+                                 flash.attention_delta(o, dor, H), sq,
+                                 *spans, H, seg_k=seg)[0]
+    assert torch.equal(dq, h2[0][lo:hi])
+
+
+@pytest.mark.cuda
+def test_flash_bwd_d128_is_deterministic(cuda):
+    """At D = 128 and 40 heads, two calls of H2 and two of H10 (one rank of
+    a 4-way split) give the same dq, dk and dv bits."""
+    args = _d128_inputs(cuda)
+    assert all(map(torch.equal, flash.segment_flash_bwd(*args),
+                   flash.segment_flash_bwd(*args)))
+    q, k, v, do, _, _, seg = args[:7]
+    H, T = args[-1], q.shape[0]
+    sq = seg[T // 4:T // 2].contiguous()
+    spans = flash.rect_flash_spans(sq, seg)
+    qr, dor = q[T // 4:T // 2].contiguous(), do[T // 4:T // 2].contiguous()
+    o, lse = flash.segment_flash_fwd(qr, k, v, sq, *spans[:2], H, seg_k=seg)
+    rect = (qr, k, v, dor, lse, flash.attention_delta(o, dor, H), sq, *spans,
+            H)
+    assert all(map(torch.equal, flash.segment_flash_bwd(*rect, seg_k=seg),
+                   flash.segment_flash_bwd(*rect, seg_k=seg)))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('D', [16, 24, 32, 64, 128])
 def test_flash_bwd_sm90_is_deterministic(cuda, D):
