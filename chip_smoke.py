@@ -32,7 +32,8 @@ and the contract's line:
    forward, ``flash_fwd_rect_sm90_kernel`` at D = 16-128 and
    ``flash_fwd_rect_kernel`` at every padded width) logged, with no more
    stack and spills than H1's production kernel of the same form and width
-   (none); H10's (the rectangular backward: ``bwd_dkv_rect_sm90_kernel``
+   (none), and the Hopper one at D = 128 with the registers pinned beside
+   H1's (``SM90_PRODUCTION``); H10's (the rectangular backward: ``bwd_dkv_rect_sm90_kernel``
    and ``bwd_dq_rect_sm90_kernel`` at D = 16-128, ``flash_bwd_dkv_rect_kernel`` and
    ``flash_bwd_dq_rect_kernel`` at every padded width) logged, with no
    more stack and spills than H2's production pass of the same form and
@@ -233,8 +234,9 @@ and the contract's line:
    varlen library call (its ratio logged, not gated) and the bound with
    the exps at the SFU rate as a third term; at 16 and 24, where the
    route is the Hopper form, that form must beat the mma.sync form; at
-   128 also H10 on one rank of ``BIG_MESH`` (the whole 10k train batch,
-   40 heads), held and timed as phase 11 holds and times it;
+   128 also H9 and H10 on one rank of ``BIG_MESH`` (the whole 10k train
+   batch, 40 heads), held and timed as phases 10 and 11 hold and time
+   them;
    ESM2-15B, after its bf16 inference cell, ``quantize('4bit')`` on the
    card one layer slice at a time (``SIZE_QUANTIZE``) and the same cell
    again (launches exact: H1 and H3 48; finite log-probs; its time, real
@@ -2582,6 +2584,7 @@ def main(argv):
                 if kernel == H1_NAME else {
                     key: c['launches'][kernel]
                     for key, c in sizes[size]['train'].items()}
+    h9['head_dims'] = head_dim_rows[H9_NAME]
     h10['head_dims'] = head_dim_rows[H10_NAME]
     phase_done(12)
 
@@ -3509,9 +3512,15 @@ def check_mode0_ptxas():
 # pass at D = 128 is its 256-thread form (flash_bwd_sm90.cu:dkv_threads),
 # pinned without the stack and spills (384 bytes of frame, 896 of spill
 # stores, 640 of loads at 156 registers) of the 384-thread form before it.
+# H1's forward at D = 128 and H9's, which share its body there, are the
+# body that keeps two stages in flight per warpgroup
+# (flash_fwd_sm90.cu:fwd_body_1cta), at 204 registers where the serial
+# body before it took 168, no stack and no spills either way.
 SM90_PRODUCTION = {
     ('flash_fwd_sm90', 'flash_fwd_sm90_kernel'): {
-        32: (127, 0, 0, 0), 64: (128, 0, 0, 0), 128: (168, 0, 0, 0)},
+        32: (127, 0, 0, 0), 64: (128, 0, 0, 0), 128: (204, 0, 0, 0)},
+    ('flash_fwd_sm90', 'flash_fwd_rect_sm90_kernel'): {
+        128: (204, 0, 0, 0)},
     ('flash_bwd_sm90', 'bwd_dkv_sm90_kernel'): {
         32: (128, 0, 0, 0), 64: (160, 0, 0, 0), 128: (228, 0, 0, 0)},
     ('flash_bwd_sm90', 'bwd_dq_sm90_kernel'): {
@@ -3559,7 +3568,9 @@ def sm90_ptxas_usage(build_log: str,
 
 def production_key(kernel: str, d: int):
     """The usage key of a Hopper kernel's production instantiation: H1's
-    layout and mode 0, H2's mode 0."""
+    layout and mode 0, H2's mode 0, H9's head dim alone."""
+    if kernel == 'flash_fwd_rect_sm90_kernel':
+        return (kernel, d)
     return (kernel, d, 0, 0) if kernel == 'flash_fwd_sm90_kernel' \
         else (kernel, d, 0)
 
@@ -3582,7 +3593,8 @@ def check_sm90_ptxas():
     out = {}
     for lib in ('flash_fwd_sm90', 'flash_bwd_sm90'):
         build_log = _build.build_log(lib)
-        usage = sm90_ptxas_usage(build_log)
+        usage = sm90_ptxas_usage(build_log,
+                                 r'bwd_(?:dkv|dq)|flash_fwd(?:_rect)?')
         for (kernel, d, *p), (regs, *frame) in sorted(usage.items()):
             log(f'ptxas: {lib} {kernel}<D={d}, {", ".join(map(str, p))}>: '
                 f'{regs} registers, stack {frame[0]}, spill stores '
@@ -4409,9 +4421,10 @@ def check_sizes(dev, plm_cls, batch, runs=SIZE_RUNS, head_dims=SIZE_HEAD_DIMS,
                 profile_dir=None):
     """Phase 12: each size of ``runs`` (``check_size``), then H1's and H2's
     times at ``head_dims`` (``time_head_dim``), and at ``BIG_SIZE``'s head
-    dim H10's on one rank of ``BIG_MESH`` (``time_rect_bwd``: the whole
-    10k train batch, the shape of phase 20's 15B step). Returns ``(sizes,
-    {H1_NAME: {D: row}, H2_NAME: {D: row}, H10_NAME: {D: row}})``."""
+    dim H9's and H10's on one rank of ``BIG_MESH`` (``time_rect``,
+    ``time_rect_bwd``: the whole 10k train batch, the shape of phase 20's
+    15B step). Returns ``(sizes, {H1_NAME: {D: row}, H2_NAME: {D: row},
+    H9_NAME: {D: row}, H10_NAME: {D: row}})``."""
     from esme_tpu_torch.models.config import ESM2_SIZES
     sizes = {name: check_size(name, trains, dev, plm_cls, batch, profile_dir)
              for name, trains in runs}
@@ -4426,7 +4439,7 @@ def check_sizes(dev, plm_cls, batch, runs=SIZE_RUNS, head_dims=SIZE_HEAD_DIMS,
             + (f'; train {cells}' if cells else ''))
     _, cu, _ = batch
     _, tcu, _ = packed_batch(BUDGET, seed=2)
-    rows = {H1_NAME: {}, H2_NAME: {}, H10_NAME: {}}
+    rows = {H1_NAME: {}, H2_NAME: {}, H9_NAME: {}, H10_NAME: {}}
     big = ESM2_SIZES[BIG_SIZE]
     big_dh = (big['embed_dim'] // big['attention_heads'],
               big['attention_heads'])
@@ -4434,8 +4447,11 @@ def check_sizes(dev, plm_cls, batch, runs=SIZE_RUNS, head_dims=SIZE_HEAD_DIMS,
         for kernel, row in time_head_dim(d, h, cu, tcu, dev).items():
             rows[kernel][str(d)] = row
         if (d, h) == big_dh:
-            rows[H10_NAME][str(d)] = time_rect_bwd(
-                dev, H=h, D=d, T=BIG_BUDGETS[0][0], n=1)
+            Tb = BIG_BUDGETS[0][0]
+            rows[H9_NAME][str(d)] = time_rect(
+                packed_batch(Tb, seed=2)[1], dev, H=h, D=d, T=Tb, n=1,
+                mask_skip=False)
+            rows[H10_NAME][str(d)] = time_rect_bwd(dev, H=h, D=d, T=Tb, n=1)
     return sizes, rows
 
 

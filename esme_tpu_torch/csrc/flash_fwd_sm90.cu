@@ -76,6 +76,25 @@
 // per clock bounds the kernel, and the padded tiles cost products and L2
 // reads that this bound leaves room for. PERF.md has the H100's times.
 //
+// D = 128 (ESM2-15B) runs a body of its own, fwd_body_1cta. Q and a stage
+// take 96 KiB and 256 threads need more than 128 registers, so one CTA
+// fills the SM, and the products per key pair have doubled where the
+// exps have not: the tensor cores bound it. Two warpgroups that each wait
+// on their products before the softmax, and on the softmax before the
+// next product (fwd_body), leave the tensor cores idle through every exp.
+// There each warpgroup keeps two stages in flight: it issues S of stage
+// j + 1, then O += P V of stage j, runs stage j + 1's softmax while P V
+// runs, then rescales O, so O's updates and roundings keep fwd_body's
+// order and the outputs its bits. A third stage keeps stage j + 1
+// resident while the slot of stage j - 1 is refilled (with two, the
+// loads were exposed: 1.4x as long), and P V is one N = 128 product per
+// k-step (V's second box one LBO further) where fwd_body issues two of
+// N = 64 (3.5% slower). Measured and not kept: warpgroups taking turns
+// at the tensor cores by named barriers (ping-pong; no faster),
+// persistent CTAs that walk (q block, head) items and prefetch the next
+// Q (15% slower), and Q's A fragments in registers (248 registers, 0.6%
+// faster on the inference batch).
+//
 // H5, the same kernel on token-minor operands (LAYOUT = HDT): q, k, v and
 // o (H, D, T), lse (H, T), T % 8 == 0. Replaces the TPU kernel
 // tools/fwd_T_experiment.py:_fwd_kernel_T (K14), which formed the scores
@@ -154,14 +173,18 @@ constexpr int KT = 64;         // k rows per tile of the span
 constexpr int KS = 2 * KT;     // k rows per stage: two tiles
 constexpr int NTHREADS = 256;  // two warpgroups
 
-// two stages fit twice per SM at D = 64 (Q 16 KiB, a stage 32 KiB); four
-// on D = 32's tiles
-template <int D>
-__host__ __device__ constexpr int stages() { return D <= 32 ? 4 : 2; }
-
 // CTAs per SM: two where their registers fit (at most 128 a thread)
 template <int D>
 __host__ __device__ constexpr int ctas_per_sm() { return D > 64 ? 1 : 2; }
+
+// two stages fit twice per SM at D = 64 (Q 16 KiB, a stage 32 KiB); four
+// on D = 32's tiles; three once at D = 128 (Q 32 KiB, a stage 64 KiB), so
+// that the stage after the one a warpgroup multiplies by V is in
+// shared memory while the stage before it is refilled
+template <int D>
+__host__ __device__ constexpr int stages() {
+  return D <= 32 ? 4 : ctas_per_sm<D>() == 2 ? 2 : 3;
+}
 
 template <int D>
 struct FwdSmem {
@@ -171,8 +194,13 @@ struct FwdSmem {
   static constexpr int Q = 0;
   static constexpr int K = Q + Q_TILE;               // + 2 s K_TILE (k, v)
   static constexpr int IDS = K + 2 * ST * K_TILE;    // + s KS ids
-  static constexpr int BARS = align1k(IDS + ST * KS * 4);
+  // the barriers right after the ids at D = 128 (rounded up to 1 KiB, the
+  // three stages would need 56 bytes more than a block may take)
+  static constexpr int BARS = ctas_per_sm<D>() == 1
+                                  ? IDS + ST * KS * 4
+                                  : align1k(IDS + ST * KS * 4);
   static constexpr int BYTES = BARS + (2 * ST + 1) * 8 + 1024;  // + alignment
+  static_assert(BYTES <= 232448, "more shared memory than a block may take");
 };
 
 // 2^x, flushing results below 2^-126 to 0 (one MUFU.EX2)
@@ -616,6 +644,301 @@ __device__ __forceinline__ void fwd_body(
   }
 }
 
+// d (64 x 128 fp32) += A B, A (64 x 16 bf16) from registers, B (16 x 128)
+// from shared memory, MN-major (TB = 1) or K-major (TB = 0): O += P V at
+// D = 128 in one instruction per k-step (an MN-major B reads its second 64
+// columns one box further, desc_mn's LBO)
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+#define ESME_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define ESME_F16(i) ESME_F4(i), ESME_F4(i + 4), ESME_F4(i + 8), ESME_F4(i + 12)
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, "
+      "1, %70;\n}\n"
+      : ESME_F16(0), ESME_F16(16), ESME_F16(32), ESME_F16(48)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
+#undef ESME_F16
+#undef ESME_F4
+}
+
+// The body at D = 128 (one CTA per SM) for H1 (and H5) and H9, in
+// fwd_body's place and with its arguments. Each warpgroup keeps two
+// stages in flight: at step it it issues S of stage it + 1, then O += P V
+// of stage it, waits for S alone and runs its softmax while P V runs,
+// then waits for P V and rescales O by the new alpha. O's updates keep
+// fwd_body's order, (O a_0 + P_0 V_0) a_1 + P_1 V_1 ..., and every
+// rounding is fwd_body's (one N = 128 product per k-step of P V computes
+// each element as the two N = 64 halves did), so the outputs are its bits.
+// Warp 0 loads as in fwd_body, stage it + stages - 1 at the top of step
+// it: with three stages, stage it + 1 stays resident while the slot of
+// stage it - 1 is refilled.
+template <int D, int LAYOUT>
+__device__ __forceinline__ void fwd_body_1cta(
+    const CUtensorMap& tm_q, const CUtensorMap& tm_k, const CUtensorMap& tm_v,
+    const CUtensorMap& tm_o, const int* __restrict__ seg,
+    const int* __restrict__ segk, const int* __restrict__ kstart,
+    const int* __restrict__ kend, bf16* __restrict__ o,
+    float* __restrict__ lse, int T, int Tk, int H, float scale_log2) {
+  using G = Geo<D>;
+  using L = FwdSmem<D>;
+  using TG = TGeo<D>;
+  constexpr bool hdt = LAYOUT == HDT;
+  static_assert(ctas_per_sm<D>() == 1 && !G::PAD && G::NH == 2,
+                "D = 128's body");
+  constexpr int ST = L::ST;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_smem(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* empty = full + ST;
+  uint64_t* q_bar = empty + ST;
+  auto k_rows = [&](int s) { return smem + L::K + 2 * s * L::K_TILE; };
+  auto v_rows = [&](int s) { return smem + L::K + (2 * s + 1) * L::K_TILE; };
+  auto ids = [&](int s) {
+    return reinterpret_cast<int*>(smem + L::IDS) + s * KS;
+  };
+
+  const int qb = blockIdx.x;
+  const int h = blockIdx.y;
+  const int HD = H * D;
+  const int q0 = qb * BQ;
+  const int col0 = h * D;
+  const int kb0 = kstart[qb];
+  const int ns = (max(kend[qb] - kb0, 0) + 1) / 2;   // stages of the span
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1 + 32);   // expect_tx + warp 0's cp.async
+      mbar_init(&empty[s], 8);       // one per warp
+    }
+    mbar_init(q_bar, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x % 128) >> 5;
+  const int lane = threadIdx.x & 31;
+  const bool loader = threadIdx.x < 32;
+  // warp 0: stage j's k and v rows and ids, once its last round is back
+  auto load = [&](int j) {
+    const int s = j % ST;
+    mbar_wait(&empty[s], ((j / ST) & 1) ^ 1);
+    const int k0 = (kb0 + 2 * j) * KT;
+    if (lane == 0) {
+      mbar_expect_tx(&full[s], 2 * L::K_TILE);
+      if constexpr (hdt) {
+#pragma unroll
+        for (int b = 0; b < KS / TG::BOX; ++b) {
+          tma_load_2d(k_rows(s) + b * TG::BOX_BYTES, &tm_k, &full[s],
+                      k0 + b * TG::BOX, col0);
+          tma_load_2d(v_rows(s) + b * TG::BOX_BYTES, &tm_v, &full[s],
+                      k0 + b * TG::BOX, col0);
+        }
+      } else {
+        tma_tile<D, KS>(k_rows(s), &tm_k, &full[s], col0, k0);
+        tma_tile<D, KS>(v_rows(s), &tm_v, &full[s], col0, k0);
+      }
+    }
+#pragma unroll
+    for (int i = lane; i < KS; i += 32) {
+      const int t = k0 + i;
+      cp_async4(smem_u32(ids(s) + i), segk + (t < Tk ? t : 0), t < Tk);
+    }
+    mbar_arrive_cp_async(&full[s]);
+  };
+  if (loader) {
+    if (lane == 0) {
+      mbar_expect_tx(q_bar, L::Q_TILE);
+      if constexpr (hdt) {
+#pragma unroll
+        for (int b = 0; b < BQ / TG::BOX; ++b)
+          tma_load_2d(smem + L::Q + b * TG::BOX_BYTES, &tm_q, q_bar,
+                      q0 + b * TG::BOX, col0);
+      } else {
+        tma_tile<D, BQ>(smem + L::Q, &tm_q, q_bar, col0, q0);
+      }
+    }
+    for (int j = 0; j < ST - 1 && j < ns; ++j) load(j);
+  }
+
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int row0 = wg * 64 + warp * 16;   // the warp's first q row
+  int row[2], sq[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    row[r] = q0 + row0 + r * 8 + g;
+    sq[r] = row[r] < T ? seg[row[r]] : INT_MIN;
+  }
+  // one segment over the warp's 16 q rows?
+  const int qid = lane < 16 && q0 + row0 + lane < T ? seg[q0 + row0 + lane]
+                                                    : INT_MIN;
+  const int qref = __shfl_sync(0xffffffffu, qid, 0);
+  const bool quni = __all_sync(0xffffffffu, lane >= 16 || qid == qref);
+
+  float acc[64];   // O: register 4 j + 2 r + e holds column 8 j + 2 tq + e
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float sc[64];
+  uint32_t pa[KS / 16][4];
+  float alpha[2];
+  const uint32_t qs = smem_u32(smem + L::Q);
+
+  // S = Q K^T of stage j into sc: issued and committed
+  auto issue_s = [&](int j) {
+    const uint32_t ks = smem_u32(k_rows(j % ST));
+#pragma unroll
+    for (int kk = 0; kk < G::KSTEPS; ++kk) {
+      if constexpr (hdt)   // Q and K^T MN-major: tokens along the rows
+        wgmma_ss_n128<1, 1>(sc, desc_t_mn<D>(qs + wg * TG::BOX_BYTES, kk),
+                            desc_t_mn<D>(ks, kk), kk > 0);
+      else
+        wgmma_ss_n128(sc, desc_k<D, BQ>(qs, wg * 64, kk),
+                      desc_k<D, KS>(ks, 0, kk), kk > 0);
+    }
+    wgmma_commit();
+  };
+  // O += P V of stage j, P from pa: issued and committed
+  auto issue_pv = [&](int j) {
+    const uint32_t vs = smem_u32(v_rows(j % ST));
+#pragma unroll
+    for (int kk = 0; kk < KS / 16; ++kk) {
+      if constexpr (hdt)   // V as stored, (d, keys): K-major
+        wgmma_rs_n128<0>(acc, pa[kk], desc_t_k<D>(vs, kk, 0));
+      else
+        wgmma_rs_n128<1>(acc, pa[kk], desc_mn<D, KS>(vs, kk, 0));
+    }
+    wgmma_commit();
+  };
+  auto wait_full = [&](int j) { mbar_wait(&full[j % ST], (j / ST) & 1); };
+  // stage j's vote: the warp's 16 rows and the stage's 128 keys in one
+  // segment (and below Tk)?
+  auto vote = [&](int j) {
+    const int* sid = ids(j % ST);
+    return __all_sync(0xffffffffu, quni && Tk - (kb0 + 2 * j) * KT >= KS &&
+                                       sid[lane] == qref &&
+                                       sid[lane + 32] == qref &&
+                                       sid[lane + 64] == qref &&
+                                       sid[lane + 96] == qref);
+  };
+  // stage j's softmax on sc, which holds its S
+  auto softmax = [&](int j, bool uni) {
+    const int* sid = ids(j % ST);
+    const int kn = Tk - (kb0 + 2 * j) * KT;   // the stage's k rows below Tk
+    if (uni)
+      softmax_stage<Mask::none, BASELINE>(sc, m, l, alpha, sid, sq, kn, tq,
+                                          scale_log2);
+    else if (quni && kn >= KS)
+      softmax_stage<Mask::keys, BASELINE>(sc, m, l, alpha, sid, sq, kn, tq,
+                                          scale_log2);
+    else
+      softmax_stage<Mask::any, BASELINE>(sc, m, l, alpha, sid, sq, kn, tq,
+                                         scale_log2);
+  };
+  // P of the stage whose softmax sc holds, and O rescaled by its alpha when
+  // a row max of the warp moved
+  auto to_p = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < KS / 16; ++kk) acc_to_a(pa[kk], sc, kk);
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    }
+    fence_regs(acc);
+  };
+  // P V of stage j done: O valid, the stage's slot handed back
+  auto release = [&](int j) {
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[j % ST]);
+  };
+
+  mbar_wait(q_bar, 0);
+  if (ns > 0) {   // stage 0's S and softmax
+    wait_full(0);
+    wgmma_fence();
+    issue_s(0);
+    const bool uni = vote(0);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    softmax(0, uni);
+  }
+  for (int it = 0; it + 1 < ns; ++it) {
+    if (loader && it + ST - 1 < ns) load(it + ST - 1);
+    to_p();
+    wait_full(it + 1);
+    wgmma_fence();
+    issue_s(it + 1);
+    issue_pv(it);
+    const bool uni = vote(it + 1);
+    wgmma_wait<1>();   // S of stage it + 1; P V of stage it runs on
+    fence_regs(sc);
+    softmax(it + 1, uni);
+    release(it);
+  }
+  if (ns > 0) {   // the last stage's P V
+    to_p();
+    wgmma_fence();
+    issue_pv(ns - 1);
+    release(ns - 1);
+  }
+
+  // epilogue: fwd_body's
+  unsigned char* obox = smem + L::Q + wg * TG::BOX_BYTES;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float lr = l[r];
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1)
+      lr += __shfl_xor_sync(0xffffffffu, lr, off);
+    if constexpr (hdt) {
+      const float inv = 1.f / (lr == 0.f ? 1.f : lr);
+      const int qr = warp * 16 + r * 8 + g;   // the row's token in the box
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int d = 8 * j + 2 * tq + e;
+          *reinterpret_cast<bf16*>(obox + d * 128 +
+                                   (((qr >> 3) ^ (d & 7)) << 4) +
+                                   (qr & 7) * 2) =
+              __float2bfloat16_rn(acc[4 * j + 2 * r + e] * inv);
+        }
+    }
+    if (row[r] >= T) continue;
+    lr = lr == 0.f ? 1.f : lr;
+    if constexpr (!hdt) {
+      const float inv = 1.f / lr;
+      bf16* out = o + (size_t)row[r] * HD + col0;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int i = 4 * j + 2 * r;
+        *reinterpret_cast<__nv_bfloat162*>(out + 8 * j + 2 * tq) =
+            __floats2bfloat162_rn(acc[i] * inv, acc[i + 1] * inv);
+      }
+    }
+    if (tq == 0) lse[(size_t)h * T + row[r]] = m[r] * LN2 + logf(lr);
+  }
+  if constexpr (hdt) {
+    fence_proxy_async();
+    named_barrier(1 + wg, 128);
+    if (threadIdx.x % 128 == 0) {
+      tma_store_2d(&tm_o, obox, q0 + wg * TG::BOX, col0);
+      tma_store_wait();
+    }
+  }
+}
+
 template <int D, int LAYOUT, int MODE = BASELINE>
 __global__ void __launch_bounds__(NTHREADS, ctas_per_sm<D>())
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -627,8 +950,14 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const int* __restrict__ kend, bf16* __restrict__ o,
                       float* __restrict__ lse, int T, int H,
                       float scale_log2) {
-  fwd_body<D, LAYOUT, MODE>(tm_q, tm_k, tm_v, tm_o, seg, seg, kstart, kend, o,
-                            lse, T, T, H, scale_log2);
+  if constexpr (ctas_per_sm<D>() == 1) {
+    static_assert(MODE == BASELINE, "the ablation modes are built at D = 64");
+    fwd_body_1cta<D, LAYOUT>(tm_q, tm_k, tm_v, tm_o, seg, seg, kstart, kend,
+                             o, lse, T, T, H, scale_log2);
+  } else {
+    fwd_body<D, LAYOUT, MODE>(tm_q, tm_k, tm_v, tm_o, seg, seg, kstart, kend,
+                              o, lse, T, T, H, scale_log2);
+  }
 }
 
 // H9: T (Tq) query rows with ids seg_q over Tk key rows with ids seg_k
@@ -643,8 +972,12 @@ flash_fwd_rect_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const int* __restrict__ kend,
                            bf16* __restrict__ o, float* __restrict__ lse,
                            int Tq, int Tk, int H, float scale_log2) {
-  fwd_body<D, THD, BASELINE>(tm_q, tm_k, tm_v, tm_q, seg_q, seg_k, kstart,
-                             kend, o, lse, Tq, Tk, H, scale_log2);
+  if constexpr (ctas_per_sm<D>() == 1)
+    fwd_body_1cta<D, THD>(tm_q, tm_k, tm_v, tm_q, seg_q, seg_k, kstart, kend,
+                          o, lse, Tq, Tk, H, scale_log2);
+  else
+    fwd_body<D, THD, BASELINE>(tm_q, tm_k, tm_v, tm_q, seg_q, seg_k, kstart,
+                               kend, o, lse, Tq, Tk, H, scale_log2);
 }
 
 template <int D, int LAYOUT, int MODE = BASELINE>

@@ -15,7 +15,8 @@ source's C entries and may include the headers of ``csrc``. Both build
 with ``_build``'s flags (the variant into ``build/esme_tpu_torch/variant/``),
 run on ``bench.py``'s 50k batch at ESM2-650M's attention (H = 20, D = 64,
 bf16; ``--heads 40 --head-dim 128`` is ESM2-15B's; H1 and H5 on the
-inference batch, H5's operands made token-minor, H2 on the masked-LM
+inference batch, H5's operands made token-minor, and H9 with that batch's
+queries over its keys (one rank: Tq = Tk), H2 on the masked-LM
 batch, both passes and each alone, and H10 with that batch's queries
 over its keys (one rank: Tq = Tk); H4 on the inference batch's q, k, v
 and positions, in each move with a token-minor side that the ops make;
@@ -24,11 +25,16 @@ H1's spans) through the wrapper's launch (``ops/flash.py:launch_fwd``,
 ``launch_bwd``, the pass entry ``esme_flash_bwd_sm90_pass``,
 ``tools/fwd_T_experiment.py:launch_fwd_T``,
 ``ops/headsplit.py:launch_relayout('vec', ...)``,
-``tools/profile_attn.py:launch_dma``, ``launch_dma_t``) and are timed with CUDA
-events, 20 calls a side, in the order source, variant, variant, source.
-Prints the variant's ``ptxas`` lines, each side's ms, the variant's ratio
-and whether its outputs (o and lse; dq, dk and dv; the moved tensors; the
-probes' outputs) are bit-equal to the source's. On the card only.
+``tools/profile_attn.py:launch_dma``, ``launch_dma_t``) and are timed launch by
+launch in turns, source then variant, ``ROUNDS`` rounds after 3 warm-up
+calls a side, each launch between CUDA events of its own, so that a drift
+of the card's clocks during the run (blocks of 20 calls a side in the
+order source, variant, variant, source read up to 18% apart from block to
+block on the H100 at D = 128) falls on both sides alike. Prints the
+variant's ``ptxas`` lines, each side's median and quartiles in ms, the
+variant's ratio of medians and whether its outputs (o and lse; dq, dk and
+dv; the moved tensors; the probes' outputs) are bit-equal to the
+source's. On the card only.
 """
 
 from __future__ import annotations
@@ -44,9 +50,8 @@ import torch
 
 from .. import _build
 from ..ops import flash
-from ..profiling import benchmark
-from . import (BWD_SEED, CUDA_REPS, FWD_SEED, HEAD_DIM, HEADS,
-               attention_batch, thd_to_hdt)
+from . import (BWD_SEED, FWD_SEED, HEAD_DIM, HEADS, attention_batch,
+               thd_to_hdt)
 from ..ops import headsplit
 from ..ops.rotary import rotary_cos_sin
 from .decompose_bwd import backward_inputs
@@ -54,10 +59,31 @@ from .fwd_T_experiment import launch_fwd_T
 from . import profile_attn
 
 
+# launches a side, one of each side per round
+ROUNDS = 40
+
+
 def forward_args(heads, head_dim):
     """H1's arguments on the inference batch."""
     b = attention_batch(seed=FWD_SEED, heads=heads, head_dim=head_dim)
     return (b.q, b.k, b.v, b.seg, *b.spans[:2], b.H)
+
+
+def forward_cases(heads, head_dim):
+    """H1 on the inference batch (``'square'``), and H9 (``'rect'``) with
+    the batch's queries over its keys, the one-rank shape: ``{case: (kind,
+    arguments)}``."""
+    args = forward_args(heads, head_dim)
+    seg = args[3]
+    rect = (*args[:4], *flash.rect_flash_spans(seg, seg)[:2], args[-1])
+    return {'H1': ('square', args), 'H9 one rank': ('rect', rect)}
+
+
+def launch_forward(library, kind, args, lib=None):
+    """One of :func:`forward_cases`' launches on ``library``'s form: o and
+    lse of H1 or of H9."""
+    seg_k = args[3] if kind == 'rect' else None
+    return flash.launch_fwd(library, *args, lib=lib, seg_k=seg_k)
 
 
 def backward_args(heads, head_dim):
@@ -163,15 +189,33 @@ def launch_probe(library, probe, cluster, args, lib=None):
 # form -> (its library, its cases at (heads, head dim): name -> the
 # launch's arguments, its launch)
 SOURCES = {
-    'flash_fwd_sm90': ('flash_fwd_sm90',
-                       lambda *hd: {'H1': forward_args(*hd)},
-                       flash.launch_fwd),
+    'flash_fwd_sm90': ('flash_fwd_sm90', forward_cases, launch_forward),
     'flash_bwd_sm90': ('flash_bwd_sm90', backward_cases, launch_backward),
     'fwd_T_sm90': ('flash_fwd_sm90',
                    lambda *hd: {'H5': token_minor_args(*hd)}, launch_fwd_T),
     'headsplit_vec': ('headsplit', relayout_cases, launch_vec),
     'probes_sm90': ('probes_sm90', probe_cases, launch_probe),
 }
+
+
+def interleaved_ms(run, libs, rounds=ROUNDS, warmup=3):
+    """``run(lib)`` for each of ``libs``, one launch of each per round,
+    every launch between CUDA events of its own: ``{side: sorted ms}``."""
+    for lib in libs.values():
+        for _ in range(warmup):
+            run(lib)
+    events = {side: [] for side in libs}
+    for _ in range(rounds):
+        for side, lib in libs.items():
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            run(lib)
+            end.record()
+            events[side].append((start, end))
+    torch.cuda.synchronize()
+    return {side: sorted(s.elapsed_time(e) for s, e in ev)
+            for side, ev in events.items()}
 
 
 def variant_library(path: Path, library: str) -> ctypes.CDLL:
@@ -213,16 +257,17 @@ def main(argv=None):
 
         equal = all(map(torch.equal, run(libs['source']),
                         run(libs['variant'])))
-        samples = {side: [] for side in libs}
-        for side in ('source', 'variant', 'variant', 'source'):
-            samples[side].append(benchmark(run, libs[side], reps=CUDA_REPS,
-                                           device='cuda') * 1e3)
-        ms = {side: sum(s) / len(s) for side, s in samples.items()}
+        times = interleaved_ms(run, libs)
+        ms = {side: t[len(t) // 2] for side, t in times.items()}
+        quart = {side: (t[len(t) // 4], t[3 * len(t) // 4])
+                 for side, t in times.items()}
         print(f'{a.form} {case} (H = {a.heads}, D = {a.head_dim}): source '
               f'{ms["source"]:.4f} ms, variant '
               f'{ms["variant"]:.4f} ms ({ms["variant"] / ms["source"]:.4f}); '
-              f'samples {samples}; outputs bit-equal: {equal}', flush=True)
-        out[case] = {'ms': ms, 'samples': samples, 'bit_equal': equal}
+              'quartiles ' + ', '.join(f'{side} {lo:.4f}-{hi:.4f}'
+                                       for side, (lo, hi) in quart.items())
+              + f'; outputs bit-equal: {equal}', flush=True)
+        out[case] = {'ms': ms, 'quartiles': quart, 'bit_equal': equal}
     return out
 
 

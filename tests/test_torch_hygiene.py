@@ -222,6 +222,24 @@ def test_sm90_ab_takes_a_head_shape(monkeypatch, tmp_path):
     assert all(map(torch.equal, h2[7:11], rect[7:11]))
 
 
+def test_sm90_ab_forward_cases(monkeypatch):
+    """``tools/sm90_ab.py``'s forward cases are H1 on the inference batch
+    and H9 on one rank (its queries over its own keys), whose spans are
+    H1's, so the two launches walk the same stages."""
+    from esme_tpu_torch.tools import sm90_ab
+    b = sm90_ab.attention_batch
+
+    def small(**kw):
+        return b(budget=2048, device='cpu', dtype=torch.float32, **kw)
+    monkeypatch.setattr(sm90_ab, 'attention_batch', small)
+    cases = sm90_ab.forward_cases(4, 128)
+    assert {k: kind for k, (kind, _) in cases.items()} == {
+        'H1': 'square', 'H9 one rank': 'rect'}
+    h1, rect = cases['H1'][1], cases['H9 one rank'][1]
+    assert h1[0].shape[1] == 4 * 128 and rect[-1] == h1[-1] == 4
+    assert all(map(torch.equal, h1[:6], rect[:6]))
+
+
 def test_entry_points_pin_fp32_accumulation(monkeypatch):
     """The entry points run their products with fp32 cuBLAS reductions
     and no TF32, and give the caller's settings back after the call."""

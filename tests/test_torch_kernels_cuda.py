@@ -54,6 +54,11 @@ Gates:
   ``BLOCK_Q`` (each q block walks the same span in the same order), and
   from call to call; a q block whose ids match no key writes o = 0 and
   lse = ``EMPTY_LSE``, as the plain version does.
+* The forward at D = 128 (ESM2-15B's 40 heads, its own body): H1's, H5's
+  and H9's instantiations built within 255 registers, no stack, no spills
+  and no ``wgmma`` serialisation warning; H1, H5 and H9 bit-equal from
+  call to call, H5 to H1, and H9 with Tq = Tk, or on a rank whose first
+  row starts a q block, to H1's rows.
 * Quantization (plain PyTorch on the card): ``quantize_int8``,
   ``quantize_nf4`` and ``dequantize`` bit-equal to the CPU's; a quantized
   model's forward against its plain versions under ``chip_smoke.py``'s
@@ -521,11 +526,17 @@ def test_flash_bwd_d128_dkv_has_no_stack_or_spills(cuda):
         assert got[1:] == (0, 0, 0), f'{kernel}<{key}>: {got}'
 
 
+def _d128_batch(dev, T=4096, H=40, D=128):
+    """q, k, v and the ids of a packed batch at ESM2-15B's attention (40
+    heads of 128); its seventh segment holds rows 1,589-2,588."""
+    return _packed([30, 7, 250, 900, 2, 400, 1000, 700, 333], T, H, D, dev,
+                   seed=128)
+
+
 def _d128_inputs(dev, T=4096, H=40, D=128):
     """A packed batch at ESM2-15B's attention (40 heads of 128) with H2's
     inputs: q, k, v, do, lse and delta from H1, the ids and H2's spans."""
-    q, k, v, seg = _packed([30, 7, 250, 900, 2, 400, 1000, 700, 333], T, H,
-                           D, dev, seed=128)
+    q, k, v, seg = _d128_batch(dev, T, H, D)
     gen = torch.Generator(device=dev)
     gen.manual_seed(129)
     do = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
@@ -575,6 +586,82 @@ def test_flash_bwd_d128_is_deterministic(cuda):
             H)
     assert all(map(torch.equal, flash.segment_flash_bwd(*rect, seg_k=seg),
                    flash.segment_flash_bwd(*rect, seg_k=seg)))
+
+
+@pytest.mark.cuda
+def test_flash_fwd_d128_has_no_stack_or_spills(cuda):
+    """The forward at D = 128 (ESM2-15B), H1's production instantiation,
+    H5's (H1's kernel on token-minor operands) and H9's, builds within 255
+    registers with no stack frame, no spills and no ``wgmma``
+    serialisation warning (C7512): two stages in flight per warpgroup fit
+    its registers."""
+    from esme_tpu_torch import _build
+    log = _build.build_log('flash_fwd_sm90')
+    warnings = [line for line in log.splitlines() if 'C75' in line]
+    for kernel, key in (('flash_fwd_sm90_kernel', (128, 0, 0)),
+                        ('flash_fwd_sm90_kernel', (128, 1, 0)),
+                        ('flash_fwd_rect_sm90_kernel', (128,))):
+        got = _ptxas_lines(log, kernel).get(key)
+        assert got is not None, f'{kernel}<{key}> not in the build log'
+        assert got[0] <= 255 and got[1:] == (0, 0, 0), (kernel, key, got)
+        mangled = kernel + 'I' + ''.join(f'Li{x}E' for x in key) + 'E'
+        assert not [w for w in warnings if mangled in w], warnings
+
+
+@pytest.mark.cuda
+def test_flash_rect_fwd_d128_is_h1_rows(cuda):
+    """At D = 128 and 40 heads, H9 with Tq = Tk gives H1's o and lse bit for
+    bit (the same spans, walked in the same order). So does a rank whose
+    first row starts a q block, with a ragged last block inside one
+    segment (whose span is H1's block's) that ends on a warp's 16 rows (a
+    warp with rows past Tq takes the masked softmax, whose roundings
+    differ); with the ids of its first block matching no key, that block
+    gets o = 0 and lse = ``EMPTY_LSE`` and the others keep H1's rows."""
+    q, k, v, seg = _d128_batch(cuda)
+    H = 40
+    o1, lse1 = flash.segment_flash_fwd(q, k, v, seg,
+                                       *flash.flash_spans(seg)[:2], H)
+    o9, lse9 = flash.segment_flash_fwd(q, k, v, seg,
+                                       *flash.rect_flash_spans(seg, seg)[:2],
+                                       H, seg_k=seg)
+    assert torch.equal(o9, o1) and torch.equal(lse9, lse1)
+    lo, hi = 1024, 2208   # the last block, rows 2,176-2,207, in segment 7
+    assert lo % flash.BLOCK_Q == 0 and hi % flash.BLOCK_Q and hi % 16 == 0
+    assert (seg[hi - hi % flash.BLOCK_Q:hi + flash.BLOCK_Q] == seg[hi]).all()
+    for empty in (0, flash.BLOCK_Q):
+        sq = seg[lo:hi].clone()
+        sq[:empty] += 10 ** 6
+        ks, ke = flash.rect_spans(sq, seg)
+        o, lse = flash.segment_flash_fwd(q[lo:hi].contiguous(), k, v, sq, ks,
+                                         ke, H, seg_k=seg)
+        torch.cuda.synchronize()
+        assert torch.equal(o[empty:], o1[lo + empty:hi])
+        assert torch.equal(lse[:, empty:], lse1[:, lo + empty:hi])
+        if empty:
+            assert ke[0] <= ks[0]
+            assert not o[:empty].any()
+            assert (lse[:, :empty] == flash.EMPTY_LSE).all()
+
+
+@pytest.mark.cuda
+def test_flash_fwd_d128_is_deterministic(cuda):
+    """At D = 128 and 40 heads, two calls of H1, of H5 (H1's kernel on
+    token-minor operands, bit-equal to H1) and of H9 (one rank of a 4-way
+    split) give the same o and lse bits."""
+    q, k, v, seg = _d128_batch(cuda)
+    H, T = 40, q.shape[0]
+    args = (q, k, v, seg, *flash.flash_spans(seg)[:2], H)
+    h1 = flash.segment_flash_fwd(*args)
+    assert all(map(torch.equal, h1, flash.segment_flash_fwd(*args)))
+    t_args = (*(_tm(x, H) for x in (q, k, v)), *args[3:6])
+    h5 = tft.fwd_T(*t_args)
+    assert all(map(torch.equal, h5, tft.fwd_T(*t_args)))
+    assert torch.equal(h5[0], _tm(h1[0], H)) and torch.equal(h5[1], h1[1])
+    sq = seg[T // 4:T // 2].contiguous()
+    rect = (q[T // 4:T // 2].contiguous(), k, v, sq,
+            *flash.rect_spans(sq, seg), H)
+    assert all(map(torch.equal, flash.segment_flash_fwd(*rect, seg_k=seg),
+                   flash.segment_flash_fwd(*rect, seg_k=seg)))
 
 
 @pytest.mark.cuda

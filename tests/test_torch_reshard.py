@@ -78,8 +78,10 @@ Gates (each with its reason):
 
 import functools
 import multiprocessing
+import random
 import socket
 import tempfile
+import time
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -115,10 +117,22 @@ PAIRS = {
     '2x2x1-1x1x2': ((2, 2, 1), (1, 1, 2)),
     '1x2x2-2x1x1': ((1, 2, 2), (2, 1, 1)),
 }
+# The pairs whose tests this file collects; each other pair has a file of
+# its own (test_torch_reshard_<A>_<B>.py, which imports these tests), so
+# that xdist's --dist loadfile gives each pair's spawned world and JAX's
+# run of it a worker of its own
+PAIR_NAMES = ('1x1x1-1x4x1',)
 RUNS = ('adam', 'adam8bit', 'nf4_lora')
 DENSE = dict(num_layers=2, embed_dim=150, attention_heads=3)
 NF4 = dict(num_layers=2, embed_dim=192, attention_heads=3)
 NF4_RANK = 90
+
+
+def pytest_generate_tests(metafunc):
+    """``name``: the mesh pairs (``PAIR_NAMES``) of the module that
+    collects the test."""
+    if 'name' in metafunc.fixturenames:
+        metafunc.parametrize('name', metafunc.module.PAIR_NAMES)
 
 
 def _bits(x) -> np.ndarray:
@@ -269,28 +283,44 @@ def _runs():
 
 
 def _free_ports(k):
-    """``k`` distinct free ports (all bound at once, then released)."""
-    socks = [socket.socket() for _ in range(k)]
-    try:
-        for s in socks:
-            s.bind(('127.0.0.1', 0))
-        return [s.getsockname()[1] for s in socks]
-    finally:
-        for s in socks:
-            s.close()
+    """``k`` distinct ports, each free when drawn, from below Linux's
+    default ephemeral range (32768-60999). The ranks listen on them one
+    world after another, minutes later; a port of that range may by then
+    be the source port of another process's connection (the other test
+    workers' gloo worlds open many), and a rank whose listen failed with
+    EADDRINUSE left its peers waiting until the spawn timed out."""
+    rng = random.Random()
+    ports = []
+    while len(ports) < k:
+        port = rng.randrange(20000, 32768)
+        if port in ports:
+            continue
+        with socket.socket() as s:
+            try:
+                s.bind(('127.0.0.1', port))
+            except OSError:
+                continue
+        ports.append(port)
+    return ports
 
 
 def _spawn(target, n, *args, timeout):
+    """``target(rank, n, *args)`` in ``n`` spawned processes, all of which
+    must exit with 0 within ``timeout`` seconds; the others are stopped as
+    soon as one fails (they would wait for it)."""
     ctx = multiprocessing.get_context('spawn')
     procs = [ctx.Process(target=target, args=(r, n, *args))
              for r in range(n)]
     for p in procs:
         p.start()
-    for p in procs:
-        p.join(timeout)
+    deadline = time.monotonic() + timeout
+    while any(p.is_alive() for p in procs) and time.monotonic() < deadline \
+            and all(p.exitcode in (None, 0) for p in procs):
+        time.sleep(0.2)
     for p in procs:
         if p.is_alive():
             p.kill()
+        p.join()
     assert [p.exitcode for p in procs] == [0] * n
 
 
@@ -386,7 +416,6 @@ def _group_sums(parts, i):
 
 
 @pytest.mark.parametrize('run', RUNS)
-@pytest.mark.parametrize('name', list(PAIRS))
 def test_round_trip_is_bit_equal(name, run):
     """A -> B -> A: each rank's part of the state restored on A from B's
     parts, B's restored from A's, against A's own part: params, the
@@ -412,7 +441,6 @@ def test_round_trip_is_bit_equal(name, run):
 
 
 @pytest.mark.parametrize('run', RUNS)
-@pytest.mark.parametrize('name', list(PAIRS))
 def test_resumed_step_matches_the_uninterrupted_one(name, run):
     """The fourth micro-step (closing the open cycle) on B after the
     restore against the same micro-step on A without a cut: its loss,
@@ -444,7 +472,6 @@ def test_resumed_step_matches_the_uninterrupted_one(name, run):
             assert err.max() <= 1e-4 * LR, (k, err.max())
 
 
-@pytest.mark.parametrize('name', list(PAIRS))
 def test_leaves_move_between_layouts(name):
     """The pairs exercise what they are for: on A and B the dims of some
     leaf differ, and with ``fsdp`` 4 on one side some leaf is replicated
@@ -465,7 +492,6 @@ def test_leaves_move_between_layouts(name):
 
 
 @pytest.mark.parametrize('run', RUNS)
-@pytest.mark.parametrize('name', list(PAIRS))
 def test_replicas_are_bit_equal_before_the_save(name, run):
     """On every rank of A, B and A again, before its save: the ranks of
     its ``fsdp`` coordinate hold the same params and optimizer state, bit
@@ -477,7 +503,6 @@ def test_replicas_are_bit_equal_before_the_save(name, run):
 
 
 @pytest.mark.parametrize('run', RUNS)
-@pytest.mark.parametrize('name', list(PAIRS))
 def test_replica_parts_hold_no_params(name, run):
     """In every checkpoint of the round trip, the parts at a ``data`` or
     ``seq`` coordinate other than 0 hold no param or optimizer tensor (no
@@ -503,7 +528,6 @@ def test_replica_parts_hold_no_params(name, run):
 
 
 @pytest.mark.parametrize('run', RUNS)
-@pytest.mark.parametrize('name', list(PAIRS))
 def test_old_form_parts_still_restore(name, run):
     """Parts written in the old form, where every rank saved its whole
     part (``a_old``): B restores them, resharded, to the very state it
@@ -525,7 +549,6 @@ def _jax_mesh(shape):
                 ('data', 'fsdp', 'seq'))
 
 
-@pytest.mark.parametrize('name', list(PAIRS))
 def test_restore_matches_jax(name):
     """The same pair through JAX: ``ShardedMaskedPLM(grad_accum=2,
     seq_axis='seq')`` on A from the same weights, three micro-steps,

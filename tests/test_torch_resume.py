@@ -14,8 +14,10 @@ rest. The sharded trainer's round trip runs in a gloo world of
 ``tests/test_torch_sharded_lora.py``.
 
 The orders of the cross-order resumes (ROADMAP.md Queue 3, item 28: the
-setters paired leaves by position): ``reordered``, every dict of the
-tree in reverse key order (``k`` before ``q``); ``sorted``, the tree
+setters paired leaves by position; ``tests/test_torch_resume_orders.py``,
+a file of its own so that xdist's --dist loadfile spreads the two):
+``reordered``, every dict of the tree in reverse key order (``k`` before
+``q``); ``sorted``, the tree
 ``models/io.py:params_from_jax`` gives from JAX's pytree of the same
 weights (keys sorted); ``nf4``, a saved file loaded with
 ``quantization='4bit'`` for the run and quantized after loading
@@ -60,7 +62,6 @@ from esme_tpu.train import MaskedPLM as JMaskedPLM
 
 from esme_tpu_torch import ESM2
 from esme_tpu_torch.data import LabeledDataset
-from esme_tpu_torch.models import io as tio
 from esme_tpu_torch.models.config import esm2_config
 from esme_tpu_torch.models.heads import init_learned_aggregation
 from esme_tpu_torch.train import (CheckpointManager, ClassificationTrainer,
@@ -218,36 +219,6 @@ def test_state_refuses_another_model(tmp_path):
 # states keyed by leaf path
 # -------------------------------------------------------------------------
 
-def _reordered(tree):
-    """``tree``'s leaves (copies) with every dict's keys reversed."""
-    return {k: _reordered(tree[k]) if isinstance(tree[k], dict)
-            else tree[k].clone() for k in reversed(list(tree))}
-
-
-def _sorted(tree):
-    """``tree`` as ``params_from_jax`` gives it from JAX's pytree of the
-    same weights: every dict's keys sorted, bit for bit."""
-    return tio.params_from_jax(
-        jax.tree.map(lambda t: np.array(t.numpy()), tree), None)
-
-
-def _orders(order, tmp, lora=False):
-    """The models of run A and resumed trainer B for ``order``: the same
-    weights, trees of the same leaves listed in other orders."""
-    if order == 'nf4':
-        path = str(tmp / 'model.safetensors')
-        _model().save_pretrained(path)
-        kw = dict(dtype='float32', device='cpu')
-        a = ESM2.from_pretrained(path, quantization='4bit', **kw)
-        b = ESM2.from_pretrained(path, **kw).quantize('4bit')
-        return (_add_lora(a), _add_lora(b)) if lora else (a, b)
-    a = _model(lora)
-    b = ESM2(config=a.config, device='cpu', params=(
-        _reordered if order == 'reordered' else _sorted)(a.params))
-    b.lora_kwargs = a.lora_kwargs
-    return a, b
-
-
 def _paths(tree):
     return [name for name, _ in _leaves(tree)]
 
@@ -263,42 +234,6 @@ def _assert_same_leaves(got, want):
             got[name], ref), name
 
 
-ORDERS = ('reordered', 'sorted', 'nf4')
-
-
-def _cross_run(make, batches, cut, directory):
-    """Run ``make(a)``'s trainer over ``batches``, saving its state before
-    step ``cut``; a trainer ``make(b)`` restores it and takes the rest.
-    Returns both runs' losses after the cut."""
-    ta, tb = make('a'), make('b')
-    mgr = CheckpointManager(str(directory), monitor=None)
-    losses = []
-    for i, batch in enumerate(batches):
-        if i == cut:
-            mgr.save(ta.step, ta.state)
-        losses.append(ta.training_step(batch))
-    tb.state = mgr.restore(tb.state)
-    assert tb.step == cut
-    return [tb.training_step(b) for b in batches[cut:]], losses[cut:]
-
-
-@pytest.mark.parametrize('order', ORDERS)
-@pytest.mark.parametrize('case', list(CASES))
-def test_masked_plm_resumes_across_orders(case, order, tmp_path):
-    """A run cut after ``cut`` steps and restored into a ``MaskedPLM`` over
-    the same weights in another order gives the losses and the params of
-    the run without a break, bit for bit: params, moments, ``adam8bit``'s
-    codes and scales, the open cycle and the offloaded masters all paired
-    by leaf path and view."""
-    kw, lora, cut = CASES[case]
-    models = dict(zip('ab', _orders(order, tmp_path, lora)))
-    batches = [_batch(70 + i, ESM2.alphabet) for i in range(STEPS)]
-    got, want = _cross_run(lambda w: MaskedPLM(models[w], **kw), batches,
-                           cut, tmp_path / 'ckpt')
-    assert got == want
-    _assert_same_leaves(models['b'].params, models['a'].params)
-
-
 def _labelled(n, seed):
     rng = np.random.default_rng(seed)
     seqs = [''.join(rng.choice(AA, int(rng.integers(20, 60))))
@@ -306,36 +241,8 @@ def _labelled(n, seed):
     return seqs, rng.integers(0, 2, n).astype(np.float32)
 
 
-def _head(order):
-    head = init_learned_aggregation(3, 64, dtype='float32', device='cpu')
-    return {'reordered': _reordered, 'sorted': _sorted}.get(
-        order, lambda t: t)(head)
-
-
 TRAINERS = {'regression': RegressionTrainer,
             'classification': ClassificationTrainer}
-
-
-@pytest.mark.parametrize('order', ORDERS)
-@pytest.mark.parametrize('trainer', list(TRAINERS))
-def test_fine_tune_resumes_across_orders(trainer, order, tmp_path):
-    """The fine-tune trainers (LoRA on the trunk at ``lr``, the
-    aggregation head at ``head_lr``): cut after 2 of 4 steps and restored
-    into a trainer over the same weights in another order (the head's
-    tree too), the same losses and params, bit for bit."""
-    models = dict(zip('ab', _orders(order, tmp_path, lora=True)))
-    heads = {'a': _head(None), 'b': _head(order)}
-    seqs, labels = _labelled(24, 5)
-    ds = LabeledDataset(seqs, labels, token_per_batch=300, shuffle=False)
-    batches = [ds[i % len(ds)] for i in range(4)]
-
-    def make(w):
-        return TRAINERS[trainer](models[w], heads[w], lr=1e-3,
-                                 head_lr=5e-3)
-    got, want = _cross_run(make, batches, 2, tmp_path / 'ckpt')
-    assert got == want
-    _assert_same_leaves({'plm': models['b'].params, 'head': heads['b']},
-                        {'plm': models['a'].params, 'head': heads['a']})
 
 
 def _k_before_q(model):
