@@ -1399,6 +1399,12 @@ RECT_RAGGED = (700, 1701)
 RECT_TIMED_WORLD = 4
 
 
+def rank_rows(T, n):
+    """Each rank's query rows ``(lo, hi)`` of an ``n``-way split of ``T``
+    rows, as ``ShardedMaskedPLM`` splits a step's tokens (no ALIGN pad)."""
+    return [(r * T // n, (r + 1) * T // n) for r in range(n)]
+
+
 def rect_args(q, k, v, seg, lo, hi, H):
     """H9's arguments but ``seg_k`` (= ``seg``): the queries of rows
     ``[lo, hi)`` over all of ``k``, ``v`` and their spans."""
@@ -1427,8 +1433,7 @@ def check_rect(cu, dev):
             else [None, 'flash_fwd']
         equal = 0
         for n in RECT_WORLDS:
-            for r in range(n):
-                lo, hi = r * T // n, (r + 1) * T // n
+            for r, (lo, hi) in enumerate(rank_rows(T, n)):
                 args = rect_args(q, k, v, seg, lo, hi, h)
                 for lib in forms:
                     eo, el, o, lse = check_flash_args(
@@ -1653,8 +1658,7 @@ def time_rect(cu, dev, H=None, D=None, T=None, n=None, mask_skip=True):
                                       ' one rank of 1 at the main shape',
                                       seg_k=seg)
     del o
-    for r in range(n):
-        lo, hi = r * T // n, (r + 1) * T // n
+    for r, (lo, hi) in enumerate(rank_rows(T, n)):
         args = rect_args(q, k, v, seg, lo, hi, H)
         what = f' rank {r} of {n} at the main shape'
         eo, el, *_ = check_flash_args(args, what, seg_k=seg,
@@ -1760,6 +1764,23 @@ def rect_bwd_args(q, k, v, do, seg, lo, hi, H):
             *spans, H)
 
 
+def touched_keys(args, seg_k):
+    """H10's arguments (with ``seg_k``) over the key rows of the 128-row
+    blocks that a query of the rank shares an id with, alone: the same
+    pairs, the same work, no empty dk/dv block. Returns (arguments, the
+    keys' ids)."""
+    from esme_tpu_torch.ops import flash
+    qs, qe = args[9], args[10]
+    kbs = torch.nonzero(qe > qs).flatten()
+    r0 = int(kbs[0]) // 2 * flash.BLOCK_KV * 2 if kbs.numel() else 0
+    r1 = min(-(-(int(kbs[-1]) + 1) // 2) * flash.BLOCK_KV * 2,
+             seg_k.shape[0]) if kbs.numel() else 0
+    sk = seg_k[r0:r1].contiguous()
+    k, v = (x[r0:r1].contiguous() for x in args[1:3])
+    return (args[0], k, v, *args[3:7], *flash.rect_flash_spans(args[6], sk),
+            args[-1]), sk
+
+
 def rect_grad_errors(got, ref, touched):
     """H10's outputs against its plain version: dq under H2's gate as
     :func:`grad_errors` takes it; dk and dv under it on the key rows
@@ -1835,8 +1856,7 @@ def check_rect_bwd(cu, dev):
         for n in RECT_BWD_WORLDS:
             sums = {lib: [torch.zeros_like(k, dtype=torch.float32)
                           for _ in range(2)] for lib in forms}
-            for r in range(n):
-                lo, hi = r * T // n, (r + 1) * T // n
+            for r, (lo, hi) in enumerate(rank_rows(T, n)):
                 args = rect_bwd_args(q, k, v, do, seg, lo, hi, h)
                 for lib in forms:
                     e, share, dq, dk, dv = check_rect_bwd_args(
@@ -2009,7 +2029,9 @@ def time_rect_bwd(dev, H=None, D=None, T=None, n=None):
     its rectangular entry, each pass of the Hopper form alone, its plain
     version, the bound of the
     rank's work and, as a yardstick only, PyTorch's varlen backward over
-    the rank's pieces of its segments; H2 on the whole batch in the same
+    the rank's pieces of its segments; the dk/dv pass over the rank's
+    touched key blocks alone (:func:`touched_keys`), whose gap to the pass
+    is what the empty blocks cost; H2 on the whole batch in the same
     call. Each rank's inputs are held first against the plain version under
     H2's gate on both forms, and so is the one-rank shape of phase 11's
     path (Tq = Tk = T). Returns the kernels line's row (times summed over
@@ -2036,8 +2058,7 @@ def time_rect_bwd(dev, H=None, D=None, T=None, n=None):
                     warmup=2)
     del o, lse, h2_args
     ranks = []
-    for r in range(n):
-        lo, hi = r * T // n, (r + 1) * T // n
+    for r, (lo, hi) in enumerate(rank_rows(T, n)):
         args = rect_bwd_args(q, k, v, do, seg, lo, hi, H)
         what = f' rank {r} of {n} at the train shape'
         for lib in ('flash_bwd', None):
@@ -2051,6 +2072,14 @@ def time_rect_bwd(dev, H=None, D=None, T=None, n=None):
         passes = {name: cuda_ms(lambda: rect_bwd_pass(which, args, seg),
                                 reps=20, warmup=2)
                   for name, which in (('dkv', 0), ('dq', 1))}
+        # the dk/dv pass over the touched key blocks alone: what the empty
+        # blocks' CTAs (their zero rows' stores and their slots) cost
+        t_args, t_seg = touched_keys(args, seg)
+        touched_ms = cuda_ms(lambda: rect_bwd_pass(0, t_args, t_seg),
+                             reps=20, warmup=2)
+        zero_rows = k.shape[0] - t_seg.shape[0]
+        zero_ms = 2 * zero_rows * H * D * 2 / HBM_BYTES_PER_S * 1e3
+        del t_args, t_seg
         plain_ms = cuda_ms(lambda: flash.segment_flash_bwd_plain(
             *args, seg_k=seg), reps=2)
         nbytes, flops = rect_bwd_work(args, seg, H, D)
@@ -2064,13 +2093,19 @@ def time_rect_bwd(dev, H=None, D=None, T=None, n=None):
                       'bound_ms': b_ms, 'bound_by': b_by,
                       'library_varlen_ms': lib_ms, 'bytes': nbytes,
                       'flops': flops, 'empty_kv_blocks': empty,
-                      'kv_blocks': int(args[9].numel())})
+                      'kv_blocks': int(args[9].numel()),
+                      'dkv_touched_ms': touched_ms,
+                      'empty_blocks_ms': passes['dkv'] - touched_ms,
+                      'zero_rows_bytes_ms': zero_ms})
         log(f'H10 rank {r} of {n} (rows {lo}-{hi} over {T} keys, H={H} '
             f'D={D}): {ms:.4f} ms ({flash.bwd_route(D)}), passes {passes}, '
             f'the mma.sync form {mma_ms:.4f} ms, plain {plain_ms:.3f} ms, '
             f'bound {b_ms:.4f} ms by {b_by} ({b_ms / ms:.3f} of it), varlen '
             f'library {lib_ms}; {empty} of {args[9].numel()} 64-row key '
-            f'blocks with an empty span')
+            f'blocks with an empty span: the dk/dv pass over the touched '
+            f'blocks alone {touched_ms:.4f} ms, so the empty blocks cost '
+            f'{passes["dkv"] - touched_ms:.4f} ms against their zero rows\' '
+            f'bytes {zero_ms:.4f} ms')
         del args, dq
         torch.cuda.empty_cache()
     del q, k, v, do
@@ -2080,6 +2115,9 @@ def time_rect_bwd(dev, H=None, D=None, T=None, n=None):
                          'bytes', 'flops')}
     passes = {name: sum(rk['passes_ms'][name] for rk in ranks)
               for name in ranks[0]['passes_ms']}
+    empty_blocks = {key: sum(rk[key] for rk in ranks)
+                    for key in ('dkv_touched_ms', 'empty_blocks_ms',
+                                'zero_rows_bytes_ms')}
     libs = [rk['library_varlen_ms'] for rk in ranks]
     lib = sum(libs) if None not in libs else None
     by = bound(total['bytes'], total['flops'], BF16_FLOP_PER_S)[1]
@@ -2087,7 +2125,8 @@ def time_rect_bwd(dev, H=None, D=None, T=None, n=None):
     log(f'H10 over the {n} ranks: {total["ms"]:.4f} ms ({ratio:.4f} of H2 '
         f'on the whole batch, {h2_ms:.4f} ms), passes {passes}, '
         f'bound {total["bound_ms"]:.4f} ms by {by}, plain '
-        f'{total["plain_ms"]:.3f} ms, varlen library {lib}')
+        f'{total["plain_ms"]:.3f} ms, varlen library {lib}; the empty dk/dv '
+        f'blocks {empty_blocks}')
     return {'name': H10_NAME, 'route': 'cuda',
             'source': 'esme_tpu_torch/csrc/flash_bwd_sm90.cu',
             'routes': {str(d): f'esme_tpu_torch/csrc/{flash.bwd_route(d)}.cu'
@@ -2100,7 +2139,8 @@ def time_rect_bwd(dev, H=None, D=None, T=None, n=None):
             'bound_ms': total['bound_ms'], 'bound_by': by,
             'library_ms': lib, 'library_varlen_ms': lib,
             'mma_sync_form_ms': total['mma_sync_form_ms'],
-            'passes_ms': passes, 'h2_whole_batch_ms': h2_ms, 'ranks': ranks,
+            'passes_ms': passes, 'empty_blocks': empty_blocks,
+            'h2_whole_batch_ms': h2_ms, 'ranks': ranks,
             'shape': f'T={T} H={H} D={D} bf16 (train batch): {n} ranks of '
                      f'{T // n} query rows over all {T} keys, times summed '
                      'over the ranks',
@@ -3515,7 +3555,10 @@ def check_mode0_ptxas():
 # H1's forward at D = 128 and H9's, which share its body there, are the
 # body that keeps two stages in flight per warpgroup
 # (flash_fwd_sm90.cu:fwd_body_1cta), at 204 registers where the serial
-# body before it took 168, no stack and no spills either way.
+# body before it took 168, no stack and no spills either way. H2's dq
+# pass at D = 64 is its 256-thread form, two CTAs an SM
+# (flash_bwd_sm90.cu:dq_ctas): ptxas fits it in 122 registers under the
+# 128 that two CTAs leave a thread, where the 384-thread form took 123.
 SM90_PRODUCTION = {
     ('flash_fwd_sm90', 'flash_fwd_sm90_kernel'): {
         32: (127, 0, 0, 0), 64: (128, 0, 0, 0), 128: (204, 0, 0, 0)},
@@ -3524,7 +3567,7 @@ SM90_PRODUCTION = {
     ('flash_bwd_sm90', 'bwd_dkv_sm90_kernel'): {
         32: (128, 0, 0, 0), 64: (160, 0, 0, 0), 128: (228, 0, 0, 0)},
     ('flash_bwd_sm90', 'bwd_dq_sm90_kernel'): {
-        32: (111, 0, 0, 0), 64: (123, 0, 0, 0), 128: (155, 0, 0, 0)},
+        32: (111, 0, 0, 0), 64: (122, 0, 0, 0), 128: (155, 0, 0, 0)},
 }
 
 

@@ -40,7 +40,9 @@
 //   issues the same loads at the top of each step (dkv_threads).
 // - dq: one CTA per (128-row q block, head), two consumer warpgroups of
 //   64 q rows over the k tiles [kstart, kend) (H1's spans); per tile
-//   S = Q K^T, dP = dO V^T, dS in registers, dQ += dS K (K MN-major).
+//   S = Q K^T, dP = dO V^T, dS in registers, dQ += dS K (K MN-major). At
+//   D = 64 there is no producer warp either: the first consumer warp
+//   loads, and two CTAs share an SM (dq_ctas).
 // Each consumer warp decides per tile, by one vote over the tile's segment
 // ids (__all_sync), whether its 16 rows and the tile's 64 columns lie in
 // one segment; only the tiles where they do not pay the mask. Segment ids
@@ -56,8 +58,16 @@
 // from shared memory without register fragments reloaded per use, loads
 // run a ring ahead of the products, and the mask is skipped on
 // one-segment tiles. Within a warpgroup the products, the exps and the
-// next products still run in series; the other warpgroup of the SM fills
-// the gaps (PERF.md has the H100's times). At D = 128 (ESM2-15B) the
+// next products still run in series; the SM's other warpgroups fill the
+// gaps: one more in the dk/dv pass, three more in the dq pass at D = 64,
+// whose two CTAs per SM took 0.78x the time of one 384-thread CTA on the
+// H100 (PERF.md has the times). Keeping two tiles in flight per
+// warpgroup (the scores of tile j + 1 under the products of tile j) was
+// slower in every form measured there: the dk/dv pass in a 256-thread
+// CTA (210 registers, no room for a producer warp) 1.15x, where that CTA
+// with the serial chain took 1.13x; with its producer warp and P^T, dS^T
+// through shared memory 1.27x; the dq pass at one CTA per SM (140
+// registers) 1.24x. At D = 128 (ESM2-15B) the
 // same chain bounds the dk/dv pass once its registers fit: its 256-thread
 // CTA gives a thread the 228 registers its accumulators and scores take,
 // where 384 threads capped them at 168 and the pass kept half of dK and
@@ -130,6 +140,23 @@ __host__ __device__ constexpr bool warp0_loads() { return D == 128; }
 template <int D>
 __host__ __device__ constexpr int dkv_threads() {
   return warp0_loads<D>() ? 2 * 128 : 3 * 128;
+}
+
+// The dq pass's threads and CTAs per SM. At D = 64 a consumer thread
+// needs 122 registers, so a CTA of the two consumer warpgroups alone (the
+// first consumer warp loads, as in the dk/dv pass at D = 128) lets two
+// CTAs share an SM: four warpgroups whose chains of products and scores
+// fill each other's gaps, where the 384-thread CTA's 123 registers left
+// room for one (its producer warp's registers count too).
+template <int D>
+__host__ __device__ constexpr bool dq_warp0_loads() { return D == 64; }
+template <int D>
+__host__ __device__ constexpr int dq_threads() {
+  return dq_warp0_loads<D>() ? 2 * 128 : 3 * 128;
+}
+template <int D>
+__host__ __device__ constexpr int dq_ctas() {
+  return dq_warp0_loads<D>() ? 2 : 1;
 }
 
 // K15's modes, in the order of esme_tpu_torch/tools/decompose_bwd.py:MODES
@@ -676,8 +703,34 @@ __device__ __forceinline__ void dq_body(
   }
   __syncthreads();
 
+  // The first consumer warp's loads at D = 64 (dq_warp0_loads): Q and dO of
+  // the block, then k tile j (k, v, the tile's ids) into stage j % ST once
+  // the stage's last round is handed back. The producer warp below keeps
+  // its own copy of these steps, as in dkv_body.
+  auto load_qdo = [&]() {
+    mbar_expect_tx(qdo_bar, 2 * L::Q_TILE);
+    tma_tile<D, BQ>(smem + L::Q, &tm_q, qdo_bar, col0, q0);
+    tma_tile<D, BQ>(smem + L::DO, &tm_do, qdo_bar, col0, q0);
+  };
+  auto load_k = [&](int j, int lane) {
+    const int s = j % ST;
+    mbar_wait(&empty[s], ((j / ST) & 1) ^ 1);
+    const int k0 = (kb0 + j) * KT;
+    if (lane == 0) {
+      mbar_expect_tx(&full[s], 2 * L::K_TILE);
+      tma_tile<D, KT>(k_tile(s), &tm_k, &full[s], col0, k0);
+      tma_tile<D, KT>(v_tile(s), &tm_v, &full[s], col0, k0);
+    }
+#pragma unroll
+    for (int i = lane; i < KT; i += 32) {
+      const int t = k0 + i;
+      cp_async4(smem_u32(ids(s) + i), segk + (t < Tk ? t : 0), t < Tk);
+    }
+    mbar_arrive_cp_async(&full[s]);
+  };
+
   const int wg = threadIdx.x / 128;
-  if (wg == 2) {
+  if (!dq_warp0_loads<D>() && wg == 2) {
     if (threadIdx.x % 128 >= 32) return;
     const int lane = threadIdx.x & 31;
     if (lane == 0) {
@@ -705,6 +758,11 @@ __device__ __forceinline__ void dq_body(
   } else {
     const int warp = (threadIdx.x % 128) >> 5;
     const int lane = threadIdx.x & 31;
+    const bool loader = dq_warp0_loads<D>() && threadIdx.x < 32;
+    if (loader) {
+      if (lane == 0) load_qdo();
+      for (int j = 0; j < ST - 1 && j < n; ++j) load_k(j, lane);
+    }
     const int g = lane >> 2;
     const int tq = lane & 3;
     const int row0 = wg * 64 + warp * 16;   // the warp's first q row
@@ -743,6 +801,7 @@ __device__ __forceinline__ void dq_body(
       named_barrier(1 + wg, 128);
     }
     for (int it = 0; it < n; ++it) {
+      if (loader && it + ST - 1 < n) load_k(it + ST - 1, lane);
       const int s = it % ST;
       mbar_wait(&full[s], (it / ST) & 1);
       const uint32_t ks = smem_u32(k_tile(s));
@@ -866,7 +925,7 @@ __device__ __forceinline__ void dq_body(
 }
 
 template <int D, int MODE>
-__global__ void __launch_bounds__(3 * 128, 1)
+__global__ void __launch_bounds__(dq_threads<D>(), dq_ctas<D>())
 bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v,
@@ -883,7 +942,7 @@ bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 // H10's dq pass: Tq query rows with ids seg_q over Tk key rows with ids
 // seg_k
 template <int D>
-__global__ void __launch_bounds__(3 * 128, 1)
+__global__ void __launch_bounds__(dq_threads<D>(), dq_ctas<D>())
 bwd_dq_rect_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                         const __grid_constant__ CUtensorMap tm_k,
                         const __grid_constant__ CUtensorMap tm_v,
@@ -967,7 +1026,7 @@ cudaError_t launch_dq(const Args& a) {
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
     if (err != cudaSuccess) return err;
-    kernel<<<grid, 3 * 128, L::BYTES, a.stream>>>(
+    kernel<<<grid, dq_threads<D>(), L::BYTES, a.stream>>>(
         tq, tk, tv, tdo, a.lse, a.delta, a.seg, a.segk, a.kstart, a.kend,
         a.dq, a.T, a.Tk, a.H, a.scale, a.scale * LOG2E);
   } else {
@@ -975,7 +1034,7 @@ cudaError_t launch_dq(const Args& a) {
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
     if (err != cudaSuccess) return err;
-    kernel<<<grid, 3 * 128, L::BYTES, a.stream>>>(
+    kernel<<<grid, dq_threads<D>(), L::BYTES, a.stream>>>(
         tq, tk, tv, tdo, a.lse, a.delta, a.seg, a.kstart, a.kend, a.dq, a.T,
         a.H, a.scale, a.scale * LOG2E);
   }

@@ -118,7 +118,7 @@ def attention_batch(budget: int = BUDGET, seed: int = FWD_SEED,
     q, k, v = randn(), randn(), randn()
     return SimpleNamespace(q=q, k=k, v=v, do=randn() if grads else None,
                            seg=seg, pos=pos, spans=spans, cu=cu, T=T,
-                           H=heads, D=head_dim, device=dev)
+                           budget=budget, H=heads, D=head_dim, device=dev)
 
 
 def pad_rows(x, n: int, value=0):

@@ -1,8 +1,8 @@
 """Time a variant of H1's, H2's or H5's Hopper source, or of H4's or H8's,
 against the source.
 
-    python -m esme_tpu_torch.tools.sm90_ab FORM VARIANT.cu [--heads H]
-        [--head-dim D]
+    python -m esme_tpu_torch.tools.sm90_ab FORM VARIANT.cu [VARIANT.cu ...]
+        [--heads H] [--head-dim D] [--ranks N]
 
 ``FORM`` is ``flash_fwd_sm90`` (H1), ``flash_bwd_sm90`` (H2),
 ``fwd_T_sm90`` (H5's Hopper form, H1's kernel on token-minor operands),
@@ -11,14 +11,19 @@ probes on Hopper), and ``VARIANT.cu`` a copy of the form's source,
 ``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_sm90.cu``,
 ``csrc/headsplit.cu`` or ``csrc/probes_sm90.cu``, with one change to
 measure: it keeps the
-source's C entries and may include the headers of ``csrc``. Both build
-with ``_build``'s flags (the variant into ``build/esme_tpu_torch/variant/``),
-run on ``bench.py``'s 50k batch at ESM2-650M's attention (H = 20, D = 64,
+source's C entries and may include the headers of ``csrc``. Several
+copies may be named: each is timed against the source in turn. All build
+at once with ``_build``'s flags (each copy into
+``build/esme_tpu_torch/variant/``, so their file names differ), and run
+on ``bench.py``'s 50k batch at ESM2-650M's attention (H = 20, D = 64,
 bf16; ``--heads 40 --head-dim 128`` is ESM2-15B's; H1 and H5 on the
 inference batch, H5's operands made token-minor, and H9 with that batch's
 queries over its keys (one rank: Tq = Tk), H2 on the masked-LM
 batch, both passes and each alone, and H10 with that batch's queries
-over its keys (one rank: Tq = Tk); H4 on the inference batch's q, k, v
+over its keys (one rank: Tq = Tk) and on each rank of an N-rank split of
+it (``--ranks``, 4 by default: each rank's 50,000 / N queries over all
+50,000 keys, as ``chip_smoke.py`` splits the train batch; the ranks'
+medians also summed); H4 on the inference batch's q, k, v
 and positions, in each move with a token-minor side that the ops make;
 H8's dma, alone and in pairs, and dma_t, on the inference batch over
 H1's spans) through the wrapper's launch (``ops/flash.py:launch_fwd``,
@@ -44,6 +49,7 @@ import ctypes
 import math
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -61,6 +67,8 @@ from . import profile_attn
 
 # launches a side, one of each side per round
 ROUNDS = 40
+# H10's split: the ranks of phase 20's four-card cells
+RANKS = 4
 
 
 def forward_args(heads, head_dim):
@@ -86,23 +94,51 @@ def launch_forward(library, kind, args, lib=None):
     return flash.launch_fwd(library, *args, lib=lib, seg_k=seg_k)
 
 
-def backward_args(heads, head_dim):
-    """H2's arguments on the masked-LM batch."""
+def rank_split(b, ranks):
+    """H10's arguments on each rank of a ``ranks``-way split of batch
+    ``b`` (:func:`attention_batch` with ``grads``), as
+    ``chip_smoke.py:time_rect_bwd`` splits the train batch (and
+    ``ShardedMaskedPLM`` a step's): the ids of the batch's ``budget``
+    rows without the ALIGN pad, rank r's queries and output gradients
+    rows ``[r budget / ranks, (r + 1) budget / ranks)`` over all
+    ``budget`` keys, H9's lse (on its route), delta and H10's spans.
+    Returns ``[((lo, hi), arguments, seg_k)]``."""
+    from ..models.esm import packed_meta
+    budget = b.budget
+    seg = packed_meta(torch.as_tensor(b.cu, device=b.device),
+                      budget)[0].contiguous()
+    q, k, v, do = (x[:budget].contiguous() for x in (b.q, b.k, b.v, b.do))
+    out = []
+    for r in range(ranks):
+        lo, hi = r * budget // ranks, (r + 1) * budget // ranks
+        sq = seg[lo:hi].contiguous()
+        spans = flash.rect_flash_spans(sq, seg)
+        qr, dor = q[lo:hi].contiguous(), do[lo:hi].contiguous()
+        o, lse = flash.segment_flash_fwd(qr, k, v, sq, *spans[:2], b.H,
+                                         seg_k=seg)
+        out.append(((lo, hi), (qr, k, v, dor, lse,
+                               flash.attention_delta(o, dor, b.H), sq,
+                               *spans, b.H), seg))
+    return out
+
+
+def backward_cases(heads, head_dim, ranks=RANKS):
+    """H2 on the masked-LM batch, both passes (``'both'``) and each alone
+    (``'dkv'``, ``'dq'``), H10 (``'rect'``) with the batch's queries over
+    its keys, the one-rank shape, and H10 on each rank of a ``ranks``-way
+    split of the batch (``'rank'``, :func:`rank_split`; its arguments end
+    with the keys' ids): ``{case: (kind, arguments)}``."""
     b = attention_batch(seed=BWD_SEED, heads=heads, head_dim=head_dim,
                         grads=True)
     lse, delta = backward_inputs(b)
-    return (b.q, b.k, b.v, b.do, lse, delta, b.seg, *b.spans, b.H)
-
-
-def backward_cases(heads, head_dim):
-    """H2 on the masked-LM batch, both passes (``'both'``) and each alone
-    (``'dkv'``, ``'dq'``), and H10 (``'rect'``) with the batch's queries
-    over its keys, the one-rank shape: ``{case: (kind, arguments)}``."""
-    args = backward_args(heads, head_dim)
+    args = (b.q, b.k, b.v, b.do, lse, delta, b.seg, *b.spans, b.H)
     seg = args[6]
     rect = (*args[:7], *flash.rect_flash_spans(seg, seg), args[-1])
-    return {'H2': ('both', args), 'H2 dk/dv': ('dkv', args),
-            'H2 dq': ('dq', args), 'H10 one rank': ('rect', rect)}
+    cases = {'H2': ('both', args), 'H2 dk/dv': ('dkv', args),
+             'H2 dq': ('dq', args), 'H10 one rank': ('rect', rect)}
+    for r, (_, rank, seg_k) in enumerate(rank_split(b, ranks)):
+        cases[f'H10 rank {r} of {ranks}'] = ('rank', (*rank, seg_k))
+    return cases
 
 
 def launch_backward(library, kind, args, lib=None):
@@ -113,6 +149,9 @@ def launch_backward(library, kind, args, lib=None):
         return flash.launch_bwd(library, *args, lib=lib)
     if kind == 'rect':
         return flash.launch_bwd(library, *args, lib=lib, seg_k=args[6])
+    if kind == 'rank':
+        return flash.launch_bwd(library, *args[:-1], lib=lib,
+                                seg_k=args[-1])
     q = args[0]
     T, HD = q.shape
     H = args[-1]
@@ -237,21 +276,13 @@ def variant_library(path: Path, library: str) -> ctypes.CDLL:
     return lib
 
 
-def main(argv=None):
-    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument('form', choices=sorted(SOURCES))
-    p.add_argument('variant', type=Path)
-    p.add_argument('--heads', type=int, default=HEADS)
-    p.add_argument('--head-dim', type=int, default=HEAD_DIM,
-                   choices=flash.HEAD_DIMS)
-    a = p.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise RuntimeError('this tool times CUDA kernels and needs a card')
-    library, make_cases, launch = SOURCES[a.form]
-    libs = {'source': _build.library(library),
-            'variant': variant_library(a.variant, library)}
+def compare(form, cases, launch, libs, label):
+    """Each of ``cases`` on ``libs``' source and variant in turns: prints
+    and returns ``{case: {'ms', 'quartiles', 'bit_equal'}}``, with H10's
+    ranks also summed."""
+    library = SOURCES[form][0]
     out = {}
-    for case, args in make_cases(a.heads, a.head_dim).items():
+    for case, args in cases.items():
         def run(lib):
             return launch(library, *args, lib=lib)
 
@@ -261,13 +292,54 @@ def main(argv=None):
         ms = {side: t[len(t) // 2] for side, t in times.items()}
         quart = {side: (t[len(t) // 4], t[3 * len(t) // 4])
                  for side, t in times.items()}
-        print(f'{a.form} {case} (H = {a.heads}, D = {a.head_dim}): source '
+        print(f'{form} {case} ({label}): source '
               f'{ms["source"]:.4f} ms, variant '
               f'{ms["variant"]:.4f} ms ({ms["variant"] / ms["source"]:.4f}); '
               'quartiles ' + ', '.join(f'{side} {lo:.4f}-{hi:.4f}'
                                        for side, (lo, hi) in quart.items())
               + f'; outputs bit-equal: {equal}', flush=True)
         out[case] = {'ms': ms, 'quartiles': quart, 'bit_equal': equal}
+    ranks = [c for c in out if c.startswith('H10 rank ')]
+    if ranks:
+        ms = {side: sum(out[c]['ms'][side] for c in ranks)
+              for side in libs}
+        equal = all(out[c]['bit_equal'] for c in ranks)
+        print(f'{form} H10 summed over the {len(ranks)} ranks: source '
+              f'{ms["source"]:.4f} ms, variant {ms["variant"]:.4f} ms '
+              f'({ms["variant"] / ms["source"]:.4f}); every rank\'s outputs '
+              f'bit-equal: {equal}', flush=True)
+        out[f'H10 {len(ranks)} ranks summed'] = {'ms': ms, 'bit_equal': equal}
+    return out
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument('form', choices=sorted(SOURCES))
+    p.add_argument('variant', type=Path, nargs='+',
+                   help='one or more copies, built together and each '
+                        'timed against the source')
+    p.add_argument('--heads', type=int, default=HEADS)
+    p.add_argument('--head-dim', type=int, default=HEAD_DIM,
+                   choices=flash.HEAD_DIMS)
+    p.add_argument('--ranks', type=int, default=RANKS,
+                   help='H10\'s split (flash_bwd_sm90): its ranks')
+    a = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError('this tool times CUDA kernels and needs a card')
+    library, make_cases, launch = SOURCES[a.form]
+    with ThreadPoolExecutor(len(a.variant) + 1) as pool:   # nvcc in parallel
+        source = pool.submit(_build.library, library)
+        variants = list(pool.map(lambda path: variant_library(path, library),
+                                 a.variant))
+        source = source.result()
+    kw = {'ranks': a.ranks} if a.form == 'flash_bwd_sm90' else {}
+    cases = make_cases(a.heads, a.head_dim, **kw)
+    label = f'H = {a.heads}, D = {a.head_dim}'
+    out = {}
+    for path, lib in zip(a.variant, variants):
+        print(f'variant {path}', flush=True)
+        out[path.name] = compare(a.form, cases, launch,
+                                 {'source': source, 'variant': lib}, label)
     return out
 
 

@@ -23,9 +23,6 @@ Gates (each with its reason):
   to its own ``forward_flat_cp`` rows.
 """
 
-import multiprocessing
-import socket
-
 import numpy as np
 import pytest
 import torch
@@ -50,6 +47,7 @@ from esme_tpu_torch.ops import flash as tflash
 from test_torch_families import TINY, _gate
 from test_torch_families import _configs as _family_configs
 from torch_cp_ranks import CLASSES, IMPLS, cp_rank
+from torch_spawn import free_port, spawn
 
 ATOL, RTOL = 2e-5, 1e-4
 AA = list('LAGVSERTIDPKQNFYMHWC')
@@ -238,25 +236,8 @@ def _jax_params(family, dtype):
         jp['embed_tokens'].dtype)}
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(('127.0.0.1', 0))
-        return s.getsockname()[1]
-
-
 def _run_ranks(n, *args, out):
-    ctx = multiprocessing.get_context('spawn')
-    port = _free_port()
-    procs = [ctx.Process(target=cp_rank, args=(r, n, port, *args, out))
-             for r in range(n)]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(240)
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-    assert [p.exitcode for p in procs] == [0] * n
+    spawn(cp_rank, n, free_port(), *args, out, timeout=240)
     return [dict(np.load(out / f'rank{r}.npz')) for r in range(n)]
 
 

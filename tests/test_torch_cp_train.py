@@ -39,8 +39,6 @@ Gates (each with its reason):
   which Adam's first step hides.
 """
 
-import multiprocessing
-import socket
 from types import SimpleNamespace
 
 import numpy as np
@@ -66,6 +64,7 @@ from esme_tpu_torch.train import MaskedPLM, stack_batches
 
 from test_torch_context import _configs, _packed_ids, _qkv
 from torch_cp_ranks import CLASSES, _flat, fit_rank, gather_rank, train_rank
+from torch_spawn import free_port, spawn
 
 import warnings
 with warnings.catch_warnings():
@@ -201,25 +200,8 @@ def test_rect_flash_spans_match_jax():
 # the gather's gradient, the shard dims
 # -------------------------------------------------------------------------
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(('127.0.0.1', 0))
-        return s.getsockname()[1]
-
-
 def _run(target, n, *args, out, timeout=240):
-    ctx = multiprocessing.get_context('spawn')
-    port = _free_port()
-    procs = [ctx.Process(target=target, args=(r, n, port, *args, out))
-             for r in range(n)]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(timeout)
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-    assert [p.exitcode for p in procs] == [0] * n
+    spawn(target, n, free_port(), *args, out, timeout=timeout)
     return [dict(np.load(out / f'rank{r}.npz')) for r in range(n)]
 
 

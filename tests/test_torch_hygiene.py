@@ -215,7 +215,8 @@ def test_sm90_ab_takes_a_head_shape(monkeypatch, tmp_path):
     cases = sm90_ab.backward_cases(4, 128)
     assert {k: kind for k, (kind, _) in cases.items()} == {
         'H2': 'both', 'H2 dk/dv': 'dkv', 'H2 dq': 'dq',
-        'H10 one rank': 'rect'}
+        'H10 one rank': 'rect', **{f'H10 rank {r} of 4': 'rank'
+                                   for r in range(4)}}
     h2, rect = cases['H2'][1], cases['H10 one rank'][1]
     assert h2[0].shape[1] == 4 * 128 and rect[-1] == h2[-1] == 4
     # one rank: H10's spans are H2's
@@ -238,6 +239,37 @@ def test_sm90_ab_forward_cases(monkeypatch):
     h1, rect = cases['H1'][1], cases['H9 one rank'][1]
     assert h1[0].shape[1] == 4 * 128 and rect[-1] == h1[-1] == 4
     assert all(map(torch.equal, h1[:6], rect[:6]))
+
+
+def test_sm90_ab_rank_split_is_chip_smokes():
+    """``tools/sm90_ab.py``'s split of H10 over ranks is
+    ``chip_smoke.py:time_rect_bwd``'s: on a 2,048-token masked-LM batch
+    split four ways, each rank's query rows, their ids, H9's lse, delta
+    and H10's spans are the ones ``chip_smoke.py`` gives it over the same
+    keys, and the ranks cover the queries once."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from esme_tpu_torch.models.esm import packed_meta
+    from esme_tpu_torch.tools import BWD_SEED, sm90_ab
+    b = sm90_ab.attention_batch(budget=2048, seed=BWD_SEED, heads=2,
+                                head_dim=64, device='cpu',
+                                dtype=torch.float32, grads=True)
+    _, cu, _ = chip_smoke.packed_batch(2048, seed=2)
+    assert np.array_equal(b.cu, cu) and BWD_SEED == 2
+    seg = packed_meta(torch.as_tensor(cu), 2048)[0].contiguous()
+    q, k, v, do = (x[:2048] for x in (b.q, b.k, b.v, b.do))
+    split = sm90_ab.rank_split(b, 4)
+    rows = chip_smoke.rank_rows(2048, 4)
+    assert [lh for lh, *_ in split] == rows
+    assert rows[0][0] == 0 and rows[-1][1] == 2048
+    assert all(a[1] == b_[0] for a, b_ in zip(rows, rows[1:]))
+    for ((lo, hi), args, seg_k), want in zip(
+            split, (chip_smoke.rect_bwd_args(q, k, v, do, seg, lo, hi, 2)
+                    for lo, hi in rows)):
+        assert torch.equal(seg_k, seg)
+        assert args[-1] == want[-1] == 2
+        for got, ref in zip(args[:-1], want[:-1]):
+            assert torch.equal(got, ref)
 
 
 def test_entry_points_pin_fp32_accumulation(monkeypatch):

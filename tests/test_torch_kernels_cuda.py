@@ -59,6 +59,12 @@ Gates:
   and no ``wgmma`` serialisation warning; H1, H5 and H9 bit-equal from
   call to call, H5 to H1, and H9 with Tq = Tk, or on a rank whose first
   row starts a q block, to H1's rows.
+* The backward at D = 64 (ESM2-650M; the dq pass in 256-thread CTAs,
+  two an SM): H2's and H10's instantiations with no stack, no spills and
+  no ``wgmma`` serialisation warning; H2 and H10 under H2's gate on
+  blocks of 0-3 tiles, one-segment tiles beside masked ones, ragged last
+  tiles and a rank whose key blocks are mostly empty; every H7 mode of
+  both passes there under its tool's gate.
 * Quantization (plain PyTorch on the card): ``quantize_int8``,
   ``quantize_nf4`` and ``dequantize`` bit-equal to the CPU's; a quantized
   model's forward against its plain versions under ``chip_smoke.py``'s
@@ -690,6 +696,159 @@ def test_flash_bwd_sm90_is_deterministic(cuda, D):
         torch.cuda.synchronize()
         for i in ((1, 2) if which == 0 else (0,)):
             assert torch.equal(outs[i], first[i])
+
+
+# Segment lengths whose 64-row tiles alternate between one segment (64-,
+# 128- and 192-row segments on tile bounds) and several (short ones);
+# 704 rows, 11 tiles, a period
+_D64_LENS = [64, 64, 7, 57, 128, 3, 5, 56, 192, 11, 53, 64]
+
+
+def _d64_ids(T, dev):
+    lens = _D64_LENS * (T // sum(_D64_LENS) + 1)
+    return torch.from_numpy(np.repeat(np.arange(len(lens)), lens)[:T]
+                            .astype(np.int32)).to(dev)
+
+
+def _tiles_walked(spans):
+    """The tiles each dk/dv CTA (its two 64-row k blocks' spans joined, as
+    the kernel joins them) and each dq CTA walk: two sets."""
+    ks, ke, qs, qe = (x.long().cpu() for x in spans)
+    pad = qs.numel() % 2
+    qs = torch.cat([qs, qs.new_full((pad,), 1 << 30)]).view(-1, 2)
+    qe = torch.cat([qe, qe.new_zeros(pad)]).view(-1, 2)
+    dkv = (qe.max(1).values - qs.min(1).values).clamp_min(0)
+    return set(dkv.tolist()), set((ke - ks).clamp_min(0).tolist())
+
+
+def _bwd_gate(got, ref, again):
+    for a, b, c in zip(got, ref, again):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a.float()).all()
+        assert torch.equal(a, c)
+        b = b.float()
+        gate = G_REL * b.abs().clamp_min(b.square().mean().sqrt())
+        assert ((a.float() - b).abs() <= gate).all()
+
+
+@pytest.mark.cuda
+def test_flash_bwd_d64_has_no_stack_or_spills(cuda):
+    """At D = 64 (ESM2-650M), H2's dk/dv and dq production
+    instantiations and H10's build with no stack frame, no spills and no
+    ``wgmma`` serialisation warning (C7512): the dk/dv pass within the
+    168 registers its 384-thread CTA leaves a thread, the dq pass within
+    the 128 that its two 256-thread CTAs an SM leave."""
+    from esme_tpu_torch import _build
+    log = _build.build_log('flash_bwd_sm90')
+    warnings = [line for line in log.splitlines() if 'C75' in line]
+    for kernel, key, cap in (('bwd_dkv_sm90_kernel', (64, 0), 168),
+                             ('bwd_dq_sm90_kernel', (64, 0), 128),
+                             ('bwd_dkv_rect_sm90_kernel', (64,), 168),
+                             ('bwd_dq_rect_sm90_kernel', (64,), 128)):
+        got = _ptxas_lines(log, kernel).get(key)
+        assert got is not None, f'{kernel}<{key}> not in the build log'
+        assert got[0] <= cap and got[1:] == (0, 0, 0), (kernel, key, got)
+        mangled = kernel + 'I' + ''.join(f'Li{x}E' for x in key) + 'E'
+        assert not [w for w in warnings if mangled in w], warnings
+
+
+@pytest.mark.cuda
+def test_flash_bwd_d64_tile_counts_match_plain(cuda):
+    """At D = 64 (the dq pass's 256-thread CTAs, two an SM, whose first
+    warp loads), H2 and H10 against their plain versions under H2's gate
+    and bit-equal from call to call, on dk/dv and dq CTAs that walk 0, 1,
+    2 and 3 tiles (a ring of three stages that a block fills in part, in
+    full, and reuses): H2 on T = 937, whose 41-row last
+    k block and ragged last q block walk one tile, with 64-row tiles of
+    one segment alternating with masked ones; H10 over 2,048 keys on a
+    rank of 64 queries (most k blocks empty), on a ragged rank of 701
+    queries from row 700, and on a rank whose first q block's ids match
+    no key (dq = 0 there). Key rows no query shares an id with get dk =
+    dv = 0; a rank that starts a q block gets H2's dq rows."""
+    H, D = 4, 64
+    rng = np.random.default_rng(64)
+
+    def randn(T):
+        return torch.from_numpy(rng.standard_normal((T, H * D))
+                                .astype(np.float32)).to(cuda) \
+            .to(torch.bfloat16)
+    seen_dkv, seen_dq = set(), set()
+    seg = _d64_ids(937, cuda)
+    q, k, v, do = (randn(937) for _ in range(4))
+    spans = flash.flash_spans(seg)
+    o, lse = flash.segment_flash_fwd(q, k, v, seg, *spans[:2], H)
+    args = (q, k, v, do, lse, flash.attention_delta(o, do, H), seg, *spans,
+            H)
+    _bwd_gate(flash.segment_flash_bwd(*args),
+              flash.segment_flash_bwd_plain(*args),
+              flash.segment_flash_bwd(*args))
+    dkv, dq = _tiles_walked(spans)
+    seen_dkv |= dkv
+    seen_dq |= dq
+
+    seg = _d64_ids(2048, cuda)
+    q, k, v, do = (randn(2048) for _ in range(4))
+    spans = flash.flash_spans(seg)
+    o, lse = flash.segment_flash_fwd(q, k, v, seg, *spans[:2], H)
+    h2 = flash.segment_flash_bwd(q, k, v, do, lse,
+                                 flash.attention_delta(o, do, H), seg,
+                                 *spans, H)
+    for lo, hi, unmatched in ((1024, 1088, 0), (700, 1401, 0),
+                              (512, 896, flash.BLOCK_Q)):
+        sq = seg[lo:hi].clone()
+        sq[:unmatched] += 10 ** 6
+        spans = flash.rect_flash_spans(sq, seg)
+        qr, dor = q[lo:hi].contiguous(), do[lo:hi].contiguous()
+        o, lse = flash.segment_flash_fwd(qr, k, v, sq, *spans[:2], H,
+                                         seg_k=seg)
+        args = (qr, k, v, dor, lse, flash.attention_delta(o, dor, H), sq,
+                *spans, H)
+        got = flash.segment_flash_bwd(*args, seg_k=seg)
+        _bwd_gate(got, flash.segment_flash_bwd_plain(*args, seg_k=seg),
+                  flash.segment_flash_bwd(*args, seg_k=seg))
+        untouched = ~torch.isin(seg, sq)
+        assert untouched.any()
+        for g in got[1:]:
+            assert not g[untouched].any()
+        if unmatched:
+            assert not got[0][:unmatched].any()
+        elif lo % flash.BLOCK_Q == 0:
+            assert torch.equal(got[0], h2[0][lo:hi])
+        dkv, dq = _tiles_walked(spans)
+        seen_dkv |= dkv
+        seen_dq |= dq
+    assert {0, 1, 2, 3} <= seen_dkv and {0, 1, 2, 3} <= seen_dq, \
+        (seen_dkv, seen_dq)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kernel', tdb.KERNELS)
+@pytest.mark.parametrize('mode', list(tdb.MODES))
+def test_bwd_variant_d64_tile_counts(cuda, mode, kernel):
+    """Each H7 mode of each Hopper pass launches at D = 64 on blocks of 1,
+    2 and 3 tiles and holds its plain version's gate (``real`` bit-equal
+    to H2), the dq pass's modes in its 256-thread CTAs, two an SM."""
+    H, D, T = 4, 64, 937
+    seg = _d64_ids(T, cuda)
+    rng = np.random.default_rng(65)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((T, H * D))
+                                    .astype(np.float32)).to(cuda)
+                   .to(torch.bfloat16) for _ in range(4))
+    spans = flash.flash_spans(seg)
+    o, lse = flash.segment_flash_fwd(q, k, v, seg, *spans[:2], H)
+    args = (q, k, v, do, lse, flash.attention_delta(o, do, H), seg, *spans,
+            H)
+    before = tdb.bwd_variant.launches
+    got = tdb.bwd_variant(kernel, mode, *args, library='flash_bwd_sm90')
+    ref = tdb.bwd_variant_plain(kernel, mode, *args,
+                                library='flash_bwd_sm90')
+    torch.cuda.synchronize()
+    assert tdb.bwd_variant.launches == before + 1
+    assert tdb.check(mode, got, ref)['ok']
+    if mode == 'real':
+        got = got if isinstance(got, tuple) else (got,)
+        dq, dk, dv = flash.segment_flash_bwd(*args)
+        assert all(map(torch.equal, got, (dq,) if kernel == 'dq'
+                       else (dk, dv)))
 
 
 @pytest.mark.cuda

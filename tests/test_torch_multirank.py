@@ -31,9 +31,6 @@ Gates (each with its reason):
   partner stays.
 """
 
-import multiprocessing
-import socket
-
 import numpy as np
 import pytest
 import torch
@@ -54,33 +51,9 @@ from esme_tpu_torch.train import MaskedPLM, stack_batches
 
 from test_torch_cp_train import _batch
 from torch_cp_ranks import _flat, silent_peer_rank, train_rank
+from torch_spawn import free_port, spawn
 
 DIMS = dict(num_layers=2, embed_dim=256, attention_heads=2)
-
-
-def _port():
-    with socket.socket() as s:
-        s.bind(('127.0.0.1', 0))
-        return s.getsockname()[1]
-
-
-def _spawn(target, n, *args, timeout):
-    """``n`` spawned ranks of ``target(rank, n, port, *args)``; every one
-    joined within ``timeout`` seconds (or killed). Returns the exit
-    codes."""
-    ctx = multiprocessing.get_context('spawn')
-    port = _port()
-    procs = [ctx.Process(target=target, args=(r, n, port, *args))
-             for r in range(n)]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(timeout)
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-            p.join()
-    return [p.exitcode for p in procs]
 
 
 def _jax_params(jcfg):
@@ -105,8 +78,8 @@ def test_sharded_head_dim_128_matches_masked_plm(shape, tmp_path):
     params = tio.params_from_jax(jax.tree.map(np.array, jp), tcfg)
     batch = _batch(7, ESM2.alphabet)
     n = int(np.prod(shape))
-    codes = _spawn(train_rank, n, shape, 'esm2', tcfg, params,
-                   stack_batches([batch]), False, tmp_path, timeout=300)
+    codes = spawn(train_rank, n, free_port(), shape, 'esm2', tcfg, params,
+                  stack_batches([batch]), False, tmp_path, timeout=300)
     assert codes == [0] * n
     ranks = [dict(np.load(tmp_path / f'rank{r}.npz')) for r in range(n)]
 
@@ -139,8 +112,8 @@ def test_mesh_groups_take_the_world_timeout(tmp_path):
     each of whose other rank stays silent for a minute, fail after about
     10 s (``tests/torch_cp_ranks.py:silent_peer_rank``)."""
     timeout_s = 10
-    codes = _spawn(silent_peer_rank, 4, timeout_s, str(tmp_path),
-                   timeout=120)
+    codes = spawn(silent_peer_rank, 4, free_port(), timeout_s,
+                  str(tmp_path), timeout=120)
     assert codes == [0] * 4
     for r in (0, 2):
         took = float(np.load(tmp_path / f'rank{r}.npz')['seconds'])

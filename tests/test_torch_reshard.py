@@ -77,11 +77,7 @@ Gates (each with its reason):
 """
 
 import functools
-import multiprocessing
-import random
-import socket
 import tempfile
-import time
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -109,6 +105,7 @@ from esme_tpu_torch.train.checkpoint import _load
 
 from test_torch_cp_train import MAX_SEGMENTS, T_BATCH, _batch
 from torch_cp_ranks import reshard_refusal_rank, reshard_rank
+from torch_spawn import free_ports, spawn
 
 LR = 1e-3
 PAIRS = {
@@ -282,48 +279,6 @@ def _runs():
     }
 
 
-def _free_ports(k):
-    """``k`` distinct ports, each free when drawn, from below Linux's
-    default ephemeral range (32768-60999). The ranks listen on them one
-    world after another, minutes later; a port of that range may by then
-    be the source port of another process's connection (the other test
-    workers' gloo worlds open many), and a rank whose listen failed with
-    EADDRINUSE left its peers waiting until the spawn timed out."""
-    rng = random.Random()
-    ports = []
-    while len(ports) < k:
-        port = rng.randrange(20000, 32768)
-        if port in ports:
-            continue
-        with socket.socket() as s:
-            try:
-                s.bind(('127.0.0.1', port))
-            except OSError:
-                continue
-        ports.append(port)
-    return ports
-
-
-def _spawn(target, n, *args, timeout):
-    """``target(rank, n, *args)`` in ``n`` spawned processes, all of which
-    must exit with 0 within ``timeout`` seconds; the others are stopped as
-    soon as one fails (they would wait for it)."""
-    ctx = multiprocessing.get_context('spawn')
-    procs = [ctx.Process(target=target, args=(r, n, *args))
-             for r in range(n)]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + timeout
-    while any(p.is_alive() for p in procs) and time.monotonic() < deadline \
-            and all(p.exitcode in (None, 0) for p in procs):
-        time.sleep(0.2)
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-        p.join()
-    assert [p.exitcode for p in procs] == [0] * n
-
-
 @functools.lru_cache(maxsize=None)
 def _pair(name):
     """The round trip of pair ``name`` for every run: its directory,
@@ -331,7 +286,7 @@ def _pair(name):
     a, b = PAIRS[name]
     out = Path(tempfile.mkdtemp(prefix=f'reshard-{name}-'))
     n = max(int(np.prod(a)), int(np.prod(b)))
-    _spawn(reshard_rank, n, _free_ports(3 * len(RUNS)), (a, b), _runs(),
+    spawn(reshard_rank, n, free_ports(3 * len(RUNS)), (a, b), _runs(),
            str(out), timeout=600)
     return out
 
@@ -595,7 +550,7 @@ def _refusals():
     run = _runs()['adam']
     other = tconfig.esm2_config(num_layers=2, embed_dim=96,
                                 attention_heads=3, dtype='float32')
-    _spawn(reshard_refusal_rank, 2, _free_ports(3), run, other, str(out),
+    spawn(reshard_refusal_rank, 2, free_ports(3), run, other, str(out),
            timeout=300)
     return [dict(np.load(out / f'rank{r}.npz')) for r in range(2)]
 
