@@ -32,8 +32,9 @@ and the contract's line:
    forward, ``flash_fwd_rect_sm90_kernel`` at D = 16-128 and
    ``flash_fwd_rect_kernel`` at every padded width) logged, with no more
    stack and spills than H1's production kernel of the same form and width
-   (none), and the Hopper one at D = 128 with the registers pinned beside
-   H1's (``SM90_PRODUCTION``); H10's (the rectangular backward: ``bwd_dkv_rect_sm90_kernel``
+   (none), and the Hopper one at D = 64 and 128 with the registers pinned
+   beside H1's (``SM90_PRODUCTION``); H10's (the rectangular backward:
+   ``bwd_dkv_rect_sm90_kernel``
    and ``bwd_dq_rect_sm90_kernel`` at D = 16-128, ``flash_bwd_dkv_rect_kernel`` and
    ``flash_bwd_dq_rect_kernel`` at every padded width) logged, with no
    more stack and spills than H2's production pass of the same form and
@@ -183,15 +184,19 @@ and the contract's line:
    ``seq`` ``DeviceMesh`` on the card; ESM2 at phase 4's size and weights
    through ``context_parallel_log_prob`` on the main batch, with every
    launch counter set to 0 just before and read just after (H9 and H3 once
-   per layer, H1 and H2 never), its log-probs finite normalised rows held
-   against the same model's ``predict_log_prob`` under phase 4's gate and
-   bit-equal to them (one rank), its time (CUDA events after a warm-up),
-   real tokens/s and peak memory beside phase 4's; the process group
-   destroyed; then H9 against its plain version under H1's gates at the
-   shapes of the path (Tq = Tk = 50,000, H = 20, D = 64, no ALIGN pad)
-   and of each rank of a 4-rank split of the main batch (12,500 query
-   rows over all 50,000 keys, on both forms), and its times there beside
-   the bound of the
+   per layer, H1 and H2 never; every H9 launch in its launch order,
+   ``expect_ordered``, as in every path that reads the counters), its
+   log-probs finite normalised rows held against the same model's
+   ``predict_log_prob`` under phase 4's gate and bit-equal to them (one
+   rank), its time (CUDA events after a warm-up), real tokens/s and peak
+   memory beside phase 4's, the host's enqueue time and the launch
+   order's share of it; the process group destroyed; then H9 against its
+   plain version under H1's gates at the shapes of the path (Tq = Tk =
+   50,000, H = 20, D = 64, no ALIGN pad) and of each rank of a 4-rank
+   split of the main batch (12,500 query rows over all 50,000 keys, on
+   both forms), o and lse in the launch order bit-equal to q-block
+   order's, and its times there in both orders, with each rank's grid in
+   waves, beside the bound of the
    rank's same-segment pairs, the plain version, its mma.sync form and, as
    a yardstick only, PyTorch's varlen forward with ``cu_seqlens_q`` over
    the rank's pieces of its segments and ``cu_seqlens_k`` over those
@@ -1015,6 +1020,7 @@ def inference_run(model, batch, what, expected):
     if launches != expected:
         fail(f'{what}: a kernel of the inference path launched {launches}, '
              f'not {expected}')
+    expect_ordered(what, launches, model.config.head_dim)
     V = model.config.vocab_size
     if tuple(lp.shape) != (len(tokens), V) or lp.dtype != torch.float32:
         fail(f'{what}: log-probs have shape {tuple(lp.shape)} {lp.dtype}')
@@ -1557,7 +1563,9 @@ def check_cp(dev, batch, phase4_ms):
     the same model's ``predict_log_prob`` under phase 4's gate and
     bit-equal to them (a world of one); its time
     (CUDA events after a warm-up), real tokens/s and peak memory beside
-    phase 4's. The process group is destroyed at the end."""
+    phase 4's, the host's time to enqueue it and, of that, to build H9's
+    launch order (:func:`order_host_ms`). The process group is destroyed
+    at the end."""
     import torch.distributed as dist
     from esme_tpu_torch import ESM2
     from esme_tpu_torch.parallel import (context_parallel_log_prob,
@@ -1583,6 +1591,8 @@ def check_cp(dev, batch, phase4_ms):
         log(f'context-parallel path launches per forward: {launches}')
         expect_launches('context-parallel path', launches,
                         **{H9_NAME: L, H3_NAME: L})
+        expect_ordered('context-parallel path', launches,
+                       model.config.head_dim)
         V = model.config.vocab_size
         if tuple(lp.shape) != (len(tokens), V) or lp.dtype != torch.float32:
             fail(f'context-parallel log-probs have shape '
@@ -1614,26 +1624,66 @@ def check_cp(dev, batch, phase4_ms):
                    for i in range(FWD_REPS)]
         peak = torch.cuda.max_memory_allocated()
         ms = float(np.median(samples))
+        t0 = time.perf_counter()
+        run()
+        host_ms = (time.perf_counter() - t0) * 1e3     # enqueue, no sync
+        torch.cuda.synchronize()
+        order_ms = order_host_ms(tokens.shape[0], cu, dev)
         log(f'context-parallel path: median {ms:.2f} ms per batch of '
             f'{FWD_REPS} (min {min(samples):.2f}, max {max(samples):.2f}), '
             f'{real / ms * 1e3:.1f} real tokens/s, peak memory '
             f'{peak / 2**30:.2f} GiB; predict_log_prob (phase 4) '
-            f'{phase4_ms:.2f} ms ({ms / phase4_ms:.4f})')
+            f'{phase4_ms:.2f} ms ({ms / phase4_ms:.4f}); host returns after '
+            f'{host_ms:.2f} ms, of which H9\'s launch order '
+            f'{order_ms:.3f} ms (once per forward)')
         del model
         torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
     return {'launches': launches, 'vs_predict_log_prob': check,
             'ms_per_batch': ms, 'ms_per_batch_samples': samples,
+            'host_enqueue_ms': host_ms, 'order_host_ms': order_ms,
             'real_tokens_per_s': real / ms * 1e3,
             'peak_mem_gib': peak / 2**30, 'phase4_ms_per_batch': phase4_ms}
+
+
+def order_host_ms(T, cu, dev, reps=20):
+    """The host's time to build H9's launch order once
+    (``ops/flash.py:fwd_order`` over a one-rank forward's spans of the
+    batch ``cu``, as ``forward_flat_cp`` builds it once per forward): the
+    mean of ``reps`` calls, each enqueued without a sync, in ms."""
+    from esme_tpu_torch.models.esm import packed_meta
+    from esme_tpu_torch.ops import flash
+    seg = packed_meta(torch.as_tensor(cu, device=dev), T)[0] \
+        .to(torch.int32).contiguous()
+    ks, ke = flash.rect_spans(seg, seg)
+    flash.fwd_order(ks, ke)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        flash.fwd_order(ks, ke)
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
+
+
+def grid_waves(nqb, H, D, dev):
+    """H1's or H9's grid of ``nqb`` q blocks by ``H`` heads in waves of
+    the card's CTA slots: its SMs times the kernel's CTAs an SM (two at D
+    <= 64, one at 128: ``csrc/flash_fwd_sm90.cu:ctas_per_sm``)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count \
+        if dev.type == 'cuda' else 132
+    return nqb * H / (sms * (2 if D <= 64 else 1))
 
 
 def time_rect(cu, dev, H=None, D=None, T=None, n=None, mask_skip=True):
     """H9's times at the main inference shape (H = 20, D = 64, or ``H``
     heads of ``D``) for each rank of an ``n``-rank world over the T tokens
     of the batch ``cu`` (the split ``forward_flat_cp`` makes, T / n query
-    rows over all T keys): the kernel, its mma.sync form through its
+    rows over all T keys): the kernel in its launch order (the path's:
+    ``ops/flash.py:fwd_order`` at the head dims of ``ORDER_HEAD_DIMS``)
+    and in q-block order, with the rank's grid in waves
+    (:func:`grid_waves`), its mma.sync form through its
     rectangular entry, its plain version, the bound of the rank's work
     and, as a yardstick only, PyTorch's varlen forward over the rank's
     pieces of its segments; with ``mask_skip``, the Hopper form on rank 0
@@ -1641,9 +1691,10 @@ def time_rect(cu, dev, H=None, D=None, T=None, n=None, mask_skip=True):
     are held first against the plain version under H1's gates, on H9's
     route and on the mma.sync form (``check_flash_args``), and so is the
     one-rank shape that phase 10's path gives H9 (Tq = Tk = T, no ALIGN
-    pad, a ragged last block). Returns the kernels line's row (times
-    summed over the ranks, the largest errors of those checks) without
-    launches."""
+    pad, a ragged last block); its o and lse in the launch order must be
+    those of q-block order bit for bit. Returns the kernels line's row
+    (times summed over the ranks, the largest errors of those checks)
+    without launches."""
     from esme_tpu_torch.models.esm import packed_meta
     from esme_tpu_torch.ops import flash
     H = H or MODEL['attention_heads']
@@ -1666,8 +1717,22 @@ def time_rect(cu, dev, H=None, D=None, T=None, n=None, mask_skip=True):
         e_o, e_l = max(e_o, eo), max(e_l, el)
         eo, el, o, _ = check_flash_args(args, what, seg_k=seg)
         e_o, e_l = max(e_o, eo), max(e_l, el)
-        ms = cuda_ms(lambda: flash.segment_flash_fwd(*args, seg_k=seg),
+        order = flash.fwd_order(*args[4:6]) \
+            if D in flash.ORDER_HEAD_DIMS else None
+        same = all(map(torch.equal,
+                       flash.segment_flash_fwd(*args, seg_k=seg, order=order),
+                       flash.segment_flash_fwd(*args, seg_k=seg)))
+        log(f'H9{what}: o and lse in the launch order bit-equal to q-block '
+            f'order\'s {same} {"ok" if same else "FAIL"}')
+        if not same:
+            fail(f'H9{what}: o and lse in the launch order are not those of '
+                 'q-block order')
+        ms = cuda_ms(lambda: flash.segment_flash_fwd(*args, seg_k=seg,
+                                                     order=order),
                      reps=20, warmup=2)
+        qb_ms = cuda_ms(lambda: flash.segment_flash_fwd(*args, seg_k=seg),
+                        reps=20, warmup=2)
+        waves = grid_waves(args[4].numel(), H, D, dev)
         mma_ms = cuda_ms(lambda: flash.launch_fwd('flash_fwd', *args,
                                                   seg_k=seg),
                          reps=20, warmup=2)
@@ -1678,12 +1743,17 @@ def time_rect(cu, dev, H=None, D=None, T=None, n=None, mask_skip=True):
         lib_ms = yardstick(f'varlen flash-attention forward (aten), rank {r} '
                            f'of {n}', lambda: varlen_rect_ms(args, seg, H, D,
                                                              reps=20), o, 'H9')
-        ranks.append({'rows': [lo, hi], 'ms': ms, 'mma_sync_form_ms': mma_ms,
+        ranks.append({'rows': [lo, hi], 'ms': ms, 'q_block_order_ms': qb_ms,
+                      'ordered': order is not None, 'waves': waves,
+                      'mma_sync_form_ms': mma_ms,
                       'plain_ms': plain_ms, 'bound_ms': b_ms,
                       'bound_by': b_by, 'library_varlen_ms': lib_ms,
                       'bytes': nbytes, 'flops': flops})
         log(f'H9 rank {r} of {n} (rows {lo}-{hi} over {T} keys, H={H} '
-            f'D={D}): {ms:.4f} ms ({flash.fwd_route(D)}), the mma.sync form '
+            f'D={D}): {ms:.4f} ms ({flash.fwd_route(D)}, '
+            f'{"launch" if order is not None else "q-block"} order), '
+            f'q-block order {qb_ms:.4f} ms ({ms / qb_ms:.4f}), '
+            f'{waves:.2f} waves, the mma.sync form '
             f'{mma_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms '
             f'by {b_by} ({b_ms / ms:.3f} of it), varlen library {lib_ms}')
         del o
@@ -1700,12 +1770,13 @@ def time_rect(cu, dev, H=None, D=None, T=None, n=None, mask_skip=True):
     del q, k, v
     torch.cuda.empty_cache()
     total = {key: sum(rk[key] for rk in ranks)
-             for key in ('ms', 'mma_sync_form_ms', 'plain_ms', 'bound_ms',
-                         'bytes', 'flops')}
+             for key in ('ms', 'q_block_order_ms', 'mma_sync_form_ms',
+                         'plain_ms', 'bound_ms', 'bytes', 'flops')}
     libs = [rk['library_varlen_ms'] for rk in ranks]
     lib = sum(libs) if None not in libs else None
     by = bound(total['bytes'], total['flops'], BF16_FLOP_PER_S)[1]
-    log(f'H9 over the {n} ranks: {total["ms"]:.4f} ms, bound '
+    log(f'H9 over the {n} ranks: {total["ms"]:.4f} ms, in q-block order '
+        f'{total["q_block_order_ms"]:.4f} ms, bound '
         f'{total["bound_ms"]:.4f} ms by {by}, plain {total["plain_ms"]:.3f} '
         f'ms, varlen library {lib}')
     return {'name': H9_NAME, 'route': 'cuda',
@@ -1715,7 +1786,9 @@ def time_rect(cu, dev, H=None, D=None, T=None, n=None, mask_skip=True):
             'replaces': 'esme_tpu/ops/flash.py:1168',
             'also_replaces': ['esme_tpu/ops/flash.py:459'],
             'max_abs_err': e_o, 'lse_max_abs_err': e_l,
-            'ms': total['ms'], 'plain_ms': total['plain_ms'],
+            'ms': total['ms'], 'q_block_order_ms': total['q_block_order_ms'],
+            'waves': [rk['waves'] for rk in ranks],
+            'plain_ms': total['plain_ms'],
             'bound_ms': total['bound_ms'], 'bound_by': by,
             'library_ms': lib, 'library_varlen_ms': lib,
             'mma_sync_form_ms': total['mma_sync_form_ms'],
@@ -3124,6 +3197,7 @@ def reset_counters():
     for f in _counters().values():
         f.launches = 0
     _counters()[H1_NAME].rect_launches = 0
+    _counters()[H1_NAME].ordered_launches = 0
     _counters()[H2_NAME].rect_launches = 0
     _counters()[H3_NAME].inverse_launches = 0
     for name in (H4_NAME, H5_NAME):
@@ -3134,6 +3208,22 @@ def reset_counters():
 
 def read_counters():
     return _launch_totals(_counters())
+
+
+def expect_ordered(what, launches, head_dim):
+    """A model path's H9 launches (``launches``, read since
+    :func:`reset_counters`) all took the forward's launch order, which its
+    context-parallel span site builds (``ops/flash.py:with_order``), at a
+    head dim of ``ORDER_HEAD_DIMS``, and none took one at another (H1
+    never does): fail otherwise. Returns the ordered launches."""
+    from esme_tpu_torch.ops import flash
+    got = _counters()[H1_NAME].ordered_launches
+    want = launches[H9_NAME] if head_dim in flash.ORDER_HEAD_DIMS else 0
+    log(f'{what}: {got} H9 launches in their launch order (expected '
+        f'{want})')
+    if got != want:
+        fail(f'{what}: {got} H9 launches took a launch order, not {want}')
+    return got
 
 
 def train_batch(budget: int, model, seeds=(2, 1)):
@@ -3186,6 +3276,7 @@ def train_cell(model, plm_cls, key, budget, ckpt, reps, falls, n_params,
     if launches != expected:
         fail(f'{what}train {key}: a kernel of the training path launched '
              f'{launches}, not {expected}')
+    expect_ordered(f'{what}train {key}', launches, model.config.head_dim)
     samples = []
     for _ in range(reps):
         torch.cuda.synchronize()
@@ -3555,7 +3646,10 @@ def check_mode0_ptxas():
 # H1's forward at D = 128 and H9's, which share its body there, are the
 # body that keeps two stages in flight per warpgroup
 # (flash_fwd_sm90.cu:fwd_body_1cta), at 204 registers where the serial
-# body before it took 168, no stack and no spills either way. H2's dq
+# body before it took 168, no stack and no spills either way. At D = 64
+# H1 and H9 share fwd_body, whose production instantiation reads H9's
+# launch order and runs an odd span's last stage at N = 64: both
+# at 128 registers, no stack and no spills, H1's pin unchanged. H2's dq
 # pass at D = 64 is its 256-thread form, two CTAs an SM
 # (flash_bwd_sm90.cu:dq_ctas): ptxas fits it in 122 registers under the
 # 128 that two CTAs leave a thread, where the 384-thread form took 123.
@@ -3563,7 +3657,7 @@ SM90_PRODUCTION = {
     ('flash_fwd_sm90', 'flash_fwd_sm90_kernel'): {
         32: (127, 0, 0, 0), 64: (128, 0, 0, 0), 128: (204, 0, 0, 0)},
     ('flash_fwd_sm90', 'flash_fwd_rect_sm90_kernel'): {
-        128: (204, 0, 0, 0)},
+        64: (128, 0, 0, 0), 128: (204, 0, 0, 0)},
     ('flash_bwd_sm90', 'bwd_dkv_sm90_kernel'): {
         32: (128, 0, 0, 0), 64: (160, 0, 0, 0), 128: (228, 0, 0, 0)},
     ('flash_bwd_sm90', 'bwd_dq_sm90_kernel'): {
@@ -7756,6 +7850,7 @@ def cp_cells20(worlds, dev, profile_dir):
             torch.cuda.synchronize()
             launches = read_counters()
             expect_launches(what, launches, **{H9_NAME: L, H3_NAME: L})
+            expect_ordered(what, launches, model.config.head_dim)
             lse_err = lp[:real].logsumexp(-1).abs().max().item()
             if tuple(lp.shape) != (len(tokens), model.config.vocab_size) \
                     or not bool(torch.isfinite(lp).all()) \

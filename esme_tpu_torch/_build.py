@@ -57,8 +57,9 @@ SIGNATURES = {
         'esme_flash_fwd_t_sm90': (I, [P] * 8 + [I, I, I, F, P]),
         'esme_segment_flash_fwd_sm90_variant': (I, [I] + [P] * 8
                                                 + [I, I, I, F, P]),
+        # H9's entry ends with its launch order (null: q-block order)
         'esme_segment_flash_fwd_rect_sm90': (I, [P] * 9
-                                             + [I, I, I, I, F, P]),
+                                             + [I, I, I, I, F, P, P]),
         'esme_flash_fwd_sm90_error_string': (ctypes.c_char_p, [I]),
     },
     'flash_bwd': {

@@ -68,13 +68,30 @@
 //   allow 128, so there is no producer warp: a 288-thread CTA caps them
 //   at 96 (its 18 warps put five on one of the SM's four register files);
 // - the mask is skipped on one-segment stages and halved in cost where
-//   only the keys cross a segment (5% at the 50k shape).
-// Issuing S of the next stage before the softmax of this one (two stages
-// in flight per warpgroup) ran no faster: the four warpgroups of an SM
-// already keep it as busy. At D = 16 and 24 (ESM2-8M, -35M) the products
-// shrink with D and the exps do not: one per pair at the SFU's 16 per SM
-// per clock bounds the kernel, and the padded tiles cost products and L2
-// reads that this bound leaves room for. PERF.md has the H100's times.
+//   only the keys cross a segment (5% at the 50k shape);
+// - at D = 64 (prod64) an odd span's last stage runs over its first tile
+//   alone, N = 64 products and a 64-key softmax, where the 128-key stage
+//   computed a tile that matches no q row (on ESM2-650M's 50k inference
+//   batch 3.0% of the tiles H1 walks, 2.4-3.4% of each of 4 ranks');
+//   its p would be exact zeros, so the bits stay. Peeled out of the loop,
+//   it keeps 128 registers and no wgmma serialisation (inside the loop,
+//   ptxas serialised the products: 1.04x as long on an H100 80GB HBM3 at
+//   700 W, tools/sm90_ab.py).
+// Since the two CTAs an SM already interleave four warpgroups, what is
+// left at D = 64 is not one pass: H6's map puts loads and barriers alone
+// at 44% of the kernel and no compute pass above 16%, and on the inference
+// batch the exps' bound at the H100's SFU rate (0.1737 ms) is the tensor
+// cores' (0.1753). Measured and not kept at D = 64 (an H100 80GB HBM3 at
+// 700 W, tools/sm90_ab.py, PERF.md): one CTA an SM with fwd_body_1cta's
+// two stages in flight per warpgroup and three in the ring (1.31x), a
+// quarter or an eighth of the exps on the FMA pipe by a degree-5
+// polynomial (1.09x, 1.04x: that pipe is not idle either). Issuing S of
+// the next stage before the softmax of this one (two stages in flight per
+// warpgroup) ran no faster: the four warpgroups of an SM already keep it
+// as busy. At D = 16 and 24 (ESM2-8M, -35M) the products shrink with D and
+// the exps do not: one per pair at the SFU's 16 per SM per clock bounds
+// the kernel, and the padded tiles cost products and L2 reads that this
+// bound leaves room for. PERF.md has the H100's times.
 //
 // D = 128 (ESM2-15B) runs a body of its own, fwd_body_1cta. Q and a stage
 // take 96 KiB and 256 threads need more than 128 registers, so one CTA
@@ -158,6 +175,29 @@
 // The work and what bounds it are H1's, over the rank's same-segment
 // pairs; H1's instantiations compile as they did (the body is shared, not
 // their parameters).
+//
+// The launch order (D = 64, THD, mode 0: prod64()). What holds H9 back
+// beyond H1 is its last wave: a rank's grid is a quarter of H1's (98 q
+// blocks x 20 heads on ESM2-650M's 50k batch split four ways: ~7.4 waves
+// of the 264 CTAs two an SM hold, where H1 has ~30), and its spans run
+// 1-15 stages. In q-block order the longest blocks land wherever the
+// batch puts them, often in the last wave, which then runs long on a part
+// of the card. With an order (ops/flash.py:fwd_order: the q blocks by
+// falling span length, ties in q-block order, empty spans last, each
+// block's span beside it) the CTA of linear index i = x + X y runs the
+// block of entry i / H and head i % H: the card dispatches rising
+// indices, so the longest blocks start first and the short ones fill the
+// last wave, and a q block's heads run together (heads outer within a
+// span length ran 1.02x as long on the ranks). The CTA reads its entry's
+// block and span by independent loads, so the order adds no round of
+// loads before its first TMA (reading the span through the block cost
+// H1 2.6%). Each CTA computes what it did in q-block order, so o and lse
+// keep their bits. On an H100 80GB HBM3 at 700 W (tools/sm90_ab.py,
+// PERF.md) the order gains ~7% on a rank's grid and nothing on H1's 30
+// waves (0.7% slower in the same turns), so H9 alone takes it: H1's
+// kernel passes the body a null order. A null order keeps
+// the grid's own (H5, H6 and every other instantiation compile as
+// before).
 
 #include <limits.h>
 
@@ -348,16 +388,28 @@ __device__ __forceinline__ void softmax_stage(float (&s)[N], float (&m)[2],
 // (H5, whose o goes out through tm_o)
 enum Layout { THD = 0, HDT = 1 };
 
+// H1's and H9's production kernel at D = 64 (ESM2-650M), for which the
+// body was measured: it takes a launch order (ops/flash.py:fwd_order) and
+// runs an odd span's last stage at N = 64; every other instantiation
+// compiles as before, in the grid's own order
+template <int D, int LAYOUT, int MODE>
+__host__ __device__ constexpr bool prod64() {
+  return D == 64 && LAYOUT == THD && MODE == BASELINE;
+}
+
 // The kernel's body, shared by H1 (and H5, H6) and H9: the queries have
 // ids seg over T rows and the keys ids segk over Tk rows; H1's kernel
 // passes its one seg and T for both, H9's kernel the two sides' own.
+// order: the launch order (ops/flash.py:fwd_order), or null (q-block
+// order); read where prod64().
 template <int D, int LAYOUT, int MODE>
 __device__ __forceinline__ void fwd_body(
     const CUtensorMap& tm_q, const CUtensorMap& tm_k, const CUtensorMap& tm_v,
     const CUtensorMap& tm_o, const int* __restrict__ seg,
     const int* __restrict__ segk, const int* __restrict__ kstart,
     const int* __restrict__ kend, bf16* __restrict__ o,
-    float* __restrict__ lse, int T, int Tk, int H, float scale_log2) {
+    float* __restrict__ lse, int T, int Tk, int H, float scale_log2,
+    const int* __restrict__ order) {
   using G = Geo<D>;
   using L = FwdSmem<D>;
   constexpr bool hdt = LAYOUT == HDT;
@@ -377,13 +429,35 @@ __device__ __forceinline__ void fwd_body(
     return reinterpret_cast<int*>(smem + L::IDS) + s * KS;
   };
 
-  const int qb = blockIdx.x;
-  const int h = blockIdx.y;
+  // the CTA's (q block, head) and span: the grid's own, or with a launch
+  // order (3 rows of X entries: q block, kstart, kend) entry r = i / H and
+  // head i % H of the CTA's linear index i, which the card dispatches in
+  // rising order: the longest spans start in the first wave, and a q
+  // block's heads run together. The entry's three loads are independent,
+  // as the grid's two span loads are.
+  int qb = blockIdx.x;
+  int h = blockIdx.y;
+  int kb0, kb1;
+  if (prod64<D, LAYOUT, MODE>() && order != nullptr) {
+    const int i = blockIdx.x + gridDim.x * blockIdx.y;
+    const int r = i / H;
+    qb = order[r];
+    kb0 = order[gridDim.x + r];
+    kb1 = order[2 * gridDim.x + r];
+    h = i - r * H;
+  } else {
+    kb0 = kstart[qb];
+    kb1 = kend[qb];
+  }
   const int HD = H * D;
   const int q0 = qb * BQ;
   const int col0 = h * D;
-  const int kb0 = kstart[qb];
-  const int ns = (max(kend[qb] - kb0, 0) + 1) / 2;   // stages of the span
+  const int ns = (max(kb1 - kb0, 0) + 1) / 2;   // stages of the span
+  // an odd span's last stage, whose second tile matches no q row, runs
+  // after the loop over its first tile alone (prod64)
+  const bool odd =
+      prod64<D, LAYOUT, MODE>() && kb1 > kb0 && ((kb1 - kb0) & 1);
+  const int ns_full = ns - odd;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < ST; ++s) {
@@ -472,7 +546,7 @@ __device__ __forceinline__ void fwd_body(
     fence_proxy_async();
     named_barrier(1 + wg, 128);
   }
-  for (int it = 0; it < ns; ++it) {
+  for (int it = 0; it < ns_full; ++it) {
     if (loader && it + ST - 1 < ns) load(it + ST - 1);
     const int s = it % ST;
     mbar_wait(&full[s], (it / ST) & 1);
@@ -586,6 +660,56 @@ __device__ __forceinline__ void fwd_body(
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);
+  }
+  if constexpr (prod64<D, LAYOUT, MODE>()) {
+    if (odd) {
+      // S, the softmax, P and P V over the stage's first 64 keys (N = 64,
+      // four k-steps of P V): the second tile's keys would score -1e30 and
+      // add exact zeros to l and O, so the bits are the 128-key stage's.
+      // Its ids match no q row, so the 128-key vote would fail: the masked
+      // path runs, as it would have.
+      const int it = ns - 1;
+      const int s = it % ST;
+      mbar_wait(&full[s], (it / ST) & 1);
+      const uint32_t ks = smem_u32(k_rows(s));
+      const uint32_t vs = smem_u32(v_rows(s));
+      const int* sid = ids(s);
+      const int kn = Tk - (kb0 + 2 * it) * KT;
+      float sh[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < G::KSTEPS; ++kk)
+        wgmma_ss_n64(sh, desc_k<D, BQ>(qs, wg * 64, kk),
+                     desc_k<D, KS>(ks, 0, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sh);
+      float alpha[2];
+      if (quni && kn >= KS)
+        softmax_stage<Mask::keys, MODE>(sh, m, l, alpha, sid, sq, kn, tq,
+                                        scale_log2);
+      else
+        softmax_stage<Mask::any, MODE>(sh, m, l, alpha, sid, sq, kn, tq,
+                                       scale_log2);
+      uint32_t pa[KT / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < KT / 16; ++kk) acc_to_a(pa[kk], sh, kk);
+      if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+        for (int i = 0; i < G::HALF_COLS / 2; ++i)
+          acc[0][i] *= alpha[(i >> 1) & 1];
+      }
+      fence_regs(acc[0]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KT / 16; ++kk)
+        wgmma_rs(acc[0], pa[kk], desc_mn<D, KS>(vs, kk, 0));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc[0]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
   }
 
   // epilogue: full row sums, o = acc / l into (T, H*D), lse into (H, T);
@@ -954,9 +1078,9 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     static_assert(MODE == BASELINE, "the ablation modes are built at D = 64");
     fwd_body_1cta<D, LAYOUT>(tm_q, tm_k, tm_v, tm_o, seg, seg, kstart, kend,
                              o, lse, T, T, H, scale_log2);
-  } else {
+  } else {   // H1 in q-block order
     fwd_body<D, LAYOUT, MODE>(tm_q, tm_k, tm_v, tm_o, seg, seg, kstart, kend,
-                              o, lse, T, T, H, scale_log2);
+                              o, lse, T, T, H, scale_log2, nullptr);
   }
 }
 
@@ -971,13 +1095,14 @@ flash_fwd_rect_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const int* __restrict__ kstart,
                            const int* __restrict__ kend,
                            bf16* __restrict__ o, float* __restrict__ lse,
-                           int Tq, int Tk, int H, float scale_log2) {
+                           int Tq, int Tk, int H, float scale_log2,
+                           const int* __restrict__ order) {
   if constexpr (ctas_per_sm<D>() == 1)
     fwd_body_1cta<D, THD>(tm_q, tm_k, tm_v, tm_q, seg_q, seg_k, kstart, kend,
                           o, lse, Tq, Tk, H, scale_log2);
   else
     fwd_body<D, THD, BASELINE>(tm_q, tm_k, tm_v, tm_q, seg_q, seg_k, kstart,
-                               kend, o, lse, Tq, Tk, H, scale_log2);
+                               kend, o, lse, Tq, Tk, H, scale_log2, order);
 }
 
 template <int D, int LAYOUT, int MODE = BASELINE>
@@ -1046,8 +1171,11 @@ template <int D>
 cudaError_t launch_rect(const void* q, const void* k, const void* v,
                         const int* seg_q, const int* seg_k, const int* kstart,
                         const int* kend, void* o, float* lse, int Tq, int Tk,
-                        int H, float scale, cudaStream_t stream) {
+                        int H, float scale, cudaStream_t stream,
+                        const int* order) {
   using L = FwdSmem<D>;
+  if (order != nullptr && !prod64<D, THD, BASELINE>())
+    return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
   const int HD = H * D;
   cudaError_t err;
@@ -1062,7 +1190,7 @@ cudaError_t launch_rect(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   kernel<<<dim3((Tq + BQ - 1) / BQ, H), NTHREADS, L::BYTES, stream>>>(
       tq, tk, tv, seg_q, seg_k, kstart, kend, static_cast<bf16*>(o), lse, Tq,
-      Tk, H, scale * LOG2E);
+      Tk, H, scale * LOG2E, order);
   return cudaGetLastError();
 }
 
@@ -1091,35 +1219,40 @@ int esme_flash_fwd_t_sm90(const void* q, const void* k, const void* v,
 }
 
 // H9: H1 with per-side ids and lengths, q and o (Tq, H*D), k and v (Tk,
-// H*D), lse (H, Tq). D in {16, 24, 32, 64, 128}.
+// H*D), lse (H, Tq). D in {16, 24, 32, 64, 128}. order: null (q-block
+// order) or, at D = 64, the launch order, (3, nqb) int32: q blocks,
+// kstart, kend (ops/flash.py:fwd_order); the last argument, so a build from
+// before it runs q-block order on the same call.
 int esme_segment_flash_fwd_rect_sm90(const void* q, const void* k,
                                      const void* v, const void* seg_q,
                                      const void* seg_k, const void* kstart,
                                      const void* kend, void* o, void* lse,
                                      int Tq, int Tk, int H, int D,
-                                     float scale, void* stream) {
+                                     float scale, void* stream,
+                                     const void* order) {
   const int* sq = static_cast<const int*>(seg_q);
   const int* sk = static_cast<const int*>(seg_k);
   const int* ks = static_cast<const int*>(kstart);
   const int* ke = static_cast<const int*>(kend);
   float* l = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* ord = static_cast<const int*>(order);
   switch (D) {
     case 16:
       return (int)launch_rect<16>(q, k, v, sq, sk, ks, ke, o, l, Tq, Tk, H,
-                                  scale, st);
+                                  scale, st, ord);
     case 24:
       return (int)launch_rect<24>(q, k, v, sq, sk, ks, ke, o, l, Tq, Tk, H,
-                                  scale, st);
+                                  scale, st, ord);
     case 32:
       return (int)launch_rect<32>(q, k, v, sq, sk, ks, ke, o, l, Tq, Tk, H,
-                                  scale, st);
+                                  scale, st, ord);
     case 64:
       return (int)launch_rect<64>(q, k, v, sq, sk, ks, ke, o, l, Tq, Tk, H,
-                                  scale, st);
+                                  scale, st, ord);
     case 128:
       return (int)launch_rect<128>(q, k, v, sq, sk, ks, ke, o, l, Tq, Tk, H,
-                                   scale, st);
+                                   scale, st, ord);
     default: return (int)cudaErrorInvalidValue;
   }
 }

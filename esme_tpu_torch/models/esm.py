@@ -93,9 +93,11 @@ def forward_flat(params, cfg: ESMConfig, tokens, seg_ids, pos_ids, *,
     The tokens are then this rank's contiguous slice of the global batch,
     and nothing is padded: a shard-local pad would corrupt the gathered
     key layout, and H9 and H10 take any length. ``spans`` is then H9's and
-    H10's four spans over the local and the gathered ids, which every
-    layer shares (:func:`~esme_tpu_torch.ops.flash.rect_flash_spans`; the
-    caller holds both sets of ids), or None to compute them in each layer.
+    H10's four spans over the local and the gathered ids with H9's launch
+    order, which every layer shares
+    (:func:`~esme_tpu_torch.ops.flash.rect_flash_spans` and
+    :func:`~esme_tpu_torch.ops.flash.with_order`; the caller holds both
+    sets of ids), or None to compute them in each layer.
 
     ``layer_gather``/``outer_gather``: the FSDP all-gather hooks
     (``esme_tpu/models/esm.py:75-86``;

@@ -51,6 +51,7 @@ the packed batch (``models/esm.py:ALIGN``) is unrelated.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -101,6 +102,16 @@ BWD_RECT_ENTRIES = {
     'flash_bwd_sm90': 'esme_segment_flash_bwd_rect_sm90',
     'flash_bwd': 'esme_segment_flash_bwd_rect',
 }
+
+
+# The head dims at which H9 takes a launch order (:func:`fwd_order`):
+# ESM2-650M's, where it was measured (csrc/flash_fwd_sm90.cu's header); at
+# the others, and H1 at every head dim, the kernels run in q-block order
+# (H1's 30 waves of CTAs lost nothing to the order)
+ORDER_HEAD_DIMS = (64,)
+# H1's libraries whose H9 entry takes the launch order (a trailing
+# pointer; null is q-block order)
+ORDERED_LIBRARIES = ('flash_fwd_sm90',)
 
 
 def fwd_route(head_dim: int) -> str:
@@ -171,11 +182,49 @@ def flash_spans(seg_ids: torch.Tensor):
             *transposed_spans(seg_ids, BLOCK_QT, BLOCK_KV))
 
 
+def fwd_order(kstart: torch.Tensor, kend: torch.Tensor) -> torch.Tensor:
+    """H9's launch order, int32 ``(3, nqb)`` on the spans' device: row 0
+    the q blocks by falling span length (``kend - kstart`` k tiles), rows
+    1 and 2 their ``kstart`` and ``kend`` in that order.
+    Ties keep q-block order (a stable sort), and a block with an empty
+    span (``kend <= kstart``: length 0) goes last. The kernel's CTA i runs
+    the block of entry ``i // H``, head ``i % H`` (every head of a block
+    together), so the longest blocks start in the first wave and the
+    short ones fill the last; it reads the entry's block and span in one
+    round of independent loads, as in q-block order it reads the span of
+    its own block. Each CTA computes what it computed in q-block order,
+    so o and lse keep their bits."""
+    length = (kend - kstart).clamp_min(0)
+    blocks = torch.argsort(-length, stable=True)
+    return torch.stack([blocks.to(torch.int32), kstart[blocks], kend[blocks]])
+
+
+class Spans(NamedTuple):
+    """The spans a context-parallel forward computes once for every layer:
+    the four of :func:`rect_flash_spans` and, where the span site computed
+    it, H9's launch order (:func:`fwd_order`; None: q-block order).
+    ``Spans(*spans)`` takes a plain four-tuple too. The backward reads the
+    first four (``spans[:4]``)."""
+    kstart: torch.Tensor
+    kend: torch.Tensor
+    qstart: torch.Tensor
+    qend: torch.Tensor
+    order: torch.Tensor | None = None
+
+
+def with_order(spans) -> Spans:
+    """``spans`` (:func:`rect_flash_spans`) with H9's launch order: what a
+    context-parallel span site computes once per forward, with torch ops
+    on the spans' device."""
+    return Spans(*spans[:4], fwd_order(spans[0], spans[1]))
+
+
 def segment_flash_fwd_plain(q2, k2, v2, seg_ids, kstart, kend,
                             num_heads: int, scale: float | None = None,
-                            seg_k=None):
+                            seg_k=None, order=None):
     """Plain PyTorch version of H1, and with ``seg_k`` of H9: the same
-    inputs, the same outputs.
+    inputs, the same outputs (the launch order ``order`` moves none, and
+    is not read).
 
     Queries ``q2 (Tq, H·D)`` with ids ``seg_ids`` attend keys and values
     ``k2``/``v2 (Tk, H·D)`` with ids ``seg_k`` (``seg_ids`` and Tk = Tq
@@ -229,7 +278,7 @@ def segment_flash_fwd_plain(q2, k2, v2, seg_ids, kstart, kend,
 
 
 def segment_flash_fwd(q2, k2, v2, seg_ids, kstart, kend, num_heads: int,
-                      scale: float | None = None, seg_k=None):
+                      scale: float | None = None, seg_k=None, order=None):
     """Segment-masked flash attention forward (kernel H1; with ``seg_k``,
     kernel H9).
 
@@ -260,9 +309,17 @@ def segment_flash_fwd(q2, k2, v2, seg_ids, kstart, kend, num_heads: int,
         num_heads: H.
         scale: the scores' scale, ``1/sqrt(D)`` when None.
         seg_k: ``(Tk,)`` int32, the keys' ids; None for self-attention.
+        order: with ``seg_k``, ``(3, nqb)`` int32, H9's launch order
+            (:func:`fwd_order` over these spans), taken at the head dims
+            of ``ORDER_HEAD_DIMS`` (q-block order at the others); None:
+            q-block order. It moves no bit of o or lse, and the plain
+            version ignores it. H1 takes none (``ValueError``).
     Returns:
         ``o (Tq, H·D)`` in q's dtype and ``lse (H, Tq)`` fp32.
     """
+    if order is not None and seg_k is None:
+        raise ValueError('segment_flash_fwd: H1 runs in q-block order; only '
+                         'H9 (with seg_k) takes a launch order')
     if q2.device.type == 'cpu':
         return segment_flash_fwd_plain(q2, k2, v2, seg_ids, kstart, kend,
                                        num_heads, scale, seg_k)
@@ -278,9 +335,15 @@ def segment_flash_fwd(q2, k2, v2, seg_ids, kstart, kend, num_heads: int,
         ('seg_ids', seg_ids, Tq, torch.int32),
         *((('seg_k', seg_k, Tk, torch.int32),) if seg_k is not None else ()),
         ('kstart', kstart, nqb, torch.int32),
-        ('kend', kend, nqb, torch.int32)))
+        ('kend', kend, nqb, torch.int32),
+        *((('order', order, (3, nqb), torch.int32),) if order is not None
+          else ())))
+    if D not in ORDER_HEAD_DIMS:
+        order = None
     o, lse = launch_fwd(fwd_route(D), q2, k2, v2, seg_ids, kstart, kend, H,
-                        scale, seg_k=seg_k)
+                        scale, seg_k=seg_k, order=order)
+    if order is not None:
+        segment_flash_fwd.ordered_launches += 1
     if seg_k is None:
         segment_flash_fwd.launches += 1
     else:
@@ -290,17 +353,21 @@ def segment_flash_fwd(q2, k2, v2, seg_ids, kstart, kend, num_heads: int,
 
 segment_flash_fwd.launches = 0
 segment_flash_fwd.rect_launches = 0
+# H9's launches that took a launch order (a share of rect_launches)
+segment_flash_fwd.ordered_launches = 0
 
 
 def launch_fwd(name, q2, k2, v2, seg_ids, kstart, kend, num_heads: int,
-               scale: float | None = None, lib=None, seg_k=None):
+               scale: float | None = None, lib=None, seg_k=None, order=None):
     """H1's library ``name`` (a key of ``FWD_ROUTES``) launched through its
     C entry on :func:`segment_flash_fwd`'s arguments, which it does not
     check; no counter moves. With ``seg_k`` the library's rectangular
-    entry (``FWD_RECT_ENTRIES``) launches H9. ``lib``, another build of
-    the same entry (an A/B variant), takes the library's place. The
-    wrapper's launch, and a direct one for timing and comparison. Returns
-    ``o, lse``."""
+    entry (``FWD_RECT_ENTRIES``) launches H9. ``order`` (:func:`fwd_order`)
+    goes to H9's entry of ``ORDERED_LIBRARIES`` as its trailing pointer
+    (None: null, q-block order); the other forms take none.
+    ``lib``, another build of the same entry (an A/B variant), takes the
+    library's place. The wrapper's launch, and a direct one for timing and
+    comparison. Returns ``o, lse``."""
     from .. import _build
     T, HD = q2.shape
     D = HD // num_heads
@@ -317,10 +384,12 @@ def launch_fwd(name, q2, k2, v2, seg_ids, kstart, kend, num_heads: int,
             T, num_heads, D, scale, stream)
         _build.check(rc, lib, error_string, f'segment_flash_fwd ({name})')
     else:
+        tail = (None if order is None else order.data_ptr(),) \
+            if name in ORDERED_LIBRARIES else ()
         rc = getattr(lib, FWD_RECT_ENTRIES[name])(
             *(x.data_ptr() for x in (q2, k2, v2, seg_ids, seg_k, kstart,
                                      kend, o, lse)),
-            T, k2.shape[0], num_heads, D, scale, stream)
+            T, k2.shape[0], num_heads, D, scale, stream, *tail)
         _build.check(rc, lib, error_string,
                      f'segment_flash_fwd, rectangular ({name})')
     return o, lse
@@ -727,8 +796,9 @@ class _FlashRect(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q2, k2, v2, seg_q, seg_k, num_heads, spans, stash):
         o, lse = _stashed(stash, lambda: segment_flash_fwd(
-            q2, k2, v2, seg_q, spans[0], spans[1], num_heads, seg_k=seg_k))
-        ctx.save_for_backward(q2, k2, v2, o, lse, seg_q, seg_k, *spans)
+            q2, k2, v2, seg_q, spans[0], spans[1], num_heads, seg_k=seg_k,
+            order=spans.order))
+        ctx.save_for_backward(q2, k2, v2, o, lse, seg_q, seg_k, *spans[:4])
         ctx.num_heads = num_heads
         ctx.stash = stash
         return o
@@ -753,15 +823,17 @@ def segment_flash_rect(q2, k2, v2, seg_q, seg_k, num_heads: int,
     H10 backward through :class:`_FlashRect` (their plain versions on a
     CPU tensor). Query t attends key s iff ``seg_q[t] == seg_k[s]``.
     ``seg_q``, ``seg_k``: int32; ``spans``: :func:`rect_flash_spans` of
-    them (the forward reads only the first two), computed here when
-    None; ``stash``: as in :func:`segment_flash`."""
-    spans = tuple(rect_flash_spans(seg_q, seg_k) if spans is None else spans)
+    them (the forward reads only the first two), or their :class:`Spans`
+    with the launch order, computed here (without one) when None;
+    ``stash``: as in :func:`segment_flash`."""
+    spans = Spans(*(rect_flash_spans(seg_q, seg_k) if spans is None
+                    else spans))
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q2, k2, v2)):
         return _FlashRect.apply(q2, k2, v2, seg_q, seg_k, num_heads, spans,
                                 stash)
     return segment_flash_fwd(q2, k2, v2, seg_q, spans[0], spans[1],
-                             num_heads, seg_k=seg_k)[0]
+                             num_heads, seg_k=seg_k, order=spans.order)[0]
 
 
 def flash_rect_attention(q, k, v, seg_q, seg_k, *, block_q: int = BLOCK_Q,

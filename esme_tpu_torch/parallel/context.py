@@ -112,7 +112,7 @@ def forward_flat_cp(params, cfg, tokens, seg_ids, pos_ids, *,
     and ``max_seqlen`` are passed on as JAX passes them.
     """
     from ..models.esm import forward_flat
-    from ..ops.flash import rect_flash_spans
+    from ..ops.flash import rect_flash_spans, with_order
     n = axis_size(mesh, axis)
     T = tokens.shape[0]
     if T % n:
@@ -121,10 +121,10 @@ def forward_flat_cp(params, cfg, tokens, seg_ids, pos_ids, *,
     r = mesh.get_local_rank(axis)
     lo, hi = r * (T // n), (r + 1) * (T // n)
     seg_ids = seg_ids.to(torch.int32).contiguous()
-    # the gathered ids are the global ones, so H9's and H10's spans are
-    # known here
+    # the gathered ids are the global ones, so H9's and H10's spans, and
+    # H9's launch order, are known here
     spans = None if attn_impl == 'reference' \
-        else rect_flash_spans(seg_ids[lo:hi], seg_ids)
+        else with_order(rect_flash_spans(seg_ids[lo:hi], seg_ids))
     return forward_flat(
         params, cfg, tokens[lo:hi], seg_ids[lo:hi], pos_ids[lo:hi],
         with_head=with_head, log_prob=log_prob, attn_impl=attn_impl,

@@ -18,12 +18,16 @@ at once with ``_build``'s flags (each copy into
 on ``bench.py``'s 50k batch at ESM2-650M's attention (H = 20, D = 64,
 bf16; ``--heads 40 --head-dim 128`` is ESM2-15B's; H1 and H5 on the
 inference batch, H5's operands made token-minor, and H9 with that batch's
-queries over its keys (one rank: Tq = Tk), H2 on the masked-LM
-batch, both passes and each alone, and H10 with that batch's queries
-over its keys (one rank: Tq = Tk) and on each rank of an N-rank split of
-it (``--ranks``, 4 by default: each rank's 50,000 / N queries over all
-50,000 keys, as ``chip_smoke.py`` splits the train batch; the ranks'
-medians also summed); H4 on the inference batch's q, k, v
+queries over its keys (one rank: Tq = Tk) and on each rank of an N-rank
+split of it (``--ranks``, 4 by default: each rank's 50,000 / N queries
+over all 50,000 keys, as ``chip_smoke.py:time_rect`` splits it; the
+ranks' medians also summed), H9 with its launch order
+(``ops/flash.py:fwd_order``) at the head dims of ``ORDER_HEAD_DIMS``,
+H2 on the masked-LM batch, both passes and each alone, and H10 with
+that batch's queries over its keys (one rank: Tq = Tk) and on each rank
+of an N-rank split of it (``--ranks``, each rank's 50,000 / N queries
+over all 50,000 keys, as ``chip_smoke.py`` splits the train batch; the
+ranks' medians also summed); H4 on the inference batch's q, k, v
 and positions, in each move with a token-minor side that the ops make;
 H8's dma, alone and in pairs, and dma_t, on the inference batch over
 H1's spans) through the wrapper's launch (``ops/flash.py:launch_fwd``,
@@ -39,13 +43,19 @@ block on the H100 at D = 128) falls on both sides alike. Prints the
 variant's ``ptxas`` lines, each side's median and quartiles in ms, the
 variant's ratio of medians and whether its outputs (o and lse; dq, dk and
 dv; the moved tensors; the probes' outputs) are bit-equal to the
-source's. On the card only.
+source's; where a case has a launch order, the source also runs in
+q-block order in the same turns (the order's yardstick: the two medians'
+ratio, and whether the source's outputs are bit-equal under both). A
+copy from before the launch order (whose H9 entry ends at the stream)
+takes the order's trailing pointer unread, so it runs in q-block order.
+On the card only.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import math
 import subprocess
 import sys
@@ -67,31 +77,74 @@ from . import profile_attn
 
 # launches a side, one of each side per round
 ROUNDS = 40
-# H10's split: the ranks of phase 20's four-card cells
+# H9's and H10's split: the ranks of phase 20's four-card cells
 RANKS = 4
+# the side that runs the source in q-block order, in the turns of a case
+# that has a launch order
+QBLOCK = 'source, q-block order'
 
 
-def forward_args(heads, head_dim):
-    """H1's arguments on the inference batch."""
+def rect_rank_split(b, ranks):
+    """H9's arguments on each rank of a ``ranks``-way split of the
+    inference batch ``b`` (:func:`attention_batch`), as
+    ``chip_smoke.py:time_rect`` splits it (``rank_rows``, ``rect_args``)
+    and ``forward_flat_cp`` a forward's tokens: the ids of the batch's
+    ``budget`` rows without the ALIGN pad, rank r's queries rows ``[r
+    budget / ranks, (r + 1) budget / ranks)`` over all ``budget`` keys,
+    H9's spans and its launch order. Returns ``[((lo, hi), (q, k, v,
+    seg_q, kstart, kend, H, seg_k, order))]``."""
+    from ..models.esm import packed_meta
+    budget = b.budget
+    seg = packed_meta(torch.as_tensor(b.cu, device=b.device),
+                      budget)[0].contiguous()
+    k, v = (x[:budget].contiguous() for x in (b.k, b.v))
+    out = []
+    for r in range(ranks):
+        lo, hi = r * budget // ranks, (r + 1) * budget // ranks
+        sq = seg[lo:hi].contiguous()
+        ks, ke = flash.rect_spans(sq, seg)
+        out.append(((lo, hi), (b.q[lo:hi].contiguous(), k, v, sq, ks, ke,
+                               b.H, seg, flash.fwd_order(ks, ke))))
+    return out
+
+
+def forward_cases(heads, head_dim, ranks=RANKS):
+    """H1 on the inference batch (``'square'``), H9 (``'rect'``) with the
+    batch's queries over its keys, the one-rank shape, and H9 on each rank
+    of a ``ranks``-way split of the batch (:func:`rect_rank_split`), H9's
+    with its launch order (``ops/flash.py:fwd_order``) at the head dims of
+    ``ORDER_HEAD_DIMS`` (None at the others, and H1's always): ``{case:
+    (kind, (q, k, v, seg_q, kstart, kend, H, seg_k, order))}``."""
     b = attention_batch(seed=FWD_SEED, heads=heads, head_dim=head_dim)
-    return (b.q, b.k, b.v, b.seg, *b.spans[:2], b.H)
+    ordered = head_dim in flash.ORDER_HEAD_DIMS
+    h1 = (b.q, b.k, b.v, b.seg, *b.spans[:2], b.H, None, None)
+    ks, ke = flash.rect_spans(b.seg, b.seg)
+    cases = {'H1': ('square', h1),
+             'H9 one rank': ('rect', (*h1[:4], ks, ke, b.H, b.seg,
+                                      flash.fwd_order(ks, ke) if ordered
+                                      else None))}
+    for r, (_, args) in enumerate(rect_rank_split(b, ranks)):
+        cases[f'H9 rank {r} of {ranks}'] = \
+            ('rect', args if ordered else (*args[:-1], None))
+    return cases
 
 
-def forward_cases(heads, head_dim):
-    """H1 on the inference batch (``'square'``), and H9 (``'rect'``) with
-    the batch's queries over its keys, the one-rank shape: ``{case: (kind,
-    arguments)}``."""
-    args = forward_args(heads, head_dim)
-    seg = args[3]
-    rect = (*args[:4], *flash.rect_flash_spans(seg, seg)[:2], args[-1])
-    return {'H1': ('square', args), 'H9 one rank': ('rect', rect)}
+def q_block_twin(form, case_args):
+    """A forward case's arguments without its launch order, or None where
+    the case has none (every case of the other forms)."""
+    if form != 'flash_fwd_sm90' or case_args[1][-1] is None:
+        return None
+    kind, args = case_args
+    return kind, (*args[:-1], None)
 
 
 def launch_forward(library, kind, args, lib=None):
     """One of :func:`forward_cases`' launches on ``library``'s form: o and
-    lse of H1 or of H9."""
-    seg_k = args[3] if kind == 'rect' else None
-    return flash.launch_fwd(library, *args, lib=lib, seg_k=seg_k)
+    lse of H1 (``kind`` ``'square'``) or of H9 (``'rect'``), with the
+    case's launch order or none."""
+    seg_k = args[7] if kind == 'rect' else None
+    return flash.launch_fwd(library, *args[:7], lib=lib, seg_k=seg_k,
+                            order=args[8])
 
 
 def rank_split(b, ranks):
@@ -237,19 +290,19 @@ SOURCES = {
 }
 
 
-def interleaved_ms(run, libs, rounds=ROUNDS, warmup=3):
-    """``run(lib)`` for each of ``libs``, one launch of each per round,
+def interleaved_ms(runs, rounds=ROUNDS, warmup=3):
+    """Each of ``runs`` (``{side: fn}``), one launch of each per round,
     every launch between CUDA events of its own: ``{side: sorted ms}``."""
-    for lib in libs.values():
+    for run in runs.values():
         for _ in range(warmup):
-            run(lib)
-    events = {side: [] for side in libs}
+            run()
+    events = {side: [] for side in runs}
     for _ in range(rounds):
-        for side, lib in libs.items():
+        for side, run in runs.items():
             start, end = (torch.cuda.Event(enable_timing=True)
                           for _ in range(2))
             start.record()
-            run(lib)
+            run()
             end.record()
             events[side].append((start, end))
     torch.cuda.synchronize()
@@ -276,39 +329,65 @@ def variant_library(path: Path, library: str) -> ctypes.CDLL:
     return lib
 
 
+def order_note(ms, order_equal):
+    """The source's time in q-block order and the launch order's over it,
+    where ``ms`` (median ms by side) has a ``QBLOCK`` side; else ''."""
+    if QBLOCK not in ms:
+        return ''
+    return (f'; source in q-block order {ms[QBLOCK]:.4f} ms (launch order '
+            f'over it {ms["source"] / ms[QBLOCK]:.4f}, bit-equal: '
+            f'{order_equal})')
+
+
 def compare(form, cases, launch, libs, label):
-    """Each of ``cases`` on ``libs``' source and variant in turns: prints
-    and returns ``{case: {'ms', 'quartiles', 'bit_equal'}}``, with H10's
-    ranks also summed."""
+    """Each of ``cases`` on ``libs``' source and variant in turns, and a
+    case with a launch order also on the source in q-block order in the
+    same turns (``QBLOCK``: the order's yardstick, under the same drift of
+    the card's clocks): prints and returns ``{case: {'ms', 'quartiles',
+    'bit_equal', 'order_bit_equal'}}``, with H9's and H10's ranks also
+    summed. ``bit_equal``: the variant's outputs are the source's;
+    ``order_bit_equal``: the source's are the same in both orders."""
     library = SOURCES[form][0]
     out = {}
-    for case, args in cases.items():
-        def run(lib):
-            return launch(library, *args, lib=lib)
-
-        equal = all(map(torch.equal, run(libs['source']),
-                        run(libs['variant'])))
-        times = interleaved_ms(run, libs)
+    for case, case_args in cases.items():
+        runs = {side: functools.partial(launch, library, *case_args, lib=lib)
+                for side, lib in libs.items()}
+        twin = q_block_twin(form, case_args)
+        if twin is not None:
+            runs[QBLOCK] = functools.partial(launch, library, *twin,
+                                             lib=libs['source'])
+        got = {side: run() for side, run in runs.items()}
+        equal = all(map(torch.equal, got['source'], got['variant']))
+        order_equal = twin is None or \
+            all(map(torch.equal, got['source'], got[QBLOCK]))
+        times = interleaved_ms(runs)
         ms = {side: t[len(t) // 2] for side, t in times.items()}
         quart = {side: (t[len(t) // 4], t[3 * len(t) // 4])
                  for side, t in times.items()}
         print(f'{form} {case} ({label}): source '
               f'{ms["source"]:.4f} ms, variant '
-              f'{ms["variant"]:.4f} ms ({ms["variant"] / ms["source"]:.4f}); '
-              'quartiles ' + ', '.join(f'{side} {lo:.4f}-{hi:.4f}'
-                                       for side, (lo, hi) in quart.items())
+              f'{ms["variant"]:.4f} ms ({ms["variant"] / ms["source"]:.4f})'
+              f'{order_note(ms, order_equal)}; quartiles '
+              + ', '.join(f'{side} {lo:.4f}-{hi:.4f}'
+                          for side, (lo, hi) in quart.items())
               + f'; outputs bit-equal: {equal}', flush=True)
-        out[case] = {'ms': ms, 'quartiles': quart, 'bit_equal': equal}
-    ranks = [c for c in out if c.startswith('H10 rank ')]
-    if ranks:
+        out[case] = {'ms': ms, 'quartiles': quart, 'bit_equal': equal,
+                     'order_bit_equal': order_equal}
+    for kernel in ('H9', 'H10'):
+        ranks = [c for c in cases if c.startswith(f'{kernel} rank ')]
+        if not ranks:
+            continue
         ms = {side: sum(out[c]['ms'][side] for c in ranks)
-              for side in libs}
+              for side in out[ranks[0]]['ms']}
         equal = all(out[c]['bit_equal'] for c in ranks)
-        print(f'{form} H10 summed over the {len(ranks)} ranks: source '
+        order_equal = all(out[c]['order_bit_equal'] for c in ranks)
+        print(f'{form} {kernel} summed over the {len(ranks)} ranks: source '
               f'{ms["source"]:.4f} ms, variant {ms["variant"]:.4f} ms '
-              f'({ms["variant"] / ms["source"]:.4f}); every rank\'s outputs '
-              f'bit-equal: {equal}', flush=True)
-        out[f'H10 {len(ranks)} ranks summed'] = {'ms': ms, 'bit_equal': equal}
+              f'({ms["variant"] / ms["source"]:.4f})'
+              f'{order_note(ms, order_equal)}; every rank\'s '
+              f'outputs bit-equal: {equal}', flush=True)
+        out[f'{kernel} {len(ranks)} ranks summed'] = {
+            'ms': ms, 'bit_equal': equal, 'order_bit_equal': order_equal}
     return out
 
 
@@ -322,7 +401,8 @@ def main(argv=None):
     p.add_argument('--head-dim', type=int, default=HEAD_DIM,
                    choices=flash.HEAD_DIMS)
     p.add_argument('--ranks', type=int, default=RANKS,
-                   help='H10\'s split (flash_bwd_sm90): its ranks')
+                   help='H9\'s (flash_fwd_sm90) and H10\'s '
+                        '(flash_bwd_sm90) split: its ranks')
     a = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError('this tool times CUDA kernels and needs a card')
@@ -332,7 +412,8 @@ def main(argv=None):
         variants = list(pool.map(lambda path: variant_library(path, library),
                                  a.variant))
         source = source.result()
-    kw = {'ranks': a.ranks} if a.form == 'flash_bwd_sm90' else {}
+    kw = {'ranks': a.ranks} \
+        if a.form in ('flash_fwd_sm90', 'flash_bwd_sm90') else {}
     cases = make_cases(a.heads, a.head_dim, **kw)
     label = f'H = {a.heads}, D = {a.head_dim}'
     out = {}

@@ -64,7 +64,7 @@ from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from ..models.esm import forward_flat, packed_meta
 from ..models.modules import check_remat
-from ..ops.flash import rect_flash_spans
+from ..ops.flash import rect_flash_spans, with_order
 from ..ops.linear import fp32_accumulation
 from ..parallel.context import axis_size, make_kv_gather
 from ..parallel.fsdp import (_map, fsdp_partition_specs, gather_dim,
@@ -276,7 +276,7 @@ class ShardedMaskedPLM:
             tok, tgt, w = tok[lo:hi], tgt[lo:hi], w[lo:hi]
             kv_gather = make_kv_gather(self.mesh.get_group(self._seq_axis))
             if self.attn_impl != 'reference':
-                spans = rect_flash_spans(seg, seg_all)
+                spans = with_order(rect_flash_spans(seg, seg_all))
         logits = forward_flat(
             params, self.model.config, tok, seg, pos, with_head=True,
             attn_impl=self.attn_impl,

@@ -224,21 +224,42 @@ def test_sm90_ab_takes_a_head_shape(monkeypatch, tmp_path):
 
 
 def test_sm90_ab_forward_cases(monkeypatch):
-    """``tools/sm90_ab.py``'s forward cases are H1 on the inference batch
-    and H9 on one rank (its queries over its own keys), whose spans are
-    H1's, so the two launches walk the same stages."""
+    """``tools/sm90_ab.py``'s forward cases are H1 on the inference batch,
+    H9 on one rank (its queries over its own keys), whose spans are H1's,
+    so the two launches walk the same stages, and H9 on each rank of a
+    4-way split; at D = 64 H9's with its launch order, whose q-block-order
+    twin (the same arguments, no order) runs in the same turns, and H1's
+    and all at D = 128 (no order there) in q-block order alone, without a
+    twin."""
     from esme_tpu_torch.tools import sm90_ab
     b = sm90_ab.attention_batch
 
     def small(**kw):
         return b(budget=2048, device='cpu', dtype=torch.float32, **kw)
     monkeypatch.setattr(sm90_ab, 'attention_batch', small)
+    ranks = {f'H9 rank {r} of 4': 'rect' for r in range(4)}
     cases = sm90_ab.forward_cases(4, 128)
     assert {k: kind for k, (kind, _) in cases.items()} == {
-        'H1': 'square', 'H9 one rank': 'rect'}
+        'H1': 'square', 'H9 one rank': 'rect', **ranks}
+    assert all(args[-1] is None for _, args in cases.values())
+    assert not any(sm90_ab.q_block_twin('flash_fwd_sm90', c)
+                   for c in cases.values())
     h1, rect = cases['H1'][1], cases['H9 one rank'][1]
-    assert h1[0].shape[1] == 4 * 128 and rect[-1] == h1[-1] == 4
+    assert h1[0].shape[1] == 4 * 128 and rect[6] == h1[6] == 4
     assert all(map(torch.equal, h1[:6], rect[:6]))
+    assert h1[7] is None and rect[7] is h1[3]
+    cases = sm90_ab.forward_cases(4, 64)
+    assert {k: kind for k, (kind, _) in cases.items()} == {
+        'H1': 'square', 'H9 one rank': 'rect', **ranks}
+    assert cases.pop('H1')[1][-1] is None   # H1 runs in q-block order
+    for case, (kind, args) in cases.items():
+        assert torch.equal(args[-1], tflash.fwd_order(args[4], args[5]))
+        twin_kind, twin = sm90_ab.q_block_twin('flash_fwd_sm90',
+                                               (kind, args))
+        assert twin_kind == kind and twin[-1] is None
+        assert all(a is b_ for a, b_ in zip(twin[:-1], args[:-1]))
+    assert sm90_ab.q_block_twin('flash_bwd_sm90',
+                                cases['H9 one rank']) is None
 
 
 def test_sm90_ab_rank_split_is_chip_smokes():
@@ -270,6 +291,36 @@ def test_sm90_ab_rank_split_is_chip_smokes():
         assert args[-1] == want[-1] == 2
         for got, ref in zip(args[:-1], want[:-1]):
             assert torch.equal(got, ref)
+
+
+def test_sm90_ab_rect_split_is_chip_smokes():
+    """``tools/sm90_ab.py``'s split of H9 over ranks is
+    ``chip_smoke.py:time_rect``'s: on a 2,048-token inference batch split
+    four ways, each rank's query rows, their ids, the keys and H9's spans
+    are the ones ``chip_smoke.py:rect_args`` gives it, the keys' ids are
+    the batch's without the ALIGN pad, and each rank's launch order is
+    ``fwd_order`` of its spans."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from esme_tpu_torch.models.esm import packed_meta
+    from esme_tpu_torch.tools import FWD_SEED, sm90_ab
+    b = sm90_ab.attention_batch(budget=2048, seed=FWD_SEED, heads=2,
+                                head_dim=64, device='cpu',
+                                dtype=torch.float32)
+    _, cu, _ = chip_smoke.packed_batch(2048, seed=0)
+    assert np.array_equal(b.cu, cu) and FWD_SEED == 0
+    seg = packed_meta(torch.as_tensor(cu), 2048)[0].contiguous()
+    q, k, v = (x[:2048] for x in (b.q, b.k, b.v))
+    split = sm90_ab.rect_rank_split(b, 4)
+    rows = chip_smoke.rank_rows(2048, 4)
+    assert [lh for lh, _ in split] == rows
+    for ((lo, hi), args), want in zip(
+            split, (chip_smoke.rect_args(q, k, v, seg, lo, hi, 2)
+                    for lo, hi in rows)):
+        assert torch.equal(args[7], seg) and args[6] == want[-1] == 2
+        for got, ref in zip(args[:6], want[:-1]):
+            assert torch.equal(got, ref)
+        assert torch.equal(args[8], tflash.fwd_order(args[4], args[5]))
 
 
 def test_entry_points_pin_fp32_accumulation(monkeypatch):
@@ -399,13 +450,16 @@ def test_fwd_route_is_a_static_rule_on_head_dim():
         'esme_segment_flash_fwd_rect_sm90',
         'esme_flash_fwd_sm90_error_string'}
     # the same C signatures as the mma.sync form's entries (H1's, H6's,
-    # H9's)
+    # H9's), H9's with its launch order as a trailing pointer
     for entry in ('esme_segment_flash_fwd', 'esme_segment_flash_fwd_variant',
                   'esme_segment_flash_fwd_rect'):
         sm90 = entry.replace('fwd', 'fwd_sm90', 1) if 'rect' not in entry \
             else entry + '_sm90'
+        restype, argtypes = _build.SIGNATURES['flash_fwd'][entry]
+        tail = [_build.P] if 'rect' in entry else []
         assert _build.SIGNATURES['flash_fwd_sm90'][sm90] == \
-            _build.SIGNATURES['flash_fwd'][entry]
+            (restype, argtypes + tail)
+    assert tflash.ORDERED_LIBRARIES == ('flash_fwd_sm90',)
     # H9's entry of each of H1's libraries is bound
     for name, entry in tflash.FWD_RECT_ENTRIES.items():
         assert entry in _build.SIGNATURES[name]

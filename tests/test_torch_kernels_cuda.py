@@ -649,6 +649,81 @@ def test_flash_rect_fwd_d128_is_h1_rows(cuda):
             assert (lse[:, :empty] == flash.EMPTY_LSE).all()
 
 
+def _d64_batch(dev, T=4096, H=20, D=64):
+    """q, k, v and the ids of a packed batch at ESM2-650M's attention (20
+    heads of 64), the segments of :func:`_d128_batch`."""
+    return _packed([30, 7, 250, 900, 2, 400, 1000, 700, 333], T, H, D, dev,
+                   seed=64)
+
+
+@pytest.mark.cuda
+def test_flash_fwd_d64_launch_order_keeps_the_bits(cuda):
+    """At D = 64 and 20 heads, H9 (one rank of a 4-way split, and a rank
+    whose first q block matches no key) gives the same o and lse bits
+    under its launch order (``fwd_order``) as under a null order (q-block
+    order), through the wrapper, which counts the ordered launches, and
+    through the C entry; H1's wrapper refuses an order. At D = 128 the
+    wrapper launches H9 in q-block order, and the C entry refuses an order
+    there."""
+    q, k, v, seg = _d64_batch(cuda)
+    H, T = 20, q.shape[0]
+    ks, ke = flash.flash_spans(seg)[:2]
+    h1 = (q, k, v, seg, ks, ke, H)
+    with pytest.raises(ValueError, match='q-block order'):
+        flash.segment_flash_fwd(*h1, order=flash.fwd_order(ks, ke))
+    for empty in (0, flash.BLOCK_Q):
+        sq = seg[T // 4:T // 2].clone()
+        sq[:empty] += 10 ** 6
+        ks, ke = flash.rect_spans(sq, seg)
+        order = flash.fwd_order(ks, ke)
+        assert not empty or int(order[0, -1]) == 0
+        args = (q[T // 4:T // 2].contiguous(), k, v, sq, ks, ke, H)
+        before = flash.segment_flash_fwd.ordered_launches
+        got = flash.segment_flash_fwd(*args, seg_k=seg, order=order)
+        assert flash.segment_flash_fwd.ordered_launches == before + 1
+        want = flash.segment_flash_fwd(*args, seg_k=seg)
+        torch.cuda.synchronize()
+        assert all(map(torch.equal, got, want))
+        assert all(map(torch.equal, got, flash.launch_fwd(
+            'flash_fwd_sm90', *args, seg_k=seg, order=order)))
+    q8, k8, v8, seg8 = _d128_batch(cuda)
+    ks, ke = flash.rect_spans(seg8, seg8)
+    before = flash.segment_flash_fwd.ordered_launches
+    flash.segment_flash_fwd(q8, k8, v8, seg8, ks, ke, 40, seg_k=seg8,
+                            order=flash.fwd_order(ks, ke))
+    assert flash.segment_flash_fwd.ordered_launches == before
+    with pytest.raises(RuntimeError):
+        flash.launch_fwd('flash_fwd_sm90', q8, k8, v8, seg8, ks, ke, 40,
+                         seg_k=seg8, order=flash.fwd_order(ks, ke))
+
+
+@pytest.mark.cuda
+def test_flash_rect_fwd_d64_is_h1_rows(cuda):
+    """At D = 64 and 20 heads (the body that runs an odd span's last stage
+    over its first tile alone), H9 with Tq = Tk under its launch order
+    gives H1's o and lse bit for bit, and so does each rank of a 4-way
+    split whose first row starts a q block (every rank here), over H1's
+    rows of the whole batch."""
+    q, k, v, seg = _d64_batch(cuda)
+    H, T = 20, q.shape[0]
+    o1, lse1 = flash.segment_flash_fwd(q, k, v, seg,
+                                       *flash.flash_spans(seg)[:2], H)
+    rect = flash.with_order(flash.rect_flash_spans(seg, seg))
+    o9, lse9 = flash.segment_flash_fwd(q, k, v, seg, *rect[:2], H,
+                                       seg_k=seg, order=rect.order)
+    assert torch.equal(o9, o1) and torch.equal(lse9, lse1)
+    for lo in range(0, T, T // 4):
+        hi = lo + T // 4
+        assert lo % flash.BLOCK_Q == 0
+        sq = seg[lo:hi].contiguous()
+        ks, ke = flash.rect_spans(sq, seg)
+        o, lse = flash.segment_flash_fwd(q[lo:hi].contiguous(), k, v, sq,
+                                         ks, ke, H, seg_k=seg,
+                                         order=flash.fwd_order(ks, ke))
+        torch.cuda.synchronize()
+        assert torch.equal(o, o1[lo:hi]) and torch.equal(lse, lse1[:, lo:hi])
+
+
 @pytest.mark.cuda
 def test_flash_fwd_d128_is_deterministic(cuda):
     """At D = 128 and 40 heads, two calls of H1, of H5 (H1's kernel on
