@@ -135,7 +135,8 @@ and the contract's line:
    ran) under H1's gates, every ablation mode of both forms of H1 (H6, 11
    modes each) and of
    both passes of both forms of H2 (H7, 8 modes each; the Hopper form's
-   dk/dv pass over the union spans it walks) and the four ceiling probes
+   dk/dv pass over the stages it walks, ``stage_spans``) and the four
+   ceiling probes
    (H8; the streaming ones, dma and dma_t, in both forms, the Hopper form
    ``probes_sm90.cu`` and the cp.async form ``probes.cu``, and dma also in
    2-CTA pairs), each against its plain version under the gate its tool's
@@ -156,7 +157,12 @@ and the contract's line:
    H7 ``real`` of the Hopper form bit-equal to H2 and within 3% of H2's
    own passes timed in turn with it (fastest of 8 calls each, timed on the
    card alone; a gate on ``REF_CARD``), of the mma.sync form bit-equal to
-   that form and under H2's gate against the Hopper form; the mma.sync forms' times (H1's and
+   that form and under H2's gate against the Hopper form; the timeline of
+   H2's dk/dv pass at D = 64 (H7's TIMELINE mode, ``dkv_timelines``) in
+   the production form's 128-row stages and the 64-row form before it, on
+   the train batch and on rank 0 of H10's 4-way split, each run's dk and
+   dv equal to its pass's, its shares of a CTA logged with the stamps'
+   cost; the mma.sync forms' times (H1's and
    H6 ``baseline``, H2's and H7 ``real``) within 3% of their times before
    the ablation modes were added, on the card those were taken on
    (``REF_CARD``; logged on any other); H2's Hopper form faster than its
@@ -3653,13 +3659,17 @@ def check_mode0_ptxas():
 # pass at D = 64 is its 256-thread form, two CTAs an SM
 # (flash_bwd_sm90.cu:dq_ctas): ptxas fits it in 122 registers under the
 # 128 that two CTAs leave a thread, where the 384-thread form took 123.
+# H2's dk/dv pass at D = 64 walks 128-row stages in a 256-thread CTA
+# (flash_bwd_sm90.cu:dkv_qt): 240 registers of the 255 it leaves a
+# thread, no stack and no spills, where the 384-thread form with 64-row
+# stages before it took 160 under its cap of 168.
 SM90_PRODUCTION = {
     ('flash_fwd_sm90', 'flash_fwd_sm90_kernel'): {
         32: (127, 0, 0, 0), 64: (128, 0, 0, 0), 128: (204, 0, 0, 0)},
     ('flash_fwd_sm90', 'flash_fwd_rect_sm90_kernel'): {
         64: (128, 0, 0, 0), 128: (204, 0, 0, 0)},
     ('flash_bwd_sm90', 'bwd_dkv_sm90_kernel'): {
-        32: (128, 0, 0, 0), 64: (160, 0, 0, 0), 128: (228, 0, 0, 0)},
+        32: (128, 0, 0, 0), 64: (240, 0, 0, 0), 128: (228, 0, 0, 0)},
     ('flash_bwd_sm90', 'bwd_dq_sm90_kernel'): {
         32: (111, 0, 0, 0), 64: (122, 0, 0, 0), 128: (155, 0, 0, 0)},
 }
@@ -3814,6 +3824,57 @@ def check_probes_sm90_ptxas():
     return {f'stream_sm90_kernel layout={layout} cluster={cluster}':
             usage[('stream_sm90_kernel', layout, cluster)]
             for layout, cluster in H8_SM90_KERNELS}
+
+
+# H10's split whose first rank the dk/dv timeline reads (phase 20's four
+# cards)
+TIMELINE_RANKS = 4
+
+
+def dkv_timelines(b, bargs):
+    """Phase 8: the timeline of H2's dk/dv pass at D = 64 (H7's TIMELINE
+    mode, ``decompose_bwd.dkv_timeline``) in both forms, the production
+    form's 128-row stages and the 64-row form with a producer warp before
+    it, on the train batch ``b`` (H2's arguments ``bargs``) and on rank 0
+    of a ``TIMELINE_RANKS``-way split of it (H10's). Each run's dk and dv
+    must equal its production pass's (H2's, or H10's through its C entry)
+    as numbers; logs each run's shares of a CTA (``timeline_line``) and
+    the cost of the stamps (the production form's timeline against its
+    pass, in turns). Returns ``{form: {case: summary}, 'cost_ms'}``."""
+    from esme_tpu_torch.ops import flash
+    from esme_tpu_torch.tools import decompose_bwd as tdb
+    from esme_tpu_torch.tools import sm90_ab
+    (_, rank, seg_k), *_ = sm90_ab.rank_split(b, TIMELINE_RANKS)
+    cases = {'H2 train batch': (bargs, None, lambda: sm90_pass(0, bargs)[1:]),
+             f'H10 rank 0 of {TIMELINE_RANKS}': (
+                 rank, seg_k, lambda: rect_bwd_pass(0, rank, seg_k)[1:])}
+    out = {}
+    for form in tdb.TIMELINE_FORMS:
+        out[form] = {}
+        for case, (args, sk, production) in cases.items():
+            tdb.dkv_timeline(form, *args[:7], *args[9:], seg_k=sk)
+            dk, dv, stamps, stages = tdb.dkv_timeline(form, *args[:7],
+                                                      *args[9:], seg_k=sk)
+            want = production()
+            if not all(bool((a == w).all()) for a, w in zip((dk, dv), want)):
+                fail(f'the dk/dv timeline ({form}-row stages, {case}) does '
+                     'not give its pass\'s dk and dv')
+            out[form][case] = tdb.timeline_summary(stamps, stages)
+            log(tdb.timeline_line(f'H7 dk/dv timeline, {form}-row stages, '
+                                  f'{case}', out[form][case]))
+    form = flash.dkv_stage_rows(64)
+    _, n = flash.dkv_stages(*bargs[9:11], form)
+    stages = int(n.max().item())
+    cost = {k: v['min'] for k, v in fastest_calls(
+        'the production dk/dv pass against its timeline', {
+            'pass': lambda: sm90_pass(0, bargs),
+            'timeline': lambda: tdb.dkv_timeline(
+                form, *bargs[:7], *bargs[9:], stages=stages)}).items()}
+    ratio = cost['timeline'] / cost['pass']
+    log(f'the dk/dv timeline\'s stamps cost {ratio:.4f} of the pass '
+        f'({cost})')
+    out['cost_ms'] = cost
+    return out
 
 
 def check_probes(dev, h1, h2, card, h8_ptxas):
@@ -4189,6 +4250,7 @@ def check_probes(dev, h1, h2, card, h8_ptxas):
         'bound_by': max(real, key=lambda r: r['bound_ms'])['bound_by'],
         'library_ms': None,
         'mode': 'real (dk/dv + dq, bit-equal to H2)', 'modes': modes7,
+        'dkv_timeline': dkv_timelines(bt, bargs),
         'h2_ms': h2['ms'], 'h2_passes_ms': h7_vs_h2,
         'mma_sync_form_ms': sum(modes7[mma_sync][f'{k} real']['ms']
                                 for k in tdb.KERNELS),

@@ -77,6 +77,8 @@ SIGNATURES = {
                                              + [I, I, I, I, F, P]),
         'esme_flash_bwd_rect_sm90_pass': (I, [I] + [P] * 15
                                           + [I, I, I, I, F, P]),
+        'esme_flash_bwd_sm90_timeline': (I, [I] + [P] * 13
+                                         + [I, I, I, I, F, I, P]),
         'esme_flash_bwd_sm90_error_string': (ctypes.c_char_p, [I]),
     },
     'flash_fwd_t': {

@@ -25,19 +25,27 @@
 // Two deterministic passes, no atomics, no band buffer (so remat='full'
 // stays bit-equal):
 // - dk/dv: one CTA per (128-row k block, head), two consumer warpgroups
-//   of 64 k rows each. K and V of the block come in once by TMA. A
-//   producer warp walks the block's q tiles [qstart, qend) (the union of
-//   its two 64-row blocks' spans) through a ring of stages<D>() stages:
-//   per stage a 64-row q tile and its do tile by TMA, and the tile's
-//   segment ids, lse and delta by cp.async, all landing on the
-//   stage's "full" mbarrier; consumers hand the stage back on its "empty"
-//   mbarrier. Per tile and warpgroup: S^T = K Q^T and dP^T = V dO^T
-//   (wgmma, both operands from shared memory, K-major), P^T and dS^T in
-//   registers, then dV += P^T dO and dK += dS^T Q (wgmma, A = P^T and
+//   of 64 k rows each. K and V of the block come in once by TMA. The
+//   block's q rows (the union of its two 64-row blocks' spans [qstart,
+//   qend) of 64-row tiles) stream through a ring of stages<D>() stages of
+//   QT = dkv_qt<D>() rows: per stage a q tile and its do tile by TMA, and
+//   the stage's segment ids, lse and delta by cp.async, all landing on
+//   the stage's "full" mbarrier; consumers hand the stage back on its
+//   "empty" mbarrier. Per stage and warpgroup: S^T = K Q^T and dP^T = V
+//   dO^T (wgmma, both operands from shared memory, K-major), P^T and dS^T
+//   in registers, then dV += P^T dO and dK += dS^T Q (wgmma, A = P^T and
 //   dS^T straight from the accumulator registers, B = dO and Q MN-major,
-//   the transposed descriptor). At D = 128 there is no producer warp:
-//   the CTA is the two consumer warpgroups, and the first consumer warp
-//   issues the same loads at the top of each step (dkv_threads).
+//   the transposed descriptor). At D = 64 a stage is 128 q rows (the
+//   union rounded out to 128-row stages; ops/flash.py:dkv_stages mirrors
+//   the walk): N = 128 products, 8 k-steps for dV and dK; the CTA is the
+//   two consumer warpgroups (240 registers a thread), the first consumer
+//   warp issuing the loads at the top of each step; a warpgroup skips the
+//   products of a stage outside its own 64-row block's span (p is 0
+//   there); and each warpgroup writes dK and dV into its own rows of K
+//   and V, dead once its last products are waited, and stores them by
+//   TMA. At D = 16-32 a stage is a 64-row tile and a producer warp loads
+//   (a 384-thread CTA); at D = 128 64-row tiles in the 256-thread CTA
+//   (dkv_threads).
 // - dq: one CTA per (128-row q block, head), two consumer warpgroups of
 //   64 q rows over the k tiles [kstart, kend) (H1's spans); per tile
 //   S = Q K^T, dP = dO V^T, dS in registers, dQ += dS K (K MN-major). At
@@ -67,7 +75,18 @@
 // CTA (210 registers, no room for a producer warp) 1.15x, where that CTA
 // with the serial chain took 1.13x; with its producer warp and P^T, dS^T
 // through shared memory 1.27x; the dq pass at one CTA per SM (140
-// registers) 1.24x. At D = 128 (ESM2-15B) the
+// registers) 1.24x. At D = 64 the 128-row stages halve the stages a
+// dk/dv CTA walks (7.3 against 13.6 on the 50k train batch) and with them
+// the votes and waits per key; a timeline of the pass (the TIMELINE mode)
+// put 9% of a CTA in the stores of the 64-row form and 14% in waits on
+// full stages in the 128-row one, whose loads a consumer warp issues. In
+// sm90_ab's turns on the H100 (PERF.md) the 64-row form took 1.078x the
+// kept form's time on H2's dk/dv pass and 1.043x on H10's four ranks; the
+// forms that lost: 128-row stages alone 1.04x the 64-row form, with the
+// skip 1.01x; the skip and the TMA store in the 64-row form 1.074x the
+// kept form, the TMA store alone there 1.022x; four stages 1.000x; the
+// stage's ids, lse and delta by one lane's bulk copies 1.011x. At D = 128
+// (ESM2-15B) the
 // same chain bounds the dk/dv pass once its registers fit: its 256-thread
 // CTA gives a thread the 228 registers its accumulators and scores take,
 // where 384 threads capped them at 168 and the pass kept half of dK and
@@ -80,11 +99,17 @@
 // (K15) do on the TPU, to measure what each costs; their outputs are wrong
 // on purpose. Mode 0 is the production pass, and the only one
 // esme_segment_flash_bwd_sm90 launches; esme_flash_bwd_sm90_pass
-// launches one pass in mode 0 at any D, or in any mode at D = 64. A dropped product is removed
-// at compile time (no guarded wgmma). Each warpgroup faces square 64 x 64
-// tiles, so dma and no_acc pair a warpgroup's row p with the tile's row or
-// column p; the dk/dv pass walks the union of its two 64-row halves'
-// spans, in every mode.
+// launches one pass in mode 0 at any D, or in any mode at D = 64. A
+// dropped product is removed at compile time (no guarded wgmma). A
+// warpgroup's 64 rows face the stage's 64-row tiles in turn, so dma and
+// no_acc pair its row p with each tile's row or column p; the dk/dv pass
+// walks its production form's stages in every mode, and the modes that
+// keep the mask skip the stages outside a warpgroup's span as it does.
+// TIMELINE is the production dk/dv pass at D = 64 with clock stamps of
+// where each CTA's time goes (tl_words), in either form (QT = 128, or
+// the 64-row form with a producer warp that ran before it); it runs in a
+// kernel of its own (bwd_dkv_timeline_sm90_kernel), launched by
+// esme_flash_bwd_sm90_timeline.
 //
 // H10, the rectangular form (bwd_dkv_rect_sm90_kernel and
 // bwd_dq_rect_sm90_kernel, the two bodies at D = 16-128 in mode 0, in
@@ -118,28 +143,42 @@ using namespace esme;
 using namespace esme::sm90;
 
 constexpr int BKV = 128;  // dk/dv: k rows per CTA (two warpgroups)
-constexpr int QT = 64;    // dk/dv: q tile rows
 constexpr int BQ = 128;   // dq: q rows per CTA (two warpgroups)
 constexpr int KT = 64;    // dq: k tile rows
 
 template <int D>
 __host__ __device__ constexpr int stages() { return D > 64 ? 2 : 3; }
 
+// The dk/dv pass's q rows a stage (QT): 128 at D = 64, 64 at the other
+// head dims. A 128-row stage halves the stages a CTA walks, and with them
+// the full-barrier waits, the votes and the product waits per key; its
+// S^T and dP^T are N = 128 products and dV and dK take 8 k-steps over the
+// stage's rows, in the order two 64-row tiles would give them, so the
+// sums keep their bits. The walk is the 64-row spans' union rounded out
+// to 128-row stages (ops/flash.py:dkv_stages); a 64-row half the
+// rounding adds lies outside the block's segments and adds exact zeros.
+template <int D>
+__host__ __device__ constexpr int dkv_qt() { return D == 64 ? 128 : 64; }
+
 // The dk/dv pass's threads. At D = 128 a consumer thread holds dK and dV
 // (64 fp32 each), S^T and dP^T (32 each) and their bf16 fragments: 228
-// registers as ptxas allocates them. A 384-thread CTA puts three of its
-// twelve warps on one of the SM's four register files, which caps every
-// thread at 168: ptxas spilled the pass there, and setmaxnreg (the
+// registers as ptxas allocates them. At D = 64 with 128-row stages it
+// holds dK and dV (32 each) and S^T and dP^T (64 each): the same 192
+// before any fragment. A 384-thread CTA puts three of its twelve warps
+// on one of the SM's four register files, which caps every thread at
+// 168: ptxas spilled the D = 128 pass there, and setmaxnreg (the
 // producer warpgroup's registers handed to the consumers) left its
-// allocation as it was. So at D = 128 the CTA is the two consumer
-// warpgroups alone, two warps on each register file and up to 255
-// registers a thread, and the first consumer warp also loads, as H1's
-// warp 0 does.
-template <int D>
-__host__ __device__ constexpr bool warp0_loads() { return D == 128; }
-template <int D>
+// allocation as it was. So there the CTA is the two consumer warpgroups
+// alone, two warps on each register file and up to 255 registers a
+// thread, and the first consumer warp also loads, as H1's warp 0 does.
+// The 64-row form at D <= 64 keeps its producer warp (QT = 64).
+template <int D, int QT>
+__host__ __device__ constexpr bool warp0_loads() {
+  return D == 128 || QT == 128;
+}
+template <int D, int QT>
 __host__ __device__ constexpr int dkv_threads() {
-  return warp0_loads<D>() ? 2 * 128 : 3 * 128;
+  return warp0_loads<D, QT>() ? 2 * 128 : 3 * 128;
 }
 
 // The dq pass's threads and CTAs per SM. At D = 64 a consumer thread
@@ -169,12 +208,16 @@ enum Mode {
   NO_ACC,    // no accumulating products: the gradient gains max(ds)
   NO_EXP,    // p = s / 2 + 0.01 instead of the masked exp
   NO_MASK,   // no segment mask
+  // not an ablation: the production dk/dv pass at D = 64, clock stamps of
+  // where each CTA's time goes written beside it (dkv_timeline)
+  TIMELINE,
 };
 
 // The modes that keep the segment mask (skipped on one-segment tiles)
 template <int MODE>
 __host__ __device__ constexpr bool masks() {
-  return MODE == REAL || MODE == NO_S || MODE == NO_DP || MODE == NO_ACC;
+  return MODE == REAL || MODE == NO_S || MODE == NO_DP || MODE == NO_ACC ||
+         MODE == TIMELINE;
 }
 
 // p of one score (s the raw product, l2 the row's lse in base 2) and ds
@@ -205,7 +248,7 @@ __device__ __forceinline__ float smem_bf16(const unsigned char* tile,
 // dk/dv pass
 // ---------------------------------------------------------------------------
 
-template <int D, int MODE>
+template <int D, int MODE, int QT>
 struct DkvSmem {
   static constexpr int ST = stages<D>();
   static constexpr int KV_TILE = Geo<D>::template tile_bytes<BKV>();
@@ -221,16 +264,52 @@ struct DkvSmem {
   static constexpr int BYTES = BARS + (2 * ST + 1) * 8 + 1024;  // + alignment
 };
 
-// P^T and dS^T of one tile in place of S^T and dP^T: this thread's k rows
-// r (sk[r]) against the tile's q columns c = 8 j + 2 tq + e
-template <int MODE, bool MASK>
-__device__ __forceinline__ void dkv_scores(float (&s)[32], float (&dp)[32],
+// The timeline's record of one CTA (mode TIMELINE), in 64-bit words, for
+// a launch whose CTAs walk at most S stages:
+//   0: %smid; 1: the stages the CTA walks; 2, 3: %globaltimer (ns) at its
+//      entry and after its stores (thread 0);
+//   4 + 3 w + {0, 1, 2}: consumer warpgroup w's clock64 at its entry, once
+//      K and V have landed, after its stores;
+//   10 + i: stage i's loads issued (the loading warp's lane 0);
+//   10 + S + 5 (w S + i) + {0, ..., 4}: warpgroup w at stage i: its full
+//      barrier passed, S^T and dP^T waited, the scores done, dV and dK
+//      waited, the stage handed back.
+// A warpgroup's stamps are its first thread's. A CTA that leaves before
+// any barrier (an empty span in H10) writes words 0 and 1 alone.
+__host__ __device__ constexpr int tl_words(int S) { return 10 + 11 * S; }
+
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ unsigned smid() {
+  unsigned id;
+  asm volatile("mov.u32 %0, %%smid;\n" : "=r"(id));
+  return id;
+}
+
+// S^T or dP^T of one stage: d (64 x QT fp32) = A B, A the warpgroup's 64
+// k rows and B the stage's QT q rows, both K-major
+template <int QT>
+__device__ __forceinline__ void wgmma_ss_qt(float (&d)[QT / 2], uint64_t a,
+                                            uint64_t b, int accumulate) {
+  if constexpr (QT == 128) wgmma_ss_n128(d, a, b, accumulate);
+  else wgmma_ss_n64(d, a, b, accumulate);
+}
+
+// P^T and dS^T of one stage in place of S^T and dP^T: this thread's k rows
+// r (sk[r]) against the stage's q columns c = 8 j + 2 tq + e
+template <int MODE, bool MASK, int QT>
+__device__ __forceinline__ void dkv_scores(float (&s)[QT / 2],
+                                           float (&dp)[QT / 2],
                                            const int* sq, const float* lse,
                                            const float* delta,
                                            const int (&sk)[2], int tq,
                                            float scale, float scale_log2) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < QT / 8; ++j) {
     const int c = 8 * j + 2 * tq;
     const float2 l = *reinterpret_cast<const float2*>(lse + c);
     const float2 dl = *reinterpret_cast<const float2*>(delta + c);
@@ -252,21 +331,43 @@ __device__ __forceinline__ void dkv_scores(float (&s)[32], float (&dp)[32],
   }
 }
 
+// The q tiles of a dk/dv CTA's two 64-row k blocks, as one span of 64-row
+// tiles: the union of theirs (a last odd block alone keeps its own)
+__device__ __forceinline__ int2 dkv_union_span(const int* __restrict__ qstart,
+                                              const int* __restrict__ qend,
+                                              int kb, int Tk) {
+  int qb0 = qstart[2 * kb], qb1 = qend[2 * kb];
+  if (2 * kb + 1 < (Tk + 63) / 64) {
+    qb0 = min(qb0, qstart[2 * kb + 1]);
+    qb1 = max(qb1, qend[2 * kb + 1]);
+  }
+  return make_int2(qb0, qb1);
+}
+
 // The dk/dv pass's body, shared by H2 (and H7) and H10: the queries have
 // ids seg over T rows and the keys ids segk over Tk rows; H2's kernel
-// passes its one seg and T for both, H10's kernel the two sides' own.
-template <int D, int MODE>
+// passes its one seg and T for both, H10's kernel the two sides' own. A
+// CTA walks its union span in stages of QT rows (dkv_qt). TIMELINE writes
+// the CTA's record (tl_words) into tl, whose records hold tl_stages
+// stages.
+template <int D, int MODE, int QT = dkv_qt<D>()>
 __device__ __forceinline__ void dkv_body(
     const CUtensorMap& tm_q, const CUtensorMap& tm_k, const CUtensorMap& tm_v,
-    const CUtensorMap& tm_do, const float* __restrict__ lse,
+    const CUtensorMap& tm_do, const CUtensorMap& tm_dk,
+    const CUtensorMap& tm_dv, const float* __restrict__ lse,
     const float* __restrict__ delta, const int* __restrict__ seg,
     const int* __restrict__ segk, const int* __restrict__ qstart,
     const int* __restrict__ qend, bf16* __restrict__ dk,
     bf16* __restrict__ dv, int T, int Tk, int H, float scale,
-    float scale_log2) {
+    float scale_log2, unsigned long long* __restrict__ tl = nullptr,
+    int tl_stages = 0) {
   using G = Geo<D>;
-  using L = DkvSmem<D, MODE>;
+  using L = DkvSmem<D, MODE, QT>;
   constexpr int ST = L::ST;
+  constexpr int R = QT / 64;   // 64-row tiles a stage
+  // The 128-row form (D = 64) also skips, per warpgroup, the stages
+  // outside its own 64-row k block's span, and stores dK and dV by TMA
+  constexpr bool FORM128 = QT == 128;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_smem(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BARS);
@@ -283,13 +384,33 @@ __device__ __forceinline__ void dkv_body(
   const int HD = H * D;
   const int k0 = kb * BKV;
   const int col0 = h * D;
-  // the q tiles of the block's two 64-row k blocks, as one span
-  int qb0 = qstart[2 * kb], qb1 = qend[2 * kb];
-  if (2 * kb + 1 < (Tk + 63) / 64) {
-    qb0 = min(qb0, qstart[2 * kb + 1]);
-    qb1 = max(qb1, qend[2 * kb + 1]);
+  const int wg = threadIdx.x / 128;
+  // the union span, rounded out to stages of QT rows
+  const int2 span = dkv_union_span(qstart, qend, kb, Tk);
+  const int sb0 = span.x / R;
+  const int n = span.y > span.x ? (span.y + R - 1) / R - sb0 : 0;
+
+  unsigned long long* rec = nullptr;
+  if constexpr (MODE == TIMELINE) {
+    rec = tl + (size_t)(blockIdx.y * gridDim.x + blockIdx.x) *
+                   tl_words(tl_stages);
+    if (threadIdx.x % 128 == 0 && wg < 2) rec[4 + 3 * wg] = clock64();
+    if (threadIdx.x == 0) {
+      rec[0] = smid();
+      rec[1] = n;
+      rec[2] = globaltimer();
+    }
   }
-  const int n = max(qb1 - qb0, 0);
+  // stamp k of stage i (TIMELINE), by the warpgroup's first thread
+  auto stamp = [&](int i, int k) {
+    if constexpr (MODE == TIMELINE)
+      if (threadIdx.x % 128 == 0 && i < tl_stages)
+        rec[10 + tl_stages + 5 * (wg * tl_stages + i) + k] = clock64();
+  };
+  auto stamp_issue = [&](int i) {
+    if constexpr (MODE == TIMELINE)
+      if (i < tl_stages) rec[10 + i] = clock64();
+  };
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < ST; ++s) {
@@ -301,11 +422,11 @@ __device__ __forceinline__ void dkv_body(
   }
   __syncthreads();
 
-  // The first consumer warp's loads at D = 128 (warp0_loads): K and V of
-  // the block, then q tile j (q, do, the tile's ids, lse and delta) into
-  // stage j % ST once the stage's last round is handed back. The producer
-  // warp below keeps its own copy of these steps: run through these
-  // lambdas, its D = 64 pass took 3% longer on the H100.
+  // The first consumer warp's loads in a 256-thread CTA (warp0_loads): K
+  // and V of the block, then stage j (q, do, the stage's ids, lse and
+  // delta) into slot j % ST once the slot's last round is handed back.
+  // The producer warp below keeps its own copy of these steps: run
+  // through these lambdas, its D = 64 pass took 3% longer on the H100.
   auto load_kv = [&]() {
     mbar_expect_tx(kv_bar, 2 * L::KV_TILE);
     tma_tile<D, BKV>(smem + L::K, &tm_k, kv_bar, col0, k0);
@@ -314,11 +435,12 @@ __device__ __forceinline__ void dkv_body(
   auto load_q = [&](int j, int lane) {
     const int s = j % ST;
     mbar_wait(&empty[s], ((j / ST) & 1) ^ 1);
-    const int q0 = (qb0 + j) * QT;
+    const int q0 = (sb0 + j) * QT;
     if (lane == 0) {
       mbar_expect_tx(&full[s], 2 * L::Q_TILE);
       tma_tile<D, QT>(q_tile(s), &tm_q, &full[s], col0, q0);
       tma_tile<D, QT>(do_tile(s), &tm_do, &full[s], col0, q0);
+      stamp_issue(j);
     }
     float* w = words(s);
 #pragma unroll
@@ -333,8 +455,7 @@ __device__ __forceinline__ void dkv_body(
     mbar_arrive_cp_async(&full[s]);
   };
 
-  const int wg = threadIdx.x / 128;
-  if (!warp0_loads<D>() && wg == 2) {
+  if (!warp0_loads<D, QT>() && wg == 2) {
     // producer warpgroup: its first warp loads, the others leave
     if (threadIdx.x % 128 >= 32) return;
     const int lane = threadIdx.x & 31;
@@ -351,11 +472,12 @@ __device__ __forceinline__ void dkv_body(
       // round in flight, so nothing lands after the consumers are gone)
       mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
       if (it >= n) continue;
-      const int q0 = (qb0 + it) * QT;
+      const int q0 = (sb0 + it) * QT;
       if (lane == 0) {
         mbar_expect_tx(&full[s], 2 * L::Q_TILE);
         tma_tile<D, QT>(q_tile(s), &tm_q, &full[s], col0, q0);
         tma_tile<D, QT>(do_tile(s), &tm_do, &full[s], col0, q0);
+        stamp_issue(it);
       }
       float* w = words(s);
 #pragma unroll
@@ -396,12 +518,18 @@ __device__ __forceinline__ void dkv_body(
 
     const uint32_t ks = smem_u32(smem + L::K);
     const uint32_t vs = smem_u32(smem + L::V);
-    const bool loader = warp0_loads<D>() && threadIdx.x < 32;
+    const bool loader = warp0_loads<D, QT>() && threadIdx.x < 32;
+    // the warpgroup's own 64-row k block's span of 64-row q tiles
+    const int kb64 = 2 * kb + wg;
+    const bool has = kb64 < (Tk + 63) / 64;
+    const int own0 = has ? qstart[kb64] : 0, own1 = has ? qend[kb64] : 0;
     if (loader) {
       if (lane == 0) load_kv();
       for (int j = 0; j < ST - 1 && j < n; ++j) load_q(j, lane);
     }
     mbar_wait(kv_bar, 0);
+    if constexpr (MODE == TIMELINE)
+      if (threadIdx.x % 128 == 0) rec[5 + 3 * wg] = clock64();
     if constexpr (G::PAD) {
       // the warpgroup's 64 rows of K (threads 0-63) and of V (64-127):
       // columns past D to 0
@@ -414,42 +542,61 @@ __device__ __forceinline__ void dkv_body(
       if (loader && it + ST - 1 < n) load_q(it + ST - 1, lane);
       const int s = it % ST;
       mbar_wait(&full[s], (it / ST) & 1);
+      stamp(it, 0);
+      if constexpr (FORM128 && masks<MODE>()) {
+        // a stage outside the warpgroup's own span: p = 0 throughout
+        const int t0 = (sb0 + it) * R;
+        if (t0 >= own1 || t0 + R <= own0) {
+          stamp(it, 1);
+          stamp(it, 2);
+          stamp(it, 3);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&empty[s]);
+          stamp(it, 4);
+          continue;
+        }
+      }
       const uint32_t qs = smem_u32(q_tile(s));
       const uint32_t ds = smem_u32(do_tile(s));
       const float* w = words(s);
       const int* sq = reinterpret_cast<const int*>(w);
-      const bool uni = masks<MODE>() &&
-                       __all_sync(0xffffffffu, kuni && sq[lane] == kref &&
-                                                   sq[lane + 32] == kref);
+      bool one = kuni;
+#pragma unroll
+      for (int c = 0; c < QT / 32; ++c) one = one && sq[lane + 32 * c] == kref;
+      const bool uni = masks<MODE>() && __all_sync(0xffffffffu, one);
 
       if constexpr (MODE == DMA) {
-        // every element of the four tiles, q row p facing k row p of the
-        // warpgroup's half, into dk; the q rows' lse and delta into dv
+        // every element of the four tiles, the stage's q rows p and p + 64
+        // in turn facing k row p of the warpgroup's half, into dk; the q
+        // rows' lse and delta into dv
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int p = warp * 16 + r * 8 + g;
-          const float lp = w[QT + p], dlp = w[2 * QT + p];
+        for (int hq = 0; hq < R; ++hq)
 #pragma unroll
-          for (int nh = 0; nh < G::NH; ++nh)
+          for (int r = 0; r < 2; ++r) {
+            const int p = warp * 16 + r * 8 + g;
+            const int pq = hq * 64 + p;
+            const float lp = w[QT + pq], dlp = w[2 * QT + pq];
 #pragma unroll
-            for (int j = 0; j < G::HALF_COLS / 8; ++j)
+            for (int nh = 0; nh < G::NH; ++nh)
 #pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                const int c = nh * G::HALF_COLS + 8 * j + 2 * tq + e;
-                const int i = 4 * j + 2 * r + e;
-                const int qo = tile_offset<D, QT>(p, c);
-                const int ko = tile_offset<D, BKV>(wg * 64 + p, c);
-                dka[nh][i] += ((smem_bf16(q_tile(s), qo) +
-                                smem_bf16(do_tile(s), qo)) +
-                               smem_bf16(smem + L::K, ko)) +
-                              smem_bf16(smem + L::V, ko);
-                dva[nh][i] = (dva[nh][i] + lp) + dlp;
-              }
-        }
+              for (int j = 0; j < G::HALF_COLS / 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  const int c = nh * G::HALF_COLS + 8 * j + 2 * tq + e;
+                  const int i = 4 * j + 2 * r + e;
+                  const int qo = tile_offset<D, QT>(pq, c);
+                  const int ko = tile_offset<D, BKV>(wg * 64 + p, c);
+                  dka[nh][i] += ((smem_bf16(q_tile(s), qo) +
+                                  smem_bf16(do_tile(s), qo)) +
+                                 smem_bf16(smem + L::K, ko)) +
+                                smem_bf16(smem + L::V, ko);
+                  dva[nh][i] = (dva[nh][i] + lp) + dlp;
+                }
+          }
       } else {
-        float st[32], dpt[32];
+        float st[QT / 2], dpt[QT / 2];
 #pragma unroll
-        for (int i = 0; i < 32; ++i) {   // the product a mode drops reads 0
+        for (int i = 0; i < QT / 2; ++i) {   // the product a mode drops reads 0
           if constexpr (MODE == NO_S) st[i] = 0.f;
           if constexpr (MODE == NO_DP) dpt[i] = 0.f;
         }
@@ -457,35 +604,38 @@ __device__ __forceinline__ void dkv_body(
         if constexpr (MODE != NO_S) {
 #pragma unroll
           for (int kk = 0; kk < G::KSTEPS; ++kk)
-            wgmma_ss_n64(st, desc_k<D, BKV>(ks, wg * 64, kk),
-                         desc_k<D, QT>(qs, 0, kk), kk > 0);
+            wgmma_ss_qt<QT>(st, desc_k<D, BKV>(ks, wg * 64, kk),
+                            desc_k<D, QT>(qs, 0, kk), kk > 0);
         }
         if constexpr (MODE != NO_DP) {
 #pragma unroll
           for (int kk = 0; kk < G::KSTEPS; ++kk)
-            wgmma_ss_n64(dpt, desc_k<D, BKV>(vs, wg * 64, kk),
-                         desc_k<D, QT>(ds, 0, kk), kk > 0);
+            wgmma_ss_qt<QT>(dpt, desc_k<D, BKV>(vs, wg * 64, kk),
+                            desc_k<D, QT>(ds, 0, kk), kk > 0);
         }
         wgmma_commit();
         wgmma_wait<0>();
         if constexpr (MODE != NO_S) fence_regs(st);
         if constexpr (MODE != NO_DP) fence_regs(dpt);
+        stamp(it, 1);
 
         if (uni || !masks<MODE>())
-          dkv_scores<MODE, false>(st, dpt, sq, w + QT, w + 2 * QT, sk, tq,
-                                  scale, scale_log2);
+          dkv_scores<MODE, false, QT>(st, dpt, sq, w + QT, w + 2 * QT, sk,
+                                      tq, scale, scale_log2);
         else
-          dkv_scores<MODE, true>(st, dpt, sq, w + QT, w + 2 * QT, sk, tq,
-                                 scale, scale_log2);
+          dkv_scores<MODE, true, QT>(st, dpt, sq, w + QT, w + 2 * QT, sk, tq,
+                                     scale, scale_log2);
+        stamp(it, 2);
 
         if constexpr (MODE == NO_ACC) {
           // dk row p gains the max over the warpgroup's 64 k rows of dS^T's
-          // q column p: over the lane's two rows and the 8 lanes of its
-          // column, then the warpgroup's four warps through shared memory
+          // q columns p and p + 64 in turn: over the lane's two rows and
+          // the 8 lanes of its column, then the warpgroup's four warps
+          // through shared memory
           float* colmax = reinterpret_cast<float*>(smem + L::COLMAX) +
                           ((it & 1) * 8 + wg * 4) * QT;
 #pragma unroll
-          for (int j = 0; j < 8; ++j)
+          for (int j = 0; j < QT / 8; ++j)
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
               float mx = fmaxf(dpt[4 * j + e], dpt[4 * j + 2 + e]);
@@ -496,34 +646,37 @@ __device__ __forceinline__ void dkv_body(
             }
           named_barrier(1 + wg, 128);
 #pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const int p = warp * 16 + r * 8 + g;
-            float mx = colmax[p];
+          for (int hq = 0; hq < R; ++hq)
 #pragma unroll
-            for (int w4 = 1; w4 < 4; ++w4) mx = fmaxf(mx, colmax[w4 * QT + p]);
+            for (int r = 0; r < 2; ++r) {
+              const int p = hq * 64 + warp * 16 + r * 8 + g;
+              float mx = colmax[p];
 #pragma unroll
-            for (int nh = 0; nh < G::NH; ++nh)
+              for (int w4 = 1; w4 < 4; ++w4)
+                mx = fmaxf(mx, colmax[w4 * QT + p]);
 #pragma unroll
-              for (int j = 0; j < G::HALF_COLS / 8; ++j) {
-                dka[nh][4 * j + 2 * r] += mx;
-                dka[nh][4 * j + 2 * r + 1] += mx;
-              }
-          }
+              for (int nh = 0; nh < G::NH; ++nh)
+#pragma unroll
+                for (int j = 0; j < G::HALF_COLS / 8; ++j) {
+                  dka[nh][4 * j + 2 * r] += mx;
+                  dka[nh][4 * j + 2 * r + 1] += mx;
+                }
+            }
         } else {
-          uint32_t pa[4][4], sa[4][4];
+          uint32_t pa[QT / 16][4], sa[QT / 16][4];
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
+          for (int kk = 0; kk < QT / 16; ++kk) {
             acc_to_a(pa[kk], st, kk);
             acc_to_a(sa[kk], dpt, kk);
           }
           wgmma_fence();
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
+          for (int kk = 0; kk < QT / 16; ++kk)
 #pragma unroll
             for (int nh = 0; nh < G::NH; ++nh)
               wgmma_rs(dva[nh], pa[kk], desc_mn<D, QT>(ds, kk, nh));
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
+          for (int kk = 0; kk < QT / 16; ++kk)
 #pragma unroll
             for (int nh = 0; nh < G::NH; ++nh)
               wgmma_rs(dka[nh], sa[kk], desc_mn<D, QT>(qs, kk, nh));
@@ -535,37 +688,72 @@ __device__ __forceinline__ void dkv_body(
             fence_regs(dva[nh]);
           }
         }
+        stamp(it, 3);
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[s]);
+      stamp(it, 4);
     }
 
+    if constexpr (FORM128) {
+      // the warpgroup's own 64 rows of K and V, which only its products
+      // read (all waited), take dK and dV in the tiles' layout; one
+      // thread stores them by TMA (rows past Tk are not written)
+      unsigned char* kt = smem + L::K + wg * 64 * G::RB;
+      unsigned char* vt = smem + L::V + wg * 64 * G::RB;
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      if (krow[r] >= Tk) continue;
-      bf16* dkrow = dk + (size_t)krow[r] * HD + col0;
-      bf16* dvrow = dv + (size_t)krow[r] * HD + col0;
-#pragma unroll
-      for (int nh = 0; nh < G::NH; ++nh)
+      for (int r = 0; r < 2; ++r)
 #pragma unroll
         for (int j = 0; j < G::OWN_COLS / 8; ++j) {
-          const int c = nh * G::HALF_COLS + 8 * j + 2 * tq;
+          const int off = tile_offset<D, 64>(warp * 16 + r * 8 + g,
+                                             8 * j + 2 * tq);
           const int i = 4 * j + 2 * r;
-          *reinterpret_cast<__nv_bfloat162*>(dkrow + c) =
-              __floats2bfloat162_rn(dka[nh][i], dka[nh][i + 1]);
-          *reinterpret_cast<__nv_bfloat162*>(dvrow + c) =
-              __floats2bfloat162_rn(dva[nh][i], dva[nh][i + 1]);
+          *reinterpret_cast<uint32_t*>(kt + off) =
+              pack_bf16(dka[0][i], dka[0][i + 1]);
+          *reinterpret_cast<uint32_t*>(vt + off) =
+              pack_bf16(dva[0][i], dva[0][i + 1]);
         }
+      fence_proxy_async();
+      named_barrier(1 + wg, 128);
+      if (threadIdx.x % 128 == 0) {
+        tma_store_2d(&tm_dk, kt, col0, k0 + wg * 64);
+        tma_store_2d(&tm_dv, vt, col0, k0 + wg * 64);
+        tma_store_wait();
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (krow[r] >= Tk) continue;
+        bf16* dkrow = dk + (size_t)krow[r] * HD + col0;
+        bf16* dvrow = dv + (size_t)krow[r] * HD + col0;
+#pragma unroll
+        for (int nh = 0; nh < G::NH; ++nh)
+#pragma unroll
+          for (int j = 0; j < G::OWN_COLS / 8; ++j) {
+            const int c = nh * G::HALF_COLS + 8 * j + 2 * tq;
+            const int i = 4 * j + 2 * r;
+            *reinterpret_cast<__nv_bfloat162*>(dkrow + c) =
+                __floats2bfloat162_rn(dka[nh][i], dka[nh][i + 1]);
+            *reinterpret_cast<__nv_bfloat162*>(dvrow + c) =
+                __floats2bfloat162_rn(dva[nh][i], dva[nh][i + 1]);
+          }
+      }
+    }
+    if constexpr (MODE == TIMELINE) {
+      if (threadIdx.x % 128 == 0) rec[6 + 3 * wg] = clock64();
+      if (threadIdx.x == 0) rec[3] = globaltimer();
     }
   }
 }
 
 template <int D, int MODE>
-__global__ void __launch_bounds__(dkv_threads<D>(), 1)
+__global__ void __launch_bounds__(dkv_threads<D, dkv_qt<D>()>(), 1)
 bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v,
                     const __grid_constant__ CUtensorMap tm_do,
+                    const __grid_constant__ CUtensorMap tm_dk,
+                    const __grid_constant__ CUtensorMap tm_dv,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
                     const int* __restrict__ seg,
@@ -573,8 +761,32 @@ bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const int* __restrict__ qend, bf16* __restrict__ dk,
                     bf16* __restrict__ dv, int T, int H, float scale,
                     float scale_log2) {
-  dkv_body<D, MODE>(tm_q, tm_k, tm_v, tm_do, lse, delta, seg, seg, qstart,
-                    qend, dk, dv, T, T, H, scale, scale_log2);
+  dkv_body<D, MODE>(tm_q, tm_k, tm_v, tm_do, tm_dk, tm_dv, lse, delta, seg,
+                    seg, qstart, qend, dk, dv, T, T, H, scale, scale_log2);
+}
+
+// H10's dk/dv CTA whose k rows no query shares an id with (an empty
+// span): its rows of dk and dv written as zeros. Returns whether the CTA
+// is such a one, which then leaves before any barrier or load.
+template <int D>
+__device__ __forceinline__ bool dkv_empty_cta(const int* __restrict__ qstart,
+                                              const int* __restrict__ qend,
+                                              bf16* __restrict__ dk,
+                                              bf16* __restrict__ dv, int Tk,
+                                              int H) {
+  const int kb = blockIdx.x;
+  const int2 span = dkv_union_span(qstart, qend, kb, Tk);
+  if (span.y > span.x) return false;
+  const int HD = H * D;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  for (int i = threadIdx.x; i < BKV * D / 8; i += blockDim.x) {
+    const int t = kb * BKV + i / (D / 8);
+    if (t >= Tk) break;
+    const size_t off = (size_t)t * HD + blockIdx.y * D + i % (D / 8) * 8;
+    *reinterpret_cast<uint4*>(dk + off) = zero;
+    *reinterpret_cast<uint4*>(dv + off) = zero;
+  }
+  return true;
 }
 
 // H10's dk/dv pass: Tq query rows with ids seg_q over Tk key rows with ids
@@ -582,11 +794,13 @@ bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 // writes its zero rows of dk and dv and leaves, before any barrier or
 // load.
 template <int D>
-__global__ void __launch_bounds__(dkv_threads<D>(), 1)
+__global__ void __launch_bounds__(dkv_threads<D, dkv_qt<D>()>(), 1)
 bwd_dkv_rect_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const __grid_constant__ CUtensorMap tm_k,
                          const __grid_constant__ CUtensorMap tm_v,
                          const __grid_constant__ CUtensorMap tm_do,
+                         const __grid_constant__ CUtensorMap tm_dk,
+                         const __grid_constant__ CUtensorMap tm_dv,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
                          const int* __restrict__ seg_q,
@@ -595,26 +809,44 @@ bwd_dkv_rect_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const int* __restrict__ qend, bf16* __restrict__ dk,
                          bf16* __restrict__ dv, int Tq, int Tk, int H,
                          float scale, float scale_log2) {
-  const int kb = blockIdx.x;
-  int qb0 = qstart[2 * kb], qb1 = qend[2 * kb];
-  if (2 * kb + 1 < (Tk + 63) / 64) {
-    qb0 = min(qb0, qstart[2 * kb + 1]);
-    qb1 = max(qb1, qend[2 * kb + 1]);
-  }
-  if (qb1 <= qb0) {
-    const int HD = H * D;
-    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-    for (int i = threadIdx.x; i < BKV * D / 8; i += blockDim.x) {
-      const int t = kb * BKV + i / (D / 8);
-      if (t >= Tk) break;
-      const size_t off = (size_t)t * HD + blockIdx.y * D + i % (D / 8) * 8;
-      *reinterpret_cast<uint4*>(dk + off) = zero;
-      *reinterpret_cast<uint4*>(dv + off) = zero;
+  if (dkv_empty_cta<D>(qstart, qend, dk, dv, Tk, H)) return;
+  dkv_body<D, REAL>(tm_q, tm_k, tm_v, tm_do, tm_dk, tm_dv, lse, delta, seg_q,
+                    seg_k, qstart, qend, dk, dv, Tq, Tk, H, scale,
+                    scale_log2);
+}
+
+// The dk/dv pass with its timeline (mode TIMELINE): H10's kernel (H2's
+// when both sides' ids and lengths are the same) in the form of QT-row
+// stages, 128 the production form at D = 64 and 64 the 384-thread form
+// with a producer warp that ran before it. An empty CTA records that it
+// walks no stage.
+template <int D, int QT>
+__global__ void __launch_bounds__(dkv_threads<D, QT>(), 1)
+bwd_dkv_timeline_sm90_kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v,
+    const __grid_constant__ CUtensorMap tm_do,
+    const __grid_constant__ CUtensorMap tm_dk,
+    const __grid_constant__ CUtensorMap tm_dv, const float* __restrict__ lse,
+    const float* __restrict__ delta, const int* __restrict__ seg_q,
+    const int* __restrict__ seg_k, const int* __restrict__ qstart,
+    const int* __restrict__ qend, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, int Tq, int Tk, int H, float scale,
+    float scale_log2, unsigned long long* __restrict__ tl, int tl_stages) {
+  if (dkv_empty_cta<D>(qstart, qend, dk, dv, Tk, H)) {
+    if (threadIdx.x == 0) {
+      unsigned long long* rec =
+          tl + (size_t)(blockIdx.y * gridDim.x + blockIdx.x) *
+                   tl_words(tl_stages);
+      rec[0] = smid();
+      rec[1] = 0;
     }
     return;
   }
-  dkv_body<D, REAL>(tm_q, tm_k, tm_v, tm_do, lse, delta, seg_q, seg_k, qstart,
-                    qend, dk, dv, Tq, Tk, H, scale, scale_log2);
+  dkv_body<D, TIMELINE, QT>(tm_q, tm_k, tm_v, tm_do, tm_dk, tm_dv, lse, delta,
+                            seg_q, seg_k, qstart, qend, dk, dv, Tq, Tk, H,
+                            scale, scale_log2, tl, tl_stages);
 }
 
 // ---------------------------------------------------------------------------
@@ -975,36 +1207,50 @@ struct Args {
   int Tk;
 };
 
-// One pass of H2 (RECT false, in mode MODE) or of H10 (RECT true, mode 0).
-// The q and do maps have a.T rows, the k and v maps a.Tk.
-template <int D, int MODE, bool RECT = false>
-cudaError_t launch_dkv(const Args& a) {
-  using L = DkvSmem<D, MODE>;
-  CUtensorMap tq, tk, tv, tdo;
+// One pass of H2 (RECT false, in mode MODE) or of H10 (RECT true, mode
+// 0), in stages of QT rows; mode TIMELINE: H10's kernel with its timeline
+// (tl, tl_stages). The q and do maps have a.T rows, the k and v maps a.Tk.
+template <int D, int MODE, bool RECT = false, int QT = dkv_qt<D>()>
+cudaError_t launch_dkv(const Args& a, unsigned long long* tl = nullptr,
+                       int tl_stages = 0) {
+  using L = DkvSmem<D, MODE, QT>;
+  CUtensorMap tq, tk, tv, tdo, tdk, tdv;
   const int HD = a.H * D;
   cudaError_t err;
   if ((err = tile_map<D>(&tq, a.q, a.T, HD, QT)) != cudaSuccess ||
       (err = tile_map<D>(&tdo, a.dout, a.T, HD, QT)) != cudaSuccess ||
       (err = tile_map<D>(&tk, a.k, a.Tk, HD, BKV)) != cudaSuccess ||
-      (err = tile_map<D>(&tv, a.v, a.Tk, HD, BKV)) != cudaSuccess)
+      (err = tile_map<D>(&tv, a.v, a.Tk, HD, BKV)) != cudaSuccess ||
+      (err = tile_map<D>(&tdk, a.dk, a.Tk, HD, 64)) != cudaSuccess ||
+      (err = tile_map<D>(&tdv, a.dv, a.Tk, HD, 64)) != cudaSuccess)
     return err;
   const dim3 grid((a.Tk + BKV - 1) / BKV, a.H);
-  if constexpr (RECT) {
+  constexpr int threads = dkv_threads<D, QT>();
+  if constexpr (MODE == TIMELINE) {
+    auto kernel = bwd_dkv_timeline_sm90_kernel<D, QT>;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, threads, L::BYTES, a.stream>>>(
+        tq, tk, tv, tdo, tdk, tdv, a.lse, a.delta, a.seg, a.segk, a.qstart,
+        a.qend, a.dk, a.dv, a.T, a.Tk, a.H, a.scale, a.scale * LOG2E, tl,
+        tl_stages);
+  } else if constexpr (RECT) {
     auto kernel = bwd_dkv_rect_sm90_kernel<D>;
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
     if (err != cudaSuccess) return err;
-    kernel<<<grid, dkv_threads<D>(), L::BYTES, a.stream>>>(
-        tq, tk, tv, tdo, a.lse, a.delta, a.seg, a.segk, a.qstart, a.qend,
-        a.dk, a.dv, a.T, a.Tk, a.H, a.scale, a.scale * LOG2E);
+    kernel<<<grid, threads, L::BYTES, a.stream>>>(
+        tq, tk, tv, tdo, tdk, tdv, a.lse, a.delta, a.seg, a.segk, a.qstart,
+        a.qend, a.dk, a.dv, a.T, a.Tk, a.H, a.scale, a.scale * LOG2E);
   } else {
     auto kernel = bwd_dkv_sm90_kernel<D, MODE>;
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
     if (err != cudaSuccess) return err;
-    kernel<<<grid, dkv_threads<D>(), L::BYTES, a.stream>>>(
-        tq, tk, tv, tdo, a.lse, a.delta, a.seg, a.qstart, a.qend, a.dk, a.dv,
-        a.T, a.H, a.scale, a.scale * LOG2E);
+    kernel<<<grid, threads, L::BYTES, a.stream>>>(
+        tq, tk, tv, tdo, tdk, tdv, a.lse, a.delta, a.seg, a.qstart, a.qend,
+        a.dk, a.dv, a.T, a.H, a.scale, a.scale * LOG2E);
   }
   return cudaGetLastError();
 }
@@ -1185,6 +1431,31 @@ int esme_flash_bwd_rect_sm90_pass(
                            qstart, qend, dq, dk, dv, Tq, H, scale, stream,
                            seg_k, Tk);
   return (int)launch_rect_pass(a, D, which);
+}
+
+// The dk/dv pass at D = 64 with its timeline (mode TIMELINE): `form` 128
+// runs the production pass's 128-row stages in its 256-thread CTA, 64
+// the 64-row stages of the 384-thread CTA with a producer warp that ran
+// before it. Arguments as esme_flash_bwd_rect_sm90_pass's (H2: seg_q =
+// seg_k, Tq = Tk), kstart, kend and dq left out; `stamps` holds
+// tl_words(stages) 64-bit words for each CTA of the (ceil(Tk / 128), H)
+// grid, row-major, `stages` at least the most stages a CTA walks in that
+// form. Returns the cudaError_t of the launch.
+int esme_flash_bwd_sm90_timeline(
+    int form, const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, const void* seg_q, const void* seg_k,
+    const void* qstart, const void* qend, void* dk, void* dv, void* stamps,
+    int Tq, int Tk, int H, int D, float scale, int stages, void* stream) {
+  if (D != 64 || stages < 0) return (int)cudaErrorInvalidValue;
+  const Args a = make_args(q, k, v, dout, lse, delta, seg_q, nullptr, nullptr,
+                           qstart, qend, nullptr, dk, dv, Tq, H, scale,
+                           stream, seg_k, Tk);
+  auto* tl = static_cast<unsigned long long*>(stamps);
+  if (form == 128)
+    return (int)launch_dkv<64, TIMELINE, true, 128>(a, tl, stages);
+  if (form == 64)
+    return (int)launch_dkv<64, TIMELINE, true, 64>(a, tl, stages);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* esme_flash_bwd_sm90_error_string(int err) {

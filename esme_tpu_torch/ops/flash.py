@@ -182,6 +182,34 @@ def flash_spans(seg_ids: torch.Tensor):
             *transposed_spans(seg_ids, BLOCK_QT, BLOCK_KV))
 
 
+def dkv_stage_rows(head_dim: int) -> int:
+    """The q rows a stage of H2's and H10's Hopper dk/dv pass at this head
+    dim (``csrc/flash_bwd_sm90.cu:dkv_qt``): 128 at D = 64, a ``BLOCK_QT``
+    tile at the others."""
+    return 2 * BLOCK_QT if head_dim == 64 else BLOCK_QT
+
+
+def dkv_stages(qstart: torch.Tensor, qend: torch.Tensor, stage_rows: int):
+    """The stages each CTA of the Hopper dk/dv pass walks, by the kernel's
+    index arithmetic (``csrc/flash_bwd_sm90.cu:dkv_union_span``,
+    ``dkv_body``): CTA ``c`` holds the 64-row k blocks ``2c`` and ``2c +
+    1`` and walks the union of their ``[qstart, qend)`` spans of
+    ``BLOCK_QT`` tiles (a last odd block alone keeps its own), rounded out
+    to stages of ``stage_rows`` q rows. Returns int32 ``(sb0, n)`` per
+    CTA: stage ``i < n`` covers q rows ``[(sb0 + i) stage_rows, (sb0 + i +
+    1) stage_rows)``; ``n`` is 0 where the union is empty. Rows past the
+    queries' end are zeros in the kernel's tiles."""
+    r = stage_rows // BLOCK_QT
+    qs, qe = qstart.long(), qend.long()
+    if qs.numel() % 2:
+        qs = torch.cat([qs, qs[-1:]])
+        qe = torch.cat([qe, qe[-1:]])
+    q0, q1 = qs.view(-1, 2).amin(1), qe.view(-1, 2).amax(1)
+    sb0 = q0 // r
+    n = torch.where(q1 > q0, (q1 + r - 1) // r - sb0, 0)
+    return sb0.to(torch.int32), n.to(torch.int32)
+
+
 def fwd_order(kstart: torch.Tensor, kend: torch.Tensor) -> torch.Tensor:
     """H9's launch order, int32 ``(3, nqb)`` on the spans' device: row 0
     the q blocks by falling span length (``kend - kstart`` k tiles), rows

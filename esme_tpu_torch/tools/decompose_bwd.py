@@ -20,15 +20,21 @@ Each mode removes the same part as on the TPU:
 Numerics of every mode but ``real`` are wrong on purpose: this is a cost
 model. The modes run at each form's own walk, D = 64: the dq pass's
 128-row q blocks over 64-key tiles in both; the dk/dv pass's 64-row k
-blocks over 64-query tiles, which on the Hopper form walk the union of
-the spans of the two 64-row halves of a 128-row block
-(:func:`union_spans`), so the modes without a mask add those tiles too.
+blocks over 64-query tiles on the mma.sync form, and on the Hopper form
+128-row k blocks over 128-query stages: the union of the spans of the
+two 64-row halves of a block (:func:`union_spans`) rounded out to stages
+(:func:`stage_spans`), so the modes without a mask add those tiles too.
+
+Beside the modes, :func:`dkv_timeline` runs the Hopper dk/dv pass at D =
+64 with clock stamps of where each CTA's time goes, in the production
+form or the form before it, and :func:`timeline_summary` reads them.
 
     python -m esme_tpu_torch.tools.decompose_bwd [--device cpu]
 
 prints, on bench.py's 50k train batch, the full backward, then each mode
 of each pass of the Hopper form and of the mma.sync form, beside the
-bound of the work kept.
+bound of the work kept, then (on the card) the timeline of both dk/dv
+forms.
 """
 
 from __future__ import annotations
@@ -164,8 +170,9 @@ def dkv_variant_plain(mode: str, q2, k2, v2, do2, lse, delta, seg_ids,
     ``[qstart, qend)`` of ``block_q`` tiles, all blocks in step, with dk
     and dv summed in fp32 and p and ds rounded to the input dtype before
     their products; ``dma`` and ``no_acc`` face k row p with q column p
-    (square tiles, as on the TPU and in the kernel). Returns dk, dv
-    ``(T, H·D)`` in q's dtype."""
+    (square tiles, as on the TPU and in the kernel). A span may run past
+    the last q tile: the tiles past it are zeros, as the kernel's loads
+    give them. Returns dk, dv ``(T, H·D)`` in q's dtype."""
     if mode not in MODES:
         raise ValueError(f'unknown mode {mode!r}; one of {list(MODES)}')
     if mode in ('dma', 'no_acc') and block_k != block_q:
@@ -176,10 +183,13 @@ def dkv_variant_plain(mode: str, q2, k2, v2, do2, lse, delta, seg_ids,
     scale = 1.0 / math.sqrt(D)
     dt = q2.dtype
     bk, bq = block_k, block_q
-    nkb, nqt = -(-T // bk), -(-T // bq)
+    # a walk may run past the last tile (a stage rounded out): zero tiles
+    nkb = -(-T // bk)
+    nqt = max(-(-T // bq), int(qend.max().item()) if qend.numel() else 0)
     k, v = _tiles(k2, bk, H), _tiles(v2, bk, H)        # (nkb, H, bk, D)
-    q, do = _tiles(q2, bq, H), _tiles(do2, bq, H)      # (nqt, H, bq, D)
-    lse_c, delta_c = _row_terms(lse, bq), _row_terms(delta, bq)
+    q, do = (_tiles(pad_rows(x, nqt * bq), bq, H) for x in (q2, do2))
+    lse_c, delta_c = (_row_terms(pad_rows(x.T, nqt * bq).T, bq)
+                      for x in (lse, delta))
     segk = pad_rows(seg_ids, nkb * bk, -1).view(nkb, bk)
     segq = pad_rows(seg_ids, nqt * bq, -2).view(nqt, bq)
     qstart = qstart.long()
@@ -230,6 +240,20 @@ def union_spans(qstart, qend):
     return pair(qstart, torch.amin), pair(qend, torch.amax)
 
 
+def stage_spans(qstart, qend, stage_rows: int):
+    """The q-tile span each 64-row k block walks in the Hopper form's
+    dk/dv pass when a stage is ``stage_rows`` q rows: its CTA's
+    (:func:`esme_tpu_torch.ops.flash.dkv_stages`) in ``BLOCK_QT`` tiles,
+    empty (start past end) where the CTA walks no stage. At 64-row stages
+    these are :func:`union_spans`."""
+    sb0, n = flash.dkv_stages(qstart, qend, stage_rows)
+    r = stage_rows // flash.BLOCK_QT
+    nkb = qstart.numel()
+    start = torch.where(n > 0, sb0 * r, nkb).repeat_interleave(2)[:nkb]
+    end = ((sb0 + n) * r).repeat_interleave(2)[:nkb]
+    return start.to(torch.int32).contiguous(), end.to(torch.int32).contiguous()
+
+
 def _library(library, head_dim: int) -> str:
     """``library``, a key of ``flash.BWD_ROUTES``, or the tools' form of
     H2 at ``head_dim`` (:func:`esme_tpu_torch.tools.bwd_route`) when
@@ -246,13 +270,14 @@ def bwd_variant_plain(kernel: str, mode: str, q2, k2, v2, do2, lse, delta,
                       library: str | None = None):
     """Plain PyTorch version of :func:`bwd_variant`: its pass at the walk
     of ``library``'s form (the dk/dv pass of the Hopper form over
-    :func:`union_spans`)."""
-    library = _library(library, q2.shape[1] // num_heads)
+    :func:`stage_spans`)."""
+    D = q2.shape[1] // num_heads
+    library = _library(library, D)
     if kernel == 'dq':
         return dq_variant_plain(mode, q2, k2, v2, do2, lse, delta, seg_ids,
                                 kstart, kend, num_heads)
     if library == 'flash_bwd_sm90':
-        qstart, qend = union_spans(qstart, qend)
+        qstart, qend = stage_spans(qstart, qend, flash.dkv_stage_rows(D))
     return dkv_variant_plain(mode, q2, k2, v2, do2, lse, delta, seg_ids,
                              qstart, qend, num_heads)
 
@@ -313,6 +338,152 @@ def bwd_variant(kernel: str, mode: str, q2, k2, v2, do2, lse, delta,
 bwd_variant.launches = 0
 
 
+# The timeline's forms of the Hopper dk/dv pass at D = 64, by the q rows
+# of a stage: 128 the production form (a 256-thread CTA whose first warp
+# loads), 64 the form before it (a 384-thread CTA with a producer warp)
+TIMELINE_FORMS = (64, 128)
+# Where a CTA's time goes, in the order of its timeline: the prologue
+# (barriers, K and V by TMA), waits on full stages (starved of loads),
+# S^T and dP^T issued and waited (the vote included), the scores, dV and
+# dK issued and waited (the bf16 fragments included), the handback, the
+# epilogue (the stores of dk and dv)
+TL_PHASES = ('prologue', 'full_wait', 'st_dpt', 'scores', 'dv_dk',
+             'handback', 'epilogue')
+# a stage's five stamps (csrc/flash_bwd_sm90.cu:tl_words), the end of each
+# of its phases
+_TL_STAGE = ('full_wait', 'st_dpt', 'scores', 'dv_dk', 'handback')
+
+
+def tl_words(stages: int) -> int:
+    """64-bit words of one CTA's timeline record whose walk holds at most
+    ``stages`` stages (``csrc/flash_bwd_sm90.cu:tl_words``)."""
+    return 10 + 11 * stages
+
+
+def dkv_timeline(form: int, q2, k2, v2, do2, lse, delta, seg_q, qstart,
+                 qend, num_heads: int, seg_k=None, stages=None):
+    """The Hopper dk/dv pass at D = 64 in ``form`` (one of
+    ``TIMELINE_FORMS``) with its timeline: H2's arguments (``seg_k`` None)
+    or H10's (the keys' ids ``seg_k``; its spans from
+    ``flash.rect_flash_spans``). Returns dk, dv and the stamps, int64
+    ``(CTAs, tl_words(stages))`` on the card, CTA ``h * nkb + kb`` for
+    key block ``kb`` of head ``h``, and ``stages``, the most any CTA walks
+    (:func:`esme_tpu_torch.ops.flash.dkv_stages`; pass it to launch
+    without a host sync). Card only: the stamps are the card's clocks, so
+    there is no plain version."""
+    if form not in TIMELINE_FORMS:
+        raise ValueError(f'unknown form {form}; one of {TIMELINE_FORMS}')
+    if q2.device.type != 'cuda':
+        raise RuntimeError('dkv_timeline reads the card\'s clocks: it '
+                           'needs CUDA tensors')
+    seg_k = seg_q if seg_k is None else seg_k
+    Tq, HD = q2.shape
+    Tk = k2.shape[0]
+    H = num_heads
+    D = HD // H
+    if D != 64:
+        raise ValueError(f'dkv_timeline: head dim {D}: built for D = 64')
+    if stages is None:
+        _, n = flash.dkv_stages(qstart, qend, form)
+        stages = int(n.max().item()) if n.numel() else 0
+    nkb = -(-Tk // (2 * flash.BLOCK_KV))
+    stamps = torch.zeros((H * nkb, tl_words(stages)), dtype=torch.int64,
+                         device=q2.device)
+    dk, dv = torch.empty_like(k2), torch.empty_like(v2)
+    from .. import _build
+    lib = _build.library('flash_bwd_sm90')
+    rc = lib.esme_flash_bwd_sm90_timeline(
+        form, *(x.data_ptr() for x in (q2, k2, v2, do2, lse, delta, seg_q,
+                                       seg_k, qstart, qend, dk, dv, stamps)),
+        Tq, Tk, H, D, 1.0 / math.sqrt(D), stages,
+        torch.cuda.current_stream(q2.device).cuda_stream)
+    _build.check(rc, lib, flash.BWD_ROUTES['flash_bwd_sm90'][1],
+                 f'dkv_timeline({form})')
+    return dk, dv, stamps, stages
+
+
+def _quartiles(x):
+    """Median and quartiles of a 1-D tensor (None when empty)."""
+    if x.numel() == 0:
+        return None
+    q = torch.quantile(x.double(), torch.tensor([0.25, 0.5, 0.75],
+                                                dtype=torch.float64))
+    return {'q1': q[0].item(), 'median': q[1].item(), 'q3': q[2].item()}
+
+
+def timeline_summary(stamps, stages: int) -> dict:
+    """Where the CTAs of a :func:`dkv_timeline` run spent their time. Per
+    consumer warpgroup its wall time (entry to its stores done) splits
+    into ``TL_PHASES``: the prologue (entry to K and V landed), then per
+    stage the wait for the full barrier (from K and V, or the last
+    handback), S^T and dP^T, the scores, dV and dK, the handback, and the
+    epilogue (the last handback to the stores done); the shares of a CTA
+    are its two warpgroups' means. Returns ``{'ctas', 'empty_ctas',
+    'shares': {phase: quartiles over CTAs}, 'stage_cycles': {phase:
+    quartiles over (CTA, warpgroup, stage)}, 'issue_to_ready_cycles' (a
+    stage's loads issued to a warpgroup passing its full barrier),
+    'stages_walked' (quartiles over CTAs), 'cta_us' (wall time, from the
+    global timer), 'cycles_per_ns'}`` (the SM clock over the global
+    timer, medians over CTAs)."""
+    x = torch.as_tensor(stamps).to(torch.int64).cpu()
+    n = x[:, 1]
+    walk = n > 0
+    x, n = x[walk], n[walk]
+    S = stages
+    c = x.shape[0]
+    idx = torch.arange(S)
+    valid = idx[None, :] < n[:, None]                       # (c, S)
+    issue = x[:, 10:10 + S]
+    st = x[:, 10 + S:10 + 11 * S].view(c, 2, S, 5)
+    shares = {p: [] for p in TL_PHASES}
+    per_stage = {p: [] for p in _TL_STAGE}
+    ready, walls = [], []
+    for w in range(2):
+        entry, kv, end = (x[:, 4 + 3 * w + i] for i in range(3))
+        sw = st[:, w]                                       # (c, S, 5)
+        prev = torch.cat([kv[:, None], sw[:, :-1, 4]], 1)
+        ends = [sw[..., i] for i in range(5)]
+        starts = [prev, *ends[:4]]
+        wall = (end - entry).double()
+        walls.append(wall)
+        for p, a, b in zip(_TL_STAGE, starts, ends):
+            d = torch.where(valid, b - a, 0)
+            shares[p].append(d.sum(1) / wall)
+            per_stage[p].append((b - a)[valid])
+        last = sw[torch.arange(c), (n - 1).clamp_min(0), 4]
+        shares['prologue'].append((kv - entry) / wall)
+        shares['epilogue'].append((end - last) / wall)
+        ready.append((sw[..., 0] - issue)[valid])
+    ns = (x[:, 3] - x[:, 2]).double()
+    return {
+        'ctas': c, 'empty_ctas': int((~walk).sum()),
+        'shares': {p: _quartiles(sum(v) / 2) for p, v in shares.items()},
+        'stage_cycles': {p: _quartiles(torch.cat(v))
+                         for p, v in per_stage.items()},
+        'issue_to_ready_cycles': _quartiles(torch.cat(ready)),
+        'stages_walked': _quartiles(n),
+        'cta_us': _quartiles(ns / 1e3),
+        'cycles_per_ns': _quartiles(torch.maximum(*walls) / ns),
+    }
+
+
+def timeline_line(label: str, summary: dict) -> str:
+    """One line of :func:`timeline_summary`'s medians and quartiles."""
+    def q(d, fmt):
+        return 'n/a' if d is None else \
+            (f'{d["median"]:{fmt}} ({d["q1"]:{fmt}}-{d["q3"]:{fmt}})')
+    return (f'{label}: {summary["ctas"]} CTAs walking '
+            f'{q(summary["stages_walked"], ".0f")} stages, '
+            f'{q(summary["cta_us"], ".2f")} us a CTA; shares of a CTA '
+            + ', '.join(f'{p} {q(v, ".3f")}'
+                        for p, v in summary['shares'].items())
+            + '; cycles a stage ' + ', '.join(
+                f'{p} {q(v, ".0f")}'
+                for p, v in summary['stage_cycles'].items())
+            + f'; issue to ready {q(summary["issue_to_ready_cycles"], ".0f")}'
+            f' cycles; {q(summary["cycles_per_ns"], ".3f")} cycles/ns')
+
+
 def check(mode: str, got, ref):
     """A mode's kernel gradients against its plain version's (dq, or dk
     and dv): ``{'err', 'share', 'ok'}`` over the tensors, under H2's gate
@@ -326,16 +497,17 @@ def check(mode: str, got, ref):
     return {'err': err, 'share': share, 'ok': share <= 1.0 and finite}
 
 
-def walked_pairs(kernel: str, library: str, spans) -> float:
+def walked_pairs(kernel: str, library: str, spans, head_dim: int) -> float:
     """The (q, k) pairs per head of the tiles ``library``'s ``kernel``
     pass walks over ``spans`` (:func:`esme_tpu_torch.ops.flash.
-    flash_spans`)."""
+    flash_spans`) at ``head_dim``."""
     kstart, kend, qstart, qend = spans
     if kernel == 'dq':
         return float((kend - kstart).clamp_min(0).sum().item()) \
             * flash.BLOCK_Q * flash.BLOCK_K
     if library == 'flash_bwd_sm90':
-        qstart, qend = union_spans(qstart, qend)
+        qstart, qend = stage_spans(qstart, qend,
+                                   flash.dkv_stage_rows(head_dim))
     return float((qend - qstart).clamp_min(0).sum().item()) \
         * flash.BLOCK_KV * flash.BLOCK_QT
 
@@ -350,7 +522,7 @@ def work(kernel: str, mode: str, b, library: str | None = None):
     library = _library(library, b.D)
     dq_products, dkv_products, exps = MODES[mode]
     products = dq_products if kernel == 'dq' else dkv_products
-    pairs = (walked_pairs(kernel, library, b.spans) if mode in UNMASKED
+    pairs = (walked_pairs(kernel, library, b.spans, b.D) if mode in UNMASKED
              else segment_pairs(b.seg)) * b.H
     nspans = b.spans[0 if kernel == 'dq' else 2].numel() * 2
     nbytes = (4 + (1 if kernel == 'dq' else 2)) * b.q.numel() \
@@ -396,12 +568,23 @@ def main(argv=None):
     print(f'bwd both (H2)  {ms:8.4f} ms ({flash.bwd_route(b.D)})',
           flush=True)
     hopper = bwd_route(b.D)
-    return {'bwd_ms': ms, **{
+    out = {'bwd_ms': ms, **{
         library: {f'{kernel} {mode}': run(kernel, mode, b, lse, delta,
                                           args.reps, library)
                   for kernel in KERNELS for mode in MODES}
         for library in (hopper, *(n for n in flash.BWD_ROUTES
                                   if n != hopper))}}
+    if b.device.type == 'cuda':
+        out['timeline'] = {}
+        for form in TIMELINE_FORMS:
+            for _ in range(2):   # the second call's stamps, warm
+                *_, stamps, stages = dkv_timeline(form, *full[:7],
+                                                  *full[9:])
+            summary = timeline_summary(stamps, stages)
+            print(timeline_line(f'dk/dv timeline, {form}-row stages',
+                                summary), flush=True)
+            out['timeline'][form] = summary
+    return out
 
 
 if __name__ == '__main__':

@@ -312,7 +312,9 @@ def interleaved_ms(runs, rounds=ROUNDS, warmup=3):
 
 def variant_library(path: Path, library: str) -> ctypes.CDLL:
     """``path`` built as ``_build`` builds its sources and bound with
-    ``library``'s signatures; prints ``nvcc``'s ``ptxas`` lines."""
+    ``library``'s signatures (those of its entries that it has: a copy of
+    the parent lacks the entries added since); prints ``nvcc``'s ``ptxas``
+    lines."""
     out = _build.BUILD_ROOT / 'variant' / f'lib{path.stem}.so'
     out.parent.mkdir(parents=True, exist_ok=True)
     run = subprocess.run(
@@ -324,6 +326,8 @@ def variant_library(path: Path, library: str) -> ctypes.CDLL:
     print(f'[nvcc {path.name}]\n{run.stdout}{run.stderr}', flush=True)
     lib = ctypes.CDLL(str(out))
     for fn, (restype, argtypes) in _build.SIGNATURES[library].items():
+        if not hasattr(lib, fn):   # an entry added after the copy was made
+            continue
         getattr(lib, fn).restype = restype
         getattr(lib, fn).argtypes = argtypes
     return lib

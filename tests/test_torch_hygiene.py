@@ -417,7 +417,7 @@ def test_bwd_route_is_a_static_rule_on_head_dim():
     assert set(_build.SIGNATURES['flash_bwd_sm90']) == {
         'esme_segment_flash_bwd_sm90', 'esme_flash_bwd_sm90_pass',
         'esme_segment_flash_bwd_rect_sm90', 'esme_flash_bwd_rect_sm90_pass',
-        'esme_flash_bwd_sm90_error_string'}
+        'esme_flash_bwd_sm90_timeline', 'esme_flash_bwd_sm90_error_string'}
     # H10's entry of each of H2's libraries is bound, with one C signature
     # across the two forms (per-side ids and lengths)
     for name, entry in tflash.BWD_RECT_ENTRIES.items():

@@ -785,15 +785,21 @@ def _d64_ids(T, dev):
                             .astype(np.int32)).to(dev)
 
 
-def _tiles_walked(spans):
-    """The tiles each dk/dv CTA (its two 64-row k blocks' spans joined, as
-    the kernel joins them) and each dq CTA walk: two sets."""
-    ks, ke, qs, qe = (x.long().cpu() for x in spans)
+def _tiles_walked(spans, stage_rows=flash.dkv_stage_rows(64)):
+    """The stages each dk/dv CTA walks (its two 64-row k blocks' spans
+    joined and rounded out to ``stage_rows`` q rows, by the kernel's index
+    arithmetic: ``flash.dkv_stages``), the tiles each dq CTA walks, and
+    the parities of the joined spans' ends in 64-row tiles (an odd start
+    or end is one the rounding moves): four sets."""
+    ks, ke, qs, qe = (x.cpu() for x in spans)
+    dkv = flash.dkv_stages(qs, qe, stage_rows)[1]
     pad = qs.numel() % 2
-    qs = torch.cat([qs, qs.new_full((pad,), 1 << 30)]).view(-1, 2)
-    qe = torch.cat([qe, qe.new_zeros(pad)]).view(-1, 2)
-    dkv = (qe.max(1).values - qs.min(1).values).clamp_min(0)
-    return set(dkv.tolist()), set((ke - ks).clamp_min(0).tolist())
+    qs = torch.cat([qs, qs[-1:]] if pad else [qs]).long().view(-1, 2)
+    qe = torch.cat([qe, qe[-1:]] if pad else [qe]).long().view(-1, 2)
+    lo, hi = qs.amin(1), qe.amax(1)
+    walks = hi > lo
+    return (set(dkv.tolist()), set((ke - ks).clamp_min(0).tolist()),
+            set((lo[walks] % 2).tolist()), set((hi[walks] % 2).tolist()))
 
 
 def _bwd_gate(got, ref, again):
@@ -809,15 +815,16 @@ def _bwd_gate(got, ref, again):
 def test_flash_bwd_d64_has_no_stack_or_spills(cuda):
     """At D = 64 (ESM2-650M), H2's dk/dv and dq production
     instantiations and H10's build with no stack frame, no spills and no
-    ``wgmma`` serialisation warning (C7512): the dk/dv pass within the
-    168 registers its 384-thread CTA leaves a thread, the dq pass within
-    the 128 that its two 256-thread CTAs an SM leave."""
+    ``wgmma`` serialisation warning (C75xx): the dk/dv pass (128-row
+    stages) within the 255 registers its 256-thread CTA leaves a thread,
+    the dq pass within the 128 that its two 256-thread CTAs an SM
+    leave."""
     from esme_tpu_torch import _build
     log = _build.build_log('flash_bwd_sm90')
     warnings = [line for line in log.splitlines() if 'C75' in line]
-    for kernel, key, cap in (('bwd_dkv_sm90_kernel', (64, 0), 168),
+    for kernel, key, cap in (('bwd_dkv_sm90_kernel', (64, 0), 255),
                              ('bwd_dq_sm90_kernel', (64, 0), 128),
-                             ('bwd_dkv_rect_sm90_kernel', (64,), 168),
+                             ('bwd_dkv_rect_sm90_kernel', (64,), 255),
                              ('bwd_dq_rect_sm90_kernel', (64,), 128)):
         got = _ptxas_lines(log, kernel).get(key)
         assert got is not None, f'{kernel}<{key}> not in the build log'
@@ -828,17 +835,20 @@ def test_flash_bwd_d64_has_no_stack_or_spills(cuda):
 
 @pytest.mark.cuda
 def test_flash_bwd_d64_tile_counts_match_plain(cuda):
-    """At D = 64 (the dq pass's 256-thread CTAs, two an SM, whose first
-    warp loads), H2 and H10 against their plain versions under H2's gate
-    and bit-equal from call to call, on dk/dv and dq CTAs that walk 0, 1,
-    2 and 3 tiles (a ring of three stages that a block fills in part, in
-    full, and reuses): H2 on T = 937, whose 41-row last
-    k block and ragged last q block walk one tile, with 64-row tiles of
-    one segment alternating with masked ones; H10 over 2,048 keys on a
-    rank of 64 queries (most k blocks empty), on a ragged rank of 701
-    queries from row 700, and on a rank whose first q block's ids match
-    no key (dq = 0 there). Key rows no query shares an id with get dk =
-    dv = 0; a rank that starts a q block gets H2's dq rows."""
+    """At D = 64 (the dk/dv pass's 128-row stages and the dq pass's
+    256-thread CTAs, two an SM, whose first warp loads), H2 and H10
+    against their plain versions under H2's gate and bit-equal from call
+    to call, on dk/dv CTAs that walk 0, 1, 2 and 3 stages and dq CTAs
+    that walk 0, 1, 2 and 3 tiles (a ring of three stages that a block
+    fills in part, in full, and reuses), dk/dv spans that start and end
+    on odd 64-row tiles (a half the rounding to a stage adds): H2 on T =
+    937 (ragged against 128), whose 41-row last k block and ragged last q
+    block walk one stage, with 64-row tiles of one segment alternating
+    with masked ones; H10 over 2,048 keys on a rank of 64 queries (most k
+    blocks empty), on a ragged rank of 701 queries from row 700, and on a
+    rank whose first q block's ids match no key (dq = 0 there). Key rows
+    no query shares an id with get dk = dv = 0; a rank that starts a q
+    block gets H2's dq rows."""
     H, D = 4, 64
     rng = np.random.default_rng(64)
 
@@ -846,7 +856,7 @@ def test_flash_bwd_d64_tile_counts_match_plain(cuda):
         return torch.from_numpy(rng.standard_normal((T, H * D))
                                 .astype(np.float32)).to(cuda) \
             .to(torch.bfloat16)
-    seen_dkv, seen_dq = set(), set()
+    seen_dkv, seen_dq, seen_lo, seen_hi = set(), set(), set(), set()
     seg = _d64_ids(937, cuda)
     q, k, v, do = (randn(937) for _ in range(4))
     spans = flash.flash_spans(seg)
@@ -856,9 +866,11 @@ def test_flash_bwd_d64_tile_counts_match_plain(cuda):
     _bwd_gate(flash.segment_flash_bwd(*args),
               flash.segment_flash_bwd_plain(*args),
               flash.segment_flash_bwd(*args))
-    dkv, dq = _tiles_walked(spans)
+    dkv, dq, lo, hi = _tiles_walked(spans)
     seen_dkv |= dkv
     seen_dq |= dq
+    seen_lo |= lo
+    seen_hi |= hi
 
     seg = _d64_ids(2048, cuda)
     q, k, v, do = (randn(2048) for _ in range(4))
@@ -888,11 +900,63 @@ def test_flash_bwd_d64_tile_counts_match_plain(cuda):
             assert not got[0][:unmatched].any()
         elif lo % flash.BLOCK_Q == 0:
             assert torch.equal(got[0], h2[0][lo:hi])
-        dkv, dq = _tiles_walked(spans)
+        dkv, dq, lo, hi = _tiles_walked(spans)
         seen_dkv |= dkv
         seen_dq |= dq
+        seen_lo |= lo
+        seen_hi |= hi
     assert {0, 1, 2, 3} <= seen_dkv and {0, 1, 2, 3} <= seen_dq, \
         (seen_dkv, seen_dq)
+    assert seen_lo == seen_hi == {0, 1}, (seen_lo, seen_hi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('form', tdb.TIMELINE_FORMS)
+def test_dkv_timeline_d64(cuda, form):
+    """The dk/dv pass's timeline (H7's TIMELINE mode) in either form gives
+    H2's dk and dv (and H10's on a ragged rank) as numbers, and a record
+    per CTA: the stages ``flash.dkv_stages`` walks, each warpgroup's
+    stamps in order, loads issued before their stage's barrier passes,
+    and a CTA with an empty span (H10) that walks no stage."""
+    H, D = 4, 64
+    rng = np.random.default_rng(66)
+    seg = _d64_ids(2048, cuda)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((2048, H * D))
+                                    .astype(np.float32)).to(cuda)
+                   .to(torch.bfloat16) for _ in range(4))
+    spans = flash.flash_spans(seg)
+    o, lse = flash.segment_flash_fwd(q, k, v, seg, *spans[:2], H)
+    delta = flash.attention_delta(o, do, H)
+    cases = [((q, k, v, do, lse, delta, seg, *spans, H), None)]
+    sq = seg[700:1401].contiguous()
+    rspans = flash.rect_flash_spans(sq, seg)
+    o, lse = flash.segment_flash_fwd(q[700:1401].contiguous(), k, v, sq,
+                                     *rspans[:2], H, seg_k=seg)
+    dor = do[700:1401].contiguous()
+    cases.append(((q[700:1401].contiguous(), k, v, dor, lse,
+                   flash.attention_delta(o, dor, H), sq, *rspans, H), seg))
+    for args, seg_k in cases:
+        _, want_dk, want_dv = flash.segment_flash_bwd(*args, seg_k=seg_k)
+        dk, dv, stamps, stages = tdb.dkv_timeline(form, *args[:7],
+                                                  *args[9:], seg_k=seg_k)
+        torch.cuda.synchronize()
+        assert bool((dk == want_dk).all()) and bool((dv == want_dv).all())
+        _, n = flash.dkv_stages(*args[9:11], form)
+        x = stamps.cpu()
+        assert torch.equal(x[:, 1], n.cpu().long().repeat(H))
+        assert stages == int(n.max())
+        walk = x[:, 1] > 0
+        assert walk.any() and (seg_k is None or not walk.all())
+        for c in torch.nonzero(walk).flatten().tolist():
+            m = int(x[c, 1])
+            for w in range(2):
+                st = x[c, 10 + stages + 5 * w * stages:][:5 * m]
+                seq = torch.cat([x[c, 4 + 3 * w:6 + 3 * w], st,
+                                 x[c, 6 + 3 * w:7 + 3 * w]])
+                assert (seq[1:] >= seq[:-1]).all(), (c, w, seq)
+                assert (x[c, 10:10 + m] <= st.view(m, 5)[:, 0]).all()
+        s = tdb.timeline_summary(stamps, stages)
+        assert sum(s['shares'][p]['median'] for p in tdb.TL_PHASES) > 0.9
 
 
 @pytest.mark.cuda

@@ -18,7 +18,8 @@ package's tools, whose Pallas kernels run in interpret mode on the CPU:
   swaps them and run through ``flash._bwd(interpret=True)``, against
   ``dq_variant_plain``/``dkv_variant_plain`` (H7's), the dk/dv pass also
   over the union spans H2's Hopper form walks (``union_spans``), given
-  to both as the q-tile spans;
+  to both as the q-tile spans (H2's Hopper form at D = 64 rounds them out
+  to 128-row stages, ``stage_spans``);
 * K16 ``tools/profile_attn.py``'s four probe kernels, closures of its
   ``main`` and ``extra`` rebuilt from their code objects and run under
   ``pallas_call(interpret=True)`` with the tool's BlockSpecs, against the
@@ -450,7 +451,8 @@ def test_fwd_T_route_is_a_static_rule(D):
 def test_bwd_variant_library_argument_on_cpu():
     """``bwd_variant`` takes a key of ``BWD_ROUTES`` (H2's route when
     none): on the CPU each form's plain walk, the Hopper form's dk/dv over
-    the union spans; any other name is refused."""
+    its 128-row stages (the union spans rounded out); any other name is
+    refused."""
     seg = torch.from_numpy(_seg(LENS, T))
     q, k, v, do = (_t(_normal((T, H * D), 30 + i)) for i in range(4))
     spans = tflash.flash_spans(seg)
@@ -461,7 +463,7 @@ def test_bwd_variant_library_argument_on_cpu():
     assert all(map(torch.equal, hopper, tdb.bwd_variant(
         'dkv', 'no_mask', *args, library='flash_bwd_sm90')))
     assert all(map(torch.equal, hopper, tdb.dkv_variant_plain(
-        'no_mask', *args[:7], *tdb.union_spans(*spans[2:]), H)))
+        'no_mask', *args[:7], *tdb.stage_spans(*spans[2:], 128), H)))
     mma_sync = tdb.bwd_variant('dkv', 'no_mask', *args, library='flash_bwd')
     assert all(map(torch.equal, mma_sync, tdb.dkv_variant_plain(
         'no_mask', *args[:7], *spans[2:], H)))
