@@ -19,6 +19,7 @@ shape keeps every step's allocations alike.
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -31,6 +32,7 @@ from .alphabet import (Alphabet3, mask_tokens, pad_tokens, tokenize,
                        tokenize_unpad)
 from .fasta import Fasta
 from .native import NativeFasta
+from .profiling import span
 
 
 class TokenSizeBatchSampler:
@@ -511,13 +513,15 @@ class Prefetcher:
         window = self.depth + self.num_workers
 
         def build(i):
-            return self._build(self.dataset[i])
+            with span('esme.data.build', i):
+                return self._build(self.dataset[i])
 
         with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
             futures = {i: pool.submit(build, i)
                        for i in range(min(window, n))}
             for i in range(n):
-                item = futures.pop(i).result()
+                with span('esme.data.wait', i):
+                    item = futures.pop(i).result()
                 if i + window < n:
                     futures[i + window] = pool.submit(build, i + window)
                 yield item
@@ -532,8 +536,15 @@ class Prefetcher:
 
         def worker():
             try:
-                for item in self.dataset:
-                    q.put(self._build(item))
+                items = iter(self.dataset)
+                for i in itertools.count():
+                    with span('esme.data.build', i):
+                        item = next(items, stop)
+                        if item is not stop:
+                            item = self._build(item)
+                    if item is stop:
+                        break
+                    q.put(item)
             except BaseException as e:      # raised again in the consumer
                 failed.append(e)
             finally:
@@ -541,8 +552,9 @@ class Prefetcher:
 
         t = threading.Thread(target=worker, daemon=True)
         t.start()
-        while True:
-            item = q.get()
+        for i in itertools.count():
+            with span('esme.data.wait', i):
+                item = q.get()
             if item is stop:
                 break
             yield item

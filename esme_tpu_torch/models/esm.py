@@ -25,7 +25,7 @@ CPU; without a card they raise.
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -37,6 +37,7 @@ from ..ops.norm import apply_norm
 from ..ops.rotary import rotary_cos_sin
 from ..ops.segment import (positions_from_cu_lens, segment_ids_from_cu_lens,
                            unpad_gather_meta)
+from ..profiling import span
 from .config import (ESMConfig, esm1b_config, esm1v_config, esm2_config,
                      esmc_config)
 from .init import init_params
@@ -111,6 +112,34 @@ def forward_flat(params, cfg: ESMConfig, tokens, seg_ids, pos_ids, *,
     output dropout in training (the key None: none), as
     :func:`~esme_tpu_torch.models.modules.layer_stack` takes them.
     """
+    with span('esme.model.prepare'):
+        flat = _prepare_flat(params, cfg, tokens, seg_ids, pos_ids, attn_impl,
+                             kv_gather, spans, outer_gather)
+    return _trunk_head(flat, cfg, with_head=with_head, log_prob=log_prob,
+                       attn_impl=attn_impl, checkpointing=checkpointing,
+                       collect_layers=collect_layers, remat=remat,
+                       kv_gather=kv_gather, layer_gather=layer_gather,
+                       lora_names=lora_names, lora_dropout=lora_dropout,
+                       dropout_key=dropout_key)
+
+
+class _Flat(NamedTuple):
+    """What the trunk runs on: :func:`_prepare_flat`'s output."""
+    params: dict
+    tokens: torch.Tensor
+    seg_ids: torch.Tensor
+    pos_ids: torch.Tensor
+    spans: object
+    rope: Optional[tuple]
+    T: int                      # the real tokens, before the ALIGN pad
+
+
+def _prepare_flat(params, cfg: ESMConfig, tokens, seg_ids, pos_ids,
+                  attn_impl: str = 'auto', kv_gather=None, spans=None,
+                  outer_gather=None) -> _Flat:
+    """Everything :func:`forward_flat` does before the embedding: the
+    outer FSDP gather, the ``ALIGN`` pad of tokens and metadata with the
+    flash block spans (the flash path), and the RoPE tables."""
     if outer_gather is not None:
         params = {**outer_gather({k: v for k, v in params.items()
                                   if k != 'layers'}),
@@ -124,28 +153,42 @@ def forward_flat(params, cfg: ESMConfig, tokens, seg_ids, pos_ids, *,
         tokens = torch.cat([tokens, torch.full(
             (seg_ids.shape[0] - T,), pad_token, dtype=tokens.dtype,
             device=tokens.device)])
-
-    x = _embed_flat(params, cfg, tokens, pos_ids)
-    rope = rotary_cos_sin(pos_ids, cfg.head_dim, dtype=x.dtype) \
+    # the embedding's dtype is its table's
+    rope = rotary_cos_sin(pos_ids, cfg.head_dim,
+                          dtype=params['embed_tokens'].dtype) \
         if cfg.rotary else None
+    return _Flat(params, tokens, seg_ids, pos_ids, spans, rope, T)
 
-    x, reps = layer_stack(x, params['layers'], cfg, seg_ids, pos_ids,
-                          attn_impl=attn_impl, checkpointing=checkpointing,
-                          collect_layers=collect_layers, rope=rope,
-                          spans=spans, remat=remat, kv_gather=kv_gather,
-                          layer_gather=layer_gather, lora_names=lora_names,
-                          lora_dropout=lora_dropout, dropout_key=dropout_key)
-    x = apply_norm(x, params['emb_norm_after'])
-    x = x[:T]
-    reps = [r[:T] for r in reps]
 
-    if with_head:
-        x = roberta_lm_head(x, params['lm_head'],
-                            embed=params['embed_tokens'])
-        if log_prob:
-            x = torch.log_softmax(x.float(), dim=-1)
-    if reps:
-        x = torch.cat([x, *[r.to(x.dtype) for r in reps]], dim=-1)
+def _trunk_head(flat: _Flat, cfg: ESMConfig, *, with_head: bool,
+                log_prob: bool, attn_impl: str, checkpointing: bool = False,
+                collect_layers=None, remat: str = 'full', kv_gather=None,
+                layer_gather=None, lora_names=None, lora_dropout: float = 0.0,
+                dropout_key=None):
+    """:func:`forward_flat` from the embedding on: the trunk, then the
+    head and the collected layers' concat."""
+    params, T = flat.params, flat.T
+    with span('esme.model.trunk'):
+        x = _embed_flat(params, cfg, flat.tokens, flat.pos_ids)
+        x, reps = layer_stack(
+            x, params['layers'], cfg, flat.seg_ids, flat.pos_ids,
+            attn_impl=attn_impl, checkpointing=checkpointing,
+            collect_layers=collect_layers, rope=flat.rope, spans=flat.spans,
+            remat=remat, kv_gather=kv_gather, layer_gather=layer_gather,
+            lora_names=lora_names, lora_dropout=lora_dropout,
+            dropout_key=dropout_key)
+        x = apply_norm(x, params['emb_norm_after'])
+        x = x[:T]
+        reps = [r[:T] for r in reps]
+
+    with span('esme.model.head'):
+        if with_head:
+            x = roberta_lm_head(x, params['lm_head'],
+                                embed=params['embed_tokens'])
+            if log_prob:
+                x = torch.log_softmax(x.float(), dim=-1)
+        if reps:
+            x = torch.cat([x, *[r.to(x.dtype) for r in reps]], dim=-1)
     return x
 
 
@@ -298,44 +341,46 @@ class _ESMBase:
              layers=None, attn_impl='auto', with_head=True, log_prob=False):
         lora_names = tuple(lora_names) if lora_names is not None else None
         collect = tuple(layers) if layers else None
-        tokens = self._tensor(tokens).to(torch.int32)
-        self._check_positions(int(pad_args[1]) if pad_args is not None
-                              else int(tokens.shape[-1]))
+        cfg = self.config
+        with span('esme.model.prepare'):
+            tokens = self._tensor(tokens).to(torch.int32)
+            self._check_positions(int(pad_args[1]) if pad_args is not None
+                                  else int(tokens.shape[-1]))
+            if pad_args is not None:
+                if tokens.dim() != 1:
+                    raise ValueError('tokens must be flat (batch*seq_len) '
+                                     'when pad_args given')
+                cu_lens, max_len = pad_args
+                cu_lens = self._tensor(cu_lens).to(torch.int32)
+                seg_ids, pos_ids = packed_meta(cu_lens, tokens.shape[0])
+                flat_tokens = tokens
+            else:
+                if tokens.dim() != 2:
+                    raise ValueError('tokens must be (batch, seq_len)')
+                flat_tokens, seg_ids, pos_ids, valid, dst = _repack_padded(
+                    tokens, cfg.padding_idx)
+            flat = _prepare_flat(self.params, cfg, flat_tokens, seg_ids,
+                                 pos_ids, attn_impl)
+        x = _trunk_head(flat, cfg, with_head=with_head, log_prob=log_prob,
+                        attn_impl=attn_impl, collect_layers=collect,
+                        lora_names=lora_names)
 
-        if pad_args is not None:
-            if tokens.dim() != 1:
-                raise ValueError('tokens must be flat (batch*seq_len) when '
-                                 'pad_args given')
-            cu_lens, max_len = pad_args
-            cu_lens = self._tensor(cu_lens).to(torch.int32)
-            seg_ids, pos_ids = packed_meta(cu_lens, tokens.shape[0])
-            x = forward_flat(self.params, self.config, tokens, seg_ids,
-                             pos_ids, with_head=with_head,
-                             log_prob=log_prob, attn_impl=attn_impl,
-                             collect_layers=collect, lora_names=lora_names)
-            if pad_output:
-                fill = _pad_head_row(self.params, self.config, log_prob,
-                                     self.device) if with_head else None
-                x = scatter_to_padded(x, seg_ids, pos_ids,
-                                      int(cu_lens.shape[0]) - 1,
-                                      int(max_len), fill=fill)
+        if pad_args is not None and not pad_output:
             return x
-
-        if tokens.dim() != 2:
-            raise ValueError('tokens must be (batch, seq_len)')
-        flat, seg_ids, pos_ids, valid, dst = _repack_padded(
-            tokens, self.config.padding_idx)
-        x = forward_flat(self.params, self.config, flat, seg_ids, pos_ids,
-                         with_head=with_head, log_prob=log_prob,
-                         attn_impl=attn_impl, collect_layers=collect,
-                         lora_names=lora_names)
-        # representation pads are zeros (pad_input zero-fill), logits
-        # pads are lm_head(0) because the reference runs the head after
-        # the scatter (reference: esme/esm.py:255,281)
-        fill = _pad_head_row(self.params, self.config, log_prob,
-                             self.device) if with_head else \
-            torch.zeros((x.shape[-1],), dtype=x.dtype, device=x.device)
-        return _scatter_back_padded(x, dst, valid, fill)
+        with span('esme.model.unpad'):
+            if pad_args is not None:
+                fill = _pad_head_row(self.params, cfg, log_prob,
+                                     self.device) if with_head else None
+                return scatter_to_padded(x, seg_ids, pos_ids,
+                                         int(cu_lens.shape[0]) - 1,
+                                         int(max_len), fill=fill)
+            # representation pads are zeros (pad_input zero-fill), logits
+            # pads are lm_head(0) because the reference runs the head after
+            # the scatter (reference: esme/esm.py:255,281)
+            fill = _pad_head_row(self.params, cfg, log_prob, self.device) \
+                if with_head else torch.zeros(
+                    (x.shape[-1],), dtype=x.dtype, device=x.device)
+            return _scatter_back_padded(x, dst, valid, fill)
 
     # The entries take the JAX package's parameters in its order;
     # ``lora_names`` selects the LoRA adapters (None: all of them).

@@ -32,6 +32,7 @@ from ..ops import headsplit
 from ..ops.linear import fold_in, linear, matmul
 from ..ops.norm import apply_norm
 from ..ops.rotary import apply_rotary, rotary_cos_sin
+from ..profiling import span
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -348,8 +349,9 @@ def layer_stack(x, stacked_params, cfg, seg_ids, pos_ids,
     """
     check_remat(remat)
     if isinstance(stacked_params, dict):
-        layers = [layer_params(stacked_params, i)
-                  for i in range(num_layers(stacked_params))]
+        with span('esme.model.layer_params'):
+            layers = [layer_params(stacked_params, i)
+                      for i in range(num_layers(stacked_params))]
     else:
         layers = list(stacked_params)
     L = len(layers)

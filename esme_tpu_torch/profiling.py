@@ -10,8 +10,10 @@ Counterpart of ``esme_tpu/profiling.py``:
   ``max_memory_allocated``); empty / None on the CPU;
 * :func:`memory_analysis_gb` — the measured peak of one call (eager
   PyTorch has no compile-time memory analysis);
-* :func:`trace` — a ``torch.profiler`` trace of a block, written as a
-  Chrome trace and a table of device time by kernel.
+* :func:`span` — a named stage of the port (:data:`SPANS`) as a
+  ``torch.profiler`` range while a profiler records, else one flag test;
+* :func:`trace` — a ``torch.profiler`` trace of a block on every thread,
+  written as a Chrome trace and a table of device time by kernel.
 """
 
 from __future__ import annotations
@@ -22,6 +24,66 @@ import time
 from typing import Callable, Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+from torch.autograd import (_record_function_with_args_enter,
+                            _record_function_with_args_exit)
+
+# Every stage span of the port, by module (README.md, "Tracing the port's
+# stages", says how they nest).
+SPANS = (
+    'esme.model.prepare',       # models/esm.py: uploads, packing meta, pads,
+                                # RoPE tables, FSDP's outer gather
+    'esme.model.trunk',         # models/esm.py: embedding, layer_stack, norm
+    'esme.model.layer_params',  # models/modules.py: per-layer slices
+    'esme.model.head',          # models/esm.py: LM head, log_softmax, reps
+    'esme.model.unpad',         # models/esm.py: outputs back to (B, L)
+    'esme.variant.build',       # variant.py: one chunk's items, np.stack
+    'esme.variant.forward',     # variant.py: predict_log_prob of a chunk
+    'esme.variant.fetch',       # variant.py: row pick and copy to the host
+    'esme.variant.margins',     # variant.py: host fp64 scores
+    'esme.train.batch',         # train/trainer.py: uploads, packing meta
+    'esme.train.forward',       # train/trainer.py: forward_flat
+    'esme.train.loss',          # train/trainer.py: targets up, cross_entropy
+    'esme.train.backward',      # train/trainer.py: loss.backward()
+    'esme.train.optimizer',     # train/trainer.py: accumulate, step, zero
+    'esme.train.sync',          # train/trainer.py: the loss to the host
+    'esme.data.build',          # data.py: one item on the worker thread
+    'esme.data.wait',           # data.py: the consumer waiting for an item
+)
+
+
+class _Range:
+    """A ``torch.profiler`` range (the kind ``record_function`` opens),
+    with ``item`` as its recorded argument where given."""
+
+    __slots__ = ('_args', '_handle')
+
+    def __init__(self, name: str, item: Optional[int]):
+        self._args = (name,) if item is None else (name, int(item))
+
+    def __enter__(self):
+        self._handle = _record_function_with_args_enter(*self._args)
+        return self
+
+    def __exit__(self, *exc):
+        _record_function_with_args_exit(self._handle)
+        return False
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str, item: Optional[int] = None):
+    """``with span(name):`` marks a stage of the port (one of
+    :data:`SPANS`). While a torch profiler records, it is a range on the
+    profiler's clock (the device's kernels' clock in the same trace),
+    nested in whatever range is open on the thread; ``item`` (the data
+    layer's item index) is its argument, which a trace shows where shapes
+    are recorded (:func:`trace`). Otherwise it is one shared no-op
+    context: one flag test, nothing allocated."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Range(name, item)
 
 
 def _first_tensor(out):
@@ -126,18 +188,33 @@ def memory_analysis_gb(fn: Callable, *args, **kwargs) -> dict:
     return result
 
 
+def _all_threads() -> dict:
+    """The profiler's option to record every thread, where the installed
+    torch has it ({} where not: then only the threads that start ranges
+    under the profiler's own thread state, autograd's among them)."""
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+        return {'experimental_config':
+                _ExperimentalConfig(profile_all_threads=True)}
+    except (ImportError, TypeError):
+        return {}
+
+
 @contextlib.contextmanager
 def trace(logdir: str):
     """``with trace(dir):`` profiles the block with ``torch.profiler``
-    (CPU and, where there is a card, CUDA activity) and writes
+    (CPU and, where there is a card, CUDA activity; every thread where
+    torch can, so the data layer's worker shows its spans; shapes
+    recorded, so each data span shows its item's index) and writes
     ``dir/trace.json`` (a Chrome trace) and ``dir/kernels.txt`` (device
-    time by kernel)."""
+    time by kernel). The port's stages (:data:`SPANS`) are ranges in it."""
     from torch.profiler import ProfilerActivity, profile
     os.makedirs(logdir, exist_ok=True)
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities, record_shapes=True,
+                 **_all_threads()) as prof:
         yield logdir
         sync()
     prof.export_chrome_trace(os.path.join(logdir, 'trace.json'))

@@ -20,7 +20,6 @@ import collections
 import subprocess
 import sys
 
-import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -56,9 +55,8 @@ def one_process() -> str:
     from ..variant import MaskMarginDataset, _batched_items
     model = ESM2(num_layers=2, embed_dim=128, attention_heads=2, rng=0,
                  device='cpu')
-    items, _ = next(_batched_items(MaskMarginDataset(
+    _, tokens, _ = next(_batched_items(MaskMarginDataset(
         SEQ, alphabet=model.alphabet), 32))
-    tokens = np.stack([it['token'] for it in items])
     traces = []
     for _ in range(3):
         with _Trace() as t:

@@ -63,6 +63,7 @@ from ..models.esm import forward_flat, packed_meta
 from ..models.heads import apply_cls_head, apply_learned_aggregation
 from ..models.modules import check_remat, layer_params, num_layers
 from ..ops.linear import fold_in, fp32_accumulation
+from ..profiling import span
 from .partition import expand_mask
 
 # the LoRA dropout's base key, JAX's ``random.key(0x10ad)``; each step
@@ -720,17 +721,22 @@ class MaskedPLM:
 
     def _loss(self, params, batch, dropout_key=None) -> torch.Tensor:
         dev = self.model.device
-        tokens = _tensor(batch.masked_tokens, torch.int32, dev)
-        cu_lens = _tensor(batch.cu_lens, torch.int32, dev)
-        seg_ids, pos_ids = packed_meta(cu_lens, tokens.shape[0])
-        logits = forward_flat(
-            params, self.model.config, tokens, seg_ids, pos_ids,
-            with_head=True, attn_impl=self.attn_impl,
-            checkpointing=self.model.checkpointing,
-            max_seqlen=int(batch.max_len), remat=self.remat,
-            lora_dropout=self._lora_dropout, dropout_key=dropout_key)
-        return cross_entropy(logits, _tensor(batch.tokens, torch.int64, dev),
-                             _tensor(batch.mask, torch.bool, dev))
+        with span('esme.train.batch'):
+            tokens = _tensor(batch.masked_tokens, torch.int32, dev)
+            cu_lens = _tensor(batch.cu_lens, torch.int32, dev)
+            seg_ids, pos_ids = packed_meta(cu_lens, tokens.shape[0])
+        with span('esme.train.forward'):
+            logits = forward_flat(
+                params, self.model.config, tokens, seg_ids, pos_ids,
+                with_head=True, attn_impl=self.attn_impl,
+                checkpointing=self.model.checkpointing,
+                max_seqlen=int(batch.max_len), remat=self.remat,
+                lora_dropout=self._lora_dropout, dropout_key=dropout_key)
+        # the targets go up once the forward is queued, behind its kernels
+        with span('esme.train.loss'):
+            return cross_entropy(
+                logits, _tensor(batch.tokens, torch.int64, dev),
+                _tensor(batch.mask, torch.bool, dev))
 
     def _zero_grads(self):
         for p in self._params:
@@ -745,7 +751,8 @@ class MaskedPLM:
         with fp32_accumulation():
             loss = self._loss(self._views, batch,
                               _dropout_key(self._lora_dropout, self.step))
-            loss.backward()
+            with span('esme.train.backward'):
+                loss.backward()
         grads = _grad_tree(self._views)
         self._zero_grads()
         return loss.detach(), grads
@@ -758,30 +765,36 @@ class MaskedPLM:
         with fp32_accumulation():
             loss = self._loss(self._views, batch,
                               _dropout_key(self._lora_dropout, self.step))
-            loss.backward()
+            with span('esme.train.backward'):
+                loss.backward()
             self.step += 1
             emit = self.step % self.grad_accum == 0
-            if self._host is not None:
-                self._host.sync()
-                self._host.ms = {'device': (time.perf_counter() - t0) * 1e3}
-                self._host.take_grads(self._params, n)
-                if emit:
-                    self._host.update()
-            else:
-                if self.grad_accum > 1:
-                    accumulate(self._acc, self._params, n)
-                if emit:
-                    for p in self._params:
-                        p.grad = self._acc.pop(p, p.grad)
-                    self.optimizer.step()
-                    self._zero_grads()
-        return float(loss.detach())
+            with span('esme.train.optimizer'):
+                if self._host is not None:
+                    self._host.sync()
+                    self._host.ms = {
+                        'device': (time.perf_counter() - t0) * 1e3}
+                    self._host.take_grads(self._params, n)
+                    if emit:
+                        self._host.update()
+                else:
+                    if self.grad_accum > 1:
+                        accumulate(self._acc, self._params, n)
+                    if emit:
+                        for p in self._params:
+                            p.grad = self._acc.pop(p, p.grad)
+                        self.optimizer.step()
+                        self._zero_grads()
+        with span('esme.train.sync'):
+            return float(loss.detach())
 
     @torch.no_grad()
     def validation_step(self, batch) -> float:
         """Loss without updates (reference: esme/trainer.py:37-41)."""
         with fp32_accumulation():
-            return float(self._loss(self.model.params, batch))
+            loss = self._loss(self.model.params, batch)
+        with span('esme.train.sync'):
+            return float(loss)
 
     def fit(self, dataset, epochs: int = 1, val_dataset=None,
             log_every: int = 0, set_epoch=None, logger=None):

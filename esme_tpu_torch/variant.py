@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from .alphabet import Alphabet3, tokenize
+from .profiling import span
 
 
 class MaskMarginDataset:
@@ -64,27 +65,32 @@ class MaskMarginDataset:
 
 
 def _batched_items(ds, batch_size):
-    """Fixed-size batches of ``ds``'s items: the tail is padded by
-    repeating the last item so every batch has one shape; ``n_real``
-    counts the real rows (``esme_tpu/variant.py:61-70``)."""
+    """Fixed-size batches of ``ds``'s items and their stacked tokens: the
+    tail is padded by repeating the last item so every batch has one
+    shape; ``n_real`` counts the real rows (``esme_tpu/variant.py:61-70``).
+    Yields ``(items, tokens, n_real)``."""
     n = len(ds)
     for lo in range(0, n, batch_size):
-        idxs = list(range(lo, min(lo + batch_size, n)))
-        n_real = len(idxs)
-        while len(idxs) < batch_size and n > 0:
-            idxs.append(idxs[-1])
-        items = [ds[i] for i in idxs]
-        yield items, n_real
+        with span('esme.variant.build'):
+            idxs = list(range(lo, min(lo + batch_size, n)))
+            n_real = len(idxs)
+            while len(idxs) < batch_size and n > 0:
+                idxs.append(idxs[-1])
+            items = [ds[i] for i in idxs]
+            tokens = np.stack([it['token'] for it in items])
+        yield items, tokens, n_real
 
 
-def _rows(model, items, n_real, pos_key):
+def _rows(model, items, tokens, n_real, pos_key):
     """Log-prob rows ``(n_real, V)`` of each real item at its
     ``pos_key`` position, picked on the device, as fp64 on the host."""
-    lp = model.predict_log_prob(np.stack([it['token'] for it in items]))
-    pos = torch.as_tensor([it[pos_key] for it in items[:n_real]],
-                          device=lp.device)
-    rows = lp[torch.arange(n_real, device=lp.device), pos]
-    return rows.cpu().numpy().astype(np.float64)
+    with span('esme.variant.forward'):
+        lp = model.predict_log_prob(tokens)
+    with span('esme.variant.fetch'):
+        pos = torch.as_tensor([it[pos_key] for it in items[:n_real]],
+                              device=lp.device)
+        rows = lp[torch.arange(n_real, device=lp.device), pos]
+        return rows.cpu().numpy().astype(np.float64)
 
 
 def _dataset(seq, max_len, alphabet):
@@ -105,12 +111,13 @@ def predict_mask_margin(model, seq, batch_size: int = 32,
     aa_idx = np.asarray([alphabet.token_to_idx[aa]
                          for aa in alphabet.amino_acids])
     scores = {}
-    for items, n_real in _batched_items(ds, batch_size):
-        rows = _rows(model, items, n_real, 'local_pos')
-        for b, it in enumerate(items[:n_real]):
-            margin = rows[b, aa_idx] - rows[b, it['wt_token']]
-            for aa, m in zip(alphabet.amino_acids, margin):
-                scores[f"{it['wt']}{it['pos']}{aa}"] = float(m)
+    for items, tokens, n_real in _batched_items(ds, batch_size):
+        rows = _rows(model, items, tokens, n_real, 'local_pos')
+        with span('esme.variant.margins'):
+            for b, it in enumerate(items[:n_real]):
+                margin = rows[b, aa_idx] - rows[b, it['wt_token']]
+                for aa, m in zip(alphabet.amino_acids, margin):
+                    scores[f"{it['wt']}{it['pos']}{aa}"] = float(m)
     return scores
 
 
@@ -124,11 +131,12 @@ def predict_pseudoperplexity(model, seq, batch_size: int = 32,
     ds = _dataset(seq, max_len, alphabet)
     total_nll = 0.0
     count = 0
-    for items, n_real in _batched_items(ds, batch_size):
-        rows = _rows(model, items, n_real, 'local_pos')
-        for b, it in enumerate(items[:n_real]):
-            total_nll -= float(rows[b, it['wt_token']])
-            count += 1
+    for items, tokens, n_real in _batched_items(ds, batch_size):
+        rows = _rows(model, items, tokens, n_real, 'local_pos')
+        with span('esme.variant.margins'):
+            for b, it in enumerate(items[:n_real]):
+                total_nll -= float(rows[b, it['wt_token']])
+                count += 1
     return float(np.exp(total_nll / max(count, 1)))
 
 
@@ -175,9 +183,10 @@ def predict_pseudoperplexity_margin(model, seq, batch_size: int = 32,
     alphabet = alphabet or model.alphabet
     ds = PseudoPerplexitiesMarginDataset(seq, alphabet=alphabet)
     sums: Dict[str, list] = {}
-    for items, n_real in _batched_items(ds, batch_size):
-        rows = _rows(model, items, n_real, 'mask_pos')
-        for b, it in enumerate(items[:n_real]):
-            sums.setdefault(f"{it['wt']}{it['pos']}{it['mt']}", []).append(
-                rows[b, it['wt_mask_idx']])
+    for items, tokens, n_real in _batched_items(ds, batch_size):
+        rows = _rows(model, items, tokens, n_real, 'mask_pos')
+        with span('esme.variant.margins'):
+            for b, it in enumerate(items[:n_real]):
+                sums.setdefault(f"{it['wt']}{it['pos']}{it['mt']}",
+                                []).append(rows[b, it['wt_mask_idx']])
     return {v: float(np.mean(sums[v])) for v in sorted(sums)}
